@@ -1,0 +1,155 @@
+// Shared tile loop of the spike matmul and the neuron-layer kernels.
+//
+// A block of 256 threads owns T slices of BM x BN = 64 x 64 outputs (T time
+// steps of one row tile, or T row tiles of one matrix); a thread owns a 4 x 4
+// patch of each slice in registers. The contraction dim C is walked in chunks of BC inside the
+// block: the chunk of x (expanded from bits to 0.0f/1.0f where it is
+// bit-packed) and the chunk of w are staged in shared memory, every thread
+// accumulates in fp32 in ascending order of c, and out-of-range rows,
+// columns and contraction indices are loaded as zero, so ragged shapes need
+// no special case. The weight chunk is fetched once per block and used by
+// all T slices. The order of summation is fixed: results are deterministic
+// and there are no atomics.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace e2a {
+
+constexpr int BM = 64;           // output rows per block
+constexpr int BN = 64;           // output columns per block
+constexpr int TM = 4;            // rows per thread
+constexpr int TN = 4;            // columns per thread
+constexpr int THREADS = 256;     // (BM / TM) * (BN / TN)
+constexpr int XS = BM + 4;       // padded row stride of the x tile (floats)
+
+// Contraction chunk: 32 up to T = 4 (x tile 34 KB + w tile 8 KB), 16 above
+// so that the static shared memory stays under 48 KB up to T = 8.
+template <int T> struct ChunkOf { static constexpr int value = (T <= 4) ? 32 : 16; };
+
+// x tile layout: xs[t][c][m], m fastest, so a thread reads its 4 rows as
+// one float4. w tile layout: ws[c][k], k fastest.
+
+// Bit-packed x: byte (t, row, cb) holds contraction indices 8*cb .. 8*cb+7,
+// least significant bit first. One thread expands the BC/8 bytes of one
+// (t, row) pair; neighbouring threads take neighbouring rows, so the shared
+// stores do not conflict.
+template <int T, int BC>
+__device__ __forceinline__ void load_x_packed(
+    float (*xs)[BC][XS], const uint8_t* __restrict__ p, long long st_t,
+    long long st_m, long long st_b, long long m0, long long row_step,
+    long long M, int c0, int C8, int tid) {
+  for (int idx = tid; idx < T * BM; idx += THREADS) {
+    const int m = idx % BM;
+    const int t = idx / BM;
+    const long long row = m0 + t * row_step + m;
+    const uint8_t* src = p + t * st_t + row * st_m;
+#pragma unroll
+    for (int j = 0; j < BC / 8; ++j) {
+      const int cb = c0 / 8 + j;
+      unsigned v = 0;
+      if (row < M && cb < C8) v = src[cb * st_b];
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+        xs[t][j * 8 + b][m] = ((v >> b) & 1u) ? 1.0f : 0.0f;
+    }
+  }
+}
+
+// Dense x (T, M, C) with element strides; neighbouring threads take
+// neighbouring c, so the global loads are coalesced.
+template <int T, int BC>
+__device__ __forceinline__ void load_x_dense(
+    float (*xs)[BC][XS], const float* __restrict__ p, long long st_t,
+    long long st_m, long long st_c, long long m0, long long row_step,
+    long long M, int c0, int C, int tid) {
+  for (int idx = tid; idx < T * BM * BC; idx += THREADS) {
+    const int c = idx % BC;
+    const int m = (idx / BC) % BM;
+    const int t = idx / (BC * BM);
+    const long long row = m0 + t * row_step + m;
+    float v = 0.0f;
+    if (row < M && c0 + c < C) v = p[t * st_t + row * st_m + (c0 + c) * st_c];
+    xs[t][c][m] = v;
+  }
+}
+
+template <int BC>
+__device__ __forceinline__ void load_w(
+    float (*ws)[BN], const float* __restrict__ w, long long st_c,
+    long long st_k, int c0, int C, int k0, int K, int tid) {
+  for (int idx = tid; idx < BC * BN; idx += THREADS) {
+    const int k = idx % BN;
+    const int c = idx / BN;
+    float v = 0.0f;
+    if (c0 + c < C && k0 + k < K) v = w[(c0 + c) * st_c + (k0 + k) * st_k];
+    ws[c][k] = v;
+  }
+}
+
+template <int T, int BC>
+__device__ __forceinline__ void tile_fma(
+    float (*xs)[BC][XS], float (*ws)[BN], float (&acc)[T][TM][TN], int tx,
+    int ty) {
+#pragma unroll
+  for (int c = 0; c < BC; ++c) {
+    const float4 wv = *reinterpret_cast<const float4*>(&ws[c][tx * TN]);
+    const float wr[TN] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      const float4 xv = *reinterpret_cast<const float4*>(&xs[t][c][ty * TM]);
+      const float xr[TM] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          acc[t][i][j] = fmaf(xr[i], wr[j], acc[t][i][j]);
+    }
+  }
+}
+
+// Operand description for one block's accumulation. x is either the packed
+// bytes (strides in bytes, c stride = byte stride) or dense floats. The T
+// slices a block accumulates are either time steps of the same rows
+// (row_step = 0, x_t = the time stride) or T consecutive groups of BM rows of
+// one matrix (row_step = BM, x_t = 0): both reuse each weight chunk T times.
+struct TileArgs {
+  const void* x;
+  long long x_t, x_m, x_c;   // element strides of x along t, row, c (or byte)
+  long long row_step;        // rows between slice t and slice t + 1
+  const float* w;
+  long long w_c, w_k;
+  long long m0, M;
+  int k0, K, C;
+};
+
+// acc[t][i][j] = sum_c x[t][m0 + t*row_step + ty*4 + i][c] * w[c][k0 + tx*4 + j].
+template <int T, int BC, bool PACKED>
+__device__ __forceinline__ void accumulate(
+    const TileArgs& a, float (*xs)[BC][XS], float (*ws)[BN],
+    float (&acc)[T][TM][TN]) {
+  const int tid = threadIdx.x;
+  const int tx = tid % (BN / TN);
+  const int ty = tid / (BN / TN);
+#pragma unroll
+  for (int t = 0; t < T; ++t)
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[t][i][j] = 0.0f;
+  for (int c0 = 0; c0 < a.C; c0 += BC) {
+    if (PACKED)
+      load_x_packed<T, BC>(xs, static_cast<const uint8_t*>(a.x), a.x_t, a.x_m,
+                           a.x_c, a.m0, a.row_step, a.M, c0, a.C / 8, tid);
+    else
+      load_x_dense<T, BC>(xs, static_cast<const float*>(a.x), a.x_t, a.x_m,
+                          a.x_c, a.m0, a.row_step, a.M, c0, a.C, tid);
+    load_w<BC>(ws, a.w, a.w_c, a.w_k, c0, a.C, a.k0, a.K, tid);
+    __syncthreads();
+    tile_fma<T, BC>(xs, ws, acc, tx, ty);
+    __syncthreads();
+  }
+}
+
+}  // namespace e2a

@@ -1,0 +1,149 @@
+"""What the port may import, when it builds, and what it does without a
+card: ``repro_torch`` and ``chip_smoke.py`` import ``torch`` and numpy,
+never ``jax`` and nothing of ``repro``; importing builds nothing; every
+entry point called with ``device=None`` fails loudly where there is no CUDA
+device."""
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import probe, resolve_device
+from repro_torch.configs import get_spikingformer_config
+from repro_torch.convert import from_jax
+from repro_torch.core.spikingformer import SpikingFormer, init_spikingformer
+from repro_torch.kernels import build
+
+ROOT = Path(__file__).resolve().parent.parent
+MODULES = sorted(m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch."))
+
+
+def _run(code: str, cwd=ROOT) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd,
+                          capture_output=True, text=True,
+                          env={"PYTHONPATH": str(ROOT / "src"),
+                               "PATH": "/usr/bin:/bin"})
+
+
+def test_modules_are_where_the_reference_has_them():
+    for name in ("core.backend", "core.policy", "core.lif",
+                 "core.spiking_layers", "core.spikingformer",
+                 "kernels.lif_soma", "kernels.spike_matmul",
+                 "kernels.conv_spike", "kernels.neuron_layer", "kernels.ops",
+                 "configs.spikingformer"):
+        assert f"repro_torch.{name}" in MODULES
+        assert (ROOT / "src" / "repro" / (name.replace(".", "/") + ".py")) \
+            .is_file()
+
+
+def test_importing_every_module_leaves_jax_and_repro_out():
+    code = (
+        "import importlib, sys\n"
+        f"mods = {MODULES!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "sys.path.insert(0, '.')\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro', 'triton'))\n"
+        "assert not bad, bad\n"
+        "from repro_torch.kernels import build\n"
+        "assert build._lib is None, 'importing built the kernels'\n"
+        "print('clean', len(mods))\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split() == ["clean", str(len(MODULES))]
+
+
+def test_sources_name_neither_jax_nor_the_reference_package():
+    files = list((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+        [ROOT / "chip_smoke.py"]
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
+    for f in files:
+        assert not pat.search(f.read_text()), f
+
+
+def test_chip_smoke_fails_without_a_card_and_prints_no_result():
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a CUDA device")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, cwd=ROOT,
+                         env={"PATH": "/usr/bin:/bin"})
+    assert out.returncode != 0
+    assert out.stdout.strip() == ""
+    assert "no CUDA device" in out.stderr
+
+
+def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
+    (tmp_path / "chip_smoke.py").write_text(
+        (ROOT / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True,
+                         env={"PATH": "/usr/bin:/bin"})
+    assert out.returncode != 0 and out.stdout.strip() == ""
+    assert "repro_torch" in out.stderr
+
+
+def test_device_none_means_the_card_and_raises_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a CUDA device")
+    cfg = get_spikingformer_config("spikingformer-smoke")
+    gen = torch.Generator().manual_seed(0)
+    calls = {
+        "resolve_device": lambda: resolve_device(None),
+        "explicit cuda": lambda: resolve_device("cuda:0"),
+        "init_spikingformer": lambda: init_spikingformer(gen, cfg),
+        "SpikingFormer": lambda: SpikingFormer(cfg),
+        "from_jax": lambda: from_jax({"w": np.zeros(3, np.float32)}, {}),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+    info = probe()
+    assert info["cuda_available"] is False and info["device_name"] is None
+    assert info["torch"] == torch.__version__
+
+
+def test_a_missing_compiler_raises_with_a_reason(monkeypatch, tmp_path):
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        monkeypatch.setenv(var, str(tmp_path))
+    if Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("this machine has the CUDA toolkit")
+    assert build.find_nvcc(required=False) is None
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.find_nvcc()
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "b"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build()
+    assert not (tmp_path / "b").exists()       # nothing half-built
+
+
+def test_c_interface_matches_the_ctypes_signatures():
+    """Every ``extern "C"`` entry point of the CUDA sources has its argument
+    types listed in ``build.SIGNATURES``, pointer for pointer: a pointer
+    passed without its ``c_void_p`` would be cut to 32 bits."""
+    import ctypes
+    kinds = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
+             ctypes.c_longlong: "long long", ctypes.c_float: "float"}
+    found = {}
+    for src in build.sources():
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            args = [a.strip() for a in m.group(2).replace("\n", " ").split(",")]
+            found[m.group(1)] = [
+                "ptr" if "*" in a else a.rsplit(" ", 1)[0].strip()
+                for a in args]
+    assert set(found) == set(build.SIGNATURES)
+    for name, argtypes in build.SIGNATURES.items():
+        assert [kinds[t] for t in argtypes] == found[name], name
+    assert [s.name for s in build.sources()] == [
+        "lif_soma.cu", "neuron_layer.cu", "spike_matmul.cu"]
+    assert "compute_90a" in " ".join(build.NVCC_FLAGS)
