@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--depth 8] [--verbose-build]
+    python3 chip_smoke.py [--seed 0] [--depth 8] [--train-depth 8]
+                          [--verbose-build]
 
 Builds the CUDA kernels from the sources in this checkout, holds each kernel
 against its plain PyTorch version on the card at the shapes the
-``spikingformer-8-512`` forward gives it, then serves a few request batches
-through ``SpikingFormer.forward`` under the ``cuda-full`` policy and compares
-with the same weights under the ``eager`` policy on the same card. It needs
+``spikingformer-8-512`` forward and training step give it, then drives the
+port's two main paths: it serves a few request batches through
+``SpikingFormer.forward`` under the ``cuda-full`` policy, and it takes a few
+BPTT + AdamW steps through ``repro_torch.train.loop.make_train_step``, each
+compared with the same weights under the ``eager`` policy on the same card;
+one block's forward and backward are compared on the same input. It needs
 one CUDA device and ``nvcc`` and fails (non-zero exit, no result line)
 without them. Every phase prints one JSON line; the line before the last but
 one lists the kernels, and the last line is the verdict.
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
 import time
 from pathlib import Path
@@ -30,6 +35,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 import repro_torch  # noqa: E402
 from repro_torch.configs import get_spikingformer_config  # noqa: E402
@@ -38,15 +44,22 @@ from repro_torch.core.policy import named_policy  # noqa: E402
 from repro_torch.core.spiking_layers import block_apply  # noqa: E402
 from repro_torch.core.spikingformer import (SpikingFormer,  # noqa: E402
                                             _index_tree, init_spikingformer,
-                                            spikingformer_apply)
-from repro_torch.kernels import (KERNELS, build,  # noqa: E402
+                                            spikingformer_apply, tree_leaves,
+                                            tree_paths, tree_unflatten)
+from repro_torch.kernels import (KERNELS, build, fused_bn,  # noqa: E402
                                  launch_counts, lif_soma, neuron_layer,
                                  reset_launch_counts, spike_matmul)
+from repro_torch.train.data import (SyntheticVision,  # noqa: E402
+                                    VisionDataConfig)
+from repro_torch.train.loop import make_train_step  # noqa: E402
+from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
+                                         init_opt_state)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 PRESET = "spikingformer-8-512"
 REQUESTS, BATCH = 3, 16         # request batches served, images in each
+TRAIN_STEPS = 3                 # training steps counted, after one warm-up
 DEVICE = torch.device("cuda")
 
 
@@ -204,6 +217,140 @@ def check_neuron_layer(gen, case, t, m, c, k, packed):
     return out
 
 
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max|got - want| / max|want|: the error of a statistics vector
+    relative to its scale (a column mean near 0 has no relative error of
+    its own)."""
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def check_lif_bwd(gen, t, m, d):
+    """Bitwise: the kernel and the plain version round every operation of
+    eq. 12 once, in the same order."""
+    x = torch.randn((t, m, d), generator=gen, device=DEVICE) * 1.2 + 0.3
+    s, u, mask = lif_soma.lif_soma_fwd_plain(x)
+    g = torch.randn((t, m, d), generator=gen, device=DEVICE)
+    gu = torch.randn((m, d), generator=gen, device=DEVICE)
+    rows = []
+    for case, carry in (("pssa.lif/smlp.lif", None),
+                        ("time_chunk carry (gu_last)", gu)):
+        got = lif_soma.lif_soma_bwd(g, u, s, mask, carry)
+        want = lif_soma.lif_soma_bwd_plain(g, u, s, mask, carry)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"lif_soma_bwd ({case}) differs from its plain version")
+        ins = (g, u, s, mask) + ((carry,) if carry is not None else ())
+        b_ms, b_by = bound(nbytes(*ins, got), 7.0 * x.numel())
+        rows.append({
+            "case": case, "shape": [t, m, d], "max_abs_err": 0.0,
+            "tolerance": "bitwise",
+            "ms": time_ms(lambda: lif_soma.lif_soma_bwd(g, u, s, mask, carry)),
+            "plain_ms": time_ms(lambda: lif_soma.lif_soma_bwd_plain(
+                g, u, s, mask, carry)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+    return rows
+
+
+def check_bn(gen, m, d):
+    """bn_fwd and bn_bwd at (T*B*N, d). y and dx within rtol 1e-5 / atol
+    1e-5 of the plain version, mu and var within 1e-6 of their scale: the
+    column sums run over 12,544 rows in another order (per-chunk partials
+    added in double against a library reduction)."""
+    x = torch.randn((m, d), generator=gen, device=DEVICE) * 2.0 + 0.5
+    gamma = torch.rand((d,), generator=gen, device=DEVICE) + 0.5
+    beta = torch.randn((d,), generator=gen, device=DEVICE) * 0.3
+    g = torch.randn((m, d), generator=gen, device=DEVICE)
+    y, mu, sd = fused_bn.bn_fwd(x, gamma, beta)
+    wy, wmu, wsd = fused_bn.bn_fwd_plain(x, gamma, beta)
+    dx, dgamma, dbeta = fused_bn.bn_bwd(g, x, gamma, wmu, wsd)
+    wdx, wdgamma, wdbeta = fused_bn.bn_bwd_plain(g, x, gamma, wmu, wsd)
+    torch.cuda.synchronize()
+    var, wvar = sd * sd - 1e-5, wsd * wsd - 1e-5
+    stats = {"mu": rel_err(mu, wmu), "var": rel_err(var, wvar),
+             "dgamma": rel_err(dgamma, wdgamma),
+             "dbeta": rel_err(dbeta, wdbeta)}
+    for name, a, b in (("y", y, wy), ("dx", dx, wdx)):
+        if not torch.allclose(a, b, rtol=1e-5, atol=1e-5):
+            fail(f"bn {name} beyond rtol/atol 1e-5 of its plain version: "
+                 f"{float((a - b).abs().max())}")
+    if stats["mu"] > 1e-6 or stats["var"] > 1e-6:
+        fail(f"bn_fwd statistics beyond 1e-6 of their scale: {stats}")
+    if stats["dgamma"] > 1e-5 or stats["dbeta"] > 1e-5:
+        fail(f"bn_bwd parameter gradients beyond 1e-5 of their scale: "
+             f"{stats}")
+    tol = ("y and dx within rtol 1e-5 / atol 1e-5, mu and var within 1e-6 "
+           "(dgamma, dbeta 1e-5) of their scale: column sums in another "
+           "order")
+    # the library yardsticks: cuDNN/ATen training batch norm and its
+    # autograd backward on the same inputs
+    xl = x.clone().requires_grad_(True)
+    gl, bl = gamma.clone().requires_grad_(True), beta.clone().requires_grad_(True)
+    yl = F.batch_norm(xl, None, None, gl, bl, training=True, eps=1e-5)
+    fwd_b, fwd_by = bound(nbytes(x, gamma, beta, y, mu, sd), 8.0 * x.numel())
+    bwd_b, bwd_by = bound(nbytes(g, x, gamma, mu, sd, dx, dgamma, dbeta),
+                          12.0 * x.numel())
+    fwd = {"case": "pssa.proj/smlp.b", "shape": [m, d],
+           "max_abs_err": float((y - wy).abs().max()),
+           "rel_err": {k: stats[k] for k in ("mu", "var")}, "tolerance": tol,
+           "ms": time_ms(lambda: fused_bn.bn_fwd(x, gamma, beta)),
+           "plain_ms": time_ms(lambda: fused_bn.bn_fwd_plain(x, gamma, beta)),
+           "library_ms": time_ms(lambda: F.batch_norm(
+               x, None, None, gamma, beta, training=True, eps=1e-5)),
+           "bound_ms": fwd_b, "bound_by": fwd_by}
+    bwd = {"case": "pssa.proj/smlp.b", "shape": [m, d],
+           "max_abs_err": float((dx - wdx).abs().max()),
+           "rel_err": {k: stats[k] for k in ("dgamma", "dbeta")},
+           "tolerance": tol,
+           "ms": time_ms(lambda: fused_bn.bn_bwd(g, x, gamma, wmu, wsd)),
+           "plain_ms": time_ms(lambda: fused_bn.bn_bwd_plain(
+               g, x, gamma, wmu, wsd)),
+           "library_ms": time_ms(lambda: torch.autograd.grad(
+               yl, (xl, gl, bl), g, retain_graph=True)),
+           "bound_ms": bwd_b, "bound_by": bwd_by}
+    return fwd, bwd
+
+
+def check_neuron_layer_train(gen, case, t, m, c, k, packed):
+    """Gaussian weights and batch statistics over T*M rows: spikes within
+    1e-4 of the elements of the plain version's (a membrane within rounding
+    of the threshold may fire differently under another order of
+    summation), mu and var within 1e-5 of their scale."""
+    if packed:
+        x = spikes(gen, (t, m, c))
+    else:
+        x = torch.rand((t, m, c), generator=gen, device=DEVICE)
+    w = torch.randn((c, k), generator=gen, device=DEVICE) * (
+        2.0 if packed else 1.0) * c ** -0.5
+    gamma = torch.rand((k,), generator=gen, device=DEVICE) * 0.4 + 0.8
+    beta = torch.randn((k,), generator=gen, device=DEVICE) * 0.2 + 0.3
+    got = neuron_layer.neuron_layer_train(x, w, gamma, beta, packed=packed)
+    want = neuron_layer.neuron_layer_train_plain(x, w, gamma, beta)
+    torch.cuda.synchronize()
+    n_bad = int((got[0] != want[0]).sum())
+    errs = {"mu": rel_err(got[1], want[1]), "var": rel_err(got[2], want[2])}
+    if n_bad > 1e-4 * want[0].numel() or max(errs.values()) > 1e-5:
+        fail(f"neuron_layer_train {case}: {n_bad} of {want[0].numel()} "
+             f"spikes differ, statistics {errs}")
+    ops_ = (float(x.sum()) * k if packed else 2.0 * t * m * c * k) \
+        + 12.0 * t * m * k
+    b_ms, b_by = bound(nbytes(x, w, gamma, beta, *got), ops_)
+    out = {"case": case, "shape": [t, m, c, k],
+           "arm": "packed" if packed else "dense",
+           "spike_mismatch": n_bad, "compared": want[0].numel(),
+           "spike_rate": float(want[0].mean()), "rel_err": errs,
+           "max_abs_err": max(errs.values()),
+           "tolerance": "spikes: <= 1e-4 of the elements differ; mu, var "
+                        "within 1e-5 of their scale (sums over T*M rows in "
+                        "another order)",
+           "ms": time_ms(lambda: neuron_layer.neuron_layer_train(
+               x, w, gamma, beta, packed=packed)),
+           "plain_ms": time_ms(lambda: neuron_layer.neuron_layer_train_plain(
+               x, w, gamma, beta)),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "dense_fp32_bound_ms": 2.0 * t * m * c * k / FP32_FLOPS * 1e3}
+    return out
+
+
 def kernel_phase(seed: int, batch: int) -> dict[str, list[dict]]:
     cfg = get_spikingformer_config(PRESET)
     t, d, f, h = cfg.time_steps, cfg.d_model, cfg.d_ff, cfg.n_heads
@@ -254,6 +401,24 @@ def kernel_phase(seed: int, batch: int) -> dict[str, list[dict]]:
     for site, k_out in (("pssa.qkv", d), ("smlp.a", f)):
         cases["neuron_layer_eval"].append(check_neuron_layer(
             gen, site, t, m, d, k_out, packed=True))
+
+    # the training kernels
+    cases["lif_soma_bwd"].extend(check_lif_bwd(gen, t, m, d))
+    bn_f, bn_b = check_bn(gen, t * m, d)
+    cases["bn_fwd"].append(bn_f)
+    cases["bn_bwd"].append(bn_b)
+    size = cfg.image_size
+    for i, (c_in, c_out) in enumerate(cfg.tokenizer_stage_channels()):
+        size //= 2
+        cases["neuron_layer_train"].append(check_neuron_layer_train(
+            gen, f"tokenizer.conv.{i}", t, batch * size * size, 9 * c_in,
+            c_out, packed=i > 0))
+        torch.cuda.empty_cache()
+    # the block sites first in the summary: they carry 32 of 36 launches
+    rows = cases["neuron_layer_train"]
+    for site, k_out in (("smlp.a", f), ("pssa.qkv", d)):
+        rows.insert(0, check_neuron_layer_train(gen, site, t, m, d, k_out,
+                                                packed=True))
     return cases
 
 
@@ -432,7 +597,10 @@ def run_model(seed: int, depth: int, requests: int, batch: int, weights: str):
     per_forward = {"lif_soma_fwd": 3 * depth,
                    "neuron_layer_eval": 4 + 4 * depth,
                    "spike_matmul_packed": 2 * depth,
-                   "spike_matmul_packed_batched": depth}
+                   "spike_matmul_packed_batched": depth,
+                   # eval: no backward, BN folded into the weights
+                   "lif_soma_bwd": 0, "bn_fwd": 0, "bn_bwd": 0,
+                   "neuron_layer_train": 0}
     want = {k: v * requests for k, v in per_forward.items()}
     if counts != want:
         fail(f"launch counts {counts} != {want} for {requests} forwards")
@@ -505,18 +673,167 @@ def model_phase(seed: int, depth: int, requests: int, batch: int):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: training
+# ---------------------------------------------------------------------------
 
-def summarise(cases: dict[str, list[dict]], counts: dict[str, int]) -> dict:
+#: Launches of each kernel in one training step of the full policy, from the
+#: code: per block, 3 LIF scans (pssa.lif x2, smlp.lif) whose backward runs
+#: the GRAD kernel; 4 neuron-layer sites (q, k, v, smlp.a) + 4 tokenizer
+#: stages, whose backward replays SOMA, GRAD and the BN backward; 2
+#: pipeline sites (pssa.proj, smlp.b) with the spike matmul and the BN
+#: pair; attn_qk on the batched spike matmul (attn_av demotes: 196 % 8).
+def per_train_step(depth: int, stages: int) -> dict[str, int]:
+    sites = 4 * depth + stages
+    return {"lif_soma_fwd": 3 * depth + sites, "lif_soma_bwd": 3 * depth + sites,
+            "spike_matmul_packed": 2 * depth,
+            "spike_matmul_packed_batched": depth,
+            "bn_fwd": 2 * depth, "bn_bwd": 2 * depth + sites,
+            "neuron_layer_train": sites, "neuron_layer_eval": 0}
+
+
+def train_phase(seed: int, depth: int, batch: int) -> dict[str, int]:
+    """One warm-up step, then TRAIN_STEPS steps of ``make_train_step`` at
+    the preset under ``cuda-full`` and under ``eager``, from the same
+    initial parameters, BN state and AdamW state, on the same
+    ``SyntheticVision`` batches. Every step must be finite and the
+    parameters and BN running statistics must change. Returns the launch
+    counts of the ``cuda-full`` steps."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_spikingformer_config(PRESET + "@eager"),
+                              num_layers=depth)
+    params, state = init_spikingformer(torch.Generator().manual_seed(seed),
+                                       cfg, DEVICE)
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=100,
+                              weight_decay=0.01)
+    data = SyntheticVision(VisionDataConfig(
+        image_size=cfg.image_size, num_classes=cfg.num_classes,
+        global_batch=batch, channels=cfg.in_channels, seed=seed))
+    batches = [{k: torch.from_numpy(v).to(DEVICE)
+                for k, v in data.batch(i).items()}
+               for i in range(TRAIN_STEPS + 1)]
+    result, counts = {}, None
+    for name in ("cuda-full", "eager"):
+        step = make_train_step(cfg.with_policy(named_policy(name)), opt_cfg)
+        opt = init_opt_state(params)
+        step(params, state, opt, batches[0]["images"], batches[0]["labels"])
+        torch.cuda.synchronize()                     # warm-up, not counted
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        p, st = params, state
+        rows, times = [], []
+        if name == "cuda-full":
+            reset_launch_counts()                    # the main path starts
+        for b in batches[1:]:
+            t0 = time.perf_counter()
+            p, st, opt, m = step(p, st, opt, b["images"], b["labels"])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            rows.append({k: float(m[k]) for k in
+                         ("loss", "grad_norm", "nonfinite", "accuracy")})
+        if name == "cuda-full":
+            counts = launch_counts()                 # ... and ends here
+        moved = {
+            "params": not all(torch.equal(a, b) for a, b in
+                              zip(tree_leaves(p), tree_leaves(params))),
+            "bn_running_stats": not all(torch.equal(a, b) for a, b in
+                                        zip(tree_leaves(st), tree_leaves(state)))}
+        result[name] = {"ms_per_step": times, "steps": rows, "moved": moved,
+                        "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        bad = [r for r in rows if r["nonfinite"] != 0.0 or
+               not all(map(math.isfinite, (r["loss"], r["grad_norm"])))]
+        if bad or not all(moved.values()):
+            fail(f"training under {name}: non-finite steps {bad} or nothing "
+                 f"moved {moved}")
+        del p, st, opt, step
+        torch.cuda.empty_cache()
+    per_step = per_train_step(depth, cfg.tokenizer_stages)
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    emit("train", preset=f"{PRESET}@cuda-full", depth=depth, batch=batch,
+         steps=TRAIN_STEPS, dtype="float32", data="SyntheticVision",
+         optimizer=dataclasses.asdict(opt_cfg), **result,
+         launches=counts, launches_per_step=per_step,
+         note="the eager run starts from the same state on the same batches;"
+              " its losses are reported, not held against cuda-full's "
+              "(free-running spikes on random weights part after a flip)")
+    if counts != want:
+        fail(f"training launch counts {counts} != {want} for {TRAIN_STEPS} "
+             f"steps")
+    return counts
+
+
+#: Block-level limits. Spikes: the eval phase's per-block limit. Gradients:
+#: a random cotangent weighs every term a gradient sums with an independent
+#: sign, so when a fraction f of those terms changes (flipped spikes and
+#: what they move) the gradient moves by about sqrt(f) of its norm;
+#: sqrt(1e-3) is the error the spike limit allows.
+SPIKE_LIMIT = 1e-3
+GRAD_LIMIT = math.sqrt(SPIKE_LIMIT)
+#: The last BN's beta: its gradient is the sum of the cotangent, which no
+#: spike reaches, so it is held at fp32 summation noise.
+CONTROL_LEAF, CONTROL_LIMIT = "smlp.b.bn.beta", 1e-5
+
+
+def block_grad_check(seed: int, batch: int) -> None:
+    """One block of the preset in train mode on the *same* input with the
+    *same* upstream cotangent, under ``cuda-full`` and ``eager``: spike
+    mismatch after the next block's LIF, and the relative L2 error of the
+    gradient of every parameter leaf and of the input, held at the limits
+    above. BN statistics over 12,544 rows summed in another order move
+    membranes by ~1e-7 of their scale, which flips the spikes that sit that
+    close to the threshold."""
+    cfg = get_spikingformer_config(PRESET + "@eager")
+    gen = torch.Generator().manual_seed(seed + 7)
+    params, state = init_spikingformer(gen, cfg, DEVICE)
+    bp, bs = (_index_tree(t["blocks"], 0) for t in (params, state))
+    shape = (cfg.time_steps, batch, cfg.num_tokens, cfg.d_model)
+    x = (torch.randn(shape, generator=gen) * 1.0 + 0.4).to(DEVICE)
+    g = torch.randn(shape, generator=gen).to(DEVICE)
+    out = {}
+    for name in ("cuda-full", "eager"):
+        bcfg = cfg.with_policy(named_policy(name)).block
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(bp)]
+        xin = x.clone().requires_grad_(True)
+        y, _ = block_apply(tree_unflatten(bp, leaves), bs, xin, bcfg,
+                           train=True)
+        grads = torch.autograd.grad((y * g).sum(), leaves + [xin])
+        out[name] = (y.detach(), grads)
+    (yf, gf), (ye, ge) = out["cuda-full"], out["eager"]
+    mismatch = spike_mismatch(yf, ye, cfg.lif)
+    rel = {n: float((a - b).norm() / b.norm().clamp_min(1e-30))
+           for n, a, b in zip(tree_paths(bp) + ["input"], gf, ge)}
+    control = rel.pop(CONTROL_LEAF)
+    worst = max(rel.values())
+    emit("block_grad", preset=PRESET, block=0, shape=list(shape),
+         spike_mismatch=mismatch, grad_rel_l2=rel, worst_grad_rel_l2=worst,
+         control_leaf={CONTROL_LEAF: control},
+         max_abs_out_err=float((yf - ye).abs().max()),
+         limits={"spike_mismatch": SPIKE_LIMIT, "grad_rel_l2": GRAD_LIMIT,
+                 "control_leaf": CONTROL_LIMIT})
+    if mismatch > SPIKE_LIMIT or not worst <= GRAD_LIMIT \
+            or not control <= CONTROL_LIMIT:
+        fail(f"block gradient check: spike mismatch {mismatch}, worst "
+             f"gradient relative L2 error {worst}, {CONTROL_LEAF} {control}")
+
+
+# ---------------------------------------------------------------------------
+
+def summarise(cases: dict[str, list[dict]],
+              paths: dict[str, dict[str, int]]) -> dict:
     """One entry per kernel. Where a kernel serves several sites, the entry
     carries the numbers of its first case (a site of the main path) and the
-    largest error of all cases; ``cases`` keeps every site's numbers."""
+    largest error of all cases; ``cases`` keeps every site's numbers.
+    ``launches`` adds the counts of the two main paths (serving, training),
+    ``launches_by_path`` keeps them apart."""
     kernels = []
     for name, info in KERNELS.items():
         rows = cases[name]
         first = rows[0]
         kernels.append({
             "name": name, "route": "cuda", "source": info["source"],
-            "replaces": info["replaces"], "launches": counts[name],
+            "replaces": info["replaces"],
+            "launches": sum(c[name] for c in paths.values()),
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
@@ -529,7 +846,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--depth", type=int, default=8,
-                    help="transformer blocks (the preset has 8)")
+                    help="transformer blocks served (the preset has 8)")
+    ap.add_argument("--train-depth", type=int, default=8,
+                    help="transformer blocks trained (the preset has 8)")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print ptxas' registers / shared memory / spills")
     args = ap.parse_args()
@@ -558,8 +877,13 @@ def main() -> None:
     emit("kernels", cases=cases)
 
     counts = model_phase(args.seed, args.depth, REQUESTS, BATCH)
+    torch.cuda.empty_cache()
+    block_grad_check(args.seed, BATCH)
+    torch.cuda.empty_cache()
+    train_counts = train_phase(args.seed, args.train_depth, BATCH)
 
-    print(json.dumps(summarise(cases, counts)), flush=True)
+    print(json.dumps(summarise(cases, {"serve": counts,
+                                       "train": train_counts})), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,9 @@ numpy only. Importing it never compiles anything: the CUDA kernels under
 ``kernels/csrc`` are built with ``nvcc`` the first time a kernel is launched
 on a CUDA tensor (see :mod:`repro_torch.kernels.build`).
 
-Ported so far: the eval-mode (serving) forward of the Spikingformer vision
-model with its four forward kernels. Training arrives with a later slice;
-until then ``train=True`` on any implementation other than ``eager`` raises
-``NotImplementedError``.
+Ported so far: the Spikingformer vision model, its eval-mode (serving)
+forward and its BPTT training step (``repro_torch.train``), with every
+kernel of the reference written by hand for the card.
 """
 from repro_torch.core.backend import probe, resolve_device  # noqa: F401
 from repro_torch.core.policy import (ExecutionPolicy,  # noqa: F401

@@ -1,11 +1,12 @@
-"""Reference (JAX) parameters -> the port's parameter dicts.
+"""Reference (JAX) parameters and optimizer state -> the port's dicts.
 
 The port keeps the reference pytree's keys and layouts (HWIO conv weights,
 (C_in, C_out) linear weights, block leaves stacked on a leading L axis), so
 the conversion is leaf by leaf: same keys, same shapes, dtype kept. The
 caller hands the pytrees over as numpy arrays (``jax.device_get`` or
 ``jax.tree_util.tree_map(np.asarray, tree)``); this module imports neither
-JAX nor the reference package.
+JAX nor the reference package. The optimizer state converts too, so that
+a training step in each package can start from the same state.
 """
 from __future__ import annotations
 
@@ -33,3 +34,19 @@ def from_jax(params: Any, state: Any,
     of tensors on ``device`` (``None`` = the card, raising without one)."""
     device = resolve_device(device)
     return _convert(params, device), _convert(state, device)
+
+
+def opt_state_from_jax(opt_state: Any,
+                       device: str | torch.device | None = None):
+    """The reference's AdamW state (``{"m", "v", "step", "err"}``, numpy
+    leaves) -> the port's ``{"m", "v", "step"}`` on ``device``. ``err``
+    (the int8 gradient-compression residual) has no counterpart and must be
+    ``None``."""
+    if opt_state.get("err") is not None:
+        raise ValueError("opt_state_from_jax: the int8 compression residual "
+                         "'err' is not ported; convert a state without it")
+    device = resolve_device(device)
+    return {"m": _convert(opt_state["m"], device),
+            "v": _convert(opt_state["v"], device),
+            "step": torch.tensor(int(np.asarray(opt_state["step"])),
+                                 dtype=torch.int32, device=device)}

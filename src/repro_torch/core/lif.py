@@ -1,27 +1,32 @@
-"""LIF spiking neuron, forward (E2ATST eq. 1-3, 11).
+"""LIF spiking neuron with surrogate-gradient BPTT (E2ATST eq. 1-3, 11-12).
 
 Forward dynamics (hard reset, as in the paper's eq. 11):
 
     U_t = alpha * U_{t-1} * (1 - S_{t-1}) + X_t
     S_t = Heaviside(U_t - th_f)
 
+Backward (eq. 12) falls out of autograd through the loop over T once the
+non-differentiable Heaviside is given a rectangular surrogate (:func:`fire`):
+
+    fire'(U) = grad_scale  if th_lo < U < th_hi,  0 otherwise
+
+The reset path stays attached (``s_prev`` is never detached), so the
+-alpha*U_t term of the paper's grad-S_t recursion is in the gradient.
+
 ``LIFConfig.policy`` selects the execution path for ``lif_scan`` through the
 kernel registry: the ``"eager"`` implementation is a Python loop over T in
 plain tensor code; ``"cuda"`` folds the input to (T, M, D) and runs the
-SOMA kernel (``repro_torch.kernels.ops.lif_soma_op``).
-
-Forward only: the surrogate gradient (``fire``'s rectangular window, eq. 12)
-arrives with the training slice. ``th_lo``/``th_hi``/``grad_scale`` are kept
-in the config so that parameters and plans stay comparable. The
-state-carrying ``lif_state`` op (temporal tiling, streaming) has its forward
-here too: it folds the carried state into the first step and reuses the
-SOMA kernel.
+SOMA/GRAD kernel pair (``repro_torch.kernels.ops.lif_soma_op``), whose
+backward *is* eq. 12. The state-carrying ``lif_state`` op (temporal tiling,
+streaming) folds the carried state into the first step and seeds the GRAD
+kernel with the carry's cotangent.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.policy import (ExecutionPolicy, dispatch_kernel,
                                      register_kernel, runtime_fallback)
@@ -45,18 +50,51 @@ class LIFConfig:
         return dataclasses.replace(self, policy=policy)
 
 
+class _Fire(torch.autograd.Function):
+    """Heaviside forward, rectangular surrogate backward."""
+
+    @staticmethod
+    def forward(ctx, u, th_fire, th_lo, th_hi, grad_scale):
+        if ctx.needs_input_grad[0]:     # no mask to keep in eval
+            ctx.save_for_backward(((u > th_lo) & (u < th_hi)).to(u.dtype)
+                                  * grad_scale)
+        return (u >= th_fire).to(u.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (mask,) = ctx.saved_tensors
+        return g * mask, None, None, None, None
+
+
+def fire(u: torch.Tensor, th_fire: float, th_lo: float, th_hi: float,
+         grad_scale: float) -> torch.Tensor:
+    """Heaviside spike with rectangular surrogate gradient.
+
+    Returns S = 1[u >= th_fire] in u.dtype; the backward multiplies the
+    cotangent by the spike-gradient mask  grad_scale * 1[th_lo < u < th_hi].
+    """
+    return _Fire.apply(u, th_fire, th_lo, th_hi, grad_scale)
+
+
+def spike_grad_mask(u: torch.Tensor, cfg: LIFConfig) -> torch.Tensor:
+    """The paper's \\nabla\\tilde{S}: 1 inside the surrogate window (stored
+    by the SOMA unit during FP, consumed by GRAD during BP)."""
+    return ((u > cfg.th_lo) & (u < cfg.th_hi)).to(u.dtype)
+
+
 def lif_step(u_prev: torch.Tensor, s_prev: torch.Tensor, x: torch.Tensor,
              cfg: LIFConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """One SOMA step (eq. 11): returns (U_t, S_t)."""
     u = cfg.alpha * u_prev * (1.0 - s_prev) + x
-    s = (u >= cfg.th_fire).to(u.dtype)
+    s = fire(u, cfg.th_fire, cfg.th_lo, cfg.th_hi, cfg.grad_scale)
     return u, s
 
 
 @register_kernel("lif", "eager")
 def _lif_scan_eager(x_seq: torch.Tensor, cfg: LIFConfig,
                     site: str) -> torch.Tensor:
-    """Reference implementation: a loop over the leading time axis."""
+    """Reference implementation: a loop over the leading time axis, with
+    the surrogate gradient through autograd."""
     u = torch.zeros_like(x_seq[0])
     s = torch.zeros_like(x_seq[0])
     spikes = []
@@ -69,8 +107,8 @@ def _lif_scan_eager(x_seq: torch.Tensor, cfg: LIFConfig,
 @register_kernel("lif", "cuda")
 def _lif_scan_cuda(x_seq: torch.Tensor, cfg: LIFConfig,
                    site: str) -> torch.Tensor:
-    """Kernel dispatch: fold (T, ..., D) -> (T, M, D), run the SOMA op, and
-    unfold. LIF is elementwise over the folded axes so the reshape is
+    """Kernel dispatch: fold (T, ..., D) -> (T, M, D), run the SOMA op (GRAD
+    kernel in its backward), and unfold. LIF is elementwise over the folded axes so the reshape is
     exact."""
     from repro_torch.core.backend import fold_time_major
     from repro_torch.kernels import ops  # deferred: eager stays import-light
@@ -101,7 +139,8 @@ def _lif_state_eager(x_seq: torch.Tensor, u0: torch.Tensor, s0: torch.Tensor,
 def _lif_state_cuda(x_seq: torch.Tensor, u0: torch.Tensor, s0: torch.Tensor,
                     cfg: LIFConfig, site: str):
     """Stateful SOMA on the kernel: the carried state folds into the first
-    input step, so the SOMA kernel itself is unchanged."""
+    input step, so the SOMA kernel itself is unchanged, and the GRAD kernel
+    is seeded with the carry's cotangent."""
     from repro_torch.core.backend import fold_time_major
     from repro_torch.kernels import ops
 
@@ -122,9 +161,36 @@ def lif_scan_with_state(x_seq: torch.Tensor, u0: torch.Tensor,
                         s0: torch.Tensor, cfg: LIFConfig, site: str = "lif"):
     """Stateful variant for streaming and temporal tiling: carries (U, S)
     across calls through the ``lif_state`` registry row; chunk-by-chunk
-    application matches a single :func:`lif_scan` exactly."""
+    application matches a single :func:`lif_scan` exactly, gradients
+    included."""
     impl = cfg.policy.resolve(site, "lif_state")
     return dispatch_kernel(site, "lif_state", impl, x_seq, u0, s0, cfg, site)
+
+
+def _lif_scan_chunked(x_seq: torch.Tensor, cfg: LIFConfig,
+                      site: str) -> torch.Tensor:
+    """Temporally-tiled BPTT scan: a loop over T/time_chunk chunks, each
+    running the stateful op with the carried (U, S) under
+    ``torch.utils.checkpoint``.
+
+    The checkpoint drops the per-step residuals inside a chunk (they are
+    recomputed during the backward), so what is kept between forward and
+    backward is the (U, S) carry at the chunk boundaries — the paper's
+    temporal-blocking memory profile — while the gradients stay exact.
+    """
+    tc = cfg.time_chunk
+    u = s = torch.zeros_like(x_seq[0])
+    out = []
+    for i in range(0, x_seq.shape[0], tc):
+        chunk = x_seq[i:i + tc]
+        if torch.is_grad_enabled():
+            spikes, (u, s) = torch.utils.checkpoint.checkpoint(
+                lif_scan_with_state, chunk, u, s, cfg, site,
+                use_reentrant=False)
+        else:
+            spikes, (u, s) = lif_scan_with_state(chunk, u, s, cfg, site)
+        out.append(spikes)
+    return torch.cat(out)
 
 
 def lif_scan(x_seq: torch.Tensor, cfg: LIFConfig,
@@ -132,27 +198,55 @@ def lif_scan(x_seq: torch.Tensor, cfg: LIFConfig,
     """Multi-step LIF over the leading time axis.
 
     x_seq: (T, ...) membrane input currents (post-BN, per eq. 11). Returns
-    spikes (T, ...) with the same dtype. State starts at rest (0). ``site``
-    names this call site for per-site policy overrides (the model passes
-    ``"tokenizer.lif"``/``"pssa.lif"``/``"smlp.lif"``). Under a
+    spikes (T, ...) with the same dtype. State starts at rest (0). This is
+    the BPTT-differentiable SOMA module: autograd through it is the GRAD
+    recursion of eq. 12 (under a ``"cuda"`` policy, the GRAD kernel).
+    ``site`` names this call site for per-site policy overrides (the model
+    passes ``"tokenizer.lif"``/``"pssa.lif"``/``"smlp.lif"``). Under a
     ``"fused_epilogue"`` policy the matmul-fed SN sites never reach this
     function: their SOMA runs inside the neuron-layer kernel.
+
+    With ``cfg.time_chunk`` set (and < T, dividing T), the scan is
+    temporally tiled (:func:`_lif_scan_chunked`); outputs and gradients
+    equal the single-shot scan's.
     """
     tc = cfg.time_chunk
     t = x_seq.shape[0]
     if tc and 0 < tc < t:
         if t % tc == 0:
             # The tiled path dispatches the state-carrying twin op, as the
-            # plan reports for the lif sites under tiling. Forward only:
-            # the values equal the single-shot scan's.
-            u = s = torch.zeros_like(x_seq[0])
-            out = []
-            for i in range(0, t, tc):
-                spikes, (u, s) = lif_scan_with_state(x_seq[i:i + tc], u, s,
-                                                     cfg, site)
-                out.append(spikes)
-            return torch.cat(out)
+            # plan reports for the lif sites under tiling.
+            return _lif_scan_chunked(x_seq, cfg, site)
         runtime_fallback(site, "lif_state",
                          f"T={t} % time_chunk={tc} != 0 -> single-shot scan")
     return dispatch_kernel(site, "lif", cfg.policy.resolve(site, "lif"),
                            x_seq, cfg, site)
+
+
+def lif_reference_manual_grad(x_seq: torch.Tensor, g_seq: torch.Tensor,
+                              cfg: LIFConfig) -> torch.Tensor:
+    """Hand-rolled eq. 12 BPTT for testing: given upstream dL/dS_t (g_seq),
+    return dL/dX_t. Mirrors the hardware GRAD unit:
+
+        grad_S_t = g_t - alpha * U_t * grad_U_{t+1}
+        grad_U_t = grad_U_{t+1} * alpha * (1 - S_t) + grad_S_t * fire'(U_t)
+        dL/dX_t  = grad_U_t           (since dU_t/dX_t = 1)
+    """
+    T = x_seq.shape[0]
+    us, ss = [], []
+    u = torch.zeros_like(x_seq[0])
+    s = torch.zeros_like(x_seq[0])
+    for t in range(T):
+        u = cfg.alpha * u * (1.0 - s) + x_seq[t]
+        s = (u >= cfg.th_fire).to(u.dtype)
+        us.append(u)
+        ss.append(s)
+    grads = [None] * T
+    grad_u_next = torch.zeros_like(x_seq[0])
+    for t in reversed(range(T)):
+        mask = spike_grad_mask(us[t], cfg) * cfg.grad_scale
+        grad_s = g_seq[t] - cfg.alpha * us[t] * grad_u_next
+        grad_u = grad_u_next * cfg.alpha * (1.0 - ss[t]) + grad_s * mask
+        grads[t] = grad_u
+        grad_u_next = grad_u
+    return torch.stack(grads)

@@ -1,6 +1,6 @@
 """Spiking Transformer building blocks (Spikingformer, E2ATST Fig. 1-2).
 
-The counterpart of ``repro.core.spiking_layers``, forward / eval arms.
+The counterpart of ``repro.core.spiking_layers``, eval and train arms.
 
 Conventions
 -----------
@@ -16,9 +16,10 @@ Conventions
   registry: each ``*_apply`` resolves its implementation from an
   :class:`~repro_torch.core.policy.ExecutionPolicy` and a ``site`` name
   (``"pssa.qkv"``, ``"smlp.a"``, ``"attn_qk"``, ...).
-* ``train=True`` is served by the ``eager`` implementations only; every
-  other implementation raises ``NotImplementedError`` for it until the
-  training slice brings the BN and train-arm kernels.
+* ``train=True`` computes batch statistics and returns the blended running
+  statistics (momentum 0.9) as the new state, under every implementation;
+  gradients flow through autograd (the kernel ops are
+  ``torch.autograd.Function``s, ``repro_torch.kernels.ops``).
 """
 from __future__ import annotations
 
@@ -36,13 +37,6 @@ from repro_torch.core.policy import (ExecutionPolicy, FUSED_EPILOGUE_IMPLS,
 
 Params = dict[str, Any]
 State = dict[str, Any]
-
-
-def _train_not_ported(what: str):
-    raise NotImplementedError(
-        f"{what}: train=True is not ported for this implementation yet (the "
-        f"BN forward/backward and train-arm neuron-layer kernels arrive "
-        f"with the training slice); use the 'eager' policy to train")
 
 
 def _normal(generator: torch.Generator | None, shape, dtype, device, scale):
@@ -87,11 +81,21 @@ def _bn_eager(params, state, x, train, momentum, eps, policy, site):
 
 @register_kernel("bn", "cuda")
 def _bn_cuda(params, state, x, train, momentum, eps, policy, site):
-    """Eval always uses the running-stat plain path, as in the reference;
-    the train-mode BN kernel pair is not ported yet."""
-    if train:
-        _train_not_ported(f"bn impl 'cuda' at site {site!r}")
-    return _bn_eager(params, state, x, train, momentum, eps, policy, site)
+    """The BN kernel pair (``ops.bn_train_op``, eq. 13-23): the batch
+    statistics the forward kernel computes anyway are blended into the
+    running ones (no second pass over x). Eval always uses the running-stat
+    plain path, as in the reference."""
+    if not train:
+        return _bn_eager(params, state, x, train, momentum, eps, policy, site)
+    from repro_torch.kernels import ops
+
+    x2, shape = fold_rows(x)
+    y, mu, var = ops.bn_train_op(x2.contiguous(), params["gamma"],
+                                 params["beta"], eps)
+    var = torch.clamp(var, min=0.0)   # sqrt_d^2 - eps can round below zero
+    new_state = {"mean": momentum * state["mean"] + (1 - momentum) * mu,
+                 "var": momentum * state["var"] + (1 - momentum) * var}
+    return y.reshape(shape), new_state
 
 
 def bn_apply(params: Params, state: State, x: torch.Tensor, *, train: bool,
@@ -137,7 +141,8 @@ def _linear_bn_eager(params, state, x, train, policy, site):
 
 @register_kernel("linear_bn", "cuda")
 def _linear_bn_cuda(params, state, x, train, policy, site):
-    """Dense matmul + the ``cuda`` BatchNorm (plain in eval)."""
+    """Dense matmul + the ``cuda`` BatchNorm (the BN kernels in train,
+    plain in eval)."""
     y = linear_apply(params["linear"], x)
     y, bn_s = _bn_cuda(params["bn"], state["bn"], y, train, 0.9, 1e-5,
                        policy, site)
@@ -154,8 +159,6 @@ def _linear_bn_spike_mm(params, state, x, train, policy, site):
     (:func:`repro_torch.core.policy.plan_sites`); if a direct call still
     violates it, the dense path is used and the demotion is *logged*.
     """
-    if train:
-        _train_not_ported(f"linear_bn impl 'cuda+spike_mm' at site {site!r}")
     w = params["linear"]["w"]
     if x.shape[-1] % 8 == 0:
         from repro_torch.kernels import ops
@@ -174,15 +177,23 @@ def _linear_bn_spike_mm(params, state, x, train, policy, site):
 
 def _neuron_layer_site(x3, w_mat, bn_p, bn_s, lif_cfg, train, packed):
     """Shared fused-epilogue core: ``x3 (T, M, C) @ w_mat (C, K)`` + BN +
-    SOMA in ONE launch (``kernels/neuron_layer.py``). Eval folds BN into the
+    SOMA in ONE kernel call (``kernels/neuron_layer.py``). Train mode
+    computes the batch statistics in the kernel and blends the running
+    statistics (momentum 0.9, like ``_bn_cuda``); eval folds BN into the
     weights and a bias RTFormer-style, in fp32; the weights are then cast
     to ``x3.dtype`` and the bias stays fp32. Returns ``(spikes (T, M, K),
     new_bn_state)``."""
     from repro_torch.kernels import conv_spike, ops  # deferred
 
-    if train:
-        _train_not_ported("the fused_epilogue neuron layer")
     lif = lif_cfg
+    if train:
+        spikes, mu, var = ops.neuron_layer_train_op(
+            x3.contiguous(), w_mat.to(x3.dtype), bn_p["gamma"], bn_p["beta"],
+            lif.alpha, lif.th_fire, lif.th_lo, lif.th_hi, lif.grad_scale,
+            1e-5, packed)
+        new_bn = {"mean": 0.9 * bn_s["mean"] + 0.1 * mu,
+                  "var": 0.9 * bn_s["var"] + 0.1 * var}
+        return spikes, new_bn
     w_fold, bias = conv_spike.fold_bn(w_mat, bn_p["gamma"], bn_p["beta"],
                                       bn_s["mean"], bn_s["var"])
     spikes = ops.neuron_layer_eval_op(
@@ -200,7 +211,10 @@ def _linear_bn_fused_epilogue(params, state, x, lif_cfg, train, policy, site):
     Extended signature (takes the LIF config of the SN it absorbs); only
     dispatched via :func:`linear_bn_lif_apply` at trailing-LIF sites. A
     ragged contraction (% 8 != 0) keeps the single launch on the dense arm,
-    logged.
+    logged. The train arm runs at every such site: the reference demotes it
+    to the pipeline on a TPU when all T*M rows of a feature block outgrow
+    VMEM, a rule with no meaning on this card, whose kernel splits the
+    statistics over row tiles.
     """
     x3, shape = fold_time_major(x)
     packed = x3.shape[-1] % 8 == 0

@@ -4,13 +4,15 @@ Model = Spiking Tokenizer (conv downsampling + spike encoding, eq. 4)
       + L Spiking Transformer Blocks (PSSA + SMLP, eq. 5-6)
       + GAP + FC classification head (eq. 7).
 
-The counterpart of ``repro.core.spikingformer``, eval forward: plain
-functions over nested dicts of tensors with the reference pytree's keys
+The counterpart of ``repro.core.spikingformer``: plain functions over
+nested dicts of tensors with the reference pytree's keys
 (``tokenizer[i].conv.w`` HWIO, ``blocks.pssa.q.linear.w`` with a leading L
 axis, ``head.w`` ...), images NHWC, activations time-major (T, B, N, D). The
 reference scans the homogeneous blocks over depth; here that is a Python
 loop over the leading L axis. :class:`SpikingFormer` is a thin ``nn.Module``
-over the same functions whose ``forward(images)`` is the serving entry.
+over the same functions whose ``forward(images)`` is the serving entry;
+:func:`spikingformer_grad_step` is one BPTT step (loss, gradients of every
+parameter leaf, new BN state), what ``repro_torch.train.loop`` drives.
 """
 from __future__ import annotations
 
@@ -19,14 +21,15 @@ from typing import Any, ClassVar
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.core.backend import resolve_device
 from repro_torch.core.lif import LIFConfig, lif_scan
 from repro_torch.core.policy import (ExecutionPolicy, dispatch_kernel,
                                      plan_sites, register_kernel,
                                      register_site_table, runtime_fallback)
-from repro_torch.core.spiking_layers import (BlockConfig, _neuron_layer_site,
-                                             _normal, _train_not_ported,
+from repro_torch.core.spiking_layers import (BlockConfig, _bn_cuda,
+                                             _neuron_layer_site, _normal,
                                              bn_apply, block_apply,
                                              init_block, init_bn, init_linear,
                                              linear_apply)
@@ -65,7 +68,9 @@ class SpikingFormerConfig:
     qk_first: bool = True             # paper-faithful (QK^T)V order
     attn_scale: float = 0.125
     dtype: Any = torch.float32
-    remat: bool = False               # training-time option; unused in eval
+    # Training: recompute each block's activations in the backward instead
+    # of keeping them (torch.utils.checkpoint per block).
+    remat: bool = False
     # Temporal tiling: every LIF scan splits its T axis into chunks of this
     # length with the (U, S) carry threaded across chunk boundaries.
     time_chunk: int | None = None
@@ -263,19 +268,20 @@ def _im2col_patches(params, x):
 
 def conv_bn_lif_fused(params, state, x, lif_cfg, train, spike_in, policy,
                       site, *, packed):
-    """Fused eq. 4 stage, pipeline arms: im2col matmul + folded BN, then the
-    SOMA kernel at ``tokenizer.lif``.
+    """Fused eq. 4 stage, pipeline arms: im2col matmul + BN, then the SOMA
+    kernel at ``tokenizer.lif``.
 
     With ``packed=True`` and a spike input whose contraction is a multiple
     of 8, the patches ride the bit-packed batched spike kernel; otherwise
     the dense matmul of the same pipeline runs (logged when that disagrees
     with a packed request). BN never dispatches at ``tokenizer.bn``: in
-    eval it folds into the matmul weights and a bias.
+    eval it folds into the matmul weights and a bias; in train the batch
+    statistics depend on the conv output, so the BN kernel pair
+    (``_bn_cuda``, the one the Conv1DBN sites use) computes and applies
+    them.
     """
     from repro_torch.kernels import conv_spike, ops
 
-    if train:
-        _train_not_ported(f"conv pipeline arm at site {site!r}")
     patches, w_mat, (t, b, ho, wo, cdim) = _im2col_patches(params, x)
     k_out = w_mat.shape[-1]
     use_packed = packed and spike_in and cdim % 8 == 0
@@ -285,17 +291,24 @@ def conv_bn_lif_fused(params, state, x, lif_cfg, train, spike_in, policy,
         runtime_fallback(site, "cuda_packed",
                          reason + " -> dense im2col arm",
                          expected=not spike_in)
+
+    def matmul(weights):
+        weights = weights.to(patches.dtype)
+        if use_packed:
+            return ops.spike_patch_mm_train_op(patches, weights)
+        return torch.matmul(patches, weights)
+
     bn_p, bn_s = params["bn"], state["bn"]
-    w_fold, bias = conv_spike.fold_bn(w_mat, bn_p["gamma"], bn_p["beta"],
-                                      bn_s["mean"], bn_s["var"])
-    w_fold = w_fold.to(patches.dtype)
-    if use_packed:
-        y = ops.spike_patch_mm_train_op(patches, w_fold)
+    if train:
+        y, new_bn = _bn_cuda(bn_p, bn_s, matmul(w_mat), True, 0.9, 1e-5,
+                             policy, site)
     else:
-        y = torch.matmul(patches, w_fold)
-    y = y + bias.to(patches.dtype)
+        w_fold, bias = conv_spike.fold_bn(w_mat, bn_p["gamma"], bn_p["beta"],
+                                          bn_s["mean"], bn_s["var"])
+        y = matmul(w_fold) + bias.to(patches.dtype)
+        new_bn = bn_s
     spikes = lif_scan(y, lif_cfg, site="tokenizer.lif")     # (T, M, K)
-    return spikes.reshape(t, b, ho, wo, k_out), {"bn": bn_s}
+    return spikes.reshape(t, b, ho, wo, k_out), {"bn": new_bn}
 
 
 @register_kernel("conv", "cuda")
@@ -319,12 +332,14 @@ def _conv_stage_packed(params, state, x, lif_cfg, train, spike_in, policy,
 @register_kernel("conv", "fused_epilogue")
 def _conv_stage_megakernel(params, state, x, lif_cfg, train, spike_in,
                            policy, site):
-    """Single-launch eq. 4 stage: ONE kernel computes the im2col matmul
-    (bit-packed on spike inputs with ``k*k*c_in % 8 == 0``, dense arm
-    otherwise — logged), applies the folded BN and runs the SOMA membrane
-    update with (U, S) in registers. Neither ``tokenizer.bn`` nor
-    ``tokenizer.lif`` dispatches, and no pre-activation crosses device
-    memory — 3 launches -> 1 per stage."""
+    """Single-launch eq. 4 stage: ONE kernel call computes the im2col
+    matmul (bit-packed on spike inputs with ``k*k*c_in % 8 == 0``, dense arm
+    otherwise — logged), applies BN (batch statistics in the kernel in
+    train, folded weights in eval) and runs the SOMA membrane update with
+    (U, S) in registers. Neither ``tokenizer.bn`` nor ``tokenizer.lif``
+    dispatches — 3 dispatches -> 1 per stage. The train arm stays fused at
+    every stage: the reference's demotion to the pipeline is a TPU VMEM
+    rule with no meaning on this card."""
     patches, w_mat, (t, b, ho, wo, cdim) = _im2col_patches(params, x)
     packed = spike_in and cdim % 8 == 0
     if not packed:
@@ -429,9 +444,14 @@ def spikingformer_apply(params: Params, state: State, images: torch.Tensor,
     block_cfg = cfg.block
     new_blocks = []
     for i in range(cfg.num_layers):
-        x, s_new = block_apply(_index_tree(params["blocks"], i),
-                               _index_tree(state["blocks"], i), x, block_cfg,
-                               train=train)
+        args = (_index_tree(params["blocks"], i),
+                _index_tree(state["blocks"], i), x, block_cfg)
+        if cfg.remat and torch.is_grad_enabled():
+            # keep only the block's input; recompute its inside in backward
+            x, s_new = torch.utils.checkpoint.checkpoint(
+                block_apply, *args, train=train, use_reentrant=False)
+        else:
+            x, s_new = block_apply(*args, train=train)
         new_blocks.append(s_new)
         if taps is not None:
             taps.append(x)
@@ -442,14 +462,70 @@ def spikingformer_apply(params: Params, state: State, images: torch.Tensor,
                             "blocks": _stack_trees(new_blocks)}
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[:, None])[:, 0]
+    return nll.mean()
+
+
+def spikingformer_loss(params, state, images, labels,
+                       cfg: SpikingFormerConfig):
+    """BPTT training loss: ``(loss, (new_state, {"loss", "accuracy"}))``."""
+    logits, new_state = spikingformer_apply(params, state, images, cfg,
+                                            train=True)
+    loss = cross_entropy(logits, labels)
+    acc = (logits.argmax(-1) == labels).float().mean()
+    return loss, (new_state, {"loss": loss.detach(), "accuracy": acc})
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of a nested dict/list in the reference pytree's order (dict
+    keys sorted, as ``jax.tree_util`` flattens them)."""
+    return [leaf for _, leaf in _flatten(tree)]
+
+
+def tree_paths(tree) -> list[str]:
+    """Dotted names of the leaves, in :func:`tree_leaves` order."""
+    return [name for name, _ in _flatten(tree)]
+
+
+def tree_unflatten(tree, leaves):
+    """``tree``'s structure with ``leaves`` (in :func:`tree_leaves` order)
+    in place of its leaves."""
+    return _rebuild(tree, dict(zip(tree_paths(tree), leaves)))
+
+
+def tree_map(fn, *trees):
+    """``fn`` applied leaf by leaf to trees of one structure."""
+    return tree_unflatten(trees[0], [fn(*xs) for xs in
+                                     zip(*map(tree_leaves, trees))])
+
+
+def spikingformer_grad_step(params, state, images, labels,
+                            cfg: SpikingFormerConfig):
+    """One BPTT step: returns ``(grads, new_state, metrics)``, ``grads``
+    with the structure of ``params``. ``params`` is not modified: the
+    gradients are taken with respect to detached copies of its leaves."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    tracked = tree_unflatten(params, leaves)
+    with torch.enable_grad():
+        loss, (new_state, metrics) = spikingformer_loss(tracked, state,
+                                                        images, labels, cfg)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return tree_unflatten(params, grads), new_state, metrics
+
+
 # ---------------------------------------------------------------------------
 # nn.Module wrapper: the serving entry
 # ---------------------------------------------------------------------------
 
 def _flatten(tree, prefix=""):
+    """(dotted name, leaf) pairs, dict keys in sorted order."""
     if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _flatten(v, f"{prefix}{k}.")
+        for k in sorted(tree):
+            yield from _flatten(tree[k], f"{prefix}{k}.")
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _flatten(v, f"{prefix}{i}.")

@@ -44,11 +44,23 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 SIGNATURES: dict[str, tuple] = {
     # x, s, u, mask, n (= M*D), T, alpha, th_fire, th_lo, th_hi, stream
     "e2a_lif_soma_fwd": (_P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _P),
+    # g, u, s, mask, gu_last (nullable), dx, n (= M*D), T, alpha,
+    # grad_scale, stream
+    "e2a_lif_soma_bwd": (_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _P),
     # packed, w, out, G1, G2, M, C, K, 4 packed strides (g1, g2, m, byte),
     # 4 w strides (g1, g2, c, k), 4 out strides (g1, g2, m, k), stream
     "e2a_spike_matmul": (_P, _P, _P, _I, _I, _I, _I, _I) + (_L,) * 12 + (_P,),
+    # x, gamma, beta, y, mu, sqrt_d, part, M, D, rows per chunk, eps, stream
+    "e2a_bn_fwd": (_P,) * 7 + (_L, _I, _L, _F, _P),
+    # g, x, gamma, mu, sqrt_d, dx, dgamma, dbeta, part, sums, M, D,
+    # rows per chunk, stream
+    "e2a_bn_bwd": (_P,) * 10 + (_L, _I, _L, _P),
     # x, w, bias, s, T, M, C, K, packed, alpha, th_fire, stream
     "e2a_neuron_layer_eval": (_P, _P, _P, _P, _I, _L, _I, _I, _I, _F, _F, _P),
+    # x, w, gamma, beta, z, part, mu, var, sqrt_d, s, T, M, C, K, packed,
+    # alpha, th_fire, eps, stream
+    "e2a_neuron_layer_train": (_P,) * 10 + (_I, _L, _I, _I, _I, _F, _F, _F,
+                                            _P),
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,58 @@
+// Column statistics from per-chunk partial sums, shared by the batch-norm
+// kernels and the train-mode neuron layer.
+//
+// A column reduction over many rows cannot live in one block on this card,
+// so the first pass of each kernel writes, for every chunk of rows, one
+// partial sum per column into a scratch buffer laid out (chunk, column), and
+// this pass reduces the partials of a column in a fixed order. No atomics:
+// the statistics are the same on every run, so spikes downstream do not flip
+// between identical runs. The chunks are summed in double and the result is
+// rounded once to fp32; E[x^2] - mu^2 is then formed in fp32 as the
+// reference does (eq. 13-16).
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace e2a {
+
+// The finalize passes run on blocks of STAT_COLS columns x STAT_LANES lanes:
+// lane l of a column adds chunks l, l + STAT_LANES, ... (coalesced across
+// the columns of a warp), then lane 0 adds the lanes' sums in lane order.
+constexpr int STAT_COLS = 32;
+constexpr int STAT_LANES = 8;
+
+// sums[q] = sum over the n_parts chunks of part[(q * n_parts + c) * D + col],
+// in double, the same order on every run; valid in lane 0. Every thread of
+// the block must call it (it synchronises).
+template <int NQ>
+__device__ __forceinline__ void reduce_parts(const float* __restrict__ part,
+                                             int n_parts, int D, int col,
+                                             double (&sums)[NQ]) {
+  __shared__ double sh[NQ][STAT_LANES][STAT_COLS];
+  const int lane = threadIdx.y;
+  double acc[NQ];
+  for (int q = 0; q < NQ; ++q) acc[q] = 0.0;
+  if (col < D)
+    for (int c = lane; c < n_parts; c += STAT_LANES)
+      for (int q = 0; q < NQ; ++q)
+        acc[q] += (double)part[((long long)q * n_parts + c) * D + col];
+  for (int q = 0; q < NQ; ++q) sh[q][lane][threadIdx.x] = acc[q];
+  __syncthreads();
+  for (int q = 0; q < NQ; ++q) {
+    double s = 0.0;
+    for (int l = 0; l < STAT_LANES; ++l) s += sh[q][l][threadIdx.x];
+    sums[q] = s;
+  }
+}
+
+// mu, var and sqrt(var + eps) from the sums of x and x^2 over count rows.
+__device__ __forceinline__ void column_stats(double s, double q, double count,
+                                             float eps, float& mu, float& var,
+                                             float& sqrt_d) {
+  mu = (float)(s / count);                                   // eq. 13
+  const float ex2 = (float)(q / count);                      // eq. 14
+  var = fmaxf(__fsub_rn(ex2, __fmul_rn(mu, mu)), 0.0f);      // eq. 15
+  sqrt_d = __fsqrt_rn(__fadd_rn(var, eps));                  // eq. 16
+}
+
+}  // namespace e2a

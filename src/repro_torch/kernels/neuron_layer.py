@@ -1,6 +1,6 @@
-"""Single-launch neuron layer, eval arm: matmul + bias + SOMA in one kernel.
+"""The neuron layer (matmul + BN + SOMA) as one kernel call, eval and train.
 
-Replaces ``repro.kernels.neuron_layer.neuron_layer_eval``
+``neuron_layer_eval`` replaces ``repro.kernels.neuron_layer.neuron_layer_eval``
 (``_nl_eval_kernel`` with ``_accumulate`` and ``_soma``): a whole "neuron
 layer" (the Conv1DBN -> SN pair, or one im2col'd eq. 4 tokenizer stage)
 with BN folded into ``(w, bias)`` by the caller. The weight tile is fetched
@@ -19,7 +19,20 @@ cores (spikes make every product exact), the dense arm at the first stage
 by bytes. The design is ``csrc/neuron_layer.cu``: a 64 x 64 tile, 4 x 4 x T
 accumulators per thread, 64-bit offsets.
 
-The train arm (batch statistics in-kernel) is not ported yet.
+``neuron_layer_train`` replaces ``repro.kernels.neuron_layer.
+neuron_layer_train`` (``_nl_train_kernel``): the same product, then batch
+statistics over all T*M rows of each column, BN and SOMA; it returns the
+spikes and the fp32 statistics (mu, var) for the caller's running-stat
+blend. The TPU kernel had one program own all T*M rows of a feature block
+(12,544 at the blocks, 802,816 at the first tokenizer stage), which one
+block of this card cannot hold, so the wrapper's one call is three launches
+(``csrc/neuron_layer.cu``): the tile loop, whose epilogue writes z = x @ w
+once with deterministic per-row-tile column sums of z and z^2; the
+statistics; and one pass that reads z, normalises and runs SOMA over T in
+registers. That z round trip (about 0.06 ms at ``smlp.a`` on a 0.39 ms fp32
+bound) was chosen over recomputing the product, which would double the
+dominant fp32 work. Bound on this card: fp32 operations at the block sites,
+bytes at the first tokenizer stage.
 """
 from __future__ import annotations
 
@@ -32,6 +45,10 @@ from repro_torch.kernels.spike_matmul import spike_pack
 #: Time steps the kernel is instantiated for (T accumulators per thread).
 MAX_TIME_STEPS = 8
 
+#: Rows of one tile of the train arm's first pass (``BM`` in
+#: ``csrc/spike_tile.cuh``): one partial sum per tile and column.
+TILE_ROWS = 64
+
 
 def neuron_layer_eval_plain(x: torch.Tensor, w: torch.Tensor,
                             bias: torch.Tensor, *, alpha: float = 0.5,
@@ -41,6 +58,50 @@ def neuron_layer_eval_plain(x: torch.Tensor, w: torch.Tensor,
     acc = torch.matmul(x.to(w.dtype), w).float() + bias.float().reshape(1, 1, -1)
     s, _, _ = lif_soma_fwd_plain(acc, alpha=alpha, th_fire=th_fire)
     return s.to(x.dtype)
+
+
+def neuron_layer_train_plain(x: torch.Tensor, w: torch.Tensor,
+                             gamma: torch.Tensor, beta: torch.Tensor, *,
+                             alpha: float = 0.5, th_fire: float = 1.0,
+                             eps: float = 1e-5):
+    """Plain version of the train arm: dense matmul, batch statistics over
+    all T*M rows (eq. 13-16), BN (eq. 17-18), the LIF recursion. Returns
+    ``(spikes (T, M, K), mu (1, K), var (1, K))``."""
+    t, m, _ = x.shape
+    z = torch.matmul(x.to(w.dtype), w).float()
+    zf = z.reshape(t * m, -1)
+    mu = zf.sum(0, keepdim=True) / (t * m)
+    ex2 = (zf * zf).sum(0, keepdim=True) / (t * m)
+    var = torch.clamp(ex2 - mu * mu, min=0.0)
+    sqrt_d = torch.sqrt(var + eps)
+    y = gamma.float() * (z - mu) / sqrt_d + beta.float()
+    s, _, _ = lif_soma_fwd_plain(y, alpha=alpha, th_fire=th_fire)
+    return s.to(x.dtype), mu, var
+
+
+def _check_layer(what, x, w, vectors, packed):
+    if x.ndim != 3 or w.ndim != 2:
+        raise ValueError(f"{what} expects x (T, M, C) and w (C, K), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    c, k = x.shape[2], w.shape[1]
+    if w.shape[0] != c:
+        raise ValueError(f"weight contraction {w.shape[0]} != input {c}")
+    for name, v in vectors.items():
+        if v.shape != (k,):
+            raise ValueError(f"{name} shape {tuple(v.shape)} != ({k},)")
+    if packed and c % 8 != 0:
+        raise ValueError(f"packed contraction dim {c} must be a multiple of 8")
+    if not x.is_cuda:
+        return
+    if not 1 <= x.shape[0] <= MAX_TIME_STEPS:
+        raise ValueError(f"{what} kernel supports 1..{MAX_TIME_STEPS} time "
+                         f"steps, got {x.shape[0]}")
+    if any(a.dtype != torch.float32 for a in (x, w, *vectors.values())):
+        raise TypeError(f"{what} kernel takes float32 operands")
+    if any(a.device != x.device for a in (w, *vectors.values())):
+        raise ValueError(f"{what}: operands on different devices")
+    if not all(a.is_contiguous() for a in (x, w, *vectors.values())):
+        raise ValueError(f"{what} kernel takes contiguous operands")
 
 
 def _launch_neuron_layer_eval(xin, w, bias, t, m, c, k, packed, alpha,
@@ -63,40 +124,54 @@ def neuron_layer_eval(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
     tensor code) so that it crosses device memory at 1 bit/element and is
     expanded inside the kernel; C must then be a multiple of 8.
     """
-    if x.ndim != 3 or w.ndim != 2:
-        raise ValueError(f"neuron_layer_eval expects x (T, M, C) and w (C, K),"
-                         f" got {tuple(x.shape)} and {tuple(w.shape)}")
-    t, m, c = x.shape
-    cw, k = w.shape
-    if cw != c:
-        raise ValueError(f"weight contraction {cw} != input {c}")
-    if bias.shape != (k,):
-        raise ValueError(f"bias shape {tuple(bias.shape)} != ({k},)")
-    if packed and c % 8 != 0:
-        raise ValueError(f"packed contraction dim {c} must be a multiple of 8")
+    _check_layer("neuron_layer_eval", x, w, {"bias": bias}, packed)
     if not x.is_cuda:
         return neuron_layer_eval_plain(x, w, bias, alpha=alpha,
                                        th_fire=th_fire)
-    if not 1 <= t <= MAX_TIME_STEPS:
-        raise ValueError(f"neuron_layer_eval kernel supports 1..{MAX_TIME_STEPS}"
-                         f" time steps, got {t}")
-    if x.dtype != torch.float32 or w.dtype != torch.float32 \
-            or bias.dtype != torch.float32:
-        raise TypeError(f"neuron_layer_eval kernel takes float32, got x "
-                        f"{x.dtype}, w {w.dtype}, bias {bias.dtype}")
-    if w.device != x.device or bias.device != x.device:
-        raise ValueError("neuron_layer_eval: operands on different devices")
+    t, m, c = x.shape
     xin = spike_pack(x) if packed else x
-    if not (xin.is_contiguous() and w.is_contiguous()
-            and bias.is_contiguous()):
-        raise ValueError("neuron_layer_eval kernel takes contiguous operands")
     with torch.cuda.device(x.device):
         s = _launch_neuron_layer_eval(
-            xin, w, bias, t, m, c, k, packed, alpha, th_fire,
+            xin, w, bias, t, m, c, w.shape[1], packed, alpha, th_fire,
             torch.cuda.current_stream().cuda_stream)
     neuron_layer_eval.launches += 1
     return s
 
 
-#: Kernel launches since the count was last set to 0.
+def neuron_layer_train(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
+                       beta: torch.Tensor, *, alpha: float = 0.5,
+                       th_fire: float = 1.0, eps: float = 1e-5,
+                       packed: bool = False):
+    """Train-mode neuron layer: x (T, M, C) @ w (C, K) -> BN with the batch
+    statistics over all T*M rows -> SOMA. Returns ``(spikes (T, M, K),
+    mu (1, K), var (1, K))``, the statistics in fp32. ``packed`` as in
+    :func:`neuron_layer_eval`. One call launches the kernel's three passes
+    and counts once."""
+    _check_layer("neuron_layer_train", x, w, {"gamma": gamma, "beta": beta},
+                 packed)
+    if not x.is_cuda:
+        return neuron_layer_train_plain(x, w, gamma, beta, alpha=alpha,
+                                        th_fire=th_fire, eps=eps)
+    t, m, c = x.shape
+    k = w.shape[1]
+    xin = spike_pack(x) if packed else x
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    s, z = (torch.empty((t, m, k), **f32) for _ in range(2))
+    part = torch.empty((2, -(-m // TILE_ROWS), k), **f32)
+    mu, var = (torch.empty((1, k), **f32) for _ in range(2))
+    sqrt_d = torch.empty((k,), **f32)
+    with torch.cuda.device(dev):
+        code = build.load().e2a_neuron_layer_train(
+            xin.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            z.data_ptr(), part.data_ptr(), mu.data_ptr(), var.data_ptr(),
+            sqrt_d.data_ptr(), s.data_ptr(), t, m, c, k, int(packed), alpha,
+            th_fire, eps, torch.cuda.current_stream().cuda_stream)
+    build.check_launch(code, "neuron_layer_train")
+    neuron_layer_train.launches += 1
+    return s, mu, var
+
+
+#: Kernel launches since the counts were last set to 0.
 neuron_layer_eval.launches = 0
+neuron_layer_train.launches = 0

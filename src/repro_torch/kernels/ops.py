@@ -1,41 +1,86 @@
-"""Forward wrappers of the kernels, under the reference's op names.
+"""Differentiable kernel ops, under the reference's op names.
 
-The counterpart of ``repro.kernels.ops``. There each op is a ``custom_vjp``
-pairing a forward kernel with its backward; here only the forward halves
-exist so far. The ``torch.autograd.Function`` bodies (GRAD kernel, dense
-matmul VJPs, replay for the neuron layer) arrive with the training slice.
-Until then a call that would need a gradient — an input that requires grad
-while grad mode is on — raises ``NotImplementedError`` instead of returning
-a tensor that silently carries no gradient.
+The counterpart of ``repro.kernels.ops``: each of the reference's
+``custom_vjp`` ops is a ``torch.autograd.Function`` here, pairing a forward
+kernel with its backward, as in the E2ATST reuse framework (Fig. 4):
+
+* ``lif_soma_op`` / ``lif_soma_carry_op`` / ``lif_soma_step_op``: SOMA
+  forward, GRAD (``lif_soma_bwd``) backward (eq. 11-12);
+* ``bn_train_op``: the BN forward and backward kernels (eq. 13-23);
+* ``spike_matmul_train_op`` / ``spike_bmm_train_op`` /
+  ``spike_patch_mm_train_op``: the bit-packed spike matmul forward, the
+  dense matmul VJP backward (the weight gradient needs the real spike
+  values, as in the reference, which computes it outside any kernel);
+* ``neuron_layer_train_op`` / ``neuron_layer_eval_op``: the neuron-layer
+  kernel forward; a backward that stores no per-step residuals but replays
+  the pre-activation through SOMA, GRAD and (train) the BN backward, then
+  the dense matmul VJP.
 
 Launch counts live on the kernel wrappers these ops call
-(``repro_torch.kernels.launch_counts``).
+(``repro_torch.kernels.launch_counts``). On CPU tensors every wrapper takes
+its plain version, so these ops are also what the CPU tests differentiate.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import conv_spike, lif_soma, neuron_layer, \
-    spike_matmul
+from repro_torch.kernels import conv_spike, fused_bn, lif_soma, \
+    neuron_layer, spike_matmul
 
 
-def _forward_only(name: str, *tensors: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: the backward pass is not ported yet (it arrives with "
-            f"the training slice: the autograd.Function bodies and the "
-            f"lif_soma_bwd / bn / neuron_layer_train kernels); call under "
-            f"torch.no_grad() or with inputs that do not require grad")
+class _LifSoma(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, alpha, th_fire, th_lo, th_hi, grad_scale):
+        s, u, mask = lif_soma.lif_soma_fwd(x, alpha=alpha, th_fire=th_fire,
+                                           th_lo=th_lo, th_hi=th_hi)
+        ctx.save_for_backward(u, s, mask)
+        ctx.lif = (alpha, grad_scale)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        u, s, mask = ctx.saved_tensors
+        alpha, grad_scale = ctx.lif
+        dx = lif_soma.lif_soma_bwd(g.contiguous(), u, s, mask, alpha=alpha,
+                                   grad_scale=grad_scale)
+        return dx, None, None, None, None, None
 
 
 def lif_soma_op(x: torch.Tensor, alpha: float = 0.5, th_fire: float = 1.0,
                 th_lo: float = 0.0, th_hi: float = 2.0,
                 grad_scale: float = 1.0) -> torch.Tensor:
-    """Fused LIF over (T, M, D); returns spikes."""
-    _forward_only("lif_soma_op", x)
-    s, _, _ = lif_soma.lif_soma_fwd(x, alpha=alpha, th_fire=th_fire,
-                                    th_lo=th_lo, th_hi=th_hi)
-    return s
+    """Differentiable fused LIF over (T, M, D); returns spikes."""
+    return _LifSoma.apply(x, alpha, th_fire, th_lo, th_hi, grad_scale)
+
+
+class _LifSomaCarry(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, u0, s0, alpha, th_fire, th_lo, th_hi, grad_scale):
+        x = x.clone()
+        x[0] += alpha * u0 * (1.0 - s0)
+        s, u, mask = lif_soma.lif_soma_fwd(x, alpha=alpha, th_fire=th_fire,
+                                           th_lo=th_lo, th_hi=th_hi)
+        ctx.save_for_backward(u, s, mask, u0, s0)
+        ctx.lif = (alpha, grad_scale)
+        return s, u[-1].clone(), s[-1].clone()
+
+    @staticmethod
+    def backward(ctx, g_s, g_u_last, g_s_last):
+        u, s, mask, u0, s0 = ctx.saved_tensors
+        alpha, grad_scale = ctx.lif
+        # s_last IS spikes[-1]: its cotangent joins the per-step one.
+        g_eff = g_s.clone() if g_s is not None else torch.zeros_like(s)
+        if g_s_last is not None:
+            g_eff[-1] += g_s_last
+        dx = lif_soma.lif_soma_bwd(
+            g_eff.contiguous(), u, s, mask,
+            g_u_last.contiguous() if g_u_last is not None else None,
+            alpha=alpha, grad_scale=grad_scale)
+        # U_1 = alpha * u0 * (1 - s0) + X_1 and dU_1/dX_1 = 1, so dL/dU_1 =
+        # dx[0]; the reset path stays attached (the eager scan's gradient).
+        g_u0 = dx[0] * alpha * (1.0 - s0)
+        g_s0 = -dx[0] * alpha * u0
+        return dx, g_u0, g_s0, None, None, None, None, None
 
 
 def lif_soma_carry_op(x: torch.Tensor, u0: torch.Tensor, s0: torch.Tensor,
@@ -46,35 +91,197 @@ def lif_soma_carry_op(x: torch.Tensor, u0: torch.Tensor, s0: torch.Tensor,
     ``(u0, s0)`` (each (M, D)) instead of rest and returns ``(spikes,
     u_last, s_last)``. The initial state folds into the first input step
     (eq. 11: U_1 = alpha * u0 * (1 - s0) + X_1), so the SOMA kernel itself
-    is unchanged."""
-    _forward_only("lif_soma_carry_op", x, u0, s0)
-    x = x.clone()
-    x[0] += alpha * u0 * (1.0 - s0)
-    s, u, _ = lif_soma.lif_soma_fwd(x, alpha=alpha, th_fire=th_fire,
-                                    th_lo=th_lo, th_hi=th_hi)
-    return s, u[-1], s[-1]
+    is unchanged; the backward seeds the GRAD kernel with the incoming
+    dL/du_last and returns exact (du0, ds0)."""
+    return _LifSomaCarry.apply(x, u0, s0, alpha, th_fire, th_lo, th_hi,
+                               grad_scale)
+
+
+def lif_soma_step_op(x: torch.Tensor, u0: torch.Tensor, s0: torch.Tensor,
+                     alpha: float = 0.5, th_fire: float = 1.0,
+                     th_lo: float = 0.0, th_hi: float = 2.0,
+                     grad_scale: float = 1.0):
+    """Single-token step of the stateful fused SOMA: the T=1 case of
+    :func:`lif_soma_carry_op`. ``x``/``u0``/``s0`` are (M, D); returns
+    ``(spikes, u_next, s_next)``, each (M, D)."""
+    s, u_next, s_next = lif_soma_carry_op(x[None], u0, s0, alpha, th_fire,
+                                          th_lo, th_hi, grad_scale)
+    return s[0], u_next, s_next
+
+
+class _BnTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        y, mu, sqrt_d = fused_bn.bn_fwd(x, gamma, beta, eps=eps)
+        ctx.save_for_backward(x, gamma, mu, sqrt_d)
+        mu_out, var = mu.reshape(-1), sqrt_d.square().reshape(-1) - eps
+        ctx.mark_non_differentiable(mu_out, var)
+        return y, mu_out, var
+
+    @staticmethod
+    def backward(ctx, gy, _g_mu, _g_var):
+        # mu/var cotangents: the running stats sit outside the loss graph
+        x, gamma, mu, sqrt_d = ctx.saved_tensors
+        dx, dgamma, dbeta = fused_bn.bn_bwd(gy.contiguous(), x, gamma, mu,
+                                            sqrt_d)
+        # fp32 statistics rows, cast back to the parameter's dtype
+        return (dx, dgamma.reshape(gamma.shape).to(gamma.dtype),
+                dbeta.reshape(gamma.shape).to(gamma.dtype), None)
+
+
+def bn_train_op(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                eps: float = 1e-5):
+    """Differentiable training BatchNorm over (M, D). Returns ``(y, mu,
+    var)``: the kernel computes the batch statistics anyway, so they are
+    handed out (fp32, (D,)) for the caller's running-stat blend, ``var`` as
+    ``sqrt_d^2 - eps`` (it can round below zero: the caller clamps). Only
+    ``y`` carries gradients."""
+    return _BnTrain.apply(x, gamma, beta, eps)
+
+
+class _SpikeMatmul(torch.autograd.Function):
+    """``forward_fn(spikes, w)`` on the kernel; the dense VJP backward:
+    dS = g W^T, dW = S^T g (batched over leading dims; a weight shared by
+    every batch reduces over them)."""
+
+    @staticmethod
+    def forward(ctx, spikes, w, forward_fn, shared_w):
+        ctx.save_for_backward(spikes, w)
+        ctx.shared_w = shared_w
+        return forward_fn(spikes, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        spikes, w = ctx.saved_tensors
+        d_spikes = torch.matmul(g, w.to(g.dtype).transpose(-1, -2))
+        if ctx.shared_w:
+            d_w = torch.matmul(spikes.reshape(-1, spikes.shape[-1]).to(
+                g.dtype).t(), g.reshape(-1, g.shape[-1]))
+        else:
+            d_w = torch.matmul(spikes.to(g.dtype).transpose(-1, -2), g)
+        return d_spikes.to(spikes.dtype), d_w.to(w.dtype), None, None
 
 
 def spike_matmul_train_op(spikes: torch.Tensor,
                           w: torch.Tensor) -> torch.Tensor:
-    """Bit-packed spike matmul: (M, C) {0,1} x (C, K). C % 8 == 0."""
-    _forward_only("spike_matmul_train_op", spikes, w)
-    return spike_matmul.spike_matmul(spikes, w)
+    """Differentiable bit-packed spike matmul: (M, C) {0,1} x (C, K).
+    C % 8 == 0."""
+    return _SpikeMatmul.apply(spikes, w, spike_matmul.spike_matmul, False)
 
 
 def spike_bmm_train_op(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Batched bit-packed spike matmul: (G, M, C) {0,1} x (G, C, K) ->
-    (G, M, K), or the same with two batch dims. C % 8 == 0."""
-    _forward_only("spike_bmm_train_op", spikes, w)
-    return spike_matmul.spike_matmul_batched(spikes, w)
+    """Differentiable batched bit-packed spike matmul: (G, M, C) {0,1} x
+    (G, C, K) -> (G, M, K), or the same with two batch dims. C % 8 == 0.
+    Either operand may be a view; its gradient comes back in its shape."""
+    return _SpikeMatmul.apply(spikes, w, spike_matmul.spike_matmul_batched,
+                              False)
 
 
 def spike_patch_mm_train_op(patches: torch.Tensor,
                             w: torch.Tensor) -> torch.Tensor:
-    """Time-major im2col spike-conv matmul: (T, M, C) {0,1} patches x
-    (C, K) shared weight -> (T, M, K). C (= k*k*c_in) % 8 == 0."""
-    _forward_only("spike_patch_mm_train_op", patches, w)
-    return conv_spike.spike_patch_matmul(patches, w)
+    """Differentiable time-major im2col spike-conv matmul: (T, M, C) {0,1}
+    patches x (C, K) shared weight -> (T, M, K); dW reduces over T and M.
+    C (= k*k*c_in) % 8 == 0."""
+    return _SpikeMatmul.apply(patches, w, conv_spike.spike_patch_matmul,
+                              True)
+
+
+def _replay_soma(y, g_s, alpha, th_fire, th_lo, th_hi, grad_scale):
+    """Rebuild (U, S, mask) from the recomputed input currents ``y`` with
+    the SOMA kernel and run the GRAD kernel on them: dL/dy."""
+    s, u, mask = lif_soma.lif_soma_fwd(y, alpha=alpha, th_fire=th_fire,
+                                       th_lo=th_lo, th_hi=th_hi)
+    return lif_soma.lif_soma_bwd(g_s.to(y.dtype).contiguous(), u, s, mask,
+                                 alpha=alpha, grad_scale=grad_scale)
+
+
+def _matmul_vjp(x, w, dz):
+    """dx = dz W^T, dW = X^T dz over all (T, M) rows."""
+    dx = torch.matmul(dz, w.to(dz.dtype).t()).to(x.dtype)
+    dw = torch.matmul(x.reshape(-1, x.shape[-1]).to(dz.dtype).t(),
+                      dz.reshape(-1, dz.shape[-1])).to(w.dtype)
+    return dx, dw
+
+
+class _NeuronLayerTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, gamma, beta, alpha, th_fire, th_lo, th_hi,
+                grad_scale, eps, packed):
+        s, mu, var = neuron_layer.neuron_layer_train(
+            x, w, gamma, beta, alpha=alpha, th_fire=th_fire,
+            eps=eps, packed=packed)
+        sqrt_d = torch.sqrt(var + eps)
+        ctx.save_for_backward(x, w, gamma, beta, mu, sqrt_d)
+        ctx.lif = (alpha, th_fire, th_lo, th_hi, grad_scale)
+        mu_out, var_out = mu.reshape(-1), var.reshape(-1)
+        ctx.mark_non_differentiable(mu_out, var_out)
+        return s, mu_out, var_out
+
+    @staticmethod
+    def backward(ctx, g_s, _g_mu, _g_var):
+        x, w, gamma, beta, mu, sqrt_d = ctx.saved_tensors
+        t, m, _ = x.shape
+        # Replay: recompute the pre-activation (dense matmul + saved-stat
+        # BN) and regenerate the (U, S, mask) GRAD consumes.
+        z = torch.matmul(x.float(), w.float())
+        y = gamma.float() * (z - mu) / sqrt_d + beta.float()
+        dy = _replay_soma(y, g_s, *ctx.lif)
+        k = z.shape[-1]
+        dz, dgamma, dbeta = fused_bn.bn_bwd(dy.reshape(t * m, k),
+                                            z.reshape(t * m, k),
+                                            gamma.float(), mu, sqrt_d)
+        dx, dw = _matmul_vjp(x, w, dz.reshape(t, m, k))
+        return (dx, dw, dgamma.reshape(gamma.shape).to(gamma.dtype),
+                dbeta.reshape(beta.shape).to(beta.dtype),
+                None, None, None, None, None, None, None)
+
+
+def neuron_layer_train_op(x: torch.Tensor, w: torch.Tensor,
+                          gamma: torch.Tensor, beta: torch.Tensor,
+                          alpha: float = 0.5, th_fire: float = 1.0,
+                          th_lo: float = 0.0, th_hi: float = 2.0,
+                          grad_scale: float = 1.0, eps: float = 1e-5,
+                          packed: bool = False):
+    """Differentiable neuron layer, train mode: ``x (T, M, C) @ w (C, K)``
+    -> BatchNorm with batch statistics over T*M -> SOMA (eq. 11), one
+    kernel call. Returns ``(spikes, mu, var)``, the statistics fp32 (K,)
+    for the caller's running-stat blend; only ``spikes`` carries gradients.
+    ``packed=True`` bit-packs the {0,1} input along C (C % 8 == 0).
+
+    The backward stores no per-step residuals: it replays the recomputed
+    pre-activation through the SOMA/GRAD kernel pair (eq. 12) and the BN
+    backward kernel (eq. 19-23), then closes with the dense matmul VJP.
+
+    Replay caveat: the forward kernel and the backward's dense matmul both
+    accumulate in fp32 but in different orders, so a membrane within about
+    an ulp of a threshold can fire differently in the replay than in the
+    emitted spikes; the gradient is then the exact gradient of the replayed
+    trajectory. Measure-zero on continuous inputs and bounded by the
+    surrogate window; keeping (U, S, mask) instead would cost the 3 x (T, M,
+    K) memory traffic this op exists to remove.
+    """
+    return _NeuronLayerTrain.apply(x, w, gamma, beta, alpha, th_fire, th_lo,
+                                   th_hi, grad_scale, eps, packed)
+
+
+class _NeuronLayerEval(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias, alpha, th_fire, th_lo, th_hi, grad_scale,
+                packed):
+        ctx.save_for_backward(x, w, bias)
+        ctx.lif = (alpha, th_fire, th_lo, th_hi, grad_scale)
+        return neuron_layer.neuron_layer_eval(x, w, bias,
+                                              alpha=alpha, th_fire=th_fire,
+                                              packed=packed)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, bias = ctx.saved_tensors
+        y = torch.matmul(x.float(), w.float()) + bias.float()
+        dy = _replay_soma(y, g, *ctx.lif)
+        dx, dw = _matmul_vjp(x, w, dy)
+        dbias = dy.sum(dim=(0, 1)).reshape(bias.shape).to(bias.dtype)
+        return dx, dw, dbias, None, None, None, None, None, None
 
 
 def neuron_layer_eval_op(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -82,9 +289,10 @@ def neuron_layer_eval_op(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                          th_lo: float = 0.0, th_hi: float = 2.0,
                          grad_scale: float = 1.0,
                          packed: bool = False) -> torch.Tensor:
-    """Single-launch neuron layer, eval mode: BN already folded into
+    """Differentiable neuron layer, eval mode: BN already folded into
     ``(w, bias)``, so the kernel is matmul + bias + SOMA. Returns spikes
-    (T, M, K)."""
-    _forward_only("neuron_layer_eval_op", x, w, bias)
-    return neuron_layer.neuron_layer_eval(x, w, bias, alpha=alpha,
-                                          th_fire=th_fire, packed=packed)
+    (T, M, K). The backward replays the recomputed pre-activation through
+    the GRAD kernel, like the train op (gradients reach x, w and bias; BN
+    parameters get theirs through the caller's differentiable fold)."""
+    return _NeuronLayerEval.apply(x, w, bias, alpha, th_fire, th_lo, th_hi,
+                                  grad_scale, packed)

@@ -1,0 +1,63 @@
+"""Synthetic vision stream: deterministic, host-shardable, learnable.
+
+A copy of ``repro.train.data``'s vision stream (numpy, the same seeds), so
+both packages see identical batches: batch ``step`` of host ``host_index``
+draws from ``numpy.random.default_rng((seed, step, host_index))``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionDataConfig:
+    image_size: int
+    num_classes: int
+    global_batch: int
+    channels: int = 3
+    seed: int = 1234
+    # Emit {0,1} spike frames (DVS-style event data) by thresholding the
+    # blob images; models with ``spike_input=True`` pack the first stage's
+    # raw values, so their stream must be binary.
+    spikes: bool = False
+
+
+class SyntheticVision:
+    """Deterministic quadrant-blob classification stream (learnable).
+
+    Each image is Gaussian noise plus a bright blob in one of four
+    quadrants; the label is the quadrant. Each host generates only its
+    slice of the global batch, keyed by (seed, step, host_index).
+    """
+
+    def __init__(self, cfg: VisionDataConfig):
+        self.cfg = cfg
+
+    def batch(self, step: int, host_index: int = 0,
+              host_count: int = 1) -> dict[str, np.ndarray]:
+        cfg = self.cfg
+        local = cfg.global_batch // host_count
+        size = cfg.image_size
+        rng = np.random.default_rng((cfg.seed, step, host_index))
+        labels = rng.integers(0, min(4, cfg.num_classes),
+                              size=local).astype(np.int32)
+        imgs = rng.normal(0, 0.1, size=(local, size, size,
+                                        cfg.channels)).astype(np.float32)
+        half = size // 2
+        for i, lab in enumerate(labels):
+            y0 = (int(lab) // 2) * half
+            x0 = (int(lab) % 2) * half
+            imgs[i, y0:y0 + half, x0:x0 + half] += 1.0
+        if cfg.spikes:   # blob pixels (~1.0) fire, background noise doesn't
+            imgs = (imgs > 0.5).astype(np.float32)
+        return {"images": imgs, "labels": labels}
+
+    def iterator(self, start_step: int = 0, host_index: int = 0,
+                 host_count: int = 1) -> Iterator[dict[str, np.ndarray]]:
+        step = start_step
+        while True:
+            yield self.batch(step, host_index, host_count)
+            step += 1

@@ -1,0 +1,154 @@
+"""The CUDA kernels against their plain versions on the card, at small
+shapes, and one training step on the card.
+
+Every test here is marked ``cuda`` and skips with a reason where there is no
+CUDA device. The file imports neither JAX nor the JAX package (the card's
+machine has none), so it runs there without the suite's conftest:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
+        tests/test_torch_cuda.py
+
+``python3 chip_smoke.py`` makes the same comparisons at the model's full
+shapes.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import (launch_counts, lif_soma, neuron_layer,
+                                 reset_launch_counts, spike_matmul)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _spikes(rng, shape, rate=0.3):
+    return (rng.random(shape) < rate).astype(np.float32)
+
+
+def _dyadic(rng, shape, scale=64, span=16):
+    return (rng.integers(-span, span, shape) / scale).astype(np.float32)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the CUDA kernels run only on a card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernels_against_plain_versions_on_the_card():
+    """Needs an NVIDIA GPU and nvcc; ``python3 chip_smoke.py`` runs the same
+    comparison at the model's full shapes."""
+    dev = _card()
+    rng = np.random.default_rng(0)
+    reset_launch_counts()
+    x = _t(rng.normal(0.3, 1.2, (4, 70, 33)).astype(np.float32)).to(dev)
+    for g, p in zip(lif_soma.lif_soma_fwd(x), lif_soma.lif_soma_fwd_plain(x)):
+        assert torch.equal(g, p)
+    s = _t(_spikes(rng, (3, 52, 64))).to(dev)
+    w = _t(rng.integers(-8, 9, (3, 52, 64)).astype(np.float32)).to(dev)
+    got = spike_matmul.spike_matmul_batched(s, w.transpose(1, 2))
+    assert torch.equal(got, torch.matmul(s, w.transpose(1, 2)))
+    assert torch.equal(spike_matmul.spike_matmul(s[0], w[0].t()),
+                       s[0] @ w[0].t())
+    for packed, c in ((True, 72), (False, 27)):
+        xin = _t(_spikes(rng, (2, 70, c)) if packed
+                 else _dyadic(rng, (2, 70, c), 16, 32)).to(dev)
+        wd, b = _t(_dyadic(rng, (c, 20))).to(dev), _t(_dyadic(rng, (20,))).to(dev)
+        assert torch.equal(
+            neuron_layer.neuron_layer_eval(xin, wd, b, packed=packed),
+            neuron_layer.neuron_layer_eval_plain(xin, wd, b))
+    torch.cuda.synchronize()
+    assert launch_counts() == {"lif_soma_fwd": 1, "lif_soma_bwd": 0,
+                               "spike_matmul_packed": 1,
+                               "spike_matmul_packed_batched": 1,
+                               "bn_fwd": 0, "bn_bwd": 0,
+                               "neuron_layer_train": 0,
+                               "neuron_layer_eval": 2}
+
+
+@pytest.mark.cuda
+def test_training_kernels_against_plain_versions_on_the_card():
+    """lif_soma_bwd bitwise (with and without gu_last, vector and scalar
+    arms); bn_fwd / bn_bwd and neuron_layer_train within the statistics'
+    order of summation (rtol 1e-5)."""
+    from repro_torch.kernels import fused_bn
+    dev = _card()
+    rng = np.random.default_rng(1)
+    reset_launch_counts()
+    for shape in ((4, 70, 32), (3, 7, 9)):          # n % 4 == 0 and != 0
+        x = _t(rng.normal(0.3, 1.2, shape).astype(np.float32)).to(dev)
+        s, u, m = lif_soma.lif_soma_fwd_plain(x)
+        g = torch.randn(shape, device=dev)
+        gu = torch.randn(shape[1:], device=dev)
+        for carry in (None, gu):
+            assert torch.equal(lif_soma.lif_soma_bwd(g, u, s, m, carry),
+                               lif_soma.lif_soma_bwd_plain(g, u, s, m, carry))
+    x = torch.randn(300, 24, device=dev) * 2 + 1
+    gamma, beta = torch.rand(24, device=dev) + 0.5, torch.randn(24, device=dev)
+    got, want = fused_bn.bn_fwd(x, gamma, beta), \
+        fused_bn.bn_fwd_plain(x, gamma, beta)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    g = torch.randn_like(x)
+    got = fused_bn.bn_bwd(g, x, gamma, want[1], want[2])
+    for a, b in zip(got, fused_bn.bn_bwd_plain(g, x, gamma, want[1],
+                                                want[2])):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+    for packed, c in ((True, 72), (False, 27)):
+        xin = _t(_spikes(rng, (2, 70, c)) if packed
+                 else rng.normal(0.5, 1, (2, 70, c)).astype(np.float32))
+        w = _t((rng.normal(size=(c, 20)) * 1.5 / c ** 0.5).astype(np.float32))
+        s, mu, var = neuron_layer.neuron_layer_train(
+            xin.to(dev), w.to(dev), gamma[:20], beta[:20], packed=packed)
+        s_p, mu_p, var_p = neuron_layer.neuron_layer_train_plain(
+            xin.to(dev), w.to(dev), gamma[:20], beta[:20])
+        assert float((s != s_p).float().mean()) <= 1e-3
+        torch.testing.assert_close(mu, mu_p, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(var, var_p, rtol=1e-5, atol=1e-6)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert (counts["lif_soma_bwd"], counts["bn_fwd"], counts["bn_bwd"],
+            counts["neuron_layer_train"]) == (4, 1, 1, 2)
+
+
+@pytest.mark.cuda
+def test_one_training_step_on_the_card():
+    """One ``make_train_step`` step of ``spikingformer-smoke`` under
+    ``cuda-full`` on the card: finite, every training kernel launched, and
+    within 1e-3 of the same step under ``eager`` on the card."""
+    from repro_torch.configs import get_spikingformer_config
+    from repro_torch.core.policy import named_policy
+    from repro_torch.core.spikingformer import init_spikingformer
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    dev = _card()
+    cfg = get_spikingformer_config("spikingformer-smoke@cuda-full")
+    params, state = init_spikingformer(torch.Generator().manual_seed(0), cfg,
+                                       dev)
+    images = torch.rand(4, 32, 32, 3, device=dev)
+    labels = torch.tensor([0, 1, 2, 3], device=dev)
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    # the eager tokenizer's convolution in full fp32, as in the reference
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name in ("cuda-full", "eager"):
+            step = make_train_step(cfg.with_policy(named_policy(name)),
+                                   OptimizerConfig())
+            reset_launch_counts()
+            *_, metrics = step(params, state, init_opt_state(params), images,
+                               labels)
+            torch.cuda.synchronize()
+            out[name] = (float(metrics["loss"]), launch_counts())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    loss, counts = out["cuda-full"]
+    assert np.isfinite(loss) and abs(loss - out["eager"][0]) <= 1e-3
+    for k in ("lif_soma_fwd", "lif_soma_bwd", "bn_fwd", "bn_bwd",
+              "neuron_layer_train", "spike_matmul_packed",
+              "spike_matmul_packed_batched"):
+        assert counts[k] > 0, (k, counts)
+    assert set(out["eager"][1].values()) == {0}

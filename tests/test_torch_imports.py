@@ -37,7 +37,8 @@ def test_modules_are_where_the_reference_has_them():
                  "core.spiking_layers", "core.spikingformer",
                  "kernels.lif_soma", "kernels.spike_matmul",
                  "kernels.conv_spike", "kernels.neuron_layer", "kernels.ops",
-                 "configs.spikingformer"):
+                 "kernels.fused_bn", "configs.spikingformer",
+                 "train.optimizer", "train.data", "train.loop"):
         assert f"repro_torch.{name}" in MODULES
         assert (ROOT / "src" / "repro" / (name.replace(".", "/") + ".py")) \
             .is_file()
@@ -145,5 +146,5 @@ def test_c_interface_matches_the_ctypes_signatures():
     for name, argtypes in build.SIGNATURES.items():
         assert [kinds[t] for t in argtypes] == found[name], name
     assert [s.name for s in build.sources()] == [
-        "lif_soma.cu", "neuron_layer.cu", "spike_matmul.cu"]
+        "fused_bn.cu", "lif_soma.cu", "neuron_layer.cu", "spike_matmul.cu"]
     assert "compute_90a" in " ".join(build.NVCC_FLAGS)

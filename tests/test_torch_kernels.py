@@ -5,8 +5,9 @@ Pallas kernels in interpret mode (what ``interpret=None`` resolves to on a
 CPU) and its ``repro.kernels.ref`` oracles; the port's wrappers take their
 plain PyTorch versions here because the tensors lie on the CPU. The CUDA
 kernels themselves run only on a card: ``python3 chip_smoke.py`` holds them
-against the same plain versions there, and the ``cuda``-marked test at the
-end does so at small shapes.
+against the same plain versions there, and the ``cuda``-marked tests of
+``test_torch_cuda.py`` do so at small shapes (the training kernels' CPU
+parity is in ``test_torch_grads.py``).
 
 Tolerances: elementwise recursions and products of {0,1} with integers or
 dyadic weights are exact in fp32 in any order of summation, so those compare
@@ -324,28 +325,18 @@ def test_fold_bn_matches_reference():
 
 
 # ---------------------------------------------------------------------------
-# ops: forward only, launch counters, the card
+# launch counters, the card
 # ---------------------------------------------------------------------------
-
-def test_ops_refuse_to_return_a_tensor_without_its_gradient():
-    x = torch.zeros(2, 4, 8, requires_grad=True)
-    w = torch.zeros(8, 3, requires_grad=True)
-    for call in (lambda: ops.lif_soma_op(x),
-                 lambda: ops.spike_matmul_train_op(x[0].detach(), w),
-                 lambda: ops.spike_bmm_train_op(x, w.expand(2, 8, 3)),
-                 lambda: ops.spike_patch_mm_train_op(x.detach(), w),
-                 lambda: ops.neuron_layer_eval_op(x, w.detach(),
-                                                  torch.zeros(3))):
-        with pytest.raises(NotImplementedError, match="training slice"):
-            call()
-    with torch.no_grad():
-        assert ops.lif_soma_op(x).shape == x.shape
-
 
 def test_plain_versions_do_not_count_as_launches():
     reset_launch_counts()
-    ops.lif_soma_op(torch.zeros(2, 4, 8))
+    x = torch.zeros(2, 4, 8, requires_grad=True)
+    ops.lif_soma_op(x).sum().backward()
     ops.spike_matmul_train_op(torch.zeros(4, 8), torch.zeros(8, 3))
+    ops.bn_train_op(torch.randn(6, 3, requires_grad=True), torch.ones(3),
+                    torch.zeros(3))[0].sum().backward()
+    ops.neuron_layer_train_op(torch.zeros(2, 4, 8), torch.zeros(8, 3),
+                              torch.ones(3), torch.zeros(3), packed=True)
     assert launch_counts() == dict.fromkeys(KERNELS, 0)
 
 
@@ -354,37 +345,18 @@ def test_kernel_table_names_sources_that_exist():
     root = Path(__file__).resolve().parent.parent
     for name, info in KERNELS.items():
         assert (root / info["source"]).is_file(), name
-        ref_file, line = info["replaces"].split(":")
-        text = (root / ref_file).read_text().splitlines()
-        assert "pallas_call" in text[int(line) - 1], (name, info["replaces"])
-
-
-@pytest.mark.cuda
-def test_kernels_against_plain_versions_on_the_card():
-    """Needs an NVIDIA GPU and nvcc; ``python3 chip_smoke.py`` runs the same
-    comparison at the model's full shapes."""
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA device: the CUDA kernels run only on a card")
-    rng = np.random.default_rng(0)
-    dev = torch.device("cuda")
-    reset_launch_counts()
-    x = _t(rng.normal(0.3, 1.2, (4, 70, 33)).astype(np.float32)).to(dev)
-    for g, p in zip(lif_soma.lif_soma_fwd(x), lif_soma.lif_soma_fwd_plain(x)):
-        assert torch.equal(g, p)
-    s = _t(_spikes(rng, (3, 52, 64))).to(dev)
-    w = _t(rng.integers(-8, 9, (3, 52, 64)).astype(np.float32)).to(dev)
-    got = spike_matmul.spike_matmul_batched(s, w.transpose(1, 2))
-    assert torch.equal(got, torch.matmul(s, w.transpose(1, 2)))
-    assert torch.equal(spike_matmul.spike_matmul(s[0], w[0].t()),
-                       s[0] @ w[0].t())
-    for packed, c in ((True, 72), (False, 27)):
-        xin = _t(_spikes(rng, (2, 70, c)) if packed
-                 else _dyadic(rng, (2, 70, c), 16, 32)).to(dev)
-        wd, b = _t(_dyadic(rng, (c, 20))).to(dev), _t(_dyadic(rng, (20,))).to(dev)
-        assert torch.equal(
-            neuron_layer.neuron_layer_eval(xin, wd, b, packed=packed),
-            neuron_layer.neuron_layer_eval_plain(xin, wd, b))
-    torch.cuda.synchronize()
-    assert launch_counts() == {"lif_soma_fwd": 1, "spike_matmul_packed": 1,
-                               "spike_matmul_packed_batched": 1,
-                               "neuron_layer_eval": 2}
+        for key in ("replaces", "also_replaces"):
+            if key not in info:
+                continue
+            ref_file, line = info[key].split(":")
+            text = (root / ref_file).read_text().splitlines()
+            assert "pallas_call" in text[int(line) - 1], (name, info[key])
+    # every pallas_call of the reference has its kernel
+    calls = set()
+    for f in (root / "src" / "repro" / "kernels").glob("*.py"):
+        for i, line in enumerate(f.read_text().splitlines(), 1):
+            if "pl.pallas_call(" in line:
+                calls.add(f"src/repro/kernels/{f.name}:{i}")
+    covered = {info[k] for info in KERNELS.values()
+               for k in ("replaces", "also_replaces") if k in info}
+    assert calls == covered

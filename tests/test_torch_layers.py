@@ -1,13 +1,15 @@
-"""The port's layers against the JAX package's, in eval mode: BN, the four
-``linear_bn`` implementations, PSSA (both association orders), SMLP, a block
-and the tokenizer. Parameters are made by the JAX package's ``init_*``,
-given non-trivial BN statistics from a numpy seed, and converted with
+"""The port's layers against the JAX package's: BN, the four ``linear_bn``
+implementations, PSSA (both association orders), SMLP, a block and the
+tokenizer in eval mode, and the train arms (outputs, new BN state and
+gradients). Parameters are made by the JAX package's ``init_*``, given
+non-trivial BN statistics from a numpy seed, and converted with
 ``repro_torch.convert.from_jax``; inputs come from numpy seeds.
 
 Tolerance 1e-5 (absolute, on O(1) values): the same fp32 products summed in
-another order by another BLAS. Spikes are compared by mismatch fraction
-beside it; at these sizes no membrane sits within rounding of the threshold
-and the fraction is 0.
+another order by another BLAS; gradients 1e-5 scale-aware (max|a - b| <=
+1e-5 * max(1, max|b|), the reference's convention). Spikes are compared by
+mismatch fraction beside it; at these sizes no membrane sits within
+rounding of the threshold and the fraction is 0.
 """
 import dataclasses
 
@@ -27,7 +29,8 @@ from repro.core.lif import LIFConfig as JLIFConfig, lif_scan as jlif_scan
 from repro_torch.core import spiking_layers as tl
 from repro_torch.core import spikingformer as tsf
 from repro_torch.core.lif import LIFConfig, lif_scan, lif_scan_with_state
-from repro_torch.core.policy import ExecutionPolicy, named_policy
+from repro_torch.core.policy import IMPL_FROM_JAX, ExecutionPolicy, \
+    named_policy
 
 single_thread()
 KEY = jax.random.PRNGKey(0)
@@ -40,6 +43,30 @@ def _t(a):
 
 def _close(got, want, atol=ATOL):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol)
+
+
+def _grads_close(got, want, atol=1e-5):
+    """Scale-aware, leaf by leaf in the reference pytree's order."""
+    from repro_torch.core.spikingformer import tree_leaves
+    got, want = tree_leaves(got), jax.tree.leaves(want)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        b = np.asarray(b)
+        assert tuple(a.shape) == b.shape
+        scale = max(1.0, float(np.max(np.abs(b))))
+        np.testing.assert_allclose(a.detach().numpy() / scale, b / scale,
+                                   atol=atol, rtol=0)
+
+
+def _torch_grads(fn, params, *inputs):
+    """Gradients of ``fn(params, *inputs)`` (a scalar) with respect to every
+    parameter leaf and every input, as (params-shaped tree, inputs)."""
+    from repro_torch.core.spikingformer import tree_leaves, tree_unflatten
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    ins = [x.detach().requires_grad_(True) for x in inputs]
+    out = fn(tree_unflatten(params, leaves), *ins)
+    grads = torch.autograd.grad(out, leaves + ins)
+    return tree_unflatten(params, grads[:len(leaves)]), grads[len(leaves):]
 
 
 def _spikes(rng, shape, rate=0.3):
@@ -107,8 +134,16 @@ def test_bn_apply_train_eager_running_stats():
     _close(got, want)
     for k in ("mean", "var"):
         _close(gstate[k], wstate[k], 1e-6)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tl.bn_apply(tp, ts, _t(x), train=True, policy=named_policy("cuda"))
+    # the BN kernel pair (plain versions here) against the Pallas pair
+    from repro.core.policy import named_policy as jax_named_policy
+    want, wstate = jl.bn_apply(jp, js, jnp.asarray(x), train=True,
+                               policy=jax_named_policy("pallas"))
+    got, gstate = tl.bn_apply(tp, ts, _t(x), train=True,
+                              policy=named_policy("cuda"))
+    _close(got, want)
+    for k in ("mean", "var"):
+        _close(gstate[k], wstate[k], 1e-6)
+        assert not gstate[k].requires_grad
 
 
 # ---------------------------------------------------------------------------
@@ -146,14 +181,43 @@ def test_linear_bn_impls_eval(jimpl, timpl, d_in, d_out):
 
 @pytest.mark.parametrize("timpl", ["cuda", "cuda+spike_mm", "fused_epilogue"])
 def test_train_mode_is_refused_off_the_eager_impl(timpl):
-    p, s = tl.init_linear_bn(torch.Generator().manual_seed(0), 16, 8)
-    pol = ExecutionPolicy(backend="cuda", overrides={"linear_bn": timpl})
-    x = torch.zeros(2, 4, 16)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tl.linear_bn_lif_apply(p, s, x, LIFConfig(policy=pol), train=True,
-                               policy=pol, site="smlp.a")
-    y, st = tl.linear_bn_apply(p, s, x, train=True)       # eager trains
-    assert y.shape == (2, 4, 8) and st["bn"]["mean"].shape == (8,)
+    """Train mode at every implementation of the Conv1DBN -> SN pair off
+    ``eager``: spikes, new BN state and the gradients of every parameter
+    and of the input against the reference's same implementation
+    (fused_epilogue: the neuron-layer train kernel and its replay
+    backward)."""
+    from repro.core.policy import ExecutionPolicy as JPolicy
+    jimpl = {v: k for k, v in IMPL_FROM_JAX.items()}[timpl]
+    rng = np.random.default_rng(12)
+    (jp, js), (tp, ts) = _init(lambda: jl.init_linear_bn(KEY, 32, 24), 12)
+    x = _spikes(rng, (2, 3, 10, 32))
+    g = rng.normal(0, 1, (2, 3, 10, 24)).astype(np.float32)
+    jpol = JPolicy(backend="pallas", overrides={"linear_bn": jimpl})
+    tpol = ExecutionPolicy(backend="cuda", overrides={"linear_bn": timpl})
+    jlif, tlif = JLIFConfig(policy=jpol), LIFConfig(policy=tpol)
+
+    def jrun(p, xx):
+        return jl.linear_bn_lif_apply(p, js, xx, jlif, train=True,
+                                      policy=jpol, site="smlp.a",
+                                      lif_site="smlp.lif")
+
+    def trun(p, xx):
+        return tl.linear_bn_lif_apply(p, ts, xx, tlif, train=True,
+                                      policy=tpol, site="smlp.a",
+                                      lif_site="smlp.lif")
+
+    want, wstate = jrun(jp, jnp.asarray(x))
+    got, gstate = trun(tp, _t(x))
+    assert mismatch_fraction(got.detach().numpy(), want) == 0.0
+    assert 0.02 < float(got.mean()) < 0.98
+    for k in ("mean", "var"):
+        _close(gstate["bn"][k], wstate["bn"][k], 1e-6)
+    wgrads = jax.grad(lambda p, xx: jnp.sum(jrun(p, xx)[0] * g),
+                      argnums=(0, 1))(jp, jnp.asarray(x))
+    tgrads, (tgx,) = _torch_grads(lambda p, xx: (trun(p, xx)[0]
+                                                 * _t(g)).sum(), tp, _t(x))
+    _grads_close(tgrads, wgrads[0])
+    _grads_close([tgx], [wgrads[1]])
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +265,31 @@ def test_smlp_and_block_apply_eval(d, h, f, n, jax_policy, port_policy):
     got, new = tl.block_apply(tp, ts, _t(x), tcfg, train=False)
     _close(got, want)
     assert set(new) == {"pssa", "smlp"} and set(new["pssa"]) == set("qkvz")
+
+
+@pytest.mark.parametrize("jax_policy,port_policy", [
+    ("jnp", "eager"), ("pallas-full", "cuda-full")])
+@pytest.mark.parametrize("d,h,f,n", BLOCK_SHAPES[:2])
+def test_block_train_forward_and_grads(d, h, f, n, jax_policy, port_policy):
+    """A whole block in train mode: output, new BN state, and the gradients
+    of every parameter and of the input (through both LIFs, the attention
+    spike products and every BN) against the reference's."""
+    jcfg, tcfg = _block_cfgs(d, h, f, jax_policy)
+    (jp, js), (tp, ts) = _init(lambda: jl.init_block(KEY, jcfg), n + 1)
+    rng = np.random.default_rng(n + 1)
+    x = rng.normal(0.4, 1.0, (2, 2, n, d)).astype(np.float32)
+    g = rng.normal(0, 1, x.shape).astype(np.float32)
+    want, wstate = jl.block_apply(jp, js, jnp.asarray(x), jcfg, train=True)
+    got, gstate = tl.block_apply(tp, ts, _t(x), tcfg, train=True)
+    _close(got.detach(), want)
+    _grads_close(gstate, wstate, 1e-6)
+    wgrads = jax.grad(lambda p, xx: jnp.sum(jl.block_apply(
+        p, js, xx, jcfg, train=True)[0] * g), argnums=(0, 1))(
+        jp, jnp.asarray(x))
+    tgrads, (tgx,) = _torch_grads(lambda p, xx: (tl.block_apply(
+        p, ts, xx, tcfg, train=True)[0] * _t(g)).sum(), tp, _t(x))
+    _grads_close(tgrads, wgrads[0])
+    _grads_close([tgx], [wgrads[1]])
 
 
 def test_attn_av_packed_runs_or_demotes_by_token_count(caplog):

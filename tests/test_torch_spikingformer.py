@@ -1,7 +1,8 @@
-"""The whole model, eval forward: ``repro_torch`` against the JAX package on
-the same numpy-made images and the same converted parameters, under
-``eager`` vs ``jnp`` and ``cuda-full`` (plain versions on the CPU) vs
-``pallas-full`` (Pallas in interpret mode).
+"""The whole model: ``repro_torch`` against the JAX package on the same
+numpy-made images and the same converted parameters, under ``eager`` vs
+``jnp`` and ``cuda-full`` (plain versions on the CPU) vs ``pallas-full``
+(Pallas in interpret mode): the eval forward, and the BPTT loss with the
+gradient of every parameter leaf and the new BN state.
 
 Configs: the two smoke presets (square: d_model = tokens = 64), a config
 with tokens != d_model != head dim, and one whose token count is not a
@@ -11,7 +12,9 @@ BN running statistics are non-trivial everywhere.
 Tolerance: logits within 1e-4 absolute (fp32 sums in another order, through
 two tokenizer stages and two blocks), with the spike mismatch fraction after
 the tokenizer asserted beside it: a flipped spike would spread through
-attention and show in the logits, so it is held at 0.
+attention and show in the logits, so it is held at 0. Training: the loss
+within 1e-6, every gradient leaf within 1e-5 scale-aware and the new BN
+state within 1e-6 (``tests/test_spikingformer.py``'s own tolerances).
 """
 import dataclasses
 
@@ -191,15 +194,76 @@ def test_module_serves_converted_reference_weights():
 
 
 def test_train_mode_runs_under_eager_only():
+    """Train mode under every policy: the train forward of the port's own
+    initialisation under ``eager`` and ``cuda-full`` gives the same logits
+    and the same new BN state, and ``no_grad`` builds no graph."""
     cfg = get_spikingformer_config("spikingformer-smoke@eager")
     gen = torch.Generator().manual_seed(0)
     params, state = tsf.init_spikingformer(gen, cfg, device="cpu")
     x = torch.rand(2, 32, 32, 3, generator=gen)
     with torch.no_grad():
-        _, new = tsf.spikingformer_apply(params, state, x, cfg, train=True)
+        logits, new = tsf.spikingformer_apply(params, state, x, cfg,
+                                              train=True)
+        full = cfg.with_policy(named_policy("cuda-full"))
+        logits_f, new_f = tsf.spikingformer_apply(params, state, x, full,
+                                                  train=True)
+    assert not logits.requires_grad
     assert not torch.equal(new["tokenizer"][0]["bn"]["mean"],
                            state["tokenizer"][0]["bn"]["mean"])
     assert new["blocks"]["pssa"]["q"]["bn"]["var"].shape == (2, 64)
-    full = cfg.with_policy(named_policy("cuda-full"))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tsf.spikingformer_apply(params, state, x, full, train=True)
+    torch.testing.assert_close(logits_f, logits, atol=1e-4, rtol=0)
+    for a, b in zip(tsf.tree_leaves(new_f), tsf.tree_leaves(new)):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("jax_policy,port_policy", [
+    p for p in POLICY_PAIRS if p[0] != "pallas"])
+@pytest.mark.parametrize("time_chunk", [None, 1])
+@pytest.mark.parametrize("name", ["smoke", "smoke-dvs"])
+def test_loss_grads_and_bn_state_match_reference(name, time_chunk, jax_policy,
+                                                 port_policy):
+    jcfg, tcfg = _configs(name, jax_policy)
+    jcfg = dataclasses.replace(jcfg, time_chunk=time_chunk)
+    tcfg = dataclasses.replace(tcfg, time_chunk=time_chunk)
+    _, (jp, js), (tp, ts) = _model(jcfg, 11)
+    x = _images(jcfg, np.random.default_rng(12))
+    labels = np.array([1, 3], np.int32)
+    (loss, (wstate, wm)), wgrads = jax.value_and_grad(
+        jsf.spikingformer_loss, has_aux=True)(
+        jp, js, jnp.asarray(x), jnp.asarray(labels), jcfg)
+    grads, state, metrics = tsf.spikingformer_grad_step(
+        tp, ts, torch.from_numpy(x), torch.from_numpy(labels), tcfg)
+    assert abs(float(metrics["loss"]) - float(loss)) <= 1e-6
+    assert float(metrics["accuracy"]) == float(wm["accuracy"])
+    wleaves = jax.tree_util.tree_flatten_with_path(wgrads)[0]
+    gleaves = tsf.tree_leaves(grads)
+    assert len(gleaves) == len(wleaves)
+    for (path, b), a in zip(wleaves, gleaves):
+        b = np.asarray(b)
+        scale = max(1.0, float(np.abs(b).max()))
+        np.testing.assert_allclose(
+            a.numpy() / scale, b / scale, atol=1e-5, rtol=0,
+            err_msg=jax.tree_util.keystr(path))
+    for a, b in zip(tsf.tree_leaves(state), jax.tree.leaves(wstate)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+        assert not a.requires_grad
+    # the step left its inputs alone
+    assert all(not p.requires_grad for p in tsf.tree_leaves(tp))
+
+
+def test_remat_recomputes_blocks_with_the_same_gradients():
+    """``remat=True`` keeps only each block's input and recomputes the rest
+    in the backward: the gradients and the new BN state are the same bits."""
+    cfg = get_spikingformer_config("spikingformer-smoke@cuda-full")
+    params, state = tsf.init_spikingformer(torch.Generator().manual_seed(4),
+                                           cfg, device="cpu")
+    x = torch.from_numpy(_images(cfg, np.random.default_rng(13)))
+    labels = torch.tensor([0, 2])
+    out = [tsf.spikingformer_grad_step(params, state, x, labels,
+                                       dataclasses.replace(cfg, remat=r))
+           for r in (False, True)]
+    for tree in range(2):
+        for a, b in zip(tsf.tree_leaves(out[0][tree]),
+                        tsf.tree_leaves(out[1][tree])):
+            assert torch.equal(a, b)
+    assert float(out[0][2]["loss"]) == float(out[1][2]["loss"])
