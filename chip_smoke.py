@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--depth 8] [--train-depth 8]
-                          [--verbose-build]
+    python3 chip_smoke.py [--seed 0] [--depth 8] [--verbose-build]
 
 Builds the CUDA kernels from the sources in this checkout, holds each kernel
 against its plain PyTorch version on the card at the shapes the
@@ -11,8 +10,9 @@ port's two main paths: it serves a few request batches through
 ``SpikingFormer.forward`` under the ``cuda-full`` policy, and it takes a few
 BPTT + AdamW steps through ``repro_torch.train.loop.make_train_step``, each
 compared with the same weights under the ``eager`` policy on the same card;
-one block's forward and backward are compared on the same input. It needs
-one CUDA device and ``nvcc`` and fails (non-zero exit, no result line)
+one block's forward and backward are compared on the same input. Training
+runs at the preset's full depth; ``--depth`` cuts only the blocks served. It
+needs one CUDA device and ``nvcc`` and fails (non-zero exit, no result line)
 without them. Every phase prints one JSON line; the line before the last but
 one lists the kernels, and the last line is the verdict.
 
@@ -691,17 +691,17 @@ def per_train_step(depth: int, stages: int) -> dict[str, int]:
             "neuron_layer_train": sites, "neuron_layer_eval": 0}
 
 
-def train_phase(seed: int, depth: int, batch: int) -> dict[str, int]:
+def train_phase(seed: int, batch: int) -> dict[str, int]:
     """One warm-up step, then TRAIN_STEPS steps of ``make_train_step`` at
-    the preset under ``cuda-full`` and under ``eager``, from the same
-    initial parameters, BN state and AdamW state, on the same
+    the preset, full depth, under ``cuda-full`` and under ``eager``, from
+    the same initial parameters, BN state and AdamW state, on the same
     ``SyntheticVision`` batches. Every step must be finite and the
     parameters and BN running statistics must change. Returns the launch
     counts of the ``cuda-full`` steps."""
     import dataclasses
 
-    cfg = dataclasses.replace(get_spikingformer_config(PRESET + "@eager"),
-                              num_layers=depth)
+    cfg = get_spikingformer_config(PRESET + "@eager")
+    depth = cfg.num_layers
     params, state = init_spikingformer(torch.Generator().manual_seed(seed),
                                        cfg, DEVICE)
     opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=100,
@@ -765,23 +765,29 @@ def train_phase(seed: int, depth: int, batch: int) -> dict[str, int]:
 #: Block-level limits. Spikes: the eval phase's per-block limit. Gradients:
 #: a random cotangent weighs every term a gradient sums with an independent
 #: sign, so when a fraction f of those terms changes (flipped spikes and
-#: what they move) the gradient moves by about sqrt(f) of its norm;
-#: sqrt(1e-3) is the error the spike limit allows.
+#: what they move) the gradient moves by about sqrt(f) of its norm. Each
+#: seed's gradients are held at GRAD_FACTOR * sqrt(f) of the spike mismatch
+#: f measured on that seed, so the limit tightens as fewer spikes flip; where
+#: none flips, at GRAD_FLOOR, ten times the fp32 noise of weight gradients
+#: summed over 12,544 rows in another order. The autograd glue
+#: around the kernels is the same code on the CPU, where the tests hold it to
+#: the reference at 1e-5; here the check sees what the kernels' rounding does
+#: to the gradients at the preset's shapes.
 SPIKE_LIMIT = 1e-3
-GRAD_LIMIT = math.sqrt(SPIKE_LIMIT)
+GRAD_FACTOR, GRAD_FLOOR = 2.0, 1e-4
+BLOCK_SEEDS = 2
 #: The last BN's beta: its gradient is the sum of the cotangent, which no
 #: spike reaches, so it is held at fp32 summation noise.
 CONTROL_LEAF, CONTROL_LIMIT = "smlp.b.bn.beta", 1e-5
 
 
-def block_grad_check(seed: int, batch: int) -> None:
+def block_grad_case(seed: int, batch: int) -> dict:
     """One block of the preset in train mode on the *same* input with the
     *same* upstream cotangent, under ``cuda-full`` and ``eager``: spike
     mismatch after the next block's LIF, and the relative L2 error of the
-    gradient of every parameter leaf and of the input, held at the limits
-    above. BN statistics over 12,544 rows summed in another order move
-    membranes by ~1e-7 of their scale, which flips the spikes that sit that
-    close to the threshold."""
+    gradient of every parameter leaf and of the input. BN statistics over
+    12,544 rows summed in another order move membranes by ~1e-7 of their
+    scale, which flips the spikes that sit that close to the threshold."""
     cfg = get_spikingformer_config(PRESET + "@eager")
     gen = torch.Generator().manual_seed(seed + 7)
     params, state = init_spikingformer(gen, cfg, DEVICE)
@@ -804,16 +810,36 @@ def block_grad_check(seed: int, batch: int) -> None:
            for n, a, b in zip(tree_paths(bp) + ["input"], gf, ge)}
     control = rel.pop(CONTROL_LEAF)
     worst = max(rel.values())
-    emit("block_grad", preset=PRESET, block=0, shape=list(shape),
-         spike_mismatch=mismatch, grad_rel_l2=rel, worst_grad_rel_l2=worst,
-         control_leaf={CONTROL_LEAF: control},
-         max_abs_out_err=float((yf - ye).abs().max()),
-         limits={"spike_mismatch": SPIKE_LIMIT, "grad_rel_l2": GRAD_LIMIT,
-                 "control_leaf": CONTROL_LIMIT})
-    if mismatch > SPIKE_LIMIT or not worst <= GRAD_LIMIT \
-            or not control <= CONTROL_LIMIT:
-        fail(f"block gradient check: spike mismatch {mismatch}, worst "
-             f"gradient relative L2 error {worst}, {CONTROL_LEAF} {control}")
+    grad_limit = max(GRAD_FACTOR * math.sqrt(mismatch), GRAD_FLOOR)
+    return {"seed": seed, "block": 0, "shape": list(shape),
+            "spike_mismatch": mismatch, "grad_rel_l2": rel,
+            "worst_grad_rel_l2": worst,
+            "worst_over_sqrt_mismatch": worst / math.sqrt(mismatch)
+            if mismatch else None,
+            "control_leaf": {CONTROL_LEAF: control},
+            "max_abs_out_err": float((yf - ye).abs().max()),
+            "limits": {"spike_mismatch": SPIKE_LIMIT,
+                       "grad_rel_l2": grad_limit,
+                       "control_leaf": CONTROL_LIMIT},
+            "ok": mismatch <= SPIKE_LIMIT and worst <= grad_limit
+            and control <= CONTROL_LIMIT}
+
+
+def block_grad_check(seed: int, batch: int) -> None:
+    """``block_grad_case`` on BLOCK_SEEDS seeds, each held at its limits."""
+    cases = [block_grad_case(seed + i, batch) for i in range(BLOCK_SEEDS)]
+    emit("block_grad", preset=PRESET, cases=cases,
+         tolerance=f"spike mismatch <= {SPIKE_LIMIT}; every gradient leaf's "
+                   f"relative L2 error <= max({GRAD_FACTOR} * sqrt(spike "
+                   f"mismatch), {GRAD_FLOOR}); {CONTROL_LEAF} <= "
+                   f"{CONTROL_LIMIT}")
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        fail("block gradient check: " + "; ".join(
+            f"seed {c['seed']}: spike mismatch {c['spike_mismatch']}, worst "
+            f"gradient relative L2 error {c['worst_grad_rel_l2']} (limit "
+            f"{c['limits']['grad_rel_l2']}), {CONTROL_LEAF} "
+            f"{c['control_leaf'][CONTROL_LEAF]}" for c in bad))
 
 
 # ---------------------------------------------------------------------------
@@ -847,8 +873,6 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--depth", type=int, default=8,
                     help="transformer blocks served (the preset has 8)")
-    ap.add_argument("--train-depth", type=int, default=8,
-                    help="transformer blocks trained (the preset has 8)")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print ptxas' registers / shared memory / spills")
     args = ap.parse_args()
@@ -880,7 +904,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     block_grad_check(args.seed, BATCH)
     torch.cuda.empty_cache()
-    train_counts = train_phase(args.seed, args.train_depth, BATCH)
+    train_counts = train_phase(args.seed, BATCH)
 
     print(json.dumps(summarise(cases, {"serve": counts,
                                        "train": train_counts})), flush=True)

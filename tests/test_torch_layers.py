@@ -185,7 +185,7 @@ def test_train_mode_is_refused_off_the_eager_impl(timpl):
     ``eager``: spikes, new BN state and the gradients of every parameter
     and of the input against the reference's same implementation
     (fused_epilogue: the neuron-layer train kernel and its replay
-    backward)."""
+    backward). It keeps the name of the refusal test it replaced."""
     from repro.core.policy import ExecutionPolicy as JPolicy
     jimpl = {v: k for k, v in IMPL_FROM_JAX.items()}[timpl]
     rng = np.random.default_rng(12)

@@ -196,7 +196,8 @@ def test_module_serves_converted_reference_weights():
 def test_train_mode_runs_under_eager_only():
     """Train mode under every policy: the train forward of the port's own
     initialisation under ``eager`` and ``cuda-full`` gives the same logits
-    and the same new BN state, and ``no_grad`` builds no graph."""
+    and the same new BN state, and ``no_grad`` builds no graph. It keeps the
+    name of the refusal test it replaced."""
     cfg = get_spikingformer_config("spikingformer-smoke@eager")
     gen = torch.Generator().manual_seed(0)
     params, state = tsf.init_spikingformer(gen, cfg, device="cpu")
