@@ -21,7 +21,13 @@ as the model leaves them. ``bound_ms`` is the least time the card could
 take: the larger of the bytes the function must move (inputs once, outputs
 once) over 3.35 TB/s and the fp32 operations these inputs need over
 67 TFLOP/s (the published H100 SXM rates; spikes are data, so the spike
-products count one addition per set bit and output column).
+products count one addition per set bit and output column). The spike
+matmul cases also carry ``tc_bound_ms``, the ceiling of their tensor-core
+design: the same bytes, or three dense bf16 passes (3 * 2MCK operations,
+one per plane of the exact weight split) over 989 TFLOP/s. They carry as
+well ``err_vs_fp64``, the errors of the kernel and of ``torch.matmul``
+against an fp64 product, and, at the main path's sites,
+``bitwise_21bit``, a check on 21-bit integer weights that must hold.
 """
 from __future__ import annotations
 
@@ -57,6 +63,7 @@ from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 on the tensor cores
 PRESET = "spikingformer-8-512"
 REQUESTS, BATCH = 3, 16         # request batches served, images in each
 TRAIN_STEPS = 3                 # training steps counted, after one warm-up
@@ -134,10 +141,30 @@ def check_lif(gen, t, m, d):
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def check_matmul(case, packed, w, fn, shared_w=False):
+def int21(gen, shape):
+    """Integers of up to 21 significant bits: a bf16 holds 8 of them, so
+    every one of the three planes of the kernel's weight split carries
+    bits."""
+    return torch.randint(-2 ** 20, 2 ** 20, shape, generator=gen,
+                         device=DEVICE).float()
+
+
+def at_most_12(s):
+    """{0,1} ``s`` with every row cut to its first 12 set bits: a sum of
+    at most 12 products of 21-bit integers stays below 2^24, exact in fp32
+    in any order."""
+    return s * (s.cumsum(-1) <= 12)
+
+
+def check_matmul(case, packed, w, fn, shared_w=False, exact=None):
     """``fn(packed, w)`` against fp32 ``torch.matmul`` on the unpacked
-    operand (rtol 1e-5, atol 1e-4: the same products, summed in another
-    order)."""
+    operand (rtol 1e-5, atol 1e-4: the same exact products, summed in
+    another order and rounded otherwise). Both are also compared with an
+    fp64 product (RMS and largest error), which tells the kernel's
+    rounding apart from the library's. ``exact``, where given, is another
+    ``(packed, w)`` of the same layout with ``int21`` weights on
+    ``at_most_12`` rows: every partial sum is exact, so the kernel must
+    equal ``torch.matmul`` bit for bit."""
     got = fn(packed, w)
     dense = spike_matmul.spike_unpack(packed, torch.float32)
     want = torch.matmul(dense, w)
@@ -148,20 +175,44 @@ def check_matmul(case, packed, w, fn, shared_w=False):
     if not bool((err <= 1e-4 + 1e-5 * want.abs()).all()):
         fail(f"{case}: max abs err {float(err.max())} beyond rtol 1e-5 / "
              f"atol 1e-4 of torch.matmul")
+    fp64 = torch.matmul(dense.double(), w.double())
+    vs_fp64 = {}
+    for name, out in (("kernel", got), ("library", want)):
+        e = out.double() - fp64
+        vs_fp64[f"{name}_rms"] = float(e.square().mean().sqrt())
+        vs_fp64[f"{name}_max"] = float(e.abs().max())
+    del fp64
+    exact_equal = None
+    if exact is not None:
+        xp, xw = exact
+        xgot = fn(xp, xw)
+        xwant = torch.matmul(spike_matmul.spike_unpack(xp, torch.float32), xw)
+        torch.cuda.synchronize()
+        exact_equal = torch.equal(xgot, xwant)
+        if not exact_equal:
+            fail(f"{case}: 21-bit integer weights on rows of <= 12 spikes "
+                 f"differ from torch.matmul by "
+                 f"{float((xgot - xwant).abs().max())} (must be bitwise)")
     k = w.shape[-1]
     w_bytes = nbytes(w) // (w.shape[0] if shared_w else 1)
-    b_ms, b_by = bound(nbytes(packed, got) + w_bytes, float(dense.sum()) * k)
+    moved = nbytes(packed, got) + w_bytes
+    b_ms, b_by = bound(moved, float(dense.sum()) * k)
     c = w.shape[-2]
     return {"case": case, "shape": {"packed": list(packed.shape),
                                     "w": list(w.shape),
                                     "w_stride": list(w.stride())},
             "max_abs_err": float(err.max()),
-            "tolerance": "rtol 1e-5, atol 1e-4 vs fp32 torch.matmul",
+            "tolerance": "rtol 1e-5, atol 1e-4 vs fp32 torch.matmul"
+                         + ("; bitwise on 21-bit integer weights, <= 12 "
+                            "spikes a row" if exact is not None else ""),
+            "bitwise_21bit": exact_equal, "err_vs_fp64": vs_fp64,
             "ms": time_ms(lambda: fn(packed, w)),
             "plain_ms": time_ms(
                 lambda: spike_matmul.spike_matmul_packed_plain(packed, w)),
             "library_ms": time_ms(lambda: torch.matmul(dense, w)),
             "bound_ms": b_ms, "bound_by": b_by,
+            "tc_bound_ms": max(moved / HBM_BYTES_PER_S,
+                               6.0 * got.numel() * c / BF16_FLOPS) * 1e3,
             "dense_fp32_bound_ms":
                 2.0 * got.numel() * c / FP32_FLOPS * 1e3}
 
@@ -351,34 +402,41 @@ def check_neuron_layer_train(gen, case, t, m, c, k, packed):
     return out
 
 
-def kernel_phase(seed: int, batch: int) -> dict[str, list[dict]]:
+def spike_matmul_cases(gen, batch: int) -> tuple[list[dict], list[dict]]:
+    """The cases of ``spike_matmul_packed`` and of
+    ``spike_matmul_packed_batched`` at the preset's shapes, each operand
+    laid out as the model lays it out; the main path's sites also run the
+    bitwise check on 21-bit integer weights."""
     cfg = get_spikingformer_config(PRESET)
     t, d, f, h = cfg.time_steps, cfg.d_model, cfg.d_ff, cfg.n_heads
     n, dh = cfg.num_tokens, cfg.d_model // cfg.n_heads
     m = batch * n
-    gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    cases: dict[str, list[dict]] = {name: [] for name in KERNELS}
-
-    cases["lif_soma_fwd"].append(check_lif(gen, t, m, d))
-
+    mm, bmm = (spike_matmul.spike_matmul_packed,
+               spike_matmul.spike_matmul_packed_batched)
+    rows_2d = []
     for site, c in (("pssa.proj", d), ("smlp.b", f)):
         packed = spike_matmul.spike_pack(spikes(gen, (t * m, c)))
         w = torch.randn((c, d), generator=gen, device=DEVICE) * c ** -0.5
-        cases["spike_matmul_packed"].append(check_matmul(
-            site, packed, w, spike_matmul.spike_matmul_packed))
+        exact = (spike_matmul.spike_pack(at_most_12(
+            spikes(gen, (t * m, c), rate=8 / c))), int21(gen, (c, d)))
+        rows_2d.append(check_matmul(site, packed, w, mm, exact=exact))
 
-    bmm = spike_matmul.spike_matmul_packed_batched
     # attn_qk: per-head views of (T*B, N, h*dh) spikes; K^T is a strided view
+    def heads(a):
+        return a.view(t * batch, n, h, dh).permute(0, 2, 1, 3)
+
     q, k = (spikes(gen, (t * batch, n, d)) for _ in range(2))
-    qh, kh = (a.view(t * batch, n, h, dh).permute(0, 2, 1, 3) for a in (q, k))
-    cases["spike_matmul_packed_batched"].append(check_matmul(
-        "attn_qk", spike_matmul.spike_pack(qh), kh.transpose(-1, -2), bmm))
+    exact = (spike_matmul.spike_pack(at_most_12(heads(spikes(
+        gen, (t * batch, n, d), rate=8 / dh)))),
+        heads(int21(gen, (t * batch, n, d))).transpose(-1, -2))
+    rows_b = [check_matmul("attn_qk", spike_matmul.spike_pack(heads(q)),
+                           heads(k).transpose(-1, -2), bmm, exact=exact)]
     # attn_av-style at N = 64: packed V^T (dh, M) x attn^T (M, N), both views
     n64 = 64
     v = spikes(gen, (t * batch, h, n64, dh))
     attn = torch.randint(0, dh, (t * batch, h, n64, n64), generator=gen,
                          device=DEVICE).float()
-    cases["spike_matmul_packed_batched"].append(check_matmul(
+    rows_b.append(check_matmul(
         "attn_av(N=64)", spike_matmul.spike_pack(v.transpose(-1, -2)),
         attn.transpose(-1, -2), bmm))
     # one weight shared by all T batches: zero batch stride, never copied
@@ -388,8 +446,21 @@ def kernel_phase(seed: int, batch: int) -> dict[str, list[dict]]:
     w3e = w3.unsqueeze(0).expand(t, c3, d)
     if w3e.stride(0) != 0:
         fail("expanded weight does not have a zero batch stride")
-    cases["spike_matmul_packed_batched"].append(check_matmul(
-        "tokenizer.conv.3(shared w)", patches, w3e, bmm, shared_w=True))
+    rows_b.append(check_matmul("tokenizer.conv.3(shared w)", patches, w3e,
+                               bmm, shared_w=True))
+    return rows_2d, rows_b
+
+
+def kernel_phase(seed: int, batch: int) -> dict[str, list[dict]]:
+    cfg = get_spikingformer_config(PRESET)
+    t, d, f = cfg.time_steps, cfg.d_model, cfg.d_ff
+    m = batch * cfg.num_tokens
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    cases: dict[str, list[dict]] = {name: [] for name in KERNELS}
+
+    cases["lif_soma_fwd"].append(check_lif(gen, t, m, d))
+    (cases["spike_matmul_packed"],
+     cases["spike_matmul_packed_batched"]) = spike_matmul_cases(gen, batch)
 
     size, c_in = cfg.image_size, cfg.in_channels
     for i, (c_in, c_out) in enumerate(cfg.tokenizer_stage_channels()):
@@ -864,19 +935,16 @@ def summarise(cases: dict[str, list[dict]],
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"], "case": first["case"],
+            **({"tc_bound_ms": first["tc_bound_ms"]}
+               if "tc_bound_ms" in first else {}),
             "cases": rows})
     return {"kernels": kernels}
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--depth", type=int, default=8,
-                    help="transformer blocks served (the preset has 8)")
-    ap.add_argument("--verbose-build", action="store_true",
-                    help="print ptxas' registers / shared memory / spills")
-    args = ap.parse_args()
-
+def setup_card() -> dict:
+    """Fails without a CUDA device; turns TF32 off; prints the ``device``
+    line and returns ``repro_torch.probe()`` with ``smi``, the card's name
+    and power limit as nvidia-smi gives them."""
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
     # The yardsticks are full fp32: cuDNN's fp32 convolution is TF32 by
@@ -890,7 +958,20 @@ def main() -> None:
     emit("device", name=info["device_name"], nvidia_smi=smi,
          torch=info["torch"], cuda=info["cuda_runtime"],
          count=info["device_count"])
+    return {**info, "smi": smi}
 
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--depth", type=int, default=8,
+                    help="transformer blocks served (the preset has 8)")
+    ap.add_argument("--verbose-build", action="store_true",
+                    help="print ptxas' registers / shared memory / spills")
+    args = ap.parse_args()
+
+    info = setup_card()
+    smi = info["smi"]
     t0 = time.perf_counter()
     build.load(verbose=args.verbose_build)
     emit("build", seconds=time.perf_counter() - t0,

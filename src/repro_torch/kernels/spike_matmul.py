@@ -15,12 +15,18 @@ block size has to divide anything. Every operand is handed over with its
 element strides, so a transposed K^T, per-head slices and a weight shared by
 all batches (``expand``, stride 0) are read in place.
 
-Bound on this card: fp32 operations outside the tensor cores (the products
-are exact — a spike is 0 or 1 — so the kernel is a masked sum of rows of w
-accumulated in fp32 in a fixed order, which full-precision tensor-core types
-cannot give). The design is a shared-memory tile loop with a 4 x 4 register
-tile per thread and output tile; a block owns four 64-row tiles of one
-64-column strip, so each staged weight chunk serves 256 rows.
+The products run on the tensor cores (``mma.sync`` bf16 -> fp32) and still
+give fp32 results: a spike is exactly 0 or 1 in bf16, and the kernel splits
+each fp32 weight into three bf16 planes whose sum is the weight exactly
+(:func:`split_bf16x3` is the plain version of that split). Each spike
+fragment meets the three planes in three MMAs that add into fp32
+accumulators (hi in one, mid and lo in a second, added at the end). The
+products are exact, the sums are not rounded as fp32 FMAs round them: an
+MMA truncates the sum it adds to. So the result differs from an fp32
+product in the order of the sums and in that truncation; where every
+partial sum is exact (integer and dyadic weights) it gives the same bits.
+Bound on this card: three dense bf16 passes (3 * 2MCK operations) at the
+projection sites, the weight's and the output's bytes at ``attn_qk``.
 
 The plain PyTorch versions unpack and call ``torch.matmul``. The wrappers
 use them for CPU tensors only.
@@ -64,6 +70,22 @@ def spike_matmul_packed_plain(packed: torch.Tensor, w: torch.Tensor, *,
     broadcasts over any leading batch dims)."""
     out = torch.matmul(spike_unpack(packed, w.dtype), w)
     return out.to(out_dtype or w.dtype)
+
+
+def split_bf16x3(w: torch.Tensor):
+    """fp32 ``w`` -> bf16 ``(hi, mid, lo)`` with ``hi + mid + lo == w``
+    exactly, each rounded to nearest from the fp32 residual of the ones
+    before: the plain version of ``split_bf16x3`` in
+    ``csrc/spike_tile_mma.cuh``. Exact for 0 and for |w| in
+    [2^-110, 2^127]: hi keeps 8 significant bits, the residual at most 16,
+    mid 8 of them and lo the last 8."""
+    if w.dtype != torch.float32:
+        raise TypeError(f"split_bf16x3 takes float32, got {w.dtype}")
+    hi = w.to(torch.bfloat16)
+    r1 = w - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
 
 
 def _check_operands(packed, w, out_dtype, what):

@@ -69,6 +69,66 @@ def test_kernels_against_plain_versions_on_the_card():
                                "neuron_layer_eval": 2}
 
 
+def _sparse_rows(rng, shape, ones=12):
+    s = np.zeros(shape, np.float32)
+    np.put_along_axis(s, rng.random(shape).argsort(-1)[..., :ones], 1.0, -1)
+    return s
+
+
+def _spike_mm_operands(case, rng):
+    """(spikes, weight view) of one layout; M and K are multiples of neither
+    tile (64 and 128 rows, 64 columns), C is 8 or 8 + 128 n."""
+    if case == "2d, small tile":
+        return _spikes(rng, (200, 136)), lambda w: w((136, 130))
+    if case == "2d, large tile":
+        return _spikes(rng, (600, 264)), lambda w: w((264, 70))
+    if case == "2d, C = 8":
+        return _spikes(rng, (1000, 8)), lambda w: w((8, 65))
+    if case == "K^T view, two batch levels":
+        return (_spikes(rng, (2, 3, 50, 136)),
+                lambda w: w((2, 3, 45, 136)).transpose(-1, -2))
+    if case == "attn^T view":
+        return _spikes(rng, (4, 24, 72)), lambda w: w((4, 37, 72)).transpose(
+            -1, -2)
+    if case == "zero batch stride":
+        return _spikes(rng, (3, 530, 136)), lambda w: w((136, 40)).unsqueeze(
+            0).expand(3, 136, 40)
+    raise ValueError(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "2d, small tile", "2d, large tile", "2d, C = 8",
+    "K^T view, two batch levels", "attn^T view", "zero batch stride"])
+def test_tensor_core_spike_matmul_against_its_plain_version(case):
+    """Integer weights, and 21-bit integers on rows of 12 spikes (every sum
+    exact; the 21-bit ones need all three bf16 planes), bitwise; weights
+    spread over 2^-20 .. 2^4 within 1e-5 of sum |s w| (the same exact
+    products, summed in another order)."""
+    dev = _card()
+    rng = np.random.default_rng(3)
+    s, view = _spike_mm_operands(case, rng)
+    kinds = {
+        "integer": lambda sh: rng.integers(-8, 9, sh).astype(np.float32),
+        "21-bit": lambda sh: rng.integers(-2 ** 20, 2 ** 20, sh).astype(
+            np.float32),
+        "spread": lambda sh: (rng.normal(size=sh) * 2.0 ** rng.integers(
+            -20, 5, sh)).astype(np.float32)}
+    for kind, make in kinds.items():
+        x = _t(_sparse_rows(rng, s.shape) if kind == "21-bit" else s).to(dev)
+        w = view(lambda sh: _t(make(sh)).to(dev))
+        got = spike_matmul.spike_matmul_batched(x, w) if x.ndim > 2 else \
+            spike_matmul.spike_matmul(x, w)
+        want = spike_matmul.spike_matmul_packed_plain(
+            spike_matmul.spike_pack(x), w)
+        torch.cuda.synchronize()
+        if kind == "spread":
+            scale = torch.matmul(x, w.abs())
+            assert bool(((got - want).abs() <= 1e-5 * scale).all()), kind
+        else:
+            assert torch.equal(got, want), kind
+
+
 @pytest.mark.cuda
 def test_training_kernels_against_plain_versions_on_the_card():
     """lif_soma_bwd bitwise (with and without gu_last, vector and scalar
