@@ -27,7 +27,11 @@ design: the same bytes, or three dense bf16 passes (3 * 2MCK operations,
 one per plane of the exact weight split) over 989 TFLOP/s. They carry as
 well ``err_vs_fp64``, the errors of the kernel and of ``torch.matmul``
 against an fp64 product, and, at the main path's sites,
-``bitwise_21bit``, a check on 21-bit integer weights that must hold.
+``bitwise_21bit``, a check on 21-bit integer weights that must hold. The
+packed ``neuron_layer_train`` cases run the same tensor-core product: they
+carry ``tc_bound_ms`` computed the same way and ``bitwise_ternary``, a check
+on weights in {-1, 0, 1} that must give the plain version's spikes, mu and
+var bit for bit.
 """
 from __future__ import annotations
 
@@ -361,11 +365,26 @@ def check_bn(gen, m, d):
     return fwd, bwd
 
 
-def check_neuron_layer_train(gen, case, t, m, c, k, packed):
-    """Gaussian weights and batch statistics over T*M rows: spikes within
-    1e-4 of the elements of the plain version's (a membrane within rounding
-    of the threshold may fire differently under another order of
-    summation), mu and var within 1e-5 of their scale."""
+def neuron_layer_sites(batch: int) -> list[tuple]:
+    """``(case, T, M, C, K, packed)`` of every neuron-layer site of the
+    preset: the four tokenizer stages (im2col'd, the first one dense), then
+    the block sites."""
+    cfg = get_spikingformer_config(PRESET)
+    t, d, f = cfg.time_steps, cfg.d_model, cfg.d_ff
+    m = batch * cfg.num_tokens
+    sites, size = [], cfg.image_size
+    for i, (c_in, c_out) in enumerate(cfg.tokenizer_stage_channels()):
+        size //= 2
+        sites.append((f"tokenizer.conv.{i}", t, batch * size * size,
+                      9 * c_in, c_out, i > 0))
+    return sites + [("pssa.qkv", t, m, d, d, True),
+                    ("smlp.a", t, m, d, f, True)]
+
+
+def neuron_layer_train_inputs(gen, t, m, c, k, packed):
+    """``(x, w, gamma, beta)`` of one train-mode site: spikes at rate 0.2
+    (packed) or uniform pixels, Gaussian weights scaled to bring the sums
+    near the threshold."""
     if packed:
         x = spikes(gen, (t, m, c))
     else:
@@ -374,6 +393,34 @@ def check_neuron_layer_train(gen, case, t, m, c, k, packed):
         2.0 if packed else 1.0) * c ** -0.5
     gamma = torch.rand((k,), generator=gen, device=DEVICE) * 0.4 + 0.8
     beta = torch.randn((k,), generator=gen, device=DEVICE) * 0.2 + 0.3
+    return x, w, gamma, beta
+
+
+def ternary_case(gen, x, w, gamma, beta):
+    """The exact check of the packed arm: weights in {-1, 0, 1} on rows of
+    at most 12 spikes (about 8), so every z is an integer in [-12, 12].
+    Over T*M <= 2^18 rows every partial sum of z stays below 12 * 2^18 and
+    every partial sum of z^2 (about 5 a row here) below 2^24: both are
+    exact in fp32 in any order, and so are mu and var. Spikes, mu and var
+    must then equal the plain version's bit for bit. Returns the names of
+    what differs (empty when all agree)."""
+    t, m, c = x.shape
+    xt = at_most_12(spikes(gen, (t, m, c), rate=8 / c))
+    wt = torch.randint(-1, 2, w.shape, generator=gen, device=DEVICE).float()
+    got = neuron_layer.neuron_layer_train(xt, wt, gamma, beta, packed=True)
+    want = neuron_layer.neuron_layer_train_plain(xt, wt, gamma, beta)
+    torch.cuda.synchronize()
+    return [n for n, a, b in zip(("spikes", "mu", "var"), got, want)
+            if not torch.equal(a, b)]
+
+
+def check_neuron_layer_train(gen, case, t, m, c, k, packed):
+    """Gaussian weights and batch statistics over T*M rows: spikes within
+    1e-4 of the elements of the plain version's (a membrane within rounding
+    of the threshold may fire differently under another order of
+    summation), mu and var within 1e-5 of their scale. The packed arm also
+    runs ``ternary_case``, which must hold bit for bit."""
+    x, w, gamma, beta = neuron_layer_train_inputs(gen, t, m, c, k, packed)
     got = neuron_layer.neuron_layer_train(x, w, gamma, beta, packed=packed)
     want = neuron_layer.neuron_layer_train_plain(x, w, gamma, beta)
     torch.cuda.synchronize()
@@ -382,9 +429,18 @@ def check_neuron_layer_train(gen, case, t, m, c, k, packed):
     if n_bad > 1e-4 * want[0].numel() or max(errs.values()) > 1e-5:
         fail(f"neuron_layer_train {case}: {n_bad} of {want[0].numel()} "
              f"spikes differ, statistics {errs}")
+    exact = None
+    if packed:
+        differ = ternary_case(gen, x, w, gamma, beta)
+        exact = not differ
+        if differ:
+            fail(f"neuron_layer_train {case}: ternary weights on rows of "
+                 f"<= 12 spikes give other {differ} than the plain version "
+                 f"(must be bitwise)")
     ops_ = (float(x.sum()) * k if packed else 2.0 * t * m * c * k) \
         + 12.0 * t * m * k
-    b_ms, b_by = bound(nbytes(x, w, gamma, beta, *got), ops_)
+    moved = nbytes(x, w, gamma, beta, *got)
+    b_ms, b_by = bound(moved, ops_)
     out = {"case": case, "shape": [t, m, c, k],
            "arm": "packed" if packed else "dense",
            "spike_mismatch": n_bad, "compared": want[0].numel(),
@@ -392,14 +448,36 @@ def check_neuron_layer_train(gen, case, t, m, c, k, packed):
            "max_abs_err": max(errs.values()),
            "tolerance": "spikes: <= 1e-4 of the elements differ; mu, var "
                         "within 1e-5 of their scale (sums over T*M rows in "
-                        "another order)",
+                        "another order)" + ("; bitwise on ternary weights, "
+                                            "<= 12 spikes a row"
+                                            if packed else ""),
+           "bitwise_ternary": exact,
            "ms": time_ms(lambda: neuron_layer.neuron_layer_train(
                x, w, gamma, beta, packed=packed)),
            "plain_ms": time_ms(lambda: neuron_layer.neuron_layer_train_plain(
                x, w, gamma, beta)),
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           # the packed arm's tensor-core design: three dense bf16 passes
+           "tc_bound_ms": max(moved / HBM_BYTES_PER_S,
+                              6.0 * t * m * c * k / BF16_FLOPS) * 1e3
+           if packed else None,
            "dense_fp32_bound_ms": 2.0 * t * m * c * k / FP32_FLOPS * 1e3}
     return out
+
+
+def train_kernel_cases(gen, batch: int) -> dict[str, list[dict]]:
+    """The cases of ``bn_fwd``, ``bn_bwd`` and ``neuron_layer_train`` at the
+    preset's shapes, the block sites of the neuron layer first (they carry
+    32 of its 36 launches a step)."""
+    cfg = get_spikingformer_config(PRESET)
+    bn_f, bn_b = check_bn(gen, cfg.time_steps * batch * cfg.num_tokens,
+                          cfg.d_model)
+    rows = []
+    for site in neuron_layer_sites(batch):
+        rows.append(check_neuron_layer_train(gen, *site))
+        torch.cuda.empty_cache()
+    rows = rows[-2:] + rows[:-2]
+    return {"bn_fwd": [bn_f], "bn_bwd": [bn_b], "neuron_layer_train": rows}
 
 
 def spike_matmul_cases(gen, batch: int) -> tuple[list[dict], list[dict]]:
@@ -453,7 +531,7 @@ def spike_matmul_cases(gen, batch: int) -> tuple[list[dict], list[dict]]:
 
 def kernel_phase(seed: int, batch: int) -> dict[str, list[dict]]:
     cfg = get_spikingformer_config(PRESET)
-    t, d, f = cfg.time_steps, cfg.d_model, cfg.d_ff
+    t, d = cfg.time_steps, cfg.d_model
     m = batch * cfg.num_tokens
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     cases: dict[str, list[dict]] = {name: [] for name in KERNELS}
@@ -461,35 +539,13 @@ def kernel_phase(seed: int, batch: int) -> dict[str, list[dict]]:
     cases["lif_soma_fwd"].append(check_lif(gen, t, m, d))
     (cases["spike_matmul_packed"],
      cases["spike_matmul_packed_batched"]) = spike_matmul_cases(gen, batch)
-
-    size, c_in = cfg.image_size, cfg.in_channels
-    for i, (c_in, c_out) in enumerate(cfg.tokenizer_stage_channels()):
-        size //= 2
-        cases["neuron_layer_eval"].append(check_neuron_layer(
-            gen, f"tokenizer.conv.{i}", t, batch * size * size, 9 * c_in,
-            c_out, packed=i > 0))
+    for site in neuron_layer_sites(batch):
+        cases["neuron_layer_eval"].append(check_neuron_layer(gen, *site))
         torch.cuda.empty_cache()
-    for site, k_out in (("pssa.qkv", d), ("smlp.a", f)):
-        cases["neuron_layer_eval"].append(check_neuron_layer(
-            gen, site, t, m, d, k_out, packed=True))
 
     # the training kernels
     cases["lif_soma_bwd"].extend(check_lif_bwd(gen, t, m, d))
-    bn_f, bn_b = check_bn(gen, t * m, d)
-    cases["bn_fwd"].append(bn_f)
-    cases["bn_bwd"].append(bn_b)
-    size = cfg.image_size
-    for i, (c_in, c_out) in enumerate(cfg.tokenizer_stage_channels()):
-        size //= 2
-        cases["neuron_layer_train"].append(check_neuron_layer_train(
-            gen, f"tokenizer.conv.{i}", t, batch * size * size, 9 * c_in,
-            c_out, packed=i > 0))
-        torch.cuda.empty_cache()
-    # the block sites first in the summary: they carry 32 of 36 launches
-    rows = cases["neuron_layer_train"]
-    for site, k_out in (("smlp.a", f), ("pssa.qkv", d)):
-        rows.insert(0, check_neuron_layer_train(gen, site, t, m, d, k_out,
-                                                packed=True))
+    cases.update(train_kernel_cases(gen, batch))
     return cases
 
 

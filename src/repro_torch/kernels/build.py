@@ -50,8 +50,9 @@ SIGNATURES: dict[str, tuple] = {
     # packed, w, out, G1, G2, M, C, K, 4 packed strides (g1, g2, m, byte),
     # 4 w strides (g1, g2, c, k), 4 out strides (g1, g2, m, k), stream
     "e2a_spike_matmul": (_P, _P, _P, _I, _I, _I, _I, _I) + (_L,) * 12 + (_P,),
-    # x, gamma, beta, y, mu, sqrt_d, part, M, D, rows per chunk, eps, stream
-    "e2a_bn_fwd": (_P,) * 7 + (_L, _I, _L, _F, _P),
+    # x, gamma, beta, y, mu, sqrt_d, part, arrival counters, M, D,
+    # rows per chunk, eps, stream
+    "e2a_bn_fwd": (_P,) * 8 + (_L, _I, _L, _F, _P),
     # g, x, gamma, mu, sqrt_d, dx, dgamma, dbeta, part, sums, M, D,
     # rows per chunk, stream
     "e2a_bn_bwd": (_P,) * 10 + (_L, _I, _L, _P),

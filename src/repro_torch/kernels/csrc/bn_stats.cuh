@@ -1,5 +1,6 @@
-// Column statistics from per-chunk partial sums, shared by the batch-norm
-// kernels and the train-mode neuron layer.
+// Column statistics from per-chunk partial sums, and the vector loads and
+// stores and the row-range grid of the passes that apply them, shared by the
+// batch-norm kernels and the train-mode neuron layer.
 //
 // A column reduction over many rows cannot live in one block on this card,
 // so the first pass of each kernel writes, for every chunk of rows, one
@@ -23,10 +24,12 @@ constexpr int STAT_LANES = 8;
 
 // sums[q] = sum over the n_parts chunks of part[(q * n_parts + c) * D + col],
 // in double, the same order on every run; valid in lane 0. Every thread of
-// the block must call it (it synchronises).
+// the block must call it (it synchronises). The partials are read through
+// L2 (ld.global.cg), so a block may reduce partials that other blocks of
+// the same launch wrote before a __threadfence().
 template <int NQ>
-__device__ __forceinline__ void reduce_parts(const float* __restrict__ part,
-                                             int n_parts, int D, int col,
+__device__ __forceinline__ void reduce_parts(const float* part, int n_parts,
+                                             int D, int col,
                                              double (&sums)[NQ]) {
   __shared__ double sh[NQ][STAT_LANES][STAT_COLS];
   const int lane = threadIdx.y;
@@ -35,7 +38,8 @@ __device__ __forceinline__ void reduce_parts(const float* __restrict__ part,
   if (col < D)
     for (int c = lane; c < n_parts; c += STAT_LANES)
       for (int q = 0; q < NQ; ++q)
-        acc[q] += (double)part[((long long)q * n_parts + c) * D + col];
+        acc[q] += (double)__ldcg(part + ((long long)q * n_parts + c) * D +
+                                 col);
   for (int q = 0; q < NQ; ++q) sh[q][lane][threadIdx.x] = acc[q];
   __syncthreads();
   for (int q = 0; q < NQ; ++q) {
@@ -53,6 +57,38 @@ __device__ __forceinline__ void column_stats(double s, double q, double count,
   const float ex2 = (float)(q / count);                      // eq. 14
   var = fmaxf(__fsub_rn(ex2, __fmul_rn(mu, mu)), 0.0f);      // eq. 15
   sqrt_d = __fsqrt_rn(__fadd_rn(var, eps));                  // eq. 16
+}
+
+// gridDim.y and gridDim.z are at most 65535, so a pass that puts its row
+// ranges on grid.y launches at most MAX_ROW_BLOCKS of them and strides over
+// the rest (more than 2 M rows at 32 rows a range).
+constexpr long long MAX_ROW_BLOCKS = 65535;
+
+inline unsigned row_blocks(long long rows, int rows_per_block) {
+  const long long n = (rows + rows_per_block - 1) / rows_per_block;
+  return (unsigned)(n < MAX_ROW_BLOCKS ? n : MAX_ROW_BLOCKS);
+}
+
+// V neighbouring floats at p, one float4 where V == 4 (p 16-byte aligned).
+template <int V>
+__device__ __forceinline__ void load_v(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = p[j];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_v(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) p[j] = v[j];
+  }
 }
 
 }  // namespace e2a

@@ -1,4 +1,7 @@
-// Shared tile loop of the spike matmul and the neuron-layer kernels.
+// fp32 tile loop (outside the tensor cores) of neuron_layer_eval, both arms,
+// and of the dense train arm of neuron_layer_train (the first tokenizer
+// stage, C = 27). The packed train arm and the spike matmul run the
+// tensor-core mainloop of spike_mma_mainloop.cuh instead.
 //
 // A block of 256 threads owns T slices of BM x BN = 64 x 64 outputs (T time
 // steps of one row tile, or T row tiles of one matrix); a thread owns a 4 x 4

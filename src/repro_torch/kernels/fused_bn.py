@@ -11,9 +11,14 @@ statistics and the normalisation shared one visit to VMEM. On this card a
 column reduction over 12,544 rows cannot live in one block, and D = 512
 columns would give too few blocks for 132 SMs, so each kernel is a split
 reduction (``csrc/fused_bn.cu``): per-chunk fp32 partial sums into a scratch
-buffer the wrapper allocates, a pass that adds the chunks of each column in
-a fixed order (no atomics: the statistics are the same on every run), and an
-elementwise pass that reads x again, from L2 at the model's sizes.
+buffer the wrapper allocates, the chunks of each column added in a fixed
+order (no atomics carry a sum: the statistics are the same on every run),
+and an elementwise pass that reads x again, from L2 at the model's sizes.
+The forward is two launches: the last block of each column group to write
+its partials (elected by an arrival counter the wrapper keeps zeroed, one
+set per device and stream) adds the group's chunks, and the normalise
+pass loads float4 along D where ``D % 4 == 0``; the backward is three
+launches, with a finalize between.
 
 Bound on this card: bytes. The forward must read x and write y, the
 backward read g and x and write dx.
@@ -39,12 +44,42 @@ def _chunking(m: int) -> tuple[int, int]:
     return rows, -(-m // rows)
 
 
+#: Columns one arrival counter of the forward's first pass serves: a block
+#: of that pass covers 32 columns (``BN_COLS`` in ``csrc/fused_bn.cu``).
+COUNTER_COLS = 32
+
+_arrival: dict[tuple, torch.Tensor] = {}
+
+
+def _arrival_counters(device: torch.device, stream: int,
+                      d: int) -> torch.Tensor:
+    """The forward's arrival counters on ``device`` for launches on
+    ``stream``: zero when made, and the kernel leaves them zero, so every
+    call and a captured CUDA graph find them so. One set per stream, so
+    that two streams never count into one."""
+    n = -(-d // COUNTER_COLS)
+    key = (device, stream)
+    buf = _arrival.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _arrival[key] = buf
+    return buf
+
+
+def row_count(x: torch.Tensor) -> torch.Tensor:
+    """M as a 0-d fp32 tensor on ``x``'s device. A CUDA division by a host
+    scalar multiplies by its rounded reciprocal, which is not the correctly
+    rounded quotient of eq. 13-14 and 23 (nor what the kernels form); a
+    tensor divisor is divided by."""
+    return torch.tensor(float(x.shape[0]), device=x.device)
+
+
 def bn_fwd_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
                  eps: float = 1e-5):
     """x (M, D) -> (y (M, D), mu (1, D), sqrt_d (1, D)), eq. 13-18; the
     statistics in fp32."""
-    m = x.shape[0]
     xf = x.float()
+    m = row_count(xf)
     mu = xf.sum(0, keepdim=True) / m                                 # eq. 13
     ex2 = (xf * xf).sum(0, keepdim=True) / m                         # eq. 14
     var = torch.clamp(ex2 - mu * mu, min=0.0)                        # eq. 15
@@ -58,8 +93,8 @@ def bn_bwd_plain(g: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
                  mu: torch.Tensor, sqrt_d: torch.Tensor):
     """eq. 19-23 verbatim: returns (dx (M, D), dgamma (1, D), dbeta
     (1, D))."""
-    m = x.shape[0]
     gf, xf = g.float(), x.float()
+    m = row_count(gf)
     gm = gamma.float().reshape(1, -1)
     mi = gm * gf / sqrt_d                                            # eq. 19
     n = xf - mu
@@ -86,8 +121,8 @@ def _check(what: str, tensors: dict) -> None:
 def bn_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
            eps: float = 1e-5):
     """x: (M, D) -> (y (M, D), mu (1, D), sqrt_d (1, D)). A CUDA tensor
-    launches the kernel (fp32, contiguous; anything else raises); a CPU
-    tensor takes the plain version."""
+    launches the kernel's two passes (fp32, contiguous; anything else
+    raises) and counts once; a CPU tensor takes the plain version."""
     if x.ndim != 2 or gamma.shape != (x.shape[1],) \
             or beta.shape != gamma.shape:
         raise ValueError(f"bn_fwd expects x (M, D), gamma and beta (D,), got "
@@ -103,10 +138,12 @@ def bn_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
     rows, chunks = _chunking(m)
     part = torch.empty((2, chunks, d), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        arrived = _arrival_counters(x.device, stream, d)
         code = build.load().e2a_bn_fwd(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-            mu.data_ptr(), sqrt_d.data_ptr(), part.data_ptr(), m, d, rows,
-            eps, torch.cuda.current_stream().cuda_stream)
+            mu.data_ptr(), sqrt_d.data_ptr(), part.data_ptr(),
+            arrived.data_ptr(), m, d, rows, eps, stream)
     build.check_launch(code, "bn_fwd")
     bn_fwd.launches += 1
     return y, mu, sqrt_d

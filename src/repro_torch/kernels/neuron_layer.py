@@ -26,28 +26,39 @@ spikes and the fp32 statistics (mu, var) for the caller's running-stat
 blend. The TPU kernel had one program own all T*M rows of a feature block
 (12,544 at the blocks, 802,816 at the first tokenizer stage), which one
 block of this card cannot hold, so the wrapper's one call is three launches
-(``csrc/neuron_layer.cu``): the tile loop, whose epilogue writes z = x @ w
-once with deterministic per-row-tile column sums of z and z^2; the
-statistics; and one pass that reads z, normalises and runs SOMA over T in
-registers. That z round trip (about 0.06 ms at ``smlp.a`` on a 0.39 ms fp32
-bound) was chosen over recomputing the product, which would double the
-dominant fp32 work. Bound on this card: fp32 operations at the block sites,
-bytes at the first tokenizer stage.
+(``csrc/neuron_layer.cu``): z = x @ w, written once with deterministic
+per-row-tile column sums of z and z^2; the statistics; and one pass that
+reads z, normalises and runs SOMA over T in registers. In train mode T is
+only a row index, so the packed arm's first pass is the spike matmul over
+T*M rows on the tensor cores, through the mainloop that
+``e2a_spike_matmul`` runs (``csrc/spike_mma_mainloop.cuh``: exact three-way
+bf16 split of the fp32 weight), 256-row tiles; the dense arm (the first
+tokenizer stage, C = 27) keeps the fp32 tile loop of ``spike_tile.cuh``.
+Storing z was chosen over recomputing the product in the SOMA pass, which
+would double the dominant work. Bound on this card: three dense bf16
+passes on the tensor cores plus the z round trip at the block sites, bytes
+at the first tokenizer stage.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.fused_bn import row_count
 from repro_torch.kernels.lif_soma import lif_soma_fwd_plain
 from repro_torch.kernels.spike_matmul import spike_pack
 
 #: Time steps the kernel is instantiated for (T accumulators per thread).
 MAX_TIME_STEPS = 8
 
-#: Rows of one tile of the train arm's first pass (``BM`` in
-#: ``csrc/spike_tile.cuh``): one partial sum per tile and column.
-TILE_ROWS = 64
+#: Rows of one tile of the packed train arm's first pass, over all T*M rows
+#: (``ZTile::BM`` in ``csrc/neuron_layer.cu``, the ``Large`` tile of
+#: ``csrc/spike_mma_mainloop.cuh``): one partial sum per tile and column.
+TILE_ROWS = 256
+
+#: The same for the dense arm, whose tiles run over M and hold T*64 values
+#: each (``BM`` in ``csrc/spike_tile.cuh``).
+DENSE_TILE_ROWS = 64
 
 
 def neuron_layer_eval_plain(x: torch.Tensor, w: torch.Tensor,
@@ -70,8 +81,9 @@ def neuron_layer_train_plain(x: torch.Tensor, w: torch.Tensor,
     t, m, _ = x.shape
     z = torch.matmul(x.to(w.dtype), w).float()
     zf = z.reshape(t * m, -1)
-    mu = zf.sum(0, keepdim=True) / (t * m)
-    ex2 = (zf * zf).sum(0, keepdim=True) / (t * m)
+    count = row_count(zf)                  # divided by, as the kernel does
+    mu = zf.sum(0, keepdim=True) / count
+    ex2 = (zf * zf).sum(0, keepdim=True) / count
     var = torch.clamp(ex2 - mu * mu, min=0.0)
     sqrt_d = torch.sqrt(var + eps)
     y = gamma.float() * (z - mu) / sqrt_d + beta.float()
@@ -158,7 +170,8 @@ def neuron_layer_train(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     s, z = (torch.empty((t, m, k), **f32) for _ in range(2))
-    part = torch.empty((2, -(-m // TILE_ROWS), k), **f32)
+    tiles = -(-t * m // TILE_ROWS) if packed else -(-m // DENSE_TILE_ROWS)
+    part = torch.empty((2, tiles, k), **f32)
     mu, var = (torch.empty((1, k), **f32) for _ in range(2))
     sqrt_d = torch.empty((k,), **f32)
     with torch.cuda.device(dev):

@@ -212,3 +212,115 @@ def test_one_training_step_on_the_card():
               "spike_matmul_packed_batched"):
         assert counts[k] > 0, (k, counts)
     assert set(out["eager"][1].values()) == {0}
+
+
+#: More rows than 65,535 ranges of 32: the elementwise passes that put row
+#: ranges on grid.y must stride over a capped grid (the first tokenizer
+#: stage has 12,544 rows a time step per image, so a batch of 168 gets here).
+BIG_M = 65535 * 32 + 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,offset", [
+    (1000, 516, 0),     # M not a multiple of the 128-row chunk; float4
+    (12544, 130, 0),    # D % 4 != 0: one column per lane
+    (777, 20, 0),       # D < 32, float4
+    (129, 7, 0),        # D < 32, D % 4 != 0
+    (300, 24, 1),       # x 4 bytes off 16-byte alignment: scalar loads
+    (BIG_M, 4, 0),      # more row ranges than grid.y takes; float4
+    (BIG_M, 3, 0),      # the same, scalar
+])
+def test_bn_fwd_against_its_plain_version_at_ragged_shapes(m, d, offset):
+    """mu and sqrt_d within rtol 1e-5 of the plain version's (column sums
+    in another order); y bitwise equal to the plain formula applied with the
+    kernel's own statistics (the same operations, each rounded once);
+    three calls give the same bits (the arrival counters are left at 0)."""
+    from repro_torch.kernels import fused_bn
+    dev = _card()
+    rng = np.random.default_rng(5)
+    flat = _t(rng.normal(0.5, 2.0, m * d + offset).astype(np.float32))
+    x = flat.to(dev)[offset:].view(m, d)
+    gamma = _t(rng.uniform(0.5, 1.5, d).astype(np.float32)).to(dev)
+    beta = _t(rng.normal(size=d).astype(np.float32)).to(dev)
+    reset_launch_counts()
+    runs = [fused_bn.bn_fwd(x, gamma, beta) for _ in range(3)]
+    y, mu, sd = runs[0]
+    for again in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], again))
+    _, wmu, wsd = fused_bn.bn_fwd_plain(x, gamma, beta)
+    torch.testing.assert_close(mu, wmu, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(sd, wsd, rtol=1e-5, atol=1e-6)
+    assert torch.equal(y, gamma * (x - mu) / sd + beta)
+    torch.cuda.synchronize()
+    assert launch_counts()["bn_fwd"] == 3
+
+
+# (T, M, C, K): T*M a multiple of neither 256 nor 64, K of neither 64 nor
+# (for some) 4, C a multiple of 8 and not of 128
+TRAIN_SHAPES = [(1, 300, 72, 20), (4, 70, 136, 100), (4, 97, 264, 130),
+                (1, 1000, 8, 65)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,m,c,k", TRAIN_SHAPES)
+def test_packed_neuron_layer_train_at_ragged_shapes(t, m, c, k):
+    """Gaussian weights: at most 1e-3 of the spikes differ from the plain
+    version's (a membrane within rounding of the threshold may fire
+    otherwise under another order of summation), mu and var within rtol
+    1e-5."""
+    dev = _card()
+    rng = np.random.default_rng(6)
+    x = _t(_spikes(rng, (t, m, c))).to(dev)
+    w = _t((rng.normal(size=(c, k)) * 1.5 / c ** 0.5).astype(np.float32))
+    gamma = _t(rng.uniform(0.8, 1.2, k).astype(np.float32)).to(dev)
+    beta = _t(rng.normal(0.3, 0.2, k).astype(np.float32)).to(dev)
+    reset_launch_counts()
+    s, mu, var = neuron_layer.neuron_layer_train(x, w.to(dev), gamma, beta,
+                                                 packed=True)
+    s_p, mu_p, var_p = neuron_layer.neuron_layer_train_plain(
+        x, w.to(dev), gamma, beta)
+    torch.cuda.synchronize()
+    assert float((s != s_p).float().mean()) <= 1e-3
+    torch.testing.assert_close(mu, mu_p, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(var, var_p, rtol=1e-5, atol=1e-6)
+    assert launch_counts()["neuron_layer_train"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,m,c,k", TRAIN_SHAPES)
+def test_packed_neuron_layer_train_exact_on_ternary_weights(t, m, c, k):
+    """Weights in {-1, 0, 1} on rows of at most 12 spikes: every z, every
+    partial sum of z and z^2 and every statistic is exact in fp32, so the
+    spikes, mu and var equal the plain version's bit for bit."""
+    dev = _card()
+    rng = np.random.default_rng(7)
+    x = _t(_sparse_rows(rng, (t, m, c), ones=min(12, c))).to(dev)
+    w = _t(rng.integers(-1, 2, (c, k)).astype(np.float32)).to(dev)
+    gamma = _t(rng.uniform(0.8, 1.2, k).astype(np.float32)).to(dev)
+    beta = _t(rng.normal(0.3, 0.2, k).astype(np.float32)).to(dev)
+    got = neuron_layer.neuron_layer_train(x, w, gamma, beta, packed=True)
+    want = neuron_layer.neuron_layer_train_plain(x, w, gamma, beta)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("spikes", "mu", "var"), got, want):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed,k", [(True, 4), (True, 3), (False, 4)])
+def test_neuron_layer_train_past_the_grid_y_limit(packed, k):
+    """T = 1 and BIG_M rows, each of about two spikes out of eight, on
+    weights in {-1, 0, 1}: every z and every partial sum of z and z^2 is an
+    integer below 2^24, exact in fp32 in any order, so spikes, mu and var
+    equal the plain version's bit for bit, in the last rows too."""
+    dev = _card()
+    rng = np.random.default_rng(8)
+    x = _t(_spikes(rng, (1, BIG_M, 8), rate=0.25)).to(dev)
+    w = _t(rng.integers(-1, 2, (8, k)).astype(np.float32)).to(dev)
+    gamma = _t(rng.uniform(0.8, 1.2, k).astype(np.float32)).to(dev)
+    beta = _t(rng.normal(0.3, 0.2, k).astype(np.float32)).to(dev)
+    got = neuron_layer.neuron_layer_train(x, w, gamma, beta, packed=packed)
+    want = neuron_layer.neuron_layer_train_plain(x, w, gamma, beta)
+    torch.cuda.synchronize()
+    assert float(want[0][:, -1000:].mean()) > 0.05
+    for name, a, b in zip(("spikes", "mu", "var"), got, want):
+        assert torch.equal(a, b), name

@@ -148,3 +148,36 @@ def test_c_interface_matches_the_ctypes_signatures():
     assert [s.name for s in build.sources()] == [
         "fused_bn.cu", "lif_soma.cu", "neuron_layer.cu", "spike_matmul.cu"]
     assert "compute_90a" in " ".join(build.NVCC_FLAGS)
+
+
+def test_python_tile_constants_mirror_the_cuda_sources():
+    """The wrappers size their scratch from constants that mirror the CUDA
+    sources: the packed train arm's 256-row tile (the ``Large`` tile of the
+    shared tensor-core mainloop), the dense arm's 64-row tile, and the
+    columns one arrival counter of ``bn_fwd`` serves."""
+    from repro_torch.kernels import fused_bn, neuron_layer
+    src = {p.name: p.read_text() for p in build.CSRC.glob("*.cu*")}
+    large = re.search(r"using Large = Tile<(\d+), (\d+), (\d+), (\d+), "
+                      r"(\d+), (\d+)>;", src["spike_mma_mainloop.cuh"])
+    warps_m, _, wm, *_ = map(int, large.groups())
+    assert 16 * wm * warps_m == neuron_layer.TILE_ROWS
+    assert "using ZTile = e2a::mma::Large;" in src["neuron_layer.cu"]
+    dense = re.search(r"constexpr int BM = (\d+);", src["spike_tile.cuh"])
+    assert int(dense.group(1)) == neuron_layer.DENSE_TILE_ROWS
+    cols = re.search(r"constexpr int BN_COLS = (\d+);", src["fused_bn.cu"])
+    assert int(cols.group(1)) == fused_bn.COUNTER_COLS
+
+
+def test_one_tensor_core_mainloop():
+    """The spike matmul and the train-mode neuron layer multiply through
+    one contraction loop: the only MMAs are those of
+    ``spike_mma_mainloop.cuh``, which both kernels' sources include, so the
+    spike matmul's bitwise checks on the card hold the neuron layer's
+    product too."""
+    src = {p.name: p.read_text() for p in build.CSRC.glob("*.cu*")}
+    calls = {name for name, text in src.items()
+             if re.search(r"\bmma_bf16\(acc", text)}
+    assert calls == {"spike_mma_mainloop.cuh"}
+    for name in ("spike_matmul.cu", "neuron_layer.cu"):
+        assert '#include "spike_mma_mainloop.cuh"' in src[name]
+        assert "mainloop<" in src[name]
