@@ -31,7 +31,13 @@ against an fp64 product, and, at the main path's sites,
 packed ``neuron_layer_train`` cases run the same tensor-core product: they
 carry ``tc_bound_ms`` computed the same way and ``bitwise_ternary``, a check
 on weights in {-1, 0, 1} that must give the plain version's spikes, mu and
-var bit for bit.
+var bit for bit. So do the packed ``neuron_layer_eval`` cases, once per time
+step: they carry ``tc_bound_ms``, ``z_pass_ms`` (the train arm's first pass
+on the same operands) and ``bitwise_spike_matmul``, their spikes against
+the spike matmul plus bias through the plain SOMA, which must hold bit for
+bit. Every ``neuron_layer_train`` case, and the training phase at each
+neuron-layer site of a real step, also hold the spikes that the autograd
+op's backward replays to those the forward emitted, bit for bit.
 """
 from __future__ import annotations
 
@@ -57,7 +63,7 @@ from repro_torch.core.spikingformer import (SpikingFormer,  # noqa: E402
                                             spikingformer_apply, tree_leaves,
                                             tree_paths, tree_unflatten)
 from repro_torch.kernels import (KERNELS, build, fused_bn,  # noqa: E402
-                                 launch_counts, lif_soma, neuron_layer,
+                                 launch_counts, lif_soma, neuron_layer, ops,
                                  reset_launch_counts, spike_matmul)
 from repro_torch.train.data import (SyntheticVision,  # noqa: E402
                                     VisionDataConfig)
@@ -225,7 +231,12 @@ def check_neuron_layer(gen, case, t, m, c, k, packed):
     """Gaussian weights: spike mismatch <= 1e-4 of the elements (a membrane
     within rounding of the threshold may fire differently under another
     order of summation). Dyadic weights: every partial sum is exact, so the
-    spikes must agree bit for bit."""
+    spikes must agree bit for bit. The packed arm's spikes must also equal,
+    bit for bit on the Gaussian weights, those of the spike matmul on the
+    same packed operands plus the bias through the plain SOMA
+    (``bitwise_spike_matmul``: the same MMAs in the same order); its case
+    carries ``tc_bound_ms`` and ``z_pass_ms``, the train arm's first pass
+    on the same operands, the yardstick of its design."""
     if packed:
         x = spikes(gen, (t, m, c))
     else:   # float image patches; dyadic values keep the exact case exact
@@ -254,21 +265,44 @@ def check_neuron_layer(gen, case, t, m, c, k, packed):
                  f"{want.numel()} spikes differ (limit {limit})")
         if kind == "dyadic":
             out["max_abs_err"] = float((got - want).abs().max())
+    del want
+    exact = None
+    if packed:   # on the Gaussian weights
+        xp = spike_matmul.spike_pack(x)
+        mm = spike_matmul.spike_matmul_packed(xp.reshape(t * m, c // 8), w)
+        ref = lif_soma.lif_soma_fwd_plain(mm.reshape(t, m, k) + bias)[0]
+        torch.cuda.synchronize()
+        exact = torch.equal(got, ref)
+        if not exact:
+            fail(f"neuron_layer_eval {case}: {int((got != ref).sum())} spikes "
+                 f"differ from spike matmul + bias + plain SOMA (must be "
+                 f"bitwise)")
+        del mm, ref
     # timed on the Gaussian weights (the last ones)
-    ops = (float(x.sum()) * k if packed else 2.0 * t * m * c * k) \
+    ops_ = (float(x.sum()) * k if packed else 2.0 * t * m * c * k) \
         + 8.0 * t * m * k
-    b_ms, b_by = bound(nbytes(x, w, bias, got), ops)
+    moved = nbytes(x, w, bias, got)
+    b_ms, b_by = bound(moved, ops_)
     out.update({
         "tolerance": "spikes: 0 differ on dyadic weights, <= 1e-4 of the "
-                     "elements on Gaussian weights",
+                     "elements on Gaussian weights"
+                     + ("; bitwise on Gaussian weights against spike matmul "
+                        "+ bias + plain SOMA" if packed else ""),
+        "bitwise_spike_matmul": exact,
         "ms": time_ms(lambda: neuron_layer.neuron_layer_eval(
             x, w, bias, packed=packed)),
         "plain_ms": time_ms(lambda: neuron_layer.neuron_layer_eval_plain(
             x, w, bias)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        # the packed arm's tensor-core design: three dense bf16 passes
+        "tc_bound_ms": max(moved / HBM_BYTES_PER_S,
+                           6.0 * t * m * c * k / BF16_FLOPS) * 1e3
+        if packed else None,
         "dense_fp32_bound_ms": 2.0 * t * m * c * k / FP32_FLOPS * 1e3})
     if packed:
         out["pack_ms"] = time_ms(lambda: spike_matmul.spike_pack(x))
+        out["z_pass_ms"] = time_ms(lambda: neuron_layer.neuron_layer_train_z(
+            x, w, packed=True, xin=xp))
     return out
 
 
@@ -414,6 +448,21 @@ def ternary_case(gen, x, w, gamma, beta):
             if not torch.equal(a, b)]
 
 
+def replay_mismatch(x, w, gamma, beta, packed, emitted=None) -> int:
+    """C1's check: the spikes the train op's backward replays (z by the
+    forward kernel's first pass on the packed input, BN with the forward's
+    own statistics in its order, the SOMA kernel) against those the forward
+    emitted; the number that differ, which must be 0. ``emitted`` is the
+    forward's ``neuron_layer_train_fwd`` result where the caller has it."""
+    s, mu, _, sqrt_d, xin = emitted or neuron_layer.neuron_layer_train_fwd(
+        x, w, gamma, beta, packed=packed)
+    _, y = ops.replay_train_pre_activation(x, xin, w, gamma, beta, mu, sqrt_d,
+                                           packed)
+    replayed = lif_soma.lif_soma_fwd(y)[0]
+    torch.cuda.synchronize()
+    return int((replayed != s).sum())
+
+
 def check_neuron_layer_train(gen, case, t, m, c, k, packed):
     """Gaussian weights and batch statistics over T*M rows: spikes within
     1e-4 of the elements of the plain version's (a membrane within rounding
@@ -429,6 +478,11 @@ def check_neuron_layer_train(gen, case, t, m, c, k, packed):
     if n_bad > 1e-4 * want[0].numel() or max(errs.values()) > 1e-5:
         fail(f"neuron_layer_train {case}: {n_bad} of {want[0].numel()} "
              f"spikes differ, statistics {errs}")
+    replay_bad = replay_mismatch(x, w, gamma, beta, packed)
+    if replay_bad:
+        fail(f"neuron_layer_train {case}: the backward's replay gives "
+             f"{replay_bad} spikes other than the forward emitted (must be "
+             f"bitwise)")
     exact = None
     if packed:
         differ = ternary_case(gen, x, w, gamma, beta)
@@ -448,10 +502,11 @@ def check_neuron_layer_train(gen, case, t, m, c, k, packed):
            "max_abs_err": max(errs.values()),
            "tolerance": "spikes: <= 1e-4 of the elements differ; mu, var "
                         "within 1e-5 of their scale (sums over T*M rows in "
-                        "another order)" + ("; bitwise on ternary weights, "
-                                            "<= 12 spikes a row"
-                                            if packed else ""),
-           "bitwise_ternary": exact,
+                        "another order); the backward's replay gives the "
+                        "emitted spikes bit for bit"
+                        + ("; bitwise on ternary weights, <= 12 spikes a row"
+                           if packed else ""),
+           "bitwise_ternary": exact, "replay_mismatch": replay_bad,
            "ms": time_ms(lambda: neuron_layer.neuron_layer_train(
                x, w, gamma, beta, packed=packed)),
            "plain_ms": time_ms(lambda: neuron_layer.neuron_layer_train_plain(
@@ -463,6 +518,16 @@ def check_neuron_layer_train(gen, case, t, m, c, k, packed):
            if packed else None,
            "dense_fp32_bound_ms": 2.0 * t * m * c * k / FP32_FLOPS * 1e3}
     return out
+
+
+def eval_kernel_cases(gen, batch: int) -> list[dict]:
+    """The cases of ``neuron_layer_eval`` at the preset's shapes, the block
+    sites first (they carry 32 of its 36 launches a forward)."""
+    rows = []
+    for site in neuron_layer_sites(batch):
+        rows.append(check_neuron_layer(gen, *site))
+        torch.cuda.empty_cache()
+    return rows[-2:] + rows[:-2]
 
 
 def train_kernel_cases(gen, batch: int) -> dict[str, list[dict]]:
@@ -539,9 +604,7 @@ def kernel_phase(seed: int, batch: int) -> dict[str, list[dict]]:
     cases["lif_soma_fwd"].append(check_lif(gen, t, m, d))
     (cases["spike_matmul_packed"],
      cases["spike_matmul_packed_batched"]) = spike_matmul_cases(gen, batch)
-    for site in neuron_layer_sites(batch):
-        cases["neuron_layer_eval"].append(check_neuron_layer(gen, *site))
-        torch.cuda.empty_cache()
+    cases["neuron_layer_eval"] = eval_kernel_cases(gen, batch)
 
     # the training kernels
     cases["lif_soma_bwd"].extend(check_lif_bwd(gen, t, m, d))
@@ -806,16 +869,44 @@ def model_phase(seed: int, depth: int, requests: int, batch: int):
 #: Launches of each kernel in one training step of the full policy, from the
 #: code: per block, 3 LIF scans (pssa.lif x2, smlp.lif) whose backward runs
 #: the GRAD kernel; 4 neuron-layer sites (q, k, v, smlp.a) + 4 tokenizer
-#: stages, whose backward replays SOMA, GRAD and the BN backward; 2
-#: pipeline sites (pssa.proj, smlp.b) with the spike matmul and the BN
-#: pair; attn_qk on the batched spike matmul (attn_av demotes: 196 % 8).
+#: stages, whose backward replays z through the kernel's first pass (a
+#: launch of ``neuron_layer_train``, whose pass it is), then SOMA, GRAD and
+#: the BN backward; 2 pipeline sites (pssa.proj, smlp.b) with the spike
+#: matmul and the BN pair; attn_qk on the batched spike matmul (attn_av
+#: demotes: 196 % 8).
 def per_train_step(depth: int, stages: int) -> dict[str, int]:
     sites = 4 * depth + stages
     return {"lif_soma_fwd": 3 * depth + sites, "lif_soma_bwd": 3 * depth + sites,
             "spike_matmul_packed": 2 * depth,
             "spike_matmul_packed_batched": depth,
             "bn_fwd": 2 * depth, "bn_bwd": 2 * depth + sites,
-            "neuron_layer_train": sites, "neuron_layer_eval": 0}
+            "neuron_layer_train": 2 * sites, "neuron_layer_eval": 0}
+
+
+def step_replay_check(cfg, params, state, images) -> dict:
+    """C1 on the training step's own activations: one train-mode forward of
+    the ``cuda-full`` model with every neuron-layer kernel call captured
+    (inputs and what the autograd op saves), then at each of those sites
+    the spikes the backward's replay gives against those the forward
+    emitted. Every one must agree bit for bit."""
+    calls, real = [], neuron_layer.neuron_layer_train_fwd
+
+    def capture(x, w, gamma, beta, **kw):
+        out = real(x, w, gamma, beta, **kw)
+        calls.append((x, w, gamma, beta, kw["packed"], out))
+        return out
+
+    neuron_layer.neuron_layer_train_fwd = capture
+    try:
+        with torch.no_grad():
+            spikingformer_apply(params, state, images, cfg, train=True)
+    finally:
+        neuron_layer.neuron_layer_train_fwd = real
+    bad = [replay_mismatch(x, w, g, b, packed, out)
+           for x, w, g, b, packed, out in calls]
+    return {"sites": len(calls), "packed_sites": sum(c[4] for c in calls),
+            "spikes_compared": sum(c[5][0].numel() for c in calls),
+            "mismatch": sum(bad)}
 
 
 def train_phase(seed: int, batch: int) -> dict[str, int]:
@@ -876,16 +967,22 @@ def train_phase(seed: int, batch: int) -> dict[str, int]:
         torch.cuda.empty_cache()
     per_step = per_train_step(depth, cfg.tokenizer_stages)
     want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    replay = step_replay_check(cfg.with_policy(named_policy("cuda-full")),
+                               params, state, batches[0]["images"])
     emit("train", preset=f"{PRESET}@cuda-full", depth=depth, batch=batch,
          steps=TRAIN_STEPS, dtype="float32", data="SyntheticVision",
          optimizer=dataclasses.asdict(opt_cfg), **result,
-         launches=counts, launches_per_step=per_step,
+         launches=counts, launches_per_step=per_step, replay=replay,
          note="the eager run starts from the same state on the same batches;"
               " its losses are reported, not held against cuda-full's "
               "(free-running spikes on random weights part after a flip)")
     if counts != want:
         fail(f"training launch counts {counts} != {want} for {TRAIN_STEPS} "
              f"steps")
+    sites = 4 * depth + cfg.tokenizer_stages
+    if replay["mismatch"] or replay["sites"] != sites:
+        fail(f"the backward's replay differs from the emitted spikes: "
+             f"{replay}")
     return counts
 
 

@@ -56,12 +56,16 @@ SIGNATURES: dict[str, tuple] = {
     # g, x, gamma, mu, sqrt_d, dx, dgamma, dbeta, part, sums, M, D,
     # rows per chunk, stream
     "e2a_bn_bwd": (_P,) * 10 + (_L, _I, _L, _P),
-    # x, w, bias, s, T, M, C, K, packed, alpha, th_fire, stream
-    "e2a_neuron_layer_eval": (_P, _P, _P, _P, _I, _L, _I, _I, _I, _F, _F, _P),
+    # x, w, bias, s, T, M, C, K, packed, tile (0 by rule, 1 Large, 2 Small),
+    # alpha, th_fire, stream
+    "e2a_neuron_layer_eval": (_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _F, _F,
+                              _P),
     # x, w, gamma, beta, z, part, mu, var, sqrt_d, s, T, M, C, K, packed,
     # alpha, th_fire, eps, stream
     "e2a_neuron_layer_train": (_P,) * 10 + (_I, _L, _I, _I, _I, _F, _F, _F,
                                             _P),
+    # x, w, z, T, M, C, K, packed, stream
+    "e2a_neuron_layer_train_z": (_P, _P, _P, _I, _L, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -1,46 +1,64 @@
-// Eval-mode neuron layer: matmul + bias + LIF SOMA in one launch.
-//
-//   acc[t][m][k] = sum_c x[t][m][c] * w[c][k]            (fp32, ascending c)
-//   u = alpha * u * (1 - s) + (acc[t] + bias[k]);  s = u >= th_fire
+// The neuron layer: matmul, batch norm and LIF SOMA behind one entry point,
+// eval mode and train mode.
 //
 // x is (T, M, C) fp32, or its bit-packed form (T, M, C/8) uint8 (least
 // significant bit first along C) when the input is a spike train; w is
-// (C, K) with batch norm already folded in by the caller, bias (K,) fp32.
-// Only the spikes (T, M, K) are written: the pre-activation lives in the T
-// accumulators each thread keeps in registers and never reaches device
-// memory. The weight chunk staged in shared memory is fetched once and used
-// by all T steps (see spike_tile.cuh). Offsets are 64-bit: the first
-// tokenizer stage writes more than 2^25 elements per time step.
+// (C, K) fp32. Offsets are 64-bit: the first tokenizer stage writes more
+// than 2^25 elements per time step.
 //
-// The packed arm is bound by fp32 operations outside the tensor cores; the
-// dense arm at the first tokenizer stage (C = 27) by the bytes of its input
-// and output.
+// Eval mode (replaces _nl_eval_kernel, src/repro/kernels/neuron_layer.py,
+// neuron_layer_eval): batch norm is folded into (w, bias) by the caller, so
 //
-// Train mode (batch statistics over all T * M rows of a column) cannot
-// finish in the tile's epilogue: the statistics need every row tile first.
-// The TPU kernel had one program own all rows of a feature block; here that
-// would be one block per 64 columns. The train arm is therefore three
-// launches behind one entry point:
+//   y[t][m][k] = sum_c x[t][m][c] * w[c][k] + bias[k]
+//   u = alpha * u * (1 - s) + y[t];  s = u >= th_fire
+//
+// and only the spikes (T, M, K) are written: the pre-activation never
+// reaches device memory.
+//   - Packed arm (every site but the first tokenizer stage):
+//     neuron_layer_eval_mma. A block owns a BM x BN tile of the M rows of
+//     one time step and loops t = 0..T-1: the tensor-core mainloop of
+//     spike_mma_mainloop.cuh (the one e2a_spike_matmul and the train arm's
+//     z pass run) over time step t's packed rows, then an epilogue that adds
+//     the bias to each of the thread's fragment outputs and advances its
+//     membrane. (U, S) stay with the thread across the T mainloops: S as one
+//     bit per output in a register, U in shared memory at the thread's own
+//     slots (no other thread reads them, so no barrier guards them), beside
+//     the mainloop's space. Each output's MMAs run in the same order
+//     whatever the tile, so y equals the spike matmul's product on the same
+//     operands plus the bias, bit for bit, and the spikes equal those of
+//     spike matmul + bias + the plain SOMA. T is sequential inside a block,
+//     so the grid covers M only and a block does T times the z pass's work;
+//     the entry point picks the tile (eval_tile). Bound: three dense bf16
+//     passes on the tensor cores (3 * 2 * T*M*C*K operations) or the
+//     spikes' bytes.
+//   - Dense arm (the first tokenizer stage: C = 27, a dense fp32 image):
+//     neuron_layer_eval_dense, the fp32 tile loop of spike_tile.cuh with T
+//     accumulators per thread; bound by the bytes of its input and output.
+//
+// Train mode (replaces _nl_train_kernel, neuron_layer_train): batch
+// statistics over all T * M rows of a column cannot finish in a tile's
+// epilogue, since they need every row tile first. The TPU kernel had one
+// program own all rows of a feature block; here that would be one block per
+// 64 columns. The train arm is therefore three launches behind one entry
+// point:
 //   (a) z = x @ w, written once as (T * M, K) fp32, and per row tile the
 //       column sums of z and z^2 (a fixed order: no atomics, the same
 //       statistics on every run). In train mode T is only a row index, so
 //       the packed arm's pass is the spike matmul over T * M rows: the
-//       tensor-core mainloop of spike_mma_mainloop.cuh (one source with
-//       e2a_spike_matmul, whose bitwise checks hold it), Large tile (256 x 64
-//       outputs, 16 warps, BK = 128), with an epilogue that also forms the
-//       tile's column partials. The dense arm (the first tokenizer stage:
-//       C = 27, a dense fp32 image, one launch a step, bound by bytes) keeps
-//       the fp32 tile loop of spike_tile.cuh, 64-row tiles over M, each
-//       holding T * 64 values;
+//       tensor-core mainloop, Large tile (256 x 64 outputs, 16 warps,
+//       BK = 128), with an epilogue that also forms the tile's column
+//       partials. The dense arm keeps the fp32 tile loop of spike_tile.cuh,
+//       64-row tiles over M, each holding T * 64 values. The autograd op's
+//       backward replays z through this pass alone (e2a_neuron_layer_train_z),
+//       so its z is the forward's bit for bit;
 //   (b) per column, the tiles' partials are added in order and mu, var,
 //       sqrt(var + eps) formed (bn_stats.cuh);
 //   (c) one pass reads z once, normalises (eq. 17-18) and runs SOMA over T
 //       with (U, S) in registers, writing the spikes; a 2-D grid (row range
 //       x column block), float4 along K where K % 4 == 0.
-// Bound on this card: the packed arm by three dense bf16 passes on the
-// tensor cores (3 * 2 * T*M*C*K operations) plus the z round trip (2 * T *
-// M * K * 4 bytes); recomputing the product in (c) instead of storing z
-// would double the dominant work.
+// Bound: the packed arm by three dense bf16 passes on the tensor cores plus
+// the z round trip (2 * T * M * K * 4 bytes); recomputing the product in (c)
+// instead of storing z would double the dominant work.
 #include "bn_stats.cuh"
 #include "spike_mma_mainloop.cuh"
 #include "spike_tile.cuh"
@@ -49,22 +67,29 @@ namespace {
 
 using namespace e2a;
 
-template <int T, bool PACKED>
-__global__ void __launch_bounds__(THREADS) neuron_layer_eval_kernel(
-    const void* __restrict__ x, const float* __restrict__ w,
+// eq. 11's membrane update, every operation rounded once in the plain
+// version's order (lif_soma.cu's lif_step), so equal inputs give equal
+// spikes bit for bit.
+__device__ __forceinline__ float membrane(float u, float s, float y,
+                                          float alpha) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(alpha, u), __fsub_rn(1.0f, s)), y);
+}
+
+// ---- eval, dense arm ----
+template <int T>
+__global__ void __launch_bounds__(THREADS) neuron_layer_eval_dense(
+    const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ bias, float* __restrict__ s, long long M, int C,
     int K, float alpha, float th_fire) {
   constexpr int BC = ChunkOf<T>::value;
   __shared__ __align__(16) float xs[T][BC][XS];
   __shared__ __align__(16) float ws[BC][BN];
 
-  const long long row_len = PACKED ? C / 8 : C;   // elements per (t, m) row
   TileArgs a;
   a.x = x;
-  a.x_t = M * row_len;
-  a.x_m = row_len;
+  a.x_t = M * C;
+  a.x_m = C;
   a.x_c = 1;
-  a.row_step = 0;
   a.w = w;
   a.w_c = K;
   a.w_k = 1;
@@ -75,7 +100,7 @@ __global__ void __launch_bounds__(THREADS) neuron_layer_eval_kernel(
   a.C = C;
 
   float acc[T][TM][TN];
-  accumulate<T, BC, PACKED>(a, xs, ws, acc);
+  accumulate<T, BC>(a, xs, ws, acc);
 
   const int tx = threadIdx.x % (BN / TN);
   const int ty = threadIdx.x / (BN / TN);
@@ -91,8 +116,7 @@ __global__ void __launch_bounds__(THREADS) neuron_layer_eval_kernel(
       float u = 0.0f, sp = 0.0f;
 #pragma unroll
       for (int t = 0; t < T; ++t) {
-        const float y = __fadd_rn(acc[t][i][j], b);
-        u = __fadd_rn(__fmul_rn(__fmul_rn(alpha, u), __fsub_rn(1.0f, sp)), y);
+        u = membrane(u, sp, __fadd_rn(acc[t][i][j], b), alpha);
         sp = (u >= th_fire) ? 1.0f : 0.0f;
         s[((long long)t * M + row) * K + col] = sp;
       }
@@ -101,24 +125,127 @@ __global__ void __launch_bounds__(THREADS) neuron_layer_eval_kernel(
 }
 
 template <int T>
-int launch(const void* x, const float* w, const float* bias, float* s,
-           long long M, int C, int K, int packed, float alpha, float th_fire,
-           cudaStream_t st) {
+int launch_eval_dense(const float* x, const float* w, const float* bias,
+                      float* s, long long M, int C, int K, float alpha,
+                      float th_fire, cudaStream_t st) {
   const dim3 grid((unsigned)((M + BM - 1) / BM), (K + BN - 1) / BN, 1);
-  if (packed)
-    neuron_layer_eval_kernel<T, true><<<grid, THREADS, 0, st>>>(
-        x, w, bias, s, M, C, K, alpha, th_fire);
-  else
-    neuron_layer_eval_kernel<T, false><<<grid, THREADS, 0, st>>>(
-        x, w, bias, s, M, C, K, alpha, th_fire);
+  neuron_layer_eval_dense<T><<<grid, THREADS, 0, st>>>(x, w, bias, s, M, C, K,
+                                                       alpha, th_fire);
   return (int)cudaGetLastError();
 }
 
-// (a), dense arm: z and the per-row-tile column partials of sum(z) and
-// sum(z^2) over the tile's T * BM values.
+// ---- eval, packed arm ----
+// Outputs a thread owns in the tile (Lane<Tile>: WM x WN fragments of 4),
+// and the dynamic shared memory of a block: the mainloop's, then U, slot i
+// of thread j at float (i * THREADS + j), so a warp's accesses are
+// contiguous.
+template <class Tile>
+struct EvalTile {
+  static constexpr int OUTS = Tile::WM * Tile::WN * 4;
+  static constexpr int SMEM = Tile::SMEM + OUTS * Tile::THREADS * 4;
+  static_assert(OUTS <= 32, "one spike bit per output in a 32-bit mask");
+};
+
+template <class Tile>
+__global__ void __launch_bounds__(Tile::THREADS, Tile::MIN_BLOCKS)
+    neuron_layer_eval_mma(const e2a::mma::Operands a, int T,
+                          const float* __restrict__ bias,
+                          float* __restrict__ s, float alpha, float th_fire) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* const u_mem =
+      reinterpret_cast<float*>(smem + Tile::SMEM) + threadIdx.x;
+  const long long m0 = (long long)blockIdx.x * Tile::BM;
+  const int n0 = blockIdx.y * Tile::BN;
+  const e2a::mma::Lane<Tile> L;
+  const int K = a.K;
+  const bool vec2 = K % 2 == 0;   // s is 256-byte aligned, rows K floats
+  uint32_t fired = 0;             // bit i: output i's spike at step t - 1
+  e2a::mma::Operands at = a;
+  for (int t = 0; t < T; ++t) {
+    at.x = a.x + (long long)t * a.M * a.x_m;   // time step t's packed rows
+    if (t > 0) __syncthreads();   // every warp is past step t - 1's mainloop
+    e2a::mma::Acc<Tile> acc;
+    e2a::mma::mainloop<Tile>(at, m0, n0, smem, acc);
+    float* const out = s + (long long)t * a.M * K;
+#pragma unroll
+    for (int mt = 0; mt < Tile::WM; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long row = m0 + L.wm0 + mt * 16 + L.g + 8 * h;
+#pragma unroll
+        for (int nt = 0; nt < Tile::WN; ++nt) {
+          const int col = n0 + L.wn0 + nt * 8 + 2 * L.t;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = (mt * Tile::WN + nt) * 4 + 2 * h + e;
+            // the bias is read here, not kept across the mainloop, which
+            // needs every register it can get
+            const float y = __fadd_rn(
+                e2a::mma::result(acc[0][mt][nt][2 * h + e],
+                                 acc[1][mt][nt][2 * h + e]),
+                col + e < K ? __ldg(bias + col + e) : 0.0f);
+            const float u =
+                membrane(t > 0 ? u_mem[i * Tile::THREADS] : 0.0f,
+                         (fired >> i) & 1u ? 1.0f : 0.0f, y, alpha);
+            u_mem[i * Tile::THREADS] = u;
+            const bool f = u >= th_fire;
+            fired = f ? fired | (1u << i) : fired & ~(1u << i);
+            v[e] = f ? 1.0f : 0.0f;
+          }
+          if (row >= a.M) continue;
+          float* const o = out + row * K + col;
+          if (vec2 && col + 1 < K) {
+            *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+          } else {
+            if (col < K) o[0] = v[0];
+            if (col + 1 < K) o[1] = v[1];
+          }
+        }
+      }
+  }
+}
+
+template <class Tile>
+int launch_eval_mma(const e2a::mma::Operands& a, int T, const float* bias,
+                    float* s, float alpha, float th_fire, cudaStream_t st) {
+  static bool raised[e2a::mma::kMaxDevices] = {};
+  const int err = e2a::mma::allow_smem(
+      reinterpret_cast<const void*>(neuron_layer_eval_mma<Tile>),
+      EvalTile<Tile>::SMEM, raised);
+  if (err != 0) return err;
+  const dim3 grid((unsigned)((a.M + Tile::BM - 1) / Tile::BM),
+                  (a.K + Tile::BN - 1) / Tile::BN, 1);
+  neuron_layer_eval_mma<Tile><<<grid, Tile::THREADS, EvalTile<Tile>::SMEM,
+                                st>>>(a, T, bias, s, alpha, th_fire);
+  return (int)cudaGetLastError();
+}
+
+// The packed eval arm's tile. A block runs T mainloops, so its blocks are
+// few and long and the last wave's share of idle SMs decides the time.
+// Large (256 x 64 outputs, one block an SM) where its grid fits in one wave
+// (the block sites, M = 3,136 rows: 104 blocks); Small (128 x 64, two blocks
+// an SM) beyond, whose half-size blocks even out the last wave. Measured at
+// the preset's five packed sites, this picks the faster tile at each
+// (benchmarks/torch/bench_eval_kernels.py; PERF.md, section 6).
+int eval_tile(long long M, int K) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    sms = 132;
+  using e2a::mma::Large;
+  const long long blocks =
+      ((M + Large::BM - 1) / Large::BM) * ((K + Large::BN - 1) / Large::BN);
+  return blocks <= sms ? 1 : 2;
+}
+
+// ---- train, pass (a) ----
+// Dense arm: z and the per-row-tile column partials of sum(z) and sum(z^2)
+// over the tile's T * BM values (not written where part is null).
 template <int T>
 __global__ void __launch_bounds__(THREADS) neuron_layer_train_z(
-    const void* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ x, const float* __restrict__ w,
     float* __restrict__ z, float* __restrict__ part, long long M, int C,
     int K, int n_tiles) {
   constexpr int BC = ChunkOf<T>::value;
@@ -130,7 +257,6 @@ __global__ void __launch_bounds__(THREADS) neuron_layer_train_z(
   a.x_t = M * C;
   a.x_m = C;
   a.x_c = 1;
-  a.row_step = 0;
   a.w = w;
   a.w_c = K;
   a.w_k = 1;
@@ -141,7 +267,7 @@ __global__ void __launch_bounds__(THREADS) neuron_layer_train_z(
   a.C = C;
 
   float acc[T][TM][TN];
-  accumulate<T, BC, false>(a, xs, ws, acc);   // ends with __syncthreads()
+  accumulate<T, BC>(a, xs, ws, acc);   // ends with __syncthreads()
 
   const int tx = threadIdx.x % (BN / TN);
   const int ty = threadIdx.x / (BN / TN);
@@ -170,7 +296,7 @@ __global__ void __launch_bounds__(THREADS) neuron_layer_train_z(
     red[(ROWS + ty) * BN + tx * TN + j] = cq;
   }
   __syncthreads();
-  if (threadIdx.x < 2 * BN) {
+  if (part != nullptr && threadIdx.x < 2 * BN) {
     const int q = threadIdx.x / BN;          // 0: sum(z), 1: sum(z^2)
     const int c = threadIdx.x % BN;
     const int col = a.k0 + c;
@@ -182,11 +308,11 @@ __global__ void __launch_bounds__(THREADS) neuron_layer_train_z(
   }
 }
 
-// (a), packed arm: z (T * M, K) = x (T * M, C / 8) @ w on the tensor cores,
-// and per 256-row tile the column partials of sum(z) and sum(z^2) of the
+// Packed arm: z (T * M, K) = x (T * M, C / 8) @ w on the tensor cores, and
+// per 256-row tile the column partials of sum(z) and sum(z^2) of the
 // rounded z, in a fixed order: each thread over its own four rows, then the
 // eight g lanes of a warp by __shfl_xor in a fixed order, then the WARPS_M
-// warps in shared memory in warp order.
+// warps in shared memory in warp order (not written where part is null).
 using ZTile = e2a::mma::Large;
 
 __global__ void __launch_bounds__(ZTile::THREADS, ZTile::MIN_BLOCKS)
@@ -258,7 +384,7 @@ __global__ void __launch_bounds__(ZTile::THREADS, ZTile::MIN_BLOCKS)
       }
   }
   __syncthreads();
-  if (threadIdx.x < 2 * T::BN) {
+  if (part != nullptr && threadIdx.x < 2 * T::BN) {
     const int q = threadIdx.x / T::BN, c = threadIdx.x % T::BN;
     const int col = n0 + c;
     if (col < K) {
@@ -268,6 +394,62 @@ __global__ void __launch_bounds__(ZTile::THREADS, ZTile::MIN_BLOCKS)
         v = __fadd_rn(v, red[(q * T::WARPS_M + wm) * T::BN + c]);
       part[((long long)q * n_tiles + blockIdx.x) * K + col] = v;
     }
+  }
+}
+
+template <int T>
+int launch_train_z_dense(const float* x, const float* w, float* z,
+                         float* part, long long M, int C, int K, int n_tiles,
+                         cudaStream_t st) {
+  const dim3 grid((unsigned)n_tiles, (K + BN - 1) / BN, 1);
+  neuron_layer_train_z<T><<<grid, THREADS, 0, st>>>(x, w, z, part, M, C, K,
+                                                   n_tiles);
+  return (int)cudaGetLastError();
+}
+
+int launch_train_z_packed(const e2a::mma::Operands& a, float* z, float* part,
+                          int n_tiles, cudaStream_t st) {
+  static bool raised[e2a::mma::kMaxDevices] = {};
+  const int err = e2a::mma::allow_smem(
+      reinterpret_cast<const void*>(neuron_layer_train_z_mma), ZTile::SMEM,
+      raised);
+  if (err != 0) return err;
+  const dim3 grid((unsigned)n_tiles, (a.K + ZTile::BN - 1) / ZTile::BN, 1);
+  neuron_layer_train_z_mma<<<grid, ZTile::THREADS, ZTile::SMEM, st>>>(
+      a, z, part, n_tiles);
+  return (int)cudaGetLastError();
+}
+
+// Pass (a) of either arm: z (T, M, K), and the column partials into part
+// unless it is null; n_tiles receives the partials' tile count:
+// ceil(T * M / 256) for the packed arm (ZTile::BM; kernels/neuron_layer.py
+// TILE_ROWS), ceil(M / 64) for the dense arm (BM of spike_tile.cuh;
+// DENSE_TILE_ROWS). Returns a cudaError_t.
+int launch_z(const void* x, const float* w, float* z, float* part, int T,
+             long long M, int C, int K, int packed, int& n_tiles,
+             cudaStream_t st) {
+  if (packed && C % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (T < 1 || T > 8) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)T * M;
+  if (packed) {
+    if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    // T is a row index here: x (T * M, C / 8) and z (T * M, K), contiguous
+    const e2a::mma::Operands a = {static_cast<const uint8_t*>(x), C / 8, 1,
+                                  w, K, 1, (int)rows, C, K};
+    n_tiles = (int)((rows + ZTile::BM - 1) / ZTile::BM);
+    return launch_train_z_packed(a, z, part, n_tiles, st);
+  }
+  const float* xf = static_cast<const float*>(x);
+  n_tiles = (int)((M + BM - 1) / BM);
+  switch (T) {
+    case 1: return launch_train_z_dense<1>(xf, w, z, part, M, C, K, n_tiles, st);
+    case 2: return launch_train_z_dense<2>(xf, w, z, part, M, C, K, n_tiles, st);
+    case 3: return launch_train_z_dense<3>(xf, w, z, part, M, C, K, n_tiles, st);
+    case 4: return launch_train_z_dense<4>(xf, w, z, part, M, C, K, n_tiles, st);
+    case 5: return launch_train_z_dense<5>(xf, w, z, part, M, C, K, n_tiles, st);
+    case 6: return launch_train_z_dense<6>(xf, w, z, part, M, C, K, n_tiles, st);
+    case 7: return launch_train_z_dense<7>(xf, w, z, part, M, C, K, n_tiles, st);
+    default: return launch_train_z_dense<8>(xf, w, z, part, M, C, K, n_tiles, st);
   }
 }
 
@@ -332,8 +514,7 @@ __global__ void __launch_bounds__(SOMA_COLS* SOMA_LANES)
           const float y = __fadd_rn(
               __fdiv_rn(__fmul_rn(ga[j], __fsub_rn(zv[j], m[j])), sd[j]),
               be[j]);
-          u[j] = __fadd_rn(__fmul_rn(__fmul_rn(alpha, u[j]),
-                                     __fsub_rn(1.0f, sp[j])), y);
+          u[j] = membrane(u[j], sp[j], y, alpha);
           sp[j] = (u[j] >= th_fire) ? 1.0f : 0.0f;
         }
         e2a::store_v<V>(s + at, sp);
@@ -342,58 +523,48 @@ __global__ void __launch_bounds__(SOMA_COLS* SOMA_LANES)
   }
 }
 
-template <int T>
-int launch_train_z_dense(const void* x, const float* w, float* z, float* part,
-                         long long M, int C, int K, int n_tiles,
-                         cudaStream_t st) {
-  const dim3 grid((unsigned)n_tiles, (K + BN - 1) / BN, 1);
-  neuron_layer_train_z<T><<<grid, THREADS, 0, st>>>(x, w, z, part, M, C, K,
-                                                   n_tiles);
-  return (int)cudaGetLastError();
-}
-
-int launch_train_z_packed(const e2a::mma::Operands& a, float* z, float* part,
-                          int n_tiles, cudaStream_t st) {
-  static bool raised[e2a::mma::kMaxDevices] = {};
-  const int err = e2a::mma::allow_smem(
-      reinterpret_cast<const void*>(neuron_layer_train_z_mma), ZTile::SMEM,
-      raised);
-  if (err != 0) return err;
-  const dim3 grid((unsigned)n_tiles, (a.K + ZTile::BN - 1) / ZTile::BN, 1);
-  neuron_layer_train_z_mma<<<grid, ZTile::THREADS, ZTile::SMEM, st>>>(
-      a, z, part, n_tiles);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
+// Eval mode: x (T, M, C) [packed: (T, M, C/8) uint8] @ w (C, K) + bias ->
+// SOMA; writes s (T, M, K). tile picks the packed arm's tile: 0 by the rule
+// of eval_tile, 1 Large, 2 Small (the benchmark times both).
 extern "C" int e2a_neuron_layer_eval(const void* x, const float* w,
                                      const float* bias, float* s, int T,
                                      long long M, int C, int K, int packed,
-                                     float alpha, float th_fire,
+                                     int tile, float alpha, float th_fire,
                                      void* stream) {
   if (M <= 0 || K <= 0) return 0;
-  if (packed && C % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (T < 1 || T > 8 || tile < 0 || tile > 2) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (packed) {
+    if (C % 8 != 0 || M > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    // x (T, M, C / 8): time step t's rows start at t * M * (C / 8)
+    const e2a::mma::Operands a = {static_cast<const uint8_t*>(x), C / 8, 1,
+                                  w, K, 1, (int)M, C, K};
+    if (tile == 0) tile = eval_tile(M, K);
+    return tile == 1
+               ? launch_eval_mma<e2a::mma::Large>(a, T, bias, s, alpha,
+                                                  th_fire, st)
+               : launch_eval_mma<e2a::mma::Small>(a, T, bias, s, alpha,
+                                                  th_fire, st);
+  }
+  const float* xf = static_cast<const float*>(x);
   switch (T) {
-    case 1: return launch<1>(x, w, bias, s, M, C, K, packed, alpha, th_fire, st);
-    case 2: return launch<2>(x, w, bias, s, M, C, K, packed, alpha, th_fire, st);
-    case 3: return launch<3>(x, w, bias, s, M, C, K, packed, alpha, th_fire, st);
-    case 4: return launch<4>(x, w, bias, s, M, C, K, packed, alpha, th_fire, st);
-    case 5: return launch<5>(x, w, bias, s, M, C, K, packed, alpha, th_fire, st);
-    case 6: return launch<6>(x, w, bias, s, M, C, K, packed, alpha, th_fire, st);
-    case 7: return launch<7>(x, w, bias, s, M, C, K, packed, alpha, th_fire, st);
-    case 8: return launch<8>(x, w, bias, s, M, C, K, packed, alpha, th_fire, st);
-    default: return (int)cudaErrorInvalidValue;
+    case 1: return launch_eval_dense<1>(xf, w, bias, s, M, C, K, alpha, th_fire, st);
+    case 2: return launch_eval_dense<2>(xf, w, bias, s, M, C, K, alpha, th_fire, st);
+    case 3: return launch_eval_dense<3>(xf, w, bias, s, M, C, K, alpha, th_fire, st);
+    case 4: return launch_eval_dense<4>(xf, w, bias, s, M, C, K, alpha, th_fire, st);
+    case 5: return launch_eval_dense<5>(xf, w, bias, s, M, C, K, alpha, th_fire, st);
+    case 6: return launch_eval_dense<6>(xf, w, bias, s, M, C, K, alpha, th_fire, st);
+    case 7: return launch_eval_dense<7>(xf, w, bias, s, M, C, K, alpha, th_fire, st);
+    default: return launch_eval_dense<8>(xf, w, bias, s, M, C, K, alpha, th_fire, st);
   }
 }
 
 // Train mode: x (T, M, C) [packed: (T, M, C/8) uint8] @ w (C, K) -> batch
-// statistics over T * M rows -> BN -> SOMA. Writes s (T, M, K) and mu, var
-// (K); z (T, M, K), part and sqrt_d (K) are scratch. part holds
-// (2, n_tiles, K) floats: n_tiles = ceil(T * M / 256) for the packed arm
-// (ZTile::BM; kernels/neuron_layer.py TILE_ROWS), ceil(M / 64) for the dense
-// arm (BM of spike_tile.cuh; DENSE_TILE_ROWS).
+// statistics over T * M rows -> BN -> SOMA. Writes s (T, M, K) and mu, var,
+// sqrt_d (K); z (T, M, K) and part are scratch. part holds (2, n_tiles, K)
+// floats, n_tiles as launch_z gives it.
 extern "C" int e2a_neuron_layer_train(const void* x, const float* w,
                                       const float* gamma, const float* beta,
                                       float* z, float* part, float* mu,
@@ -402,35 +573,13 @@ extern "C" int e2a_neuron_layer_train(const void* x, const float* w,
                                       int packed, float alpha, float th_fire,
                                       float eps, void* stream) {
   if (M <= 0 || K <= 0) return 0;
-  if (packed && C % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (T < 1 || T > 8) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long rows = (long long)T * M;
-  int n_tiles, code;
-  if (packed) {
-    if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    // T is a row index here: x (T * M, C / 8) and z (T * M, K), contiguous
-    const e2a::mma::Operands a = {static_cast<const uint8_t*>(x), C / 8, 1,
-                                  w, K, 1, (int)rows, C, K};
-    n_tiles = (int)((rows + ZTile::BM - 1) / ZTile::BM);
-    code = launch_train_z_packed(a, z, part, n_tiles, st);
-  } else {
-    n_tiles = (int)((M + BM - 1) / BM);
-    switch (T) {
-      case 1: code = launch_train_z_dense<1>(x, w, z, part, M, C, K, n_tiles, st); break;
-      case 2: code = launch_train_z_dense<2>(x, w, z, part, M, C, K, n_tiles, st); break;
-      case 3: code = launch_train_z_dense<3>(x, w, z, part, M, C, K, n_tiles, st); break;
-      case 4: code = launch_train_z_dense<4>(x, w, z, part, M, C, K, n_tiles, st); break;
-      case 5: code = launch_train_z_dense<5>(x, w, z, part, M, C, K, n_tiles, st); break;
-      case 6: code = launch_train_z_dense<6>(x, w, z, part, M, C, K, n_tiles, st); break;
-      case 7: code = launch_train_z_dense<7>(x, w, z, part, M, C, K, n_tiles, st); break;
-      default: code = launch_train_z_dense<8>(x, w, z, part, M, C, K, n_tiles, st); break;
-    }
-  }
+  int n_tiles = 0;
+  const int code = launch_z(x, w, z, part, T, M, C, K, packed, n_tiles, st);
   if (code != 0) return code;
   neuron_layer_train_stats<<<(K + STAT_COLS - 1) / STAT_COLS,
                              dim3(STAT_COLS, STAT_LANES), 0, st>>>(
-      part, mu, var, sqrt_d, n_tiles, K, (double)rows, eps);
+      part, mu, var, sqrt_d, n_tiles, K, (double)T * M, eps);
   const dim3 block(SOMA_COLS, SOMA_LANES);
   const unsigned row_blocks = e2a::row_blocks(M, SOMA_ROWS);
   if (K % 4 == 0)
@@ -442,4 +591,16 @@ extern "C" int e2a_neuron_layer_train(const void* x, const float* w,
                                       row_blocks), block, 0, st>>>(
         z, gamma, beta, mu, sqrt_d, s, M, K, T, alpha, th_fire);
   return (int)cudaGetLastError();
+}
+
+// Pass (a) of the train mode alone: z (T, M, K) = x @ w, the same kernel,
+// tile and bits as e2a_neuron_layer_train's z, without the column partials.
+// The autograd op's backward replays the forward's pre-activation with it.
+extern "C" int e2a_neuron_layer_train_z(const void* x, const float* w,
+                                        float* z, int T, long long M, int C,
+                                        int K, int packed, void* stream) {
+  if (M <= 0 || K <= 0) return 0;
+  int n_tiles = 0;
+  return launch_z(x, w, z, nullptr, T, M, C, K, packed, n_tiles,
+                  static_cast<cudaStream_t>(stream));
 }

@@ -1,22 +1,20 @@
-// fp32 tile loop (outside the tensor cores) of neuron_layer_eval, both arms,
-// and of the dense train arm of neuron_layer_train (the first tokenizer
-// stage, C = 27). The packed train arm and the spike matmul run the
-// tensor-core mainloop of spike_mma_mainloop.cuh instead.
+// fp32 tile loop (outside the tensor cores) of the dense arms of the neuron
+// layer: neuron_layer_eval's and neuron_layer_train's at the first tokenizer
+// stage (C = 27, a dense fp32 image). The packed arms and the spike matmul
+// run the tensor-core mainloop of spike_mma_mainloop.cuh instead.
 //
 // A block of 256 threads owns T slices of BM x BN = 64 x 64 outputs (T time
-// steps of one row tile, or T row tiles of one matrix); a thread owns a 4 x 4
-// patch of each slice in registers. The contraction dim C is walked in chunks of BC inside the
-// block: the chunk of x (expanded from bits to 0.0f/1.0f where it is
-// bit-packed) and the chunk of w are staged in shared memory, every thread
-// accumulates in fp32 in ascending order of c, and out-of-range rows,
-// columns and contraction indices are loaded as zero, so ragged shapes need
-// no special case. The weight chunk is fetched once per block and used by
-// all T slices. The order of summation is fixed: results are deterministic
-// and there are no atomics.
+// steps of one row tile); a thread owns a 4 x 4 patch of each slice in
+// registers. The contraction dim C is walked in chunks of BC inside the
+// block: the chunk of x and the chunk of w are staged in shared memory,
+// every thread accumulates in fp32 in ascending order of c, and
+// out-of-range rows, columns and contraction indices are loaded as zero, so
+// ragged shapes need no special case. The weight chunk is fetched once per
+// block and used by all T slices. The order of summation is fixed: results
+// are deterministic and there are no atomics.
 #pragma once
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace e2a {
 
@@ -34,44 +32,18 @@ template <int T> struct ChunkOf { static constexpr int value = (T <= 4) ? 32 : 1
 // x tile layout: xs[t][c][m], m fastest, so a thread reads its 4 rows as
 // one float4. w tile layout: ws[c][k], k fastest.
 
-// Bit-packed x: byte (t, row, cb) holds contraction indices 8*cb .. 8*cb+7,
-// least significant bit first. One thread expands the BC/8 bytes of one
-// (t, row) pair; neighbouring threads take neighbouring rows, so the shared
-// stores do not conflict.
-template <int T, int BC>
-__device__ __forceinline__ void load_x_packed(
-    float (*xs)[BC][XS], const uint8_t* __restrict__ p, long long st_t,
-    long long st_m, long long st_b, long long m0, long long row_step,
-    long long M, int c0, int C8, int tid) {
-  for (int idx = tid; idx < T * BM; idx += THREADS) {
-    const int m = idx % BM;
-    const int t = idx / BM;
-    const long long row = m0 + t * row_step + m;
-    const uint8_t* src = p + t * st_t + row * st_m;
-#pragma unroll
-    for (int j = 0; j < BC / 8; ++j) {
-      const int cb = c0 / 8 + j;
-      unsigned v = 0;
-      if (row < M && cb < C8) v = src[cb * st_b];
-#pragma unroll
-      for (int b = 0; b < 8; ++b)
-        xs[t][j * 8 + b][m] = ((v >> b) & 1u) ? 1.0f : 0.0f;
-    }
-  }
-}
-
 // Dense x (T, M, C) with element strides; neighbouring threads take
 // neighbouring c, so the global loads are coalesced.
 template <int T, int BC>
 __device__ __forceinline__ void load_x_dense(
     float (*xs)[BC][XS], const float* __restrict__ p, long long st_t,
-    long long st_m, long long st_c, long long m0, long long row_step,
-    long long M, int c0, int C, int tid) {
+    long long st_m, long long st_c, long long m0, long long M, int c0, int C,
+    int tid) {
   for (int idx = tid; idx < T * BM * BC; idx += THREADS) {
     const int c = idx % BC;
     const int m = (idx / BC) % BM;
     const int t = idx / (BC * BM);
-    const long long row = m0 + t * row_step + m;
+    const long long row = m0 + m;
     float v = 0.0f;
     if (row < M && c0 + c < C) v = p[t * st_t + row * st_m + (c0 + c) * st_c];
     xs[t][c][m] = v;
@@ -112,23 +84,20 @@ __device__ __forceinline__ void tile_fma(
   }
 }
 
-// Operand description for one block's accumulation. x is either the packed
-// bytes (strides in bytes, c stride = byte stride) or dense floats. The T
-// slices a block accumulates are either time steps of the same rows
-// (row_step = 0, x_t = the time stride) or T consecutive groups of BM rows of
-// one matrix (row_step = BM, x_t = 0): both reuse each weight chunk T times.
+// Operand description for one block's accumulation: dense fp32 x, whose T
+// slices are the time steps of the same rows (x_t the time stride); each
+// weight chunk serves all T of them.
 struct TileArgs {
-  const void* x;
-  long long x_t, x_m, x_c;   // element strides of x along t, row, c (or byte)
-  long long row_step;        // rows between slice t and slice t + 1
+  const float* x;
+  long long x_t, x_m, x_c;   // element strides of x along t, row, c
   const float* w;
   long long w_c, w_k;
   long long m0, M;
   int k0, K, C;
 };
 
-// acc[t][i][j] = sum_c x[t][m0 + t*row_step + ty*4 + i][c] * w[c][k0 + tx*4 + j].
-template <int T, int BC, bool PACKED>
+// acc[t][i][j] = sum_c x[t][m0 + ty*4 + i][c] * w[c][k0 + tx*4 + j].
+template <int T, int BC>
 __device__ __forceinline__ void accumulate(
     const TileArgs& a, float (*xs)[BC][XS], float (*ws)[BN],
     float (&acc)[T][TM][TN]) {
@@ -142,12 +111,8 @@ __device__ __forceinline__ void accumulate(
 #pragma unroll
       for (int j = 0; j < TN; ++j) acc[t][i][j] = 0.0f;
   for (int c0 = 0; c0 < a.C; c0 += BC) {
-    if (PACKED)
-      load_x_packed<T, BC>(xs, static_cast<const uint8_t*>(a.x), a.x_t, a.x_m,
-                           a.x_c, a.m0, a.row_step, a.M, c0, a.C / 8, tid);
-    else
-      load_x_dense<T, BC>(xs, static_cast<const float*>(a.x), a.x_t, a.x_m,
-                          a.x_c, a.m0, a.row_step, a.M, c0, a.C, tid);
+    load_x_dense<T, BC>(xs, a.x, a.x_t, a.x_m, a.x_c, a.m0, a.M, c0, a.C,
+                        tid);
     load_w<BC>(ws, a.w, a.w_c, a.w_k, c0, a.C, a.k0, a.K, tid);
     __syncthreads();
     tile_fma<T, BC>(xs, ws, acc, tx, ty);

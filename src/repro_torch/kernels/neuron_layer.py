@@ -3,21 +3,21 @@
 ``neuron_layer_eval`` replaces ``repro.kernels.neuron_layer.neuron_layer_eval``
 (``_nl_eval_kernel`` with ``_accumulate`` and ``_soma``): a whole "neuron
 layer" (the Conv1DBN -> SN pair, or one im2col'd eq. 4 tokenizer stage)
-with BN folded into ``(w, bias)`` by the caller. The weight tile is fetched
-once per block and reused by all T steps, the membrane update runs in the
-epilogue with (U, S) in registers, and only spikes leave the kernel: the
-(T, M, K) pre-activation never exists in device memory.
-
-The TPU kernel accumulated into a scratch tile revisited across a
-sequential contraction grid axis and snapped its contraction block to a
-divisor of C; here each block loops over C itself, keeps T accumulators per
-thread in registers and masks its own tails, so any C works (the dense arm
-takes the first tokenizer stage's C = 27).
-
-Bound on this card: the packed arm by fp32 operations outside the tensor
-cores (spikes make every product exact), the dense arm at the first stage
-by bytes. The design is ``csrc/neuron_layer.cu``: a 64 x 64 tile, 4 x 4 x T
-accumulators per thread, 64-bit offsets.
+with BN folded into ``(w, bias)`` by the caller. The membrane update runs
+in the epilogue and only spikes leave the kernel: the (T, M, K)
+pre-activation never exists in device memory. The packed arm (every site
+but the first tokenizer stage) runs, for each time step in turn, the
+tensor-core mainloop that ``e2a_spike_matmul`` runs
+(``csrc/spike_mma_mainloop.cuh``: exact three-way bf16 split of the fp32
+weight) on a tile of the step's rows, then adds the bias and advances the
+membranes, which stay with the block across the T steps; its products are
+the spike matmul's bit for bit. The TPU kernel accumulated into a scratch
+tile revisited across a sequential contraction grid axis; here a block
+loops over C itself and masks its own tails. The dense arm (the first
+stage: a float image, C = 27) keeps the fp32 tile loop of
+``csrc/spike_tile.cuh`` with T accumulators per thread. Bound on this card:
+three dense bf16 passes on the tensor cores at the packed sites, bytes at
+the first stage.
 
 ``neuron_layer_train`` replaces ``repro.kernels.neuron_layer.
 neuron_layer_train`` (``_nl_train_kernel``): the same product, then batch
@@ -30,14 +30,16 @@ block of this card cannot hold, so the wrapper's one call is three launches
 per-row-tile column sums of z and z^2; the statistics; and one pass that
 reads z, normalises and runs SOMA over T in registers. In train mode T is
 only a row index, so the packed arm's first pass is the spike matmul over
-T*M rows on the tensor cores, through the mainloop that
-``e2a_spike_matmul`` runs (``csrc/spike_mma_mainloop.cuh``: exact three-way
-bf16 split of the fp32 weight), 256-row tiles; the dense arm (the first
-tokenizer stage, C = 27) keeps the fp32 tile loop of ``spike_tile.cuh``.
-Storing z was chosen over recomputing the product in the SOMA pass, which
-would double the dominant work. Bound on this card: three dense bf16
-passes on the tensor cores plus the z round trip at the block sites, bytes
-at the first tokenizer stage.
+T*M rows on the tensor cores, 256-row tiles; the dense arm keeps the fp32
+tile loop. Storing z was chosen over recomputing the product in the SOMA
+pass, which would double the dominant work. Bound on this card: three
+dense bf16 passes on the tensor cores plus the z round trip at the block
+sites, bytes at the first tokenizer stage.
+
+``neuron_layer_train_z`` is that first pass alone: the autograd ops'
+backward replays the pre-activation with it, so the replayed z is the
+forward's bit for bit and the replay runs the spike trajectory the forward
+emitted.
 """
 from __future__ import annotations
 
@@ -61,14 +63,37 @@ TILE_ROWS = 256
 DENSE_TILE_ROWS = 64
 
 
+def neuron_layer_train_z_plain(x: torch.Tensor,
+                               w: torch.Tensor) -> torch.Tensor:
+    """Plain version of the train arm's first pass, z = x (T, M, C) @ w
+    (C, K) in fp32: the product every plain version of this module forms."""
+    return torch.matmul(x.to(w.dtype), w).float()
+
+
 def neuron_layer_eval_plain(x: torch.Tensor, w: torch.Tensor,
                             bias: torch.Tensor, *, alpha: float = 0.5,
                             th_fire: float = 1.0) -> torch.Tensor:
     """Plain version: dense matmul, bias, then the LIF recursion. ``x`` is
     the unpacked (T, M, C) input for both arms."""
-    acc = torch.matmul(x.to(w.dtype), w).float() + bias.float().reshape(1, 1, -1)
+    acc = neuron_layer_train_z_plain(x, w) + bias.float().reshape(1, 1, -1)
     s, _, _ = lif_soma_fwd_plain(acc, alpha=alpha, th_fire=th_fire)
     return s.to(x.dtype)
+
+
+def _train_plain(x, w, gamma, beta, alpha, th_fire, eps):
+    """The plain train arm: ``(spikes, mu, var, sqrt_d)``, the statistics
+    (1, K)."""
+    t, m, _ = x.shape
+    z = neuron_layer_train_z_plain(x, w)
+    zf = z.reshape(t * m, -1)
+    count = row_count(zf)                  # divided by, as the kernel does
+    mu = zf.sum(0, keepdim=True) / count
+    ex2 = (zf * zf).sum(0, keepdim=True) / count
+    var = torch.clamp(ex2 - mu * mu, min=0.0)
+    sqrt_d = torch.sqrt(var + eps)
+    y = gamma.float() * (z - mu) / sqrt_d + beta.float()
+    s, _, _ = lif_soma_fwd_plain(y, alpha=alpha, th_fire=th_fire)
+    return s.to(x.dtype), mu, var, sqrt_d
 
 
 def neuron_layer_train_plain(x: torch.Tensor, w: torch.Tensor,
@@ -78,17 +103,7 @@ def neuron_layer_train_plain(x: torch.Tensor, w: torch.Tensor,
     """Plain version of the train arm: dense matmul, batch statistics over
     all T*M rows (eq. 13-16), BN (eq. 17-18), the LIF recursion. Returns
     ``(spikes (T, M, K), mu (1, K), var (1, K))``."""
-    t, m, _ = x.shape
-    z = torch.matmul(x.to(w.dtype), w).float()
-    zf = z.reshape(t * m, -1)
-    count = row_count(zf)                  # divided by, as the kernel does
-    mu = zf.sum(0, keepdim=True) / count
-    ex2 = (zf * zf).sum(0, keepdim=True) / count
-    var = torch.clamp(ex2 - mu * mu, min=0.0)
-    sqrt_d = torch.sqrt(var + eps)
-    y = gamma.float() * (z - mu) / sqrt_d + beta.float()
-    s, _, _ = lif_soma_fwd_plain(y, alpha=alpha, th_fire=th_fire)
-    return s.to(x.dtype), mu, var
+    return _train_plain(x, w, gamma, beta, alpha, th_fire, eps)[:3]
 
 
 def _check_layer(what, x, w, vectors, packed):
@@ -117,11 +132,13 @@ def _check_layer(what, x, w, vectors, packed):
 
 
 def _launch_neuron_layer_eval(xin, w, bias, t, m, c, k, packed, alpha,
-                              th_fire, stream=0):
+                              th_fire, stream=0, tile=0):
+    """The C entry point on ``xin`` (packed or dense); ``tile`` 0 lets the
+    entry point choose the packed arm's tile, 1 / 2 force Large / Small."""
     s = torch.empty((t, m, k), dtype=torch.float32, device=xin.device)
     code = build.load().e2a_neuron_layer_eval(
         xin.data_ptr(), w.data_ptr(), bias.data_ptr(), s.data_ptr(), t, m, c,
-        k, int(packed), alpha, th_fire, stream)
+        k, int(packed), tile, alpha, th_fire, stream)
     build.check_launch(code, "neuron_layer_eval")
     return s
 
@@ -150,6 +167,39 @@ def neuron_layer_eval(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
     return s
 
 
+def neuron_layer_train_fwd(x: torch.Tensor, w: torch.Tensor,
+                           gamma: torch.Tensor, beta: torch.Tensor, *,
+                           alpha: float = 0.5, th_fire: float = 1.0,
+                           eps: float = 1e-5, packed: bool = False):
+    """:func:`neuron_layer_train` with what its autograd op keeps for the
+    replay: ``(spikes, mu (1, K), var (1, K), sqrt_d (1, K), xin)``, where
+    ``sqrt_d`` is the kernel's own ``sqrt(var + eps)`` and ``xin`` the
+    packed input the kernel read (None for the dense arm and on the CPU)."""
+    _check_layer("neuron_layer_train", x, w, {"gamma": gamma, "beta": beta},
+                 packed)
+    if not x.is_cuda:
+        return (*_train_plain(x, w, gamma, beta, alpha, th_fire, eps), None)
+    t, m, c = x.shape
+    k = w.shape[1]
+    xin = spike_pack(x) if packed else None
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    s, z = (torch.empty((t, m, k), **f32) for _ in range(2))
+    tiles = -(-t * m // TILE_ROWS) if packed else -(-m // DENSE_TILE_ROWS)
+    part = torch.empty((2, tiles, k), **f32)
+    mu, var, sqrt_d = (torch.empty((1, k), **f32) for _ in range(3))
+    with torch.cuda.device(dev):
+        code = build.load().e2a_neuron_layer_train(
+            (x if xin is None else xin).data_ptr(), w.data_ptr(),
+            gamma.data_ptr(), beta.data_ptr(), z.data_ptr(), part.data_ptr(),
+            mu.data_ptr(), var.data_ptr(), sqrt_d.data_ptr(), s.data_ptr(),
+            t, m, c, k, int(packed), alpha, th_fire, eps,
+            torch.cuda.current_stream().cuda_stream)
+    build.check_launch(code, "neuron_layer_train")
+    neuron_layer_train.launches += 1
+    return s, mu, var, sqrt_d, xin
+
+
 def neuron_layer_train(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
                        beta: torch.Tensor, *, alpha: float = 0.5,
                        th_fire: float = 1.0, eps: float = 1e-5,
@@ -159,30 +209,34 @@ def neuron_layer_train(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
     mu (1, K), var (1, K))``, the statistics in fp32. ``packed`` as in
     :func:`neuron_layer_eval`. One call launches the kernel's three passes
     and counts once."""
-    _check_layer("neuron_layer_train", x, w, {"gamma": gamma, "beta": beta},
-                 packed)
+    return neuron_layer_train_fwd(x, w, gamma, beta, alpha=alpha,
+                                  th_fire=th_fire, eps=eps,
+                                  packed=packed)[:3]
+
+
+def neuron_layer_train_z(x: torch.Tensor, w: torch.Tensor, *,
+                         packed: bool = False,
+                         xin: torch.Tensor | None = None) -> torch.Tensor:
+    """z = x (T, M, C) @ w (C, K) in fp32 by the train arm's first pass
+    alone: the kernel and tile of :func:`neuron_layer_train`'s z, so the
+    same bits. ``xin``, where given, is ``spike_pack(x)`` already made (the
+    packed arm reads it instead of packing again). A launch counts as one
+    of ``neuron_layer_train``, whose first pass it is."""
+    _check_layer("neuron_layer_train_z", x, w, {}, packed)
     if not x.is_cuda:
-        return neuron_layer_train_plain(x, w, gamma, beta, alpha=alpha,
-                                        th_fire=th_fire, eps=eps)
+        return neuron_layer_train_z_plain(x, w)
     t, m, c = x.shape
-    k = w.shape[1]
-    xin = spike_pack(x) if packed else x
-    dev = x.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    s, z = (torch.empty((t, m, k), **f32) for _ in range(2))
-    tiles = -(-t * m // TILE_ROWS) if packed else -(-m // DENSE_TILE_ROWS)
-    part = torch.empty((2, tiles, k), **f32)
-    mu, var = (torch.empty((1, k), **f32) for _ in range(2))
-    sqrt_d = torch.empty((k,), **f32)
-    with torch.cuda.device(dev):
-        code = build.load().e2a_neuron_layer_train(
-            xin.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            z.data_ptr(), part.data_ptr(), mu.data_ptr(), var.data_ptr(),
-            sqrt_d.data_ptr(), s.data_ptr(), t, m, c, k, int(packed), alpha,
-            th_fire, eps, torch.cuda.current_stream().cuda_stream)
-    build.check_launch(code, "neuron_layer_train")
+    if packed and xin is None:
+        xin = spike_pack(x)
+    src = xin if packed else x
+    z = torch.empty((t, m, w.shape[1]), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        code = build.load().e2a_neuron_layer_train_z(
+            src.data_ptr(), w.data_ptr(), z.data_ptr(), t, m, c, w.shape[1],
+            int(packed), torch.cuda.current_stream().cuda_stream)
+    build.check_launch(code, "neuron_layer_train_z")
     neuron_layer_train.launches += 1
-    return s, mu, var
+    return z
 
 
 #: Kernel launches since the counts were last set to 0.

@@ -13,8 +13,8 @@ kernel with its backward, as in the E2ATST reuse framework (Fig. 4):
   values, as in the reference, which computes it outside any kernel);
 * ``neuron_layer_train_op`` / ``neuron_layer_eval_op``: the neuron-layer
   kernel forward; a backward that stores no per-step residuals but replays
-  the pre-activation through SOMA, GRAD and (train) the BN backward, then
-  the dense matmul VJP.
+  the pre-activation, bit for bit the forward's, through SOMA, GRAD and
+  (train) the BN backward, then the dense matmul VJP.
 
 Launch counts live on the kernel wrappers these ops call
 (``repro_torch.kernels.launch_counts``). On CPU tensors every wrapper takes
@@ -203,28 +203,47 @@ def _matmul_vjp(x, w, dz):
     return dx, dw
 
 
+def replay_train_pre_activation(x, xin, w, gamma, beta, mu, sqrt_d,
+                                packed):
+    """The train forward's z and y = BN(z), recomputed bit for bit: z by
+    the kernel's own first pass (``neuron_layer_train_z``, on the packed
+    input the forward made), y with the forward's statistics in the SOMA
+    pass's order, ``(gamma * (z - mu)) / sqrt_d + beta``, each operation
+    rounded once. Returns ``(z, y)``."""
+    z = neuron_layer.neuron_layer_train_z(x, w, packed=packed, xin=xin)
+    return z, gamma.float() * (z - mu) / sqrt_d + beta.float()
+
+
+def replay_eval_pre_activation(x, w, bias, packed):
+    """The eval forward's y = x @ w + bias, bit for bit: the same product
+    (the train arm's first pass runs the eval kernel's MMAs in the same
+    order), then the bias added once, rounded to nearest."""
+    return neuron_layer.neuron_layer_train_z(x, w, packed=packed) + \
+        bias.float()
+
+
 class _NeuronLayerTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, gamma, beta, alpha, th_fire, th_lo, th_hi,
                 grad_scale, eps, packed):
-        s, mu, var = neuron_layer.neuron_layer_train(
+        s, mu, var, sqrt_d, xin = neuron_layer.neuron_layer_train_fwd(
             x, w, gamma, beta, alpha=alpha, th_fire=th_fire,
             eps=eps, packed=packed)
-        sqrt_d = torch.sqrt(var + eps)
-        ctx.save_for_backward(x, w, gamma, beta, mu, sqrt_d)
+        ctx.save_for_backward(x, xin, w, gamma, beta, mu, sqrt_d)
         ctx.lif = (alpha, th_fire, th_lo, th_hi, grad_scale)
+        ctx.packed = packed
         mu_out, var_out = mu.reshape(-1), var.reshape(-1)
         ctx.mark_non_differentiable(mu_out, var_out)
         return s, mu_out, var_out
 
     @staticmethod
     def backward(ctx, g_s, _g_mu, _g_var):
-        x, w, gamma, beta, mu, sqrt_d = ctx.saved_tensors
+        x, xin, w, gamma, beta, mu, sqrt_d = ctx.saved_tensors
         t, m, _ = x.shape
-        # Replay: recompute the pre-activation (dense matmul + saved-stat
-        # BN) and regenerate the (U, S, mask) GRAD consumes.
-        z = torch.matmul(x.float(), w.float())
-        y = gamma.float() * (z - mu) / sqrt_d + beta.float()
+        # Replay: recompute the pre-activation exactly as the forward formed
+        # it and regenerate the (U, S, mask) GRAD consumes.
+        z, y = replay_train_pre_activation(x, xin, w, gamma, beta, mu,
+                                           sqrt_d, ctx.packed)
         dy = _replay_soma(y, g_s, *ctx.lif)
         k = z.shape[-1]
         dz, dgamma, dbeta = fused_bn.bn_bwd(dy.reshape(t * m, k),
@@ -250,15 +269,12 @@ def neuron_layer_train_op(x: torch.Tensor, w: torch.Tensor,
 
     The backward stores no per-step residuals: it replays the recomputed
     pre-activation through the SOMA/GRAD kernel pair (eq. 12) and the BN
-    backward kernel (eq. 19-23), then closes with the dense matmul VJP.
-
-    Replay caveat: the forward kernel and the backward's dense matmul both
-    accumulate in fp32 but in different orders, so a membrane within about
-    an ulp of a threshold can fire differently in the replay than in the
-    emitted spikes; the gradient is then the exact gradient of the replayed
-    trajectory. Measure-zero on continuous inputs and bounded by the
-    surrogate window; keeping (U, S, mask) instead would cost the 3 x (T, M,
-    K) memory traffic this op exists to remove.
+    backward kernel (eq. 19-23), then closes with the dense matmul VJP. It
+    keeps the bit-packed input the forward made (1 bit an element) beside
+    x and recomputes z with the forward kernel's own first pass and y in
+    the forward's order of operations, so the replay runs the spike
+    trajectory the forward emitted, bit for bit (the reference's replay, a
+    separate fp32 product, may part from it near a threshold).
     """
     return _NeuronLayerTrain.apply(x, w, gamma, beta, alpha, th_fire, th_lo,
                                    th_hi, grad_scale, eps, packed)
@@ -270,6 +286,7 @@ class _NeuronLayerEval(torch.autograd.Function):
                 packed):
         ctx.save_for_backward(x, w, bias)
         ctx.lif = (alpha, th_fire, th_lo, th_hi, grad_scale)
+        ctx.packed = packed
         return neuron_layer.neuron_layer_eval(x, w, bias,
                                               alpha=alpha, th_fire=th_fire,
                                               packed=packed)
@@ -277,7 +294,7 @@ class _NeuronLayerEval(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, bias = ctx.saved_tensors
-        y = torch.matmul(x.float(), w.float()) + bias.float()
+        y = replay_eval_pre_activation(x, w, bias, ctx.packed)
         dy = _replay_soma(y, g, *ctx.lif)
         dx, dw = _matmul_vjp(x, w, dy)
         dbias = dy.sum(dim=(0, 1)).reshape(bias.shape).to(bias.dtype)
@@ -291,8 +308,9 @@ def neuron_layer_eval_op(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                          packed: bool = False) -> torch.Tensor:
     """Differentiable neuron layer, eval mode: BN already folded into
     ``(w, bias)``, so the kernel is matmul + bias + SOMA. Returns spikes
-    (T, M, K). The backward replays the recomputed pre-activation through
-    the GRAD kernel, like the train op (gradients reach x, w and bias; BN
-    parameters get theirs through the caller's differentiable fold)."""
+    (T, M, K). The backward replays the pre-activation, bit for bit the
+    forward's, through the GRAD kernel, like the train op (gradients reach
+    x, w and bias; BN parameters get theirs through the caller's
+    differentiable fold)."""
     return _NeuronLayerEval.apply(x, w, bias, alpha, th_fire, th_lo, th_hi,
                                   grad_scale, packed)

@@ -324,3 +324,97 @@ def test_neuron_layer_train_past_the_grid_y_limit(packed, k):
     assert float(want[0][:, -1000:].mean()) > 0.05
     for name, a, b in zip(("spikes", "mu", "var"), got, want):
         assert torch.equal(a, b), name
+
+
+# (T, M, C, K): M a multiple of neither tile's rows (128, 256), K not of 64,
+# C = 8 * odd, T from 1 to 8
+EVAL_SHAPES = [(1, 300, 72, 20), (3, 97, 136, 100), (8, 530, 264, 130),
+               (5, 1000, 8, 65), (2, 129, 520, 70)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,m,c,k", EVAL_SHAPES)
+def test_packed_neuron_layer_eval_at_ragged_shapes(t, m, c, k):
+    """The tensor-core eval kernel, each tile and the tile its rule picks:
+    on dyadic weights equal to the plain version bit for bit; on Gaussian
+    weights equal bit for bit to spike matmul + bias + the plain SOMA (the
+    same MMAs in the same order, the same fp32 epilogue), and within 1e-3
+    of the plain version's spikes."""
+    dev = _card()
+    rng = np.random.default_rng(9)
+    x = _t(_spikes(rng, (t, m, c))).to(dev)
+    xp = spike_matmul.spike_pack(x)
+    reset_launch_counts()
+    for kind in ("dyadic", "gaussian"):
+        if kind == "dyadic":    # multiples of 1/16: every partial sum exact
+            w, b = _t(_dyadic(rng, (c, k), 16)), _t(_dyadic(rng, (k,), 16))
+        else:
+            w = _t((rng.normal(size=(c, k)) * 2 / c ** 0.5).astype(np.float32))
+            b = _t(rng.normal(0.3, 0.3, k).astype(np.float32))
+        w, b = w.to(dev), b.to(dev)
+        got = neuron_layer.neuron_layer_eval(x, w, b, packed=True)
+        for tile in (1, 2):
+            assert torch.equal(got, neuron_layer._launch_neuron_layer_eval(
+                xp, w, b, t, m, c, k, True, 0.5, 1.0, tile=tile)), tile
+        plain = neuron_layer.neuron_layer_eval_plain(x, w, b)
+        exact = lif_soma.lif_soma_fwd_plain(spike_matmul.spike_matmul_packed(
+            xp.reshape(t * m, c // 8), w).reshape(t, m, k) + b)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, exact), kind
+        if kind == "dyadic":
+            assert torch.equal(got, plain)
+        else:
+            assert float((got != plain).float().mean()) <= 1e-3
+        assert 0.02 < float(got.mean()) < 0.98, kind
+    assert launch_counts()["neuron_layer_eval"] == 2
+
+
+def _preset_sites():
+    """(name, T, M, C, K, packed) of every neuron-layer site of
+    ``spikingformer-8-512`` at a batch of 16."""
+    from repro_torch.configs import get_spikingformer_config
+    cfg = get_spikingformer_config("spikingformer-8-512")
+    t, size, sites = cfg.time_steps, cfg.image_size, []
+    for i, (c_in, c_out) in enumerate(cfg.tokenizer_stage_channels()):
+        size //= 2
+        sites.append((f"tokenizer.conv.{i}", t, 16 * size * size, 9 * c_in,
+                      c_out, i > 0))
+    m = 16 * cfg.num_tokens
+    return sites + [("pssa.qkv", t, m, cfg.d_model, cfg.d_model, True),
+                    ("smlp.a", t, m, cfg.d_model, cfg.d_ff, True)]
+
+
+@pytest.mark.cuda
+def test_replay_reproduces_the_emitted_spikes_at_every_preset_site():
+    """C1: at every neuron-layer site of the preset, packed and dense, the
+    pre-activation the train op's backward replays (the forward kernel's
+    own first pass on the packed input the forward made, BN with the
+    forward's statistics in its order) runs SOMA into the spikes the
+    forward emitted, bit for bit, on Gaussian weights; and so does the eval
+    op's (the same first pass, plus the bias) against the eval kernel's."""
+    from repro_torch.kernels import ops
+    dev = _card()
+    rng = np.random.default_rng(10)
+    for name, t, m, c, k, packed in _preset_sites():
+        x = _t(_spikes(rng, (t, m, c), 0.2) if packed
+               else rng.random((t, m, c), dtype=np.float32)).to(dev)
+        w = _t((rng.normal(size=(c, k)) * (2.0 if packed else 1.0)
+                / c ** 0.5).astype(np.float32)).to(dev)
+        gamma = _t(rng.uniform(0.8, 1.2, k).astype(np.float32)).to(dev)
+        beta = _t(rng.normal(0.3, 0.2, k).astype(np.float32)).to(dev)
+        s, mu, _, sqrt_d, xin = neuron_layer.neuron_layer_train_fwd(
+            x, w, gamma, beta, packed=packed)
+        _, y = ops.replay_train_pre_activation(x, xin, w, gamma, beta, mu,
+                                               sqrt_d, packed)
+        replayed = lif_soma.lif_soma_fwd(y)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, s), (name, int((replayed != s).sum()))
+        del y, replayed
+        s = neuron_layer.neuron_layer_eval(x, w, beta, packed=packed)
+        replayed = lif_soma.lif_soma_fwd(
+            ops.replay_eval_pre_activation(x, w, beta, packed))[0]
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, s), (name, int((replayed != s).sum()))
+        assert 0.01 < float(s.mean()) < 0.99, name
+        del x, s, replayed
+        torch.cuda.empty_cache()

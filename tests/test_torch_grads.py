@@ -491,3 +491,63 @@ def test_neuron_layer_eval_op_grads_match_custom_vjp():
     got = torch.autograd.grad((s * _t(g)).sum(), leaves)
     for a, b in zip(got, want):
         _close(a, b)
+
+
+@pytest.mark.parametrize("t,m,c,k,packed", [
+    (2, 24, 40, 16, True), (4, 33, 72, 20, True), (2, 30, 27, 12, False),
+    (3, 17, 20, 9, False)])
+def test_replay_z_plain_matches_the_reference_replay(t, m, c, k, packed):
+    """The train arm's first pass alone, the product both ops' backward
+    replays, against the reference backward's einsum
+    (``repro.kernels.ops._nl_train_bwd``): scale-aware 1e-6, the same fp32
+    products summed by two libraries; the wrapper takes its plain version
+    on the CPU, bit for bit."""
+    rng = np.random.default_rng(t * m + k)
+    x, w, _, _ = _layer_inputs(rng, t, m, c, k, packed)
+    z = neuron_layer.neuron_layer_train_z(_t(x), _t(w), packed=packed)
+    assert z.dtype == torch.float32 and z.shape == (t, m, k)
+    assert torch.equal(z, neuron_layer.neuron_layer_train_z_plain(_t(x),
+                                                                  _t(w)))
+    want = jnp.einsum("tmc,ck->tmk", jnp.asarray(x, jnp.float32),
+                      jnp.asarray(w, jnp.float32))
+    _close(z, want, atol=1e-6)
+
+
+def _near_threshold(x, w, gamma, beta):
+    """Rescale beta so that the reference's membranes come close to the
+    threshold: the replay must then reproduce membranes that any other
+    rounding of z could move across it."""
+    y, _ = _reference_u(x, w, gamma, beta, 0.5)
+    beta = beta + (1.0 - np.median(y[0], axis=0)).astype(np.float32)
+    return beta.astype(np.float32)
+
+
+@pytest.mark.parametrize("op", ["train", "eval"])
+@pytest.mark.parametrize("packed", [True, False])
+def test_replay_reproduces_the_forward_spikes_bitwise(op, packed):
+    """What the backward replays (z by the forward kernel's first pass, BN
+    with the forward's own mu and sqrt_d, in its order; or z + bias) gives,
+    through SOMA, the spikes the forward emitted, bit for bit, on Gaussian
+    weights with membranes brought near the threshold."""
+    rng = np.random.default_rng(12 + packed)
+    x, w, gamma, beta = _layer_inputs(rng, 4, 48, 64 if packed else 27, 32,
+                                      packed)
+    beta = _near_threshold(x, w, gamma, beta)
+    xt, wt = _t(x), _t(w)
+    if op == "train":
+        s, mu, var, sqrt_d, xin = neuron_layer.neuron_layer_train_fwd(
+            xt, wt, _t(gamma), _t(beta), packed=packed)
+        assert torch.equal(sqrt_d, torch.sqrt(var + 1e-5))
+        _, y = ops.replay_train_pre_activation(
+            xt, xin, wt, _t(gamma), _t(beta), mu, sqrt_d, packed)
+        assert torch.equal(s, ops.neuron_layer_train_op(
+            xt, wt, _t(gamma), _t(beta), 0.5, 1.0, 0.0, 2.0, 1.0, 1e-5,
+            packed)[0])
+    else:
+        s = ops.neuron_layer_eval_op(xt, wt, _t(beta), 0.5, 1.0, 0.0, 2.0,
+                                     1.0, packed)
+        y = ops.replay_eval_pre_activation(xt, wt, _t(beta), packed)
+    replayed, u, _ = lif_soma.lif_soma_fwd(y)
+    assert torch.equal(replayed, s.detach())
+    assert 0.05 < float(s.mean()) < 0.95
+    assert float((u - 1.0).abs().min()) < 1e-3     # membranes at threshold

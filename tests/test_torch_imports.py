@@ -169,11 +169,12 @@ def test_python_tile_constants_mirror_the_cuda_sources():
 
 
 def test_one_tensor_core_mainloop():
-    """The spike matmul and the train-mode neuron layer multiply through
-    one contraction loop: the only MMAs are those of
+    """The spike matmul and the neuron layer's packed arms, train and eval,
+    multiply through one contraction loop: the only MMAs are those of
     ``spike_mma_mainloop.cuh``, which both kernels' sources include, so the
     spike matmul's bitwise checks on the card hold the neuron layer's
-    product too."""
+    product too; ``spike_tile.cuh``'s fp32 loop serves the dense arms
+    only."""
     src = {p.name: p.read_text() for p in build.CSRC.glob("*.cu*")}
     calls = {name for name, text in src.items()
              if re.search(r"\bmma_bf16\(acc", text)}
@@ -181,3 +182,9 @@ def test_one_tensor_core_mainloop():
     for name in ("spike_matmul.cu", "neuron_layer.cu"):
         assert '#include "spike_mma_mainloop.cuh"' in src[name]
         assert "mainloop<" in src[name]
+    nl = src["neuron_layer.cu"]
+    for kernel in ("neuron_layer_eval_mma", "neuron_layer_train_z_mma"):
+        body = nl[nl.index(f"    {kernel}("):]
+        body = body[:body.index("\n}\n")]
+        assert "mainloop<" in body, kernel
+    assert "uint8_t" not in src["spike_tile.cuh"]
