@@ -12,10 +12,13 @@ lines after the ``device`` line that names the card and its power limit:
 - ``chip_smoke.train_kernel_cases`` at seed 0 and the preset's batch: the
   ``bn_fwd``, ``bn_bwd`` and ``neuron_layer_train`` cases with their
   checks, CUDA-event times, bounds and library times (``kind: "case"``);
+  ``bn_bwd`` at each of the five distinct shapes of a step, with the device
+  time of each of its passes (``passes``) and ATen's batch-norm backward
+  alone as ``library_ms``; the dense ``tokenizer.conv.0`` case with its
+  passes and its z's error against fp64;
 - for ``bn_fwd`` and each neuron-layer site, the device time per call of
-  every kernel one wrapper call launches, from
-  ``profile_forward.device_profile`` over ``ITERS`` calls (``kind:
-  "passes"``), beside the wrapper's CUDA-event time; for ``bn_fwd`` the
+  every kernel one wrapper call launches, from ``chip_smoke.pass_ms``
+  (``torch.profiler``) over ``ITERS`` calls (``kind: "passes"``), beside the wrapper's CUDA-event time; for ``bn_fwd`` the
   same two for ``F.batch_norm(training=True)``, the library yardstick; at
   the packed sites also the spike matmul's time on the same operands, the
   z round trip's byte time (``2 * T*M*K * 4`` bytes at 3.35 TB/s), the
@@ -47,8 +50,8 @@ def main() -> None:
     ap.add_argument("--label", default="this checkout")
     args = ap.parse_args()
     src = Path(args.src).resolve()
-    # the checkout under test first: chip_smoke's and profile_forward's own
-    # ``import repro_torch`` then find this one already imported
+    # the checkout under test first: chip_smoke's own ``import repro_torch``
+    # then finds this one already imported
     sys.path.insert(0, str(src))
     import repro_torch
     if src not in Path(repro_torch.__file__).resolve().parents:
@@ -58,7 +61,6 @@ def main() -> None:
     import chip_smoke as cs
     import torch
     import torch.nn.functional as F
-    from profile_forward import device_profile
 
     from repro_torch.kernels import build, fused_bn, neuron_layer, spike_matmul
 
@@ -66,11 +68,9 @@ def main() -> None:
         print(json.dumps({"label": args.label, "kind": kind, **fields}),
               flush=True)
 
-    def passes(fn, call_ms: float) -> dict[str, float]:
+    def passes(fn) -> dict[str, float]:
         """Device ms per call of every kernel ``fn`` launches."""
-        prof = device_profile(lambda: [fn() for _ in range(ITERS)], 10,
-                              call_ms * ITERS)
-        return {k["name"]: k["ms"] / ITERS for k in prof["top_kernels"]}
+        return cs.pass_ms(fn, ITERS)
 
     def rms(a) -> float:
         return float(a.double().pow(2).mean().sqrt())
@@ -83,7 +83,7 @@ def main() -> None:
         xp = spike_matmul.spike_pack(x)
         f32 = dict(dtype=torch.float32, device=x.device)
         z, s = (torch.empty((t, m, k), **f32) for _ in range(2))
-        part = torch.empty((2, -(-t * m // 64), k), **f32)  # 64-row tiles or larger
+        part = torch.empty((2, -(-t * m // neuron_layer.TILE_ROWS), k), **f32)
         mu, var, sqrt_d = (torch.empty((k,), **f32) for _ in range(3))
         code = build.load().e2a_neuron_layer_train(
             xp.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
@@ -116,8 +116,8 @@ def main() -> None:
 
     ms, library_ms = cs.time_ms(kernel), cs.time_ms(library)
     emit("passes", kernel="bn_fwd", case="pssa.proj/smlp.b",
-         shape=[m, cfg.d_model], ms=ms, passes=passes(kernel, ms),
-         library_ms=library_ms, library_passes=passes(library, library_ms))
+         shape=[m, cfg.d_model], ms=ms, passes=passes(kernel),
+         library_ms=library_ms, library_passes=passes(library))
     del x
     for case, t, m, c, k, packed in cs.neuron_layer_sites(cs.BATCH):
         x, w, gamma, beta = cs.neuron_layer_train_inputs(gen, t, m, c, k,
@@ -129,7 +129,7 @@ def main() -> None:
 
         ms = cs.time_ms(call)
         row = {"case": case, "shape": [t, m, c, k], "ms": ms,
-               "passes": passes(call, ms)}
+               "passes": passes(call)}
         if packed:
             xp = spike_matmul.spike_pack(x).reshape(t * m, c // 8)
             row["spike_matmul_ms"] = cs.time_ms(

@@ -9,8 +9,8 @@ For the ``cuda-full`` and the ``eager`` policy on the same random weights it
 prints, as JSON lines: the time of a whole request (host clock around a
 synchronised forward, median of 5), the time of the tokenizer alone and of
 one block alone (CUDA events), and — from ``torch.profiler`` over one
-forward — the device-busy time, its share of the request, and the kernels
-that take the most device time. With ``--train`` it does the same for one
+forward — the device-busy time, its share of the request, the number of
+kernel launches, and the kernels that take the most device time. With ``--train`` it does the same for one
 BPTT + AdamW step of ``make_train_step`` on a ``SyntheticVision`` batch
 (step time: host clock around a synchronised step, median of 3, each from
 the same state), with the peak device memory of a step. Needs a CUDA
@@ -72,6 +72,7 @@ def device_profile(fn, top: int, wall_ms: float) -> dict:
             "device_idle_share": max(0.0, 1 - busy / wall_ms) if busy
             else None,
             "device_kernels": len(rows),
+            "device_launches": sum(r[1] for r in rows),
             "top_kernels": [{"name": k[:90], "calls": c, "ms": round(ms, 3)}
                             for k, c, ms in rows[:top]]}
 

@@ -37,7 +37,16 @@ on the same operands) and ``bitwise_spike_matmul``, their spikes against
 the spike matmul plus bias through the plain SOMA, which must hold bit for
 bit. Every ``neuron_layer_train`` case, and the training phase at each
 neuron-layer site of a real step, also hold the spikes that the autograd
-op's backward replays to those the forward emitted, bit for bit.
+op's backward replays to those the forward emitted, bit for bit. The dense
+arms' cases (``tokenizer.conv.0``) carry the device time of each pass
+(``passes``) and ``err_vs_fp64`` of the z that the train arm's first pass
+writes; the eval case also ``bitwise_z_pass``, its spikes against the plain
+SOMA on that z plus the bias, which must hold bit for bit. ``bn_bwd`` runs
+at each distinct shape of a training step, with ``passes``,
+``bitwise_dyadic`` (inputs whose column sums are exact: dx, dgamma and
+dbeta equal to the plain version's bit for bit) and, as ``library_ms``,
+ATen's batch-norm backward alone; its first case carries ``edges``, the
+layouts where the kernel changes arm.
 """
 from __future__ import annotations
 
@@ -266,7 +275,20 @@ def check_neuron_layer(gen, case, t, m, c, k, packed):
         if kind == "dyadic":
             out["max_abs_err"] = float((got - want).abs().max())
     del want
-    exact = None
+    exact = dense = None
+    if not packed:   # on the Gaussian weights: the train arm's first pass
+        # and the eval arm's product are one product, the same bits
+        z = neuron_layer.neuron_layer_train_z(x, w)
+        dense = {"bitwise_z_pass": torch.equal(
+            got, lif_soma.lif_soma_fwd_plain(z + bias)[0])}
+        if not dense["bitwise_z_pass"]:
+            fail(f"neuron_layer_eval {case}: spikes differ from the plain "
+                 f"SOMA on the train arm's first pass plus the bias (must be "
+                 f"bitwise)")
+        del z
+        dense["err_vs_fp64"] = z_err_vs_fp64(x, w)
+        dense["passes"] = pass_ms(lambda: neuron_layer.neuron_layer_eval(
+            x, w, bias))
     if packed:   # on the Gaussian weights
         xp = spike_matmul.spike_pack(x)
         mm = spike_matmul.spike_matmul_packed(xp.reshape(t * m, c // 8), w)
@@ -288,7 +310,7 @@ def check_neuron_layer(gen, case, t, m, c, k, packed):
                      "elements on Gaussian weights"
                      + ("; bitwise on Gaussian weights against spike matmul "
                         "+ bias + plain SOMA" if packed else ""),
-        "bitwise_spike_matmul": exact,
+        "bitwise_spike_matmul": exact, **(dense or {}),
         "ms": time_ms(lambda: neuron_layer.neuron_layer_eval(
             x, w, bias, packed=packed)),
         "plain_ms": time_ms(lambda: neuron_layer.neuron_layer_eval_plain(
@@ -303,6 +325,19 @@ def check_neuron_layer(gen, case, t, m, c, k, packed):
         out["pack_ms"] = time_ms(lambda: spike_matmul.spike_pack(x))
         out["z_pass_ms"] = time_ms(lambda: neuron_layer.neuron_layer_train_z(
             x, w, packed=True, xin=xp))
+    return out
+
+
+def z_err_vs_fp64(x, w) -> dict[str, float]:
+    """RMS and largest error against an fp64 product of the z that the
+    train arm's first pass writes and of fp32 ``torch.matmul``'s."""
+    z64 = torch.matmul(x.double(), w.double())
+    out = {}
+    for name, z in (("kernel", neuron_layer.neuron_layer_train_z(x, w)),
+                    ("library", torch.matmul(x, w))):
+        e = z.double() - z64
+        out[f"{name}_rms"] = float(e.square().mean().sqrt())
+        out[f"{name}_max"] = float(e.abs().max())
     return out
 
 
@@ -340,63 +375,188 @@ def check_lif_bwd(gen, t, m, d):
     return rows
 
 
-def check_bn(gen, m, d):
-    """bn_fwd and bn_bwd at (T*B*N, d). y and dx within rtol 1e-5 / atol
-    1e-5 of the plain version, mu and var within 1e-6 of their scale: the
-    column sums run over 12,544 rows in another order (per-chunk partials
-    added in double against a library reduction)."""
+def pass_ms(fn, iters: int = 10) -> dict[str, float]:
+    """Device ms per call of every kernel one call of ``fn`` launches, from
+    ``torch.profiler`` over ``iters`` calls after a warm-up. A session late
+    in a long process can come back without some kernels' records, so the
+    result is that of the first session whose kernels all launched a
+    multiple of ``iters`` times and whose names another such session gave
+    too (four sessions at most; else the fullest one)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen: list[dict[str, float]] = []
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.device_time_total > 0]
+        if not rows or any(e.count % iters for e in rows):
+            continue
+        got = {e.key[:90]: e.device_time_total / 1e3 / iters for e in rows}
+        if any(set(got) == set(s) for s in seen):
+            return got
+        seen.append(got)
+    return max(seen, key=len, default={})
+
+
+def check_bn_fwd(gen, m, d):
+    """bn_fwd at (T*B*N, d): y within rtol 1e-5 / atol 1e-5 of the plain
+    version, mu and var within 1e-6 of their scale: the column sums run
+    over 12,544 rows in another order (per-chunk partials added in double
+    against a library reduction)."""
     x = torch.randn((m, d), generator=gen, device=DEVICE) * 2.0 + 0.5
     gamma = torch.rand((d,), generator=gen, device=DEVICE) + 0.5
     beta = torch.randn((d,), generator=gen, device=DEVICE) * 0.3
-    g = torch.randn((m, d), generator=gen, device=DEVICE)
     y, mu, sd = fused_bn.bn_fwd(x, gamma, beta)
     wy, wmu, wsd = fused_bn.bn_fwd_plain(x, gamma, beta)
-    dx, dgamma, dbeta = fused_bn.bn_bwd(g, x, gamma, wmu, wsd)
-    wdx, wdgamma, wdbeta = fused_bn.bn_bwd_plain(g, x, gamma, wmu, wsd)
     torch.cuda.synchronize()
     var, wvar = sd * sd - 1e-5, wsd * wsd - 1e-5
-    stats = {"mu": rel_err(mu, wmu), "var": rel_err(var, wvar),
-             "dgamma": rel_err(dgamma, wdgamma),
-             "dbeta": rel_err(dbeta, wdbeta)}
-    for name, a, b in (("y", y, wy), ("dx", dx, wdx)):
-        if not torch.allclose(a, b, rtol=1e-5, atol=1e-5):
-            fail(f"bn {name} beyond rtol/atol 1e-5 of its plain version: "
-                 f"{float((a - b).abs().max())}")
+    stats = {"mu": rel_err(mu, wmu), "var": rel_err(var, wvar)}
+    if not torch.allclose(y, wy, rtol=1e-5, atol=1e-5):
+        fail(f"bn y beyond rtol/atol 1e-5 of its plain version: "
+             f"{float((y - wy).abs().max())}")
     if stats["mu"] > 1e-6 or stats["var"] > 1e-6:
         fail(f"bn_fwd statistics beyond 1e-6 of their scale: {stats}")
-    if stats["dgamma"] > 1e-5 or stats["dbeta"] > 1e-5:
-        fail(f"bn_bwd parameter gradients beyond 1e-5 of their scale: "
-             f"{stats}")
-    tol = ("y and dx within rtol 1e-5 / atol 1e-5, mu and var within 1e-6 "
-           "(dgamma, dbeta 1e-5) of their scale: column sums in another "
-           "order")
-    # the library yardsticks: cuDNN/ATen training batch norm and its
-    # autograd backward on the same inputs
-    xl = x.clone().requires_grad_(True)
-    gl, bl = gamma.clone().requires_grad_(True), beta.clone().requires_grad_(True)
-    yl = F.batch_norm(xl, None, None, gl, bl, training=True, eps=1e-5)
-    fwd_b, fwd_by = bound(nbytes(x, gamma, beta, y, mu, sd), 8.0 * x.numel())
-    bwd_b, bwd_by = bound(nbytes(g, x, gamma, mu, sd, dx, dgamma, dbeta),
-                          12.0 * x.numel())
-    fwd = {"case": "pssa.proj/smlp.b", "shape": [m, d],
-           "max_abs_err": float((y - wy).abs().max()),
-           "rel_err": {k: stats[k] for k in ("mu", "var")}, "tolerance": tol,
-           "ms": time_ms(lambda: fused_bn.bn_fwd(x, gamma, beta)),
-           "plain_ms": time_ms(lambda: fused_bn.bn_fwd_plain(x, gamma, beta)),
-           "library_ms": time_ms(lambda: F.batch_norm(
-               x, None, None, gamma, beta, training=True, eps=1e-5)),
-           "bound_ms": fwd_b, "bound_by": fwd_by}
-    bwd = {"case": "pssa.proj/smlp.b", "shape": [m, d],
-           "max_abs_err": float((dx - wdx).abs().max()),
-           "rel_err": {k: stats[k] for k in ("dgamma", "dbeta")},
-           "tolerance": tol,
-           "ms": time_ms(lambda: fused_bn.bn_bwd(g, x, gamma, wmu, wsd)),
-           "plain_ms": time_ms(lambda: fused_bn.bn_bwd_plain(
-               g, x, gamma, wmu, wsd)),
-           "library_ms": time_ms(lambda: torch.autograd.grad(
-               yl, (xl, gl, bl), g, retain_graph=True)),
-           "bound_ms": bwd_b, "bound_by": bwd_by}
-    return fwd, bwd
+    b_ms, b_by = bound(nbytes(x, gamma, beta, y, mu, sd), 8.0 * x.numel())
+    return {"case": "pssa.proj/smlp.b", "shape": [m, d],
+            "max_abs_err": float((y - wy).abs().max()), "rel_err": stats,
+            "tolerance": "y within rtol 1e-5 / atol 1e-5, mu and var within "
+                         "1e-6 of their scale: column sums in another order",
+            "ms": time_ms(lambda: fused_bn.bn_fwd(x, gamma, beta)),
+            "plain_ms": time_ms(lambda: fused_bn.bn_fwd_plain(x, gamma, beta)),
+            "library_ms": time_ms(lambda: F.batch_norm(
+                x, None, None, gamma, beta, training=True, eps=1e-5)),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def dyadic_bn_bwd(gen, m, d):
+    """(g, x, gamma, mu, sqrt_d) whose every column sum is exact in fp32 in
+    any order (m < 2^22): g and x - mu in {-1, 0, 1}, mu a multiple of 1/8,
+    gamma in {0.5, 1}, sqrt_d in {1, 2}; mi and mi * n are then multiples
+    of 1/4 of magnitude <= 1."""
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             device=DEVICE).float()
+    mu = ints(-8, 8, (1, d)) / 8
+    return (ints(-1, 2, (m, d)), mu + ints(-1, 2, (m, d)),
+            ints(1, 3, (d,)) / 2, mu, ints(1, 3, (1, d)))
+
+
+def check_bn_bwd(gen, m, d):
+    """bn_bwd at one (rows, D) of a step. Gaussian inputs: dx within rtol
+    1e-5 / atol 1e-5 of the plain version, dgamma and dbeta within 1e-5 of
+    their scale (column sums in another order). ``bitwise_dyadic``: on
+    inputs whose every column sum is exact, dx, dgamma and dbeta equal the
+    plain version's bit for bit (fails a per-column term of eq. 23 rounded
+    otherwise than the plain version rounds it). ``library_ms``: ATen's
+    batch-norm backward alone, one call, no autograd."""
+    x = torch.randn((m, d), generator=gen, device=DEVICE) * 2.0 + 0.5
+    gamma = torch.rand((d,), generator=gen, device=DEVICE) + 0.5
+    g = torch.randn((m, d), generator=gen, device=DEVICE)
+    _, mu, sd = fused_bn.bn_fwd_plain(x, gamma, gamma)
+    got = fused_bn.bn_bwd(g, x, gamma, mu, sd)
+    want = fused_bn.bn_bwd_plain(g, x, gamma, mu, sd)
+    torch.cuda.synchronize()
+    errs = {"dgamma": rel_err(got[1], want[1]),
+            "dbeta": rel_err(got[2], want[2])}
+    if not torch.allclose(got[0], want[0], rtol=1e-5, atol=1e-5):
+        fail(f"bn_bwd {m}x{d}: dx beyond rtol/atol 1e-5 of its plain "
+             f"version: {float((got[0] - want[0]).abs().max())}")
+    if max(errs.values()) > 1e-5:
+        fail(f"bn_bwd {m}x{d}: parameter gradients beyond 1e-5 of their "
+             f"scale: {errs}")
+    exact = dyadic_bn_bwd(gen, m, d)
+    dyadic = all(torch.equal(a, b) for a, b in zip(
+        fused_bn.bn_bwd(*exact), fused_bn.bn_bwd_plain(*exact)))
+    if not dyadic:
+        fail(f"bn_bwd {m}x{d}: differs from its plain version on dyadic "
+             f"inputs (must be bitwise)")
+    del exact
+
+    def library():
+        return torch.ops.aten.native_batch_norm_backward(
+            g, x, gamma, None, None, mu.reshape(-1), inv, True, 1e-5,
+            [True, True, True])
+
+    inv = (1.0 / sd).reshape(-1)
+    lib = library()
+    lib_err = max(rel_err(lib[0], want[0]),
+                  rel_err(lib[1].reshape(1, -1), want[1]),
+                  rel_err(lib[2].reshape(1, -1), want[2]))
+    if lib_err > 1e-4:
+        fail(f"bn_bwd {m}x{d}: the ATen yardstick computes another "
+             f"function ({lib_err})")
+    b_ms, b_by = bound(nbytes(g, x, gamma, mu, sd, *got), 12.0 * x.numel())
+
+    def call():
+        return fused_bn.bn_bwd(g, x, gamma, mu, sd)
+
+    return {"case": f"{m}x{d}", "shape": [m, d],
+            "max_abs_err": float((got[0] - want[0]).abs().max()),
+            "rel_err": errs, "bitwise_dyadic": dyadic,
+            "library_rel_err": lib_err,
+            "tolerance": "dx within rtol 1e-5 / atol 1e-5, dgamma and "
+                         "dbeta within 1e-5 of their scale (column sums in "
+                         "another order); bitwise on dyadic inputs",
+            "ms": time_ms(call),
+            "plain_ms": time_ms(lambda: fused_bn.bn_bwd_plain(
+                g, x, gamma, mu, sd)),
+            "library_ms": time_ms(library),
+            "bound_ms": b_ms, "bound_by": b_by, "passes": pass_ms(call)}
+
+
+def bn_bwd_edges(gen) -> dict:
+    """bn_bwd where its layout changes: D % 4 != 0, g and x off 16-byte
+    alignment (both the scalar dx arm), 2,098,120 rows (more row ranges
+    than grid.y takes), gamma with zeros (nan in dgamma where the plain
+    version has it), and calls at two widths on one stream (the arrival
+    counters back at 0: every call gives the bits it gives alone). Each
+    holds on dyadic inputs bit for bit; fails otherwise."""
+    out = {}
+
+    def same(args):
+        return all(torch.equal(a, b) for a, b in zip(
+            fused_bn.bn_bwd(*args), fused_bn.bn_bwd_plain(*args)))
+
+    out["d130"] = same(dyadic_bn_bwd(gen, 12544, 130))
+    g, x, gamma, mu, sd = dyadic_bn_bwd(gen, 300, 24)
+    gm, xm = (torch.cat([torch.zeros(1, device=DEVICE), a.reshape(-1)])[1:]
+              .view(300, 24) for a in (g, x))
+    out["misaligned"] = same((gm, xm, gamma, mu, sd))
+    out["rows_2098120"] = all(same(dyadic_bn_bwd(gen, 65535 * 32 + 1000, d))
+                              for d in (4, 3))
+    g, x, gamma, mu, sd = dyadic_bn_bwd(gen, 1000, 64)
+    gamma[::5] = 0.0
+    dgamma, wdgamma = (f(g, x, gamma, mu, sd)[1] for f in (
+        fused_bn.bn_bwd, fused_bn.bn_bwd_plain))
+    out["gamma_zero_nan"] = torch.equal(torch.isnan(dgamma),
+                                        torch.isnan(wdgamma)) and \
+        bool(torch.isnan(dgamma[0, ::5]).all())
+    wide, narrow = dyadic_bn_bwd(gen, 300, 2048), dyadic_bn_bwd(gen, 5000, 64)
+    first = [fused_bn.bn_bwd(*a) for a in (wide, narrow)]
+    again = [fused_bn.bn_bwd(*a) for a in (narrow, wide)][::-1]
+    out["two_widths_one_stream"] = all(
+        torch.equal(a, b) for f, s in zip(first, again) for a, b in zip(f, s))
+    torch.cuda.synchronize()
+    bad = [k for k, v in out.items() if not v]
+    if bad:
+        fail(f"bn_bwd edge cases failed: {bad}")
+    return out
+
+
+def bn_bwd_shapes(batch: int) -> list[tuple[int, int]]:
+    """The distinct (rows, D) of bn_bwd in a training step, the block
+    sites' first: every neuron-layer site's (T*M, K), and pssa.proj /
+    smlp.b at (T*B*N, d)."""
+    shapes = [(t * m, k) for _, t, m, _, k, _ in neuron_layer_sites(batch)]
+    cfg = get_spikingformer_config(PRESET)
+    first = (cfg.time_steps * batch * cfg.num_tokens, cfg.d_model)
+    return [first] + sorted(set(shapes) - {first}, key=lambda s: -s[1])
 
 
 def neuron_layer_sites(batch: int) -> list[tuple]:
@@ -491,6 +651,11 @@ def check_neuron_layer_train(gen, case, t, m, c, k, packed):
             fail(f"neuron_layer_train {case}: ternary weights on rows of "
                  f"<= 12 spikes give other {differ} than the plain version "
                  f"(must be bitwise)")
+    dense = {}
+    if not packed:
+        dense = {"err_vs_fp64": z_err_vs_fp64(x, w),
+                 "passes": pass_ms(lambda: neuron_layer.neuron_layer_train(
+                     x, w, gamma, beta))}
     ops_ = (float(x.sum()) * k if packed else 2.0 * t * m * c * k) \
         + 12.0 * t * m * k
     moved = nbytes(x, w, gamma, beta, *got)
@@ -506,7 +671,7 @@ def check_neuron_layer_train(gen, case, t, m, c, k, packed):
                         "emitted spikes bit for bit"
                         + ("; bitwise on ternary weights, <= 12 spikes a row"
                            if packed else ""),
-           "bitwise_ternary": exact, "replay_mismatch": replay_bad,
+           "bitwise_ternary": exact, "replay_mismatch": replay_bad, **dense,
            "ms": time_ms(lambda: neuron_layer.neuron_layer_train(
                x, w, gamma, beta, packed=packed)),
            "plain_ms": time_ms(lambda: neuron_layer.neuron_layer_train_plain(
@@ -532,17 +697,23 @@ def eval_kernel_cases(gen, batch: int) -> list[dict]:
 
 def train_kernel_cases(gen, batch: int) -> dict[str, list[dict]]:
     """The cases of ``bn_fwd``, ``bn_bwd`` and ``neuron_layer_train`` at the
-    preset's shapes, the block sites of the neuron layer first (they carry
-    32 of its 36 launches a step)."""
+    preset's shapes: ``bn_bwd`` at each distinct shape of a step, with its
+    edge cases on the first; the block sites of the neuron layer first
+    (they carry 32 of its 36 launches a step)."""
     cfg = get_spikingformer_config(PRESET)
-    bn_f, bn_b = check_bn(gen, cfg.time_steps * batch * cfg.num_tokens,
-                          cfg.d_model)
+    bn_f = check_bn_fwd(gen, cfg.time_steps * batch * cfg.num_tokens,
+                        cfg.d_model)
+    bn_b = []
+    for m, d in bn_bwd_shapes(batch):
+        bn_b.append(check_bn_bwd(gen, m, d))
+        torch.cuda.empty_cache()
+    bn_b[0]["edges"] = bn_bwd_edges(gen)
     rows = []
     for site in neuron_layer_sites(batch):
         rows.append(check_neuron_layer_train(gen, *site))
         torch.cuda.empty_cache()
     rows = rows[-2:] + rows[:-2]
-    return {"bn_fwd": [bn_f], "bn_bwd": [bn_b], "neuron_layer_train": rows}
+    return {"bn_fwd": [bn_f], "bn_bwd": bn_b, "neuron_layer_train": rows}
 
 
 def spike_matmul_cases(gen, batch: int) -> tuple[list[dict], list[dict]]:

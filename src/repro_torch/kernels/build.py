@@ -53,9 +53,9 @@ SIGNATURES: dict[str, tuple] = {
     # x, gamma, beta, y, mu, sqrt_d, part, arrival counters, M, D,
     # rows per chunk, eps, stream
     "e2a_bn_fwd": (_P,) * 8 + (_L, _I, _L, _F, _P),
-    # g, x, gamma, mu, sqrt_d, dx, dgamma, dbeta, part, sums, M, D,
-    # rows per chunk, stream
-    "e2a_bn_bwd": (_P,) * 10 + (_L, _I, _L, _P),
+    # g, x, gamma, mu, sqrt_d, dx, dgamma, dbeta, part, cols, arrival
+    # counters, M, D, rows per chunk, stream
+    "e2a_bn_bwd": (_P,) * 11 + (_L, _I, _L, _P),
     # x, w, bias, s, T, M, C, K, packed, tile (0 by rule, 1 Large, 2 Small),
     # alpha, th_fire, stream
     "e2a_neuron_layer_eval": (_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _F, _F,

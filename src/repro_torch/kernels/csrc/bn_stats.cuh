@@ -34,14 +34,21 @@ __device__ __forceinline__ void reduce_parts(const float* part, int n_parts,
   __shared__ double sh[NQ][STAT_LANES][STAT_COLS];
   const int lane = threadIdx.y;
   double acc[NQ];
+#pragma unroll
   for (int q = 0; q < NQ; ++q) acc[q] = 0.0;
+  // unrolled so that several chunks' loads are in flight at once; each
+  // acc[q] still adds its chunks in ascending order
   if (col < D)
+#pragma unroll 4
     for (int c = lane; c < n_parts; c += STAT_LANES)
+#pragma unroll
       for (int q = 0; q < NQ; ++q)
         acc[q] += (double)__ldcg(part + ((long long)q * n_parts + c) * D +
                                  col);
+#pragma unroll
   for (int q = 0; q < NQ; ++q) sh[q][lane][threadIdx.x] = acc[q];
   __syncthreads();
+#pragma unroll
   for (int q = 0; q < NQ; ++q) {
     double s = 0.0;
     for (int l = 0; l < STAT_LANES; ++l) s += sh[q][l][threadIdx.x];

@@ -20,11 +20,18 @@
 //   2. bn_fwd_normalize: y from x, read a second time (from L2 at the
 //      model's sizes: 25.7 MB < 50 MB); a 2-D grid of row ranges x column
 //      blocks, float4 along D where aligned.
-// Backward, three launches: partials, finalize, elementwise dx.
+// Backward, two launches, the same design:
+//   1. bn_bwd_partials: the four column sums of eq. 19-22 as partials, one
+//      column per lane; the group's last block adds them and writes dgamma,
+//      dbeta and the per-column terms of eq. 23, rounded as the plain
+//      version rounds them, so that the dx pass does no per-column work.
+//   2. bn_bwd_dx: dx from g and x, read a second time; the forward's 2-D
+//      grid, float4 along D where aligned.
 //
 // Bound on this card: bytes. The forward must read x and write y
 // (2 * M * D * 4 bytes), the backward read g and x and write dx (3 * M * D *
-// 4); the second read of the elementwise pass is the price of the split.
+// 4); the second read of the elementwise pass is the price of the split (at
+// 12544 x 512, g and x are 51.4 MB, just over the 50 MB L2).
 // Per-element arithmetic uses the round-to-nearest intrinsics in the order
 // of the plain version, so with equal statistics the outputs are equal bit
 // for bit; the statistics themselves differ from a library reduction only
@@ -37,8 +44,9 @@ namespace {
 
 constexpr int BN_COLS = 32;     // column lanes per block (one warp wide)
 constexpr int BN_LANES = 8;     // row lanes per block
-constexpr int EW_ROWS = 32;     // rows per block of the elementwise passes
-// bn_fwd_stats finalizes with reduce_parts on its own block
+constexpr int EW_ROWS = 32;     // rows per block of the normalize pass
+// bn_fwd_stats and bn_bwd_partials finalize with reduce_parts on their own
+// blocks
 static_assert(BN_COLS == e2a::STAT_COLS && BN_LANES == e2a::STAT_LANES,
               "block shape of reduce_parts");
 
@@ -142,14 +150,38 @@ void launch_normalize(const float* x, const float* gamma, const float* beta,
       x, gamma, beta, mu, sqrt_d, y, M, D);
 }
 
-// Backward partials: s_n = sum(x - mu), s_m = sum(mi), s_mn = sum(mi * n),
-// s_g = sum(g), with mi = gamma * g / sqrt_d (eq. 19-20, 22).
+// One row's terms of the four sums, added in the plain version's order.
+__device__ __forceinline__ void bwd_terms(float gv, float xv, float ga,
+                                          float m, float sd,
+                                          float (&acc)[4]) {
+  const float mi = __fdiv_rn(__fmul_rn(ga, gv), sd);
+  const float nv = __fsub_rn(xv, m);
+  acc[0] = __fadd_rn(acc[0], nv);
+  acc[1] = __fadd_rn(acc[1], mi);
+  acc[2] = __fadd_rn(acc[2], __fmul_rn(mi, nv));
+  acc[3] = __fadd_rn(acc[3], gv);
+}
+
+constexpr int BWD_UNROLL = 4;   // rows of a batch of loads in pass 1
+
+// Backward pass 1: per-chunk partials of s_n = sum(x - mu), s_m = sum(mi),
+// s_mn = sum(mi * n) and s_g = sum(g), with mi = gamma * g / sqrt_d (eq.
+// 19-20, 22), one column per lane; then, as in bn_fwd_stats, the last block
+// of each group of BN_COLS columns to finish adds the group's chunks and
+// writes dgamma = s_mn / gamma (eq. 21, as the reference has it: inf or nan
+// where gamma is 0), dbeta = s_g (eq. 22), and eq. 23's per-column terms
+// for the dx pass, each rounded as the plain version rounds it:
+//   cols[0] = s_mn, cols[1] = M * sq2, cols[2] = s_n * s_mn / (sq2 * M * M),
+//   cols[3] = s_m / M, with sq2 = sqrt_d * sqrt_d.
 __global__ void __launch_bounds__(BN_COLS* BN_LANES) bn_bwd_partials(
     const float* __restrict__ g, const float* __restrict__ x,
     const float* __restrict__ gamma, const float* __restrict__ mu,
-    const float* __restrict__ sqrt_d, float* __restrict__ part, long long M,
+    const float* __restrict__ sqrt_d, float* part,
+    unsigned* __restrict__ arrived, float* __restrict__ cols,
+    float* __restrict__ dgamma, float* __restrict__ dbeta, long long M,
     int D, long long rows, int n_chunks) {
   __shared__ float sh[4][BN_LANES][BN_COLS];
+  __shared__ bool last;
   const int col = blockIdx.x * BN_COLS + threadIdx.x;
   const int lane = threadIdx.y;
   const long long r0 = (long long)blockIdx.y * rows;
@@ -157,15 +189,38 @@ __global__ void __launch_bounds__(BN_COLS* BN_LANES) bn_bwd_partials(
   float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   if (col < D) {
     const float ga = gamma[col], m = mu[col], sd = sqrt_d[col];
-    for (long long r = r0 + lane; r < r1; r += BN_LANES) {
-      const float gv = g[r * D + col];
-      const float mi = __fdiv_rn(__fmul_rn(ga, gv), sd);
-      const float nv = __fsub_rn(x[r * D + col], m);
-      acc[0] = __fadd_rn(acc[0], nv);
-      acc[1] = __fadd_rn(acc[1], mi);
-      acc[2] = __fadd_rn(acc[2], __fmul_rn(mi, nv));
-      acc[3] = __fadd_rn(acc[3], gv);
+    // the lane's rows in order, in batches of BWD_UNROLL rows; the next
+    // batch's loads are issued before this batch is added, so that two
+    // batches' loads are in flight while the adds wait on one
+    constexpr long long STEP = (long long)BWD_UNROLL * BN_LANES;
+    const long long first = r0 + lane;
+    const long long full = r1 - first >= STEP ? (r1 - first) / STEP : 0;
+    float gv[BWD_UNROLL], xv[BWD_UNROLL];
+    const auto load = [&](long long r, float (&gb)[BWD_UNROLL],
+                          float (&xb)[BWD_UNROLL]) {
+#pragma unroll
+      for (int u = 0; u < BWD_UNROLL; ++u) {
+        gb[u] = g[(r + u * BN_LANES) * D + col];
+        xb[u] = x[(r + u * BN_LANES) * D + col];
+      }
+    };
+    if (full > 0) load(first, gv, xv);
+    for (long long b = 0; b < full; ++b) {
+      float gn[BWD_UNROLL], xn[BWD_UNROLL];
+      const bool more = b + 1 < full;
+      if (more) load(first + (b + 1) * STEP, gn, xn);
+#pragma unroll
+      for (int u = 0; u < BWD_UNROLL; ++u)
+        bwd_terms(gv[u], xv[u], ga, m, sd, acc);
+      if (more)
+#pragma unroll
+        for (int u = 0; u < BWD_UNROLL; ++u) {
+          gv[u] = gn[u];
+          xv[u] = xn[u];
+        }
     }
+    for (long long r = first + full * STEP; r < r1; r += BN_LANES)
+      bwd_terms(g[r * D + col], x[r * D + col], ga, m, sd, acc);
   }
 #pragma unroll
   for (int k = 0; k < 4; ++k) sh[k][lane][threadIdx.x] = acc[k];
@@ -176,49 +231,112 @@ __global__ void __launch_bounds__(BN_COLS* BN_LANES) bn_bwd_partials(
     for (int l = 0; l < BN_LANES; ++l) a = __fadd_rn(a, sh[lane][l][threadIdx.x]);
     part[((long long)lane * n_chunks + blockIdx.y) * D + col] = a;
   }
-}
-
-// sums (4, D): s_n, s_m, s_mn, s_g; dgamma = s_mn / gamma (eq. 21, as the
-// reference has it: inf or nan where gamma is 0), dbeta = s_g (eq. 22).
-__global__ void __launch_bounds__(e2a::STAT_COLS* e2a::STAT_LANES)
-bn_bwd_finalize(const float* __restrict__ part,
-                const float* __restrict__ gamma, float* __restrict__ sums,
-                float* __restrict__ dgamma, float* __restrict__ dbeta, int D,
-                int n_chunks) {
-  const int col = blockIdx.x * e2a::STAT_COLS + threadIdx.x;
+  // Elect the group's last block, as bn_fwd_stats does.
+  __threadfence();
+  __syncthreads();
+  if (lane == 0 && threadIdx.x == 0) {
+    last = atomicAdd(arrived + blockIdx.x, 1u) == gridDim.y - 1;
+    if (last) arrived[blockIdx.x] = 0;   // no other block of the group is left
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
   double s[4];
   e2a::reduce_parts<4>(part, n_chunks, D, col, s);
-  if (threadIdx.y != 0 || col >= D) return;
-  for (int k = 0; k < 4; ++k) sums[k * D + col] = (float)s[k];
-  dgamma[col] = __fdiv_rn(sums[2 * D + col], gamma[col]);
-  dbeta[col] = sums[3 * D + col];
+  if (lane != 0 || col >= D) return;
+  const float s_n = (float)s[0], s_m = (float)s[1], s_mn = (float)s[2];
+  const float m = (float)M, sd = sqrt_d[col];
+  const float sq2 = __fmul_rn(sd, sd);
+  dgamma[col] = __fdiv_rn(s_mn, gamma[col]);
+  dbeta[col] = (float)s[3];
+  cols[col] = s_mn;
+  cols[D + col] = __fmul_rn(m, sq2);
+  cols[2 * D + col] = __fdiv_rn(__fmul_rn(s_n, s_mn),
+                                __fmul_rn(__fmul_rn(sq2, m), m));
+  cols[3 * D + col] = __fdiv_rn(s_m, m);
 }
 
-// dx = mi - n * s_mn / (M * sq2) + s_n * s_mn / (sq2 * M * M) - s_m / M
-// (eq. 23), left to right as the reference writes it.
-__global__ void __launch_bounds__(256) bn_bwd_dx(
+// Backward pass 2: dx = mi - n * s_mn / (M * sq2) + s_n * s_mn / (sq2 * M *
+// M) - s_m / M (eq. 23), left to right as the reference writes it, the
+// per-column terms from pass 1 held in registers: per element only mi, n
+// and n * s_mn / (M * sq2), two divisions. A block of DX_THREADS threads is
+// blockDim.x column lanes (V neighbouring columns each, one float4 where
+// V = 4) by blockDim.y row lanes over DX_LANE_ROWS * blockDim.y rows; fewer
+// than 32 column lanes where D is narrow, so that no lane idles.
+constexpr int DX_THREADS = 256;
+constexpr int DX_LANE_ROWS = 4;
+
+template <int V>
+__global__ void __launch_bounds__(DX_THREADS) bn_bwd_dx(
     const float* __restrict__ g, const float* __restrict__ x,
     const float* __restrict__ gamma, const float* __restrict__ mu,
-    const float* __restrict__ sqrt_d, const float* __restrict__ sums,
-    float* __restrict__ dx, long long n, long long M, int D) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int c = (int)(i % D);
-  const float m = (float)M;
-  const float sd = sqrt_d[c];
-  const float s_n = sums[c], s_m = sums[D + c], s_mn = sums[2 * D + c];
-  const float mi = __fdiv_rn(__fmul_rn(gamma[c], g[i]), sd);
-  const float nv = __fsub_rn(x[i], mu[c]);
-  const float sq2 = __fmul_rn(sd, sd);
-  float r = __fsub_rn(mi, __fdiv_rn(__fmul_rn(nv, s_mn), __fmul_rn(m, sq2)));
-  r = __fadd_rn(r, __fdiv_rn(__fmul_rn(s_n, s_mn),
-                             __fmul_rn(__fmul_rn(sq2, m), m)));
-  dx[i] = __fsub_rn(r, __fdiv_rn(s_m, m));
+    const float* __restrict__ sqrt_d, const float* __restrict__ cols,
+    float* __restrict__ dx, long long M, int D) {
+  const int c0 = (blockIdx.x * blockDim.x + threadIdx.x) * V;
+  if (c0 >= D) return;               // V = 4 only where D % 4 == 0
+  float ga[V], m[V], sd[V], smn[V], msq2[V], c1[V], c2[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    ga[j] = gamma[c0 + j];
+    m[j] = mu[c0 + j];
+    sd[j] = sqrt_d[c0 + j];
+    smn[j] = cols[c0 + j];
+    msq2[j] = cols[D + c0 + j];
+    c1[j] = cols[2 * D + c0 + j];
+    c2[j] = cols[3 * D + c0 + j];
+  }
+  const auto dx_of = [&](float (&gv)[V], const float (&xv)[V]) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float mi = __fdiv_rn(__fmul_rn(ga[j], gv[j]), sd[j]);
+      const float nv = __fsub_rn(xv[j], m[j]);
+      const float v =
+          __fsub_rn(mi, __fdiv_rn(__fmul_rn(nv, smn[j]), msq2[j]));
+      gv[j] = __fsub_rn(__fadd_rn(v, c1[j]), c2[j]);
+    }
+  };
+  const long long rows = (long long)DX_LANE_ROWS * blockDim.y;
+  // grid.y is capped at MAX_ROW_BLOCKS: a block then takes every
+  // gridDim.y-th row range
+  for (long long r0 = (long long)blockIdx.y * rows; r0 < M;
+       r0 += (long long)gridDim.y * rows) {
+    const long long r = r0 + threadIdx.y;
+    if (r0 + rows <= M) {   // a whole range: every load issued first
+      float gv[DX_LANE_ROWS][V], xv[DX_LANE_ROWS][V];
+#pragma unroll
+      for (int i = 0; i < DX_LANE_ROWS; ++i) {
+        e2a::load_v<V>(g + (r + i * blockDim.y) * D + c0, gv[i]);
+        e2a::load_v<V>(x + (r + i * blockDim.y) * D + c0, xv[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < DX_LANE_ROWS; ++i) {
+        dx_of(gv[i], xv[i]);
+        e2a::store_v<V>(dx + (r + i * blockDim.y) * D + c0, gv[i]);
+      }
+      continue;
+    }
+    for (long long ri = r; ri < M; ri += blockDim.y) {
+      float gv[V], xv[V];
+      e2a::load_v<V>(g + ri * D + c0, gv);
+      e2a::load_v<V>(x + ri * D + c0, xv);
+      dx_of(gv, xv);
+      e2a::store_v<V>(dx + ri * D + c0, gv);
+    }
+  }
 }
 
-const dim3 STAT_BLOCK(e2a::STAT_COLS, e2a::STAT_LANES);
-
-int stat_blocks(int D) { return (D + e2a::STAT_COLS - 1) / e2a::STAT_COLS; }
+template <int V>
+void launch_dx(const float* g, const float* x, const float* gamma,
+               const float* mu, const float* sqrt_d, const float* cols,
+               float* dx, long long M, int D, cudaStream_t st) {
+  int bx = 32;   // column lanes: 32, or the least power of two whose V
+  while (bx > 1 && (bx / 2) * V >= D) bx /= 2;   // columns each cover D
+  const int by = DX_THREADS / bx;
+  const dim3 grid((D + bx * V - 1) / (bx * V),
+                  e2a::row_blocks(M, DX_LANE_ROWS * by));
+  bn_bwd_dx<V><<<grid, dim3(bx, by), 0, st>>>(g, x, gamma, mu, sqrt_d, cols,
+                                              dx, M, D);
+}
 
 }  // namespace
 
@@ -246,23 +364,25 @@ extern "C" int e2a_bn_fwd(const float* x, const float* gamma,
 }
 
 // g, x (M, D), gamma, mu, sqrt_d (D) -> dx (M, D), dgamma, dbeta (D).
-// part: 4 * ceil(M / rows) * D floats of scratch, sums: 4 * D.
+// part: 4 * ceil(M / rows) * D floats of scratch, cols: 4 * D; arrived:
+// ceil(D / 32) counters, 0 on entry and left at 0.
 extern "C" int e2a_bn_bwd(const float* g, const float* x, const float* gamma,
                           const float* mu, const float* sqrt_d, float* dx,
                           float* dgamma, float* dbeta, float* part,
-                          float* sums, long long M, int D, long long rows,
-                          void* stream) {
+                          float* cols, unsigned* arrived, long long M, int D,
+                          long long rows, void* stream) {
   if (M <= 0 || D <= 0 || rows <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_chunks = (int)((M + rows - 1) / rows);
-  const dim3 grid((D + BN_COLS - 1) / BN_COLS, n_chunks);
-  bn_bwd_partials<<<grid, dim3(BN_COLS, BN_LANES), 0, st>>>(
-      g, x, gamma, mu, sqrt_d, part, M, D, rows, n_chunks);
-  bn_bwd_finalize<<<stat_blocks(D), STAT_BLOCK, 0, st>>>(part, gamma, sums,
-                                                         dgamma, dbeta, D,
-                                                         n_chunks);
-  const long long n = M * D;
-  bn_bwd_dx<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      g, x, gamma, mu, sqrt_d, sums, dx, n, M, D);
+  bn_bwd_partials<<<dim3((D + BN_COLS - 1) / BN_COLS, n_chunks),
+                    dim3(BN_COLS, BN_LANES), 0, st>>>(
+      g, x, gamma, mu, sqrt_d, part, arrived, cols, dgamma, dbeta, M, D, rows,
+      n_chunks);
+  if (D % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(dx) % 16 == 0)
+    launch_dx<4>(g, x, gamma, mu, sqrt_d, cols, dx, M, D, st);
+  else
+    launch_dx<1>(g, x, gamma, mu, sqrt_d, cols, dx, M, D, st);
   return (int)cudaGetLastError();
 }

@@ -32,8 +32,9 @@
 //     passes on the tensor cores (3 * 2 * T*M*C*K operations) or the
 //     spikes' bytes.
 //   - Dense arm (the first tokenizer stage: C = 27, a dense fp32 image):
-//     neuron_layer_eval_dense, the fp32 tile loop of spike_tile.cuh with T
-//     accumulators per thread; bound by the bytes of its input and output.
+//     neuron_layer_eval_dense, fp32 FMAs on x and w staged in shared memory
+//     (the dense arms' section below), T time steps in turn with (U, S)
+//     in registers; bound by the bytes of its input and output.
 //
 // Train mode (replaces _nl_train_kernel, neuron_layer_train): batch
 // statistics over all T * M rows of a column cannot finish in a tile's
@@ -47,8 +48,10 @@
 //       the packed arm's pass is the spike matmul over T * M rows: the
 //       tensor-core mainloop, Large tile (256 x 64 outputs, 16 warps,
 //       BK = 128), with an epilogue that also forms the tile's column
-//       partials. The dense arm keeps the fp32 tile loop of spike_tile.cuh,
-//       64-row tiles over M, each holding T * 64 values. The autograd op's
+//       partials. The dense arm's pass, neuron_layer_train_z_dense, runs
+//       the eval arm's fp32 product over T * M rows, 1024-row tiles (a
+//       quarter as many partials as 256-row tiles would give (b) to add),
+//       with coalesced float4 stores of z. The autograd op's
 //       backward replays z through this pass alone (e2a_neuron_layer_train_z),
 //       so its z is the forward's bit for bit;
 //   (b) per column, the tiles' partials are added in order and mu, var,
@@ -61,7 +64,6 @@
 // instead of storing z would double the dominant work.
 #include "bn_stats.cuh"
 #include "spike_mma_mainloop.cuh"
-#include "spike_tile.cuh"
 
 namespace {
 
@@ -75,62 +77,340 @@ __device__ __forceinline__ float membrane(float u, float s, float y,
   return __fadd_rn(__fmul_rn(__fmul_rn(alpha, u), __fsub_rn(1.0f, s)), y);
 }
 
-// ---- eval, dense arm ----
-template <int T>
-__global__ void __launch_bounds__(THREADS) neuron_layer_eval_dense(
-    const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ bias, float* __restrict__ s, long long M, int C,
-    int K, float alpha, float th_fire) {
-  constexpr int BC = ChunkOf<T>::value;
-  __shared__ __align__(16) float xs[T][BC][XS];
-  __shared__ __align__(16) float ws[BC][BN];
+// ---- the dense arms (the first tokenizer stage) ----
+// x is a dense fp32 matrix of rows x C (eval: time step t's rows are rows
+// t * M .. t * M + M - 1 of the (T * M, C) view; train: all T * M rows), C
+// small (27 at the first stage: 2 * T*M*C*K operations take 0.041 ms at
+// 67 TFLOP/s, under the 0.087 ms its bytes take). fp32 FMAs outside the
+// tensor cores. A block of DENSE_THREADS threads computes DENSE_ROWS x
+// DENSE_COLS outputs at a time: a thread holds 4 rows x 4 neighbouring
+// columns, the two halves of a warp two neighbouring rows, so that each
+// store of a warp is two runs of 64 contiguous floats (one 512-byte run
+// where K = 64). The weight (C x DENSE_COLS) is staged in shared memory
+// once per block while C <= DENSE_CHUNK; the block's x rows, one contiguous
+// span of rows * C floats, are staged with float4 loads into rows padded to
+// a multiple of 4 floats, from which a thread reads 4 c at a time. Each
+// output is fmaf over c ascending from 0 (the pad adds 0 * 0), so the
+// eval arm's product and the train arm's first pass give the same bits,
+// and the order is fixed: no atomics.
+constexpr int DENSE_THREADS = 256;
+constexpr int DENSE_ROWS = 64;       // 8 warps x 2 halves x 4 rows
+constexpr int DENSE_COLS = 64;       // 16 lanes x 4 columns
+constexpr int DENSE_CHUNK = 32;      // contraction staged at once
+// Rows of one tile of the train arm's first pass: DENSE_ROWS at a time,
+// one partial sum per tile and column (kernels/neuron_layer.py
+// DENSE_TILE_ROWS).
+constexpr int DENSE_TILE_ROWS = 1024;
 
-  TileArgs a;
-  a.x = x;
-  a.x_t = M * C;
-  a.x_m = C;
-  a.x_c = 1;
-  a.w = w;
-  a.w_c = K;
-  a.w_k = 1;
-  a.m0 = (long long)blockIdx.x * BM;
-  a.M = M;
-  a.k0 = blockIdx.y * BN;
-  a.K = K;
-  a.C = C;
+struct DenseSmem {
+  float w[DENSE_CHUNK * DENSE_COLS];               // w[c][k], k fastest
+  float x[DENSE_ROWS * (DENSE_CHUNK + 4)];          // x[row][c], padded rows
+  // eval: U of the thread's 16 outputs, slot i of thread j at i *
+  // DENSE_THREADS + j (only that thread reads it: no barrier guards it)
+  float u[16 * DENSE_THREADS];
+};
 
-  float acc[T][TM][TN];
-  accumulate<T, BC>(a, xs, ws, acc);
+// Row stride of the staged x for a chunk padded to cp floats: cp, or cp + 4
+// where cp is a multiple of 8, so that the two rows a warp reads at once
+// never share a bank.
+__device__ __forceinline__ int dense_ld(int cp) {
+  return cp % 8 == 0 ? cp + 4 : cp;
+}
 
-  const int tx = threadIdx.x % (BN / TN);
-  const int ty = threadIdx.x / (BN / TN);
+// w[c0 .. c0 + cw) x [n0 .. n0 + DENSE_COLS) into sm.w, zero past cw (up to
+// cp) and past K.
+__device__ __forceinline__ void dense_stage_w(DenseSmem& sm,
+                                              const float* __restrict__ w,
+                                              int c0, int cw, int cp, int K,
+                                              int n0) {
+  for (int i = threadIdx.x; i < cp * DENSE_COLS; i += DENSE_THREADS) {
+    const int c = i / DENSE_COLS, k = i % DENSE_COLS;
+    sm.w[i] = c < cw && n0 + k < K ? w[(long long)(c0 + c) * K + n0 + k]
+                                   : 0.0f;
+  }
+}
+
+// acc[j][e] += x[rl + 2 j][c] * w[c][4 q + e] over the cp staged c in
+// ascending order, fmaf: the thread's 4 rows x 4 columns, 4 c at a time
+// (one float4 of each row and of each of 4 weight rows).
+__device__ __forceinline__ void dense_fma(const DenseSmem& sm, int ld, int cp,
+                                          int rl, int q, float (&acc)[4][4]) {
+  const float* xr = sm.x + rl * ld;
+  const float* wr = sm.w + 4 * q;
+  for (int c = 0; c < cp; c += 4) {
+    float4 wv[4];
 #pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int col = a.k0 + tx * TN + j;
-    if (col >= K) continue;
-    const float b = bias[col];
+    for (int k = 0; k < 4; ++k)
+      wv[k] = *reinterpret_cast<const float4*>(wr + (c + k) * DENSE_COLS);
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const long long row = a.m0 + ty * TM + i;
-      if (row >= M) continue;
-      float u = 0.0f, sp = 0.0f;
+    for (int j = 0; j < 4; ++j) {
+      const float4 xv = *reinterpret_cast<const float4*>(xr + 2 * j * ld + c);
+      const float xe[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
-      for (int t = 0; t < T; ++t) {
-        u = membrane(u, sp, __fadd_rn(acc[t][i][j], b), alpha);
-        sp = (u >= th_fire) ? 1.0f : 0.0f;
-        s[((long long)t * M + row) * K + col] = sp;
+      for (int k = 0; k < 4; ++k) {
+        acc[j][0] = fmaf(xe[k], wv[k].x, acc[j][0]);
+        acc[j][1] = fmaf(xe[k], wv[k].y, acc[j][1]);
+        acc[j][2] = fmaf(xe[k], wv[k].z, acc[j][2]);
+        acc[j][3] = fmaf(xe[k], wv[k].w, acc[j][3]);
       }
     }
   }
 }
 
-template <int T>
+// One sub-tile's x rows [r0, r0 + n) (n <= DENSE_ROWS, C <= DENSE_CHUNK):
+// one contiguous span of n * C floats, read as the floats before its first
+// 16-byte boundary (head), float4s (body), and the rest (tail). A thread
+// loads its share into registers (load) while the block computes the last
+// sub-tile, and writes it to the staged rows (put) after the next barrier,
+// so that the loads' latency hides behind the FMAs.
+struct DenseSpan {
+  static constexpr int PER_THREAD =
+      DENSE_ROWS * DENSE_CHUNK / 4 / DENSE_THREADS;   // float4s at most
+  float4 v[PER_THREAD];
+  float h, t;                                          // head, tail floats
+  int head, body, total;
+
+  __device__ __forceinline__ void load(const float* __restrict__ x,
+                                       long long r0, int n, int C) {
+    const float* src = x + r0 * C;
+    h = t = 0.0f;
+    total = n * C;
+    head = min(total,
+               (int)((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15) / 4);
+    body = (total - head) / 4;
+    const float4* src4 = reinterpret_cast<const float4*>(src + head);
+#pragma unroll
+    for (int k = 0; k < PER_THREAD; ++k) {
+      const int f = threadIdx.x + k * DENSE_THREADS;
+      if (f < body) v[k] = src4[f];
+    }
+    const int tail = total - head - 4 * body;
+    if ((int)threadIdx.x < head) h = src[threadIdx.x];
+    if ((int)threadIdx.x < tail) t = src[head + 4 * body + threadIdx.x];
+  }
+
+  __device__ __forceinline__ void put(DenseSmem& sm, int C, int ld) const {
+#pragma unroll
+    for (int k = 0; k < PER_THREAD; ++k) {
+      const int f = threadIdx.x + k * DENSE_THREADS;
+      if (f >= body) break;
+      const float e[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+      const int i = head + 4 * f;
+      int row = i / C, c = i - row * C;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        sm.x[row * ld + c] = e[u];
+        if (++c == C) {
+          c = 0;
+          ++row;
+        }
+      }
+    }
+    const int i = threadIdx.x, tail = total - head - 4 * body;
+    if (i < head) sm.x[(i / C) * ld + i % C] = h;
+    if (i < tail) {
+      const int j = head + 4 * body + i;
+      sm.x[(j / C) * ld + j % C] = t;
+    }
+  }
+};
+
+// The block's S sub-tiles in turn: rows(s) gives sub-tile s's first x row
+// and its number of rows (<= DENSE_ROWS), and epi(s, acc) receives the
+// thread's 4 x 4 products of it, each fmaf over c ascending from 0.
+// Every thread of the block calls it.
+template <class Rows, class Epilogue>
+__device__ __forceinline__ void dense_tiles(DenseSmem& sm,
+                                            const float* __restrict__ x,
+                                            const float* __restrict__ w, int S,
+                                            Rows rows, int C, int K, int n0,
+                                            int rl, int q, Epilogue epi) {
+  if (C <= DENSE_CHUNK) {   // the whole weight and whole rows at once
+    const int cp = (C + 3) & ~3, ld = dense_ld(cp);
+    dense_stage_w(sm, w, 0, C, cp, K, n0);
+    for (int i = threadIdx.x; i < DENSE_ROWS * (cp - C); i += DENSE_THREADS)
+      sm.x[(i / (cp - C)) * ld + C + i % (cp - C)] = 0.0f;   // the pad
+    DenseSpan span;
+    long long r0;
+    int n;
+    rows(0, r0, n);
+    span.load(x, r0, n, C);
+    for (int s = 0; s < S; ++s) {
+      __syncthreads();           // every thread is done with sub-tile s - 1
+      span.put(sm, C, ld);
+      __syncthreads();
+      if (s + 1 < S) {
+        rows(s + 1, r0, n);
+        span.load(x, r0, n, C);
+      }
+      float acc[4][4] = {};
+      dense_fma(sm, ld, cp, rl, q, acc);
+      epi(s, acc);
+    }
+    return;
+  }
+  // C > DENSE_CHUNK: chunks of the contraction staged element by element
+  for (int s = 0; s < S; ++s) {
+    long long r0;
+    int n;
+    rows(s, r0, n);
+    float acc[4][4] = {};
+    for (int c0 = 0; c0 < C; c0 += DENSE_CHUNK) {
+      const int cw = min(DENSE_CHUNK, C - c0), cp = (cw + 3) & ~3;
+      const int ld = dense_ld(cp);
+      __syncthreads();
+      dense_stage_w(sm, w, c0, cw, cp, K, n0);
+      for (int i = threadIdx.x; i < DENSE_ROWS * cp; i += DENSE_THREADS) {
+        const int row = i / cp, c = i % cp;
+        sm.x[row * ld + c] =
+            row < n && c < cw ? x[(r0 + row) * C + c0 + c] : 0.0f;
+      }
+      __syncthreads();
+      dense_fma(sm, ld, cp, rl, q, acc);
+    }
+    epi(s, acc);
+  }
+}
+
+// The 4 values of a thread's row at column col of out (rows of K floats):
+// one float4 where vec4 (K % 4 == 0, out 16-byte aligned), else those
+// below K.
+__device__ __forceinline__ void dense_store(float* out, int col, int K,
+                                            bool vec4, const float (&v)[4]) {
+  if (vec4) {
+    if (col < K)
+      *reinterpret_cast<float4*>(out + col) =
+          make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (col + e < K) out[col + e] = v[e];
+  }
+}
+
+// Eval: the block owns DENSE_ROWS rows of M and DENSE_COLS columns and loops
+// t = 0..T-1 over time step t's rows; (U, S) of its 16 outputs stay with
+// the thread (S as one bit each in a register, U in shared memory, which
+// leaves the registers to the product), and only the spikes are written.
+__global__ void __launch_bounds__(DENSE_THREADS, 3) neuron_layer_eval_dense(
+    const float* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ bias, float* __restrict__ s, int T,
+    long long M, int C, int K, bool vec4, float alpha, float th_fire) {
+  __shared__ __align__(16) DenseSmem sm;
+  const int lane = threadIdx.x % 32, q = lane % 16;
+  const int rl = (threadIdx.x / 32) * 8 + lane / 16;   // the thread's row 0
+  const long long m0 = (long long)blockIdx.x * DENSE_ROWS;
+  const int n0 = blockIdx.y * DENSE_COLS, col = n0 + 4 * q;
+  const int n = (int)min((long long)DENSE_ROWS, M - m0);
+  float b[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) b[e] = col + e < K ? bias[col + e] : 0.0f;
+  float* const u = sm.u + threadIdx.x;   // U in shared memory, S as bits
+  uint32_t fired = 0;             // bit 4 j + e: that output's last spike
+  const auto rows = [&](int t, long long& r0, int& nr) {
+    r0 = (long long)t * M + m0;   // time step t's rows
+    nr = n;
+  };
+  const auto soma = [&](int t, const float (&acc)[4][4]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        const float ui =
+            membrane(t > 0 ? u[i * DENSE_THREADS] : 0.0f,
+                     (fired >> i) & 1u ? 1.0f : 0.0f,
+                     __fadd_rn(acc[j][e], b[e]), alpha);
+        u[i * DENSE_THREADS] = ui;
+        const bool f = ui >= th_fire;
+        fired = f ? fired | (1u << i) : fired & ~(1u << i);
+        v[e] = f ? 1.0f : 0.0f;
+      }
+      const long long row = m0 + rl + 2 * j;
+      if (row < M)
+        dense_store(s + ((long long)t * M + row) * K, col, K, vec4, v);
+    }
+  };
+  dense_tiles(sm, x, w, T, rows, C, K, n0, rl, q, soma);
+}
+
+// Train, pass (a): z for the rows of one DENSE_TILE_ROWS tile of the
+// (rows, C) view (T is only a row index here), and the tile's column
+// partials of sum(z) and sum(z^2) in a fixed order: each thread over its
+// rows in order, then the 16 row lanes in shared memory in order (not
+// written where part is null).
+__global__ void __launch_bounds__(DENSE_THREADS) neuron_layer_train_z_dense(
+    const float* __restrict__ x, const float* __restrict__ w,
+    float* __restrict__ z, float* __restrict__ part, long long rows, int C,
+    int K, bool vec4, int n_tiles) {
+  __shared__ __align__(16) DenseSmem sm;
+  const int lane = threadIdx.x % 32, q = lane % 16;
+  const int rl = (threadIdx.x / 32) * 8 + lane / 16;
+  const int n0 = blockIdx.y * DENSE_COLS, col = n0 + 4 * q;
+  const long long tile0 = (long long)blockIdx.x * DENSE_TILE_ROWS;
+  const int S = (int)min((long long)DENSE_TILE_ROWS / DENSE_ROWS,
+                         (rows - tile0 + DENSE_ROWS - 1) / DENSE_ROWS);
+  const auto sub_rows = [&](int sub, long long& r0, int& n) {
+    r0 = tile0 + sub * DENSE_ROWS;
+    n = (int)min((long long)DENSE_ROWS, rows - r0);
+  };
+  float cs[4] = {}, cq[4] = {};
+  const auto store = [&](int sub, const float (&acc)[4][4]) {
+    long long r0;
+    int n;
+    sub_rows(sub, r0, n);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (rl + 2 * j >= n) continue;
+      dense_store(z + (r0 + rl + 2 * j) * K, col, K, vec4, acc[j]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        cs[e] = __fadd_rn(cs[e], acc[j][e]);
+        cq[e] = __fadd_rn(cq[e], __fmul_rn(acc[j][e], acc[j][e]));
+      }
+    }
+  };
+  dense_tiles(sm, x, w, S, sub_rows, C, K, n0, rl, q, store);
+  // the U space (unused in train) holds [2][16 row lanes][DENSE_COLS] sums
+  static_assert(2 * 16 * DENSE_COLS <= 16 * DENSE_THREADS, "reduction space");
+  float* const red = sm.u;
+  const int lr = (threadIdx.x / 32) * 2 + lane / 16;   // row lane 0..15
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    red[lr * DENSE_COLS + 4 * q + e] = cs[e];
+    red[(16 + lr) * DENSE_COLS + 4 * q + e] = cq[e];
+  }
+  __syncthreads();
+  if (part != nullptr && threadIdx.x < 2 * DENSE_COLS) {
+    const int qn = threadIdx.x / DENSE_COLS, c = threadIdx.x % DENSE_COLS;
+    if (n0 + c < K) {
+      float v = 0.0f;
+      for (int r = 0; r < 16; ++r)
+        v = __fadd_rn(v, red[(qn * 16 + r) * DENSE_COLS + c]);
+      part[((long long)qn * n_tiles + blockIdx.x) * K + n0 + c] = v;
+    }
+  }
+}
+
 int launch_eval_dense(const float* x, const float* w, const float* bias,
-                      float* s, long long M, int C, int K, float alpha,
+                      float* s, int T, long long M, int C, int K, float alpha,
                       float th_fire, cudaStream_t st) {
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (K + BN - 1) / BN, 1);
-  neuron_layer_eval_dense<T><<<grid, THREADS, 0, st>>>(x, w, bias, s, M, C, K,
-                                                       alpha, th_fire);
+  const bool vec4 = K % 4 == 0 && reinterpret_cast<uintptr_t>(s) % 16 == 0;
+  const dim3 grid((unsigned)((M + DENSE_ROWS - 1) / DENSE_ROWS),
+                  (K + DENSE_COLS - 1) / DENSE_COLS, 1);
+  neuron_layer_eval_dense<<<grid, DENSE_THREADS, 0, st>>>(
+      x, w, bias, s, T, M, C, K, vec4, alpha, th_fire);
+  return (int)cudaGetLastError();
+}
+
+int launch_train_z_dense(const float* x, const float* w, float* z,
+                         float* part, long long rows, int C, int K,
+                         int n_tiles, cudaStream_t st) {
+  const bool vec4 = K % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0;
+  const dim3 grid((unsigned)n_tiles, (K + DENSE_COLS - 1) / DENSE_COLS, 1);
+  neuron_layer_train_z_dense<<<grid, DENSE_THREADS, 0, st>>>(
+      x, w, z, part, rows, C, K, vec4, n_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -240,74 +520,7 @@ int eval_tile(long long M, int K) {
   return blocks <= sms ? 1 : 2;
 }
 
-// ---- train, pass (a) ----
-// Dense arm: z and the per-row-tile column partials of sum(z) and sum(z^2)
-// over the tile's T * BM values (not written where part is null).
-template <int T>
-__global__ void __launch_bounds__(THREADS) neuron_layer_train_z(
-    const float* __restrict__ x, const float* __restrict__ w,
-    float* __restrict__ z, float* __restrict__ part, long long M, int C,
-    int K, int n_tiles) {
-  constexpr int BC = ChunkOf<T>::value;
-  __shared__ __align__(16) float xs[T][BC][XS];
-  __shared__ __align__(16) float ws[BC][BN];
-
-  TileArgs a;
-  a.x = x;
-  a.x_t = M * C;
-  a.x_m = C;
-  a.x_c = 1;
-  a.w = w;
-  a.w_c = K;
-  a.w_k = 1;
-  a.m0 = (long long)blockIdx.x * BM;
-  a.M = M;
-  a.k0 = blockIdx.y * BN;
-  a.K = K;
-  a.C = C;
-
-  float acc[T][TM][TN];
-  accumulate<T, BC>(a, xs, ws, acc);   // ends with __syncthreads()
-
-  const int tx = threadIdx.x % (BN / TN);
-  const int ty = threadIdx.x / (BN / TN);
-  // The x tile is free again: it holds the (BM / TM) x BN column partials
-  // of sum(z) and sum(z^2) (2 * 16 * 64 floats; the tile has at least
-  // 1 * 32 * 68).
-  float* red = &xs[0][0][0];
-  constexpr int ROWS = BM / TM;
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int col = a.k0 + tx * TN + j;
-    float cs = 0.0f, cq = 0.0f;
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const long long row = a.m0 + ty * TM + i;
-        if (row >= M || col >= K) continue;
-        const float v = acc[t][i][j];
-        z[((long long)t * M + row) * K + col] = v;
-        cs = __fadd_rn(cs, v);
-        cq = __fadd_rn(cq, __fmul_rn(v, v));
-      }
-    }
-    red[ty * BN + tx * TN + j] = cs;
-    red[(ROWS + ty) * BN + tx * TN + j] = cq;
-  }
-  __syncthreads();
-  if (part != nullptr && threadIdx.x < 2 * BN) {
-    const int q = threadIdx.x / BN;          // 0: sum(z), 1: sum(z^2)
-    const int c = threadIdx.x % BN;
-    const int col = a.k0 + c;
-    if (col < K) {
-      float v = 0.0f;
-      for (int r = 0; r < ROWS; ++r) v = __fadd_rn(v, red[(q * ROWS + r) * BN + c]);
-      part[((long long)q * n_tiles + blockIdx.x) * K + col] = v;
-    }
-  }
-}
-
+// ---- train, pass (a), packed arm ----
 // Packed arm: z (T * M, K) = x (T * M, C / 8) @ w on the tensor cores, and
 // per 256-row tile the column partials of sum(z) and sum(z^2) of the
 // rounded z, in a fixed order: each thread over its own four rows, then the
@@ -397,16 +610,6 @@ __global__ void __launch_bounds__(ZTile::THREADS, ZTile::MIN_BLOCKS)
   }
 }
 
-template <int T>
-int launch_train_z_dense(const float* x, const float* w, float* z,
-                         float* part, long long M, int C, int K, int n_tiles,
-                         cudaStream_t st) {
-  const dim3 grid((unsigned)n_tiles, (K + BN - 1) / BN, 1);
-  neuron_layer_train_z<T><<<grid, THREADS, 0, st>>>(x, w, z, part, M, C, K,
-                                                   n_tiles);
-  return (int)cudaGetLastError();
-}
-
 int launch_train_z_packed(const e2a::mma::Operands& a, float* z, float* part,
                           int n_tiles, cudaStream_t st) {
   static bool raised[e2a::mma::kMaxDevices] = {};
@@ -423,8 +626,8 @@ int launch_train_z_packed(const e2a::mma::Operands& a, float* z, float* part,
 // Pass (a) of either arm: z (T, M, K), and the column partials into part
 // unless it is null; n_tiles receives the partials' tile count:
 // ceil(T * M / 256) for the packed arm (ZTile::BM; kernels/neuron_layer.py
-// TILE_ROWS), ceil(M / 64) for the dense arm (BM of spike_tile.cuh;
-// DENSE_TILE_ROWS). Returns a cudaError_t.
+// TILE_ROWS), ceil(T * M / DENSE_TILE_ROWS) for the dense arm
+// (DENSE_TILE_ROWS there too). Returns a cudaError_t.
 int launch_z(const void* x, const float* w, float* z, float* part, int T,
              long long M, int C, int K, int packed, int& n_tiles,
              cudaStream_t st) {
@@ -439,18 +642,9 @@ int launch_z(const void* x, const float* w, float* z, float* part, int T,
     n_tiles = (int)((rows + ZTile::BM - 1) / ZTile::BM);
     return launch_train_z_packed(a, z, part, n_tiles, st);
   }
-  const float* xf = static_cast<const float*>(x);
-  n_tiles = (int)((M + BM - 1) / BM);
-  switch (T) {
-    case 1: return launch_train_z_dense<1>(xf, w, z, part, M, C, K, n_tiles, st);
-    case 2: return launch_train_z_dense<2>(xf, w, z, part, M, C, K, n_tiles, st);
-    case 3: return launch_train_z_dense<3>(xf, w, z, part, M, C, K, n_tiles, st);
-    case 4: return launch_train_z_dense<4>(xf, w, z, part, M, C, K, n_tiles, st);
-    case 5: return launch_train_z_dense<5>(xf, w, z, part, M, C, K, n_tiles, st);
-    case 6: return launch_train_z_dense<6>(xf, w, z, part, M, C, K, n_tiles, st);
-    case 7: return launch_train_z_dense<7>(xf, w, z, part, M, C, K, n_tiles, st);
-    default: return launch_train_z_dense<8>(xf, w, z, part, M, C, K, n_tiles, st);
-  }
+  n_tiles = (int)((rows + DENSE_TILE_ROWS - 1) / DENSE_TILE_ROWS);
+  return launch_train_z_dense(static_cast<const float*>(x), w, z, part, rows,
+                              C, K, n_tiles, st);
 }
 
 // (b): the statistics of each column.
@@ -548,17 +742,8 @@ extern "C" int e2a_neuron_layer_eval(const void* x, const float* w,
                : launch_eval_mma<e2a::mma::Small>(a, T, bias, s, alpha,
                                                   th_fire, st);
   }
-  const float* xf = static_cast<const float*>(x);
-  switch (T) {
-    case 1: return launch_eval_dense<1>(xf, w, bias, s, M, C, K, alpha, th_fire, st);
-    case 2: return launch_eval_dense<2>(xf, w, bias, s, M, C, K, alpha, th_fire, st);
-    case 3: return launch_eval_dense<3>(xf, w, bias, s, M, C, K, alpha, th_fire, st);
-    case 4: return launch_eval_dense<4>(xf, w, bias, s, M, C, K, alpha, th_fire, st);
-    case 5: return launch_eval_dense<5>(xf, w, bias, s, M, C, K, alpha, th_fire, st);
-    case 6: return launch_eval_dense<6>(xf, w, bias, s, M, C, K, alpha, th_fire, st);
-    case 7: return launch_eval_dense<7>(xf, w, bias, s, M, C, K, alpha, th_fire, st);
-    default: return launch_eval_dense<8>(xf, w, bias, s, M, C, K, alpha, th_fire, st);
-  }
+  return launch_eval_dense(static_cast<const float*>(x), w, bias, s, T, M, C,
+                           K, alpha, th_fire, st);
 }
 
 // Train mode: x (T, M, C) [packed: (T, M, C/8) uint8] @ w (C, K) -> batch

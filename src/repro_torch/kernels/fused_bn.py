@@ -13,12 +13,13 @@ columns would give too few blocks for 132 SMs, so each kernel is a split
 reduction (``csrc/fused_bn.cu``): per-chunk fp32 partial sums into a scratch
 buffer the wrapper allocates, the chunks of each column added in a fixed
 order (no atomics carry a sum: the statistics are the same on every run),
-and an elementwise pass that reads x again, from L2 at the model's sizes.
-The forward is two launches: the last block of each column group to write
-its partials (elected by an arrival counter the wrapper keeps zeroed, one
-set per device and stream) adds the group's chunks, and the normalise
-pass loads float4 along D where ``D % 4 == 0``; the backward is three
-launches, with a finalize between.
+and an elementwise pass that reads its inputs again, from L2 at the
+model's sizes. Each is two launches: the last block of each column group to
+write its partials (elected by an arrival counter the wrapper keeps zeroed,
+one set per device and stream, which both kernels share) adds the group's
+chunks; then the elementwise pass loads float4 along D where ``D % 4 ==
+0``. The backward's elected block also forms eq. 23's per-column terms, so
+its dx pass does two divisions an element and nothing per column.
 
 Bound on this card: bytes. The forward must read x and write y, the
 backward read g and x and write dx.
@@ -35,17 +36,21 @@ from repro_torch.kernels import build
 
 #: The first pass sums chunks of at least MIN_CHUNK_ROWS rows, and makes at
 #: most MAX_CHUNKS of them, so that the pass adding the chunks stays short.
+#: The backward's chunks are longer, BWD_MIN_CHUNK_ROWS: its lanes keep two
+#: batches of four rows' loads in flight, which pays on long chunks, and
+#: fewer chunks leave its elected blocks less to add.
 MIN_CHUNK_ROWS, MAX_CHUNKS = 128, 256
+BWD_MIN_CHUNK_ROWS = 512
 
 
-def _chunking(m: int) -> tuple[int, int]:
+def _chunking(m: int, min_rows: int = MIN_CHUNK_ROWS) -> tuple[int, int]:
     """(rows per chunk, number of chunks) for M rows."""
-    rows = max(MIN_CHUNK_ROWS, -(-m // MAX_CHUNKS))
+    rows = max(min_rows, -(-m // MAX_CHUNKS))
     return rows, -(-m // rows)
 
 
-#: Columns one arrival counter of the forward's first pass serves: a block
-#: of that pass covers 32 columns (``BN_COLS`` in ``csrc/fused_bn.cu``).
+#: Columns one arrival counter of either first pass serves: a block of
+#: those passes covers 32 columns (``BN_COLS`` in ``csrc/fused_bn.cu``).
 COUNTER_COLS = 32
 
 _arrival: dict[tuple, torch.Tensor] = {}
@@ -53,10 +58,12 @@ _arrival: dict[tuple, torch.Tensor] = {}
 
 def _arrival_counters(device: torch.device, stream: int,
                       d: int) -> torch.Tensor:
-    """The forward's arrival counters on ``device`` for launches on
-    ``stream``: zero when made, and the kernel leaves them zero, so every
-    call and a captured CUDA graph find them so. One set per stream, so
-    that two streams never count into one."""
+    """The arrival counters of ``bn_fwd`` and ``bn_bwd`` on ``device`` for
+    launches on ``stream``, at least ``ceil(d / COUNTER_COLS)`` of them:
+    zero when made, and each kernel leaves them zero, so every call and a
+    captured CUDA graph find them so. One set per stream, so that two
+    streams never count into one; the launches of one stream run in order,
+    so the two kernels can share it."""
     n = -(-d // COUNTER_COLS)
     key = (device, stream)
     buf = _arrival.get(key)
@@ -152,8 +159,9 @@ def bn_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
 def bn_bwd(g: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
            mu: torch.Tensor, sqrt_d: torch.Tensor):
     """eq. 19-23: g, x (M, D), gamma (D,), mu and sqrt_d (1, D) -> (dx
-    (M, D), dgamma (1, D), dbeta (1, D)). A CUDA tensor launches the kernel;
-    a CPU tensor takes the plain version."""
+    (M, D), dgamma (1, D), dbeta (1, D)). A CUDA tensor launches the
+    kernel's two passes (fp32, contiguous; anything else raises) and counts
+    once; a CPU tensor takes the plain version."""
     if g.ndim != 2 or x.shape != g.shape or gamma.shape != (g.shape[1],) \
             or mu.numel() != g.shape[1] or sqrt_d.numel() != g.shape[1]:
         raise ValueError(f"bn_bwd expects g and x (M, D), gamma (D,), mu and "
@@ -166,17 +174,19 @@ def bn_bwd(g: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
     _check("bn_bwd", {"x": x, "g": g, "gamma": gamma, "mu": mu,
                       "sqrt_d": sqrt_d})
     dx = torch.empty_like(g)
-    dgamma = torch.empty((1, d), dtype=torch.float32, device=g.device)
-    dbeta = torch.empty_like(dgamma)
-    rows, chunks = _chunking(m)
-    part = torch.empty((4, chunks, d), dtype=torch.float32, device=g.device)
-    sums = torch.empty((4, d), dtype=torch.float32, device=g.device)
+    rows, chunks = _chunking(m, BWD_MIN_CHUNK_ROWS)
+    # one allocation for the partials, dgamma, dbeta and eq. 23's terms
+    buf = torch.empty((4 * chunks + 6, d), dtype=torch.float32,
+                      device=g.device)
+    part, dgamma, dbeta, cols = buf.split([4 * chunks, 1, 1, 4])
     with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        arrived = _arrival_counters(g.device, stream, d)
         code = build.load().e2a_bn_bwd(
             g.data_ptr(), x.data_ptr(), gamma.data_ptr(), mu.data_ptr(),
             sqrt_d.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
-            dbeta.data_ptr(), part.data_ptr(), sums.data_ptr(), m, d, rows,
-            torch.cuda.current_stream().cuda_stream)
+            dbeta.data_ptr(), part.data_ptr(), cols.data_ptr(),
+            arrived.data_ptr(), m, d, rows, stream)
     build.check_launch(code, "bn_bwd")
     bn_bwd.launches += 1
     return dx, dgamma, dbeta

@@ -14,10 +14,11 @@ membranes, which stay with the block across the T steps; its products are
 the spike matmul's bit for bit. The TPU kernel accumulated into a scratch
 tile revisited across a sequential contraction grid axis; here a block
 loops over C itself and masks its own tails. The dense arm (the first
-stage: a float image, C = 27) keeps the fp32 tile loop of
-``csrc/spike_tile.cuh`` with T accumulators per thread. Bound on this card:
-three dense bf16 passes on the tensor cores at the packed sites, bytes at
-the first stage.
+stage: a float image, C = 27) stages the whole weight and each time step's
+rows, one contiguous span, in shared memory and forms each output with fp32
+FMAs over c ascending, a warp's stores two contiguous runs of K floats.
+Bound on this card: three dense bf16 passes on the tensor cores at the
+packed sites, bytes at the first stage.
 
 ``neuron_layer_train`` replaces ``repro.kernels.neuron_layer.
 neuron_layer_train`` (``_nl_train_kernel``): the same product, then batch
@@ -30,8 +31,8 @@ block of this card cannot hold, so the wrapper's one call is three launches
 per-row-tile column sums of z and z^2; the statistics; and one pass that
 reads z, normalises and runs SOMA over T in registers. In train mode T is
 only a row index, so the packed arm's first pass is the spike matmul over
-T*M rows on the tensor cores, 256-row tiles; the dense arm keeps the fp32
-tile loop. Storing z was chosen over recomputing the product in the SOMA
+T*M rows on the tensor cores, 256-row tiles; the dense arm's is the eval
+arm's fp32 product over T*M rows, 1024-row tiles. Storing z was chosen over recomputing the product in the SOMA
 pass, which would double the dominant work. Bound on this card: three
 dense bf16 passes on the tensor cores plus the z round trip at the block
 sites, bytes at the first tokenizer stage.
@@ -50,7 +51,7 @@ from repro_torch.kernels.fused_bn import row_count
 from repro_torch.kernels.lif_soma import lif_soma_fwd_plain
 from repro_torch.kernels.spike_matmul import spike_pack
 
-#: Time steps the kernel is instantiated for (T accumulators per thread).
+#: Time steps the entry points take.
 MAX_TIME_STEPS = 8
 
 #: Rows of one tile of the packed train arm's first pass, over all T*M rows
@@ -58,9 +59,9 @@ MAX_TIME_STEPS = 8
 #: ``csrc/spike_mma_mainloop.cuh``): one partial sum per tile and column.
 TILE_ROWS = 256
 
-#: The same for the dense arm, whose tiles run over M and hold T*64 values
-#: each (``BM`` in ``csrc/spike_tile.cuh``).
-DENSE_TILE_ROWS = 64
+#: The same for the dense arm, whose tiles also run over all T*M rows
+#: (``DENSE_TILE_ROWS`` in ``csrc/neuron_layer.cu``).
+DENSE_TILE_ROWS = 1024
 
 
 def neuron_layer_train_z_plain(x: torch.Tensor,
@@ -185,7 +186,7 @@ def neuron_layer_train_fwd(x: torch.Tensor, w: torch.Tensor,
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     s, z = (torch.empty((t, m, k), **f32) for _ in range(2))
-    tiles = -(-t * m // TILE_ROWS) if packed else -(-m // DENSE_TILE_ROWS)
+    tiles = -(-t * m // (TILE_ROWS if packed else DENSE_TILE_ROWS))
     part = torch.empty((2, tiles, k), **f32)
     mu, var, sqrt_d = (torch.empty((1, k), **f32) for _ in range(3))
     with torch.cuda.device(dev):

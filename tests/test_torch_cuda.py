@@ -418,3 +418,193 @@ def test_replay_reproduces_the_emitted_spikes_at_every_preset_site():
         assert 0.01 < float(s.mean()) < 0.99, name
         del x, s, replayed
         torch.cuda.empty_cache()
+
+
+def _dyadic_bn_bwd(rng, m, d):
+    """(g, x, gamma, mu, sqrt_d) whose every sum is exact in fp32 in any
+    order: g and n = x - mu in {-1, 0, 1}, mu a multiple of 1/8, gamma in
+    {0.5, 1}, sqrt_d in {1, 2}, so mi = gamma g / sqrt_d and mi n are
+    multiples of 1/4 of magnitude <= 1, and every partial sum of a column
+    is a multiple of 1/4 below m, exact in fp32 for m < 2^22 rows. Every
+    column sum then equals the plain version's, and so must dx, dgamma and
+    dbeta, bit for bit."""
+    mu = rng.integers(-8, 8, (1, d)) / 8
+    x = mu + rng.integers(-1, 2, (m, d))
+    return (rng.integers(-1, 2, (m, d)), x, rng.choice([0.5, 1.0], d), mu,
+            rng.choice([1.0, 2.0], (1, d)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,offset", [
+    (1000, 64, 0),      # the first tokenizer stage's width; float4
+    (777, 128, 0),
+    (300, 512, 0),      # the block sites' width
+    (130, 2048, 0),     # smlp's hidden width
+    (12544, 130, 0),    # D % 4 != 0: one column per lane
+    (129, 7, 0),        # D < 32, D % 4 != 0
+    (300, 24, 1),       # g and x 4 bytes off 16-byte alignment: scalar
+    (BIG_M, 4, 0),      # more row ranges than grid.y takes; float4
+    (BIG_M, 3, 0),      # the same, scalar
+])
+def test_bn_bwd_against_its_plain_version_at_ragged_shapes(m, d, offset):
+    """Two launches a call, the per-column terms of eq. 23 formed once by
+    the elected block: on dyadic inputs (every sum exact) dx, dgamma and
+    dbeta equal the plain version's bit for bit, which fails a term rounded
+    otherwise than the plain version rounds it; on Gaussian inputs dx
+    within rtol / atol 1e-5, dgamma and dbeta within 1e-5 of their scale
+    (column sums in another order), nan in dgamma where gamma is 0, as the
+    reference has it; two calls give the same bits (the arrival counters
+    are left at 0)."""
+    from repro_torch.kernels import fused_bn
+    dev = _card()
+    rng = np.random.default_rng(11)
+
+    def operands(arrays):
+        out = []
+        for a in arrays:
+            a = np.asarray(a, np.float32)
+            if a.shape == (m, d):          # g and x at the case's offset
+                flat = _t(np.concatenate([np.zeros(offset, np.float32),
+                                          a.ravel()])).to(dev)
+                a = flat[offset:].view(m, d)
+            else:
+                a = _t(a).to(dev)
+            out.append(a)
+        return out
+
+    reset_launch_counts()
+    g, x, gamma, mu, sd = operands(_dyadic_bn_bwd(rng, m, d))
+    got = fused_bn.bn_bwd(g, x, gamma, mu, sd)
+    want = fused_bn.bn_bwd_plain(g, x, gamma, mu, sd)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "dgamma", "dbeta"), got, want):
+        assert torch.equal(a, b), name
+    gauss = [rng.normal(size=(m, d)), rng.normal(0.5, 2.0, (m, d)),
+             rng.uniform(0.5, 1.5, d)]
+    gauss[2][::5] = 0.0
+    g, x, gamma = operands(gauss)
+    _, mu, sd = fused_bn.bn_fwd_plain(x, gamma, gamma)
+    runs = [fused_bn.bn_bwd(g, x, gamma, mu, sd) for _ in range(2)]
+    for a, b in zip(*runs):             # bitwise, nan where gamma is 0
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    dx, dgamma, dbeta = runs[0]
+    wdx, wdgamma, wdbeta = fused_bn.bn_bwd_plain(g, x, gamma, mu, sd)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dx, wdx, rtol=1e-5, atol=1e-5)
+    assert torch.equal(torch.isnan(dgamma), torch.isnan(wdgamma))
+    assert bool(torch.isnan(dgamma[0, ::5]).all())
+    ok = ~torch.isnan(wdgamma)
+    for a, b in ((dgamma[ok], wdgamma[ok]), (dbeta, wdbeta)):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-5
+    assert launch_counts()["bn_bwd"] == 3
+
+
+@pytest.mark.cuda
+def test_bn_bwd_at_two_widths_on_one_stream():
+    """Calls at D = 2048, 64 and 2048 again, with a bn_fwd between, on one
+    stream: the arrival counters the two kernels share are back at 0 after
+    each, so every call gives the bits it gives alone."""
+    from repro_torch.kernels import fused_bn
+    dev = _card()
+    rng = np.random.default_rng(12)
+    args = {}
+    for d in (2048, 64):
+        m = 300 if d == 2048 else 5000
+        g, x = (_t(rng.normal(0.3, 1.5, (m, d)).astype(np.float32)).to(dev)
+                for _ in range(2))
+        gamma = _t(rng.uniform(0.5, 1.5, d).astype(np.float32)).to(dev)
+        _, mu, sd = fused_bn.bn_fwd_plain(x, gamma, gamma)
+        args[d] = (g, x, gamma, mu, sd)
+    first = {d: fused_bn.bn_bwd(*a) for d, a in args.items()}
+    fused_bn.bn_fwd(args[64][1], args[64][2], args[64][2])
+    again = {d: fused_bn.bn_bwd(*args[d]) for d in (64, 2048)}
+    torch.cuda.synchronize()
+    for d in args:
+        assert all(torch.equal(a, b) for a, b in zip(first[d], again[d])), d
+
+
+@pytest.mark.cuda
+def test_bn_at_a_large_mean_against_the_plain_versions():
+    """Columns of mean 500-2000 at mean / std ~ 1e3, where E[x^2] - mu^2
+    cancels to about 16 ulps of E[x^2]: bn_fwd's var (sqrt_d^2) within 16
+    ulps of E[x^2] of the plain version's (both keep the formula; their sums
+    of m terms differ by a few ulps), mu within 1e-6; bn_bwd on the plain
+    statistics: dx within rtol / atol 1e-5, dgamma and dbeta within 1e-5
+    of their scale (n = x - mu is formed alike; the sums run in another
+    order)."""
+    from repro_torch.kernels import fused_bn
+    dev = _card()
+    rng = np.random.default_rng(13)
+    m, d = 12544, 512
+    mean = rng.uniform(500.0, 2000.0, d)
+    x = _t((mean + rng.normal(size=(m, d)) * mean / 1e3).astype(np.float32))
+    x = x.to(dev)
+    gamma = _t(rng.uniform(0.5, 1.5, d).astype(np.float32)).to(dev)
+    beta = _t(rng.normal(0, 0.3, d).astype(np.float32)).to(dev)
+    _, mu, sd = fused_bn.bn_fwd(x, gamma, beta)
+    _, wmu, wsd = fused_bn.bn_fwd_plain(x, gamma, beta)
+    ex2 = (x.double() ** 2).mean(0).float()
+    ulp = torch.nextafter(ex2, torch.full_like(ex2, float("inf"))) - ex2
+    var_ulps = ((sd.double() ** 2 - wsd.double() ** 2).abs() / ulp).max()
+    torch.testing.assert_close(mu, wmu, rtol=1e-6, atol=0.0)
+    assert float(var_ulps) <= 16, float(var_ulps)
+    g = torch.randn(m, d, device=dev)
+    got = fused_bn.bn_bwd(g, x, gamma, wmu, wsd)
+    want = fused_bn.bn_bwd_plain(g, x, gamma, wmu, wsd)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+    for a, b in zip(got[1:], want[1:]):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-5
+
+
+# (T, M, C, K) of the dense arms: the first tokenizer stage's C = 27 and
+# K = 64, M a multiple of none of the 64-row sub-tiles, T * M of none of
+# the 1024-row tiles (one or three of them); a ragged C and K; C over one
+# 32-wide staged chunk (72, 130)
+DENSE_SHAPES = [(1, 300, 27, 64), (4, 97, 27, 64), (4, 700, 27, 64),
+                (8, 45, 20, 9), (3, 130, 72, 70), (2, 200, 130, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,m,c,k", DENSE_SHAPES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_dense_neuron_layer_arms_at_ragged_shapes(t, m, c, k, offset):
+    """The dense arms (fp32, no tensor cores), x at an offset that breaks
+    16-byte alignment or not: on dyadic weights and inputs the eval arm's
+    spikes and the train arm's z equal the plain versions' bit for bit; on
+    Gaussian weights the eval arm's spikes equal the plain SOMA on the train
+    arm's first pass plus the bias bit for bit (one product, the same
+    bits), and the train arm's spikes are within 1e-3, mu and var within
+    rtol 1e-5 of the plain version's."""
+    dev = _card()
+    rng = np.random.default_rng(14)
+
+    def at_offset(a):
+        flat = _t(np.concatenate([np.zeros(offset, np.float32),
+                                  a.astype(np.float32).ravel()])).to(dev)
+        return flat[offset:].view(a.shape)
+
+    reset_launch_counts()
+    x = at_offset(_dyadic(rng, (t, m, c), 16, 32))
+    w, b = _t(_dyadic(rng, (c, k))).to(dev), _t(_dyadic(rng, (k,))).to(dev)
+    assert torch.equal(neuron_layer.neuron_layer_eval(x, w, b),
+                       neuron_layer.neuron_layer_eval_plain(x, w, b))
+    assert torch.equal(neuron_layer.neuron_layer_train_z(x, w),
+                       neuron_layer.neuron_layer_train_z_plain(x, w))
+    x = at_offset(rng.random((t, m, c)))
+    w = _t((rng.normal(size=(c, k)) / c ** 0.5).astype(np.float32)).to(dev)
+    b = _t(rng.normal(0.3, 0.3, k).astype(np.float32)).to(dev)
+    s = neuron_layer.neuron_layer_eval(x, w, b)
+    z = neuron_layer.neuron_layer_train_z(x, w)
+    assert torch.equal(s, lif_soma.lif_soma_fwd_plain(z + b)[0])
+    assert 0.02 < float(s.mean()) < 0.98
+    gamma = _t(rng.uniform(0.8, 1.2, k).astype(np.float32)).to(dev)
+    beta = _t(rng.normal(0.3, 0.2, k).astype(np.float32)).to(dev)
+    got = neuron_layer.neuron_layer_train(x, w, gamma, beta)
+    want = neuron_layer.neuron_layer_train_plain(x, w, gamma, beta)
+    torch.cuda.synchronize()
+    assert float((got[0] != want[0]).float().mean()) <= 1e-3
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    counts = launch_counts()
+    assert (counts["neuron_layer_eval"], counts["neuron_layer_train"]) \
+        == (2, 3)

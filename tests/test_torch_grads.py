@@ -250,29 +250,66 @@ def test_lif_soma_step_op_matches_reference():
 # K2 bn_fwd, K3 bn_bwd, bn_train_op
 # ---------------------------------------------------------------------------
 
-def _bn_inputs(rng, m, d):
-    x = rng.normal(1.0, 2.0, (m, d)).astype(np.float32)
+def _bn_inputs(rng, m, d, mean_over_std=None):
+    """x N(1, 2); or, with ``mean_over_std``, columns of mean 500-2000 and
+    that ratio of mean to standard deviation, where E[x^2] - mu^2 cancels
+    all but about log2(mean_over_std^2) of E[x^2]'s 24 bits."""
+    if mean_over_std is None:
+        x = rng.normal(1.0, 2.0, (m, d)).astype(np.float32)
+    else:
+        mean = rng.uniform(500.0, 2000.0, d)
+        x = (mean + rng.normal(size=(m, d)) * mean / mean_over_std).astype(
+            np.float32)
     gamma = rng.uniform(0.5, 1.5, (d,)).astype(np.float32)
     beta = rng.normal(0, 0.3, (d,)).astype(np.float32)
     return x, gamma, beta
 
 
-@pytest.mark.parametrize("m,d", [(64, 16), (300, 24), (7, 5)])
-def test_bn_fwd_plain_matches_kernel(m, d):
+#: BN cases: (m, d, mean / std of the columns, None for N(1, 2)); the old
+#: cases keep their ids.
+BN_CASES = dict(argnames="m,d,mean_over_std",
+                argvalues=[(64, 16, None), (300, 24, None), (7, 5, None),
+                           (300, 24, 1e3)],
+                ids=["64-16", "300-24", "7-5", "300-24-mean-over-std-1e3"])
+
+#: Where mean / std ~ 1e3, var is about 16 ulps of E[x^2]: the port and the
+#: reference each sum m fp32 terms of E[x^2] in their own order (a few ulps
+#: apart), and XLA may fuse E[x^2] - mu * mu into one FMA, so var is held
+#: to 16 ulps of E[x^2], the reference's own formula kept (the port must
+#: not compute var another way).
+VAR_ULPS = 16
+
+
+@pytest.mark.parametrize(**BN_CASES)
+def test_bn_fwd_plain_matches_kernel(m, d, mean_over_std):
     rng = np.random.default_rng(m + d)
-    x, gamma, beta = _bn_inputs(rng, m, d)
+    x, gamma, beta = _bn_inputs(rng, m, d, mean_over_std)
     got = fused_bn.bn_fwd(_t(x), _t(gamma), _t(beta))
     want = jbn.bn_fwd(*map(jnp.asarray, (x, gamma, beta)), interpret=True)
     for a, b in zip(got, want):          # y, mu (1, D), sqrt_d (1, D)
         assert tuple(a.shape) == b.shape
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6,
-                                   rtol=1e-6)
+    if mean_over_std is None:
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6,
+                                       rtol=1e-6)
+        return
+    y, mu, sd = (a.numpy().astype(np.float64) for a in got)
+    wy, wmu, wsd = (np.asarray(b, np.float64) for b in want)
+    np.testing.assert_allclose(mu, wmu, rtol=1e-6, atol=0)
+    ulp = np.spacing((x.astype(np.float64) ** 2).mean(0).astype(np.float32))
+    var_diff = np.abs(sd * sd - wsd * wsd) / ulp
+    assert var_diff.max() <= VAR_ULPS, var_diff.max()
+    # y moves with 1 / sqrt_d and mu: no more than their differences allow
+    g = gamma.astype(np.float64)
+    allow = np.abs(g * (x - wmu)) * np.abs(1 / sd - 1 / wsd) \
+        + np.abs(g * (mu - wmu) / wsd) + 1e-5 * (1 + np.abs(wy))
+    assert (np.abs(y - wy) <= allow).all()
 
 
-@pytest.mark.parametrize("m,d", [(64, 16), (300, 24), (7, 5)])
-def test_bn_bwd_plain_matches_kernel(m, d):
+@pytest.mark.parametrize(**BN_CASES)
+def test_bn_bwd_plain_matches_kernel(m, d, mean_over_std):
     rng = np.random.default_rng(m * d)
-    x, gamma, beta = _bn_inputs(rng, m, d)
+    x, gamma, beta = _bn_inputs(rng, m, d, mean_over_std)
     g = rng.normal(0, 1, (m, d)).astype(np.float32)
     _, mu, sqrt_d = jbn.bn_fwd(*map(jnp.asarray, (x, gamma, beta)),
                                interpret=True)
@@ -421,7 +458,7 @@ def _reference_u(x, w, gamma, beta, alpha):
 
 @pytest.mark.parametrize("t,m,c,k,packed", [
     (2, 24, 40, 16, True), (4, 33, 72, 20, True), (2, 30, 27, 12, False),
-    (3, 17, 20, 9, False)])
+    (3, 17, 20, 9, False), (1, 37, 27, 64, False), (8, 19, 27, 16, False)])
 def test_neuron_layer_train_plain_matches_kernel(t, m, c, k, packed):
     rng = np.random.default_rng(t * m + c)
     x, w, gamma, beta = _layer_inputs(rng, t, m, c, k, packed)

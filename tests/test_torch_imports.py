@@ -153,7 +153,7 @@ def test_c_interface_matches_the_ctypes_signatures():
 def test_python_tile_constants_mirror_the_cuda_sources():
     """The wrappers size their scratch from constants that mirror the CUDA
     sources: the packed train arm's 256-row tile (the ``Large`` tile of the
-    shared tensor-core mainloop), the dense arm's 64-row tile, and the
+    shared tensor-core mainloop), the dense arm's 256-row tile, and the
     columns one arrival counter of ``bn_fwd`` serves."""
     from repro_torch.kernels import fused_bn, neuron_layer
     src = {p.name: p.read_text() for p in build.CSRC.glob("*.cu*")}
@@ -162,7 +162,8 @@ def test_python_tile_constants_mirror_the_cuda_sources():
     warps_m, _, wm, *_ = map(int, large.groups())
     assert 16 * wm * warps_m == neuron_layer.TILE_ROWS
     assert "using ZTile = e2a::mma::Large;" in src["neuron_layer.cu"]
-    dense = re.search(r"constexpr int BM = (\d+);", src["spike_tile.cuh"])
+    dense = re.search(r"constexpr int DENSE_TILE_ROWS = (\d+);",
+                      src["neuron_layer.cu"])
     assert int(dense.group(1)) == neuron_layer.DENSE_TILE_ROWS
     cols = re.search(r"constexpr int BN_COLS = (\d+);", src["fused_bn.cu"])
     assert int(cols.group(1)) == fused_bn.COUNTER_COLS
@@ -173,8 +174,8 @@ def test_one_tensor_core_mainloop():
     multiply through one contraction loop: the only MMAs are those of
     ``spike_mma_mainloop.cuh``, which both kernels' sources include, so the
     spike matmul's bitwise checks on the card hold the neuron layer's
-    product too; ``spike_tile.cuh``'s fp32 loop serves the dense arms
-    only."""
+    product too; the dense arms' fp32 kernels take no packed input and
+    call no MMA."""
     src = {p.name: p.read_text() for p in build.CSRC.glob("*.cu*")}
     calls = {name for name, text in src.items()
              if re.search(r"\bmma_bf16\(acc", text)}
@@ -187,4 +188,10 @@ def test_one_tensor_core_mainloop():
         body = nl[nl.index(f"    {kernel}("):]
         body = body[:body.index("\n}\n")]
         assert "mainloop<" in body, kernel
-    assert "uint8_t" not in src["spike_tile.cuh"]
+    dense = nl[nl.index("// ---- the dense arms"):
+               nl.index("// ---- eval, packed arm ----")]
+    for kernel in ("neuron_layer_eval_dense", "neuron_layer_train_z_dense"):
+        assert f" {kernel}(" in dense, kernel
+    assert "uint8_t" not in dense and "mainloop<" not in dense
+    assert "spike_tile.cuh" not in src and all(
+        "spike_tile.cuh" not in text for text in src.values())

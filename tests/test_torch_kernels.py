@@ -234,7 +234,9 @@ def _dyadic(rng, shape, scale=64, span=16):
     (2, 33, 72, 20, True),      # im2col'd tokenizer stage, ragged M and K
     (4, 50, 27, 64, False),     # first stage: float image, C = 27
     (2, 21, 20, 9, False),      # ragged contraction -> dense arm
-    (1, 16, 8, 8, True)])
+    (1, 16, 8, 8, True),
+    (1, 37, 27, 64, False),     # dense arm, one time step, ragged M
+    (8, 45, 27, 64, False)])    # dense arm, eight time steps, ragged M
 def test_neuron_layer_eval_dyadic_weights_bitwise(t, m, c, k, packed):
     """Weights, bias and dense inputs are multiples of 2^-6 (2^-4): every
     fp32 partial sum is exact, so no order of summation can move a spike and
