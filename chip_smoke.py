@@ -11,9 +11,16 @@ port's two main paths: it serves a few request batches through
 BPTT + AdamW steps through ``repro_torch.train.loop.make_train_step``, each
 compared with the same weights under the ``eager`` policy on the same card;
 one block's forward and backward are compared on the same input. Training
-runs at the preset's full depth; ``--depth`` cuts only the blocks served. It
-needs one CUDA device and ``nvcc`` and fails (non-zero exit, no result line)
-without them. Every phase prints one JSON line; the line before the last but
+runs at the preset's full depth; ``--depth`` cuts only the blocks served.
+Then it drives the spiking LM, ``qwen3-0.6b`` at its published widths and
+depth in fp32 with the LIF neuron on every FFN branch: ``lm_forward`` on
+a (1, 256) and an (8, 256) token batch and 16 requests through
+``ServingEngine(slots=8, max_seq=256)``, under ``cuda-full`` and ``eager``
+on the same weights; forwards, every serving step's logits and spikes, and
+the token streams must be equal bit for bit, and request 0 served again
+alone must give the same tokens and logits (slot isolation). The serving
+times come from runs that keep no host copy of the steps. It needs one CUDA device and
+``nvcc`` and fails (non-zero exit, no result line) without them. Every phase prints one JSON line; the line before the last but
 one lists the kernels, and the last line is the verdict.
 
 Times are CUDA-event times after a warm-up, inputs left warm in the L2 cache
@@ -46,7 +53,10 @@ at each distinct shape of a training step, with ``passes``,
 ``bitwise_dyadic`` (inputs whose column sums are exact: dx, dgamma and
 dbeta equal to the plain version's bit for bit) and, as ``library_ms``,
 ATen's batch-norm backward alone; its first case carries ``edges``, the
-layouts where the kernel changes arm.
+layouts where the kernel changes arm. ``lif_soma_fwd`` also runs at the
+LM's three shapes (decode (1, 8, 1024), forward (256, 1 or 8, 1024)), each
+case with ``bitwise`` and its launches per decode step or forward, as
+counted on that path in this run.
 """
 from __future__ import annotations
 
@@ -59,12 +69,14 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 import repro_torch  # noqa: E402
 from repro_torch.configs import get_spikingformer_config  # noqa: E402
-from repro_torch.core.lif import _lif_scan_eager  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.core.lif import LIFConfig, _lif_scan_eager  # noqa: E402
 from repro_torch.core.policy import named_policy  # noqa: E402
 from repro_torch.core.spiking_layers import block_apply  # noqa: E402
 from repro_torch.core.spikingformer import (SpikingFormer,  # noqa: E402
@@ -74,8 +86,14 @@ from repro_torch.core.spikingformer import (SpikingFormer,  # noqa: E402
 from repro_torch.kernels import (KERNELS, build, fused_bn,  # noqa: E402
                                  launch_counts, lif_soma, neuron_layer, ops,
                                  reset_launch_counts, spike_matmul)
-from repro_torch.train.data import (SyntheticVision,  # noqa: E402
-                                    VisionDataConfig)
+from repro_torch.models.attention import attention  # noqa: E402
+from repro_torch.models.common import (embed, layer, rmsnorm,  # noqa: E402
+                                       split_tree, unembed)
+from repro_torch.models.lm import _seq_lif, init_lm, lm_forward  # noqa: E402
+from repro_torch.models.mlp import swiglu  # noqa: E402
+from repro_torch.serving import Request, ServingEngine  # noqa: E402
+from repro_torch.train.data import (DataConfig, SyntheticLM,  # noqa: E402
+                                    SyntheticVision, VisionDataConfig)
 from repro_torch.train.loop import make_train_step  # noqa: E402
 from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
                                          init_opt_state)
@@ -142,7 +160,7 @@ def dyadic(gen, shape, scale=64, span=16):
 # Phase 3: every kernel against its plain version at the preset's shapes
 # ---------------------------------------------------------------------------
 
-def check_lif(gen, t, m, d):
+def check_lif(gen, t, m, d, case="pssa.lif/smlp.lif"):
     x = torch.randn((t, m, d), generator=gen, device=DEVICE) * 1.2 + 0.3
     got = lif_soma.lif_soma_fwd(x)
     want = lif_soma.lif_soma_fwd_plain(x)
@@ -151,7 +169,7 @@ def check_lif(gen, t, m, d):
     if bad:
         fail(f"lif_soma_fwd differs from its plain version in {bad}")
     b_ms, b_by = bound(4 * nbytes(x), 6.0 * x.numel())
-    return {"case": "pssa.lif/smlp.lif", "shape": [t, m, d],
+    return {"case": case, "shape": [t, m, d],
             "max_abs_err": float((got[1] - want[1]).abs().max()),
             "spike_mismatch": 0, "compared": x.numel(),
             "tolerance": "bitwise on S, U and mask",
@@ -773,6 +791,7 @@ def kernel_phase(seed: int, batch: int) -> dict[str, list[dict]]:
     cases: dict[str, list[dict]] = {name: [] for name in KERNELS}
 
     cases["lif_soma_fwd"].append(check_lif(gen, t, m, d))
+    cases["lif_soma_fwd"].extend(lm_lif_cases(gen))
     (cases["spike_matmul_packed"],
      cases["spike_matmul_packed_batched"]) = spike_matmul_cases(gen, batch)
     cases["neuron_layer_eval"] = eval_kernel_cases(gen, batch)
@@ -1238,14 +1257,353 @@ def block_grad_check(seed: int, batch: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: the spiking LM's serving path (qwen3-0.6b + LIF, published widths)
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen3-0.6b"
+LM_SLOTS, LM_MAX_SEQ = 8, 256          # the engine's decode batch and cache
+LM_REQUESTS = 16
+LM_FWD_SEQ = 256                       # the forward's (1, S) token batch
+LM_PROMPT, LM_NEW = (8, 64), (16, 32)  # request lengths, both ends included
+
+
+def lm_config(policy: str):
+    """``qwen3-0.6b`` at its published widths, fp32, with the LIF neuron on
+    every block's FFN branch under ``policy``."""
+    return get_config(LM_ARCH).replace(
+        dtype=torch.float32, lif=LIFConfig(policy=named_policy(policy)))
+
+
+LM_FWD_BATCHES = (1, LM_SLOTS)         # the forward's token batches
+
+
+def lm_lif_cases(gen) -> list[dict]:
+    """``lif_soma_fwd`` at the spiking LM's shapes: decode (1, slots, d)
+    and the forward's (S, B, d) at each of ``LM_FWD_BATCHES``; S, U and
+    mask bit-equal to the plain version (``check_lif`` fails otherwise).
+    ``path`` names the run whose launches ``lm_launches`` adds to the case
+    once the LM phase has counted them."""
+    d = get_config(LM_ARCH).d_model
+    rows = []
+    for t, m, path in ((1, LM_SLOTS, "lm_serve"),
+                       *((LM_FWD_SEQ, b, f"lm_forward_b{b}")
+                         for b in LM_FWD_BATCHES)):
+        where = "decode" if path == "lm_serve" else "forward"
+        row = check_lif(gen, t, m, d, case=f"lm.ffn.lif {where}")
+        row.update(bitwise=True, path=path)
+        rows.append(row)
+    return rows
+
+
+def lm_launches(rows: list[dict], counts: dict[str, dict[str, int]],
+                steps: int) -> None:
+    """Adds to each LM case of ``lif_soma_fwd`` the launches counted on its
+    path in this run: per decode step (the serving run's count over its
+    steps) or per forward."""
+    for row in rows:
+        n = counts.get(row.get("path"), {}).get("lif_soma_fwd")
+        if n is None:
+            continue
+        if row["path"] == "lm_serve":
+            row["launches_per_decode_step"] = n / steps
+        else:
+            row["launches_per_forward"] = n
+
+
+def lm_expected(n: int) -> dict[str, int]:
+    """``n`` launches of ``lif_soma_fwd``, none of any other kernel: the
+    LM's products are dense ``torch.matmul``, and serving has no backward."""
+    counts = {name: 0 for name in KERNELS}
+    counts["lif_soma_fwd"] = n
+    return counts
+
+
+def lm_walk(params, toks, cfg):
+    """``lm_forward`` taken apart layer by layer, the same operations in
+    the same order, to keep each block's branch spikes (B, S, d). Returns
+    (hidden, spikes)."""
+    with torch.inference_mode():
+        x = embed(params["embed"], toks, cfg.dtype)
+        spikes = []
+        for i in range(cfg.num_layers):
+            p = layer(params["blocks"], i)
+            x = x + attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                              cfg.attn)
+            f = _seq_lif(swiglu(p["ffn"], rmsnorm(p["ln2"], x,
+                                                   cfg.norm_eps)), cfg)
+            spikes.append(f)
+            x = x + f
+        return rmsnorm(params["ln_f"], x, cfg.norm_eps), spikes
+
+
+def lm_forward_phase(params, seed: int) -> dict[str, dict[str, int]]:
+    """``lm_forward`` on a (B, 256) token batch for each B of
+    ``LM_FWD_BATCHES`` under ``cuda-full`` and ``eager``, the same weights:
+    hidden states and logits must be equal bit for bit (only the LIF
+    differs, and its kernel equals its plain version). At B = 1 every
+    layer's branch spikes too, from ``lm_walk``, whose hidden states must
+    equal the forward's. Returns the launch counts of each ``cuda-full``
+    forward, by path."""
+    cfg_full = lm_config("cuda-full")
+    layers = cfg_full.num_layers
+    paths = {}
+    for batch in LM_FWD_BATCHES:
+        toks = torch.from_numpy(SyntheticLM(DataConfig(
+            vocab_size=cfg_full.vocab_size, seq_len=LM_FWD_SEQ,
+            global_batch=batch, seed=seed)).batch(0)["tokens"]).to(DEVICE)
+        out = {}
+        for policy in ("cuda-full", "eager"):
+            cfg = lm_config(policy)
+
+            def fwd():
+                with torch.inference_mode():
+                    h, _ = lm_forward(params, {"tokens": toks}, cfg)
+                    return h, unembed(params["embed"], h)
+            fwd()                            # warm-up, not counted
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()            # the path starts here
+            h, logits = fwd()
+            torch.cuda.synchronize()
+            counts = launch_counts()         # ... and ends here
+            peak = torch.cuda.max_memory_allocated()
+            out[policy] = {"h": h, "logits": logits, "counts": counts,
+                           "ms": time_ms(fwd), "peak": peak}
+            if batch == 1:
+                wh, out[policy]["spikes"] = lm_walk(params, toks, cfg)
+                if not torch.equal(wh, h):
+                    fail(f"lm forward: the layer walk's hidden states differ "
+                         f"from lm_forward's under {policy}")
+        full, eager = out["cuda-full"], out["eager"]
+        same = {"hidden": torch.equal(full["h"], eager["h"]),
+                "logits": torch.equal(full["logits"], eager["logits"])}
+        extra = {}
+        if batch == 1:
+            same["spikes"] = all(torch.equal(a, b) for a, b in
+                                 zip(full["spikes"], eager["spikes"]))
+            extra["spike_rate_per_layer"] = [float(t.mean())
+                                             for t in eager["spikes"]]
+        emit("lm_forward", arch=f"{LM_ARCH}@cuda-full", layers=layers,
+             d_model=cfg_full.d_model, vocab=cfg_full.vocab_size,
+             dtype="float32", tokens=list(toks.shape),
+             bit_equal_to_eager=same,
+             max_abs_logit_err=float((full["logits"] - eager["logits"]).abs()
+                                     .max()),
+             logits_std=float(eager["logits"].std()), **extra,
+             ms_cuda_full=full["ms"], ms_eager=eager["ms"],
+             peak_memory_bytes_cuda_full=full["peak"],
+             peak_memory_bytes_eager=eager["peak"],
+             launches=full["counts"], launches_eager=eager["counts"],
+             tolerance="bitwise: hidden states and logits (at B = 1 every "
+                       "layer's branch spikes too) equal to the eager "
+                       "policy's")
+        if not all(same.values()) or not bool(torch.isfinite(full["logits"])
+                                              .all()):
+            fail(f"lm forward {list(toks.shape)}: cuda-full against eager "
+                 f"{same}")
+        if full["counts"] != lm_expected(layers) or \
+                eager["counts"] != lm_expected(0):
+            fail(f"lm forward launch counts {full['counts']} (eager "
+                 f"{eager['counts']}), want {layers} lif_soma_fwd")
+        paths[f"lm_forward_b{batch}"] = full["counts"]
+        del out, full, eager
+        torch.cuda.empty_cache()
+    return paths
+
+
+def lm_requests(vocab: int, seed: int) -> list[tuple[list[int], int]]:
+    """(prompt, max_new_tokens) of each request: prompts from
+    ``SyntheticLM``, lengths and budgets drawn from ``seed``."""
+    tokens = SyntheticLM(DataConfig(vocab_size=vocab, seq_len=LM_PROMPT[1],
+                                    global_batch=LM_REQUESTS,
+                                    seed=seed)).batch(0)["tokens"]
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
+    new = rng.integers(LM_NEW[0], LM_NEW[1] + 1, LM_REQUESTS)
+    return [(tokens[i, :lens[i]].tolist(), int(new[i]))
+            for i in range(LM_REQUESTS)]
+
+
+def lm_serve(params, policy: str, reqs, only=None,
+             record: bool = True) -> dict:
+    """Run the requests (those of ``only``, if given) to completion
+    through one ``ServingEngine`` under ``policy``, a step at a time, each
+    step synchronised and timed. With ``record``, keeps a host copy of
+    every step's logits and branch spikes (the cache's new S, (L, slots,
+    d)) by wrapping the engine's fused step, so that the peak device memory
+    is the engine's own; the copy is then in the step's time, so the times
+    a user would see come from a run without it."""
+    engine = ServingEngine(params, lm_config(policy), slots=LM_SLOTS,
+                           max_seq=LM_MAX_SEQ)
+    steps: list = []
+    if record:
+        fused = engine._step
+
+        def recorded(*args):
+            logits, cache = fused(*args)
+            steps.append((logits.cpu(), cache["lif"]["s"].cpu()))
+            return logits, cache
+        engine._step = recorded
+    for uid, (prompt, new) in enumerate(reqs):
+        if only is None or uid in only:
+            if not engine.submit(Request(uid=uid, prompt=prompt,
+                                         max_new_tokens=new)):
+                fail(f"lm serve: request {uid} rejected")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()                    # the path starts here
+    times = []
+    t_run = time.perf_counter()
+    while engine.sched.has_work():
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    wall = time.perf_counter() - t_run
+    counts = launch_counts()                 # ... and ends here
+    if record:
+        del engine._step        # the wrapper and the engine hold each other
+    done = {r.uid: r for r in engine.finished}
+    return {"done": done, "steps": steps, "ms": times, "wall_s": wall,
+            "counts": counts, "peak": torch.cuda.max_memory_allocated(),
+            "step_count": engine.step_count,
+            "generated": engine.generated_tokens,
+            "other": len(engine.rejected + engine.expired + engine.evicted
+                         + engine.faulted)}
+
+
+def lm_serve_phase(params, seed: int) -> tuple[dict[str, int], int]:
+    """16 requests through 8 slots under ``cuda-full`` and ``eager``: every
+    request finishes, the token streams are equal and every step's logits
+    bit-equal. Each policy serves twice: once recorded, for these checks,
+    and once as a user runs the engine, for the times, the peak memory and
+    the launch counts (its tokens must equal the recorded run's). Then slot
+    isolation, exact: request 0 served again alone in the same 8-slot
+    engine shape gives the same tokens and logits bit for bit. Then decode
+    against the forward, measured: request 0's prompt and output
+    teacher-forced through ``lm_walk``. Returns the launch counts of the
+    unrecorded ``cuda-full`` run and its number of steps."""
+    cfg = lm_config("cuda-full")
+    layers = cfg.num_layers
+    reqs = lm_requests(cfg.vocab_size, seed)
+    policies = ("cuda-full", "eager")
+    runs = {p: lm_serve(params, p, reqs) for p in policies}
+    timed = {p: lm_serve(params, p, reqs, record=False) for p in policies}
+    full, eager = runs["cuda-full"], runs["eager"]
+    repeatable = all(
+        timed[p]["step_count"] == runs[p]["step_count"] and
+        timed[p]["done"].keys() == runs[p]["done"].keys() and
+        all(timed[p]["done"][u].output == runs[p]["done"][u].output
+            for u in runs[p]["done"]) for p in policies)
+    finished = {p: f"{len(r['done'])}/{LM_REQUESTS}" for p, r in runs.items()}
+    tokens_equal = all(full["done"][u].output == eager["done"][u].output
+                       for u in full["done"]) and \
+        full["done"].keys() == eager["done"].keys()
+    logits_equal = full["step_count"] == eager["step_count"] and all(
+        torch.equal(a[0], b[0]) for a, b in zip(full["steps"], eager["steps"]))
+    spikes_equal = all(torch.equal(a[1], b[1])
+                       for a, b in zip(full["steps"], eager["steps"]))
+
+    # slot isolation: request 0 went to slot 0 at step 0 in both runs
+    solo = lm_serve(params, "cuda-full", reqs, only={0})
+    r0 = full["done"][0]
+    n0 = len(r0.prompt) + len(r0.output) - 1
+    iso = {"tokens_equal": solo["done"][0].output == r0.output,
+           "admit_step": [r0.admit_step, solo["done"][0].admit_step],
+           "steps": n0,
+           "logits_equal": all(torch.equal(full["steps"][t][0][0],
+                                           solo["steps"][t][0][0])
+                               for t in range(n0)),
+           "max_abs_logit_err": max(float((full["steps"][t][0][0] -
+                                           solo["steps"][t][0][0]).abs().max())
+                                    for t in range(n0))}
+
+    # decode against the forward (measured, not held: spikes sit behind
+    # reductions that the (1, S) forward and the (slots, 1) decode order
+    # differently)
+    seq = torch.tensor([r0.prompt + r0.output[:-1]], device=DEVICE)
+    h, fwd_spikes = lm_walk(params, seq, cfg)
+    with torch.inference_mode():
+        fwd_logits = unembed(params["embed"], h)[0].cpu()
+    eng_logits = torch.stack([full["steps"][t][0][0] for t in range(n0)])
+    eng_spikes = torch.stack([full["steps"][t][1][:, 0] for t in range(n0)])
+    vs_forward = {
+        "tokens": n0,
+        "max_abs_logit_err": float((fwd_logits - eng_logits).abs().max()),
+        "logits_std": float(fwd_logits.std()),
+        "argmax_agree": f"{int((fwd_logits.argmax(-1) == eng_logits.argmax(-1)).sum())}/{n0}",
+        "spike_mismatch_per_layer": [
+            float((fwd_spikes[i][0].cpu() != eng_spikes[:, i]).float()
+                  .mean())
+            for i in range(layers)],
+        "note": "measured, not held: the tolerance policy for spikes "
+                "behind reductions"}
+
+    def stats(r):
+        ms = sorted(r["ms"])
+        return {"ms_per_step_median": ms[len(ms) // 2], "ms_per_step_min":
+                ms[0], "ms_per_step_max": ms[-1], "steps": r["step_count"],
+                "generated_tokens": r["generated"],
+                "tokens_per_s": r["generated"] / r["wall_s"],
+                "wall_s": r["wall_s"], "peak_memory_bytes": r["peak"]}
+    served = timed["cuda-full"]
+    emit("lm_serve", arch=f"{LM_ARCH}@cuda-full", layers=layers,
+         dtype="float32", slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+         requests=LM_REQUESTS, prompt_lengths=LM_PROMPT,
+         new_tokens=LM_NEW, finished=finished,
+         tokens_equal=tokens_equal, logits_bit_equal_every_step=logits_equal,
+         spikes_bit_equal_every_step=spikes_equal,
+         unrecorded_run_repeats_recorded=repeatable,
+         slot_isolation=iso, decode_vs_forward=vs_forward,
+         times="from the unrecorded runs (no host copy per step)",
+         cuda_full=stats(served), eager=stats(timed["eager"]),
+         launches=served["counts"], launches_eager=timed["eager"]["counts"],
+         launches_per_decode_step=served["counts"]["lif_soma_fwd"]
+         / served["step_count"])
+    everyone = all(len(r["done"]) == LM_REQUESTS and not r["other"]
+                   for r in (*runs.values(), *timed.values()))
+    if not (everyone and tokens_equal and logits_equal and spikes_equal
+            and repeatable):
+        fail(f"lm serve: finished {finished}, tokens equal {tokens_equal}, "
+             f"logits equal {logits_equal}, spikes equal {spikes_equal}, "
+             f"unrecorded run repeats the recorded one {repeatable}")
+    if not (iso["tokens_equal"] and iso["logits_equal"]
+            and iso["admit_step"] == [0, 0]):
+        fail(f"lm serve: slot isolation {iso}")
+    for name, r in (("recorded", full), ("unrecorded", served)):
+        if r["counts"] != lm_expected(layers * r["step_count"]):
+            fail(f"lm serve launch counts {r['counts']} for "
+                 f"{r['step_count']} steps ({name}), want {layers} "
+                 "lif_soma_fwd a step")
+    for r in (eager, timed["eager"]):
+        if r["counts"] != lm_expected(0):
+            fail(f"lm serve launch counts under eager {r['counts']}")
+    return served["counts"], served["step_count"]
+
+
+def lm_phase(seed: int) -> tuple[dict[str, dict[str, int]], int]:
+    """The spiking LM at full depth and width from ``seed``: the forwards,
+    then serving. Returns each path's launch counts and the serving run's
+    number of steps."""
+    cfg = lm_config("eager")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = split_tree(init_lm(gen, cfg, DEVICE))[0]
+    counts = lm_forward_phase(params, seed)
+    torch.cuda.empty_cache()
+    counts["lm_serve"], steps = lm_serve_phase(params, seed)
+    return counts, steps
+
+
+# ---------------------------------------------------------------------------
 
 def summarise(cases: dict[str, list[dict]],
               paths: dict[str, dict[str, int]]) -> dict:
     """One entry per kernel. Where a kernel serves several sites, the entry
     carries the numbers of its first case (a site of the main path) and the
     largest error of all cases; ``cases`` keeps every site's numbers.
-    ``launches`` adds the counts of the two main paths (serving, training),
-    ``launches_by_path`` keeps them apart."""
+    ``launches`` adds the counts of the paths (Spikingformer serving and
+    training, the LM's forward and serving), ``launches_by_path`` keeps them
+    apart."""
     kernels = []
     for name, info in KERNELS.items():
         rows = cases[name]
@@ -1310,9 +1668,12 @@ def main() -> None:
     block_grad_check(args.seed, BATCH)
     torch.cuda.empty_cache()
     train_counts = train_phase(args.seed, BATCH)
+    torch.cuda.empty_cache()
+    lm_counts, lm_steps = lm_phase(args.seed)
+    lm_launches(cases["lif_soma_fwd"], lm_counts, lm_steps)
 
-    print(json.dumps(summarise(cases, {"serve": counts,
-                                       "train": train_counts})), flush=True)
+    print(json.dumps(summarise(cases, {"serve": counts, "train": train_counts,
+                                       **lm_counts})), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

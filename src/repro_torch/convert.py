@@ -1,4 +1,5 @@
-"""Reference (JAX) parameters and optimizer state -> the port's dicts.
+"""Reference (JAX) parameters and optimizer state -> the port's dicts
+(the Spikingformer's, and the LM's).
 
 The port keeps the reference pytree's keys and layouts (HWIO conv weights,
 (C_in, C_out) linear weights, block leaves stacked on a leading L axis), so
@@ -34,6 +35,14 @@ def from_jax(params: Any, state: Any,
     of tensors on ``device`` (``None`` = the card, raising without one)."""
     device = resolve_device(device)
     return _convert(params, device), _convert(state, device)
+
+
+def lm_from_jax(params: Any, device: str | torch.device | None = None):
+    """The reference's LM parameters (``init_lm`` after ``split_tree``,
+    numpy leaves) -> the port's tree on ``device`` (``None`` = the card,
+    raising without one): the same keys, shapes and dtypes, the block
+    leaves stacked on their leading ``(L, ...)`` axis."""
+    return _convert(params, resolve_device(device))
 
 
 def opt_state_from_jax(opt_state: Any,

@@ -167,6 +167,37 @@ def lif_scan_with_state(x_seq: torch.Tensor, u0: torch.Tensor,
     return dispatch_kernel(site, "lif_state", impl, x_seq, u0, s0, cfg, site)
 
 
+def lif_decode_step(x: torch.Tensor, u0: torch.Tensor, s0: torch.Tensor,
+                    cfg: LIFConfig, site: str = "lif"):
+    """Single-token serving step: one eq. 11 SOMA update from carried (U, S).
+
+    The T=1 twin of :func:`lif_scan_with_state`, used by the LM decode path:
+    ``x`` is this step's membrane input (any shape), ``u0``/``s0`` the state
+    persisted in the serving engine's slot cache. Returns
+    ``(spikes, (u_next, s_next))``. Dispatch follows the site's
+    ``lif_state`` resolution: ``"cuda"`` runs the stateful SOMA kernel
+    (:func:`repro_torch.kernels.ops.lif_soma_step_op`) on ``x`` folded to
+    (-1, D), whatever its rank (a 0-D input has no feature axis and
+    raises); anything else runs the plain :func:`lif_step`. Step-by-step
+    application is exactly the stateful scan, so decode continues the
+    full-sequence forward token for token.
+    """
+    impl = cfg.policy.resolve(site, "lif_state")
+    if impl == "cuda":
+        if x.ndim == 0:
+            raise ValueError(f"lif_decode_step at {site!r}: a 0-D input has "
+                             "no feature axis to fold to (M, D)")
+        from repro_torch.kernels import ops
+        x2 = x.reshape(-1, x.shape[-1])
+        s, u_next, s_next = ops.lif_soma_step_op(
+            x2, u0.reshape(x2.shape), s0.reshape(x2.shape), cfg.alpha,
+            cfg.th_fire, cfg.th_lo, cfg.th_hi, cfg.grad_scale)
+        return s.reshape(x.shape), (u_next.reshape(x.shape),
+                                    s_next.reshape(x.shape))
+    u, s = lif_step(u0, s0, x, cfg)
+    return s, (u, s)
+
+
 def _lif_scan_chunked(x_seq: torch.Tensor, cfg: LIFConfig,
                       site: str) -> torch.Tensor:
     """Temporally-tiled BPTT scan: a loop over T/time_chunk chunks, each

@@ -57,8 +57,8 @@ POLICY_FROM_JAX: dict[str, str] = {
 
 #: The abstract op kinds the model dispatches through (a *site* is a named
 #: instance of one of these, e.g. site "pssa.qkv" has op "linear_bn").
-#: "lif_state" is the state-carrying LIF of streaming and temporal tiling;
-#: it keeps its place in the tables, its kernels arrive with a later slice.
+#: "lif_state" is the state-carrying LIF of temporal tiling and of the LM's
+#: decode step (``lif_decode_step``); its kernels are the SOMA/GRAD pair.
 OPS: tuple[str, ...] = ("lif", "lif_state", "bn", "linear_bn", "attn_qk",
                         "attn_av", "conv")
 
@@ -433,7 +433,8 @@ def _ensure_site_tables() -> None:
         return
     _site_tables_loading = True
     try:
-        import repro_torch.core.spikingformer  # noqa: F401
+        import repro_torch.core.spikingformer  # noqa: F401  "spikingformer"
+        import repro_torch.models.lm           # noqa: F401  "lm" table
     finally:
         _site_tables_loading = False
     _site_tables_loaded = True

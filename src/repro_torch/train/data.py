@@ -1,6 +1,6 @@
-"""Synthetic vision stream: deterministic, host-shardable, learnable.
+"""Synthetic data streams: deterministic, host-shardable, learnable.
 
-A copy of ``repro.train.data``'s vision stream (numpy, the same seeds), so
+A copy of ``repro.train.data``'s two streams (numpy, the same seeds), so
 both packages see identical batches: batch ``step`` of host ``host_index``
 draws from ``numpy.random.default_rng((seed, step, host_index))``.
 """
@@ -10,6 +10,47 @@ import dataclasses
 from typing import Iterator
 
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 1234
+    branching: int = 4          # candidate next-tokens per token
+
+
+class SyntheticLM:
+    """Deterministic bigram-process token stream: a fixed (vocab,
+    branching) transition table drawn from the dataset seed generates
+    sequences whose next-token distribution is low-entropy."""
+
+    def __init__(self, cfg: DataConfig):
+        self.cfg = cfg
+        rng = np.random.default_rng(cfg.seed)
+        self.table = rng.integers(
+            0, cfg.vocab_size,
+            size=(cfg.vocab_size, cfg.branching)).astype(np.int32)
+
+    def batch(self, step: int, host_index: int = 0,
+              host_count: int = 1) -> dict[str, np.ndarray]:
+        cfg = self.cfg
+        local = cfg.global_batch // host_count
+        rng = np.random.default_rng((cfg.seed, step, host_index))
+        toks = np.empty((local, cfg.seq_len + 1), np.int32)
+        toks[:, 0] = rng.integers(0, cfg.vocab_size, size=local)
+        choices = rng.integers(0, cfg.branching, size=(local, cfg.seq_len))
+        for t in range(cfg.seq_len):
+            toks[:, t + 1] = self.table[toks[:, t], choices[:, t]]
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def iterator(self, start_step: int = 0, host_index: int = 0,
+                 host_count: int = 1) -> Iterator[dict[str, np.ndarray]]:
+        step = start_step
+        while True:
+            yield self.batch(step, host_index, host_count)
+            step += 1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -608,3 +608,107 @@ def test_dense_neuron_layer_arms_at_ragged_shapes(t, m, c, k, offset):
     counts = launch_counts()
     assert (counts["neuron_layer_eval"], counts["neuron_layer_train"]) \
         == (2, 3)
+
+
+# ---------------------------------------------------------------------------
+# The spiking LM's serving path (qwen3-0.6b + LIF)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,m", [(1, 8), (256, 1), (256, 8)])
+def test_lif_soma_fwd_at_the_lm_shapes(t, m):
+    """Decode (1, slots, d) and the forward's (S, B, d), d = 1024: S, U and
+    mask bit-equal to the plain version; and the forward's LIF scan on the
+    (B, S, d) branch output with its axes swapped (a non-contiguous view,
+    made contiguous by the ``cuda`` arm) equal to the eager scan."""
+    from repro_torch.core.lif import LIFConfig, lif_scan
+    from repro_torch.core.policy import named_policy
+    dev = _card()
+    rng = np.random.default_rng(t + m)
+    x = _t(rng.normal(0.3, 1.2, (t, m, 1024)).astype(np.float32)).to(dev)
+    reset_launch_counts()
+    for g, p in zip(lif_soma.lif_soma_fwd(x), lif_soma.lif_soma_fwd_plain(x)):
+        assert torch.equal(g, p)
+    f = _t(rng.normal(0.3, 1.2, (m, t, 1024)).astype(np.float32)).to(dev)
+    swapped = f.transpose(0, 1)
+    assert not swapped.is_contiguous() or m == 1 or t == 1
+    cuda = lif_scan(swapped, LIFConfig(policy=named_policy("cuda-full")))
+    eager = lif_scan(swapped, LIFConfig())
+    assert torch.equal(cuda, eager)
+    torch.cuda.synchronize()
+    assert launch_counts()["lif_soma_fwd"] == 2
+
+
+@pytest.mark.cuda
+def test_lif_soma_step_op_equals_lif_step_bitwise():
+    """The decode step's carry folded into x[0] before the SOMA kernel
+    against ``lif_step``'s alpha*u0*(1-s0) + x: spikes and state equal bit
+    for bit over a chain of steps, signed zeros included."""
+    from repro_torch.core.lif import LIFConfig, lif_step
+    from repro_torch.kernels import ops
+    dev = _card()
+    rng = np.random.default_rng(11)
+    cfg = LIFConfig()
+    u_k = u_e = torch.zeros(8, 1024, device=dev)
+    s_k = s_e = torch.zeros(8, 1024, device=dev)
+    reset_launch_counts()
+    for i in range(6):
+        x = rng.normal(0.3, 1.2, (8, 1024)).astype(np.float32)
+        x[0, :4] = [0.0, -0.0, 1.0, -1.0]
+        x = _t(x).to(dev)
+        s, u_k, s_k = ops.lif_soma_step_op(x, u_k, s_k, cfg.alpha,
+                                           cfg.th_fire, cfg.th_lo, cfg.th_hi,
+                                           cfg.grad_scale)
+        u_e, s_e = lif_step(u_e, s_e, x, cfg)
+        assert torch.equal(s, s_e) and torch.equal(s_k, s_e)
+        assert torch.equal(u_k, u_e)
+    torch.cuda.synchronize()
+    assert launch_counts()["lif_soma_fwd"] == 6
+
+
+@pytest.mark.cuda
+def test_engine_tokens_equal_under_cuda_full_and_eager():
+    """qwen3-0.6b at its published width, two layers deep, fp32, 6 requests
+    through 4 slots: the token streams, every step's logits and the final
+    cache equal under ``cuda-full`` and ``eager``, 2 ``lif_soma_fwd``
+    launches a step under ``cuda-full`` and none under ``eager``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.lif import LIFConfig
+    from repro_torch.core.policy import named_policy
+    from repro_torch.models.common import split_tree
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serving import Request, ServingEngine
+    dev = _card()
+    base = get_config("qwen3-0.6b").replace(num_layers=2, dtype=torch.float32)
+    params = split_tree(init_lm(torch.Generator(device=dev).manual_seed(0),
+                                base, dev))[0]
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(0, base.vocab_size, rng.integers(2, 9)).tolist(),
+             int(rng.integers(3, 9))) for _ in range(6)]
+    runs = {}
+    for policy in ("cuda-full", "eager"):
+        cfg = base.replace(lif=LIFConfig(policy=named_policy(policy)))
+        engine = ServingEngine(params, cfg, slots=4, max_seq=32, device=dev)
+        logits, fused = [], engine._step
+
+        def record(*args):
+            out = fused(*args)
+            logits.append(out[0])
+            return out
+        engine._step = record
+        for uid, (p, n) in enumerate(reqs):
+            engine.submit(Request(uid=uid, prompt=p, max_new_tokens=n))
+        reset_launch_counts()
+        engine.run_to_completion()
+        torch.cuda.synchronize()
+        runs[policy] = ({r.uid: r.output for r in engine.finished}, logits,
+                        engine.cache, launch_counts()["lif_soma_fwd"],
+                        engine.step_count)
+    (tok_c, lg_c, cache_c, n_c, steps), (tok_e, lg_e, cache_e, n_e, _) = \
+        runs["cuda-full"], runs["eager"]
+    assert len(tok_c) == 6 and tok_c == tok_e
+    assert len(lg_c) == len(lg_e) == steps
+    assert all(torch.equal(a, b) for a, b in zip(lg_c, lg_e))
+    assert torch.equal(cache_c["lif"]["s"], cache_e["lif"]["s"])
+    assert torch.equal(cache_c["kv"]["k"], cache_e["kv"]["k"])
+    assert (n_c, n_e) == (2 * steps, 0)

@@ -1,8 +1,8 @@
 """What the port may import, when it builds, and what it does without a
 card: ``repro_torch`` and ``chip_smoke.py`` import ``torch`` and numpy,
 never ``jax`` and nothing of ``repro``; importing builds nothing; every
-entry point called with ``device=None`` fails loudly where there is no CUDA
-device."""
+entry point called with ``device=None`` (the Spikingformer's, the LM's and
+the serving engine's) fails loudly where there is no CUDA device."""
 import pkgutil
 import re
 import subprocess
@@ -16,9 +16,13 @@ import torch
 import repro_torch
 from repro_torch import probe, resolve_device
 from repro_torch.configs import get_spikingformer_config
-from repro_torch.convert import from_jax
+from repro_torch.configs.registry import get_config, reduced
+from repro_torch.convert import from_jax, lm_from_jax
 from repro_torch.core.spikingformer import SpikingFormer, init_spikingformer
 from repro_torch.kernels import build
+from repro_torch.models.common import split_tree
+from repro_torch.models.lm import init_cache, init_lm
+from repro_torch.serving import ServingEngine
 
 ROOT = Path(__file__).resolve().parent.parent
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
@@ -38,7 +42,11 @@ def test_modules_are_where_the_reference_has_them():
                  "kernels.lif_soma", "kernels.spike_matmul",
                  "kernels.conv_spike", "kernels.neuron_layer", "kernels.ops",
                  "kernels.fused_bn", "configs.spikingformer",
-                 "train.optimizer", "train.data", "train.loop"):
+                 "train.optimizer", "train.data", "train.loop",
+                 "configs.base", "configs.registry", "models.common",
+                 "models.attention", "models.mlp", "models.lm", "models.moe",
+                 "models.mla", "models.rwkv", "models.ssm", "serving.engine",
+                 "serving.scheduler"):
         assert f"repro_torch.{name}" in MODULES
         assert (ROOT / "src" / "repro" / (name.replace(".", "/") + ".py")) \
             .is_file()
@@ -96,12 +104,18 @@ def test_device_none_means_the_card_and_raises_without_one():
         pytest.skip("this check is for a machine without a CUDA device")
     cfg = get_spikingformer_config("spikingformer-smoke")
     gen = torch.Generator().manual_seed(0)
+    lm_cfg = reduced(get_config("qwen3-0.6b"))
+    lm_params = split_tree(init_lm(gen, lm_cfg, device="cpu"))[0]
     calls = {
         "resolve_device": lambda: resolve_device(None),
         "explicit cuda": lambda: resolve_device("cuda:0"),
         "init_spikingformer": lambda: init_spikingformer(gen, cfg),
         "SpikingFormer": lambda: SpikingFormer(cfg),
         "from_jax": lambda: from_jax({"w": np.zeros(3, np.float32)}, {}),
+        "init_lm": lambda: init_lm(gen, lm_cfg),
+        "init_cache": lambda: init_cache(lm_cfg, 1, 8),
+        "lm_from_jax": lambda: lm_from_jax({"w": np.zeros(3, np.float32)}),
+        "ServingEngine": lambda: ServingEngine(lm_params, lm_cfg),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="device='cpu'"):
