@@ -19,7 +19,14 @@ a (1, 256) and an (8, 256) token batch and 16 requests through
 on the same weights; forwards, every serving step's logits and spikes, and
 the token streams must be equal bit for bit, and request 0 served again
 alone must give the same tokens and logits (slot isolation). The serving
-times come from runs that keep no host copy of the steps. It needs one CUDA device and
+times come from runs that keep no host copy of the steps. Last, it trains
+the same spiking LM (fp32, published widths and depth, each layer
+recomputed in the backward): step 0's loss and every gradient leaf under
+``cuda-full`` and ``eager`` from the same weights, then one warm-up and
+three timed steps of 8 x 128 ``SyntheticLM`` tokens under each policy
+through the training driver's ``repro_torch.launch.train.train``, with the
+``lif_soma_fwd`` / ``lif_soma_bwd`` launches per step asserted (56 / 28:
+the forward's 28, the recompute's 28 and the backward's 28). It needs one CUDA device and
 ``nvcc`` and fails (non-zero exit, no result line) without them. Every phase prints one JSON line; the line before the last but
 one lists the kernels, and the last line is the verdict.
 
@@ -56,11 +63,13 @@ ATen's batch-norm backward alone; its first case carries ``edges``, the
 layouts where the kernel changes arm. ``lif_soma_fwd`` also runs at the
 LM's three shapes (decode (1, 8, 1024), forward (256, 1 or 8, 1024)), each
 case with ``bitwise`` and its launches per decode step or forward, as
-counted on that path in this run.
+counted on that path in this run; it and ``lif_soma_bwd`` run at the LM's
+training shape (128, 8, 1024) too, with their launches per training step.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import sys
@@ -82,14 +91,17 @@ from repro_torch.core.spiking_layers import block_apply  # noqa: E402
 from repro_torch.core.spikingformer import (SpikingFormer,  # noqa: E402
                                             _index_tree, init_spikingformer,
                                             spikingformer_apply, tree_leaves,
-                                            tree_paths, tree_unflatten)
+                                            tree_paths, tree_unflatten,
+                                            value_and_grad)
 from repro_torch.kernels import (KERNELS, build, fused_bn,  # noqa: E402
                                  launch_counts, lif_soma, neuron_layer, ops,
                                  reset_launch_counts, spike_matmul)
 from repro_torch.models.attention import attention  # noqa: E402
 from repro_torch.models.common import (embed, layer, rmsnorm,  # noqa: E402
                                        split_tree, unembed)
-from repro_torch.models.lm import _seq_lif, init_lm, lm_forward  # noqa: E402
+from repro_torch.launch.train import build_state, train  # noqa: E402
+from repro_torch.models.lm import (_seq_lif, init_lm,  # noqa: E402
+                                   lm_forward, lm_loss)
 from repro_torch.models.mlp import swiglu  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.train.data import (DataConfig, SyntheticLM,  # noqa: E402
@@ -366,29 +378,32 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
-def check_lif_bwd(gen, t, m, d):
+def check_lif_bwd(gen, t, m, d, case="pssa.lif/smlp.lif", carry=True):
     """Bitwise: the kernel and the plain version round every operation of
-    eq. 12 once, in the same order."""
+    eq. 12 once, in the same order. With ``carry``, also the variant
+    seeded by the carry's cotangent (``time_chunk``)."""
     x = torch.randn((t, m, d), generator=gen, device=DEVICE) * 1.2 + 0.3
     s, u, mask = lif_soma.lif_soma_fwd_plain(x)
     g = torch.randn((t, m, d), generator=gen, device=DEVICE)
     gu = torch.randn((m, d), generator=gen, device=DEVICE)
     rows = []
-    for case, carry in (("pssa.lif/smlp.lif", None),
-                        ("time_chunk carry (gu_last)", gu)):
-        got = lif_soma.lif_soma_bwd(g, u, s, mask, carry)
-        want = lif_soma.lif_soma_bwd_plain(g, u, s, mask, carry)
+    cases = [(case, None)] + ([("time_chunk carry (gu_last)", gu)]
+                              if carry else [])
+    for name, gu_last in cases:
+        got = lif_soma.lif_soma_bwd(g, u, s, mask, gu_last)
+        want = lif_soma.lif_soma_bwd_plain(g, u, s, mask, gu_last)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            fail(f"lif_soma_bwd ({case}) differs from its plain version")
-        ins = (g, u, s, mask) + ((carry,) if carry is not None else ())
+            fail(f"lif_soma_bwd ({name}) differs from its plain version")
+        ins = (g, u, s, mask) + ((gu_last,) if gu_last is not None else ())
         b_ms, b_by = bound(nbytes(*ins, got), 7.0 * x.numel())
         rows.append({
-            "case": case, "shape": [t, m, d], "max_abs_err": 0.0,
+            "case": name, "shape": [t, m, d], "max_abs_err": 0.0,
             "tolerance": "bitwise",
-            "ms": time_ms(lambda: lif_soma.lif_soma_bwd(g, u, s, mask, carry)),
+            "ms": time_ms(lambda: lif_soma.lif_soma_bwd(g, u, s, mask,
+                                                        gu_last)),
             "plain_ms": time_ms(lambda: lif_soma.lif_soma_bwd_plain(
-                g, u, s, mask, carry)),
+                g, u, s, mask, gu_last)),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
     return rows
 
@@ -791,7 +806,6 @@ def kernel_phase(seed: int, batch: int) -> dict[str, list[dict]]:
     cases: dict[str, list[dict]] = {name: [] for name in KERNELS}
 
     cases["lif_soma_fwd"].append(check_lif(gen, t, m, d))
-    cases["lif_soma_fwd"].extend(lm_lif_cases(gen))
     (cases["spike_matmul_packed"],
      cases["spike_matmul_packed_batched"]) = spike_matmul_cases(gen, batch)
     cases["neuron_layer_eval"] = eval_kernel_cases(gen, batch)
@@ -799,6 +813,8 @@ def kernel_phase(seed: int, batch: int) -> dict[str, list[dict]]:
     # the training kernels
     cases["lif_soma_bwd"].extend(check_lif_bwd(gen, t, m, d))
     cases.update(train_kernel_cases(gen, batch))
+    for name, rows in lm_lif_cases(gen).items():     # the spiking LM's
+        cases[name].extend(rows)
     return cases
 
 
@@ -1265,6 +1281,12 @@ LM_SLOTS, LM_MAX_SEQ = 8, 256          # the engine's decode batch and cache
 LM_REQUESTS = 16
 LM_FWD_SEQ = 256                       # the forward's (1, S) token batch
 LM_PROMPT, LM_NEW = (8, 64), (16, 32)  # request lengths, both ends included
+#: The training step: the reference driver's batch and sequence defaults,
+#: one warm-up step and LM_TRAIN_STEPS timed steps through ``train()``.
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 128, 3
+#: Gradient leaves that are not bit-equal between the policies: relative L2
+#: (GRAD may round in another order than autograd through the eager loop).
+LM_GRAD_LIMIT = 1e-5
 
 
 def lm_config(policy: str):
@@ -1277,37 +1299,49 @@ def lm_config(policy: str):
 LM_FWD_BATCHES = (1, LM_SLOTS)         # the forward's token batches
 
 
-def lm_lif_cases(gen) -> list[dict]:
-    """``lif_soma_fwd`` at the spiking LM's shapes: decode (1, slots, d)
-    and the forward's (S, B, d) at each of ``LM_FWD_BATCHES``; S, U and
-    mask bit-equal to the plain version (``check_lif`` fails otherwise).
-    ``path`` names the run whose launches ``lm_launches`` adds to the case
-    once the LM phase has counted them."""
+def lm_lif_cases(gen) -> dict[str, list[dict]]:
+    """``lif_soma_fwd`` at the spiking LM's shapes: decode (1, slots, d),
+    the forward's (S, B, d) at each of ``LM_FWD_BATCHES`` and the training
+    step's (S, B, d); S, U and mask bit-equal to the plain version
+    (``check_lif`` fails otherwise). ``lif_soma_bwd`` at the training
+    step's shape, bit-equal too. ``path`` names the run whose launches
+    ``lm_launches`` adds to the case once the LM phases have counted
+    them."""
     d = get_config(LM_ARCH).d_model
-    rows = []
+    rows = {"lif_soma_fwd": [], "lif_soma_bwd": []}
     for t, m, path in ((1, LM_SLOTS, "lm_serve"),
                        *((LM_FWD_SEQ, b, f"lm_forward_b{b}")
-                         for b in LM_FWD_BATCHES)):
-        where = "decode" if path == "lm_serve" else "forward"
+                         for b in LM_FWD_BATCHES),
+                       (LM_TRAIN_SEQ, LM_TRAIN_BATCH, "lm_train")):
+        where = {"lm_serve": "decode", "lm_train": "train"}.get(path,
+                                                                "forward")
         row = check_lif(gen, t, m, d, case=f"lm.ffn.lif {where}")
         row.update(bitwise=True, path=path)
-        rows.append(row)
+        rows["lif_soma_fwd"].append(row)
+    for row in check_lif_bwd(gen, LM_TRAIN_SEQ, LM_TRAIN_BATCH, d,
+                             case="lm.ffn.lif train", carry=False):
+        row.update(bitwise=True, path="lm_train")
+        rows["lif_soma_bwd"].append(row)
     return rows
 
 
-def lm_launches(rows: list[dict], counts: dict[str, dict[str, int]],
-                steps: int) -> None:
-    """Adds to each LM case of ``lif_soma_fwd`` the launches counted on its
-    path in this run: per decode step (the serving run's count over its
-    steps) or per forward."""
-    for row in rows:
-        n = counts.get(row.get("path"), {}).get("lif_soma_fwd")
-        if n is None:
-            continue
-        if row["path"] == "lm_serve":
-            row["launches_per_decode_step"] = n / steps
-        else:
-            row["launches_per_forward"] = n
+def lm_launches(cases: dict[str, list[dict]],
+                counts: dict[str, dict[str, int]], steps: dict[str, int]
+                ) -> None:
+    """Adds to each LM case of ``lif_soma_fwd`` and ``lif_soma_bwd`` the
+    launches counted on its path in this run: per decode step or training
+    step (the run's count over its ``steps``), or per forward."""
+    for name, rows in cases.items():
+        for row in rows:
+            n = counts.get(row.get("path"), {}).get(name)
+            if n is None:
+                continue
+            if row["path"] == "lm_serve":
+                row["launches_per_decode_step"] = n / steps["lm_serve"]
+            elif row["path"] == "lm_train":
+                row["launches_per_step"] = n / steps["lm_train"]
+            else:
+                row["launches_per_forward"] = n
 
 
 def lm_expected(n: int) -> dict[str, int]:
@@ -1595,6 +1629,149 @@ def lm_phase(seed: int) -> tuple[dict[str, dict[str, int]], int]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the spiking LM's training path (qwen3-0.6b + LIF, published widths)
+# ---------------------------------------------------------------------------
+
+def lm_train_expected(layers: int, steps: int) -> dict[str, int]:
+    """Per step, ``lif_soma_fwd`` once a layer in the forward and once more
+    when ``torch.utils.checkpoint`` recomputes the layer (``remat``), and
+    ``lif_soma_bwd`` once a layer; no other kernel (the LM's products are
+    dense ``torch.matmul``)."""
+    counts = {name: 0 for name in KERNELS}
+    counts["lif_soma_fwd"] = 2 * layers * steps
+    counts["lif_soma_bwd"] = layers * steps
+    return counts
+
+
+def lm_grad_check(params, seed: int) -> dict:
+    """Step 0's loss and gradient, through the train step's own gradient
+    function (``value_and_grad`` of ``lm_loss``), under ``cuda-full``
+    and ``eager`` from the same weights on the driver's first batch: the
+    loss bit-equal (the SOMA kernel equals the eager scan bit for bit, the
+    products are the same calls), each gradient leaf bit-equal or within
+    ``LM_GRAD_LIMIT`` relative L2."""
+    cfg = lm_config("cuda-full")
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in SyntheticLM(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_SEQ,
+                   global_batch=LM_TRAIN_BATCH, seed=seed)).batch(0).items()}
+    out = {}
+    for policy in ("cuda-full", "eager"):
+        out[policy] = value_and_grad(lm_loss, params, batch,
+                                     lm_config(policy))
+        torch.cuda.synchronize()
+    (loss_c, _), grads_c = out["cuda-full"]
+    (loss_e, _), grads_e = out["eager"]
+    per_leaf = {}
+    for name, a, b in zip(tree_paths(grads_c), tree_leaves(grads_c),
+                          tree_leaves(grads_e)):
+        per_leaf[name] = {"bit_equal": torch.equal(a, b), "rel_l2": float(
+            (a - b).norm() / b.norm().clamp_min(1e-30))}
+    worst = max(r["rel_l2"] for r in per_leaf.values())
+    return {"loss_cuda_full": float(loss_c), "loss_eager": float(loss_e),
+            "loss_bit_equal": torch.equal(loss_c, loss_e),
+            "leaves": len(per_leaf),
+            "bit_equal_leaves": sum(r["bit_equal"] for r in per_leaf.values()),
+            "max_rel_l2": worst, "per_leaf": per_leaf,
+            "tolerance": f"loss bitwise; each gradient leaf bitwise or "
+                         f"relative L2 <= {LM_GRAD_LIMIT}"}
+
+
+def lm_train_run(policy: str, seed: int) -> dict:
+    """``repro_torch.launch.train.train`` under ``policy``: 1 + LM_TRAIN_STEPS
+    steps from ``seed``'s weights on ``SyntheticLM`` (the driver's log
+    lines go to stderr). Every step's metrics, the timed steps' wall times
+    (host clock between the driver's calls of ``on_step``, each made once
+    the step's loss is on the host, which waits for the whole step), the
+    peak memory and the launch counts of the whole run."""
+    rows, stamps = [], []
+
+    def on_step(step, m):
+        stamps.append(time.perf_counter())
+        rows.append({k: float(m[k]) for k in
+                     ("loss", "grad_norm", "nonfinite", "lr")})
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()                    # the path starts here
+    with contextlib.redirect_stdout(sys.stderr):
+        params, history = train(
+            lm_config(policy), steps=1 + LM_TRAIN_STEPS,
+            global_batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ, seed=seed,
+            device=DEVICE, on_step=on_step)
+    torch.cuda.synchronize()
+    counts = launch_counts()                 # ... and ends here
+    ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    median = sorted(ms)[len(ms) // 2]
+    return {"params": params, "history": history, "steps": rows,
+            "counts": counts, "ms_per_step": ms, "ms_per_step_median": median,
+            "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / median * 1e3,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def lm_train_phase(seed: int) -> dict[str, int]:
+    """The spiking LM's training path at published widths and depth:
+    step 0's gradient under both policies (``lm_grad_check``), then
+    training steps through the driver's ``train()`` under ``cuda-full`` and
+    under ``eager``, from the same ``seed`` weights. Checks: the step-0
+    loss bit-equal (in the gradient check and in the two runs), the
+    gradient leaves as ``lm_grad_check`` holds them, no step non-finite,
+    loss and grad norm finite, every parameter leaf moved, and the
+    launches per ``cuda-full`` step (none under ``eager``). Returns the
+    launch counts of the ``cuda-full`` run."""
+    cfg = lm_config("cuda-full")
+    layers = cfg.num_layers
+    params = build_state(cfg, seed, DEVICE)[0]
+    grads = lm_grad_check(params, seed)
+    runs = {}
+    for policy in ("cuda-full", "eager"):
+        run = lm_train_run(policy, seed)
+        final = run.pop("params")
+        run["moved_leaves"] = sum(not torch.equal(a, b) for a, b in zip(
+            tree_leaves(final), tree_leaves(params)))
+        del final
+        runs[policy] = run
+    full, eager = runs["cuda-full"], runs["eager"]
+    steps = 1 + LM_TRAIN_STEPS
+    per_step = lm_train_expected(layers, 1)
+    leaves = len(tree_leaves(params))
+    emit("lm_train", arch=f"{LM_ARCH}@cuda-full", layers=layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, dtype="float32",
+         remat=cfg.remat, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+         tokens_per_step=LM_TRAIN_BATCH * LM_TRAIN_SEQ,
+         steps=f"1 warm-up + {LM_TRAIN_STEPS} timed", data="SyntheticLM",
+         optimizer="the driver's: lr 3e-4, warm-up max(steps // 20, 5), "
+                   "weight decay 0.1, clip 1.0",
+         step0=grads,
+         step0_loss_bit_equal_in_train=full["history"][0]
+         == eager["history"][0],
+         cuda_full={k: v for k, v in full.items() if k != "history"},
+         eager={k: v for k, v in eager.items() if k != "history"},
+         parameter_leaves=leaves, launches_per_step=per_step,
+         times="host clock from one step's loss on the host to the next's, "
+               "after the warm-up step")
+    bad = [(p, r) for p, run in runs.items() for r in run["steps"]
+           if r["nonfinite"] != 0.0 or not all(map(math.isfinite, (
+               r["loss"], r["grad_norm"])))]
+    if bad:
+        fail(f"lm train: non-finite steps {bad}")
+    if not (grads["loss_bit_equal"] and
+            full["history"][0] == eager["history"][0]):
+        fail(f"lm train: step-0 loss differs between cuda-full and eager "
+             f"({grads['loss_cuda_full']!r} vs {grads['loss_eager']!r}; "
+             f"in train {full['history'][0]!r} vs {eager['history'][0]!r})")
+    if grads["max_rel_l2"] > LM_GRAD_LIMIT:
+        fail(f"lm train: a gradient leaf differs by {grads['max_rel_l2']} "
+             f"relative L2 > {LM_GRAD_LIMIT}")
+    if any(run["moved_leaves"] != leaves for run in runs.values()):
+        fail(f"lm train: parameter leaves that moved "
+             f"{[run['moved_leaves'] for run in runs.values()]} of {leaves}")
+    if full["counts"] != lm_train_expected(layers, steps) or \
+            eager["counts"] != lm_train_expected(0, steps):
+        fail(f"lm train launch counts {full['counts']} (eager "
+             f"{eager['counts']}) for {steps} steps, want {per_step} a step")
+    return full["counts"]
+
+
+# ---------------------------------------------------------------------------
 
 def summarise(cases: dict[str, list[dict]],
               paths: dict[str, dict[str, int]]) -> dict:
@@ -1602,8 +1779,8 @@ def summarise(cases: dict[str, list[dict]],
     carries the numbers of its first case (a site of the main path) and the
     largest error of all cases; ``cases`` keeps every site's numbers.
     ``launches`` adds the counts of the paths (Spikingformer serving and
-    training, the LM's forward and serving), ``launches_by_path`` keeps them
-    apart."""
+    training, the LM's forward, serving and training), ``launches_by_path``
+    keeps them apart."""
     kernels = []
     for name, info in KERNELS.items():
         rows = cases[name]
@@ -1670,7 +1847,11 @@ def main() -> None:
     train_counts = train_phase(args.seed, BATCH)
     torch.cuda.empty_cache()
     lm_counts, lm_steps = lm_phase(args.seed)
-    lm_launches(cases["lif_soma_fwd"], lm_counts, lm_steps)
+    torch.cuda.empty_cache()
+    lm_counts["lm_train"] = lm_train_phase(args.seed)
+    lm_launches({k: cases[k] for k in ("lif_soma_fwd", "lif_soma_bwd")},
+                lm_counts, {"lm_serve": lm_steps,
+                            "lm_train": 1 + LM_TRAIN_STEPS})
 
     print(json.dumps(summarise(cases, {"serve": counts, "train": train_counts,
                                        **lm_counts})), flush=True)

@@ -501,20 +501,28 @@ def tree_map(fn, *trees):
                                      zip(*map(tree_leaves, trees))])
 
 
-def spikingformer_grad_step(params, state, images, labels,
-                            cfg: SpikingFormerConfig):
-    """One BPTT step: returns ``(grads, new_state, metrics)``, ``grads``
-    with the structure of ``params``. ``params`` is not modified: the
+def value_and_grad(loss_fn, params, *args):
+    """``((loss, aux), grads)`` of ``loss_fn(params, *args) -> (loss,
+    aux)``, the counterpart of ``jax.value_and_grad(loss_fn,
+    has_aux=True)``: ``grads`` has the structure of ``params``, zeros where
+    a leaf does not reach the loss. ``params`` is not modified: the
     gradients are taken with respect to detached copies of its leaves."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    tracked = tree_unflatten(params, leaves)
     with torch.enable_grad():
-        loss, (new_state, metrics) = spikingformer_loss(tracked, state,
-                                                        images, labels, cfg)
+        loss, aux = loss_fn(tree_unflatten(params, leaves), *args)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
-    return tree_unflatten(params, grads), new_state, metrics
+    return (loss.detach(), aux), tree_unflatten(params, grads)
+
+
+def spikingformer_grad_step(params, state, images, labels,
+                            cfg: SpikingFormerConfig):
+    """One BPTT step: returns ``(grads, new_state, metrics)``, ``grads``
+    with the structure of ``params`` (see :func:`value_and_grad`)."""
+    (_, (new_state, metrics)), grads = value_and_grad(
+        spikingformer_loss, params, state, images, labels, cfg)
+    return grads, new_state, metrics
 
 
 # ---------------------------------------------------------------------------

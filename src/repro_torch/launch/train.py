@@ -1,0 +1,307 @@
+"""End-to-end training driver (the counterpart of ``repro.launch.train``).
+
+Initialises the parameters and the optimizer state on the device, streams
+the synthetic data, checkpoints asynchronously, watches for stragglers and
+SIGTERM, budgets non-finite steps, and resumes from the newest good
+checkpoint. The decoder LMs and the Spikingformer run through the same
+driver and the one train-step factory.
+
+  python -m repro_torch.launch.train --arch qwen3-0.6b --reduced \\
+      --steps 200 --batch 8 --seq 128 --ckpt-dir ckpt [--device cpu]
+  python -m repro_torch.launch.train --arch spikingformer-tiny \\
+      --steps 100 --batch 16 --policy cuda-full --time-chunk 2
+
+It runs on the CUDA device unless ``--device cpu`` is given, and raises
+where there is none. As in the reference, the LM path checkpoints the
+parameters (a resumed run starts a fresh optimizer state) and the vision
+path the parameters, BN state and optimizer state. The port runs on one
+device: there is no mesh (ROADMAP A11) and no fault injection (A13).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+from repro_torch.configs.registry import get_config, list_configs, reduced
+from repro_torch.core.backend import resolve_device
+from repro_torch.models.common import split_tree
+from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.data import (DataConfig, SyntheticLM, SyntheticVision,
+                                    VisionDataConfig)
+from repro_torch.train.loop import make_train_step
+from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+from repro_torch.train.resilience import (NonFiniteGuard, PreemptionGuard,
+                                          StragglerMonitor)
+
+
+def build_state(cfg, seed: int = 0, device=None):
+    """LM parameters from ``seed``, drawn on ``device`` (``None`` = the
+    card), and a fresh AdamW state: ``(params, opt_state, specs)``."""
+    device = resolve_device(device)
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder (audio) family is not ported "
+            f"yet (ROADMAP A9)")
+    from repro_torch.models.lm import init_lm
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params, specs = split_tree(init_lm(gen, cfg, device))
+    return params, init_opt_state(params), specs
+
+
+def build_spikingformer_state(cfg, seed: int = 0, device=None):
+    """Spikingformer parameters and BN state from ``seed`` on ``device``
+    (``None`` = the card), and a fresh AdamW state."""
+    from repro_torch.core.spikingformer import init_spikingformer
+    params, state = init_spikingformer(torch.Generator().manual_seed(seed),
+                                       cfg, resolve_device(device))
+    return params, state, init_opt_state(params)
+
+
+def _to_device(batch: dict, device) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _drive(*, start: int, steps: int, step_once, save, log_line,
+           log_every: int, ckpt_every: int, ckpt_dir: str | None,
+           nonfinite_budget: int = 3, final_join_timeout: float = 120.0,
+           on_step=None):
+    """The loop every family shares: straggler monitor, preemption guard,
+    non-finite skip budget, checkpoint cadence, and the final join of the
+    asynchronous save (the last write must land before a restart scans
+    the checkpoint directory).
+
+    ``step_once(step) -> metrics`` advances the caller's state (held in a
+    closure); ``save(step)`` persists it and returns the writer thread;
+    ``log_line(step, metrics)`` formats the progress line. A step's time,
+    as the straggler monitor records it, runs until its loss is on the
+    host. ``on_step(step, metrics)``, when given, is called with every
+    step's metrics once the loss is on the host. Returns the per-step loss
+    history.
+
+    More than ``nonfinite_budget`` consecutive skipped steps raise
+    ``NonFiniteBudgetExceeded``; a final writer still alive after
+    ``final_join_timeout`` seconds raises ``ckpt.CheckpointWriteTimeout``.
+    """
+    monitor = StragglerMonitor(
+        on_straggler=lambda dt, med: print(
+            f"[straggler] step took {dt:.3f}s (median {med:.3f}s)"))
+    guard = PreemptionGuard().install()
+    nf_guard = NonFiniteGuard(budget=nonfinite_budget)
+    history = []
+    pending_save = None
+    try:
+        for step in range(start, steps):
+            monitor.step_start()
+            metrics = step_once(step)
+            history.append(float(metrics["loss"]))
+            monitor.step_end()
+            if on_step is not None:
+                on_step(step, metrics)
+            if nf_guard.observe(float(metrics.get("nonfinite", 0.0)) > 0.0,
+                                step):
+                print(f"[guard] step {step} non-finite loss/grads: state "
+                      f"unchanged, step skipped "
+                      f"({nf_guard.consecutive}/{nf_guard.budget} "
+                      f"consecutive)", flush=True)
+            if step % log_every == 0 or step == steps - 1:
+                print(log_line(step, metrics), flush=True)
+            if ckpt_dir and ((step + 1) % ckpt_every == 0
+                             or guard.requested):
+                pending_save = save(step + 1)
+                if guard.requested:
+                    print("[preempt] checkpoint saved, exiting")
+                    break
+    finally:
+        guard.uninstall()
+    if pending_save is not None:
+        pending_save.join(timeout=final_join_timeout)
+        if pending_save.is_alive():
+            raise ckpt.CheckpointWriteTimeout(
+                f"final async checkpoint write still running after "
+                f"{final_join_timeout:.0f}s: the run's last state may not "
+                f"be on disk; a restart would resume from an older step")
+    return history
+
+
+def train_vision(cfg, *, steps: int, global_batch: int,
+                 ckpt_dir: str | None, microbatches: int = 1,
+                 log_every: int = 10, ckpt_every: int = 100, seed: int = 0,
+                 lr: float = 2e-3, device=None, on_step=None):
+    """Spikingformer BPTT training through the shared driver: synthetic
+    quadrant-blob data, checkpoints of parameters + BN state + optimizer
+    state."""
+    device = resolve_device(device)
+    opt_cfg = OptimizerConfig(lr=lr, total_steps=steps, weight_decay=0.01,
+                              warmup_steps=max(steps // 20, 5))
+    params, state, opt_state = build_spikingformer_state(cfg, seed, device)
+
+    start = 0
+    if ckpt_dir:
+        tree = {"params": params, "state": state, "opt": opt_state}
+        latest, restored = ckpt.restore_latest_good(ckpt_dir, tree)
+        if latest is not None:
+            print(f"[restore] step {latest} from {ckpt_dir}")
+            params, state, opt_state = (restored["params"],
+                                        restored["state"], restored["opt"])
+            start = latest
+
+    data = SyntheticVision(VisionDataConfig(
+        image_size=cfg.image_size, num_classes=cfg.num_classes,
+        global_batch=global_batch, channels=cfg.in_channels, seed=seed,
+        spikes=cfg.spike_input))
+    # microbatches != 1 raises in the factory (BN stats are per-global-batch)
+    step_fn = make_train_step(cfg, opt_cfg, microbatches)
+
+    def step_once(step):
+        nonlocal params, state, opt_state
+        batch = _to_device(data.batch(step), device)
+        params, state, opt_state, metrics = step_fn(
+            params, state, opt_state, batch["images"], batch["labels"])
+        return metrics
+
+    def save(step):
+        return ckpt.save_checkpoint(
+            ckpt_dir, step,
+            {"params": params, "state": state, "opt": opt_state},
+            async_save=True)
+
+    def log_line(step, m):
+        return (f"step {step:5d} loss {float(m['loss']):.4f} "
+                f"acc {float(m['accuracy']):.2f} "
+                f"gnorm {float(m['grad_norm']):.3f} "
+                f"lr {float(m['lr']):.2e}")
+
+    history = _drive(start=start, steps=steps, step_once=step_once,
+                     save=save, log_line=log_line, log_every=log_every,
+                     ckpt_every=ckpt_every, ckpt_dir=ckpt_dir,
+                     on_step=on_step)
+    return params, history
+
+
+def train(cfg, *, steps: int, global_batch: int, seq_len: int = 128,
+          ckpt_dir: str | None = None, microbatches: int = 1,
+          log_every: int = 10, ckpt_every: int = 100, seed: int = 0,
+          data_vocab: int | None = None, lr: float | None = None,
+          device=None, on_step=None):
+    """Family dispatch: ``lr=None`` picks the family's default (3e-4 for an
+    LM, 2e-3 for the small vision models). ``device=None`` is the card.
+    Returns ``(params, loss history)``."""
+    if getattr(cfg, "family", None) == "vision":
+        return train_vision(cfg, steps=steps, global_batch=global_batch,
+                            ckpt_dir=ckpt_dir, microbatches=microbatches,
+                            log_every=log_every, ckpt_every=ckpt_every,
+                            seed=seed, lr=lr if lr is not None else 2e-3,
+                            device=device, on_step=on_step)
+    device = resolve_device(device)
+    opt_cfg = OptimizerConfig(lr=lr if lr is not None else 3e-4,
+                              total_steps=steps,
+                              warmup_steps=max(steps // 20, 5))
+    params, opt_state, specs = build_state(cfg, seed, device)
+
+    start = 0
+    if ckpt_dir:
+        latest, restored = ckpt.restore_latest_good(ckpt_dir, params)
+        if latest is not None:
+            print(f"[restore] step {latest} from {ckpt_dir}")
+            params = restored
+            start = latest
+
+    data = SyntheticLM(DataConfig(
+        vocab_size=data_vocab or cfg.vocab_size, seq_len=seq_len,
+        global_batch=global_batch, seed=seed))
+    step_fn = make_train_step(cfg, opt_cfg, microbatches)
+
+    def step_once(step):
+        nonlocal params, opt_state
+        params, opt_state, metrics = step_fn(
+            params, opt_state, _to_device(data.batch(step), device))
+        return metrics
+
+    def save(step):
+        return ckpt.save_checkpoint(ckpt_dir, step, params, specs,
+                                    async_save=True)
+
+    def log_line(step, m):
+        return (f"step {step:5d} loss {float(m['loss']):.4f} "
+                f"gnorm {float(m['grad_norm']):.3f} "
+                f"lr {float(m['lr']):.2e}")
+
+    history = _drive(start=start, steps=steps, step_once=step_once,
+                     save=save, log_line=log_line, log_every=log_every,
+                     ckpt_every=ckpt_every, ckpt_dir=ckpt_dir,
+                     on_step=on_step)
+    return params, history
+
+
+def _resolve_config(args):
+    """LM registry first; Spikingformer preset names (optionally with an
+    ``@<policy>`` suffix) route to the vision path. Flags that only exist
+    for the other family are rejected, never silently dropped."""
+    try:
+        cfg = get_config(args.arch)
+    except KeyError:
+        from repro_torch.configs.spikingformer import (
+            get_spikingformer_config, list_spikingformer_configs)
+        from repro_torch.core.policy import named_policy
+        if args.reduced:
+            raise SystemExit("--reduced applies to LM/audio archs only; "
+                             "pick a smaller spikingformer preset instead")
+        if args.data_vocab is not None or args.seq is not None:
+            raise SystemExit("--data-vocab/--seq apply to LM/audio archs "
+                             "only (the vision data stream is sized by the "
+                             "preset's image_size/num_classes)")
+        try:
+            return get_spikingformer_config(
+                args.arch,
+                policy=named_policy(args.policy) if args.policy else None,
+                time_chunk=args.time_chunk)
+        except KeyError:
+            raise SystemExit(
+                f"unknown --arch {args.arch!r}; LM/audio: {list_configs()}; "
+                f"vision: {list_spikingformer_configs()}") from None
+    if args.policy or args.time_chunk:
+        raise SystemExit("--policy/--time-chunk apply to spikingformer "
+                         f"archs only, not {args.arch!r}")
+    if args.reduced:
+        cfg = reduced(cfg)
+    return cfg
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=None,
+                    help="LM sequence length (default 128)")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--data-vocab", type=int, default=None)
+    ap.add_argument("--policy", default=None,
+                    help="execution policy preset for spikingformer archs")
+    ap.add_argument("--time-chunk", type=int, default=None,
+                    help="temporal tile length for spikingformer BPTT")
+    ap.add_argument("--chaos-schedule", default=None,
+                    help="fault-injection schedule: not ported (ROADMAP A13)")
+    ap.add_argument("--device", default=None,
+                    help="default: the CUDA device; 'cpu' runs the plain "
+                         "PyTorch versions of the kernels")
+    args = ap.parse_args(argv)
+    if args.chaos_schedule or os.environ.get("CHAOS_SCHEDULE"):
+        raise NotImplementedError(
+            "fault injection (--chaos-schedule, $CHAOS_SCHEDULE) is not "
+            "ported yet (ROADMAP A13)")
+    cfg = _resolve_config(args)
+    _, history = train(cfg, steps=args.steps, global_batch=args.batch,
+                       seq_len=args.seq if args.seq is not None else 128,
+                       ckpt_dir=args.ckpt_dir,
+                       microbatches=args.microbatches,
+                       data_vocab=args.data_vocab, device=args.device)
+    print(f"final loss {history[-1]:.4f} (from {history[0]:.4f})")
+
+
+if __name__ == "__main__":
+    main()

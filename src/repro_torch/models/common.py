@@ -20,8 +20,10 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
-from repro_torch.core.spikingformer import tree_leaves, tree_map
+from repro_torch.core.spikingformer import tree_leaves, tree_map, \
+    tree_unflatten
 
 # Logical -> physical axis naming, as in the reference.
 BATCH = ("pod", "data")
@@ -59,12 +61,25 @@ def lscan(cfg, f, init, xs):
     """The reference's ``lax.scan`` over the stacked layer axis, as a loop:
     ``carry, y = f(carry, layer(xs, i))`` for each layer ``i``; returns the
     last carry and the ``y`` trees stacked on a new leading axis (``None``
-    where ``f`` returns ``None``). ``cfg`` is unused (the reference reads
-    its ``scan_unroll``; a loop is unrolled)."""
-    n = tree_leaves(xs)[0].shape[0]
+    where ``f`` returns ``None``).
+
+    The stacked leaves are unbound once, so the backward stacks the layers'
+    gradients in one pass instead of adding a full-size zero-padded copy per
+    layer. With ``cfg.remat`` set (the reference wraps its scanned body in
+    ``jax.checkpoint``) and gradients enabled, each layer's body runs under
+    ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward instead of kept, and the gradients are the same."""
+    remat = getattr(cfg, "remat", False) and torch.is_grad_enabled()
+    slices = [a.unbind(0) for a in tree_leaves(xs)]
     carry, ys = init, []
-    for i in range(n):
-        carry, y = f(carry, layer(xs, i))
+    for i in range(len(slices[0])):
+        x_i = tree_unflatten(xs, [s[i] for s in slices])
+        if remat:
+            # No layer draws random numbers, so the RNG state is not saved.
+            carry, y = torch.utils.checkpoint.checkpoint(
+                f, carry, x_i, use_reentrant=False, preserve_rng_state=False)
+        else:
+            carry, y = f(carry, x_i)
         ys.append(y)
     if not ys or ys[0] is None:
         return carry, None

@@ -15,6 +15,7 @@ are still to port (ROADMAP A9): their entry points raise
 Entry points:
   init_lm(generator, cfg, device)      -> augmented param tree (Leaf leaves)
   lm_forward(params, batch, cfg)       -> (hidden, aux_loss)
+  lm_loss(params, batch, cfg)          -> (loss, metrics)    [training]
   lm_prefill(params, batch, cfg)       -> last-position logits  [serving]
   lm_decode_step(params, cache, tokens, pos, cfg) -> (logits, cache)
 """
@@ -29,9 +30,10 @@ from repro_torch.core.backend import resolve_device
 from repro_torch.core.lif import lif_decode_step, lif_scan
 from repro_torch.core.policy import register_site_table
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.common import (embed, init_embedding, init_rmsnorm,
-                                       lscan, rmsnorm, stack_layer_trees,
-                                       tree_map, unembed)
+from repro_torch.models.common import (cross_entropy_loss, embed,
+                                       init_embedding, init_rmsnorm, lscan,
+                                       rmsnorm, stack_layer_trees, tree_map,
+                                       unembed)
 from repro_torch.models.mlp import init_swiglu, swiglu
 
 Params = dict[str, Any]
@@ -160,6 +162,20 @@ def lm_forward(params: Params, batch: dict[str, torch.Tensor],
     x, auxs = lscan(cfg, body, x, params["blocks"])
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return x, auxs.sum()
+
+
+def lm_loss(params: Params, batch: dict[str, torch.Tensor], cfg: ArchConfig,
+            aux_weight: float = 0.01):
+    """Next-token cross entropy (+ ``aux_weight`` times the forward's
+    auxiliary loss, 0 for the dense family): ``(loss, metrics)``, the
+    metrics detached. ``batch``: tokens and labels (B, S), optional
+    ``loss_mask`` (B, S)."""
+    x, aux = lm_forward(params, batch, cfg, use_flash=cfg.flash_train)
+    logits = unembed(params["embed"], x)
+    loss = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
+    total = loss + aux_weight * aux
+    return total, {"loss": loss.detach(), "aux_loss": aux.detach(),
+                   "logits_mean_abs": logits.detach().abs().mean()}
 
 
 # ---------------------------------------------------------------------------

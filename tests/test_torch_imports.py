@@ -1,8 +1,9 @@
 """What the port may import, when it builds, and what it does without a
 card: ``repro_torch`` and ``chip_smoke.py`` import ``torch`` and numpy,
 never ``jax`` and nothing of ``repro``; importing builds nothing; every
-entry point called with ``device=None`` (the Spikingformer's, the LM's and
-the serving engine's) fails loudly where there is no CUDA device."""
+entry point called with ``device=None`` (the Spikingformer's, the LM's,
+the serving engine's and the training driver's) fails loudly where there is
+no CUDA device."""
 import pkgutil
 import re
 import subprocess
@@ -20,6 +21,7 @@ from repro_torch.configs.registry import get_config, reduced
 from repro_torch.convert import from_jax, lm_from_jax
 from repro_torch.core.spikingformer import SpikingFormer, init_spikingformer
 from repro_torch.kernels import build
+from repro_torch.launch.train import build_state, main, train
 from repro_torch.models.common import split_tree
 from repro_torch.models.lm import init_cache, init_lm
 from repro_torch.serving import ServingEngine
@@ -46,7 +48,8 @@ def test_modules_are_where_the_reference_has_them():
                  "configs.base", "configs.registry", "models.common",
                  "models.attention", "models.mlp", "models.lm", "models.moe",
                  "models.mla", "models.rwkv", "models.ssm", "serving.engine",
-                 "serving.scheduler"):
+                 "serving.scheduler", "train.checkpoint", "train.resilience",
+                 "launch.train"):
         assert f"repro_torch.{name}" in MODULES
         assert (ROOT / "src" / "repro" / (name.replace(".", "/") + ".py")) \
             .is_file()
@@ -116,6 +119,11 @@ def test_device_none_means_the_card_and_raises_without_one():
         "init_cache": lambda: init_cache(lm_cfg, 1, 8),
         "lm_from_jax": lambda: lm_from_jax({"w": np.zeros(3, np.float32)}),
         "ServingEngine": lambda: ServingEngine(lm_params, lm_cfg),
+        "build_state": lambda: build_state(lm_cfg),
+        "train": lambda: train(lm_cfg, steps=1, global_batch=1),
+        "train (vision)": lambda: train(cfg, steps=1, global_batch=1),
+        "launch.train main": lambda: main(["--arch", "qwen3-0.6b",
+                                           "--reduced", "--steps", "1"]),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -21,8 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import POLICY_PAIRS, mismatch_fraction, np_tree, \
-    single_thread
+from _torch_port import POLICY_PAIRS, jax_branch_spikes, lm_cfgs, \
+    lm_params, mismatch_fraction, np_tree, single_thread, \
+    torch_branch_spikes
 
 from repro.configs import registry as jreg
 from repro.core.lif import LIFConfig as JLIFConfig
@@ -61,22 +62,6 @@ def _close(got, want, atol=ATOL):
     scale = max(1.0, float(np.max(np.abs(want)))) if want.size else 1.0
     np.testing.assert_allclose(got.detach().numpy(), want,
                                atol=atol * scale, rtol=0)
-
-
-def _cfgs(name: str, jax_policy: str | None):
-    """(reference, port) reduced configs; ``jax_policy`` None = no LIF."""
-    jcfg, tcfg = jreg.reduced(jreg.get_config(name)), \
-        treg.reduced(treg.get_config(name))
-    if jax_policy is not None:
-        port_policy = dict(POLICY_PAIRS)[jax_policy]
-        jcfg = jcfg.replace(lif=JLIFConfig(policy=jnamed_policy(jax_policy)))
-        tcfg = tcfg.replace(lif=LIFConfig(policy=named_policy(port_policy)))
-    return jcfg, tcfg
-
-
-def _params(jcfg):
-    jparams = jcommon.split_tree(jlm.init_lm(KEY, jcfg))[0]
-    return jparams, lm_from_jax(np_tree(jparams), device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +138,7 @@ def test_norms_rope_embedding_and_loss_match_reference():
 
 
 def test_init_lm_tree_has_the_reference_keys_shapes_and_specs():
-    jcfg, tcfg = _cfgs("qwen3-0.6b", "jnp")
+    jcfg, tcfg = lm_cfgs("qwen3-0.6b", "jnp")
     jp, jspecs = jcommon.split_tree(jlm.init_lm(KEY, jcfg))
     tp, tspecs = tcommon.split_tree(
         tlm.init_lm(torch.Generator().manual_seed(0), tcfg, "cpu"))
@@ -254,39 +239,6 @@ def test_attention_decode_matches_reference(case, scatter):
 # The spiking LM: forward, decode
 # ---------------------------------------------------------------------------
 
-def _jax_branch_spikes(params, toks, cfg):
-    """The reference's ``_dense_block``, taken apart to keep each layer's
-    branch spikes (the reference's ``lm_forward`` returns none)."""
-    x = jcommon.embed(params["embed"], toks, cfg.dtype)
-    spikes = []
-    for i in range(cfg.num_layers):
-        p = jax.tree.map(lambda a: a[i], params["blocks"])
-        x = x + jattn.attention(p["attn"],
-                                jcommon.rmsnorm(p["ln1"], x, cfg.norm_eps),
-                                cfg.attn)
-        f = jlm._seq_lif(jmlp.swiglu(
-            p["ffn"], jcommon.rmsnorm(p["ln2"], x, cfg.norm_eps)), cfg)
-        spikes.append(np.asarray(f))
-        x = x + f
-    return spikes
-
-
-def _torch_branch_spikes(params, toks, cfg):
-    """The port's ``_dense_block`` taken apart the same way."""
-    x = tcommon.embed(params["embed"], toks, cfg.dtype)
-    spikes = []
-    for i in range(cfg.num_layers):
-        p = tcommon.layer(params["blocks"], i)
-        x = x + tattn.attention(p["attn"],
-                                tcommon.rmsnorm(p["ln1"], x, cfg.norm_eps),
-                                cfg.attn)
-        f = tlm._seq_lif(tmlp.swiglu(
-            p["ffn"], tcommon.rmsnorm(p["ln2"], x, cfg.norm_eps)), cfg)
-        spikes.append(f.numpy())
-        x = x + f
-    return spikes
-
-
 TOKENS = np.array([[3, 7, 11, 2, 5, 9, 300, 41],
                    [8, 8, 1, 0, 511, 17, 5, 6]], np.int32)
 
@@ -297,15 +249,15 @@ def test_lm_forward_matches_reference(jax_policy):
     """Reduced qwen3-0.6b, without the LIF and with it under jnp/eager and
     pallas (interpret)/cuda (plain versions on the CPU): hidden states and
     prefill logits at 1e-5, branch spikes compared layer by layer."""
-    jcfg, tcfg = _cfgs("qwen3-0.6b", jax_policy)
-    jp, tp = _params(jcfg)
+    jcfg, tcfg = lm_cfgs("qwen3-0.6b", jax_policy)
+    jp, tp = lm_params(jcfg)
     jh, jaux = jlm.lm_forward(jp, {"tokens": TOKENS}, jcfg)
     th, taux = tlm.lm_forward(tp, {"tokens": _t(TOKENS)}, tcfg)
     mism = []
     if jax_policy is not None:
         mism = [mismatch_fraction(t, j) for t, j in
-                zip(_torch_branch_spikes(tp, _t(TOKENS), tcfg),
-                    _jax_branch_spikes(jp, TOKENS, jcfg))]
+                zip(torch_branch_spikes(tp, _t(TOKENS), tcfg),
+                    jax_branch_spikes(jp, TOKENS, jcfg))]
         assert len(mism) == jcfg.num_layers
     assert not any(mism), f"branch spike mismatch per layer {mism}"
     _close(th, jh)
@@ -320,8 +272,8 @@ def test_lm_forward_matches_reference(jax_policy):
 def test_lm_decode_step_matches_reference(jax_policy):
     """Six decode steps of two rows from the same cache: logits and every
     cache leaf (KV and, spiking, the (U, S) carry) at 1e-5."""
-    jcfg, tcfg = _cfgs("qwen3-0.6b", jax_policy)
-    jp, tp = _params(jcfg)
+    jcfg, tcfg = lm_cfgs("qwen3-0.6b", jax_policy)
+    jp, tp = lm_params(jcfg)
     jc = jlm.init_cache(jcfg, 2, 16, jnp.float32)
     tc = tlm.init_cache(tcfg, 2, 16, torch.float32, "cpu")
     assert [tuple(a.shape) for a in tree_leaves(tc)] == \
@@ -343,10 +295,10 @@ def test_spiking_decode_matches_forward(policy):
     """The reference's own check, on the port: token-by-token decode of the
     spiking LM (the (U, S) carry in the cache) equals the full-sequence
     forward at 1e-5."""
-    jcfg, _ = _cfgs("qwen3-0.6b", "jnp")
+    jcfg, _ = lm_cfgs("qwen3-0.6b", "jnp")
     tcfg = treg.reduced(treg.get_config("qwen3-0.6b")).replace(
         lif=LIFConfig(policy=named_policy(policy)))
-    _, tp = _params(jcfg)
+    _, tp = lm_params(jcfg)
     toks = _t(TOKENS[:1])
     x, _ = tlm.lm_forward(tp, {"tokens": toks}, tcfg)
     want = tcommon.unembed(tp["embed"], x)[0]
