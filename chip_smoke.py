@@ -31,7 +31,7 @@ the forward's 28, the recompute's 28 and the backward's 28). It needs one CUDA d
 one lists the kernels, and the last line is the verdict.
 
 Times are CUDA-event times after a warm-up, inputs left warm in the L2 cache
-as the model leaves them. ``bound_ms`` is the least time the card could
+as the model leaves them (but the LIF cases' ``device_ms``, below). ``bound_ms`` is the least time the card could
 take: the larger of the bytes the function must move (inputs once, outputs
 once) over 3.35 TB/s and the fp32 operations these inputs need over
 67 TFLOP/s (the published H100 SXM rates; spikes are data, so the spike
@@ -61,17 +61,33 @@ at each distinct shape of a training step, with ``passes``,
 dbeta equal to the plain version's bit for bit) and, as ``library_ms``,
 ATen's batch-norm backward alone; its first case carries ``edges``, the
 layouts where the kernel changes arm. ``lif_soma_fwd`` also runs at the
-LM's three shapes (decode (1, 8, 1024), forward (256, 1 or 8, 1024)), each
-case with ``bitwise`` and its launches per decode step or forward, as
-counted on that path in this run; it and ``lif_soma_bwd`` run at the LM's
-training shape (128, 8, 1024) too, with their launches per training step.
+LM's shapes in the layouts the model hands it (decode (1, 8, 1024) from a
+carried state, whose final state must match too; forward (256, 1 or 8,
+1024) as the (S, B, D) view of a (B, S, D) tensor), each case with
+``bitwise`` and its launches per decode step or forward, as counted on
+that path in this run; it and ``lif_soma_bwd`` run at the LM's training
+shape (128, 8, 1024), in that view, too, with their launches per training
+step. Every LIF case names its ``arm`` (``flat`` or ``ring``), carries its
+device time (``torch.profiler``) with the L2 cold (``device_ms``: each call
+on the next of copies of its operands that span four L2s with their
+outputs, so its bytes come from and go to device memory, as the byte bound
+counts them) and warm (``device_ms_l2_warm``: the same operands every
+call), and bounds its time by the
+recursion as well: ``bound_ms`` is the larger of the byte time and T steps
+of the serial chain (the dependent fp32 instructions a step of the built
+ring kernel's SASS holds, ``cuobjdump -sass``, at 4 cycles each and the
+card's maximum SM clock), ``bound_by`` ``"bytes"`` or ``"chain"``.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
+import itertools
 import json
 import math
+import re
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -172,22 +188,195 @@ def dyadic(gen, shape, scale=64, span=16):
 # Phase 3: every kernel against its plain version at the preset's shapes
 # ---------------------------------------------------------------------------
 
-def check_lif(gen, t, m, d, case="pssa.lif/smlp.lif"):
-    x = torch.randn((t, m, d), generator=gen, device=DEVICE) * 1.2 + 0.3
-    got = lif_soma.lif_soma_fwd(x)
-    want = lif_soma.lif_soma_fwd_plain(x)
+#: Cycles from one dependent fp32 instruction to the next on sm_90 (the FMA
+#: pipe's fixed latency: FADD, FMUL, FSET, FSEL), the least a link of the
+#: LIF recursions' serial chain can take.
+DEP_CYCLES = 4
+#: Stores a step of each LIF kernel's walk makes (S, U, mask; dx).
+LIF_STORES = {"lif_soma_fwd": 3, "lif_soma_bwd": 1}
+_SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)\s*(.*?)\s*;")
+_SASS_REG = re.compile(r"^[-!|]*(R\d+|P\d)(?:\.\w+)*\|?$")
+_SASS_FLOAT = {"FADD", "FMUL", "FFMA", "FSET", "FSETP", "FSEL", "FMNMX"}
+
+
+def sass_functions(text: str) -> dict[str, list[tuple[int, str, list[str]]]]:
+    """``cuobjdump -sass`` text -> function name -> its instructions as
+    (address, opcode, operands)."""
+    out: dict[str, list] = {}
+    name = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            out[name] = []
+        elif name is not None and (m := _SASS_INSTR.search(line)):
+            ops = [o.strip() for o in m.group(3).split(",")] \
+                if m.group(3) else []
+            out[name].append((int(m.group(1), 16), m.group(2), ops))
+    return out
+
+
+def _sass_regs(operands: list[str]) -> list[str]:
+    return [m.group(1) for o in operands if (m := _SASS_REG.match(o))]
+
+
+def sass_chain(instrs, stores_per_step: int) -> dict[str, int]:
+    """The serial chain of a recursion's unrolled walk in one kernel's SASS:
+    split the code into basic blocks (at branch targets and after
+    branches), take the block with the most global stores (the unrolled
+    chunk: ``steps`` = its stores over ``stores_per_step``), and in it the
+    longest path of dependent fp32 instructions through registers and
+    predicates (``chain``). ``per_step`` = chain / steps, rounded."""
+    targets = set()
+    for _, op, ops in instrs:
+        if op.startswith("BRA") and (m := re.search(r"0x([0-9a-f]+)",
+                                                    " ".join(ops))):
+            targets.add(int(m.group(1), 16))
+    blocks, cur = [], []
+    for addr, op, ops in instrs:
+        if addr in targets and cur:
+            blocks.append(cur)
+            cur = []
+        cur.append((op, ops))
+        if op.startswith(("BRA", "EXIT", "RET")):
+            blocks.append(cur)
+            cur = []
+    blocks.append(cur)
+    stores, chain = 0, 0
+    for block in blocks:
+        depth: dict[str, int] = {}
+        n_st = deepest = 0
+        for op, ops in block:
+            base = op.split(".")[0]
+            ndst = 2 if base.endswith("SETP") else \
+                0 if base.startswith(("ST", "LDGSTS", "BAR", "DEPBAR")) else 1
+            d = 0
+            if base in _SASS_FLOAT:
+                d = 1 + max([depth.get(r, 0)
+                             for r in _sass_regs(ops[ndst:])] or [0])
+                deepest = max(deepest, d)
+            for r in _sass_regs(ops[:ndst]):
+                depth[r] = d
+            n_st += base == "STG"
+        if n_st > stores:
+            stores, chain = n_st, deepest
+    steps = stores // stores_per_step
+    return {"steps": steps, "chain": chain,
+            "per_step": round(chain / steps) if steps else 0}
+
+
+@functools.lru_cache(maxsize=None)
+def lif_chain() -> dict:
+    """Dependent fp32 instructions a step of each LIF kernel's ring walk
+    (the fewest over its built instantiations: ``sass_chain`` on
+    ``cuobjdump -sass`` of the built library), and the card's maximum SM
+    clock (``nvidia-smi``)."""
+    nvcc = Path(build.find_nvcc())
+    lib = build.build()
+    text = subprocess.run([str(nvcc.parent / "cuobjdump"), "-sass", str(lib)],
+                          check=True, capture_output=True, text=True).stdout
+    per_step = {}
+    for name, instrs in sass_functions(text).items():
+        for kernel, ring in (("lif_soma_fwd", "lif_fwd_ring"),
+                             ("lif_soma_bwd", "lif_bwd_ring")):
+            if ring in name:
+                got = sass_chain(instrs, LIF_STORES[kernel])["per_step"]
+                per_step[kernel] = min(per_step.get(kernel, got), got)
+    if set(per_step) != set(LIF_STORES) or not all(per_step.values()):
+        fail(f"no ring walk found in the SASS of {lib.name}: {per_step}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], check=True,
+                         capture_output=True, text=True).stdout
+    return {"per_step": per_step, "dep_cycles": DEP_CYCLES,
+            "sm_clock_hz": float(smi.split()[0]) * 1e6}
+
+
+def lif_bound(kernel: str, t: int, bytes_moved: float,
+              flops: float) -> dict:
+    """``bound_ms``: the larger of the bytes over 3.35 TB/s, the
+    operations over 67 TFLOP/s and the serial chain (T steps of
+    ``per_step`` dependent instructions of ``DEP_CYCLES`` each at the
+    maximum SM clock); ``bound_by`` names it."""
+    b_ms, b_by = bound(bytes_moved, flops)
+    c = lif_chain()
+    chain_ms = t * c["per_step"][kernel] * DEP_CYCLES / c["sm_clock_hz"] * 1e3
+    return {"bound_ms": max(b_ms, chain_ms),
+            "bound_by": b_by if b_ms >= chain_ms else "chain",
+            "byte_bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+            "chain_bound_ms": chain_ms,
+            "chain_per_step": c["per_step"][kernel]}
+
+
+def lif_input(gen, t, m, d, layout):
+    """(T, M, D) input currents: contiguous, or (``"lm"``) the spiking
+    LM's (S, B, D) view of a contiguous (B, S, D) branch output."""
+    if layout == "lm":
+        return (torch.randn((m, t, d), generator=gen, device=DEVICE) * 1.2
+                + 0.3).transpose(0, 1)
+    return torch.randn((t, m, d), generator=gen, device=DEVICE) * 1.2 + 0.3
+
+
+def device_ms(fn) -> float:
+    """Device ms per call of ``fn``'s kernels (``pass_ms``)."""
+    return sum(pass_ms(fn).values())
+
+
+L2_BYTES = 50 * 2 ** 20        # H100 SXM L2, published
+
+
+def l2_cold(call, operands: tuple, moved: int):
+    """A function that runs ``call`` on the next of ``ceil(4 * L2 / moved)``
+    copies of ``operands`` (each in its operand's layout; None stays None)
+    and keeps that copy's outputs until its turn comes again. The copies and
+    their outputs span four L2s, so each call reads its inputs from device
+    memory and writes its outputs over lines that go back to it: the bytes
+    over the HBM rate bound such a call."""
+    n = max(1, math.ceil(4 * L2_BYTES / moved))
+    sets = [operands] + [tuple(None if o is None else
+                               torch.empty_like(o).copy_(o) for o in operands)
+                         for _ in range(n - 1)]
+    kept = [None] * n
+    turn = itertools.count()
+
+    def fn():
+        k = next(turn) % n
+        kept[k] = call(*sets[k])
+    return fn
+
+
+def check_lif(gen, t, m, d, case="pssa.lif/smlp.lif", layout="dense",
+              carry=False):
+    """S, U and mask (with ``carry``, from a random (u0, s0), also u_last
+    and s_last) bit-equal to the plain version, in the input's layout."""
+    x = lif_input(gen, t, m, d, layout)
+    state = (torch.randn((m, d), generator=gen, device=DEVICE) * 0.7 + 0.5,
+             spikes(gen, (m, d), 0.4)) if carry else ()
+    got = lif_soma.lif_soma_fwd(x, *state)
+    want = lif_soma.lif_soma_fwd_plain(x, *state)
     torch.cuda.synchronize()
-    bad = [n for n, a, b in zip("SUM", got, want) if not torch.equal(a, b)]
-    if bad:
-        fail(f"lif_soma_fwd differs from its plain version in {bad}")
-    b_ms, b_by = bound(4 * nbytes(x), 6.0 * x.numel())
-    return {"case": case, "shape": [t, m, d],
+    bad = [n for n, a, b in zip(("S", "U", "mask", "u_last", "s_last"), got,
+                                want) if not torch.equal(a, b)]
+    if bad or len(got) != len(want):
+        fail(f"lif_soma_fwd ({case}) differs from its plain version in {bad}")
+    if any(a.stride() != x.stride() for a in got[:3]):
+        fail(f"lif_soma_fwd ({case}) did not keep the input's layout")
+    moved = nbytes(x, *state) + nbytes(*got)
+    cold = l2_cold(lif_soma.lif_soma_fwd, (x, *state), moved)
+    return {"case": case, "shape": [t, m, d], "layout": layout,
+            "strides": list(x.stride()), "carry": carry,
+            "arm": lif_soma.choose_arm(t, m * d, x.is_contiguous(), carry),
             "max_abs_err": float((got[1] - want[1]).abs().max()),
             "spike_mismatch": 0, "compared": x.numel(),
-            "tolerance": "bitwise on S, U and mask",
-            "ms": time_ms(lambda: lif_soma.lif_soma_fwd(x)),
-            "plain_ms": time_ms(lambda: lif_soma.lif_soma_fwd_plain(x)),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            "tolerance": "bitwise on S, U and mask"
+                         + (", u_last and s_last" if carry else ""),
+            "ms": time_ms(lambda: lif_soma.lif_soma_fwd(x, *state)),
+            "device_ms": device_ms(cold),
+            "device_ms_l2_warm": device_ms(
+                lambda: lif_soma.lif_soma_fwd(x, *state)),
+            "plain_ms": time_ms(lambda: lif_soma.lif_soma_fwd_plain(
+                x, *state)),
+            "library_ms": None,
+            **lif_bound("lif_soma_fwd", t, moved, 6.0 * x.numel())}
 
 
 def int21(gen, shape):
@@ -378,13 +567,16 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
-def check_lif_bwd(gen, t, m, d, case="pssa.lif/smlp.lif", carry=True):
+def check_lif_bwd(gen, t, m, d, case="pssa.lif/smlp.lif", carry=True,
+                  layout="dense"):
     """Bitwise: the kernel and the plain version round every operation of
-    eq. 12 once, in the same order. With ``carry``, also the variant
-    seeded by the carry's cotangent (``time_chunk``)."""
-    x = torch.randn((t, m, d), generator=gen, device=DEVICE) * 1.2 + 0.3
+    eq. 12 once, in the same order; dx in the operands' layout. With
+    ``carry``, also the variant seeded by the carry's cotangent
+    (``time_chunk``)."""
+    x = lif_input(gen, t, m, d, layout)
     s, u, mask = lif_soma.lif_soma_fwd_plain(x)
-    g = torch.randn((t, m, d), generator=gen, device=DEVICE)
+    g = torch.empty_like(u).copy_(torch.randn((t, m, d), generator=gen,
+                                              device=DEVICE))
     gu = torch.randn((m, d), generator=gen, device=DEVICE)
     rows = []
     cases = [(case, None)] + ([("time_chunk carry (gu_last)", gu)]
@@ -395,16 +587,26 @@ def check_lif_bwd(gen, t, m, d, case="pssa.lif/smlp.lif", carry=True):
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             fail(f"lif_soma_bwd ({name}) differs from its plain version")
+        if got.stride() != g.stride():
+            fail(f"lif_soma_bwd ({name}) did not keep the operands' layout")
         ins = (g, u, s, mask) + ((gu_last,) if gu_last is not None else ())
-        b_ms, b_by = bound(nbytes(*ins, got), 7.0 * x.numel())
         rows.append({
-            "case": name, "shape": [t, m, d], "max_abs_err": 0.0,
-            "tolerance": "bitwise",
+            "case": name, "shape": [t, m, d], "layout": layout,
+            "strides": list(g.stride()),
+            "arm": lif_soma.choose_arm(t, m * d, g.is_contiguous()),
+            "max_abs_err": 0.0, "tolerance": "bitwise",
             "ms": time_ms(lambda: lif_soma.lif_soma_bwd(g, u, s, mask,
                                                         gu_last)),
+            "device_ms": device_ms(l2_cold(lif_soma.lif_soma_bwd,
+                                           (g, u, s, mask, gu_last),
+                                           nbytes(*ins, got))),
+            "device_ms_l2_warm": device_ms(lambda: lif_soma.lif_soma_bwd(
+                g, u, s, mask, gu_last)),
             "plain_ms": time_ms(lambda: lif_soma.lif_soma_bwd_plain(
                 g, u, s, mask, gu_last)),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+            "library_ms": None,
+            **lif_bound("lif_soma_bwd", t, nbytes(*ins, got),
+                        7.0 * x.numel())})
     return rows
 
 
@@ -1300,11 +1502,14 @@ LM_FWD_BATCHES = (1, LM_SLOTS)         # the forward's token batches
 
 
 def lm_lif_cases(gen) -> dict[str, list[dict]]:
-    """``lif_soma_fwd`` at the spiking LM's shapes: decode (1, slots, d),
-    the forward's (S, B, d) at each of ``LM_FWD_BATCHES`` and the training
-    step's (S, B, d); S, U and mask bit-equal to the plain version
-    (``check_lif`` fails otherwise). ``lif_soma_bwd`` at the training
-    step's shape, bit-equal too. ``path`` names the run whose launches
+    """``lif_soma_fwd`` at the spiking LM's shapes, in the layouts the
+    model hands the kernel: decode (1, slots, d) from the carried state
+    (one launch a layer), the forward's (S, B, d) at each of
+    ``LM_FWD_BATCHES`` and the training step's (S, B, d), both as the
+    (S, B, d) view of the (B, S, d) branch output; S, U and mask (and the
+    decode's final state) bit-equal to the plain version (``check_lif``
+    fails otherwise). ``lif_soma_bwd`` at the training step's shape in
+    that layout, bit-equal too. ``path`` names the run whose launches
     ``lm_launches`` adds to the case once the LM phases have counted
     them."""
     d = get_config(LM_ARCH).d_model
@@ -1315,11 +1520,14 @@ def lm_lif_cases(gen) -> dict[str, list[dict]]:
                        (LM_TRAIN_SEQ, LM_TRAIN_BATCH, "lm_train")):
         where = {"lm_serve": "decode", "lm_train": "train"}.get(path,
                                                                 "forward")
-        row = check_lif(gen, t, m, d, case=f"lm.ffn.lif {where}")
+        decode = path == "lm_serve"
+        row = check_lif(gen, t, m, d, case=f"lm.ffn.lif {where}",
+                        layout="dense" if decode else "lm", carry=decode)
         row.update(bitwise=True, path=path)
         rows["lif_soma_fwd"].append(row)
     for row in check_lif_bwd(gen, LM_TRAIN_SEQ, LM_TRAIN_BATCH, d,
-                             case="lm.ffn.lif train", carry=False):
+                             case="lm.ffn.lif train", carry=False,
+                             layout="lm"):
         row.update(bitwise=True, path="lm_train")
         rows["lif_soma_bwd"].append(row)
     return rows

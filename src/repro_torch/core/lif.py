@@ -15,11 +15,12 @@ The reset path stays attached (``s_prev`` is never detached), so the
 
 ``LIFConfig.policy`` selects the execution path for ``lif_scan`` through the
 kernel registry: the ``"eager"`` implementation is a Python loop over T in
-plain tensor code; ``"cuda"`` folds the input to (T, M, D) and runs the
-SOMA/GRAD kernel pair (``repro_torch.kernels.ops.lif_soma_op``), whose
-backward *is* eq. 12. The state-carrying ``lif_state`` op (temporal tiling,
-streaming) folds the carried state into the first step and seeds the GRAD
-kernel with the carry's cotangent.
+plain tensor code; ``"cuda"`` runs the SOMA/GRAD kernel pair
+(``repro_torch.kernels.ops.lif_soma_op``), whose backward *is* eq. 12, on
+the (T, M, D) input as it is (folded where it is not 3-D). The
+state-carrying ``lif_state`` op (temporal tiling, streaming, decode) starts
+the SOMA kernel from the carried state and seeds the GRAD kernel with the
+carry's cotangent.
 """
 from __future__ import annotations
 
@@ -107,20 +108,34 @@ def _lif_scan_eager(x_seq: torch.Tensor, cfg: LIFConfig,
 @register_kernel("lif", "cuda")
 def _lif_scan_cuda(x_seq: torch.Tensor, cfg: LIFConfig,
                    site: str) -> torch.Tensor:
-    """Kernel dispatch: fold (T, ..., D) -> (T, M, D), run the SOMA op (GRAD
-    kernel in its backward), and unfold. LIF is elementwise over the folded axes so the reshape is
-    exact."""
-    from repro_torch.core.backend import fold_time_major
+    """Kernel dispatch: run the SOMA op (GRAD kernel in its backward) on
+    the (T, M, D) input (:func:`_time_major_3d`), and unfold. LIF is
+    elementwise over the folded axes so the reshape is exact."""
     from repro_torch.kernels import ops  # deferred: eager stays import-light
 
     if x_seq.ndim < 2:   # the kernel needs a (T, M, D)-foldable input
         runtime_fallback(site, "cuda",
                          f"input ndim {x_seq.ndim} < 2 -> eager scan")
         return _lif_scan_eager(x_seq, cfg, site)
-    x3, shape = fold_time_major(x_seq.contiguous())
+    x3, shape = _time_major_3d(x_seq)
     s = ops.lif_soma_op(x3, cfg.alpha, cfg.th_fire, cfg.th_lo, cfg.th_hi,
                         cfg.grad_scale)
     return s.reshape(shape)
+
+
+def _time_major_3d(x_seq: torch.Tensor):
+    """The kernels' (T, M, D) operand and ``x_seq``'s shape. A 3-D input
+    whose last axis has unit stride goes as it is, in any layout of T and
+    M (the LM's (S, B, D) view of its (B, S, D) branch output is read in
+    place, and the spikes come back in that layout); anything else is
+    folded (``fold_time_major``), and copied explicitly where the fold
+    leaves D strided."""
+    from repro_torch.core.backend import fold_time_major
+    from repro_torch.kernels.lif_soma import unit_d
+
+    x3, shape = (x_seq, tuple(x_seq.shape)) if x_seq.ndim == 3 else \
+        fold_time_major(x_seq)
+    return (x3 if unit_d(x3) else x3.contiguous()), shape
 
 
 @register_kernel("lif_state", "eager")
@@ -138,17 +153,16 @@ def _lif_state_eager(x_seq: torch.Tensor, u0: torch.Tensor, s0: torch.Tensor,
 @register_kernel("lif_state", "cuda")
 def _lif_state_cuda(x_seq: torch.Tensor, u0: torch.Tensor, s0: torch.Tensor,
                     cfg: LIFConfig, site: str):
-    """Stateful SOMA on the kernel: the carried state folds into the first
-    input step, so the SOMA kernel itself is unchanged, and the GRAD kernel
-    is seeded with the carry's cotangent."""
-    from repro_torch.core.backend import fold_time_major
+    """Stateful SOMA on the kernel: one launch starts from the carried
+    state and writes the final one; the GRAD kernel is seeded with the
+    carry's cotangent. The input goes as :func:`_time_major_3d` says."""
     from repro_torch.kernels import ops
 
     if x_seq.ndim < 2:
         runtime_fallback(site, "cuda",
                          f"input ndim {x_seq.ndim} < 2 -> eager stateful scan")
         return _lif_state_eager(x_seq, u0, s0, cfg, site)
-    x3, shape = fold_time_major(x_seq.contiguous())
+    x3, shape = _time_major_3d(x_seq)
     state_fold = x3.shape[1:]
     s, u_last, s_last = ops.lif_soma_carry_op(
         x3, u0.reshape(state_fold), s0.reshape(state_fold), cfg.alpha,

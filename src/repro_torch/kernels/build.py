@@ -42,11 +42,15 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: pointer or a stream passed without its ``c_void_p`` entry here would be
 #: cut to 32 bits by ctypes.
 SIGNATURES: dict[str, tuple] = {
-    # x, s, u, mask, n (= M*D), T, alpha, th_fire, th_lo, th_hi, stream
-    "e2a_lif_soma_fwd": (_P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _P),
-    # g, u, s, mask, gu_last (nullable), dx, n (= M*D), T, alpha,
-    # grad_scale, stream
-    "e2a_lif_soma_bwd": (_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _P),
+    # x, s, u, mask, u0, s0, u_last, s_last (the last four nullable), M, D,
+    # T, 2 input strides (t, m), 2 output strides (t, m), alpha, th_fire,
+    # th_lo, th_hi, arm (1 flat, 2 ring), stream
+    "e2a_lif_soma_fwd": (_P,) * 8 + (_L, _I, _I) + (_L,) * 4 + (_F,) * 4 +
+                        (_I, _P),
+    # g, u, s, mask, gu_last (nullable), dx, M, D, T, 2 input strides,
+    # 2 output strides, alpha, grad_scale, arm, stream
+    "e2a_lif_soma_bwd": (_P,) * 6 + (_L, _I, _I) + (_L,) * 4 + (_F, _F, _I,
+                                                               _P),
     # packed, w, out, G1, G2, M, C, K, 4 packed strides (g1, g2, m, byte),
     # 4 w strides (g1, g2, c, k), 4 out strides (g1, g2, m, k), stream
     "e2a_spike_matmul": (_P, _P, _P, _I, _I, _I, _I, _I) + (_L,) * 12 + (_P,),

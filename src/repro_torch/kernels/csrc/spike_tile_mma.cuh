@@ -35,9 +35,11 @@
 //       matrix start 16 bytes apart modulo 128, so the eight 16-byte rows hit
 //       distinct bank groups and the load is conflict-free.
 //
-// The three PTX wrappers (cp_async, ldmatrix_x4_trans, mma_bf16) are all
-// the inline assembly there is; a host emulation of the thread model can
-// define E2A_HOST_EMULATION and supply them.
+// The PTX wrappers (cp_async, cp_async_commit, cp_async_wait,
+// cp_async_wait_all, ldmatrix_x4_trans, mma_bf16) are all the inline
+// assembly there is; a host emulation of the thread model can define
+// E2A_HOST_EMULATION and supply them (lif_soma.cu uses the cp.async three
+// alone).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -99,6 +101,12 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Four transposed 8x8 bf16 matrices; lane i gives the address of row i % 8

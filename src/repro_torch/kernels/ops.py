@@ -28,6 +28,15 @@ from repro_torch.kernels import conv_spike, fused_bn, lif_soma, \
     neuron_layer, spike_matmul
 
 
+def _in_layout_of(g: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``g`` itself where it already has ``ref``'s layout (the GRAD kernel
+    takes g, U, S and mask in one layout), else an explicit copy of ``g``
+    into that layout."""
+    if lif_soma.same_layout(g, ref):
+        return g
+    return torch.empty_like(ref).copy_(g)
+
+
 class _LifSoma(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, alpha, th_fire, th_lo, th_hi, grad_scale):
@@ -41,39 +50,50 @@ class _LifSoma(torch.autograd.Function):
     def backward(ctx, g):
         u, s, mask = ctx.saved_tensors
         alpha, grad_scale = ctx.lif
-        dx = lif_soma.lif_soma_bwd(g.contiguous(), u, s, mask, alpha=alpha,
-                                   grad_scale=grad_scale)
+        dx = lif_soma.lif_soma_bwd(_in_layout_of(g, u), u, s, mask,
+                                   alpha=alpha, grad_scale=grad_scale)
         return dx, None, None, None, None, None
 
 
 def lif_soma_op(x: torch.Tensor, alpha: float = 0.5, th_fire: float = 1.0,
                 th_lo: float = 0.0, th_hi: float = 2.0,
                 grad_scale: float = 1.0) -> torch.Tensor:
-    """Differentiable fused LIF over (T, M, D); returns spikes."""
+    """Differentiable fused LIF over (T, M, D); returns spikes (in ``x``'s
+    layout, as every tensor the kernels return)."""
     return _LifSoma.apply(x, alpha, th_fire, th_lo, th_hi, grad_scale)
 
 
 class _LifSomaCarry(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, u0, s0, alpha, th_fire, th_lo, th_hi, grad_scale):
-        x = x.clone()
-        x[0] += alpha * u0 * (1.0 - s0)
-        s, u, mask = lif_soma.lif_soma_fwd(x, alpha=alpha, th_fire=th_fire,
-                                           th_lo=th_lo, th_hi=th_hi)
+        # the kernel takes the (M, D) state contiguous: a no-op for the
+        # state the callers carry (the kernel's own u_last / s_last, a
+        # serving cache row, zeros)
+        u0, s0 = u0.contiguous(), s0.contiguous()
+        s, u, mask, u_last, s_last = lif_soma.lif_soma_fwd(
+            x, u0, s0, alpha=alpha, th_fire=th_fire, th_lo=th_lo,
+            th_hi=th_hi)
         ctx.save_for_backward(u, s, mask, u0, s0)
         ctx.lif = (alpha, grad_scale)
-        return s, u[-1].clone(), s[-1].clone()
+        ctx.set_materialize_grads(False)   # an unused output's grad: None
+        return s, u_last, s_last
 
     @staticmethod
     def backward(ctx, g_s, g_u_last, g_s_last):
         u, s, mask, u0, s0 = ctx.saved_tensors
         alpha, grad_scale = ctx.lif
-        # s_last IS spikes[-1]: its cotangent joins the per-step one.
-        g_eff = g_s.clone() if g_s is not None else torch.zeros_like(s)
+        # s_last IS spikes[-1]: its cotangent joins the per-step one, in a
+        # buffer of U's layout (autograd's g_s is never written to)
+        if g_s is None:
+            g_eff = torch.zeros_like(u)
+        elif g_s_last is not None:
+            g_eff = torch.empty_like(u).copy_(g_s)
+        else:
+            g_eff = _in_layout_of(g_s, u)
         if g_s_last is not None:
             g_eff[-1] += g_s_last
         dx = lif_soma.lif_soma_bwd(
-            g_eff.contiguous(), u, s, mask,
+            g_eff, u, s, mask,
             g_u_last.contiguous() if g_u_last is not None else None,
             alpha=alpha, grad_scale=grad_scale)
         # U_1 = alpha * u0 * (1 - s0) + X_1 and dU_1/dX_1 = 1, so dL/dU_1 =
@@ -89,10 +109,10 @@ def lif_soma_carry_op(x: torch.Tensor, u0: torch.Tensor, s0: torch.Tensor,
                       grad_scale: float = 1.0):
     """State-carrying fused LIF over (T, M, D): starts from the carried
     ``(u0, s0)`` (each (M, D)) instead of rest and returns ``(spikes,
-    u_last, s_last)``. The initial state folds into the first input step
-    (eq. 11: U_1 = alpha * u0 * (1 - s0) + X_1), so the SOMA kernel itself
-    is unchanged; the backward seeds the GRAD kernel with the incoming
-    dL/du_last and returns exact (du0, ds0)."""
+    u_last, s_last)``, all from one SOMA launch: the kernel computes step 0
+    as alpha * u0 * (1 - s0) + X_1 (eq. 11, ``core.lif.lif_step``'s order)
+    and writes the final state. The backward seeds the GRAD kernel with the
+    incoming dL/du_last and returns exact (du0, ds0)."""
     return _LifSomaCarry.apply(x, u0, s0, alpha, th_fire, th_lo, th_hi,
                                grad_scale)
 
@@ -191,8 +211,8 @@ def _replay_soma(y, g_s, alpha, th_fire, th_lo, th_hi, grad_scale):
     the SOMA kernel and run the GRAD kernel on them: dL/dy."""
     s, u, mask = lif_soma.lif_soma_fwd(y, alpha=alpha, th_fire=th_fire,
                                        th_lo=th_lo, th_hi=th_hi)
-    return lif_soma.lif_soma_bwd(g_s.to(y.dtype).contiguous(), u, s, mask,
-                                 alpha=alpha, grad_scale=grad_scale)
+    return lif_soma.lif_soma_bwd(_in_layout_of(g_s.to(y.dtype), u), u, s,
+                                 mask, alpha=alpha, grad_scale=grad_scale)
 
 
 def _matmul_vjp(x, w, dz):

@@ -620,7 +620,8 @@ def test_lif_soma_fwd_at_the_lm_shapes(t, m):
     """Decode (1, slots, d) and the forward's (S, B, d), d = 1024: S, U and
     mask bit-equal to the plain version; and the forward's LIF scan on the
     (B, S, d) branch output with its axes swapped (a non-contiguous view,
-    made contiguous by the ``cuda`` arm) equal to the eager scan."""
+    which the ``cuda`` arm hands the kernel as it is: the spikes come back
+    in its layout) equal to the eager scan."""
     from repro_torch.core.lif import LIFConfig, lif_scan
     from repro_torch.core.policy import named_policy
     dev = _card()
@@ -635,6 +636,7 @@ def test_lif_soma_fwd_at_the_lm_shapes(t, m):
     cuda = lif_scan(swapped, LIFConfig(policy=named_policy("cuda-full")))
     eager = lif_scan(swapped, LIFConfig())
     assert torch.equal(cuda, eager)
+    assert lif_soma.same_layout(cuda, swapped)   # strides of size-1 axes aside
     torch.cuda.synchronize()
     assert launch_counts()["lif_soma_fwd"] == 2
 
@@ -664,6 +666,160 @@ def test_lif_soma_step_op_equals_lif_step_bitwise():
         assert torch.equal(u_k, u_e)
     torch.cuda.synchronize()
     assert launch_counts()["lif_soma_fwd"] == 6
+    # The carry runs inside the kernel (one launch a step, no fold into
+    # x[0]), so U equals lif_step's to the sign of a zero: from u0 < 0 and
+    # s0 = 1, alpha * u0 * (1 - s0) is -0, and -0 + x keeps x's sign.
+    u0 = torch.full((8, 1024), -0.5, device=dev)
+    s0 = torch.ones(8, 1024, device=dev)
+    x = torch.zeros(8, 1024, device=dev)
+    x[:, ::2] = -0.0
+    s, u_k, s_k = ops.lif_soma_step_op(x, u0, s0, cfg.alpha, cfg.th_fire,
+                                       cfg.th_lo, cfg.th_hi, cfg.grad_scale)
+    u_e, s_e = lif_step(u0, s0, x, cfg)
+    assert torch.equal(u_k.view(torch.int32), u_e.view(torch.int32))
+    assert torch.equal(s_k.view(torch.int32), s_e.view(torch.int32))
+    assert bool(torch.signbit(u_k[:, ::2]).all())
+    torch.cuda.synchronize()
+    assert launch_counts()["lif_soma_fwd"] == 7
+
+
+def _lif_input(rng, t, m, d, layout, dev):
+    """(T, M, D) contiguous, or the LM's (S, B, D) view of (B, S, D)."""
+    if layout == "lm":
+        return _t(rng.normal(0.3, 1.2, (m, t, d)).astype(np.float32)).to(
+            dev).transpose(0, 1)
+    return _t(rng.normal(0.3, 1.2, (t, m, d)).astype(np.float32)).to(dev)
+
+
+def _fwd_on(arm, x, *state):
+    """``lif_soma_fwd``'s launch on one arm (the wrapper picks one)."""
+    return lif_soma._launch_fwd(x, *(state or (None, None)), arm,
+                                (0.5, 1.0, 0.0, 2.0),
+                                torch.cuda.current_stream().cuda_stream)
+
+
+def _bwd_on(arm, g, u, s, mask, gu_last=None):
+    return lif_soma._launch_bwd(g, u, s, mask, gu_last, arm, (0.5, 1.0),
+                                torch.cuda.current_stream().cuda_stream)
+
+
+def _check_lif_arms(rng, t, m, d, layout, dev):
+    """Both kernels on every arm that takes the layout, from rest and from a
+    carried state, with and without ``gu_last``: bit-equal to the plain
+    versions, outputs in the operands' layout."""
+    x = _lif_input(rng, t, m, d, layout, dev)
+    u0 = _t(rng.normal(0.4, 0.8, (m, d)).astype(np.float32)).to(dev)
+    s0 = _t(_spikes(rng, (m, d), 0.4)).to(dev)
+    gu = _t(rng.normal(0, 1, (m, d)).astype(np.float32)).to(dev)
+    for arm in ("ring", "flat"):
+        if arm == "flat" and not x.is_contiguous():
+            continue
+        for state in ((), (u0, s0)):
+            if arm == "flat" and state:
+                continue
+            got = _fwd_on(arm, x, *state)
+            want = lif_soma.lif_soma_fwd_plain(x, *state)
+            assert len(got) == len(want) == 3 + len(state)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (arm, len(state))
+            assert all(a.stride() == x.stride() for a in got[:3])
+            s, u, mask = got[:3]
+            g = torch.empty_like(u).copy_(_t(rng.normal(
+                0, 1, (t, m, d)).astype(np.float32)))
+            for carry in (None, gu):
+                dx = _bwd_on(arm, g, u, s, mask, carry)
+                assert torch.equal(dx, lif_soma.lif_soma_bwd_plain(
+                    g, u, s, mask, carry)), (arm, carry is None)
+                assert dx.stride() == g.stride()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,m,d", [(1, 8, 1024), (4, 3136, 512),
+                                   (128, 8, 1024), (256, 1, 1024),
+                                   (256, 8, 1024)])
+@pytest.mark.parametrize("layout", ["dense", "lm"])
+def test_lif_kernels_bitwise_at_the_path_shapes(t, m, d, layout):
+    """The decode, training, forward and Spikingformer shapes, contiguous
+    and as the LM's (S, B, D) view: both kernels bit-equal to their plain
+    versions on each arm, from rest and from a carried state, with and
+    without ``gu_last``."""
+    _check_lif_arms(np.random.default_rng(t * m), t, m, d, layout, _card())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 5, 127, 129, 1000])
+@pytest.mark.parametrize("m,d", [(1, 1), (1, 3), (1, 37), (3, 2731)])
+def test_lif_kernels_bitwise_at_ragged_shapes(t, m, d):
+    """T = 1, 5, 127, 129, 1000 (a ragged last chunk of the ring) over
+    n = 1, 3, 37, 8193 elements (no full warp, D not a multiple of 32 or of
+    4), contiguous and as a swapped view."""
+    dev = _card()
+    rng = np.random.default_rng(t + m * d)
+    for layout in ("dense", "lm"):
+        _check_lif_arms(rng, t, m, d, layout, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,m,d", [(100, 8, 1024), (129, 2, 1024),
+                                   (1000, 1, 64), (70, 20, 1024)])
+def test_lif_ring_arm_wide_copies_over_a_ragged_last_chunk(t, m, d):
+    """D % 32 == 0 with 16-byte aligned rows: the ring arm's warp-shared
+    16-byte copies, over whole 64-step chunks and then a ragged one (T =
+    100, 129, 1000, 70), in blocks of 32 threads and (n = 20,480) of 64;
+    both kernels, contiguous and as the LM's (S, B, D) view, from rest and
+    from a carried state, with and without ``gu_last``, bit-equal to the
+    plain versions."""
+    dev = _card()
+    rng = np.random.default_rng(t * m + d)
+    for layout in ("dense", "lm"):
+        _check_lif_arms(rng, t, m, d, layout, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("below", [True, False])
+def test_lif_kernels_on_both_sides_of_the_arm_crossover(below):
+    """Just below and at ``FLAT_MIN_N`` elements, at T = 16, the rule
+    changes arm; each side bit-equal to the plain versions, one launch a
+    call."""
+    dev = _card()
+    t, d = 16, 1024
+    m = lif_soma.FLAT_MIN_N // d - (1 if below else 0)
+    assert lif_soma.choose_arm(t, m * d, True) == ("ring" if below
+                                                   else "flat")
+    rng = np.random.default_rng(m)
+    x = _lif_input(rng, t, m, d, "dense", dev)
+    reset_launch_counts()
+    got = lif_soma.lif_soma_fwd(x)
+    for a, b in zip(got, lif_soma.lif_soma_fwd_plain(x)):
+        assert torch.equal(a, b)
+    g = torch.randn_like(x)
+    assert torch.equal(lif_soma.lif_soma_bwd(g, got[1], got[0], got[2]),
+                       lif_soma.lif_soma_bwd_plain(g, got[1], got[0],
+                                                   got[2]))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert (counts["lif_soma_fwd"], counts["lif_soma_bwd"]) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_lif_kernels_refuse_what_they_do_not_take():
+    """No arm stands in for another: the flat arm's entry refuses a view
+    and a carried state, GRAD operands of two layouts, and the wrappers a
+    strided D."""
+    dev = _card()
+    x = torch.randn(4, 16, 64, device=dev)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _fwd_on("flat", x.transpose(0, 1))
+    z = torch.zeros(16, 64, device=dev)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _fwd_on("flat", x, z, z)
+    s, u, mask = lif_soma.lif_soma_fwd(x)
+    g = x.transpose(0, 1).contiguous().transpose(0, 1)   # x's shape, not
+    with pytest.raises(ValueError, match="one layout"):   # its layout
+        lif_soma.lif_soma_bwd(g, u, s, mask)
+    with pytest.raises(ValueError, match="unit stride"):
+        lif_soma.lif_soma_fwd(x.transpose(1, 2))
 
 
 @pytest.mark.cuda
