@@ -26,16 +26,33 @@ recomputed in the backward): step 0's loss and every gradient leaf under
 three timed steps of 8 x 128 ``SyntheticLM`` tokens under each policy
 through the training driver's ``repro_torch.launch.train.train``, with the
 ``lif_soma_fwd`` / ``lif_soma_bwd`` launches per step asserted (56 / 28:
-the forward's 28, the recompute's 28 and the backward's 28). It needs one CUDA device and
-``nvcc`` and fails (non-zero exit, no result line) without them. Every phase prints one JSON line; the line before the last but
-one lists the kernels, and the last line is the verdict.
+the forward's 28, the recompute's 28 and the backward's 28). Then it runs
+the autotuner at ``spikingformer-8-512``, batch 16, ``cuda-full``, full
+width and depth: sparsity measured on the card, the nine tunable sites,
+each candidate (a spike-matmul tile, or a neuron layer's fused or pipeline
+arm) timed with the L2 cold, the winners written as a table keyed by the
+card and consulted by a forward and a training step, each compared with
+the same call without a table (exact weights: the forward bit-equal), and
+the paper's energy model (its 28 nm ASIC, not this card) at the default
+and the measured sparsity. Every other phase runs with no table. It
+needs one CUDA device and ``nvcc`` and fails (non-zero exit, no result
+line) without them. Every phase prints one JSON line; the line before the
+last but one lists the kernels, and the last line is the verdict.
 
-Times are CUDA-event times after a warm-up, inputs left warm in the L2 cache
-as the model leaves them (but the LIF cases' ``device_ms``, below). ``bound_ms`` is the least time the card could
-take: the larger of the bytes the function must move (inputs once, outputs
-once) over 3.35 TB/s and the fp32 operations these inputs need over
+``ms`` times are CUDA-event times after a warm-up, inputs left warm in the
+L2 cache as the model leaves them. ``bound_ms`` is the least time the card
+could take: the larger of the bytes the function must move (inputs once,
+outputs once) over 3.35 TB/s and the fp32 operations these inputs need over
 67 TFLOP/s (the published H100 SXM rates; spikes are data, so the spike
 products count one addition per set bit and output column). The spike
+matmul cases run with the wrapper's tile rule and with each tile forced
+(``tile``; the first case of a site carries ``tiles_bitwise_equal``),
+and every kernel case carries its device time, ten calls back to back
+behind a held stream (``queued_ms``), with the L2 cold (``device_ms``:
+each call on the next of copies of its operands that span four L2s with
+their outputs, ``l2_cold``, so its bytes come from and go to device
+memory, as the byte bound counts them) and warm (``device_ms_l2_warm``:
+the same operands every call). The spike
 matmul cases also carry ``tc_bound_ms``, the ceiling of their tensor-core
 design: the same bytes, or three dense bf16 passes (3 * 2MCK operations,
 one per plane of the exact weight split) over 989 TFLOP/s. They carry as
@@ -67,25 +84,22 @@ carried state, whose final state must match too; forward (256, 1 or 8,
 ``bitwise`` and its launches per decode step or forward, as counted on
 that path in this run; it and ``lif_soma_bwd`` run at the LM's training
 shape (128, 8, 1024), in that view, too, with their launches per training
-step. Every LIF case names its ``arm`` (``flat`` or ``ring``), carries its
-device time (``torch.profiler``) with the L2 cold (``device_ms``: each call
-on the next of copies of its operands that span four L2s with their
-outputs, so its bytes come from and go to device memory, as the byte bound
-counts them) and warm (``device_ms_l2_warm``: the same operands every
-call), and bounds its time by the
-recursion as well: ``bound_ms`` is the larger of the byte time and T steps
-of the serial chain (the dependent fp32 instructions a step of the built
-ring kernel's SASS holds, ``cuobjdump -sass``, at 4 cycles each and the
-card's maximum SM clock), ``bound_by`` ``"bytes"`` or ``"chain"``.
+step. Every LIF case names its ``arm`` (``flat`` or ``ring``) and bounds
+its time by the recursion as well: ``bound_ms`` is the larger of the byte
+time and T steps of the serial chain (the dependent fp32 instructions a
+step of the built ring kernel's SASS holds, ``cuobjdump -sass``, at 4
+cycles each and the card's maximum SM clock), ``bound_by`` ``"bytes"`` or
+``"chain"``.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
-import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -125,6 +139,8 @@ from repro_torch.train.data import (DataConfig, SyntheticLM,  # noqa: E402
 from repro_torch.train.loop import make_train_step  # noqa: E402
 from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
                                          init_opt_state)
+from repro_torch.tune.autotune import (L2_BYTES, l2_cold,  # noqa: E402,F401
+                                       queued_ms)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
@@ -316,32 +332,14 @@ def lif_input(gen, t, m, d, layout):
     return torch.randn((t, m, d), generator=gen, device=DEVICE) * 1.2 + 0.3
 
 
-def device_ms(fn) -> float:
-    """Device ms per call of ``fn``'s kernels (``pass_ms``)."""
-    return sum(pass_ms(fn).values())
-
-
-L2_BYTES = 50 * 2 ** 20        # H100 SXM L2, published
-
-
-def l2_cold(call, operands: tuple, moved: int):
-    """A function that runs ``call`` on the next of ``ceil(4 * L2 / moved)``
-    copies of ``operands`` (each in its operand's layout; None stays None)
-    and keeps that copy's outputs until its turn comes again. The copies and
-    their outputs span four L2s, so each call reads its inputs from device
-    memory and writes its outputs over lines that go back to it: the bytes
-    over the HBM rate bound such a call."""
-    n = max(1, math.ceil(4 * L2_BYTES / moved))
-    sets = [operands] + [tuple(None if o is None else
-                               torch.empty_like(o).copy_(o) for o in operands)
-                         for _ in range(n - 1)]
-    kept = [None] * n
-    turn = itertools.count()
-
-    def fn():
-        k = next(turn) % n
-        kept[k] = call(*sets[k])
-    return fn
+def cold_warm(call, operands: tuple, moved: int) -> dict:
+    """Device ms per call of ``call(*operands)``, ten calls back to back
+    behind a held stream (``queued_ms``): with the L2 cold (``l2_cold``) and
+    warm (the same operands every call)."""
+    return {"device_ms": queued_ms(l2_cold(call, operands, moved), 10,
+                                   DEVICE),
+            "device_ms_l2_warm": queued_ms(lambda: call(*operands), 10,
+                                           DEVICE)}
 
 
 def check_lif(gen, t, m, d, case="pssa.lif/smlp.lif", layout="dense",
@@ -361,7 +359,6 @@ def check_lif(gen, t, m, d, case="pssa.lif/smlp.lif", layout="dense",
     if any(a.stride() != x.stride() for a in got[:3]):
         fail(f"lif_soma_fwd ({case}) did not keep the input's layout")
     moved = nbytes(x, *state) + nbytes(*got)
-    cold = l2_cold(lif_soma.lif_soma_fwd, (x, *state), moved)
     return {"case": case, "shape": [t, m, d], "layout": layout,
             "strides": list(x.stride()), "carry": carry,
             "arm": lif_soma.choose_arm(t, m * d, x.is_contiguous(), carry),
@@ -370,9 +367,7 @@ def check_lif(gen, t, m, d, case="pssa.lif/smlp.lif", layout="dense",
             "tolerance": "bitwise on S, U and mask"
                          + (", u_last and s_last" if carry else ""),
             "ms": time_ms(lambda: lif_soma.lif_soma_fwd(x, *state)),
-            "device_ms": device_ms(cold),
-            "device_ms_l2_warm": device_ms(
-                lambda: lif_soma.lif_soma_fwd(x, *state)),
+            **cold_warm(lif_soma.lif_soma_fwd, (x, *state), moved),
             "plain_ms": time_ms(lambda: lif_soma.lif_soma_fwd_plain(
                 x, *state)),
             "library_ms": None,
@@ -394,7 +389,7 @@ def at_most_12(s):
     return s * (s.cumsum(-1) <= 12)
 
 
-def check_matmul(case, packed, w, fn, shared_w=False, exact=None):
+def check_matmul(case, packed, w, fn, shared_w=False, exact=None, tile=0):
     """``fn(packed, w)`` against fp32 ``torch.matmul`` on the unpacked
     operand (rtol 1e-5, atol 1e-4: the same exact products, summed in
     another order and rounded otherwise). Both are also compared with an
@@ -402,7 +397,10 @@ def check_matmul(case, packed, w, fn, shared_w=False, exact=None):
     rounding apart from the library's. ``exact``, where given, is another
     ``(packed, w)`` of the same layout with ``int21`` weights on
     ``at_most_12`` rows: every partial sum is exact, so the kernel must
-    equal ``torch.matmul`` bit for bit."""
+    equal ``torch.matmul`` bit for bit. ``tile`` is forced on the kernel
+    (0: ``default_tile``). ``device_ms`` / ``device_ms_l2_warm``: the
+    kernel's device time with the L2 cold and warm (``cold_warm``)."""
+    fn = functools.partial(fn, tile=tile)
     got = fn(packed, w)
     dense = spike_matmul.spike_unpack(packed, torch.float32)
     want = torch.matmul(dense, w)
@@ -436,15 +434,19 @@ def check_matmul(case, packed, w, fn, shared_w=False, exact=None):
     moved = nbytes(packed, got) + w_bytes
     b_ms, b_by = bound(moved, float(dense.sum()) * k)
     c = w.shape[-2]
+    rows = packed.shape[-2]
     return {"case": case, "shape": {"packed": list(packed.shape),
                                     "w": list(w.shape),
                                     "w_stride": list(w.stride())},
+            "tile": tile, "tile_ran": spike_matmul.TILES[
+                tile or spike_matmul.default_tile(rows)].name,
             "max_abs_err": float(err.max()),
             "tolerance": "rtol 1e-5, atol 1e-4 vs fp32 torch.matmul"
                          + ("; bitwise on 21-bit integer weights, <= 12 "
                             "spikes a row" if exact is not None else ""),
             "bitwise_21bit": exact_equal, "err_vs_fp64": vs_fp64,
             "ms": time_ms(lambda: fn(packed, w)),
+            **cold_warm(fn, (packed, w), moved),
             "plain_ms": time_ms(
                 lambda: spike_matmul.spike_matmul_packed_plain(packed, w)),
             "library_ms": time_ms(lambda: torch.matmul(dense, w)),
@@ -532,6 +534,8 @@ def check_neuron_layer(gen, case, t, m, c, k, packed):
         "bitwise_spike_matmul": exact, **(dense or {}),
         "ms": time_ms(lambda: neuron_layer.neuron_layer_eval(
             x, w, bias, packed=packed)),
+        **cold_warm(functools.partial(neuron_layer.neuron_layer_eval,
+                                      packed=packed), (x, w, bias), moved),
         "plain_ms": time_ms(lambda: neuron_layer.neuron_layer_eval_plain(
             x, w, bias)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
@@ -597,11 +601,8 @@ def check_lif_bwd(gen, t, m, d, case="pssa.lif/smlp.lif", carry=True,
             "max_abs_err": 0.0, "tolerance": "bitwise",
             "ms": time_ms(lambda: lif_soma.lif_soma_bwd(g, u, s, mask,
                                                         gu_last)),
-            "device_ms": device_ms(l2_cold(lif_soma.lif_soma_bwd,
-                                           (g, u, s, mask, gu_last),
-                                           nbytes(*ins, got))),
-            "device_ms_l2_warm": device_ms(lambda: lif_soma.lif_soma_bwd(
-                g, u, s, mask, gu_last)),
+            **cold_warm(lif_soma.lif_soma_bwd, (g, u, s, mask, gu_last),
+                        nbytes(*ins, got)),
             "plain_ms": time_ms(lambda: lif_soma.lif_soma_bwd_plain(
                 g, u, s, mask, gu_last)),
             "library_ms": None,
@@ -610,33 +611,45 @@ def check_lif_bwd(gen, t, m, d, case="pssa.lif/smlp.lif", carry=True,
     return rows
 
 
+#: Idle host time a profiling session leaves before its first call and
+#: after its last. The profiler places the card's kernel records on the
+#: host's clock with an error of up to about a millisecond, and drops a
+#: record that lands outside the session (seen on the H100: the first
+#: kernel of a session lost, its neighbours stamped before their launches).
+PROFILE_MARGIN_S = 0.02
+
+
 def pass_ms(fn, iters: int = 10) -> dict[str, float]:
     """Device ms per call of every kernel one call of ``fn`` launches, from
-    ``torch.profiler`` over ``iters`` calls after a warm-up. A session late
-    in a long process can come back without some kernels' records, so the
-    result is that of the first session whose kernels all launched a
-    multiple of ``iters`` times and whose names another such session gave
-    too (four sessions at most; else the fullest one)."""
+    ``torch.profiler`` over ``iters`` calls after a warm-up. A session can
+    still come back without some kernels' records, so a session counts
+    only when every kernel in it launched a multiple of ``iters`` times,
+    and the result is that of the first such session whose kernels and
+    launch counts another such session gave too (four sessions at most);
+    {} when no two agree."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    seen: list[dict[str, float]] = []
+    seen: list[dict[str, int]] = []
     for _ in range(4):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
         rows = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and e.device_time_total > 0]
         if not rows or any(e.count % iters for e in rows):
             continue
-        got = {e.key[:90]: e.device_time_total / 1e3 / iters for e in rows}
-        if any(set(got) == set(s) for s in seen):
-            return got
-        seen.append(got)
-    return max(seen, key=len, default={})
+        counts = {e.key[:90]: e.count for e in rows}
+        if counts in seen:
+            return {e.key[:90]: e.device_time_total / 1e3 / iters
+                    for e in rows}
+        seen.append(counts)
+    return {}
 
 
 def check_bn_fwd(gen, m, d):
@@ -663,6 +676,8 @@ def check_bn_fwd(gen, m, d):
             "tolerance": "y within rtol 1e-5 / atol 1e-5, mu and var within "
                          "1e-6 of their scale: column sums in another order",
             "ms": time_ms(lambda: fused_bn.bn_fwd(x, gamma, beta)),
+            **cold_warm(fused_bn.bn_fwd, (x, gamma, beta),
+                        nbytes(x, gamma, beta, y, mu, sd)),
             "plain_ms": time_ms(lambda: fused_bn.bn_fwd_plain(x, gamma, beta)),
             "library_ms": time_ms(lambda: F.batch_norm(
                 x, None, None, gamma, beta, training=True, eps=1e-5)),
@@ -739,6 +754,8 @@ def check_bn_bwd(gen, m, d):
                          "dbeta within 1e-5 of their scale (column sums in "
                          "another order); bitwise on dyadic inputs",
             "ms": time_ms(call),
+            **cold_warm(fused_bn.bn_bwd, (g, x, gamma, mu, sd),
+                        nbytes(g, x, gamma, mu, sd, *got)),
             "plain_ms": time_ms(lambda: fused_bn.bn_bwd_plain(
                 g, x, gamma, mu, sd)),
             "library_ms": time_ms(library),
@@ -909,6 +926,9 @@ def check_neuron_layer_train(gen, case, t, m, c, k, packed):
            "bitwise_ternary": exact, "replay_mismatch": replay_bad, **dense,
            "ms": time_ms(lambda: neuron_layer.neuron_layer_train(
                x, w, gamma, beta, packed=packed)),
+           **cold_warm(functools.partial(neuron_layer.neuron_layer_train,
+                                         packed=packed), (x, w, gamma, beta),
+                       moved),
            "plain_ms": time_ms(lambda: neuron_layer.neuron_layer_train_plain(
                x, w, gamma, beta)),
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
@@ -968,7 +988,7 @@ def spike_matmul_cases(gen, batch: int) -> tuple[list[dict], list[dict]]:
         w = torch.randn((c, d), generator=gen, device=DEVICE) * c ** -0.5
         exact = (spike_matmul.spike_pack(at_most_12(
             spikes(gen, (t * m, c), rate=8 / c))), int21(gen, (c, d)))
-        rows_2d.append(check_matmul(site, packed, w, mm, exact=exact))
+        rows_2d += tile_cases(site, packed, w, mm, exact=exact)
 
     # attn_qk: per-head views of (T*B, N, h*dh) spikes; K^T is a strided view
     def heads(a):
@@ -978,8 +998,8 @@ def spike_matmul_cases(gen, batch: int) -> tuple[list[dict], list[dict]]:
     exact = (spike_matmul.spike_pack(at_most_12(heads(spikes(
         gen, (t * batch, n, d), rate=8 / dh)))),
         heads(int21(gen, (t * batch, n, d))).transpose(-1, -2))
-    rows_b = [check_matmul("attn_qk", spike_matmul.spike_pack(heads(q)),
-                           heads(k).transpose(-1, -2), bmm, exact=exact)]
+    rows_b = tile_cases("attn_qk", spike_matmul.spike_pack(heads(q)),
+                        heads(k).transpose(-1, -2), bmm, exact=exact)
     # attn_av-style at N = 64: packed V^T (dh, M) x attn^T (M, N), both views
     n64 = 64
     v = spikes(gen, (t * batch, h, n64, dh))
@@ -995,9 +1015,26 @@ def spike_matmul_cases(gen, batch: int) -> tuple[list[dict], list[dict]]:
     w3e = w3.unsqueeze(0).expand(t, c3, d)
     if w3e.stride(0) != 0:
         fail("expanded weight does not have a zero batch stride")
-    rows_b.append(check_matmul("tokenizer.conv.3(shared w)", patches, w3e,
-                               bmm, shared_w=True))
+    rows_b += tile_cases("tokenizer.conv.3(shared w)", patches, w3e, bmm,
+                         shared_w=True)
     return rows_2d, rows_b
+
+
+def tile_cases(site, packed, w, fn, **kw) -> list[dict]:
+    """``check_matmul`` with the wrapper's tile rule, then with each tile
+    forced (the tuner's candidates), each exact on 21-bit weights where
+    ``exact`` is given. The first case carries ``tiles_bitwise_equal``:
+    whether the tiles give the same bits on these Gaussian weights (both
+    walk the contraction in the same order), reported, not held."""
+    rows = [check_matmul(site, packed, w, fn, **kw)]
+    outs = [fn(packed, w, tile=tile) for tile in spike_matmul.TILES]
+    rows[0]["tiles_bitwise_equal"] = all(torch.equal(outs[0], o)
+                                         for o in outs[1:])
+    del outs
+    for tile, info in spike_matmul.TILES.items():
+        rows.append(check_matmul(f"{site}[{info.name}]", packed, w, fn,
+                                 tile=tile, **kw))
+    return rows
 
 
 def kernel_phase(seed: int, batch: int) -> dict[str, list[dict]]:
@@ -1086,8 +1123,6 @@ def make_model(seed: int, depth: int, batch: int, weights: str):
     fp32 whatever the order of the additions, so two policies that compute
     the same function must give the same logits bit for bit.
     """
-    import dataclasses
-
     cfg = dataclasses.replace(get_spikingformer_config(PRESET + "@eager"),
                               num_layers=depth)
     gen = torch.Generator().manual_seed(seed)
@@ -1324,8 +1359,6 @@ def train_phase(seed: int, batch: int) -> dict[str, int]:
     ``SyntheticVision`` batches. Every step must be finite and the
     parameters and BN running statistics must change. Returns the launch
     counts of the ``cuda-full`` steps."""
-    import dataclasses
-
     cfg = get_spikingformer_config(PRESET + "@eager")
     depth = cfg.num_layers
     params, state = init_spikingformer(torch.Generator().manual_seed(seed),
@@ -1980,6 +2013,354 @@ def lm_train_phase(seed: int) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: the autotuner and dispatch under its table (spikingformer-8-512)
+# ---------------------------------------------------------------------------
+
+#: The tunable sites of the preset under ``cuda-full`` and their impls
+#: (``attn_av`` demotes at N = 196 and has no knob).
+TUNABLE_SITES = {**{f"tokenizer.conv.{i}": "fused_epilogue"
+                    for i in range(4)},
+                 "pssa.qkv": "fused_epilogue", "smlp.a": "fused_epilogue",
+                 "pssa.proj": "cuda+spike_mm", "smlp.b": "cuda+spike_mm",
+                 "attn_qk": "cuda_packed"}
+TUNE_REPS = 10                  # timed calls a candidate, after a warm-up
+
+
+#: The CUDA kernels behind each wrapper's launches, by the start of their
+#: names in ``csrc/`` (as the profiler lists them).
+KERNEL_SYMBOLS = {"lif_soma_fwd": "lif_fwd_", "lif_soma_bwd": "lif_bwd_",
+                  "spike_matmul_packed": "spike_mma_kernel",
+                  "spike_matmul_packed_batched": "spike_mma_kernel",
+                  "bn_fwd": "bn_fwd_", "bn_bwd": "bn_bwd_",
+                  "neuron_layer_train": "neuron_layer_train_",
+                  "neuron_layer_eval": "neuron_layer_eval_"}
+
+
+def busy_ms(fn, launched: dict[str, int]) -> float | None:
+    """Device busy ms of one call of ``fn``: the sum of the device times of
+    its kernels (``pass_ms``, one call a profiling session). None (not
+    measured) when no two sessions agree, or when the profile lacks a
+    kernel that ``launched``, the call's launch counts, says it ran.
+    (``queued_ms`` cannot hold a forward or a step: their thousands of
+    launches fill the launch queue behind the held stream.)"""
+    passes = pass_ms(fn, iters=1)
+    names = " ".join(passes)
+    if not passes or any(n and KERNEL_SYMBOLS[k] not in names
+                         for k, n in launched.items()):
+        return None
+    return sum(passes.values())
+
+
+@contextlib.contextmanager
+def tuned_table(path):
+    """Dispatch consults the table at ``path`` inside (None: no table, as
+    every other phase runs)."""
+    from repro_torch.tune import table
+    old = os.environ.pop(table.ENV_VAR, None)
+    if path is not None:
+        os.environ[table.ENV_VAR] = str(path)
+    table.reload()
+    try:
+        active = table.active_table()
+        if (path is None) != (not active):
+            fail(f"expected {'no' if path is None else 'the'} tuned table, "
+                 f"found {len(active)} entries ({table.table_path()})")
+        yield active
+    finally:
+        os.environ.pop(table.ENV_VAR, None)
+        if old is not None:
+            os.environ[table.ENV_VAR] = old
+        table.reload()
+
+
+def candidate_row(cand, us) -> dict:
+    tile = cand.as_tuned().tile()
+    return {"arm": cand.arm, "block_m": cand.block_m,
+            "block_k": cand.block_k, "block_c": cand.block_c,
+            "tile": spike_matmul.TILES[tile].name if tile else None,
+            "oracle_cycles": cand.cycles, "us": us}
+
+
+def todays_choice(wl) -> dict:
+    """What dispatch runs at ``wl`` without a table: the fused arm at a
+    fused-epilogue site, else the spike matmul's tile by its rule."""
+    if wl.impl == "fused_epilogue":
+        return {"arm": "fused", "tile": None}
+    rows = wl.shape[-3]
+    return {"arm": None,
+            "tile": spike_matmul.TILES[spike_matmul.default_tile(rows)].name}
+
+
+def tune_sites(cfg, batch, report) -> tuple:
+    """Steps 2-3: the preset's tunable sites, then the timed sweep with the
+    L2 cold; one line per site."""
+    from repro_torch.tune import autotune, workloads
+    wls = workloads.site_workloads(cfg, batch, report.site_sparsity())
+    tunable = {w.site: w.impl for w in wls if w.tunable}
+    emit("tune_workloads", preset=f"{PRESET}@cuda-full", batch=batch,
+         sites=[{"site": w.site, "op": w.op, "impl": w.impl,
+                 "packed": w.packed, "shape": list(w.shape),
+                 "calls": w.calls, "trailing_lif": w.trailing_lif,
+                 "in_sparsity": w.mm.in_sparsity if w.mm else None,
+                 "tunable": w.tunable} for w in wls])
+    if tunable != TUNABLE_SITES:
+        fail(f"tunable sites {tunable} != {TUNABLE_SITES}")
+    rep = autotune.tune(cfg, batch=batch, reps=TUNE_REPS, sparsity=report,
+                        device=DEVICE)
+    moved = {}
+    for res in rep.results:
+        wl, win = res.workload, candidate_row(res.winner, res.winner_us)
+        today = todays_choice(wl)
+
+        def is_today(c):
+            if today["arm"] == "fused":
+                return c.arm == "fused"
+            return candidate_row(c, None)["tile"] == today["tile"]
+        today_us = next(us for c, us in res.timed if is_today(c))
+        off = not is_today(res.winner)
+        if off:
+            moved[wl.site] = {"today": today, "today_us": today_us,
+                              "winner": win,
+                              "saved_us": today_us - res.winner_us}
+        emit("tune_site", site=wl.site, op=wl.op, impl=wl.impl,
+             shape=list(wl.shape), packed=wl.packed,
+             in_sparsity=wl.mm.in_sparsity,
+             candidates=[candidate_row(c, us) for c, us in res.timed],
+             winner=win, winner_is_oracle_first=res.winner_in_top1,
+             today=today, today_us=today_us, moves_off_today=off,
+             timing=f"CUDA events over {TUNE_REPS} calls after a warm-up, "
+                    f"L2 cold (l2_cold)")
+    if len(rep.entries) != len(TUNABLE_SITES) or \
+            rep.device_kind != torch.cuda.get_device_name(0).replace(" ",
+                                                                    "-"):
+        fail(f"tuned {len(rep.entries)} sites under {rep.device_kind!r}")
+    return rep, moved
+
+
+def tuned_forward(full, img, path) -> dict:
+    """One forward of ``full`` with or without the table: logits, taps,
+    the forward's launch counts (set to 0 just before it, read just after)
+    and its device busy time."""
+    with tuned_table(path):
+        taps: list = []
+        reset_launch_counts()
+        logits = full(img, taps=taps)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        busy = busy_ms(lambda: full(img), counts)
+    return {"logits": logits, "taps": taps, "launches": counts,
+            "busy_ms": busy}
+
+
+def tuned_step(cfg, params, state, images, labels, path) -> dict:
+    """The train-mode forward (taps) and one ``make_train_step`` step with
+    or without the table, from the same state: the forward's taps, the
+    step's metrics, its launch counts (set to 0 just before the step, read
+    just after), its peak memory and its device busy time."""
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=100,
+                              weight_decay=0.01)
+    with tuned_table(path):
+        taps: list = []
+        with torch.no_grad():
+            spikingformer_apply(params, state, images, cfg, train=True,
+                                taps=taps)
+        step = make_train_step(cfg, opt_cfg)
+        opt = init_opt_state(params)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        _, _, _, m = step(params, state, opt, images, labels)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        busy = busy_ms(lambda: step(params, state, opt, images, labels),
+                       counts)
+        replay = step_replay_check(cfg, params, state, images)
+    return {"taps": taps, "loss": float(m["loss"]),
+            "grad_norm": float(m["grad_norm"]), "launches": counts,
+            "peak_memory_bytes": peak, "busy_ms": busy, "replay": replay}
+
+
+def block_mismatch_same_input(cfg, params, state, taps, path) -> list:
+    """Each block in train mode under the table, fed the untuned forward's
+    input to it: its spikes against the untuned forward's (after the next
+    block's LIF)."""
+    out = []
+    with tuned_table(path), torch.no_grad():
+        for i in range(cfg.num_layers):
+            y, _ = block_apply(_index_tree(params["blocks"], i),
+                               _index_tree(state["blocks"], i), taps[i],
+                               cfg.block, train=True)
+            out.append(spike_mismatch(y, taps[i + 1], cfg.lif))
+    return out
+
+
+def energy_line(report) -> None:
+    """Step 5: the paper's energy model over its preset's training workload
+    for all nine dataflows, at the default and at the measured sparsity."""
+    from repro_torch.core.energy import (E2ATSTSimulator,
+                                         SpikingWorkloadConfig)
+    rows = {}
+    for name, sp in (("default", None), ("measured", report.aggregate())):
+        wl = SpikingWorkloadConfig() if sp is None else \
+            SpikingWorkloadConfig(sparsity=sp)
+        sim = E2ATSTSimulator(wl)
+        rows[name] = {
+            "sparsity": dataclasses.asdict(wl.sparsity),
+            "dataflows": {n: {"energy_mj": r.energy_j * 1e3,
+                              "latency_ms": r.latency_s * 1e3,
+                              "energy_mj_by_stage": {
+                                  st: b.energy_j * 1e3
+                                  for st, b in r.stages.items()}}
+                          for n, r in sim.sweep().items()},
+            "optimal_energy": sim.optimal("energy").dataflow,
+            "optimal_latency": sim.optimal("latency").dataflow,
+            "table_ix": sim.table_ix()}
+    emit("tune_energy_model",
+         model="the paper's 28 nm ASIC model (E2ATST section IV-V, eq. "
+               "26-28; 64 x 64 array at 500 MHz), arithmetic on the "
+               "preset's training workload: not a reading of this card",
+         **rows)
+
+
+def tune_phase(seed: int, batch: int) -> dict[str, int]:
+    """The autotuner at the preset, full width and depth, under
+    ``cuda-full``: (1) sparsity measured on the card; (2) the nine tunable
+    sites; (3) the timed sweep, L2 cold; (4) a table keyed by the card
+    written, reloaded and consulted by a forward of ``batch`` images and a
+    training step, each against the same call without a table (exact
+    weights: spikes bit-equal where every neuron-layer site keeps its fused
+    arm, else each block held at the per-block limit on the same input; the
+    step's replay intact); (5) the paper's energy model at the default and
+    the measured sparsity. Returns the launch counts of the path under
+    the table: the tuned forward's and the tuned step's (the sweep, the
+    profiler's and the checks' launches are not the path's)."""
+    import tempfile
+
+    from repro_torch.tune import sparsity, table
+
+    cfg = get_spikingformer_config(PRESET + "@cuda-full")
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - t0 - sum(seconds.values())
+
+    report = sparsity.measure_sparsity(cfg, batch=batch, seed=seed,
+                                       device=DEVICE)
+    lap("sparsity")
+    agg = report.aggregate()
+    emit("tune_sparsity", preset=PRESET, batch=batch, seed=seed,
+         operand=report.operand, spike=report.spike, mask=report.mask,
+         aggregate=dataclasses.asdict(agg),
+         note="zeros-fractions of one train-mode forward under the probe "
+              "policy (eager), weights and images from the seed; s_pg "
+              "keeps the paper's default")
+    rep, moved = tune_sites(cfg, batch, report)
+    torch.cuda.empty_cache()
+    lap("sweep")
+
+    eager, make_images = make_model(seed, cfg.num_layers, batch, "dyadic")
+    full = eager.with_policy(named_policy("cuda-full"))
+    img = make_images()
+    labels = torch.randint(0, cfg.num_classes, (batch,),
+                           generator=torch.Generator().manual_seed(seed)
+                           ).to(DEVICE)
+    params, state = full.params, full.state
+    lap("model")
+    demoted = {r.workload.site for r in rep.results
+               if r.winner.arm == "pipeline"}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "tuned_blocks.json"
+        table.save_table(path, rep.entries,
+                         meta={"device_kind": rep.device_kind})
+        with tuned_table(path) as active:
+            if len(active) != len(TUNABLE_SITES):
+                fail(f"the written table loads {len(active)} entries")
+            described = full.cfg.describe_execution().split("\n\n")[1]
+        fwd = {name: tuned_forward(full, img, p)
+               for name, p in (("untuned", None), ("tuned", path))}
+        lap("forward")
+        fwd_equal = torch.equal(fwd["tuned"]["logits"],
+                                fwd["untuned"]["logits"]) and all(
+            torch.equal(a, b) for a, b in zip(fwd["tuned"]["taps"],
+                                              fwd["untuned"]["taps"]))
+        stp = {name: tuned_step(full.cfg, params, state, img, labels, p)
+               for name, p in (("untuned", None), ("tuned", path))}
+        step_equal = all(torch.equal(a, b) for a, b in
+                         zip(stp["tuned"]["taps"], stp["untuned"]["taps"]))
+        per_block = block_mismatch_same_input(
+            full.cfg, params, state, stp["untuned"]["taps"], path)
+        tok = float((stp["tuned"]["taps"][0] !=
+                     stp["untuned"]["taps"][0]).float().mean())
+        lap("step")
+    fused_kept = not demoted
+    tolerance = ("exact weights: forward logits and spikes bit-equal; the "
+                 "training step's spikes bit-equal when every neuron-layer "
+                 "site keeps its fused arm, else each block's spikes on the "
+                 f"untuned input within {SPIKE_LIMIT} (batch statistics "
+                 "over T*M rows summed by other kernels)")
+    emit("tune_table", device_kind=rep.device_kind, entries=len(rep.entries),
+         describe=described, moved_off_today=moved,
+         demoted_to_pipeline=sorted(demoted),
+         forward={k: {"launches": v["launches"],
+                      "device_busy_ms": v["busy_ms"]}
+                  for k, v in fwd.items()},
+         forward_bit_equal=fwd_equal,
+         step={k: {"launches": v["launches"],
+                   "device_busy_ms": v["busy_ms"],
+                   "peak_memory_bytes": v["peak_memory_bytes"],
+                   "loss": v["loss"], "grad_norm": v["grad_norm"],
+                   "replay": v["replay"]} for k, v in stp.items()},
+         step_spikes_bit_equal=step_equal,
+         step_mismatch_tokenizer=tok,
+         step_mismatch_per_block_same_input=per_block,
+         tolerance=tolerance, note="busy times and peak memory are "
+         "findings, not claims")
+    if not fwd_equal:
+        fail("the forward under the tuned table differs from the untuned "
+             "one on exact weights")
+    if fused_kept and (not step_equal or
+                       stp["tuned"]["loss"] != stp["untuned"]["loss"]):
+        fail("the training step under the tuned table differs from the "
+             "untuned one on exact weights with every fused arm kept")
+    if not fused_kept and (max(per_block) > SPIKE_LIMIT or tok > SPIKE_LIMIT):
+        fail(f"the tuned training step's spikes differ beyond {SPIKE_LIMIT}: "
+             f"tokenizer {tok}, blocks {per_block}")
+    sites = 4 * cfg.num_layers + cfg.tokenizer_stages - sum(
+        r.workload.calls for r in rep.results if r.winner.arm == "pipeline")
+    for name, v in stp.items():
+        want = sites if name == "tuned" else \
+            4 * cfg.num_layers + cfg.tokenizer_stages
+        if v["replay"]["mismatch"] or v["replay"]["sites"] != want:
+            fail(f"the {name} step's replay: {v['replay']} (sites {want})")
+    # in eval a table changes tiles only; in train it changes launches only
+    # where it demotes a site
+    per_step = per_train_step(cfg.num_layers, cfg.tokenizer_stages)
+    if fwd["tuned"]["launches"] != fwd["untuned"]["launches"]:
+        fail(f"the tuned forward's launches {fwd['tuned']['launches']} != "
+             f"the untuned forward's {fwd['untuned']['launches']}")
+    for name, v in stp.items():
+        if (name == "untuned" or not demoted) and v["launches"] != per_step:
+            fail(f"the {name} step's launches {v['launches']} != {per_step}")
+    counts = {k: fwd["tuned"]["launches"][k] + stp["tuned"]["launches"][k]
+              for k in KERNELS}
+    fused = {s for s, impl in TUNABLE_SITES.items()
+             if impl == "fused_epilogue"}
+    path = {k for k in KERNELS if fwd["untuned"]["launches"][k] +
+            stp["untuned"]["launches"][k]} - (
+        {"neuron_layer_train"} if demoted == fused else set())
+    if any(counts[k] == 0 for k in path):
+        fail(f"a kernel of the tuned path never launched: {counts}")
+    energy_line(report)
+    lap("energy_model")
+    emit("tune", seconds=time.perf_counter() - t0, seconds_by_step=seconds,
+         launches=counts, launches_from="the tuned forward and the tuned "
+         "step, each counted from 0 just before it")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 
 def summarise(cases: dict[str, list[dict]],
               paths: dict[str, dict[str, int]]) -> dict:
@@ -1987,8 +2368,8 @@ def summarise(cases: dict[str, list[dict]],
     carries the numbers of its first case (a site of the main path) and the
     largest error of all cases; ``cases`` keeps every site's numbers.
     ``launches`` adds the counts of the paths (Spikingformer serving and
-    training, the LM's forward, serving and training), ``launches_by_path``
-    keeps them apart."""
+    training, the LM's forward, serving and training, and the forward and
+    step under the tuned table), ``launches_by_path`` keeps them apart."""
     kernels = []
     for name, info in KERNELS.items():
         rows = cases[name]
@@ -2039,6 +2420,10 @@ def main() -> None:
 
     info = setup_card()
     smi = info["smi"]
+    from repro_torch.tune import table
+    if table.active_table():
+        fail(f"a tuned-block table is active ({table.table_path()}): every "
+             f"phase but the tune phase runs without one")
     t0 = time.perf_counter()
     build.load(verbose=args.verbose_build)
     emit("build", seconds=time.perf_counter() - t0,
@@ -2060,9 +2445,12 @@ def main() -> None:
     lm_launches({k: cases[k] for k in ("lif_soma_fwd", "lif_soma_bwd")},
                 lm_counts, {"lm_serve": lm_steps,
                             "lm_train": 1 + LM_TRAIN_STEPS})
+    torch.cuda.empty_cache()
+    tune_counts = tune_phase(args.seed, BATCH)
 
     print(json.dumps(summarise(cases, {"serve": counts, "train": train_counts,
-                                       **lm_counts})), flush=True)
+                                       **lm_counts, "tune": tune_counts})),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,7 @@ Conventions
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -34,6 +35,8 @@ from repro_torch.core.policy import (ExecutionPolicy, FUSED_EPILOGUE_IMPLS,
                                      dispatch_kernel, fused_epilogue_fallback,
                                      get_kernel, register_kernel,
                                      runtime_fallback)
+from repro_torch.tune.table import lookup as tuned_lookup
+from repro_torch.tune.table import lookup_tile
 
 Params = dict[str, Any]
 State = dict[str, Any]
@@ -150,7 +153,7 @@ def _linear_bn_cuda(params, state, x, train, policy, site):
 
 
 @register_kernel("linear_bn", "cuda+spike_mm")
-def _linear_bn_spike_mm(params, state, x, train, policy, site):
+def _linear_bn_spike_mm(params, state, x, train, policy, site, tile=None):
     """Bit-packed spike matmul kernel + BatchNorm.
 
     Inputs must be {0,1} spikes — true at every Conv1DBN site in PSSA/SMLP,
@@ -158,13 +161,19 @@ def _linear_bn_spike_mm(params, state, x, train, policy, site):
     % 8 == 0) is resolved per site at policy-validation time
     (:func:`repro_torch.core.policy.plan_sites`); if a direct call still
     violates it, the dense path is used and the demotion is *logged*.
+    ``tile`` forces the spike matmul's tile; ``None`` takes the active
+    tuned table's entry for this site, or ``spike_matmul.default_tile``.
     """
     w = params["linear"]["w"]
     if x.shape[-1] % 8 == 0:
         from repro_torch.kernels import ops
 
         x2, shape = fold_rows(x)
-        y = ops.spike_matmul_train_op(x2, w.to(x.dtype))
+        if tile is None:
+            tile = lookup_tile(site, "linear_bn", "cuda+spike_mm",
+                               (x2.shape[0], x2.shape[1], w.shape[-1]),
+                               x.device)
+        y = ops.spike_matmul_train_op(x2, w.to(x.dtype), tile)
         y = y.reshape(*shape[:-1], w.shape[-1])
     else:
         runtime_fallback(site, "cuda+spike_mm",
@@ -173,6 +182,24 @@ def _linear_bn_spike_mm(params, state, x, train, policy, site):
     y, bn_s = _bn_cuda(params["bn"], state["bn"], y, train, 0.9, 1e-5,
                        policy, site)
     return y, {"bn": bn_s}
+
+
+def _tuned_prefers_pipeline(site, op, impl, shape, packed, policy, device,
+                            pipeline):
+    """The active tuned table's entry for this fused-epilogue site when it
+    *measured* the pipeline arm (``pipeline`` names it in the log) as
+    faster than the single-launch neuron layer, else None. A site-level
+    policy override pinning a fused impl wins over the table (explicit
+    policy beats measurement); the demotion is logged as an expected,
+    planned decision."""
+    tb = tuned_lookup(site, op, impl, shape, packed, device)
+    if tb is None or tb.arm != "pipeline":
+        return None
+    if dict(policy.overrides).get(site) in FUSED_EPILOGUE_IMPLS:
+        return None
+    runtime_fallback(site, impl, "tuned table prefers the pipeline arm -> "
+                     f"{pipeline}", expected=True)
+    return tb
 
 
 def _neuron_layer_site(x3, w_mat, bn_p, bn_s, lif_cfg, train, packed):
@@ -260,11 +287,25 @@ def linear_bn_lif_apply(params: Params, state: State, x: torch.Tensor,
 
     When the policy resolves ``site`` to a fused-epilogue implementation,
     the whole pair runs as ONE launch and ``lif_site`` never dispatches —
-    3 launches collapse to 1. Otherwise this is the pipeline: ``linear_bn``
-    dispatch, then ``lif_scan``.
+    3 launches collapse to 1 — unless, in train mode, the active tuned
+    table measured the pipeline arm as faster there. Otherwise this is the
+    pipeline: ``linear_bn`` dispatch, then ``lif_scan``.
     """
     policy = policy if policy is not None else ExecutionPolicy()
     impl = policy.resolve(site, "linear_bn")
+    if impl in FUSED_EPILOGUE_IMPLS and train:
+        # the tuner measures the train arms: a table entry may prefer the
+        # pipeline, whose spike matmul then runs the entry's tile
+        fb = fused_epilogue_fallback("linear_bn", impl)
+        k = params["linear"]["w"].shape[-1]
+        tb = _tuned_prefers_pipeline(
+            site, "linear_bn", impl,
+            (x.shape[0], math.prod(x.shape[1:-1]), x.shape[-1], k),
+            x.shape[-1] % 8 == 0, policy, x.device, fb)
+        if tb is not None:
+            y, st = get_kernel("linear_bn", fb)(params, state, x, train,
+                                                policy, site, tb.tile())
+            return lif_scan(y, lif_cfg, site=lif_site), st
     if impl in FUSED_EPILOGUE_IMPLS:
         return get_kernel("linear_bn", impl)(params, state, x, lif_cfg, train,
                                              policy, site)
@@ -307,7 +348,10 @@ def _attn_qk_packed(q, k, policy, site):
         return _attn_qk_eager(q, k, policy, site)
     from repro_torch.kernels import ops
 
-    out = ops.spike_bmm_train_op(_fold_tb(q), _fold_tb(k).transpose(-1, -2))
+    tile = lookup_tile(site, "attn_qk", "cuda_packed", (t * b * h, n, dh, m),
+                       q.device)
+    out = ops.spike_bmm_train_op(_fold_tb(q), _fold_tb(k).transpose(-1, -2),
+                                 tile)
     return out.reshape(t, b, h, n, m)
 
 
@@ -337,7 +381,9 @@ def _attn_av_packed(attn, v, policy, site):
 
     vt = _fold_tb(v).transpose(-1, -2)        # (TB, h, dh, M) {0,1}
     at = _fold_tb(attn).transpose(-1, -2)     # (TB, h, M, N)
-    out_t = ops.spike_bmm_train_op(vt, at)    # (TB, h, dh, N)
+    tile = lookup_tile(site, "attn_av", "cuda_packed", (t * b * h, dh, m, n),
+                       v.device)
+    out_t = ops.spike_bmm_train_op(vt, at, tile)    # (TB, h, dh, N)
     return out_t.transpose(-1, -2).reshape(t, b, h, n, dh)
 
 

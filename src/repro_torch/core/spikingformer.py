@@ -30,9 +30,11 @@ from repro_torch.core.policy import (ExecutionPolicy, dispatch_kernel,
                                      register_site_table, runtime_fallback)
 from repro_torch.core.spiking_layers import (BlockConfig, _bn_cuda,
                                              _neuron_layer_site, _normal,
+                                             _tuned_prefers_pipeline,
                                              bn_apply, block_apply,
                                              init_block, init_bn, init_linear,
                                              linear_apply)
+from repro_torch.tune.table import describe_tuned, lookup_tile
 
 Params = dict[str, Any]
 State = dict[str, Any]
@@ -181,8 +183,12 @@ class SpikingFormerConfig:
         return rows
 
     def describe_execution(self) -> str:
-        """The per-site dispatch table (plan only)."""
-        return self.policy.describe(rows=self.execution_plan())
+        """The per-site dispatch table, followed by the active tuned-block
+        table's entries for this model's sites (``repro_torch.tune``: the
+        tiles and arms kernel dispatch will take)."""
+        rows = self.execution_plan()
+        return self.policy.describe(rows=rows) + "\n\n" + \
+            describe_tuned([r.site for r in rows])
 
     def param_count(self) -> int:
         d, f = self.d_model, self.d_ff
@@ -267,7 +273,7 @@ def _im2col_patches(params, x):
 
 
 def conv_bn_lif_fused(params, state, x, lif_cfg, train, spike_in, policy,
-                      site, *, packed):
+                      site, *, packed, tile=None, lowered=None):
     """Fused eq. 4 stage, pipeline arms: im2col matmul + BN, then the SOMA
     kernel at ``tokenizer.lif``.
 
@@ -278,11 +284,15 @@ def conv_bn_lif_fused(params, state, x, lif_cfg, train, spike_in, policy,
     eval it folds into the matmul weights and a bias; in train the batch
     statistics depend on the conv output, so the BN kernel pair
     (``_bn_cuda``, the one the Conv1DBN sites use) computes and applies
-    them.
+    them. ``tile`` forces the packed arm's spike-matmul tile; ``None``
+    takes the active tuned table's entry for this stage, or
+    ``spike_matmul.default_tile``. ``lowered`` is ``_im2col_patches``'
+    result where the caller already has it.
     """
     from repro_torch.kernels import conv_spike, ops
 
-    patches, w_mat, (t, b, ho, wo, cdim) = _im2col_patches(params, x)
+    patches, w_mat, (t, b, ho, wo, cdim) = lowered or \
+        _im2col_patches(params, x)
     k_out = w_mat.shape[-1]
     use_packed = packed and spike_in and cdim % 8 == 0
     if packed and not use_packed:
@@ -291,11 +301,14 @@ def conv_bn_lif_fused(params, state, x, lif_cfg, train, spike_in, policy,
         runtime_fallback(site, "cuda_packed",
                          reason + " -> dense im2col arm",
                          expected=not spike_in)
+    if use_packed and tile is None:
+        tile = lookup_tile(site, "conv", "cuda_packed",
+                           (t, patches.shape[1], cdim, k_out), x.device)
 
     def matmul(weights):
         weights = weights.to(patches.dtype)
         if use_packed:
-            return ops.spike_patch_mm_train_op(patches, weights)
+            return ops.spike_patch_mm_train_op(patches, weights, tile)
         return torch.matmul(patches, weights)
 
     bn_p, bn_s = params["bn"], state["bn"]
@@ -339,9 +352,21 @@ def _conv_stage_megakernel(params, state, x, lif_cfg, train, spike_in,
     (U, S) in registers. Neither ``tokenizer.bn`` nor ``tokenizer.lif``
     dispatches — 3 dispatches -> 1 per stage. The train arm stays fused at
     every stage: the reference's demotion to the pipeline is a TPU VMEM
-    rule with no meaning on this card."""
-    patches, w_mat, (t, b, ho, wo, cdim) = _im2col_patches(params, x)
+    rule with no meaning on this card. In train mode the active tuned
+    table may have measured the pipeline arm as faster: the stage then
+    runs :func:`conv_bn_lif_fused` with the entry's tile."""
+    lowered = _im2col_patches(params, x)
+    patches, w_mat, (t, b, ho, wo, cdim) = lowered
     packed = spike_in and cdim % 8 == 0
+    if train:
+        tb = _tuned_prefers_pipeline(
+            site, "conv", "fused_epilogue",
+            (t, patches.shape[1], cdim, w_mat.shape[-1]), packed, policy,
+            x.device, "the conv_bn_lif pipeline")
+        if tb is not None:
+            return conv_bn_lif_fused(params, state, x, lif_cfg, train,
+                                     spike_in, policy, site, packed=packed,
+                                     tile=tb.tile(), lowered=lowered)
     if not packed:
         reason = (f"im2col dim {cdim} % 8 != 0" if spike_in
                   else "float (non-spike) input")

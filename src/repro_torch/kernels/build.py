@@ -52,8 +52,10 @@ SIGNATURES: dict[str, tuple] = {
     "e2a_lif_soma_bwd": (_P,) * 6 + (_L, _I, _I) + (_L,) * 4 + (_F, _F, _I,
                                                                _P),
     # packed, w, out, G1, G2, M, C, K, 4 packed strides (g1, g2, m, byte),
-    # 4 w strides (g1, g2, c, k), 4 out strides (g1, g2, m, k), stream
-    "e2a_spike_matmul": (_P, _P, _P, _I, _I, _I, _I, _I) + (_L,) * 12 + (_P,),
+    # 4 w strides (g1, g2, c, k), 4 out strides (g1, g2, m, k), tile (1
+    # Large, 2 Small), stream
+    "e2a_spike_matmul": (_P, _P, _P, _I, _I, _I, _I, _I) + (_L,) * 12 +
+                        (_I, _P),
     # x, gamma, beta, y, mu, sqrt_d, part, arrival counters, M, D,
     # rows per chunk, eps, stream
     "e2a_bn_fwd": (_P,) * 8 + (_L, _I, _L, _F, _P),

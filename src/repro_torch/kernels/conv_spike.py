@@ -75,14 +75,18 @@ def fold_bn(w_mat: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return w_folded, bias
 
 
-def spike_patch_matmul(patches: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def spike_patch_matmul(patches: torch.Tensor, w: torch.Tensor, *,
+                       tile: int = 0) -> torch.Tensor:
     """Bit-packed spike-conv matmul: (T, M, C) {0,1} x (C, K) -> (T, M, K).
 
     Packs the im2col patch rows to 1 bit/element and runs the batched
     kernel with the time axis as the batch axis. The shared weight is
     handed over as an ``expand``-ed view — a zero batch stride, no copy —
     and the output stays time-major. C (= k*k*c_in) must be a multiple of 8.
+    ``tile`` forces the kernel's tile (``spike_matmul.TILES``; 0: the rule,
+    ``spike_matmul.default_tile``).
     """
     t = patches.shape[0]
     return spike_matmul_packed_batched(spike_pack(patches),
-                                       w.unsqueeze(0).expand(t, *w.shape))
+                                       w.unsqueeze(0).expand(t, *w.shape),
+                                       tile=tile)

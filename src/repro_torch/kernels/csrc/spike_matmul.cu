@@ -28,11 +28,14 @@
 // Design: the contraction loop is mainloop() of spike_mma_mainloop.cuh,
 // shared with the train-mode neuron layer (spike_tile_mma.cuh has the
 // fragment mapping and the layouts); this file adds the batch offsets and
-// the epilogue, float2 stores along out's unit-stride axis. Two tiles,
-// chosen from M: Large (256 x 64 outputs, 16 warps, BK = 128) for the
+// the epilogue, float2 stores along out's unit-stride axis. Two tiles, the
+// caller names one (spike_matmul.py chooses from M unless a tuned table
+// says otherwise): Large (256 x 64 outputs, 16 warps, BK = 128) for the
 // projection sites (M = T*B*N rows): a block's split of a weight chunk
 // serves 256 rows; Small (128 x 64, 8 warps, BK = 64) for per-head
 // matrices (M <= 512, e.g. 196 x 196 at attn_qk: 60 of 256 rows masked).
+// Both walk the contraction in the same k16 steps in the same order, so a
+// product's bits do not depend on the tile.
 // Half as many rows per block ran 10-15 % slower at the model's shapes
 // (benchmarks/torch/bench_spike_matmul.py; PERF.md, section 6).
 // What bounds it: at pssa.proj and smlp.b three dense bf16 passes, 3 * 2MCK
@@ -112,19 +115,22 @@ int launch(const Args& a, unsigned G, cudaStream_t stream) {
 
 }  // namespace
 
+// tile picks the tile: 1 Large, 2 Small (the autotuner times both; a
+// tuned table passes its winner).
 extern "C" int e2a_spike_matmul(
     const uint8_t* packed, const float* w, float* out, int G1, int G2, int M,
     int C, int K, long long p_g1, long long p_g2, long long p_m,
     long long p_b, long long w_g1, long long w_g2, long long w_c,
     long long w_k, long long o_g1, long long o_g2, long long o_m,
-    long long o_k, void* stream) {
+    long long o_k, int tile, void* stream) {
   if (G1 <= 0 || G2 <= 0 || M <= 0 || K <= 0) return 0;
   const long long G = (long long)G1 * G2;
-  if (G > 65535 || C < 0 || C % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (G > 65535 || C < 0 || C % 8 != 0 || tile < 1 || tile > 2)
+    return (int)cudaErrorInvalidValue;
   const Args a = {packed, w, out, G2, M, C, K,
                   {p_g1, p_g2, p_m, p_b}, {w_g1, w_g2, w_c, w_k},
                   {o_g1, o_g2, o_m, o_k}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return M <= 512 ? launch<Small>(a, (unsigned)G, s)
-                  : launch<Large>(a, (unsigned)G, s);
+  return tile == 2 ? launch<Small>(a, (unsigned)G, s)
+                   : launch<Large>(a, (unsigned)G, s);
 }

@@ -22,6 +22,8 @@ its plain version, so these ops are also what the CPU tests differentiate.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import conv_spike, fused_bn, lif_soma, \
@@ -182,28 +184,36 @@ class _SpikeMatmul(torch.autograd.Function):
         return d_spikes.to(spikes.dtype), d_w.to(w.dtype), None, None
 
 
-def spike_matmul_train_op(spikes: torch.Tensor,
-                          w: torch.Tensor) -> torch.Tensor:
+def spike_matmul_train_op(spikes: torch.Tensor, w: torch.Tensor,
+                          tile: int = 0) -> torch.Tensor:
     """Differentiable bit-packed spike matmul: (M, C) {0,1} x (C, K).
-    C % 8 == 0."""
-    return _SpikeMatmul.apply(spikes, w, spike_matmul.spike_matmul, False)
+    C % 8 == 0. ``tile`` forces the kernel's tile
+    (``spike_matmul.TILES``; 0 takes ``spike_matmul.default_tile``)."""
+    return _SpikeMatmul.apply(
+        spikes, w, functools.partial(spike_matmul.spike_matmul, tile=tile),
+        False)
 
 
-def spike_bmm_train_op(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def spike_bmm_train_op(spikes: torch.Tensor, w: torch.Tensor,
+                       tile: int = 0) -> torch.Tensor:
     """Differentiable batched bit-packed spike matmul: (G, M, C) {0,1} x
     (G, C, K) -> (G, M, K), or the same with two batch dims. C % 8 == 0.
-    Either operand may be a view; its gradient comes back in its shape."""
-    return _SpikeMatmul.apply(spikes, w, spike_matmul.spike_matmul_batched,
-                              False)
+    Either operand may be a view; its gradient comes back in its shape.
+    ``tile`` as in :func:`spike_matmul_train_op`."""
+    return _SpikeMatmul.apply(
+        spikes, w,
+        functools.partial(spike_matmul.spike_matmul_batched, tile=tile),
+        False)
 
 
-def spike_patch_mm_train_op(patches: torch.Tensor,
-                            w: torch.Tensor) -> torch.Tensor:
+def spike_patch_mm_train_op(patches: torch.Tensor, w: torch.Tensor,
+                            tile: int = 0) -> torch.Tensor:
     """Differentiable time-major im2col spike-conv matmul: (T, M, C) {0,1}
     patches x (C, K) shared weight -> (T, M, K); dW reduces over T and M.
-    C (= k*k*c_in) % 8 == 0."""
-    return _SpikeMatmul.apply(patches, w, conv_spike.spike_patch_matmul,
-                              True)
+    C (= k*k*c_in) % 8 == 0. ``tile`` as in :func:`spike_matmul_train_op`."""
+    return _SpikeMatmul.apply(
+        patches, w,
+        functools.partial(conv_spike.spike_patch_matmul, tile=tile), True)
 
 
 def _replay_soma(y, g_s, alpha, th_fire, th_lo, th_hi, grad_scale):

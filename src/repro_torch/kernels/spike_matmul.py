@@ -33,12 +33,48 @@ use them for CPU tensors only.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.kernels import build
 
 #: The kernel's batch index rides ``blockIdx.z``.
 MAX_BATCH = 65535
+
+
+@dataclasses.dataclass(frozen=True)
+class Tile:
+    """One tile of ``csrc/spike_mma_mainloop.cuh``: ``bm`` x ``bn`` outputs a
+    block, the contraction staged ``bk`` at a time, ``smem`` bytes of
+    dynamic shared memory (``Tile::SMEM``)."""
+
+    name: str
+    bm: int
+    bn: int
+    bk: int
+    smem: int
+
+    @property
+    def blocks(self) -> tuple[int, int, int]:
+        """As a tuned table stores it: ``(block_m, block_k, block_c)``, the
+        rows, the output columns and the contraction chunk."""
+        return (self.bm, self.bn, self.bk)
+
+
+#: The ``tile`` argument of the entry points -> the tile it forces (0, the
+#: default, takes :func:`default_tile`). Both tiles walk the contraction in
+#: the same order, so the bits of a product do not depend on the tile.
+TILES: dict[int, Tile] = {
+    1: Tile("Large", 256, 64, 128, 63488),
+    2: Tile("Small", 128, 64, 64, 29696),
+}
+
+
+def default_tile(m: int) -> int:
+    """The tile for ``m`` rows per product when the caller names none:
+    Small for the per-head matrices (M <= 512), else Large."""
+    return 2 if m <= 512 else 1
 
 
 def spike_pack(spikes: torch.Tensor) -> torch.Tensor:
@@ -88,7 +124,10 @@ def split_bf16x3(w: torch.Tensor):
     return hi, mid, lo
 
 
-def _check_operands(packed, w, out_dtype, what):
+def _check_operands(packed, w, out_dtype, tile, what):
+    if tile not in (0, *TILES):
+        raise ValueError(f"{what}: tile {tile!r} is none of 0 (the rule, "
+                         f"default_tile) and {sorted(TILES)}")
     if packed.dtype != torch.uint8:
         raise TypeError(f"{what}: packed must be uint8, got {packed.dtype}")
     if packed.ndim != w.ndim or packed.shape[:-2] != w.shape[:-2]:
@@ -106,9 +145,11 @@ def _check_operands(packed, w, out_dtype, what):
                             f"got {w.dtype} -> {out_dtype or w.dtype}")
 
 
-def _launch_spike_matmul(packed4: torch.Tensor, w4: torch.Tensor, stream=0):
+def _launch_spike_matmul(packed4: torch.Tensor, w4: torch.Tensor, stream=0,
+                         tile: int = 0):
     """packed4 (G1, G2, M, C/8) uint8, w4 (G1, G2, C, K) fp32, any strides
-    -> out (G1, G2, M, K) fp32, contiguous."""
+    -> out (G1, G2, M, K) fp32, contiguous; ``tile`` as in :data:`TILES`,
+    0 resolved here to :func:`default_tile` (the kernel takes 1 or 2)."""
     g1, g2, m, _ = packed4.shape
     c, k = w4.shape[-2:]
     if g1 * g2 > MAX_BATCH:
@@ -117,53 +158,60 @@ def _launch_spike_matmul(packed4: torch.Tensor, w4: torch.Tensor, stream=0):
                       device=packed4.device)
     code = build.load().e2a_spike_matmul(
         packed4.data_ptr(), w4.data_ptr(), out.data_ptr(), g1, g2, m, c, k,
-        *packed4.stride(), *w4.stride(), *out.stride(), stream)
+        *packed4.stride(), *w4.stride(), *out.stride(),
+        tile or default_tile(m), stream)
     build.check_launch(code, "spike_matmul")
     return out
 
 
-def _launch_on_current_stream(packed4, w4):
+def _launch_on_current_stream(packed4, w4, tile):
     with torch.cuda.device(packed4.device):
         return _launch_spike_matmul(
-            packed4, w4, torch.cuda.current_stream().cuda_stream)
+            packed4, w4, torch.cuda.current_stream().cuda_stream, tile)
 
 
 def spike_matmul_packed(packed: torch.Tensor, w: torch.Tensor, *,
-                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                        out_dtype: torch.dtype | None = None,
+                        tile: int = 0) -> torch.Tensor:
     """packed: (M, C//8) uint8; w: (C, K) -> (M, K) in ``out_dtype`` (default
-    ``w.dtype``). Either operand may be strided; nothing is copied."""
+    ``w.dtype``). Either operand may be strided; nothing is copied.
+    ``tile`` forces a tile of :data:`TILES` (0: :func:`default_tile`);
+    the plain version has none."""
     if packed.ndim != 2:
         raise ValueError(f"spike_matmul_packed expects 2-D operands, got "
                          f"{tuple(packed.shape)}")
-    _check_operands(packed, w, out_dtype, "spike_matmul_packed")
+    _check_operands(packed, w, out_dtype, tile, "spike_matmul_packed")
     if not packed.is_cuda:
         return spike_matmul_packed_plain(packed, w, out_dtype=out_dtype)
-    out = _launch_on_current_stream(packed[None, None], w[None, None])
+    out = _launch_on_current_stream(packed[None, None], w[None, None], tile)
     spike_matmul_packed.launches += 1
     return out[0, 0]
 
 
 def spike_matmul_packed_batched(packed: torch.Tensor, w: torch.Tensor, *,
-                                out_dtype: torch.dtype | None = None
-                                ) -> torch.Tensor:
+                                out_dtype: torch.dtype | None = None,
+                                tile: int = 0) -> torch.Tensor:
     """packed: (G, M, C//8) uint8; w: (G, C, K) -> (G, M, K).
 
     Also takes two batch dims, (G1, G2, M, C//8) x (G1, G2, C, K) ->
     (G1, G2, M, K): the attention heads of a (T*B, N, h*dh) tensor form a
     second batch level that no single stride can express. Operands may be
     strided or expanded (a zero batch stride shares one weight among all
-    batches); the kernel reads them in place.
+    batches); the kernel reads them in place. ``tile`` as in
+    :func:`spike_matmul_packed`.
     """
     if packed.ndim not in (3, 4):
         raise ValueError(f"spike_matmul_packed_batched expects one or two "
                          f"batch dims, got {tuple(packed.shape)}")
-    _check_operands(packed, w, out_dtype, "spike_matmul_packed_batched")
+    _check_operands(packed, w, out_dtype, tile,
+                    "spike_matmul_packed_batched")
     if not packed.is_cuda:
         return spike_matmul_packed_plain(packed, w, out_dtype=out_dtype)
     if packed.ndim == 3:
-        out = _launch_on_current_stream(packed[:, None], w[:, None])[:, 0]
+        out = _launch_on_current_stream(packed[:, None], w[:, None],
+                                        tile)[:, 0]
     else:
-        out = _launch_on_current_stream(packed, w)
+        out = _launch_on_current_stream(packed, w, tile)
     spike_matmul_packed_batched.launches += 1
     return out
 

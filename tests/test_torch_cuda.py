@@ -130,6 +130,98 @@ def test_tensor_core_spike_matmul_against_its_plain_version(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tile", [1, 2])
+@pytest.mark.parametrize("case", [
+    "2d, small tile", "2d, large tile", "K^T view, two batch levels",
+    "zero batch stride"])
+def test_forced_tiles_exact_on_21_bit_weights(case, tile):
+    """Each tile forced (``tile`` 1 Large, 2 Small, what a tuned table
+    passes) at M on both sides of 512: bitwise on 21-bit integer weights
+    on rows of 12 spikes, and bit-equal to the kernel's own choice on
+    Gaussian weights (both tiles walk the contraction in one order)."""
+    dev = _card()
+    rng = np.random.default_rng(5)
+    s, view = _spike_mm_operands(case, rng)
+    bmm = s.ndim > 2
+    mm = spike_matmul.spike_matmul_batched if bmm else \
+        spike_matmul.spike_matmul
+    x = _t(_sparse_rows(rng, s.shape)).to(dev)
+    w = view(lambda sh: _t(rng.integers(-2 ** 20, 2 ** 20, sh).astype(
+        np.float32)).to(dev))
+    want = spike_matmul.spike_matmul_packed_plain(spike_matmul.spike_pack(x),
+                                                  w)
+    reset_launch_counts()
+    assert torch.equal(mm(x, w, tile=tile), want)
+    xg = _t(s).to(dev)
+    wg = view(lambda sh: _t(rng.normal(size=sh).astype(np.float32)).to(dev))
+    assert torch.equal(mm(xg, wg, tile=tile), mm(xg, wg))
+    name = "spike_matmul_packed_batched" if bmm else "spike_matmul_packed"
+    assert launch_counts()[name] == 3
+    with pytest.raises(ValueError, match="tile"):
+        mm(xg, wg, tile=3)
+
+
+@pytest.mark.cuda
+def test_tune_at_the_smoke_preset_on_the_card(tmp_path, monkeypatch):
+    """The autotuner on the card: every tunable site of the smoke preset
+    gets one entry keyed by the card's name (``NVIDIA-H100-80GB-HBM3`` on
+    an H100), its winner among the timed candidates; a forward consulting
+    the written table gives the untuned forward's logits bit for bit (in
+    eval a table only changes tiles, and a tile changes no bits)."""
+    dev = _card()
+    from repro_torch.configs import get_spikingformer_config
+    from repro_torch.core.spikingformer import SpikingFormer
+    from repro_torch.tune import table
+    from repro_torch.tune.autotune import tune_and_save
+    from repro_torch.tune.workloads import site_workloads
+    cfg = get_spikingformer_config("spikingformer-smoke@cuda-full")
+    path = tmp_path / "tuned.json"
+    rep = tune_and_save(cfg, path, smoke=True, device=dev)
+    kind = torch.cuda.get_device_name(dev).replace(" ", "-")
+    assert rep.device_kind == kind == table.current_device_kind(dev)
+    assert sorted(table.parse_key(k)[1] for k in rep.entries) == sorted(
+        w.site for w in site_workloads(cfg, 1) if w.tunable)
+    assert all(k.startswith(kind + "|") for k in rep.entries)
+    for res in rep.results:
+        assert res.winner in res.ranked[:2] and res.winner_us > 0
+    model = SpikingFormer(cfg, seed=0, device=dev)
+    images = torch.rand((2, cfg.image_size, cfg.image_size,
+                         cfg.in_channels), device=dev)
+    untuned = model(images)
+    monkeypatch.setenv(table.ENV_VAR, str(path))
+    table.reload()
+    try:
+        assert len(table.active_table()) == len(rep.entries)
+        assert torch.equal(model(images), untuned)
+    finally:
+        monkeypatch.delenv(table.ENV_VAR)
+        table.reload()
+
+
+@pytest.mark.cuda
+def test_a_candidate_that_fails_on_the_card_raises(monkeypatch):
+    """A candidate whose kernel refuses to launch stops the sweep with the
+    kernel's error: nothing is caught and passed over."""
+    dev = _card()
+    from repro_torch.core.energy.workload import MMOp
+    from repro_torch.tune.autotune import tune_site
+    from repro_torch.tune.workloads import SiteWorkload
+    wl = SiteWorkload(site="pssa.proj", op="linear_bn", impl="cuda+spike_mm",
+                      packed=True, shape=(600, 64, 64), calls=1,
+                      mm=MMOp("pssa.proj", "FP", 600, 64, 64, in_bits=1,
+                              in_sparsity=0.8))
+
+    def refuse(*args, **kw):
+        return 1           # cudaErrorInvalidValue, as a refused launch
+    monkeypatch.setattr(spike_matmul.build, "load",
+                        lambda: type("Lib", (), {"e2a_spike_matmul":
+                                                 staticmethod(refuse)}))
+    with pytest.raises(RuntimeError, match="spike_matmul: kernel launch "
+                       "failed"):
+        tune_site(wl, device=dev)
+
+
+@pytest.mark.cuda
 def test_training_kernels_against_plain_versions_on_the_card():
     """lif_soma_bwd bitwise (with and without gu_last, vector and scalar
     arms); bn_fwd / bn_bwd and neuron_layer_train within the statistics'

@@ -49,7 +49,11 @@ def test_modules_are_where_the_reference_has_them():
                  "models.attention", "models.mlp", "models.lm", "models.moe",
                  "models.mla", "models.rwkv", "models.ssm", "serving.engine",
                  "serving.scheduler", "train.checkpoint", "train.resilience",
-                 "launch.train"):
+                 "launch.train", "core.energy.constants",
+                 "core.energy.dataflow", "core.energy.energy_model",
+                 "core.energy.simulator", "core.energy.workload",
+                 "analysis.audit", "tune.table", "tune.workloads",
+                 "tune.oracle", "tune.sparsity", "tune.autotune"):
         assert f"repro_torch.{name}" in MODULES
         assert (ROOT / "src" / "repro" / (name.replace(".", "/") + ".py")) \
             .is_file()
@@ -71,6 +75,28 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     out = _run(code)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.split() == ["clean", str(len(MODULES))]
+
+
+def test_the_tune_package_imports_only_its_table():
+    """``repro_torch.tune`` sits on the dispatch path: importing it (and the
+    model, which consults its table) loads ``tune.table`` alone; the other
+    submodules load on first use of one of their names."""
+    code = (
+        "import sys\n"
+        "import repro_torch.core.spikingformer, repro_torch.tune as t\n"
+        "lazy = ('workloads', 'oracle', 'sparsity', 'autotune')\n"
+        "got = [m for m in lazy if 'repro_torch.tune.' + m in sys.modules]\n"
+        "assert 'repro_torch.tune.table' in sys.modules\n"
+        "assert not got, got\n"
+        "assert t.oracle_rank.__module__ == 'repro_torch.tune.oracle'\n"
+        "assert t.tune.__module__ == 'repro_torch.tune.autotune'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('lazy')\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split() == ["lazy"]
 
 
 def test_sources_name_neither_jax_nor_the_reference_package():

@@ -69,8 +69,10 @@ def test_presets_have_the_reference_fields():
 def test_describe_execution_is_the_reference_table():
     want = jax_cfg("spikingformer-8-512@pallas-full").describe_execution()
     want = want.split("\n\n")[0].splitlines()[1:]      # the plan table only
-    got = get_spikingformer_config(
-        "spikingformer-8-512@cuda-full").describe_execution().splitlines()
+    got, tuned = get_spikingformer_config(
+        "spikingformer-8-512@cuda-full").describe_execution().split("\n\n")
+    got = got.splitlines()
+    assert tuned.startswith("# TunedBlocks device=")   # the tuned block
     assert got[0] == "# ExecutionPolicy backend=cuda"
     assert got[1] == want[0] == "site,op,requested,effective,note"
     assert got[2:] == [translate_note(ln) for ln in want[1:]]
