@@ -4,6 +4,7 @@ spend their time on the card.
 
     python3 benchmarks/torch/profile_lm.py [--arch qwen3-0.6b] [--layers 28]
         [--seq 256] [--slots 8] [--max-seq 256] [--steps 10] [--top 20]
+    python3 benchmarks/torch/profile_lm.py --arch deepseek-v2-236b --layers 2
     python3 benchmarks/torch/profile_lm.py --train [--batch 8] [--seq 128]
 
 For the ``cuda-full`` and the ``eager`` policy on the same random weights
@@ -14,7 +15,10 @@ the device-busy time, its share of the call, the launches and the kernels
 that take the most device time; then the same for one step of a
 ``ServingEngine`` with every slot busy (``--slots`` requests of 32 prompt
 tokens, timed over ``--steps`` synchronised steps after a warm-up), with
-the fused step alone timed by CUDA events. With ``--train``, instead: one
+the fused step alone timed by CUDA events. Any dense or moe config of the
+registry runs at its published widths (``--layers`` cuts the depth:
+``deepseek-v2-236b`` fits the card at 2 of its 60 layers, 33.9 GB in
+fp32). With ``--train``, instead: one
 ``make_train_step`` step (AdamW, the layers recomputed in the backward as
 the registry's ``remat`` says) on a (``--batch``, ``--seq``) ``SyntheticLM``
 batch, timed over ``--steps`` synchronised steps from the same state after

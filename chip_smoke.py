@@ -26,8 +26,16 @@ recomputed in the backward): step 0's loss and every gradient leaf under
 three timed steps of 8 x 128 ``SyntheticLM`` tokens under each policy
 through the training driver's ``repro_torch.launch.train.train``, with the
 ``lif_soma_fwd`` / ``lif_soma_bwd`` launches per step asserted (56 / 28:
-the forward's 28, the recompute's 28 and the backward's 28). Then it runs
-the autotuner at ``spikingformer-8-512``, batch 16, ``cuda-full``, full
+the forward's 28, the recompute's 28 and the backward's 28). Then it
+serves ``deepseek-v2-236b`` (MLA, 160 routed experts top-6 at the
+published capacity factor 1.25, 2 shared experts) + LIF at its published
+widths, cut to 2 of its 60 layers, fp32, weights drawn on the card: the
+same forwards and 16 requests as ``qwen3-0.6b``'s, bit-equal between
+``cuda-full`` and ``eager`` and between two runs of a policy, 2 launches a
+forward and a decode step; slot isolation (the slots share each expert's
+capacity at decode), decode against the forward and the pairs each MoE
+layer drops are measured and printed, not held. Then it runs the
+autotuner at ``spikingformer-8-512``, batch 16, ``cuda-full``, full
 width and depth: sparsity measured on the card, the nine tunable sites,
 each candidate (a spike-matmul tile, or a neuron layer's fused or pipeline
 arm) timed with the L2 cold, the winners written as a table keyed by the
@@ -80,7 +88,8 @@ ATen's batch-norm backward alone; its first case carries ``edges``, the
 layouts where the kernel changes arm. ``lif_soma_fwd`` also runs at the
 LM's shapes in the layouts the model hands it (decode (1, 8, 1024) from a
 carried state, whose final state must match too; forward (256, 1 or 8,
-1024) as the (S, B, D) view of a (B, S, D) tensor), each case with
+1024) as the (S, B, D) view of a (B, S, D) tensor; the same three at
+``deepseek-v2-236b``'s d = 5120), each case with
 ``bitwise`` and its launches per decode step or forward, as counted on
 that path in this run; it and ``lif_soma_bwd`` run at the LM's training
 shape (128, 8, 1024), in that view, too, with their launches per training
@@ -132,7 +141,10 @@ from repro_torch.models.common import (embed, layer, rmsnorm,  # noqa: E402
 from repro_torch.launch.train import build_state, train  # noqa: E402
 from repro_torch.models.lm import (_seq_lif, init_lm,  # noqa: E402
                                    lm_forward, lm_loss)
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.mla import mla_attention  # noqa: E402
 from repro_torch.models.mlp import swiglu  # noqa: E402
+from repro_torch.models.moe import moe_apply  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.train.data import (DataConfig, SyntheticLM,  # noqa: E402
                                     SyntheticVision, VisionDataConfig)
@@ -1052,8 +1064,9 @@ def kernel_phase(seed: int, batch: int) -> dict[str, list[dict]]:
     # the training kernels
     cases["lif_soma_bwd"].extend(check_lif_bwd(gen, t, m, d))
     cases.update(train_kernel_cases(gen, batch))
-    for name, rows in lm_lif_cases(gen).items():     # the spiking LM's
-        cases[name].extend(rows)
+    for arch in (LM_ARCH, MOE_ARCH):                 # the spiking LMs'
+        for name, rows in lm_lif_cases(gen, arch).items():
+            cases[name].extend(rows)
     return cases
 
 
@@ -1508,7 +1521,8 @@ def block_grad_check(seed: int, batch: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: the spiking LM's serving path (qwen3-0.6b + LIF, published widths)
+# Phase 6 (and 8): the spiking LMs' serving paths (qwen3-0.6b + LIF, published
+# widths and depth; deepseek-v2-236b + LIF, published widths, 2 of 60 layers)
 # ---------------------------------------------------------------------------
 
 LM_ARCH = "qwen3-0.6b"
@@ -1524,45 +1538,63 @@ LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 128, 3
 LM_GRAD_LIMIT = 1e-5
 
 
-def lm_config(policy: str):
-    """``qwen3-0.6b`` at its published widths, fp32, with the LIF neuron on
-    every block's FFN branch under ``policy``."""
-    return get_config(LM_ARCH).replace(
+#: The MoE/MLA phase's model: ``deepseek-v2-236b`` at its published widths
+#: (MLA, 160 routed experts top-6 at capacity factor 1.25, 2 shared), the
+#: depth cut to 2 of its 60 layers (15.9 GB a layer in fp32).
+MOE_ARCH, MOE_LAYERS = "deepseek-v2-236b", 2
+
+
+def lm_config(policy: str, arch: str = LM_ARCH):
+    """``arch`` at its published widths, fp32, with the LIF neuron on every
+    block's FFN branch under ``policy``: ``qwen3-0.6b`` at its published
+    depth, ``deepseek-v2-236b`` at ``MOE_LAYERS``."""
+    cfg = get_config(arch).replace(
         dtype=torch.float32, lif=LIFConfig(policy=named_policy(policy)))
+    return cfg.replace(num_layers=MOE_LAYERS) if arch == MOE_ARCH else cfg
+
+
+def phase_name(arch: str) -> str:
+    """The prefix of an LM phase's lines and paths: ``lm`` or ``moe_mla``."""
+    return "lm" if arch == LM_ARCH else "moe_mla"
 
 
 LM_FWD_BATCHES = (1, LM_SLOTS)         # the forward's token batches
 
 
-def lm_lif_cases(gen) -> dict[str, list[dict]]:
-    """``lif_soma_fwd`` at the spiking LM's shapes, in the layouts the
-    model hands the kernel: decode (1, slots, d) from the carried state
-    (one launch a layer), the forward's (S, B, d) at each of
-    ``LM_FWD_BATCHES`` and the training step's (S, B, d), both as the
+def lm_lif_cases(gen, arch: str = LM_ARCH) -> dict[str, list[dict]]:
+    """``lif_soma_fwd`` at a spiking LM's shapes, in the layouts the model
+    hands the kernel: decode (1, slots, d) from the carried state (one
+    launch a layer), the forward's (S, B, d) at each of ``LM_FWD_BATCHES``
+    and (``qwen3-0.6b`` only) the training step's (S, B, d), both as the
     (S, B, d) view of the (B, S, d) branch output; S, U and mask (and the
     decode's final state) bit-equal to the plain version (``check_lif``
-    fails otherwise). ``lif_soma_bwd`` at the training step's shape in
-    that layout, bit-equal too. ``path`` names the run whose launches
-    ``lm_launches`` adds to the case once the LM phases have counted
-    them."""
-    d = get_config(LM_ARCH).d_model
+    fails otherwise). For ``qwen3-0.6b``, ``lif_soma_bwd`` at the training
+    step's shape in that layout, bit-equal too. ``path`` names the run
+    whose launches ``lm_launches`` adds to the case once the LM phases have
+    counted them."""
+    d = get_config(arch).d_model
+    pre = phase_name(arch)
     rows = {"lif_soma_fwd": [], "lif_soma_bwd": []}
-    for t, m, path in ((1, LM_SLOTS, "lm_serve"),
-                       *((LM_FWD_SEQ, b, f"lm_forward_b{b}")
-                         for b in LM_FWD_BATCHES),
-                       (LM_TRAIN_SEQ, LM_TRAIN_BATCH, "lm_train")):
-        where = {"lm_serve": "decode", "lm_train": "train"}.get(path,
-                                                                "forward")
-        decode = path == "lm_serve"
-        row = check_lif(gen, t, m, d, case=f"lm.ffn.lif {where}",
-                        layout="dense" if decode else "lm", carry=decode)
+    shapes = [(1, LM_SLOTS, f"{pre}_serve"),
+              *((LM_FWD_SEQ, b, f"{pre}_forward_b{b}")
+                for b in LM_FWD_BATCHES)]
+    if arch == LM_ARCH:
+        shapes.append((LM_TRAIN_SEQ, LM_TRAIN_BATCH, "lm_train"))
+    for t, m, path in shapes:
+        decode = path.endswith("_serve")
+        where = "decode" if decode else "train" if path == "lm_train" \
+            else "forward"
+        row = check_lif(gen, t, m, d, case=f"lm.ffn.lif {where}" + (
+            "" if arch == LM_ARCH else f" ({arch})"), layout="dense"
+            if decode else "lm", carry=decode)
         row.update(bitwise=True, path=path)
         rows["lif_soma_fwd"].append(row)
-    for row in check_lif_bwd(gen, LM_TRAIN_SEQ, LM_TRAIN_BATCH, d,
-                             case="lm.ffn.lif train", carry=False,
-                             layout="lm"):
-        row.update(bitwise=True, path="lm_train")
-        rows["lif_soma_bwd"].append(row)
+    if arch == LM_ARCH:
+        for row in check_lif_bwd(gen, LM_TRAIN_SEQ, LM_TRAIN_BATCH, d,
+                                 case="lm.ffn.lif train", carry=False,
+                                 layout="lm"):
+            row.update(bitwise=True, path="lm_train")
+            rows["lif_soma_bwd"].append(row)
     return rows
 
 
@@ -1577,8 +1609,8 @@ def lm_launches(cases: dict[str, list[dict]],
             n = counts.get(row.get("path"), {}).get(name)
             if n is None:
                 continue
-            if row["path"] == "lm_serve":
-                row["launches_per_decode_step"] = n / steps["lm_serve"]
+            if row["path"].endswith("_serve"):
+                row["launches_per_decode_step"] = n / steps[row["path"]]
             elif row["path"] == "lm_train":
                 row["launches_per_step"] = n / steps["lm_train"]
             else:
@@ -1595,32 +1627,65 @@ def lm_expected(n: int) -> dict[str, int]:
 
 def lm_walk(params, toks, cfg):
     """``lm_forward`` taken apart layer by layer, the same operations in
-    the same order, to keep each block's branch spikes (B, S, d). Returns
-    (hidden, spikes)."""
+    the same order (attention or MLA, SwiGLU or the MoE), to keep each
+    block's branch spikes (B, S, d). Returns (hidden, spikes)."""
     with torch.inference_mode():
         x = embed(params["embed"], toks, cfg.dtype)
         spikes = []
         for i in range(cfg.num_layers):
             p = layer(params["blocks"], i)
-            x = x + attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
-                              cfg.attn)
-            f = _seq_lif(swiglu(p["ffn"], rmsnorm(p["ln2"], x,
-                                                   cfg.norm_eps)), cfg)
+            h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+            x = x + (mla_attention(p["attn"], h, cfg.mla) if cfg.mla
+                     is not None else attention(p["attn"], h, cfg.attn))
+            h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+            f = _seq_lif(moe_apply(p["ffn"], h, cfg.moe)[0] if cfg.moe
+                         is not None else swiglu(p["ffn"], h), cfg)
             spikes.append(f)
             x = x + f
         return rmsnorm(params["ln_f"], x, cfg.norm_eps), spikes
 
 
-def lm_forward_phase(params, seed: int) -> dict[str, dict[str, int]]:
+@contextlib.contextmanager
+def counting_drops(out: list):
+    """While open, every MoE layer call appends to ``out`` the number of
+    its (token, choice) pairs past their expert's capacity (the pairs the
+    layer drops), a device scalar: ``moe._route`` is wrapped, its results
+    unchanged."""
+    route = moe_mod._route
+
+    def counted(router_w, x_flat, cfg):
+        gates, experts, aux = route(router_w, x_flat, cfg)
+        pos = moe_mod._expert_positions(experts.reshape(-1), cfg.num_experts)
+        out.append((pos >= cfg.capacity(x_flat.shape[0])).sum())
+        return gates, experts, aux
+    moe_mod._route = counted
+    try:
+        yield
+    finally:
+        moe_mod._route = route
+
+
+def per_layer(drops: list, layers: int) -> list[list[int]]:
+    """``counting_drops``' scalars of whole forwards or decode steps, as
+    one list per call: a count per layer."""
+    flat = [int(d) for d in drops]
+    return [flat[i:i + layers] for i in range(0, len(flat), layers)]
+
+
+def lm_forward_phase(params, seed: int, arch: str = LM_ARCH,
+                     smi: str | None = None) -> dict[str, dict[str, int]]:
     """``lm_forward`` on a (B, 256) token batch for each B of
     ``LM_FWD_BATCHES`` under ``cuda-full`` and ``eager``, the same weights:
     hidden states and logits must be equal bit for bit (only the LIF
-    differs, and its kernel equals its plain version). At B = 1 every
+    differs, and its kernel equals its plain version), and a second
+    ``cuda-full`` forward must repeat the first bit for bit. At B = 1 every
     layer's branch spikes too, from ``lm_walk``, whose hidden states must
-    equal the forward's. Returns the launch counts of each ``cuda-full``
-    forward, by path."""
-    cfg_full = lm_config("cuda-full")
+    equal the forward's. With the MoE, the (token, choice) pairs that each
+    layer drops are counted in one more forward. Returns the launch counts
+    of each ``cuda-full`` forward, by path."""
+    cfg_full = lm_config("cuda-full", arch)
     layers = cfg_full.num_layers
+    pre = phase_name(arch)
     paths = {}
     for batch in LM_FWD_BATCHES:
         toks = torch.from_numpy(SyntheticLM(DataConfig(
@@ -1628,7 +1693,7 @@ def lm_forward_phase(params, seed: int) -> dict[str, dict[str, int]]:
             global_batch=batch, seed=seed)).batch(0)["tokens"]).to(DEVICE)
         out = {}
         for policy in ("cuda-full", "eager"):
-            cfg = lm_config(policy)
+            cfg = lm_config(policy, arch)
 
             def fwd():
                 with torch.inference_mode():
@@ -1642,26 +1707,42 @@ def lm_forward_phase(params, seed: int) -> dict[str, dict[str, int]]:
             torch.cuda.synchronize()
             counts = launch_counts()         # ... and ends here
             peak = torch.cuda.max_memory_allocated()
+            again = fwd()
             out[policy] = {"h": h, "logits": logits, "counts": counts,
-                           "ms": time_ms(fwd), "peak": peak}
+                           "ms": time_ms(fwd), "peak": peak,
+                           "repeats": torch.equal(again[0], h)
+                           and torch.equal(again[1], logits)}
+            del again
             if batch == 1:
                 wh, out[policy]["spikes"] = lm_walk(params, toks, cfg)
                 if not torch.equal(wh, h):
-                    fail(f"lm forward: the layer walk's hidden states differ "
-                         f"from lm_forward's under {policy}")
+                    fail(f"{pre} forward: the layer walk's hidden states "
+                         f"differ from lm_forward's under {policy}")
         full, eager = out["cuda-full"], out["eager"]
         same = {"hidden": torch.equal(full["h"], eager["h"]),
-                "logits": torch.equal(full["logits"], eager["logits"])}
+                "logits": torch.equal(full["logits"], eager["logits"]),
+                "cuda_full_repeat": full["repeats"],
+                "eager_repeat": eager["repeats"]}
         extra = {}
         if batch == 1:
             same["spikes"] = all(torch.equal(a, b) for a, b in
                                  zip(full["spikes"], eager["spikes"]))
             extra["spike_rate_per_layer"] = [float(t.mean())
                                              for t in eager["spikes"]]
-        emit("lm_forward", arch=f"{LM_ARCH}@cuda-full", layers=layers,
-             d_model=cfg_full.d_model, vocab=cfg_full.vocab_size,
-             dtype="float32", tokens=list(toks.shape),
-             bit_equal_to_eager=same,
+        if cfg_full.moe is not None:
+            drops: list = []
+            with counting_drops(drops), torch.inference_mode():
+                lm_forward(params, {"tokens": toks}, cfg_full)
+            n = toks.numel()
+            extra.update(moe_tokens=n, capacity=cfg_full.moe.capacity(n),
+                         pairs_per_layer=n * cfg_full.moe.top_k,
+                         dropped_pairs_per_layer=per_layer(drops, layers)[0])
+        if smi is not None:
+            extra["card"] = smi
+        emit(f"{pre}_forward", arch=f"{cfg_full.name}@cuda-full",
+             layers=layers, d_model=cfg_full.d_model,
+             vocab=cfg_full.vocab_size, dtype="float32",
+             tokens=list(toks.shape), bit_equal_to_eager=same,
              max_abs_logit_err=float((full["logits"] - eager["logits"]).abs()
                                      .max()),
              logits_std=float(eager["logits"].std()), **extra,
@@ -1671,16 +1752,17 @@ def lm_forward_phase(params, seed: int) -> dict[str, dict[str, int]]:
              launches=full["counts"], launches_eager=eager["counts"],
              tolerance="bitwise: hidden states and logits (at B = 1 every "
                        "layer's branch spikes too) equal to the eager "
-                       "policy's")
+                       "policy's, and each policy's second forward equal "
+                       "to its first")
         if not all(same.values()) or not bool(torch.isfinite(full["logits"])
                                               .all()):
-            fail(f"lm forward {list(toks.shape)}: cuda-full against eager "
-                 f"{same}")
+            fail(f"{pre} forward {list(toks.shape)}: cuda-full against "
+                 f"eager {same}")
         if full["counts"] != lm_expected(layers) or \
                 eager["counts"] != lm_expected(0):
-            fail(f"lm forward launch counts {full['counts']} (eager "
+            fail(f"{pre} forward launch counts {full['counts']} (eager "
                  f"{eager['counts']}), want {layers} lif_soma_fwd")
-        paths[f"lm_forward_b{batch}"] = full["counts"]
+        paths[f"{pre}_forward_b{batch}"] = full["counts"]
         del out, full, eager
         torch.cuda.empty_cache()
     return paths
@@ -1699,16 +1781,17 @@ def lm_requests(vocab: int, seed: int) -> list[tuple[list[int], int]]:
             for i in range(LM_REQUESTS)]
 
 
-def lm_serve(params, policy: str, reqs, only=None,
-             record: bool = True) -> dict:
+def lm_serve(params, policy: str, reqs, only=None, record: bool = True,
+             arch: str = LM_ARCH, drops: list | None = None) -> dict:
     """Run the requests (those of ``only``, if given) to completion
     through one ``ServingEngine`` under ``policy``, a step at a time, each
     step synchronised and timed. With ``record``, keeps a host copy of
     every step's logits and branch spikes (the cache's new S, (L, slots,
     d)) by wrapping the engine's fused step, so that the peak device memory
     is the engine's own; the copy is then in the step's time, so the times
-    a user would see come from a run without it."""
-    engine = ServingEngine(params, lm_config(policy), slots=LM_SLOTS,
+    a user would see come from a run without it. Given ``drops``, the run
+    counts each MoE layer's dropped pairs into it (``counting_drops``)."""
+    engine = ServingEngine(params, lm_config(policy, arch), slots=LM_SLOTS,
                            max_seq=LM_MAX_SEQ)
     steps: list = []
     if record:
@@ -1729,11 +1812,13 @@ def lm_serve(params, policy: str, reqs, only=None,
     reset_launch_counts()                    # the path starts here
     times = []
     t_run = time.perf_counter()
-    while engine.sched.has_work():
-        t0 = time.perf_counter()
-        engine.step()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+    with counting_drops(drops) if drops is not None else \
+            contextlib.nullcontext():
+        while engine.sched.has_work():
+            t0 = time.perf_counter()
+            engine.step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
     wall = time.perf_counter() - t_run
     counts = launch_counts()                 # ... and ends here
     if record:
@@ -1747,23 +1832,62 @@ def lm_serve(params, policy: str, reqs, only=None,
                          + engine.faulted)}
 
 
-def lm_serve_phase(params, seed: int) -> tuple[dict[str, int], int]:
+def slot_isolation(params, reqs, full, arch: str) -> dict:
+    """Request 0 served again alone in the same 8-slot engine shape
+    against its run among the others (``full``): tokens and every step's
+    logits. With the MoE every request is served alone once more: at
+    decode the 8 slots share each expert's capacity (4 slots an expert for
+    8 tokens, ``MoEConfig.capacity``), so a neighbour, an idle slot
+    included, can push a token past it, and the count of requests whose
+    tokens differ from their solo run is measured, not held."""
+    solo = lm_serve(params, "cuda-full", reqs, only={0}, arch=arch)
+    r0 = full["done"][0]
+    n0 = len(r0.prompt) + len(r0.output) - 1
+    iso = {"tokens_equal": solo["done"][0].output == r0.output,
+           "admit_step": [r0.admit_step, solo["done"][0].admit_step],
+           "steps": n0,
+           "logits_equal": all(torch.equal(full["steps"][t][0][0],
+                                           solo["steps"][t][0][0])
+                               for t in range(n0)),
+           "max_abs_logit_err": max(float((full["steps"][t][0][0] -
+                                           solo["steps"][t][0][0]).abs().max())
+                                    for t in range(n0))}
+    if arch != LM_ARCH:
+        differ = [uid for uid in range(1, len(reqs)) if lm_serve(
+            params, "cuda-full", reqs, only={uid}, record=False,
+            arch=arch)["done"][uid].output != full["done"][uid].output]
+        differ = ([] if iso["tokens_equal"] else [0]) + differ
+        iso.update(requests_differing_from_solo=len(differ),
+                   differing_uids=differ, requests=len(reqs),
+                   note="measured, not held: the slots share each expert's "
+                        "capacity at decode")
+    return iso
+
+
+def lm_serve_phase(params, seed: int, arch: str = LM_ARCH,
+                   smi: str | None = None) -> tuple[dict[str, int], int]:
     """16 requests through 8 slots under ``cuda-full`` and ``eager``: every
     request finishes, the token streams are equal and every step's logits
     bit-equal. Each policy serves twice: once recorded, for these checks,
     and once as a user runs the engine, for the times, the peak memory and
     the launch counts (its tokens must equal the recorded run's). Then slot
-    isolation, exact: request 0 served again alone in the same 8-slot
-    engine shape gives the same tokens and logits bit for bit. Then decode
-    against the forward, measured: request 0's prompt and output
-    teacher-forced through ``lm_walk``. Returns the launch counts of the
-    unrecorded ``cuda-full`` run and its number of steps."""
-    cfg = lm_config("cuda-full")
+    isolation (``slot_isolation``): exact for ``qwen3-0.6b``, measured with
+    the MoE. Then decode against the forward, measured: request 0's prompt
+    and output teacher-forced through ``lm_walk``. With the MoE, the pairs
+    each layer drops in each decode step of the recorded ``cuda-full`` run
+    are counted. Returns the launch counts of the unrecorded ``cuda-full``
+    run and its number of steps."""
+    cfg = lm_config("cuda-full", arch)
     layers = cfg.num_layers
+    pre = phase_name(arch)
     reqs = lm_requests(cfg.vocab_size, seed)
     policies = ("cuda-full", "eager")
-    runs = {p: lm_serve(params, p, reqs) for p in policies}
-    timed = {p: lm_serve(params, p, reqs, record=False) for p in policies}
+    drops: list | None = [] if cfg.moe is not None else None
+    runs = {p: lm_serve(params, p, reqs, arch=arch,
+                        drops=drops if p == "cuda-full" else None)
+            for p in policies}
+    timed = {p: lm_serve(params, p, reqs, record=False, arch=arch)
+             for p in policies}
     full, eager = runs["cuda-full"], runs["eager"]
     repeatable = all(
         timed[p]["step_count"] == runs[p]["step_count"] and
@@ -1778,24 +1902,14 @@ def lm_serve_phase(params, seed: int) -> tuple[dict[str, int], int]:
         torch.equal(a[0], b[0]) for a, b in zip(full["steps"], eager["steps"]))
     spikes_equal = all(torch.equal(a[1], b[1])
                        for a, b in zip(full["steps"], eager["steps"]))
-
-    # slot isolation: request 0 went to slot 0 at step 0 in both runs
-    solo = lm_serve(params, "cuda-full", reqs, only={0})
-    r0 = full["done"][0]
-    n0 = len(r0.prompt) + len(r0.output) - 1
-    iso = {"tokens_equal": solo["done"][0].output == r0.output,
-           "admit_step": [r0.admit_step, solo["done"][0].admit_step],
-           "steps": n0,
-           "logits_equal": all(torch.equal(full["steps"][t][0][0],
-                                           solo["steps"][t][0][0])
-                               for t in range(n0)),
-           "max_abs_logit_err": max(float((full["steps"][t][0][0] -
-                                           solo["steps"][t][0][0]).abs().max())
-                                    for t in range(n0))}
+    iso = slot_isolation(params, reqs, full, arch)
 
     # decode against the forward (measured, not held: spikes sit behind
     # reductions that the (1, S) forward and the (slots, 1) decode order
-    # differently)
+    # differently; with the MoE the forward's capacity differs from
+    # decode's, and MLA's absorbed decode orders its sums otherwise)
+    r0 = full["done"][0]
+    n0 = iso["steps"]
     seq = torch.tensor([r0.prompt + r0.output[:-1]], device=DEVICE)
     h, fwd_spikes = lm_walk(params, seq, cfg)
     with torch.inference_mode():
@@ -1813,6 +1927,22 @@ def lm_serve_phase(params, seed: int) -> tuple[dict[str, int], int]:
             for i in range(layers)],
         "note": "measured, not held: the tolerance policy for spikes "
                 "behind reductions"}
+    extra = {}
+    if drops is not None:
+        steps = per_layer(drops, layers)
+        extra["decode_drops"] = {
+            "moe_tokens_per_step": LM_SLOTS,
+            "capacity": cfg.moe.capacity(LM_SLOTS),
+            "pairs_per_layer_per_step": LM_SLOTS * cfg.moe.top_k,
+            "steps": len(steps),
+            "dropped_pairs_per_layer_mean": [
+                sum(s[i] for s in steps) / len(steps) for i in range(layers)],
+            "dropped_pairs_per_layer_max": [max(s[i] for s in steps)
+                                            for i in range(layers)],
+            "steps_with_a_drop": sum(any(s) for s in steps),
+            "note": "recorded cuda-full run; idle slots route too"}
+    if smi is not None:
+        extra["card"] = smi
 
     def stats(r):
         ms = sorted(r["ms"])
@@ -1822,14 +1952,14 @@ def lm_serve_phase(params, seed: int) -> tuple[dict[str, int], int]:
                 "tokens_per_s": r["generated"] / r["wall_s"],
                 "wall_s": r["wall_s"], "peak_memory_bytes": r["peak"]}
     served = timed["cuda-full"]
-    emit("lm_serve", arch=f"{LM_ARCH}@cuda-full", layers=layers,
+    emit(f"{pre}_serve", arch=f"{cfg.name}@cuda-full", layers=layers,
          dtype="float32", slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
          requests=LM_REQUESTS, prompt_lengths=LM_PROMPT,
          new_tokens=LM_NEW, finished=finished,
          tokens_equal=tokens_equal, logits_bit_equal_every_step=logits_equal,
          spikes_bit_equal_every_step=spikes_equal,
          unrecorded_run_repeats_recorded=repeatable,
-         slot_isolation=iso, decode_vs_forward=vs_forward,
+         slot_isolation=iso, decode_vs_forward=vs_forward, **extra,
          times="from the unrecorded runs (no host copy per step)",
          cuda_full=stats(served), eager=stats(timed["eager"]),
          launches=served["counts"], launches_eager=timed["eager"]["counts"],
@@ -1839,33 +1969,42 @@ def lm_serve_phase(params, seed: int) -> tuple[dict[str, int], int]:
                    for r in (*runs.values(), *timed.values()))
     if not (everyone and tokens_equal and logits_equal and spikes_equal
             and repeatable):
-        fail(f"lm serve: finished {finished}, tokens equal {tokens_equal}, "
-             f"logits equal {logits_equal}, spikes equal {spikes_equal}, "
-             f"unrecorded run repeats the recorded one {repeatable}")
-    if not (iso["tokens_equal"] and iso["logits_equal"]
-            and iso["admit_step"] == [0, 0]):
+        fail(f"{pre} serve: finished {finished}, tokens equal "
+             f"{tokens_equal}, logits equal {logits_equal}, spikes equal "
+             f"{spikes_equal}, unrecorded run repeats the recorded one "
+             f"{repeatable}")
+    if arch == LM_ARCH and not (iso["tokens_equal"] and iso["logits_equal"]
+                                and iso["admit_step"] == [0, 0]):
         fail(f"lm serve: slot isolation {iso}")
     for name, r in (("recorded", full), ("unrecorded", served)):
         if r["counts"] != lm_expected(layers * r["step_count"]):
-            fail(f"lm serve launch counts {r['counts']} for "
+            fail(f"{pre} serve launch counts {r['counts']} for "
                  f"{r['step_count']} steps ({name}), want {layers} "
                  "lif_soma_fwd a step")
     for r in (eager, timed["eager"]):
         if r["counts"] != lm_expected(0):
-            fail(f"lm serve launch counts under eager {r['counts']}")
+            fail(f"{pre} serve launch counts under eager {r['counts']}")
     return served["counts"], served["step_count"]
 
 
-def lm_phase(seed: int) -> tuple[dict[str, dict[str, int]], int]:
-    """The spiking LM at full depth and width from ``seed``: the forwards,
-    then serving. Returns each path's launch counts and the serving run's
-    number of steps."""
-    cfg = lm_config("eager")
+def lm_phase(seed: int, arch: str = LM_ARCH, smi: str | None = None
+             ) -> tuple[dict[str, dict[str, int]], int]:
+    """A spiking LM at its published widths (``lm_config``) from ``seed``,
+    its weights drawn on the card: the forwards, then serving. Returns each
+    path's launch counts and the serving run's number of steps."""
+    cfg = lm_config("eager", arch)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     params = split_tree(init_lm(gen, cfg, DEVICE))[0]
-    counts = lm_forward_phase(params, seed)
+    if smi is not None:
+        emit(f"{phase_name(arch)}_weights", arch=cfg.name,
+             layers=cfg.num_layers, published_layers=get_config(arch)
+             .num_layers, parameters=sum(a.numel() for a in
+                                         tree_leaves(params)),
+             bytes=nbytes(*tree_leaves(params)), card=smi)
+    counts = lm_forward_phase(params, seed, arch, smi)
     torch.cuda.empty_cache()
-    counts["lm_serve"], steps = lm_serve_phase(params, seed)
+    counts[f"{phase_name(arch)}_serve"], steps = lm_serve_phase(
+        params, seed, arch, smi)
     return counts, steps
 
 
@@ -2442,8 +2581,11 @@ def main() -> None:
     lm_counts, lm_steps = lm_phase(args.seed)
     torch.cuda.empty_cache()
     lm_counts["lm_train"] = lm_train_phase(args.seed)
+    torch.cuda.empty_cache()
+    moe_counts, moe_steps = lm_phase(args.seed, MOE_ARCH, smi)
+    lm_counts.update(moe_counts)
     lm_launches({k: cases[k] for k in ("lif_soma_fwd", "lif_soma_bwd")},
-                lm_counts, {"lm_serve": lm_steps,
+                lm_counts, {"lm_serve": lm_steps, "moe_mla_serve": moe_steps,
                             "lm_train": 1 + LM_TRAIN_STEPS})
     torch.cuda.empty_cache()
     tune_counts = tune_phase(args.seed, BATCH)

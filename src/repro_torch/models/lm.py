@@ -1,16 +1,17 @@
 """Decoder LM assembled from an ArchConfig (the counterpart of
-``repro.models.lm``), dense family.
+``repro.models.lm``), the dense and moe families.
 
-The dense family is a stack of pre-norm GQA + pre-norm SwiGLU blocks with
-the layer leaves stacked on a leading ``(L, ...)`` axis and looped over
-(the reference scans over it). With ``cfg.lif`` set it is the spiking LM:
-the E2ATST LIF neuron sits on every block's FFN branch (site
-``lm.ffn.lif``), with the sequence axis as the neuron's time axis in the
-forward and its ``(U, S)`` state carried in the serving cache in decode.
+A block is pre-norm attention (GQA, or MLA with ``cfg.mla``) + pre-norm
+FFN (SwiGLU, or the mixture of experts with ``cfg.moe``), with the layer
+leaves stacked on a leading ``(L, ...)`` axis and looped over (the
+reference scans over it). With ``cfg.lif`` set it is the spiking LM: the
+E2ATST LIF neuron sits on every block's FFN branch (site ``lm.ffn.lif``),
+with the sequence axis as the neuron's time axis in the forward and its
+``(U, S)`` state carried in the serving cache in decode.
 
-The other families (``rwkv``, ``hybrid``, ``moe``/MLA, ``audio``, ``vlm``)
-are still to port (ROADMAP A9): their entry points raise
-``NotImplementedError``, they never run something else.
+The other families (``rwkv``, ``hybrid``, ``audio``, ``vlm``) are still to
+port (ROADMAP A9): their entry points raise ``NotImplementedError``, they
+never run something else.
 
 Entry points:
   init_lm(generator, cfg, device)      -> augmented param tree (Leaf leaves)
@@ -30,6 +31,8 @@ from repro_torch.core.backend import resolve_device
 from repro_torch.core.lif import lif_decode_step, lif_scan
 from repro_torch.core.policy import register_site_table
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (cross_entropy_loss, embed,
                                        init_embedding, init_rmsnorm, lscan,
                                        rmsnorm, stack_layer_trees, tree_map,
@@ -39,17 +42,15 @@ from repro_torch.models.mlp import init_swiglu, swiglu
 Params = dict[str, Any]
 
 
-def _require_dense(cfg: ArchConfig) -> None:
-    """Raise for every architecture but the dense family."""
+def _require_ported(cfg: ArchConfig) -> None:
+    """Raise for every architecture but the dense and moe families."""
     what = [n for n, on in (("family " + repr(cfg.family),
-                             cfg.family != "dense"),
-                            ("MoE", cfg.moe is not None),
-                            ("MLA", cfg.mla is not None),
+                             cfg.family not in ("dense", "moe")),
                             ("the VLM stub", cfg.vlm_stub)) if on]
     if what:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(what)} is not ported yet (ROADMAP A9); "
-            f"repro_torch.models.lm runs the dense family")
+            f"repro_torch.models.lm runs the dense and moe families")
 
 
 # ---------------------------------------------------------------------------
@@ -87,39 +88,61 @@ def _init_lif_state(batch: int, cfg: ArchConfig, dtype, device):
 
 
 # ---------------------------------------------------------------------------
-# Dense block: init / forward / decode
+# Dense / moe block: init / forward / decode
 # ---------------------------------------------------------------------------
 
 def _init_dense_block(generator, cfg: ArchConfig, device):
-    return {"ln1": init_rmsnorm(cfg.d_model, cfg.dtype, device),
-            "ln2": init_rmsnorm(cfg.d_model, cfg.dtype, device),
-            "attn": attn_mod.init_attention(generator, cfg.attn, cfg.dtype,
-                                            device),
-            "ffn": init_swiglu(generator, cfg.d_model, cfg.d_ff, cfg.dtype,
-                               device)}
+    p = {"ln1": init_rmsnorm(cfg.d_model, cfg.dtype, device),
+         "ln2": init_rmsnorm(cfg.d_model, cfg.dtype, device)}
+    if cfg.mla is not None:
+        p["attn"] = mla_mod.init_mla(generator, cfg.mla, cfg.dtype, device)
+    else:
+        p["attn"] = attn_mod.init_attention(generator, cfg.attn, cfg.dtype,
+                                            device)
+    if cfg.moe is not None:
+        p["ffn"] = moe_mod.init_moe(generator, cfg.moe, cfg.dtype, device)
+    else:
+        p["ffn"] = init_swiglu(generator, cfg.d_model, cfg.d_ff, cfg.dtype,
+                               device)
+    return p
 
 
 def _dense_block(p, x, cfg: ArchConfig, *, use_flash: bool):
+    """One block: (x + attention + FFN branch, the MoE's aux loss (0 for
+    SwiGLU))."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    if use_flash:
+    if cfg.mla is not None:
+        a = mla_mod.mla_flash_attention(p["attn"], h, cfg.mla) if use_flash \
+            else mla_mod.mla_attention(p["attn"], h, cfg.mla)
+    elif use_flash:
         a = attn_mod.flash_attention(p["attn"], h, cfg.attn)
     else:
         a = attn_mod.attention(p["attn"], h, cfg.attn)
     x = x + a
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    f = swiglu(p["ffn"], h)
+    if cfg.moe is not None:
+        f, aux = moe_mod.moe_apply(p["ffn"], h, cfg.moe)
+    else:
+        f = swiglu(p["ffn"], h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.lif is not None:
         f = _seq_lif(f, cfg)
-    return x + f, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + f, aux
 
 
 def _dense_block_decode(p, x, cache, pos, cfg: ArchConfig):
     kv = cache["kv"] if cfg.lif is not None else cache
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    a, kv = attn_mod.attention_decode(p["attn"], h, kv, pos, cfg.attn)
+    if cfg.mla is not None:
+        a, kv = mla_mod.mla_decode(p["attn"], h, kv, pos, cfg.mla)
+    else:
+        a, kv = attn_mod.attention_decode(p["attn"], h, kv, pos, cfg.attn)
     x = x + a
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    f = swiglu(p["ffn"], h)
+    if cfg.moe is not None:
+        f, _ = moe_mod.moe_apply(p["ffn"], h, cfg.moe)
+    else:
+        f = swiglu(p["ffn"], h)
     if cfg.lif is not None:
         f, lif_st = _lif_decode(f, cache["lif"], cfg)
         return x + f, {"kv": kv, "lif": lif_st}
@@ -137,7 +160,7 @@ def init_lm(generator: torch.Generator, cfg: ArchConfig,
     the tensors out), drawn from ``generator`` on its own device and placed
     on ``device`` (``None`` = the card, raising without one)."""
     device = resolve_device(device)
-    _require_dense(cfg)
+    _require_ported(cfg)
     p: Params = {"embed": init_embedding(generator, cfg.vocab_size,
                                          cfg.d_model, cfg.dtype, device),
                  "ln_f": init_rmsnorm(cfg.d_model, cfg.dtype, device)}
@@ -154,7 +177,7 @@ def init_lm(generator: torch.Generator, cfg: ArchConfig,
 def lm_forward(params: Params, batch: dict[str, torch.Tensor],
                cfg: ArchConfig, *, use_flash: bool = False):
     """batch: tokens (B, S). Returns (hidden (B, S, D), aux_loss)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = embed(params["embed"], batch["tokens"], cfg.dtype)
 
     def body(x, p):
@@ -186,19 +209,23 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device: str | torch.device | None = None):
     """Stacked (L, ...) decode state (``device=None`` = the card).
 
-    Without ``cfg.lif`` it is the attention cache {"k","v"}; with it, every
-    layer nests the attention cache under "kv" next to the branch neuron's
-    {"u","s"} membrane state under "lif" (the KV-cache analogue for
-    neurons), as in the reference.
+    Without ``cfg.lif`` it is the attention cache, {"k","v"}, or with
+    ``cfg.mla`` the latent cache {"c","kr"}; with it, every layer nests
+    that cache under "kv" next to the branch neuron's {"u","s"} membrane
+    state under "lif" (the KV-cache analogue for neurons), as in the
+    reference.
     """
     device = resolve_device(device)
-    _require_dense(cfg)
+    _require_ported(cfg)
     n = cfg.num_layers
 
     def stacked(tree):
         return tree_map(lambda a: a[None].repeat(n, *([1] * a.ndim)), tree)
 
-    kv = attn_mod.init_kv_cache(batch, cfg.attn, max_seq, dtype, device)
+    if cfg.mla is not None:
+        kv = mla_mod.init_mla_cache(batch, cfg.mla, max_seq, dtype, device)
+    else:
+        kv = attn_mod.init_kv_cache(batch, cfg.attn, max_seq, dtype, device)
     if cfg.lif is not None:
         return stacked({"kv": kv,
                         "lif": _init_lif_state(batch, cfg, dtype, device)})
@@ -207,16 +234,17 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
 
 def cache_batch_axes(cfg: ArchConfig, cache):
     """Per-leaf slot(=batch)-axis index, same structure as ``cache``: every
-    dense-family leaf is stacked ``(L, slots, ...)``."""
-    _require_dense(cfg)
+    leaf of the dense and moe families (attention KV, MLA latent, LIF
+    membrane) is stacked ``(L, slots, ...)``."""
+    _require_ported(cfg)
     return tree_map(lambda _: 1, cache)
 
 
 def reset_cache_slots(cache, slot_mask: torch.Tensor, cfg: ArchConfig):
     """Reset the masked slots' decode state to init without disturbing the
-    neighbouring slots. The init state is all-zeros (attention KV, LIF
-    membrane), so reset is a masked zero-fill along each leaf's slot axis.
-    ``slot_mask``: (slots,) bool. Returns a new cache."""
+    neighbouring slots. The init state is all-zeros (attention KV, MLA
+    latent, LIF membrane), so reset is a masked zero-fill along each leaf's
+    slot axis. ``slot_mask``: (slots,) bool. Returns a new cache."""
     axes = cache_batch_axes(cfg, cache)
 
     def reset(a, ax):
@@ -237,7 +265,7 @@ def lm_decode_step(params: Params, cache, tokens: torch.Tensor,
                    pos: torch.Tensor, cfg: ArchConfig):
     """tokens: (B, 1) -> (logits (B, V), new cache). pos: (B,). The cache
     passed in is not modified."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = embed(params["embed"], tokens, cfg.dtype)
 
     def body(x, ps):

@@ -23,9 +23,12 @@ walks the retained steps newest first and falls back, with a warning, past
 any step that fails to restore. Leaves are restored onto the devices of the
 ``like`` tree's leaves.
 
-Not ported: the reference's fault-injection hooks (ROADMAP A13), the
-re-resolution of specs against another mesh (A11) and the MoE layout
-relay (A9).
+:func:`reshape_moe_layout` relays an MoE expert leaf between model-axis
+sizes on the host, as the reference's does (its known fault with
+``w_down`` at E < M included: ROADMAP C5).
+
+Not ported: the reference's fault-injection hooks (ROADMAP A13) and the
+re-resolution of specs against another mesh (A11).
 """
 from __future__ import annotations
 
@@ -294,3 +297,32 @@ def restore_latest_good(directory: str, like: Any) -> tuple[int | None, Any]:
                 f"({e}); falling back to the previous retained step",
                 RuntimeWarning, stacklevel=2)
     return None, None
+
+
+def reshape_moe_layout(w: np.ndarray, old_m: int, new_m: int,
+                       num_experts: int) -> np.ndarray:
+    """Relay an MoE physical layout (M, E_loc, D, F_loc) between meshes with
+    different model-axis sizes (elastic rescale), on the host.
+
+    The reference's function, operation for operation. Like it, this takes
+    F as the last axis; ``w_down`` is (M, E_loc, F_loc, D), so at E < M its
+    relay joins the slices along D (ROADMAP C5), as the reference's does.
+    """
+    m, el, d, fl = w.shape
+    if m != old_m:
+        raise ValueError(f"leaf has {m} model shards, not {old_m}")
+    tp_old = max(1, old_m // num_experts)
+    # back to logical (E, D, F)
+    if num_experts >= old_m:
+        logical = w.reshape(old_m * el, d, fl)
+    else:
+        logical = w.reshape(num_experts, tp_old, d, fl).transpose(0, 2, 1, 3) \
+            .reshape(num_experts, d, tp_old * fl)
+    # to the new physical layout
+    tp_new = max(1, new_m // num_experts)
+    el_new = max(1, num_experts // new_m)
+    f = logical.shape[-1]
+    if num_experts >= new_m:
+        return logical.reshape(new_m, el_new, d, f)
+    return logical.reshape(num_experts, d, tp_new, f // tp_new) \
+        .transpose(0, 2, 1, 3).reshape(new_m, 1, d, f // tp_new)

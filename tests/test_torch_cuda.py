@@ -962,6 +962,54 @@ def test_engine_tokens_equal_under_cuda_full_and_eager():
     assert (n_c, n_e) == (2 * steps, 0)
 
 
+@pytest.mark.cuda
+def test_moe_mla_lm_launches_and_bits_under_cuda_full_and_eager():
+    """deepseek-v2-236b reduced (d 64, MLA, 8 experts top-2, a shared
+    expert), two layers, fp32, with the LIF: a (2, 16) forward takes 2
+    ``lif_soma_fwd`` launches (one a layer), a decode step 2 (from the
+    carry); two ``cuda-full`` forwards give the same bits (the MoE combine
+    adds in a fixed order), equal to ``eager``'s, and so do the decode
+    steps' logits."""
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.core.lif import LIFConfig
+    from repro_torch.core.policy import named_policy
+    from repro_torch.models.common import split_tree
+    from repro_torch.models.lm import (init_cache, init_lm, lm_decode_step,
+                                       lm_forward)
+    dev = _card()
+    base = reduced(get_config("deepseek-v2-236b")).replace(num_layers=2)
+    params = split_tree(init_lm(torch.Generator(device=dev).manual_seed(0),
+                                base, dev))[0]
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, base.vocab_size, (2, 16))).to(dev)
+    out = {}
+    for policy in ("cuda-full", "eager"):
+        cfg = base.replace(lif=LIFConfig(policy=named_policy(policy)))
+        with torch.inference_mode():
+            reset_launch_counts()
+            h, aux = lm_forward(params, {"tokens": toks}, cfg)
+            torch.cuda.synchronize()
+            n_fwd = launch_counts()["lif_soma_fwd"]
+            again, _ = lm_forward(params, {"tokens": toks}, cfg)
+            cache = init_cache(cfg, 2, 16, torch.float32, dev)
+            logits = []
+            for t in range(4):
+                reset_launch_counts()
+                lg, cache = lm_decode_step(params, cache, toks[:, t:t + 1],
+                                           torch.full((2,), t, device=dev),
+                                           cfg)
+                torch.cuda.synchronize()
+                logits.append((lg, launch_counts()["lif_soma_fwd"]))
+        assert torch.equal(h, again)
+        out[policy] = (h, aux, n_fwd, logits)
+    (h_c, aux_c, n_c, lg_c), (h_e, aux_e, n_e, lg_e) = \
+        out["cuda-full"], out["eager"]
+    assert torch.equal(h_c, h_e) and torch.equal(aux_c, aux_e)
+    assert (n_c, n_e) == (2, 0)
+    assert all(torch.equal(a, b) for (a, _), (b, _) in zip(lg_c, lg_e))
+    assert [n for _, n in lg_c] == [2] * 4 and [n for _, n in lg_e] == [0] * 4
+
+
 # ---------------------------------------------------------------------------
 # The spiking LM's training path (qwen3-0.6b + LIF)
 # ---------------------------------------------------------------------------
