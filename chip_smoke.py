@@ -34,9 +34,19 @@ same forwards and 16 requests as ``qwen3-0.6b``'s, bit-equal between
 ``cuda-full`` and ``eager`` and between two runs of a policy, 2 launches a
 forward and a decode step; slot isolation (the slots share each expert's
 capacity at decode), decode against the forward and the pairs each MoE
-layer drops are measured and printed, not held. Then it runs the
-autotuner at ``spikingformer-8-512``, batch 16, ``cuda-full``, full
-width and depth: sparsity measured on the card, the nine tunable sites,
+layer drops are measured and printed, not held. Then it serves the
+recurrent families at their published widths and depths, fp32, weights
+drawn on the card: ``rwkv6-7b`` + LIF (32 layers, d 4096, the LIF on
+every channel-mix branch) and ``zamba2-2.7b`` + LIF (54 Mamba2 layers, d
+2560, the LIF on every Mamba2 branch, the weight-shared attention block
+after every 6 without one), the same forwards and 16 requests, bit-equal
+between ``cuda-full`` and ``eager`` and between two runs of a policy,
+exact slot isolation, 32 and 54 launches a forward and a decode step;
+decode against the forward, and for ``zamba2-2.7b`` the masked SSD
+entries whose ``exp`` overflows in the (8, 256) forward (ROADMAP C6), are
+measured and printed, not held. Then it runs the autotuner at
+``spikingformer-8-512``, batch 16, ``cuda-full``, full width and depth:
+sparsity measured on the card, the nine tunable sites,
 each candidate (a spike-matmul tile, or a neuron layer's fused or pipeline
 arm) timed with the L2 cold, the winners written as a table keyed by the
 card and consulted by a forward and a training step, each compared with
@@ -89,7 +99,8 @@ layouts where the kernel changes arm. ``lif_soma_fwd`` also runs at the
 LM's shapes in the layouts the model hands it (decode (1, 8, 1024) from a
 carried state, whose final state must match too; forward (256, 1 or 8,
 1024) as the (S, B, D) view of a (B, S, D) tensor; the same three at
-``deepseek-v2-236b``'s d = 5120), each case with
+``deepseek-v2-236b``'s d = 5120, ``rwkv6-7b``'s 4096 and
+``zamba2-2.7b``'s 2560), each case with
 ``bitwise`` and its launches per decode step or forward, as counted on
 that path in this run; it and ``lif_soma_bwd`` run at the LM's training
 shape (128, 8, 1024), in that view, too, with their launches per training
@@ -139,9 +150,13 @@ from repro_torch.models.attention import attention  # noqa: E402
 from repro_torch.models.common import (embed, layer, rmsnorm,  # noqa: E402
                                        split_tree, unembed)
 from repro_torch.launch.train import build_state, train  # noqa: E402
-from repro_torch.models.lm import (_seq_lif, init_lm,  # noqa: E402
-                                   lm_forward, lm_loss)
+from repro_torch.models.lm import (_dense_block,  # noqa: E402
+                                   _hybrid_group_shape, _seq_lif,
+                                   _shared_cfg, init_lm, lm_forward,
+                                   lm_loss)
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.mla import mla_attention  # noqa: E402
 from repro_torch.models.mlp import swiglu  # noqa: E402
 from repro_torch.models.moe import moe_apply  # noqa: E402
@@ -1064,7 +1079,7 @@ def kernel_phase(seed: int, batch: int) -> dict[str, list[dict]]:
     # the training kernels
     cases["lif_soma_bwd"].extend(check_lif_bwd(gen, t, m, d))
     cases.update(train_kernel_cases(gen, batch))
-    for arch in (LM_ARCH, MOE_ARCH):                 # the spiking LMs'
+    for arch in PHASE_NAMES:                         # the spiking LMs'
         for name, rows in lm_lif_cases(gen, arch).items():
             cases[name].extend(rows)
     return cases
@@ -1542,20 +1557,28 @@ LM_GRAD_LIMIT = 1e-5
 #: (MLA, 160 routed experts top-6 at capacity factor 1.25, 2 shared), the
 #: depth cut to 2 of its 60 layers (15.9 GB a layer in fp32).
 MOE_ARCH, MOE_LAYERS = "deepseek-v2-236b", 2
+#: The recurrent families' models, at their published widths and depths:
+#: ``rwkv6-7b`` (32 layers, d 4096, 31.2 GB in fp32) and ``zamba2-2.7b``
+#: (54 Mamba2 layers, d 2560, and the shared attention block after every
+#: 6, 9.4 GB).
+RWKV_ARCH, HYBRID_ARCH = "rwkv6-7b", "zamba2-2.7b"
+#: Each LM phase's name, the prefix of its lines and paths.
+PHASE_NAMES = {LM_ARCH: "lm", MOE_ARCH: "moe_mla", RWKV_ARCH: "rwkv",
+               HYBRID_ARCH: "hybrid"}
 
 
 def lm_config(policy: str, arch: str = LM_ARCH):
     """``arch`` at its published widths, fp32, with the LIF neuron on every
-    block's FFN branch under ``policy``: ``qwen3-0.6b`` at its published
-    depth, ``deepseek-v2-236b`` at ``MOE_LAYERS``."""
+    block's FFN / channel-mix / Mamba2 branch under ``policy``: at its
+    published depth, but ``deepseek-v2-236b`` at ``MOE_LAYERS``."""
     cfg = get_config(arch).replace(
         dtype=torch.float32, lif=LIFConfig(policy=named_policy(policy)))
     return cfg.replace(num_layers=MOE_LAYERS) if arch == MOE_ARCH else cfg
 
 
 def phase_name(arch: str) -> str:
-    """The prefix of an LM phase's lines and paths: ``lm`` or ``moe_mla``."""
-    return "lm" if arch == LM_ARCH else "moe_mla"
+    """The prefix of an LM phase's lines and paths (``PHASE_NAMES``)."""
+    return PHASE_NAMES[arch]
 
 
 LM_FWD_BATCHES = (1, LM_SLOTS)         # the forward's token batches
@@ -1625,24 +1648,65 @@ def lm_expected(n: int) -> dict[str, int]:
     return counts
 
 
-def lm_walk(params, toks, cfg):
+def lm_walk(params, toks, cfg, probe=None):
     """``lm_forward`` taken apart layer by layer, the same operations in
-    the same order (attention or MLA, SwiGLU or the MoE), to keep each
-    block's branch spikes (B, S, d). Returns (hidden, spikes)."""
+    the same order (attention or MLA, SwiGLU or the MoE; RWKV's time and
+    channel mix; the Mamba2 mixers and, after each group, the shared
+    block), to keep each block's branch spikes (B, S, d). ``probe(p, h)``,
+    if given, sees each Mamba2 layer's parameters and normalised input.
+    Returns (hidden, spikes)."""
+    per = _hybrid_group_shape(cfg)[1] if cfg.family == "hybrid" else 0
     with torch.inference_mode():
         x = embed(params["embed"], toks, cfg.dtype)
         spikes = []
         for i in range(cfg.num_layers):
             p = layer(params["blocks"], i)
-            h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-            x = x + (mla_attention(p["attn"], h, cfg.mla) if cfg.mla
-                     is not None else attention(p["attn"], h, cfg.attn))
-            h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-            f = _seq_lif(moe_apply(p["ffn"], h, cfg.moe)[0] if cfg.moe
-                         is not None else swiglu(p["ffn"], h), cfg)
+            if cfg.family == "rwkv":
+                x = x + rwkv_mod.rwkv_time_mix(
+                    p["time"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg.rwkv)
+                f = rwkv_mod.rwkv_channel_mix(
+                    p["chan"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.rwkv)
+            elif cfg.family == "hybrid":
+                h = rmsnorm(p["ln"], x, cfg.norm_eps)
+                if probe is not None:
+                    probe(p["ssm"], h)
+                f = ssm_mod.ssm_mixer(p["ssm"], h, cfg.ssm)
+            else:
+                h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+                x = x + (mla_attention(p["attn"], h, cfg.mla) if cfg.mla
+                         is not None else attention(p["attn"], h, cfg.attn))
+                h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+                f = moe_apply(p["ffn"], h, cfg.moe)[0] if cfg.moe \
+                    is not None else swiglu(p["ffn"], h)
+            f = _seq_lif(f, cfg)
             spikes.append(f)
             x = x + f
+            if per and (i + 1) % per == 0:
+                x = _dense_block(params["shared"], x, _shared_cfg(cfg),
+                                 use_flash=False)[0]
         return rmsnorm(params["ln_f"], x, cfg.norm_eps), spikes
+
+
+def ssd_overflows(params, toks, cfg) -> list[int]:
+    """Per Mamba2 layer of a forward on ``toks``, the masked (upper
+    triangle) SSD entries whose ``exp(cum_t - cum_i)`` overflows to inf
+    (ROADMAP C6: the forward stays finite, a gradient would not), counted
+    on the mixer's own ``cum`` from the layer's input in ``lm_walk``."""
+    counts = []
+    scfg = cfg.ssm
+
+    def probe(p, h):
+        b, s, _ = h.shape
+        dt = ssm_mod._split_proj(p, h, scfg)[2]
+        ck = scfg.chunk if s % scfg.chunk == 0 else s
+        cum = torch.cumsum(ssm_mod._decay_log(p, dt)[1].reshape(
+            b, s // ck, ck, -1), dim=2)
+        li = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+        upper = torch.ones((ck, ck), dtype=torch.bool,
+                           device=h.device).triu(1)[:, :, None]
+        counts.append(int((torch.isinf(torch.exp(li)) & upper).sum()))
+    lm_walk(params, toks, cfg, probe)
+    return counts
 
 
 @contextlib.contextmanager
@@ -1737,6 +1801,16 @@ def lm_forward_phase(params, seed: int, arch: str = LM_ARCH,
             extra.update(moe_tokens=n, capacity=cfg_full.moe.capacity(n),
                          pairs_per_layer=n * cfg_full.moe.top_k,
                          dropped_pairs_per_layer=per_layer(drops, layers)[0])
+        if cfg_full.ssm is not None and batch == LM_SLOTS:
+            ovf = ssd_overflows(params, toks, cfg_full)
+            ck = cfg_full.ssm.chunk
+            extra["ssd_masked_exp_overflows"] = {
+                "total": sum(ovf), "per_layer": ovf,
+                "masked_entries_per_layer": batch * LM_FWD_SEQ // ck
+                * cfg_full.ssm.n_heads * ck * (ck - 1) // 2,
+                "chunk": ck, "note": "ROADMAP C6, measured, not held: "
+                "exp overflows in the masked upper triangle, the forward "
+                "stays finite, a gradient would not"}
         if smi is not None:
             extra["card"] = smi
         emit(f"{pre}_forward", arch=f"{cfg_full.name}@cuda-full",
@@ -1799,7 +1873,7 @@ def lm_serve(params, policy: str, reqs, only=None, record: bool = True,
 
         def recorded(*args):
             logits, cache = fused(*args)
-            steps.append((logits.cpu(), cache["lif"]["s"].cpu()))
+            steps.append((logits.cpu(), branch_spikes(cache).cpu()))
             return logits, cache
         engine._step = recorded
     for uid, (prompt, new) in enumerate(reqs):
@@ -1832,10 +1906,18 @@ def lm_serve(params, policy: str, reqs, only=None, record: bool = True,
                          + engine.faulted)}
 
 
+def branch_spikes(cache) -> torch.Tensor:
+    """Every layer's branch spikes of a decode step, (L, slots, d): the
+    cache's new LIF S (the hybrid's from its (groups, per, slots, d))."""
+    s = cache["mamba"]["lif"]["s"] if "mamba" in cache else cache["lif"]["s"]
+    return s.reshape(-1, *s.shape[-2:])
+
+
 def slot_isolation(params, reqs, full, arch: str) -> dict:
     """Request 0 served again alone in the same 8-slot engine shape
     against its run among the others (``full``): tokens and every step's
-    logits. With the MoE every request is served alone once more: at
+    logits (held exactly but with the MoE: no other family couples its
+    slots). With the MoE every request is served alone once more: at
     decode the 8 slots share each expert's capacity (4 slots an expert for
     8 tokens, ``MoEConfig.capacity``), so a neighbour, an idle slot
     included, can push a token past it, and the count of requests whose
@@ -1852,7 +1934,7 @@ def slot_isolation(params, reqs, full, arch: str) -> dict:
            "max_abs_logit_err": max(float((full["steps"][t][0][0] -
                                            solo["steps"][t][0][0]).abs().max())
                                     for t in range(n0))}
-    if arch != LM_ARCH:
+    if get_config(arch).moe is not None:
         differ = [uid for uid in range(1, len(reqs)) if lm_serve(
             params, "cuda-full", reqs, only={uid}, record=False,
             arch=arch)["done"][uid].output != full["done"][uid].output]
@@ -1871,9 +1953,9 @@ def lm_serve_phase(params, seed: int, arch: str = LM_ARCH,
     bit-equal. Each policy serves twice: once recorded, for these checks,
     and once as a user runs the engine, for the times, the peak memory and
     the launch counts (its tokens must equal the recorded run's). Then slot
-    isolation (``slot_isolation``): exact for ``qwen3-0.6b``, measured with
-    the MoE. Then decode against the forward, measured: request 0's prompt
-    and output teacher-forced through ``lm_walk``. With the MoE, the pairs
+    isolation (``slot_isolation``): exact, but measured with the MoE. Then
+    decode against the forward, measured: request 0's prompt and output
+    teacher-forced through ``lm_walk``. With the MoE, the pairs
     each layer drops in each decode step of the recorded ``cuda-full`` run
     are counted. Returns the launch counts of the unrecorded ``cuda-full``
     run and its number of steps."""
@@ -1973,9 +2055,9 @@ def lm_serve_phase(params, seed: int, arch: str = LM_ARCH,
              f"{tokens_equal}, logits equal {logits_equal}, spikes equal "
              f"{spikes_equal}, unrecorded run repeats the recorded one "
              f"{repeatable}")
-    if arch == LM_ARCH and not (iso["tokens_equal"] and iso["logits_equal"]
+    if cfg.moe is None and not (iso["tokens_equal"] and iso["logits_equal"]
                                 and iso["admit_step"] == [0, 0]):
-        fail(f"lm serve: slot isolation {iso}")
+        fail(f"{pre} serve: slot isolation {iso}")
     for name, r in (("recorded", full), ("unrecorded", served)):
         if r["counts"] != lm_expected(layers * r["step_count"]):
             fail(f"{pre} serve launch counts {r['counts']} for "
@@ -2582,12 +2664,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     lm_counts["lm_train"] = lm_train_phase(args.seed)
     torch.cuda.empty_cache()
-    moe_counts, moe_steps = lm_phase(args.seed, MOE_ARCH, smi)
-    lm_counts.update(moe_counts)
+    serve_steps = {"lm_serve": lm_steps, "lm_train": 1 + LM_TRAIN_STEPS}
+    for arch in (MOE_ARCH, RWKV_ARCH, HYBRID_ARCH):
+        arch_counts, serve_steps[f"{phase_name(arch)}_serve"] = lm_phase(
+            args.seed, arch, smi)
+        lm_counts.update(arch_counts)
+        torch.cuda.empty_cache()
     lm_launches({k: cases[k] for k in ("lif_soma_fwd", "lif_soma_bwd")},
-                lm_counts, {"lm_serve": lm_steps, "moe_mla_serve": moe_steps,
-                            "lm_train": 1 + LM_TRAIN_STEPS})
-    torch.cuda.empty_cache()
+                lm_counts, serve_steps)
     tune_counts = tune_phase(args.seed, BATCH)
 
     print(json.dumps(summarise(cases, {"serve": counts, "train": train_counts,

@@ -65,7 +65,7 @@ def layer(tree: Any, i: int) -> Any:
     return tree_map(lambda a: a[i], tree)
 
 
-def lscan(cfg, f, init, xs):
+def lscan(cfg, f, init, xs, remat: bool | None = None):
     """The reference's ``lax.scan`` over the stacked layer axis, as a loop:
     ``carry, y = f(carry, layer(xs, i))`` for each layer ``i``; returns the
     last carry and the ``y`` trees stacked on a new leading axis (``None``
@@ -76,8 +76,13 @@ def lscan(cfg, f, init, xs):
     layer. With ``cfg.remat`` set (the reference wraps its scanned body in
     ``jax.checkpoint``) and gradients enabled, each layer's body runs under
     ``torch.utils.checkpoint``: its activations are recomputed in the
-    backward instead of kept, and the gradients are the same."""
-    remat = getattr(cfg, "remat", False) and torch.is_grad_enabled()
+    backward instead of kept, and the gradients are the same. ``remat``
+    overrides ``cfg.remat``: ``False`` for a loop inside a body that is
+    already recomputed as a whole (the hybrid family's Mamba2 layers inside
+    a group)."""
+    if remat is None:
+        remat = getattr(cfg, "remat", False)
+    remat = remat and torch.is_grad_enabled()
     slices = [a.unbind(0) for a in tree_leaves(xs)]
     carry, ys = init, []
     for i in range(len(slices[0])):

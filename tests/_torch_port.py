@@ -23,6 +23,8 @@ from repro.models import lm as jlm
 from repro.models import mla as jmla
 from repro.models import mlp as jmlp
 from repro.models import moe as jmoe
+from repro.models import rwkv as jrwkv
+from repro.models import ssm as jssm
 from repro_torch.configs import registry as treg
 from repro_torch.convert import from_jax, lm_from_jax
 from repro_torch.core.lif import LIFConfig
@@ -36,6 +38,8 @@ from repro_torch.models import lm as tlm
 from repro_torch.models import mla as tmla
 from repro_torch.models import mlp as tmlp
 from repro_torch.models import moe as tmoe
+from repro_torch.models import rwkv as trwkv
+from repro_torch.models import ssm as tssm
 from repro_torch.train.data import DataConfig, SyntheticLM
 
 #: (JAX policy name, port policy name) pairs the parity tests sweep.
@@ -159,36 +163,56 @@ def _torch_branches(p, cfg):
     return attn, ffn
 
 
-def jax_branch_spikes(params, toks, cfg):
-    """The reference's ``_dense_block``, taken apart to keep each layer's
-    branch spikes (the reference's ``lm_forward`` returns none)."""
-    x = jcommon.embed(params["embed"], toks, cfg.dtype)
+def _branch_spikes(mods, params, toks, cfg):
+    """A family's blocks taken apart to keep each layer's branch spikes
+    (neither package's ``lm_forward`` returns them), through one package's
+    modules: ``mods`` = (to numpy, its ``common``, ``lm``, ``rwkv`` and
+    ``ssm`` modules, the dense block's branch functions, the layer
+    slicer). A hybrid group ends with the shared block."""
+    to_np, common, lm, rwkv, ssm, branches, layer_of = mods
+    x = common.embed(params["embed"], toks, cfg.dtype)
     spikes = []
+    per = lm._hybrid_group_shape(cfg)[1] if cfg.family == "hybrid" else 0
     for i in range(cfg.num_layers):
-        p = jax.tree.map(lambda a: a[i], params["blocks"])
-        attn, ffn = _jax_branches(p, cfg)
-        x = x + attn(jcommon.rmsnorm(p["ln1"], x, cfg.norm_eps))
-        f = jlm._seq_lif(ffn(jcommon.rmsnorm(p["ln2"], x, cfg.norm_eps)),
-                         cfg)
-        spikes.append(np.asarray(f))
+        p = layer_of(params["blocks"], i)
+        if cfg.family == "rwkv":
+            x = x + rwkv.rwkv_time_mix(
+                p["time"], common.rmsnorm(p["ln1"], x, cfg.norm_eps),
+                cfg.rwkv)
+            f = rwkv.rwkv_channel_mix(
+                p["chan"], common.rmsnorm(p["ln2"], x, cfg.norm_eps),
+                cfg.rwkv)
+        elif cfg.family == "hybrid":
+            f = ssm.ssm_mixer(p["ssm"], common.rmsnorm(p["ln"], x,
+                                                       cfg.norm_eps), cfg.ssm)
+        else:
+            attn, ffn = branches(p, cfg)
+            x = x + attn(common.rmsnorm(p["ln1"], x, cfg.norm_eps))
+            f = ffn(common.rmsnorm(p["ln2"], x, cfg.norm_eps))
+        f = lm._seq_lif(f, cfg)
+        spikes.append(to_np(f))
         x = x + f
+        if per and (i + 1) % per == 0:
+            x = lm._dense_block(params["shared"], x, cfg.replace(
+                moe=None, mla=None, family="dense", lif=None),
+                use_flash=False)[0]
     return spikes
+
+
+def jax_branch_spikes(params, toks, cfg):
+    """The reference's blocks, taken apart to keep each layer's branch
+    spikes (the reference's ``lm_forward`` returns none)."""
+    return _branch_spikes(
+        (np.asarray, jcommon, jlm, jrwkv, jssm, _jax_branches,
+         lambda t, i: jax.tree.map(lambda a: a[i], t)), params, toks, cfg)
 
 
 def torch_branch_spikes(params, toks, cfg):
-    """The port's ``_dense_block`` taken apart the same way."""
+    """The port's blocks taken apart the same way."""
     with torch.no_grad():
-        x = tcommon.embed(params["embed"], toks, cfg.dtype)
-        spikes = []
-        for i in range(cfg.num_layers):
-            p = tcommon.layer(params["blocks"], i)
-            attn, ffn = _torch_branches(p, cfg)
-            x = x + attn(tcommon.rmsnorm(p["ln1"], x, cfg.norm_eps))
-            f = tlm._seq_lif(ffn(tcommon.rmsnorm(p["ln2"], x, cfg.norm_eps)),
-                             cfg)
-            spikes.append(f.numpy())
-            x = x + f
-    return spikes
+        return _branch_spikes(
+            (lambda t: t.numpy(), tcommon, tlm, trwkv, tssm, _torch_branches,
+             tcommon.layer), params, toks, cfg)
 
 
 def lm_batch(step: int = 0, batch: int = 4, seq: int = 16, vocab: int = 512):
@@ -356,12 +380,14 @@ def family_loss_and_grads_match(name: str, jax_policy: str | None,
                                 params=qk_scaled_params(jcfg))
 
 
-def forward_matches(name: str, jax_policy: str | None):
+def forward_matches(name: str, jax_policy: str | None, params_fn=None,
+                    toks=FAMILY_TOKENS):
     """``lm_forward`` (hidden states, aux loss), ``lm_prefill`` and the
-    flash forward at 1e-5 scale-aware, branch spikes equal layer by layer."""
+    flash forward at 1e-5 scale-aware, branch spikes equal layer by layer.
+    ``params_fn(jcfg)`` gives the (reference, port) parameters (default
+    ``lm_params``); ``toks`` the (B, S) tokens."""
     jcfg, tcfg = lm_cfgs(name, jax_policy)
-    jp, tp = lm_params(jcfg)
-    toks = FAMILY_TOKENS
+    jp, tp = (params_fn or lm_params)(jcfg)
     jh, jaux = jlm.lm_forward(jp, {"tokens": toks}, jcfg)
     th, taux = tlm.lm_forward(tp, {"tokens": torch.from_numpy(toks)}, tcfg)
     if jax_policy is not None:
@@ -370,7 +396,7 @@ def forward_matches(name: str, jax_policy: str | None):
             jax_branch_spikes(jp, toks, jcfg))]
         assert len(mism) == jcfg.num_layers and not any(mism), mism
     close_scaled(th.numpy(), jh)
-    assert float(jaux) > 0.0
+    assert (float(jaux) > 0.0) == (jcfg.moe is not None)
     close_scaled(taux.numpy(), jaux)
     close_scaled(tlm.lm_prefill(tp, {"tokens": torch.from_numpy(toks)},
                                 tcfg).numpy(),
@@ -379,18 +405,19 @@ def forward_matches(name: str, jax_policy: str | None):
                                 use_flash=True)[0].numpy(), jh)
 
 
-def decode_matches(name: str, jax_policy: str | None, steps: int = 6):
+def decode_matches(name: str, jax_policy: str | None, steps: int = 6,
+                   params_fn=None, toks=FAMILY_TOKENS):
     """``steps`` decode steps of two rows at different positions from the
     same cache: logits and every cache leaf at 1e-5 scale-aware."""
     jcfg, tcfg = lm_cfgs(name, jax_policy)
-    jp, tp = lm_params(jcfg)
+    jp, tp = (params_fn or lm_params)(jcfg)
     jc = jlm.init_cache(jcfg, 2, 16, jnp.float32)
     tc = tlm.init_cache(tcfg, 2, 16, torch.float32, "cpu")
     assert [tuple(a.shape) for a in tree_leaves(tc)] == \
         [a.shape for a in jax.tree.leaves(jc)]
     pos = np.array([0, 2], np.int32)
     for t in range(steps):
-        tok = FAMILY_TOKENS[:, t:t + 1]
+        tok = toks[:, t:t + 1]
         jl, jc = jlm.lm_decode_step(jp, jc, jnp.asarray(tok),
                                     jnp.asarray(pos), jcfg)
         tl, tc = tlm.lm_decode_step(tp, tc, torch.from_numpy(tok),
@@ -400,7 +427,8 @@ def decode_matches(name: str, jax_policy: str | None, steps: int = 6):
         pos = pos + 1
 
 
-def decode_equals_forward(name: str, policy: str, tol: float = 1e-4):
+def decode_equals_forward(name: str, policy: str, tol: float = 1e-4,
+                          params_fn=None, toks=FAMILY_TOKENS[:1]):
     """The reference's own check on the port (``test_archs_smoke.py:92``):
     token-by-token decode (the cache, the (U, S) carry) equals the
     full-sequence forward, at ``tol`` absolute and relative (the
@@ -408,15 +436,16 @@ def decode_equals_forward(name: str, policy: str, tol: float = 1e-4):
     GRAD_REL_L2_AT_INIT, parts the two orders of the sums by 1.4e-5)."""
     jcfg, tcfg = lm_cfgs(name, "jnp")
     tcfg = tcfg.replace(lif=LIFConfig(policy=named_policy(policy)))
-    _, tp = lm_params(jcfg)
-    toks = torch.from_numpy(FAMILY_TOKENS[:1])
+    _, tp = (params_fn or lm_params)(jcfg)
+    toks = torch.from_numpy(toks)
     x, _ = tlm.lm_forward(tp, {"tokens": toks}, tcfg)
-    want = tcommon.unembed(tp["embed"], x)[0]
-    cache = tlm.init_cache(tcfg, 1, 32, torch.float32, "cpu")
+    want = tcommon.unembed(tp["embed"], x)
+    cache = tlm.init_cache(tcfg, toks.shape[0], 32, torch.float32, "cpu")
     for t in range(toks.shape[1]):
-        lg, cache = tlm.lm_decode_step(tp, cache, toks[:, t:t + 1],
-                                       torch.tensor([t]), tcfg)
-        np.testing.assert_allclose(lg[0].numpy(), want[t].numpy(),
+        lg, cache = tlm.lm_decode_step(
+            tp, cache, toks[:, t:t + 1],
+            torch.full((toks.shape[0],), t), tcfg)
+        np.testing.assert_allclose(lg.numpy(), want[:, t].numpy(),
                                    atol=tol, rtol=tol)
 
 
@@ -445,15 +474,16 @@ ENGINE_REQUESTS = [([3, 17, 42], 5), ([5, 9], 4), ([100, 7, 3], 6), ([8], 3),
                    ([12, 13, 14, 15], 4)]
 
 
-def engine_tokens_match(name: str, spiking: bool):
+def engine_tokens_match(name: str, spiking: bool, params_fn=None):
     """The port's ``ServingEngine`` and the reference's, the same requests
     through 2 slots, the same converted weights: every request's tokens
-    equal."""
+    equal. Returns the reference's parameters and config and the port's
+    finished requests."""
     from repro.serving.engine import ServingEngine as JEngine
     from repro.serving.scheduler import Request as JRequest
     from repro_torch.serving import Request, ServingEngine
     jcfg, tcfg = lm_cfgs(name, "jnp" if spiking else None)
-    jp, tp = lm_params(jcfg)
+    jp, tp = (params_fn or lm_params)(jcfg)
     jeng = JEngine(jp, jcfg, slots=2, max_seq=32)
     teng = ServingEngine(tp, tcfg, slots=2, max_seq=32, device="cpu")
     for uid, (prompt, new) in enumerate(ENGINE_REQUESTS):
@@ -462,7 +492,71 @@ def engine_tokens_match(name: str, spiking: bool):
         assert teng.submit(Request(uid=uid, prompt=prompt,
                                    max_new_tokens=new))
     want = {r.uid: r.output for r in jeng.run_to_completion()}
-    got = {r.uid: r.output for r in teng.run_to_completion()}
+    done = teng.run_to_completion()
+    got = {r.uid: r.output for r in done}
     assert sorted(got) == sorted(want) == list(range(len(ENGINE_REQUESTS)))
     assert got == want
     assert teng.step_count == jeng.step_count
+    return jp, jcfg, done
+
+
+# ---------------------------------------------------------------------------
+# The recurrent families (rwkv, hybrid): non-trivial recurrent leaves
+# ---------------------------------------------------------------------------
+
+#: (B, S) tokens of the recurrent families' checks: S = 16 is two chunks of
+#: the reduced configs' 8, S = 13 is not a multiple of 8 and runs as one
+#: chunk (the reference's fallback), so both chunk paths run.
+RECURRENT_TOKENS = {
+    16: np.array([[3, 7, 11, 2, 5, 9, 300, 41, 17, 0, 511, 64, 8, 8, 1, 99],
+                  [8, 8, 1, 0, 511, 17, 5, 6, 250, 12, 13, 14, 15, 3, 2, 7]],
+                 np.int32)}
+RECURRENT_TOKENS[13] = RECURRENT_TOKENS[16][:, :13]
+
+
+def randomize_recurrent(tree: dict, rng: np.random.Generator) -> dict:
+    """The leaves that the reference's init leaves trivial, drawn in place
+    on a numpy tree of RWKV time / channel mixes or SSM mixers (stacked or
+    not), so that the token shift, the ``x_prev`` carry, the bonus, the
+    conv bias, the skip and the decays all show:
+
+    * ``mu`` (all ones at init: the shift and the carry are invisible) in
+      [0, 1];
+    * ``u_bonus`` and ``conv_b`` (zeros) N(0, 0.5) and N(0, 0.3);
+    * ``decay_bias`` (-5: a decay of 0.993) in [-3, 0.5], a per-step log
+      decay of -exp(b) in [-1.65, -0.05];
+    * ``a_log`` (0) in [-2, 0.5] and ``dt_bias`` (0) in [-0.5, 0.5]: the
+      per-step log decay dt * exp(a_log) spans about [-5, -0.01], so a
+      chunk of 8 decays by as much as e^-30, and the largest masked
+      exponent of a 13-step chunk stays below fp32's 88 (asserted by the
+      tests' ``spread_in_effect``);
+    * ``d_skip`` (ones) in [0.5, 1.5].
+    """
+    draws = {"mu": lambda s: rng.uniform(0.0, 1.0, s),
+             "u_bonus": lambda s: rng.normal(0.0, 0.5, s),
+             "conv_b": lambda s: rng.normal(0.0, 0.3, s),
+             "decay_bias": lambda s: rng.uniform(-3.0, 0.5, s),
+             "a_log": lambda s: rng.uniform(-2.0, 0.5, s),
+             "dt_bias": lambda s: rng.uniform(-0.5, 0.5, s),
+             "d_skip": lambda s: rng.uniform(0.5, 1.5, s)}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            randomize_recurrent(v, rng)
+        elif k in draws:
+            tree[k] = draws[k](v.shape).astype(v.dtype)
+    return tree
+
+
+def recurrent_params(jcfg, seed: int = 0):
+    """(reference, port) parameters of ``init_lm`` with the recurrent
+    leaves randomised in numpy (``randomize_recurrent``) and, for the
+    hybrid, the shared attention's query and key projections times
+    ``QK_SCALE`` (the reference's init makes that softmax sharp, see
+    GRAD_REL_L2_AT_INIT), identically for both packages."""
+    jp = randomize_recurrent(np_tree(lm_params(jcfg)[0]),
+                             np.random.default_rng(seed))
+    if "shared" in jp:
+        for k in ("wq", "wk"):
+            jp["shared"]["attn"][k] = jp["shared"]["attn"][k] * np.float32(
+                QK_SCALE)
+    return as_jax(jp), lm_from_jax(jp, device="cpu")

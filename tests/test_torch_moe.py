@@ -1,6 +1,7 @@
-"""The port's mixture of experts (``repro_torch.models.moe``) and the moe
-family of the LM (``reduced(mixtral-8x7b)``) against the JAX package, both
-on the CPU, and the MoE checkpoint relay (``reshape_moe_layout``).
+"""The port's mixture of experts (``repro_torch.models.moe``) against the
+JAX package, both on the CPU, and the MoE checkpoint relay
+(``reshape_moe_layout``). The moe family of the LM is in
+``test_torch_moe_lm.py``.
 
 The same numpy inputs and the reference's own parameters (converted by
 ``lm_from_jax``) go through both packages; fp32, tolerance 1e-5
@@ -21,11 +22,7 @@ try:
 except ImportError:
     from _hypothesis_shim import given, settings, strategies as st
 
-from _torch_port import (close_scaled, converted_leaves_match,
-                         decode_equals_forward, decode_matches,
-                         engine_tokens_match, family_loss_and_grads_match,
-                         forward_matches, init_tree_matches, np_tree,
-                         reset_equals_init, single_thread)
+from _torch_port import close_scaled, np_tree, single_thread
 
 from repro.models import common as jcommon
 from repro.models import moe as jmoe
@@ -37,7 +34,6 @@ from repro_torch.train import checkpoint as tckpt
 
 single_thread()
 KEY = jax.random.PRNGKey(0)
-ARCH = "mixtral-8x7b"
 
 #: deepseek-v2-236b's routing at a narrow width: 160 experts, top-6, the
 #: published capacity factor 1.25.
@@ -227,54 +223,6 @@ def test_combine_is_the_reference_scatter_add_in_order():
     want = jnp.zeros((n, d)).at[jnp.arange(n).repeat(k)].add(contrib)
     got = tmoe._combine(torch.zeros(n, d), _t(contrib), k)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-
-
-# ---------------------------------------------------------------------------
-# The moe family of the LM: reduced mixtral-8x7b
-# ---------------------------------------------------------------------------
-
-def test_init_lm_tree_has_the_reference_keys_shapes_and_specs():
-    init_tree_matches(ARCH)
-
-
-def test_lm_from_jax_carries_the_moe_leaves():
-    keys = converted_leaves_match(ARCH)
-    assert {"blocks/ffn/router", "blocks/ffn/w_gate",
-            "blocks/ffn/w_down"} <= keys
-
-
-@pytest.mark.parametrize("jax_policy", [None, "jnp", "pallas"])
-def test_lm_forward_matches_reference(jax_policy):
-    forward_matches(ARCH, jax_policy)
-
-
-@pytest.mark.parametrize("jax_policy,at_init", [(None, False),
-                                                ("jnp", False), (None, True)])
-def test_lm_loss_and_gradients_match_reference(jax_policy, at_init):
-    """``lm_loss`` (the MoE aux loss weighted in) and every gradient leaf,
-    the experts' and the router's included, at the tolerances that
-    ``_torch_port.GRAD_REL_L2_AT_INIT`` explains."""
-    family_loss_and_grads_match(ARCH, jax_policy, at_init)
-
-
-@pytest.mark.parametrize("jax_policy", [None, "jnp"])
-def test_lm_decode_step_matches_reference(jax_policy):
-    decode_matches(ARCH, jax_policy)
-
-
-@pytest.mark.parametrize("policy", ["eager", "cuda"])
-def test_spiking_decode_matches_forward(policy):
-    decode_equals_forward(ARCH, policy)
-
-
-@pytest.mark.parametrize("spiking", [False, True])
-def test_reset_cache_slots_matches_init(spiking):
-    reset_equals_init(ARCH, spiking)
-
-
-@pytest.mark.parametrize("spiking", [False, True])
-def test_engine_tokens_equal_the_reference_engine(spiking):
-    engine_tokens_match(ARCH, spiking)
 
 
 # ---------------------------------------------------------------------------
