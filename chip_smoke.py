@@ -44,7 +44,28 @@ between ``cuda-full`` and ``eager`` and between two runs of a policy,
 exact slot isolation, 32 and 54 launches a forward and a decode step;
 decode against the forward, and for ``zamba2-2.7b`` the masked SSD
 entries whose ``exp`` overflows in the (8, 256) forward (ROADMAP C6), are
-measured and printed, not held. Then it runs the autotuner at
+measured and printed, not held. Then it serves and trains the
+encoder-decoder, ``whisper-large-v3`` at its published size (32 + 32
+layers, d 1280, 1,500 frames, fp32, nothing cut): the encoder pass and the
+cross memory of 8 requests, a 4-token prompt and 60 greedy decode steps
+against the teacher-forced forward, then 1 + 2 training steps through the
+driver, first at the reference's init (the attention logits have a std of
+about 64 at this width, ROADMAP C7: measured, not held), then with every
+attention's query and key projections scaled by 1/4, decode held at the
+reference's 2e-2 and training from those weights as a checkpoint the
+driver resumes from; no kernel launches on any path (the family never
+reads ``cfg.lif``). Then it trains the other
+spiking LM families at published widths, fp32, each layer recomputed:
+``mixtral-8x7b`` + LIF (2 of 32 layers), ``rwkv6-7b`` + LIF (13 of 32)
+and ``zamba2-2.7b`` + LIF (54): step 0's loss bit-equal between
+``cuda-full`` and ``eager`` and every gradient leaf within 1e-5 (the MoE's
+run-to-run gradient difference measured, not held), then 1 + 2 steps
+through the driver under ``cuda-full`` with the LIF launches per step
+asserted; ``zamba2-2.7b`` first at its published SSD chunk of 128, where
+the gradient is not finite (ROADMAP C6) and the guard skips every step
+with every leaf bit-unchanged, then at a chunk of 16, where it trains (at
+64 and 32 the SSD's masked ``exp`` still overflows in some layers; the
+overflows at each chunk are counted). Then it runs the autotuner at
 ``spikingformer-8-512``, batch 16, ``cuda-full``, full width and depth:
 sparsity measured on the card, the nine tunable sites,
 each candidate (a spike-matmul tile, or a neuron layer's fused or pipeline
@@ -103,9 +124,10 @@ carried state, whose final state must match too; forward (256, 1 or 8,
 ``zamba2-2.7b``'s 2560), each case with
 ``bitwise`` and its launches per decode step or forward, as counted on
 that path in this run; it and ``lif_soma_bwd`` run at the LM's training
-shape (128, 8, 1024), in that view, too, with their launches per training
-step. Every LIF case names its ``arm`` (``flat`` or ``ring``) and bounds
-its time by the recursion as well: ``bound_ms`` is the larger of the byte
+shapes (128, 8, d) at d = 1024, 4096 (``mixtral-8x7b``, ``rwkv6-7b``)
+and 2560, in that view, too, with their launches per training step.
+Every LIF case names its ``arm`` (``flat`` or ``ring``) and bounds its
+time by the recursion as well: ``bound_ms`` is the larger of the byte
 time and T steps of the serial chain (the dependent fp32 instructions a
 step of the built ring kernel's SASS holds, ``cuobjdump -sass``, at 4
 cycles each and the card's maximum SM clock), ``bound_by`` ``"bytes"`` or
@@ -123,6 +145,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -149,6 +172,9 @@ from repro_torch.kernels import (KERNELS, build, fused_bn,  # noqa: E402
 from repro_torch.models.attention import attention  # noqa: E402
 from repro_torch.models.common import (embed, layer, rmsnorm,  # noqa: E402
                                        split_tree, unembed)
+from repro_torch.models.encdec import (decode_train,  # noqa: E402
+                                       encdec_decode_step, encode,
+                                       init_encdec_cache)
 from repro_torch.launch.train import build_state, train  # noqa: E402
 from repro_torch.models.lm import (_dense_block,  # noqa: E402
                                    _hybrid_group_shape, _seq_lif,
@@ -163,6 +189,7 @@ from repro_torch.models.moe import moe_apply  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.train.data import (DataConfig, SyntheticLM,  # noqa: E402
                                     SyntheticVision, VisionDataConfig)
+from repro_torch.train.checkpoint import save_checkpoint  # noqa: E402
 from repro_torch.train.loop import make_train_step  # noqa: E402
 from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
                                          init_opt_state)
@@ -1082,6 +1109,9 @@ def kernel_phase(seed: int, batch: int) -> dict[str, list[dict]]:
     for arch in PHASE_NAMES:                         # the spiking LMs'
         for name, rows in lm_lif_cases(gen, arch).items():
             cases[name].extend(rows)
+    for arch in TRAIN_PHASES:
+        for name, rows in train_lif_cases(gen, arch).items():
+            cases[name].extend(rows)
     return cases
 
 
@@ -1587,38 +1617,43 @@ LM_FWD_BATCHES = (1, LM_SLOTS)         # the forward's token batches
 def lm_lif_cases(gen, arch: str = LM_ARCH) -> dict[str, list[dict]]:
     """``lif_soma_fwd`` at a spiking LM's shapes, in the layouts the model
     hands the kernel: decode (1, slots, d) from the carried state (one
-    launch a layer), the forward's (S, B, d) at each of ``LM_FWD_BATCHES``
-    and (``qwen3-0.6b`` only) the training step's (S, B, d), both as the
-    (S, B, d) view of the (B, S, d) branch output; S, U and mask (and the
-    decode's final state) bit-equal to the plain version (``check_lif``
-    fails otherwise). For ``qwen3-0.6b``, ``lif_soma_bwd`` at the training
-    step's shape in that layout, bit-equal too. ``path`` names the run
+    launch a layer) and the forward's (S, B, d) at each of
+    ``LM_FWD_BATCHES`` as the (S, B, d) view of the (B, S, d) branch
+    output; S, U and mask (and the decode's final state) bit-equal to the
+    plain version (``check_lif`` fails otherwise). ``path`` names the run
     whose launches ``lm_launches`` adds to the case once the LM phases have
-    counted them."""
+    counted them (the training step's cases: ``train_lif_cases``)."""
     d = get_config(arch).d_model
     pre = phase_name(arch)
     rows = {"lif_soma_fwd": [], "lif_soma_bwd": []}
     shapes = [(1, LM_SLOTS, f"{pre}_serve"),
               *((LM_FWD_SEQ, b, f"{pre}_forward_b{b}")
                 for b in LM_FWD_BATCHES)]
-    if arch == LM_ARCH:
-        shapes.append((LM_TRAIN_SEQ, LM_TRAIN_BATCH, "lm_train"))
     for t, m, path in shapes:
         decode = path.endswith("_serve")
-        where = "decode" if decode else "train" if path == "lm_train" \
-            else "forward"
-        row = check_lif(gen, t, m, d, case=f"lm.ffn.lif {where}" + (
-            "" if arch == LM_ARCH else f" ({arch})"), layout="dense"
-            if decode else "lm", carry=decode)
+        row = check_lif(gen, t, m, d, case=f"lm.ffn.lif "
+                        f"{'decode' if decode else 'forward'}" + (
+                            "" if arch == LM_ARCH else f" ({arch})"),
+                        layout="dense" if decode else "lm", carry=decode)
         row.update(bitwise=True, path=path)
         rows["lif_soma_fwd"].append(row)
-    if arch == LM_ARCH:
-        for row in check_lif_bwd(gen, LM_TRAIN_SEQ, LM_TRAIN_BATCH, d,
-                                 case="lm.ffn.lif train", carry=False,
-                                 layout="lm"):
-            row.update(bitwise=True, path="lm_train")
-            rows["lif_soma_bwd"].append(row)
     return rows
+
+
+def train_lif_cases(gen, arch: str = LM_ARCH) -> dict[str, list[dict]]:
+    """``lif_soma_fwd`` and ``lif_soma_bwd`` at a spiking LM's training
+    step, (128, 8, d) as the (S, B, d) view of the (B, S, d) branch output
+    and its cotangent, bit-equal to the plain versions; ``path`` is the
+    LM's training path (``TRAIN_PHASES``)."""
+    d, path = get_config(arch).d_model, TRAIN_PHASES[arch]
+    case = "lm.ffn.lif train" + ("" if arch == LM_ARCH else f" ({arch})")
+    fwd = check_lif(gen, LM_TRAIN_SEQ, LM_TRAIN_BATCH, d, case=case,
+                    layout="lm")
+    bwd = check_lif_bwd(gen, LM_TRAIN_SEQ, LM_TRAIN_BATCH, d, case=case,
+                        carry=False, layout="lm")
+    for row in (fwd, *bwd):
+        row.update(bitwise=True, path=path)
+    return {"lif_soma_fwd": [fwd], "lif_soma_bwd": bwd}
 
 
 def lm_launches(cases: dict[str, list[dict]],
@@ -1634,8 +1669,8 @@ def lm_launches(cases: dict[str, list[dict]],
                 continue
             if row["path"].endswith("_serve"):
                 row["launches_per_decode_step"] = n / steps[row["path"]]
-            elif row["path"] == "lm_train":
-                row["launches_per_step"] = n / steps["lm_train"]
+            elif row["path"].endswith("_train"):
+                row["launches_per_step"] = n / steps[row["path"]]
             else:
                 row["launches_per_forward"] = n
 
@@ -2091,60 +2126,144 @@ def lm_phase(seed: int, arch: str = LM_ARCH, smi: str | None = None
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: the spiking LM's training path (qwen3-0.6b + LIF, published widths)
+# Phase 7 (and 8): the spiking LMs' training paths (qwen3-0.6b, mixtral-8x7b,
+# rwkv6-7b, zamba2-2.7b + LIF, published widths)
 # ---------------------------------------------------------------------------
 
-def lm_train_expected(layers: int, steps: int) -> dict[str, int]:
+#: The spiking LMs trained, each with the name of its training path: at
+#: published widths, fp32, each layer recomputed in the backward.
+TRAIN_PHASES = {LM_ARCH: "lm_train", "mixtral-8x7b": "moe_train",
+                RWKV_ARCH: "rwkv_train", HYBRID_ARCH: "hybrid_train"}
+#: Depths cut for training, where AdamW's state would not fit the card:
+#: ``mixtral-8x7b`` 2 of 32 layers (2.96 B parameters, 11.8 GB in fp32;
+#: weights, gradients, m and v 47 GB), ``rwkv6-7b`` the deepest that
+#: leaves 8 GB free beside the driver's state, a spare copy of the weights
+#: and the activations (``rwkv_train``'s ``free_bytes``).
+TRAIN_LAYERS = {"mixtral-8x7b": 2, RWKV_ARCH: 13}
+#: Timed steps of the families beside qwen3-0.6b, after one warm-up, under
+#: ``cuda-full`` only.
+FAMILY_TRAIN_STEPS = 2
+#: The hybrid trains at an SSD chunk of 16, the largest power of two at
+#: which its step-0 gradient is finite on the training batch: at the
+#: published 128 the reference's own gradient is not finite at init
+#: (ROADMAP C6), and its non-finite guard skips every step, as the phase
+#: shows first; at 64 and 32 the masked ``exp`` still overflows in some
+#: layers (the phase counts the overflowing entries at each chunk).
+HYBRID_TRAIN_CHUNK = 16
+#: The chunks at which the hybrid phase counts the overflowing masked SSD
+#: entries of the training batch (measured, not held).
+SSD_PROBE_CHUNKS = (128, 64, 32, 16)
+#: Memory the rwkv training step must leave free on the card.
+FREE_BYTES_MIN = 8e9
+
+
+def lm_train_config(policy: str, arch: str = LM_ARCH,
+                    chunk: int | None = None):
+    """``lm_config(policy, arch)`` (the audio family never reads its LIF)
+    at its training depth (``TRAIN_LAYERS``); ``chunk`` sets the hybrid's
+    SSD chunk."""
+    cfg = lm_config(policy, arch)
+    if arch in TRAIN_LAYERS:
+        cfg = cfg.replace(num_layers=TRAIN_LAYERS[arch])
+    if chunk is not None:
+        cfg = cfg.replace(ssm=dataclasses.replace(cfg.ssm, chunk=chunk))
+    return cfg
+
+
+def lm_train_expected(steps: int, arch: str = LM_ARCH,
+                      policy: str = "cuda-full") -> dict[str, int]:
     """Per step, ``lif_soma_fwd`` once a layer in the forward and once more
-    when ``torch.utils.checkpoint`` recomputes the layer (``remat``), and
-    ``lif_soma_bwd`` once a layer; no other kernel (the LM's products are
-    dense ``torch.matmul``)."""
+    when ``torch.utils.checkpoint`` recomputes the layer (``remat``; the
+    hybrid recomputes each group, its Mamba2 layers once each), and
+    ``lif_soma_bwd`` once a layer; no other kernel (the LMs' products are
+    dense ``torch.matmul``); none under ``eager``."""
+    layers = lm_train_config(policy, arch).num_layers \
+        if policy == "cuda-full" else 0
     counts = {name: 0 for name in KERNELS}
     counts["lif_soma_fwd"] = 2 * layers * steps
     counts["lif_soma_bwd"] = layers * steps
     return counts
 
 
-def lm_grad_check(params, seed: int) -> dict:
+def lm_train_batch(cfg, seed: int) -> dict[str, torch.Tensor]:
+    """The driver's first batch: ``SyntheticLM``'s batch 0 on the card."""
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in SyntheticLM(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_SEQ,
+                   global_batch=LM_TRAIN_BATCH, seed=seed)).batch(0).items()}
+
+
+def grad_diff(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """Two gradient leaves: bit-equal, relative L2 over the elements
+    finite in both, and the non-finite elements (count, same places)."""
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    nonfinite = int((~fa).sum())
+    if nonfinite or not bool(fb.all()):
+        a, b = (torch.where(fa & fb, x, torch.zeros_like(x)) for x in (a, b))
+    return {"bit_equal": torch.equal(a, b) and torch.equal(fa, fb),
+            "rel_l2": float((a - b).norm() / b.norm().clamp_min(1e-30)),
+            "nonfinite": nonfinite, "nonfinite_same": torch.equal(fa, fb)}
+
+
+def lm_grad_check(params, seed: int, arch: str = LM_ARCH,
+                  chunk: int | None = None) -> dict:
     """Step 0's loss and gradient, through the train step's own gradient
     function (``value_and_grad`` of ``lm_loss``), under ``cuda-full``
     and ``eager`` from the same weights on the driver's first batch: the
     loss bit-equal (the SOMA kernel equals the eager scan bit for bit, the
     products are the same calls), each gradient leaf bit-equal or within
-    ``LM_GRAD_LIMIT`` relative L2."""
-    cfg = lm_config("cuda-full")
-    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in SyntheticLM(
-        DataConfig(vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_SEQ,
-                   global_batch=LM_TRAIN_BATCH, seed=seed)).batch(0).items()}
-    out = {}
-    for policy in ("cuda-full", "eager"):
-        out[policy] = value_and_grad(lm_loss, params, batch,
-                                     lm_config(policy))
-        torch.cuda.synchronize()
-    (loss_c, _), grads_c = out["cuda-full"]
-    (loss_e, _), grads_e = out["eager"]
-    per_leaf = {}
-    for name, a, b in zip(tree_paths(grads_c), tree_leaves(grads_c),
-                          tree_leaves(grads_e)):
-        per_leaf[name] = {"bit_equal": torch.equal(a, b), "rel_l2": float(
-            (a - b).norm() / b.norm().clamp_min(1e-30))}
-    worst = max(r["rel_l2"] for r in per_leaf.values())
-    return {"loss_cuda_full": float(loss_c), "loss_eager": float(loss_e),
-            "loss_bit_equal": torch.equal(loss_c, loss_e),
-            "leaves": len(per_leaf),
-            "bit_equal_leaves": sum(r["bit_equal"] for r in per_leaf.values()),
-            "max_rel_l2": worst, "per_leaf": per_leaf,
-            "tolerance": f"loss bitwise; each gradient leaf bitwise or "
-                         f"relative L2 <= {LM_GRAD_LIMIT}"}
+    ``LM_GRAD_LIMIT`` relative L2 (over its finite elements), with its
+    non-finite elements counted and placed. With the MoE, a second
+    ``cuda-full`` gradient too: its relative L2 to the first, per leaf
+    (the backward's index additions are atomic on the card), measured."""
+    cfg = lm_train_config("cuda-full", arch, chunk)
+    batch = lm_train_batch(cfg, seed)
+    (loss_c, metrics_c), grads_c = value_and_grad(lm_loss, params, batch,
+                                                   cfg)
+    rerun = None
+    if cfg.moe is not None:
+        grads_r = value_and_grad(lm_loss, params, batch, cfg)[1]
+        rerun = {name: grad_diff(a, b) for name, a, b in zip(
+            tree_paths(grads_c), tree_leaves(grads_r), tree_leaves(grads_c))}
+        del grads_r
+    (loss_e, _), grads_e = value_and_grad(
+        lm_loss, params, batch, lm_train_config("eager", arch, chunk))
+    torch.cuda.synchronize()
+    per_leaf = {name: grad_diff(a, b) for name, a, b in zip(
+        tree_paths(grads_c), tree_leaves(grads_c), tree_leaves(grads_e))}
+    del grads_c, grads_e
+    rows = per_leaf.values()
+    out = {"loss_cuda_full": float(loss_c), "loss_eager": float(loss_e),
+           "ce_loss_cuda_full": float(metrics_c["loss"]),
+           "loss_bit_equal": torch.equal(loss_c, loss_e),
+           "leaves": len(per_leaf),
+           "bit_equal_leaves": sum(r["bit_equal"] for r in rows),
+           "max_rel_l2": max(r["rel_l2"] for r in rows),
+           "nonfinite_elements": sum(r["nonfinite"] for r in rows),
+           "nonfinite_leaves": [n for n, r in per_leaf.items()
+                                if r["nonfinite"]],
+           "nonfinite_same_places": all(r["nonfinite_same"] for r in rows),
+           "per_leaf": per_leaf,
+           "tolerance": f"loss bitwise; each gradient leaf bitwise or "
+                        f"relative L2 <= {LM_GRAD_LIMIT} over its finite "
+                        f"elements; non-finite elements at the same places"}
+    if rerun is not None:
+        out["cuda_full_rerun"] = {
+            "bit_equal_leaves": sum(r["bit_equal"] for r in rerun.values()),
+            "max_rel_l2": max(r["rel_l2"] for r in rerun.values()),
+            "rel_l2_per_leaf": {n: r["rel_l2"] for n, r in rerun.items()},
+            "held": False}
+    return out
 
 
-def lm_train_run(policy: str, seed: int) -> dict:
-    """``repro_torch.launch.train.train`` under ``policy``: 1 + LM_TRAIN_STEPS
-    steps from ``seed``'s weights on ``SyntheticLM`` (the driver's log
-    lines go to stderr). Every step's metrics, the timed steps' wall times
-    (host clock between the driver's calls of ``on_step``, each made once
-    the step's loss is on the host, which waits for the whole step), the
-    peak memory and the launch counts of the whole run."""
+def lm_train_run(cfg, seed: int, steps: int = LM_TRAIN_STEPS,
+                 ckpt_dir: str | None = None) -> dict:
+    """``repro_torch.launch.train.train`` of ``cfg``: 1 + ``steps`` steps
+    from ``seed``'s weights (or those of the checkpoint in ``ckpt_dir``)
+    on ``SyntheticLM`` (the driver's log lines go to stderr). Every step's metrics, the timed steps' wall times (host
+    clock between the driver's calls of ``on_step``, each made once the
+    step's loss is on the host, which waits for the whole step), the peak
+    memory, the memory left free at the peak, and the launch counts of the
+    whole run."""
     rows, stamps = [], []
 
     def on_step(step, m):
@@ -2156,81 +2275,319 @@ def lm_train_run(policy: str, seed: int) -> dict:
     reset_launch_counts()                    # the path starts here
     with contextlib.redirect_stdout(sys.stderr):
         params, history = train(
-            lm_config(policy), steps=1 + LM_TRAIN_STEPS,
-            global_batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ, seed=seed,
-            device=DEVICE, on_step=on_step)
+            cfg, steps=1 + steps, global_batch=LM_TRAIN_BATCH,
+            seq_len=LM_TRAIN_SEQ, seed=seed, device=DEVICE, on_step=on_step,
+            ckpt_dir=ckpt_dir)
     torch.cuda.synchronize()
     counts = launch_counts()                 # ... and ends here
     ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     median = sorted(ms)[len(ms) // 2]
+    peak = torch.cuda.max_memory_allocated()
     return {"params": params, "history": history, "steps": rows,
             "counts": counts, "ms_per_step": ms, "ms_per_step_median": median,
             "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / median * 1e3,
-            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+            "peak_memory_bytes": peak,
+            "free_bytes": torch.cuda.get_device_properties(0).total_memory
+            - peak}
 
 
-def lm_train_phase(seed: int) -> dict[str, int]:
-    """The spiking LM's training path at published widths and depth:
-    step 0's gradient under both policies (``lm_grad_check``), then
-    training steps through the driver's ``train()`` under ``cuda-full`` and
-    under ``eager``, from the same ``seed`` weights. Checks: the step-0
-    loss bit-equal (in the gradient check and in the two runs), the
-    gradient leaves as ``lm_grad_check`` holds them, no step non-finite,
-    loss and grad norm finite, every parameter leaf moved, and the
-    launches per ``cuda-full`` step (none under ``eager``). Returns the
-    launch counts of the ``cuda-full`` run."""
-    cfg = lm_config("cuda-full")
-    layers = cfg.num_layers
-    params = build_state(cfg, seed, DEVICE)[0]
-    grads = lm_grad_check(params, seed)
-    runs = {}
-    for policy in ("cuda-full", "eager"):
-        run = lm_train_run(policy, seed)
-        final = run.pop("params")
-        run["moved_leaves"] = sum(not torch.equal(a, b) for a, b in zip(
-            tree_leaves(final), tree_leaves(params)))
-        del final
-        runs[policy] = run
-    full, eager = runs["cuda-full"], runs["eager"]
-    steps = 1 + LM_TRAIN_STEPS
-    per_step = lm_train_expected(layers, 1)
-    leaves = len(tree_leaves(params))
-    emit("lm_train", arch=f"{LM_ARCH}@cuda-full", layers=layers,
-         d_model=cfg.d_model, vocab=cfg.vocab_size, dtype="float32",
-         remat=cfg.remat, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
-         tokens_per_step=LM_TRAIN_BATCH * LM_TRAIN_SEQ,
-         steps=f"1 warm-up + {LM_TRAIN_STEPS} timed", data="SyntheticLM",
-         optimizer="the driver's: lr 3e-4, warm-up max(steps // 20, 5), "
-                   "weight decay 0.1, clip 1.0",
-         step0=grads,
-         step0_loss_bit_equal_in_train=full["history"][0]
-         == eager["history"][0],
-         cuda_full={k: v for k, v in full.items() if k != "history"},
-         eager={k: v for k, v in eager.items() if k != "history"},
-         parameter_leaves=leaves, launches_per_step=per_step,
-         times="host clock from one step's loss on the host to the next's, "
-               "after the warm-up step")
-    bad = [(p, r) for p, run in runs.items() for r in run["steps"]
-           if r["nonfinite"] != 0.0 or not all(map(math.isfinite, (
-               r["loss"], r["grad_norm"])))]
+def moved_leaves(run: dict, params) -> int:
+    """The parameter leaves a run's final state holds with other bits than
+    ``params``, its initial weights (the others, by name, go to the run's
+    ``unmoved``); drops the run's state."""
+    final = run.pop("params")
+    run["unmoved"] = [n for n, a, b in zip(tree_paths(params),
+                                           tree_leaves(final),
+                                           tree_leaves(params))
+                      if torch.equal(a.view(torch.int32),
+                                     b.view(torch.int32))]
+    return len(tree_leaves(params)) - len(run["unmoved"])
+
+
+def check_train_run(pre: str, run: dict, leaves: int, steps: int,
+                    want: dict[str, int], skipped: bool = False) -> None:
+    """Every step finite (or, with ``skipped``, every step skipped by the
+    non-finite guard), every parameter leaf moved (or none), the launches
+    ``want``."""
+    bad = [r for r in run["steps"] if not all(map(math.isfinite, (
+        r["loss"], r["lr"]))) or r["nonfinite"] != float(skipped)
+        or not (skipped or math.isfinite(r["grad_norm"]))]
     if bad:
-        fail(f"lm train: non-finite steps {bad}")
-    if not (grads["loss_bit_equal"] and
-            full["history"][0] == eager["history"][0]):
-        fail(f"lm train: step-0 loss differs between cuda-full and eager "
-             f"({grads['loss_cuda_full']!r} vs {grads['loss_eager']!r}; "
-             f"in train {full['history'][0]!r} vs {eager['history'][0]!r})")
+        fail(f"{pre}: steps {bad} (want every step "
+             f"{'skipped' if skipped else 'finite'})")
+    if run["moved_leaves"] != (0 if skipped else leaves):
+        fail(f"{pre}: {run['moved_leaves']} of {leaves} parameter leaves "
+             f"moved (unmoved: {run['unmoved']})")
+    if run["counts"] != want:
+        fail(f"{pre} launch counts {run['counts']} for {steps} steps, want "
+             f"{want}")
+
+
+def check_grads(pre: str, grads: dict, nonfinite: bool = False) -> None:
+    """Step 0's loss bit-equal between the policies, each gradient leaf
+    within ``LM_GRAD_LIMIT``; the non-finite elements at the same places,
+    and (``nonfinite``) some, or (else) none."""
+    if not grads["loss_bit_equal"]:
+        fail(f"{pre}: step-0 loss differs between cuda-full and eager "
+             f"({grads['loss_cuda_full']!r} vs {grads['loss_eager']!r})")
     if grads["max_rel_l2"] > LM_GRAD_LIMIT:
-        fail(f"lm train: a gradient leaf differs by {grads['max_rel_l2']} "
+        fail(f"{pre}: a gradient leaf differs by {grads['max_rel_l2']} "
              f"relative L2 > {LM_GRAD_LIMIT}")
-    if any(run["moved_leaves"] != leaves for run in runs.values()):
-        fail(f"lm train: parameter leaves that moved "
-             f"{[run['moved_leaves'] for run in runs.values()]} of {leaves}")
-    if full["counts"] != lm_train_expected(layers, steps) or \
-            eager["counts"] != lm_train_expected(0, steps):
-        fail(f"lm train launch counts {full['counts']} (eager "
-             f"{eager['counts']}) for {steps} steps, want {per_step} a step")
-    return full["counts"]
+    if not grads["nonfinite_same_places"] or \
+            bool(grads["nonfinite_elements"]) != nonfinite:
+        fail(f"{pre}: {grads['nonfinite_elements']} non-finite gradient "
+             f"elements in {grads['nonfinite_leaves']} (same places under "
+             f"both policies: {grads['nonfinite_same_places']}; want "
+             f"{'some' if nonfinite else 'none'})")
+
+
+def lm_train_phase(seed: int, arch: str = LM_ARCH,
+                   smi: str | None = None) -> dict[str, dict[str, int]]:
+    """A spiking LM's training path at published widths (the depth of
+    ``lm_train_config``): step 0's gradient under both policies
+    (``lm_grad_check``), then training steps through the driver's
+    ``train()`` from the same ``seed`` weights: ``qwen3-0.6b`` 1 +
+    LM_TRAIN_STEPS under ``cuda-full`` and under ``eager``, the other
+    families 1 + FAMILY_TRAIN_STEPS under ``cuda-full``. Checks: the step-0
+    loss bit-equal, the gradient leaves as ``lm_grad_check`` holds them, no
+    step non-finite, every parameter leaf moved, the launches per step.
+    The hybrid runs first at its published chunk of 128 (ROADMAP C6): the
+    gradients non-finite at the same elements under both policies, every
+    step skipped by the guard and every leaf bit-unchanged; then at
+    ``HYBRID_TRAIN_CHUNK``. Returns the launch counts of each ``cuda-full``
+    run, by path."""
+    pre = TRAIN_PHASES[arch]
+    cfg = lm_train_config("cuda-full", arch)
+    steps = LM_TRAIN_STEPS if arch == LM_ARCH else FAMILY_TRAIN_STEPS
+    # the initial weights: the driver draws the same from ``seed``
+    params = build_state(cfg, seed, DEVICE)[0]
+    leaves = len(tree_leaves(params))
+    toks = lm_train_batch(cfg, seed)["tokens"]
+    paths, line = {}, {}
+    chunks = [None] if cfg.ssm is None else [cfg.ssm.chunk,
+                                             HYBRID_TRAIN_CHUNK]
+    for chunk in chunks:
+        # C6: the hybrid at its published chunk, every step skipped
+        c6 = chunk is not None and chunk == cfg.ssm.chunk
+        tag = "" if chunk is None else f"chunk{chunk}"
+        grads = lm_grad_check(params, seed, arch, chunk)
+        torch.cuda.empty_cache()
+        check_grads(f"{pre} {tag}", grads, nonfinite=c6)
+        runs = {}
+        for policy in ("cuda-full", "eager") if arch == LM_ARCH else \
+                ("cuda-full",):
+            run = lm_train_run(lm_train_config(policy, arch, chunk), seed,
+                               steps)
+            run["moved_leaves"] = moved_leaves(run, params)
+            torch.cuda.empty_cache()
+            check_train_run(f"{pre} {tag} {policy}", run, leaves, 1 + steps,
+                            lm_train_expected(1 + steps, arch, policy),
+                            skipped=c6)
+            run["step0_loss_equals_grad_check"] = \
+                run["history"][0] == grads["ce_loss_cuda_full"]
+            runs[policy] = {k: v for k, v in run.items() if k != "history"}
+        if arch == LM_ARCH and runs["cuda-full"]["steps"][0]["loss"] != \
+                runs["eager"]["steps"][0]["loss"]:
+            fail(f"{pre}: step-0 loss differs between the policies' runs")
+        line[tag or "run"] = {"step0": grads, **{
+            p.replace("-", "_"): r for p, r in runs.items()}}
+        paths[f"{pre}_{tag}" if c6 else pre] = runs["cuda-full"]["counts"]
+    emit(pre, arch=f"{arch}@cuda-full", layers=cfg.num_layers,
+         published_layers=get_config(arch).num_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab_size, dtype="float32", remat=cfg.remat,
+         parameters=sum(a.numel() for a in tree_leaves(params)),
+         bytes=nbytes(*tree_leaves(params)), batch=LM_TRAIN_BATCH,
+         seq=LM_TRAIN_SEQ, tokens_per_step=LM_TRAIN_BATCH * LM_TRAIN_SEQ,
+         steps=f"1 warm-up + {steps} timed", data="SyntheticLM",
+         optimizer="the driver's: lr 3e-4, warm-up max(steps // 20, 5), "
+                   "weight decay 0.1, clip 1.0; state updated in place",
+         parameter_leaves=leaves,
+         launches_per_step=lm_train_expected(1, arch),
+         times="host clock from one step's loss on the host to the next's, "
+               "after the warm-up step",
+         **({"ssd_chunks": {"published": cfg.ssm.chunk,
+                            "trained": HYBRID_TRAIN_CHUNK},
+             "ssd_masked_exp_overflows": {
+                 c: ssd_overflows(params, toks, lm_train_config(
+                     "cuda-full", arch, c)) for c in SSD_PROBE_CHUNKS}}
+            if cfg.ssm is not None else {}),
+         **(line if len(line) > 1 else line["run"]),
+         **({"card": smi} if smi else {}))
+    if arch == RWKV_ARCH and \
+            line["run"]["cuda_full"]["free_bytes"] < FREE_BYTES_MIN:
+        fail(f"{pre}: {line['run']['cuda_full']['free_bytes']} bytes free "
+             f"at the peak, want >= {FREE_BYTES_MIN:.0f}")
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# Phase 8b: the encoder-decoder (whisper-large-v3, published size)
+# ---------------------------------------------------------------------------
+
+WHISPER_ARCH = "whisper-large-v3"
+#: Serving: 8 requests' frames (1,500 x 1,280 each, N(0, 1) from the seed),
+#: a 4-token prompt fed through the decode step, then 60 greedy steps, in
+#: a self-attention cache of 128 positions.
+WHISPER_REQUESTS, WHISPER_PROMPT, WHISPER_NEW = 8, 4, 60
+WHISPER_MAX_SEQ = 128
+#: Decode against the teacher-forced forward: the reference's own
+#: tolerance (``tests/test_archs_smoke.py:119-123``), rtol = atol.
+WHISPER_TOL = 2e-2
+#: The query and key projections' scale of the held whisper runs (the
+#: parity tests' ``QK_SCALE``): attention logits of std about 4, not 64.
+QK_SCALE = 0.25
+
+
+def whisper_serve(params, cfg, seed: int) -> dict:
+    """``init_encdec_cache`` (the encoder pass, timed) and the decode steps
+    of ``WHISPER_REQUESTS`` requests, each step timed to its end; then the
+    logits of every step against ``decode_train`` + ``unembed`` over the
+    fed sequence."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    b = WHISPER_REQUESTS
+    frames = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device=DEVICE)
+    prompt = torch.randint(0, cfg.vocab_size, (b, WHISPER_PROMPT),
+                           generator=gen, device=DEVICE)
+    fed, logits, ms = [], [], []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_launch_counts()                # the path starts here
+        t0 = time.perf_counter()
+        cache = init_encdec_cache(params, frames, cfg, b, WHISPER_MAX_SEQ,
+                                  dtype=torch.float32)
+        torch.cuda.synchronize()
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        tok = None
+        for t in range(WHISPER_PROMPT + WHISPER_NEW):
+            cur = prompt[:, t] if t < WHISPER_PROMPT else tok
+            t0 = time.perf_counter()
+            lg, cache = encdec_decode_step(
+                params, cache, cur[:, None],
+                torch.full((b,), t, dtype=torch.int32, device=DEVICE), cfg)
+            tok = lg.argmax(-1)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            fed.append(cur)
+            logits.append(lg)
+        counts = launch_counts()             # ... and ends here
+        peak = torch.cuda.max_memory_allocated()
+        del cache
+        got = torch.stack(logits, 1)
+        seq = torch.stack(fed, 1)
+        want = unembed(params["embed"], decode_train(
+            params, seq, encode(params, frames, cfg), cfg))
+    diff = (got - want).abs()
+    greedy = sorted(ms[WHISPER_PROMPT:])
+    return {"requests": b, "frames": list(frames.shape),
+            "prompt_tokens": WHISPER_PROMPT, "greedy_steps": WHISPER_NEW,
+            "max_seq": WHISPER_MAX_SEQ, "cache_dtype": "float32",
+            "encode_ms": encode_ms,
+            "decode_step_ms_median": greedy[len(greedy) // 2],
+            "decode_step_ms": ms,
+            "generated_tokens_per_s": b * WHISPER_NEW
+            / sum(ms[WHISPER_PROMPT:]) * 1e3,
+            "peak_memory_bytes": peak, "counts": counts,
+            "decode_vs_forward": {
+                "max_abs": float(diff.max()),
+                "within": bool((diff <= WHISPER_TOL + WHISPER_TOL
+                                * want.abs()).all()),
+                "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
+                                      .float().mean()),
+                "logits_std": float(want.std()),
+                "tolerance": f"rtol = atol = {WHISPER_TOL}"},
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def qk_scale_(params, scale: float) -> None:
+    """Every attention's query and key projections of an encoder-decoder
+    tree times ``scale``, in place (a power of two: exact either way)."""
+    for blocks, attn in (("enc_blocks", "attn"), ("dec_blocks", "self"),
+                         ("dec_blocks", "cross")):
+        for k in ("wq", "wk"):
+            params[blocks][attn][k].mul_(scale)
+
+
+def whisper_phase(seed: int, smi: str) -> dict[str, dict[str, int]]:
+    """``whisper-large-v3`` at its published size (32 + 32 layers, d 1280,
+    20 heads, d_ff 5120, vocab 51,866, 1,500 frames), fp32, weights from
+    ``seed`` on the card, serving (``whisper_serve``) and 1 +
+    FAMILY_TRAIN_STEPS training steps of 8 x 128 tokens over 8 x 1,500
+    zero frames through the driver's ``train()``, twice each.
+
+    At the reference's init (``init_encdec``; the driver's own draw) the
+    query and key projections are drawn at fan-in heads^-1/2, so the
+    attention logits have a std of about 64 at this width (ROADMAP C7):
+    decode against the teacher-forced forward and the first step's
+    gradient norm (which overflows fp32, so AdamW's clip zeroes the
+    update) are measured there, not held; the loss, the guard's flag and
+    the launches are. Then with those projections scaled by
+    ``QK_SCALE`` (the parity tests' regime), the held run: decode within
+    ``WHISPER_TOL`` of the forward, the training steps from these weights
+    (written as the checkpoint the driver resumes from, as a fine-tune
+    starts) finite with every parameter leaf moved. No kernel launches on
+    any path: the family never reads ``cfg.lif`` (the reference's path
+    reaches no Pallas kernel either). Returns each path's launch
+    counts."""
+    cfg = lm_train_config("cuda-full", WHISPER_ARCH)
+    params, opt_state, specs = build_state(cfg, seed, DEVICE)
+    del opt_state
+    leaves = len(tree_leaves(params))
+    none = {name: 0 for name in KERNELS}
+    torch.cuda.empty_cache()
+    serve_init = whisper_serve(params, cfg, seed)
+    torch.cuda.empty_cache()
+    run_init = lm_train_run(cfg, seed, FAMILY_TRAIN_STEPS)
+    run_init["moved_leaves"] = moved_leaves(run_init, params)
+    qk_scale_(params, QK_SCALE)
+    torch.cuda.empty_cache()
+    serve = whisper_serve(params, cfg, seed)
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, 0, params, specs)
+        run = lm_train_run(cfg, seed, FAMILY_TRAIN_STEPS, ckpt_dir=d)
+    run["moved_leaves"] = moved_leaves(run, params)
+    emit("whisper", arch=f"{WHISPER_ARCH}@cuda-full",
+         encoder_layers=cfg.encoder_layers, decoder_layers=cfg.num_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads, d_ff=cfg.d_ff,
+         vocab=cfg.vocab_size, frames=cfg.encoder_seq, dtype="float32",
+         remat=cfg.remat, cut="nothing",
+         parameters=sum(a.numel() for a in tree_leaves(params)),
+         bytes=nbytes(*tree_leaves(params)), parameter_leaves=leaves,
+         weights=f"init_encdec from the seed; the held runs with every "
+                 f"attention's wq and wk times {QK_SCALE}",
+         serve=serve, serve_at_init={
+             k: serve_init[k] for k in ("decode_vs_forward", "finite",
+                                        "counts")} | {"held": False},
+         train={k: v for k, v in run.items() if k != "history"} | {
+             "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+             "frames_per_step": LM_TRAIN_BATCH * cfg.encoder_seq,
+             "schedule": f"1 warm-up + {FAMILY_TRAIN_STEPS} timed",
+             "start": "the scaled weights, restored from a checkpoint",
+             "data": "SyntheticLM tokens, zero frames (the reference "
+                     "driver's)"},
+         train_at_init={k: v for k, v in run_init.items()
+                        if k != "history"} | {
+             "held": "loss finite, nonfinite 0, no launches"},
+         card=smi)
+    if not (serve["decode_vs_forward"]["within"] and serve["finite"]):
+        fail(f"whisper: decode differs from the teacher-forced forward by "
+             f"{serve['decode_vs_forward']['max_abs']} (tolerance "
+             f"{WHISPER_TOL}) or is not finite")
+    if serve["counts"] != none or serve_init["counts"] != none:
+        fail(f"whisper serving launched kernels: {serve['counts']}, "
+             f"{serve_init['counts']}")
+    check_train_run("whisper train", run, leaves, 1 + FAMILY_TRAIN_STEPS,
+                    none)
+    if run_init["counts"] != none or any(
+            r["nonfinite"] or not math.isfinite(r["loss"])
+            for r in run_init["steps"]):
+        fail(f"whisper train at init: {run_init['steps']}, launches "
+             f"{run_init['counts']}")
+    return {"whisper_serve_at_init": serve_init["counts"],
+            "whisper_train_at_init": run_init["counts"],
+            "whisper_serve": serve["counts"], "whisper_train": run["counts"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2456,8 +2813,6 @@ def tune_phase(seed: int, batch: int) -> dict[str, int]:
     the measured sparsity. Returns the launch counts of the path under
     the table: the tuned forward's and the tuned step's (the sweep, the
     profiler's and the checks' launches are not the path's)."""
-    import tempfile
-
     from repro_torch.tune import sparsity, table
 
     cfg = get_spikingformer_config(PRESET + "@cuda-full")
@@ -2662,16 +3017,22 @@ def main() -> None:
     torch.cuda.empty_cache()
     lm_counts, lm_steps = lm_phase(args.seed)
     torch.cuda.empty_cache()
-    lm_counts["lm_train"] = lm_train_phase(args.seed)
+    lm_counts.update(lm_train_phase(args.seed))
     torch.cuda.empty_cache()
-    serve_steps = {"lm_serve": lm_steps, "lm_train": 1 + LM_TRAIN_STEPS}
+    path_steps = {"lm_serve": lm_steps, "lm_train": 1 + LM_TRAIN_STEPS}
     for arch in (MOE_ARCH, RWKV_ARCH, HYBRID_ARCH):
-        arch_counts, serve_steps[f"{phase_name(arch)}_serve"] = lm_phase(
+        arch_counts, path_steps[f"{phase_name(arch)}_serve"] = lm_phase(
             args.seed, arch, smi)
         lm_counts.update(arch_counts)
         torch.cuda.empty_cache()
+    lm_counts.update(whisper_phase(args.seed, smi))
+    torch.cuda.empty_cache()
+    for arch in list(TRAIN_PHASES)[1:]:
+        lm_counts.update(lm_train_phase(args.seed, arch, smi))
+        path_steps[TRAIN_PHASES[arch]] = 1 + FAMILY_TRAIN_STEPS
+        torch.cuda.empty_cache()
     lm_launches({k: cases[k] for k in ("lif_soma_fwd", "lif_soma_bwd")},
-                lm_counts, serve_steps)
+                lm_counts, path_steps)
     tune_counts = tune_phase(args.seed, BATCH)
 
     print(json.dumps(summarise(cases, {"serve": counts, "train": train_counts,

@@ -1,5 +1,5 @@
 """Reference (JAX) parameters and optimizer state -> the port's dicts
-(the Spikingformer's, and the LM's).
+(the Spikingformer's, the LM's and the encoder-decoder's).
 
 The port keeps the reference pytree's keys and layouts (HWIO conv weights,
 (C_in, C_out) linear weights, block leaves stacked on a leading L axis), so
@@ -41,7 +41,10 @@ def lm_from_jax(params: Any, device: str | torch.device | None = None):
     """The reference's LM parameters (``init_lm`` after ``split_tree``,
     numpy leaves) -> the port's tree on ``device`` (``None`` = the card,
     raising without one): the same keys, shapes and dtypes, the block
-    leaves stacked on their leading ``(L, ...)`` axis."""
+    leaves stacked on their leading ``(L, ...)`` axis. The reference's
+    encoder-decoder tree (``init_encdec``: ``embed``, ``enc_blocks``,
+    ``dec_blocks``, ``ln_enc``, ``ln_dec``) converts the same way, leaf
+    by leaf."""
     return _convert(params, resolve_device(device))
 
 

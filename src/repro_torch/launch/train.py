@@ -3,11 +3,13 @@
 Initialises the parameters and the optimizer state on the device, streams
 the synthetic data, checkpoints asynchronously, watches for stragglers and
 SIGTERM, budgets non-finite steps, and resumes from the newest good
-checkpoint. The decoder LMs and the Spikingformer run through the same
-driver and the one train-step factory.
+checkpoint. The decoder LMs, the encoder-decoder and the Spikingformer
+run through the same driver and the one train-step factory.
 
   python -m repro_torch.launch.train --arch qwen3-0.6b --reduced \\
       --steps 200 --batch 8 --seq 128 --ckpt-dir ckpt [--device cpu]
+  python -m repro_torch.launch.train --arch whisper-large-v3 --reduced \\
+      --steps 5 --device cpu
   python -m repro_torch.launch.train --arch spikingformer-tiny \\
       --steps 100 --batch 16 --policy cuda-full --time-chunk 2
 
@@ -16,6 +18,8 @@ where there is none. As in the reference, the LM path checkpoints the
 parameters (a resumed run starts a fresh optimizer state) and the vision
 path the parameters, BN state and optimizer state. The port runs on one
 device: there is no mesh (ROADMAP A11) and no fault injection (A13).
+The audio family (``whisper-large-v3``) trains on zero frame embeddings,
+the VLM stub on zero patches, as in the reference.
 """
 from __future__ import annotations
 
@@ -37,16 +41,16 @@ from repro_torch.train.resilience import (NonFiniteGuard, PreemptionGuard,
 
 
 def build_state(cfg, seed: int = 0, device=None):
-    """LM parameters from ``seed``, drawn on ``device`` (``None`` = the
-    card), and a fresh AdamW state: ``(params, opt_state, specs)``."""
+    """LM (or, for the audio family, encoder-decoder) parameters from
+    ``seed``, drawn on ``device`` (``None`` = the card), and a fresh AdamW
+    state: ``(params, opt_state, specs)``."""
     device = resolve_device(device)
     if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder (audio) family is not ported "
-            f"yet (ROADMAP A9)")
-    from repro_torch.models.lm import init_lm
+        from repro_torch.models.encdec import init_encdec as init
+    else:
+        from repro_torch.models.lm import init_lm as init
     gen = torch.Generator(device=device).manual_seed(seed)
-    params, specs = split_tree(init_lm(gen, cfg, device))
+    params, specs = split_tree(init(gen, cfg, device))
     return params, init_opt_state(params), specs
 
 
@@ -61,6 +65,25 @@ def build_spikingformer_state(cfg, seed: int = 0, device=None):
 
 def _to_device(batch: dict, device) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def lm_step_batch(cfg, batch: dict, device) -> dict[str, torch.Tensor]:
+    """A ``SyntheticLM`` batch on ``device`` with the inputs the
+    family's frontend stub takes, as the reference driver adds them: zero
+    ``frames`` (B, encoder_seq, d_model) for the audio family, zero
+    ``patch_embeds`` (B, S, d_model) and an all-False ``patch_mask``
+    (B, S) for the VLM stub, in ``cfg.dtype``."""
+    out = _to_device(batch, device)
+    bsz, s = out["tokens"].shape
+    if cfg.family == "audio":
+        out["frames"] = torch.zeros((bsz, cfg.encoder_seq, cfg.d_model),
+                                    dtype=cfg.dtype, device=device)
+    if cfg.vlm_stub:
+        out["patch_embeds"] = torch.zeros((bsz, s, cfg.d_model),
+                                          dtype=cfg.dtype, device=device)
+        out["patch_mask"] = torch.zeros((bsz, s), dtype=torch.bool,
+                                        device=device)
+    return out
 
 
 def _drive(*, start: int, steps: int, step_once, save, log_line,
@@ -211,12 +234,14 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int = 128,
     data = SyntheticLM(DataConfig(
         vocab_size=data_vocab or cfg.vocab_size, seq_len=seq_len,
         global_batch=global_batch, seed=seed))
-    step_fn = make_train_step(cfg, opt_cfg, microbatches)
+    # The driver owns its state: the step updates it in place, as the
+    # reference driver donates it to its jitted step.
+    step_fn = make_train_step(cfg, opt_cfg, microbatches, donate=True)
 
     def step_once(step):
         nonlocal params, opt_state
         params, opt_state, metrics = step_fn(
-            params, opt_state, _to_device(data.batch(step), device))
+            params, opt_state, lm_step_batch(cfg, data.batch(step), device))
         return metrics
 
     def save(step):

@@ -17,8 +17,9 @@ neuron sits on every block's FFN / channel-mix / mixer branch (site
 neuron's time axis in the forward and its ``(U, S)`` state carried in the
 serving cache in decode.
 
-The audio family is still to port (ROADMAP A9): its entry points raise
-``NotImplementedError``, they never run something else.
+The audio family is not a decoder LM: it runs through
+``repro_torch.models.encdec``, as the reference routes it, and this
+module's entry points refuse it.
 
 Entry points:
   init_lm(generator, cfg, device)      -> augmented param tree (Leaf leaves)
@@ -51,13 +52,15 @@ from repro_torch.models.mlp import init_swiglu, swiglu
 Params = dict[str, Any]
 
 
-def _require_ported(cfg: ArchConfig) -> None:
-    """Raise for the one family not ported, the encoder-decoder (audio)."""
+def _refuse_audio(cfg: ArchConfig) -> None:
+    """Refuse the encoder-decoder (audio) family, whose path is
+    ``models.encdec``."""
     if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder (audio) family is not ported "
-            f"yet (ROADMAP A9); repro_torch.models.lm runs the decoder "
-            f"families")
+        raise ValueError(
+            f"{cfg.name}: the encoder-decoder (audio) family runs through "
+            f"repro_torch.models.encdec (init_encdec, encdec_loss, "
+            f"init_encdec_cache, encdec_decode_step); "
+            f"repro_torch.models.lm runs the decoder families")
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +242,7 @@ def init_lm(generator: torch.Generator, cfg: ArchConfig,
     on ``device`` (``None`` = the card, raising without one). The hybrid
     family's one weight-shared block sits under ``"shared"``."""
     device = resolve_device(device)
-    _require_ported(cfg)
+    _refuse_audio(cfg)
     p: Params = {"embed": init_embedding(generator, cfg.vocab_size,
                                          cfg.d_model, cfg.dtype, device),
                  "ln_f": init_rmsnorm(cfg.d_model, cfg.dtype, device)}
@@ -280,7 +283,7 @@ def lm_forward(params: Params, batch: dict[str, torch.Tensor],
     Under ``cfg.remat`` each RWKV or dense layer is recomputed in the
     backward, and each hybrid group as a whole (its Mamba2 layers and the
     shared block), as the reference checkpoints them."""
-    _require_ported(cfg)
+    _refuse_audio(cfg)
     x = embed(params["embed"], batch["tokens"], cfg.dtype)
     if cfg.vlm_stub and "patch_embeds" in batch:
         # pixtral: image patches arrive pre-embedded (frontend stub); merge.
@@ -342,7 +345,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     attention cache under "kv" beside it), as in the reference.
     """
     device = resolve_device(device)
-    _require_ported(cfg)
+    _refuse_audio(cfg)
 
     def stacked(tree, *lead):
         return tree_map(lambda a: a.repeat(*lead, *([1] * a.ndim)), tree)
@@ -375,7 +378,7 @@ def cache_batch_axes(cfg: ArchConfig, cache):
     """Per-leaf slot(=batch)-axis index, same structure as ``cache``: every
     leaf is stacked ``(L, slots, ...)`` except the hybrid family's Mamba2
     states, which are ``(groups, per, slots, ...)``."""
-    _require_ported(cfg)
+    _refuse_audio(cfg)
     if cfg.family == "hybrid":
         return {"mamba": tree_map(lambda _: 2, cache["mamba"]),
                 "shared": tree_map(lambda _: 1, cache["shared"])}
@@ -408,7 +411,7 @@ def lm_decode_step(params: Params, cache, tokens: torch.Tensor,
                    pos: torch.Tensor, cfg: ArchConfig):
     """tokens: (B, 1) -> (logits (B, V), new cache). pos: (B,). The cache
     passed in is not modified."""
-    _require_ported(cfg)
+    _refuse_audio(cfg)
     x = embed(params["embed"], tokens, cfg.dtype)
 
     if cfg.family == "rwkv":

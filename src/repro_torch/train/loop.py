@@ -3,9 +3,11 @@
 ``make_train_step(cfg, opt_cfg)`` is the one factory for every family the
 port trains:
 
-* the decoder LMs (an ``ArchConfig``): ``train_step(params, opt_state,
-  batch) -> (params, opt_state, metrics)``, the gradient of
-  :func:`repro_torch.models.lm.lm_loss` and one AdamW update, with
+* the decoder LMs and the encoder-decoder (an ``ArchConfig``):
+  ``train_step(params, opt_state, batch) -> (params, opt_state,
+  metrics)``, the gradient of :func:`repro_torch.models.lm.lm_loss` (of
+  :func:`repro_torch.models.encdec.encdec_loss` for the audio family) and
+  one AdamW update, with
   ``microbatches > 1`` accumulating the gradients of equal slices of the
   batch;
 * the Spikingformer (``cfg.family == "vision"``): ``train_step(params,
@@ -26,14 +28,14 @@ import torch
 from repro_torch.core.spikingformer import (spikingformer_grad_step,
                                             tree_leaves, tree_map,
                                             value_and_grad)
-from repro_torch.train.optimizer import OptimizerConfig, adamw_update
+from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
+                                         adamw_update_)
 
 
 def _loss_fn_for(cfg) -> Callable:
     if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder (audio) family is not ported "
-            f"yet (ROADMAP A9)")
+        from repro_torch.models.encdec import encdec_loss
+        return encdec_loss
     from repro_torch.models.lm import lm_loss
     return lm_loss
 
@@ -55,7 +57,8 @@ def _select_tree(finite, new, old):
 
 
 def make_train_step(cfg, opt_cfg: OptimizerConfig, microbatches: int = 1, *,
-                    guard_nonfinite: bool = True) -> Callable:
+                    guard_nonfinite: bool = True,
+                    donate: bool = False) -> Callable:
     """The train-step factory (LM and vision families).
 
     LM ``batch`` leaves have a leading dim ``global_batch``; with
@@ -68,6 +71,12 @@ def make_train_step(cfg, opt_cfg: OptimizerConfig, microbatches: int = 1, *,
     NaN/Inf, the parameter, (vision) BN-state and optimizer updates are
     suppressed leaf by leaf (state bit-identical to before the step) and
     ``metrics["nonfinite"]`` reports 1.0.
+
+    ``donate`` (LM families): the step writes the new parameters and the
+    optimizer's ``m`` and ``v`` into the leaves it was given
+    (:func:`~repro_torch.train.optimizer.adamw_update_`), as the
+    reference driver's step updates the buffers it donates; the results
+    are the same bits, without a second copy of the state.
     """
     family = getattr(cfg, "family", None)
     if family == "vision":
@@ -97,13 +106,18 @@ def make_train_step(cfg, opt_cfg: OptimizerConfig, microbatches: int = 1, *,
             grads = tree_map(lambda g: g / microbatches, grads)
             loss = loss / microbatches
             metrics = {"loss": loss}
-        new_params, new_opt, opt_metrics = adamw_update(
-            params, grads, opt_state, opt_cfg)
+        finite = _all_finite(loss, grads) if guard_nonfinite else None
+        if donate:
+            new_params, new_opt, opt_metrics = adamw_update_(
+                params, grads, opt_state, opt_cfg, keep=finite)
+        else:
+            new_params, new_opt, opt_metrics = adamw_update(
+                params, grads, opt_state, opt_cfg)
+            if guard_nonfinite:
+                new_params = _select_tree(finite, new_params, params)
+                new_opt = _select_tree(finite, new_opt, opt_state)
         metrics = {**metrics, **opt_metrics}
         if guard_nonfinite:
-            finite = _all_finite(loss, grads)
-            new_params = _select_tree(finite, new_params, params)
-            new_opt = _select_tree(finite, new_opt, opt_state)
             metrics["nonfinite"] = 1.0 - finite.float()
         return new_params, new_opt, metrics
 

@@ -57,33 +57,81 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def adamw_update(params: Any, grads: Any, state: dict[str, Any],
-                 cfg: OptimizerConfig) -> tuple[Any, dict, dict]:
-    """One AdamW step. Returns ``(new_params, new_state, metrics)``; the
-    inputs are not modified."""
+def _scalars(grads: Any, state: dict[str, Any], cfg: OptimizerConfig):
+    """The step's (step, grad norm, clip factor, lr, bias corrections)."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                        max=1.0)
     lr = lr_schedule(cfg, step)
+    return (step, gnorm, clip, lr, 1 - cfg.beta1 ** step.float(),
+            1 - cfg.beta2 ** step.float())
+
+
+def _leaf_update(p, g, m, v, clip, lr, bc1, bc2, cfg: OptimizerConfig,
+                 decay: bool):
+    """(p, m, v) after one AdamW step of one leaf (or of a slice of it:
+    every operation is elementwise). ``decay``: the leaf is a matrix."""
     b1, b2 = cfg.beta1, cfg.beta2
-    bc1 = 1 - b1 ** step.float()
-    bc2 = 1 - b2 ** step.float()
+    gf = g.float() * clip
+    m_new = b1 * m.float() + (1 - b1) * gf
+    v_new = b2 * v.float() + (1 - b2) * torch.square(gf)
+    update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
+    if decay:                                # decoupled decay, matrices only
+        update = update + cfg.weight_decay * p.float()
+    p_new = p.float() - lr * update
+    return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
 
-    def upd(p, g, m, v):
-        gf = g.float() * clip
-        m_new = b1 * m.float() + (1 - b1) * gf
-        v_new = b2 * v.float() + (1 - b2) * torch.square(gf)
-        update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
-        if p.ndim >= 2:                      # decoupled decay, matrices only
-            update = update + cfg.weight_decay * p.float()
-        p_new = p.float() - lr * update
-        return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
 
-    out = [upd(*leaves) for leaves in zip(
-        tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
-        tree_leaves(state["v"]))]
+def adamw_update(params: Any, grads: Any, state: dict[str, Any],
+                 cfg: OptimizerConfig) -> tuple[Any, dict, dict]:
+    """One AdamW step. Returns ``(new_params, new_state, metrics)``; the
+    inputs are not modified."""
+    step, gnorm, clip, lr, bc1, bc2 = _scalars(grads, state, cfg)
+    out = [_leaf_update(p, g, m, v, clip, lr, bc1, bc2, cfg, p.ndim >= 2)
+           for p, g, m, v in zip(
+               tree_leaves(params), tree_leaves(grads),
+               tree_leaves(state["m"]), tree_leaves(state["v"]))]
     new_p, new_m, new_v = (tree_unflatten(params, [o[i] for o in out])
                            for i in range(3))
     return new_p, {"m": new_m, "v": new_v, "step": step}, \
+        {"grad_norm": gnorm, "lr": lr}
+
+
+#: Elements of a leaf that :func:`adamw_update_` updates at a time, so that
+#: its temporaries are a few such slices, not a few copies of the largest
+#: leaf (a stacked expert leaf of ``mixtral-8x7b`` is 1.9 GB a layer).
+UPDATE_SLICE = 1 << 24
+
+
+def _slices(*leaves: torch.Tensor):
+    """Matching flat slices (views) of equally shaped contiguous leaves."""
+    flat = [a.view(-1) for a in leaves]
+    for i in range(0, flat[0].numel(), UPDATE_SLICE):
+        yield tuple(a[i:i + UPDATE_SLICE] for a in flat)
+
+
+def adamw_update_(params: Any, grads: Any, state: dict[str, Any],
+                  cfg: OptimizerConfig, keep: torch.Tensor | None = None
+                  ) -> tuple[Any, dict, dict]:
+    """:func:`adamw_update` written into the leaves of ``params`` and of
+    ``state``'s ``m`` and ``v`` (the reference driver donates these
+    buffers to its step): the same operations on each element, so the
+    same bits, a slice of ``UPDATE_SLICE`` elements at a time. ``keep``, a
+    0-dim bool tensor: where it is False every leaf and the step counter
+    stay as they were (the non-finite guard, decided on the device).
+    Returns ``(params, new_state, metrics)``, the same leaf objects."""
+    step, gnorm, clip, lr, bc1, bc2 = _scalars(grads, state, cfg)
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                          tree_leaves(state["m"]), tree_leaves(state["v"])):
+        decay = p.ndim >= 2
+        for ps, gs, ms, vs in _slices(p, g, m, v):
+            new = _leaf_update(ps, gs, ms, vs, clip, lr, bc1, bc2, cfg,
+                               decay)
+            for dst, src in zip((ps, ms, vs), new):
+                dst.copy_(src if keep is None else
+                          torch.where(keep, src, dst))
+    if keep is not None:
+        step = torch.where(keep, step, state["step"])
+    return params, {"m": state["m"], "v": state["v"], "step": step}, \
         {"grad_norm": gnorm, "lr": lr}

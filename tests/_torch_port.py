@@ -560,3 +560,47 @@ def recurrent_params(jcfg, seed: int = 0):
             jp["shared"]["attn"][k] = jp["shared"]["attn"][k] * np.float32(
                 QK_SCALE)
     return as_jax(jp), lm_from_jax(jp, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder (audio) family
+# ---------------------------------------------------------------------------
+
+#: The attentions of the encoder-decoder tree: (stacked blocks, attention).
+ENCDEC_ATTENTIONS = (("enc_blocks", "attn"), ("dec_blocks", "self"),
+                     ("dec_blocks", "cross"))
+
+
+def encdec_cfgs(n_kv_heads: int | None = None):
+    """(reference, port) ``reduced(whisper-large-v3)``: 2 + 2 layers, d 64,
+    4 heads of 16, 32 frames, fp32; ``n_kv_heads`` below 4 gives grouped
+    key/value heads (``n_rep > 1``)."""
+    jcfg = jreg.reduced(jreg.get_config("whisper-large-v3"))
+    tcfg = treg.reduced(treg.get_config("whisper-large-v3"))
+    if n_kv_heads is not None:
+        jcfg = jcfg.replace(n_kv_heads=n_kv_heads)
+        tcfg = tcfg.replace(n_kv_heads=n_kv_heads)
+    return jcfg, tcfg
+
+
+def encdec_params(jcfg, seed: int = 0, qk_scale: float = QK_SCALE):
+    """(reference, port) parameters of the reference's ``init_encdec``,
+    the query and key projections of every attention times ``qk_scale``
+    in numpy (see GRAD_REL_L2_AT_INIT; 1.0 keeps the reference's init)."""
+    from repro.models import encdec as jencdec
+    jp = np_tree(jcommon.split_tree(jencdec.init_encdec(
+        jax.random.PRNGKey(seed), jcfg))[0])
+    for blocks, attn in ENCDEC_ATTENTIONS:
+        for k in ("wq", "wk"):
+            jp[blocks][attn][k] = jp[blocks][attn][k] * np.float32(qk_scale)
+    return as_jax(jp), lm_from_jax(jp, device="cpu")
+
+
+def encdec_batch(step: int = 0, batch: int = 4, seq: int = 16,
+                 frames: int = 32, d_model: int = 64):
+    """``lm_batch(step)`` plus N(0, 1) frame embeddings drawn from
+    ``step`` (numpy)."""
+    b = lm_batch(step, batch, seq)
+    b["frames"] = np.random.default_rng(100 + step).normal(
+        0.0, 1.0, (batch, frames, d_model)).astype(np.float32)
+    return b

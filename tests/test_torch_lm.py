@@ -359,12 +359,17 @@ def test_cuda_decode_carry_equals_lif_step_bitwise():
 
 @pytest.mark.parametrize("name", ["whisper-large-v3"])
 def test_unported_families_raise(name):
+    """The audio family is not a decoder LM: as in the reference, it never
+    goes through ``models.lm``, whose entry points refuse it and name the
+    family's path, ``models.encdec``."""
     cfg = treg.reduced(treg.get_config(name))
     gen = torch.Generator().manual_seed(0)
     for call in (lambda: tlm.init_lm(gen, cfg, "cpu"),
                  lambda: tlm.init_cache(cfg, 1, 8, torch.float32, "cpu"),
-                 lambda: tlm.lm_forward({}, {"tokens": _t(TOKENS)}, cfg)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+                 lambda: tlm.lm_forward({}, {"tokens": _t(TOKENS)}, cfg),
+                 lambda: tlm.lm_decode_step({}, {}, _t(TOKENS[:, :1]),
+                                            _t(np.zeros(2, np.int32)), cfg)):
+        with pytest.raises(ValueError, match="models.encdec"):
             call()
 
 

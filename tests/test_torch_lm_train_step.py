@@ -1,7 +1,7 @@
 """The port's LM train step against the JAX package's, both on the CPU:
 three ``make_train_step`` steps, two microbatches, the non-finite guard,
-``make_eval_step`` and the families that are not ported, at reduced
-``qwen3-0.6b`` (4 layers, d 64) without the LIF and with it under
+``make_eval_step`` and the donated step (bit-equal to the functional one)
+at reduced ``qwen3-0.6b`` (4 layers, d 64) without the LIF and with it under
 ``jnp``/``eager`` and ``pallas`` (interpret mode)/``cuda`` (the kernels'
 plain versions).
 
@@ -12,7 +12,8 @@ Parameters come from the reference's ``init_lm`` through
 parameters, m and v after the steps: the states stay within 1e-6 of each
 other at these gradient norms (about 2), and every layer's branch spikes
 agree at these sizes (``test_torch_lm_train.py`` checks that on the first
-step's batch).
+step's batch). The audio family's step and eval step at reduced
+``whisper-large-v3`` (``_torch_port.encdec_params``).
 """
 import jax
 import numpy as np
@@ -20,11 +21,11 @@ import pytest
 import torch
 
 from _torch_port import POLICY_PAIRS, as_jax, as_torch, close_scaled, \
-    lm_batch, lm_cfgs, lm_params, np_tree, single_thread, trees_close
+    encdec_batch, encdec_cfgs, encdec_params, lm_batch, lm_cfgs, lm_params, \
+    np_tree, single_thread, trees_close
 
 from repro.train import loop as jloop
 from repro.train import optimizer as jopt
-from repro_torch.configs import registry as treg
 from repro_torch.convert import opt_state_from_jax
 from repro_torch.core.spikingformer import tree_leaves
 from repro_torch.train import loop as tloop
@@ -139,10 +140,61 @@ def test_eval_step_matches_reference(jax_policy):
 
 
 def test_audio_family_raises():
-    cfg = treg.reduced(treg.get_config("whisper-large-v3"))
-    for make in (tloop.make_train_step, lambda c, o: tloop.make_eval_step(c)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            make(cfg, topt.OptimizerConfig())
+    """The audio family trains and evaluates through ``encdec_loss``, as in
+    the reference: one ``make_train_step`` step (metrics, parameters, m
+    and v) and ``make_eval_step`` at reduced ``whisper-large-v3`` against
+    the reference's, at 1e-5 scale-aware."""
+    jcfg, tcfg = encdec_cfgs()
+    jp, tp = encdec_params(jcfg)
+    js, ts = _states(jcfg, jp, tp)
+    b = encdec_batch()
+    *js, jm = jax.jit(jloop.make_train_step(
+        jcfg, jopt.OptimizerConfig(**OPT)))(*js, as_jax(b))
+    *ts, tm = tloop.make_train_step(tcfg, topt.OptimizerConfig(**OPT))(
+        *ts, as_torch(b))
+    assert sorted(tm) == sorted(jm) == ["grad_norm", "loss", "lr",
+                                        "nonfinite"]
+    for k in jm:
+        close_scaled(tm[k], jm[k])
+    _compare_state(ts, js)
+    je = jloop.make_eval_step(jcfg)(jp, as_jax(b))
+    te = tloop.make_eval_step(tcfg)(tp, as_torch(b))
+    assert sorted(te) == sorted(je) == ["loss"]
+    close_scaled(te["loss"], je["loss"])
+
+
+@pytest.mark.parametrize("poisoned", [False, True])
+def test_a_donated_step_writes_the_functional_step_s_bits(poisoned,
+                                                         monkeypatch):
+    """``donate=True``: the step writes into the trees it was given the
+    same bits that the functional step returns, in slices smaller than a
+    leaf (``UPDATE_SLICE`` cut to 37 elements, so slices end inside
+    leaves); on a non-finite step every leaf and the step counter stay
+    bit-identical."""
+    monkeypatch.setattr(topt, "UPDATE_SLICE", 37)
+    jcfg, tcfg = lm_cfgs("qwen3-0.6b", "jnp")
+    tp = lm_params(jcfg)[1]
+    opt = topt.OptimizerConfig(**OPT)
+    p1, o1, _ = tloop.make_train_step(tcfg, opt)(
+        tp, topt.init_opt_state(tp), as_torch(lm_batch(0)))
+    if poisoned:
+        p1["ln_f"]["scale"][3] = float("nan")
+    want_p, want_o, want_m = tloop.make_train_step(tcfg, opt)(
+        p1, o1, as_torch(lm_batch(1)))
+    before = [a.clone() for a in tree_leaves((p1, o1))]
+    got_p, got_o, got_m = tloop.make_train_step(tcfg, opt, donate=True)(
+        p1, o1, as_torch(lm_batch(1)))
+    assert got_p is p1 and got_o["m"] is o1["m"] and got_o["v"] is o1["v"]
+    assert float(got_m["nonfinite"]) == float(poisoned)
+    for k in want_m:                         # NaN loss and norm if poisoned
+        assert torch.equal(got_m[k], want_m[k]) or bool(
+            got_m[k].isnan() and want_m[k].isnan())
+    got = [a.view(torch.int32) for a in tree_leaves((got_p, got_o))]
+    for a, b in zip(got, tree_leaves((want_p, want_o))):
+        assert torch.equal(a, b.view(torch.int32))
+    moved = [not torch.equal(a, b.view(torch.int32))
+             for a, b in zip(got, before)]
+    assert not any(moved) if poisoned else all(moved)
 
 
 def test_lm_train_step_refuses_an_object_without_a_family():
