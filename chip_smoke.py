@@ -65,7 +65,25 @@ asserted; ``zamba2-2.7b`` first at its published SSD chunk of 128, where
 the gradient is not finite (ROADMAP C6) and the guard skips every step
 with every leaf bit-unchanged, then at a chunk of 16, where it trains (at
 64 and 32 the SSD's masked ``exp`` still overflows in some layers; the
-overflows at each chunk are counted). Then it runs the autotuner at
+overflows at each chunk are counted). Then it trains data parallel on a
+mesh (``mesh_train``): a world of 1 on this card (``init_distributed``:
+NCCL, a file store, no network), a (1, 1) mesh. The BN kernels' split
+path (the rank's column sums, their all-reduce over the data group, the
+statistics from the global sums) runs ``bn_fwd`` and ``bn_bwd`` at the
+blocks' (12,544, 512) and (12,544, 2,048) and the tokenizer stages' shapes
+and ``neuron_layer_train`` at every site of batch 16: it must give the
+fused path's outputs and statistics bit for bit, its replay the emitted
+spikes, and the rows cut in two halves, their sums added as two ranks'
+all-reduce adds them, mu and var within 1e-6 of the whole's (the spike
+mismatch measured); both paths' times. Then ``train_vision`` at
+``spikingformer-8-512``, batch 16, ``cuda-full``, full depth, 1 + 2 steps
+on the mesh and without it from the same seed: every loss and every
+parameter, BN-state and moment leaf (read back from each run's
+checkpoint, the mesh run's restored by the mesh-less path) bit-equal;
+launches and wall time per step. Then ``qwen3-0.6b`` + LIF at its
+published size through the driver on the mesh with int8 gradient
+compression: every step finite, every leaf moved, the residual non-zero,
+56 / 28 LIF launches a step. Then it runs the autotuner at
 ``spikingformer-8-512``, batch 16, ``cuda-full``, full width and depth:
 sparsity measured on the card, the nine tunable sites,
 each candidate (a spike-matmul tile, or a neuron layer's fused or pipeline
@@ -175,7 +193,8 @@ from repro_torch.models.common import (embed, layer, rmsnorm,  # noqa: E402
 from repro_torch.models.encdec import (decode_train,  # noqa: E402
                                        encdec_decode_step, encode,
                                        init_encdec_cache)
-from repro_torch.launch.train import build_state, train  # noqa: E402
+from repro_torch.launch.train import (build_state, train,  # noqa: E402
+                                     train_vision)
 from repro_torch.models.lm import (_dense_block,  # noqa: E402
                                    _hybrid_group_shape, _seq_lif,
                                    _shared_cfg, init_lm, lm_forward,
@@ -2256,7 +2275,8 @@ def lm_grad_check(params, seed: int, arch: str = LM_ARCH,
 
 
 def lm_train_run(cfg, seed: int, steps: int = LM_TRAIN_STEPS,
-                 ckpt_dir: str | None = None) -> dict:
+                 ckpt_dir: str | None = None, mesh=None,
+                 compress_grads: bool = False) -> dict:
     """``repro_torch.launch.train.train`` of ``cfg``: 1 + ``steps`` steps
     from ``seed``'s weights (or those of the checkpoint in ``ckpt_dir``)
     on ``SyntheticLM`` (the driver's log lines go to stderr). Every step's metrics, the timed steps' wall times (host
@@ -2269,7 +2289,8 @@ def lm_train_run(cfg, seed: int, steps: int = LM_TRAIN_STEPS,
     def on_step(step, m):
         stamps.append(time.perf_counter())
         rows.append({k: float(m[k]) for k in
-                     ("loss", "grad_norm", "nonfinite", "lr")})
+                     ("loss", "grad_norm", "nonfinite", "lr", "err_norm")
+                     if k in m})
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()                    # the path starts here
@@ -2277,7 +2298,7 @@ def lm_train_run(cfg, seed: int, steps: int = LM_TRAIN_STEPS,
         params, history = train(
             cfg, steps=1 + steps, global_batch=LM_TRAIN_BATCH,
             seq_len=LM_TRAIN_SEQ, seed=seed, device=DEVICE, on_step=on_step,
-            ckpt_dir=ckpt_dir)
+            ckpt_dir=ckpt_dir, mesh=mesh, compress_grads=compress_grads)
     torch.cuda.synchronize()
     counts = launch_counts()                 # ... and ends here
     ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
@@ -2360,7 +2381,7 @@ def lm_train_phase(seed: int, arch: str = LM_ARCH,
     cfg = lm_train_config("cuda-full", arch)
     steps = LM_TRAIN_STEPS if arch == LM_ARCH else FAMILY_TRAIN_STEPS
     # the initial weights: the driver draws the same from ``seed``
-    params = build_state(cfg, seed, DEVICE)[0]
+    params = build_state(cfg, seed=seed, device=DEVICE)[0]
     leaves = len(tree_leaves(params))
     toks = lm_train_batch(cfg, seed)["tokens"]
     paths, line = {}, {}
@@ -2532,7 +2553,7 @@ def whisper_phase(seed: int, smi: str) -> dict[str, dict[str, int]]:
     reaches no Pallas kernel either). Returns each path's launch
     counts."""
     cfg = lm_train_config("cuda-full", WHISPER_ARCH)
-    params, opt_state, specs = build_state(cfg, seed, DEVICE)
+    params, opt_state, specs = build_state(cfg, seed=seed, device=DEVICE)
     del opt_state
     leaves = len(tree_leaves(params))
     none = {name: 0 for name in KERNELS}
@@ -2588,6 +2609,238 @@ def whisper_phase(seed: int, smi: str) -> dict[str, dict[str, int]]:
     return {"whisper_serve_at_init": serve_init["counts"],
             "whisper_train_at_init": run_init["counts"],
             "whisper_serve": serve["counts"], "whisper_train": run["counts"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: data parallelism over a mesh (a world of 1 on this card)
+# ---------------------------------------------------------------------------
+
+#: Timed steps of the mesh phase's runs, after one warm-up step.
+MESH_STEPS = 2
+#: The halves' statistics against the whole batch's: relative to their
+#: scale (the chunks' fp32 partials start at other rows).
+HALVES_LIMIT = 1e-6
+
+
+def split_bn_shapes(batch: int) -> list[tuple[str, int, int]]:
+    """(case, rows, D) of the BN kernels under the split path: the blocks'
+    (T*B*N, d) and (T*B*N, d_ff), then each tokenizer stage's (T*M, K)."""
+    cfg = get_spikingformer_config(PRESET)
+    rows = cfg.time_steps * batch * cfg.num_tokens
+    return [("blocks d", rows, cfg.d_model), ("blocks d_ff", rows, cfg.d_ff)] \
+        + [(case, t * m, k) for case, t, m, _, k, _ in
+           neuron_layer_sites(batch) if case.startswith("tokenizer")]
+
+
+def bits_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def split_bn_case(gen, group, case, m, d) -> dict:
+    """bn_fwd and bn_bwd at (m, d): (a) the split path (the group's
+    all-reduce between its two launches) against the fused path, outputs
+    and statistics bit for bit; (b) the rows cut in two halves, each
+    half's sums taken, added as two ranks' all-reduce adds them, and each
+    half normalised with the sum, against the whole: mu and var within
+    HALVES_LIMIT of their scale, y and dx as measured; the times of both
+    paths at a world of 1."""
+    x = torch.randn((m, d), generator=gen, device=DEVICE) * 2.0 + 0.5
+    gamma = torch.rand((d,), generator=gen, device=DEVICE) + 0.5
+    beta = torch.randn((d,), generator=gen, device=DEVICE) * 0.3
+    g = torch.randn((m, d), generator=gen, device=DEVICE)
+    fused = fused_bn.bn_fwd(x, gamma, beta)
+    split = fused_bn.bn_fwd(x, gamma, beta, group=group)
+    _, mu, sd = fused
+    dfused = fused_bn.bn_bwd(g, x, gamma, mu, sd)
+    dsplit = fused_bn.bn_bwd(g, x, gamma, mu, sd, group)
+    h = m // 2
+    sums = fused_bn.bn_fwd_sums(x[:h]) + fused_bn.bn_fwd_sums(x[h:])
+    lo, hi = (fused_bn.bn_fwd_apply(part, gamma, beta, sums)
+              for part in (x[:h], x[h:]))
+    (s_lo, dg_lo, _), (s_hi, dg_hi, _) = (
+        fused_bn.bn_bwd_sums(gp, xp, gamma, mu, sd)
+        for gp, xp in ((g[:h], x[:h]), (g[h:], x[h:])))
+    dx = torch.cat([fused_bn.bn_bwd_apply(gp, xp, gamma, mu, sd, s_lo + s_hi)
+                    for gp, xp in ((g[:h], x[:h]), (g[h:], x[h:]))])
+    torch.cuda.synchronize()
+    var = (lambda sq: sq * sq - 1e-5)
+    halves = {"mu": rel_err(lo[1], mu), "var": rel_err(var(lo[2]), var(sd)),
+              "y_max_abs_err": float((torch.cat([lo[0], hi[0]])
+                                      - fused[0]).abs().max()),
+              "dx_rel_err": rel_err(dx, dfused[0]),
+              "dgamma_rel_err": rel_err(dg_lo + dg_hi, dfused[1])}
+    return {"case": case, "shape": [m, d],
+            "bitwise_fwd": bits_equal(fused, split),
+            "bitwise_bwd": bits_equal(dfused, dsplit), "halves": halves,
+            "fwd_ms": time_ms(lambda: fused_bn.bn_fwd(x, gamma, beta)),
+            "fwd_split_ms": time_ms(lambda: fused_bn.bn_fwd(
+                x, gamma, beta, group=group)),
+            "bwd_ms": time_ms(lambda: fused_bn.bn_bwd(g, x, gamma, mu, sd)),
+            "bwd_split_ms": time_ms(lambda: fused_bn.bn_bwd(
+                g, x, gamma, mu, sd, group))}
+
+
+def split_neuron_layer_case(gen, group, case, t, m, c, k, packed) -> dict:
+    """neuron_layer_train at one site: (a) split against fused, spikes and
+    statistics bit for bit, and the backward's replay on the split
+    forward's global statistics equal to its emitted spikes; (b) the rows
+    of each time step cut in two halves, their sums added, each half's
+    spikes from the sum, against the whole: mu and var within
+    HALVES_LIMIT, the spike mismatch fraction measured; both paths'
+    times."""
+    x, w, gamma, beta = neuron_layer_train_inputs(gen, t, m, c, k, packed)
+    fused = neuron_layer.neuron_layer_train_fwd(x, w, gamma, beta,
+                                                packed=packed)
+    split = neuron_layer.neuron_layer_train_fwd(x, w, gamma, beta,
+                                                packed=packed, group=group)
+    h = m // 2
+    parts = [x[:, :h].contiguous(), x[:, h:].contiguous()]
+    sums_z = [neuron_layer.neuron_layer_train_sums(p, w, packed=packed)
+              for p in parts]
+    total = sums_z[0][0] + sums_z[1][0]
+    out = [neuron_layer.neuron_layer_train_apply(z, gamma, beta, total)
+           for _, z in sums_z]
+    spikes_h = torch.cat([o[0] for o in out], dim=1)
+    torch.cuda.synchronize()
+    return {"case": case, "shape": [t, m, c, k], "packed": packed,
+            "bitwise": bits_equal(fused[:4], split[:4]),
+            "replay_mismatch": replay_mismatch(x, w, gamma, beta, packed,
+                                               emitted=split),
+            "halves": {"mu": rel_err(out[0][1], fused[1]),
+                       "var": rel_err(out[0][2], fused[2]),
+                       "spike_mismatch": float(
+                           (spikes_h != fused[0]).float().mean())},
+            "ms": time_ms(lambda: neuron_layer.neuron_layer_train(
+                x, w, gamma, beta, packed=packed)),
+            "split_ms": time_ms(lambda: neuron_layer.neuron_layer_train(
+                x, w, gamma, beta, packed=packed, group=group))}
+
+
+def check_split_cases(bn: list[dict], nl: list[dict]) -> None:
+    """(a) must hold bit for bit, (b)'s statistics within HALVES_LIMIT."""
+    bad = [c["case"] for c in bn if not (c["bitwise_fwd"]
+                                         and c["bitwise_bwd"])] + \
+        [c["case"] for c in nl if not c["bitwise"] or c["replay_mismatch"]]
+    far = [(c["case"], c["halves"]) for c in bn + nl
+           if max(c["halves"]["mu"], c["halves"]["var"]) > HALVES_LIMIT]
+    if bad or far:
+        fail(f"split statistics path: not the fused path's bits at {bad}; "
+             f"halves beyond {HALVES_LIMIT} at {far}")
+
+
+def mesh_vision_run(cfg, seed: int, mesh, ckpt_dir: str) -> dict:
+    """``train_vision`` for 1 + MESH_STEPS steps of BATCH images from
+    ``seed``, on ``mesh`` or without one, checkpointing after the last
+    step: the losses, the timed steps' wall times (host clock between the
+    driver's ``on_step`` calls, each once the loss is on the host) and
+    the launch counts of the run."""
+    stamps = []
+    reset_launch_counts()                    # the path starts here
+    with contextlib.redirect_stdout(sys.stderr):
+        _, history = train_vision(
+            cfg, steps=1 + MESH_STEPS, global_batch=BATCH, ckpt_dir=ckpt_dir,
+            mesh=mesh, ckpt_every=1 + MESH_STEPS, seed=seed, device=DEVICE,
+            on_step=lambda step, m: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    counts = launch_counts()                 # ... and ends here
+    return {"history": history, "counts": counts,
+            "ms_per_step": [(b - a) * 1e3 for a, b in zip(stamps,
+                                                          stamps[1:])]}
+
+
+def mesh_train_phase(seed: int, batch: int, smi: str) -> tuple[dict, dict]:
+    """Data parallelism through the driver on a world of 1 (one card, NCCL,
+    a file store): the BN kernels' split path at the preset's shapes
+    (``split_bn_case``, ``split_neuron_layer_case``); ``train_vision`` at
+    ``spikingformer-8-512``, batch 16, ``cuda-full``, full depth, on a
+    (1, 1) mesh against the mesh-less driver from the same seed (every
+    step's loss and every parameter, BN-state and moment leaf after the
+    last step bit-equal, read back from each run's checkpoint; the mesh
+    run's checkpoint restored by the mesh-less path equal to its own);
+    ``qwen3-0.6b`` + LIF through the driver on the mesh with
+    ``compress_grads`` (every step finite, every leaf moved, the residual
+    non-zero, the LIF launches per step). Returns the launch counts of the
+    mesh runs, by path, and the split-path cases of each BN kernel."""
+    from repro_torch.launch.mesh import (init_distributed, make_test_mesh,
+                                         shutdown_distributed)
+    from repro_torch.launch.train import build_spikingformer_state
+    from repro_torch.train import checkpoint as ckpt
+    rank, world, _ = init_distributed()
+    try:
+        mesh = make_test_mesh(world, 1)
+        group = mesh.batch_group
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + 40)
+        bn = [split_bn_case(gen, group, *shape)
+              for shape in split_bn_shapes(batch)]
+        nl = [split_neuron_layer_case(gen, group, *site)
+              for site in neuron_layer_sites(batch)]
+        emit("mesh_kernels", world=world, bn=bn, neuron_layer_train=nl,
+             card=smi, note="bitwise: the split path (sums, all-reduce, "
+                            "apply) against the fused path at a world of "
+                            "1; halves: two halves' sums added, against "
+                            "the whole batch")
+        check_split_cases(bn, nl)
+        torch.cuda.empty_cache()
+
+        cfg = get_spikingformer_config(PRESET + "@cuda-full")
+        runs = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, m in (("mesh", mesh), ("no_mesh", None)):
+                runs[name] = mesh_vision_run(cfg, seed, m,
+                                             os.path.join(tmp, name))
+                torch.cuda.empty_cache()
+            like = build_spikingformer_state(cfg, seed=seed, device=DEVICE)
+            like = {"params": like[0], "state": like[1], "opt": like[2]}
+            step = 1 + MESH_STEPS
+            got, want = (ckpt.restore_checkpoint(os.path.join(tmp, n), step,
+                                                 like)
+                         for n in ("mesh", "no_mesh"))
+        names = [n for n, _ in ckpt._flatten_with_paths(want)]
+        differ = [n for n, a, b in zip(names, tree_leaves(got),
+                                       tree_leaves(want))
+                  if not torch.equal(a, b)]
+        losses_equal = runs["mesh"]["history"] == runs["no_mesh"]["history"]
+        per_step = {k: v / step for k, v in runs["mesh"]["counts"].items()}
+        del got, want, like
+        torch.cuda.empty_cache()
+
+        lm_cfg = lm_train_config("cuda-full")
+        lm = lm_train_run(lm_cfg, seed, MESH_STEPS, mesh=mesh,
+                          compress_grads=True)
+        params = build_state(lm_cfg, seed=seed, device=DEVICE)[0]
+        lm["moved_leaves"] = moved_leaves(lm, params)
+        leaves = len(tree_leaves(params))
+        del params
+        torch.cuda.empty_cache()
+        emit("mesh_train", world=world, mesh=dict(mesh.shape),
+             backend="nccl", card=smi,
+             vision={"preset": f"{PRESET}@cuda-full", "batch": batch,
+                     "steps": f"1 warm-up + {MESH_STEPS} timed",
+                     "losses": {n: r["history"] for n, r in runs.items()},
+                     "losses_bit_equal": losses_equal,
+                     "leaves": len(names), "leaves_differing": differ,
+                     "launches_per_step": per_step,
+                     "ms_per_step": {n: r["ms_per_step"]
+                                     for n, r in runs.items()},
+                     "restore": "the mesh run's checkpoint restored by the "
+                                "mesh-less path, against the mesh-less "
+                                "run's own"},
+             lm={"arch": f"{LM_ARCH}@cuda-full", "compress_grads": True,
+                 **{k: v for k, v in lm.items() if k != "history"}})
+        if not losses_equal or differ:
+            fail(f"mesh_train: the (1, 1) mesh's step is not the mesh-less "
+                 f"step's bits: losses {runs['mesh']['history']} vs "
+                 f"{runs['no_mesh']['history']}, leaves differing {differ}")
+        check_train_run("mesh_train lm", lm, leaves, 1 + MESH_STEPS,
+                        lm_train_expected(1 + MESH_STEPS))
+        if not all(r.get("err_norm", 0.0) > 0.0 for r in lm["steps"]):
+            fail(f"mesh_train lm: the compression residual is zero at "
+                 f"{lm['steps']}")
+        return {"mesh_train": runs["mesh"]["counts"],
+                "mesh_lm_train": lm["counts"]}, {"bn_fwd": bn, "bn_bwd": bn,
+                                                 "neuron_layer_train": nl}
+    finally:
+        shutdown_distributed()
 
 
 # ---------------------------------------------------------------------------
@@ -2938,8 +3191,21 @@ def tune_phase(seed: int, batch: int) -> dict[str, int]:
 
 # ---------------------------------------------------------------------------
 
+def split_summary(name: str, rows: list[dict]) -> list[dict]:
+    """A BN kernel's split-path cases for the ``kernels`` line: each
+    shape's fused and split times at a world of 1 and the bitwise check."""
+    fwd, bwd = name == "bn_fwd", name == "bn_bwd"
+    key = "fwd" if fwd else "bwd"
+    return [{"case": r["case"], "shape": r["shape"],
+             "ms": r[f"{key}_ms"] if fwd or bwd else r["ms"],
+             "split_ms": r[f"{key}_split_ms"] if fwd or bwd else r["split_ms"],
+             "bitwise": r[f"bitwise_{key}"] if fwd or bwd else r["bitwise"]}
+            for r in rows]
+
+
 def summarise(cases: dict[str, list[dict]],
-              paths: dict[str, dict[str, int]]) -> dict:
+              paths: dict[str, dict[str, int]],
+              split: dict[str, list[dict]] | None = None) -> dict:
     """One entry per kernel. Where a kernel serves several sites, the entry
     carries the numbers of its first case (a site of the main path) and the
     largest error of all cases; ``cases`` keeps every site's numbers.
@@ -2961,6 +3227,8 @@ def summarise(cases: dict[str, list[dict]],
             "library_ms": first["library_ms"], "case": first["case"],
             **({"tc_bound_ms": first["tc_bound_ms"]}
                if "tc_bound_ms" in first else {}),
+            **({"split_path": split_summary(name, split[name])}
+               if split and name in split else {}),
             "cases": rows})
     return {"kernels": kernels}
 
@@ -3033,10 +3301,13 @@ def main() -> None:
         torch.cuda.empty_cache()
     lm_launches({k: cases[k] for k in ("lif_soma_fwd", "lif_soma_bwd")},
                 lm_counts, path_steps)
+    mesh_counts, split_cases = mesh_train_phase(args.seed, BATCH, smi)
+    torch.cuda.empty_cache()
     tune_counts = tune_phase(args.seed, BATCH)
 
     print(json.dumps(summarise(cases, {"serve": counts, "train": train_counts,
-                                       **lm_counts, "tune": tune_counts})),
+                                       **lm_counts, **mesh_counts,
+                                       "tune": tune_counts}, split_cases)),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -52,11 +52,11 @@ def opt_state_from_jax(opt_state: Any,
                        device: str | torch.device | None = None):
     """The reference's AdamW state (``{"m", "v", "step", "err"}``, numpy
     leaves) -> the port's ``{"m", "v", "step"}`` on ``device``. ``err``
-    (the int8 gradient-compression residual) has no counterpart and must be
+    (the int8 gradient-compression residual) is not converted and must be
     ``None``."""
     if opt_state.get("err") is not None:
         raise ValueError("opt_state_from_jax: the int8 compression residual "
-                         "'err' is not ported; convert a state without it")
+                         "'err' is not converted; convert a state without it")
     device = resolve_device(device)
     return {"m": _convert(opt_state["m"], device),
             "v": _convert(opt_state["v"], device),

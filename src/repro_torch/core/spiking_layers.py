@@ -28,6 +28,7 @@ import math
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.backend import fold_rows, fold_time_major
 from repro_torch.core.lif import LIFConfig, lif_scan
@@ -35,6 +36,7 @@ from repro_torch.core.policy import (ExecutionPolicy, FUSED_EPILOGUE_IMPLS,
                                      dispatch_kernel, fused_epilogue_fallback,
                                      get_kernel, register_kernel,
                                      runtime_fallback)
+from repro_torch.launch.mesh import batch_group
 from repro_torch.tune.table import lookup as tuned_lookup
 from repro_torch.tune.table import lookup_tile
 
@@ -43,7 +45,10 @@ State = dict[str, Any]
 
 
 def _normal(generator: torch.Generator | None, shape, dtype, device, scale):
-    # Drawn on the CPU so that one seed gives the same weights on any device.
+    # Drawn on the CPU so that one seed gives the same weights on any device
+    # (on the meta device, shapes only: nothing is drawn).
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=generator, dtype=torch.float32) * scale
     return w.to(device=device, dtype=dtype)
 
@@ -60,15 +65,43 @@ def init_bn(dim: int, dtype=torch.float32, device="cpu") -> tuple[Params, State]
     return params, state
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum of a tensor over a process group, differentiable: each rank's
+    tensor reaches every rank's sum, so its gradient is the sum of every
+    rank's gradient of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllReduceSum.apply(g, ctx.group), None
+
+
 @register_kernel("bn", "eager")
 def _bn_eager(params, state, x, train, momentum, eps, policy, site):
     """Plain BatchNorm, the paper's E[x^2] - mu^2 formulation (eq. 13-18);
-    statistics in fp32. Also the eval path for every implementation."""
+    statistics in fp32. Also the eval path for every implementation. Under
+    a mesh (``launch.mesh.batch_group``) the training statistics are those
+    of the global batch, through a differentiable all-reduce of the sums."""
     axes = tuple(range(x.ndim - 1))
     if train:
         xf = x.float()
-        mu = xf.mean(dim=axes)
-        ex2 = xf.square().mean(dim=axes)                        # eq. 14
+        group = batch_group()
+        if group is None:
+            mu = xf.mean(dim=axes)
+            ex2 = xf.square().mean(dim=axes)                    # eq. 14
+        else:   # the global batch: sums and row count over the ranks
+            d = xf.shape[-1]
+            sums = _AllReduceSum.apply(torch.cat(
+                [xf.sum(dim=axes), xf.square().sum(dim=axes),
+                 xf.new_full((1,), xf.numel() // d)]).double(), group)
+            mu, ex2 = ((sums[i * d:(i + 1) * d] / sums[-1]).float()
+                       for i in range(2))
         var = torch.clamp(ex2 - mu.square(), min=0.0)           # eq. 15
         new_state = {
             "mean": (momentum * state["mean"] + (1 - momentum) * mu).detach(),
@@ -94,7 +127,7 @@ def _bn_cuda(params, state, x, train, momentum, eps, policy, site):
 
     x2, shape = fold_rows(x)
     y, mu, var = ops.bn_train_op(x2.contiguous(), params["gamma"],
-                                 params["beta"], eps)
+                                 params["beta"], eps, batch_group())
     var = torch.clamp(var, min=0.0)   # sqrt_d^2 - eps can round below zero
     new_state = {"mean": momentum * state["mean"] + (1 - momentum) * mu,
                  "var": momentum * state["var"] + (1 - momentum) * var}
@@ -217,7 +250,7 @@ def _neuron_layer_site(x3, w_mat, bn_p, bn_s, lif_cfg, train, packed):
         spikes, mu, var = ops.neuron_layer_train_op(
             x3.contiguous(), w_mat.to(x3.dtype), bn_p["gamma"], bn_p["beta"],
             lif.alpha, lif.th_fire, lif.th_lo, lif.th_hi, lif.grad_scale,
-            1e-5, packed)
+            1e-5, packed, batch_group())
         new_bn = {"mean": 0.9 * bn_s["mean"] + 0.1 * mu,
                   "var": 0.9 * bn_s["var"] + 0.1 * var}
         return spikes, new_bn

@@ -28,6 +28,7 @@ from repro_torch.core.lif import LIFConfig, lif_scan
 from repro_torch.core.policy import (ExecutionPolicy, dispatch_kernel,
                                      plan_sites, register_kernel,
                                      register_site_table, runtime_fallback)
+from repro_torch.launch.mesh import P, map_specs
 from repro_torch.core.spiking_layers import (BlockConfig, _bn_cuda,
                                              _neuron_layer_site, _normal,
                                              _tuned_prefers_pipeline,
@@ -182,13 +183,35 @@ class SpikingFormerConfig:
                  "absorbed into the single-launch neuron-layer megakernel")
         return rows
 
-    def describe_execution(self) -> str:
+    def describe_execution(self, mesh=None) -> str:
         """The per-site dispatch table, followed by the active tuned-block
         table's entries for this model's sites (``repro_torch.tune``: the
-        tiles and arms kernel dispatch will take)."""
+        tiles and arms kernel dispatch will take), then the sharding plan
+        (:meth:`describe_sharding`)."""
         rows = self.execution_plan()
         return self.policy.describe(rows=rows) + "\n\n" + \
-            describe_tuned([r.site for r in rows])
+            describe_tuned([r.site for r in rows]) + "\n\n" + \
+            self.describe_sharding(mesh)
+
+    def describe_sharding(self, mesh=None) -> str:
+        """The sharding half of the execution report: the activation specs
+        of the plan (batch over ("pod", "data"), projections over "model")
+        and, with ``mesh`` (a mesh or an abstract one), the parameter
+        placements ``launch.train.build_spikingformer_state`` uses on it
+        (after ``sanitize_specs`` and FSDP), one ``path,spec`` line each,
+        as the reference prints them."""
+        lines = ["# Sharding plan (batch over ('pod','data'), "
+                 "tensor-parallel over 'model')", "activation,spec"]
+        for name, spec in activation_specs(self):
+            lines.append(f"{name},{spec}")
+        if mesh is not None:
+            from repro_torch.launch.specs import spikingformer_structs
+            from repro_torch.train.checkpoint import _flatten_with_paths
+            _, (specs, _) = spikingformer_structs(self, mesh)
+            lines.append(f"param,spec  (mesh {mesh.shape})")
+            for name, spec in _flatten_with_paths(specs, spec_leaves=True):
+                lines.append(f"{name},{spec}")
+        return "\n".join(lines)
 
     def param_count(self) -> int:
         d, f = self.d_model, self.d_ff
@@ -197,6 +220,72 @@ class SpikingFormerConfig:
                   for ci, co in self.tokenizer_stage_channels())
         head = self.d_model * self.num_classes + self.num_classes
         return self.num_layers * per_block + tok + head
+
+
+# ---------------------------------------------------------------------------
+# Sharding plan: logical partition specs for params and activations
+# ---------------------------------------------------------------------------
+
+BATCH, MODEL = ("pod", "data"), "model"
+
+
+def activation_specs(cfg: SpikingFormerConfig) -> tuple[tuple[str, P], ...]:
+    """(name, spec) of every activation of the reference's sharding plan.
+    Activations are (T, B, N, D) unless noted; batch shards over ("pod",
+    "data"), the Q/K/V, head and MLP-hidden projections over "model"; the
+    residual stream keeps features replicated. Under data parallelism a
+    rank holds the batch slice of each, which is what its rows give it."""
+    return (
+        ("images", P(None, BATCH, None, None, None)),     # (T,B,H,W,C)
+        ("tokenizer.stage", P(None, BATCH, None, None, None)),  # (T,B,H,W,C)
+        ("tokenizer.stage.folded", P(BATCH, None, None, None)),  # (T*B,H,W,C)
+        ("tokenizer.patches", P(None, BATCH, None)),      # im2col (T,M,kkC)
+        ("tokenizer.tokens", P(None, BATCH, None, None)),
+        ("block.residual", P(None, BATCH, None, None)),   # (T,B,N,D)
+        ("pssa.qkv", P(None, BATCH, None, MODEL)),        # (T,B,N,D)
+        ("attn.scores", P(None, BATCH, MODEL, None, None)),  # (T,B,h,N,M)
+        ("pssa.out", P(None, BATCH, None, MODEL)),        # merged heads
+        ("smlp.hidden", P(None, BATCH, None, MODEL)),     # (T,B,N,F)
+        ("head.features", P(BATCH, None)),                # (B, D)
+    )
+
+
+def spikingformer_param_specs(cfg: SpikingFormerConfig):
+    """(param_specs, state_specs) trees matching :func:`init_spikingformer`.
+
+    Q/K/V and SMLP-A column-parallel (output features over "model", their
+    BN leaves alike), the Z projection and SMLP-B row-parallel (input
+    features over "model", BN replicated); the stacked block leaves' leading
+    L axis unsharded (:func:`spikingformer_scan_dims`); tokenizer convs and
+    the head replicated (FSDP may still shard them over "data")."""
+    rep = P(None)
+    tok_p = [{"conv": {"w": P(None, None, None, None)},
+              "bn": {"gamma": rep, "beta": rep}}
+             for _ in range(cfg.tokenizer_stages)]
+    tok_s = [{"bn": {"mean": rep, "var": rep}}
+             for _ in range(cfg.tokenizer_stages)]
+
+    def linear_bn(w_spec, feat_spec):
+        return ({"linear": {"w": w_spec},
+                 "bn": {"gamma": feat_spec, "beta": feat_spec}},
+                {"bn": {"mean": feat_spec, "var": feat_spec}})
+
+    col_p, col_s = linear_bn(P(None, None, MODEL), P(None, MODEL))
+    row_p, row_s = linear_bn(P(None, MODEL, None), P(None, None))
+    blocks_p = {"pssa": {"q": col_p, "k": col_p, "v": col_p, "z": row_p},
+                "smlp": {"a": col_p, "b": row_p}}
+    blocks_s = {"pssa": {"q": col_s, "k": col_s, "v": col_s, "z": row_s},
+                "smlp": {"a": col_s, "b": row_s}}
+    head = {"w": P(None, None), "b": P(None)}
+    return ({"tokenizer": tok_p, "blocks": blocks_p, "head": head},
+            {"tokenizer": tok_s, "blocks": blocks_s})
+
+
+def spikingformer_scan_dims(specs):
+    """Per-leaf count of leading scan dims ``apply_fsdp`` must not shard: 1
+    for the stacked block leaves, 0 elsewhere."""
+    return {k: map_specs(lambda _: int(k == "blocks"), v)
+            for k, v in specs.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -59,9 +59,18 @@ SIGNATURES: dict[str, tuple] = {
     # x, gamma, beta, y, mu, sqrt_d, part, arrival counters, M, D,
     # rows per chunk, eps, stream
     "e2a_bn_fwd": (_P,) * 8 + (_L, _I, _L, _F, _P),
+    # the split path: x, part, arrival counters, sums, M, D, rows per chunk,
+    # stream; then x, gamma, beta, sums, y, mu, sqrt_d, M, D, eps, stream
+    "e2a_bn_fwd_sums": (_P,) * 4 + (_L, _I, _L, _P),
+    "e2a_bn_fwd_apply": (_P,) * 7 + (_L, _I, _F, _P),
     # g, x, gamma, mu, sqrt_d, dx, dgamma, dbeta, part, cols, arrival
     # counters, M, D, rows per chunk, stream
     "e2a_bn_bwd": (_P,) * 11 + (_L, _I, _L, _P),
+    # the split path: g, x, gamma, mu, sqrt_d, dgamma, dbeta, part, sums,
+    # arrival counters, M, D, rows per chunk, stream; then g, x, gamma, mu,
+    # sqrt_d, sums, cols, dx, M, D, stream
+    "e2a_bn_bwd_sums": (_P,) * 10 + (_L, _I, _L, _P),
+    "e2a_bn_bwd_apply": (_P,) * 8 + (_L, _I, _P),
     # x, w, bias, s, T, M, C, K, packed, tile (0 by rule, 1 Large, 2 Small),
     # alpha, th_fire, stream
     "e2a_neuron_layer_eval": (_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _F, _F,
@@ -70,6 +79,12 @@ SIGNATURES: dict[str, tuple] = {
     # alpha, th_fire, eps, stream
     "e2a_neuron_layer_train": (_P,) * 10 + (_I, _L, _I, _I, _I, _F, _F, _F,
                                             _P),
+    # the split path: x, w, z, part, sums, T, M, C, K, packed, stream; then
+    # z, gamma, beta, sums, mu, var, sqrt_d, s, T, M, K, alpha, th_fire,
+    # eps, stream
+    "e2a_neuron_layer_train_sums": (_P,) * 5 + (_I, _L, _I, _I, _I, _P),
+    "e2a_neuron_layer_train_apply": (_P,) * 8 + (_I, _L, _I, _F, _F, _F,
+                                                 _P),
     # x, w, z, T, M, C, K, packed, stream
     "e2a_neuron_layer_train_z": (_P, _P, _P, _I, _L, _I, _I, _I, _P),
 }

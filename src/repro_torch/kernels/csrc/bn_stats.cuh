@@ -66,6 +66,20 @@ __device__ __forceinline__ void column_stats(double s, double q, double count,
   sqrt_d = __fsqrt_rn(__fadd_rn(var, eps));                  // eq. 16
 }
 
+// Data parallelism (the split path): each rank's first pass writes its
+// column sums, in double, to a buffer of Q * D + 1 doubles, the last its row
+// count; the wrapper all-reduces the buffer over the ranks, and the passes
+// that apply the statistics form them from the global sums and count. At a
+// world of 1 the buffer holds the very doubles the fused path forms, so the
+// statistics are the fused path's bit for bit.
+
+// mu, var and sqrt(var + eps) of one column from a (2, D) + 1 sums buffer.
+__device__ __forceinline__ void stats_from_sums(const double* sums, int D,
+                                                int col, float eps, float& mu,
+                                                float& var, float& sqrt_d) {
+  column_stats(sums[col], sums[D + col], sums[2 * D], eps, mu, var, sqrt_d);
+}
+
 // gridDim.y and gridDim.z are at most 65535, so a pass that puts its row
 // ranges on grid.y launches at most MAX_ROW_BLOCKS of them and strides over
 // the rest (more than 2 M rows at 32 rows a range).

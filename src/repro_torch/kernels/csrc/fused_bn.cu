@@ -28,6 +28,17 @@
 //   2. bn_bwd_dx: dx from g and x, read a second time; the forward's 2-D
 //      grid, float4 along D where aligned.
 //
+// Split path (data parallelism, the statistics of the global batch): the
+// elected block of each first pass writes the group's column sums in double
+// to a buffer instead of finishing the statistics (bn_stats.cuh), and a
+// second entry point, called after the wrapper has all-reduced the buffer
+// over the ranks, forms them from the global sums and row count and runs
+// the elementwise pass: e2a_bn_fwd_sums + e2a_bn_fwd_apply, e2a_bn_bwd_sums +
+// e2a_bn_bwd_apply. dgamma and dbeta come from the rank's own sums (the
+// train step adds them over the ranks with the other gradients); dx from the
+// global ones. The arithmetic is the fused path's, so at a world of 1 the
+// outputs are its bits.
+//
 // Bound on this card: bytes. The forward must read x and write y
 // (2 * M * D * 4 bytes), the backward read g and x and write dx (3 * M * D *
 // 4); the second read of the elementwise pass is the price of the split (at
@@ -51,14 +62,16 @@ static_assert(BN_COLS == e2a::STAT_COLS && BN_LANES == e2a::STAT_LANES,
               "block shape of reduce_parts");
 
 // Pass 1: per-chunk partials of sum(x) and sum(x^2), then, in the last block
-// of each group of BN_COLS columns, mu and sqrt_d of those columns. One
+// of each group of BN_COLS columns, mu and sqrt_d of those columns; where
+// sums is given, the columns' sums and the row count go there instead. One
 // column per lane: float4 loads (four columns a lane, 128 a block) made a
 // quarter as many blocks (392 for 132 SMs at 12544 x 512) and ran slower on
 // the H100, 20.0 against 16.1 us (PERF.md, section 6).
 __global__ void __launch_bounds__(BN_COLS* BN_LANES) bn_fwd_stats(
     const float* __restrict__ x, float* part, unsigned* __restrict__ arrived,
-    float* __restrict__ mu, float* __restrict__ sqrt_d, long long M, int D,
-    long long rows, int n_chunks, float eps) {
+    float* __restrict__ mu, float* __restrict__ sqrt_d,
+    double* __restrict__ sums, long long M, int D, long long rows,
+    int n_chunks, float eps) {
   __shared__ float sh[2][BN_LANES][BN_COLS];
   __shared__ bool last;
   const int col = blockIdx.x * BN_COLS + threadIdx.x;
@@ -94,14 +107,31 @@ __global__ void __launch_bounds__(BN_COLS* BN_LANES) bn_fwd_stats(
   __syncthreads();
   if (!last) return;
   __threadfence();
-  double sums[2];
-  e2a::reduce_parts<2>(part, n_chunks, D, col, sums);
-  if (lane == 0 && col < D) {
-    float m, v, sd;
-    e2a::column_stats(sums[0], sums[1], (double)M, eps, m, v, sd);
-    mu[col] = m;
-    sqrt_d[col] = sd;
+  double sx[2];
+  e2a::reduce_parts<2>(part, n_chunks, D, col, sx);
+  if (lane != 0 || col >= D) return;
+  if (sums != nullptr) {
+    sums[col] = sx[0];
+    sums[D + col] = sx[1];
+    if (col == 0) sums[2 * D] = (double)M;
+    return;
   }
+  float m, v, sd;
+  e2a::column_stats(sx[0], sx[1], (double)M, eps, m, v, sd);
+  mu[col] = m;
+  sqrt_d[col] = sd;
+}
+
+// Split path: mu and sqrt_d of each column from the all-reduced sums.
+__global__ void bn_fwd_finalize(const double* __restrict__ sums, int D,
+                                float eps, float* __restrict__ mu,
+                                float* __restrict__ sqrt_d) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= D) return;
+  float m, v, sd;
+  e2a::stats_from_sums(sums, D, col, eps, m, v, sd);
+  mu[col] = m;
+  sqrt_d[col] = sd;
 }
 
 // Pass 2: y = gamma * (x - mu) / sqrt_d + beta (eq. 17-18). A block covers
@@ -150,6 +180,20 @@ void launch_normalize(const float* x, const float* gamma, const float* beta,
       x, gamma, beta, mu, sqrt_d, y, M, D);
 }
 
+// The normalize pass, float4 along D where D % 4 == 0 and x and y are
+// 16-byte aligned. Returns a cudaError_t.
+int launch_normalize_any(const float* x, const float* gamma,
+                         const float* beta, const float* mu,
+                         const float* sqrt_d, float* y, long long M, int D,
+                         cudaStream_t st) {
+  if (D % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(y) % 16 == 0)
+    launch_normalize<4>(x, gamma, beta, mu, sqrt_d, y, M, D, st);
+  else
+    launch_normalize<1>(x, gamma, beta, mu, sqrt_d, y, M, D, st);
+  return (int)cudaGetLastError();
+}
+
 // One row's terms of the four sums, added in the plain version's order.
 __device__ __forceinline__ void bwd_terms(float gv, float xv, float ga,
                                           float m, float sd,
@@ -173,13 +217,31 @@ constexpr int BWD_UNROLL = 4;   // rows of a batch of loads in pass 1
 // for the dx pass, each rounded as the plain version rounds it:
 //   cols[0] = s_mn, cols[1] = M * sq2, cols[2] = s_n * s_mn / (sq2 * M * M),
 //   cols[3] = s_m / M, with sq2 = sqrt_d * sqrt_d.
+// Where sums is given (the split path) the block writes dgamma and dbeta
+// and leaves the four sums, in double, and the row count to sums: eq. 23's
+// terms wait for the global sums (bn_bwd_cols).
+__device__ __forceinline__ void bwd_cols(double s_n_d, double s_m_d,
+                                         double s_mn_d, double count,
+                                         float sd, int D, int col,
+                                         float* __restrict__ cols) {
+  const float s_n = (float)s_n_d, s_m = (float)s_m_d, s_mn = (float)s_mn_d;
+  const float m = (float)count;
+  const float sq2 = __fmul_rn(sd, sd);
+  cols[col] = s_mn;
+  cols[D + col] = __fmul_rn(m, sq2);
+  cols[2 * D + col] = __fdiv_rn(__fmul_rn(s_n, s_mn),
+                                __fmul_rn(__fmul_rn(sq2, m), m));
+  cols[3 * D + col] = __fdiv_rn(s_m, m);
+}
+
 __global__ void __launch_bounds__(BN_COLS* BN_LANES) bn_bwd_partials(
     const float* __restrict__ g, const float* __restrict__ x,
     const float* __restrict__ gamma, const float* __restrict__ mu,
     const float* __restrict__ sqrt_d, float* part,
     unsigned* __restrict__ arrived, float* __restrict__ cols,
-    float* __restrict__ dgamma, float* __restrict__ dbeta, long long M,
-    int D, long long rows, int n_chunks) {
+    float* __restrict__ dgamma, float* __restrict__ dbeta,
+    double* __restrict__ sums, long long M, int D, long long rows,
+    int n_chunks) {
   __shared__ float sh[4][BN_LANES][BN_COLS];
   __shared__ bool last;
   const int col = blockIdx.x * BN_COLS + threadIdx.x;
@@ -244,16 +306,26 @@ __global__ void __launch_bounds__(BN_COLS* BN_LANES) bn_bwd_partials(
   double s[4];
   e2a::reduce_parts<4>(part, n_chunks, D, col, s);
   if (lane != 0 || col >= D) return;
-  const float s_n = (float)s[0], s_m = (float)s[1], s_mn = (float)s[2];
-  const float m = (float)M, sd = sqrt_d[col];
-  const float sq2 = __fmul_rn(sd, sd);
-  dgamma[col] = __fdiv_rn(s_mn, gamma[col]);
+  dgamma[col] = __fdiv_rn((float)s[2], gamma[col]);
   dbeta[col] = (float)s[3];
-  cols[col] = s_mn;
-  cols[D + col] = __fmul_rn(m, sq2);
-  cols[2 * D + col] = __fdiv_rn(__fmul_rn(s_n, s_mn),
-                                __fmul_rn(__fmul_rn(sq2, m), m));
-  cols[3 * D + col] = __fdiv_rn(s_m, m);
+  if (sums != nullptr) {
+#pragma unroll
+    for (int q = 0; q < 3; ++q) sums[q * D + col] = s[q];
+    if (col == 0) sums[3 * D] = (double)M;
+    return;
+  }
+  bwd_cols(s[0], s[1], s[2], (double)M, sqrt_d[col], D, col, cols);
+}
+
+// Split path: eq. 23's per-column terms from the all-reduced (s_n, s_m,
+// s_mn) and row count.
+__global__ void bn_bwd_cols(const double* __restrict__ sums,
+                            const float* __restrict__ sqrt_d, int D,
+                            float* __restrict__ cols) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= D) return;
+  bwd_cols(sums[col], sums[D + col], sums[2 * D + col], sums[3 * D],
+           sqrt_d[col], D, col, cols);
 }
 
 // Backward pass 2: dx = mi - n * s_mn / (M * sq2) + s_n * s_mn / (sq2 * M *
@@ -338,6 +410,20 @@ void launch_dx(const float* g, const float* x, const float* gamma,
                                               dx, M, D);
 }
 
+// The dx pass, float4 along D where D % 4 == 0 and g, x and dx are 16-byte
+// aligned. Returns a cudaError_t.
+int launch_dx_any(const float* g, const float* x, const float* gamma,
+                  const float* mu, const float* sqrt_d, const float* cols,
+                  float* dx, long long M, int D, cudaStream_t st) {
+  if (D % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(dx) % 16 == 0)
+    launch_dx<4>(g, x, gamma, mu, sqrt_d, cols, dx, M, D, st);
+  else
+    launch_dx<1>(g, x, gamma, mu, sqrt_d, cols, dx, M, D, st);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x (M, D) -> y (M, D), mu (D), sqrt_d (D). part: 2 * ceil(M / rows) * D
@@ -353,14 +439,37 @@ extern "C" int e2a_bn_fwd(const float* x, const float* gamma,
   const int n_chunks = (int)((M + rows - 1) / rows);
   bn_fwd_stats<<<dim3((D + BN_COLS - 1) / BN_COLS, n_chunks),
                  dim3(BN_COLS, BN_LANES), 0, st>>>(x, part, arrived, mu,
-                                                   sqrt_d, M, D, rows,
-                                                   n_chunks, eps);
-  if (D % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(y) % 16 == 0)
-    launch_normalize<4>(x, gamma, beta, mu, sqrt_d, y, M, D, st);
-  else
-    launch_normalize<1>(x, gamma, beta, mu, sqrt_d, y, M, D, st);
+                                                   sqrt_d, nullptr, M, D,
+                                                   rows, n_chunks, eps);
+  return launch_normalize_any(x, gamma, beta, mu, sqrt_d, y, M, D, st);
+}
+
+// Split path, forward, before the all-reduce: sums (2 * D + 1 doubles)
+// receives the rank's sum(x) and sum(x^2) per column and its row count M.
+extern "C" int e2a_bn_fwd_sums(const float* x, float* part, unsigned* arrived,
+                               double* sums, long long M, int D,
+                               long long rows, void* stream) {
+  if (M <= 0 || D <= 0 || rows <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_chunks = (int)((M + rows - 1) / rows);
+  bn_fwd_stats<<<dim3((D + BN_COLS - 1) / BN_COLS, n_chunks),
+                 dim3(BN_COLS, BN_LANES), 0, st>>>(x, part, arrived, nullptr,
+                                                   nullptr, sums, M, D, rows,
+                                                   n_chunks, 0.0f);
   return (int)cudaGetLastError();
+}
+
+// Split path, forward, after the all-reduce: mu and sqrt_d from the global
+// sums, then y.
+extern "C" int e2a_bn_fwd_apply(const float* x, const float* gamma,
+                                const float* beta, const double* sums,
+                                float* y, float* mu, float* sqrt_d,
+                                long long M, int D, float eps, void* stream) {
+  if (D <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bn_fwd_finalize<<<(D + 255) / 256, 256, 0, st>>>(sums, D, eps, mu, sqrt_d);
+  if (M <= 0) return (int)cudaGetLastError();
+  return launch_normalize_any(x, gamma, beta, mu, sqrt_d, y, M, D, st);
 }
 
 // g, x (M, D), gamma, mu, sqrt_d (D) -> dx (M, D), dgamma, dbeta (D).
@@ -376,13 +485,40 @@ extern "C" int e2a_bn_bwd(const float* g, const float* x, const float* gamma,
   const int n_chunks = (int)((M + rows - 1) / rows);
   bn_bwd_partials<<<dim3((D + BN_COLS - 1) / BN_COLS, n_chunks),
                     dim3(BN_COLS, BN_LANES), 0, st>>>(
-      g, x, gamma, mu, sqrt_d, part, arrived, cols, dgamma, dbeta, M, D, rows,
-      n_chunks);
-  if (D % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(dx) % 16 == 0)
-    launch_dx<4>(g, x, gamma, mu, sqrt_d, cols, dx, M, D, st);
-  else
-    launch_dx<1>(g, x, gamma, mu, sqrt_d, cols, dx, M, D, st);
+      g, x, gamma, mu, sqrt_d, part, arrived, cols, dgamma, dbeta, nullptr, M,
+      D, rows, n_chunks);
+  return launch_dx_any(g, x, gamma, mu, sqrt_d, cols, dx, M, D, st);
+}
+
+// Split path, backward, before the all-reduce: dgamma and dbeta from the
+// rank's rows, and sums (3 * D + 1 doubles) receives its s_n, s_m, s_mn per
+// column and its row count M.
+extern "C" int e2a_bn_bwd_sums(const float* g, const float* x,
+                               const float* gamma, const float* mu,
+                               const float* sqrt_d, float* dgamma,
+                               float* dbeta, float* part, double* sums,
+                               unsigned* arrived, long long M, int D,
+                               long long rows, void* stream) {
+  if (M <= 0 || D <= 0 || rows <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_chunks = (int)((M + rows - 1) / rows);
+  bn_bwd_partials<<<dim3((D + BN_COLS - 1) / BN_COLS, n_chunks),
+                    dim3(BN_COLS, BN_LANES), 0, st>>>(
+      g, x, gamma, mu, sqrt_d, part, arrived, nullptr, dgamma, dbeta, sums,
+      M, D, rows, n_chunks);
   return (int)cudaGetLastError();
+}
+
+// Split path, backward, after the all-reduce: eq. 23's terms from the
+// global sums into cols (4 * D floats), then dx.
+extern "C" int e2a_bn_bwd_apply(const float* g, const float* x,
+                                const float* gamma, const float* mu,
+                                const float* sqrt_d, const double* sums,
+                                float* cols, float* dx, long long M, int D,
+                                void* stream) {
+  if (D <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bn_bwd_cols<<<(D + 255) / 256, 256, 0, st>>>(sums, sqrt_d, D, cols);
+  if (M <= 0) return (int)cudaGetLastError();
+  return launch_dx_any(g, x, gamma, mu, sqrt_d, cols, dx, M, D, st);
 }

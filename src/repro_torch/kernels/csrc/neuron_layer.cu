@@ -59,6 +59,13 @@
 //   (c) one pass reads z once, normalises (eq. 17-18) and runs SOMA over T
 //       with (U, S) in registers, writing the spikes; a 2-D grid (row range
 //       x column block), float4 along K where K % 4 == 0.
+// Split path (data parallelism, the statistics of the global batch): (b)
+// writes the rank's column sums, in double, and its row count T * M to a
+// buffer instead of the statistics (e2a_neuron_layer_train_sums: (a) and
+// (b)); the wrapper all-reduces the buffer over the ranks; then
+// e2a_neuron_layer_train_apply forms mu, var and sqrt_d from the global sums
+// (bn_stats.cuh) and runs (c). The arithmetic is the fused path's, so at a
+// world of 1 the statistics and spikes are its bits.
 // Bound: the packed arm by three dense bf16 passes on the tensor cores plus
 // the z round trip (2 * T * M * K * 4 bytes); recomputing the product in (c)
 // instead of storing z would double the dominant work.
@@ -647,18 +654,41 @@ int launch_z(const void* x, const float* w, float* z, float* part, int T,
                               C, K, n_tiles, st);
 }
 
-// (b): the statistics of each column.
+// (b): the statistics of each column; where sums is given (the split
+// path), the column sums and the row count go there instead.
 __global__ void __launch_bounds__(STAT_COLS* STAT_LANES)
 neuron_layer_train_stats(const float* __restrict__ part,
                          float* __restrict__ mu, float* __restrict__ var,
-                         float* __restrict__ sqrt_d, int n_tiles, int K,
+                         float* __restrict__ sqrt_d,
+                         double* __restrict__ sums, int n_tiles, int K,
                          double count, float eps) {
   const int col = blockIdx.x * STAT_COLS + threadIdx.x;
-  double sums[2];
-  reduce_parts<2>(part, n_tiles, K, col, sums);
+  double sz[2];
+  reduce_parts<2>(part, n_tiles, K, col, sz);
   if (threadIdx.y != 0 || col >= K) return;
+  if (sums != nullptr) {
+    sums[col] = sz[0];
+    sums[K + col] = sz[1];
+    if (col == 0) sums[2 * K] = count;
+    return;
+  }
   float m, v, sd;
-  column_stats(sums[0], sums[1], count, eps, m, v, sd);
+  column_stats(sz[0], sz[1], count, eps, m, v, sd);
+  mu[col] = m;
+  var[col] = v;
+  sqrt_d[col] = sd;
+}
+
+// Split path: mu, var and sqrt_d of each column from the all-reduced sums.
+__global__ void neuron_layer_train_finalize(const double* __restrict__ sums,
+                                            int K, float eps,
+                                            float* __restrict__ mu,
+                                            float* __restrict__ var,
+                                            float* __restrict__ sqrt_d) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= K) return;
+  float m, v, sd;
+  stats_from_sums(sums, K, col, eps, m, v, sd);
   mu[col] = m;
   var[col] = v;
   sqrt_d[col] = sd;
@@ -717,6 +747,24 @@ __global__ void __launch_bounds__(SOMA_COLS* SOMA_LANES)
   }
 }
 
+// (c) over z with the statistics in mu and sqrt_d. Returns a cudaError_t.
+int launch_soma(const float* z, const float* gamma, const float* beta,
+                const float* mu, const float* sqrt_d, float* s, int T,
+                long long M, int K, float alpha, float th_fire,
+                cudaStream_t st) {
+  const dim3 block(SOMA_COLS, SOMA_LANES);
+  const unsigned row_blocks = e2a::row_blocks(M, SOMA_ROWS);
+  if (K % 4 == 0)
+    neuron_layer_train_soma<4><<<dim3((K / 4 + SOMA_COLS - 1) / SOMA_COLS,
+                                      row_blocks), block, 0, st>>>(
+        z, gamma, beta, mu, sqrt_d, s, M, K, T, alpha, th_fire);
+  else
+    neuron_layer_train_soma<1><<<dim3((K + SOMA_COLS - 1) / SOMA_COLS,
+                                      row_blocks), block, 0, st>>>(
+        z, gamma, beta, mu, sqrt_d, s, M, K, T, alpha, th_fire);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Eval mode: x (T, M, C) [packed: (T, M, C/8) uint8] @ w (C, K) + bias ->
@@ -764,18 +812,49 @@ extern "C" int e2a_neuron_layer_train(const void* x, const float* w,
   if (code != 0) return code;
   neuron_layer_train_stats<<<(K + STAT_COLS - 1) / STAT_COLS,
                              dim3(STAT_COLS, STAT_LANES), 0, st>>>(
-      part, mu, var, sqrt_d, n_tiles, K, (double)T * M, eps);
-  const dim3 block(SOMA_COLS, SOMA_LANES);
-  const unsigned row_blocks = e2a::row_blocks(M, SOMA_ROWS);
-  if (K % 4 == 0)
-    neuron_layer_train_soma<4><<<dim3((K / 4 + SOMA_COLS - 1) / SOMA_COLS,
-                                      row_blocks), block, 0, st>>>(
-        z, gamma, beta, mu, sqrt_d, s, M, K, T, alpha, th_fire);
-  else
-    neuron_layer_train_soma<1><<<dim3((K + SOMA_COLS - 1) / SOMA_COLS,
-                                      row_blocks), block, 0, st>>>(
-        z, gamma, beta, mu, sqrt_d, s, M, K, T, alpha, th_fire);
+      part, mu, var, sqrt_d, nullptr, n_tiles, K, (double)T * M, eps);
+  return launch_soma(z, gamma, beta, mu, sqrt_d, s, T, M, K, alpha, th_fire,
+                     st);
+}
+
+// Split path, before the all-reduce: pass (a), then sums (2 * K + 1
+// doubles) receives the rank's sum(z) and sum(z^2) per column and its row
+// count T * M. z (T, M, K) and part are kept for the apply call.
+extern "C" int e2a_neuron_layer_train_sums(const void* x, const float* w,
+                                           float* z, float* part,
+                                           double* sums, int T, long long M,
+                                           int C, int K, int packed,
+                                           void* stream) {
+  if (M <= 0 || K <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int n_tiles = 0;
+  const int code = launch_z(x, w, z, part, T, M, C, K, packed, n_tiles, st);
+  if (code != 0) return code;
+  neuron_layer_train_stats<<<(K + STAT_COLS - 1) / STAT_COLS,
+                             dim3(STAT_COLS, STAT_LANES), 0, st>>>(
+      part, nullptr, nullptr, nullptr, sums, n_tiles, K, (double)T * M,
+      0.0f);
   return (int)cudaGetLastError();
+}
+
+// Split path, after the all-reduce: mu, var and sqrt_d (K) from the global
+// sums, then BN and SOMA over z, writing s (T, M, K).
+extern "C" int e2a_neuron_layer_train_apply(const float* z,
+                                            const float* gamma,
+                                            const float* beta,
+                                            const double* sums, float* mu,
+                                            float* var, float* sqrt_d,
+                                            float* s, int T, long long M,
+                                            int K, float alpha, float th_fire,
+                                            float eps, void* stream) {
+  if (K <= 0) return 0;
+  if (T < 1 || T > 8) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  neuron_layer_train_finalize<<<(K + 255) / 256, 256, 0, st>>>(
+      sums, K, eps, mu, var, sqrt_d);
+  if (M <= 0) return (int)cudaGetLastError();
+  return launch_soma(z, gamma, beta, mu, sqrt_d, s, T, M, K, alpha, th_fire,
+                     st);
 }
 
 // Pass (a) of the train mode alone: z (T, M, K) = x @ w, the same kernel,

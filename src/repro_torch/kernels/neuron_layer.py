@@ -37,6 +37,13 @@ pass, which would double the dominant work. Bound on this card: three
 dense bf16 passes on the tensor cores plus the z round trip at the block
 sites, bytes at the first tokenizer stage.
 
+With ``group`` (data parallelism: the statistics of the global batch) the
+call is the split path: the first launch runs the z pass and leaves the
+rank's column sums of z and z^2, in double, and its row count in a buffer;
+the wrapper all-reduces the buffer over the group; the second forms the
+statistics from the global sums (the fused path's arithmetic: at a world
+of 1 its bits) and runs the SOMA pass. The plain version sums the same way.
+
 ``neuron_layer_train_z`` is that first pass alone: the autograd ops'
 backward replays the pre-activation with it, so the replayed z is the
 forward's bit for bit and the replay runs the spike trajectory the forward
@@ -45,9 +52,10 @@ emitted.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_bn import row_count
+from repro_torch.kernels.fused_bn import global_sums, row_count
 from repro_torch.kernels.lif_soma import lif_soma_fwd_plain
 from repro_torch.kernels.spike_matmul import spike_pack
 
@@ -81,15 +89,20 @@ def neuron_layer_eval_plain(x: torch.Tensor, w: torch.Tensor,
     return s.to(x.dtype)
 
 
-def _train_plain(x, w, gamma, beta, alpha, th_fire, eps):
+def _train_plain(x, w, gamma, beta, alpha, th_fire, eps, group=None):
     """The plain train arm: ``(spikes, mu, var, sqrt_d)``, the statistics
-    (1, K)."""
+    (1, K), over the rows of every rank of ``group`` where one is given."""
     t, m, _ = x.shape
     z = neuron_layer_train_z_plain(x, w)
     zf = z.reshape(t * m, -1)
-    count = row_count(zf)                  # divided by, as the kernel does
-    mu = zf.sum(0, keepdim=True) / count
-    ex2 = (zf * zf).sum(0, keepdim=True) / count
+    if group is None:
+        count = row_count(zf)              # divided by, as the kernel does
+        mu = zf.sum(0, keepdim=True) / count
+        ex2 = (zf * zf).sum(0, keepdim=True) / count
+    else:
+        sums, count = global_sums([zf.sum(0), (zf * zf).sum(0)], t * m,
+                                  group)
+        mu, ex2 = ((sums[i:i + 1] / count).float() for i in range(2))
     var = torch.clamp(ex2 - mu * mu, min=0.0)
     sqrt_d = torch.sqrt(var + eps)
     y = gamma.float() * (z - mu) / sqrt_d + beta.float()
@@ -100,11 +113,12 @@ def _train_plain(x, w, gamma, beta, alpha, th_fire, eps):
 def neuron_layer_train_plain(x: torch.Tensor, w: torch.Tensor,
                              gamma: torch.Tensor, beta: torch.Tensor, *,
                              alpha: float = 0.5, th_fire: float = 1.0,
-                             eps: float = 1e-5):
+                             eps: float = 1e-5, group=None):
     """Plain version of the train arm: dense matmul, batch statistics over
-    all T*M rows (eq. 13-16), BN (eq. 17-18), the LIF recursion. Returns
-    ``(spikes (T, M, K), mu (1, K), var (1, K))``."""
-    return _train_plain(x, w, gamma, beta, alpha, th_fire, eps)[:3]
+    all T*M rows (eq. 13-16; with ``group``, those of every rank), BN
+    (eq. 17-18), the LIF recursion. Returns ``(spikes (T, M, K), mu (1, K),
+    var (1, K))``."""
+    return _train_plain(x, w, gamma, beta, alpha, th_fire, eps, group)[:3]
 
 
 def _check_layer(what, x, w, vectors, packed):
@@ -171,7 +185,8 @@ def neuron_layer_eval(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
 def neuron_layer_train_fwd(x: torch.Tensor, w: torch.Tensor,
                            gamma: torch.Tensor, beta: torch.Tensor, *,
                            alpha: float = 0.5, th_fire: float = 1.0,
-                           eps: float = 1e-5, packed: bool = False):
+                           eps: float = 1e-5, packed: bool = False,
+                           group=None):
     """:func:`neuron_layer_train` with what its autograd op keeps for the
     replay: ``(spikes, mu (1, K), var (1, K), sqrt_d (1, K), xin)``, where
     ``sqrt_d`` is the kernel's own ``sqrt(var + eps)`` and ``xin`` the
@@ -179,10 +194,18 @@ def neuron_layer_train_fwd(x: torch.Tensor, w: torch.Tensor,
     _check_layer("neuron_layer_train", x, w, {"gamma": gamma, "beta": beta},
                  packed)
     if not x.is_cuda:
-        return (*_train_plain(x, w, gamma, beta, alpha, th_fire, eps), None)
+        return (*_train_plain(x, w, gamma, beta, alpha, th_fire, eps, group),
+                None)
+    xin = spike_pack(x) if packed else None
+    if group is not None:
+        sums, z = neuron_layer_train_sums(x, w, packed=packed, xin=xin)
+        dist.all_reduce(sums, group=group)
+        out = neuron_layer_train_apply(z, gamma, beta, sums, alpha=alpha,
+                                       th_fire=th_fire, eps=eps)
+        neuron_layer_train.launches += 1
+        return (*out, xin)
     t, m, c = x.shape
     k = w.shape[1]
-    xin = spike_pack(x) if packed else None
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     s, z = (torch.empty((t, m, k), **f32) for _ in range(2))
@@ -201,18 +224,65 @@ def neuron_layer_train_fwd(x: torch.Tensor, w: torch.Tensor,
     return s, mu, var, sqrt_d, xin
 
 
+def neuron_layer_train_sums(x: torch.Tensor, w: torch.Tensor, *,
+                            packed: bool = False,
+                            xin: torch.Tensor | None = None):
+    """The split path's first launch (CUDA operands, checked by the
+    caller): the z pass, then this rank's sum(z) and sum(z^2) per column
+    and its row count T * M in a (2 * K + 1,) float64 buffer, the fused
+    path's doubles. ``xin``: ``spike_pack(x)`` where already made. Returns
+    ``(sums, z)``."""
+    t, m, c = x.shape
+    k = w.shape[1]
+    if packed and xin is None:
+        xin = spike_pack(x)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    z = torch.empty((t, m, k), **f32)
+    tiles = -(-t * m // (TILE_ROWS if packed else DENSE_TILE_ROWS))
+    part = torch.empty((2, tiles, k), **f32)
+    sums = torch.empty(2 * k + 1, dtype=torch.float64, device=x.device)
+    with torch.cuda.device(x.device):
+        code = build.load().e2a_neuron_layer_train_sums(
+            (xin if packed else x).data_ptr(), w.data_ptr(), z.data_ptr(),
+            part.data_ptr(), sums.data_ptr(), t, m, c, k, int(packed),
+            torch.cuda.current_stream().cuda_stream)
+    build.check_launch(code, "neuron_layer_train")
+    return sums, z
+
+
+def neuron_layer_train_apply(z: torch.Tensor, gamma: torch.Tensor,
+                             beta: torch.Tensor, sums: torch.Tensor, *,
+                             alpha: float = 0.5, th_fire: float = 1.0,
+                             eps: float = 1e-5):
+    """The split path's second launch: mu, var and sqrt_d from ``sums``
+    (every rank's, added), then BN and SOMA over z. Returns ``(spikes,
+    mu (1, K), var (1, K), sqrt_d (1, K))``."""
+    t, m, k = z.shape
+    f32 = dict(dtype=torch.float32, device=z.device)
+    s = torch.empty((t, m, k), **f32)
+    mu, var, sqrt_d = (torch.empty((1, k), **f32) for _ in range(3))
+    with torch.cuda.device(z.device):
+        code = build.load().e2a_neuron_layer_train_apply(
+            z.data_ptr(), gamma.data_ptr(), beta.data_ptr(), sums.data_ptr(),
+            mu.data_ptr(), var.data_ptr(), sqrt_d.data_ptr(), s.data_ptr(),
+            t, m, k, alpha, th_fire, eps,
+            torch.cuda.current_stream().cuda_stream)
+    build.check_launch(code, "neuron_layer_train")
+    return s, mu, var, sqrt_d
+
+
 def neuron_layer_train(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
                        beta: torch.Tensor, *, alpha: float = 0.5,
                        th_fire: float = 1.0, eps: float = 1e-5,
-                       packed: bool = False):
+                       packed: bool = False, group=None):
     """Train-mode neuron layer: x (T, M, C) @ w (C, K) -> BN with the batch
-    statistics over all T*M rows -> SOMA. Returns ``(spikes (T, M, K),
-    mu (1, K), var (1, K))``, the statistics in fp32. ``packed`` as in
-    :func:`neuron_layer_eval`. One call launches the kernel's three passes
-    and counts once."""
+    statistics over all T*M rows (with ``group``, the rows of every rank
+    in it) -> SOMA. Returns ``(spikes (T, M, K), mu (1, K), var (1, K))``,
+    the statistics in fp32. ``packed`` as in :func:`neuron_layer_eval`.
+    One call launches the kernel's passes and counts once."""
     return neuron_layer_train_fwd(x, w, gamma, beta, alpha=alpha,
-                                  th_fire=th_fire, eps=eps,
-                                  packed=packed)[:3]
+                                  th_fire=th_fire, eps=eps, packed=packed,
+                                  group=group)[:3]
 
 
 def neuron_layer_train_z(x: torch.Tensor, w: torch.Tensor, *,

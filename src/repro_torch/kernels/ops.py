@@ -16,6 +16,11 @@ kernel with its backward, as in the E2ATST reuse framework (Fig. 4):
   the pre-activation, bit for bit the forward's, through SOMA, GRAD and
   (train) the BN backward, then the dense matmul VJP.
 
+Under data parallelism the BN ops take ``group``, the process group over
+the batch axes: the forward's statistics and the backward's eq. 23 sums are
+those of every rank's rows (the kernels' split path); the group is kept on
+the op for its backward.
+
 Launch counts live on the kernel wrappers these ops call
 (``repro_torch.kernels.launch_counts``). On CPU tensors every wrapper takes
 its plain version, so these ops are also what the CPU tests differentiate.
@@ -133,9 +138,10 @@ def lif_soma_step_op(x: torch.Tensor, u0: torch.Tensor, s0: torch.Tensor,
 
 class _BnTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps):
-        y, mu, sqrt_d = fused_bn.bn_fwd(x, gamma, beta, eps=eps)
+    def forward(ctx, x, gamma, beta, eps, group):
+        y, mu, sqrt_d = fused_bn.bn_fwd(x, gamma, beta, eps=eps, group=group)
         ctx.save_for_backward(x, gamma, mu, sqrt_d)
+        ctx.group = group
         mu_out, var = mu.reshape(-1), sqrt_d.square().reshape(-1) - eps
         ctx.mark_non_differentiable(mu_out, var)
         return y, mu_out, var
@@ -145,20 +151,20 @@ class _BnTrain(torch.autograd.Function):
         # mu/var cotangents: the running stats sit outside the loss graph
         x, gamma, mu, sqrt_d = ctx.saved_tensors
         dx, dgamma, dbeta = fused_bn.bn_bwd(gy.contiguous(), x, gamma, mu,
-                                            sqrt_d)
+                                            sqrt_d, ctx.group)
         # fp32 statistics rows, cast back to the parameter's dtype
         return (dx, dgamma.reshape(gamma.shape).to(gamma.dtype),
-                dbeta.reshape(gamma.shape).to(gamma.dtype), None)
+                dbeta.reshape(gamma.shape).to(gamma.dtype), None, None)
 
 
 def bn_train_op(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                eps: float = 1e-5):
+                eps: float = 1e-5, group=None):
     """Differentiable training BatchNorm over (M, D). Returns ``(y, mu,
     var)``: the kernel computes the batch statistics anyway, so they are
     handed out (fp32, (D,)) for the caller's running-stat blend, ``var`` as
     ``sqrt_d^2 - eps`` (it can round below zero: the caller clamps). Only
-    ``y`` carries gradients."""
-    return _BnTrain.apply(x, gamma, beta, eps)
+    ``y`` carries gradients. ``group``: statistics over every rank's rows."""
+    return _BnTrain.apply(x, gamma, beta, eps, group)
 
 
 class _SpikeMatmul(torch.autograd.Function):
@@ -255,13 +261,14 @@ def replay_eval_pre_activation(x, w, bias, packed):
 class _NeuronLayerTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, gamma, beta, alpha, th_fire, th_lo, th_hi,
-                grad_scale, eps, packed):
+                grad_scale, eps, packed, group):
         s, mu, var, sqrt_d, xin = neuron_layer.neuron_layer_train_fwd(
             x, w, gamma, beta, alpha=alpha, th_fire=th_fire,
-            eps=eps, packed=packed)
+            eps=eps, packed=packed, group=group)
         ctx.save_for_backward(x, xin, w, gamma, beta, mu, sqrt_d)
         ctx.lif = (alpha, th_fire, th_lo, th_hi, grad_scale)
         ctx.packed = packed
+        ctx.group = group
         mu_out, var_out = mu.reshape(-1), var.reshape(-1)
         ctx.mark_non_differentiable(mu_out, var_out)
         return s, mu_out, var_out
@@ -271,18 +278,20 @@ class _NeuronLayerTrain(torch.autograd.Function):
         x, xin, w, gamma, beta, mu, sqrt_d = ctx.saved_tensors
         t, m, _ = x.shape
         # Replay: recompute the pre-activation exactly as the forward formed
-        # it and regenerate the (U, S, mask) GRAD consumes.
+        # it (with the forward's statistics, the global ones under data
+        # parallelism) and regenerate the (U, S, mask) GRAD consumes.
         z, y = replay_train_pre_activation(x, xin, w, gamma, beta, mu,
                                            sqrt_d, ctx.packed)
         dy = _replay_soma(y, g_s, *ctx.lif)
         k = z.shape[-1]
         dz, dgamma, dbeta = fused_bn.bn_bwd(dy.reshape(t * m, k),
                                             z.reshape(t * m, k),
-                                            gamma.float(), mu, sqrt_d)
+                                            gamma.float(), mu, sqrt_d,
+                                            ctx.group)
         dx, dw = _matmul_vjp(x, w, dz.reshape(t, m, k))
         return (dx, dw, dgamma.reshape(gamma.shape).to(gamma.dtype),
                 dbeta.reshape(beta.shape).to(beta.dtype),
-                None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 def neuron_layer_train_op(x: torch.Tensor, w: torch.Tensor,
@@ -290,7 +299,7 @@ def neuron_layer_train_op(x: torch.Tensor, w: torch.Tensor,
                           alpha: float = 0.5, th_fire: float = 1.0,
                           th_lo: float = 0.0, th_hi: float = 2.0,
                           grad_scale: float = 1.0, eps: float = 1e-5,
-                          packed: bool = False):
+                          packed: bool = False, group=None):
     """Differentiable neuron layer, train mode: ``x (T, M, C) @ w (C, K)``
     -> BatchNorm with batch statistics over T*M -> SOMA (eq. 11), one
     kernel call. Returns ``(spikes, mu, var)``, the statistics fp32 (K,)
@@ -304,10 +313,11 @@ def neuron_layer_train_op(x: torch.Tensor, w: torch.Tensor,
     x and recomputes z with the forward kernel's own first pass and y in
     the forward's order of operations, so the replay runs the spike
     trajectory the forward emitted, bit for bit (the reference's replay, a
-    separate fp32 product, may part from it near a threshold).
+    separate fp32 product, may part from it near a threshold). ``group``:
+    the statistics, and eq. 23's sums, over every rank's rows.
     """
     return _NeuronLayerTrain.apply(x, w, gamma, beta, alpha, th_fire, th_lo,
-                                   th_hi, grad_scale, eps, packed)
+                                   th_hi, grad_scale, eps, packed, group)
 
 
 class _NeuronLayerEval(torch.autograd.Function):

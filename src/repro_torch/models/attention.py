@@ -5,7 +5,8 @@ against a dense or ring-buffer KV cache.
 
 The products are ``torch.matmul``/``einsum``, as the reference leaves its
 einsums to XLA outside any Pallas kernel. The reference's sharding
-constraints have no counterpart on one device (ROADMAP A11).
+constraints are identities here: under data parallelism each rank holds
+its rows whole; heads split over the "model" axis are ROADMAP A11c.
 """
 from __future__ import annotations
 

@@ -6,8 +6,8 @@ Convention, as in the reference: every ``init_*`` returns a tree whose
 leaves are :class:`Leaf` ``(tensor, spec)`` pairs, and :func:`split_tree`
 separates it into the parameter tree and the matching spec tree. A spec is
 a tuple of mesh-axis names (``"model"``, ``("pod", "data")``) or ``None``
-per dimension, the reference's ``PartitionSpec`` as a plain tuple. The port
-runs on one device, so nothing reads the specs yet (ROADMAP A11).
+per dimension, the reference's ``PartitionSpec`` as a plain tuple; the
+launch layer resolves them against a mesh (``repro_torch.launch.mesh``).
 
 Initialisers draw from a ``torch.Generator`` on the generator's own device
 and place the result on ``device``: the numbers differ from the
@@ -100,21 +100,28 @@ def lscan(cfg, f, init, xs, remat: bool | None = None):
 
 
 def shard(x: torch.Tensor, *spec) -> torch.Tensor:
-    """Sharding constraint: the identity. The port runs on one device; a
-    mesh, and with it the reference's constraint, comes with ROADMAP A11."""
+    """Sharding constraint: the identity. Under data parallelism each rank
+    computes on its own rows with the full (gathered) parameters, so an
+    activation is already where the reference's constraint puts it; the
+    model axis, where the constraint would split a computation, is ROADMAP
+    A11c."""
     return x
 
 
 def shard_batch(x: torch.Tensor, *rest) -> torch.Tensor:
-    """Constrain the leading dim over the batch axes: the identity on one
-    device until ROADMAP A11, like :func:`shard`."""
+    """Constrain the leading dim over the batch axes: the identity, since
+    each rank holds only its rows of the global batch
+    (``train.data.place_batch``)."""
     return x
 
 
 def mesh_axis_size(name: str) -> int | None:
-    """Size of a mesh axis: ``None``, as the reference answers with no mesh
-    in context. The port has no mesh until ROADMAP A11."""
-    return None
+    """Size of a mesh axis in the ambient mesh
+    (``repro_torch.launch.mesh.use_mesh``), else ``None``, as the
+    reference answers."""
+    from repro_torch.launch.mesh import current_mesh
+    mesh = current_mesh()
+    return None if mesh is None else mesh.shape.get(name)
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +135,9 @@ def normal_leaf(generator: torch.Generator, shape, spec: tuple,
     a matrix and 0.02 for a vector, as in the reference."""
     scale = shape[-2] ** -0.5 if scale is None and len(shape) >= 2 else \
         (scale if scale is not None else 0.02)
+    if torch.device(device).type == "meta":     # shapes only: draw nothing
+        return Leaf(torch.empty(shape, dtype=dtype, device="meta"),
+                    tuple(spec))
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device).mul_(scale)
     return Leaf(w.to(device=device, dtype=dtype), tuple(spec))

@@ -7,9 +7,10 @@ one expert per shard. Routing is capacity-bounded with static shapes and
 dispatched by scatter into per-expert buffers (no (T, E, C) one-hot
 tensors); shared experts (DeepSeek) run densely beside the routed ones.
 
-The port runs on one device: only the reference's ``model_axis=None`` paths
-exist here, and :func:`moe_apply` raises for ``model_shards > 1`` (the mesh
-is ROADMAP A11). The expert products are ``torch.bmm``, as the reference's
+Only the reference's ``model_axis=None`` paths exist here, and
+:func:`moe_apply` raises for ``model_shards > 1``: the expert all-to-all
+over the mesh's "model" axis is ROADMAP A11c (data parallelism, which
+replicates the experts, is ported). The expert products are ``torch.bmm``, as the reference's
 einsums run outside any Pallas kernel.
 
 Two choices keep the result deterministic on the card, where a scatter-add
@@ -136,7 +137,7 @@ def _combine(y_tok: torch.Tensor, contrib: torch.Tensor, k: int
 
 def _local_moe(x_loc, router_w, w_gate, w_up, w_down, cfg: MoEConfig):
     """The reference's per-shard MoE body with ``model_axis=None`` (no mesh:
-    the send buffer is the receive buffer; the all-to-all is ROADMAP A11).
+    the send buffer is the receive buffer; the all-to-all is ROADMAP A11c).
     x_loc: (B_l, S_l, D); weights: local slices (1, E_loc, D, F_loc).
     Returns (y (B_l, S_l, D), aux)."""
     bl, sl, d = x_loc.shape
@@ -191,7 +192,7 @@ def _local_moe_replicated(x_loc, router_w, w_gate, w_up, w_down,
     shard is shard 0): every local token is routed, only the tokens bound
     for this shard's experts are scattered and computed; with a mesh the
     combine is a sum over the model axis. Only a mesh dispatches to it
-    (ROADMAP A11)."""
+    (ROADMAP A11c)."""
     bl, sl, d = x_loc.shape
     n = bl * sl
     xf = x_loc.reshape(n, d)
@@ -233,7 +234,7 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig
     if cfg.model_shards != 1:
         raise NotImplementedError(
             f"MoEConfig.model_shards={cfg.model_shards}: expert parallelism "
-            f"over a mesh 'model' axis is not ported yet (ROADMAP A11); the "
+            f"over a mesh 'model' axis is not ported yet (ROADMAP A11c); the "
             f"port runs model_shards=1")
     y, aux = _local_moe(x, params["router"], params["w_gate"],
                         params["w_up"], params["w_down"], cfg)

@@ -23,12 +23,21 @@ walks the retained steps newest first and falls back, with a warning, past
 any step that fails to restore. Leaves are restored onto the devices of the
 ``like`` tree's leaves.
 
+Elastic restore: leaves are stored whole, so a checkpoint written on one
+mesh restores onto any mesh, or onto none. Under a mesh
+(``launch.mesh.Mesh``), :func:`save_checkpoint` gathers every sharded
+leaf (each rank takes part in the all-gather), rank 0 writes, on its
+thread as without a mesh, and the ranks meet at a barrier once the write
+is done (:func:`finish_save`); :func:`restore_checkpoint` reads the whole
+leaves on every rank and keeps each rank's slice, its spec re-resolved
+against the new mesh: from ``specs`` when given, else from the specs the
+writer stored, matched by path name, axes the mesh lacks dropped.
+
 :func:`reshape_moe_layout` relays an MoE expert leaf between model-axis
 sizes on the host, as the reference's does (its known fault with
 ``w_down`` at E < M included: ROADMAP C5).
 
-Not ported: the reference's fault-injection hooks (ROADMAP A13) and the
-re-resolution of specs against another mesh (A11).
+Not ported: the reference's fault-injection hooks (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -143,15 +152,40 @@ def _spec_map(specs: Any) -> dict[str, list]:
             for name, spec in _flatten_with_paths(specs, spec_leaves=True)}
 
 
+def _as_spec(stored):
+    """A spec as ``index.json`` (or :func:`_spec_map`) holds it -> a
+    ``launch.mesh.P`` (``None`` for a replicated leaf)."""
+    from repro_torch.launch.mesh import P
+    return P(*(tuple(ax) if isinstance(ax, list) else ax
+               for ax in stored)) if stored else None
+
+
 def save_checkpoint(directory: str, step: int, tree: Any,
                     specs: Any | None = None, keep: int = 3,
-                    async_save: bool = False) -> threading.Thread | None:
+                    async_save: bool = False,
+                    mesh=None) -> threading.Thread | None:
     """Atomically persist ``tree`` under ``directory/step_<N>``; with
     ``async_save`` on a thread that is returned (join it before relying
-    on the step)."""
-    host_leaves = [(name, _host_copy(leaf))
-                   for name, leaf in _flatten_with_paths(tree)]
+    on the step). With ``mesh``, ``tree`` holds this rank's shards under
+    ``specs``: every rank calls this (the leaves are gathered), rank 0
+    writes, and the others return ``None`` at once; a synchronous save
+    ends with every rank at a barrier after the write, an asynchronous one
+    at :func:`finish_save`."""
     spec_map = _spec_map(specs) if specs is not None else {}
+    if mesh is not None:
+        from repro_torch.launch.mesh import gather_leaf
+        host_leaves = []
+        for name, leaf in _flatten_with_paths(tree):
+            full = gather_leaf(leaf, _as_spec(spec_map.get(name)), mesh)
+            if mesh.rank == 0:
+                host_leaves.append((name, _host_copy(full)))
+        if mesh.rank != 0:
+            if not async_save:
+                finish_save(None, mesh)
+            return None
+    else:
+        host_leaves = [(name, _host_copy(leaf))
+                       for name, leaf in _flatten_with_paths(tree)]
 
     def write():
         final = os.path.join(directory, f"step_{step:08d}")
@@ -187,7 +221,25 @@ def save_checkpoint(directory: str, step: int, tree: Any,
         t.start()
         return t
     write()
+    if mesh is not None:
+        finish_save(None, mesh)
     return None
+
+
+def finish_save(writer: threading.Thread | None, mesh=None,
+                timeout: float | None = None) -> bool:
+    """Waits for ``writer`` (a thread :func:`save_checkpoint` returned, or
+    ``None``) up to ``timeout`` seconds, then, with ``mesh``, for every rank
+    at a barrier: past it the step is on disk for all of them. Returns
+    False where the writer is still running (no barrier is entered)."""
+    if writer is not None:
+        writer.join(timeout=timeout)
+        if writer.is_alive():
+            return False
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.barrier(group=mesh.batch_group)
+    return True
 
 
 def _fsync_dir(directory: str) -> None:
@@ -249,14 +301,20 @@ def verify_checkpoint(directory: str, step: int) -> list[str]:
     return bad
 
 
-def restore_checkpoint(directory: str, step: int, like: Any) -> Any:
+def restore_checkpoint(directory: str, step: int, like: Any, mesh=None,
+                       specs: Any | None = None) -> Any:
     """Restore step ``step`` into the structure of ``like`` (a tree of
     tensors), each leaf on the device of ``like``'s leaf at the same path.
     Leaves are matched by path name, never by order; every one is
-    re-checksummed."""
+    re-checksummed. With ``mesh`` each leaf is this rank's slice under its
+    spec re-resolved against ``mesh``: from ``specs`` when given, else the
+    writer's specs from the index (matched by path; axes the mesh lacks
+    dropped; a leaf without one whole)."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "index.json")) as f:
         index = json.load(f)
+    spec_map = _spec_map(specs) if specs is not None else \
+        index.get("specs", {})
     loaded = {}
     for name, leaf in _flatten_with_paths(like):
         meta = index["leaves"][name]
@@ -270,11 +328,17 @@ def restore_checkpoint(directory: str, step: int, like: Any) -> Any:
             raise CheckpointCorruptError(
                 step, f"leaf {name!r} CRC mismatch (stored {crc}, "
                       f"loaded {_crc32(arr)})")
-        loaded[name] = _to_tensor(arr, meta.get("dtype", ""), leaf.device)
+        t = _to_tensor(arr, meta.get("dtype", ""), leaf.device)
+        if mesh is not None:
+            from repro_torch.launch.mesh import local_shard, resolve_spec
+            t = local_shard(t, resolve_spec(_as_spec(spec_map.get(name)),
+                                            mesh), mesh)
+        loaded[name] = t
     return _rebuild(like, loaded)
 
 
-def restore_latest_good(directory: str, like: Any) -> tuple[int | None, Any]:
+def restore_latest_good(directory: str, like: Any, mesh=None,
+                        specs: Any | None = None) -> tuple[int | None, Any]:
     """Restore the newest retained step that passes its integrity checks.
 
     Walks retained steps newest first; a step that fails (CRC mismatch,
@@ -282,7 +346,8 @@ def restore_latest_good(directory: str, like: Any) -> tuple[int | None, Any]:
     and the previous retained step is tried. Also sweeps dead ``*.tmp``
     directories of crashed writers (safe here: a restore implies no save is
     in flight). Returns ``(step, tree)``, or ``(None, None)`` when no
-    restorable checkpoint exists.
+    restorable checkpoint exists. ``mesh`` and ``specs`` as in
+    :func:`restore_checkpoint`.
     """
     if os.path.isdir(directory):
         for d in os.listdir(directory):
@@ -290,7 +355,8 @@ def restore_latest_good(directory: str, like: Any) -> tuple[int | None, Any]:
                 shutil.rmtree(os.path.join(directory, d), ignore_errors=True)
     for step in reversed(retained_steps(directory)):
         try:
-            return step, restore_checkpoint(directory, step, like)
+            return step, restore_checkpoint(directory, step, like, mesh,
+                                            specs)
         except (CheckpointCorruptError, OSError, ValueError, KeyError) as e:
             warnings.warn(
                 f"checkpoint step {step} in {directory} failed to restore "

@@ -3,6 +3,12 @@
 A copy of ``repro.train.data``'s two streams (numpy, the same seeds), so
 both packages see identical batches: batch ``step`` of host ``host_index``
 draws from ``numpy.random.default_rng((seed, step, host_index))``.
+
+Under data parallelism every rank draws the whole global batch,
+``batch(step)``, as the reference's single-host driver does, and
+:func:`place_batch` gives it its rows: the same stream on any number of
+ranks. ``batch(step, host_index, host_count)`` draws another stream, one
+per host, for runs across hosts that each load only their own rows.
 """
 from __future__ import annotations
 
@@ -10,6 +16,7 @@ import dataclasses
 from typing import Iterator
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,3 +109,18 @@ class SyntheticVision:
         while True:
             yield self.batch(step, host_index, host_count)
             step += 1
+
+
+def place_batch(batch: dict[str, np.ndarray], mesh=None, device=None
+                ) -> dict[str, torch.Tensor]:
+    """A host batch as tensors on the device: whole on ``device`` without a
+    mesh; with one, this rank's rows of the global batch (its contiguous
+    slice of the leading dim by its coordinate over the batch axes, pod
+    major) on the mesh's device, as the reference's ``place_batch`` shards
+    the leading dim over ("pod", "data")."""
+    if mesh is None:
+        return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    from repro_torch.launch.mesh import P, batch_axes, local_shard
+    spec = P(batch_axes(mesh) or None)
+    return {k: local_shard(torch.from_numpy(v), spec, mesh).to(mesh.device)
+            for k, v in batch.items()}

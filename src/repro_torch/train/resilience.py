@@ -9,12 +9,13 @@
   non-finite skip (``make_train_step(guard_nonfinite=True)``): one poisoned
   batch is absorbed and logged, a run whose every step is NaN aborts with
   :class:`NonFiniteBudgetExceeded`.
-
-The reference's ``ElasticPlan`` resizes a device mesh; the port has no mesh
-yet (ROADMAP A11).
+* :class:`ElasticPlan`: the mesh to shrink to after a failure, and the
+  global batch's scale on it; ``train.checkpoint.restore_checkpoint``
+  re-resolves a checkpoint's specs against the new mesh.
 """
 from __future__ import annotations
 
+import dataclasses
 import signal
 import statistics
 import time
@@ -119,3 +120,59 @@ class PreemptionGuard:
 
     def _handler(self, signum, frame):
         self.requested = True
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticPlan:
+    """Mesh-resize decision after a failure or a capacity change (the
+    reference's, number for number)."""
+
+    old_shape: tuple[int, ...]
+    new_shape: tuple[int, ...]
+    axis_names: tuple[str, ...]
+
+    @staticmethod
+    def after_failure(shape: tuple[int, ...], axis_names: tuple[str, ...],
+                      healthy_devices: int) -> "ElasticPlan":
+        """Shrink the mesh to fit the surviving devices: drop whole pods
+        first, then halve the data axis (model parallelism is preserved: it
+        is baked into weight layouts)."""
+        new = list(shape)
+        names = list(axis_names)
+
+        def total(s):
+            t = 1
+            for v in s:
+                t *= v
+            return t
+
+        # drop pods one by one
+        while total(new) > healthy_devices and "pod" in names:
+            i = names.index("pod")
+            if new[i] > 1:
+                new[i] -= 1
+            else:
+                names.pop(i)
+                new.pop(i)
+        # then halve data
+        while total(new) > healthy_devices:
+            i = names.index("data")
+            if new[i] <= 1:
+                raise RuntimeError(
+                    f"cannot shrink below model parallelism: {new}")
+            new[i] //= 2
+        return ElasticPlan(shape, tuple(new), tuple(names))
+
+    @property
+    def batch_scale(self) -> float:
+        """Keep the per-device batch constant: the global batch scales with
+        the data-like axes."""
+        def data_size(shape, names):
+            t = 1
+            for v, n in zip(shape, names):
+                if n in ("pod", "data"):
+                    t *= v
+            return t
+        old = data_size(self.old_shape, self.axis_names)
+        new = data_size(self.new_shape, self.axis_names)
+        return new / old

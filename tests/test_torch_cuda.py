@@ -1100,3 +1100,105 @@ def test_checkpoint_round_trip_of_cuda_tensors(tmp_path):
         assert torch.equal(got["h"][0].cpu().view(torch.int16),
                            tree["h"][0].cpu().view(torch.int16))
         assert int(got["step"]) == 3
+
+
+@pytest.fixture
+def world_of_one():
+    """A world of 1 on the card (NCCL, a file store): its data group."""
+    from repro_torch.launch.mesh import (init_distributed, make_test_mesh,
+                                         shutdown_distributed)
+    _card()
+    init_distributed()
+    try:
+        yield make_test_mesh(1, 1)
+    finally:
+        shutdown_distributed()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(1000, 64), (777, 130), (4096, 96)])
+def test_split_bn_path_is_the_fused_path_at_a_world_of_one(world_of_one, m,
+                                                           d):
+    """The BN kernels' split path (sums, the all-reduce, apply) gives the
+    fused path's outputs and statistics bit for bit at a world of 1, and
+    the halves' sums added give the whole's statistics within 1e-6."""
+    from repro_torch.kernels import fused_bn
+    dev, group = world_of_one.device, world_of_one.batch_group
+    rng = np.random.default_rng(m + d)
+    x = _t(rng.normal(0.5, 2.0, (m, d)).astype(np.float32)).to(dev)
+    g = _t(rng.normal(0, 1, (m, d)).astype(np.float32)).to(dev)
+    gamma = _t(rng.uniform(0.5, 1.5, d).astype(np.float32)).to(dev)
+    beta = _t(rng.normal(0, 0.3, d).astype(np.float32)).to(dev)
+    fused = fused_bn.bn_fwd(x, gamma, beta)
+    split = fused_bn.bn_fwd(x, gamma, beta, group=group)
+    assert all(torch.equal(a, b) for a, b in zip(fused, split))
+    mu, sd = fused[1], fused[2]
+    for a, b in zip(fused_bn.bn_bwd(g, x, gamma, mu, sd),
+                    fused_bn.bn_bwd(g, x, gamma, mu, sd, group)):
+        assert torch.equal(a, b)
+    h = m // 2
+    sums = fused_bn.bn_fwd_sums(x[:h]) + fused_bn.bn_fwd_sums(x[h:])
+    _, mu_h, sd_h = fused_bn.bn_fwd_apply(x[:h], gamma, beta, sums)
+    torch.cuda.synchronize()
+    assert float((mu_h - mu).abs().max() / mu.abs().max()) <= 1e-6
+    assert float((sd_h - sd).abs().max() / sd.abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed,c", [(True, 64), (False, 27)])
+def test_split_neuron_layer_is_the_fused_path_at_a_world_of_one(
+        world_of_one, packed, c):
+    """neuron_layer_train with the group: spikes and statistics the fused
+    path's bits, and the backward's replay on them equal to the emitted
+    spikes."""
+    from repro_torch.kernels import ops
+    dev, group = world_of_one.device, world_of_one.batch_group
+    rng = np.random.default_rng(c)
+    x = _t(_spikes(rng, (4, 300, c)) if packed
+           else rng.random((4, 300, c)).astype(np.float32)).to(dev)
+    w = _t(rng.normal(0, 2 * c ** -0.5, (c, 40)).astype(np.float32)).to(dev)
+    gamma = _t(rng.uniform(0.8, 1.2, 40).astype(np.float32)).to(dev)
+    beta = _t(rng.normal(0.3, 0.2, 40).astype(np.float32)).to(dev)
+    fused = neuron_layer.neuron_layer_train_fwd(x, w, gamma, beta,
+                                                packed=packed)
+    split = neuron_layer.neuron_layer_train_fwd(x, w, gamma, beta,
+                                                packed=packed, group=group)
+    assert all(torch.equal(a, b) for a, b in zip(fused[:4], split[:4]))
+    s, mu, _, sd, xin = split
+    _, y = ops.replay_train_pre_activation(x, xin, w, gamma, beta, mu, sd,
+                                           packed)
+    assert torch.equal(lif_soma.lif_soma_fwd(y)[0], s)
+
+
+@pytest.mark.cuda
+def test_mesh_step_is_the_mesh_less_step_at_a_world_of_one(world_of_one):
+    """Two ``cuda-full`` training steps at the smoke preset on a (1, 1)
+    mesh: losses, parameters, BN state and moments bit-equal to the
+    mesh-less step's."""
+    from repro_torch.configs import get_spikingformer_config
+    from repro_torch.core.spikingformer import tree_leaves
+    from repro_torch.launch.train import build_spikingformer_state
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig
+    dev = world_of_one.device
+    cfg = get_spikingformer_config("spikingformer-smoke@cuda-full")
+    rng = np.random.default_rng(5)
+    images = _t(rng.random((4, cfg.image_size, cfg.image_size,
+                            cfg.in_channels)).astype(np.float32)).to(dev)
+    labels = _t(np.array([0, 1, 2, 3], np.int32)).to(dev)
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    out = {}
+    for name, mesh in (("mesh", world_of_one), ("none", None)):
+        p, st, opt, (p_specs, _) = build_spikingformer_state(
+            cfg, mesh, opt_cfg, seed=3, fsdp_min_elems=1024, device=dev)
+        step = make_train_step(cfg, opt_cfg, mesh=mesh,
+                               specs=p_specs if mesh is not None else None)
+        losses = []
+        for _ in range(2):
+            p, st, opt, m = step(p, st, opt, images, labels)
+            losses.append(m["loss"])
+        out[name] = (losses, tree_leaves({"p": p, "st": st, "opt": opt}))
+    assert all(torch.equal(a, b) for a, b in zip(out["mesh"][0],
+                                                 out["none"][0]))
+    assert all(torch.equal(a, b) for a, b in zip(out["mesh"][1],
+                                                 out["none"][1]))

@@ -21,6 +21,7 @@ from repro_torch.configs.registry import get_config, reduced
 from repro_torch.convert import from_jax, lm_from_jax
 from repro_torch.core.spikingformer import SpikingFormer, init_spikingformer
 from repro_torch.kernels import build
+from repro_torch.launch.mesh import init_distributed, make_test_mesh
 from repro_torch.launch.train import build_state, main, train
 from repro_torch.models.common import split_tree
 from repro_torch.models.lm import init_cache, init_lm
@@ -49,7 +50,8 @@ def test_modules_are_where_the_reference_has_them():
                  "models.attention", "models.mlp", "models.lm", "models.moe",
                  "models.mla", "models.rwkv", "models.ssm", "serving.engine",
                  "serving.scheduler", "train.checkpoint", "train.resilience",
-                 "launch.train", "core.energy.constants",
+                 "launch.train", "launch.mesh", "launch.specs",
+                 "core.energy.constants",
                  "core.energy.dataflow", "core.energy.energy_model",
                  "core.energy.simulator", "core.energy.workload",
                  "analysis.audit", "tune.table", "tune.workloads",
@@ -148,6 +150,8 @@ def test_device_none_means_the_card_and_raises_without_one():
         "build_state": lambda: build_state(lm_cfg),
         "train": lambda: train(lm_cfg, steps=1, global_batch=1),
         "train (vision)": lambda: train(cfg, steps=1, global_batch=1),
+        "init_distributed": lambda: init_distributed(),
+        "make_test_mesh": lambda: make_test_mesh(1, 1),
         "launch.train main": lambda: main(["--arch", "qwen3-0.6b",
                                            "--reduced", "--steps", "1"]),
     }
