@@ -3,7 +3,11 @@
 
     python3 chip_smoke.py [--seed 0] [--depth 8] [--verbose-build]
 
-Builds the CUDA kernels from the sources in this checkout, holds each kernel
+Builds the CUDA kernels from the sources in this checkout and runs the
+analysis phase (``repro_torch.analysis``'s contracts, with every launch of
+every declared case read from the plan exports and held to the card's
+limits, and its plan audit; then each kernel contract at each site geometry
+at batch 1 against the oracles of ``kernels/ref.py``). Holds each kernel
 against its plain PyTorch version on the card at the shapes the
 ``spikingformer-8-512`` forward and training step give it, then drives the
 port's two main paths: it serves a few request batches through
@@ -186,7 +190,8 @@ from repro_torch.core.spikingformer import (SpikingFormer,  # noqa: E402
                                             value_and_grad)
 from repro_torch.kernels import (KERNELS, build, fused_bn,  # noqa: E402
                                  launch_counts, lif_soma, neuron_layer, ops,
-                                 reset_launch_counts, spike_matmul)
+                                 reset_launch_counts, set_launch_counts,
+                                 spike_matmul)
 from repro_torch.models.attention import attention  # noqa: E402
 from repro_torch.models.common import (embed, layer, rmsnorm,  # noqa: E402
                                        split_tree, unembed)
@@ -3190,25 +3195,121 @@ def tune_phase(seed: int, batch: int) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# The analysis phase: contracts, audit, every kernel against the oracles
+# ---------------------------------------------------------------------------
 
-def split_summary(name: str, rows: list[dict]) -> list[dict]:
+def analysis_phase(seed: int) -> dict[str, dict]:
+    """``python -m repro_torch.analysis --audit --contracts`` on the card:
+    the contract families with the launch family over every declared case
+    at batch ``BATCH`` (each launch read from the plan exports, none made
+    and none counted) and the plan audit at the same batch; then each of
+    the ten contracts at each of its site geometries at batch 1 launched
+    and held against ``kernels/ref.py``
+    (``analysis.contracts.hold_against_oracle``: bitwise or 1e-6 for the
+    LIF kernels, the matmul and BN tolerances elsewhere, a neuron layer's
+    spikes exactly the oracle's outside the band around the threshold).
+    Fails on any ``error`` finding, a case out of tolerance, or a launch
+    family that did not run. Prints the ``analysis`` line; returns per
+    kernel its largest error against the oracles (``max_abs_err``, None
+    where the kernel returns spikes alone) and, for a neuron layer, its
+    spike counts summed over the cases. The oracle comparisons' launches do
+    not count: the counts are left as they were."""
+    from collections import Counter
+
+    from repro_torch.analysis.audit import run_audit
+    from repro_torch.analysis.contracts import (hold_against_oracle,
+                                                kernel_cases,
+                                                launch_family_ran,
+                                                run_contracts)
+    from repro_torch.kernels.contract import SkipCase, kernel_contracts
+
+    t0 = time.perf_counter()
+    findings = run_contracts(batch=BATCH, launches=True) + \
+        run_audit(batch=BATCH)
+    errors = [f.format() for f in findings if f.level == "error"]
+    if errors:
+        fail(f"analysis: {len(errors)} error finding(s): {errors[:5]}")
+    if not launch_family_ran(findings):
+        fail("analysis: the launch family of the contracts did not run")
+    static_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    counts = launch_counts()
+    rows = []
+    for where, decl, case in kernel_cases(batch=1):
+        try:
+            rows.append({"where": where,
+                         **hold_against_oracle(decl, case, gen)})
+        except SkipCase:
+            continue
+    torch.cuda.synchronize()
+    set_launch_counts(counts)
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"analysis: {len(bad)} case(s) beyond the oracle's tolerance: "
+             f"{bad[:3]}")
+    decls = kernel_contracts()
+    missing = set(decls) - {r["contract"] for r in rows}
+    if missing:
+        fail(f"analysis: contracts never held against the oracle: "
+             f"{sorted(missing)}")
+    per_contract: dict[str, dict] = {}
+    oracle: dict[str, dict] = {}
+    for r in rows:
+        c = per_contract.setdefault(r["contract"], {
+            "cases": 0, "max_abs_err": None, "bitwise": 0, "spikes": None,
+            "tolerance": r["tolerance"]})
+        c["cases"] += 1
+        c["bitwise"] += bool(r["bitwise"])
+        for into in (c, oracle.setdefault(decls[r["contract"]].kernel, {
+                "max_abs_err": None, "spikes": None})):
+            if r["max_abs_err"] is not None:
+                into["max_abs_err"] = max(into["max_abs_err"] or 0.0,
+                                          r["max_abs_err"])
+            if r["spikes"] is not None:
+                into["spikes"] = {k: (into["spikes"] or {}).get(k, 0) + v
+                                  for k, v in r["spikes"].items()}
+    by_family = Counter(f"{f.check}:{f.level}" for f in findings)
+    emit("analysis", findings=dict(sorted(by_family.items())),
+         launch_cases=next(f.message for f in findings
+                           if f.check == "audit.kernel.launch"
+                           and f.where == "matrix"),
+         oracle_cases=len(rows), oracle=per_contract,
+         static_seconds=static_s, seconds=time.perf_counter() - t0)
+    return oracle
+
+
+# ---------------------------------------------------------------------------
+
+def split_summary(name: str, rows: list[dict],
+                  fused: list[dict]) -> list[dict]:
     """A BN kernel's split-path cases for the ``kernels`` line: each
-    shape's fused and split times at a world of 1 and the bitwise check."""
+    shape's fused and split times at a world of 1, the bitwise check, and
+    ``library_ms``, the PyTorch call of the kernel's case at the same shape
+    in ``fused`` (the split path computes the fused path's function; None
+    where no case has the shape)."""
     fwd, bwd = name == "bn_fwd", name == "bn_bwd"
     key = "fwd" if fwd else "bwd"
+    library = {tuple(c["shape"]): c.get("library_ms") for c in fused}
     return [{"case": r["case"], "shape": r["shape"],
              "ms": r[f"{key}_ms"] if fwd or bwd else r["ms"],
              "split_ms": r[f"{key}_split_ms"] if fwd or bwd else r["split_ms"],
-             "bitwise": r[f"bitwise_{key}"] if fwd or bwd else r["bitwise"]}
+             "bitwise": r[f"bitwise_{key}"] if fwd or bwd else r["bitwise"],
+             "library_ms": library.get(tuple(r["shape"]))}
             for r in rows]
 
 
 def summarise(cases: dict[str, list[dict]],
               paths: dict[str, dict[str, int]],
-              split: dict[str, list[dict]] | None = None) -> dict:
+              split: dict[str, list[dict]] | None = None,
+              oracle: dict[str, dict] | None = None) -> dict:
     """One entry per kernel. Where a kernel serves several sites, the entry
     carries the numbers of its first case (a site of the main path) and the
     largest error of all cases; ``cases`` keeps every site's numbers.
+    ``oracle_max_abs_err``: the kernel's largest error against
+    ``kernels/ref.py`` in the analysis phase (``oracle``; None for a kernel
+    that returns spikes alone), ``oracle_spikes`` a neuron layer's spike
+    counts there (``total``, ``differing`` from the oracle's, ``in_band``
+    around the threshold, ``wrong``: 0).
     ``launches`` adds the counts of the paths (Spikingformer serving and
     training, the LM's forward, serving and training, and the forward and
     step under the tuned table), ``launches_by_path`` keeps them apart."""
@@ -3222,12 +3323,15 @@ def summarise(cases: dict[str, list[dict]],
             "launches": sum(c[name] for c in paths.values()),
             "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "oracle_max_abs_err": (oracle or {}).get(name, {}).get(
+                "max_abs_err"),
+            "oracle_spikes": (oracle or {}).get(name, {}).get("spikes"),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"], "case": first["case"],
             **({"tc_bound_ms": first["tc_bound_ms"]}
                if "tc_bound_ms" in first else {}),
-            **({"split_path": split_summary(name, split[name])}
+            **({"split_path": split_summary(name, split[name], rows)}
                if split and name in split else {}),
             "cases": rows})
     return {"kernels": kernels}
@@ -3273,6 +3377,8 @@ def main() -> None:
     emit("build", seconds=time.perf_counter() - t0,
          nvcc=info["nvcc_release"],
          sources=[s.name for s in build.sources()])
+    oracle = analysis_phase(args.seed)
+    torch.cuda.empty_cache()
 
     cases = kernel_phase(args.seed, BATCH)
     emit("kernels", cases=cases)
@@ -3307,7 +3413,8 @@ def main() -> None:
 
     print(json.dumps(summarise(cases, {"serve": counts, "train": train_counts,
                                        **lm_counts, **mesh_counts,
-                                       "tune": tune_counts}, split_cases)),
+                                       "tune": tune_counts}, split_cases,
+                                     oracle)),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -372,8 +372,18 @@ def get_kernel(op: str, impl: str) -> Callable[..., Any]:
             f"available: {available_impls(op)}") from None
 
 
+#: Registered impls whose dispatch never launches a kernel of the port (plain
+#: tensor code: the eager arms, and the sparsity probes that
+#: ``repro_torch.tune.sparsity`` registers when it is imported): the
+#: kernel-contract verifier (``repro_torch.analysis.contracts``) requires a
+#: ``KernelContract`` declaration for every registered (op, impl) pair NOT
+#: named here.
+CONTRACT_EXEMPT_IMPLS: frozenset[str] = frozenset({"eager", "probe"})
+
+
 def registered_kernels() -> tuple[tuple[str, str], ...]:
-    """Every registered ``(op, impl)`` pair, builtins imported."""
+    """Every registered ``(op, impl)`` pair, builtins imported: the
+    contract verifier's coverage universe."""
     _ensure_builtins()
     return tuple(sorted(_REGISTRY))
 
@@ -499,7 +509,8 @@ def default_policy() -> ExecutionPolicy:
 
 
 __all__ = [
-    "BACKENDS", "ExecutionPolicy", "FUSED_EPILOGUE_IMPLS", "IMPL_FROM_JAX",
+    "BACKENDS", "CONTRACT_EXEMPT_IMPLS", "ExecutionPolicy",
+    "FUSED_EPILOGUE_IMPLS", "IMPL_FROM_JAX",
     "NAMED_POLICIES", "OPS", "POLICY_FROM_JAX", "SiteDecision",
     "available_impls", "default_impl", "default_policy", "dispatch_kernel",
     "fused_epilogue_fallback", "get_kernel", "known_site_keys",

@@ -88,6 +88,12 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
+def set_launch_counts(counts: dict[str, int]) -> None:
+    """Set each kernel's count, e.g. back to a :func:`launch_counts`
+    snapshot."""
+    for name, fn in _wrappers().items():
+        fn.launches = counts[name]
+
+
 def reset_launch_counts() -> None:
-    for fn in _wrappers().values():
-        fn.launches = 0
+    set_launch_counts(dict.fromkeys(KERNELS, 0))

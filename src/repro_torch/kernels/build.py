@@ -12,16 +12,26 @@ flags, so an edited source is rebuilt and an unchanged one is not.
 Importing this module (or any other module of the package) builds nothing
 and needs no compiler. A missing ``nvcc`` or a failed compile raises with
 the compiler's output; nothing falls back to another implementation.
+
+Every entry point ``e2a_<name>`` has a twin ``e2a_<name>_plan`` that takes
+the same arguments without the stream and reports the launches the entry
+point would make (``csrc/launch_plan.cuh``) without making them. Inside
+:func:`plan_launches`, :func:`load` returns a stand-in whose entry points
+do just that: a wrapper called on CUDA tensors there computes its launches
+and launches nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Iterator
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -88,6 +98,20 @@ SIGNATURES: dict[str, tuple] = {
     # x, w, z, T, M, C, K, packed, stream
     "e2a_neuron_layer_train_z": (_P, _P, _P, _I, _L, _I, _I, _I, _P),
 }
+
+#: Fields of one launch record and the most records of one entry point
+#: (``kPlanFields``, ``kMaxLaunches`` in ``csrc/launch_plan.cuh``).
+PLAN_FIELDS, MAX_LAUNCHES = 18, 4
+
+# The plan twins: an entry point's arguments without the stream, then the
+# int64 record array and its capacity in records; each returns the number
+# of launches, or minus the cudaError_t the entry point would return.
+SIGNATURES.update({f"{name}_plan": argtypes[:-1] + (_P, _I)
+                   for name, argtypes in list(SIGNATURES.items())})
+
+#: Libraries compiled by :func:`build` in this process
+#: (``repro_torch.analysis.tracing.build_counter`` reads it).
+compiles = 0
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -172,14 +196,17 @@ def build(verbose: bool = False) -> Path:
     os.replace(tmp, lib_path)              # atomic: readers see all or none
     for o in objs:
         o.unlink(missing_ok=True)
+    global compiles
+    compiles += 1
     if verbose:
         print("\n".join(log))
     return lib_path
 
 
-def load(verbose: bool = False) -> ctypes.CDLL:
+def load(verbose: bool = False):
     """The kernels' shared library, built on first use, with the argument
-    types of :data:`SIGNATURES` set on its functions."""
+    types of :data:`SIGNATURES` set on its functions; inside
+    :func:`plan_launches`, the stand-in that reports launches instead."""
     global _lib
     with _lock:
         if _lib is None or verbose:
@@ -189,7 +216,94 @@ def load(verbose: bool = False) -> ctypes.CDLL:
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
             _lib = lib
-        return _lib
+        lib = _lib
+    sink = getattr(_planning, "calls", None)
+    return lib if sink is None else _Planner(lib, sink)
+
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """One launch an entry point would make (``csrc/launch_plan.cuh``):
+    grid and block dims, dynamic shared memory in bytes, whether the
+    launcher raises the 48 KB limit first, and per grid axis the output
+    elements a block covers (``tile``, 0 where the axis does not cut the
+    output), the output's extent along it and whether the blocks stride
+    over it (a capped grid). ``kernel`` is the launcher's own number of the
+    kernel or template instance."""
+
+    grid: tuple[int, int, int]
+    block: tuple[int, int, int]
+    smem: int
+    opt_in: bool
+    tile: tuple[int, int, int]
+    extent: tuple[int, int, int]
+    strided: tuple[bool, bool, bool]
+    kernel: int
+
+    @classmethod
+    def from_record(cls, r) -> "Launch":
+        return cls(grid=tuple(r[0:3]), block=tuple(r[3:6]), smem=r[6],
+                   opt_in=bool(r[7]), tile=tuple(r[8:11]),
+                   extent=tuple(r[11:14]),
+                   strided=tuple(bool(v) for v in r[14:17]), kernel=r[17])
+
+
+@dataclasses.dataclass(frozen=True)
+class PlannedCall:
+    """One call of an entry point inside :func:`plan_launches`."""
+
+    entry: str
+    launches: tuple[Launch, ...]
+
+
+class _Planner:
+    """Stands in for the library inside :func:`plan_launches`: its
+    ``e2a_<name>(*args)`` reads ``e2a_<name>_plan`` on the same arguments
+    (the stream left out), records the launches and returns 0 without
+    launching. An entry point that would refuse the call raises."""
+
+    def __init__(self, lib: ctypes.CDLL, sink: list):
+        self._lib, self._sink = lib, sink
+
+    def __getattr__(self, name: str):
+        plan = getattr(self._lib, f"{name}_plan")
+
+        def call(*args):
+            buf = (ctypes.c_longlong * (MAX_LAUNCHES * PLAN_FIELDS))()
+            n = plan(*args[:-1], buf, MAX_LAUNCHES)
+            if n < 0:
+                raise RuntimeError(f"{name}: the entry point refuses the "
+                                   f"call (CUDA error {-n})")
+            self._sink.append(PlannedCall(name, tuple(
+                Launch.from_record(buf[i * PLAN_FIELDS:(i + 1) * PLAN_FIELDS])
+                for i in range(n))))
+            return 0
+
+        return call
+
+
+_planning = threading.local()
+
+
+@contextlib.contextmanager
+def plan_launches() -> Iterator[list[PlannedCall]]:
+    """In this thread, inside the block, :func:`load` returns the stand-in
+    that reports launches: yields the list of :class:`PlannedCall` the
+    block's entry-point calls append to. Builds the library if need be;
+    launches nothing. The wrappers count their calls inside the block as
+    launches; the block ends with every count as it began, since none was
+    made (so do not plan while another thread launches)."""
+    from repro_torch.kernels import launch_counts, set_launch_counts
+
+    load()
+    calls: list[PlannedCall] = []
+    counts = launch_counts()
+    _planning.calls = calls
+    try:
+        yield calls
+    finally:
+        _planning.calls = None
+        set_launch_counts(counts)
 
 
 def check_launch(code: int, what: str) -> None:

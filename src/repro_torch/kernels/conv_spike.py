@@ -90,3 +90,26 @@ def spike_patch_matmul(patches: torch.Tensor, w: torch.Tensor, *,
     return spike_matmul_packed_batched(spike_pack(patches),
                                        w.unsqueeze(0).expand(t, *w.shape),
                                        tile=tile)
+
+
+# ---------------------------------------------------------------------------
+# Kernel-contract declarations (repro_torch.analysis.contracts).
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import ref as _ref  # noqa: E402
+from repro_torch.kernels.contract import (KernelContract,  # noqa: E402
+                                          SkipCase, declare_contract, meta)
+
+
+def _build_spike_patch_matmul(case):
+    if case.c % 8 != 0:
+        raise SkipCase(f"im2col dim {case.c} % 8 != 0 -> dense arm")
+    args = (meta(case.t, case.m, case.c, dtype=case.torch_dtype),
+            meta(case.c, case.k, dtype=case.torch_dtype))
+    return args, {}, {}
+
+
+declare_contract(KernelContract(
+    name="spike_patch_matmul", kernel="spike_matmul_packed_batched",
+    fn=spike_patch_matmul, build=_build_spike_patch_matmul,
+    ref=_ref.spike_patch_matmul_ref, serves=(("conv", "cuda_packed"),)))

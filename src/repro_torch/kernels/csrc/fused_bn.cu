@@ -50,6 +50,7 @@
 #include <stdint.h>
 
 #include "bn_stats.cuh"
+#include "launch_plan.cuh"
 
 namespace {
 
@@ -170,27 +171,54 @@ __global__ void __launch_bounds__(BN_COLS* BN_LANES) bn_fwd_normalize(
   }
 }
 
-template <int V>
-void launch_normalize(const float* x, const float* gamma, const float* beta,
-                      const float* mu, const float* sqrt_d, float* y,
-                      long long M, int D, cudaStream_t st) {
-  const dim3 grid((D + BN_COLS * V - 1) / (BN_COLS * V),
-                  e2a::row_blocks(M, EW_ROWS));
-  bn_fwd_normalize<V><<<grid, dim3(BN_COLS, BN_LANES), 0, st>>>(
-      x, gamma, beta, mu, sqrt_d, y, M, D);
+// Which kernel a Launch record of this file is for.
+enum Kernel { STATS, NORM4, NORM1, FINALIZE, PARTIALS, DX4, DX1, COLS };
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// A first pass (bn_fwd_stats, bn_bwd_partials): a block of 32 columns x 8
+// row lanes for each chunk of `rows` rows.
+e2a::Launch chunks_plan(long long M, int D, long long rows, Kernel k) {
+  e2a::Launch l = e2a::launch_of(BN_COLS, BN_LANES, 0, k);
+  e2a::axis(l, 0, e2a::cdiv(D, BN_COLS), BN_COLS, D);
+  return e2a::axis(l, 1, e2a::cdiv(M, rows), rows, M);
+}
+
+// A per-column pass (bn_fwd_finalize, bn_bwd_cols): 256 columns a block.
+e2a::Launch columns_plan(int D, Kernel k) {
+  e2a::Launch l = e2a::launch_of(256, 1, 0, k);
+  return e2a::axis(l, 0, e2a::cdiv(D, 256), 256, D);
+}
+
+// Row ranges of `rows` rows on grid.y, at most MAX_ROW_BLOCKS of them.
+e2a::Launch& row_axis(e2a::Launch& l, long long M, long long rows) {
+  return e2a::axis(l, 1, e2a::row_blocks(M, (int)rows), rows, M,
+                   e2a::cdiv(M, rows) > e2a::MAX_ROW_BLOCKS);
 }
 
 // The normalize pass, float4 along D where D % 4 == 0 and x and y are
-// 16-byte aligned. Returns a cudaError_t.
-int launch_normalize_any(const float* x, const float* gamma,
-                         const float* beta, const float* mu,
-                         const float* sqrt_d, float* y, long long M, int D,
-                         cudaStream_t st) {
-  if (D % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(y) % 16 == 0)
-    launch_normalize<4>(x, gamma, beta, mu, sqrt_d, y, M, D, st);
+// 16-byte aligned.
+e2a::Launch normalize_plan(const float* x, const float* y, long long M,
+                           int D) {
+  const bool v4 = D % 4 == 0 && aligned16(x) && aligned16(y);
+  const int V = v4 ? 4 : 1;
+  e2a::Launch l = e2a::launch_of(BN_COLS, BN_LANES, 0, v4 ? NORM4 : NORM1);
+  e2a::axis(l, 0, e2a::cdiv(D, BN_COLS * V), BN_COLS * V, D);
+  return row_axis(l, M, EW_ROWS);
+}
+
+// Returns a cudaError_t.
+int launch_normalize(const e2a::Launch& l, const float* x, const float* gamma,
+                     const float* beta, const float* mu, const float* sqrt_d,
+                     float* y, long long M, int D, cudaStream_t st) {
+  if (l.kernel == NORM4)
+    bn_fwd_normalize<4><<<e2a::grid_of(l), e2a::block_of(l), 0, st>>>(
+        x, gamma, beta, mu, sqrt_d, y, M, D);
   else
-    launch_normalize<1>(x, gamma, beta, mu, sqrt_d, y, M, D, st);
+    bn_fwd_normalize<1><<<e2a::grid_of(l), e2a::block_of(l), 0, st>>>(
+        x, gamma, beta, mu, sqrt_d, y, M, D);
   return (int)cudaGetLastError();
 }
 
@@ -397,31 +425,87 @@ __global__ void __launch_bounds__(DX_THREADS) bn_bwd_dx(
   }
 }
 
-template <int V>
-void launch_dx(const float* g, const float* x, const float* gamma,
-               const float* mu, const float* sqrt_d, const float* cols,
-               float* dx, long long M, int D, cudaStream_t st) {
-  int bx = 32;   // column lanes: 32, or the least power of two whose V
-  while (bx > 1 && (bx / 2) * V >= D) bx /= 2;   // columns each cover D
+// The dx pass, float4 along D where D % 4 == 0 and g, x and dx are 16-byte
+// aligned: column lanes bx, 32 or the least power of two whose V columns
+// each cover D, and DX_THREADS / bx row lanes.
+e2a::Launch dx_plan(const float* g, const float* x, const float* dx,
+                    long long M, int D) {
+  const bool v4 = D % 4 == 0 && aligned16(g) && aligned16(x) && aligned16(dx);
+  const int V = v4 ? 4 : 1;
+  int bx = 32;
+  while (bx > 1 && (bx / 2) * V >= D) bx /= 2;
   const int by = DX_THREADS / bx;
-  const dim3 grid((D + bx * V - 1) / (bx * V),
-                  e2a::row_blocks(M, DX_LANE_ROWS * by));
-  bn_bwd_dx<V><<<grid, dim3(bx, by), 0, st>>>(g, x, gamma, mu, sqrt_d, cols,
-                                              dx, M, D);
+  e2a::Launch l = e2a::launch_of(bx, by, 0, v4 ? DX4 : DX1);
+  e2a::axis(l, 0, e2a::cdiv(D, bx * V), bx * V, D);
+  return row_axis(l, M, (long long)DX_LANE_ROWS * by);
 }
 
-// The dx pass, float4 along D where D % 4 == 0 and g, x and dx are 16-byte
-// aligned. Returns a cudaError_t.
-int launch_dx_any(const float* g, const float* x, const float* gamma,
-                  const float* mu, const float* sqrt_d, const float* cols,
-                  float* dx, long long M, int D, cudaStream_t st) {
-  if (D % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(dx) % 16 == 0)
-    launch_dx<4>(g, x, gamma, mu, sqrt_d, cols, dx, M, D, st);
+// Returns a cudaError_t.
+int launch_dx(const e2a::Launch& l, const float* g, const float* x,
+              const float* gamma, const float* mu, const float* sqrt_d,
+              const float* cols, float* dx, long long M, int D,
+              cudaStream_t st) {
+  if (l.kernel == DX4)
+    bn_bwd_dx<4><<<e2a::grid_of(l), e2a::block_of(l), 0, st>>>(
+        g, x, gamma, mu, sqrt_d, cols, dx, M, D);
   else
-    launch_dx<1>(g, x, gamma, mu, sqrt_d, cols, dx, M, D, st);
+    bn_bwd_dx<1><<<e2a::grid_of(l), e2a::block_of(l), 0, st>>>(
+        g, x, gamma, mu, sqrt_d, cols, dx, M, D);
   return (int)cudaGetLastError();
+}
+
+// The launches of each entry point, in order; n = 0 where it launches
+// nothing. Each returns a cudaError_t.
+int fwd_plan(const float* x, const float* y, long long M, int D,
+             long long rows, e2a::Launch* l, int& n) {
+  n = 0;
+  if (M <= 0 || D <= 0 || rows <= 0) return 0;
+  l[n++] = chunks_plan(M, D, rows, STATS);
+  l[n++] = normalize_plan(x, y, M, D);
+  return 0;
+}
+
+int fwd_sums_plan(long long M, int D, long long rows, e2a::Launch* l,
+                  int& n) {
+  n = 0;
+  if (M <= 0 || D <= 0 || rows <= 0) return 0;
+  l[n++] = chunks_plan(M, D, rows, STATS);
+  return 0;
+}
+
+int fwd_apply_plan(const float* x, const float* y, long long M, int D,
+                   e2a::Launch* l, int& n) {
+  n = 0;
+  if (D <= 0) return 0;
+  l[n++] = columns_plan(D, FINALIZE);
+  if (M > 0) l[n++] = normalize_plan(x, y, M, D);
+  return 0;
+}
+
+int bwd_plan(const float* g, const float* x, const float* dx, long long M,
+             int D, long long rows, e2a::Launch* l, int& n) {
+  n = 0;
+  if (M <= 0 || D <= 0 || rows <= 0) return 0;
+  l[n++] = chunks_plan(M, D, rows, PARTIALS);
+  l[n++] = dx_plan(g, x, dx, M, D);
+  return 0;
+}
+
+int bwd_sums_plan(long long M, int D, long long rows, e2a::Launch* l,
+                  int& n) {
+  n = 0;
+  if (M <= 0 || D <= 0 || rows <= 0) return 0;
+  l[n++] = chunks_plan(M, D, rows, PARTIALS);
+  return 0;
+}
+
+int bwd_apply_plan(const float* g, const float* x, const float* dx,
+                   long long M, int D, e2a::Launch* l, int& n) {
+  n = 0;
+  if (D <= 0) return 0;
+  l[n++] = columns_plan(D, COLS);
+  if (M > 0) l[n++] = dx_plan(g, x, dx, M, D);
+  return 0;
 }
 
 }  // namespace
@@ -434,14 +518,26 @@ extern "C" int e2a_bn_fwd(const float* x, const float* gamma,
                           float* sqrt_d, float* part, unsigned* arrived,
                           long long M, int D, long long rows, float eps,
                           void* stream) {
-  if (M <= 0 || D <= 0 || rows <= 0) return 0;
+  e2a::Launch l[e2a::kMaxLaunches];
+  int n = 0;
+  const int code = fwd_plan(x, y, M, D, rows, l, n);
+  if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_chunks = (int)((M + rows - 1) / rows);
-  bn_fwd_stats<<<dim3((D + BN_COLS - 1) / BN_COLS, n_chunks),
-                 dim3(BN_COLS, BN_LANES), 0, st>>>(x, part, arrived, mu,
-                                                   sqrt_d, nullptr, M, D,
-                                                   rows, n_chunks, eps);
-  return launch_normalize_any(x, gamma, beta, mu, sqrt_d, y, M, D, st);
+  bn_fwd_stats<<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
+      x, part, arrived, mu, sqrt_d, nullptr, M, D, rows, (int)l[0].grid[1],
+      eps);
+  return launch_normalize(l[1], x, gamma, beta, mu, sqrt_d, y, M, D, st);
+}
+
+extern "C" int e2a_bn_fwd_plan(const float* x, const float* gamma,
+                               const float* beta, float* y, float* mu,
+                               float* sqrt_d, float* part, unsigned* arrived,
+                               long long M, int D, long long rows, float eps,
+                               long long* records, int cap) {
+  e2a::Launch l[e2a::kMaxLaunches];
+  int n = 0;
+  const int code = fwd_plan(x, y, M, D, rows, l, n);
+  return e2a::write_plan(code, l, n, records, cap);
 }
 
 // Split path, forward, before the all-reduce: sums (2 * D + 1 doubles)
@@ -449,14 +545,25 @@ extern "C" int e2a_bn_fwd(const float* x, const float* gamma,
 extern "C" int e2a_bn_fwd_sums(const float* x, float* part, unsigned* arrived,
                                double* sums, long long M, int D,
                                long long rows, void* stream) {
-  if (M <= 0 || D <= 0 || rows <= 0) return 0;
+  e2a::Launch l[e2a::kMaxLaunches];
+  int n = 0;
+  const int code = fwd_sums_plan(M, D, rows, l, n);
+  if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_chunks = (int)((M + rows - 1) / rows);
-  bn_fwd_stats<<<dim3((D + BN_COLS - 1) / BN_COLS, n_chunks),
-                 dim3(BN_COLS, BN_LANES), 0, st>>>(x, part, arrived, nullptr,
-                                                   nullptr, sums, M, D, rows,
-                                                   n_chunks, 0.0f);
+  bn_fwd_stats<<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
+      x, part, arrived, nullptr, nullptr, sums, M, D, rows,
+      (int)l[0].grid[1], 0.0f);
   return (int)cudaGetLastError();
+}
+
+extern "C" int e2a_bn_fwd_sums_plan(const float* x, float* part,
+                                    unsigned* arrived, double* sums,
+                                    long long M, int D, long long rows,
+                                    long long* records, int cap) {
+  e2a::Launch l[e2a::kMaxLaunches];
+  int n = 0;
+  const int code = fwd_sums_plan(M, D, rows, l, n);
+  return e2a::write_plan(code, l, n, records, cap);
 }
 
 // Split path, forward, after the all-reduce: mu and sqrt_d from the global
@@ -465,11 +572,26 @@ extern "C" int e2a_bn_fwd_apply(const float* x, const float* gamma,
                                 const float* beta, const double* sums,
                                 float* y, float* mu, float* sqrt_d,
                                 long long M, int D, float eps, void* stream) {
-  if (D <= 0) return 0;
+  e2a::Launch l[e2a::kMaxLaunches];
+  int n = 0;
+  const int code = fwd_apply_plan(x, y, M, D, l, n);
+  if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bn_fwd_finalize<<<(D + 255) / 256, 256, 0, st>>>(sums, D, eps, mu, sqrt_d);
-  if (M <= 0) return (int)cudaGetLastError();
-  return launch_normalize_any(x, gamma, beta, mu, sqrt_d, y, M, D, st);
+  bn_fwd_finalize<<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
+      sums, D, eps, mu, sqrt_d);
+  if (n == 1) return (int)cudaGetLastError();
+  return launch_normalize(l[1], x, gamma, beta, mu, sqrt_d, y, M, D, st);
+}
+
+extern "C" int e2a_bn_fwd_apply_plan(const float* x, const float* gamma,
+                                     const float* beta, const double* sums,
+                                     float* y, float* mu, float* sqrt_d,
+                                     long long M, int D, float eps,
+                                     long long* records, int cap) {
+  e2a::Launch l[e2a::kMaxLaunches];
+  int n = 0;
+  const int code = fwd_apply_plan(x, y, M, D, l, n);
+  return e2a::write_plan(code, l, n, records, cap);
 }
 
 // g, x (M, D), gamma, mu, sqrt_d (D) -> dx (M, D), dgamma, dbeta (D).
@@ -480,14 +602,27 @@ extern "C" int e2a_bn_bwd(const float* g, const float* x, const float* gamma,
                           float* dgamma, float* dbeta, float* part,
                           float* cols, unsigned* arrived, long long M, int D,
                           long long rows, void* stream) {
-  if (M <= 0 || D <= 0 || rows <= 0) return 0;
+  e2a::Launch l[e2a::kMaxLaunches];
+  int n = 0;
+  const int code = bwd_plan(g, x, dx, M, D, rows, l, n);
+  if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_chunks = (int)((M + rows - 1) / rows);
-  bn_bwd_partials<<<dim3((D + BN_COLS - 1) / BN_COLS, n_chunks),
-                    dim3(BN_COLS, BN_LANES), 0, st>>>(
+  bn_bwd_partials<<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
       g, x, gamma, mu, sqrt_d, part, arrived, cols, dgamma, dbeta, nullptr, M,
-      D, rows, n_chunks);
-  return launch_dx_any(g, x, gamma, mu, sqrt_d, cols, dx, M, D, st);
+      D, rows, (int)l[0].grid[1]);
+  return launch_dx(l[1], g, x, gamma, mu, sqrt_d, cols, dx, M, D, st);
+}
+
+extern "C" int e2a_bn_bwd_plan(const float* g, const float* x,
+                               const float* gamma, const float* mu,
+                               const float* sqrt_d, float* dx, float* dgamma,
+                               float* dbeta, float* part, float* cols,
+                               unsigned* arrived, long long M, int D,
+                               long long rows, long long* records, int cap) {
+  e2a::Launch l[e2a::kMaxLaunches];
+  int n = 0;
+  const int code = bwd_plan(g, x, dx, M, D, rows, l, n);
+  return e2a::write_plan(code, l, n, records, cap);
 }
 
 // Split path, backward, before the all-reduce: dgamma and dbeta from the
@@ -499,14 +634,28 @@ extern "C" int e2a_bn_bwd_sums(const float* g, const float* x,
                                float* dbeta, float* part, double* sums,
                                unsigned* arrived, long long M, int D,
                                long long rows, void* stream) {
-  if (M <= 0 || D <= 0 || rows <= 0) return 0;
+  e2a::Launch l[e2a::kMaxLaunches];
+  int n = 0;
+  const int code = bwd_sums_plan(M, D, rows, l, n);
+  if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_chunks = (int)((M + rows - 1) / rows);
-  bn_bwd_partials<<<dim3((D + BN_COLS - 1) / BN_COLS, n_chunks),
-                    dim3(BN_COLS, BN_LANES), 0, st>>>(
+  bn_bwd_partials<<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
       g, x, gamma, mu, sqrt_d, part, arrived, nullptr, dgamma, dbeta, sums,
-      M, D, rows, n_chunks);
+      M, D, rows, (int)l[0].grid[1]);
   return (int)cudaGetLastError();
+}
+
+extern "C" int e2a_bn_bwd_sums_plan(const float* g, const float* x,
+                                    const float* gamma, const float* mu,
+                                    const float* sqrt_d, float* dgamma,
+                                    float* dbeta, float* part, double* sums,
+                                    unsigned* arrived, long long M, int D,
+                                    long long rows, long long* records,
+                                    int cap) {
+  e2a::Launch l[e2a::kMaxLaunches];
+  int n = 0;
+  const int code = bwd_sums_plan(M, D, rows, l, n);
+  return e2a::write_plan(code, l, n, records, cap);
 }
 
 // Split path, backward, after the all-reduce: eq. 23's terms from the
@@ -516,9 +665,24 @@ extern "C" int e2a_bn_bwd_apply(const float* g, const float* x,
                                 const float* sqrt_d, const double* sums,
                                 float* cols, float* dx, long long M, int D,
                                 void* stream) {
-  if (D <= 0) return 0;
+  e2a::Launch l[e2a::kMaxLaunches];
+  int n = 0;
+  const int code = bwd_apply_plan(g, x, dx, M, D, l, n);
+  if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bn_bwd_cols<<<(D + 255) / 256, 256, 0, st>>>(sums, sqrt_d, D, cols);
-  if (M <= 0) return (int)cudaGetLastError();
-  return launch_dx_any(g, x, gamma, mu, sqrt_d, cols, dx, M, D, st);
+  bn_bwd_cols<<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
+      sums, sqrt_d, D, cols);
+  if (n == 1) return (int)cudaGetLastError();
+  return launch_dx(l[1], g, x, gamma, mu, sqrt_d, cols, dx, M, D, st);
+}
+
+extern "C" int e2a_bn_bwd_apply_plan(const float* g, const float* x,
+                                     const float* gamma, const float* mu,
+                                     const float* sqrt_d, const double* sums,
+                                     float* cols, float* dx, long long M,
+                                     int D, long long* records, int cap) {
+  e2a::Launch l[e2a::kMaxLaunches];
+  int n = 0;
+  const int code = bwd_apply_plan(g, x, dx, M, D, l, n);
+  return e2a::write_plan(code, l, n, records, cap);
 }

@@ -69,6 +69,7 @@
 
 #include <initializer_list>
 
+#include "launch_plan.cuh"
 #include "spike_tile_mma.cuh"   // cp_async, cp_async_commit, cp_async_wait
 
 namespace {
@@ -284,23 +285,34 @@ bool wide_layout(int d, Strides in, Strides out,
   return true;
 }
 
+// Which kernel a Launch record of this file is for: the ring arm's block
+// size and copy width (RING32 + 1 is RING32_WIDE, RING64 + 1 RING64_WIDE),
+// or the flat arm's access width.
+enum Kernel { RING32, RING32_WIDE, RING64, RING64_WIDE, FLAT4, FLAT1 };
+
 // One launch of the ring arm: 32 threads a block while that leaves at most
 // four warps to each of the 132 SMs (n <= 16,896), so the grid spreads over
-// as many SMs as n allows; 64 above.
+// as many SMs as n allows; 64 above. Its shared memory holds the ring of
+// each of `streams` input streams.
+e2a::Launch ring_plan(long long n, int T, int streams, bool wide) {
+  const int nt = n <= 32LL * 4 * 132 ? 32 : 64;
+  const long long smem = (long long)ring_rows(T, CHUNK) * nt * sizeof(float) *
+                         ring_stages(T, CHUNK, STAGES) * streams;
+  e2a::Launch l = e2a::launch_of(nt, 1, smem,
+                                 (nt == 64 ? RING64 : RING32) + (wide ? 1 : 0));
+  return e2a::axis(l, 0, e2a::cdiv(n, nt), nt, n);
+}
+
+// The shared memory depends on T, so the limit is raised at every launch
+// that needs it.
 template <template <int, int, int, bool> class K, int NT, bool WIDE,
           typename... Args>
-int launch_ring_as(long long n, int T, int streams, cudaStream_t st,
-                   Args... args) {
-  const size_t smem = (size_t)ring_rows(T, CHUNK) * NT * sizeof(float) *
-                      ring_stages(T, CHUNK, STAGES) * streams;
+int launch_ring_as(const e2a::Launch& l, cudaStream_t st, Args... args) {
   auto kernel = K<NT, CHUNK, STAGES, WIDE>::kernel;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const unsigned blocks = (unsigned)((n + NT - 1) / NT);
-  kernel<<<blocks, NT, smem, st>>>(args...);
+  const int err =
+      e2a::raise_smem(l, reinterpret_cast<const void*>(kernel));
+  if (err != 0) return err;
+  kernel<<<e2a::grid_of(l), e2a::block_of(l), l.smem, st>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -314,13 +326,13 @@ struct BwdRing {
 };
 
 template <template <int, int, int, bool> class K, typename... Args>
-int launch_ring(long long n, int T, int streams, bool wide, cudaStream_t st,
-                Args... args) {
-  if (n <= 32LL * 4 * 132)
-    return wide ? launch_ring_as<K, 32, true>(n, T, streams, st, args...)
-                : launch_ring_as<K, 32, false>(n, T, streams, st, args...);
-  return wide ? launch_ring_as<K, 64, true>(n, T, streams, st, args...)
-              : launch_ring_as<K, 64, false>(n, T, streams, st, args...);
+int launch_ring(const e2a::Launch& l, cudaStream_t st, Args... args) {
+  switch (l.kernel) {
+    case RING32: return launch_ring_as<K, 32, false>(l, st, args...);
+    case RING32_WIDE: return launch_ring_as<K, 32, true>(l, st, args...);
+    case RING64: return launch_ring_as<K, 64, false>(l, st, args...);
+    default: return launch_ring_as<K, 64, true>(l, st, args...);
+  }
 }
 
 // ---- the flat arms ----
@@ -416,6 +428,58 @@ bool flat_layout(long long m, int d, int T, Strides in, Strides out) {
 constexpr int ARM_FLAT = 1, ARM_RING = 2;
 constexpr int BAD_ARM = (int)cudaErrorInvalidValue;
 
+// The flat arms: 256 threads a block, four elements a thread (FLAT4) or
+// one.
+e2a::Launch flat_plan(long long n, bool v4) {
+  const int threads = 256;
+  const long long per_block = v4 ? 4LL * threads : threads;
+  e2a::Launch l = e2a::launch_of(threads, 1, 0, v4 ? FLAT4 : FLAT1);
+  return e2a::axis(l, 0, e2a::cdiv(n, per_block), per_block, n);
+}
+
+// The one launch of each entry point on its arm (none for an empty call).
+// Each returns a cudaError_t.
+int fwd_plan(const float* x, const float* s, const float* u,
+             const float* mask, const float* u0, const float* s0,
+             const float* u_last, const float* s_last, long long m, int d,
+             int T, Strides in, Strides out, int arm, e2a::Launch* l,
+             int& n) {
+  n = 0;
+  const long long nn = m * d;
+  if (nn <= 0 || T <= 0) return 0;
+  if (arm == ARM_RING) {
+    l[n++] = ring_plan(nn, T, 1, wide_layout(d, in, out, {x, s, u, mask}));
+    return 0;
+  }
+  if (arm != ARM_FLAT || u0 != nullptr || s0 != nullptr ||
+      u_last != nullptr || s_last != nullptr ||
+      !flat_layout(m, d, T, in, out))
+    return BAD_ARM;
+  l[n++] = flat_plan(nn, nn % 4 == 0 && aligned16(x) && aligned16(s) &&
+                             aligned16(u) && aligned16(mask));
+  return 0;
+}
+
+int bwd_plan(const float* g, const float* u, const float* s,
+             const float* mask, const float* gu_last, const float* dx,
+             long long m, int d, int T, Strides in, Strides out, int arm,
+             e2a::Launch* l, int& n) {
+  n = 0;
+  const long long nn = m * d;
+  if (nn <= 0 || T <= 0) return 0;
+  if (arm == ARM_RING) {
+    l[n++] = ring_plan(nn, T, 4,
+                       wide_layout(d, in, out, {g, u, s, mask, dx}));
+    return 0;
+  }
+  if (arm != ARM_FLAT || !flat_layout(m, d, T, in, out)) return BAD_ARM;
+  l[n++] = flat_plan(nn, nn % 4 == 0 && aligned16(g) && aligned16(u) &&
+                             aligned16(s) && aligned16(mask) &&
+                             aligned16(dx) &&
+                             (gu_last == nullptr || aligned16(gu_last)));
+  return 0;
+}
+
 }  // namespace
 
 // arm: 1 flat, 2 ring (the wrapper's rule, kernels/lif_soma.py choose_arm()).
@@ -426,32 +490,43 @@ extern "C" int e2a_lif_soma_fwd(const float* x, float* s, float* u,
                                 long long out_t, long long out_m, float alpha,
                                 float th_fire, float th_lo, float th_hi,
                                 int arm, void* stream) {
-  const long long n = m * d;
-  if (n <= 0 || T <= 0) return 0;
-  const LifParams p = {alpha, th_fire, th_lo, th_hi};
   const Strides in = {in_t, in_m}, out = {out_t, out_m};
+  e2a::Launch l[e2a::kMaxLaunches];
+  int n = 0;
+  const int code = fwd_plan(x, s, u, mask, u0, s0, u_last, s_last, m, d, T,
+                            in, out, arm, l, n);
+  if (code != 0 || n == 0) return code;
+  const long long nn = m * d;
+  const LifParams p = {alpha, th_fire, th_lo, th_hi};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (arm == ARM_RING)
-    return launch_ring<FwdRing>(
-        n, T, 1, wide_layout(d, in, out, {x, s, u, mask}), st, x, s, u, mask,
-        u0, s0, u_last, s_last, n, d, T, in, out, p);
-  if (arm != ARM_FLAT || u0 != nullptr || s0 != nullptr ||
-      u_last != nullptr || s_last != nullptr ||
-      !flat_layout(m, d, T, in, out))
-    return BAD_ARM;
-  const int threads = 256;
-  if (n % 4 == 0 && aligned16(x) && aligned16(s) && aligned16(u) &&
-      aligned16(mask)) {
-    const long long n4 = n / 4;
-    const unsigned blocks = (unsigned)((n4 + threads - 1) / threads);
-    lif_fwd_vec4<<<blocks, threads, 0, st>>>(
+    return launch_ring<FwdRing>(l[0], st, x, s, u, mask, u0, s0, u_last,
+                                s_last, nn, d, T, in, out, p);
+  if (l[0].kernel == FLAT4)
+    lif_fwd_vec4<<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
         reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(s),
-        reinterpret_cast<float4*>(u), reinterpret_cast<float4*>(mask), n4, T, p);
-  } else {
-    const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-    lif_fwd_scalar<<<blocks, threads, 0, st>>>(x, s, u, mask, n, T, p);
-  }
+        reinterpret_cast<float4*>(u), reinterpret_cast<float4*>(mask),
+        nn / 4, T, p);
+  else
+    lif_fwd_scalar<<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
+        x, s, u, mask, nn, T, p);
   return (int)cudaGetLastError();
+}
+
+extern "C" int e2a_lif_soma_fwd_plan(const float* x, float* s, float* u,
+                                     float* mask, const float* u0,
+                                     const float* s0, float* u_last,
+                                     float* s_last, long long m, int d, int T,
+                                     long long in_t, long long in_m,
+                                     long long out_t, long long out_m,
+                                     float alpha, float th_fire, float th_lo,
+                                     float th_hi, int arm,
+                                     long long* records, int cap) {
+  e2a::Launch l[e2a::kMaxLaunches];
+  int n = 0;
+  const int code = fwd_plan(x, s, u, mask, u0, s0, u_last, s_last, m, d, T,
+                            {in_t, in_m}, {out_t, out_m}, arm, l, n);
+  return e2a::write_plan(code, l, n, records, cap);
 }
 
 extern "C" int e2a_lif_soma_bwd(const float* g, const float* u, const float* s,
@@ -460,32 +535,42 @@ extern "C" int e2a_lif_soma_bwd(const float* g, const float* u, const float* s,
                                 long long in_t, long long in_m,
                                 long long out_t, long long out_m, float alpha,
                                 float grad_scale, int arm, void* stream) {
-  const long long n = m * d;
-  if (n <= 0 || T <= 0) return 0;
-  const GradParams p = {alpha, grad_scale};
   const Strides in = {in_t, in_m}, out = {out_t, out_m};
+  e2a::Launch l[e2a::kMaxLaunches];
+  int n = 0;
+  const int code = bwd_plan(g, u, s, mask, gu_last, dx, m, d, T, in, out,
+                            arm, l, n);
+  if (code != 0 || n == 0) return code;
+  const long long nn = m * d;
+  const GradParams p = {alpha, grad_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (arm == ARM_RING)
-    return launch_ring<BwdRing>(
-        n, T, 4, wide_layout(d, in, out, {g, u, s, mask, dx}), st, g, u, s,
-        mask, gu_last, dx, n, d, T, in, out, p);
-  if (arm != ARM_FLAT || !flat_layout(m, d, T, in, out)) return BAD_ARM;
-  const int threads = 256;
-  if (n % 4 == 0 && aligned16(g) && aligned16(u) && aligned16(s) &&
-      aligned16(mask) && aligned16(dx) &&
-      (gu_last == nullptr || aligned16(gu_last))) {
-    const long long n4 = n / 4;
-    const unsigned blocks = (unsigned)((n4 + threads - 1) / threads);
-    lif_bwd_vec4<<<blocks, threads, 0, st>>>(
+    return launch_ring<BwdRing>(l[0], st, g, u, s, mask, gu_last, dx, nn, d,
+                                T, in, out, p);
+  if (l[0].kernel == FLAT4)
+    lif_bwd_vec4<<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
         reinterpret_cast<const float4*>(g), reinterpret_cast<const float4*>(u),
         reinterpret_cast<const float4*>(s),
         reinterpret_cast<const float4*>(mask),
         reinterpret_cast<const float4*>(gu_last),
-        reinterpret_cast<float4*>(dx), n4, T, p);
-  } else {
-    const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-    lif_bwd_scalar<<<blocks, threads, 0, st>>>(g, u, s, mask, gu_last, dx, n,
-                                               T, p);
-  }
+        reinterpret_cast<float4*>(dx), nn / 4, T, p);
+  else
+    lif_bwd_scalar<<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
+        g, u, s, mask, gu_last, dx, nn, T, p);
   return (int)cudaGetLastError();
+}
+
+extern "C" int e2a_lif_soma_bwd_plan(const float* g, const float* u,
+                                     const float* s, const float* mask,
+                                     const float* gu_last, float* dx,
+                                     long long m, int d, int T, long long in_t,
+                                     long long in_m, long long out_t,
+                                     long long out_m, float alpha,
+                                     float grad_scale, int arm,
+                                     long long* records, int cap) {
+  e2a::Launch l[e2a::kMaxLaunches];
+  int n = 0;
+  const int code = bwd_plan(g, u, s, mask, gu_last, dx, m, d, T,
+                            {in_t, in_m}, {out_t, out_m}, arm, l, n);
+  return e2a::write_plan(code, l, n, records, cap);
 }

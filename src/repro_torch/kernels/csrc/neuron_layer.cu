@@ -70,11 +70,18 @@
 // the z round trip (2 * T * M * K * 4 bytes); recomputing the product in (c)
 // instead of storing z would double the dominant work.
 #include "bn_stats.cuh"
+#include "launch_plan.cuh"
 #include "spike_mma_mainloop.cuh"
 
 namespace {
 
 using namespace e2a;
+
+// Which kernel a Launch record of this file is for.
+enum Kernel {
+  EVAL_DENSE, EVAL_LARGE, EVAL_SMALL, Z_DENSE, Z_MMA, STATS, FINALIZE,
+  SOMA4, SOMA1
+};
 
 // eq. 11's membrane update, every operation rounded once in the plain
 // version's order (lif_soma.cu's lif_step), so equal inputs give equal
@@ -400,24 +407,31 @@ __global__ void __launch_bounds__(DENSE_THREADS) neuron_layer_train_z_dense(
   }
 }
 
-int launch_eval_dense(const float* x, const float* w, const float* bias,
-                      float* s, int T, long long M, int C, int K, float alpha,
-                      float th_fire, cudaStream_t st) {
+// The dense arms: blocks of DENSE_ROWS rows (eval: a time step's M rows,
+// each block walking the T steps) or DENSE_TILE_ROWS rows (train: all T * M
+// rows) x DENSE_COLS columns.
+Launch dense_plan(long long rows, long long rows_per_block, int K,
+                  Kernel k) {
+  Launch l = launch_of(DENSE_THREADS, 1, 0, k);
+  axis(l, 0, cdiv(rows, rows_per_block), rows_per_block, rows);
+  return axis(l, 1, cdiv(K, DENSE_COLS), DENSE_COLS, K);
+}
+
+int launch_eval_dense(const Launch& l, const float* x, const float* w,
+                      const float* bias, float* s, int T, long long M, int C,
+                      int K, float alpha, float th_fire, cudaStream_t st) {
   const bool vec4 = K % 4 == 0 && reinterpret_cast<uintptr_t>(s) % 16 == 0;
-  const dim3 grid((unsigned)((M + DENSE_ROWS - 1) / DENSE_ROWS),
-                  (K + DENSE_COLS - 1) / DENSE_COLS, 1);
-  neuron_layer_eval_dense<<<grid, DENSE_THREADS, 0, st>>>(
+  neuron_layer_eval_dense<<<grid_of(l), block_of(l), 0, st>>>(
       x, w, bias, s, T, M, C, K, vec4, alpha, th_fire);
   return (int)cudaGetLastError();
 }
 
-int launch_train_z_dense(const float* x, const float* w, float* z,
-                         float* part, long long rows, int C, int K,
-                         int n_tiles, cudaStream_t st) {
+int launch_train_z_dense(const Launch& l, const float* x, const float* w,
+                         float* z, float* part, long long rows, int C, int K,
+                         cudaStream_t st) {
   const bool vec4 = K % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0;
-  const dim3 grid((unsigned)n_tiles, (K + DENSE_COLS - 1) / DENSE_COLS, 1);
-  neuron_layer_train_z_dense<<<grid, DENSE_THREADS, 0, st>>>(
-      x, w, z, part, rows, C, K, vec4, n_tiles);
+  neuron_layer_train_z_dense<<<grid_of(l), block_of(l), 0, st>>>(
+      x, w, z, part, rows, C, K, vec4, (int)l.grid[0]);
   return (int)cudaGetLastError();
 }
 
@@ -493,18 +507,25 @@ __global__ void __launch_bounds__(Tile::THREADS, Tile::MIN_BLOCKS)
   }
 }
 
+// The packed eval arm's launch: blocks of Tile::BM rows of a time step x
+// Tile::BN columns, each walking the T steps.
 template <class Tile>
-int launch_eval_mma(const e2a::mma::Operands& a, int T, const float* bias,
-                    float* s, float alpha, float th_fire, cudaStream_t st) {
-  static bool raised[e2a::mma::kMaxDevices] = {};
-  const int err = e2a::mma::allow_smem(
-      reinterpret_cast<const void*>(neuron_layer_eval_mma<Tile>),
-      EvalTile<Tile>::SMEM, raised);
+Launch eval_mma_plan(long long M, int K, Kernel k) {
+  Launch l = launch_of(Tile::THREADS, 1, EvalTile<Tile>::SMEM, k);
+  axis(l, 0, cdiv(M, Tile::BM), Tile::BM, M);
+  return axis(l, 1, cdiv(K, Tile::BN), Tile::BN, K);
+}
+
+template <class Tile>
+int launch_eval_mma(const Launch& l, const e2a::mma::Operands& a, int T,
+                    const float* bias, float* s, float alpha, float th_fire,
+                    cudaStream_t st) {
+  static bool raised[kMaxDevices] = {};
+  const int err = raise_smem(
+      l, reinterpret_cast<const void*>(neuron_layer_eval_mma<Tile>), raised);
   if (err != 0) return err;
-  const dim3 grid((unsigned)((a.M + Tile::BM - 1) / Tile::BM),
-                  (a.K + Tile::BN - 1) / Tile::BN, 1);
-  neuron_layer_eval_mma<Tile><<<grid, Tile::THREADS, EvalTile<Tile>::SMEM,
-                                st>>>(a, T, bias, s, alpha, th_fire);
+  neuron_layer_eval_mma<Tile><<<grid_of(l), block_of(l), l.smem, st>>>(
+      a, T, bias, s, alpha, th_fire);
   return (int)cudaGetLastError();
 }
 
@@ -617,41 +638,49 @@ __global__ void __launch_bounds__(ZTile::THREADS, ZTile::MIN_BLOCKS)
   }
 }
 
-int launch_train_z_packed(const e2a::mma::Operands& a, float* z, float* part,
-                          int n_tiles, cudaStream_t st) {
-  static bool raised[e2a::mma::kMaxDevices] = {};
-  const int err = e2a::mma::allow_smem(
-      reinterpret_cast<const void*>(neuron_layer_train_z_mma), ZTile::SMEM,
-      raised);
+int launch_train_z_packed(const Launch& l, const e2a::mma::Operands& a,
+                          float* z, float* part, cudaStream_t st) {
+  static bool raised[kMaxDevices] = {};
+  const int err = raise_smem(
+      l, reinterpret_cast<const void*>(neuron_layer_train_z_mma), raised);
   if (err != 0) return err;
-  const dim3 grid((unsigned)n_tiles, (a.K + ZTile::BN - 1) / ZTile::BN, 1);
-  neuron_layer_train_z_mma<<<grid, ZTile::THREADS, ZTile::SMEM, st>>>(
-      a, z, part, n_tiles);
+  neuron_layer_train_z_mma<<<grid_of(l), block_of(l), l.smem, st>>>(
+      a, z, part, (int)l.grid[0]);
   return (int)cudaGetLastError();
 }
 
-// Pass (a) of either arm: z (T, M, K), and the column partials into part
-// unless it is null; n_tiles receives the partials' tile count:
-// ceil(T * M / 256) for the packed arm (ZTile::BM; kernels/neuron_layer.py
-// TILE_ROWS), ceil(T * M / DENSE_TILE_ROWS) for the dense arm
-// (DENSE_TILE_ROWS there too). Returns a cudaError_t.
-int launch_z(const void* x, const float* w, float* z, float* part, int T,
-             long long M, int C, int K, int packed, int& n_tiles,
-             cudaStream_t st) {
+// Pass (a) of either arm over all T * M rows: ZTile::BM-row tiles for the
+// packed arm (kernels/neuron_layer.py TILE_ROWS), DENSE_TILE_ROWS for the
+// dense arm (DENSE_TILE_ROWS there too); grid.x is the partials' tile
+// count. Returns a cudaError_t.
+int z_plan(int T, long long M, int C, int K, int packed, Launch& l) {
   if (packed && C % 8 != 0) return (int)cudaErrorInvalidValue;
   if (T < 1 || T > 8) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)T * M;
-  if (packed) {
-    if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (!packed) {
+    l = dense_plan(rows, DENSE_TILE_ROWS, K, Z_DENSE);
+    return 0;
+  }
+  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  l = launch_of(ZTile::THREADS, 1, ZTile::SMEM, Z_MMA);
+  axis(l, 0, cdiv(rows, ZTile::BM), ZTile::BM, rows);
+  axis(l, 1, cdiv(K, ZTile::BN), ZTile::BN, K);
+  return 0;
+}
+
+// Pass (a) as z_plan planned it: z (T, M, K), and the column partials into
+// part unless it is null. Returns a cudaError_t.
+int launch_z(const Launch& l, const void* x, const float* w, float* z,
+             float* part, int T, long long M, int C, int K, cudaStream_t st) {
+  const long long rows = (long long)T * M;
+  if (l.kernel == Z_MMA) {
     // T is a row index here: x (T * M, C / 8) and z (T * M, K), contiguous
     const e2a::mma::Operands a = {static_cast<const uint8_t*>(x), C / 8, 1,
                                   w, K, 1, (int)rows, C, K};
-    n_tiles = (int)((rows + ZTile::BM - 1) / ZTile::BM);
-    return launch_train_z_packed(a, z, part, n_tiles, st);
+    return launch_train_z_packed(l, a, z, part, st);
   }
-  n_tiles = (int)((rows + DENSE_TILE_ROWS - 1) / DENSE_TILE_ROWS);
-  return launch_train_z_dense(static_cast<const float*>(x), w, z, part, rows,
-                              C, K, n_tiles, st);
+  return launch_train_z_dense(l, static_cast<const float*>(x), w, z, part,
+                              rows, C, K, st);
 }
 
 // (b): the statistics of each column; where sums is given (the split
@@ -747,22 +776,90 @@ __global__ void __launch_bounds__(SOMA_COLS* SOMA_LANES)
   }
 }
 
+// (c): SOMA_COLS column lanes (V = 4 columns each where K % 4 == 0) x
+// SOMA_LANES row lanes a block, ranges of SOMA_ROWS rows on grid.y (at most
+// MAX_ROW_BLOCKS of them).
+Launch soma_plan(long long M, int K) {
+  const bool v4 = K % 4 == 0;
+  const int V = v4 ? 4 : 1;
+  Launch l = launch_of(SOMA_COLS, SOMA_LANES, 0, v4 ? SOMA4 : SOMA1);
+  axis(l, 0, cdiv(K, SOMA_COLS * V), SOMA_COLS * V, K);
+  return axis(l, 1, row_blocks(M, SOMA_ROWS), SOMA_ROWS, M,
+              cdiv(M, SOMA_ROWS) > MAX_ROW_BLOCKS);
+}
+
 // (c) over z with the statistics in mu and sqrt_d. Returns a cudaError_t.
-int launch_soma(const float* z, const float* gamma, const float* beta,
-                const float* mu, const float* sqrt_d, float* s, int T,
-                long long M, int K, float alpha, float th_fire,
-                cudaStream_t st) {
-  const dim3 block(SOMA_COLS, SOMA_LANES);
-  const unsigned row_blocks = e2a::row_blocks(M, SOMA_ROWS);
-  if (K % 4 == 0)
-    neuron_layer_train_soma<4><<<dim3((K / 4 + SOMA_COLS - 1) / SOMA_COLS,
-                                      row_blocks), block, 0, st>>>(
+int launch_soma(const Launch& l, const float* z, const float* gamma,
+                const float* beta, const float* mu, const float* sqrt_d,
+                float* s, int T, long long M, int K, float alpha,
+                float th_fire, cudaStream_t st) {
+  if (l.kernel == SOMA4)
+    neuron_layer_train_soma<4><<<grid_of(l), block_of(l), 0, st>>>(
         z, gamma, beta, mu, sqrt_d, s, M, K, T, alpha, th_fire);
   else
-    neuron_layer_train_soma<1><<<dim3((K + SOMA_COLS - 1) / SOMA_COLS,
-                                      row_blocks), block, 0, st>>>(
+    neuron_layer_train_soma<1><<<grid_of(l), block_of(l), 0, st>>>(
         z, gamma, beta, mu, sqrt_d, s, M, K, T, alpha, th_fire);
   return (int)cudaGetLastError();
+}
+
+// (b), and the split path's finalize: a column a lane.
+Launch stats_plan(int K) {
+  Launch l = launch_of(STAT_COLS, STAT_LANES, 0, STATS);
+  return axis(l, 0, cdiv(K, STAT_COLS), STAT_COLS, K);
+}
+
+Launch finalize_plan(int K) {
+  Launch l = launch_of(256, 1, 0, FINALIZE);
+  return axis(l, 0, cdiv(K, 256), 256, K);
+}
+
+// The launches of each entry point, in order; n = 0 where it launches
+// nothing. Each returns a cudaError_t.
+int eval_plan(int T, long long M, int C, int K, int packed, int tile,
+              Launch* l, int& n) {
+  n = 0;
+  if (M <= 0 || K <= 0) return 0;
+  if (T < 1 || T > 8 || tile < 0 || tile > 2)
+    return (int)cudaErrorInvalidValue;
+  if (!packed) {
+    l[n++] = dense_plan(M, DENSE_ROWS, K, EVAL_DENSE);
+    return 0;
+  }
+  if (C % 8 != 0 || M > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (tile == 0) tile = eval_tile(M, K);
+  l[n++] = tile == 1 ? eval_mma_plan<e2a::mma::Large>(M, K, EVAL_LARGE)
+                     : eval_mma_plan<e2a::mma::Small>(M, K, EVAL_SMALL);
+  return 0;
+}
+
+int train_plan(int T, long long M, int C, int K, int packed, bool soma,
+               Launch* l, int& n) {
+  n = 0;
+  if (M <= 0 || K <= 0) return 0;
+  const int code = z_plan(T, M, C, K, packed, l[0]);
+  if (code != 0) return code;
+  l[1] = stats_plan(K);
+  n = 2;
+  if (soma) l[n++] = soma_plan(M, K);
+  return 0;
+}
+
+int train_apply_plan(int T, long long M, int K, Launch* l, int& n) {
+  n = 0;
+  if (K <= 0) return 0;
+  if (T < 1 || T > 8) return (int)cudaErrorInvalidValue;
+  l[n++] = finalize_plan(K);
+  if (M > 0) l[n++] = soma_plan(M, K);
+  return 0;
+}
+
+int train_z_plan(int T, long long M, int C, int K, int packed, Launch* l,
+                 int& n) {
+  n = 0;
+  if (M <= 0 || K <= 0) return 0;
+  const int code = z_plan(T, M, C, K, packed, l[0]);
+  if (code == 0) n = 1;
+  return code;
 }
 
 }  // namespace
@@ -775,29 +872,38 @@ extern "C" int e2a_neuron_layer_eval(const void* x, const float* w,
                                      long long M, int C, int K, int packed,
                                      int tile, float alpha, float th_fire,
                                      void* stream) {
-  if (M <= 0 || K <= 0) return 0;
-  if (T < 1 || T > 8 || tile < 0 || tile > 2) return (int)cudaErrorInvalidValue;
+  Launch l[kMaxLaunches];
+  int n = 0;
+  const int code = eval_plan(T, M, C, K, packed, tile, l, n);
+  if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (packed) {
-    if (C % 8 != 0 || M > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    // x (T, M, C / 8): time step t's rows start at t * M * (C / 8)
-    const e2a::mma::Operands a = {static_cast<const uint8_t*>(x), C / 8, 1,
-                                  w, K, 1, (int)M, C, K};
-    if (tile == 0) tile = eval_tile(M, K);
-    return tile == 1
-               ? launch_eval_mma<e2a::mma::Large>(a, T, bias, s, alpha,
-                                                  th_fire, st)
-               : launch_eval_mma<e2a::mma::Small>(a, T, bias, s, alpha,
-                                                  th_fire, st);
-  }
-  return launch_eval_dense(static_cast<const float*>(x), w, bias, s, T, M, C,
-                           K, alpha, th_fire, st);
+  if (l[0].kernel == EVAL_DENSE)
+    return launch_eval_dense(l[0], static_cast<const float*>(x), w, bias, s,
+                             T, M, C, K, alpha, th_fire, st);
+  // x (T, M, C / 8): time step t's rows start at t * M * (C / 8)
+  const e2a::mma::Operands a = {static_cast<const uint8_t*>(x), C / 8, 1, w,
+                                K, 1, (int)M, C, K};
+  return l[0].kernel == EVAL_LARGE
+             ? launch_eval_mma<e2a::mma::Large>(l[0], a, T, bias, s, alpha,
+                                                th_fire, st)
+             : launch_eval_mma<e2a::mma::Small>(l[0], a, T, bias, s, alpha,
+                                                th_fire, st);
+}
+
+extern "C" int e2a_neuron_layer_eval_plan(
+    const void* x, const float* w, const float* bias, float* s, int T,
+    long long M, int C, int K, int packed, int tile, float alpha,
+    float th_fire, long long* records, int cap) {
+  Launch l[kMaxLaunches];
+  int n = 0;
+  const int code = eval_plan(T, M, C, K, packed, tile, l, n);
+  return write_plan(code, l, n, records, cap);
 }
 
 // Train mode: x (T, M, C) [packed: (T, M, C/8) uint8] @ w (C, K) -> batch
 // statistics over T * M rows -> BN -> SOMA. Writes s (T, M, K) and mu, var,
 // sqrt_d (K); z (T, M, K) and part are scratch. part holds (2, n_tiles, K)
-// floats, n_tiles as launch_z gives it.
+// floats, n_tiles the z pass's grid.x (z_plan).
 extern "C" int e2a_neuron_layer_train(const void* x, const float* w,
                                       const float* gamma, const float* beta,
                                       float* z, float* part, float* mu,
@@ -805,16 +911,29 @@ extern "C" int e2a_neuron_layer_train(const void* x, const float* w,
                                       int T, long long M, int C, int K,
                                       int packed, float alpha, float th_fire,
                                       float eps, void* stream) {
-  if (M <= 0 || K <= 0) return 0;
+  Launch l[kMaxLaunches];
+  int n = 0;
+  int code = train_plan(T, M, C, K, packed, true, l, n);
+  if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int n_tiles = 0;
-  const int code = launch_z(x, w, z, part, T, M, C, K, packed, n_tiles, st);
+  code = launch_z(l[0], x, w, z, part, T, M, C, K, st);
   if (code != 0) return code;
-  neuron_layer_train_stats<<<(K + STAT_COLS - 1) / STAT_COLS,
-                             dim3(STAT_COLS, STAT_LANES), 0, st>>>(
-      part, mu, var, sqrt_d, nullptr, n_tiles, K, (double)T * M, eps);
-  return launch_soma(z, gamma, beta, mu, sqrt_d, s, T, M, K, alpha, th_fire,
-                     st);
+  neuron_layer_train_stats<<<grid_of(l[1]), block_of(l[1]), 0, st>>>(
+      part, mu, var, sqrt_d, nullptr, (int)l[0].grid[0], K, (double)T * M,
+      eps);
+  return launch_soma(l[2], z, gamma, beta, mu, sqrt_d, s, T, M, K, alpha,
+                     th_fire, st);
+}
+
+extern "C" int e2a_neuron_layer_train_plan(
+    const void* x, const float* w, const float* gamma, const float* beta,
+    float* z, float* part, float* mu, float* var, float* sqrt_d, float* s,
+    int T, long long M, int C, int K, int packed, float alpha, float th_fire,
+    float eps, long long* records, int cap) {
+  Launch l[kMaxLaunches];
+  int n = 0;
+  const int code = train_plan(T, M, C, K, packed, true, l, n);
+  return write_plan(code, l, n, records, cap);
 }
 
 // Split path, before the all-reduce: pass (a), then sums (2 * K + 1
@@ -825,16 +944,26 @@ extern "C" int e2a_neuron_layer_train_sums(const void* x, const float* w,
                                            double* sums, int T, long long M,
                                            int C, int K, int packed,
                                            void* stream) {
-  if (M <= 0 || K <= 0) return 0;
+  Launch l[kMaxLaunches];
+  int n = 0;
+  int code = train_plan(T, M, C, K, packed, false, l, n);
+  if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int n_tiles = 0;
-  const int code = launch_z(x, w, z, part, T, M, C, K, packed, n_tiles, st);
+  code = launch_z(l[0], x, w, z, part, T, M, C, K, st);
   if (code != 0) return code;
-  neuron_layer_train_stats<<<(K + STAT_COLS - 1) / STAT_COLS,
-                             dim3(STAT_COLS, STAT_LANES), 0, st>>>(
-      part, nullptr, nullptr, nullptr, sums, n_tiles, K, (double)T * M,
-      0.0f);
+  neuron_layer_train_stats<<<grid_of(l[1]), block_of(l[1]), 0, st>>>(
+      part, nullptr, nullptr, nullptr, sums, (int)l[0].grid[0], K,
+      (double)T * M, 0.0f);
   return (int)cudaGetLastError();
+}
+
+extern "C" int e2a_neuron_layer_train_sums_plan(
+    const void* x, const float* w, float* z, float* part, double* sums, int T,
+    long long M, int C, int K, int packed, long long* records, int cap) {
+  Launch l[kMaxLaunches];
+  int n = 0;
+  const int code = train_plan(T, M, C, K, packed, false, l, n);
+  return write_plan(code, l, n, records, cap);
 }
 
 // Split path, after the all-reduce: mu, var and sqrt_d (K) from the global
@@ -847,14 +976,26 @@ extern "C" int e2a_neuron_layer_train_apply(const float* z,
                                             float* s, int T, long long M,
                                             int K, float alpha, float th_fire,
                                             float eps, void* stream) {
-  if (K <= 0) return 0;
-  if (T < 1 || T > 8) return (int)cudaErrorInvalidValue;
+  Launch l[kMaxLaunches];
+  int n = 0;
+  const int code = train_apply_plan(T, M, K, l, n);
+  if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  neuron_layer_train_finalize<<<(K + 255) / 256, 256, 0, st>>>(
+  neuron_layer_train_finalize<<<grid_of(l[0]), block_of(l[0]), 0, st>>>(
       sums, K, eps, mu, var, sqrt_d);
-  if (M <= 0) return (int)cudaGetLastError();
-  return launch_soma(z, gamma, beta, mu, sqrt_d, s, T, M, K, alpha, th_fire,
-                     st);
+  if (n == 1) return (int)cudaGetLastError();
+  return launch_soma(l[1], z, gamma, beta, mu, sqrt_d, s, T, M, K, alpha,
+                     th_fire, st);
+}
+
+extern "C" int e2a_neuron_layer_train_apply_plan(
+    const float* z, const float* gamma, const float* beta, const double* sums,
+    float* mu, float* var, float* sqrt_d, float* s, int T, long long M, int K,
+    float alpha, float th_fire, float eps, long long* records, int cap) {
+  Launch l[kMaxLaunches];
+  int n = 0;
+  const int code = train_apply_plan(T, M, K, l, n);
+  return write_plan(code, l, n, records, cap);
 }
 
 // Pass (a) of the train mode alone: z (T, M, K) = x @ w, the same kernel,
@@ -863,8 +1004,19 @@ extern "C" int e2a_neuron_layer_train_apply(const float* z,
 extern "C" int e2a_neuron_layer_train_z(const void* x, const float* w,
                                         float* z, int T, long long M, int C,
                                         int K, int packed, void* stream) {
-  if (M <= 0 || K <= 0) return 0;
-  int n_tiles = 0;
-  return launch_z(x, w, z, nullptr, T, M, C, K, packed, n_tiles,
+  Launch l[kMaxLaunches];
+  int n = 0;
+  const int code = train_z_plan(T, M, C, K, packed, l, n);
+  if (code != 0 || n == 0) return code;
+  return launch_z(l[0], x, w, z, nullptr, T, M, C, K,
                   static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int e2a_neuron_layer_train_z_plan(
+    const void* x, const float* w, float* z, int T, long long M, int C, int K,
+    int packed, long long* records, int cap) {
+  Launch l[kMaxLaunches];
+  int n = 0;
+  const int code = train_z_plan(T, M, C, K, packed, l, n);
+  return write_plan(code, l, n, records, cap);
 }

@@ -41,6 +41,7 @@
 // What bounds it: at pssa.proj and smlp.b three dense bf16 passes, 3 * 2MCK
 // operations at the tensor cores' rate; at attn_qk (C = 64) the bytes of
 // the K^T operand and of out.
+#include "launch_plan.cuh"
 #include "spike_mma_mainloop.cuh"
 
 namespace {
@@ -102,15 +103,39 @@ __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
     }
 }
 
+// The one launch of tile T: blocks of BM rows x BN columns, one batch a
+// grid.z index.
 template <class T>
-int launch(const Args& a, unsigned G, cudaStream_t stream) {
-  static bool raised[kMaxDevices] = {};
-  const int err = allow_smem(reinterpret_cast<const void*>(
-                                 spike_mma_kernel<T>), T::SMEM, raised);
+e2a::Launch tile_plan(int M, int K, long long G, int kernel) {
+  e2a::Launch l = e2a::launch_of(T::THREADS, 1, T::SMEM, kernel);
+  e2a::axis(l, 0, e2a::cdiv(M, T::BM), T::BM, M);
+  e2a::axis(l, 1, e2a::cdiv(K, T::BN), T::BN, K);
+  return e2a::axis(l, 2, G, 1, G);
+}
+
+template <class T>
+int launch(const Args& a, const e2a::Launch& l, cudaStream_t stream) {
+  static bool raised[e2a::kMaxDevices] = {};
+  const int err = e2a::raise_smem(
+      l, reinterpret_cast<const void*>(spike_mma_kernel<T>), raised);
   if (err != 0) return err;
-  const dim3 grid((a.M + T::BM - 1) / T::BM, (a.K + T::BN - 1) / T::BN, G);
-  spike_mma_kernel<T><<<grid, T::THREADS, T::SMEM, stream>>>(a);
+  spike_mma_kernel<T><<<e2a::grid_of(l), e2a::block_of(l), l.smem,
+                        stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The launches of e2a_spike_matmul (none for an empty output). Returns a
+// cudaError_t.
+int plan(int G1, int G2, int M, int C, int K, int tile, e2a::Launch* l,
+         int& n) {
+  n = 0;
+  if (G1 <= 0 || G2 <= 0 || M <= 0 || K <= 0) return 0;
+  const long long G = (long long)G1 * G2;
+  if (G > 65535 || C < 0 || C % 8 != 0 || tile < 1 || tile > 2)
+    return (int)cudaErrorInvalidValue;
+  l[n++] = tile == 2 ? tile_plan<Small>(M, K, G, 2)
+                     : tile_plan<Large>(M, K, G, 1);
+  return 0;
 }
 
 }  // namespace
@@ -123,14 +148,29 @@ extern "C" int e2a_spike_matmul(
     long long p_b, long long w_g1, long long w_g2, long long w_c,
     long long w_k, long long o_g1, long long o_g2, long long o_m,
     long long o_k, int tile, void* stream) {
-  if (G1 <= 0 || G2 <= 0 || M <= 0 || K <= 0) return 0;
-  const long long G = (long long)G1 * G2;
-  if (G > 65535 || C < 0 || C % 8 != 0 || tile < 1 || tile > 2)
-    return (int)cudaErrorInvalidValue;
+  e2a::Launch l[e2a::kMaxLaunches];
+  int n = 0;
+  const int code = plan(G1, G2, M, C, K, tile, l, n);
+  if (code != 0 || n == 0) return code;
   const Args a = {packed, w, out, G2, M, C, K,
                   {p_g1, p_g2, p_m, p_b}, {w_g1, w_g2, w_c, w_k},
                   {o_g1, o_g2, o_m, o_k}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return tile == 2 ? launch<Small>(a, (unsigned)G, s)
-                   : launch<Large>(a, (unsigned)G, s);
+  return l[0].kernel == 2 ? launch<Small>(a, l[0], s)
+                          : launch<Large>(a, l[0], s);
+}
+
+extern "C" int e2a_spike_matmul_plan(const uint8_t* packed, const float* w,
+                                     float* out, int G1, int G2, int M, int C,
+                                     int K, long long p_g1, long long p_g2,
+                                     long long p_m, long long p_b,
+                                     long long w_g1, long long w_g2,
+                                     long long w_c, long long w_k,
+                                     long long o_g1, long long o_g2,
+                                     long long o_m, long long o_k, int tile,
+                                     long long* records, int cap) {
+  e2a::Launch l[e2a::kMaxLaunches];
+  int n = 0;
+  const int code = plan(G1, G2, M, C, K, tile, l, n);
+  return e2a::write_plan(code, l, n, records, cap);
 }

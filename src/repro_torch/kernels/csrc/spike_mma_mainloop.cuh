@@ -275,26 +275,5 @@ __device__ __forceinline__ void mainloop(const Operands& a, long long m0,
   }
 }
 
-// Above 48 KB a kernel must ask for its dynamic shared memory, once per
-// device: `raised` is the caller's record for one kernel. A repeat of the
-// request is harmless, so a race between two host threads costs nothing.
-// Returns a cudaError_t.
-constexpr int kMaxDevices = 64;
-
-inline int allow_smem(const void* kernel, int bytes,
-                      bool (&raised)[kMaxDevices]) {
-  if (bytes <= 48 * 1024) return 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < kMaxDevices && raised[dev]) return 0;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < kMaxDevices) raised[dev] = true;
-  return 0;
-}
-
 }  // namespace mma
 }  // namespace e2a

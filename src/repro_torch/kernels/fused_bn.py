@@ -327,3 +327,45 @@ def bn_bwd_apply(g, x, gamma, mu, sqrt_d, sums) -> torch.Tensor:
 #: Kernel launches since the counts were last set to 0.
 bn_fwd.launches = 0
 bn_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel-contract declarations (repro_torch.analysis.contracts). BN runs at
+# its own sites (tokenizer.bn under the dense conv stage), inside the
+# pipeline arms of linear_bn and the conv, and in the neuron layer's
+# backward, always on (T * M, K) rows: the builders fold the case's (t, m)
+# into the row axis.
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import ref as _ref  # noqa: E402
+from repro_torch.kernels.contract import (KernelContract,  # noqa: E402
+                                          declare_contract, meta)
+
+_BN_SERVES = (("bn", "cuda"), ("linear_bn", "cuda"),
+              ("linear_bn", "cuda+spike_mm"), ("conv", "cuda"),
+              ("conv", "cuda_packed"))
+
+
+def _build_bn_fwd(case):
+    dt = case.torch_dtype
+    args = (meta(case.t * case.m, case.k, dtype=dt), meta(case.k, dtype=dt),
+            meta(case.k, dtype=dt))
+    return args, {}, {}
+
+
+def _build_bn_bwd(case):
+    dt, rows = case.torch_dtype, case.t * case.m
+    args = (meta(rows, case.k, dtype=dt), meta(rows, case.k, dtype=dt),
+            meta(case.k, dtype=dt), meta(1, case.k), meta(1, case.k))
+    return args, {}, {}
+
+
+declare_contract(KernelContract(
+    name="bn_fwd", kernel="bn_fwd", fn=bn_fwd, build=_build_bn_fwd,
+    ref=_ref.bn_fwd_ref, serves=_BN_SERVES))
+
+declare_contract(KernelContract(
+    name="bn_bwd", kernel="bn_bwd", fn=bn_bwd, build=_build_bn_bwd,
+    ref=_ref.bn_bwd_ref,
+    serves=_BN_SERVES + (("linear_bn", "fused_epilogue"),
+                         ("conv", "fused_epilogue"))))

@@ -254,3 +254,46 @@ def lif_soma_bwd(g: torch.Tensor, u_seq: torch.Tensor, spikes: torch.Tensor,
 #: not count).
 lif_soma_fwd.launches = 0
 lif_soma_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel-contract declarations (repro_torch.analysis.contracts). The
+# backward also runs in the neuron layer's backward, at its (T, M, K).
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import ref as _ref  # noqa: E402
+from repro_torch.kernels.contract import (KernelContract,  # noqa: E402
+                                          declare_contract, meta)
+
+
+def _build_lif_fwd(case):
+    return (meta(case.t, case.m, case.k, dtype=case.torch_dtype),), {}, {}
+
+
+def _build_lif_bwd(case):
+    args = tuple(meta(case.t, case.m, case.k, dtype=case.torch_dtype)
+                 for _ in range(4))
+    kw = {"alpha": 0.5, "grad_scale": 1.0}
+    return args, kw, kw
+
+
+def _build_lif_bwd_carry(case):
+    args, kw, _ = _build_lif_bwd(case)
+    return args + (meta(case.m, case.k, dtype=case.torch_dtype),), kw, kw
+
+
+declare_contract(KernelContract(
+    name="lif_soma_fwd", kernel="lif_soma_fwd", fn=lif_soma_fwd,
+    build=_build_lif_fwd, ref=_ref.lif_soma_fwd_ref,
+    serves=(("lif", "cuda"), ("lif_state", "cuda"))))
+
+declare_contract(KernelContract(
+    name="lif_soma_bwd", kernel="lif_soma_bwd", fn=lif_soma_bwd,
+    build=_build_lif_bwd, ref=_ref.lif_soma_bwd_ref,
+    serves=(("lif", "cuda"), ("linear_bn", "fused_epilogue"),
+            ("conv", "fused_epilogue"))))
+
+declare_contract(KernelContract(
+    name="lif_soma_bwd_carry", kernel="lif_soma_bwd", fn=lif_soma_bwd,
+    build=_build_lif_bwd_carry, ref=_ref.lif_soma_bwd_carry_ref,
+    serves=(("lif_state", "cuda"),)))

@@ -313,3 +313,49 @@ def neuron_layer_train_z(x: torch.Tensor, w: torch.Tensor, *,
 #: Kernel launches since the counts were last set to 0.
 neuron_layer_eval.launches = 0
 neuron_layer_train.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel-contract declarations (repro_torch.analysis.contracts). The layer
+# runs dense or bit-packed; the packed arm requires C % 8 == 0 (the planner
+# demotes to the dense arm otherwise), so both arms are declared through the
+# case's ``packed`` flag.
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import ref as _ref  # noqa: E402
+from repro_torch.kernels.contract import (KernelContract,  # noqa: E402
+                                          SkipCase, declare_contract, meta)
+
+_NL_SERVES = (("linear_bn", "fused_epilogue"), ("conv", "fused_epilogue"))
+
+
+def _nl_packed(case) -> bool:
+    if case.packed and case.c % 8 != 0:
+        raise SkipCase(f"packed arm with C {case.c} % 8 != 0 never launches")
+    return case.packed
+
+
+def _build_nl_train(case):
+    dt, packed = case.torch_dtype, _nl_packed(case)
+    args = (meta(case.t, case.m, case.c, dtype=dt),
+            meta(case.c, case.k, dtype=dt), meta(case.k, dtype=dt),
+            meta(case.k, dtype=dt))
+    return args, {"packed": packed}, {}
+
+
+def _build_nl_eval(case):
+    dt, packed = case.torch_dtype, _nl_packed(case)
+    args = (meta(case.t, case.m, case.c, dtype=dt),
+            meta(case.c, case.k, dtype=dt), meta(case.k))
+    return args, {"packed": packed}, {}
+
+
+declare_contract(KernelContract(
+    name="neuron_layer_train", kernel="neuron_layer_train",
+    fn=neuron_layer_train, build=_build_nl_train,
+    ref=_ref.neuron_layer_train_ref, serves=_NL_SERVES))
+
+declare_contract(KernelContract(
+    name="neuron_layer_eval", kernel="neuron_layer_eval",
+    fn=neuron_layer_eval, build=_build_nl_eval,
+    ref=_ref.neuron_layer_eval_ref, serves=_NL_SERVES))

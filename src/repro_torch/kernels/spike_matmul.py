@@ -230,3 +230,41 @@ def spike_matmul_batched(spikes: torch.Tensor, w: torch.Tensor,
 #: Kernel launches since the counts were last set to 0.
 spike_matmul_packed.launches = 0
 spike_matmul_packed_batched.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel-contract declarations (repro_torch.analysis.contracts): the
+# builders hand the convenience entry points unpacked {0,1} spikes.
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import ref as _ref  # noqa: E402
+from repro_torch.kernels.contract import (KernelContract,  # noqa: E402
+                                          SkipCase, declare_contract, meta)
+
+
+def _build_spike_matmul(case):
+    if case.c % 8 != 0:
+        raise SkipCase(f"contraction {case.c} % 8 != 0 -> dense fallback")
+    args = (meta(case.t * case.m, case.c, dtype=case.torch_dtype),
+            meta(case.c, case.k, dtype=case.torch_dtype))
+    return args, {}, {}
+
+
+def _build_spike_matmul_batched(case):
+    if case.c % 8 != 0:
+        raise SkipCase(f"contraction {case.c} % 8 != 0 -> eager einsum")
+    args = (meta(case.t, case.m, case.c, dtype=case.torch_dtype),
+            meta(case.t, case.c, case.k, dtype=case.torch_dtype))
+    return args, {}, {}
+
+
+declare_contract(KernelContract(
+    name="spike_matmul", kernel="spike_matmul_packed", fn=spike_matmul,
+    build=_build_spike_matmul, ref=_ref.spike_matmul_ref,
+    serves=(("linear_bn", "cuda+spike_mm"),)))
+
+declare_contract(KernelContract(
+    name="spike_matmul_batched", kernel="spike_matmul_packed_batched",
+    fn=spike_matmul_batched, build=_build_spike_matmul_batched,
+    ref=_ref.spike_matmul_batched_ref,
+    serves=(("attn_qk", "cuda_packed"), ("attn_av", "cuda_packed"))))

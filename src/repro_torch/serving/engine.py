@@ -13,11 +13,11 @@
   disturbed: prefill-into-slot happens while other slots keep generating.
 * **One fused step of fixed shapes.** The step (slot reset + batched
   one-token decode) serves prefill (teacher-forcing prompt tokens) and
-  generation for all slots. Its inputs' shapes and dtypes never change over
-  the engine's life: the engine records them at the first step
-  (``step_signature``) and raises if a later step differs. This is the
-  reference's single-trace contract; a CUDA graph of the step is ROADMAP
-  work.
+  generation for all slots. Its inputs' shapes, dtypes and layouts never
+  change over the engine's life: the engine records them at the first step
+  (``step_signature``, ``repro_torch.analysis.tracing.signature_of``) and
+  raises if a later step differs. This is the reference's single-trace
+  contract; a CUDA graph of the step is ROADMAP work.
 * **Scheduler.** A FIFO queue + slot map (``serving.scheduler``) with
   per-request deadlines, max-token budgets and explicit (never silent)
   over-capacity and over-length rejection.
@@ -36,20 +36,14 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.analysis.tracing import signature_of
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.backend import resolve_device
-from repro_torch.core.spikingformer import tree_leaves
 from repro_torch.models.lm import (cache_slot_state, init_cache,
                                    lm_decode_step, reset_cache_slots)
 from repro_torch.serving.scheduler import FIFOScheduler, Request, SlotError
 
 __all__ = ["Request", "ServingEngine", "SlotError"]
-
-
-def _signature(*trees) -> tuple:
-    """(shape, dtype, device) of every tensor of ``trees``, in order."""
-    return tuple((tuple(t.shape), t.dtype, t.device)
-                 for t in tree_leaves(list(trees)))
 
 
 class ServingEngine:
@@ -91,8 +85,9 @@ class ServingEngine:
 
         # Device-resident persistent state: created once, never rebuilt.
         self.cache = init_cache(cfg, slots, max_seq, cache_dtype, self.device)
-        #: (shape, dtype, device) of every input of the fused step, from
-        #: the first step on; a step whose inputs differ raises.
+        #: (shape, dtype, device, strides) of every tensor input of the
+        #: fused step but the weights (``analysis.tracing.signature_of``),
+        #: from the first step on; a step whose inputs differ raises.
         self.step_signature: tuple | None = None
 
         # Host-side per-slot bookkeeping.
@@ -179,7 +174,7 @@ class ServingEngine:
         inputs = (torch.tensor(self._next_tok, device=self.device),
                   torch.tensor(self._pos, device=self.device),
                   torch.tensor(reset_mask, device=self.device))
-        sig = _signature(self.cache, *inputs)
+        sig = signature_of(self.cache, *inputs)
         if self.step_signature is None:
             self.step_signature = sig
         elif sig != self.step_signature:

@@ -36,6 +36,8 @@ logger = logging.getLogger(__name__)
 
 TABLE_VERSION = 1
 ENV_VAR = "REPRO_TORCH_TUNED_BLOCKS"
+#: The arms an entry of a trailing-LIF site may name.
+ARMS = ("fused", "pipeline")
 #: Repo-default table location (only consulted when the file exists).
 DEFAULT_PATH = pathlib.Path(__file__).resolve().parents[3] / "benchmarks" \
     / "torch" / "tuned_blocks.json"

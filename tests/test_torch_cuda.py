@@ -1202,3 +1202,46 @@ def test_mesh_step_is_the_mesh_less_step_at_a_world_of_one(world_of_one):
                                                  out["none"][0]))
     assert all(torch.equal(a, b) for a, b in zip(out["mesh"][1],
                                                  out["none"][1]))
+
+
+# ---------------------------------------------------------------------------
+# The analysis on the card: every contract against the oracles of
+# kernels/ref.py, and the launch family of the contract verifier
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_every_contract_case_against_the_oracle_on_the_card():
+    """Each of the ten contracts at each of its site geometries at batch 1
+    (the matrix of ``analysis.contracts.kernel_cases``) launched on the
+    card and held against ``kernels/ref.py`` (``hold_against_oracle``'s
+    tolerances)."""
+    from repro_torch.analysis.contracts import (hold_against_oracle,
+                                                kernel_cases)
+    from repro_torch.kernels.contract import SkipCase, kernel_contracts
+
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for where, decl, case in kernel_cases(batch=1):
+        try:
+            rows.append((where, hold_against_oracle(decl, case, gen)))
+        except SkipCase:
+            continue
+    bad = [(w, r) for w, r in rows if not r["ok"]]
+    assert not bad, bad[:5]
+    assert {r["contract"] for _, r in rows} == set(kernel_contracts())
+
+
+@pytest.mark.cuda
+def test_the_launch_family_runs_clean_on_the_card():
+    """Every declared case at batch 16: the launches read from the plan
+    exports are within the card's limits, and none was made."""
+    from repro_torch.analysis.contracts import (audit_kernel_matrix,
+                                                launch_family_ran)
+
+    _card()
+    before = launch_counts()
+    findings = audit_kernel_matrix(batch=16, launches=True)
+    assert launch_family_ran(findings)
+    assert [f.format() for f in findings if f.level == "error"] == []
+    assert launch_counts() == before

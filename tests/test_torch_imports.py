@@ -55,10 +55,32 @@ def test_modules_are_where_the_reference_has_them():
                  "core.energy.dataflow", "core.energy.energy_model",
                  "core.energy.simulator", "core.energy.workload",
                  "analysis.audit", "tune.table", "tune.workloads",
-                 "tune.oracle", "tune.sparsity", "tune.autotune"):
+                 "tune.oracle", "tune.sparsity", "tune.autotune",
+                 "kernels.ref", "kernels.contract", "analysis.report",
+                 "analysis.tracing", "analysis.contracts", "analysis.lint",
+                 "analysis.__main__"):
         assert f"repro_torch.{name}" in MODULES
         assert (ROOT / "src" / "repro" / (name.replace(".", "/") + ".py")) \
             .is_file()
+
+
+def test_the_analysis_modules_name_neither_jax_nor_repro():
+    """The modules of the kernel oracles, the contracts and the analysis,
+    and ``chip_smoke.py``, have no import of ``jax`` or ``repro`` in their
+    source, not even one a branch never reaches (the port's lint rule
+    E2A101 reads every import statement)."""
+    from repro_torch.analysis.lint import lint_source
+
+    files = [ROOT / "chip_smoke.py"] + [
+        ROOT / "src" / "repro_torch" / f for f in (
+            "kernels/ref.py", "kernels/contract.py", "analysis/__init__.py",
+            "analysis/report.py", "analysis/tracing.py",
+            "analysis/contracts.py", "analysis/audit.py", "analysis/lint.py",
+            "analysis/__main__.py")]
+    for f in files:
+        found = [x for x in lint_source(f.read_text(), str(f))
+                 if x.check == "E2A101"]
+        assert found == [], (f, found)
 
 
 def test_importing_every_module_leaves_jax_and_repro_out():
