@@ -95,7 +95,16 @@ arm) timed with the L2 cold, the winners written as a table keyed by the
 card and consulted by a forward and a training step, each compared with
 the same call without a table (exact weights: the forward bit-equal), and
 the paper's energy model (its 28 nm ASIC, not this card) at the default
-and the measured sparsity. Every other phase runs with no table. It
+and the measured sparsity. Every other phase runs with no table. Last,
+the dry run (``repro_torch.launch.dryrun``): a child process counts the
+``train`` and ``lm_train`` phases' steps on ``meta`` tensors at a world of
+1, as they ran, and each estimate is held against the same step measured
+here (one step after a warm-up): the peak within 15 % of
+``max_memory_allocated`` above what was allocated before its inputs, the
+roofline's largest term no more than the step's device busy ms, the useful
+flops ratio at most 1.05, the kernel sites the launches; then
+``qwen3-0.6b`` x ``decode_32k`` on ``data16`` through the module's
+command line, its terms, peak and ``fits`` printed. It
 needs one CUDA device and ``nvcc`` and fails (non-zero exit, no result
 line) without them. Every phase prints one JSON line; the line before the
 last but one lists the kernels, and the last line is the verdict.
@@ -198,6 +207,7 @@ from repro_torch.models.common import (embed, layer, rmsnorm,  # noqa: E402
 from repro_torch.models.encdec import (decode_train,  # noqa: E402
                                        encdec_decode_step, encode,
                                        init_encdec_cache)
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.train import (build_state, train,  # noqa: E402
                                      train_vision)
 from repro_torch.models.lm import (_dense_block,  # noqa: E402
@@ -220,9 +230,10 @@ from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
 from repro_torch.tune.autotune import (L2_BYTES, l2_cold,  # noqa: E402,F401
                                        queued_ms)
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
-FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
-BF16_FLOPS = 989e12            # H100 SXM dense bf16 on the tensor cores
+# the H100 SXM's published rates, from the dry run's constants
+HBM_BYTES_PER_S = dryrun.HBM_BW           # HBM3, bytes/s
+FP32_FLOPS = dryrun.PEAK_FLOPS_FP32       # fp32 outside the tensor cores
+BF16_FLOPS = dryrun.PEAK_FLOPS            # dense bf16 on the tensor cores
 PRESET = "spikingformer-8-512"
 REQUESTS, BATCH = 3, 16         # request batches served, images in each
 TRAIN_STEPS = 3                 # training steps counted, after one warm-up
@@ -3280,6 +3291,208 @@ def analysis_phase(seed: int) -> dict[str, dict]:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phase 11: the dry run held against the card (launch/dryrun.py)
+# ---------------------------------------------------------------------------
+
+#: The estimated peak of a step within this share of the measured one.
+DRYRUN_PEAK_BAND = 0.15
+#: The counted flops may undercount the model's by this much at most.
+DRYRUN_RATIO_MAX = 1.05
+#: The production cell counted on ``data16`` (well under 90 s on the host).
+DRYRUN_CELL = (LM_ARCH, "decode_32k")
+DRYRUN_TIMEOUT_S = 300
+
+
+def dryrun_cells() -> dict:
+    """The two training steps this script measures, as they run in it: name
+    -> (config, ``launch.specs.ShapeSpec``); a world of 1, fp32."""
+    from repro_torch.launch.specs import ShapeSpec
+    return {"train": (get_spikingformer_config(PRESET + "@cuda-full"),
+                      ShapeSpec("train", 0, BATCH)),
+            "lm_train": (lm_train_config("cuda-full"),
+                         ShapeSpec("train", LM_TRAIN_SEQ, LM_TRAIN_BATCH))}
+
+
+def dryrun_child(path: str) -> None:
+    """The estimating side of the phase, in its own process (the parent's
+    card work and process groups stay apart from the dry run's): each step
+    of :func:`dryrun_cells` counted on ``meta`` tensors at a world of 1
+    (``launch.specs.input_specs`` on a (1, 1) abstract mesh gives the
+    mesh-less step the phases ran), written to ``path`` as JSON."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.specs import input_specs
+    world1 = AbstractMesh(("data", "model"), (1, 1))
+    out = {}
+    for name, (cfg, shape) in dryrun_cells().items():
+        fn, structs, _ = input_specs(cfg, shape, world1)
+        counts = dryrun.count_step(fn, structs)
+        del structs
+        out[name] = dryrun.cell_result(getattr(cfg, "name", PRESET), shape,
+                                       cfg, counts, "world1", 1)
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def run_child(cmd: list[str], what: str) -> subprocess.CompletedProcess:
+    """``cmd`` in a process of its own with ``src`` on its path; fails the
+    script on a non-zero exit."""
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent
+                                           / "src")}
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         timeout=DRYRUN_TIMEOUT_S)
+    if out.returncode != 0:
+        fail(f"dryrun: {what} exited {out.returncode}: "
+             f"{(out.stdout + out.stderr)[-3000:]}")
+    return out
+
+
+def measured_vision_step(seed: int):
+    """The ``train`` phase's step (``make_train_step`` at the preset,
+    ``cuda-full``, batch ``BATCH``) and its inputs on the card."""
+    cfg = get_spikingformer_config(PRESET + "@cuda-full")
+    params, state = init_spikingformer(torch.Generator().manual_seed(seed),
+                                       cfg, DEVICE)
+    data = SyntheticVision(VisionDataConfig(
+        image_size=cfg.image_size, num_classes=cfg.num_classes,
+        global_batch=BATCH, channels=cfg.in_channels, seed=seed))
+    b = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.batch(0).items()}
+    step = make_train_step(cfg, OptimizerConfig(lr=1e-3, warmup_steps=2,
+                                                total_steps=100,
+                                                weight_decay=0.01))
+    args = (params, state, init_opt_state(params), b["images"], b["labels"])
+    return lambda: step(*args)
+
+
+def measured_lm_step(seed: int):
+    """The ``lm_train`` phase's step: the driver's (``donate=True``, AdamW
+    written into the state) on its state and first batch."""
+    from repro_torch.launch.train import lm_step_batch
+    cfg = lm_train_config("cuda-full")
+    opt_cfg = OptimizerConfig(lr=3e-4, total_steps=1 + LM_TRAIN_STEPS,
+                              warmup_steps=5)
+    params, opt, _ = build_state(cfg, opt_cfg=opt_cfg, seed=seed,
+                                 device=DEVICE)
+    batch = lm_step_batch(cfg, SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_SEQ,
+        global_batch=LM_TRAIN_BATCH, seed=seed)).batch(0), DEVICE)
+    step = make_train_step(cfg, opt_cfg, donate=True)
+    return lambda: step(params, opt, batch)
+
+
+def measure_step(make) -> dict:
+    """One step of ``make(...)``'s (a warm-up first) on the card: its peak
+    memory above what was allocated before its inputs were made (the dry
+    run counts the inputs too), its launches (counted from 0 just before
+    it) and its device busy ms (``busy_ms``; a second try where the first
+    comes back without a number)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    step = make()
+    step()                                         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = step()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    busy = busy_ms(step, counts)
+    if busy is None:
+        busy = busy_ms(step, counts)
+    del step
+    torch.cuda.empty_cache()
+    return {"peak_bytes": peak, "launches": counts, "busy_ms": busy}
+
+
+def hold_estimate(name: str, est: dict, got: dict) -> dict:
+    """An estimate against the measured step: the peak within
+    ``DRYRUN_PEAK_BAND``, the roofline's largest term no more than the
+    busy ms (a lower bound above the time means a wrong count), the useful
+    ratio at most ``DRYRUN_RATIO_MAX``, the kernel sites the launches."""
+    rl = est["roofline"]
+    bound_ms = max(rl["compute_s"], rl["memory_s"], rl["collective_s"]) * 1e3
+    peak = est["bytes_per_device"]["peak"]
+    launched = {k: n for k, n in got["launches"].items() if n}
+    row = {"estimated_peak_bytes": peak,
+           "measured_peak_bytes": got["peak_bytes"],
+           "peak_rel_err": (peak - got["peak_bytes"]) / got["peak_bytes"],
+           "roofline_ms": {k[:-2]: rl[k] * 1e3 for k in
+                           ("compute_s", "memory_s", "collective_s")},
+           "bound": rl["bound"], "bound_ms": bound_ms,
+           "busy_ms": got["busy_ms"],
+           "useful_flops_ratio": est["useful_flops_ratio"],
+           "flops": est["hlo_flops_per_device"],
+           "bytes": est["hlo_bytes_per_device"],
+           "trace_s": est["compile_s"],
+           "kernel_sites": est["kernel_sites"], "launches": launched}
+    if abs(row["peak_rel_err"]) > DRYRUN_PEAK_BAND:
+        fail(f"dryrun {name}: estimated peak {peak} bytes, measured "
+             f"{got['peak_bytes']} ({row['peak_rel_err']:+.3f} > "
+             f"{DRYRUN_PEAK_BAND})")
+    if got["busy_ms"] is None or bound_ms > got["busy_ms"]:
+        fail(f"dryrun {name}: the roofline's {rl['bound']} term "
+             f"{bound_ms:.3f} ms against {got['busy_ms']} ms busy")
+    if est["useful_flops_ratio"] > DRYRUN_RATIO_MAX:
+        fail(f"dryrun {name}: useful flops ratio "
+             f"{est['useful_flops_ratio']} > {DRYRUN_RATIO_MAX}")
+    if est["kernel_sites"] != launched:
+        fail(f"dryrun {name}: the dry run passed kernel sites "
+             f"{est['kernel_sites']}, the step launched {launched}")
+    return row
+
+
+def dryrun_phase(seed: int, smi: str) -> dict[str, dict[str, int]]:
+    """The dry run (``repro_torch.launch.dryrun``) held against this card:
+    the two training steps of :func:`dryrun_cells` estimated in a child
+    process (:func:`dryrun_child`) and measured here (:func:`measure_step`,
+    each held by :func:`hold_estimate`); then the production cell
+    ``DRYRUN_CELL`` on ``data16`` through the module's command line, its
+    terms, peak and ``fits`` printed. Returns the measured steps' launch
+    counts, by path."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "world1.json")
+        run_child([sys.executable, str(Path(__file__).resolve()),
+                   "--dryrun-child", path], "the world-1 estimates")
+        with open(path) as f:
+            est = json.load(f)
+        arch, shape = DRYRUN_CELL
+        t1 = time.perf_counter()
+        cli = run_child([sys.executable, "-m", "repro_torch.launch.dryrun",
+                         "--arch", arch, "--shape", shape, "--out", tmp],
+                        f"python -m repro_torch.launch.dryrun {arch} {shape}")
+        cell_s = time.perf_counter() - t1
+        with open(os.path.join(tmp, f"{arch}__{shape}.json")) as f:
+            cell = json.load(f)
+    estimate_s = t1 - t0
+    got = {"train": measure_step(lambda: measured_vision_step(seed)),
+           "lm_train": measure_step(lambda: measured_lm_step(seed))}
+    held = {name: hold_estimate(name, est[name], got[name])
+            for name in ("train", "lm_train")}
+    rl = cell["roofline"]
+    emit("dryrun", card=smi, world1=held,
+         data16={"arch": arch, "shape": shape,
+                 "peak_bytes": cell["bytes_per_device"]["peak"],
+                 "argument_bytes": cell["bytes_per_device"]["argument"],
+                 "fits": cell["fits"], "roofline": rl,
+                 "collective_bytes": cell["collective_bytes_per_device"],
+                 "useful_flops_ratio": cell["useful_flops_ratio"],
+                 "trace_s": cell["compile_s"], "command_s": cell_s,
+                 "cli": cli.stdout.strip().splitlines()[-2:]},
+         seconds={"estimates": estimate_s, "data16": cell_s,
+                  "phase": time.perf_counter() - t0},
+         tolerance=f"peak within {DRYRUN_PEAK_BAND:.0%} of the measured "
+                   f"step's; the roofline's largest term <= the step's "
+                   f"device busy ms; useful ratio <= {DRYRUN_RATIO_MAX}; "
+                   f"kernel sites = launches")
+    return {"dryrun_train": got["train"]["launches"],
+            "dryrun_lm_train": got["lm_train"]["launches"]}
+
+
 def split_summary(name: str, rows: list[dict],
                   fused: list[dict]) -> list[dict]:
     """A BN kernel's split-path cases for the ``kernels`` line: each
@@ -3364,7 +3577,12 @@ def main() -> None:
                     help="transformer blocks served (the preset has 8)")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print ptxas' registers / shared memory / spills")
+    ap.add_argument("--dryrun-child", metavar="PATH", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dryrun_child:
+        dryrun_child(args.dryrun_child)            # the dryrun phase's child
+        return
 
     info = setup_card()
     smi = info["smi"]
@@ -3410,11 +3628,13 @@ def main() -> None:
     mesh_counts, split_cases = mesh_train_phase(args.seed, BATCH, smi)
     torch.cuda.empty_cache()
     tune_counts = tune_phase(args.seed, BATCH)
+    torch.cuda.empty_cache()
+    dryrun_counts = dryrun_phase(args.seed, smi)
 
     print(json.dumps(summarise(cases, {"serve": counts, "train": train_counts,
                                        **lm_counts, **mesh_counts,
-                                       "tune": tune_counts}, split_cases,
-                                     oracle)),
+                                       "tune": tune_counts, **dryrun_counts},
+                                     split_cases, oracle)),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,8 +17,9 @@ families:
   ``repro_torch.kernels.KERNELS``.
 * ``audit.kernel.parity``: at every site geometry the wrapper's output
   shapes and dtypes equal its oracle's (``kernels/ref.py``), on ``meta``
-  tensors. A ``meta`` tensor takes the wrapper's plain branch; the kernel's
-  own values are held against the oracles on the card (``chip_smoke.py``'s
+  tensors, where the wrapper allocates its kernel's outputs by its shape
+  rule (the dry run counts the same); the kernel's own values are held
+  against the oracles on the card (``chip_smoke.py``'s
   ``analysis`` phase, ``tests/test_torch_cuda.py``).
 * ``audit.kernel.launch``: on the card, the launches each case would make,
   read from the library's plan exports (``csrc/launch_plan.cuh``) while the

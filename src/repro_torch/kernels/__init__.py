@@ -7,6 +7,12 @@ coverage table: kernel -> CUDA source, the reference's ``pallas_call`` it
 replaces (``lif_soma_bwd`` serves both of the reference's GRAD calls, the
 second as ``also_replaces``), and the ``(op, impl)`` registry pairs it
 serves.
+
+On ``meta`` tensors a wrapper launches nothing and runs no plain version:
+it allocates its kernel's outputs on ``meta`` (one shape rule a wrapper,
+beside its contract declaration) and reports the site to
+:func:`meta_site`'s observers, the dry run's counter
+(``repro_torch.launch.dryrun``). A CUDA tensor still launches or raises.
 """
 
 KERNELS: dict[str, dict] = {
@@ -97,3 +103,20 @@ def set_launch_counts(counts: dict[str, int]) -> None:
 
 def reset_launch_counts() -> None:
     set_launch_counts(dict.fromkeys(KERNELS, 0))
+
+
+#: Observers of the kernel sites a run on ``meta`` tensors passes: each is
+#: called as ``observer(name, operands, results, flops)``.
+META_OBSERVERS: list = []
+
+
+def meta_site(name: str, operands, results, flops: float = 0.0):
+    """A wrapper's ``meta`` branch ends here: ``results`` are its kernel's
+    outputs, allocated on ``meta``, and nothing was launched (the launch
+    counts do not move). Tells the observers the site's kernel, its tensor
+    operands and results, and ``flops``, the dense 2 * M * C * K of the
+    product the kernel forms (0 where it forms none). Returns
+    ``results``."""
+    for observe in META_OBSERVERS:
+        observe(name, tuple(operands), results, float(flops))
+    return results

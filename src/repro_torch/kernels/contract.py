@@ -6,9 +6,9 @@ Every kernel module of the port declares its public entry points here as
 operands on the ``meta`` device for a normalized :class:`KernelCase`
 geometry, the oracle from :mod:`repro_torch.kernels.ref`, and the ``(op,
 impl)`` registry pairs whose dispatch launches the kernel. The verifier
-calls each wrapper on those ``meta`` operands: a ``meta`` tensor is no CUDA
-tensor, so the wrapper takes its plain branch and no kernel runs, and its
-output shapes and dtypes are held against the oracle's. On the card the
+calls each wrapper on those ``meta`` operands: on ``meta`` a wrapper
+allocates its kernel's outputs by its shape rule and launches nothing, and
+those shapes and dtypes are held against the oracle's. On the card the
 verifier also reads the launches each case would make from the library's
 plan exports (grid, block, shared memory), again without launching.
 

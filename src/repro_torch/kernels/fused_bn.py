@@ -40,14 +40,17 @@ The plain PyTorch versions, :func:`bn_fwd_plain` and :func:`bn_bwd_plain`,
 compute the same formulas with library reductions, and with a group sum
 the same way (the local sums in double, all-reduced with the row count).
 The wrappers use them for a CPU tensor and never for a CUDA tensor; a
-failed collective raises.
+failed collective raises. A ``meta`` tensor takes neither: the wrapper
+allocates the kernels' outputs and, with a group, all-reduces the split
+path's sums buffer as on the card (:func:`fwd_on_meta`,
+:func:`bwd_on_meta`), for the dry run to count.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta_site
 
 #: The first pass sums chunks of at least MIN_CHUNK_ROWS rows, and makes at
 #: most MAX_CHUNKS of them, so that the pass adding the chunks stays short.
@@ -171,7 +174,8 @@ def bn_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
            eps: float = 1e-5, group=None):
     """x: (M, D) -> (y (M, D), mu (1, D), sqrt_d (1, D)). A CUDA tensor
     launches the kernel's two passes (fp32, contiguous; anything else
-    raises) and counts once; a CPU tensor takes the plain version.
+    raises) and counts once; a CPU tensor takes the plain version, a
+    ``meta`` tensor the kernel's shape rule (:func:`fwd_on_meta`).
     ``group``: the statistics of the rows of every rank in it (the split
     path: :func:`bn_fwd_sums`, an all-reduce, :func:`bn_fwd_apply`)."""
     if x.ndim != 2 or gamma.shape != (x.shape[1],) \
@@ -179,6 +183,8 @@ def bn_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
         raise ValueError(f"bn_fwd expects x (M, D), gamma and beta (D,), got "
                          f"{tuple(x.shape)}, {tuple(gamma.shape)}, "
                          f"{tuple(beta.shape)}")
+    if x.is_meta:
+        return fwd_on_meta(x, gamma, beta, group)
     if not x.is_cuda:
         return bn_fwd_plain(x, gamma, beta, eps=eps, group=group)
     _check("bn_fwd", {"x": x, "gamma": gamma, "beta": beta})
@@ -246,7 +252,8 @@ def bn_bwd(g: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
     """eq. 19-23: g, x (M, D), gamma (D,), mu and sqrt_d (1, D) -> (dx
     (M, D), dgamma (1, D), dbeta (1, D)). A CUDA tensor launches the
     kernel's two passes (fp32, contiguous; anything else raises) and counts
-    once; a CPU tensor takes the plain version. ``group``: eq. 23 over the
+    once; a CPU tensor takes the plain version, a ``meta`` tensor the
+    kernel's shape rule (:func:`bwd_on_meta`). ``group``: eq. 23 over the
     rows of every rank in it (the split path: :func:`bn_bwd_sums`, an
     all-reduce, :func:`bn_bwd_apply`); dgamma and dbeta stay the rank's
     own."""
@@ -256,6 +263,8 @@ def bn_bwd(g: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
                          f"sqrt_d (1, D), got {tuple(g.shape)}, "
                          f"{tuple(x.shape)}, {tuple(gamma.shape)}, "
                          f"{tuple(mu.shape)}, {tuple(sqrt_d.shape)}")
+    if g.is_meta:
+        return bwd_on_meta(g, x, gamma, mu, sqrt_d, group)
     if not g.is_cuda:
         return bn_bwd_plain(g, x, gamma, mu, sqrt_d, group)
     _check("bn_bwd", {"x": x, "g": g, "gamma": gamma, "mu": mu,
@@ -340,6 +349,39 @@ bn_bwd.launches = 0
 from repro_torch.kernels import ref as _ref  # noqa: E402
 from repro_torch.kernels.contract import (KernelContract,  # noqa: E402
                                           declare_contract, meta)
+
+
+def fwd_on_meta(x, gamma, beta, group=None):
+    """The forward's shape rule on ``meta``: y like ``x``, mu and sqrt_d
+    (1, D) fp32; with ``group`` the split path's (2 * D + 1,) float64 sums
+    are all-reduced over it first, as on the card."""
+    d = x.shape[1]
+    if group is not None:
+        dist.all_reduce(torch.empty(2 * d + 1, dtype=torch.float64,
+                                    device=x.device), group=group)
+    mu = torch.empty((1, d), dtype=torch.float32, device=x.device)
+    return meta_site("bn_fwd", (x, gamma, beta),
+                     (torch.empty_like(x), mu, torch.empty_like(mu)))
+
+
+def bwd_on_meta(g, x, gamma, mu, sqrt_d, group=None):
+    """The backward's shape rule on ``meta``: dx like ``g``; dgamma and
+    dbeta (1, D) fp32, views of the one buffer the kernel allocates with
+    its partial sums (which they keep alive, as on the card); with
+    ``group`` the split path's (3 * D + 1,) float64 sums all-reduced."""
+    m, d = g.shape
+    chunks = _chunking(m, BWD_MIN_CHUNK_ROWS)[1]
+    extra = 2 if group is not None else 6
+    buf = torch.empty((4 * chunks + extra, d), dtype=torch.float32,
+                      device=g.device)
+    dgamma, dbeta = buf[4 * chunks:4 * chunks + 1], \
+        buf[4 * chunks + 1:4 * chunks + 2]
+    if group is not None:
+        dist.all_reduce(torch.empty(3 * d + 1, dtype=torch.float64,
+                                    device=g.device), group=group)
+    return meta_site("bn_bwd", (g, x, gamma, mu, sqrt_d),
+                     (torch.empty_like(g), dgamma, dbeta))
+
 
 _BN_SERVES = (("bn", "cuda"), ("linear_bn", "cuda"),
               ("linear_bn", "cuda+spike_mm"), ("conv", "cuda"),

@@ -30,13 +30,15 @@ kernel equals its plain version bit for bit.
 The plain PyTorch versions, :func:`lif_soma_fwd_plain` and
 :func:`lif_soma_bwd_plain`, are the same recursions as Python loops over T,
 with the same optional state and the same output layouts. The wrappers use
-them for a CPU tensor and never for a CUDA tensor.
+them for a CPU tensor and never for a CUDA tensor. A ``meta`` tensor takes
+neither: the wrapper allocates the kernel's outputs (:func:`fwd_on_meta`,
+:func:`bwd_on_meta`) for the dry run to count.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta_site
 
 #: The flat arm serves contiguous calls without a carried state of at most
 #: FLAT_MAX_T steps or of at least FLAT_MIN_N = M * D elements; the ring arm
@@ -185,7 +187,8 @@ def lif_soma_fwd(x: torch.Tensor, u0: torch.Tensor | None = None,
 
     A CUDA tensor launches the kernel (fp32 with unit stride on D, any
     stride on T and M; anything else raises) on the arm :func:`choose_arm`
-    chooses; a CPU tensor takes the plain version.
+    chooses; a CPU tensor takes the plain version, a ``meta`` tensor the
+    kernel's shape rule (:func:`fwd_on_meta`).
     """
     if x.ndim != 3:
         raise ValueError(f"lif_soma_fwd expects (T, M, D), got {tuple(x.shape)}")
@@ -195,6 +198,8 @@ def lif_soma_fwd(x: torch.Tensor, u0: torch.Tensor | None = None,
     if carry:
         _check_state("u0", u0, x)
         _check_state("s0", s0, x)
+    if x.is_meta:
+        return fwd_on_meta(x, u0, s0)
     if not x.is_cuda:
         return lif_soma_fwd_plain(x, u0, s0, alpha=alpha, th_fire=th_fire,
                                   th_lo=th_lo, th_hi=th_hi)
@@ -223,7 +228,8 @@ def lif_soma_bwd(g: torch.Tensor, u_seq: torch.Tensor, spikes: torch.Tensor,
     (fp32; g, U, S and mask in one layout with unit stride on D, which
     ``ops`` copies g into where autograd hands it another; ``gu_last``
     contiguous; anything else raises) on the arm :func:`choose_arm`
-    chooses; a CPU tensor takes the plain version."""
+    chooses; a CPU tensor takes the plain version, a ``meta`` tensor the
+    kernel's shape rule (:func:`bwd_on_meta`)."""
     if g.ndim != 3:
         raise ValueError(f"lif_soma_bwd expects (T, M, D), got {tuple(g.shape)}")
     signals = (u_seq, spikes, mask)
@@ -231,6 +237,8 @@ def lif_soma_bwd(g: torch.Tensor, u_seq: torch.Tensor, spikes: torch.Tensor,
         raise ValueError("lif_soma_bwd: g, U, S and mask differ in shape")
     if gu_last is not None:
         _check_state("gu_last", gu_last, g)
+    if g.is_meta:
+        return bwd_on_meta(g, u_seq, spikes, mask, gu_last)
     if not g.is_cuda:
         return lif_soma_bwd_plain(g, u_seq, spikes, mask, gu_last,
                                   alpha=alpha, grad_scale=grad_scale)
@@ -264,6 +272,22 @@ lif_soma_bwd.launches = 0
 from repro_torch.kernels import ref as _ref  # noqa: E402
 from repro_torch.kernels.contract import (KernelContract,  # noqa: E402
                                           declare_contract, meta)
+
+
+def fwd_on_meta(x, u0=None, s0=None):
+    """The forward's shape rule on ``meta``: S, U and mask like ``x`` (its
+    layout), and with a carried state (u_last, s_last) like ``u0``."""
+    out = tuple(torch.empty_like(x) for _ in range(3))
+    state = () if u0 is None else (u0, s0)
+    out += tuple(torch.empty_like(a) for a in state)
+    return meta_site("lif_soma_fwd", (x,) + state, out)
+
+
+def bwd_on_meta(g, u_seq, spikes, mask, gu_last=None):
+    """The backward's shape rule on ``meta``: dx like ``g``."""
+    operands = (g, u_seq, spikes, mask) + (() if gu_last is None
+                                            else (gu_last,))
+    return meta_site("lif_soma_bwd", operands, torch.empty_like(g))
 
 
 def _build_lif_fwd(case):

@@ -48,13 +48,19 @@ of 1 its bits) and runs the SOMA pass. The plain version sums the same way.
 backward replays the pre-activation with it, so the replayed z is the
 forward's bit for bit and the replay runs the spike trajectory the forward
 emitted.
+
+On ``meta`` tensors the wrappers launch nothing and run no plain version:
+they pack the input as on the card, allocate the kernel's outputs and
+scratch (z) and, with a group, all-reduce the split path's sums
+(:func:`eval_on_meta`, :func:`train_on_meta`, :func:`train_z_on_meta`),
+for the dry run to count.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta_site
 from repro_torch.kernels.fused_bn import global_sums, row_count
 from repro_torch.kernels.lif_soma import lif_soma_fwd_plain
 from repro_torch.kernels.spike_matmul import spike_pack
@@ -133,11 +139,13 @@ def _check_layer(what, x, w, vectors, packed):
             raise ValueError(f"{name} shape {tuple(v.shape)} != ({k},)")
     if packed and c % 8 != 0:
         raise ValueError(f"packed contraction dim {c} must be a multiple of 8")
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         return
     if not 1 <= x.shape[0] <= MAX_TIME_STEPS:
         raise ValueError(f"{what} kernel supports 1..{MAX_TIME_STEPS} time "
                          f"steps, got {x.shape[0]}")
+    if x.is_meta:
+        return          # the dtype and layout checks are the card's
     if any(a.dtype != torch.float32 for a in (x, w, *vectors.values())):
         raise TypeError(f"{what} kernel takes float32 operands")
     if any(a.device != x.device for a in (w, *vectors.values())):
@@ -169,6 +177,8 @@ def neuron_layer_eval(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
     expanded inside the kernel; C must then be a multiple of 8.
     """
     _check_layer("neuron_layer_eval", x, w, {"bias": bias}, packed)
+    if x.is_meta:
+        return eval_on_meta(x, w, bias, packed)
     if not x.is_cuda:
         return neuron_layer_eval_plain(x, w, bias, alpha=alpha,
                                        th_fire=th_fire)
@@ -193,6 +203,8 @@ def neuron_layer_train_fwd(x: torch.Tensor, w: torch.Tensor,
     packed input the kernel read (None for the dense arm and on the CPU)."""
     _check_layer("neuron_layer_train", x, w, {"gamma": gamma, "beta": beta},
                  packed)
+    if x.is_meta:
+        return train_on_meta(x, w, gamma, beta, packed, group)
     if not x.is_cuda:
         return (*_train_plain(x, w, gamma, beta, alpha, th_fire, eps, group),
                 None)
@@ -294,6 +306,8 @@ def neuron_layer_train_z(x: torch.Tensor, w: torch.Tensor, *,
     packed arm reads it instead of packing again). A launch counts as one
     of ``neuron_layer_train``, whose first pass it is."""
     _check_layer("neuron_layer_train_z", x, w, {}, packed)
+    if x.is_meta:
+        return train_z_on_meta(x, w, packed, xin)
     if not x.is_cuda:
         return neuron_layer_train_z_plain(x, w)
     t, m, c = x.shape
@@ -325,6 +339,57 @@ neuron_layer_train.launches = 0
 from repro_torch.kernels import ref as _ref  # noqa: E402
 from repro_torch.kernels.contract import (KernelContract,  # noqa: E402
                                           SkipCase, declare_contract, meta)
+
+
+def _product_flops(x, w) -> float:
+    """The dense 2 * T * M * C * K of the layer's product."""
+    t, m, c = x.shape
+    return 2.0 * t * m * c * w.shape[1]
+
+
+def eval_on_meta(x, w, bias, packed):
+    """``neuron_layer_eval``'s shape rule on ``meta``: the input packed
+    where the card packs it (``spike_pack``, plain tensor code there too),
+    then spikes (T, M, K) in ``x.dtype`` (the kernel's fp32)."""
+    if packed:
+        spike_pack(x)
+    t, m, _ = x.shape
+    s = torch.empty((t, m, w.shape[1]), dtype=x.dtype, device=x.device)
+    return meta_site("neuron_layer_eval", (x, w, bias), s,
+                     _product_flops(x, w))
+
+
+def train_on_meta(x, w, gamma, beta, packed, group=None):
+    """``neuron_layer_train_fwd``'s shape rule on ``meta``: the packed
+    input (kept, as the autograd op keeps it), z (T, M, K) fp32 as the
+    kernel's scratch, with ``group`` the (2 * K + 1,) float64 sums
+    all-reduced; ``(spikes, mu, var, sqrt_d, xin)``, the statistics (1, K)
+    fp32."""
+    xin = spike_pack(x) if packed else None
+    t, m, _ = x.shape
+    k = w.shape[1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    z = torch.empty((t, m, k), **f32)
+    if group is not None:
+        dist.all_reduce(torch.empty(2 * k + 1, dtype=torch.float64,
+                                    device=x.device), group=group)
+    s = torch.empty((t, m, k), dtype=x.dtype, device=x.device)
+    stats = tuple(torch.empty((1, k), **f32) for _ in range(3))
+    del z                           # the kernel's scratch, freed on return
+    meta_site("neuron_layer_train", (x, w, gamma, beta), (s, *stats),
+              _product_flops(x, w))
+    return (s, *stats, xin)
+
+
+def train_z_on_meta(x, w, packed, xin=None):
+    """``neuron_layer_train_z``'s shape rule on ``meta``: z (T, M, K)
+    fp32 (the input packed first where no ``xin`` is given)."""
+    if packed and xin is None:
+        spike_pack(x)
+    t, m, _ = x.shape
+    z = torch.empty((t, m, w.shape[1]), dtype=torch.float32, device=x.device)
+    return meta_site("neuron_layer_train", (x, w), z, _product_flops(x, w))
+
 
 _NL_SERVES = (("linear_bn", "fused_epilogue"), ("conv", "fused_epilogue"))
 

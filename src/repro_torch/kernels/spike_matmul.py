@@ -29,15 +29,17 @@ Bound on this card: three dense bf16 passes (3 * 2MCK operations) at the
 projection sites, the weight's and the output's bytes at ``attn_qk``.
 
 The plain PyTorch versions unpack and call ``torch.matmul``. The wrappers
-use them for CPU tensors only.
+use them for CPU tensors only; on ``meta`` tensors they allocate the
+kernel's output (:func:`on_meta`) for the dry run to count.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta_site
 
 #: The kernel's batch index rides ``blockIdx.z``.
 MAX_BATCH = 65535
@@ -181,6 +183,8 @@ def spike_matmul_packed(packed: torch.Tensor, w: torch.Tensor, *,
         raise ValueError(f"spike_matmul_packed expects 2-D operands, got "
                          f"{tuple(packed.shape)}")
     _check_operands(packed, w, out_dtype, tile, "spike_matmul_packed")
+    if packed.is_meta:
+        return on_meta("spike_matmul_packed", packed, w, out_dtype)
     if not packed.is_cuda:
         return spike_matmul_packed_plain(packed, w, out_dtype=out_dtype)
     out = _launch_on_current_stream(packed[None, None], w[None, None], tile)
@@ -205,6 +209,8 @@ def spike_matmul_packed_batched(packed: torch.Tensor, w: torch.Tensor, *,
                          f"batch dims, got {tuple(packed.shape)}")
     _check_operands(packed, w, out_dtype, tile,
                     "spike_matmul_packed_batched")
+    if packed.is_meta:
+        return on_meta("spike_matmul_packed_batched", packed, w, out_dtype)
     if not packed.is_cuda:
         return spike_matmul_packed_plain(packed, w, out_dtype=out_dtype)
     if packed.ndim == 3:
@@ -240,6 +246,22 @@ spike_matmul_packed_batched.launches = 0
 from repro_torch.kernels import ref as _ref  # noqa: E402
 from repro_torch.kernels.contract import (KernelContract,  # noqa: E402
                                           SkipCase, declare_contract, meta)
+
+
+def on_meta(name, packed, w, out_dtype=None):
+    """Either entry point's shape rule on ``meta``: (..., M, K) over the
+    batch dims of ``packed`` (M, C/8) and ``w`` (C, K), contiguous, in
+    ``out_dtype`` (default ``w.dtype``; the kernel's is fp32); a batch past
+    ``MAX_BATCH`` raises as on the card. The product's 2 * M * C * K
+    operations a batch are reported to the dry run."""
+    lead = packed.shape[:-2]
+    batch = math.prod(lead)
+    if batch > MAX_BATCH:
+        raise ValueError(f"spike matmul batch {batch} exceeds {MAX_BATCH}")
+    m, c, k = packed.shape[-2], w.shape[-2], w.shape[-1]
+    out = torch.empty((*lead, m, k), dtype=out_dtype or w.dtype,
+                      device=packed.device)
+    return meta_site(name, (packed, w), out, 2.0 * batch * m * c * k)
 
 
 def _build_spike_matmul(case):

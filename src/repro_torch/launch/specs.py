@@ -6,17 +6,21 @@ port runs them on ``torch.device("meta")``: tensors with shapes and dtypes
 and no storage, so nothing is drawn or allocated. A struct here is such a
 meta tensor (``.shape``, ``.dtype``).
 
-``input_specs``, which hands XLA a step to lower for the compile-time
-dry run, belongs to ROADMAP A11b.
+``input_specs(cfg, shape_name, mesh)`` returns ``(fn, structs, specs)``
+for a cell: the step callable, the meta structs of its inputs (the whole
+leaves, as the reference's ``ShapeDtypeStruct``s are) and the matching
+partition specs. The dry run (``launch.dryrun``) takes each rank's shard
+of the structs under the specs and runs ``fn`` on them.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
-from repro_torch.launch.mesh import (P, apply_fsdp, map_specs,
-                                     sanitize_specs)
+from repro_torch.launch.mesh import (P, Mesh, apply_fsdp, batch_axes,
+                                     map_specs, sanitize_specs)
 from repro_torch.models.common import split_tree
 
 META = torch.device("meta")
@@ -155,3 +159,160 @@ def cache_structs(cfg, batch: int, max_seq: int, batch_axes):
             return {k: walk(v) for k, v in tree.items()}
         return spec_for(tree)
     return struct, walk(struct)
+
+
+def _step_opt_structs(p_struct, p_specs):
+    """:func:`opt_structs` as the step takes them: without the ``err``
+    residual, which only gradient compression carries (the reference's
+    ``None`` leaf, an empty subtree)."""
+    o_struct, o_specs = opt_structs(p_struct, p_specs)
+    o_struct.pop("err"), o_specs.pop("err")
+    return o_struct, o_specs
+
+
+def _step_mesh(mesh):
+    """The mesh a step runs on: ``mesh`` where it is laid over ranks (a
+    :class:`Mesh`); None (the mesh-less step) for an :class:`AbstractMesh`,
+    which has no ranks to gather over, or for no mesh."""
+    return mesh if isinstance(mesh, Mesh) else None
+
+
+def _vision_input_specs(cfg, sh: ShapeSpec, mesh, ba):
+    """(fn, args_structs, args_specs) for a Spikingformer train cell: the
+    vision step of ``train.loop.make_train_step`` (functional: it returns
+    new trees), ``sh.batch`` NHWC fp32 images and int32 labels."""
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig
+    if sh.kind != "train":
+        raise ValueError(
+            f"vision cells are train-only (shape kind {sh.kind!r})")
+    (p_struct, s_struct), (p_specs, s_specs) = spikingformer_structs(cfg,
+                                                                     mesh)
+    o_struct, o_specs = _step_opt_structs(p_struct, p_specs)
+    b = sh.batch
+    images = _struct((b, cfg.image_size, cfg.image_size, cfg.in_channels),
+                     torch.float32)
+    labels = _struct((b,), torch.int32)
+    fn = make_train_step(cfg, OptimizerConfig(), mesh=_step_mesh(mesh),
+                         donate=True)
+    return fn, (p_struct, s_struct, o_struct, images, labels), \
+        (p_specs, s_specs, o_specs, P(ba or None, None, None, None),
+         P(ba or None))
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def input_specs(cfg, shape_name, mesh, microbatches: int = 1
+                ) -> tuple[Callable, tuple, tuple]:
+    """Returns ``(fn, args_structs, args_specs)`` for the cell
+    ``shape_name`` (a key of :data:`SHAPES`, or a :class:`ShapeSpec`) of
+    ``cfg`` on ``mesh``:
+
+    * train: the step of ``train.loop.make_train_step(..., mesh=mesh,
+      donate=True)``, the driver's (the LM families write AdamW into the
+      leaves they are given; the vision step is functional), on
+      ``(params, opt_state, batch)``, or ``(params, bn_state, opt_state,
+      images, labels)`` for the Spikingformer;
+    * prefill: ``models.lm.lm_prefill`` (the audio family: ``encode``,
+      ``decode_train``, ``unembed`` of the last position) on ``(params,
+      batch)``;
+    * decode: ``lm_decode_step`` or ``encdec_decode_step`` on ``(params,
+      cache, tokens, pos)``.
+
+    The weights are FSDP'd over "data" for training, and for serving where
+    the bytes of the weights over the model axis pass 8e9, as in the
+    reference. A serving cell whose plan shards the weights over "data"
+    gathers the whole tree (``mesh.gather_leaf``, leaf by leaf) before the
+    step, so its peak says whether the weights fit on one card; gathering
+    them layer by layer while serving belongs to the model axis (ROADMAP
+    A11c). The steps run on ``mesh`` where it is a :class:`Mesh`; an
+    :class:`AbstractMesh` gives the specs and the mesh-less step."""
+    from repro_torch.launch import mesh as mesh_mod
+    sh = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
+    ba = batch_axes(mesh)
+    if getattr(cfg, "family", None) == "vision":
+        return _vision_input_specs(cfg, sh, mesh, ba)
+    p_struct, p_specs = param_structs(cfg)
+    p_specs = sanitize_specs(p_specs, p_struct, mesh)
+    # ZeRO-3 over "data": always for training; for serving only where the
+    # weights over the model axis would pass 8e9 bytes
+    if sh.kind == "train" or \
+            _nbytes(p_struct) / mesh.shape.get("model", 1) > 8e9:
+        p_specs = apply_fsdp(p_specs, p_struct, mesh)
+    run_mesh = _step_mesh(mesh)
+
+    if sh.kind == "train":
+        from repro_torch.train.loop import make_train_step
+        from repro_torch.train.optimizer import OptimizerConfig
+        o_struct, o_specs = _step_opt_structs(p_struct, p_specs)
+        b_struct, b_specs = _batch_structs(cfg, sh, ba)
+        fn = make_train_step(cfg, OptimizerConfig(), microbatches,
+                             mesh=run_mesh, donate=True)
+        return fn, (p_struct, o_struct, b_struct), (p_specs, o_specs,
+                                                    b_specs)
+
+    def whole(params):
+        """The whole weights on every rank (the serving plan's gather)."""
+        if run_mesh is None:
+            return params
+        return map_specs(lambda spec, leaf: mesh_mod.gather_leaf(
+            leaf, spec, run_mesh), p_specs, params)
+
+    if sh.kind == "prefill":
+        b_struct, b_specs = _batch_structs(cfg, sh, ba)
+        if cfg.family == "audio":
+            from repro_torch.models.common import unembed
+            from repro_torch.models.encdec import decode_train, encode
+
+            def fn(params, batch):
+                params = whole(params)
+                enc = encode(params, batch["frames"], cfg)
+                x = decode_train(params, batch["tokens"], enc, cfg)
+                return unembed(params["embed"], x[:, -1])
+        else:
+            from repro_torch.models.lm import lm_prefill
+
+            def fn(params, batch):
+                return lm_prefill(whole(params), batch, cfg)
+        b_struct.pop("labels"), b_specs.pop("labels")
+        return fn, (p_struct, b_struct), (p_specs, b_specs)
+
+    # decode
+    c_struct, c_specs = cache_structs(cfg, sh.batch, sh.seq, ba)
+    c_specs = sanitize_specs(c_specs, c_struct, mesh)
+    tok = _struct((sh.batch, 1), torch.int32)
+    pos = _struct((sh.batch,), torch.int32)
+    tok_spec = P(ba if sh.batch > 1 else None, None)
+    pos_spec = P(ba if sh.batch > 1 else None)
+    if cfg.family == "audio":
+        from repro_torch.models.encdec import encdec_decode_step as step
+        axes = map_specs(lambda _s, _leaf: 1, c_specs, c_struct)
+    else:
+        from repro_torch.models.lm import cache_batch_axes
+        from repro_torch.models.lm import lm_decode_step as step
+        axes = cache_batch_axes(cfg, c_struct)
+
+    def rows(spec, leaf, axis):
+        """A cache leaf as the step reads it: this rank's rows along its
+        batch axis. Where the plan shards "data" on another dim (the
+        hybrid's Mamba2 state, whose batch sits on axis 2, not 1), the
+        leaf is gathered over it and cut to the rank's rows, the reshard a
+        compiler would make each step."""
+        if run_mesh is None or sh.batch == 1 or \
+                mesh_mod.batch_dim(spec, run_mesh) in (None, axis):
+            return leaf
+        want = P(*([None] * axis + [ba]))
+        return mesh_mod.local_shard(mesh_mod.gather_leaf(leaf, spec, run_mesh),
+                                    want, run_mesh)
+
+    def fn(params, cache, tokens, pos):
+        cache = map_specs(rows, c_specs, cache, axes)
+        return step(whole(params), cache, tokens, pos, cfg)
+    return fn, (p_struct, c_struct, tok, pos), \
+        (p_specs, c_specs, tok_spec, pos_spec)

@@ -51,6 +51,8 @@ def test_modules_are_where_the_reference_has_them():
                  "models.mla", "models.rwkv", "models.ssm", "serving.engine",
                  "serving.scheduler", "train.checkpoint", "train.resilience",
                  "launch.train", "launch.mesh", "launch.specs",
+                 "launch.dryrun", "launch.roofline", "launch.report",
+                 "launch.perf",
                  "core.energy.constants",
                  "core.energy.dataflow", "core.energy.energy_model",
                  "core.energy.simulator", "core.energy.workload",
