@@ -87,7 +87,23 @@ checkpoint, the mesh run's restored by the mesh-less path) bit-equal;
 launches and wall time per step. Then ``qwen3-0.6b`` + LIF at its
 published size through the driver on the mesh with int8 gradient
 compression: every step finite, every leaf moved, the residual non-zero,
-56 / 28 LIF launches a step. Then it runs the autotuner at
+56 / 28 LIF launches a step; then the same LM through the driver on the
+mesh without compression, against the mesh-less driver from the same
+seed: every loss and every parameter leaf bit-equal (the mesh's model
+axis of 1 takes the tensor-parallel code path, whose region ops launch
+nothing there). Then the tensor-parallel kernel cases (``tp``): every
+kernel of the training path at one rank's site shapes of
+``spikingformer-8-512``, batch 16, on model axes of 2, 4 and 8 (the
+column-parallel neuron layers ``pssa.qkv`` and ``smlp.a`` at K / M output
+columns, train and eval arms; the row-parallel spike products
+``pssa.proj`` and ``smlp.b`` at C / M input features; ``attn_qk`` on h / M
+heads, the ``attn_av``-style product at N = 64 likewise; the LIF of the
+attention output on D / M columns, forward and backward), each held
+against its plain version as the ``kernels`` cases are, with its cold and
+warm device time, bound and plain time, and each of the contracts of
+those sites (``analysis.contracts.config_cases`` at the rank's shapes)
+held against its oracle in ``kernels/ref.py``. Then it runs the
+autotuner at
 ``spikingformer-8-512``, batch 16, ``cuda-full``, full width and depth:
 sparsity measured on the card, the nine tunable sites,
 each candidate (a spike-matmul tile, or a neuron layer's fused or pipeline
@@ -2764,6 +2780,30 @@ def mesh_vision_run(cfg, seed: int, mesh, ckpt_dir: str) -> dict:
                                                           stamps[1:])]}
 
 
+def mesh_lm_equal(seed: int, mesh) -> dict:
+    """``qwen3-0.6b`` + LIF through the driver, ``cuda-full``, 1 +
+    MESH_STEPS steps on ``mesh`` (a (1, 1) mesh: the tensor-parallel code
+    path with a model group of none) and without one from the same seed:
+    whether every loss and every parameter leaf is bit-equal, and the
+    mesh run's launch counts."""
+    cfg = lm_train_config("cuda-full")
+    runs = {name: lm_train_run(cfg, seed, MESH_STEPS, mesh=m)
+            for name, m in (("mesh", mesh), ("no_mesh", None))}
+    a, b = (tree_leaves(runs[n]["params"]) for n in ("mesh", "no_mesh"))
+    names = tree_paths(runs["mesh"]["params"])
+    out = {"losses": {n: r["history"] for n, r in runs.items()},
+           "losses_bit_equal": runs["mesh"]["history"]
+           == runs["no_mesh"]["history"],
+           "leaves": len(names),
+           "leaves_differing": [n for n, x, y in zip(names, a, b)
+                                if not torch.equal(x, y)],
+           "ms_per_step": {n: r["ms_per_step"] for n, r in runs.items()},
+           "counts": runs["mesh"]["counts"]}
+    del a, b, runs
+    torch.cuda.empty_cache()
+    return out
+
+
 def mesh_train_phase(seed: int, batch: int, smi: str) -> tuple[dict, dict]:
     """Data parallelism through the driver on a world of 1 (one card, NCCL,
     a file store): the BN kernels' split path at the preset's shapes
@@ -2852,11 +2892,147 @@ def mesh_train_phase(seed: int, batch: int, smi: str) -> tuple[dict, dict]:
         if not all(r.get("err_norm", 0.0) > 0.0 for r in lm["steps"]):
             fail(f"mesh_train lm: the compression residual is zero at "
                  f"{lm['steps']}")
+        eq = mesh_lm_equal(seed, mesh)
+        emit("tp_one_by_one", mesh=dict(mesh.shape), card=smi,
+             arch=f"{LM_ARCH}@cuda-full",
+             **{k: v for k, v in eq.items() if k != "counts"},
+             note="the model-axis code path on a model axis of 1 against "
+                  "the mesh-less driver")
+        if not eq["losses_bit_equal"] or eq["leaves_differing"]:
+            fail(f"tp: the LM on the (1, 1) mesh is not the mesh-less run's "
+                 f"bits: {eq['losses']}, leaves differing "
+                 f"{eq['leaves_differing']}")
         return {"mesh_train": runs["mesh"]["counts"],
-                "mesh_lm_train": lm["counts"]}, {"bn_fwd": bn, "bn_bwd": bn,
-                                                 "neuron_layer_train": nl}
+                "mesh_lm_train": lm["counts"],
+                "tp_lm_train": eq["counts"]}, {"bn_fwd": bn, "bn_bwd": bn,
+                                               "neuron_layer_train": nl}
     finally:
         shutdown_distributed()
+
+
+# ---------------------------------------------------------------------------
+# The tensor-parallel kernel cases: one rank's site shapes on a model axis
+# ---------------------------------------------------------------------------
+
+#: The model axes whose per-rank site shapes the ``tp`` phase runs.
+TP_SHARDS = (2, 4, 8)
+#: The sites whose shapes the model axis changes.
+TP_SITES = ("pssa.qkv", "smlp.a", "pssa.proj", "smlp.b", "attn_qk",
+            "attn_av")
+
+
+def tp_kernel_cases(gen, batch: int, shards: int) -> dict[str, list[dict]]:
+    """Every kernel of the training path (and the eval arm of the neuron
+    layer) at one rank's shapes on a model axis of ``shards``, checked as
+    the ``kernels`` cases are (plain version, cold and warm device time,
+    bound, plain time): the column-parallel neuron layers at K / M, the
+    row-parallel spike products at C / M (bitwise on 21-bit weights too),
+    ``attn_qk`` and the ``attn_av``-style product on h / M heads, the LIF
+    of the attention output on D / M columns. The BN kernels run after the
+    row-parallel sum on the whole D, the shapes of the ``kernels`` cases."""
+    cfg = get_spikingformer_config(PRESET)
+    t, d, f, h = cfg.time_steps, cfg.d_model, cfg.d_ff, cfg.n_heads
+    n, dh = cfg.num_tokens, cfg.d_model // cfg.n_heads
+    m, hl = batch * n, h // shards
+    out: dict[str, list[dict]] = {name: [] for name in KERNELS}
+
+    def tag(site):
+        return f"{site}@model={shards}"
+    for site, k in (("pssa.qkv", d // shards), ("smlp.a", f // shards)):
+        out["neuron_layer_train"].append(check_neuron_layer_train(
+            gen, tag(site), t, m, d, k, True))
+        out["neuron_layer_eval"].append(check_neuron_layer(
+            gen, tag(site), t, m, d, k, True))
+        torch.cuda.empty_cache()
+    for site, c in (("pssa.proj", d // shards), ("smlp.b", f // shards)):
+        packed = spike_matmul.spike_pack(spikes(gen, (t * m, c)))
+        w = torch.randn((c, d), generator=gen, device=DEVICE) * c ** -0.5
+        exact = (spike_matmul.spike_pack(at_most_12(
+            spikes(gen, (t * m, c), rate=min(1.0, 8 / c)))),
+            int21(gen, (c, d)))
+        out["spike_matmul_packed"].append(check_matmul(
+            tag(site), packed, w, spike_matmul.spike_matmul_packed,
+            exact=exact))
+
+    def heads(a):
+        return a.view(t * batch, n, hl, dh).permute(0, 2, 1, 3)
+    bmm = spike_matmul.spike_matmul_packed_batched
+    q, k = (spikes(gen, (t * batch, n, hl * dh)) for _ in range(2))
+    out["spike_matmul_packed_batched"].append(check_matmul(
+        tag("attn_qk"), spike_matmul.spike_pack(heads(q)),
+        heads(k).transpose(-1, -2), bmm))
+    v = spikes(gen, (t * batch, hl, 64, dh))
+    attn = torch.randint(0, dh, (t * batch, hl, 64, 64), generator=gen,
+                         device=DEVICE).float()
+    out["spike_matmul_packed_batched"].append(check_matmul(
+        tag("attn_av(N=64)"), spike_matmul.spike_pack(v.transpose(-1, -2)),
+        attn.transpose(-1, -2), bmm))
+    out["lif_soma_fwd"].append(check_lif(gen, t, m, d // shards,
+                                         case=tag("pssa.lif(out)")))
+    out["lif_soma_bwd"].extend(check_lif_bwd(gen, t, m, d // shards,
+                                             case=tag("pssa.lif(out)")))
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_oracle_cases(gen, batch: int, shards: int) -> list[dict]:
+    """Each contract of the model axis's sites at one rank's shapes
+    (``config_cases(cfg, batch, shards)``, ``cuda-full``) launched and held
+    against its oracle (``hold_against_oracle``: a neuron layer's spikes
+    the oracle's outside the band around the threshold)."""
+    from repro_torch.analysis.contracts import (config_cases,
+                                                hold_against_oracle)
+    from repro_torch.kernels.contract import SkipCase
+    cfg = get_spikingformer_config(PRESET + "@cuda-full")
+    rows, seen = [], set()
+    for site, decl, case in config_cases(cfg, batch, shards):
+        if site not in TP_SITES or (decl.name, case) in seen:
+            continue
+        seen.add((decl.name, case))
+        try:
+            rows.append({"site": site, "model": shards,
+                         **hold_against_oracle(decl, case, gen)})
+        except SkipCase:
+            continue
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tp_phase(seed: int, batch: int, cases: dict[str, list[dict]],
+             smi: str) -> None:
+    """The ``tp`` phase: :func:`tp_kernel_cases` and
+    :func:`tp_oracle_cases` on model axes of 2, 4 and 8; the kernel cases
+    join ``cases`` (the ``kernels`` line). Launches made here are
+    comparisons: the counts are left as they were."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 60)
+    counts = launch_counts()
+    t0 = time.perf_counter()
+    oracle, by_shards = [], {}
+    for shards in TP_SHARDS:
+        rows = tp_kernel_cases(gen, batch, shards)
+        for name, r in rows.items():
+            cases[name].extend(r)
+        by_shards[shards] = {name: [{k: c.get(k) for k in (
+            "case", "shape", "max_abs_err", "ms", "device_ms",
+            "device_ms_l2_warm", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")} for c in r] for name, r in rows.items() if r}
+        oracle += tp_oracle_cases(gen, batch, shards)
+    torch.cuda.synchronize()
+    set_launch_counts(counts)
+    bad = [r for r in oracle if not r["ok"]]
+    emit("tp", preset=PRESET, batch=batch, model=list(TP_SHARDS), card=smi,
+         kernels=by_shards, oracle_cases=len(oracle),
+         oracle=[{k: r.get(k) for k in ("site", "model", "contract", "case",
+                                         "packed", "ok", "max_abs_err",
+                                         "spikes", "tolerance")}
+                 for r in oracle],
+         seconds=time.perf_counter() - t0)
+    if bad:
+        fail(f"tp: {len(bad)} case(s) beyond the oracle's tolerance: "
+             f"{bad[:3]}")
+    if not oracle:
+        fail("tp: no contract of the model axis's sites was held against "
+             "its oracle")
 
 
 # ---------------------------------------------------------------------------
@@ -3626,6 +3802,8 @@ def main() -> None:
     lm_launches({k: cases[k] for k in ("lif_soma_fwd", "lif_soma_bwd")},
                 lm_counts, path_steps)
     mesh_counts, split_cases = mesh_train_phase(args.seed, BATCH, smi)
+    torch.cuda.empty_cache()
+    tp_phase(args.seed, BATCH, cases, smi)
     torch.cuda.empty_cache()
     tune_counts = tune_phase(args.seed, BATCH)
     torch.cuda.empty_cache()

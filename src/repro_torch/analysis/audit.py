@@ -52,22 +52,25 @@ _SKIP_CACHE_FAMILIES = {"audio"}
 # Plan audit: presets x policies
 # ---------------------------------------------------------------------------
 
-def fused_site_geometries(cfg, batch: int) -> dict[str, tuple]:
+def fused_site_geometries(cfg, batch: int, model_shards: int = 1
+                          ) -> dict[str, tuple]:
     """``site -> (t, m, c, k)`` matmul geometry for every fused-epilogue
     candidate site of a Spikingformer config, at global batch ``batch``.
     Conv stages use their im2col geometry (rows = batch x out-pixel
     count, contraction = 9 x c_in); the Q/K/V projections share one site
-    and one geometry."""
+    and one geometry. With ``model_shards`` = M, one rank's: the
+    column-parallel sites' K and the row-parallel sites' C over M."""
     t, n, d = cfg.time_steps, cfg.num_tokens, cfg.d_model
+    m = cfg.check_model_shards(model_shards)
     geoms: dict[str, tuple] = {}
     h = cfg.image_size
     for i, (c_in, c_out) in enumerate(cfg.tokenizer_stage_channels()):
         h //= 2
         geoms[f"tokenizer.conv.{i}"] = (t, batch * h * h, 9 * c_in, c_out)
-    geoms["pssa.qkv"] = (t, batch * n, d, d)
-    geoms["pssa.proj"] = (t, batch * n, d, d)
-    geoms["smlp.a"] = (t, batch * n, d, cfg.d_ff)
-    geoms["smlp.b"] = (t, batch * n, cfg.d_ff, d)
+    geoms["pssa.qkv"] = (t, batch * n, d, d // m)
+    geoms["pssa.proj"] = (t, batch * n, d // m, d)
+    geoms["smlp.a"] = (t, batch * n, d, cfg.d_ff // m)
+    geoms["smlp.b"] = (t, batch * n, cfg.d_ff // m, d)
     return geoms
 
 

@@ -259,19 +259,37 @@ def matrix_policies() -> dict:
 #: Temporal tiling's chunk in the matrix: None, and 2 steps, which adds the
 #: state-carrying ``lif_state`` sites.
 MATRIX_TIME_CHUNKS = (None, 2)
+#: Model axes in the matrix: one device, and each axis of up to 8 ranks
+#: that splits the preset's heads, d_model and d_ff (one rank's site
+#: shapes, ``SpikingFormerConfig.execution_site_specs(model_shards)``).
+MATRIX_MODEL_SHARDS = (1, 2, 4, 8)
 
 
-def config_cases(cfg, batch: int = 1) -> list:
+def model_shards_of(cfg) -> list[int]:
+    """The entries of :data:`MATRIX_MODEL_SHARDS` that split ``cfg``
+    (``cfg.check_model_shards``)."""
+    out = []
+    for m in MATRIX_MODEL_SHARDS:
+        try:
+            out.append(cfg.check_model_shards(m))
+        except ValueError:
+            continue
+    return out
+
+
+def config_cases(cfg, batch: int = 1, model_shards: int = 1) -> list:
     """``(site, decl, case)`` for every declared kernel at every planned
-    site geometry of one config at global batch ``batch`` (sites whose impl
-    is exempt launch no kernel and are left out)."""
+    site geometry of one config at global batch ``batch``, one rank's on a
+    model axis of ``model_shards`` (sites whose impl is exempt launch no
+    kernel and are left out)."""
     from repro_torch.core.policy import CONTRACT_EXEMPT_IMPLS
     from repro_torch.kernels.contract import KernelCase
     from repro_torch.tune.workloads import kernel_shape_cases
 
     _, by_pair = _contract_index()
     out = []
-    for row in kernel_shape_cases(cfg, batch=batch):
+    for row in kernel_shape_cases(cfg, batch=batch,
+                                  model_shards=model_shards):
         if row.impl in CONTRACT_EXEMPT_IMPLS:
             continue
         case = KernelCase(t=row.t, m=row.m, c=row.c, k=row.k,
@@ -284,8 +302,9 @@ def config_cases(cfg, batch: int = 1) -> list:
 def kernel_cases(*, batch: int = 1, presets=None, policies=None):
     """Every distinct ``(where, decl, case)`` of the matrix: each declared
     kernel at each planned site geometry of every preset x policy (default
-    :func:`matrix_policies`) x time chunk (``MATRIX_TIME_CHUNKS``), the
-    first site of a repeated (kernel, geometry) naming it."""
+    :func:`matrix_policies`) x time chunk (``MATRIX_TIME_CHUNKS``) x model
+    axis (:func:`model_shards_of`, one rank's shapes), the first site of a
+    repeated (kernel, geometry) naming it."""
     from repro_torch.configs.spikingformer import (SPIKINGFORMER_PRESETS,
                                                    get_spikingformer_config)
 
@@ -296,13 +315,15 @@ def kernel_cases(*, batch: int = 1, presets=None, policies=None):
             for chunk in MATRIX_TIME_CHUNKS:
                 cfg = get_spikingformer_config(preset, policy=pol,
                                                time_chunk=chunk)
-                tag = f"{preset}@{polname}" + (
-                    f"/time_chunk={chunk}" if chunk else "")
-                for site, decl, case in config_cases(cfg, batch):
-                    if (decl.name, case) not in seen:
-                        seen.add((decl.name, case))
-                        out.append((f"{tag}/{site}[{decl.name}]", decl,
-                                    case))
+                for m in model_shards_of(cfg):
+                    tag = f"{preset}@{polname}" + (
+                        f"/time_chunk={chunk}" if chunk else "") + (
+                        f"/model={m}" if m > 1 else "")
+                    for site, decl, case in config_cases(cfg, batch, m):
+                        if (decl.name, case) not in seen:
+                            seen.add((decl.name, case))
+                            out.append((f"{tag}/{site}[{decl.name}]", decl,
+                                        case))
     return out
 
 

@@ -28,7 +28,6 @@ import math
 from typing import Any
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core.backend import fold_rows, fold_time_major
 from repro_torch.core.lif import LIFConfig, lif_scan
@@ -36,7 +35,9 @@ from repro_torch.core.policy import (ExecutionPolicy, FUSED_EPILOGUE_IMPLS,
                                      dispatch_kernel, fused_epilogue_fallback,
                                      get_kernel, register_kernel,
                                      runtime_fallback)
-from repro_torch.launch.mesh import batch_group
+from repro_torch.launch.mesh import (AllReduceSum, batch_group,
+                                     copy_to_model, model_coord,
+                                     model_group, reduce_from_model)
 from repro_torch.tune.table import lookup as tuned_lookup
 from repro_torch.tune.table import lookup_tile
 
@@ -65,23 +66,6 @@ def init_bn(dim: int, dtype=torch.float32, device="cpu") -> tuple[Params, State]
     return params, state
 
 
-class _AllReduceSum(torch.autograd.Function):
-    """The sum of a tensor over a process group, differentiable: each rank's
-    tensor reaches every rank's sum, so its gradient is the sum of every
-    rank's gradient of the sum."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return _AllReduceSum.apply(g, ctx.group), None
-
-
 @register_kernel("bn", "eager")
 def _bn_eager(params, state, x, train, momentum, eps, policy, site):
     """Plain BatchNorm, the paper's E[x^2] - mu^2 formulation (eq. 13-18);
@@ -97,7 +81,7 @@ def _bn_eager(params, state, x, train, momentum, eps, policy, site):
             ex2 = xf.square().mean(dim=axes)                    # eq. 14
         else:   # the global batch: sums and row count over the ranks
             d = xf.shape[-1]
-            sums = _AllReduceSum.apply(torch.cat(
+            sums = AllReduceSum.apply(torch.cat(
                 [xf.sum(dim=axes), xf.square().sum(dim=axes),
                  xf.new_full((1,), xf.numel() // d)]).double(), group)
             mu, ex2 = ((sums[i * d:(i + 1) * d] / sums[-1]).float()
@@ -159,6 +143,30 @@ def linear_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ params["w"].to(x.dtype)
 
 
+#: The row-parallel Conv1DBN sites of the reference's plan (Megatron's
+#: convention): their input features and weight rows are split over
+#: "model", so each rank's product is a partial sum, added over the model
+#: group (``reduce_from_model``) before BN normalises the whole D.
+ROW_PARALLEL_SITES = ("pssa.proj", "smlp.b")
+
+
+def _row_sum(y: torch.Tensor, site: str) -> torch.Tensor:
+    """``y`` summed over the model group at a row-parallel site; ``y``
+    itself elsewhere, and everywhere without a model group."""
+    return reduce_from_model(y) if site in ROW_PARALLEL_SITES else y
+
+
+def check_model_split(what: str, m: int, **dims: int) -> int:
+    """``m``, where a model axis of ``m`` ranks splits each of ``dims``
+    (the heads and the plan's column and row splits) evenly; else
+    raises."""
+    bad = {k: v for k, v in dims.items() if v % m}
+    if bad:
+        raise ValueError(f"{what}: a model axis of {m} does not split "
+                         f"{bad} evenly")
+    return m
+
+
 def init_linear_bn(generator, d_in: int, d_out: int, dtype=torch.float32,
                    device="cpu"):
     params = init_linear(generator, d_in, d_out, dtype, device)
@@ -169,7 +177,7 @@ def init_linear_bn(generator, d_in: int, d_out: int, dtype=torch.float32,
 @register_kernel("linear_bn", "eager")
 def _linear_bn_eager(params, state, x, train, policy, site):
     """Dense matmul + plain BatchNorm."""
-    y = linear_apply(params["linear"], x)
+    y = _row_sum(linear_apply(params["linear"], x), site)
     y, bn_s = _bn_eager(params["bn"], state["bn"], y, train, 0.9, 1e-5,
                         policy, site)
     return y, {"bn": bn_s}
@@ -179,7 +187,7 @@ def _linear_bn_eager(params, state, x, train, policy, site):
 def _linear_bn_cuda(params, state, x, train, policy, site):
     """Dense matmul + the ``cuda`` BatchNorm (the BN kernels in train,
     plain in eval)."""
-    y = linear_apply(params["linear"], x)
+    y = _row_sum(linear_apply(params["linear"], x), site)
     y, bn_s = _bn_cuda(params["bn"], state["bn"], y, train, 0.9, 1e-5,
                        policy, site)
     return y, {"bn": bn_s}
@@ -212,6 +220,7 @@ def _linear_bn_spike_mm(params, state, x, train, policy, site, tile=None):
         runtime_fallback(site, "cuda+spike_mm",
                          f"contraction dim {x.shape[-1]} % 8 != 0 -> dense")
         y = linear_apply(params["linear"], x)
+    y = _row_sum(y, site)
     y, bn_s = _bn_cuda(params["bn"], state["bn"], y, train, 0.9, 1e-5,
                        policy, site)
     return y, {"bn": bn_s}
@@ -299,9 +308,20 @@ def linear_bn_apply(params: Params, state: State, x: torch.Tensor, *,
     point returns the pre-activation and there is no SN to fuse — so it
     demotes (logged as the plan predicted) to its pipeline fallback; the
     fused path lives in :func:`linear_bn_lif_apply`.
+
+    At a row-parallel site (:data:`ROW_PARALLEL_SITES`) the product is
+    summed over the model group before BN; a fused neuron layer there
+    would normalise a partial sum, so a policy override pinning one at
+    such a site raises on a model axis.
     """
     policy = policy if policy is not None else ExecutionPolicy()
     impl = policy.resolve(site, "linear_bn")
+    if site in ROW_PARALLEL_SITES and model_group() is not None and \
+            dict(policy.overrides).get(site) in FUSED_EPILOGUE_IMPLS:
+        raise ValueError(
+            f"site {site} is row-parallel on the model axis: a fused neuron "
+            f"layer would normalise each rank's partial sum; the override "
+            f"{dict(policy.overrides)[site]!r} cannot run there")
     if impl in FUSED_EPILOGUE_IMPLS:
         fb = fused_epilogue_fallback("linear_bn", impl)
         runtime_fallback(site, impl, f"no trailing LIF at this site -> {fb}",
@@ -463,9 +483,17 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 def pssa_apply(params: Params, state: State, x: torch.Tensor, cfg: PSSAConfig,
                *, train: bool):
     """x: (T,B,N,D) real-valued features -> (T,B,N,D); residual added by
-    caller."""
+    caller.
+
+    On a model axis of M (the ambient mesh), Megatron's attention: Q, K, V
+    column-parallel (the rank's D/M output columns with their BN), the
+    rank's h/M heads, the projection Z row-parallel (its partial product
+    summed over the group before BN, which runs on the whole D)."""
     pol = cfg.policy
+    m = check_model_split("PSSA", model_coord()[1], d_model=cfg.d_model,
+                          n_heads=cfg.n_heads)
     xs = lif_scan(x, cfg.lif_cfg, site="pssa.lif")              # eq. 8
+    xs = copy_to_model(xs)
     # eq. 9: each Conv1DBN -> SN pair is one "neuron layer" — under a
     # fused-epilogue policy the matmul+BN+SOMA run as a single launch.
     qs, s_q = linear_bn_lif_apply(params["q"], state["q"], xs, cfg.lif_cfg,
@@ -478,7 +506,7 @@ def pssa_apply(params: Params, state: State, x: torch.Tensor, cfg: PSSAConfig,
                                   train=train, policy=pol, site="pssa.qkv",
                                   lif_site="pssa.lif")
 
-    qh, kh, vh = (_split_heads(a, cfg.n_heads) for a in (qs, ks, vs))
+    qh, kh, vh = (_split_heads(a, cfg.n_heads // m) for a in (qs, ks, vs))
     if cfg.qk_first:
         attn = dispatch_kernel("attn_qk", "attn_qk",
                                pol.resolve("attn_qk", "attn_qk"),
@@ -520,8 +548,11 @@ def init_smlp(generator, cfg: SMLPConfig, dtype=torch.float32, device="cpu"):
 
 def smlp_apply(params: Params, state: State, x: torch.Tensor, cfg: SMLPConfig,
                *, train: bool):
+    """On a model axis: A column-parallel (d_ff/M hidden features), B
+    row-parallel (summed over the group before its BN)."""
     pol = cfg.policy
-    xs = lif_scan(x, cfg.lif_cfg, site="smlp.lif")   # pre-activation SN
+    check_model_split("SMLP", model_coord()[1], d_ff=cfg.d_ff)
+    xs = copy_to_model(lif_scan(x, cfg.lif_cfg, site="smlp.lif"))
     hs, s_a = linear_bn_lif_apply(params["a"], state["a"], xs, cfg.lif_cfg,
                                   train=train, policy=pol, site="smlp.a",
                                   lif_site="smlp.lif")

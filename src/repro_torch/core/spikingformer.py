@@ -33,6 +33,7 @@ from repro_torch.core.spiking_layers import (BlockConfig, _bn_cuda,
                                              _neuron_layer_site, _normal,
                                              _tuned_prefers_pipeline,
                                              bn_apply, block_apply,
+                                             check_model_split,
                                              init_block, init_bn, init_linear,
                                              linear_apply)
 from repro_torch.tune.table import describe_tuned, lookup_tile
@@ -101,6 +102,14 @@ class SpikingFormerConfig:
         """Same model, different execution policy (params are compatible)."""
         return dataclasses.replace(self, policy=policy)
 
+    def check_model_shards(self, m: int) -> int:
+        """``m``, where a model axis of ``m`` ranks splits the heads,
+        d_model and d_ff evenly (the plan's column and row splits); else
+        raises."""
+        return check_model_split("the Spikingformer", m,
+                                 n_heads=self.n_heads, d_model=self.d_model,
+                                 d_ff=self.d_ff)
+
     @property
     def num_tokens(self) -> int:
         return self.patch_grid * self.patch_grid
@@ -123,12 +132,16 @@ class SpikingFormerConfig:
             c_in = c_out
         return tuple(chans)
 
-    def execution_site_specs(self) -> tuple[tuple, ...]:
+    def execution_site_specs(self, model_shards: int = 1
+                             ) -> tuple[tuple, ...]:
         """(site, op, pack_dim[, spike_operand[, trailing_lif]]) for every
         dispatch site in this model — the input to
         :func:`repro_torch.core.policy.plan_sites`, row for row what the
-        reference's ``execution_site_specs`` gives."""
+        reference's ``execution_site_specs`` gives; with ``model_shards``
+        = M, one rank's of a model axis of M (the row-parallel sites
+        contract over their D/M and d_ff/M local input features)."""
         head_dim = self.d_model // self.n_heads
+        m = self.check_model_shards(model_shards)
         attn = (
             ("attn_qk", "attn_qk", head_dim),
             ("attn_av", "attn_av", self.num_tokens),
@@ -144,20 +157,22 @@ class SpikingFormerConfig:
         ) + lif("tokenizer.lif") + lif("pssa.lif") + (
             ("pssa.qkv", "linear_bn", self.d_model, True, True),
         ) + attn + (
-            ("pssa.proj", "linear_bn", self.d_model, True, False),
+            ("pssa.proj", "linear_bn", self.d_model // m, True, False),
         ) + lif("smlp.lif") + (
             ("smlp.a", "linear_bn", self.d_model, True, True),
-            ("smlp.b", "linear_bn", self.d_ff, True, False),
+            ("smlp.b", "linear_bn", self.d_ff // m, True, False),
         )
 
-    def execution_plan(self):
-        """Resolve the policy once against this model's shapes: one
+    def execution_plan(self, model_shards: int = 1):
+        """Resolve the policy once against this model's shapes (one rank's
+        on a model axis of ``model_shards``): one
         :class:`~repro_torch.core.policy.SiteDecision` per site, with the
         same annotations as the reference's plan (attention pack dims are
         architectural, so their demotions are expected; the
         ``tokenizer.bn`` / ``tokenizer.lif`` rows say when the fused conv
         stages absorb them)."""
-        rows = plan_sites(self.policy, self.execution_site_specs())
+        rows = plan_sites(self.policy,
+                          self.execution_site_specs(model_shards))
         rows[:] = [dataclasses.replace(r, expected=True)
                    if r.op in ("attn_qk", "attn_av") and r.note else r
                    for r in rows]

@@ -32,10 +32,14 @@ collectives are dispatched and do nothing), and counts as it goes
   the inputs (parameters, optimizer state, the rank's rows, the cache)
   counted from the start.
 
-Until the model axis is ported (ROADMAP A11c) the meshes are the
-production ones with the model axis at 1: ``data16`` (data 16, model 1),
-the default, and ``pod2xdata16`` (pod 2, data 16, model 1), ``--multi-pod``.
-``--mesh pod16x16`` and ``pod2x16x16`` raise ``NotImplementedError``.
+The meshes: the production ones, ``pod16x16`` (data 16, model 16) and
+``pod2x16x16`` (pod 2, data 16, model 16), and the same with the model
+axis at 1, ``data16`` (the default) and ``pod2xdata16`` (``--multi-pod``).
+On a model axis the dense family's "heads" scheme and the Spikingformer
+are ported; a cell whose family or attention scheme is ROADMAP A11c-2
+(the "seq" and head_dim schemes, the MoE all-to-all, MLA, the rwkv and
+hybrid heads, the encoder-decoder, the VLM) is reported as such, one row
+of ``--all``, and counted apart.
 """
 from __future__ import annotations
 
@@ -70,9 +74,11 @@ IB_BW = 50e9              # one 400 Gb/s NDR port a GPU, between nodes
 
 #: The meshes a cell runs on: name -> (axis names, sizes).
 MESHES = {"data16": (("data", "model"), (16, 1)),
-          "pod2xdata16": (("pod", "data", "model"), (2, 16, 1))}
-#: The reference's production meshes, whose model axis is not ported.
-MODEL_AXIS_MESHES = ("pod16x16", "pod2x16x16")
+          "pod2xdata16": (("pod", "data", "model"), (2, 16, 1)),
+          "pod16x16": (("data", "model"), (16, 16)),
+          "pod2x16x16": (("pod", "data", "model"), (2, 16, 16))}
+#: The marker of a scheme or family whose model axis is not ported.
+DEFERRED = "A11c-2"
 
 
 def peak_flops(dtype: torch.dtype) -> float:
@@ -113,21 +119,17 @@ def fake_world(size: int):
 
 
 def mesh_shape(mesh_name: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
-    """(axis names, sizes) of a dry-run mesh; the reference's model-axis
-    meshes raise."""
-    if mesh_name in MODEL_AXIS_MESHES:
-        raise NotImplementedError(
-            f"mesh {mesh_name}: compute split over the model axis is ROADMAP "
-            f"A11c; the dry run covers {sorted(MESHES)} (model axis 1)")
+    """(axis names, sizes) of a dry-run mesh."""
     if mesh_name not in MESHES:
         raise ValueError(f"unknown mesh {mesh_name!r}; one of "
-                         f"{sorted(MESHES) + list(MODEL_AXIS_MESHES)}")
+                         f"{sorted(MESHES)}")
     return MESHES[mesh_name]
 
 
 def make_mesh(mesh_name: str):
     """The named mesh over the running (fake) group, its tensors on
-    ``meta``."""
+    ``meta``: its batch and model groups are made on the fake backend
+    too."""
     from repro_torch.launch.mesh import Mesh
     names, sizes = mesh_shape(mesh_name)
     return Mesh(sizes, names, torch.device("meta"))
@@ -428,14 +430,12 @@ def main(argv=None) -> None:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--all-shapes", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--mesh", default=None,
-                    choices=sorted(MESHES) + list(MODEL_AXIS_MESHES),
+    ap.add_argument("--mesh", default=None, choices=sorted(MESHES),
                     help="default data16; --multi-pod: pod2xdata16")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
     mesh_name = args.mesh or ("pod2xdata16" if args.multi_pod else "data16")
-    mesh_shape(mesh_name)                 # the model-axis meshes raise here
     out_dir = args.out or os.path.join(OUT_DIR, mesh_name)
 
     if args.all:
@@ -445,7 +445,7 @@ def main(argv=None) -> None:
     else:
         targets = [(args.arch, args.shape)]
 
-    ok, fail = 0, 0
+    ok, fail, deferred = 0, 0, 0
     for arch, shape in targets:
         marker = os.path.join(out_dir, f"{arch}__{shape}.json")
         if os.path.exists(marker):
@@ -462,12 +462,18 @@ def main(argv=None) -> None:
                   f"coll={rl['collective_s']:.2e}s bound={rl['bound']} "
                   f"(trace {r['compile_s']}s)", flush=True)
             ok += 1
+        except NotImplementedError as e:
+            if DEFERRED not in str(e):
+                raise
+            deferred += 1
+            print(f"[{DEFERRED}] {arch} x {shape}: {e}", flush=True)
         except Exception as e:
             fail += 1
             print(f"[FAIL] {arch} x {shape}: {type(e).__name__}: "
                   f"{str(e)[:300]}", flush=True)
             traceback.print_exc()
-    print(f"dry-run complete: {ok} ok, {fail} failed")
+    print(f"dry-run complete: {ok} ok, {deferred} {DEFERRED}, "
+          f"{fail} failed")
     if fail:
         raise SystemExit(1)
 

@@ -23,8 +23,17 @@ Placement (:func:`local_shard`, :func:`gather_leaf`,
 :func:`reduce_scatter_leaf`): a leaf whose spec names a mesh axis on
 dimension k is held by each rank as its contiguous slice of dimension k,
 the slice of its coordinate along those axes (several axes: the first
-major). The train step gathers and reduces over the batch axes only; the
-model axis is ROADMAP A11c.
+major). The train step gathers and reduces over the batch axes only
+(ZeRO-3): a dim split over "model" stays this rank's slice, the one its
+modules compute on (tensor parallelism, Megatron's convention: the
+region ops of ``models.common`` sum the partial results and the
+gradients over :func:`model_group`). Where the resolved plan stores a
+leaf on another dim than the one a module computes on (``sanitize_specs``
+moved its "model" axis), :func:`gather_model` gathers it whole at use and
+reduce-scatters its gradient back. The "heads" scheme of the dense LMs
+and the Spikingformer are ported; the "seq" and head_dim schemes, the MoE
+all-to-all and the other families on a model axis raise (ROADMAP
+A11c-2).
 """
 from __future__ import annotations
 
@@ -120,7 +129,9 @@ class Mesh(AbstractMesh):
     group, whose size must be the mesh's. ``coords`` are this rank's
     coordinates; ``group(axis)`` the process group along one axis;
     ``batch_group`` the group over the batch axes present (``None`` where
-    there are none); ``device`` where this rank's tensors live."""
+    there are none); ``model_group`` the group along "model" (``None``
+    where the axis is missing or of size 1: the region ops then launch
+    nothing); ``device`` where this rank's tensors live."""
 
     def __init__(self, axis_sizes: tuple[int, ...],
                  axis_names: tuple[str, ...], device: torch.device):
@@ -143,6 +154,9 @@ class Mesh(AbstractMesh):
                 self.axis_names,
                 np.unravel_index(self.rank, self.axis_sizes))})
         object.__setattr__(self, "batch_group", self._batch_group())
+        object.__setattr__(self, "model_group",
+                           self.group("model") if self.shape.get("model", 1)
+                           > 1 else None)
 
     def group(self, axis: str):
         return self.device_mesh.get_group(axis)
@@ -230,6 +244,23 @@ def batch_group():
     of the rank's own rows, as on one device)."""
     mesh = current_mesh()
     return mesh.batch_group if isinstance(mesh, Mesh) else None
+
+
+def model_group():
+    """The process group along the ambient :class:`Mesh`'s "model" axis,
+    ``None`` without one or where that axis has one rank (every region
+    op and :func:`gather_model` is then the identity)."""
+    mesh = current_mesh()
+    return mesh.model_group if isinstance(mesh, Mesh) else None
+
+
+def model_coord() -> tuple[int, int]:
+    """(this rank's coordinate along "model", the axis size) of the
+    ambient mesh; (0, 1) without a model group."""
+    mesh = current_mesh()
+    if not isinstance(mesh, Mesh) or mesh.model_group is None:
+        return 0, 1
+    return int(mesh.coords["model"]), mesh.shape["model"]
 
 
 # ---------------------------------------------------------------------------
@@ -436,16 +467,11 @@ def local_shard(full: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
 
 def batch_dim(spec, mesh: Mesh) -> int | None:
     """The one dim ``spec`` shards over the batch axes (``None`` where there
-    is none). Raises for a dim split over a model axis of more than one
-    device, or for several dims over the batch axes (ROADMAP A11c)."""
-    dims = []
-    for dim, axes in _sharded_dims(spec, mesh):
-        if any(a not in BATCH_AXES and mesh.shape[a] > 1 for a in axes):
-            raise NotImplementedError(
-                f"spec {spec!r} splits dim {dim} over the model axis: "
-                f"gathering and reducing it is ROADMAP A11c")
-        if any(a in BATCH_AXES for a in axes):
-            dims.append(dim)
+    is none). A dim over "model" is left alone (its slice stays on the
+    rank); several dims over the batch axes, or a dim over only some of
+    them, raise."""
+    dims = [dim for dim, axes in _sharded_dims(spec, mesh)
+            if any(a in BATCH_AXES for a in axes)]
     if len(dims) > 1:
         raise NotImplementedError(
             f"spec {spec!r} shards {len(dims)} dims over the batch axes")
@@ -455,37 +481,173 @@ def batch_dim(spec, mesh: Mesh) -> int | None:
         raise NotImplementedError(
             f"spec {spec!r} shards dim {dims[0]} over some of the batch "
             f"axes {batch_axes(mesh)} only")
+    if dims and any(a not in BATCH_AXES and mesh.shape[a] > 1
+                    for a in _axes(spec[dims[0]]) if a in mesh.shape):
+        raise NotImplementedError(
+            f"spec {spec!r} shards dim {dims[0]} over batch and model axes "
+            f"together")
     return dims[0] if dims else None
 
 
+def model_dim(spec, mesh) -> int | None:
+    """The dim ``spec`` splits over a "model" axis of more than one rank,
+    ``None`` where there is none."""
+    for dim, axes in _sharded_dims(spec, mesh):
+        if "model" in axes and mesh.shape["model"] > 1:
+            return dim
+    return None
+
+
 def gather_leaf(shard: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
-    """The full leaf from every rank's shard (``all_gather_into_tensor``
-    over the batch group); ``shard`` itself where the leaf is
-    replicated."""
+    """The leaf gathered over the batch group (``all_gather_into_tensor``):
+    whole but for a dim over "model", which stays this rank's slice;
+    ``shard`` itself where nothing is split over the batch axes."""
     dim = batch_dim(spec, mesh)
     if dim is None:
         return shard
-    n = dist.get_world_size(mesh.batch_group)
-    src = shard.movedim(dim, 0).contiguous()
-    out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=src.dtype,
-                      device=src.device)
-    dist.all_gather_into_tensor(out, src, group=mesh.batch_group)
-    return out.movedim(0, dim).contiguous() if dim else out
+    return _gather_dim(shard, dim, mesh.batch_group)
 
 
 def reduce_scatter_leaf(grad: torch.Tensor, spec, mesh: Mesh
                         ) -> torch.Tensor:
-    """The sum over the batch group of every rank's full gradient, this
-    rank's shard of it (``reduce_scatter_tensor``), or all of it
-    (``all_reduce``) where the leaf is replicated."""
+    """The sum over the batch group of every rank's gradient (of the
+    leaf as :func:`gather_leaf` gives it), this rank's shard of it
+    (``reduce_scatter_tensor``), or all of it (``all_reduce``) where the
+    leaf is not split over the batch axes."""
     dim = batch_dim(spec, mesh)
     if dim is None:
         out = grad.contiguous()
         dist.all_reduce(out, group=mesh.batch_group)
         return out
-    n = dist.get_world_size(mesh.batch_group)
-    src = grad.movedim(dim, 0).contiguous()
+    return _scatter_dim(grad, dim, mesh.batch_group)
+
+
+def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    src = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous() if dim else out
+
+
+def _scatter_dim(g: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    src = g.movedim(dim, 0).contiguous()
     out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=src.dtype,
                       device=src.device)
-    dist.reduce_scatter_tensor(out, src, group=mesh.batch_group)
+    dist.reduce_scatter_tensor(out, src, group=group)
     return out.movedim(0, dim).contiguous() if dim else out
+
+
+def gather_full(shard: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """The whole leaf from every rank's slice: gathered over the batch
+    group (:func:`gather_leaf`), then along its "model" dim over the model
+    group (checkpoints write whole leaves)."""
+    out = gather_leaf(shard, spec, mesh)
+    dim = model_dim(spec, mesh)
+    return out if dim is None else _gather_dim(out, dim, mesh.model_group)
+
+
+class _GatherModel(torch.autograd.Function):
+    """All-gather along ``dim`` over the model group; the backward sums
+    every rank's gradient of the whole leaf and keeps this rank's slice
+    (``reduce_scatter_tensor``)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_dim(g, ctx.dim, ctx.group), None, None
+
+
+def gather_model(x: torch.Tensor, shape) -> torch.Tensor:
+    """The leaf of whole shape ``shape`` from this rank's slice ``x``, for
+    a module that computes on another slice than the plan stores (the
+    stored spec's "model" dim is the one dim where ``x`` is short of
+    ``shape``): all-gathered over the ambient model group, its gradient
+    reduce-scattered back. ``x`` itself where it is whole already."""
+    shape = tuple(shape)
+    if tuple(x.shape) == shape:
+        return x
+    dims = [i for i, (a, b) in enumerate(zip(x.shape, shape)) if a != b]
+    group = model_group()
+    if group is None or len(dims) != 1 or \
+            x.shape[dims[0]] * dist.get_world_size(group) != shape[dims[0]]:
+        raise ValueError(f"a slice {tuple(x.shape)} is not one rank's part "
+                         f"of {shape} along the model axis")
+    return _GatherModel.apply(x, dims[0], group)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable collectives: the BN statistics' sum and the model axis's
+# region ops (Megatron's f and g)
+# ---------------------------------------------------------------------------
+
+class AllReduceSum(torch.autograd.Function):
+    """The sum of a tensor over a process group, differentiable: each rank's
+    tensor reaches every rank's sum, so its gradient is the sum of every
+    rank's gradient of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return AllReduceSum.apply(g, ctx.group), None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the model
+    group (each rank's partial gradient of a replicated input)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over the model group forward (the row-parallel product's
+    partial sums); identity backward (the sum is replicated, and so is its
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """Enter a model-parallel region: ``x`` is replicated over the model
+    group and each rank computes on its columns; the gradient of ``x`` is
+    summed over the group. The identity, launching nothing, without a
+    model group."""
+    group = model_group()
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """Leave a model-parallel region: the sum of every rank's partial
+    ``x`` (all-reduce), whose gradient is each rank's as it is. The
+    identity, launching nothing, without a model group."""
+    group = model_group()
+    return x if group is None else _ReduceFromModel.apply(x, group)

@@ -18,7 +18,7 @@ LEVERS = {
     ("memory",): "cut HBM traffic: flash attention, fused elementwise "
                  "code, in-place (donated) updates, a CUDA graph of the "
                  "small launches",
-    ("collective",): "reshard: the model axis (ROADMAP A11c), overlap the "
+    ("collective",): "reshard: the model axis (ROADMAP A11c-2), overlap the "
                      "gathers and reductions with compute, compress grads",
 }
 

@@ -113,13 +113,19 @@ def _batch_structs(cfg, sh: ShapeSpec, batch_axes):
     return out, spec
 
 
-def cache_structs(cfg, batch: int, max_seq: int, batch_axes):
+def cache_structs(cfg, batch: int, max_seq: int, batch_axes,
+                  model: int = 16, lif_replicated: bool = False):
     """Decode-state structs and specs (mirrors ``models.lm.init_cache``):
     the leading layer axis unsharded, batch over the batch axes where
     batch > 1, and the model axis on heads (dim 3 of a 5-D attention
-    cache) where they divide by 16, else the sequence (dim 2); a 4-D cache
-    on seq, then features; ``cache_shard="trailing"`` on the last dim that
-    divides."""
+    cache) where they divide by ``model`` (the reference's 16), else the
+    sequence (dim 2); a 4-D cache on seq, then features;
+    ``cache_shard="trailing"`` on the last dim that divides. The decode
+    step's "heads" scheme holds the rank's kv heads, the layout this
+    gives where ``model`` is the mesh's axis. ``lif_replicated`` keeps
+    the spiking LM's LIF state (``"lif"``) whole on every model rank, as
+    the decode step reads it (the neuron runs on the whole D after the
+    FFN's sum); the reference's layout shards it as any other leaf."""
     ba = batch_axes or None
     bspec = ba if batch > 1 else None
     if cfg.family == "audio":
@@ -138,10 +144,12 @@ def cache_structs(cfg, batch: int, max_seq: int, batch_axes):
         from repro_torch.models.lm import init_cache
         struct = init_cache(cfg, batch, max_seq, torch.bfloat16, META)
 
-    def spec_for(s) -> P:
+    def spec_for(s, replicated=False) -> P:
         dims: list = [None] * s.ndim
         if s.ndim >= 2:
             dims[1] = bspec
+        if replicated:
+            return P(*dims)
         if cfg.cache_shard == "auto" and s.ndim == 5:
             order = (3, 2, 4)       # heads, seq, head_dim
         elif cfg.cache_shard == "auto" and s.ndim == 4:
@@ -149,15 +157,17 @@ def cache_structs(cfg, batch: int, max_seq: int, batch_axes):
         else:
             order = tuple(range(s.ndim - 1, 1, -1))
         for i in order:
-            if i < s.ndim and s.shape[i] % 16 == 0 and s.shape[i] >= 16:
+            if i < s.ndim and s.shape[i] % model == 0 and \
+                    s.shape[i] >= model:
                 dims[i] = "model"
                 break
         return P(*dims)
 
-    def walk(tree):
+    def walk(tree, lif=False):
         if isinstance(tree, dict):
-            return {k: walk(v) for k, v in tree.items()}
-        return spec_for(tree)
+            return {k: walk(v, lif or (k == "lif" and lif_replicated))
+                    for k, v in tree.items()}
+        return spec_for(tree, lif)
     return struct, walk(struct)
 
 
@@ -228,14 +238,18 @@ def input_specs(cfg, shape_name, mesh, microbatches: int = 1
     The weights are FSDP'd over "data" for training, and for serving where
     the bytes of the weights over the model axis pass 8e9, as in the
     reference. A serving cell whose plan shards the weights over "data"
-    gathers the whole tree (``mesh.gather_leaf``, leaf by leaf) before the
-    step, so its peak says whether the weights fit on one card; gathering
-    them layer by layer while serving belongs to the model axis (ROADMAP
-    A11c). The steps run on ``mesh`` where it is a :class:`Mesh`; an
-    :class:`AbstractMesh` gives the specs and the mesh-less step."""
+    gathers them over the batch group (``mesh.gather_leaf``, leaf by
+    leaf) before the step, so its peak says whether they fit on one card;
+    a leaf's "model" slice stays the rank's (the dense family's "heads"
+    scheme computes on it). The steps run on ``mesh``, inside it, where it
+    is a :class:`Mesh`; an :class:`AbstractMesh` gives the specs and the
+    mesh-less step. What the model axis does not split raises naming
+    ROADMAP A11c-2."""
     from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.train.loop import check_model_axis
     sh = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
     ba = batch_axes(mesh)
+    check_model_axis(cfg, mesh)
     if getattr(cfg, "family", None) == "vision":
         return _vision_input_specs(cfg, sh, mesh, ba)
     p_struct, p_specs = param_structs(cfg)
@@ -257,8 +271,19 @@ def input_specs(cfg, shape_name, mesh, microbatches: int = 1
         return fn, (p_struct, o_struct, b_struct), (p_specs, o_specs,
                                                     b_specs)
 
+    def in_mesh(step):
+        """``step`` run inside the mesh, whose model axis the model reads."""
+        if run_mesh is None:
+            return step
+
+        def run(*args):
+            with mesh_mod.use_mesh(run_mesh):
+                return step(*args)
+        return run
+
     def whole(params):
-        """The whole weights on every rank (the serving plan's gather)."""
+        """The weights gathered over the batch group (the serving plan's
+        gather); tensor-parallel slices stay the rank's."""
         if run_mesh is None:
             return params
         return map_specs(lambda spec, leaf: mesh_mod.gather_leaf(
@@ -275,16 +300,21 @@ def input_specs(cfg, shape_name, mesh, microbatches: int = 1
                 enc = encode(params, batch["frames"], cfg)
                 x = decode_train(params, batch["tokens"], enc, cfg)
                 return unembed(params["embed"], x[:, -1])
+            fn = in_mesh(fn)
         else:
             from repro_torch.models.lm import lm_prefill
 
+            @in_mesh
             def fn(params, batch):
                 return lm_prefill(whole(params), batch, cfg)
         b_struct.pop("labels"), b_specs.pop("labels")
         return fn, (p_struct, b_struct), (p_specs, b_specs)
 
     # decode
-    c_struct, c_specs = cache_structs(cfg, sh.batch, sh.seq, ba)
+    m = mesh.shape.get("model", 1)
+    c_struct, c_specs = cache_structs(cfg, sh.batch, sh.seq, ba,
+                                      **({"model": m} if m > 1 else {}),
+                                      lif_replicated=True)
     c_specs = sanitize_specs(c_specs, c_struct, mesh)
     tok = _struct((sh.batch, 1), torch.int32)
     pos = _struct((sh.batch,), torch.int32)
@@ -311,6 +341,7 @@ def input_specs(cfg, shape_name, mesh, microbatches: int = 1
         return mesh_mod.local_shard(mesh_mod.gather_leaf(leaf, spec, run_mesh),
                                     want, run_mesh)
 
+    @in_mesh
     def fn(params, cache, tokens, pos):
         cache = map_specs(rows, c_specs, cache, axes)
         return step(whole(params), cache, tokens, pos, cfg)

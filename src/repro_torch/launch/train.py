@@ -20,17 +20,19 @@ path the parameters, BN state and optimizer state. No fault injection
 (ROADMAP A13). The audio family (``whisper-large-v3``) trains on zero
 frame embeddings, the VLM stub on zero patches, as in the reference.
 
-Data parallel over several GPUs, one process each:
+Data and tensor parallel over several GPUs, one process each:
 
-  torchrun --nproc_per_node=N -m repro_torch.launch.train --arch ...
+  torchrun --nproc_per_node=N -m repro_torch.launch.train --arch ... [--model M]
 
-Under ``torchrun`` the driver builds a (world, 1) mesh, as the reference
-builds (device_count, 1), and trains ZeRO-3 over "data"
-(``train.loop.make_train_step(mesh=)``): every rank draws the global batch
-of each step and keeps its rows (``train.data.place_batch``); rank 0
-writes the checkpoints. ``train(mesh=...)`` takes a mesh from
-``launch.mesh.make_test_mesh``; ``mesh=None`` is the single-device path.
-A mesh with a model axis of more than 1 is ROADMAP A11c and raises.
+Under ``torchrun`` the driver builds a (N / M, M) mesh (``--model``
+defaults to 1: the reference's (device_count, 1)) and trains ZeRO-3 over
+"data" and tensor parallel over "model" (``train.loop.make_train_step(
+mesh=)``): every rank draws the global batch of each step and keeps its
+rows (``train.data.place_batch``; the ranks of one model group keep the
+same rows); rank 0 writes the checkpoints, whole. ``train(mesh=...)``
+takes a mesh from ``launch.mesh.make_test_mesh``; ``mesh=None`` is the
+single-device path. On a model axis the Spikingformer and the dense LMs
+train; the other families raise (ROADMAP A11c-2).
 """
 from __future__ import annotations
 
@@ -94,9 +96,10 @@ def build_spikingformer_state(cfg, mesh=None,
     """Spikingformer parameters and BN state from ``seed`` and a fresh
     AdamW state: ``(params, state, opt_state, (p_specs, s_specs))``, the
     specs of the plan on ``mesh`` (``launch.specs.spikingformer_structs``;
-    the logical ones without a mesh). With a mesh the parameters and
-    moments are this rank's slices of the whole leaves, which every rank
-    draws from the same seed; the BN state is whole on every rank."""
+    the logical ones without a mesh). With a mesh the parameters, the BN
+    state and the moments are this rank's slices of the whole leaves,
+    which every rank draws from the same seed (the BN state is split over
+    "model" alone, at the column-parallel sites)."""
     from repro_torch.core.spikingformer import (init_spikingformer,
                                                 spikingformer_param_specs)
     device = mesh.device if mesh is not None else resolve_device(device)
@@ -108,6 +111,7 @@ def build_spikingformer_state(cfg, mesh=None,
         from repro_torch.launch.specs import spikingformer_structs
         specs = spikingformer_structs(cfg, mesh, fsdp_min_elems)[1]
         params = _shard_tree(params, specs[0], mesh)
+        state = _shard_tree(state, specs[1], mesh)
     compress = opt_cfg is not None and opt_cfg.compress_grads
     return params, state, init_opt_state(params, compress), specs
 
@@ -394,6 +398,9 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="default: the CUDA device; 'cpu' runs the plain "
                          "PyTorch versions of the kernels")
+    ap.add_argument("--model", type=int, default=1,
+                    help="ranks of the mesh's model axis under torchrun "
+                         "(the mesh is (world / model, model))")
     args = ap.parse_args(argv)
     if args.chaos_schedule or os.environ.get("CHAOS_SCHEDULE"):
         raise NotImplementedError(
@@ -406,7 +413,12 @@ def main(argv=None) -> None:
                                              make_test_mesh,
                                              shutdown_distributed)
         _, world, _ = init_distributed(args.device)
-        mesh = make_test_mesh(world, 1)
+        if world % args.model:
+            raise SystemExit(f"--model {args.model} does not divide the "
+                             f"world of {world}")
+        mesh = make_test_mesh(world // args.model, args.model)
+    elif args.model != 1:
+        raise SystemExit("--model needs torchrun (one process a rank)")
     try:
         _, history = train(cfg, steps=args.steps, global_batch=args.batch,
                            seq_len=args.seq if args.seq is not None else 128,

@@ -5,8 +5,14 @@ against a dense or ring-buffer KV cache.
 
 The products are ``torch.matmul``/``einsum``, as the reference leaves its
 einsums to XLA outside any Pallas kernel. The reference's sharding
-constraints are identities here: under data parallelism each rank holds
-its rows whole; heads split over the "model" axis are ROADMAP A11c.
+constraints are identities here: each rank holds its rows whole, and on a
+model axis of M (the ambient mesh) the "heads" scheme of the reference's
+``_attn_scheme``: the rank's h/M query heads, the key/value heads they
+read (its own hk/M where M divides hk, else the one or few its query heads
+share, cut from ``wk``/``wv`` gathered over the group where the plan
+stores them on another dim), ``wo`` row-parallel and summed over the
+group. The caller enters the region (``copy_to_model`` on ``x``). The
+"seq" and head_dim schemes raise (ROADMAP A11c-2).
 """
 from __future__ import annotations
 
@@ -14,8 +20,11 @@ import dataclasses
 
 import torch
 
-from repro_torch.models.common import (MODEL, apply_rope, init_rmsnorm,
-                                       normal_leaf, rmsnorm, zeros_leaf)
+from repro_torch.launch.mesh import gather_model
+from repro_torch.models.common import (MODEL, apply_rope, copy_to_model,
+                                       init_rmsnorm, model_coord, normal_leaf,
+                                       reduce_from_model, refuse_model_axis,
+                                       rmsnorm, zeros_leaf)
 
 NEG_INF = -1e30
 
@@ -68,23 +77,84 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         *x.shape[:-1], h, dh)
 
 
+def _heads(cfg: AttnConfig, seq: int, decode: bool = False):
+    """This rank's heads under the "heads" scheme on the ambient model
+    axis: ``(first q head, q heads, first kv head, kv heads)``, ``None``
+    without a model axis. Another scheme raises (A11c-2): training takes
+    "heads" where M divides the query heads, decode where it divides the
+    kv heads (the cache's layout), as the reference chooses."""
+    r, m = model_coord()
+    if m == 1:
+        return None
+    if decode and cfg.n_kv_heads % m:
+        refuse_model_axis(
+            f"decode attention with {cfg.n_kv_heads} kv heads (the "
+            f"'{'seq' if seq % m == 0 else 'head_dim'}' scheme)")
+    if cfg.n_heads % m:
+        refuse_model_axis(
+            f"attention with {cfg.n_heads} heads (the "
+            f"'{'seq' if seq % m == 0 else 'none'}' scheme)")
+    hl = cfg.n_heads // m
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    kv_lo = r * hl // n_rep
+    return r * hl, hl, kv_lo, (r * hl + hl - 1) // n_rep + 1 - kv_lo
+
+
+def _kv_part(leaf: torch.Tensor, whole, dim: int, lo: int, n: int
+             ) -> torch.Tensor:
+    """Kv heads ``[lo, lo + n)`` (along ``dim``) of a key/value leaf of
+    shape ``whole``: the rank's own slice where the plan stores exactly
+    those, else cut from the leaf gathered over the model group."""
+    want = list(whole)
+    want[dim] = n
+    if list(leaf.shape) == want:
+        return leaf
+    return gather_model(leaf, whole).narrow(dim, lo, n)
+
+
 def _project_qkv(params, x: torch.Tensor, cfg: AttnConfig,
-                 positions: torch.Tensor):
-    """x: (B, S, D) -> q (B,S,H,dh), k/v (B,S,HK,dh), RoPE'd + normed."""
+                 positions: torch.Tensor, heads=None):
+    """x: (B, S, D) -> q (B,S,H,dh), k/v (B,S,HK,dh), RoPE'd + normed; with
+    ``heads`` (:func:`_heads`) the rank's query heads and the kv heads
+    they read."""
+    wk, wv = params["wk"], params["wv"]
+    bk, bv = params.get("bk"), params.get("bv")
+    if heads is not None:
+        _, _, kv_lo, nkv = heads
+        d, hk, dh = cfg.d_model, cfg.n_kv_heads, cfg.d_head
+        wk, wv = (_kv_part(w, (d, hk, dh), 1, kv_lo, nkv) for w in (wk, wv))
+        if cfg.qkv_bias:
+            bk, bv = (_kv_part(b, (hk, dh), 0, kv_lo, nkv) for b in (bk, bv))
     q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
+    k = _project(x, wk)
+    v = _project(x, wv)
     if cfg.qkv_bias:
         q = q + params["bq"].to(x.dtype)
-        k = k + params["bk"].to(x.dtype)
-        v = v + params["bv"].to(x.dtype)
+        k = k + bk.to(x.dtype)
+        v = v + bv.to(x.dtype)
     if cfg.qk_norm:
-        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+        qn, kn = params["q_norm"], params["k_norm"]
+        if heads is not None:
+            # replicated leaves inside the region: each rank's gradient
+            # covers its heads only, so it is summed over the group
+            qn, kn = ({"scale": copy_to_model(p["scale"])} for p in (qn, kn))
+        q = rmsnorm(qn, q, cfg.norm_eps)
+        k = rmsnorm(kn, k, cfg.norm_eps)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _expand_kv(k: torch.Tensor, cfg: AttnConfig, heads) -> torch.Tensor:
+    """The kv heads repeated to the query heads that read them: all of
+    them (``_repeat_kv``), or the rank's (``heads``)."""
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    if heads is None:
+        return _repeat_kv(k, n_rep)
+    q_lo, hl, kv_lo, _ = heads
+    idx = torch.arange(q_lo, q_lo + hl, device=k.device) // n_rep - kv_lo
+    return k.index_select(2, idx)
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -114,10 +184,12 @@ def _bias(ok: torch.Tensor) -> torch.Tensor:
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """(B, S, H, dh) x (H, dh, D) -> (B, S, D), one matmul."""
+    """(B, S, H, dh) x (H, dh, D) -> (B, S, D), one matmul; on a model axis
+    the rank's heads' partial sum, added over the group."""
     h, dh, d = wo.shape
-    return torch.matmul(out.reshape(*out.shape[:-2], h * dh),
-                        wo.to(out.dtype).reshape(h * dh, d))
+    return reduce_from_model(torch.matmul(
+        out.reshape(*out.shape[:-2], h * dh),
+        wo.to(out.dtype).reshape(h * dh, d)))
 
 
 def attention(params, x: torch.Tensor, cfg: AttnConfig,
@@ -126,9 +198,9 @@ def attention(params, x: torch.Tensor, cfg: AttnConfig,
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    n_rep = cfg.n_heads // cfg.n_kv_heads
-    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    heads = _heads(cfg, s)
+    q, k, v = _project_qkv(params, x, cfg, positions, heads)
+    k, v = _expand_kv(k, cfg, heads), _expand_kv(v, cfg, heads)
     scale = cfg.d_head ** -0.5
     logits = torch.einsum("bshe,bthe->bhst", q, k).float() * scale
     logits = logits + _mask_bias(s, s, cfg, x.device)[None, None]
@@ -180,9 +252,9 @@ def flash_attention(params, x: torch.Tensor, cfg: AttnConfig,
     """Long-prefill GQA attention built on :func:`flash_core`."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    n_rep = cfg.n_heads // cfg.n_kv_heads
-    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    heads = _heads(cfg, s)
+    q, k, v = _project_qkv(params, x, cfg, positions, heads)
+    k, v = _expand_kv(k, cfg, heads), _expand_kv(v, cfg, heads)
     out = flash_core(q, k, v, scale=cfg.d_head ** -0.5, causal=cfg.causal,
                      sliding_window=cfg.sliding_window, kv_chunk=kv_chunk)
     return _out_proj(out, params["wo"])
@@ -200,12 +272,14 @@ def attention_decode(params, x: torch.Tensor, cache: dict[str, torch.Tensor],
 
     Sliding-window caches are ring buffers of size ``cfg.sliding_window``;
     dense caches are written at ``pos`` directly. The cache passed in is
-    not modified: the updated one is returned.
+    not modified: the updated one is returned. On a model axis the cache
+    holds the rank's hk/M kv heads.
     """
     b = x.shape[0]
-    q, k, v = _project_qkv(params, x, cfg, pos[:, None])
-
     s_cache = cache["k"].shape[1]
+    heads = _heads(cfg, s_cache, decode=True)
+    q, k, v = _project_qkv(params, x, cfg, pos[:, None], heads)
+
     slot = pos % s_cache if cfg.sliding_window is not None else pos
     if cfg.scatter_cache:
         bi = torch.arange(b, device=x.device)
@@ -219,9 +293,8 @@ def attention_decode(params, x: torch.Tensor, cache: dict[str, torch.Tensor],
         new_k = cache["k"] * (1 - oh) + oh * k.to(cache["k"].dtype)
         new_v = cache["v"] * (1 - oh) + oh * v.to(cache["v"].dtype)
 
-    n_rep = cfg.n_heads // cfg.n_kv_heads
-    kk = _repeat_kv(new_k.to(x.dtype), n_rep)
-    vv = _repeat_kv(new_v.to(x.dtype), n_rep)
+    kk = _expand_kv(new_k.to(x.dtype), cfg, heads)
+    vv = _expand_kv(new_v.to(x.dtype), cfg, heads)
     scale = cfg.d_head ** -0.5
     logits = torch.einsum("bshe,bthe->bhst", q, kk).float() * scale
     idx = torch.arange(s_cache, device=x.device)[None]         # (1, S)

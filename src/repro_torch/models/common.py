@@ -20,10 +20,13 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from repro_torch.core.spikingformer import tree_leaves, tree_map, \
     tree_unflatten
+from repro_torch.launch.mesh import (copy_to_model, model_coord,  # noqa: F401
+                                     model_group, reduce_from_model)
 
 # Logical -> physical axis naming, as in the reference.
 BATCH = ("pod", "data")
@@ -100,12 +103,24 @@ def lscan(cfg, f, init, xs, remat: bool | None = None):
 
 
 def shard(x: torch.Tensor, *spec) -> torch.Tensor:
-    """Sharding constraint: the identity. Under data parallelism each rank
-    computes on its own rows with the full (gathered) parameters, so an
-    activation is already where the reference's constraint puts it; the
-    model axis, where the constraint would split a computation, is ROADMAP
-    A11c."""
+    """Sharding constraint: the identity. Each rank computes on its own rows
+    (data) and on its slice of the model-parallel leaves, so an activation
+    is already where the reference's constraint puts it; where XLA would
+    insert a collective to get it there, the module calls the region ops
+    (:func:`copy_to_model`, :func:`reduce_from_model`) itself."""
     return x
+
+
+def refuse_model_axis(what: str, m: int | None = None) -> None:
+    """Raises for a scheme or family whose compute split over the model
+    axis is not ported (ROADMAP A11c-2), where the model axis (``m``
+    ranks, default the ambient mesh's) has more than one rank; the port
+    never computes such a model replicated in silence."""
+    m = model_coord()[1] if m is None else m
+    if m > 1:
+        raise NotImplementedError(
+            f"{what} on a model axis of {m} is ROADMAP A11c-2 (ported: the "
+            f"Spikingformer and the dense family's 'heads' scheme)")
 
 
 def shard_batch(x: torch.Tensor, *rest) -> torch.Tensor:
@@ -220,21 +235,76 @@ def init_embedding(generator, vocab: int, d_model: int, dtype=torch.float32,
                                  scale=0.02, dtype=dtype, device=device)}
 
 
+def _vocab_slice(table: torch.Tensor) -> tuple[int, int] | None:
+    """(first row, rows) of this rank's part of a vocab-parallel table,
+    ``None`` without a model group."""
+    r, m = model_coord()
+    if m == 1:
+        return None
+    return r * table.shape[0], table.shape[0]
+
+
 def embed(params, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
-    out = params["table"][tokens.long()]
+    """The rows of the table for ``tokens``. Vocab-parallel on a model
+    axis: each rank looks up the tokens in its rows (zeros for the
+    others') and the ranks' lookups are summed (:func:`reduce_from_model`)."""
+    table = params["table"]
+    part = _vocab_slice(table)
+    if part is None:
+        out = table[tokens.long()]
+    else:
+        lo, n = part
+        local = tokens.long() - lo
+        hit = (local >= 0) & (local < n)
+        out = table[torch.where(hit, local, 0)] * hit[..., None].to(
+            table.dtype)
+        out = reduce_from_model(out)
     return out.to(dtype) if dtype is not None else out
 
 
 def unembed(params, x: torch.Tensor) -> torch.Tensor:
-    """(..., D) -> (..., V) logits, fp32 for a stable softmax."""
+    """(..., D) -> (..., V) logits, fp32 for a stable softmax. On a model
+    axis each rank's (..., V/M), its rows of the table, as the reference
+    constrains the logits."""
+    if model_group() is not None:
+        x = copy_to_model(x)
     return torch.matmul(x.float(), params["table"].float().t())
+
+
+def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """Whole-vocabulary logits from each rank's (..., V/M) part (the
+    caller's view of a vocab-parallel unembedding; no gradient)."""
+    from repro_torch.launch.mesh import _gather_dim
+    group = model_group()
+    if group is None:
+        return logits
+    return _gather_dim(logits, logits.ndim - 1, group)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: torch.Tensor | None = None) -> torch.Tensor:
-    """logits (B, S, V) fp32; labels (B, S) int; mask optional (B, S)."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    """logits (B, S, V) fp32; labels (B, S) int; mask optional (B, S). On a
+    model axis the logits are each rank's (B, S, V/M): the log-sum-exp
+    from the group's maximum and its sum of exponentials, the target's
+    logit from the rank that holds it (both sums over the group by
+    :func:`reduce_from_model`, so every rank holds the loss and its
+    gradient reaches its own columns)."""
+    group = model_group()
+    if group is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    else:
+        v = logits.shape[-1]
+        lo = model_coord()[0] * v
+        top = logits.detach().amax(-1)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        sumexp = reduce_from_model(torch.exp(logits - top[..., None]).sum(-1))
+        logz = top + torch.log(sumexp)
+        local = labels.long() - lo
+        hit = (local >= 0) & (local < v)
+        gold = torch.gather(logits, -1, torch.where(hit, local, 0)[..., None]
+                            )[..., 0]
+        gold = reduce_from_model(torch.where(hit, gold, 0.0))
     nll = logz - gold
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -21,6 +21,13 @@ The audio family is not a decoder LM: it runs through
 ``repro_torch.models.encdec``, as the reference routes it, and this
 module's entry points refuse it.
 
+On a mesh with a model axis (the ambient mesh, ``launch.mesh.use_mesh``)
+the dense family is tensor parallel: the embedding and the unembedding
+vocab-parallel, each block's attention ("heads" scheme) and SwiGLU
+between ``copy_to_model`` and their row-parallel sums, the LIF on the
+whole D after the sum; the serving entry points hand back whole-vocabulary
+logits. Every other family raises there (ROADMAP A11c-2).
+
 Entry points:
   init_lm(generator, cfg, device)      -> augmented param tree (Leaf leaves)
   lm_forward(params, batch, cfg)       -> (hidden, aux_loss)
@@ -43,10 +50,11 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (cross_entropy_loss, embed,
-                                       init_embedding, init_rmsnorm, lscan,
-                                       rmsnorm, stack_layer_trees, tree_map,
-                                       unembed)
+from repro_torch.models.common import (copy_to_model, cross_entropy_loss,
+                                       embed, gather_vocab, init_embedding,
+                                       init_rmsnorm, lscan, model_coord,
+                                       refuse_model_axis, rmsnorm,
+                                       stack_layer_trees, tree_map, unembed)
 from repro_torch.models.mlp import init_swiglu, swiglu
 
 Params = dict[str, Any]
@@ -61,6 +69,24 @@ def _refuse_audio(cfg: ArchConfig) -> None:
             f"repro_torch.models.encdec (init_encdec, encdec_loss, "
             f"init_encdec_cache, encdec_decode_step); "
             f"repro_torch.models.lm runs the decoder families")
+
+
+def check_lm_split(cfg: ArchConfig, m: int | None = None) -> None:
+    """Raises where a model axis of ``m`` ranks (default: the ambient
+    mesh's) would split a computation this port does not split (ROADMAP
+    A11c-2): every family but the dense one, and a dense config whose
+    vocabulary or d_ff the axis does not divide (the plan would store
+    those leaves on another dim). The attention scheme is checked at the
+    attention."""
+    m = model_coord()[1] if m is None else m
+    if m == 1:
+        return
+    if cfg.family != "dense" or cfg.mla is not None or cfg.moe is not None \
+            or cfg.vlm_stub:
+        refuse_model_axis(f"{cfg.name} (family {cfg.family})", m)
+    if cfg.vocab_size % m or cfg.d_ff % m:
+        refuse_model_axis(f"{cfg.name}: vocab {cfg.vocab_size} / d_ff "
+                          f"{cfg.d_ff} not divisible by the axis", m)
 
 
 # ---------------------------------------------------------------------------
@@ -119,8 +145,8 @@ def _init_dense_block(generator, cfg: ArchConfig, device):
 
 def _dense_block(p, x, cfg: ArchConfig, *, use_flash: bool):
     """One block: (x + attention + FFN branch, the MoE's aux loss (0 for
-    SwiGLU))."""
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    SwiGLU)). Each branch's input enters the model-parallel region."""
+    h = copy_to_model(rmsnorm(p["ln1"], x, cfg.norm_eps))
     if cfg.mla is not None:
         a = mla_mod.mla_flash_attention(p["attn"], h, cfg.mla) if use_flash \
             else mla_mod.mla_attention(p["attn"], h, cfg.mla)
@@ -129,7 +155,7 @@ def _dense_block(p, x, cfg: ArchConfig, *, use_flash: bool):
     else:
         a = attn_mod.attention(p["attn"], h, cfg.attn)
     x = x + a
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    h = copy_to_model(rmsnorm(p["ln2"], x, cfg.norm_eps))
     if cfg.moe is not None:
         f, aux = moe_mod.moe_apply(p["ffn"], h, cfg.moe)
     else:
@@ -142,13 +168,13 @@ def _dense_block(p, x, cfg: ArchConfig, *, use_flash: bool):
 
 def _dense_block_decode(p, x, cache, pos, cfg: ArchConfig):
     kv = cache["kv"] if cfg.lif is not None else cache
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h = copy_to_model(rmsnorm(p["ln1"], x, cfg.norm_eps))
     if cfg.mla is not None:
         a, kv = mla_mod.mla_decode(p["attn"], h, kv, pos, cfg.mla)
     else:
         a, kv = attn_mod.attention_decode(p["attn"], h, kv, pos, cfg.attn)
     x = x + a
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    h = copy_to_model(rmsnorm(p["ln2"], x, cfg.norm_eps))
     if cfg.moe is not None:
         f, _ = moe_mod.moe_apply(p["ffn"], h, cfg.moe)
     else:
@@ -284,6 +310,7 @@ def lm_forward(params: Params, batch: dict[str, torch.Tensor],
     backward, and each hybrid group as a whole (its Mamba2 layers and the
     shared block), as the reference checkpoints them."""
     _refuse_audio(cfg)
+    check_lm_split(cfg)
     x = embed(params["embed"], batch["tokens"], cfg.dtype)
     if cfg.vlm_stub and "patch_embeds" in batch:
         # pixtral: image patches arrive pre-embedded (frontend stub); merge.
@@ -323,8 +350,12 @@ def lm_loss(params: Params, batch: dict[str, torch.Tensor], cfg: ArchConfig,
     logits = unembed(params["embed"], x)
     loss = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
     total = loss + aux_weight * aux
+    mean_abs = logits.detach().abs().mean()
+    m = model_coord()[1]
+    if m > 1:   # the mean over every rank's equal part of the vocabulary
+        mean_abs = gather_vocab(mean_abs[None]).mean()
     return total, {"loss": loss.detach(), "aux_loss": aux.detach(),
-                   "logits_mean_abs": logits.detach().abs().mean()}
+                   "logits_mean_abs": mean_abs}
 
 
 # ---------------------------------------------------------------------------
@@ -410,8 +441,10 @@ def cache_slot_state(cache, slot: int, cfg: ArchConfig):
 def lm_decode_step(params: Params, cache, tokens: torch.Tensor,
                    pos: torch.Tensor, cfg: ArchConfig):
     """tokens: (B, 1) -> (logits (B, V), new cache). pos: (B,). The cache
-    passed in is not modified."""
+    passed in is not modified. On a model axis the cache holds the rank's
+    kv heads and the logits are gathered whole."""
     _refuse_audio(cfg)
+    check_lm_split(cfg)
     x = embed(params["embed"], tokens, cfg.dtype)
 
     if cfg.family == "rwkv":
@@ -442,12 +475,13 @@ def lm_decode_step(params: Params, cache, tokens: torch.Tensor,
             return _dense_block_decode(p, x, st, pos, cfg)
         x, cache = lscan(cfg, body, x, (params["blocks"], cache))
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    return unembed(params["embed"], x[:, 0]), cache
+    return gather_vocab(unembed(params["embed"], x[:, 0])), cache
 
 
 def lm_prefill(params: Params, batch: dict[str, torch.Tensor],
                cfg: ArchConfig):
-    """Inference forward over a prompt; returns last-position logits."""
+    """Inference forward over a prompt; returns last-position logits
+    (whole, gathered over a model axis)."""
     x, _ = lm_forward(params, batch, cfg,
                       use_flash=batch["tokens"].shape[1] > 8192)
-    return unembed(params["embed"], x[:, -1])
+    return gather_vocab(unembed(params["embed"], x[:, -1]))

@@ -1,12 +1,17 @@
 """Feed-forward layers (the counterpart of ``repro.models.mlp``): SwiGLU
 (llama/qwen/mixtral family) and GELU (whisper). Dense products, as the
-reference's einsums."""
+reference's einsums. On a model axis SwiGLU is Megatron's: ``w_gate`` and
+``w_up`` column-parallel (the rank's d_ff/M hidden features), ``w_down``
+row-parallel, its partial sums added over the group; the caller enters the
+region (``copy_to_model``). The GELU MLP runs with the audio family, whose
+model axis is ROADMAP A11c-2."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import MODEL, normal_leaf, zeros_leaf
+from repro_torch.models.common import (MODEL, normal_leaf, reduce_from_model,
+                                       zeros_leaf)
 
 
 def init_swiglu(generator, d_model: int, d_ff: int, dtype=torch.float32,
@@ -24,7 +29,8 @@ def init_swiglu(generator, d_model: int, d_ff: int, dtype=torch.float32,
 def swiglu(params, x: torch.Tensor) -> torch.Tensor:
     g = torch.matmul(x, params["w_gate"].to(x.dtype))
     u = torch.matmul(x, params["w_up"].to(x.dtype))
-    return torch.matmul(F.silu(g) * u, params["w_down"].to(x.dtype))
+    return reduce_from_model(
+        torch.matmul(F.silu(g) * u, params["w_down"].to(x.dtype)))
 
 
 def init_gelu_mlp(generator, d_model: int, d_ff: int, dtype=torch.float32,

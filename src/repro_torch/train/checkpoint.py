@@ -173,10 +173,10 @@ def save_checkpoint(directory: str, step: int, tree: Any,
     at :func:`finish_save`."""
     spec_map = _spec_map(specs) if specs is not None else {}
     if mesh is not None:
-        from repro_torch.launch.mesh import gather_leaf
+        from repro_torch.launch.mesh import gather_full
         host_leaves = []
         for name, leaf in _flatten_with_paths(tree):
-            full = gather_leaf(leaf, _as_spec(spec_map.get(name)), mesh)
+            full = gather_full(leaf, _as_spec(spec_map.get(name)), mesh)
             if mesh.rank == 0:
                 host_leaves.append((name, _host_copy(full)))
         if mesh.rank != 0:
@@ -238,7 +238,7 @@ def finish_save(writer: threading.Thread | None, mesh=None,
             return False
     if mesh is not None:
         import torch.distributed as dist
-        dist.barrier(group=mesh.batch_group)
+        dist.barrier()
     return True
 
 

@@ -20,19 +20,25 @@ The execution policy of ``cfg`` chooses the kernels at every site. Steps
 are functional: they return new trees and leave their inputs as they were
 (but for ``donate``).
 
-``mesh=`` (a ``launch.mesh.Mesh`` with a model axis of 1) makes the step
-ZeRO-3 data parallel over the batch axes, the step XLA runs for the
-reference on a mesh: the parameter, moment and ``err`` trees hold this
-rank's shards of the leaves the plan shards over "data" (``specs``, by
-default the plan of ``launch.specs``); the step all-gathers them in leaf
-order, runs forward and backward on the rank's rows with the BatchNorm
-statistics of the global batch (the ambient mesh reaches the BN sites),
+``mesh=`` (a ``launch.mesh.Mesh``) makes the step ZeRO-3 data parallel
+over the batch axes and tensor parallel over "model", the step XLA runs
+for the reference on a mesh: the parameter, moment and ``err`` trees hold
+this rank's shards of the leaves (``specs``, by default the plan of
+``launch.specs``); the step all-gathers them over the batch group in leaf
+order (a leaf's "model" slice stays the rank's: the modules compute on
+it, ``models.common``'s region ops summing over the model group), runs
+forward and backward on the rank's rows with the BatchNorm statistics of
+the global batch (the ambient mesh reaches the BN sites),
 weights each rank's gradient by its share of the global count (rows, or
 tokens under a loss mask), so that the loss is the reference's mean over
 the global batch, reduces it (``reduce_scatter_tensor`` for a sharded
-leaf, ``all_reduce`` for a replicated one), and updates the shards. One
-non-finite flag, all-reduced with MAX, makes every rank skip a step
-together. At a world of 1 the step is the mesh-less step bit for bit.
+leaf, ``all_reduce`` for a replicated one), and updates the shards. A
+leaf replicated over "model" gets the same gradient on every model rank
+(the region ops make each input's gradient whole), so nothing sums it
+there. One non-finite flag, all-reduced with MAX over the world, makes
+every rank skip a step together. At a world of 1 the step is the
+mesh-less step bit for bit. On a model axis the Spikingformer and the
+dense LM family are ported; the other families raise (ROADMAP A11c-2).
 """
 from __future__ import annotations
 
@@ -68,26 +74,40 @@ def _all_finite(loss, grads) -> torch.Tensor:
 
 def _any_rank_nonfinite(finite, mesh):
     """``finite`` of every rank: False where any rank's is False (one MAX
-    all-reduce of the non-finite flag over the batch group)."""
+    all-reduce of the non-finite flag over the world)."""
     flag = (~finite).to(torch.float32)
-    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=mesh.batch_group)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
     return flag == 0
+
+
+def check_model_axis(cfg, mesh) -> None:
+    """Raises where ``cfg`` cannot be split over ``mesh``'s model axis: a
+    family other than the Spikingformer and the dense LMs, an MoE with
+    ``model_shards`` > 1 (ROADMAP A11c-2), or a Spikingformer whose heads,
+    d_model or d_ff the axis does not divide."""
+    m = mesh.shape.get("model", 1)
+    if m == 1:
+        return
+    if getattr(cfg, "family", None) == "vision":
+        cfg.check_model_shards(m)
+        return
+    if cfg.family == "audio":
+        from repro_torch.models.common import refuse_model_axis
+        refuse_model_axis(f"{cfg.name} (family audio)", m)
+    from repro_torch.models.lm import check_lm_split
+    check_lm_split(cfg, m)
 
 
 class DataParallel:
     """The train step's view of a mesh: the parameter specs in leaf order,
-    the all-gather of a tree of shards and the reduction of its
-    gradients. ``specs`` defaults to the plan of ``launch.specs`` for
-    ``cfg`` on ``mesh``; a model axis of more than 1 raises (ROADMAP
-    A11c)."""
+    the all-gather over the batch group of a tree of shards and the
+    reduction of its gradients. ``specs`` defaults to the plan of
+    ``launch.specs`` for ``cfg`` on ``mesh``; :func:`check_model_axis`
+    refuses what the model axis cannot split."""
 
     def __init__(self, cfg, mesh, specs=None):
         from repro_torch.launch import mesh as mesh_mod
-        if mesh.shape.get("model", 1) > 1:
-            raise NotImplementedError(
-                f"a train step on a mesh with model axis {mesh.shape['model']}"
-                f": compute split over the model axis is ROADMAP A11c; the "
-                f"step runs on (data, 1) meshes")
+        check_model_axis(cfg, mesh)
         if specs is None:
             from repro_torch.launch import specs as specs_mod
             if getattr(cfg, "family", None) == "vision":
@@ -228,8 +248,9 @@ def make_train_step(cfg, opt_cfg: OptimizerConfig, microbatches: int = 1, *,
     ``mesh``: the ZeRO-3 data-parallel step of the module docstring, on the
     rank's rows of the batch (``train.data.place_batch``); ``specs`` the
     parameters' spec tree (default: the plan of ``launch.specs`` for
-    ``cfg`` on ``mesh``). A mesh whose model axis is larger than 1 raises
-    ``NotImplementedError`` (ROADMAP A11c).
+    ``cfg`` on ``mesh``). A family whose model axis is not ported raises
+    ``NotImplementedError`` on a model axis of more than 1 (ROADMAP
+    A11c-2).
     """
     family = getattr(cfg, "family", None)
     if family is None:

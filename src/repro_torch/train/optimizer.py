@@ -11,11 +11,12 @@ add in the same order. With compression the metrics add ``err_norm``,
 the residual's global norm.
 
 Under a mesh (``mesh`` and ``specs`` given) the trees hold each rank's
-shards (ZeRO-3: moments and ``err`` shard like the parameters): the
-gradient norm adds each leaf's sum of squares over the ranks (a replicated
-leaf counted once), and compression takes each leaf's scale from its
-global maximum and its noise from the full leaf's draw, so that the update
-is the one-device update of the full leaves.
+shards (ZeRO-3 over the batch axes, tensor parallel over "model": moments
+and ``err`` shard like the parameters): the gradient norm adds each
+leaf's sum of squares over the ranks that split it (a replicated leaf
+counted once), and compression takes each leaf's scale from its global
+maximum and its noise from the full leaf's draw, so that the update is
+the one-device update of the full leaves.
 """
 from __future__ import annotations
 
@@ -84,22 +85,40 @@ def _sharded(spec, mesh) -> bool:
     return batch_dim(spec, mesh) is not None
 
 
+def _model_sharded(spec, mesh) -> bool:
+    """Whether a leaf with ``spec`` is split over a "model" axis of more
+    than one rank."""
+    from repro_torch.launch.mesh import model_dim
+    return model_dim(spec, mesh) is not None
+
+
+def _sum_where(v, mask, group):
+    """``v`` with its ``mask``ed entries summed over ``group`` (one
+    all-reduce of the vector)."""
+    w = v * mask
+    dist.all_reduce(w, group=group)
+    return torch.where(mask, w, v)
+
+
 def global_norm(tree: Any, mesh=None, specs: list | None = None
                 ) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, added in leaf order. With
     ``mesh``, ``tree`` holds shards whose specs (in leaf order) are
-    ``specs``: each sharded leaf's sum of squares is added over the batch
-    group first (one all-reduce of a vector of them), a replicated leaf's
-    is taken as it is, so at a world of 1 the norm is the one-device norm
-    bit for bit."""
+    ``specs``: each leaf's sum of squares is added over the batch group
+    where it is split over the batch axes, then over the model group where
+    it is split over "model" (one all-reduce of a vector of them each), a
+    replicated leaf's is taken as it is, so at a world of 1 the norm is
+    the one-device norm bit for bit."""
     sq = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
     if mesh is not None and sq:
         v = torch.stack(sq)
-        mask = torch.tensor([_sharded(s, mesh) for s in specs],
-                            device=v.device)
-        w = v * mask
-        dist.all_reduce(w, group=mesh.batch_group)
-        sq = list(torch.where(mask, w, v).unbind())
+        v = _sum_where(v, torch.tensor([_sharded(s, mesh) for s in specs],
+                                       device=v.device), mesh.batch_group)
+        if getattr(mesh, "model_group", None) is not None:
+            v = _sum_where(v, torch.tensor(
+                [_model_sharded(s, mesh) for s in specs], device=v.device),
+                mesh.model_group)
+        sq = list(v.unbind())
     total = 0
     for x in sq:
         total = total + x
@@ -145,12 +164,15 @@ def compress_tree(grads: Any, err: Any, step: int, mesh=None,
     """:func:`compress_int8` over every leaf in leaf order, the noise of
     each drawn from :func:`noise_generator` at ``step``. With ``mesh`` the
     leaves are shards with ``specs``: a sharded leaf's noise is drawn at
-    the full leaf's shape and sliced, and its scale is the global one."""
+    the full leaf's shape and sliced (over the batch and the model axes),
+    and its scale is its maximum over the world (the ranks that hold the
+    same slice hold the same values)."""
     leaves = tree_leaves(grads)
     gen = noise_generator(step, leaves[0].device) if leaves else None
     out = []
     for i, (g, e) in enumerate(zip(leaves, tree_leaves(err))):
-        sharded = mesh is not None and _sharded(specs[i], mesh)
+        sharded = mesh is not None and (_sharded(specs[i], mesh) or
+                                         _model_sharded(specs[i], mesh))
         if sharded:
             from repro_torch.launch.mesh import full_shape, local_shard
             noise = local_shard(draw_noise(gen, full_shape(g, specs[i], mesh),
@@ -158,7 +180,7 @@ def compress_tree(grads: Any, err: Any, step: int, mesh=None,
         else:
             noise = draw_noise(gen, g.shape, g.device)
         out.append(compress_int8(
-            g, e, noise, group=mesh.batch_group if sharded else None))
+            g, e, noise, group=dist.group.WORLD if sharded else None))
     return (tree_unflatten(grads, [o[0] for o in out]),
             tree_unflatten(grads, [o[1] for o in out]))
 

@@ -62,10 +62,10 @@ class SiteWorkload:
         return (self.op, self.impl) in TUNABLE_IMPLS
 
 
-def _spec_map(cfg) -> dict[str, tuple]:
+def _spec_map(cfg, model_shards: int = 1) -> dict[str, tuple]:
     """site -> (op, pack_dim, spike_operand, trailing_lif)."""
     out = {}
-    for spec in cfg.execution_site_specs():
+    for spec in cfg.execution_site_specs(model_shards):
         site, op, pack_dim, *rest = spec
         spike = rest[0] if rest else False
         trailing = rest[1] if len(rest) > 1 else False
@@ -89,9 +89,10 @@ def training_mms(wl: SiteWorkload) -> list[MMOp]:
 
 
 def site_workloads(cfg, batch: int = 1,
-                   sparsity: dict[str, float] | None = None
-                   ) -> list[SiteWorkload]:
-    """Build per-site workloads from ``cfg.execution_plan()``.
+                   sparsity: dict[str, float] | None = None,
+                   model_shards: int = 1) -> list[SiteWorkload]:
+    """Build per-site workloads from ``cfg.execution_plan()``, one rank's
+    on a model axis of ``model_shards``.
 
     ``sparsity`` maps site -> measured zeros-fraction of the spike operand
     (see :func:`repro_torch.tune.sparsity.measure_sparsity`); missing sites get
@@ -99,14 +100,14 @@ def site_workloads(cfg, batch: int = 1,
     """
     from repro_torch.analysis.audit import fused_site_geometries
 
-    geoms = fused_site_geometries(cfg, batch)
-    specs = _spec_map(cfg)
+    geoms = fused_site_geometries(cfg, batch, model_shards)
+    specs = _spec_map(cfg, model_shards)
     sparsity = sparsity or {}
     t, n, d, h = (cfg.time_steps, cfg.num_tokens, cfg.d_model,
                   cfg.n_heads)
     layers = cfg.num_layers
     dh = d // h
-    g = t * batch * h
+    g = t * batch * h // model_shards        # the rank's heads
 
     def sp(site: str, spike: bool) -> float:
         if not spike:
@@ -114,7 +115,7 @@ def site_workloads(cfg, batch: int = 1,
         return float(sparsity.get(site, DEFAULT_SPARSITY.s_s))
 
     out: list[SiteWorkload] = []
-    for row in cfg.execution_plan():
+    for row in cfg.execution_plan(model_shards):
         site, op, impl = row.site, row.op, row.effective
         _, pack_dim, spike, trailing = specs.get(
             site, (op, None, False, False))
@@ -229,8 +230,10 @@ class KernelShapeCase:
     k: int
 
 
-def kernel_shape_cases(cfg, batch: int = 1) -> list[KernelShapeCase]:
-    """Kernel-boundary geometries for every planned site of ``cfg``.
+def kernel_shape_cases(cfg, batch: int = 1, model_shards: int = 1
+                       ) -> list[KernelShapeCase]:
+    """Kernel-boundary geometries for every planned site of ``cfg`` (one
+    rank's on a model axis of ``model_shards``).
 
     Derived from the same ``cfg.execution_plan()`` rows as
     :func:`site_workloads`, but keeping the lif/lif_state twins (their
@@ -239,16 +242,16 @@ def kernel_shape_cases(cfg, batch: int = 1) -> list[KernelShapeCase]:
     """
     from repro_torch.analysis.audit import fused_site_geometries
 
-    geoms = fused_site_geometries(cfg, batch)
-    specs = _spec_map(cfg)
+    geoms = fused_site_geometries(cfg, batch, model_shards)
+    specs = _spec_map(cfg, model_shards)
     t, n, d, h = (cfg.time_steps, cfg.num_tokens, cfg.d_model, cfg.n_heads)
     dh = d // h
-    g = t * batch * h
+    g = t * batch * h // model_shards        # the rank's heads
     conv_geoms = sorted((s, gm) for s, gm in geoms.items()
                         if s.startswith("tokenizer.conv"))
 
     out: list[KernelShapeCase] = []
-    for row in cfg.execution_plan():
+    for row in cfg.execution_plan(model_shards):
         site, op, impl = row.site, row.op, row.effective
         _, pack_dim, spike, trailing = specs.get(
             site, (op, None, False, False))

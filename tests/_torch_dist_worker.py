@@ -1,8 +1,11 @@
 """The ranks of ``tests/test_torch_dist.py``: one process per rank on the
 CPU, gloo over a file store, no JAX. ``run`` executes the named jobs in
-order on every rank; rank 0 pickles each job's result (numpy trees, or the
-traceback of a job that raised) to ``<out>/<job>.pkl``. A job whose
-collectives hang is cut by the parent's join timeout."""
+order on every rank, each on a (data, model) mesh (the (world, 1) mesh
+unless the job names another); rank 0 pickles each job's result (numpy
+trees, or the traceback of a job that raised) to
+``<out>/<job>_<data>x<model>.pkl``. A job whose collectives hang is cut by
+the parent's join timeout. ``_torch_tp_worker.py`` runs its own jobs
+through the same :func:`spawn`."""
 from __future__ import annotations
 
 import os
@@ -200,38 +203,55 @@ JOBS = {
 }
 
 
-def run(rank: int, world: int, store: str, out: str, jobs: list[str],
-        inputs: str) -> None:
+def _pair(job, world: int) -> tuple[str, tuple[int, int]]:
+    """``(name, (data, model))`` of a job given as a name (the (world, 1)
+    mesh) or as such a pair."""
+    return (job, (world, 1)) if isinstance(job, str) else job
+
+
+def name(job: str, shape: tuple[int, int]) -> str:
+    return f"{job}_{shape[0]}x{shape[1]}.pkl"
+
+
+def run(rank: int, world: int, store: str, out: str, jobs: list,
+        inputs: str, table: str = __name__) -> None:
+    """Runs ``jobs`` (names or ``(name, (data, model))`` pairs) of the
+    ``JOBS`` of module ``table`` in order, each on a mesh of its shape over
+    the world (one world may hold several meshes of its size)."""
+    import importlib
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
         with open(inputs, "rb") as f:
             inp = pickle.load(f)
-        mesh = mesh_mod.make_test_mesh(world, 1, device="cpu")
-        for job in jobs:
+        table_jobs = importlib.import_module(table).JOBS
+        meshes = {}
+        for job, shape in (_pair(j, world) for j in jobs):
+            if shape not in meshes:
+                meshes[shape] = mesh_mod.make_test_mesh(*shape, device="cpu")
             try:
-                result = JOBS[job](mesh, inp, out)
+                result = table_jobs[job](meshes[shape], inp, out)
             except Exception:   # recorded for the test that reads the job
                 result = {"error": traceback.format_exc()}
             if rank == 0:
-                with open(os.path.join(out, f"{job}_w{world}.pkl"),
-                          "wb") as f:
+                with open(os.path.join(out, name(job, shape)), "wb") as f:
                     pickle.dump(result, f)
             dist.barrier()
     finally:
         dist.destroy_process_group()
 
 
-def spawn(world: int, out: str, jobs: list[str], inputs: str,
-          timeout: float = 240.0) -> None:
-    """Runs ``jobs`` on ``world`` spawned ranks; raises when a rank fails
-    or outlives ``timeout``."""
+def spawn(world: int, out: str, jobs: list, inputs: str,
+          timeout: float = 240.0, table: str = __name__) -> None:
+    """Runs ``jobs`` on ``world`` spawned ranks (:func:`run`); raises when
+    a rank fails or outlives ``timeout``."""
     import multiprocessing
     ctx = multiprocessing.get_context("spawn")
     store = os.path.join(out, f"store_w{world}")
     procs = [ctx.Process(target=run, args=(r, world, store, out, jobs,
-                                           inputs)) for r in range(world)]
+                                           inputs, table))
+             for r in range(world)]
     for p in procs:
         p.start()
     for p in procs:
@@ -246,10 +266,12 @@ def spawn(world: int, out: str, jobs: list[str], inputs: str,
                            f"{' (timed out)' if alive else ''}")
 
 
-def result(out: str, job: str, world: int) -> dict:
-    with open(os.path.join(out, f"{job}_w{world}.pkl"), "rb") as f:
+def result(out: str, job: str, shape) -> dict:
+    """Rank 0's result of ``job`` on the mesh ``shape``: ``(data, model)``,
+    or a world size for the (world, 1) mesh."""
+    shape = (shape, 1) if isinstance(shape, int) else tuple(shape)
+    with open(os.path.join(out, name(job, shape)), "rb") as f:
         res = pickle.load(f)
     if "error" in res:
-        raise AssertionError(f"{job} at world {world} raised:\n"
-                             f"{res['error']}")
+        raise AssertionError(f"{job} at {shape} raised:\n{res['error']}")
     return res

@@ -415,16 +415,58 @@ def test_run_cell_writes_the_reference_keys(tmp_path, monkeypatch):
     assert r["model_flops_global"] == dryrun.model_flops(small, "decode_32k")
 
 
-def test_model_axis_meshes_raise_naming_a11c():
-    for name in dryrun.MODEL_AXIS_MESHES:
-        with pytest.raises(NotImplementedError, match="A11c"):
-            dryrun.mesh_shape(name)
-        with pytest.raises(NotImplementedError, match="A11c"):
-            dryrun.main(["--arch", "qwen3-0.6b", "--shape", "decode_32k",
-                         "--mesh", name])
+def test_model_axis_meshes_raise_naming_a11c(tmp_path, capsys):
+    """The model-axis meshes give their shapes; a covered cell
+    (``deepseek-7b`` x ``decode_32k`` on ``pod16x16``: the "heads"
+    scheme, 32 kv heads over 16) runs on ``meta`` with the rank's heads
+    and the model group's collectives counted; a cell whose scheme is
+    A11c-2 (``qwen3-0.6b``'s 8 kv heads over 16: the seq-sharded cache) is
+    one row of the command line, counted apart, not raised."""
+    assert dryrun.mesh_shape("pod16x16") == (("data", "model"), (16, 16))
+    assert dryrun.mesh_shape("pod2x16x16") == (("pod", "data", "model"),
+                                               (2, 16, 16))
     assert dryrun.mesh_shape("data16") == (("data", "model"), (16, 1))
     assert dryrun.mesh_shape("pod2xdata16") == (("pod", "data", "model"),
                                                 (2, 16, 1))
+    r = dryrun.dry_run_cell("deepseek-7b", "decode_32k", "pod16x16",
+                            str(tmp_path))
+    assert r["devices"] == 256 and r["fits"] is True
+    assert r["collective_bytes_per_device"]["all-reduce"] > 0
+    # the rank's cache (8 rows x 32768 x 2 of 32 kv heads x 128, bf16, 30
+    # layers, k and v) and its rows' logits gathered whole (fp32)
+    assert r["bytes_per_device"]["output"] == 8 * 32768 * 2 * 128 * 2 * \
+        30 * 2 + 8 * 102400 * 4
+    assert not dist.is_initialized()
+    dryrun.main(["--arch", "qwen3-0.6b", "--shape", "decode_32k",
+                 "--mesh", "pod16x16", "--out", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "[A11c-2] qwen3-0.6b x decode_32k" in out
+    assert "0 ok, 1 A11c-2, 0 failed" in out
+
+
+def test_spiking_lm_decode_on_pod16x16_keeps_the_lif_state_whole(
+        tmp_path, monkeypatch):
+    """``deepseek-7b`` + LIF x ``decode_32k`` on ``pod16x16`` (model 16):
+    the LIF state is whole on every model rank (the neuron runs on the
+    whole D after ``w_down``'s sum), so the step runs on ``meta`` and its
+    output holds the rank's kv heads, its rows' LIF state at the full D and
+    the logits."""
+    cfg = treg.get_config("deepseek-7b")
+    lif = cfg.replace(lif=LIFConfig(policy=named_policy("cuda-full")))
+    monkeypatch.setattr(treg, "get_config", lambda name: lif)
+    fn, structs, specs = input_specs(lif, "decode_32k",
+                                     AbstractMesh(("data", "model"),
+                                                  (16, 16)))
+    assert all(all(d is None or "model" not in (
+        d if isinstance(d, tuple) else (d,)) for d in s)
+        for s in specs[1]["lif"].values())
+    r = dryrun.dry_run_cell("deepseek-7b", "decode_32k", "pod16x16",
+                            str(tmp_path))
+    assert r["devices"] == 256 and r["fits"] is True
+    kv = 8 * 32768 * 2 * 128 * 2 * 30 * 2
+    assert r["bytes_per_device"]["output"] == \
+        kv + 2 * 30 * 8 * cfg.d_model * 2 + 8 * 102400 * 4
+    assert not dist.is_initialized()
 
 
 def test_fake_world_refuses_a_running_group():

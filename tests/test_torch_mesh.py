@@ -212,20 +212,49 @@ def test_local_shard_slices_by_coordinates():
 
 
 def test_gather_refuses_the_model_axis():
+    """The gather and the reduction run over the batch axes only: a dim
+    over "model" is left to the rank (``batch_dim`` names the batch dim,
+    ``model_dim`` the model one); two dims over the batch axes, or one
+    over batch and model axes together, still raise."""
     mesh = _FakeMesh(("data", "model"), (2, 2), {"data": 0, "model": 1})
-    with pytest.raises(NotImplementedError, match="A11c"):
-        tmesh.batch_dim(tmesh.P(None, "model"), mesh)
+    assert tmesh.batch_dim(tmesh.P(None, "model"), mesh) is None
+    assert tmesh.batch_dim(tmesh.P("data", "model"), mesh) == 0
+    assert tmesh.batch_dim(tmesh.P(None, "model", "data"), mesh) == 2
+    assert tmesh.model_dim(tmesh.P("data", "model"), mesh) == 1
+    with pytest.raises(NotImplementedError, match="batch and model"):
+        tmesh.batch_dim(tmesh.P(("data", "model")), mesh)
+    pod = _FakeMesh(("pod", "data", "model"), (2, 2, 2),
+                    {"pod": 0, "data": 1, "model": 1})
+    with pytest.raises(NotImplementedError, match="2 dims"):
+        tmesh.batch_dim(tmesh.P("pod", "data"), pod)
     one = _FakeMesh(("data", "model"), (2, 1), {"data": 0, "model": 0})
     assert tmesh.batch_dim(tmesh.P("data", "model"), one) == 0
+    assert tmesh.model_dim(tmesh.P("data", "model"), one) is None
+    full = torch.arange(4 * 6, dtype=torch.float32).reshape(4, 6)
+    got = tmesh.local_shard(full, tmesh.P("data", "model"), mesh)
+    assert torch.equal(got, full[:2, 3:])
+    assert tmesh.full_shape(got, tmesh.P("data", "model"), mesh) == (4, 6)
 
 
 def test_a_train_step_on_a_model_axis_raises():
-    from repro_torch.train.loop import make_train_step
+    """Only for what the model axis does not split (ROADMAP A11c-2): the
+    moe, mla, rwkv, hybrid, audio and vlm families; the dense LMs and the
+    Spikingformer pass the check."""
+    from repro_torch.configs import get_spikingformer_config
+    from repro_torch.train.loop import check_model_axis, make_train_step
     from repro_torch.train.optimizer import OptimizerConfig
     mesh = _FakeMesh(("data", "model"), (1, 2), {"data": 0, "model": 0})
-    with pytest.raises(NotImplementedError, match="A11c"):
-        make_train_step(treg.reduced(treg.get_config("qwen3-0.6b")),
-                        OptimizerConfig(), mesh=mesh)
+    for arch in ("mixtral-8x7b", "deepseek-v2-236b", "rwkv6-7b",
+                 "zamba2-2.7b", "whisper-large-v3", "pixtral-12b"):
+        with pytest.raises(NotImplementedError, match="A11c-2"):
+            make_train_step(treg.reduced(treg.get_config(arch)),
+                            OptimizerConfig(), mesh=mesh)
+    check_model_axis(treg.reduced(treg.get_config("qwen3-0.6b")), mesh)
+    check_model_axis(get_spikingformer_config("spikingformer-smoke"), mesh)
+    with pytest.raises(ValueError, match="evenly"):
+        check_model_axis(get_spikingformer_config("spikingformer-smoke"),
+                         _FakeMesh(("data", "model"), (1, 4),
+                                   {"data": 0, "model": 0}))
 
 
 def test_mesh_axis_size_reads_the_ambient_mesh():
