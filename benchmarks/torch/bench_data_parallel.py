@@ -44,26 +44,43 @@ tensor parallel over "model", and the parts are instead:
   on each card (the largest over the ranks), beside rank 0's mesh-less
   step at the same global batch.
 * ``lm_grads`` (``--lm-arch ARCH``, on the first M): the LM cut to
-  ``LM_CHECK_LAYERS`` layers, with the LIF and without it, at each of
-  ``QK_SCALES`` (``wq`` and ``wk`` scaled): the step-0
-  loss, the gradient norm and every gradient leaf (gathered whole)
-  against rank 0's mesh-less gradient, and the branch spikes of rank 0's
-  rows that differ from the mesh-less ones. Beside it, rank 0's
-  mesh-less gradient again with the terms of every row-parallel sum
-  (``wo``'s heads, ``w_down``'s hidden features) in reverse order
-  (:func:`reverse_sums`: the same function, other roundings), against
-  the first: how far the order of those sums alone moves the loss, the
-  gradients and the spikes on one card.
-* ``lm`` (``--lm-arch ARCH``, on the first M, where the dry run's
-  estimate of a rank's peak fits the card, or on the CPU the host's
-  memory with every rank's): the LM with the LIF on every FFN branch, fp32,
-  each layer recomputed, ``--lm-batch`` x ``--lm-seq`` tokens, 1 +
-  ``--steps`` steps through ``launch.train.train`` on the mesh: every
-  step's metrics, whether every parameter leaf moved, the ms per timed
-  step, and the peak memory on each card over the timed steps (above
-  what was allocated before the driver started) against the dry run's
-  estimate of the same step on the same mesh (counted on ``meta``
-  tensors under a fake process group before the real one starts).
+  ``LM_CHECK_LAYERS`` layers (an MoE to ``MOE_CHECK_LAYERS``), with the
+  LIF and without it (an MoE: with it, at capacity factor 8, where no
+  pair drops, and at its published one), at each of ``QK_SCALES`` (``wq``
+  and ``wk`` scaled): the step-0 loss, the gradient norm and every
+  gradient leaf (gathered whole) against rank 0's mesh-less gradient, and
+  the branch spikes of rank 0's rows that differ from the mesh-less ones
+  (an MoE's loss with its aux loss weighted out: the aux loss is the mean
+  of the ranks', each over its own rows, as in the reference). Beside it,
+  rank 0's mesh-less gradient again with the terms of every row-parallel
+  sum (``wo``'s heads, a dense ``w_down``'s hidden features) in reverse
+  order (:func:`reverse_sums`: the same function, other roundings),
+  against the first: how far the order of those sums alone moves the
+  loss, the gradients and the spikes on one card.
+* ``lm_decode`` (an MoE ``--lm-arch``, on the first M): 16 decode steps of
+  two slots of the ``MOE_CHECK_LAYERS``-layer cut with the LIF from a zero
+  cache of 64 positions on the mesh (every rank routes every token to its
+  own experts) against rank 0's mesh-less decode: each step's largest
+  logit error and whether the greedy tokens agree.
+* ``arms`` (``--lm-arch``, on the first M): the attention schemes and
+  decode modes that divisibility picks on a model axis of M at reduced
+  widths (``reduced(qwen3-0.6b)`` + LIF with 6 heads: "seq" at S = 8 and
+  "none" at S = 7 training; 2 kv heads: flash-decode over a cache of 16,
+  head_dim over one of 18) against rank 0's mesh-less step and decode.
+* ``lm`` (``--lm-arch ARCH``, on each M, where the dry run's estimate of
+  a rank's peak fits the card, or on the CPU the host's memory with every
+  rank's; a model that does not is cut to the deepest depth whose
+  estimate is within ``FIT_BYTES`` and whose whole weights, which every
+  rank draws, within ``DRAW_BYTES``): the LM with the LIF on every FFN
+  branch, fp32, each layer recomputed, ``--lm-batch`` x ``--lm-seq``
+  tokens, 1 + ``--steps`` steps through ``launch.train.train`` on the
+  mesh: every step's metrics, whether every parameter leaf moved, an
+  MoE's pairs dropped by each layer in the first forward (over the
+  ranks), the ms per timed step, and the peak memory on each card over
+  the timed steps (above what was allocated before ``train`` started)
+  against the dry run's estimate of the same step on the same mesh
+  (counted on ``meta`` tensors under a fake process group before the real
+  one starts).
 
 Rank 0 prints one JSON line per part, with the cards' names and power
 limits, and with ``--out FILE`` writes them there too.
@@ -338,8 +355,15 @@ def tp_grads(cfg, mesh, rank, global_batch, steps, seed, device,
 
 
 #: The LM's depth in the ``lm_grads`` check (one card holds the
-#: mesh-less gradient of ``deepseek-7b`` at this depth).
+#: mesh-less gradient of ``deepseek-7b`` at this depth), and an MoE's
+#: (``mixtral-8x7b``: 1.45 G parameters a layer).
 LM_CHECK_LAYERS = 4
+MOE_CHECK_LAYERS = 2
+#: The ``lm`` part's depth cut: a rank's estimated peak (the card's 80 GB
+#: less the CUDA context, NCCL's buffers and the allocator's slack), and
+#: the whole fp32 weights every rank draws before it keeps its slices.
+FIT_BYTES = 64e9
+DRAW_BYTES = 48e9
 
 #: The factors of the query and key projections in the ``lm_grads``
 #: check: the published init, and 1/4 (exact in fp32), the CPU parity
@@ -354,17 +378,20 @@ SUM_TERM_DIMS = {("blocks", "attn", "wq"): 2, ("blocks", "attn", "wk"): 2,
                  ("blocks", "ffn", "w_down"): 1}
 
 
-def reverse_sums(tree):
+def reverse_sums(tree, moe: bool = False):
     """A dense LM's parameter (or gradient) tree with the heads and the
     hidden features in reverse order (:data:`SUM_TERM_DIMS`): the same
     function of the input (a kv head's q heads stay its own), whose
-    ``wo`` and ``w_down`` products add their terms in the other order.
-    Its own inverse."""
+    ``wo`` and ``w_down`` products add their terms in the other order;
+    with ``moe`` the attention's heads only (an expert's hidden features
+    are summed on one rank). Its own inverse."""
     def copy(t):
         return {k: copy(v) if isinstance(v, dict) else v
                 for k, v in t.items()}
     out = copy(tree)
     for path, dim in SUM_TERM_DIMS.items():
+        if moe and path[1] == "ffn":
+            continue
         node = out
         for k in path[:-1]:
             node = node[k]
@@ -413,6 +440,26 @@ def norm(leaves) -> float:
     return float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in leaves)))
 
 
+@contextlib.contextmanager
+def counting_drops(out: list):
+    """While open, every MoE layer call appends to ``out`` the number of
+    its (token, choice) pairs past their expert's capacity on this rank (a
+    device scalar): ``moe._route`` wrapped, its results unchanged."""
+    from repro_torch.models import moe
+    route = moe._route
+
+    def counted(router_w, x_flat, cfg):
+        gates, experts, aux = route(router_w, x_flat, cfg)
+        pos = moe._expert_positions(experts.reshape(-1), cfg.num_experts)
+        out.append((pos >= cfg.capacity(x_flat.shape[0])).sum())
+        return gates, experts, aux
+    moe._route = counted
+    try:
+        yield out
+    finally:
+        moe._route = route
+
+
 def lm_cfg(arch: str, reduced: bool):
     from repro_torch.configs.registry import get_config
     from repro_torch.configs.registry import reduced as reduce_cfg
@@ -423,6 +470,21 @@ def lm_cfg(arch: str, reduced: bool):
         cfg = reduce_cfg(cfg)
     return cfg.replace(dtype=torch.float32, remat=True, lif=LIFConfig(
         policy=named_policy("cuda-full")))
+
+
+def lm_check_cuts(lm) -> list:
+    """The ``lm_grads`` cases of ``lm`` (see the module docstring):
+    ``(config cut in depth, qk_scale)`` pairs."""
+    import dataclasses
+    depth = LM_CHECK_LAYERS if lm.moe is None else MOE_CHECK_LAYERS
+    if lm.moe is None:
+        variants = (lm, lm.replace(lif=None))
+    else:
+        variants = [lm.replace(moe=dataclasses.replace(
+            lm.moe, capacity_factor=c))
+            for c in (8.0, lm.moe.capacity_factor)]
+    return [(v.replace(num_layers=depth), qk) for qk in QK_SCALES
+            for v in variants]
 
 
 def scale_qk(params, qk_scale: float):
@@ -439,35 +501,56 @@ def lm_grads_check(cfg, mesh, rank, batch, seq, seed, device,
     branch spikes on the mesh against rank 0's mesh-less step on the same
     weights and batch, and that step against itself with the row-parallel
     sums reversed (``cfg`` cut in depth so that one card holds it; ``wq``
-    and ``wk`` times ``qk_scale``)."""
-    from repro_torch.core.spikingformer import tree_leaves, value_and_grad
+    and ``wk`` times ``qk_scale``). An MoE's experts are relaid to one
+    shard for the comparison, its aux loss weighted out."""
+    import functools
+    from repro_torch.core.spikingformer import (tree_leaves, tree_paths,
+                                                value_and_grad)
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch.train import build_state, lm_step_batch
     from repro_torch.models.lm import lm_loss
+    from repro_torch.models.moe import relayout
     from repro_torch.train.data import DataConfig, SyntheticLM
-    from repro_torch.train.loop import DataParallel, lm_grads
+    from repro_torch.train.loop import DataParallel
     layers = cfg.num_layers
+    moe = cfg.moe is not None
+    loss_fn = functools.partial(lm_loss, aux_weight=0.0) if moe else lm_loss
     params, _, specs = build_state(cfg, mesh, seed=seed)
     scale_qk(params, qk_scale)
     host = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                   global_batch=batch, seed=seed)).batch(0)
     dp = DataParallel(cfg, mesh, specs)
-    with branch_spikes() as spikes:
-        loss, _, grads = lm_grads(cfg, params, lm_step_batch(
-            cfg, host, device, mesh), dp=dp)
+    mcfg = cfg.with_model_shards(mesh.shape["model"])
+    with branch_spikes() as spikes, mesh_mod.use_mesh(mesh):
+        b = lm_step_batch(cfg, host, device, mesh)
+        (loss, metrics), grads = value_and_grad(loss_fn, dp.gather(params),
+                                                b, mcfg)
+        share = dp.token_share(b)
+        grads = dp.reduce(grads, params, share)
+        loss = dp.weighted_sum(metrics["loss"], share)
     whole = [mesh_mod.gather_full(g, s, mesh) for g, s in zip(
         tree_leaves(grads), dp.spec_list(params))]
+    if moe:     # the experts' gradients in the one-shard layout
+        m = mesh.shape["model"]
+        whole = [relayout(g, 1, cfg.moe.num_experts,
+                          -2 if p.endswith("w_down") else -1)
+                 if p.split(".")[-1] in ("w_gate", "w_up", "w_down")
+                 and g.ndim == 5 and m > 1 else g
+                 for p, g in zip(tree_paths(grads), whole)]
     del grads, params
     out = {"arch": cfg.name, "layers": layers, "mesh": dict(mesh.shape),
            "tokens": [batch, seq], "qk_scale": qk_scale, "loss": float(loss),
            "grad_norm": norm(whole)}
+    if moe:
+        out.update(capacity_factor=cfg.moe.capacity_factor, aux_weight=0.0)
     dist.barrier()
     if rank == 0:
         full = scale_qk(build_state(cfg, None, seed=seed, device=device)[0],
                         qk_scale)
         full_batch = lm_step_batch(cfg, host, device)
         with branch_spikes() as spikes1:
-            (l1, _), g1 = value_and_grad(lm_loss, full, full_batch, cfg)
+            (l1, m1), g1 = value_and_grad(loss_fn, full, full_batch, cfg)
+        l1 = m1["loss"]
         err, leaf = grad_err(whole, g1)
         out.update(one_card_loss=float(l1),
                    loss_abs_err=abs(out["loss"] - float(l1)),
@@ -476,9 +559,10 @@ def lm_grads_check(cfg, mesh, rank, batch, seq, seed, device,
                    spikes_differing=spikes_differing(spikes[:layers],
                                                      spikes1[:layers]))
         with branch_spikes() as spikes2:
-            (l2, _), g2 = value_and_grad(lm_loss, reverse_sums(full),
+            (_, m2), g2 = value_and_grad(loss_fn, reverse_sums(full, moe),
                                          full_batch, cfg)
-        err, leaf = grad_err(tree_leaves(reverse_sums(g2)), g1)
+        l2 = m2["loss"]
+        err, leaf = grad_err(tree_leaves(reverse_sums(g2, moe)), g1)
         out["sums_reversed"] = {
             "loss_abs_err": abs(float(l2) - float(l1)),
             "grad_norm": norm(tree_leaves(g2)), "grad_max_err": err,
@@ -489,6 +573,139 @@ def lm_grads_check(cfg, mesh, rank, batch, seq, seed, device,
     del whole, spikes
     dist.barrier()
     return out
+
+
+def lm_decode_check(cfg, mesh, rank, seed, device, steps: int = 16,
+                    max_seq: int = 64) -> dict:
+    """``steps`` decode steps of two slots from a zero cache on the mesh
+    (the cache laid out as ``launch.specs.cache_structs`` lays it out for
+    the mesh's model axis) against rank 0's mesh-less decode of the same
+    weights and tokens: each step's largest logit error and whether the
+    greedy tokens agree."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.specs import bind_model_axis, cache_structs
+    from repro_torch.launch.train import build_state
+    from repro_torch.models.attention import decode_mode
+    from repro_torch.models.lm import init_cache, lm_decode_step
+    mcfg = bind_model_axis(cfg, mesh)
+    params, _, specs = build_state(cfg, mesh, seed=seed)
+    # the serving plan's leaves: the training plan's gathered over "data"
+    params = mesh_mod.map_specs(lambda s, x: mesh_mod.gather_leaf(
+        x, s, mesh), specs, params)
+    cache = init_cache(mcfg, 2, max_seq, torch.float32, device)
+    c_specs = mesh_mod.sanitize_specs(cache_structs(
+        mcfg, 2, max_seq, (), model=mesh.shape["model"],
+        lif_replicated=True)[1], cache, mesh)
+    cache = mesh_mod.map_specs(lambda s, x: mesh_mod.local_shard(
+        x, s, mesh), c_specs, cache)
+    gen = torch.Generator().manual_seed(seed + 9)
+    toks = torch.randint(0, cfg.vocab_size, (steps, 2, 1), generator=gen)
+    logits = []
+    with mesh_mod.use_mesh(mesh), torch.no_grad():
+        mode = decode_mode(mcfg.attn, cache["kv"]["k"][0]
+                           if cfg.lif is not None else cache["k"][0])
+        for i in range(steps):
+            out, cache = lm_decode_step(
+                params, cache, toks[i].to(device),
+                torch.full((2,), i, dtype=torch.int32, device=device), mcfg)
+            logits.append(out)
+    del params, cache
+    res = {"arch": cfg.name, "layers": cfg.num_layers,
+           "mesh": dict(mesh.shape), "steps": steps, "cache": max_seq,
+           "mode": mode}
+    dist.barrier()
+    if rank == 0:
+        full = build_state(cfg, None, seed=seed, device=device)[0]
+        cache = init_cache(cfg, 2, max_seq, torch.float32, device)
+        err, same = [], []
+        with torch.no_grad():
+            for i in range(steps):
+                want, cache = lm_decode_step(
+                    full, cache, toks[i].to(device),
+                    torch.full((2,), i, dtype=torch.int32, device=device),
+                    cfg)
+                err.append(float((logits[i] - want).abs().max()))
+                same.append(bool(torch.equal(logits[i].argmax(-1),
+                                             want.argmax(-1))))
+        res.update(max_abs_err_per_step=err, greedy_equal_per_step=same)
+        del full, cache
+    dist.barrier()
+    return res
+
+
+def arms_check(mesh, rank, seed, device) -> list[dict]:
+    """The schemes a model axis of M picks at reduced widths (see the
+    module docstring), each on the mesh against rank 0's mesh-less run of
+    the same weights: training, the loss's and every gradient leaf's
+    largest error over max(1, its scale); decode, each step's largest
+    logit error."""
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.core.spikingformer import tree_leaves, value_and_grad
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.train import build_state, lm_step_batch
+    from repro_torch.models.attention import attn_scheme
+    from repro_torch.models.lm import lm_loss
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.loop import DataParallel, lm_grads
+    base = lm_cfg("qwen3-0.6b", True)
+    m = mesh.shape["model"]
+    heads = m + 2 if m > 2 else 3
+    out = []
+    for seq in (8, 7):
+        cfg = base.replace(n_heads=heads, n_kv_heads=heads // 2 if
+                           heads % 2 == 0 else heads)
+        params, _, specs = build_state(cfg, mesh, seed=seed)
+        host = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                      global_batch=4, seed=seed)).batch(0)
+        dp = DataParallel(cfg, mesh, specs)
+        with mesh_mod.use_mesh(mesh):
+            scheme = attn_scheme(cfg.attn, seq)
+        loss, _, grads = lm_grads(cfg, params, lm_step_batch(
+            cfg, host, device, mesh), dp=dp)
+        whole = [mesh_mod.gather_full(g, s, mesh) for g, s in zip(
+            tree_leaves(grads), dp.spec_list(params))]
+        row = {"arm": f"train {scheme}", "heads": cfg.n_heads,
+               "kv_heads": cfg.n_kv_heads, "seq": seq,
+               "mesh": dict(mesh.shape)}
+        if rank == 0:
+            full = build_state(cfg, None, seed=seed, device=device)[0]
+            (l1, _), g1 = value_and_grad(lm_loss, full, lm_step_batch(
+                cfg, host, device), cfg)
+            err, leaf = grad_err(whole, g1)
+            row.update(loss_abs_err=abs(float(loss) - float(l1)),
+                       grad_max_err=err, worst_leaf=leaf)
+        dist.barrier()
+        out.append(row)
+    for max_seq in (16, 18):
+        row = lm_decode_check(base.replace(n_kv_heads=2), mesh, rank, seed,
+                              device, steps=12, max_seq=max_seq)
+        out.append({"arm": f"decode {row.pop('mode')}", **row})
+    return out
+
+
+def deepest_fit(cfg, shape: tuple[int, int], batch: int, seq: int):
+    """``cfg`` at its depth where the dry run's estimate of a rank's peak
+    is within ``FIT_BYTES`` and its whole fp32 weights within
+    ``DRAW_BYTES``; else cut to the deepest such depth (the estimate is
+    affine in the depth: counted at 1 and 2 layers, then checked), and
+    that depth's estimate."""
+    whole = cfg.param_count() * 4
+    full = lm_estimate(cfg, shape, batch, seq)
+    if full["bytes_per_device"]["peak"] <= FIT_BYTES and whole <= DRAW_BYTES:
+        return cfg, full
+    one, two = (lm_estimate(cfg.replace(num_layers=n), shape, batch, seq)
+                ["bytes_per_device"]["peak"] for n in (1, 2))
+    per_layer_w = (cfg.param_count() - cfg.replace(num_layers=0)
+                   .param_count()) / cfg.num_layers * 4
+    n = min(int((FIT_BYTES - one) // (two - one)) + 1,
+            int(DRAW_BYTES // per_layer_w), cfg.num_layers)
+    while n > 1:
+        est = lm_estimate(cfg.replace(num_layers=n), shape, batch, seq)
+        if est["bytes_per_device"]["peak"] <= FIT_BYTES:
+            return cfg.replace(num_layers=n), est
+        n -= 1
+    return cfg.replace(num_layers=1), lm_estimate(
+        cfg.replace(num_layers=1), shape, batch, seq)
 
 
 def lm_estimate(cfg, shape: tuple[int, int], batch: int, seq: int) -> dict:
@@ -526,7 +743,8 @@ def lm_part(cfg, mesh, rank, batch, seq, steps, seed, device,
     """The ``lm`` part (see the module docstring)."""
     from repro_torch.core.spikingformer import tree_leaves
     from repro_torch.launch.train import build_state, train
-    init = [x.clone() for x in tree_leaves(build_state(
+    # the initial shards, on the host (the card holds the step's state)
+    init = [x.cpu() for x in tree_leaves(build_state(
         cfg, mesh, seed=seed)[0])]
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -540,13 +758,16 @@ def lm_part(cfg, mesh, rank, batch, seq, steps, seed, device,
                                               "nonfinite") if k in m})
         if step == 0 and device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
-    with contextlib.redirect_stdout(sys.stderr):
+    drops: list = []
+    with contextlib.redirect_stdout(sys.stderr), \
+            counting_drops(drops) if cfg.moe is not None else \
+            contextlib.nullcontext():
         params, history = train(cfg, steps=1 + steps, global_batch=batch,
                                 seq_len=seq, seed=seed, device=device,
                                 on_step=on_step, mesh=mesh)
     from repro_torch.core.spikingformer import tree_paths
     unmoved = [p for p, a, b in zip(tree_paths(params), tree_leaves(params),
-                                    init) if torch.equal(a, b)]
+                                    init) if torch.equal(a.cpu(), b)]
     moved = len(init) - len(unmoved)
     flag = torch.tensor(float(moved == len(init)), device=device)
     dist.all_reduce(flag, op=dist.ReduceOp.MIN)
@@ -559,6 +780,11 @@ def lm_part(cfg, mesh, rank, batch, seq, steps, seed, device,
            "every_leaf_moved_on_every_rank": bool(flag),
            "ms_per_step": [(b - a) * 1e3 for a, b in zip(stamps,
                                                         stamps[1:])]}
+    if drops:       # the first forward's layers, summed over the ranks
+        first = torch.stack(drops[:cfg.num_layers]).to(device)
+        dist.all_reduce(first)
+        out["dropped_pairs_per_layer"] = [int(d) for d in first]
+        out["capacity_factor"] = cfg.moe.capacity_factor
     if device.type == "cuda":
         peak = torch.tensor(float(torch.cuda.max_memory_allocated()
                                   - before), device=device)
@@ -659,79 +885,98 @@ def main() -> None:
 
 
 def main_tp(args) -> None:
-    """The tensor-parallel parts (``--model``)."""
+    """The tensor-parallel parts (``--model``). Rank 0 prints each line as
+    its part ends. The ``lm`` part runs near the card's capacity, so the
+    allocator grows its segments in place (``expandable_segments``)
+    rather than leave freed blocks too small to reuse."""
     import os
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     shards = [int(m) for m in args.model.split(",")]
     world = int(os.environ.get("WORLD_SIZE", 1))
     lm = lm_cfg(args.lm_arch, args.lm_reduced) if args.lm_arch else None
-    # the dry run's count, on rank 0 before the real group starts
-    estimate = lm_estimate(lm, (world // shards[0], shards[0]),
-                           args.lm_batch, args.lm_seq) \
-        if lm and os.environ.get("RANK", "0") == "0" else None
+    # the dry run's counts and the depth cut on each mesh, on rank 0
+    # before the real group starts
+    plans = {m: deepest_fit(lm, (world // m, m), args.lm_batch, args.lm_seq)
+             for m in shards} \
+        if lm and os.environ.get("RANK", "0") == "0" else {}
     if args.device == "cpu":
         torch.set_num_threads(1)
     else:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     rank, world, device = init_distributed(args.device)
-    lines = []
+    card = cards() if device.type == "cuda" and rank == 0 else []
+    if rank == 0 and args.out:
+        Path(args.out).write_text("")
+
+    def emit(line: dict) -> None:
+        """Rank 0 prints the line (and appends it to ``--out``) now."""
+        if rank != 0:
+            return
+        line.update(device=str(device), cards=card, torch=torch.__version__)
+        print(json.dumps(line), flush=True)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(json.dumps(line) + "\n")
     try:
         cfg = get_spikingformer_config(f"{args.preset}@{args.policy}")
         meshes = {m: make_test_mesh(world // m, m, args.device)
                   for m in shards}
         for span in (int(x) for x in args.exact_span.split(",")):
             for m in shards:
-                lines.append({"part": "tp_grads", "preset": f"{args.preset}@"
-                              f"{args.policy}", "world": world,
-                              "steps": f"1 warm-up + {args.steps} timed",
-                              **tp_grads(cfg, meshes[m], rank,
-                                         args.global_batch, args.steps,
-                                         args.seed, device, span)})
+                emit({"part": "tp_grads", "preset": f"{args.preset}@"
+                      f"{args.policy}", "world": world,
+                      "steps": f"1 warm-up + {args.steps} timed",
+                      **tp_grads(cfg, meshes[m], rank, args.global_batch,
+                                 args.steps, args.seed, device, span)})
                 if device.type == "cuda":
                     torch.cuda.empty_cache()
+        first = meshes[shards[0]]
         if lm is not None:
-            # with the LIF (a spike may flip where the row-parallel sums
-            # add in another order) and without it (no discrete step), at
-            # the published attention and a softer one
-            for qk, cut in ((qk, cut) for qk in QK_SCALES
-                            for cut in (lm, lm.replace(lif=None))):
-                lines.append({"part": "lm_grads", "world": world,
-                              "lif": cut.lif is not None,
-                              **lm_grads_check(
-                                  cut.replace(num_layers=LM_CHECK_LAYERS),
-                                  meshes[shards[0]], rank, args.lm_batch,
-                                  args.lm_seq, args.seed, device, qk)})
+            for cut, qk in lm_check_cuts(lm):
+                emit({"part": "lm_grads", "world": world,
+                      "lif": cut.lif is not None,
+                      **lm_grads_check(cut, first, rank, args.lm_batch,
+                                       args.lm_seq, args.seed, device, qk)})
                 if device.type == "cuda":
                     torch.cuda.empty_cache()
-        # the whole model trains only where the dry run's estimate of its
-        # step on this mesh says the device holds it (rank 0's verdict,
-        # sent to every rank)
-        fits = torch.tensor(float(estimate is not None and holds(
-            estimate, world, device)), device=device)
-        dist.broadcast(fits, 0)
-        if lm is not None and not fits:
-            lines.append({"part": "lm", "world": world, "mesh": dict(
-                meshes[shards[0]].shape), "skipped": "the dry run's peak "
-                "a rank does not fit the device", "estimated_peak_bytes":
-                estimate and estimate["bytes_per_device"]["peak"]})
-        elif lm is not None:
-            lines.append({"part": "lm", "world": world,
-                          "steps": f"1 warm-up + {args.steps} timed",
-                          **lm_part(lm, meshes[shards[0]], rank,
-                                    args.lm_batch, args.lm_seq, args.steps,
-                                    args.seed, device, estimate)})
+            if lm.moe is not None:
+                emit({"part": "lm_decode", "world": world,
+                      **lm_decode_check(lm.replace(
+                          num_layers=MOE_CHECK_LAYERS), first, rank,
+                          args.seed, device)})
+            for row in arms_check(first, rank, args.seed, device):
+                emit({"part": "arms", "world": world, **row})
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        for m in shards if lm is not None else ():
+            # the model trains only where the dry run's estimate of its
+            # step on this mesh says the device holds it (rank 0's
+            # verdict and depth, sent to every rank)
+            cut, estimate = plans.get(m, (None, None))
+            plan = torch.tensor([
+                float(estimate is not None and holds(estimate, world,
+                                                     device)),
+                float(cut.num_layers if cut is not None else 0)],
+                device=device)
+            dist.broadcast(plan, 0)
+            if not plan[0]:
+                emit({"part": "lm", "world": world, "mesh": dict(
+                    meshes[m].shape), "skipped": "the dry run's peak a rank "
+                    "does not fit the device", "estimated_peak_bytes":
+                    estimate and estimate["bytes_per_device"]["peak"]})
+                continue
+            emit({"part": "lm", "world": world,
+                  "steps": f"1 warm-up + {args.steps} timed",
+                  "published_layers": lm.num_layers,
+                  **lm_part(lm.replace(num_layers=int(plan[1])), meshes[m],
+                            rank, args.lm_batch, args.lm_seq, args.steps,
+                            args.seed, device, estimate)})
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
     finally:
         shutdown_distributed()
-    if rank != 0:
-        return
-    card = cards() if device.type == "cuda" else []
-    for line in lines:
-        line.update(device=str(device), cards=card,
-                    torch=torch.__version__)
-        print(json.dumps(line), flush=True)
-    if args.out:
-        Path(args.out).write_text("\n".join(json.dumps(x) for x in lines)
-                                  + "\n")
 
 
 if __name__ == "__main__":

@@ -91,7 +91,12 @@ compression: every step finite, every leaf moved, the residual non-zero,
 mesh without compression, against the mesh-less driver from the same
 seed: every loss and every parameter leaf bit-equal (the mesh's model
 axis of 1 takes the tensor-parallel code path, whose region ops launch
-nothing there). Then the tensor-parallel kernel cases (``tp``): every
+nothing there). Then ``mesh_moe``: ``mixtral-8x7b`` + LIF (the
+``moe_train`` cut, 2 layers) through ``launch.train.train`` on the
+(1, 1) mesh, whose MoE takes the expert-parallel code path with a model
+group of none, and 8 decode steps there, against the same without a
+mesh from the same seed: every loss, parameter leaf and logit
+bit-equal, the LIF launches per step. Then the tensor-parallel kernel cases (``tp``): every
 kernel of the training path at one rank's site shapes of
 ``spikingformer-8-512``, batch 16, on model axes of 2, 4 and 8 (the
 column-parallel neuron layers ``pssa.qkv`` and ``smlp.a`` at K / M output
@@ -2804,6 +2809,66 @@ def mesh_lm_equal(seed: int, mesh) -> dict:
     return out
 
 
+#: The expert-parallel path's model on the (1, 1) mesh: the ``moe_train``
+#: phase's ``mixtral-8x7b`` + LIF cut, and its decode steps.
+MESH_MOE_ARCH = "mixtral-8x7b"
+MESH_MOE_DECODE_STEPS = 8
+
+
+def mesh_moe_equal(seed: int, mesh) -> dict:
+    """``mixtral-8x7b`` + LIF (2 layers, published widths, ``cuda-full``)
+    through ``launch.train.train``, 1 + MESH_STEPS steps on ``mesh`` (the
+    (1, 1) mesh: the expert-parallel code path with a model group of none,
+    the MoE's layout bound to a model axis of 1) and without one from the
+    same seed, then MESH_MOE_DECODE_STEPS decode steps of 8 slots on the
+    mesh and off it from the same weights: whether every loss, every
+    parameter leaf and every step's logits are bit-equal, and the mesh
+    runs' launch counts."""
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models.lm import init_cache, lm_decode_step
+    cfg = lm_train_config("cuda-full", MESH_MOE_ARCH)
+    runs = {name: lm_train_run(cfg, seed, MESH_STEPS, mesh=m)
+            for name, m in (("mesh", mesh), ("no_mesh", None))}
+    a, b = (tree_leaves(runs[n]["params"]) for n in ("mesh", "no_mesh"))
+    names = tree_paths(runs["mesh"]["params"])
+    out = {"losses": {n: r["history"] for n, r in runs.items()},
+           "losses_bit_equal": runs["mesh"]["history"]
+           == runs["no_mesh"]["history"],
+           "leaves": len(names),
+           "leaves_differing": [n for n, x, y in zip(names, a, b)
+                                if not torch.equal(x, y)],
+           "ms_per_step": {n: r["ms_per_step"] for n, r in runs.items()},
+           "counts": runs["mesh"]["counts"]}
+    del a, b, runs
+    torch.cuda.empty_cache()
+    params = build_state(cfg, seed=seed, device=DEVICE)[0]
+    toks = torch.randint(0, cfg.vocab_size, (MESH_MOE_DECODE_STEPS, 8, 1),
+                         generator=torch.Generator().manual_seed(seed + 7))
+    logits = {}
+    for name in ("mesh", "no_mesh"):
+        cache = init_cache(cfg, 8, 64, torch.float32, DEVICE)
+        steps = []
+        reset_launch_counts()                # the path starts here
+        with use_mesh(mesh) if name == "mesh" else contextlib.nullcontext(), \
+                torch.inference_mode():
+            for i in range(MESH_MOE_DECODE_STEPS):
+                lg, cache = lm_decode_step(
+                    params, cache, toks[i].to(DEVICE),
+                    torch.full((8,), i, dtype=torch.int32, device=DEVICE),
+                    cfg)
+                steps.append(lg)
+        torch.cuda.synchronize()
+        if name == "mesh":
+            out["decode_counts"] = launch_counts()   # ... and ends here
+        logits[name] = steps
+    out["decode_bit_equal"] = all(torch.equal(x, y) for x, y in zip(
+        logits["mesh"], logits["no_mesh"]))
+    out["decode_steps"] = MESH_MOE_DECODE_STEPS
+    del params, logits, cache
+    torch.cuda.empty_cache()
+    return out
+
+
 def mesh_train_phase(seed: int, batch: int, smi: str) -> tuple[dict, dict]:
     """Data parallelism through the driver on a world of 1 (one card, NCCL,
     a file store): the BN kernels' split path at the preset's shapes
@@ -2902,10 +2967,33 @@ def mesh_train_phase(seed: int, batch: int, smi: str) -> tuple[dict, dict]:
             fail(f"tp: the LM on the (1, 1) mesh is not the mesh-less run's "
                  f"bits: {eq['losses']}, leaves differing "
                  f"{eq['leaves_differing']}")
+        moe = mesh_moe_equal(seed, mesh)
+        emit("mesh_moe", mesh=dict(mesh.shape), card=smi,
+             arch=f"{MESH_MOE_ARCH}@cuda-full",
+             layers=TRAIN_LAYERS[MESH_MOE_ARCH],
+             **{k: v for k, v in moe.items()
+                if k not in ("counts", "decode_counts")},
+             note="the expert-parallel code path on a model axis of 1 "
+                  "against the mesh-less training run and decode")
+        if not moe["losses_bit_equal"] or moe["leaves_differing"] or \
+                not moe["decode_bit_equal"]:
+            fail(f"mesh_moe: {MESH_MOE_ARCH} on the (1, 1) mesh is not the "
+                 f"mesh-less run's bits: losses {moe['losses']}, leaves "
+                 f"differing {moe['leaves_differing']}, decode bit-equal "
+                 f"{moe['decode_bit_equal']}")
+        layers = TRAIN_LAYERS[MESH_MOE_ARCH]
+        want = lm_train_expected(1 + MESH_STEPS, MESH_MOE_ARCH)
+        if moe["counts"] != want or moe["decode_counts"] != lm_expected(
+                layers * MESH_MOE_DECODE_STEPS):
+            fail(f"mesh_moe launch counts: train {moe['counts']} (want "
+                 f"{want}), decode {moe['decode_counts']} (want "
+                 f"{layers * MESH_MOE_DECODE_STEPS} lif_soma_fwd)")
         return {"mesh_train": runs["mesh"]["counts"],
                 "mesh_lm_train": lm["counts"],
-                "tp_lm_train": eq["counts"]}, {"bn_fwd": bn, "bn_bwd": bn,
-                                               "neuron_layer_train": nl}
+                "tp_lm_train": eq["counts"],
+                "mesh_moe_train": moe["counts"],
+                "mesh_moe_decode": moe["decode_counts"]}, \
+            {"bn_fwd": bn, "bn_bwd": bn, "neuron_layer_train": nl}
     finally:
         shutdown_distributed()
 

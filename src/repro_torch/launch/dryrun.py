@@ -35,11 +35,11 @@ collectives are dispatched and do nothing), and counts as it goes
 The meshes: the production ones, ``pod16x16`` (data 16, model 16) and
 ``pod2x16x16`` (pod 2, data 16, model 16), and the same with the model
 axis at 1, ``data16`` (the default) and ``pod2xdata16`` (``--multi-pod``).
-On a model axis the dense family's "heads" scheme and the Spikingformer
-are ported; a cell whose family or attention scheme is ROADMAP A11c-2
-(the "seq" and head_dim schemes, the MoE all-to-all, MLA, the rwkv and
-hybrid heads, the encoder-decoder, the VLM) is reported as such, one row
-of ``--all``, and counted apart.
+On a model axis the Spikingformer and the dense, moe and vlm LMs are
+ported (every attention scheme, the MoE's all-to-all); a cell whose
+family is ROADMAP A11c-2b (MLA, the rwkv and hybrid heads, the
+encoder-decoder) is reported as such, one row of ``--all``, and counted
+apart.
 """
 from __future__ import annotations
 
@@ -77,8 +77,8 @@ MESHES = {"data16": (("data", "model"), (16, 1)),
           "pod2xdata16": (("pod", "data", "model"), (2, 16, 1)),
           "pod16x16": (("data", "model"), (16, 16)),
           "pod2x16x16": (("pod", "data", "model"), (2, 16, 16))}
-#: The marker of a scheme or family whose model axis is not ported.
-DEFERRED = "A11c-2"
+#: The marker of a family whose model axis is not ported.
+DEFERRED = "A11c-2b"
 
 
 def peak_flops(dtype: torch.dtype) -> float:

@@ -30,10 +30,18 @@ region ops of ``models.common`` sum the partial results and the
 gradients over :func:`model_group`). Where the resolved plan stores a
 leaf on another dim than the one a module computes on (``sanitize_specs``
 moved its "model" axis), :func:`gather_model` gathers it whole at use and
-reduce-scatters its gradient back. The "heads" scheme of the dense LMs
-and the Spikingformer are ported; the "seq" and head_dim schemes, the MoE
-all-to-all and the other families on a model axis raise (ROADMAP
-A11c-2).
+reduce-scatters its gradient back; a module that computes the whole of
+a leaf on every rank (replicated work) takes it with ``summed=False``,
+whose backward keeps the rank's slice of the whole, equal, gradient.
+
+Ported on a model axis: the Spikingformer, the dense, moe and vlm LMs
+with the attention's "heads", "seq" and "none" schemes and the decode's
+heads, flash-decode ("seq") and head_dim modes, and the MoE's expert
+parallelism. The sequence split has its region pair
+(:func:`split_seq`, :func:`gather_seq`), the expert dispatch its
+:class:`AllToAll`, the flash-decode merge :func:`all_reduce_max`. MLA,
+the rwkv and hybrid heads and the encoder-decoder raise (ROADMAP
+A11c-2b).
 """
 from __future__ import annotations
 
@@ -453,7 +461,8 @@ def full_shape(shard: torch.Tensor, spec, mesh: Mesh) -> tuple[int, ...]:
 
 def local_shard(full: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
     """This rank's slice of ``full`` under ``spec`` (a contiguous copy,
-    or ``full`` itself where nothing is sharded)."""
+    never a view that would keep the whole leaf's storage alive, or
+    ``full`` itself where nothing is sharded)."""
     out = full
     for dim, axes in _sharded_dims(spec, mesh):
         idx, n = _shard_index(axes, mesh)
@@ -462,25 +471,22 @@ def local_shard(full: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
                              f"divide over {axes} ({n} shards)")
         step = out.shape[dim] // n
         out = out.narrow(dim, idx * step, step)
-    return out if out is full else out.contiguous()
+    return out if out is full else out.clone(
+        memory_format=torch.contiguous_format)
 
 
 def batch_dim(spec, mesh: Mesh) -> int | None:
     """The one dim ``spec`` shards over the batch axes (``None`` where there
     is none). A dim over "model" is left alone (its slice stays on the
-    rank); several dims over the batch axes, or a dim over only some of
-    them, raise."""
+    rank); several dims over the batch axes, or one over batch and model
+    axes together, raise. A dim over some of the batch axes ("data" on a
+    mesh with "pod": the reference's plan) is split over those and
+    replicated over the others (:func:`batch_groups`)."""
     dims = [dim for dim, axes in _sharded_dims(spec, mesh)
             if any(a in BATCH_AXES for a in axes)]
     if len(dims) > 1:
         raise NotImplementedError(
             f"spec {spec!r} shards {len(dims)} dims over the batch axes")
-    if dims and tuple(a for a in _axes(spec[dims[0]]) if a in BATCH_AXES
-                      and mesh.shape.get(a, 1) > 1) != tuple(
-            a for a in batch_axes(mesh) if mesh.shape[a] > 1):
-        raise NotImplementedError(
-            f"spec {spec!r} shards dim {dims[0]} over some of the batch "
-            f"axes {batch_axes(mesh)} only")
     if dims and any(a not in BATCH_AXES and mesh.shape[a] > 1
                     for a in _axes(spec[dims[0]]) if a in mesh.shape):
         raise NotImplementedError(
@@ -498,28 +504,57 @@ def model_dim(spec, mesh) -> int | None:
     return None
 
 
-def gather_leaf(shard: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
-    """The leaf gathered over the batch group (``all_gather_into_tensor``):
-    whole but for a dim over "model", which stays this rank's slice;
-    ``shard`` itself where nothing is split over the batch axes."""
+def batch_groups(spec, mesh: Mesh):
+    """``(dim, split, rest)`` of a leaf: its batch dim (:func:`batch_dim`),
+    the process group over the batch axes of more than one rank that dim
+    is split over (the batch group where it is all of them), and the group
+    over the mesh's other batch axes of more than one rank, over which the
+    leaf is replicated (``None`` where there is none). A dim over batch
+    axes of one rank only is no split: ``(None, None, None)``."""
     dim = batch_dim(spec, mesh)
     if dim is None:
+        return None, None, None
+    live = tuple(a for a in batch_axes(mesh) if mesh.shape[a] > 1)
+    split = tuple(a for a in live if a in _axes(spec[dim]))
+    rest = tuple(a for a in live if a not in split)
+    if not split:
+        return None, None, None
+    if not rest:
+        return dim, mesh.batch_group, None
+    return dim, mesh.group(split[0]), mesh.group(rest[0])
+
+
+def gather_leaf(shard: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """The leaf gathered over the batch axes its batch dim is split over
+    (``all_gather_into_tensor``, :func:`batch_groups`): whole but for a
+    dim over "model", which stays this rank's slice; ``shard`` itself
+    where nothing is split over the batch axes."""
+    dim, split, _ = batch_groups(spec, mesh)
+    if dim is None:
         return shard
-    return _gather_dim(shard, dim, mesh.batch_group)
+    return _gather_dim(shard, dim, split)
 
 
 def reduce_scatter_leaf(grad: torch.Tensor, spec, mesh: Mesh
                         ) -> torch.Tensor:
     """The sum over the batch group of every rank's gradient (of the
-    leaf as :func:`gather_leaf` gives it), this rank's shard of it
-    (``reduce_scatter_tensor``), or all of it (``all_reduce``) where the
-    leaf is not split over the batch axes."""
-    dim = batch_dim(spec, mesh)
+    leaf as :func:`gather_leaf` gives it): this rank's shard of it
+    (``reduce_scatter_tensor`` over the axes the leaf is split over, then
+    ``all_reduce`` over the batch axes it is replicated over), or all of
+    it (``all_reduce``; ``grad`` itself over a batch group of one rank)
+    where the leaf is not split over the batch axes."""
+    dim, split, rest = batch_groups(spec, mesh)
     if dim is None:
+        if mesh.batch_group is None or \
+                dist.get_world_size(mesh.batch_group) == 1:
+            return grad
         out = grad.contiguous()
         dist.all_reduce(out, group=mesh.batch_group)
         return out
-    return _scatter_dim(grad, dim, mesh.batch_group)
+    out = _scatter_dim(grad, dim, split)
+    if rest is not None:
+        dist.all_reduce(out, group=rest)
+    return out
 
 
 def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -564,12 +599,18 @@ class _GatherModel(torch.autograd.Function):
         return _scatter_dim(g, ctx.dim, ctx.group), None, None
 
 
-def gather_model(x: torch.Tensor, shape) -> torch.Tensor:
+def gather_model(x: torch.Tensor, shape, summed: bool = True
+                 ) -> torch.Tensor:
     """The leaf of whole shape ``shape`` from this rank's slice ``x``, for
     a module that computes on another slice than the plan stores (the
     stored spec's "model" dim is the one dim where ``x`` is short of
     ``shape``): all-gathered over the ambient model group, its gradient
-    reduce-scattered back. ``x`` itself where it is whole already."""
+    reduce-scattered back. ``x`` itself where it is whole already.
+
+    ``summed=False`` is for replicated work, where every model rank
+    computes the whole gradient of the leaf: the backward keeps the
+    rank's slice of it (:func:`gather_seq`'s), where a sum would make it
+    M times too large."""
     shape = tuple(shape)
     if tuple(x.shape) == shape:
         return x
@@ -579,6 +620,8 @@ def gather_model(x: torch.Tensor, shape) -> torch.Tensor:
             x.shape[dims[0]] * dist.get_world_size(group) != shape[dims[0]]:
         raise ValueError(f"a slice {tuple(x.shape)} is not one rank's part "
                          f"of {shape} along the model axis")
+    if not summed:
+        return _GatherSeq.apply(x, dims[0], group)
     return _GatherModel.apply(x, dims[0], group)
 
 
@@ -651,3 +694,102 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     identity, launching nothing, without a model group."""
     group = model_group()
     return x if group is None else _ReduceFromModel.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
+# The sequence split, the expert all-to-all and the flash-decode merge
+# ---------------------------------------------------------------------------
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather along ``dim`` over the group; the backward keeps the
+    rank's own part of the gradient (which is equal on every rank after a
+    region: a sum would count it M times)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.n = dim, group, x.shape[dim]
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
+
+
+class _SplitSeq(torch.autograd.Function):
+    """The rank's equal part along ``dim``; the backward all-gathers every
+    rank's part of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = x.shape[dim] // dist.get_world_size(group)
+        return x.narrow(dim, dist.get_rank(group) * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.dim, ctx.group), None, None
+
+
+def gather_seq(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Leave a sequence-split region: every model rank's part of ``x``
+    along ``dim`` (the rank-major all-gather), whose gradient is the
+    rank's part of the (replicated) gradient. The identity, launching
+    nothing, without a model group."""
+    group = model_group()
+    return x if group is None else _GatherSeq.apply(x, dim, group)
+
+
+def split_seq(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Enter a sequence-split region: this model rank's equal part of the
+    replicated ``x`` along ``dim``; the backward all-gathers the parts'
+    gradients. The identity without a model group."""
+    group = model_group()
+    if group is None:
+        return x
+    m = dist.get_world_size(group)
+    if x.shape[dim] % m:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {m} model ranks")
+    return _SplitSeq.apply(x, dim, group)
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+class AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` with equal splits over a group: part i of
+    dim 0 goes to rank i, which holds it at place r (the sender's rank).
+    The exchange is its own transpose, so the backward sends the gradient
+    back by the same all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def all_to_all_model(x: torch.Tensor) -> torch.Tensor:
+    """:class:`AllToAll` over the ambient model group, ``x`` of shape
+    (M, ...) (a contiguous buffer, its M parts of equal size); ``x``
+    itself without a model group."""
+    group = model_group()
+    return x if group is None else AllToAll.apply(x, group)
+
+
+def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum over the ambient model group (no gradient:
+    the flash-decode merge's row maximum); ``x`` without a model group."""
+    group = model_group()
+    if group is None:
+        return x
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out

@@ -74,10 +74,20 @@ def spikingformer_structs(cfg, mesh, fsdp_min_elems: int = 1 << 20):
     return (p_struct, s_struct), (p_specs, s_specs)
 
 
+def bind_model_axis(cfg, mesh):
+    """``cfg`` with ``mesh``'s model-axis size bound into its MoE layout
+    (``ArchConfig.with_model_shards``), as the reference's drivers bind
+    it; ``cfg`` itself without an MoE (the Spikingformer included)."""
+    if getattr(cfg, "moe", None) is None:
+        return cfg
+    return cfg.with_model_shards(mesh.shape.get("model", 1))
+
+
 def lm_specs(cfg, mesh, fsdp_min_elems: int = 1 << 20):
-    """(params structs, specs) of an LM or encoder-decoder on ``mesh``:
+    """(params structs, specs) of an LM or encoder-decoder on ``mesh``
+    (an MoE's layout bound to its model axis, :func:`bind_model_axis`):
     sanitised, then FSDP'd over "data" (the training plan)."""
-    p_struct, p_specs = param_structs(cfg)
+    p_struct, p_specs = param_structs(bind_model_axis(cfg, mesh))
     p_specs = sanitize_specs(p_specs, p_struct, mesh)
     return p_struct, apply_fsdp(p_specs, p_struct, mesh,
                                 min_elems=fsdp_min_elems)
@@ -243,12 +253,14 @@ def input_specs(cfg, shape_name, mesh, microbatches: int = 1
     a leaf's "model" slice stays the rank's (the dense family's "heads"
     scheme computes on it). The steps run on ``mesh``, inside it, where it
     is a :class:`Mesh`; an :class:`AbstractMesh` gives the specs and the
-    mesh-less step. What the model axis does not split raises naming
-    ROADMAP A11c-2."""
+    mesh-less step. An MoE's layout is bound to the mesh's model axis
+    (:func:`bind_model_axis`). What the model axis does not split raises
+    naming ROADMAP A11c-2b."""
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.train.loop import check_model_axis
     sh = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
     ba = batch_axes(mesh)
+    cfg = bind_model_axis(cfg, mesh)
     check_model_axis(cfg, mesh)
     if getattr(cfg, "family", None) == "vision":
         return _vision_input_specs(cfg, sh, mesh, ba)

@@ -31,8 +31,11 @@ mesh=)``): every rank draws the global batch of each step and keeps its
 rows (``train.data.place_batch``; the ranks of one model group keep the
 same rows); rank 0 writes the checkpoints, whole. ``train(mesh=...)``
 takes a mesh from ``launch.mesh.make_test_mesh``; ``mesh=None`` is the
-single-device path. On a model axis the Spikingformer and the dense LMs
-train; the other families raise (ROADMAP A11c-2).
+single-device path. On a model axis the Spikingformer and the dense, moe
+(expert parallel, ``model_shards`` bound to ``--model``) and vlm LMs
+train; MLA and the rwkv, hybrid and audio families raise (ROADMAP
+A11c-2b). A checkpoint of an MoE restores at another ``--model``, its
+expert leaves relaid (``train.checkpoint.restore_checkpoint``).
 """
 from __future__ import annotations
 
@@ -71,7 +74,9 @@ def build_state(cfg, mesh=None, opt_cfg: OptimizerConfig | None = None,
     Without a mesh the leaves are drawn on ``device`` (``None`` = the
     card) and ``specs`` are the logical ones. With one, every rank draws
     the whole leaves on the mesh's device from the same seed (the
-    values do not depend on the mesh) and keeps its slices under the plan
+    values do not depend on the mesh: an MoE's experts are drawn in the
+    layout of one model shard and relaid to the mesh's model axis,
+    ``models.moe.relayout``) and keeps its slices under the plan
     (``launch.specs.lm_specs``: sanitised, FSDP'd over "data"), which is
     ``specs``; the moments shard alike."""
     device = mesh.device if mesh is not None else resolve_device(device)
@@ -80,9 +85,19 @@ def build_state(cfg, mesh=None, opt_cfg: OptimizerConfig | None = None,
     else:
         from repro_torch.models.lm import init_lm as init
     gen = torch.Generator(device=device).manual_seed(seed)
-    params, specs = split_tree(init(gen, cfg, device))
-    if mesh is not None:
-        from repro_torch.launch.specs import lm_specs
+    if mesh is None:
+        params, specs = split_tree(init(gen, cfg, device))
+    else:
+        from repro_torch.launch.specs import bind_model_axis, lm_specs
+        from repro_torch.models.moe import relayout
+        one = cfg if cfg.moe is None else cfg.with_model_shards(1)
+        params = split_tree(init(gen, one, device))[0]
+        cfg = bind_model_axis(cfg, mesh)
+        if cfg.moe is not None:
+            for k in ("w_gate", "w_up", "w_down"):
+                params["blocks"]["ffn"][k] = relayout(
+                    params["blocks"]["ffn"][k], cfg.moe.model_shards,
+                    cfg.moe.num_experts, -2 if k == "w_down" else -1)
         specs = lm_specs(cfg, mesh)[1]
         params = _shard_tree(params, specs, mesh)
     compress = opt_cfg is not None and opt_cfg.compress_grads
@@ -295,6 +310,9 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int = 128,
                             device=device, on_step=on_step,
                             compress_grads=compress_grads)
     device = mesh.device if mesh is not None else resolve_device(device)
+    if mesh is not None:
+        from repro_torch.launch.specs import bind_model_axis
+        cfg = bind_model_axis(cfg, mesh)
     opt_cfg = OptimizerConfig(lr=lr if lr is not None else 3e-4,
                               total_steps=steps,
                               warmup_steps=max(steps // 20, 5),
@@ -305,7 +323,9 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int = 128,
     start = 0
     if ckpt_dir:
         latest, restored = ckpt.restore_latest_good(
-            ckpt_dir, params, mesh, specs if mesh is not None else None)
+            ckpt_dir, params, mesh, specs if mesh is not None else None,
+            moe_experts=cfg.moe.num_experts if cfg.moe is not None
+            else None)
         if latest is not None:
             if mesh is None or mesh.rank == 0:
                 print(f"[restore] step {latest} from {ckpt_dir}")

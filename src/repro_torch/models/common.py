@@ -112,15 +112,15 @@ def shard(x: torch.Tensor, *spec) -> torch.Tensor:
 
 
 def refuse_model_axis(what: str, m: int | None = None) -> None:
-    """Raises for a scheme or family whose compute split over the model
-    axis is not ported (ROADMAP A11c-2), where the model axis (``m``
-    ranks, default the ambient mesh's) has more than one rank; the port
-    never computes such a model replicated in silence."""
+    """Raises for a family whose compute split over the model axis is not
+    ported (ROADMAP A11c-2b), where the model axis (``m`` ranks, default
+    the ambient mesh's) has more than one rank; the port never computes
+    such a model replicated in silence."""
     m = model_coord()[1] if m is None else m
     if m > 1:
         raise NotImplementedError(
-            f"{what} on a model axis of {m} is ROADMAP A11c-2 (ported: the "
-            f"Spikingformer and the dense family's 'heads' scheme)")
+            f"{what} on a model axis of {m} is ROADMAP A11c-2b (ported: the "
+            f"Spikingformer and the dense, moe and vlm LMs without MLA)")
 
 
 def shard_batch(x: torch.Tensor, *rest) -> torch.Tensor:

@@ -22,11 +22,17 @@ The audio family is not a decoder LM: it runs through
 module's entry points refuse it.
 
 On a mesh with a model axis (the ambient mesh, ``launch.mesh.use_mesh``)
-the dense family is tensor parallel: the embedding and the unembedding
-vocab-parallel, each block's attention ("heads" scheme) and SwiGLU
-between ``copy_to_model`` and their row-parallel sums, the LIF on the
-whole D after the sum; the serving entry points hand back whole-vocabulary
-logits. Every other family raises there (ROADMAP A11c-2).
+the dense, moe (without MLA) and vlm families are model parallel: the
+embedding and the unembedding vocab-parallel; each block's attention under
+the scheme the reference chooses ("heads", "seq" or "none"; in decode
+heads, flash-decode or head_dim), entering its own region; the SwiGLU
+between ``copy_to_model`` and its row-parallel sum; the MoE expert
+parallel (the rank's S/M rows routed and sent to their experts' ranks by
+all-to-all, gathered back; in decode every rank routes every token to its
+own experts and the results are summed); the LIF on the whole (B, S, D)
+after the branch's sum or gather, so that its time axis is the whole
+sequence. The serving entry points hand back whole-vocabulary logits.
+MLA, the rwkv and hybrid families raise there (ROADMAP A11c-2b).
 
 Entry points:
   init_lm(generator, cfg, device)      -> augmented param tree (Leaf leaves)
@@ -74,19 +80,29 @@ def _refuse_audio(cfg: ArchConfig) -> None:
 def check_lm_split(cfg: ArchConfig, m: int | None = None) -> None:
     """Raises where a model axis of ``m`` ranks (default: the ambient
     mesh's) would split a computation this port does not split (ROADMAP
-    A11c-2): every family but the dense one, and a dense config whose
-    vocabulary or d_ff the axis does not divide (the plan would store
-    those leaves on another dim). The attention scheme is checked at the
-    attention."""
+    A11c-2b): MLA and the rwkv, hybrid and audio families, and a config
+    whose vocabulary or SwiGLU width the axis does not divide (the plan
+    would store those leaves on another dim). An MoE's expert count must
+    divide over the axis, or the axis over it, as the reference's layout
+    needs. The attention scheme is chosen at the attention."""
     m = model_coord()[1] if m is None else m
     if m == 1:
         return
-    if cfg.family != "dense" or cfg.mla is not None or cfg.moe is not None \
-            or cfg.vlm_stub:
-        refuse_model_axis(f"{cfg.name} (family {cfg.family})", m)
-    if cfg.vocab_size % m or cfg.d_ff % m:
-        refuse_model_axis(f"{cfg.name}: vocab {cfg.vocab_size} / d_ff "
-                          f"{cfg.d_ff} not divisible by the axis", m)
+    if cfg.family not in ("dense", "moe", "vlm") or cfg.mla is not None:
+        refuse_model_axis(f"{cfg.name} (family {cfg.family}"
+                          f"{', MLA' if cfg.mla is not None else ''})", m)
+    width = cfg.d_ff if cfg.moe is None else \
+        cfg.moe.d_ff_expert * cfg.moe.n_shared
+    if cfg.vocab_size % m or width % m:
+        refuse_model_axis(f"{cfg.name}: vocab {cfg.vocab_size} / SwiGLU "
+                          f"width {width} not divisible by the axis", m)
+    if cfg.moe is not None:
+        e = cfg.moe.num_experts
+        if (e % m if e >= m else m % e) or cfg.moe.d_ff_expert % max(
+                1, m // e):
+            raise ValueError(f"{cfg.name}: {e} experts of width "
+                             f"{cfg.moe.d_ff_expert} do not lay out over "
+                             f"{m} model ranks")
 
 
 # ---------------------------------------------------------------------------
@@ -145,8 +161,10 @@ def _init_dense_block(generator, cfg: ArchConfig, device):
 
 def _dense_block(p, x, cfg: ArchConfig, *, use_flash: bool):
     """One block: (x + attention + FFN branch, the MoE's aux loss (0 for
-    SwiGLU)). Each branch's input enters the model-parallel region."""
-    h = copy_to_model(rmsnorm(p["ln1"], x, cfg.norm_eps))
+    SwiGLU)). The attention and the MoE enter their model-parallel regions
+    themselves (their schemes differ in how); the SwiGLU's input enters
+    it here."""
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.mla is not None:
         a = mla_mod.mla_flash_attention(p["attn"], h, cfg.mla) if use_flash \
             else mla_mod.mla_attention(p["attn"], h, cfg.mla)
@@ -155,11 +173,11 @@ def _dense_block(p, x, cfg: ArchConfig, *, use_flash: bool):
     else:
         a = attn_mod.attention(p["attn"], h, cfg.attn)
     x = x + a
-    h = copy_to_model(rmsnorm(p["ln2"], x, cfg.norm_eps))
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if cfg.moe is not None:
         f, aux = moe_mod.moe_apply(p["ffn"], h, cfg.moe)
     else:
-        f = swiglu(p["ffn"], h)
+        f = swiglu(p["ffn"], copy_to_model(h))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.lif is not None:
         f = _seq_lif(f, cfg)
@@ -168,17 +186,17 @@ def _dense_block(p, x, cfg: ArchConfig, *, use_flash: bool):
 
 def _dense_block_decode(p, x, cache, pos, cfg: ArchConfig):
     kv = cache["kv"] if cfg.lif is not None else cache
-    h = copy_to_model(rmsnorm(p["ln1"], x, cfg.norm_eps))
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.mla is not None:
         a, kv = mla_mod.mla_decode(p["attn"], h, kv, pos, cfg.mla)
     else:
         a, kv = attn_mod.attention_decode(p["attn"], h, kv, pos, cfg.attn)
     x = x + a
-    h = copy_to_model(rmsnorm(p["ln2"], x, cfg.norm_eps))
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if cfg.moe is not None:
         f, _ = moe_mod.moe_apply(p["ffn"], h, cfg.moe)
     else:
-        f = swiglu(p["ffn"], h)
+        f = swiglu(p["ffn"], copy_to_model(h))
     if cfg.lif is not None:
         f, lif_st = _lif_decode(f, cache["lif"], cfg)
         return x + f, {"kv": kv, "lif": lif_st}
@@ -442,7 +460,8 @@ def lm_decode_step(params: Params, cache, tokens: torch.Tensor,
                    pos: torch.Tensor, cfg: ArchConfig):
     """tokens: (B, 1) -> (logits (B, V), new cache). pos: (B,). The cache
     passed in is not modified. On a model axis the cache holds the rank's
-    kv heads and the logits are gathered whole."""
+    part (its kv heads, positions or columns: ``attention.decode_mode``)
+    and the logits are gathered whole."""
     _refuse_audio(cfg)
     check_lm_split(cfg)
     x = embed(params["embed"], tokens, cfg.dtype)

@@ -4,7 +4,7 @@ reference's einsums. On a model axis SwiGLU is Megatron's: ``w_gate`` and
 ``w_up`` column-parallel (the rank's d_ff/M hidden features), ``w_down``
 row-parallel, its partial sums added over the group; the caller enters the
 region (``copy_to_model``). The GELU MLP runs with the audio family, whose
-model axis is ROADMAP A11c-2."""
+model axis is ROADMAP A11c-2b."""
 from __future__ import annotations
 
 import torch

@@ -7,11 +7,18 @@ one expert per shard. Routing is capacity-bounded with static shapes and
 dispatched by scatter into per-expert buffers (no (T, E, C) one-hot
 tensors); shared experts (DeepSeek) run densely beside the routed ones.
 
-Only the reference's ``model_axis=None`` paths exist here, and
-:func:`moe_apply` raises for ``model_shards > 1``: the expert all-to-all
-over the mesh's "model" axis is ROADMAP A11c-2 (data parallelism, which
-replicates the experts, is ported). The expert products are ``torch.bmm``, as the reference's
-einsums run outside any Pallas kernel.
+On a model axis of M ranks (the ambient mesh; ``model_shards`` must be
+M, as ``ArchConfig.with_model_shards`` binds it) :func:`moe_apply` is the
+reference's ``shard_map`` body: where M divides the sequence the rank
+routes its S/M rows (``split_seq``), sends each kept (token, choice) to
+the rank holding its expert (or to all ``tp`` ranks holding its F-slices)
+by one all-to-all (:class:`~repro_torch.launch.mesh.AllToAll`), computes
+its experts on what it receives, sends the results back by the same
+all-to-all, combines, and gathers the rows (``gather_seq``); else
+(decode) every rank routes every token, computes only its own experts'
+and the sum over the group is the combine. Capacity is per rank, from its
+own token count, as in the reference. The expert products are
+``torch.bmm``, as the reference's einsums run outside any Pallas kernel.
 
 Two choices keep the result deterministic on the card, where a scatter-add
 is an atomic add and its fp32 sum changes from run to run: the (token,
@@ -28,7 +35,9 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import MODEL, normal_leaf
+from repro_torch.launch.mesh import all_to_all_model, gather_seq, split_seq
+from repro_torch.models.common import (MODEL, copy_to_model, model_coord,
+                                       normal_leaf, reduce_from_model)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +97,33 @@ def init_moe(generator, cfg: MoEConfig, dtype=torch.float32, device="cpu"):
     return p
 
 
+def relayout(w: torch.Tensor, new_m: int, num_experts: int,
+             f_dim: int = -1) -> torch.Tensor:
+    """An expert leaf ``(..., M, E_loc, ., .)`` (any leading dims: the LM
+    stacks its layers) relaid from its M model shards to ``new_m``, on its
+    device: the logical (E, D, F) experts laid out again, F on ``f_dim``
+    (-1 for ``w_gate`` / ``w_up``, -2 for ``w_down``). A view where the
+    experts divide over both sizes. With F last it is the reference's
+    ``reshape_moe_layout``; for ``w_down`` it follows F, where that
+    function (ROADMAP C5) joins the slices along D."""
+    if f_dim == -2:
+        return relayout(w.transpose(-1, -2), new_m, num_experts
+                        ).transpose(-1, -2)
+    *lead, m, el, d, fl = w.shape
+    e = num_experts
+    if e >= m:
+        logical = w.reshape(*lead, m * el, d, fl)
+    else:
+        logical = w.reshape(*lead, e, m // e, d, fl).movedim(-3, -2) \
+            .reshape(*lead, e, d, (m // e) * fl)
+    f = logical.shape[-1]
+    if e >= new_m:
+        return logical.reshape(*lead, new_m, e // new_m, d, f)
+    tp = new_m // e
+    return logical.reshape(*lead, e, d, tp, f // tp).movedim(-2, -3) \
+        .reshape(*lead, new_m, 1, d, f // tp)
+
+
 def _route(router_w: torch.Tensor, x_flat: torch.Tensor, cfg: MoEConfig):
     """(gates (n, k) in x's dtype, experts (n, k), Switch aux loss): fp32
     logits, softmax, the top k in descending order, gates renormalised."""
@@ -135,11 +171,13 @@ def _combine(y_tok: torch.Tensor, contrib: torch.Tensor, k: int
     return y_tok
 
 
-def _local_moe(x_loc, router_w, w_gate, w_up, w_down, cfg: MoEConfig):
-    """The reference's per-shard MoE body with ``model_axis=None`` (no mesh:
-    the send buffer is the receive buffer; the all-to-all is ROADMAP A11c-2).
-    x_loc: (B_l, S_l, D); weights: local slices (1, E_loc, D, F_loc).
-    Returns (y (B_l, S_l, D), aux)."""
+def _local_moe(x_loc, router_w, w_gate, w_up, w_down, cfg: MoEConfig,
+               a2a=None):
+    """The reference's per-shard MoE body. x_loc: (B_l, S_l, D); weights:
+    local slices (1, E_loc, D, F_loc). ``a2a``: the exchange of the
+    (M, E_loc * cap, D) send buffer over the model group (``None``, no
+    mesh: the send buffer is the receive buffer). Returns (y (B_l, S_l,
+    D), aux)."""
     bl, sl, d = x_loc.shape
     n = bl * sl
     xf = x_loc.reshape(n, d)
@@ -168,14 +206,19 @@ def _local_moe(x_loc, router_w, w_gate, w_up, w_down, cfg: MoEConfig):
     for j in range(tp):
         # kept slots are unique; the dropped rows all land on the last row
         send = send.index_put((slot[:, j],), x_rep)
-    xe = send[:-1].reshape(m, el, cap, d).transpose(0, 1) \
-        .reshape(el, m * cap, d)
+    recv = send[:-1].reshape(m, el * cap, d)
+    if a2a is not None:
+        recv = a2a(recv)
+    xe = recv.reshape(m, el, cap, d).transpose(0, 1).reshape(el, m * cap, d)
 
     ye = _experts(xe, w_gate[0], w_up[0], w_down[0])
 
-    back = ye.reshape(el, m, cap, d).transpose(0, 1).reshape(m * el * cap, d)
-    ret = torch.cat([back, torch.zeros((1, d), dtype=back.dtype,
-                                       device=dev)], dim=0)
+    back = ye.reshape(el, m, cap, d).transpose(0, 1).reshape(m, el * cap, d)
+    if a2a is not None:
+        back = a2a(back.contiguous())
+    ret = torch.cat([back.reshape(m * el * cap, d),
+                     torch.zeros((1, d), dtype=back.dtype, device=dev)],
+                    dim=0)
 
     y_tok = torch.zeros((n, d), dtype=x_loc.dtype, device=dev)
     weight = (gates.reshape(-1) * keep.to(x_loc.dtype))[:, None]
@@ -187,12 +230,12 @@ def _local_moe(x_loc, router_w, w_gate, w_up, w_down, cfg: MoEConfig):
 
 
 def _local_moe_replicated(x_loc, router_w, w_gate, w_up, w_down,
-                          cfg: MoEConfig):
-    """The reference's decode-time body with ``model_axis=None`` (this
-    shard is shard 0): every local token is routed, only the tokens bound
-    for this shard's experts are scattered and computed; with a mesh the
-    combine is a sum over the model axis. Only a mesh dispatches to it
-    (ROADMAP A11c-2)."""
+                          cfg: MoEConfig, my: int = 0):
+    """The reference's decode-time body on shard ``my``: every local
+    token is routed, only the tokens bound for this shard's experts (its
+    F-slice's, E < M) are scattered and computed; the caller sums the
+    result over the model group (the combine, and the F-slices'
+    partial sums)."""
     bl, sl, d = x_loc.shape
     n = bl * sl
     xf = x_loc.reshape(n, d)
@@ -205,7 +248,6 @@ def _local_moe_replicated(x_loc, router_w, w_gate, w_up, w_down,
     flat_e = experts.reshape(-1)
     pos = _expert_positions(flat_e, cfg.num_experts)
     keep = pos < cap
-    my = 0
     if cfg.num_experts >= m:
         mine = (flat_e // el) == my
         e_idx = flat_e % el
@@ -229,16 +271,34 @@ def _local_moe_replicated(x_loc, router_w, w_gate, w_up, w_down,
 
 def moe_apply(params, x: torch.Tensor, cfg: MoEConfig
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (y, aux load-balance loss). One device: the
-    reference's path without a mesh, which needs ``model_shards == 1``."""
-    if cfg.model_shards != 1:
-        raise NotImplementedError(
-            f"MoEConfig.model_shards={cfg.model_shards}: expert parallelism "
-            f"over a mesh 'model' axis is not ported yet (ROADMAP A11c-2); the "
-            f"port runs model_shards=1")
-    y, aux = _local_moe(x, params["router"], params["w_gate"],
-                        params["w_up"], params["w_down"], cfg)
+    """x: (B, S, D), replicated over a model axis -> (y, aux load-balance
+    loss). Without a model axis the reference's mesh-less path. On one of
+    M ranks (``cfg.model_shards`` must be M) the expert-parallel body of
+    the module docstring: the sequence split where M divides S (training
+    and prefill), the replicated routing otherwise (decode). The router
+    is replicated and each rank routes a part of the tokens, so its
+    gradient is summed (``copy_to_model``); the aux loss is the mean of
+    the ranks' (the reference's ``pmean``), its gradient shared out."""
+    r, m = model_coord()
+    if cfg.model_shards != m:
+        raise ValueError(
+            f"MoEConfig.model_shards={cfg.model_shards} on a model axis of "
+            f"{m}: bind it with ArchConfig.with_model_shards({m})")
+    w = (params["w_gate"], params["w_up"], params["w_down"])
+    if m == 1:
+        y, aux = _local_moe(x, params["router"], *w, cfg)
+    else:
+        router = copy_to_model(params["router"])
+        if x.shape[1] % m == 0 and x.shape[1] >= m:
+            y, aux = _local_moe(split_seq(x, 1), router, *w, cfg,
+                                a2a=all_to_all_model)
+            y = gather_seq(y, 1)
+        else:
+            y, aux = _local_moe_replicated(copy_to_model(x), router, *w,
+                                           cfg, my=r)
+            y = reduce_from_model(y)
+        aux = reduce_from_model(aux / m)
     if cfg.n_shared:
         from repro_torch.models.mlp import swiglu
-        y = y + swiglu(params["shared"], x)
+        y = y + swiglu(params["shared"], copy_to_model(x))
     return y, aux

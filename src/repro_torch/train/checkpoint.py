@@ -35,7 +35,11 @@ writer stored, matched by path name, axes the mesh lacks dropped.
 
 :func:`reshape_moe_layout` relays an MoE expert leaf between model-axis
 sizes on the host, as the reference's does (its known fault with
-``w_down`` at E < M included: ROADMAP C5).
+``w_down`` at E < M included: ROADMAP C5). :func:`restore_checkpoint`
+given ``moe_experts`` relays every stacked expert leaf written at another
+model-axis size to the restoring mesh's: a reshape where the experts
+divide over both sizes; where either size exceeds the expert count,
+``w_down`` comes back with C5's layout, as the reference's would.
 
 Not ported: the reference's fault-injection hooks (ROADMAP A13).
 """
@@ -301,15 +305,33 @@ def verify_checkpoint(directory: str, step: int) -> list[str]:
     return bad
 
 
+def _relay_moe(name: str, arr: np.ndarray, new_m: int,
+               num_experts: int) -> np.ndarray:
+    """A stacked expert leaf ``(L, M, E_loc, ., .)`` (``.../ffn/w_gate``,
+    ``w_up``, ``w_down``) relaid layer by layer from its written model-axis
+    size to ``new_m`` (:func:`reshape_moe_layout`); any other leaf, or one
+    written at ``new_m``, as it is."""
+    if arr.ndim != 5 or arr.shape[1] == new_m or not name.endswith(
+            ("ffn/w_gate", "ffn/w_up", "ffn/w_down")):
+        return arr
+    return np.stack([reshape_moe_layout(a, arr.shape[1], new_m,
+                                        num_experts) for a in arr])
+
+
 def restore_checkpoint(directory: str, step: int, like: Any, mesh=None,
-                       specs: Any | None = None) -> Any:
+                       specs: Any | None = None,
+                       moe_experts: int | None = None) -> Any:
     """Restore step ``step`` into the structure of ``like`` (a tree of
     tensors), each leaf on the device of ``like``'s leaf at the same path.
     Leaves are matched by path name, never by order; every one is
     re-checksummed. With ``mesh`` each leaf is this rank's slice under its
     spec re-resolved against ``mesh``: from ``specs`` when given, else the
     writer's specs from the index (matched by path; axes the mesh lacks
-    dropped; a leaf without one whole)."""
+    dropped; a leaf without one whole). ``moe_experts`` (an MoE LM's
+    expert count): the expert leaves written at another model-axis size
+    are relaid to ``mesh``'s (1 without a mesh) first (the module
+    docstring says where that inherits ROADMAP C5)."""
+    new_m = mesh.shape.get("model", 1) if mesh is not None else 1
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "index.json")) as f:
         index = json.load(f)
@@ -328,6 +350,8 @@ def restore_checkpoint(directory: str, step: int, like: Any, mesh=None,
             raise CheckpointCorruptError(
                 step, f"leaf {name!r} CRC mismatch (stored {crc}, "
                       f"loaded {_crc32(arr)})")
+        if moe_experts is not None:
+            arr = _relay_moe(name, arr, new_m, moe_experts)
         t = _to_tensor(arr, meta.get("dtype", ""), leaf.device)
         if mesh is not None:
             from repro_torch.launch.mesh import local_shard, resolve_spec
@@ -338,7 +362,9 @@ def restore_checkpoint(directory: str, step: int, like: Any, mesh=None,
 
 
 def restore_latest_good(directory: str, like: Any, mesh=None,
-                        specs: Any | None = None) -> tuple[int | None, Any]:
+                        specs: Any | None = None,
+                        moe_experts: int | None = None
+                        ) -> tuple[int | None, Any]:
     """Restore the newest retained step that passes its integrity checks.
 
     Walks retained steps newest first; a step that fails (CRC mismatch,
@@ -346,8 +372,8 @@ def restore_latest_good(directory: str, like: Any, mesh=None,
     and the previous retained step is tried. Also sweeps dead ``*.tmp``
     directories of crashed writers (safe here: a restore implies no save is
     in flight). Returns ``(step, tree)``, or ``(None, None)`` when no
-    restorable checkpoint exists. ``mesh`` and ``specs`` as in
-    :func:`restore_checkpoint`.
+    restorable checkpoint exists. ``mesh``, ``specs`` and ``moe_experts``
+    as in :func:`restore_checkpoint`.
     """
     if os.path.isdir(directory):
         for d in os.listdir(directory):
@@ -356,7 +382,7 @@ def restore_latest_good(directory: str, like: Any, mesh=None,
     for step in reversed(retained_steps(directory)):
         try:
             return step, restore_checkpoint(directory, step, like, mesh,
-                                            specs)
+                                            specs, moe_experts)
         except (CheckpointCorruptError, OSError, ValueError, KeyError) as e:
             warnings.warn(
                 f"checkpoint step {step} in {directory} failed to restore "

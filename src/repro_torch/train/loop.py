@@ -38,7 +38,9 @@ leaf replicated over "model" gets the same gradient on every model rank
 there. One non-finite flag, all-reduced with MAX over the world, makes
 every rank skip a step together. At a world of 1 the step is the
 mesh-less step bit for bit. On a model axis the Spikingformer and the
-dense LM family are ported; the other families raise (ROADMAP A11c-2).
+dense, moe (without MLA) and vlm LMs are ported, the MoE's layout bound
+to the axis (``launch.specs.bind_model_axis``); MLA and the other
+families raise (ROADMAP A11c-2b).
 """
 from __future__ import annotations
 
@@ -81,10 +83,10 @@ def _any_rank_nonfinite(finite, mesh):
 
 
 def check_model_axis(cfg, mesh) -> None:
-    """Raises where ``cfg`` cannot be split over ``mesh``'s model axis: a
-    family other than the Spikingformer and the dense LMs, an MoE with
-    ``model_shards`` > 1 (ROADMAP A11c-2), or a Spikingformer whose heads,
-    d_model or d_ff the axis does not divide."""
+    """Raises where ``cfg`` cannot be split over ``mesh``'s model axis:
+    MLA, the rwkv, hybrid and audio families (ROADMAP A11c-2b), an LM
+    whose vocabulary, SwiGLU width or experts the axis does not divide,
+    or a Spikingformer whose heads, d_model or d_ff it does not divide."""
     m = mesh.shape.get("model", 1)
     if m == 1:
         return
@@ -248,9 +250,10 @@ def make_train_step(cfg, opt_cfg: OptimizerConfig, microbatches: int = 1, *,
     ``mesh``: the ZeRO-3 data-parallel step of the module docstring, on the
     rank's rows of the batch (``train.data.place_batch``); ``specs`` the
     parameters' spec tree (default: the plan of ``launch.specs`` for
-    ``cfg`` on ``mesh``). A family whose model axis is not ported raises
+    ``cfg`` on ``mesh``); an MoE's ``model_shards`` is bound to the
+    mesh's model axis. A family whose model axis is not ported raises
     ``NotImplementedError`` on a model axis of more than 1 (ROADMAP
-    A11c-2).
+    A11c-2b).
     """
     family = getattr(cfg, "family", None)
     if family is None:
@@ -264,6 +267,9 @@ def make_train_step(cfg, opt_cfg: OptimizerConfig, microbatches: int = 1, *,
             "microbatch accumulation is not supported on the vision path "
             "(BatchNorm statistics are per-global-batch); use time_chunk "
             "for activation-memory relief instead")
+    if mesh is not None:
+        from repro_torch.launch.specs import bind_model_axis
+        cfg = bind_model_axis(cfg, mesh)
     dp = DataParallel(cfg, mesh, specs) if mesh is not None else None
     if family == "vision":
         return _make_vision_train_step(cfg, opt_cfg, guard_nonfinite, dp)

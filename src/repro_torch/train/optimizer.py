@@ -81,8 +81,8 @@ def init_opt_specs(param_specs: Any) -> dict[str, Any]:
 
 def _sharded(spec, mesh) -> bool:
     """Whether a leaf with ``spec`` is split over the mesh's batch axes."""
-    from repro_torch.launch.mesh import batch_dim
-    return batch_dim(spec, mesh) is not None
+    from repro_torch.launch.mesh import batch_groups
+    return batch_groups(spec, mesh)[0] is not None
 
 
 def _model_sharded(spec, mesh) -> bool:
@@ -104,16 +104,22 @@ def global_norm(tree: Any, mesh=None, specs: list | None = None
                 ) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, added in leaf order. With
     ``mesh``, ``tree`` holds shards whose specs (in leaf order) are
-    ``specs``: each leaf's sum of squares is added over the batch group
-    where it is split over the batch axes, then over the model group where
+    ``specs``: each leaf's sum of squares is added over the batch axes it
+    is split over (one all-reduce a group of them), then over the model
+    group where
     it is split over "model" (one all-reduce of a vector of them each), a
     replicated leaf's is taken as it is, so at a world of 1 the norm is
     the one-device norm bit for bit."""
     sq = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
     if mesh is not None and sq:
+        from repro_torch.launch.mesh import batch_groups
         v = torch.stack(sq)
-        v = _sum_where(v, torch.tensor([_sharded(s, mesh) for s in specs],
-                                       device=v.device), mesh.batch_group)
+        # over the batch axes each leaf is split over (a leaf split over
+        # "data" alone is replicated over "pod": counted once)
+        splits = [batch_groups(s, mesh)[1] for s in specs]
+        for group in {id(g): g for g in splits if g is not None}.values():
+            v = _sum_where(v, torch.tensor([g is group for g in splits],
+                                           device=v.device), group)
         if getattr(mesh, "model_group", None) is not None:
             v = _sum_where(v, torch.tensor(
                 [_model_sharded(s, mesh) for s in specs], device=v.device),

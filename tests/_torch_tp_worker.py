@@ -16,7 +16,7 @@ from _torch_dist_worker import FSDP_MIN
 from repro_torch.configs import get_spikingformer_config
 from repro_torch.convert import from_jax, lm_from_jax
 from repro_torch.core.policy import named_policy
-from repro_torch.core.spikingformer import tree_leaves, tree_paths
+from repro_torch.core.spikingformer import tree_leaves, tree_map, tree_paths
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.specs import (cache_structs, lm_specs, param_structs,
                                       spikingformer_structs)
@@ -105,30 +105,28 @@ def serving_specs(cfg, mesh):
     return mesh_mod.sanitize_specs(p_specs, p_struct, mesh)
 
 
-def job_decode(mesh, inp):
-    """``inp["decode_steps"]`` decode steps of two slots from a zero cache
-    holding the rank's kv heads: every step's logits, and the cache
-    gathered whole at the end."""
+def decode_case(inp) -> dict:
+    """``inp``'s reduced LM as a decode case of :func:`job_decode_key`:
+    ``inp["decode_tokens"]`` from a cache of 16 positions."""
+    return {"cfg": inp["lm_cfg"], "params": inp["lm_params"], "max_seq": 16,
+            "tokens": inp["decode_tokens"]}
+
+
+def mesh_less_decode(case) -> tuple[list, dict]:
+    """A decode case's steps on one device: every step's logits (numpy)
+    and the final cache."""
     from repro_torch.models.lm import init_cache, lm_decode_step
-    cfg = inp["lm_cfg"]
-    params = shard(lm_from_jax(inp["lm_params"], device="cpu"),
-                   serving_specs(cfg, mesh), mesh)
-    cache = init_cache(cfg, 2, 16, torch.float32, "cpu")
-    m = mesh.shape["model"]
-    c_specs = mesh_mod.sanitize_specs(
-        cache_structs(cfg, 2, 16, ("data",), model=m,
-                      lif_replicated=True)[1], cache, mesh)
-    cache = shard(cache, c_specs, mesh)
-    heads = [x.shape[3] for x in tree_leaves(cache) if x.ndim == 5]
+    cfg = case["cfg"]
+    params = lm_from_jax(case["params"], device="cpu")
+    cache = init_cache(cfg, 2, case["max_seq"], torch.float32, "cpu")
     logits = []
-    with mesh_mod.use_mesh(mesh), torch.no_grad():
-        for i, tok in enumerate(inp["decode_tokens"]):
+    with torch.no_grad():
+        for i, tok in enumerate(case["tokens"]):
             out, cache = lm_decode_step(
                 params, cache, torch.from_numpy(tok),
                 torch.full((2,), i, dtype=torch.int32), cfg)
-            logits.append(out.numpy().copy())
-    return {"logits": logits, "cache": whole(cache, c_specs, mesh),
-            "local_heads": heads}
+            logits.append(out.numpy())
+    return logits, cache
 
 
 def _replicated_equal(tree, specs, mesh) -> list[str]:
@@ -261,21 +259,23 @@ def job_one_by_one(mesh, inp):
     return out
 
 
-def job_refuse_seq(mesh, inp):
-    """Decode of the reduced LM (2 kv heads) on a model axis of 4: the
-    reference's seq-sharded cache scheme, which must raise."""
-    from repro_torch.models.lm import init_cache, lm_decode_step
-    cfg = inp["lm_cfg"]
-    params = shard(lm_from_jax(inp["lm_params"], device="cpu"),
-                   serving_specs(cfg, mesh), mesh)
-    cache = init_cache(cfg, 2, 16, torch.float32, "cpu")
-    try:
-        with mesh_mod.use_mesh(mesh), torch.no_grad():
-            lm_decode_step(params, cache, torch.zeros((2, 1), dtype=torch.int32),
-                           torch.zeros((2,), dtype=torch.int32), cfg)
-    except NotImplementedError as e:
-        return {"raised": str(e)}
-    return {"raised": None}
+def job_moe_shards(mesh, inp):
+    """``moe_apply`` of reduced ``mixtral-8x7b``'s layer (capacity factor
+    8) with ``model_shards`` bound to the mesh's model axis, its experts
+    relaid from one shard: y and aux."""
+    from repro_torch.models.moe import moe_apply
+    case = inp["moe_shards"]
+    cfg = case["cfg"].with_model_shards(mesh.shape["model"]).moe
+    flat = relay_experts({f"ffn/{k}": v[None] for k, v in
+                          case["params"].items() if v.ndim == 4}, 1,
+                         cfg.model_shards, cfg.num_experts)
+    spec = mesh_mod.P("model", None, None, None)
+    loc = {k: torch.from_numpy(v) for k, v in case["params"].items()}
+    loc.update({k.split("/")[1]: mesh_mod.local_shard(
+        torch.from_numpy(v[0]), spec, mesh) for k, v in flat.items()})
+    with mesh_mod.use_mesh(mesh), torch.no_grad():
+        y, aux = moe_apply(loc, torch.from_numpy(case["x"]), cfg)
+    return {"y": y.numpy().copy(), "aux": float(aux)}
 
 
 def job_refuse_fused_row(mesh, inp, out):
@@ -296,7 +296,249 @@ def job_refuse_fused_row(mesh, inp, out):
     return {"raised": None}
 
 
+# ---------------------------------------------------------------------------
+# The second half of the model axis: the attention's "seq" and "none"
+# schemes, the decode's flash-decode and head_dim modes, the VLM, the MoE
+# ---------------------------------------------------------------------------
+
+def relay_experts(tree: dict, old_m: int, new_m: int, num_experts: int
+                  ) -> dict:
+    """A whole LM tree, by path (numpy; ``.`` or ``/`` between the keys),
+    with its stacked expert leaves relaid from ``old_m`` to ``new_m``
+    model shards (``models.moe.relayout``: ``w_down`` along F)."""
+    from repro_torch.models.moe import relayout
+    out = {}
+    for p, x in tree.items():
+        x = np.asarray(x)
+        if p.replace(".", "/").endswith(
+                ("ffn/w_gate", "ffn/w_up", "ffn/w_down")) and x.ndim == 5:
+            assert x.shape[1] == old_m
+            x = relayout(torch.from_numpy(np.array(x)), new_m, num_experts,
+                         -2 if p.endswith("w_down") else -1).numpy().copy()
+        out[p] = x
+    return out
+
+
+def _by_path(tree) -> dict:
+    return {p: x.numpy() if isinstance(x, torch.Tensor) else x
+            for p, x in zip(tree_paths(tree), tree_leaves(tree))}
+
+
+def mesh_params(inp, key: str, mesh):
+    """(cfg bound to the mesh's model axis, the LM's parameters whole on
+    the CPU, relaid to it): ``inp[key]``'s config and the reference's
+    parameters converted (an MoE's written at one model shard)."""
+    from repro_torch.launch.specs import bind_model_axis
+    cfg = bind_model_axis(inp[key]["cfg"], mesh)
+    params = lm_from_jax(inp[key]["params"], device="cpu")
+    if cfg.moe is not None and cfg.moe.model_shards > 1:
+        flat = relay_experts(_by_path(params), 1, cfg.moe.model_shards,
+                             cfg.moe.num_experts)
+        params = _tree_like(params, flat)
+    return cfg, params
+
+
+def job_attn_layer(mesh, inp):
+    """Each case of ``inp["attn"]``: the attention layer (``attention``,
+    or ``flash_attention`` at ``kv_chunk``) on the mesh, its leaves stored
+    under the plan's specs: the output, the gradients of ``(y * cot).sum()``
+    for every leaf (gathered whole) and for x, and the scheme taken."""
+    from repro_torch.launch.specs import META
+    from repro_torch.models import attention as A
+    from repro_torch.models.common import split_tree
+    out = {}
+    for name, case in inp["attn"].items():
+        cfg = case["cfg"]
+        whole_p = tree_map(torch.from_numpy, case["params"])
+        specs = mesh_mod.sanitize_specs(split_tree(A.init_attention(
+            None, cfg, device=META))[1], whole_p, mesh)
+        loc = mesh_mod.map_specs(lambda s, v: mesh_mod.local_shard(
+            v, s, mesh).requires_grad_(), specs, whole_p)
+        x = torch.from_numpy(case["x"]).requires_grad_()
+        with mesh_mod.use_mesh(mesh):
+            scheme = A.attn_scheme(cfg, x.shape[1])
+            if case.get("kv_chunk"):
+                y = A.flash_attention(loc, x, cfg, kv_chunk=case["kv_chunk"])
+            else:
+                y = A.attention(loc, x, cfg)
+            (y * torch.from_numpy(case["cot"])).sum().backward()
+        out[name] = {"y": y.detach().numpy().copy(), "scheme": scheme,
+                     "dx": x.grad.numpy().copy(),
+                     "grads": mesh_mod.map_specs(
+                         lambda s, v: mesh_mod.gather_full(
+                             v.grad, s, mesh).numpy().copy(), specs, loc)}
+    return out
+
+
+def job_lm_loss(mesh, inp, key: str, aux_weight: float | None = None):
+    """``lm_loss`` of ``inp[key]``'s LM and batch on the mesh, the leaves
+    stored under the training plan, through the train step's
+    ``lm_grads`` and ``DataParallel``: the loss, its metrics and every
+    gradient leaf gathered whole (an MoE's relaid back to one model
+    shard). ``aux_weight`` (a (1, M) mesh only) overrides the MoE aux
+    loss's weight, calling ``lm_loss`` itself."""
+    import functools
+    from repro_torch.core.spikingformer import value_and_grad
+    from repro_torch.models.lm import lm_loss
+    cfg, params = mesh_params(inp, key, mesh)
+    specs = lm_specs(cfg, mesh, FSDP_MIN)[1]
+    loc = shard(params, specs, mesh)
+    batch = place_batch(inp[key]["batch"], mesh)
+    if aux_weight is None:      # the train step's: through DataParallel
+        loss, metrics, grads = lm_grads(cfg, loc, batch,
+                                        dp=DataParallel(cfg, mesh, specs))
+    else:
+        with mesh_mod.use_mesh(mesh):
+            (loss, metrics), grads = value_and_grad(
+                functools.partial(lm_loss, aux_weight=aux_weight), loc,
+                batch, cfg)
+    g = whole(grads, specs, mesh)
+    if cfg.moe is not None and cfg.moe.model_shards > 1:
+        g = relay_experts(g, cfg.moe.model_shards, 1, cfg.moe.num_experts)
+    return {"loss": float(loss),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": g}
+
+
+def job_decode_key(mesh, inp, key: str):
+    """``inp[key]["steps"]`` decode steps of two slots of ``inp[key]``'s
+    LM from a zero cache of ``max_seq`` positions laid out as
+    ``cache_structs`` lays it out for the mesh's model axis (the rank's kv
+    heads, positions or columns): every step's logits, the local cache's
+    shape and the cache gathered whole."""
+    from repro_torch.launch.specs import bind_model_axis
+    from repro_torch.models.attention import decode_mode
+    from repro_torch.models.lm import init_cache, lm_decode_step
+    case = inp[key]
+    cfg, params = mesh_params(inp, key, mesh)
+    params = shard(params, serving_specs(cfg, mesh), mesh)
+    cache = init_cache(cfg, 2, case["max_seq"], torch.float32, "cpu")
+    c_specs = mesh_mod.sanitize_specs(
+        cache_structs(bind_model_axis(cfg, mesh), 2, case["max_seq"],
+                      ("data",), model=mesh.shape["model"],
+                      lif_replicated=True)[1], cache, mesh)
+    cache = shard(cache, c_specs, mesh)
+    k0 = cache["kv"]["k"] if cfg.lif is not None else cache["k"]
+    logits = []
+    with mesh_mod.use_mesh(mesh), torch.no_grad():
+        mode = decode_mode(cfg.attn, k0[0])
+        for i, tok in enumerate(case["tokens"]):
+            out, cache = lm_decode_step(
+                params, cache, torch.from_numpy(tok),
+                torch.full((2,), i, dtype=torch.int32), cfg)
+            logits.append(out.numpy().copy())
+    return {"logits": logits, "mode": mode, "local_k": tuple(k0.shape),
+            "cache": whole(cache, c_specs, mesh)}
+
+
+def job_moe_layer(mesh, inp):
+    """``moe_apply`` of ``inp["moe_layer"]`` (capacity factor 1.25, its
+    experts relaid to the mesh's model axis) on the mesh: y and aux."""
+    from repro_torch.models.moe import MoEConfig, moe_apply
+    case = inp["moe_layer"]
+    m = mesh.shape["model"]
+    cfg = MoEConfig(**{**case["cfg"], "model_shards": m})
+    flat = relay_experts({f"ffn/{k}": v[None] for k, v in
+                          case["params"].items()}, 1, m, cfg.num_experts)
+    full = {k.split("/")[1]: torch.from_numpy(v[0]) for k, v in flat.items()}
+    spec = mesh_mod.P("model", None, None, None)
+    loc = {k: (mesh_mod.local_shard(v, spec, mesh) if v.ndim == 4 else v)
+           for k, v in full.items()}
+    with mesh_mod.use_mesh(mesh), torch.no_grad():
+        y, aux = moe_apply(loc, torch.from_numpy(case["x"]), cfg)
+    return {"y": y.numpy().copy(), "aux": float(aux)}
+
+
+def job_moe_adamw(mesh, inp, key: str):
+    """Two donated train steps of ``inp[key]``'s LM on ``inp[key]
+    ["batches"]`` through ``make_train_step(mesh=)``: the losses and the
+    parameters whole (an MoE's relaid back to one model shard)."""
+    cfg, params = mesh_params(inp, key, mesh)
+    specs = lm_specs(cfg, mesh, FSDP_MIN)[1]
+    shards = shard(params, specs, mesh)
+    opt = init_opt_state(shards)
+    step = make_train_step(cfg, inp["opt_cfg"], mesh=mesh, specs=specs,
+                           donate=True)
+    losses = []
+    for batch in inp[key]["batches"]:
+        shards, opt, m = step(shards, opt, place_batch(batch, mesh))
+        losses.append(float(m["loss"]))
+    out = whole(shards, specs, mesh)
+    if cfg.moe is not None and cfg.moe.model_shards > 1:
+        out = relay_experts(out, cfg.moe.model_shards, 1,
+                            cfg.moe.num_experts)
+    return {"losses": losses, "params": out}
+
+
+def job_pod_adamw(inp):
+    """Two donated train steps of ``inp["pod"]``'s LM on a (pod 2, data 2,
+    model 1) mesh over the world of 4, whose plan splits the large leaves
+    over "data" alone (replicated over "pod", the reference's plan): the
+    losses, the parameters whole and which leaves are split over "data"
+    only."""
+    m = mesh_mod.Mesh((2, 2, 1), ("pod", "data", "model"),
+                      torch.device("cpu"))
+    out = job_moe_adamw(m, inp, "pod")
+    specs = lm_specs(inp["pod"]["cfg"], m, FSDP_MIN)[1]
+    params = lm_from_jax(inp["pod"]["params"], device="cpu")
+    out["data_only"] = [p for p, s in zip(tree_paths(params),
+                                          mesh_mod.spec_list(specs, params))
+                        if mesh_mod.batch_groups(s, m)[2] is not None]
+    return out
+
+
+def job_moe_ckpt(mesh, inp, out, write: bool):
+    """``write``: the MoE LM's parameters, stored under the mesh's plan,
+    checkpointed whole (at the mesh's model axis); else restored from
+    that checkpoint onto this mesh (``moe_experts``: relaid). Either way
+    the cross entropy of ``inp["mix"]``'s batch on the mesh and the
+    leaves whole, relaid to one model shard."""
+    from repro_torch.models.lm import lm_loss
+    cfg, params = mesh_params(inp, "mix", mesh)
+    specs = lm_specs(cfg, mesh, FSDP_MIN)[1]
+    loc = shard(params, specs, mesh)
+    d = os.path.join(out, "moe_ckpt")
+    if write:
+        ckpt.save_checkpoint(d, 3, loc, specs, mesh=mesh)
+    else:
+        like = mesh_mod.map_specs(lambda s, x: torch.zeros_like(x), specs,
+                                  loc)
+        loc = ckpt.restore_checkpoint(d, 3, like, mesh, specs,
+                                      moe_experts=cfg.moe.num_experts)
+    batch = place_batch(inp["mix"]["batch"], mesh)
+    with mesh_mod.use_mesh(mesh), torch.no_grad():
+        _, metrics = lm_loss(loc, batch, cfg)
+    return {"loss": float(metrics["loss"]), "model": mesh.shape["model"],
+            "params": relay_experts(whole(loc, specs, mesh),
+                                    cfg.moe.model_shards, 1,
+                                    cfg.moe.num_experts)}
+
+
 JOBS = {
+    "attn_layer": lambda mesh, inp, out: job_attn_layer(mesh, inp),
+    "lm_seq6": lambda mesh, inp, out: job_lm_loss(mesh, inp, "seq6"),
+    "lm_seq3": lambda mesh, inp, out: job_lm_loss(mesh, inp, "seq3"),
+    "lm_none3": lambda mesh, inp, out: job_lm_loss(mesh, inp, "none3"),
+    "lm_vlm": lambda mesh, inp, out: job_lm_loss(mesh, inp, "vlm"),
+    "decode_seq": lambda mesh, inp, out: job_decode_key(mesh, inp, "dseq"),
+    "decode_window": lambda mesh, inp, out: job_decode_key(mesh, inp,
+                                                           "dwin"),
+    "decode_head_dim": lambda mesh, inp, out: job_decode_key(mesh, inp,
+                                                             "dhd"),
+    "moe_loss": lambda mesh, inp, out: job_lm_loss(mesh, inp, "mix"),
+    "moe_loss_no_aux": lambda mesh, inp, out: job_lm_loss(mesh, inp, "mix",
+                                                          0.0),
+    "moe2_loss": lambda mesh, inp, out: job_lm_loss(mesh, inp, "mix2"),
+    "moe2_loss_no_aux": lambda mesh, inp, out: job_lm_loss(mesh, inp,
+                                                           "mix2", 0.0),
+    "moe_layer": lambda mesh, inp, out: job_moe_layer(mesh, inp),
+    "moe_decode": lambda mesh, inp, out: job_decode_key(mesh, inp, "mixd"),
+    "moe_adamw": lambda mesh, inp, out: job_moe_adamw(mesh, inp, "mix"),
+    "pod_adamw": lambda mesh, inp, out: job_pod_adamw(inp),
+    "moe_ckpt_write": lambda mesh, inp, out: job_moe_ckpt(mesh, inp, out,
+                                                          True),
+    "moe_ckpt_restore": lambda mesh, inp, out: job_moe_ckpt(mesh, inp, out,
+                                                            False),
     "refuse_fused_row": job_refuse_fused_row,
     "vision_smoke_eager": lambda mesh, inp, out: job_vision(
         mesh, inp, "spikingformer-smoke", "eager"),
@@ -309,12 +551,13 @@ JOBS = {
     "vision_eval": lambda mesh, inp, out: job_vision_eval(
         mesh, inp, "spikingformer-smoke"),
     "lm_grads": lambda mesh, inp, out: job_lm_grads(mesh, inp),
-    "decode": lambda mesh, inp, out: job_decode(mesh, inp),
+    "decode": lambda mesh, inp, out: job_decode_key(
+        mesh, {"lm": decode_case(inp)}, "lm"),
     "adamw": lambda mesh, inp, out: job_adamw(mesh, inp),
     "ckpt_write": job_ckpt_write,
     "ckpt_restore": job_ckpt_restore,
     "one_by_one": lambda mesh, inp, out: job_one_by_one(mesh, inp),
-    "refuse_seq": lambda mesh, inp, out: job_refuse_seq(mesh, inp),
+    "moe_shards": lambda mesh, inp, out: job_moe_shards(mesh, inp),
 }
 
 

@@ -7,7 +7,8 @@ no launch), the live-bytes tracker, two reduced cells on a fake (data 4,
 model 1) mesh (collectives against the specs and against the same step
 run for real on the CPU, flops against ``FlopCounterMode`` of the real
 step, no process group left behind), the model-axis meshes refused, and
-the perf driver's pixtral variants on a model axis of 1."""
+the perf driver's pixtral variants on a model axis of 1; on ``pod16x16``
+an MoE cell's all-to-all and a flash-decode cell's collectives."""
 import dataclasses
 import os
 
@@ -416,12 +417,13 @@ def test_run_cell_writes_the_reference_keys(tmp_path, monkeypatch):
 
 
 def test_model_axis_meshes_raise_naming_a11c(tmp_path, capsys):
-    """The model-axis meshes give their shapes; a covered cell
-    (``deepseek-7b`` x ``decode_32k`` on ``pod16x16``: the "heads"
-    scheme, 32 kv heads over 16) runs on ``meta`` with the rank's heads
-    and the model group's collectives counted; a cell whose scheme is
-    A11c-2 (``qwen3-0.6b``'s 8 kv heads over 16: the seq-sharded cache) is
-    one row of the command line, counted apart, not raised."""
+    """The model-axis meshes give their shapes; a "heads" cell
+    (``deepseek-7b`` x ``decode_32k`` on ``pod16x16``: 32 kv heads over
+    16) runs on ``meta`` with the rank's heads and the model group's
+    collectives counted; a flash-decode cell (``qwen3-0.6b``'s 8 kv heads
+    over 16: the seq-sharded cache) is counted too; a cell whose family is
+    A11c-2b (``rwkv6-7b`` x ``decode_32k``) is one row of the command
+    line, counted apart, not raised."""
     assert dryrun.mesh_shape("pod16x16") == (("data", "model"), (16, 16))
     assert dryrun.mesh_shape("pod2x16x16") == (("pod", "data", "model"),
                                                (2, 16, 16))
@@ -437,11 +439,57 @@ def test_model_axis_meshes_raise_naming_a11c(tmp_path, capsys):
     assert r["bytes_per_device"]["output"] == 8 * 32768 * 2 * 128 * 2 * \
         30 * 2 + 8 * 102400 * 4
     assert not dist.is_initialized()
+    dryrun.main(["--arch", "rwkv6-7b", "--shape", "decode_32k",
+                 "--mesh", "pod16x16", "--out", str(tmp_path)])
     dryrun.main(["--arch", "qwen3-0.6b", "--shape", "decode_32k",
                  "--mesh", "pod16x16", "--out", str(tmp_path)])
     out = capsys.readouterr().out
-    assert "[A11c-2] qwen3-0.6b x decode_32k" in out
-    assert "0 ok, 1 A11c-2, 0 failed" in out
+    assert "[A11c-2b] rwkv6-7b x decode_32k" in out
+    assert "0 ok, 1 A11c-2b, 0 failed" in out
+    assert "[ok] qwen3-0.6b x decode_32k" in out
+    assert "1 ok, 0 A11c-2b, 0 failed" in out
+
+
+def test_moe_train_cell_on_pod16x16_runs_its_experts_by_all_to_all(
+        tmp_path):
+    """``mixtral-8x7b`` x ``train_4k`` on ``pod16x16``: 8 experts over 16
+    ranks, so two ranks share each expert's F columns (tp = 2, one expert
+    slice a rank), and each rank's 16 rows x 256 positions go to their
+    experts by all-to-all: the (16, 1 x capacity, 4096) bf16 buffer six
+    times a layer (dispatch and return, in the forward, its recompute and
+    the backward)."""
+    cfg = treg.get_config("mixtral-8x7b").with_model_shards(16)
+    assert (cfg.moe.tp, cfg.moe.e_loc) == (2, 1)
+    r = dryrun.dry_run_cell("mixtral-8x7b", "train_4k", "pod16x16",
+                            str(tmp_path))
+    assert r["fits"] is True
+    tokens = (256 // 16) * (4096 // 16)
+    buffer = 16 * cfg.moe.e_loc * cfg.moe.capacity(tokens) * 4096 * 2
+    assert cfg.remat
+    assert r["collective_bytes_per_device"]["all-to-all"] == \
+        6 * cfg.num_layers * buffer
+    assert not dist.is_initialized()
+
+
+def test_flash_decode_cell_on_pod16x16_never_gathers_the_cache(tmp_path):
+    """``qwen3-14b`` x ``decode_32k`` on ``pod16x16``: 8 kv heads over 16,
+    so the cache holds each rank's 2048 of the 32768 positions; the step
+    merges the softmax with small all-reduces and gathers only the
+    token's activations and the logits, never the cache (the reference's
+    107 GB a step) nor a weight."""
+    cfg = treg.get_config("qwen3-14b")
+    r = dryrun.dry_run_cell("qwen3-14b", "decode_32k", "pod16x16",
+                            str(tmp_path))
+    assert r["fits"] is True
+    rows, pos = 128 // 16, 32768 // 16
+    layer_cache = rows * pos * cfg.n_kv_heads * cfg.head_dim * 2 * 2
+    coll = r["collective_bytes_per_device"]
+    assert set(coll) == {"all-reduce", "all-gather"}
+    assert coll["all-gather"] < layer_cache / 2
+    assert coll["all-reduce"] < layer_cache / 4
+    assert r["bytes_per_device"]["output"] == \
+        cfg.num_layers * layer_cache + rows * cfg.vocab_size * 4
+    assert not dist.is_initialized()
 
 
 def test_spiking_lm_decode_on_pod16x16_keeps_the_lif_state_whole(

@@ -205,10 +205,12 @@ def test_local_bodies_match_reference(case, body):
 
 @pytest.mark.parametrize("case", ["ep-m2", "tp-m4"])
 def test_moe_apply_refuses_a_mesh_layout(case):
-    """``model_shards > 1`` needs the mesh's all-to-all: the port raises
-    naming ROADMAP A11 where the reference asserts without a mesh."""
+    """``model_shards > 1`` needs a model axis of that size (the mesh's
+    all-to-all): without a mesh the port raises where the reference
+    asserts (``model_shards`` must match the mesh's model axis)."""
     _, tp, x = _inputs(jmoe.MoEConfig(**LOCAL_CASES[case]))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(ValueError, match="model_shards=.* on a model axis "
+                                         "of 1"):
         tmoe.moe_apply(tp, _t(x), tmoe.MoEConfig(**LOCAL_CASES[case]))
 
 
