@@ -52,9 +52,10 @@ tensor parallel over "model", and the parts are instead:
   the branch spikes of rank 0's rows that differ from the mesh-less ones
   (an MoE's loss with its aux loss weighted out: the aux loss is the mean
   of the ranks', each over its own rows, as in the reference). Beside it,
-  rank 0's mesh-less gradient again with the terms of every row-parallel
-  sum (``wo``'s heads, a dense ``w_down``'s hidden features) in reverse
-  order (:func:`reverse_sums`: the same function, other roundings),
+  rank 0's mesh-less gradient again with the terms of every sum the
+  model axis splits (``wo``'s heads, a dense ``w_down``'s hidden
+  features, each family's own: :func:`sum_terms`) in reverse order
+  (:func:`reverse_sums`: the same function, other roundings),
   against the first: how far the order of those sums alone moves the
   loss, the gradients and the spikes on one card.
 * ``lm_decode`` (an MoE ``--lm-arch``, on the first M): 16 decode steps of
@@ -359,6 +360,12 @@ def tp_grads(cfg, mesh, rank, global_batch, steps, seed, device,
 #: (``mixtral-8x7b``: 1.45 G parameters a layer).
 LM_CHECK_LAYERS = 4
 MOE_CHECK_LAYERS = 2
+#: ... and MLA's (``deepseek-v2-236b``), and the other families'.
+MLA_CHECK_LAYERS = 1
+FAMILY_CHECK_LAYERS = 2
+#: The hybrid's SSD chunk on the card (ROADMAP C6: the published 128
+#: overflows the masked exp, and the gradient is not finite).
+HYBRID_CHUNK = 16
 #: The ``lm`` part's depth cut: a rank's estimated peak (the card's 80 GB
 #: less the CUDA context, NCCL's buffers and the allocator's slack), and
 #: the whole fp32 weights every rank draws before it keeps its slices.
@@ -378,24 +385,85 @@ SUM_TERM_DIMS = {("blocks", "attn", "wq"): 2, ("blocks", "attn", "wk"): 2,
                  ("blocks", "ffn", "w_down"): 1}
 
 
-def reverse_sums(tree, moe: bool = False):
-    """A dense LM's parameter (or gradient) tree with the heads and the
-    hidden features in reverse order (:data:`SUM_TERM_DIMS`): the same
-    function of the input (a kv head's q heads stay its own), whose
-    ``wo`` and ``w_down`` products add their terms in the other order;
-    with ``moe`` the attention's heads only (an expert's hidden features
-    are summed on one rank). Its own inverse."""
+def _attn_terms(prefix: tuple, stacked: bool = True) -> dict:
+    """An attention's heads (``wq`` / ``wk`` / ``wv`` / ``wo``) under
+    ``prefix``, its leaves stacked on a layer axis or not."""
+    o = int(stacked)
+    return {(*prefix, "wq"): 1 + o, (*prefix, "wk"): 1 + o,
+            (*prefix, "wv"): 1 + o, (*prefix, "wo"): o}
+
+
+def sum_terms(cfg) -> dict:
+    """The leaves of ``cfg``'s tree whose dims hold the terms of a sum the
+    model axis splits, by path: a dim (all of it) or ``(dim, first,
+    count)``, each reversed by :func:`reverse_sums`. Dense and MoE:
+    :data:`SUM_TERM_DIMS` (an MoE's attention only: an expert's hidden
+    features are summed on one rank); MLA its heads; RWKV every channel
+    of the time mix (each head's dk and dv too, so the state, ``ln_x``'s
+    statistics and ``w_out``'s rows sum in the other order) and the
+    channel mix's hidden features; Mamba2 its heads (``w_in``'s z, x and
+    dt blocks, the conv's x channels) beside the shared block's;
+    whisper's attentions' heads and its MLPs' hidden features."""
+    if cfg.family == "rwkv":
+        t, c = ("blocks", "time"), ("blocks", "chan")
+        return {**{(*t, w): 2 for w in ("w_r", "w_k", "w_v", "w_g",
+                                         "w_decay")},
+                (*t, "decay_bias"): 1, (*t, "u_bonus"): (1, 2),
+                (*t, "ln_x", "scale"): 1, (*t, "ln_x", "bias"): 1,
+                (*t, "w_out"): 1, (*c, "w_k"): 2, (*c, "w_v"): 1}
+    if cfg.family == "hybrid":
+        di, ds, h = cfg.ssm.d_inner, cfg.ssm.d_state, cfg.ssm.n_heads
+        m = ("blocks", "ssm")
+        return {(*m, "w_in"): ((2, 0, di), (2, di, di),
+                               (2, 2 * di + 2 * ds, h)),
+                (*m, "conv_w"): ((2, 0, di),), (*m, "conv_b"): ((1, 0, di),),
+                (*m, "a_log"): 1, (*m, "dt_bias"): 1, (*m, "d_skip"): 1,
+                (*m, "w_out"): 1, **_attn_terms(("shared", "attn"), False),
+                ("shared", "ffn", "w_gate"): 1, ("shared", "ffn", "w_up"): 1,
+                ("shared", "ffn", "w_down"): 0}
+    if cfg.family == "audio":
+        out = {}
+        for blk, attns in (("enc_blocks", ("attn",)),
+                           ("dec_blocks", ("self", "cross"))):
+            for a in attns:
+                out.update(_attn_terms((blk, a)))
+            out.update({(blk, "mlp", "w_in"): 2, (blk, "mlp", "b_in"): 1,
+                        (blk, "mlp", "w_out"): 1})
+        return out
+    if cfg.mla is not None:
+        return {("blocks", "attn", w): 2 for w in ("w_uq", "w_uk", "w_uv")} \
+            | {("blocks", "attn", "wo"): 1}
+    return {k: d for k, d in SUM_TERM_DIMS.items()
+            if cfg.moe is None or k[1] != "ffn"}
+
+
+def _flip(x, spec):
+    """``x`` with each part ``spec`` names reversed (:func:`sum_terms`)."""
+    if isinstance(spec, int):
+        return x.flip(spec)
+    if all(isinstance(d, int) for d in spec):
+        return x.flip(spec)
+    x = x.clone()
+    for dim, lo, n in spec:
+        part = x.narrow(dim, lo, n)
+        part.copy_(part.flip(dim))
+    return x
+
+
+def reverse_sums(tree, cfg):
+    """``cfg``'s parameter (or gradient) tree with the terms of every sum
+    the model axis splits in reverse order (:func:`sum_terms`): the same
+    function of the input (a kv head's q heads stay its own), whose sums
+    add their terms in the other order. Its own inverse."""
     def copy(t):
         return {k: copy(v) if isinstance(v, dict) else v
                 for k, v in t.items()}
     out = copy(tree)
-    for path, dim in SUM_TERM_DIMS.items():
-        if moe and path[1] == "ffn":
-            continue
+    for path, spec in sum_terms(cfg).items():
         node = out
         for k in path[:-1]:
             node = node[k]
-        node[path[-1]] = node[path[-1]].flip(dim)
+        node[path[-1]] = _flip(node[path[-1]], spec)
     return out
 
 
@@ -430,14 +498,29 @@ def grad_err(got: list, want) -> tuple[float, str]:
     against the gradient tree ``want``, over max(1, the leaf's scale), and
     that leaf's path."""
     from repro_torch.core.spikingformer import tree_leaves, tree_paths
-    errs = [float((a - w).abs().max() / max(1.0, float(w.abs().max())))
+    errs = [max_err(a, w) / max(1.0, float(w.max()), -float(w.min()))
             for a, w in zip(got, tree_leaves(want))]
     i = errs.index(max(errs))
     return errs[i], tree_paths(want)[i]
 
 
+#: Elements a piece of a leaf in :func:`max_err` and :func:`norm`: a
+#: whole leaf's fp64 copy or difference would not fit beside the
+#: gradients (``deepseek-v2-236b``'s routed experts are 2.4 G elements a
+#: layer).
+PIECE = 1 << 26
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b|, a piece at a time."""
+    return max((float((x - y).abs().max()) for x, y in zip(
+        a.reshape(-1).split(PIECE), b.reshape(-1).split(PIECE))),
+        default=0.0)
+
+
 def norm(leaves) -> float:
-    return float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in leaves)))
+    return math.sqrt(sum(float(torch.sum(x.double() ** 2)) for g in leaves
+                         for x in g.reshape(-1).split(PIECE)))
 
 
 @contextlib.contextmanager
@@ -461,6 +544,7 @@ def counting_drops(out: list):
 
 
 def lm_cfg(arch: str, reduced: bool):
+    import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.configs.registry import reduced as reduce_cfg
     from repro_torch.core.lif import LIFConfig
@@ -468,31 +552,99 @@ def lm_cfg(arch: str, reduced: bool):
     cfg = get_config(arch)
     if reduced:
         cfg = reduce_cfg(cfg)
+    if cfg.ssm is not None and not reduced:
+        # C6: the published chunk's masked exp overflows the gradient
+        cfg = cfg.replace(ssm=dataclasses.replace(cfg.ssm,
+                                                  chunk=HYBRID_CHUNK))
     return cfg.replace(dtype=torch.float32, remat=True, lif=LIFConfig(
         policy=named_policy("cuda-full")))
+
+
+def check_cut(lm):
+    """``lm`` at the depth of its ``lm_grads`` check (one card holds its
+    gradient there): ``LM_CHECK_LAYERS`` for the dense family,
+    ``MOE_CHECK_LAYERS`` for an MoE, ``MLA_CHECK_LAYERS`` for MLA's
+    (``deepseek-v2-236b``: 3.97 G parameters a layer), else
+    ``FAMILY_CHECK_LAYERS`` (the hybrid's as one group, the shared block
+    after them)."""
+    if lm.mla is not None:
+        return lm.replace(num_layers=MLA_CHECK_LAYERS)
+    if lm.moe is not None:
+        return lm.replace(num_layers=MOE_CHECK_LAYERS)
+    if lm.family in ("dense", "vlm"):
+        return lm.replace(num_layers=LM_CHECK_LAYERS)
+    if lm.family == "hybrid":
+        return lm.replace(num_layers=FAMILY_CHECK_LAYERS,
+                          hybrid_attn_every=FAMILY_CHECK_LAYERS)
+    if lm.family == "audio":
+        return lm.replace(num_layers=FAMILY_CHECK_LAYERS,
+                          encoder_layers=FAMILY_CHECK_LAYERS)
+    return lm.replace(num_layers=FAMILY_CHECK_LAYERS)
 
 
 def lm_check_cuts(lm) -> list:
     """The ``lm_grads`` cases of ``lm`` (see the module docstring):
     ``(config cut in depth, qk_scale)`` pairs."""
     import dataclasses
-    depth = LM_CHECK_LAYERS if lm.moe is None else MOE_CHECK_LAYERS
-    if lm.moe is None:
+    lm = check_cut(lm)
+    if lm.family == "audio":            # no LIF to take away
+        variants = (lm,)
+    elif lm.moe is None:
         variants = (lm, lm.replace(lif=None))
     else:
         variants = [lm.replace(moe=dataclasses.replace(
             lm.moe, capacity_factor=c))
             for c in (8.0, lm.moe.capacity_factor)]
-    return [(v.replace(num_layers=depth), qk) for qk in QK_SCALES
-            for v in variants]
+    return [(v, qk) for qk in QK_SCALES for v in variants]
 
 
 def scale_qk(params, qk_scale: float):
-    """``params`` (whole or a rank's slices) with ``wq`` and ``wk``
+    """``params`` (whole or a rank's slices) with every attention's query
+    and key projections (``wq`` / ``wk``, MLA's ``w_uq`` / ``w_uk``)
     multiplied by ``qk_scale`` in place."""
-    for k in ("wq", "wk"):
-        params["blocks"]["attn"][k].mul_(qk_scale)
+    for k, v in params.items():
+        if isinstance(v, dict):
+            scale_qk(v, qk_scale)
+        elif k in ("wq", "wk", "w_uq", "w_uk"):
+            v.mul_(qk_scale)
     return params
+
+
+def dense_attention(cfg) -> bool:
+    """Whether ``cfg`` is a GQA LM with a SwiGLU or MoE FFN (its reduced
+    arms are :func:`arms_check`'s, the others :func:`family_arms`)."""
+    return cfg.family in ("dense", "moe", "vlm") and cfg.mla is None
+
+
+def loss_of(cfg):
+    """The family's loss (an MoE's with its aux loss weighted out)."""
+    import functools
+    if cfg.family == "audio":
+        from repro_torch.models.encdec import encdec_loss
+        return encdec_loss
+    from repro_torch.models.lm import lm_loss
+    return functools.partial(lm_loss, aux_weight=0.0) \
+        if cfg.moe is not None else lm_loss
+
+
+def lm_weights(cfg, mesh, seed: int, device):
+    """``launch.train.build_state``'s weights of ``cfg`` from ``seed``
+    and their specs, without its AdamW moments (twice the weights, which
+    at a model axis of 1 would sit beside the gradients): on ``mesh`` the
+    rank's slices, the moments dropped as soon as they are made; without
+    one drawn whole on ``device`` as ``build_state`` draws them."""
+    from repro_torch.launch.train import build_state
+    from repro_torch.models.common import split_tree
+    if mesh is not None:
+        params, opt, specs = build_state(cfg, mesh, seed=seed)
+        del opt
+        return params, specs
+    if cfg.family == "audio":
+        from repro_torch.models.encdec import init_encdec as init
+    else:
+        from repro_torch.models.lm import init_lm as init
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return split_tree(init(gen, cfg, device))
 
 
 def lm_grads_check(cfg, mesh, rank, batch, seq, seed, device,
@@ -503,19 +655,17 @@ def lm_grads_check(cfg, mesh, rank, batch, seq, seed, device,
     sums reversed (``cfg`` cut in depth so that one card holds it; ``wq``
     and ``wk`` times ``qk_scale``). An MoE's experts are relaid to one
     shard for the comparison, its aux loss weighted out."""
-    import functools
     from repro_torch.core.spikingformer import (tree_leaves, tree_paths,
                                                 value_and_grad)
     from repro_torch.launch import mesh as mesh_mod
-    from repro_torch.launch.train import build_state, lm_step_batch
-    from repro_torch.models.lm import lm_loss
+    from repro_torch.launch.train import lm_step_batch
     from repro_torch.models.moe import relayout
     from repro_torch.train.data import DataConfig, SyntheticLM
     from repro_torch.train.loop import DataParallel
     layers = cfg.num_layers
     moe = cfg.moe is not None
-    loss_fn = functools.partial(lm_loss, aux_weight=0.0) if moe else lm_loss
-    params, _, specs = build_state(cfg, mesh, seed=seed)
+    loss_fn = loss_of(cfg)
+    params, specs = lm_weights(cfg, mesh, seed, device)
     scale_qk(params, qk_scale)
     host = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                   global_batch=batch, seed=seed)).batch(0)
@@ -545,8 +695,7 @@ def lm_grads_check(cfg, mesh, rank, batch, seq, seed, device,
         out.update(capacity_factor=cfg.moe.capacity_factor, aux_weight=0.0)
     dist.barrier()
     if rank == 0:
-        full = scale_qk(build_state(cfg, None, seed=seed, device=device)[0],
-                        qk_scale)
+        full = scale_qk(lm_weights(cfg, None, seed, device)[0], qk_scale)
         full_batch = lm_step_batch(cfg, host, device)
         with branch_spikes() as spikes1:
             (l1, m1), g1 = value_and_grad(loss_fn, full, full_batch, cfg)
@@ -558,19 +707,23 @@ def lm_grads_check(cfg, mesh, rank, batch, seq, seed, device,
                    grad_max_err=err, worst_leaf=leaf,
                    spikes_differing=spikes_differing(spikes[:layers],
                                                      spikes1[:layers]))
+    del whole           # its room goes to the reversed step's gradient
+    if rank == 0:
         with branch_spikes() as spikes2:
-            (_, m2), g2 = value_and_grad(loss_fn, reverse_sums(full, moe),
+            (_, m2), g2 = value_and_grad(loss_fn, reverse_sums(full, cfg),
                                          full_batch, cfg)
         l2 = m2["loss"]
-        err, leaf = grad_err(tree_leaves(reverse_sums(g2, moe)), g1)
+        err, leaf = grad_err(tree_leaves(reverse_sums(g2, cfg)), g1)
         out["sums_reversed"] = {
             "loss_abs_err": abs(float(l2) - float(l1)),
             "grad_norm": norm(tree_leaves(g2)), "grad_max_err": err,
             "worst_leaf": leaf,
             "spikes_differing": spikes_differing(spikes2[:layers],
                                                  spikes1[:layers])}
-        del full, g1, g2, spikes1, spikes2
-    del whole, spikes
+        del g2, spikes2
+    if rank == 0:
+        del full, g1, spikes1
+    del spikes
     dist.barrier()
     return out
 
@@ -579,48 +732,70 @@ def lm_decode_check(cfg, mesh, rank, seed, device, steps: int = 16,
                     max_seq: int = 64) -> dict:
     """``steps`` decode steps of two slots from a zero cache on the mesh
     (the cache laid out as ``launch.specs.cache_structs`` lays it out for
-    the mesh's model axis) against rank 0's mesh-less decode of the same
-    weights and tokens: each step's largest logit error and whether the
-    greedy tokens agree."""
+    the mesh's model axis; the encoder-decoder's from
+    ``init_encdec_cache`` of two rows of frames) against rank 0's
+    mesh-less decode of the same weights and tokens: each step's largest
+    logit error and whether the greedy tokens agree, and the mode (the
+    attention's, MLA's, or the rank's shapes of the recurrent states).
+    Whisper's query and key projections are scaled by ``QK_SCALES[-1]``
+    (C7: its attention at the published init is too sharp to compare)."""
+    from repro_torch.core.spikingformer import tree_leaves, tree_paths
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch.specs import bind_model_axis, cache_structs
-    from repro_torch.launch.train import build_state
-    from repro_torch.models.attention import decode_mode
-    from repro_torch.models.lm import init_cache, lm_decode_step
     mcfg = bind_model_axis(cfg, mesh)
-    params, _, specs = build_state(cfg, mesh, seed=seed)
+    params, specs = lm_weights(cfg, mesh, seed, device)
     # the serving plan's leaves: the training plan's gathered over "data"
     params = mesh_mod.map_specs(lambda s, x: mesh_mod.gather_leaf(
         x, s, mesh), specs, params)
-    cache = init_cache(mcfg, 2, max_seq, torch.float32, device)
-    c_specs = mesh_mod.sanitize_specs(cache_structs(
-        mcfg, 2, max_seq, (), model=mesh.shape["model"],
-        lif_replicated=True)[1], cache, mesh)
-    cache = mesh_mod.map_specs(lambda s, x: mesh_mod.local_shard(
-        x, s, mesh), c_specs, cache)
     gen = torch.Generator().manual_seed(seed + 9)
     toks = torch.randint(0, cfg.vocab_size, (steps, 2, 1), generator=gen)
+    frames = torch.randn((2, cfg.encoder_seq or 1, cfg.d_model),
+                         generator=gen).to(device)
+    audio = cfg.family == "audio"
+    qk = QK_SCALES[-1] if audio else 1.0   # C7: whisper's sharp init
+    scale_qk(params, qk)
+    if audio:
+        from repro_torch.models.encdec import (encdec_decode_step as step,
+                                               init_encdec_cache)
+    else:
+        from repro_torch.models.lm import init_cache
+        from repro_torch.models.lm import lm_decode_step as step
     logits = []
     with mesh_mod.use_mesh(mesh), torch.no_grad():
-        mode = decode_mode(mcfg.attn, cache["kv"]["k"][0]
-                           if cfg.lif is not None else cache["k"][0])
+        if audio:
+            cache = init_encdec_cache(params, frames, mcfg, 2, max_seq,
+                                      torch.float32)
+        else:
+            cache = init_cache(mcfg, 2, max_seq, torch.float32, device)
+            c_specs = mesh_mod.sanitize_specs(cache_structs(
+                mcfg, 2, max_seq, (), model=mesh.shape["model"],
+                lif_replicated=True)[1], cache, mesh)
+            cache = mesh_mod.map_specs(lambda s, x: mesh_mod.local_shard(
+                x, s, mesh), c_specs, cache)
+        mode = {p: list(x.shape) for p, x in zip(tree_paths(cache),
+                                                 tree_leaves(cache))
+                if not p.split(".")[-2:-1] == ["lif"]}
         for i in range(steps):
-            out, cache = lm_decode_step(
+            out, cache = step(
                 params, cache, toks[i].to(device),
                 torch.full((2,), i, dtype=torch.int32, device=device), mcfg)
             logits.append(out)
     del params, cache
     res = {"arch": cfg.name, "layers": cfg.num_layers,
            "mesh": dict(mesh.shape), "steps": steps, "cache": max_seq,
-           "mode": mode}
+           "qk_scale": qk, "mode": mode}
     dist.barrier()
     if rank == 0:
-        full = build_state(cfg, None, seed=seed, device=device)[0]
-        cache = init_cache(cfg, 2, max_seq, torch.float32, device)
+        full = scale_qk(lm_weights(cfg, None, seed, device)[0], qk)
+        if audio:
+            cache = init_encdec_cache(full, frames, cfg, 2, max_seq,
+                                      torch.float32)
+        else:
+            cache = init_cache(cfg, 2, max_seq, torch.float32, device)
         err, same = [], []
         with torch.no_grad():
             for i in range(steps):
-                want, cache = lm_decode_step(
+                want, cache = step(
                     full, cache, toks[i].to(device),
                     torch.full((2,), i, dtype=torch.int32, device=device),
                     cfg)
@@ -631,6 +806,54 @@ def lm_decode_check(cfg, mesh, rank, seed, device, steps: int = 16,
         del full, cache
     dist.barrier()
     return res
+
+
+def family_arms(lm, mesh, rank, seed, device) -> list[dict]:
+    """The layouts a model axis of M picks for ``lm``'s family at reduced
+    widths (MLA with M + 2 heads: "seq" at S = 8, and its latent cache on
+    its positions and on its features; RWKV's state on dk; Mamba2's
+    ``h`` on its head_dim columns, and on d_state where head_dim is 2;
+    whisper with M + 2 heads: "seq" and "none", and its cross memory on
+    head_dim), each against rank 0's mesh-less step and decode at
+    ``QK_SCALES[-1]``."""
+    import dataclasses
+    base = lm_cfg(lm.name, True)
+    m = mesh.shape["model"]
+    out = []
+    if lm.mla is not None:
+        h = m + 2
+        wide = base.replace(n_heads=h, mla=dataclasses.replace(
+            base.mla, n_heads=h))
+        out.append(("train seq", lm_grads_check(
+            wide, mesh, rank, 4, 8, seed, device, QK_SCALES[-1])))
+        for c in (16, 18):
+            out.append((f"decode latent cache {c}", lm_decode_check(
+                base, mesh, rank, seed, device, 12, c)))
+    elif lm.family == "rwkv":
+        out.append(("train heads", lm_grads_check(
+            base, mesh, rank, 4, 16, seed, device, QK_SCALES[-1])))
+        out.append(("decode dk", lm_decode_check(base, mesh, rank, seed,
+                                                 device, 12, 16)))
+    elif lm.family == "hybrid":
+        ds = base.replace(ssm=dataclasses.replace(base.ssm, head_dim=2))
+        out.append(("train heads", lm_grads_check(
+            base, mesh, rank, 4, 16, seed, device, QK_SCALES[-1])))
+        out.append(("decode head_dim", lm_decode_check(
+            base, mesh, rank, seed, device, 12, 16)))
+        out.append(("decode d_state", lm_decode_check(
+            ds, mesh, rank, seed, device, 12, 16)))
+    elif lm.family == "audio":
+        h = m + 2
+        wide = base.replace(n_heads=h, n_kv_heads=h)
+        for seq, frames in ((8, 32), (7, 30)):
+            out.append((f"train {seq} tokens, {frames} frames",
+                        lm_grads_check(wide.replace(encoder_seq=frames),
+                                       mesh, rank, 4, seq, seed, device,
+                                       QK_SCALES[-1])))
+        out.append(("decode cross memory on head_dim", lm_decode_check(
+            wide.replace(encoder_seq=30), mesh, rank, seed, device, 12,
+            16)))
+    return [{"arm": name, **row} for name, row in out]
 
 
 def arms_check(mesh, rank, seed, device) -> list[dict]:
@@ -679,7 +902,7 @@ def arms_check(mesh, rank, seed, device) -> list[dict]:
     for max_seq in (16, 18):
         row = lm_decode_check(base.replace(n_kv_heads=2), mesh, rank, seed,
                               device, steps=12, max_seq=max_seq)
-        out.append({"arm": f"decode {row.pop('mode')}", **row})
+        out.append({"arm": f"decode, cache {max_seq}", **row})
     return out
 
 
@@ -941,12 +1164,14 @@ def main_tp(args) -> None:
                                        args.lm_seq, args.seed, device, qk)})
                 if device.type == "cuda":
                     torch.cuda.empty_cache()
-            if lm.moe is not None:
+            if lm.moe is not None or not dense_attention(lm):
                 emit({"part": "lm_decode", "world": world,
-                      **lm_decode_check(lm.replace(
-                          num_layers=MOE_CHECK_LAYERS), first, rank,
-                          args.seed, device)})
-            for row in arms_check(first, rank, args.seed, device):
+                      **lm_decode_check(check_cut(lm), first, rank,
+                                        args.seed, device)})
+            arms = arms_check(first, rank, args.seed, device) \
+                if dense_attention(lm) else family_arms(lm, first, rank,
+                                                   args.seed, device)
+            for row in arms:
                 emit({"part": "arms", "world": world, **row})
             if device.type == "cuda":
                 torch.cuda.empty_cache()

@@ -96,7 +96,17 @@ nothing there). Then ``mesh_moe``: ``mixtral-8x7b`` + LIF (the
 (1, 1) mesh, whose MoE takes the expert-parallel code path with a model
 group of none, and 8 decode steps there, against the same without a
 mesh from the same seed: every loss, parameter leaf and logit
-bit-equal, the LIF launches per step. Then the tensor-parallel kernel cases (``tp``): every
+bit-equal, the LIF launches per step. Then ``mesh_families``: the rest of
+the model axis on the (1, 1) mesh against the mesh-less paths at
+published widths, cut in depth: ``deepseek-v2-236b`` + LIF (MLA, 2
+layers) a prefill of 8 x 64 tokens and 8 decode steps, and
+``rwkv6-7b`` + LIF (4 layers), ``zamba2-2.7b`` + LIF (one group of 6,
+SSD chunk 16) and whisper (4 + 4 layers) one train step and 8 decode
+steps each: logits, metrics and every parameter leaf bit-equal, the LIF
+launches of each path held. Each family has one code path for every mesh,
+so at a model axis of 1 its split arithmetic runs with its region ops as
+identities; the collectives of a larger axis run on cards only in
+``benchmarks/torch/bench_data_parallel.py`` on four. Then the tensor-parallel kernel cases (``tp``): every
 kernel of the training path at one rank's site shapes of
 ``spikingformer-8-512``, batch 16, on model axes of 2, 4 and 8 (the
 column-parallel neuron layers ``pssa.qkv`` and ``smlp.a`` at K / M output
@@ -2869,6 +2879,185 @@ def mesh_moe_equal(seed: int, mesh) -> dict:
     return out
 
 
+#: The rest of the model axis on the (1, 1) mesh (``mesh_families``): each
+#: family's model at published widths, cut in depth (MLA's to
+#: ``MOE_LAYERS``; the hybrid to one group, its SSD chunk the training
+#: phase's; whisper to 4 + 4 layers), and the decode steps.
+MESH_FAMILY_LAYERS = {MOE_ARCH: MOE_LAYERS, RWKV_ARCH: 4, HYBRID_ARCH: 6,
+                      "whisper-large-v3": 4}
+#: Each family's name in the phase's paths (``mesh_<name>_<path>``).
+MESH_FAMILY_NAMES = {MOE_ARCH: "mla", RWKV_ARCH: "rwkv",
+                     HYBRID_ARCH: "hybrid", "whisper-large-v3": "whisper"}
+MESH_FAMILY_DECODE_STEPS = 8
+MESH_FAMILY_PREFILL = (8, 64)          # MLA's prefill tokens (B, S)
+
+
+def mesh_family_config(arch: str):
+    """``arch`` at ``MESH_FAMILY_LAYERS`` (see there), the LIF under
+    ``cuda-full`` (whisper never reads it)."""
+    cfg = lm_config("cuda-full", arch).replace(
+        num_layers=MESH_FAMILY_LAYERS[arch])
+    if cfg.family == "audio":
+        cfg = cfg.replace(encoder_layers=cfg.num_layers)
+    if cfg.ssm is not None:
+        cfg = cfg.replace(ssm=dataclasses.replace(cfg.ssm,
+                                                  chunk=HYBRID_TRAIN_CHUNK))
+    return cfg
+
+
+def family_weights(cfg, seed: int):
+    """``build_state``'s weights of ``cfg`` from ``seed`` on the card,
+    without its optimizer state."""
+    from repro_torch.models.encdec import init_encdec
+    init = init_encdec if cfg.family == "audio" else init_lm
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return split_tree(init(gen, cfg, DEVICE))[0]
+
+
+def mesh_family_decode(params, cfg, mesh, seed: int) -> tuple[list, dict]:
+    """``MESH_FAMILY_DECODE_STEPS`` decode steps of 8 slots from a zero
+    cache (whisper's from ``init_encdec_cache`` of 8 rows of frames) on
+    ``mesh`` or without one: every step's logits and the launch counts of
+    the steps (the cache's making not counted)."""
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models.lm import init_cache, lm_decode_step
+    gen = torch.Generator().manual_seed(seed + 7)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (MESH_FAMILY_DECODE_STEPS, 8, 1), generator=gen)
+    audio = cfg.family == "audio"
+    with use_mesh(mesh) if mesh is not None else contextlib.nullcontext(), \
+            torch.inference_mode():
+        if audio:
+            frames = torch.randn((8, cfg.encoder_seq, cfg.d_model),
+                                 generator=gen).to(DEVICE)
+            cache = init_encdec_cache(params, frames, cfg, 8, 64,
+                                      torch.float32)
+        else:
+            cache = init_cache(cfg, 8, 64, torch.float32, DEVICE)
+        step = encdec_decode_step if audio else lm_decode_step
+        steps = []
+        torch.cuda.synchronize()
+        reset_launch_counts()                # the path starts here
+        for i in range(MESH_FAMILY_DECODE_STEPS):
+            lg, cache = step(params, cache, toks[i].to(DEVICE), torch.full(
+                (8,), i, dtype=torch.int32, device=DEVICE), cfg)
+            steps.append(lg)
+        torch.cuda.synchronize()
+        counts = launch_counts()             # ... and ends here
+    return steps, counts
+
+
+def mesh_family_step(cfg, mesh, seed: int) -> tuple[dict, list, dict]:
+    """One donated train step (``make_train_step``) of ``cfg`` from
+    ``seed``'s weights (whisper's query and key projections times 1/4,
+    C7) on the driver's first batch, on ``mesh`` or without one: the
+    metrics, the new parameter leaves and the step's launch counts."""
+    from repro_torch.launch.train import lm_step_batch
+    opt_cfg = OptimizerConfig()
+    params, opt, specs = build_state(cfg, mesh, seed=seed, device=DEVICE)
+    if cfg.family == "audio":
+        qk_scale_(params, 0.25)
+    host = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=LM_TRAIN_SEQ,
+                                  global_batch=LM_TRAIN_BATCH,
+                                  seed=seed)).batch(0)
+    batch = lm_step_batch(cfg, host, DEVICE, mesh)
+    step = make_train_step(cfg, opt_cfg, mesh=mesh,
+                           specs=specs if mesh is not None else None,
+                           donate=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()                    # the path starts here
+    params, opt, metrics = step(params, opt, batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()                 # ... and ends here
+    metrics = {k: float(v) for k, v in metrics.items()}
+    del opt, batch
+    return metrics, tree_leaves(params), counts
+
+
+def mesh_families_equal(seed: int, mesh) -> tuple[dict, dict]:
+    """The rest of the model axis on ``mesh`` (the (1, 1) mesh) against
+    the mesh-less run from the same weights. Each family has one code
+    path for every mesh: at a model axis of 1 its split arithmetic runs
+    with every rank's part the whole and every region op the identity,
+    so this holds the mesh's plumbing (the driver's plan, ZeRO-3 over
+    "data", the cache's layout) and the one path on the card; the
+    collectives of a model axis above 1 run on cards only in the
+    four-card bench (``benchmarks/torch/bench_data_parallel.py``): ``deepseek-v2-236b``
+    + LIF (MLA, ``MOE_LAYERS``) a prefill of ``MESH_FAMILY_PREFILL``
+    tokens and the decode steps; ``rwkv6-7b`` + LIF, ``zamba2-2.7b`` +
+    LIF and whisper one train step and the decode steps. Per family:
+    whether the logits, the metrics and every parameter leaf are
+    bit-equal, and the mesh runs' launch counts, by path."""
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models.lm import lm_prefill
+    out, counts = {}, {}
+    for arch in MESH_FAMILY_LAYERS:
+        cfg = mesh_family_config(arch)
+        key = MESH_FAMILY_NAMES[arch]
+        row = {"layers": cfg.num_layers}
+        t0 = time.perf_counter()
+        if arch == MOE_ARCH:
+            params = family_weights(cfg, seed)
+            toks = torch.randint(0, cfg.vocab_size, MESH_FAMILY_PREFILL,
+                                 generator=torch.Generator().manual_seed(
+                                     seed + 3)).to(DEVICE)
+            logits = {}
+            for name, m in (("mesh", mesh), ("no_mesh", None)):
+                with use_mesh(m) if m is not None else \
+                        contextlib.nullcontext(), torch.inference_mode():
+                    torch.cuda.synchronize()
+                    reset_launch_counts()    # the path starts here
+                    logits[name] = lm_prefill(params, {"tokens": toks}, cfg)
+                    torch.cuda.synchronize()
+                    if name == "mesh":
+                        counts[f"mesh_{key}_prefill"] = launch_counts()
+            row["prefill_bit_equal"] = torch.equal(logits["mesh"],
+                                                   logits["no_mesh"])
+            del logits
+        else:
+            runs = {name: mesh_family_step(cfg, m, seed)
+                    for name, m in (("mesh", mesh), ("no_mesh", None))}
+            row["metrics"] = {n: r[0] for n, r in runs.items()}
+            row["metrics_bit_equal"] = runs["mesh"][0] == runs["no_mesh"][0]
+            row["leaves"] = len(runs["mesh"][1])
+            row["leaves_differing"] = sum(
+                not torch.equal(a, b) for a, b in zip(runs["mesh"][1],
+                                                      runs["no_mesh"][1]))
+            counts[f"mesh_{key}_train"] = runs["mesh"][2]
+            del runs
+            torch.cuda.empty_cache()
+            params = family_weights(cfg, seed)
+            if cfg.family == "audio":
+                qk_scale_(params, 0.25)
+        dec = {name: mesh_family_decode(params, cfg, m, seed)
+               for name, m in (("mesh", mesh), ("no_mesh", None))}
+        row["decode_bit_equal"] = all(torch.equal(a, b) for a, b in zip(
+            dec["mesh"][0], dec["no_mesh"][0]))
+        counts[f"mesh_{key}_decode"] = dec["mesh"][1]
+        row["seconds"] = time.perf_counter() - t0
+        out[key] = row
+        del params, dec
+        torch.cuda.empty_cache()
+    return out, counts
+
+
+def mesh_family_expected(arch: str, path: str) -> dict[str, int]:
+    """The launches of a ``mesh_families`` path: the LIF's, once a layer
+    in a prefill or a decode step, twice in the train step's forward
+    (``remat``'s recompute) and once in its backward; none for whisper."""
+    cfg = mesh_family_config(arch)
+    layers = 0 if cfg.family == "audio" else cfg.num_layers
+    counts = {name: 0 for name in KERNELS}
+    if path == "train":
+        counts["lif_soma_fwd"] = (2 if cfg.remat else 1) * layers
+        counts["lif_soma_bwd"] = layers
+    else:
+        counts["lif_soma_fwd"] = layers * (
+            MESH_FAMILY_DECODE_STEPS if path == "decode" else 1)
+    return counts
+
+
 def mesh_train_phase(seed: int, batch: int, smi: str) -> tuple[dict, dict]:
     """Data parallelism through the driver on a world of 1 (one card, NCCL,
     a file store): the BN kernels' split path at the preset's shapes
@@ -2968,6 +3157,7 @@ def mesh_train_phase(seed: int, batch: int, smi: str) -> tuple[dict, dict]:
                  f"bits: {eq['losses']}, leaves differing "
                  f"{eq['leaves_differing']}")
         moe = mesh_moe_equal(seed, mesh)
+        moe_counts = {"train": moe["counts"], "decode": moe["decode_counts"]}
         emit("mesh_moe", mesh=dict(mesh.shape), card=smi,
              arch=f"{MESH_MOE_ARCH}@cuda-full",
              layers=TRAIN_LAYERS[MESH_MOE_ARCH],
@@ -2988,11 +3178,36 @@ def mesh_train_phase(seed: int, batch: int, smi: str) -> tuple[dict, dict]:
             fail(f"mesh_moe launch counts: train {moe['counts']} (want "
                  f"{want}), decode {moe['decode_counts']} (want "
                  f"{layers * MESH_MOE_DECODE_STEPS} lif_soma_fwd)")
+        del moe
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        fam, fam_counts = mesh_families_equal(seed, mesh)
+        emit("mesh_families", mesh=dict(mesh.shape), card=smi,
+             seconds=time.perf_counter() - t0, families=fam,
+             launches={p: {k: v for k, v in c.items() if v}
+                       for p, c in fam_counts.items()},
+             note="MLA, the recurrent heads and the encoder-decoder on a "
+                  "model axis of 1 against the mesh-less paths")
+        unequal = [f"{k} {f}" for k, row in fam.items() for f in (
+            "prefill_bit_equal", "metrics_bit_equal", "decode_bit_equal")
+            if row.get(f) is False] + \
+            [f"{k} leaves" for k, row in fam.items()
+             if row.get("leaves_differing")]
+        if unequal:
+            fail(f"mesh_families: not the mesh-less bits: {unequal}")
+        arch_of = {v: k for k, v in MESH_FAMILY_NAMES.items()}
+        for path, got in fam_counts.items():
+            _, key, kind = path.split("_", 2)
+            want = mesh_family_expected(arch_of[key], kind)
+            if got != want:
+                fail(f"mesh_families launch counts on {path}: {got} "
+                     f"(want {want})")
         return {"mesh_train": runs["mesh"]["counts"],
                 "mesh_lm_train": lm["counts"],
                 "tp_lm_train": eq["counts"],
-                "mesh_moe_train": moe["counts"],
-                "mesh_moe_decode": moe["decode_counts"]}, \
+                "mesh_moe_train": moe_counts["train"],
+                "mesh_moe_decode": moe_counts["decode"],
+                **fam_counts}, \
             {"bn_fwd": bn, "bn_bwd": bn, "neuron_layer_train": nl}
     finally:
         shutdown_distributed()

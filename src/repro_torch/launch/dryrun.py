@@ -35,11 +35,8 @@ collectives are dispatched and do nothing), and counts as it goes
 The meshes: the production ones, ``pod16x16`` (data 16, model 16) and
 ``pod2x16x16`` (pod 2, data 16, model 16), and the same with the model
 axis at 1, ``data16`` (the default) and ``pod2xdata16`` (``--multi-pod``).
-On a model axis the Spikingformer and the dense, moe and vlm LMs are
-ported (every attention scheme, the MoE's all-to-all); a cell whose
-family is ROADMAP A11c-2b (MLA, the rwkv and hybrid heads, the
-encoder-decoder) is reported as such, one row of ``--all``, and counted
-apart.
+Every cell runs on a model axis (every attention scheme, MLA, the MoE's
+all-to-all, the recurrent heads, the encoder-decoder).
 """
 from __future__ import annotations
 
@@ -77,8 +74,6 @@ MESHES = {"data16": (("data", "model"), (16, 1)),
           "pod2xdata16": (("pod", "data", "model"), (2, 16, 1)),
           "pod16x16": (("data", "model"), (16, 16)),
           "pod2x16x16": (("pod", "data", "model"), (2, 16, 16))}
-#: The marker of a family whose model axis is not ported.
-DEFERRED = "A11c-2b"
 
 
 def peak_flops(dtype: torch.dtype) -> float:
@@ -445,7 +440,7 @@ def main(argv=None) -> None:
     else:
         targets = [(args.arch, args.shape)]
 
-    ok, fail, deferred = 0, 0, 0
+    ok, fail = 0, 0
     for arch, shape in targets:
         marker = os.path.join(out_dir, f"{arch}__{shape}.json")
         if os.path.exists(marker):
@@ -462,18 +457,12 @@ def main(argv=None) -> None:
                   f"coll={rl['collective_s']:.2e}s bound={rl['bound']} "
                   f"(trace {r['compile_s']}s)", flush=True)
             ok += 1
-        except NotImplementedError as e:
-            if DEFERRED not in str(e):
-                raise
-            deferred += 1
-            print(f"[{DEFERRED}] {arch} x {shape}: {e}", flush=True)
         except Exception as e:
             fail += 1
             print(f"[FAIL] {arch} x {shape}: {type(e).__name__}: "
                   f"{str(e)[:300]}", flush=True)
             traceback.print_exc()
-    print(f"dry-run complete: {ok} ok, {deferred} {DEFERRED}, "
-          f"{fail} failed")
+    print(f"dry-run complete: {ok} ok, {fail} failed")
     if fail:
         raise SystemExit(1)
 

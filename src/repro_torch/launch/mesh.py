@@ -34,14 +34,14 @@ reduce-scatters its gradient back; a module that computes the whole of
 a leaf on every rank (replicated work) takes it with ``summed=False``,
 whose backward keeps the rank's slice of the whole, equal, gradient.
 
-Ported on a model axis: the Spikingformer, the dense, moe and vlm LMs
-with the attention's "heads", "seq" and "none" schemes and the decode's
-heads, flash-decode ("seq") and head_dim modes, and the MoE's expert
-parallelism. The sequence split has its region pair
-(:func:`split_seq`, :func:`gather_seq`), the expert dispatch its
-:class:`AllToAll`, the flash-decode merge :func:`all_reduce_max`. MLA,
-the rwkv and hybrid heads and the encoder-decoder raise (ROADMAP
-A11c-2b).
+Every model runs on a model axis: the Spikingformer, and each LM family
+and the encoder-decoder with the attention's (and MLA's) "heads", "seq"
+and "none" schemes, the decode's heads, flash-decode ("seq") and
+head_dim modes, the MoE's expert parallelism and the recurrent heads.
+The sequence split has its region pair (:func:`split_seq`,
+:func:`gather_seq`), the expert dispatch its :class:`AllToAll`, the
+flash-decode merge :func:`all_reduce_max`, a statistic over every
+rank's columns (RWKV's ``ln_x``) :class:`AllReduceSum`.
 """
 from __future__ import annotations
 
@@ -694,6 +694,14 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     identity, launching nothing, without a model group."""
     group = model_group()
     return x if group is None else _ReduceFromModel.apply(x, group)
+
+
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """:class:`AllReduceSum` over the ambient model group: a statistic
+    whose users differ by rank (RWKV's ``ln_x`` over the rank's columns),
+    so its backward sums too. The identity without a model group."""
+    group = model_group()
+    return x if group is None else AllReduceSum.apply(x, group)
 
 
 # ---------------------------------------------------------------------------

@@ -62,7 +62,7 @@ def roofline_section() -> str:
         "compute": "more useful flops a byte: bf16, batch, fusion",
         "memory": "cut HBM traffic: flash attention, fusion, donation, "
                   "CUDA graphs",
-        "collective": "the model axis (A11c-2b), overlapped collectives",
+        "collective": "overlapped collectives, fewer reshards",
     }
     for r in rows:
         rl = r["roofline"]

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.launch.mesh import (P, Mesh, apply_fsdp, batch_axes,
                                      map_specs, sanitize_specs)
-from repro_torch.models.common import split_tree
+from repro_torch.models.common import cache_model_dim, split_tree
 
 META = torch.device("meta")
 
@@ -160,17 +160,9 @@ def cache_structs(cfg, batch: int, max_seq: int, batch_axes,
             dims[1] = bspec
         if replicated:
             return P(*dims)
-        if cfg.cache_shard == "auto" and s.ndim == 5:
-            order = (3, 2, 4)       # heads, seq, head_dim
-        elif cfg.cache_shard == "auto" and s.ndim == 4:
-            order = (2, 3)          # seq, feature (MLA latent / cross-mem)
-        else:
-            order = tuple(range(s.ndim - 1, 1, -1))
-        for i in order:
-            if i < s.ndim and s.shape[i] % model == 0 and \
-                    s.shape[i] >= model:
-                dims[i] = "model"
-                break
+        i = cache_model_dim(s.shape, model, cfg.cache_shard)
+        if i is not None:
+            dims[i] = "model"
         return P(*dims)
 
     def walk(tree, lif=False):
@@ -254,8 +246,8 @@ def input_specs(cfg, shape_name, mesh, microbatches: int = 1
     scheme computes on it). The steps run on ``mesh``, inside it, where it
     is a :class:`Mesh`; an :class:`AbstractMesh` gives the specs and the
     mesh-less step. An MoE's layout is bound to the mesh's model axis
-    (:func:`bind_model_axis`). What the model axis does not split raises
-    naming ROADMAP A11c-2b."""
+    (:func:`bind_model_axis`). A layout the model axis cannot make raises
+    ``ValueError`` (``train.loop.check_model_axis``)."""
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.train.loop import check_model_axis
     sh = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
@@ -311,7 +303,8 @@ def input_specs(cfg, shape_name, mesh, microbatches: int = 1
                 params = whole(params)
                 enc = encode(params, batch["frames"], cfg)
                 x = decode_train(params, batch["tokens"], enc, cfg)
-                return unembed(params["embed"], x[:, -1])
+                return unembed(params["embed"], x[:, -1],
+                               (cfg.vocab_size, cfg.d_model))
             fn = in_mesh(fn)
         else:
             from repro_torch.models.lm import lm_prefill
@@ -345,9 +338,20 @@ def input_specs(cfg, shape_name, mesh, microbatches: int = 1
         batch axis. Where the plan shards "data" on another dim (the
         hybrid's Mamba2 state, whose batch sits on axis 2, not 1), the
         leaf is gathered over it and cut to the rank's rows, the reshard a
-        compiler would make each step."""
-        if run_mesh is None or sh.batch == 1 or \
-                mesh_mod.batch_dim(spec, run_mesh) in (None, axis):
+        compiler would make each step. Where it puts "model" on the batch
+        axis (the hybrid's conv state on 16 ranks), the leaf is gathered
+        whole and cut to the rank's rows and its model part of the last
+        dim (the conv's channels, which the step computes on)."""
+        if run_mesh is None or sh.batch == 1:
+            return leaf
+        if mesh_mod.model_dim(spec, run_mesh) == axis:
+            full = mesh_mod.gather_full(leaf, spec, run_mesh)
+            want = [None] * leaf.ndim
+            want[axis] = ba
+            if full.shape[-1] % mesh.shape["model"] == 0:
+                want[-1] = "model"
+            return mesh_mod.local_shard(full, P(*want), run_mesh)
+        if mesh_mod.batch_dim(spec, run_mesh) in (None, axis):
             return leaf
         want = P(*([None] * axis + [ba]))
         return mesh_mod.local_shard(mesh_mod.gather_leaf(leaf, spec, run_mesh),

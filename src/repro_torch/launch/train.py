@@ -31,10 +31,8 @@ mesh=)``): every rank draws the global batch of each step and keeps its
 rows (``train.data.place_batch``; the ranks of one model group keep the
 same rows); rank 0 writes the checkpoints, whole. ``train(mesh=...)``
 takes a mesh from ``launch.mesh.make_test_mesh``; ``mesh=None`` is the
-single-device path. On a model axis the Spikingformer and the dense, moe
-(expert parallel, ``model_shards`` bound to ``--model``) and vlm LMs
-train; MLA and the rwkv, hybrid and audio families raise (ROADMAP
-A11c-2b). A checkpoint of an MoE restores at another ``--model``, its
+single-device path. Every family trains on a model axis (the moe family
+expert parallel, ``model_shards`` bound to ``--model``). A checkpoint of an MoE restores at another ``--model``, its
 expert leaves relaid (``train.checkpoint.restore_checkpoint``).
 """
 from __future__ import annotations

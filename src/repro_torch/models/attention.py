@@ -138,15 +138,23 @@ def _whole_params(params, cfg: AttnConfig, summed: bool):
               "wo": (h, dh, d), "bq": (h, dh), "bk": (hk, dh),
               "bv": (hk, dh)}
 
-    def whole(leaf, shape):
-        if summed and tuple(leaf.shape) == tuple(shape):
-            return copy_to_model(leaf)
-        return gather_model(leaf, shape, summed=summed)
-    out = {k: whole(v, shapes[k]) for k, v in params.items() if k in shapes}
+    out = {k: whole_leaf(v, shapes[k], summed) for k, v in params.items()
+           if k in shapes}
     for k in ("q_norm", "k_norm"):
         if k in params:
-            out[k] = {"scale": whole(params[k]["scale"], (dh,))}
+            out[k] = {"scale": whole_leaf(params[k]["scale"], (dh,), summed)}
     return out
+
+
+def whole_leaf(leaf: torch.Tensor, shape, summed: bool) -> torch.Tensor:
+    """One leaf whole on this rank (:func:`_whole_params`' rule):
+    ``summed`` a whole leaf enters the region (``copy_to_model``) and a
+    stored slice is gathered with its gradient reduce-scattered; else
+    (replicated work) a slice is gathered keeping the rank's part of the
+    whole gradient, and a whole leaf is itself."""
+    if tuple(leaf.shape) == tuple(shape):
+        return copy_to_model(leaf) if summed else leaf
+    return gather_model(leaf, shape, summed=summed)
 
 
 def _project_gathered(x: torch.Tensor, w: torch.Tensor, shape
@@ -465,33 +473,56 @@ def attention_decode(params, x: torch.Tensor, cache: dict[str, torch.Tensor],
 
     kk = _expand_kv(new_k.to(x.dtype), cfg, heads)
     vv = _expand_kv(new_v.to(x.dtype), cfg, heads)
-    scale = cfg.d_head ** -0.5
-    logits = torch.einsum("bshe,bthe->bhst", q, kk).float()
-    if mode == "head_dim":
-        logits = reduce_from_model(logits)
-    logits = logits * scale
     idx = torch.arange(s_loc, device=x.device)[None] + lo        # (1, S)
     valid = idx <= slot[:, None] if cfg.sliding_window is None else \
         (idx <= slot[:, None]) | (pos[:, None] >= s_cache)
-    logits = logits + _bias(valid)[:, None, None, :]
+    out = decode_attend(q, kk, vv, mode, cfg,
+                        _bias(valid)[:, None, None, :])
+    return out_decode(out, params["wo"], mode, cfg), {"k": new_k,
+                                                      "v": new_v}
+
+
+def merged_softmax(logits: torch.Tensor, dtype) -> torch.Tensor:
+    """Flash-decode's softmax over every rank's positions: the group's row
+    maximum and exponent sum (P.V is then summed over the group)."""
+    top = all_reduce_max(logits.amax(-1, keepdim=True))
+    p = torch.exp(logits - top)
+    return (p / reduce_from_model(p.sum(-1, keepdim=True))).to(dtype)
+
+
+def decode_attend(q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor,
+                  mode, cfg: AttnConfig, bias=None) -> torch.Tensor:
+    """One token's q (B, 1, H, ·) against the rank's keys and values
+    (B, S_loc, H, ·) under the decode ``mode`` (:func:`decode_mode`),
+    ``bias`` added to the scaled logits: the logits' partial sums added
+    over the group (head_dim), the softmax merged over it ("seq"); the
+    output (B, 1, H, dh), head_dim's columns gathered whole."""
+    logits = torch.einsum("bshe,bthe->bhst", q, kk).float()
+    if mode == "head_dim":
+        logits = reduce_from_model(logits)
+    logits = logits * cfg.d_head ** -0.5
+    if bias is not None:
+        logits = logits + bias
     if mode == "seq":
-        # flash-decode: the softmax over every rank's positions, from the
-        # group's row maximum and exponent sum; P.V summed over the group
-        top = all_reduce_max(logits.amax(-1, keepdim=True))
-        p = torch.exp(logits - top)
-        probs = (p / reduce_from_model(p.sum(-1, keepdim=True))).to(x.dtype)
+        probs = merged_softmax(logits, q.dtype)
         out = reduce_from_model(torch.einsum("bhst,bthe->bshe", probs, vv))
     else:
-        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
         out = torch.einsum("bhst,bthe->bshe", probs, vv)
     if mode == "head_dim":
         out = gather_seq(out, 3)            # the heads' dh columns, whole
+    return out
+
+
+def out_decode(out: torch.Tensor, wo: torch.Tensor, mode,
+               cfg: AttnConfig) -> torch.Tensor:
+    """A decode step's (B, 1, H, dh) through ``wo``: the rank's heads'
+    partial sums added ("heads", or no model axis), else the whole
+    ``out`` through the stored slice of ``wo`` (:func:`_out_gathered`)."""
     if mode in ("seq", "head_dim"):
-        h, dh, d = cfg.n_heads, cfg.d_head, cfg.d_model
-        out = _out_gathered(out, params["wo"], (h, dh, d))
-    else:
-        out = _out_proj(out, params["wo"])
-    return out, {"k": new_k, "v": new_v}
+        return _out_gathered(out, wo, (cfg.n_heads, cfg.d_head,
+                                       cfg.d_model))
+    return _out_proj(out, wo)
 
 
 def init_kv_cache(batch: int, cfg: AttnConfig, max_seq: int,

@@ -25,8 +25,9 @@ import torch.utils.checkpoint
 
 from repro_torch.core.spikingformer import tree_leaves, tree_map, \
     tree_unflatten
-from repro_torch.launch.mesh import (copy_to_model, model_coord,  # noqa: F401
-                                     model_group, reduce_from_model)
+from repro_torch.launch.mesh import (copy_to_model, gather_seq,  # noqa: F401
+                                     model_coord, model_group,
+                                     reduce_from_model)
 
 # Logical -> physical axis naming, as in the reference.
 BATCH = ("pod", "data")
@@ -111,16 +112,68 @@ def shard(x: torch.Tensor, *spec) -> torch.Tensor:
     return x
 
 
-def refuse_model_axis(what: str, m: int | None = None) -> None:
-    """Raises for a family whose compute split over the model axis is not
-    ported (ROADMAP A11c-2b), where the model axis (``m`` ranks, default
-    the ambient mesh's) has more than one rank; the port never computes
-    such a model replicated in silence."""
-    m = model_coord()[1] if m is None else m
-    if m > 1:
-        raise NotImplementedError(
-            f"{what} on a model axis of {m} is ROADMAP A11c-2b (ported: the "
-            f"Spikingformer and the dense, moe and vlm LMs without MLA)")
+def matmul_whole(x: torch.Tensor, w: torch.Tensor, shape) -> torch.Tensor:
+    """``x`` (..., K), whole on every rank, times this rank's slice of a
+    (K, N) leaf of whole ``shape``: the whole (..., N) on every rank with
+    no weight crossing the group (decode, whose activations are the small
+    side): the partial products of the rank's K rows summed, or the
+    products of its N columns all-gathered."""
+    w = w.to(x.dtype)
+    if tuple(w.shape) == tuple(shape):
+        return torch.matmul(x, w)
+    if w.shape[0] != shape[0]:
+        n = w.shape[0]
+        return reduce_from_model(torch.matmul(
+            x.narrow(-1, model_coord()[0] * n, n), w))
+    y = torch.matmul(x, w)
+    return gather_seq(y, y.ndim - 1)
+
+
+def rank_part(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """This model rank's ``n`` entries along ``dim`` of a tensor whole on
+    every rank (the rank-major equal split); ``x`` itself where ``n`` is
+    all of ``dim`` (a dim the axis does not split, or no model axis)."""
+    if x.shape[dim] == n:
+        return x
+    return x.narrow(dim, model_coord()[0] * n, n)
+
+
+def whole_part(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` whole along ``dim`` (``n`` entries): every model rank's part
+    gathered (:func:`gather_seq`) where ``x`` holds the rank's, ``x``
+    itself where it is whole (decode's activations; :func:`rank_part`'s
+    inverse)."""
+    return x if x.shape[dim] == n else gather_seq(x, dim)
+
+
+def heads_on_axis(n: int, what: str) -> int:
+    """This rank's share of ``n`` heads on the ambient model axis, whose
+    size must divide them (``ValueError`` naming the dim and the axis, as
+    ``lm.check_lm_split`` raises at the entry points)."""
+    m = model_coord()[1]
+    if n % m:
+        raise ValueError(f"{what}'s {n} heads (dim 'heads') do not split "
+                         f"over a model axis of {m}")
+    return n // m
+
+
+def cache_model_dim(shape, model: int, cache_shard: str = "auto"
+                    ) -> int | None:
+    """The dim of a decode-state leaf of ``shape`` (layer and batch axes
+    first) that a model axis of ``model`` ranks splits, the reference's
+    rule (``launch.specs.cache_structs``): a 5-D attention cache on its
+    heads, else positions, else head_dim; a 4-D one (MLA's latent) on
+    positions, else features; ``cache_shard="trailing"`` and any other
+    leaf on the last dim that divides; ``None`` where none does."""
+    nd = len(shape)
+    if cache_shard == "auto" and nd == 5:
+        order = (3, 2, 4)           # heads, seq, head_dim
+    elif cache_shard == "auto" and nd == 4:
+        order = (2, 3)              # seq, feature
+    else:
+        order = tuple(range(nd - 1, 1, -1))
+    return next((i for i in order if shape[i] % model == 0 and
+                 shape[i] >= model), None)
 
 
 def shard_batch(x: torch.Tensor, *rest) -> torch.Tensor:
@@ -235,6 +288,25 @@ def init_embedding(generator, vocab: int, d_model: int, dtype=torch.float32,
                                  scale=0.02, dtype=dtype, device=device)}
 
 
+def table_shape(cfg) -> tuple[int, int]:
+    """An LM's or encoder-decoder's embedding table's whole shape (V, D),
+    which :func:`table_split` reads a rank's table against."""
+    return cfg.vocab_size, cfg.d_model
+
+
+def table_split(table: torch.Tensor, shape) -> str | None:
+    """How this rank holds an embedding table of whole ``shape`` (V, D) on
+    the ambient model axis: ``"vocab"`` (its V/M rows), ``"d"`` (its D/M
+    columns: the plan's place where the axis does not divide the
+    vocabulary) or ``None`` (whole, or no model axis, where ``shape`` is
+    not read)."""
+    if model_group() is None:
+        return None
+    if table.shape[0] != shape[0]:
+        return "vocab"
+    return "d" if table.shape[1] != shape[1] else None
+
+
 def _vocab_slice(table: torch.Tensor) -> tuple[int, int] | None:
     """(first row, rows) of this rank's part of a vocab-parallel table,
     ``None`` without a model group."""
@@ -244,53 +316,73 @@ def _vocab_slice(table: torch.Tensor) -> tuple[int, int] | None:
     return r * table.shape[0], table.shape[0]
 
 
-def embed(params, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
-    """The rows of the table for ``tokens``. Vocab-parallel on a model
-    axis: each rank looks up the tokens in its rows (zeros for the
-    others') and the ranks' lookups are summed (:func:`reduce_from_model`)."""
+def embed(params, tokens: torch.Tensor, dtype=None, shape=None
+          ) -> torch.Tensor:
+    """The rows of the table for ``tokens`` (``shape``: the table's whole
+    (V, D), :func:`table_split`, needed on a model axis). Vocab-parallel on a model axis: each
+    rank looks up the tokens in its rows (zeros for the others') and the
+    ranks' lookups are summed (:func:`reduce_from_model`). A table split
+    on D: each rank's columns of the rows, gathered whole (their gradient
+    the rank's columns of the replicated gradient)."""
     table = params["table"]
-    part = _vocab_slice(table)
-    if part is None:
-        out = table[tokens.long()]
-    else:
-        lo, n = part
+    split = table_split(table, shape)
+    if split == "vocab":
+        lo, n = _vocab_slice(table)
         local = tokens.long() - lo
         hit = (local >= 0) & (local < n)
         out = table[torch.where(hit, local, 0)] * hit[..., None].to(
             table.dtype)
         out = reduce_from_model(out)
+    else:
+        out = table[tokens.long()]
+        if split == "d":
+            out = gather_seq(out, out.ndim - 1)
     return out.to(dtype) if dtype is not None else out
 
 
-def unembed(params, x: torch.Tensor) -> torch.Tensor:
+def unembed(params, x: torch.Tensor, shape=None) -> torch.Tensor:
     """(..., D) -> (..., V) logits, fp32 for a stable softmax. On a model
     axis each rank's (..., V/M), its rows of the table, as the reference
-    constrains the logits."""
-    if model_group() is not None:
+    constrains the logits; with a table split on D (:func:`table_split`)
+    the whole (..., V) on every rank, the partial products of the rank's
+    D/M columns summed over the group (``shape``: the table's whole
+    (V, D), needed on a model axis)."""
+    table = params["table"]
+    split = table_split(table, shape)
+    if split == "vocab":
         x = copy_to_model(x)
-    return torch.matmul(x.float(), params["table"].float().t())
+    elif split == "d":
+        n = table.shape[1]
+        x = copy_to_model(x).narrow(-1, model_coord()[0] * n, n)
+        return reduce_from_model(torch.matmul(x.float(), table.float().t()))
+    return torch.matmul(x.float(), table.float().t())
 
 
-def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
+def gather_vocab(logits: torch.Tensor, vocab: int | None = None
+                 ) -> torch.Tensor:
     """Whole-vocabulary logits from each rank's (..., V/M) part (the
-    caller's view of a vocab-parallel unembedding; no gradient)."""
+    caller's view of a vocab-parallel unembedding; no gradient); the
+    logits themselves where they are whole (``vocab`` columns) already."""
     from repro_torch.launch.mesh import _gather_dim
     group = model_group()
-    if group is None:
+    if group is None or logits.shape[-1] == vocab:
         return logits
     return _gather_dim(logits, logits.ndim - 1, group)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       mask: torch.Tensor | None = None) -> torch.Tensor:
+                       mask: torch.Tensor | None = None,
+                       vocab: int | None = None) -> torch.Tensor:
     """logits (B, S, V) fp32; labels (B, S) int; mask optional (B, S). On a
     model axis the logits are each rank's (B, S, V/M): the log-sum-exp
     from the group's maximum and its sum of exponentials, the target's
     logit from the rank that holds it (both sums over the group by
     :func:`reduce_from_model`, so every rank holds the loss and its
-    gradient reaches its own columns)."""
+    gradient reaches its own columns). Logits of ``vocab`` columns are
+    whole on every rank (a table split on D): the loss is computed whole
+    there."""
     group = model_group()
-    if group is None:
+    if group is None or logits.shape[-1] == vocab:
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     else:

@@ -22,17 +22,21 @@ The audio family is not a decoder LM: it runs through
 module's entry points refuse it.
 
 On a mesh with a model axis (the ambient mesh, ``launch.mesh.use_mesh``)
-the dense, moe (without MLA) and vlm families are model parallel: the
-embedding and the unembedding vocab-parallel; each block's attention under
-the scheme the reference chooses ("heads", "seq" or "none"; in decode
-heads, flash-decode or head_dim), entering its own region; the SwiGLU
-between ``copy_to_model`` and its row-parallel sum; the MoE expert
-parallel (the rank's S/M rows routed and sent to their experts' ranks by
-all-to-all, gathered back; in decode every rank routes every token to its
-own experts and the results are summed); the LIF on the whole (B, S, D)
-after the branch's sum or gather, so that its time axis is the whole
-sequence. The serving entry points hand back whole-vocabulary logits.
-MLA, the rwkv and hybrid families raise there (ROADMAP A11c-2b).
+every family is model parallel: the embedding and the unembedding
+vocab-parallel, or split on D where the axis does not divide the
+vocabulary; each block's attention (GQA or MLA) under the scheme the
+reference chooses ("heads", "seq" or "none"; in decode heads,
+flash-decode or head_dim, MLA's latent on its positions or its
+features), entering its own region; the SwiGLU between
+``copy_to_model`` and its row-parallel sum; the MoE expert parallel (the
+rank's S/M rows routed and sent to their experts' ranks by all-to-all,
+gathered back; in decode every rank routes every token to its own
+experts and the results are summed); the RWKV time and channel mixes and
+the Mamba2 mixer on the rank's heads (their decode states on the rank's
+slice, never gathered); the LIF on the whole (B, S, D) after the
+branch's sum or gather, so that its time axis is the whole sequence. The
+serving entry points hand back whole-vocabulary logits.
+:func:`check_lm_split` names what an axis cannot lay out.
 
 Entry points:
   init_lm(generator, cfg, device)      -> augmented param tree (Leaf leaves)
@@ -59,8 +63,8 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (copy_to_model, cross_entropy_loss,
                                        embed, gather_vocab, init_embedding,
                                        init_rmsnorm, lscan, model_coord,
-                                       refuse_model_axis, rmsnorm,
-                                       stack_layer_trees, tree_map, unembed)
+                                       rmsnorm, stack_layer_trees, table_shape,
+                                       table_split, tree_map, unembed)
 from repro_torch.models.mlp import init_swiglu, swiglu
 
 Params = dict[str, Any]
@@ -78,31 +82,40 @@ def _refuse_audio(cfg: ArchConfig) -> None:
 
 
 def check_lm_split(cfg: ArchConfig, m: int | None = None) -> None:
-    """Raises where a model axis of ``m`` ranks (default: the ambient
-    mesh's) would split a computation this port does not split (ROADMAP
-    A11c-2b): MLA and the rwkv, hybrid and audio families, and a config
-    whose vocabulary or SwiGLU width the axis does not divide (the plan
-    would store those leaves on another dim). An MoE's expert count must
-    divide over the axis, or the axis over it, as the reference's layout
-    needs. The attention scheme is chosen at the attention."""
+    """Raises ``ValueError`` where a model axis of ``m`` ranks (default:
+    the ambient mesh's) cannot lay out a computation of ``cfg`` as the
+    reference's plan stores it: the SwiGLU, GELU or channel-mix width, a
+    recurrent family's heads (RWKV's, Mamba2's), or an MoE's experts
+    that the axis does not divide. The attention's (and MLA's) scheme is
+    chosen at the attention; a vocabulary the axis does not divide is
+    stored and computed on D (``common.table_split``)."""
     m = model_coord()[1] if m is None else m
     if m == 1:
         return
-    if cfg.family not in ("dense", "moe", "vlm") or cfg.mla is not None:
-        refuse_model_axis(f"{cfg.name} (family {cfg.family}"
-                          f"{', MLA' if cfg.mla is not None else ''})", m)
+
+    def need(n: int, what: str) -> None:
+        if n % m:
+            raise ValueError(f"{cfg.name}: {what} {n} does not split over "
+                             f"a model axis of {m}")
+    if cfg.family == "rwkv":
+        need(cfg.rwkv.n_heads, "dim 'heads' of the time mix:")
+        need(cfg.rwkv.d_ff, "dim 'd_ff' of the channel mix:")
+        return
+    if cfg.family == "hybrid":
+        need(cfg.ssm.n_heads, "dim 'heads' of the Mamba2 mixer:")
+    if cfg.family == "audio":
+        need(cfg.d_ff, "dim 'd_ff' of the GELU MLP:")
+        return
     width = cfg.d_ff if cfg.moe is None else \
         cfg.moe.d_ff_expert * cfg.moe.n_shared
-    if cfg.vocab_size % m or width % m:
-        refuse_model_axis(f"{cfg.name}: vocab {cfg.vocab_size} / SwiGLU "
-                          f"width {width} not divisible by the axis", m)
+    need(width, "dim 'd_ff' of the SwiGLU:")
     if cfg.moe is not None:
         e = cfg.moe.num_experts
         if (e % m if e >= m else m % e) or cfg.moe.d_ff_expert % max(
                 1, m // e):
             raise ValueError(f"{cfg.name}: {e} experts of width "
                              f"{cfg.moe.d_ff_expert} do not lay out over "
-                             f"{m} model ranks")
+                             f"a model axis of {m}")
 
 
 # ---------------------------------------------------------------------------
@@ -239,9 +252,11 @@ def _rwkv_block_decode(p, x, state, cfg: ArchConfig):
                                                    state["time"], cfg.rwkv)
     x = x + t_out
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    c_out = rwkv_mod.rwkv_channel_mix(p["chan"], h, cfg.rwkv,
-                                      x_prev=state["chan"])
-    new_state = {"time": t_state, "chan": h}
+    c_out = rwkv_mod.rwkv_channel_mix(
+        p["chan"], h, cfg.rwkv,
+        x_prev=rwkv_mod.gather_carry(state["chan"], cfg.d_model))
+    new_state = {"time": t_state,
+                 "chan": rwkv_mod.keep_carry(h, state["chan"])}
     if cfg.lif is not None:
         c_out, new_state["lif"] = _lif_decode(c_out, state["lif"], cfg)
     return x + c_out, new_state
@@ -329,7 +344,7 @@ def lm_forward(params: Params, batch: dict[str, torch.Tensor],
     shared block), as the reference checkpoints them."""
     _refuse_audio(cfg)
     check_lm_split(cfg)
-    x = embed(params["embed"], batch["tokens"], cfg.dtype)
+    x = embed(params["embed"], batch["tokens"], cfg.dtype, table_shape(cfg))
     if cfg.vlm_stub and "patch_embeds" in batch:
         # pixtral: image patches arrive pre-embedded (frontend stub); merge.
         x = torch.where(batch["patch_mask"][..., None],
@@ -365,12 +380,13 @@ def lm_loss(params: Params, batch: dict[str, torch.Tensor], cfg: ArchConfig,
     metrics detached. ``batch``: tokens and labels (B, S), optional
     ``loss_mask`` (B, S)."""
     x, aux = lm_forward(params, batch, cfg, use_flash=cfg.flash_train)
-    logits = unembed(params["embed"], x)
-    loss = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
+    logits = unembed(params["embed"], x, table_shape(cfg))
+    loss = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"),
+                              cfg.vocab_size)
     total = loss + aux_weight * aux
     mean_abs = logits.detach().abs().mean()
-    m = model_coord()[1]
-    if m > 1:   # the mean over every rank's equal part of the vocabulary
+    if table_split(params["embed"]["table"], table_shape(cfg)) == "vocab":
+        # the mean over every rank's equal part of the vocabulary
         mean_abs = gather_vocab(mean_abs[None]).mean()
     return total, {"loss": loss.detach(), "aux_loss": aux.detach(),
                    "logits_mean_abs": mean_abs}
@@ -464,7 +480,7 @@ def lm_decode_step(params: Params, cache, tokens: torch.Tensor,
     and the logits are gathered whole."""
     _refuse_audio(cfg)
     check_lm_split(cfg)
-    x = embed(params["embed"], tokens, cfg.dtype)
+    x = embed(params["embed"], tokens, cfg.dtype, table_shape(cfg))
 
     if cfg.family == "rwkv":
         def body(x, ps):
@@ -494,7 +510,8 @@ def lm_decode_step(params: Params, cache, tokens: torch.Tensor,
             return _dense_block_decode(p, x, st, pos, cfg)
         x, cache = lscan(cfg, body, x, (params["blocks"], cache))
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    return gather_vocab(unembed(params["embed"], x[:, 0])), cache
+    return gather_vocab(unembed(params["embed"], x[:, 0], table_shape(cfg)),
+                        cfg.vocab_size), cache
 
 
 def lm_prefill(params: Params, batch: dict[str, torch.Tensor],
@@ -503,4 +520,5 @@ def lm_prefill(params: Params, batch: dict[str, torch.Tensor],
     (whole, gathered over a model axis)."""
     x, _ = lm_forward(params, batch, cfg,
                       use_flash=batch["tokens"].shape[1] > 8192)
-    return gather_vocab(unembed(params["embed"], x[:, -1]))
+    return gather_vocab(unembed(params["embed"], x[:, -1], table_shape(cfg)),
+                        cfg.vocab_size)

@@ -3,8 +3,9 @@
 reference's einsums. On a model axis SwiGLU is Megatron's: ``w_gate`` and
 ``w_up`` column-parallel (the rank's d_ff/M hidden features), ``w_down``
 row-parallel, its partial sums added over the group; the caller enters the
-region (``copy_to_model``). The GELU MLP runs with the audio family, whose
-model axis is ROADMAP A11c-2b."""
+region (``copy_to_model``). The GELU MLP (whisper) likewise: ``w_in`` /
+``b_in`` column-parallel, ``w_out`` row-parallel and summed, and the
+replicated ``b_out`` added once, after the sum."""
 from __future__ import annotations
 
 import torch
@@ -46,8 +47,9 @@ def init_gelu_mlp(generator, d_model: int, d_ff: int, dtype=torch.float32,
 
 
 def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu``'s default is the tanh approximation: so is this."""
+    """``jax.nn.gelu``'s default is the tanh approximation: so is this.
+    On a model axis the caller enters the region (``copy_to_model``)."""
     h = torch.matmul(x, params["w_in"].to(x.dtype)) + params["b_in"].to(x.dtype)
     h = F.gelu(h, approximate="tanh")
-    return torch.matmul(h, params["w_out"].to(x.dtype)) \
+    return reduce_from_model(torch.matmul(h, params["w_out"].to(x.dtype))) \
         + params["b_out"].to(x.dtype)

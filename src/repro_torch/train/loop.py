@@ -37,10 +37,8 @@ leaf replicated over "model" gets the same gradient on every model rank
 (the region ops make each input's gradient whole), so nothing sums it
 there. One non-finite flag, all-reduced with MAX over the world, makes
 every rank skip a step together. At a world of 1 the step is the
-mesh-less step bit for bit. On a model axis the Spikingformer and the
-dense, moe (without MLA) and vlm LMs are ported, the MoE's layout bound
-to the axis (``launch.specs.bind_model_axis``); MLA and the other
-families raise (ROADMAP A11c-2b).
+mesh-less step bit for bit. Every family runs on a model axis, the MoE's
+layout bound to the axis (``launch.specs.bind_model_axis``).
 """
 from __future__ import annotations
 
@@ -83,19 +81,16 @@ def _any_rank_nonfinite(finite, mesh):
 
 
 def check_model_axis(cfg, mesh) -> None:
-    """Raises where ``cfg`` cannot be split over ``mesh``'s model axis:
-    MLA, the rwkv, hybrid and audio families (ROADMAP A11c-2b), an LM
-    whose vocabulary, SwiGLU width or experts the axis does not divide,
-    or a Spikingformer whose heads, d_model or d_ff it does not divide."""
+    """Raises ``ValueError`` where ``mesh``'s model axis cannot lay out
+    ``cfg``: an LM or encoder-decoder width, recurrent heads or experts
+    the axis does not divide (``models.lm.check_lm_split``), or a
+    Spikingformer whose heads, d_model or d_ff it does not divide."""
     m = mesh.shape.get("model", 1)
     if m == 1:
         return
     if getattr(cfg, "family", None) == "vision":
         cfg.check_model_shards(m)
         return
-    if cfg.family == "audio":
-        from repro_torch.models.common import refuse_model_axis
-        refuse_model_axis(f"{cfg.name} (family audio)", m)
     from repro_torch.models.lm import check_lm_split
     check_lm_split(cfg, m)
 
@@ -251,9 +246,8 @@ def make_train_step(cfg, opt_cfg: OptimizerConfig, microbatches: int = 1, *,
     rank's rows of the batch (``train.data.place_batch``); ``specs`` the
     parameters' spec tree (default: the plan of ``launch.specs`` for
     ``cfg`` on ``mesh``); an MoE's ``model_shards`` is bound to the
-    mesh's model axis. A family whose model axis is not ported raises
-    ``NotImplementedError`` on a model axis of more than 1 (ROADMAP
-    A11c-2b).
+    mesh's model axis. A layout the model axis cannot make raises
+    ``ValueError`` (:func:`check_model_axis`).
     """
     family = getattr(cfg, "family", None)
     if family is None:

@@ -514,6 +514,117 @@ def job_moe_ckpt(mesh, inp, out, write: bool):
                                     cfg.moe.num_experts)}
 
 
+# ---------------------------------------------------------------------------
+# The rest of the model axis: MLA, the rwkv and hybrid heads, the
+# encoder-decoder
+# ---------------------------------------------------------------------------
+
+def local_shapes(tree) -> dict:
+    """Every leaf's shape on this rank, by path."""
+    return {p: tuple(x.shape) for p, x in zip(tree_paths(tree),
+                                              tree_leaves(tree))}
+
+
+def job_family_decode(mesh, inp, key: str):
+    """:func:`job_decode_key` for any LM family (MLA's latent, the
+    recurrent states): every step's logits, the cache gathered whole and
+    each cache leaf's shape on this rank."""
+    from repro_torch.launch.specs import bind_model_axis
+    from repro_torch.models.lm import init_cache, lm_decode_step
+    case = inp[key]
+    cfg, params = mesh_params(inp, key, mesh)
+    params = shard(params, serving_specs(cfg, mesh), mesh)
+    cache = init_cache(cfg, 2, case["max_seq"], torch.float32, "cpu")
+    c_specs = mesh_mod.sanitize_specs(
+        cache_structs(bind_model_axis(cfg, mesh), 2, case["max_seq"],
+                      ("data",), model=mesh.shape["model"],
+                      lif_replicated=True)[1], cache, mesh)
+    cache = shard(cache, c_specs, mesh)
+    shapes = local_shapes(cache)
+    logits = []
+    with mesh_mod.use_mesh(mesh), torch.no_grad():
+        for i, tok in enumerate(case["tokens"]):
+            out, cache = lm_decode_step(
+                params, cache, torch.from_numpy(tok),
+                torch.full((2,), i, dtype=torch.int32), cfg)
+            logits.append(out.numpy().copy())
+    return {"logits": logits, "local": shapes,
+            "cache": whole(cache, c_specs, mesh)}
+
+
+def job_encdec_decode(mesh, inp, key: str):
+    """``init_encdec_cache`` of ``inp[key]``'s encoder-decoder on the mesh
+    (the rank's parts of the self cache and the cross memory), then its
+    decode steps: every step's logits, the cache gathered whole and each
+    leaf's shape on this rank."""
+    from repro_torch.models.encdec import encdec_decode_step, \
+        init_encdec_cache
+    case = inp[key]
+    cfg = case["cfg"]
+    params = shard(lm_from_jax(case["params"], device="cpu"),
+                   serving_specs(cfg, mesh), mesh)
+    c_specs = cache_structs(cfg, 2, case["max_seq"], None,
+                            model=mesh.shape["model"])[1]
+    logits = []
+    with mesh_mod.use_mesh(mesh), torch.no_grad():
+        cache = init_encdec_cache(params, torch.from_numpy(case["frames"]),
+                                  cfg, 2, case["max_seq"], torch.float32)
+        shapes = local_shapes(cache)
+        for i, tok in enumerate(case["tokens"]):
+            out, cache = encdec_decode_step(
+                params, cache, torch.from_numpy(tok),
+                torch.full((2,), i, dtype=torch.int32), cfg)
+            logits.append(out.numpy().copy())
+    return {"logits": logits, "local": shapes,
+            "cache": whole(cache, c_specs, mesh)}
+
+
+def job_family_ckpt(mesh, inp, out, key: str, write: bool):
+    """``write``: ``inp[key]``'s LM, stored under the mesh's training
+    plan, checkpointed whole; else restored from that checkpoint onto
+    this mesh's plan. Either way the cross entropy of its batch on the
+    mesh and the leaves whole."""
+    from repro_torch.models.lm import lm_loss
+    cfg, params = mesh_params(inp, key, mesh)
+    specs = lm_specs(cfg, mesh, FSDP_MIN)[1]
+    loc = shard(params, specs, mesh)
+    d = os.path.join(out, f"{key}_ckpt")
+    if write:
+        ckpt.save_checkpoint(d, 3, loc, specs, mesh=mesh)
+    else:
+        like = mesh_mod.map_specs(lambda s, x: torch.zeros_like(x), specs,
+                                  loc)
+        loc = ckpt.restore_checkpoint(d, 3, like, mesh, specs)
+    batch = place_batch(inp[key]["batch"], mesh)
+    with mesh_mod.use_mesh(mesh), torch.no_grad():
+        _, metrics = lm_loss(loc, batch, cfg)
+    return {"loss": float(metrics["loss"]), "model": mesh.shape["model"],
+            "params": whole(loc, specs, mesh)}
+
+
+FAMILY_JOBS = {
+    **{f"loss_{k}": (lambda k: lambda mesh, inp, out: job_lm_loss(
+        mesh, inp, k))(k)
+       for k in ("rwkv", "hyb", "wh4", "wh6", "wh6n", "wh514")},
+    # MLA's LM is an MoE: its aux loss is weighted out (on a model axis it
+    # is the mean of the ranks' own, the reference's mesh semantics)
+    **{f"loss_{k}": (lambda k: lambda mesh, inp, out: job_lm_loss(
+        mesh, inp, k, 0.0))(k) for k in ("mla", "mla_seq", "mla_none")},
+    **{f"decode_{k}": (lambda k: lambda mesh, inp, out: job_family_decode(
+        mesh, inp, k))(k) for k in ("mla_d16", "mla_d18", "mla_d16_h6",
+                                    "rwkv_d", "rwkv_h_d", "hyb_d",
+                                    "hyb_ds_d", "hyb_h_d")},
+    **{f"encdec_decode_{k}": (lambda k: lambda mesh, inp, out:
+                              job_encdec_decode(mesh, inp, k))(k)
+       for k in ("whd4", "whd6_32", "whd6_30")},
+    "adamw_hyb": lambda mesh, inp, out: job_moe_adamw(mesh, inp, "hyb"),
+    "ckpt_write_hyb": lambda mesh, inp, out: job_family_ckpt(
+        mesh, inp, out, "hyb", True),
+    "ckpt_restore_hyb": lambda mesh, inp, out: job_family_ckpt(
+        mesh, inp, out, "hyb", False),
+}
+
+
 JOBS = {
     "attn_layer": lambda mesh, inp, out: job_attn_layer(mesh, inp),
     "lm_seq6": lambda mesh, inp, out: job_lm_loss(mesh, inp, "seq6"),
@@ -558,6 +669,7 @@ JOBS = {
     "ckpt_restore": job_ckpt_restore,
     "one_by_one": lambda mesh, inp, out: job_one_by_one(mesh, inp),
     "moe_shards": lambda mesh, inp, out: job_moe_shards(mesh, inp),
+    **FAMILY_JOBS,
 }
 
 

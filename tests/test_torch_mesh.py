@@ -237,18 +237,25 @@ def test_gather_refuses_the_model_axis():
 
 
 def test_a_train_step_on_a_model_axis_raises():
-    """Only for what the model axis does not split (ROADMAP A11c-2b): MLA
-    and the rwkv, hybrid and audio families; the dense, moe and vlm LMs
-    and the Spikingformer pass the check."""
+    """Only for a layout the model axis cannot make: every family's
+    reduced config passes the check on a model axis of 2 and its plan
+    resolves there (MLA and the rwkv, hybrid and audio families too since
+    the model axis was finished); on an axis of 3 the step of each whose
+    heads, widths or experts it does not divide raises ``ValueError``
+    naming the axis; the Spikingformer's check is its own."""
+    from repro_torch.launch.specs import lm_specs
     from repro_torch.configs import get_spikingformer_config
     from repro_torch.train.loop import check_model_axis, make_train_step
     from repro_torch.train.optimizer import OptimizerConfig
     mesh = _FakeMesh(("data", "model"), (1, 2), {"data": 0, "model": 0})
+    three = _FakeMesh(("data", "model"), (1, 3), {"data": 0, "model": 0})
     for arch in ("deepseek-v2-236b", "rwkv6-7b", "zamba2-2.7b",
                  "whisper-large-v3"):
-        with pytest.raises(NotImplementedError, match="A11c-2b"):
-            make_train_step(treg.reduced(treg.get_config(arch)),
-                            OptimizerConfig(), mesh=mesh)
+        cfg = treg.reduced(treg.get_config(arch))
+        check_model_axis(cfg, mesh)
+        assert lm_specs(cfg, mesh)[1]["embed"]["table"] == ("model", None)
+        with pytest.raises(ValueError, match="model axis of 3"):
+            make_train_step(cfg, OptimizerConfig(), mesh=three)
     for arch in ("qwen3-0.6b", "mixtral-8x7b", "pixtral-12b"):
         check_model_axis(treg.reduced(treg.get_config(arch)), mesh)
     check_model_axis(get_spikingformer_config("spikingformer-smoke"), mesh)

@@ -29,10 +29,10 @@ of 1 the (1, 1) mesh), the reference run here on one device.
 * Eight decode steps at (1, 4), where the 2 kv heads do not divide:
   flash-decode over a cache of 4 positions a rank, logits and the cache
   gathered whole within 1e-5 of the mesh-less port.
-* What the model axis does not split raises naming A11c-2b: MLA and the
-  rwkv, hybrid and audio families; the moe and vlm families pass the
-  check, and ``moe_apply`` with ``model_shards`` 2 runs at (1, 2), its
-  output within 1e-5 of one device's.
+* Every family passes the model-axis check; only true layout errors
+  raise (``ValueError`` naming the dimension and the axis), and
+  ``moe_apply`` with ``model_shards`` 2 runs at (1, 2), its output within
+  1e-5 of one device's.
 """
 import dataclasses
 import os
@@ -337,11 +337,15 @@ def test_a_model_axis_of_one_is_the_mesh_less_path(runs, what):
     "deepseek-v2-236b", "rwkv6-7b", "zamba2-2.7b", "whisper-large-v3",
     "mixtral-8x7b", "pixtral-12b", "moe_apply"])
 def test_a11c2_families_and_moe_shards_raise(case, request):
-    """MLA and the rwkv, hybrid and audio families raise naming A11c-2b
-    on a model axis; the moe and vlm families pass the check (as do the
-    dense LM and the Spikingformer); ``moe_apply`` with ``model_shards``
-    2 runs at (1, 2): the expert all-to-all, y within 1e-5 of one
-    device's (capacity factor 8: nothing drops), the aux loss finite."""
+    """Every family passes the check on a model axis of 2 (MLA and the
+    rwkv, hybrid and audio families since the rest of the model axis was
+    ported; the moe and vlm families, the dense LM and the
+    Spikingformer); what remains refused is a true layout error, a
+    ``ValueError`` naming the dimension and the axis: on an axis of 3,
+    RWKV's and Mamba2's heads, whisper's GELU width and the experts.
+    ``moe_apply`` with ``model_shards`` 2 runs at (1, 2): the expert
+    all-to-all, y within 1e-5 of one device's (capacity factor 8:
+    nothing drops), the aux loss finite."""
     mesh = mesh_mod.AbstractMesh(("data", "model"), (1, 2))
     if case == "moe_apply":
         from repro_torch.models import moe
@@ -356,13 +360,16 @@ def test_a11c2_families_and_moe_shards_raise(case, request):
         assert np.isfinite(res["aux"])
         return
     cfg = reduced(get_config(case))
-    if case in ("mixtral-8x7b", "pixtral-12b"):
-        check_model_axis(cfg, mesh)
-        check_model_axis(reduced(get_config("qwen3-0.6b")), mesh)
-        check_model_axis(W.vision_cfg("spikingformer-smoke", "eager"), mesh)
-        return
-    with pytest.raises(NotImplementedError, match="A11c-2b"):
-        check_model_axis(cfg, mesh)
+    check_model_axis(cfg, mesh)
+    check_model_axis(reduced(get_config("qwen3-0.6b")), mesh)
+    check_model_axis(W.vision_cfg("spikingformer-smoke", "eager"), mesh)
+    three = mesh_mod.AbstractMesh(("data", "model"), (1, 3))
+    want = {"deepseek-v2-236b": "dim 'd_ff'", "rwkv6-7b": "dim 'heads'",
+            "zamba2-2.7b": "dim 'heads'", "whisper-large-v3": "dim 'd_ff'",
+            "mixtral-8x7b": "experts", "pixtral-12b": "dim 'd_ff'"}[case]
+    with pytest.raises(ValueError, match=want) as e:
+        check_model_axis(cfg, three)
+    assert "3" in str(e.value)
 
 
 def test_a_fused_neuron_layer_at_a_row_parallel_site_raises(runs):
