@@ -69,7 +69,19 @@ asserted; ``zamba2-2.7b`` first at its published SSD chunk of 128, where
 the gradient is not finite (ROADMAP C6) and the guard skips every step
 with every leaf bit-unchanged, then at a chunk of 16, where it trains (at
 64 and 32 the SSD's masked ``exp`` still overflows in some layers; the
-overflows at each chunk are counted). Then it trains data parallel on a
+overflows at each chunk are counted). Then the chaos phase
+(``repro_torch.chaos``): the reference's recovery drill (a NaN gradient
+at step 3, a kernel fault at the first ``pssa.qkv`` dispatch, SIGTERM at
+step 5, the step-6 checkpoint corrupted on write) at
+``spikingformer-8-512``, batch 16, ``cuda-full``, 8 steps, through
+``python -m repro_torch.chaos.runner`` in two child processes, each held
+to the reference's assertions and the two to equal events and bit-equal
+loss histories; one training step with ``pssa.qkv`` demoted by the
+circuit breaker, bit-equal to the step with ``pssa.qkv: eager``, its
+launches as the plan gives them, and no trip left after it; and
+``qwen3-0.6b`` + LIF serving the 16 requests with a slot fault: request 0
+quarantined, the others' tokens those of the ``lm`` phase, every slot
+free. Then it trains data parallel on a
 mesh (``mesh_train``): a world of 1 on this card (``init_distributed``:
 NCCL, a file store, no network), a (1, 1) mesh. The BN kernels' split
 path (the rank's column sums, their all-reduce over the data group, the
@@ -221,13 +233,16 @@ import repro_torch  # noqa: E402
 from repro_torch.configs import get_spikingformer_config  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.lif import LIFConfig, _lif_scan_eager  # noqa: E402
-from repro_torch.core.policy import named_policy  # noqa: E402
+from repro_torch.chaos import FaultSchedule, FaultSpec, chaos  # noqa: E402
+from repro_torch.core.policy import (breaker_trips,  # noqa: E402
+                                     named_policy, reset_breaker)
 from repro_torch.core.spiking_layers import block_apply  # noqa: E402
 from repro_torch.core.spikingformer import (SpikingFormer,  # noqa: E402
                                             _index_tree, init_spikingformer,
-                                            spikingformer_apply, tree_leaves,
-                                            tree_paths, tree_unflatten,
-                                            value_and_grad)
+                                            spikingformer_apply,
+                                            spikingformer_grad_step,
+                                            tree_leaves, tree_paths,
+                                            tree_unflatten, value_and_grad)
 from repro_torch.kernels import (KERNELS, build, fused_bn,  # noqa: E402
                                  launch_counts, lif_soma, neuron_layer, ops,
                                  reset_launch_counts, set_launch_counts,
@@ -2047,6 +2062,11 @@ def slot_isolation(params, reqs, full, arch: str) -> dict:
     return iso
 
 
+#: Each LM's tokens by request uid from its unrecorded ``cuda-full`` serving
+#: run (``lm_serve_phase``): the chaos phase's clean run.
+SERVED: dict[str, dict[int, list[int]]] = {}
+
+
 def lm_serve_phase(params, seed: int, arch: str = LM_ARCH,
                    smi: str | None = None) -> tuple[dict[str, int], int]:
     """16 requests through 8 slots under ``cuda-full`` and ``eager``: every
@@ -2135,6 +2155,7 @@ def lm_serve_phase(params, seed: int, arch: str = LM_ARCH,
                 "tokens_per_s": r["generated"] / r["wall_s"],
                 "wall_s": r["wall_s"], "peak_memory_bytes": r["peak"]}
     served = timed["cuda-full"]
+    SERVED[arch] = {u: list(r.output) for u, r in served["done"].items()}
     emit(f"{pre}_serve", arch=f"{cfg.name}@cuda-full", layers=layers,
          dtype="float32", slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
          requests=LM_REQUESTS, prompt_lengths=LM_PROMPT,
@@ -2656,6 +2677,251 @@ def whisper_phase(seed: int, smi: str) -> dict[str, dict[str, int]]:
     return {"whisper_serve_at_init": serve_init["counts"],
             "whisper_train_at_init": run_init["counts"],
             "whisper_serve": serve["counts"], "whisper_train": run["counts"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9c: the chaos harness (the reference's recovery drill at the preset,
+# the circuit breaker's demotion, the serving quarantine)
+# ---------------------------------------------------------------------------
+
+#: The reference's acceptance schedule (``tests/test_chaos.py``): a NaN
+#: gradient at step 3, a kernel fault at the first ``pssa.qkv`` dispatch,
+#: SIGTERM at step 5 and the step-6 checkpoint corrupted on write, so the
+#: restart after the preemption falls back to step 4.
+CHAOS_SCHEDULE = FaultSchedule(seed=9, faults=(
+    FaultSpec("chaos.grad", 3, "nan"),
+    FaultSpec("chaos.kernel.pssa.qkv", 0, "raise"),
+    FaultSpec("chaos.step", 5, "sigterm"),
+    FaultSpec("chaos.ckpt", 6, "corrupt", mode="write"),
+))
+CHAOS_STEPS, CHAOS_CKPT_EVERY = 8, 2
+CHAOS_TIMEOUT_S = 400
+#: The recovery, as the drill's log must show it (the reference's lines).
+CHAOS_LOG = ("demoted to 'eager'", "non-finite loss/grads",
+             "[preempt] checkpoint saved",
+             "falling back to the previous retained step", "clean recovery")
+#: The serving fault: request 0 (slot 0 from step 0) at its third sampled
+#: token.
+CHAOS_SLOT, CHAOS_TOKEN = 0, 2
+
+
+def chaos_drill(tmp: str, tag: str) -> dict:
+    """The reference's recovery drill through ``python -m
+    repro_torch.chaos.runner`` in a process of its own (its SIGTERM and its
+    process-wide trip stay out of this one): ``PRESET`` under
+    ``cuda-full``, batch ``BATCH``, ``CHAOS_STEPS`` steps, a checkpoint
+    every ``CHAOS_CKPT_EVERY``, seed 9, ``CHAOS_SCHEDULE``. Held to the
+    reference's assertions; returns the report, the command's seconds and
+    the runner's timing line."""
+    from repro_torch.train import checkpoint as ckpt
+    sched, report = os.path.join(tmp, "schedule.json"), \
+        os.path.join(tmp, f"{tag}.json")
+    CHAOS_SCHEDULE.to_file(sched)
+    ckpt_dir = os.path.join(tmp, tag)
+    t0 = time.perf_counter()
+    out = run_child([sys.executable, "-m", "repro_torch.chaos.runner",
+                     "--arch", PRESET, "--policy", "cuda-full",
+                     "--batch", str(BATCH), "--steps", str(CHAOS_STEPS),
+                     "--ckpt-every", str(CHAOS_CKPT_EVERY), "--seed", "9",
+                     "--schedule", sched, "--ckpt-dir", ckpt_dir,
+                     "--report-out", report], f"the drill ({tag})",
+                    phase="chaos", timeout=CHAOS_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    log = out.stdout + out.stderr
+    with open(report) as f:
+        rep = json.load(f)
+    timing = json.loads(log.split("[chaos-runner] timing: ")[1]
+                        .splitlines()[0])
+    retained = {s: ckpt.verify_checkpoint(ckpt_dir, s)
+                for s in ckpt.retained_steps(ckpt_dir)}
+    fired = {e.split("@")[0] for e in rep["events"]}
+    missing = [line for line in CHAOS_LOG if line not in log]
+    if not (rep["completed"] and rep["final_step"] == CHAOS_STEPS
+            and rep["final_ckpt_ok"] and rep["restarts"] == 1
+            and rep["breaker_sites"] == ["pssa.qkv"]
+            and fired == {"chaos.grad", "chaos.kernel.pssa.qkv",
+                          "chaos.step", "chaos.ckpt"}
+            and not missing and retained
+            and not any(retained.values())):
+        fail(f"chaos drill {tag}: report {rep}, log lines missing "
+             f"{missing}, retained checkpoints {retained}: "
+             f"{log[-3000:]}")
+    ms = [m for _, m in timing["step_ms"]]
+    return {"report": rep, "seconds": seconds,
+            "step_ms": timing["step_ms"],
+            "step_ms_median": sorted(ms)[len(ms) // 2],
+            "peak_memory_bytes": timing["peak_memory_bytes"],
+            "retained": sorted(retained)}
+
+
+def grad_step_run(cfg, params, state, batch, schedule=None) -> dict:
+    """One BPTT step (``spikingformer_grad_step``, the training step's
+    gradient function) of ``cfg`` on ``batch``, under ``schedule`` when
+    given: loss, gradients, new BN state, the launches counted from 0 just
+    before it, and the injector's events."""
+    reset_launch_counts()                    # the path starts here
+    with (chaos(schedule) if schedule is not None
+          else contextlib.nullcontext()) as inj:
+        grads, new_state, metrics = spikingformer_grad_step(
+            params, state, batch["images"], batch["labels"], cfg)
+        torch.cuda.synchronize()
+    return {"loss": metrics["loss"], "grads": grads, "state": new_state,
+            "counts": launch_counts(),       # ... and ends here
+            "events": list(inj.events) if inj is not None else []}
+
+
+def chaos_demotion(seed: int) -> dict:
+    """A ``chaos.kernel.pssa.qkv`` fault at index 0 in one training step of
+    ``PRESET`` at batch ``BATCH`` under ``cuda-full``, in this process,
+    against the step from the same weights with the policy override
+    ``pssa.qkv: eager`` and against the clean step: loss, every gradient
+    leaf and the BN state bit-equal to the override's (both take the eager
+    pipeline at that site and the kernels everywhere else); the launches
+    per kernel those the plan gives. The trip shows in ``breaker_trips``,
+    ``describe_execution`` and ``audit_breaker``, and is cleared before the
+    next phase."""
+    from repro_torch.analysis.audit import audit_breaker
+    cfg = get_spikingformer_config(PRESET + "@cuda-full")
+    pinned = cfg.with_policy(cfg.policy.with_sites({"pssa.qkv": "eager"}))
+    depth = cfg.num_layers
+    params, state = init_spikingformer(torch.Generator().manual_seed(seed),
+                                       cfg, DEVICE)
+    data = SyntheticVision(VisionDataConfig(
+        image_size=cfg.image_size, num_classes=cfg.num_classes,
+        global_batch=BATCH, channels=cfg.in_channels, seed=seed))
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in data.batch(0).items()}
+    if breaker_trips():
+        fail(f"chaos: a site is tripped before the phase: {breaker_trips()}")
+    clean = grad_step_run(cfg, params, state, batch)
+    faulted = grad_step_run(cfg, params, state, batch, FaultSchedule(
+        seed=seed, faults=(FaultSpec("chaos.kernel.pssa.qkv", 0, "raise"),)))
+    trips = breaker_trips()
+    described = "pssa.qkv,linear_bn,fused_epilogue,eager,ChaosKernelFault" \
+        in cfg.describe_execution()
+    audit = [(f.check, f.level, f.where) for f in audit_breaker()]
+    reset_breaker()
+    pinned_run = grad_step_run(pinned, params, state, batch)
+    after_reset = breaker_trips()
+    # pssa.qkv is the q, k and v neuron layers of each block: each demoted
+    # call drops a neuron_layer_train launch, its replay in the backward
+    # and the backward's bn_bwd (the eager BN's backward is autograd's
+    # plain ops); the pipeline's SOMA forward and GRAD take the place of
+    # the replay's lif_soma_fwd and lif_soma_bwd one for one
+    want = dict(clean["counts"])
+    want["neuron_layer_train"] -= 2 * 3 * depth
+    want["bn_bwd"] -= 3 * depth
+    bits = {
+        "loss": torch.equal(faulted["loss"], pinned_run["loss"]),
+        "grads": all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(faulted["grads"]), tree_leaves(pinned_run["grads"]))),
+        "bn_state": all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(faulted["state"]), tree_leaves(pinned_run["state"])))}
+    result = {
+        "bit_equal_to_pinned": bits, "events": faulted["events"],
+        "trips": sorted(trips), "describe_execution": described,
+        "audit_breaker": audit, "trips_after_reset": sorted(after_reset),
+        "launches_clean": clean["counts"],
+        "launches_faulted": faulted["counts"],
+        "launches_pinned": pinned_run["counts"],
+        "launches_want": want,
+        "clean_launches_per_train_step": clean["counts"] == per_train_step(
+            depth, cfg.tokenizer_stages),
+        "loss_clean": float(clean["loss"]),
+        "loss_faulted": float(faulted["loss"])}
+    if not (all(bits.values()) and set(trips) == {"pssa.qkv"}
+            and faulted["events"] == ["chaos.kernel.pssa.qkv@0:raise"]
+            and described and audit == [("audit.breaker", "warning",
+                                         "pssa.qkv")]
+            and after_reset == {} and faulted["counts"] == want
+            and pinned_run["counts"] == want
+            and result["clean_launches_per_train_step"]):
+        fail(f"chaos demotion: {result}")
+    return result
+
+
+def chaos_serve(seed: int) -> dict:
+    """``LM_ARCH`` + LIF under ``cuda-full`` serving the ``lm`` phase's 16
+    requests with a ``chaos.serving.slot`` fault at slot ``CHAOS_SLOT``'s
+    ``CHAOS_TOKEN``-th sampling step: exactly request 0 ends ``faulted`` /
+    ``numeric_fault`` with the clean run's first tokens, every other one
+    the clean run's tokens (``SERVED``, whatever slot and step it is
+    admitted at), every slot free at the end, the reference's event, one
+    ``lif_soma_fwd`` a layer a step."""
+    cfg = lm_config("cuda-full")
+    clean = SERVED[LM_ARCH]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = split_tree(init_lm(gen, lm_config("eager"), DEVICE))[0]
+    reqs = lm_requests(cfg.vocab_size, seed)
+    step = len(reqs[0][0]) - 1 + CHAOS_TOKEN
+    engine = ServingEngine(params, cfg, slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
+    for uid, (prompt, new) in enumerate(reqs):
+        if not engine.submit(Request(uid=uid, prompt=prompt,
+                                     max_new_tokens=new)):
+            fail(f"chaos serve: request {uid} rejected")
+    torch.cuda.synchronize()
+    reset_launch_counts()                    # the path starts here
+    t0 = time.perf_counter()
+    with chaos(FaultSchedule(seed=seed, faults=(FaultSpec(
+            "chaos.serving.slot", step, "nan", value=float(CHAOS_SLOT)),))) \
+            as inj:
+        engine.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()                 # ... and ends here
+    bad = engine.faulted
+    done = {r.uid: r.output for r in engine.finished}
+    others = all(done.get(u) == clean[u] for u in clean if u != 0)
+    result = {
+        "fault_step": step, "events": list(inj.events),
+        "faulted": [(r.uid, r.status, r.reason, len(r.output))
+                    for r in bad],
+        "faulted_tokens_are_clean_prefix": bool(bad) and bad[0].output ==
+        clean[0][:len(bad[0].output)],
+        "finished": len(engine.finished), "others_tokens_equal": others,
+        "free_slots": engine.sched.free_slots(), "steps": engine.step_count,
+        "wall_s": wall, "launches": counts}
+    if not (result["faulted"] == [(0, "faulted", "numeric_fault",
+                                   CHAOS_TOKEN)]
+            and result["faulted_tokens_are_clean_prefix"] and others
+            and len(engine.finished) == LM_REQUESTS - 1
+            and result["free_slots"] == list(range(LM_SLOTS))
+            and result["events"] == [f"chaos.serving.slot@{step}:nan "
+                                     f"slot={CHAOS_SLOT}"]
+            and counts == lm_expected(cfg.num_layers * engine.step_count)):
+        fail(f"chaos serve: {result}")
+    return result
+
+
+def chaos_phase(seed: int, smi: str) -> None:
+    """The chaos harness on the card (``repro_torch.chaos``): the drill
+    twice (:func:`chaos_drill`), each run's events and loss history equal
+    to the other's (NaN equal to NaN, the rest bit for bit); the breaker's
+    demotion in this process (:func:`chaos_demotion`), no trip left after
+    it; the serving quarantine (:func:`chaos_serve`). Prints the ``chaos``
+    line."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = [chaos_drill(tmp, tag) for tag in ("run1", "run2")]
+    a, b = (r["report"] for r in runs)
+    same = a["events"] == b["events"] and len(a["history"]) == len(
+        b["history"]) and all((math.isnan(x) and math.isnan(y)) or x == y
+                              for x, y in zip(a["history"], b["history"]))
+    if not same:
+        fail(f"chaos drill: the two replays differ: {a} against {b}")
+    t1 = time.perf_counter()
+    demotion = chaos_demotion(seed)
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    serve = chaos_serve(seed)
+    torch.cuda.empty_cache()
+    emit("chaos", card=smi, preset=f"{PRESET}@cuda-full", batch=BATCH,
+         schedule=json.loads(CHAOS_SCHEDULE.to_json()),
+         drill={"replays_equal": same, "runs": runs},
+         demotion=demotion, serving=serve,
+         seconds={"drill": t1 - t0, "demotion": t2 - t1,
+                  "serving": time.perf_counter() - t2,
+                  "phase": time.perf_counter() - t0})
 
 
 # ---------------------------------------------------------------------------
@@ -3813,15 +4079,17 @@ def dryrun_child(path: str) -> None:
         json.dump(out, f)
 
 
-def run_child(cmd: list[str], what: str) -> subprocess.CompletedProcess:
+def run_child(cmd: list[str], what: str, phase: str = "dryrun",
+              timeout: float = DRYRUN_TIMEOUT_S) -> subprocess.CompletedProcess:
     """``cmd`` in a process of its own with ``src`` on its path; fails the
-    script on a non-zero exit."""
+    script on a non-zero exit (``phase`` names the phase) and kills the
+    process past ``timeout`` seconds."""
     env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent
                                            / "src")}
     out = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                         timeout=DRYRUN_TIMEOUT_S)
+                         timeout=timeout)
     if out.returncode != 0:
-        fail(f"dryrun: {what} exited {out.returncode}: "
+        fail(f"{phase}: {what} exited {out.returncode}: "
              f"{(out.stdout + out.stderr)[-3000:]}")
     return out
 
@@ -4104,6 +4372,8 @@ def main() -> None:
         torch.cuda.empty_cache()
     lm_launches({k: cases[k] for k in ("lif_soma_fwd", "lif_soma_bwd")},
                 lm_counts, path_steps)
+    chaos_phase(args.seed, smi)
+    torch.cuda.empty_cache()
     mesh_counts, split_cases = mesh_train_phase(args.seed, BATCH, smi)
     torch.cuda.empty_cache()
     tp_phase(args.seed, BATCH, cases, smi)

@@ -399,11 +399,18 @@ def audit_mesh_plans(presets: Sequence[str] | None = None,
 
 
 def audit_breaker() -> list[Finding]:
-    """Circuit-breaker trips in this process (``audit.breaker``). The port
-    has no per-site circuit breaker yet (ROADMAP A13: its dispatch calls
-    the resolved implementation and lets it raise), so there is nothing to
-    report and this returns no rows until the breaker comes."""
-    return []
+    """Every circuit-breaker trip in this process (``audit.breaker``), one
+    warning each: a tripped site took an injected ``chaos.kernel`` fault
+    and the run served its eager arm from then on
+    (``core.policy.dispatch_site``). Empty when no site tripped, as in a
+    fresh process; an audit in the process after a training or serving run
+    shows the demotions beside the plan's findings."""
+    from repro_torch.core.policy import breaker_trips
+
+    return [warning("audit.breaker", site,
+                    f"impl {t.impl!r} (op {t.op}) tripped -> {t.fallback!r}: "
+                    f"{t.error}")
+            for site, t in sorted(breaker_trips().items())]
 
 
 def run_audit(*, batch: int = 1,

@@ -27,9 +27,20 @@ Resolution precedence for ``resolve(site, op)``:
 Packing constraints (the bit-packed spike kernels need their contraction
 dim to be a multiple of 8, and a spike-valued operand) are resolved **once,
 at policy-validation time** via :func:`plan_sites`. Those demotions are
-decisions taken from shapes, not error handling: this module has no circuit
-breaker, and :func:`dispatch_kernel` calls the resolved implementation and
-lets it raise.
+decisions taken from shapes, not error handling.
+
+Dispatch goes through a per-site **circuit breaker**
+(:func:`dispatch_site`, the reference's), with a stricter rule than the
+reference's: it catches an injected ``chaos.kernel.<site>`` fault
+(:class:`repro_torch.chaos.inject.ChaosKernelFault`, raised at dispatch
+before the implementation launches anything) and nothing else. The trip
+demotes the site to its eager arm for the rest of the process, logs at
+WARNING and is recorded (:func:`breaker_trips`, :func:`describe_breaker`,
+``analysis.audit.audit_breaker``). Every other exception of an
+implementation (a build, launch, CUDA or shape error) propagates unchanged
+and trips nothing: a CUDA tensor never falls back to the plain arm because
+a kernel failed. The reference demotes on any exception; under every
+schedule the two behave alike.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ import logging
 import os
 from typing import Any, Callable, Iterable, Mapping, Sequence
 
+from repro_torch.chaos import inject as _chaos_inject
 from repro_torch.core.backend import BACKENDS, validate_backend
 
 logger = logging.getLogger("repro_torch.execution")
@@ -307,10 +319,100 @@ def runtime_fallback(site: str, impl: str, reason: str,
             "time: %s", site, impl, reason)
 
 
+# ---------------------------------------------------------------------------
+# Per-site circuit breaker (guarded dispatch)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BreakerTrip:
+    """Record of one tripped dispatch site: which impl was faulted, what it
+    was demoted to, and the stringified fault."""
+
+    site: str
+    op: str
+    impl: str
+    fallback: str
+    error: str
+
+
+#: site -> trip record. Module-global on purpose: a tripped site stays
+#: demoted for the rest of the process (every later call, every restart of
+#: the train loop in the process), as in the reference.
+_BREAKER_TRIPS: dict[str, BreakerTrip] = {}
+
+
+def breaker_trips() -> dict[str, BreakerTrip]:
+    """Snapshot of every tripped site (empty in a healthy process)."""
+    return dict(_BREAKER_TRIPS)
+
+
+def reset_breaker() -> None:
+    """Clear all trips (tests / explicit operator reset)."""
+    _BREAKER_TRIPS.clear()
+
+
+def describe_breaker() -> str:
+    """The tripped-site table (one line per site; the empty string when
+    nothing tripped), appended to ``describe_execution``."""
+    if not _BREAKER_TRIPS:
+        return ""
+    lines = ["# circuit breaker: demoted sites",
+             "site,op,impl,fallback,error"]
+    for site in sorted(_BREAKER_TRIPS):
+        t = _BREAKER_TRIPS[site]
+        lines.append(f"{t.site},{t.op},{t.impl},{t.fallback},"
+                     f"{t.error.splitlines()[0] if t.error else ''}")
+    return "\n".join(lines)
+
+
+def dispatch_site(site: str, op: str, impl: str, invoke: Callable[[], Any],
+                  *, fallback_impl: str | None = None,
+                  fallback_invoke: Callable[[], Any] | None = None) -> Any:
+    """Run ``invoke()`` (the resolved impl for ``site``) behind the per-site
+    circuit breaker.
+
+    The chaos hook runs first (``chaos.inject.kernel_fault``: a no-op
+    without an active schedule; with one, it counts the site's dispatches
+    and raises ``ChaosKernelFault`` when one is due). That fault, from the
+    hook or from a nested site inside ``invoke()``, trips the site: it is
+    logged, recorded in :func:`breaker_trips`, and ``fallback_invoke()``
+    (the site's eager path) serves this call and every later one. With no
+    distinct fallback (``impl`` already is the eager arm) the fault
+    propagates: there is nothing to demote to. Any other exception
+    propagates and trips nothing.
+
+    ``fallback_invoke`` exists beside ``fallback_impl`` because a demotion
+    can change the calling convention: the fused-epilogue neuron layer
+    absorbs the trailing LIF, so its fallback is the eager pipeline, not a
+    same-signature impl swap.
+    """
+    guarded = (fallback_invoke is not None and fallback_impl is not None
+               and fallback_impl != impl)
+    if guarded and site in _BREAKER_TRIPS:
+        return fallback_invoke()
+    try:
+        _chaos_inject.kernel_fault(site)
+        return invoke()
+    except _chaos_inject.ChaosKernelFault as e:
+        if not guarded:
+            raise
+        _BREAKER_TRIPS[site] = BreakerTrip(
+            site, op, impl, fallback_impl, f"{type(e).__name__}: {e}")
+        logger.warning(
+            "circuit breaker: site %s impl %r raised at dispatch "
+            "(%s: %s) — demoted to %r for the rest of the run",
+            site, impl, type(e).__name__, e, fallback_impl)
+    return fallback_invoke()
+
+
 def dispatch_kernel(site: str, op: str, impl: str, *args: Any) -> Any:
-    """Call the registered ``(op, impl)`` implementation with ``*args``.
-    An implementation that raises, raises: nothing is demoted here."""
-    return get_kernel(op, impl)(*args)
+    """Guarded dispatch where the eager arm shares the impl's signature:
+    the registered ``(op, impl)`` called with ``*args`` behind the breaker,
+    ``(op, default_impl(op, "eager"))`` its fallback."""
+    ref = default_impl(op, "eager")
+    return dispatch_site(
+        site, op, impl, lambda: get_kernel(op, impl)(*args),
+        fallback_impl=ref, fallback_invoke=lambda: get_kernel(op, ref)(*args))
 
 
 # ---------------------------------------------------------------------------
@@ -509,13 +611,14 @@ def default_policy() -> ExecutionPolicy:
 
 
 __all__ = [
-    "BACKENDS", "CONTRACT_EXEMPT_IMPLS", "ExecutionPolicy",
+    "BACKENDS", "BreakerTrip", "CONTRACT_EXEMPT_IMPLS", "ExecutionPolicy",
     "FUSED_EPILOGUE_IMPLS", "IMPL_FROM_JAX",
     "NAMED_POLICIES", "OPS", "POLICY_FROM_JAX", "SiteDecision",
-    "available_impls", "default_impl", "default_policy", "dispatch_kernel",
+    "available_impls", "breaker_trips", "default_impl", "default_policy",
+    "describe_breaker", "dispatch_kernel", "dispatch_site",
     "fused_epilogue_fallback", "get_kernel", "known_site_keys",
     "list_named_policies", "log_fallbacks", "named_policy",
     "packed_fallback", "plan_sites", "register_kernel",
-    "register_site_table", "registered_kernels", "runtime_fallback",
-    "site_tables", "unregister_kernel",
+    "register_site_table", "registered_kernels", "reset_breaker",
+    "runtime_fallback", "site_tables", "unregister_kernel",
 ]

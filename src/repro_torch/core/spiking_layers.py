@@ -32,7 +32,8 @@ import torch
 from repro_torch.core.backend import fold_rows, fold_time_major
 from repro_torch.core.lif import LIFConfig, lif_scan
 from repro_torch.core.policy import (ExecutionPolicy, FUSED_EPILOGUE_IMPLS,
-                                     dispatch_kernel, fused_epilogue_fallback,
+                                     dispatch_kernel, dispatch_site,
+                                     fused_epilogue_fallback,
                                      get_kernel, register_kernel,
                                      runtime_fallback)
 from repro_torch.launch.mesh import (AllReduceSum, batch_group,
@@ -343,9 +344,21 @@ def linear_bn_lif_apply(params: Params, state: State, x: torch.Tensor,
     3 launches collapse to 1 — unless, in train mode, the active tuned
     table measured the pipeline arm as faster there. Otherwise this is the
     pipeline: ``linear_bn`` dispatch, then ``lif_scan``.
+
+    Every arm dispatches behind the circuit breaker
+    (:func:`~repro_torch.core.policy.dispatch_site`). A tripped
+    fused-epilogue site falls back to the eager *pipeline*: eager
+    ``linear_bn``, then ``lif_scan`` at ``lif_site`` under the policy (the
+    reference's ``_pipeline("jnp")``).
     """
     policy = policy if policy is not None else ExecutionPolicy()
     impl = policy.resolve(site, "linear_bn")
+    args = (params, state, x, train, policy, site)
+
+    def pipeline(pipe_impl):
+        y, st = dispatch_kernel(site, "linear_bn", pipe_impl, *args)
+        return lif_scan(y, lif_cfg, site=lif_site), st
+
     if impl in FUSED_EPILOGUE_IMPLS and train:
         # the tuner measures the train arms: a table entry may prefer the
         # pipeline, whose spike matmul then runs the entry's tile
@@ -356,15 +369,20 @@ def linear_bn_lif_apply(params: Params, state: State, x: torch.Tensor,
             (x.shape[0], math.prod(x.shape[1:-1]), x.shape[-1], k),
             x.shape[-1] % 8 == 0, policy, x.device, fb)
         if tb is not None:
-            y, st = get_kernel("linear_bn", fb)(params, state, x, train,
-                                                policy, site, tb.tile())
+            y, st = dispatch_site(
+                site, "linear_bn", fb,
+                lambda: get_kernel("linear_bn", fb)(*args, tb.tile()),
+                fallback_impl="eager",
+                fallback_invoke=lambda: get_kernel("linear_bn", "eager")(
+                    *args))
             return lif_scan(y, lif_cfg, site=lif_site), st
     if impl in FUSED_EPILOGUE_IMPLS:
-        return get_kernel("linear_bn", impl)(params, state, x, lif_cfg, train,
-                                             policy, site)
-    y, st = dispatch_kernel(site, "linear_bn", impl, params, state, x, train,
-                            policy, site)
-    return lif_scan(y, lif_cfg, site=lif_site), st
+        return dispatch_site(
+            site, "linear_bn", impl,
+            lambda: get_kernel("linear_bn", impl)(params, state, x, lif_cfg,
+                                                  train, policy, site),
+            fallback_impl="eager", fallback_invoke=lambda: pipeline("eager"))
+    return pipeline(impl)
 
 
 # ---------------------------------------------------------------------------

@@ -25,8 +25,9 @@ import torch.utils.checkpoint
 
 from repro_torch.core.backend import resolve_device
 from repro_torch.core.lif import LIFConfig, lif_scan
-from repro_torch.core.policy import (ExecutionPolicy, dispatch_kernel,
-                                     plan_sites, register_kernel,
+from repro_torch.core.policy import (ExecutionPolicy, describe_breaker,
+                                     dispatch_kernel, plan_sites,
+                                     register_kernel,
                                      register_site_table, runtime_fallback)
 from repro_torch.launch.mesh import P, map_specs
 from repro_torch.core.spiking_layers import (BlockConfig, _bn_cuda,
@@ -199,14 +200,18 @@ class SpikingFormerConfig:
         return rows
 
     def describe_execution(self, mesh=None) -> str:
-        """The per-site dispatch table, followed by the active tuned-block
-        table's entries for this model's sites (``repro_torch.tune``: the
-        tiles and arms kernel dispatch will take), then the sharding plan
-        (:meth:`describe_sharding`)."""
+        """The per-site dispatch table, the circuit breaker's demoted sites
+        (when a site tripped in this process, ``policy.describe_breaker``),
+        the active tuned-block table's entries for this model's sites
+        (``repro_torch.tune``: the tiles and arms kernel dispatch will
+        take), then the sharding plan (:meth:`describe_sharding`)."""
         rows = self.execution_plan()
-        return self.policy.describe(rows=rows) + "\n\n" + \
-            describe_tuned([r.site for r in rows]) + "\n\n" + \
-            self.describe_sharding(mesh)
+        out = self.policy.describe(rows=rows)
+        breaker = describe_breaker()
+        if breaker:
+            out = out + "\n\n" + breaker
+        return out + "\n\n" + describe_tuned([r.site for r in rows]) + \
+            "\n\n" + self.describe_sharding(mesh)
 
     def describe_sharding(self, mesh=None) -> str:
         """The sharding half of the execution report: the activation specs

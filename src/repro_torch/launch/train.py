@@ -16,9 +16,13 @@ run through the same driver and the one train-step factory.
 It runs on the CUDA device unless ``--device cpu`` is given, and raises
 where there is none. As in the reference, the LM path checkpoints the
 parameters (a resumed run starts a fresh optimizer state) and the vision
-path the parameters, BN state and optimizer state. No fault injection
-(ROADMAP A13). The audio family (``whisper-large-v3``) trains on zero
-frame embeddings, the VLM stub on zero patches, as in the reference.
+path the parameters, BN state and optimizer state. A fault schedule
+(``--chaos-schedule``, a JSON file or inline JSON, or ``$CHAOS_SCHEDULE``;
+``repro_torch.chaos``) is activated as the reference's driver activates
+it: the ``chaos.step`` hook runs at the top of each step, the
+``chaos.grad`` hook on each step's host batch. The audio family
+(``whisper-large-v3``) trains on zero frame embeddings, the VLM stub on
+zero patches, as in the reference.
 
 Data and tensor parallel over several GPUs, one process each:
 
@@ -42,6 +46,7 @@ import os
 
 import torch
 
+from repro_torch.chaos import inject as chaos_inject
 from repro_torch.configs.registry import get_config, list_configs, reduced
 from repro_torch.core.backend import resolve_device
 from repro_torch.launch.mesh import local_shard, map_specs
@@ -193,6 +198,7 @@ def _drive(*, start: int, steps: int, step_once, save, log_line,
     pending_save = None
     try:
         for step in range(start, steps):
+            chaos_inject.step_fault(step)
             monitor.step_start()
             metrics = step_once(step)
             history.append(float(metrics["loss"]))
@@ -265,7 +271,8 @@ def train_vision(cfg, *, steps: int, global_batch: int,
 
     def step_once(step):
         nonlocal params, state, opt_state
-        batch = place_batch(data.batch(step), mesh, device)
+        batch = place_batch(chaos_inject.poison_batch(data.batch(step), step),
+                            mesh, device)
         params, state, opt_state, metrics = step_fn(
             params, state, opt_state, batch["images"], batch["labels"])
         return metrics
@@ -343,7 +350,8 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int = 128,
         nonlocal params, opt_state
         params, opt_state, metrics = step_fn(
             params, opt_state,
-            lm_step_batch(cfg, data.batch(step), device, mesh))
+            lm_step_batch(cfg, chaos_inject.poison_batch(data.batch(step),
+                                                         step), device, mesh))
         return metrics
 
     def save(step):
@@ -412,7 +420,9 @@ def main(argv=None) -> None:
     ap.add_argument("--time-chunk", type=int, default=None,
                     help="temporal tile length for spikingformer BPTT")
     ap.add_argument("--chaos-schedule", default=None,
-                    help="fault-injection schedule: not ported (ROADMAP A13)")
+                    help="fault-injection schedule (JSON file or inline "
+                         "JSON; also honored via $CHAOS_SCHEDULE); see "
+                         "repro_torch.chaos")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA device; 'cpu' runs the plain "
                          "PyTorch versions of the kernels")
@@ -420,10 +430,10 @@ def main(argv=None) -> None:
                     help="ranks of the mesh's model axis under torchrun "
                          "(the mesh is (world / model, model))")
     args = ap.parse_args(argv)
-    if args.chaos_schedule or os.environ.get("CHAOS_SCHEDULE"):
-        raise NotImplementedError(
-            "fault injection (--chaos-schedule, $CHAOS_SCHEDULE) is not "
-            "ported yet (ROADMAP A13)")
+    if args.chaos_schedule:
+        chaos_inject.activate(chaos_inject.load_schedule(args.chaos_schedule))
+    else:
+        chaos_inject.activate_from_env()
     cfg = _resolve_config(args)
     mesh = None
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:   # torchrun

@@ -24,9 +24,10 @@
 * **Slot quarantine.** Non-finite logits in a slot finish that request with
   the explicit ``faulted``/``numeric_fault`` status, evict it and flush the
   slot state to init, so one bad slot never poisons its neighbours or the
-  next occupant.
-
-The reference's chaos hooks are not ported yet (ROADMAP A13).
+  next occupant. A ``chaos.serving.slot`` fault
+  (``chaos.inject.serving_fault``) poisons one slot's row of the host copy
+  of the logits before sampling, where the reference puts it, to exercise
+  the quarantine.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.tracing import signature_of
+from repro_torch.chaos import inject as chaos_inject
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.backend import resolve_device
 from repro_torch.models.lm import (cache_slot_state, init_cache,
@@ -203,7 +205,7 @@ class ServingEngine:
                 self._prefill_idx[slot] += 1
                 continue
             if lg is None:
-                lg = logits.cpu().numpy()
+                lg = chaos_inject.serving_fault(logits.cpu().numpy(), now)
             row = lg[slot]
             if not np.all(np.isfinite(row)):
                 self._quarantine(slot, req)

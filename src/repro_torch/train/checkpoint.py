@@ -41,7 +41,10 @@ model-axis size to the restoring mesh's: a reshape where the experts
 divide over both sizes; where either size exceeds the expert count,
 ``w_down`` comes back with C5's layout, as the reference's would.
 
-Not ported: the reference's fault-injection hooks (ROADMAP A13).
+The reference's fault-injection hooks (``chaos.inject.ckpt_fault``) sit
+where it puts them: right after a step's atomic publish, in the writing
+process alone, and at the top of :func:`verify_checkpoint` and
+:func:`restore_checkpoint`; each is a no-op without an active schedule.
 """
 from __future__ import annotations
 
@@ -55,6 +58,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.chaos import inject as _chaos
 
 #: numpy's descriptor for a bfloat16 array as the reference writes it; a
 #: bfloat16 leaf lives on the host as raw two-byte ``V2`` elements.
@@ -218,6 +223,7 @@ def save_checkpoint(directory: str, step: int, tree: Any,
             shutil.rmtree(final)
         os.rename(tmp, final)                        # atomic publish
         _fsync_dir(directory)
+        _chaos.ckpt_fault(final, step, "write")
         _apply_retention(directory, keep)
 
     if async_save:
@@ -287,6 +293,7 @@ def verify_checkpoint(directory: str, step: int) -> list[str]:
     entry verify by loadability alone.
     """
     path = os.path.join(directory, f"step_{step:08d}")
+    _chaos.ckpt_fault(path, step, "read")
     try:
         with open(os.path.join(path, "index.json")) as f:
             index = json.load(f)
@@ -333,6 +340,7 @@ def restore_checkpoint(directory: str, step: int, like: Any, mesh=None,
     docstring says where that inherits ROADMAP C5)."""
     new_m = mesh.shape.get("model", 1) if mesh is not None else 1
     path = os.path.join(directory, f"step_{step:08d}")
+    _chaos.ckpt_fault(path, step, "read")
     with open(os.path.join(path, "index.json")) as f:
         index = json.load(f)
     spec_map = _spec_map(specs) if specs is not None else \

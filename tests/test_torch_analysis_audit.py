@@ -176,5 +176,27 @@ def test_mesh_audit_renders_on_the_shapes_the_ranks_hold(shapes, expect):
     assert not dist.is_initialized()
 
 
-def test_the_breaker_audit_reports_nothing_until_the_breaker_exists():
+def test_the_breaker_audit_reports_one_warning_a_trip_and_none_without():
+    from repro_torch.chaos.inject import chaos
+    from repro_torch.chaos.schedule import FaultSchedule, FaultSpec
+    from repro_torch.core.policy import dispatch_site, reset_breaker
+
+    reset_breaker()
+    assert audit_breaker() == []
+    try:
+        with chaos(FaultSchedule(faults=tuple(
+                FaultSpec(f"chaos.kernel.{s}", 0, "raise")
+                for s in ("pssa.qkv", "smlp.a")))):
+            for site in ("pssa.qkv", "smlp.a", "pssa.qkv"):
+                dispatch_site(site, "linear_bn", "cuda", lambda: "kernel",
+                              fallback_impl="eager",
+                              fallback_invoke=lambda: "eager")
+        rows = audit_breaker()
+        assert [(f.check, f.level, f.where) for f in rows] == [
+            ("audit.breaker", "warning", "pssa.qkv"),
+            ("audit.breaker", "warning", "smlp.a")]
+        assert rows[0].message.startswith(
+            "impl 'cuda' (op linear_bn) tripped -> 'eager': ChaosKernelFault")
+    finally:
+        reset_breaker()
     assert audit_breaker() == []

@@ -1245,3 +1245,84 @@ def test_the_launch_family_runs_clean_on_the_card():
     assert launch_family_ran(findings)
     assert [f.format() for f in findings if f.level == "error"] == []
     assert launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_a_chaos_fault_at_a_cuda_site_trips_the_breaker():
+    """``chaos.kernel.pssa.qkv`` in one training step of
+    ``spikingformer-smoke`` under ``cuda-full`` on the card: the site
+    demotes to the eager pipeline, so loss and every gradient leaf equal
+    those of the step with ``pssa.qkv: eager``; the demoted neuron layers'
+    launches (each a forward, its replay and its ``bn_bwd``) go, the other
+    kernels keep theirs."""
+    from repro_torch.chaos import FaultSchedule, FaultSpec, chaos
+    from repro_torch.configs import get_spikingformer_config
+    from repro_torch.core.policy import breaker_trips, reset_breaker
+    from repro_torch.core.spikingformer import (init_spikingformer,
+                                                spikingformer_grad_step,
+                                                tree_leaves)
+    dev = _card()
+    cfg = get_spikingformer_config("spikingformer-smoke@cuda-full")
+    pinned = cfg.with_policy(cfg.policy.with_sites({"pssa.qkv": "eager"}))
+    params, state = init_spikingformer(torch.Generator().manual_seed(0), cfg,
+                                       dev)
+    images = torch.rand(4, 32, 32, 3, device=dev)
+    labels = torch.tensor([0, 1, 2, 3], device=dev)
+    out = {}
+    reset_breaker()
+    try:
+        for name, c, sched in (
+                ("clean", cfg, None),
+                ("faulted", cfg, FaultSchedule(faults=(
+                    FaultSpec("chaos.kernel.pssa.qkv", 0, "raise"),))),
+                ("pinned", pinned, None)):
+            if name == "pinned":
+                assert set(breaker_trips()) == {"pssa.qkv"}
+                reset_breaker()
+            reset_launch_counts()
+            if sched is None:
+                grads, st, m = spikingformer_grad_step(params, state, images,
+                                                       labels, c)
+            else:
+                with chaos(sched) as inj:
+                    grads, st, m = spikingformer_grad_step(
+                        params, state, images, labels, c)
+                assert inj.events == ["chaos.kernel.pssa.qkv@0:raise"]
+            torch.cuda.synchronize()
+            out[name] = (m["loss"], tree_leaves(grads), tree_leaves(st),
+                         launch_counts())
+    finally:
+        reset_breaker()
+    (lf, gf, sf, cf), (lp, gp, sp, cp) = out["faulted"], out["pinned"]
+    assert torch.equal(lf, lp)
+    assert all(torch.equal(a, b) for a, b in zip(gf, gp))
+    assert all(torch.equal(a, b) for a, b in zip(sf, sp))
+    want = dict(out["clean"][3])
+    want["neuron_layer_train"] -= 2 * 3 * cfg.num_layers
+    want["bn_bwd"] -= 3 * cfg.num_layers
+    assert cf == cp == want
+
+
+@pytest.mark.cuda
+def test_a_real_kernel_error_is_not_demoted():
+    """A kernel that refuses its input raises through dispatch on the card,
+    with a chaos schedule active for another site: no fallback to the
+    eager arm, no trip."""
+    from repro_torch.chaos import FaultSchedule, FaultSpec, chaos
+    from repro_torch.core.lif import LIFConfig, lif_scan
+    from repro_torch.core.policy import breaker_trips, named_policy
+    from repro_torch.core.spiking_layers import bn_apply, init_bn
+
+    dev = _card()
+    x = torch.rand(4, 70, 32, device=dev, dtype=torch.float64)
+    bn_p, bn_s = init_bn(32, torch.float64, dev)
+    with chaos(FaultSchedule(faults=(
+            FaultSpec("chaos.kernel.smlp.a", 0, "raise"),))) as inj:
+        with pytest.raises(TypeError, match="float32"):
+            lif_scan(x, LIFConfig(policy=named_policy("cuda")),
+                     site="pssa.lif")
+        with pytest.raises(TypeError, match="float32"):
+            bn_apply(bn_p, bn_s, x, train=True, policy=named_policy("cuda"),
+                     site="tokenizer.bn")
+        assert inj.events == []
+    assert breaker_trips() == {}

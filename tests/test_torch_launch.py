@@ -154,12 +154,33 @@ def test_resolve_config_routes_lm_and_vision_names():
     assert vis.policy == named_policy("cuda")
 
 
-def test_fault_injection_is_refused(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        ttrain.main(LM + ["--chaos-schedule", "{}"])
-    monkeypatch.setenv("CHAOS_SCHEDULE", "{}")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        ttrain.main(LM)
+def test_chaos_schedule_flag_and_environment_activate_the_schedule(
+        monkeypatch, tmp_path, capsys):
+    """``--chaos-schedule`` (inline JSON or a file) and ``$CHAOS_SCHEDULE``
+    activate the schedule as the reference's driver does: a delay fault at
+    step 1 fires in the run, the flag winning over the environment."""
+    from repro_torch.chaos import inject
+    from repro_torch.chaos.schedule import FaultSchedule, FaultSpec
+
+    def sched(step):
+        return FaultSchedule(seed=step, faults=(
+            FaultSpec("chaos.step", step, "delay", value=0.001),))
+
+    path = tmp_path / "sched.json"
+    sched(2).to_file(path)
+    monkeypatch.setenv("CHAOS_SCHEDULE", sched(0).to_json())
+    try:
+        for argv, want in ((["--chaos-schedule", sched(1).to_json()], 1),
+                           (["--chaos-schedule", str(path)], 2),
+                           ([], 0)):
+            ttrain.main(LM + ["--steps", "3", "--batch", "2", "--seq", "8"]
+                        + argv)
+            inj = inject.active()
+            assert inj.schedule == sched(want)
+            assert inj.events == [f"chaos.step@{want}:delay"]
+            assert "final loss" in capsys.readouterr().out
+    finally:
+        inject.deactivate()
 
 
 def test_nonfinite_guard_budget():
