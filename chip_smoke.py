@@ -147,7 +147,19 @@ here (one step after a warm-up): the peak within 15 % of
 roofline's largest term no more than the step's device busy ms, the useful
 flops ratio at most 1.05, the kernel sites the launches; then
 ``qwen3-0.6b`` x ``decode_32k`` on ``data16`` through the module's
-command line, its terms, peak and ``fits`` printed. It
+command line, its terms, peak and ``fits`` printed. bf16 (the reference's
+kernels take it, its LMs default to it): right after the fp32 kernel cases,
+each kernel's bf16 arm at the paths' shapes against its bf16 oracle
+(``bf16_kernel_phase``; its rows join the ``kernels`` line with
+``"dtype": "bfloat16"``); after the family training phases,
+``spikingformer-8-512`` at bf16 under ``cuda-full`` (``bf16_vision``:
+REQUESTS x 16 bf16 images served, a gradient step and 2 training steps,
+the launches those of fp32, every kernel call of one forward and of the
+gradient step judged against its oracle on its own operands) and
+``qwen3-0.6b`` + LIF at its published bf16 (``lm_bf16``: the 16 requests
+with a bf16 cache, bit-equal between ``cuda-full`` and ``eager``; step 0's
+forward and loss bit-equal and each gradient leaf within 2e-2 of its
+scale; 1 + 3 driver steps). It
 needs one CUDA device and ``nvcc`` and fails (non-zero exit, no result
 line) without them. Every phase prints one JSON line; the line before the
 last but one lists the kernels, and the last line is the verdict.
@@ -230,6 +242,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 import repro_torch  # noqa: E402
+from repro_torch.analysis import contracts  # noqa: E402
 from repro_torch.configs import get_spikingformer_config  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.lif import LIFConfig, _lif_scan_eager  # noqa: E402
@@ -241,12 +254,14 @@ from repro_torch.core.spikingformer import (SpikingFormer,  # noqa: E402
                                             _index_tree, init_spikingformer,
                                             spikingformer_apply,
                                             spikingformer_grad_step,
-                                            tree_leaves, tree_paths,
-                                            tree_unflatten, value_and_grad)
-from repro_torch.kernels import (KERNELS, build, fused_bn,  # noqa: E402
-                                 launch_counts, lif_soma, neuron_layer, ops,
-                                 reset_launch_counts, set_launch_counts,
-                                 spike_matmul)
+                                            tree_leaves, tree_map,
+                                            tree_paths, tree_unflatten,
+                                            value_and_grad)
+from repro_torch.kernels import (KERNELS, build, conv_spike,  # noqa: E402
+                                 fused_bn, launch_counts, lif_soma,
+                                 neuron_layer, ops, reset_launch_counts,
+                                 set_launch_counts, spike_matmul)
+from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.models.attention import attention  # noqa: E402
 from repro_torch.models.common import (embed, layer, rmsnorm,  # noqa: E402
                                        split_tree, unembed)
@@ -419,9 +434,12 @@ def sass_chain(instrs, stores_per_step: int) -> dict[str, int]:
 @functools.lru_cache(maxsize=None)
 def lif_chain() -> dict:
     """Dependent fp32 instructions a step of each LIF kernel's ring walk
-    (the fewest over its built instantiations: ``sass_chain`` on
+    (the fewest over its built fp32 instantiations: ``sass_chain`` on
     ``cuobjdump -sass`` of the built library), and the card's maximum SM
-    clock (``nvidia-smi``)."""
+    clock (``nvidia-smi``). The bf16 instantiations do the same fp32
+    operations and a rounding after each, which ``sass_chain`` does not
+    follow: their walks' chains are at least the fp32 ones, which bound
+    them too."""
     nvcc = Path(build.find_nvcc())
     lib = build.build()
     text = subprocess.run([str(nvcc.parent / "cuobjdump"), "-sass", str(lib)],
@@ -430,7 +448,7 @@ def lif_chain() -> dict:
     for name, instrs in sass_functions(text).items():
         for kernel, ring in (("lif_soma_fwd", "lif_fwd_ring"),
                              ("lif_soma_bwd", "lif_bwd_ring")):
-            if ring in name:
+            if ring in name and "bfloat16" not in name:
                 got = sass_chain(instrs, LIF_STORES[kernel])["per_step"]
                 per_step[kernel] = min(per_step.get(kernel, got), got)
     if set(per_step) != set(LIF_STORES) or not all(per_step.values()):
@@ -1678,12 +1696,14 @@ PHASE_NAMES = {LM_ARCH: "lm", MOE_ARCH: "moe_mla", RWKV_ARCH: "rwkv",
                HYBRID_ARCH: "hybrid"}
 
 
-def lm_config(policy: str, arch: str = LM_ARCH):
-    """``arch`` at its published widths, fp32, with the LIF neuron on every
+def lm_config(policy: str, arch: str = LM_ARCH,
+              dtype: torch.dtype = torch.float32):
+    """``arch`` at its published widths, in ``dtype`` (fp32 unless the
+    bf16 phase asks for the published bf16), with the LIF neuron on every
     block's FFN / channel-mix / Mamba2 branch under ``policy``: at its
     published depth, but ``deepseek-v2-236b`` at ``MOE_LAYERS``."""
     cfg = get_config(arch).replace(
-        dtype=torch.float32, lif=LIFConfig(policy=named_policy(policy)))
+        dtype=dtype, lif=LIFConfig(policy=named_policy(policy)))
     return cfg.replace(num_layers=MOE_LAYERS) if arch == MOE_ARCH else cfg
 
 
@@ -1972,7 +1992,8 @@ def lm_requests(vocab: int, seed: int) -> list[tuple[list[int], int]]:
 
 
 def lm_serve(params, policy: str, reqs, only=None, record: bool = True,
-             arch: str = LM_ARCH, drops: list | None = None) -> dict:
+             arch: str = LM_ARCH, drops: list | None = None,
+             dtype: torch.dtype = torch.float32) -> dict:
     """Run the requests (those of ``only``, if given) to completion
     through one ``ServingEngine`` under ``policy``, a step at a time, each
     step synchronised and timed. With ``record``, keeps a host copy of
@@ -1980,9 +2001,11 @@ def lm_serve(params, policy: str, reqs, only=None, record: bool = True,
     d)) by wrapping the engine's fused step, so that the peak device memory
     is the engine's own; the copy is then in the step's time, so the times
     a user would see come from a run without it. Given ``drops``, the run
-    counts each MoE layer's dropped pairs into it (``counting_drops``)."""
-    engine = ServingEngine(params, lm_config(policy, arch), slots=LM_SLOTS,
-                           max_seq=LM_MAX_SEQ)
+    counts each MoE layer's dropped pairs into it (``counting_drops``).
+    ``dtype``: the model's (``lm_config``) and the cache's."""
+    engine = ServingEngine(params, lm_config(policy, arch, dtype),
+                           slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                           cache_dtype=dtype)
     steps: list = []
     if record:
         fused = engine._step
@@ -2245,11 +2268,12 @@ FREE_BYTES_MIN = 8e9
 
 
 def lm_train_config(policy: str, arch: str = LM_ARCH,
-                    chunk: int | None = None):
-    """``lm_config(policy, arch)`` (the audio family never reads its LIF)
-    at its training depth (``TRAIN_LAYERS``); ``chunk`` sets the hybrid's
-    SSD chunk."""
-    cfg = lm_config(policy, arch)
+                    chunk: int | None = None,
+                    dtype: torch.dtype = torch.float32):
+    """``lm_config(policy, arch, dtype)`` (the audio family never reads its
+    LIF) at its training depth (``TRAIN_LAYERS``); ``chunk`` sets the
+    hybrid's SSD chunk."""
+    cfg = lm_config(policy, arch, dtype)
     if arch in TRAIN_LAYERS:
         cfg = cfg.replace(num_layers=TRAIN_LAYERS[arch])
     if chunk is not None:
@@ -2286,13 +2310,17 @@ def grad_diff(a: torch.Tensor, b: torch.Tensor) -> dict:
     nonfinite = int((~fa).sum())
     if nonfinite or not bool(fb.all()):
         a, b = (torch.where(fa & fb, x, torch.zeros_like(x)) for x in (a, b))
+    a, b = a.float(), b.float()
     return {"bit_equal": torch.equal(a, b) and torch.equal(fa, fb),
             "rel_l2": float((a - b).norm() / b.norm().clamp_min(1e-30)),
+            "scaled_max": float((a - b).abs().max()
+                                / b.abs().max().clamp_min(1.0)),
             "nonfinite": nonfinite, "nonfinite_same": torch.equal(fa, fb)}
 
 
 def lm_grad_check(params, seed: int, arch: str = LM_ARCH,
-                  chunk: int | None = None) -> dict:
+                  chunk: int | None = None,
+                  dtype: torch.dtype = torch.float32) -> dict:
     """Step 0's loss and gradient, through the train step's own gradient
     function (``value_and_grad`` of ``lm_loss``), under ``cuda-full``
     and ``eager`` from the same weights on the driver's first batch: the
@@ -2301,8 +2329,10 @@ def lm_grad_check(params, seed: int, arch: str = LM_ARCH,
     ``LM_GRAD_LIMIT`` relative L2 (over its finite elements), with its
     non-finite elements counted and placed. With the MoE, a second
     ``cuda-full`` gradient too: its relative L2 to the first, per leaf
-    (the backward's index additions are atomic on the card), measured."""
-    cfg = lm_train_config("cuda-full", arch, chunk)
+    (the backward's index additions are atomic on the card), measured.
+    ``dtype``: the model's (the bf16 phase's gradients are held by its
+    caller, ``lm_bf16_train``)."""
+    cfg = lm_train_config("cuda-full", arch, chunk, dtype)
     batch = lm_train_batch(cfg, seed)
     (loss_c, metrics_c), grads_c = value_and_grad(lm_loss, params, batch,
                                                    cfg)
@@ -2313,7 +2343,7 @@ def lm_grad_check(params, seed: int, arch: str = LM_ARCH,
             tree_paths(grads_c), tree_leaves(grads_r), tree_leaves(grads_c))}
         del grads_r
     (loss_e, _), grads_e = value_and_grad(
-        lm_loss, params, batch, lm_train_config("eager", arch, chunk))
+        lm_loss, params, batch, lm_train_config("eager", arch, chunk, dtype))
     torch.cuda.synchronize()
     per_leaf = {name: grad_diff(a, b) for name, a, b in zip(
         tree_paths(grads_c), tree_leaves(grads_c), tree_leaves(grads_e))}
@@ -2325,6 +2355,7 @@ def lm_grad_check(params, seed: int, arch: str = LM_ARCH,
            "leaves": len(per_leaf),
            "bit_equal_leaves": sum(r["bit_equal"] for r in rows),
            "max_rel_l2": max(r["rel_l2"] for r in rows),
+           "max_scaled_err": max(r["scaled_max"] for r in rows),
            "nonfinite_elements": sum(r["nonfinite"] for r in rows),
            "nonfinite_leaves": [n for n, r in per_leaf.items()
                                 if r["nonfinite"]],
@@ -2507,6 +2538,715 @@ def lm_train_phase(seed: int, arch: str = LM_ARCH,
         fail(f"{pre}: {line['run']['cuda_full']['free_bytes']} bytes free "
              f"at the peak, want >= {FREE_BYTES_MIN:.0f}")
     return paths
+
+
+# ---------------------------------------------------------------------------
+# Phase 8a: bf16. Each kernel's bf16 arm at the paths' shapes against its
+# bf16 oracle, then the Spikingformer and the spiking LM at bf16
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+#: The LM's step-0 gradient leaves at bf16 that are not bit-equal between
+#: the policies: the kernel's eq. 12 rounds each operation in the order of
+#: the recursion, autograd through the eager scan in its own order; held
+#: at the reference's bf16 tolerance (tests/test_kernels.py), scale-aware.
+LM_BF16_GRAD_LIMIT = 2e-2
+
+
+def exact16(gen, shape, scale=64, span=4):
+    """``analysis.contracts``' exact operands, k / scale with |k| <= span,
+    in bf16: every fp32 sum of such weights under {0,1} inputs over the
+    preset's contractions is exact too (|sum| <= 2,048 * 4 / 64)."""
+    return contracts._exact(gen, shape, DEVICE, scale, span).to(BF16)
+
+
+def bf16_row(case, shape, call, operands, moved, flops, *, plain,
+             tc=False, library=None, lif=None, **checks) -> dict:
+    """A bf16 kernel case: its checks, then the wrapper's ms, its device
+    ms with the L2 cold and warm (``cold_warm``), the plain version's and
+    the library call's ms, and the bound at bf16: the bytes the call moves
+    (2-byte operands) over the memory rate, or its operations over fp32's
+    rate (elementwise) or one bf16 tensor-core pass (``tc``: 2MCK over
+    989 TFLOP/s). ``lif``: the LIF kernel whose serial chain bounds it
+    too (``lif_bound``)."""
+    row = {"case": case, "dtype": "bfloat16", "shape": shape, **checks,
+           "ms": time_ms(lambda: call(*operands)),
+           **cold_warm(call, operands, moved),
+           "plain_ms": time_ms(lambda: plain(*operands)),
+           "library_ms": time_ms(library) if library else None}
+    if lif is not None:
+        row.update(lif_bound(lif, shape[0], moved, flops))
+    else:
+        b_ms = moved / HBM_BYTES_PER_S * 1e3
+        o_ms = flops / (BF16_FLOPS if tc else FP32_FLOPS) * 1e3
+        row.update(bound_ms=max(b_ms, o_ms),
+                   bound_by="bytes" if b_ms >= o_ms else "operations")
+    return row
+
+
+def all_equal(got, want) -> bool:
+    return all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(got, want))
+
+
+def bf16_lif_cases(gen, batch: int) -> dict[str, list[dict]]:
+    """``lif_soma_fwd`` / ``_bwd`` at bf16: S, U, mask (and the carried
+    state) and dx bit-equal to the plain version and to the oracle, at the
+    Spikingformer's (4, 196 * B, 512), the LM's decode (1, 8, 1024) from a
+    carried state and training view (128, 8, 1024), and a ring call whose
+    columns a thread copies alone (D % 32 != 0: the bf16 ring's plain
+    loads); the backward also with the carry's cotangent."""
+    cfg = get_spikingformer_config(PRESET)
+    t, d, m = cfg.time_steps, cfg.d_model, batch * cfg.num_tokens
+    lm_d = get_config(LM_ARCH).d_model
+    fwd, bwd = [], []
+    shapes = [("pssa.lif/smlp.lif", t, m, d, "dense", False),
+              ("lm.ffn.lif decode", 1, LM_SLOTS, lm_d, "dense", True),
+              ("lm.ffn.lif train", LM_TRAIN_SEQ, LM_TRAIN_BATCH, lm_d, "lm",
+               False),
+              ("ring, a column a thread", 70, 8, 200, "dense", False)]
+    for case, tt, mm, dd, layout, carry in shapes:
+        x = lif_input(gen, tt, mm, dd, layout).to(BF16)
+        state = ((torch.randn((mm, dd), generator=gen, device=DEVICE) * 0.7
+                  + 0.5).to(BF16), spikes(gen, (mm, dd), 0.4).to(BF16)) \
+            if carry else ()
+        got = lif_soma.lif_soma_fwd(x, *state)
+        plain = lif_soma.lif_soma_fwd_plain(x, *state)
+        oracle = plain if carry else kref.lif_soma_fwd_ref(x)
+        torch.cuda.synchronize()
+        if not (all_equal(got, plain) and all_equal(got[:3], oracle[:3])
+                and got[0].dtype == BF16 and got[0].stride() == x.stride()):
+            fail(f"bf16 lif_soma_fwd ({case}) differs from its plain version "
+                 f"or its oracle")
+        fwd.append(bf16_row(
+            case, [tt, mm, dd], lif_soma.lif_soma_fwd, (x, *state),
+            nbytes(x, *state, *got), 6.0 * x.numel(),
+            plain=lif_soma.lif_soma_fwd_plain, lif="lif_soma_fwd",
+            layout=layout, carry=carry,
+            arm=lif_soma.choose_arm(tt, mm * dd, x.is_contiguous(), carry),
+            bitwise_plain=True, bitwise_oracle=True, max_abs_err=0.0,
+            tolerance="bitwise on S, U and mask (and u_last, s_last) against "
+                      "the plain version and kernels/ref.py"))
+        if carry:
+            continue
+        s, u, mask = plain
+        g = torch.empty_like(u).copy_(torch.randn((tt, mm, dd), generator=gen,
+                                                  device=DEVICE))
+        gu = torch.randn((mm, dd), generator=gen, device=DEVICE).to(BF16)
+        for name, gl in ((case, None), (f"{case}, carry (gu_last)", gu)):
+            ins = (g, u, s, mask, gl)
+            got_b = lif_soma.lif_soma_bwd(*ins)
+            want = lif_soma.lif_soma_bwd_plain(*ins)
+            ora = kref.lif_soma_bwd_ref(g, u, s, mask) if gl is None else \
+                kref.lif_soma_bwd_carry_ref(g, u, s, mask, gl)
+            torch.cuda.synchronize()
+            if not (torch.equal(got_b, want) and torch.equal(got_b, ora)
+                    and got_b.dtype == BF16):
+                fail(f"bf16 lif_soma_bwd ({name}) differs from its plain "
+                     f"version or its oracle")
+            bwd.append(bf16_row(
+                name, [tt, mm, dd], lif_soma.lif_soma_bwd, ins,
+                nbytes(*(a for a in ins if a is not None), got_b),
+                7.0 * x.numel(), plain=lif_soma.lif_soma_bwd_plain,
+                lif="lif_soma_bwd", layout=layout,
+                arm=lif_soma.choose_arm(tt, mm * dd, g.is_contiguous()),
+                bitwise_plain=True, bitwise_oracle=True, max_abs_err=0.0,
+                tolerance="bitwise against the plain version and "
+                          "kernels/ref.py"))
+    return {"lif_soma_fwd": fwd, "lif_soma_bwd": bwd}
+
+
+def bf16_matmul_row(case, packed, w, fn, shared_w: bool = False) -> dict:
+    """The spike matmul at bf16 on ``exact16`` weights: every fp32 sum is
+    exact, so the kernel's one rounding to bf16 gives the oracle's bits
+    (``kernels/ref.py``: unpacked spikes times the weight in fp32, rounded
+    to the weight's dtype). The same operands with Gaussian weights: within
+    one bf16 rounding of the oracle (the fp32 sums in another order may
+    round across a bf16 boundary), measured as ``bitwise_gaussian``."""
+    dense = spike_matmul.spike_unpack(packed, torch.float32)
+    got = fn(packed, w)
+    want = torch.matmul(dense, w.float()).to(BF16)
+    torch.cuda.synchronize()
+    if got.dtype != BF16 or not torch.equal(got, want):
+        fail(f"bf16 spike matmul {case}: differs from its oracle on exact "
+             f"weights (must be bitwise)")
+    wg = (torch.randn(w.shape, generator=torch.Generator(
+        device=DEVICE).manual_seed(3), device=DEVICE)
+        * w.shape[-2] ** -0.5).to(BF16)
+    wg = wg.as_strided(w.shape, w.stride()) if shared_w else wg
+    got_g = fn(packed, wg)
+    want_g = torch.matmul(dense, wg.float()).to(BF16)
+    err = (got_g.float() - want_g.float()).abs()
+    if not bool((err <= 1e-4 + contracts.BF16_RTOL
+                 * want_g.float().abs()).all()):
+        fail(f"bf16 spike matmul {case}: Gaussian weights beyond one bf16 "
+             f"rounding of the oracle ({float(err.max())})")
+    c, k = w.shape[-2:]
+    w_bytes = nbytes(w) // (w.shape[0] if shared_w else 1)
+    moved = nbytes(packed, got) + w_bytes
+    dense16 = dense.to(BF16)
+    return bf16_row(
+        case, {"packed": list(packed.shape), "w": list(w.shape)}, fn,
+        (packed, w), moved, 2.0 * got.numel() * c, tc=True,
+        plain=spike_matmul.spike_matmul_packed_plain,
+        library=lambda: torch.matmul(dense16, w),
+        bitwise_oracle=True, bitwise_gaussian=torch.equal(got_g, want_g),
+        max_abs_err=float(err.max()),
+        tolerance="bitwise on exact weights (k/64, |k| <= 4); Gaussian "
+                  "weights within one bf16 rounding (2^-7 relative)")
+
+
+def bf16_matmul_cases(gen, batch: int) -> dict[str, list[dict]]:
+    """The spike matmul's main-path sites at bf16: pssa.proj and smlp.b,
+    attn_qk on per-head views with K^T strided, and the tokenizer's shared
+    weight (zero batch stride)."""
+    cfg = get_spikingformer_config(PRESET)
+    t, d, f, h = cfg.time_steps, cfg.d_model, cfg.d_ff, cfg.n_heads
+    n, dh = cfg.num_tokens, cfg.d_model // cfg.n_heads
+    m = batch * n
+    mm, bmm = (spike_matmul.spike_matmul_packed,
+               spike_matmul.spike_matmul_packed_batched)
+    rows_2d = [bf16_matmul_row(site, spike_matmul.spike_pack(
+        spikes(gen, (t * m, c))), exact16(gen, (c, d)), mm)
+        for site, c in (("pssa.proj", d), ("smlp.b", f))]
+
+    def heads(a):
+        return a.view(t * batch, n, h, dh).permute(0, 2, 1, 3)
+
+    q = spikes(gen, (t * batch, n, d))
+    k16 = spikes(gen, (t * batch, n, d)).to(BF16)
+    rows_b = [bf16_matmul_row("attn_qk", spike_matmul.spike_pack(heads(q)),
+                              heads(k16).transpose(-1, -2), bmm)]
+    c3 = 9 * (d // 2)
+    w3 = exact16(gen, (c3, d)).unsqueeze(0).expand(t, c3, d)
+    rows_b.append(bf16_matmul_row(
+        "tokenizer.conv.3(shared w)",
+        spike_matmul.spike_pack(spikes(gen, (t, m, c3))), w3, bmm,
+        shared_w=True))
+    return {"spike_matmul_packed": rows_2d,
+            "spike_matmul_packed_batched": rows_b}
+
+
+def bf16_bn_cases(gen, batch: int) -> dict[str, list[dict]]:
+    """BN at bf16 at the blocks' (12,544, 512) and (12,544, 2,048): the
+    forward on exact inputs (k/16: every sum exact) bit-equal to the oracle
+    and on Gaussian ones within one bf16 rounding of y; the backward's dx
+    within one bf16 rounding, dgamma and dbeta within 1e-5 of their scale
+    (its sums of mi are not exact). ``library_ms``: ``F.batch_norm`` and
+    ATen's batch-norm backward on the same bf16 operands."""
+    cfg = get_spikingformer_config(PRESET)
+    m = cfg.time_steps * batch * cfg.num_tokens
+    fwd, bwd = [], []
+    for d in (cfg.d_model, cfg.d_ff):
+        gamma = torch.rand((d,), generator=gen, device=DEVICE) + 0.5
+        beta = torch.randn((d,), generator=gen, device=DEVICE) * 0.3
+        x = exact16(gen, (m, d), 16, 48)
+        got = fused_bn.bn_fwd(x, gamma, beta)
+        want = kref.bn_fwd_ref(x, gamma, beta)
+        xg = (torch.randn((m, d), generator=gen, device=DEVICE) * 2.0
+              + 0.5).to(BF16)
+        got_g = fused_bn.bn_fwd(xg, gamma, beta)
+        want_g = kref.bn_fwd_ref(xg, gamma, beta)
+        torch.cuda.synchronize()
+        err = (got_g[0].float() - want_g[0].float()).abs()
+        stats = max(rel_err(got_g[1], want_g[1]), rel_err(got_g[2], want_g[2]))
+        if not all_equal(got, want) or not bool(
+                (err <= 1e-5 + contracts.BF16_RTOL
+                 * want_g[0].float().abs()).all()) or stats > 1e-6:
+            fail(f"bf16 bn_fwd {m}x{d}: exact inputs bitwise "
+                 f"{all_equal(got, want)}, Gaussian y error "
+                 f"{float(err.max())}, statistics {stats}")
+        fwd.append(bf16_row(
+            "pssa.proj/smlp.b", [m, d], fused_bn.bn_fwd, (xg, gamma, beta),
+            nbytes(xg, gamma, beta, *got_g), 8.0 * xg.numel(),
+            plain=fused_bn.bn_fwd_plain,
+            library=lambda: F.batch_norm(xg, None, None, gamma, beta,
+                                         training=True, eps=1e-5),
+            bitwise_oracle_exact=True, max_abs_err=float(err.max()),
+            stats_rel_err=stats,
+            tolerance="bitwise on exact inputs; y within one bf16 rounding "
+                      "and mu, sqrt_d within 1e-6 of their scale on "
+                      "Gaussian inputs"))
+        g = exact16(gen, (m, d), 16, 32)
+        _, mu, sd = kref.bn_fwd_ref(x, gamma, gamma)
+        got = fused_bn.bn_bwd(g, x, gamma, mu, sd)
+        want = kref.bn_bwd_ref(g, x, gamma, mu, sd)
+        torch.cuda.synchronize()
+        err = (got[0].float() - want[0].float()).abs()
+        stats = max(rel_err(got[1], want[1]), rel_err(got[2], want[2]))
+        if got[0].dtype != BF16 or stats > 1e-5 or not bool(
+                (err <= 1e-5 + contracts.BF16_RTOL
+                 * want[0].float().abs()).all()):
+            fail(f"bf16 bn_bwd {m}x{d}: dx error {float(err.max())}, "
+                 f"dgamma/dbeta {stats}")
+        inv = (1.0 / sd).reshape(-1)
+        bwd.append(bf16_row(
+            f"{m}x{d}", [m, d], fused_bn.bn_bwd, (g, x, gamma, mu, sd),
+            nbytes(g, x, gamma, mu, sd, *got), 12.0 * x.numel(),
+            plain=fused_bn.bn_bwd_plain,
+            library=lambda: torch.ops.aten.native_batch_norm_backward(
+                g, x, gamma, None, None, mu.reshape(-1), inv, True, 1e-5,
+                [True, True, True]),
+            bitwise_oracle=torch.equal(got[0], want[0]),
+            max_abs_err=float(err.max()), stats_rel_err=stats,
+            tolerance="dx within one bf16 rounding (2^-7 relative, 1e-5 "
+                      "absolute), dgamma and dbeta within 1e-5 of their "
+                      "scale"))
+    return {"bn_fwd": fwd, "bn_bwd": bwd}
+
+
+def nl_verdict(name: str, got, args, **lif) -> dict:
+    """A neuron layer's spikes held against the oracle's membrane with the
+    band of ``analysis.contracts.spike_verdict`` (the product's tolerance,
+    and in train mode the statistics', carried to the threshold)."""
+    y, tol = contracts._nl_current(name, args)
+    return contracts.spike_verdict(got, y, tol, **lif)
+
+
+def bf16_neuron_layer_cases(gen, batch: int) -> dict[str, list[dict]]:
+    """Both neuron layers at bf16 at the block sites (pssa.qkv, smlp.a)
+    and the first tokenizer stage (dense, C = 27), on exact weights and
+    inputs: spikes the oracle's outside the band (``nl_verdict``; with
+    exact operands every z is exact and none may differ), the train
+    statistics within 1e-5 of their scale, z of the first pass bit-equal
+    to the fp32 product, and the backward's replay the emitted spikes."""
+    sites = neuron_layer_sites(batch)
+    sites = sites[-2:] + sites[:1]
+    train, ev = [], []
+    for case, t, m, c, k, packed in sites:
+        x = spikes(gen, (t, m, c)).to(BF16) if packed \
+            else exact16(gen, (t, m, c), 16, 16)
+        w = exact16(gen, (c, k))
+        gamma = (torch.rand((k,), generator=gen, device=DEVICE) * 0.4
+                 + 0.8).to(BF16)
+        beta = (torch.randn((k,), generator=gen, device=DEVICE) * 0.2
+                + 0.3).to(BF16)
+        bias = torch.randn((k,), generator=gen, device=DEVICE) * 0.1 + 0.5
+        args = (x, w, gamma, beta)
+        got = neuron_layer.neuron_layer_train(*args, packed=packed)
+        want = kref.neuron_layer_train_ref(*args)
+        verdict = nl_verdict("neuron_layer_train", got[0], args)
+        verdict["differing"] = int((got[0] != want[0]).sum())
+        stats = max(rel_err(got[1], want[1]), rel_err(got[2], want[2]))
+        z = neuron_layer.neuron_layer_train_z(x, w, packed=packed)
+        z_equal = torch.equal(z, torch.einsum("tmc,ck->tmk", x.float(),
+                                              w.float()))
+        replay = replay_mismatch(x, w, gamma, beta, packed)
+        if got[0].dtype != BF16 or verdict["wrong"] or stats > 1e-5 or \
+                not z_equal or replay:
+            fail(f"bf16 neuron_layer_train {case}: spikes {verdict}, "
+                 f"statistics {stats}, z bitwise {z_equal}, replay {replay}")
+        flops = 2.0 * t * m * c * k
+        train.append(bf16_row(
+            case, [t, m, c, k], functools.partial(
+                neuron_layer.neuron_layer_train, packed=packed), args,
+            nbytes(*args, *got), flops, tc=packed,
+            plain=neuron_layer.neuron_layer_train_plain,
+            arm="packed" if packed else "dense", spikes=verdict,
+            stats_rel_err=stats, max_abs_err=stats, z_bitwise=z_equal,
+            replay_mismatch=replay,
+            tolerance="spikes the oracle's outside the band; mu, var within "
+                      "1e-5 of their scale; z bitwise; replay bitwise"))
+        eargs = (x, w, bias)
+        got_e = neuron_layer.neuron_layer_eval(*eargs, packed=packed)
+        want_e = kref.neuron_layer_eval_ref(*eargs)
+        v_e = nl_verdict("neuron_layer_eval", got_e, eargs)
+        v_e["differing"] = int((got_e != want_e).sum())
+        if got_e.dtype != BF16 or v_e["wrong"]:
+            fail(f"bf16 neuron_layer_eval {case}: spikes {v_e}")
+        ev.append(bf16_row(
+            case, [t, m, c, k], functools.partial(
+                neuron_layer.neuron_layer_eval, packed=packed), eargs,
+            nbytes(*eargs, got_e), flops, tc=packed,
+            plain=neuron_layer.neuron_layer_eval_plain,
+            arm="packed" if packed else "dense", spikes=v_e,
+            max_abs_err=float((got_e.float() - want_e.float()).abs().max()),
+            tolerance="spikes the oracle's outside the band"))
+        torch.cuda.empty_cache()
+    return {"neuron_layer_train": train, "neuron_layer_eval": ev}
+
+
+def bf16_kernel_phase(seed: int, batch: int) -> dict[str, list[dict]]:
+    """Every kernel's bf16 arm at the main paths' shapes (batch 16 of
+    ``spikingformer-8-512``, the LM's (128, 8, 1024) and decode), held
+    against its bf16 oracle (``kernels/ref.py``) and timed as the fp32
+    cases are."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 32)
+    cases = {}
+    for part in (bf16_lif_cases, bf16_matmul_cases, bf16_bn_cases,
+                 bf16_neuron_layer_cases):
+        cases.update(part(gen, batch))
+        torch.cuda.empty_cache()
+    return cases
+
+
+def bn_fwd_verdict(args, kw, out) -> tuple[bool, float, bool]:
+    """``bn_fwd``'s statistics against the oracle's within BN_TOL of the
+    magnitudes they sum (two fp32 sums of the same column in other orders
+    part by that much, however much they cancel): mu within BN_TOL of
+    mean |x|, var within BN_TOL of mean x^2; and y, from the kernel's own
+    statistics, the oracle's elementwise formula rounded to y's dtype, bit
+    for bit. Returns ``(ok, worst error over its band, bitwise)``."""
+    x, gamma, beta = args[:3]
+    want = kref.bn_fwd_ref(x, gamma, beta, kw.get("eps", 1e-5))
+    xf = x.float()
+    s1 = xf.abs().mean(0, keepdim=True).clamp_min(1e-30)
+    s2 = (xf * xf).mean(0, keepdim=True).clamp_min(1e-30)
+    err = max(float(((out[1] - want[1]).abs() / s1).max()),
+              float(((out[2].square() - want[2].square()).abs() / s2).max()))
+    y = (gamma.float().reshape(1, -1) * (xf - out[1]) / out[2]
+         + beta.float().reshape(1, -1)).to(x.dtype)
+    return (err <= contracts.BN_TOL and torch.equal(out[0], y), err,
+            all_equal(out, want))
+
+
+def bn_bwd_verdict(args, out) -> tuple[bool, float, bool]:
+    """``bn_bwd`` against the oracle on the call's operands, each output
+    within BN_TOL of the magnitudes its sums add (eq. 20-22's in another
+    order) and dx also within one rounding to its dtype: dbeta of sum |g|,
+    dgamma of sum |mi * n| / |gamma|, dx of |n| * sum |mi * n| / (M *
+    sqrt_d^2) + sum |mi| / M. Returns ``(ok, worst error over its band,
+    bitwise)``."""
+    g, x, gamma, mu, sd = args[:5]
+    want = kref.bn_bwd_ref(g, x, gamma, mu, sd)
+    gf, gm = g.float(), gamma.float().reshape(1, -1)
+    n = x.float() - mu
+    mi = gm * gf / sd
+    a_mn = (mi * n).abs().sum(0, keepdim=True)
+    a_m = mi.abs().sum(0, keepdim=True)
+    rows = g.shape[0]
+    rtol = contracts.BF16_RTOL if out[0].dtype == BF16 else 1e-5
+    bands = (rtol * want[0].float().abs() + contracts.BN_TOL * (
+                 n.abs() * a_mn / (rows * sd * sd) + a_m / rows),
+             contracts.BN_TOL * a_mn / gm.abs(),
+             contracts.BN_TOL * gf.abs().sum(0, keepdim=True))
+    err = max(float(((a.float() - b.float()).abs()
+                     / band.clamp_min(1e-30)).max())
+              for a, b, band in zip(out, want, bands))
+    return err <= 1.0, err, all_equal(out, want)
+
+
+class SiteWalk:
+    """Inside the block, every kernel wrapper call of the model is judged
+    against its oracle on the call's own operands (``kernels/ref.py``):
+    the LIF kernels bit for bit (with a carried state, the plain version),
+    the spike matmul within one rounding to its dtype of the fp32 product,
+    BN as ``bn_fwd_verdict`` and ``bn_bwd_verdict`` hold it, a neuron
+    layer's spikes the oracle's outside the band (``nl_verdict``). ``rows``
+    per kernel: calls, the dtypes seen, calls bit-equal to the oracle, the
+    largest error (BN: over its band, at most 1) and the judged spikes;
+    ``bad``, the calls that failed. The wrappers keep their launch
+    counts."""
+
+    TARGETS = ((lif_soma, "lif_soma_fwd"), (lif_soma, "lif_soma_bwd"),
+               (spike_matmul, "spike_matmul_packed"),
+               (spike_matmul, "spike_matmul_packed_batched"),
+               (conv_spike, "spike_matmul_packed_batched"),
+               (fused_bn, "bn_fwd"), (fused_bn, "bn_bwd"),
+               (neuron_layer, "neuron_layer_eval"),
+               (neuron_layer, "neuron_layer_train_fwd"))
+
+    def __init__(self):
+        self.rows = {}
+        self.bad = []
+        self._saved = []
+
+    def _row(self, name):
+        return self.rows.setdefault(name, {
+            "calls": 0, "dtypes": [], "bitwise": 0, "max_err": 0.0,
+            "spikes": 0, "in_band": 0, "wrong": 0})
+
+    def judge(self, name, args, kw, out):
+        row = self._row(name)
+        row["calls"] += 1
+        dt = str((args[1] if name.startswith("spike_matmul") else
+                  args[0]).dtype)
+        if dt not in row["dtypes"]:
+            row["dtypes"].append(dt)
+        ok, err, bitwise = True, 0.0, False
+        lif_kw = {k: kw[k] for k in ("alpha", "th_fire") if k in kw}
+        if name == "lif_soma_fwd":
+            want = lif_soma.lif_soma_fwd_plain(*args, **kw) \
+                if len(args) > 1 and args[1] is not None else \
+                kref.lif_soma_fwd_ref(args[0], **kw)
+            bitwise = ok = all(torch.equal(a, b) for a, b in zip(out, want))
+        elif name == "lif_soma_bwd":
+            gl = args[4] if len(args) > 4 else None
+            want = kref.lif_soma_bwd_ref(*args[:4], **kw) if gl is None else \
+                kref.lif_soma_bwd_carry_ref(*args[:4], gl, **kw)
+            bitwise = ok = torch.equal(out, want)
+        elif name.startswith("spike_matmul"):
+            want = torch.matmul(spike_matmul.spike_unpack(
+                args[0], torch.float32), args[1].float()).to(out.dtype)
+            e = (out.float() - want.float()).abs()
+            rtol = contracts.BF16_RTOL if out.dtype == BF16 else 1e-5
+            ok = bool((e <= 1e-4 + rtol * want.float().abs()).all())
+            err, bitwise = float(e.max()), torch.equal(out, want)
+        elif name == "bn_fwd":
+            ok, err, bitwise = bn_fwd_verdict(args, kw, out)
+        elif name == "bn_bwd":
+            ok, err, bitwise = bn_bwd_verdict(args, out)
+        else:
+            kind = "neuron_layer_eval" if name == "neuron_layer_eval" \
+                else "neuron_layer_train"
+            s = out if kind == "neuron_layer_eval" else out[0]
+            v = nl_verdict(kind, s, args[:3 if kind == "neuron_layer_eval"
+                                         else 4], **lif_kw)
+            row["spikes"] += v["total"]
+            row["in_band"] += v["in_band"]
+            row["wrong"] += v["wrong"]
+            ok = v["wrong"] == 0
+        row["bitwise"] += bool(bitwise)
+        row["max_err"] = max(row["max_err"], err)
+        if not ok:
+            self.bad.append({"kernel": name, "dtype": dt,
+                             "shape": list(args[0].shape), "err": err})
+
+    def __enter__(self):
+        for mod, attr in self.TARGETS:
+            real = getattr(mod, attr)
+            name = "spike_matmul_packed_batched" if attr.startswith(
+                "spike_matmul_packed_batched") else attr
+
+            def spy(*args, _real=real, _name=name, **kw):
+                out = _real(*args, **kw)
+                if not args[0].is_meta:
+                    with torch.no_grad():
+                        self.judge(_name, args, {
+                            k: v for k, v in kw.items() if k in (
+                                "alpha", "th_fire", "th_lo", "th_hi",
+                                "grad_scale", "eps")}, out)
+                return out
+            if hasattr(real, "launches"):
+                spy.launches = real.launches
+            self._saved.append((mod, attr, real, spy))
+            setattr(mod, attr, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, real, spy in reversed(self._saved):
+            setattr(mod, attr, real)
+            if hasattr(spy, "launches"):
+                real.launches = spy.launches
+        return False
+
+
+def bf16_vision_phase(seed: int, batch: int, smi: str) -> dict[str, dict]:
+    """``spikingformer-8-512`` at bf16 under ``cuda-full``: the model
+    phase's calibrated Gaussian weights cast to bf16 (BN's running
+    statistics stay fp32, as in both packages), bf16 images, REQUESTS
+    forwards of ``batch`` images (the launches per forward the fp32 path's,
+    the logits finite; argmax against ``eager`` at bf16 measured), then one
+    ``spikingformer_grad_step`` and 2 ``make_train_step`` steps from the
+    preset's own bf16 initialisation on ``SyntheticVision`` (the launches
+    per step the fp32 path's, every loss finite). One forward and the
+    gradient step run inside a ``SiteWalk``: every kernel call at its own
+    operands against its oracle. The end loss is not held against eager:
+    the reference's own ``jnp`` and ``pallas-full`` part at bf16, eager
+    BN rounding each operation where the kernels keep fp32."""
+    eager32, make_images = make_model(
+        seed, get_spikingformer_config(PRESET).num_layers, batch, "gaussian")
+    cfg = dataclasses.replace(eager32.cfg, dtype=BF16)
+    params = tree_map(lambda a: a.to(BF16), eager32.params)
+    full = SpikingFormer(cfg.with_policy(named_policy("cuda-full")), params,
+                         eager32.state, device=DEVICE)
+    eager = SpikingFormer(cfg, params, eager32.state, device=DEVICE)
+    del eager32
+    images = [make_images().to(BF16) for _ in range(REQUESTS)]
+    full(images[0])                          # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()                    # the bf16 serving path
+    logits, ms = [], []
+    for img in images:
+        t0 = time.perf_counter()
+        logits.append(full(img))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    serve_counts = launch_counts()
+    peak_serve = torch.cuda.max_memory_allocated()
+    lf = torch.cat(logits).float()
+    le = torch.cat([eager(img) for img in images]).float()
+    depth = cfg.num_layers
+    per_forward = {"lif_soma_fwd": 3 * depth,
+                   "neuron_layer_eval": 4 + 4 * depth,
+                   "spike_matmul_packed": 2 * depth,
+                   "spike_matmul_packed_batched": depth, "lif_soma_bwd": 0,
+                   "bn_fwd": 0, "bn_bwd": 0, "neuron_layer_train": 0}
+    with SiteWalk() as walk_serve:
+        full(images[0])
+
+    tcfg = dataclasses.replace(
+        get_spikingformer_config(PRESET + "@cuda-full"), dtype=BF16)
+    p0, s0 = init_spikingformer(torch.Generator().manual_seed(seed), tcfg,
+                                DEVICE)
+    data = SyntheticVision(VisionDataConfig(
+        image_size=tcfg.image_size, num_classes=tcfg.num_classes,
+        global_batch=batch, channels=tcfg.in_channels, seed=seed))
+    batches = [{"images": torch.from_numpy(v["images"]).to(DEVICE, BF16),
+                "labels": torch.from_numpy(v["labels"]).to(DEVICE)}
+               for v in (data.batch(i) for i in range(3))]
+    per_step = per_train_step(tcfg.num_layers, tcfg.tokenizer_stages)
+    reset_launch_counts()
+    with SiteWalk() as walk_train:
+        grads, _, metrics = spikingformer_grad_step(
+            p0, s0, batches[0]["images"], batches[0]["labels"], tcfg)
+    grad_counts = launch_counts()
+    grad_dtypes = sorted({str(a.dtype) for a in tree_leaves(grads)})
+    grad_finite = all(bool(torch.isfinite(a).all())
+                      for a in tree_leaves(grads))
+    del grads
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=100,
+                              weight_decay=0.01)
+    step = make_train_step(tcfg, opt_cfg)
+    opt = init_opt_state(p0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()                    # the bf16 training path
+    p, st, rows, times = p0, s0, [float(metrics["loss"])], []
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        p, st, opt, m = step(p, st, opt, b["images"], b["labels"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        rows.append(float(m["loss"]))
+    train_counts = launch_counts()
+    peak_train = torch.cuda.max_memory_allocated()
+    moved = not all(torch.equal(a, b) for a, b in zip(tree_leaves(p),
+                                                      tree_leaves(p0)))
+    want_serve = {k: v * REQUESTS for k, v in per_forward.items()}
+    want_train = {k: v * 2 for k, v in per_step.items()}
+    emit("bf16_vision", preset=f"{PRESET}@cuda-full", dtype="bfloat16",
+         depth=depth, batch=batch, requests=REQUESTS, card=smi,
+         serve={"ms_per_request": ms, "peak_memory_bytes": peak_serve,
+                "logits_finite": bool(torch.isfinite(lf).all()),
+                "argmax_agree_with_eager_bf16":
+                    f"{int((lf.argmax(-1) == le.argmax(-1)).sum())}/"
+                    f"{lf.shape[0]}",
+                "max_abs_logit_diff_vs_eager_bf16": float(
+                    (lf - le).abs().max()),
+                "launches": serve_counts, "launches_per_forward":
+                    per_forward, "site_walk": walk_serve.rows},
+         train={"losses": rows, "ms_per_step": times,
+                "peak_memory_bytes": peak_train, "params_moved": moved,
+                "grad_dtypes": grad_dtypes, "grad_step_launches": grad_counts,
+                "launches": train_counts, "launches_per_step": per_step,
+                "site_walk": walk_train.rows},
+         note="the eager comparison is measured, not held: eager BN rounds "
+              "each bf16 operation where the kernels keep fp32")
+    problems = walk_serve.bad + walk_train.bad
+    if serve_counts != want_serve or grad_counts != per_step or \
+            train_counts != want_train:
+        fail(f"bf16 vision launch counts: serve {serve_counts}, grad step "
+             f"{grad_counts}, train {train_counts}")
+    if not (bool(torch.isfinite(lf).all()) and grad_finite and moved and
+            all(map(math.isfinite, rows))) or problems:
+        fail(f"bf16 vision: logits finite {bool(torch.isfinite(lf).all())}, "
+             f"gradients finite {grad_finite}, losses {rows}, moved {moved}, "
+             f"site walk failures {problems[:5]}")
+    return {"bf16_serve": serve_counts, "bf16_train": train_counts}
+
+
+def lm_bf16_phase(seed: int, smi: str) -> dict[str, dict[str, int]]:
+    """``qwen3-0.6b`` + LIF at its published dtype, bf16 (the registry's
+    config with only ``lif=`` added), published widths and depth, weights
+    from ``seed`` on the card. Serving: the 16 requests through
+    ``ServingEngine`` with a bf16 cache under ``cuda-full`` and ``eager``,
+    tokens and every step's logits and branch spikes bit-equal (the LIF,
+    the LM's one kernel, equals the eager scan bit for bit at bf16 too),
+    and an unrecorded ``cuda-full`` run for the times. Training: step 0's
+    forward and loss bit-equal between the policies and every gradient
+    leaf bit-equal or within ``LM_BF16_GRAD_LIMIT`` of its scale; then 1 +
+    LM_TRAIN_STEPS steps through the driver under ``cuda-full``, every
+    step finite, every leaf moved but a leaf of ones (a norm's scale at
+    its init moves by a bf16 unit only under larger steps than the
+    warm-up's; the unmoved leaves are named), the LIF launches a step the
+    fp32 path's."""
+    cfg = lm_config("cuda-full", LM_ARCH, BF16)
+    layers = cfg.num_layers
+    params = split_tree(init_lm(torch.Generator(device=DEVICE).manual_seed(
+        seed), lm_config("eager", LM_ARCH, BF16), DEVICE))[0]
+    reqs = lm_requests(cfg.vocab_size, seed)
+    runs = {p: lm_serve(params, p, reqs, dtype=BF16)
+            for p in ("cuda-full", "eager")}
+    timed = lm_serve(params, "cuda-full", reqs, record=False, dtype=BF16)
+    full, eager = runs["cuda-full"], runs["eager"]
+    tokens_equal = full["done"].keys() == eager["done"].keys() and all(
+        full["done"][u].output == eager["done"][u].output
+        for u in full["done"])
+    logits_equal = full["step_count"] == eager["step_count"] and all(
+        torch.equal(a[0], b[0]) for a, b in zip(full["steps"],
+                                                eager["steps"]))
+    spikes_equal = all(torch.equal(a[1], b[1])
+                       for a, b in zip(full["steps"], eager["steps"]))
+    everyone = all(len(r["done"]) == LM_REQUESTS and not r["other"]
+                   for r in (full, eager, timed))
+    repeat = all(timed["done"][u].output == full["done"][u].output
+                 for u in full["done"])
+    del runs, full, eager
+    torch.cuda.empty_cache()
+    serve_counts = timed["counts"]
+    ms = sorted(timed["ms"])
+
+    tcfg = lm_train_config("cuda-full", LM_ARCH, dtype=BF16)
+    tparams = build_state(tcfg, seed=seed, device=DEVICE)[0]
+    leaves = len(tree_leaves(tparams))
+    toks = lm_train_batch(tcfg, seed)["tokens"]
+    with torch.no_grad():
+        h_c = lm_forward(tparams, {"tokens": toks}, tcfg)[0]
+        h_e = lm_forward(tparams, {"tokens": toks}, lm_train_config(
+            "eager", LM_ARCH, dtype=BF16))[0]
+    forward_equal = torch.equal(h_c, h_e)
+    del h_c, h_e
+    grads = lm_grad_check(tparams, seed, LM_ARCH, dtype=BF16)
+    torch.cuda.empty_cache()
+    run = lm_train_run(tcfg, seed)
+    run["moved_leaves"] = moved_leaves(run, tparams)
+    run.pop("history")
+    emit("lm_bf16", arch=f"{LM_ARCH}@cuda-full", dtype="bfloat16",
+         cache_dtype="bfloat16", layers=layers, card=smi,
+         parameters=sum(a.numel() for a in tree_leaves(params)),
+         bytes=nbytes(*tree_leaves(params)),
+         serve={"finished": f"{len(timed['done'])}/{LM_REQUESTS}",
+                "tokens_equal": tokens_equal,
+                "logits_bit_equal_every_step": logits_equal,
+                "spikes_bit_equal_every_step": spikes_equal,
+                "unrecorded_run_repeats_recorded": repeat,
+                "steps": timed["step_count"],
+                "ms_per_step_median": ms[len(ms) // 2],
+                "tokens_per_s": timed["generated"] / timed["wall_s"],
+                "peak_memory_bytes": timed["peak"], "launches": serve_counts},
+         train={"step0_forward_bit_equal": forward_equal,
+                "step0": {k: v for k, v in grads.items()
+                          if k not in ("per_leaf", "tolerance")},
+                "grad_tolerance": f"bitwise or within {LM_BF16_GRAD_LIMIT} "
+                                  f"of the leaf's scale, max(1, max|eager|)",
+                "cuda_full": run, "launches_per_step": lm_train_expected(1)})
+    if not (everyone and tokens_equal and logits_equal and spikes_equal
+            and repeat) or serve_counts != lm_expected(
+                layers * timed["step_count"]):
+        fail(f"lm bf16 serve: finished {everyone}, tokens {tokens_equal}, "
+             f"logits {logits_equal}, spikes {spikes_equal}, repeat "
+             f"{repeat}, launches {serve_counts}")
+    if not (forward_equal and grads["loss_bit_equal"]) or \
+            grads["max_scaled_err"] > LM_BF16_GRAD_LIMIT or \
+            grads["nonfinite_elements"]:
+        fail(f"lm bf16 step 0: forward bitwise {forward_equal}, loss "
+             f"bitwise {grads['loss_bit_equal']}, worst leaf "
+             f"{grads['max_scaled_err']}, non-finite "
+             f"{grads['nonfinite_elements']}")
+    # bf16 weights take the AdamW step themselves: a leaf of ones (a norm's
+    # scale at its init; bf16 holds 1 - 2^-8 and 1 + 2^-7 beside 1) does not
+    # move while the step stays below half of that, as over the warm-up's
+    # first learning rates; every other leaf must move
+    unmoved = [n for n, a in zip(tree_paths(tparams), tree_leaves(tparams))
+               if n in run["unmoved"] and not bool((a == 1).all())]
+    check_train_run("lm bf16 train", {**run, "moved_leaves": leaves},
+                    leaves, 1 + LM_TRAIN_STEPS,
+                    lm_train_expected(1 + LM_TRAIN_STEPS))
+    if unmoved:
+        fail(f"lm bf16 train: leaves {unmoved} did not move")
+    return {"lm_bf16_serve": serve_counts, "lm_bf16_train": run["counts"]}
 
 
 # ---------------------------------------------------------------------------
@@ -4346,6 +5086,9 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     cases = kernel_phase(args.seed, BATCH)
+    for name, rows in bf16_kernel_phase(args.seed, BATCH).items():
+        cases[name].extend(rows)             # each kernel's bf16 arm
+    torch.cuda.empty_cache()
     emit("kernels", cases=cases)
 
     counts = model_phase(args.seed, args.depth, REQUESTS, BATCH)
@@ -4372,6 +5115,10 @@ def main() -> None:
         torch.cuda.empty_cache()
     lm_launches({k: cases[k] for k in ("lif_soma_fwd", "lif_soma_bwd")},
                 lm_counts, path_steps)
+    bf16_counts = bf16_vision_phase(args.seed, BATCH, smi)
+    torch.cuda.empty_cache()
+    bf16_counts.update(lm_bf16_phase(args.seed, smi))
+    torch.cuda.empty_cache()
     chaos_phase(args.seed, smi)
     torch.cuda.empty_cache()
     mesh_counts, split_cases = mesh_train_phase(args.seed, BATCH, smi)
@@ -4383,7 +5130,8 @@ def main() -> None:
     dryrun_counts = dryrun_phase(args.seed, smi)
 
     print(json.dumps(summarise(cases, {"serve": counts, "train": train_counts,
-                                       **lm_counts, **mesh_counts,
+                                       **lm_counts, **bf16_counts,
+                                       **mesh_counts,
                                        "tune": tune_counts, **dryrun_counts},
                                      split_cases, oracle)),
           flush=True)

@@ -580,6 +580,10 @@ def audit_registry_retrace(presets=None, policies=None) -> list[Finding]:
 ELEMENTWISE_ATOL = 1e-6
 MATMUL_RTOL, MATMUL_ATOL = 1e-5, 1e-4
 BN_TOL = 1e-5
+#: A bf16 output may differ from the oracle's by one unit in its last place
+#: where an fp32 value before its one rounding did (BN's y and dx, behind
+#: statistics summed in another order): 2^-7 of its magnitude.
+BF16_RTOL = 2.0 ** -7
 
 
 def _spikes(gen, shape, device, rate=0.2):
@@ -590,43 +594,75 @@ def _normal(gen, shape, device, scale=1.0, shift=0.0):
     return torch.randn(shape, generator=gen, device=device) * scale + shift
 
 
+def _exact(gen, shape, device, scale=64, span=4):
+    """k / scale with |k| <= span: bf16 holds each exactly, and an fp32 sum
+    of a few thousand spikes times one is exact too."""
+    k = torch.randint(-span, span + 1, shape, generator=gen, device=device)
+    return k.float() / scale
+
+
 def oracle_operands(decl, case, gen: torch.Generator):
     """Operands of ``decl`` at ``case`` on ``gen``'s device, with values
     that exercise the kernel (spike rates of 0.2, currents around the
     threshold, Gaussian weights of unit-order sums): ``(args, fn_kwargs,
-    ref_kwargs)`` as the builder gives them."""
+    ref_kwargs)`` as the builder gives them, each in the builder's dtype.
+    At bf16 the values are exact (:func:`_exact`): weights k/64 with
+    |k| <= 4, BN inputs k/16 with |k| <= 32, so that every product and most
+    sums the kernel forms are exact and its outputs are the oracle's bit
+    for bit; the LIF recursions take Gaussian currents rounded to bf16
+    (every operation rounds to bf16 in both)."""
+    args, fn_kwargs, ref_kwargs = _operands_fp32(decl, case, gen)
+    dtypes = [a.dtype for a in decl.build(case)[0]]
+    return tuple(a.to(dt) for a, dt in zip(args, dtypes)), fn_kwargs, \
+        ref_kwargs
+
+
+def _operands_fp32(decl, case, gen: torch.Generator):
+    """:func:`oracle_operands`' values, in fp32 (at bf16 already exact in
+    bf16 where the recipe says so)."""
     from repro_torch.kernels import ref
 
     meta, fn_kwargs, ref_kwargs = decl.build(case)
     dev = gen.device
     shapes = [tuple(a.shape) for a in meta]
     name = decl.name
+    low = meta[0].dtype == torch.bfloat16
     if name == "lif_soma_fwd":
         args = (_normal(gen, shapes[0], dev, 1.2, 0.3),)
     elif name.startswith("lif_soma_bwd"):
-        s, u, mask = ref.lif_soma_fwd_ref(_normal(gen, shapes[0], dev, 1.2,
-                                                  0.3))
+        x = _normal(gen, shapes[0], dev, 1.2, 0.3)
+        s, u, mask = ref.lif_soma_fwd_ref(
+            x.to(meta[0].dtype) if low else x)
         args = (_normal(gen, shapes[0], dev), u, s, mask) + tuple(
             _normal(gen, sh, dev) for sh in shapes[4:])
     elif name.startswith("spike_"):
         c = shapes[1][-2]
         args = (_spikes(gen, shapes[0], dev),
-                _normal(gen, shapes[1], dev, c ** -0.5))
+                _exact(gen, shapes[1], dev) if low
+                else _normal(gen, shapes[1], dev, c ** -0.5))
     elif name == "bn_fwd":
-        args = (_normal(gen, shapes[0], dev, 2.0, 0.5),
+        args = (_exact(gen, shapes[0], dev, 16, 32) if low
+                else _normal(gen, shapes[0], dev, 2.0, 0.5),
                 torch.rand(shapes[1], generator=gen, device=dev) + 0.5,
                 _normal(gen, shapes[2], dev, 0.3))
     elif name == "bn_bwd":
-        x = _normal(gen, shapes[1], dev, 2.0, 0.5)
+        x = _exact(gen, shapes[1], dev, 16, 32) if low \
+            else _normal(gen, shapes[1], dev, 2.0, 0.5)
         gamma = torch.rand(shapes[2], generator=gen, device=dev) + 0.5
+        if low:
+            gamma = gamma.to(meta[2].dtype)
         _, mu, sqrt_d = ref.bn_fwd_ref(x, gamma, gamma)
-        args = (_normal(gen, shapes[0], dev), x, gamma, mu, sqrt_d)
+        g = _exact(gen, shapes[0], dev, 16, 32) if low \
+            else _normal(gen, shapes[0], dev)
+        args = (g, x, gamma, mu, sqrt_d)
     elif name.startswith("neuron_layer_"):
         c = shapes[0][-1]
         x = _spikes(gen, shapes[0], dev) if fn_kwargs["packed"] \
+            else _exact(gen, shapes[0], dev, 16, 16) if low \
             else _normal(gen, shapes[0], dev)
-        w = _normal(gen, shapes[1], dev,
-                    (2.0 if fn_kwargs["packed"] else 1.0) * c ** -0.5)
+        w = _exact(gen, shapes[1], dev) if low else _normal(
+            gen, shapes[1], dev,
+            (2.0 if fn_kwargs["packed"] else 1.0) * c ** -0.5)
         if name == "neuron_layer_train":
             args = (x, w,
                     torch.rand(shapes[2], generator=gen, device=dev) + 0.5,
@@ -691,10 +727,10 @@ def _nl_current(decl_name, args):
     from repro_torch.kernels import ref
 
     x, w = args[0], args[1]
-    acc = torch.einsum("tmc,ck->tmk", x.to(w.dtype), w)
+    acc = torch.einsum("tmc,ck->tmk", x.float(), w.float())
     tol_z = MATMUL_ATOL + MATMUL_RTOL * acc.abs()
     if decl_name == "neuron_layer_eval":
-        return acc + args[2].reshape(1, 1, -1), tol_z
+        return acc + args[2].reshape(1, 1, -1).float(), tol_z
     gamma, beta = args[2], args[3]
     t, m, k = acc.shape
     y, _, sqrt_d = ref.bn_fwd_ref(acc.reshape(t * m, k), gamma, beta)
@@ -740,13 +776,15 @@ def hold_against_oracle(decl, case, gen: torch.Generator) -> dict:
         stat_tol = 1e-6 if name == "bn_fwd" else BN_TOL
         stats = [_scaled(a, b) for a, b in zip(got[1:], want[1:])]
         errs = [_max_err(a, b) for a, b in zip(got, want)]
-        ok = _close(got[0], want[0], BN_TOL, BN_TOL) and \
+        rtol = BF16_RTOL if got[0].dtype == torch.bfloat16 else BN_TOL
+        ok = _close(got[0].float(), want[0].float(), rtol, BN_TOL) and \
+            got[0].dtype == want[0].dtype and \
             all(a.shape == b.shape for a, b in zip(got, want)) and \
             max(stats) <= stat_tol
         row.update(bitwise=all(torch.equal(a, b) for a, b in zip(got, want)),
                    stats_scaled_err=stats,
-                   tolerance=f"rtol/atol {BN_TOL}; statistics within "
-                             f"{stat_tol} of their scale")
+                   tolerance=f"rtol {rtol}, atol {BN_TOL}; statistics "
+                             f"within {stat_tol} of their scale")
     else:
         y, tol_y = _nl_current(name, args)
         spikes = spike_verdict(got[0], y, tol_y)
@@ -759,7 +797,7 @@ def hold_against_oracle(decl, case, gen: torch.Generator) -> dict:
             x, w = args[0], args[1]
             z = neuron_layer.neuron_layer_train_z(
                 x, w, packed=fn_kwargs["packed"])
-            acc = torch.einsum("tmc,ck->tmk", x, w)
+            acc = torch.einsum("tmc,ck->tmk", x.float(), w.float())
             row["z_max_abs_err"] = _max_err(z, acc)
             errs.append(row["z_max_abs_err"])
             ok = ok and _close(z, acc, MATMUL_RTOL, MATMUL_ATOL) and \

@@ -3,7 +3,10 @@
 
 The port keeps the reference pytree's keys and layouts (HWIO conv weights,
 (C_in, C_out) linear weights, block leaves stacked on a leading L axis), so
-the conversion is leaf by leaf: same keys, same shapes, dtype kept. The
+the conversion is leaf by leaf: same keys, same shapes, dtype kept. A
+bfloat16 leaf (numpy holds it as ``ml_dtypes.bfloat16``, which torch cannot
+take) becomes a ``torch.bfloat16`` tensor bit for bit, through the int16
+view the checkpoints use (``train.checkpoint.bf16_tensor``). The
 caller hands the pytrees over as numpy arrays (``jax.device_get`` or
 ``jax.tree_util.tree_map(np.asarray, tree)``); this module imports neither
 JAX nor the reference package. The optimizer state converts too, so that
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.backend import resolve_device
+from repro_torch.train.checkpoint import bf16_tensor
 
 
 def _convert(tree: Any, device: torch.device) -> Any:
@@ -26,7 +30,10 @@ def _convert(tree: Any, device: torch.device) -> Any:
         return [_convert(v, device) for v in tree]
     # np.array copies: the tensor never aliases a buffer the caller (or an
     # asynchronous runtime behind it) still owns.
-    return torch.from_numpy(np.array(tree)).to(device)
+    arr = np.array(tree)
+    if arr.dtype.name == "bfloat16":
+        return bf16_tensor(arr).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def from_jax(params: Any, state: Any,

@@ -70,6 +70,22 @@ KERNELS: dict[str, dict] = {
 }
 
 
+#: The element types the kernels take -> the dtype code their entry points
+#: are handed (``csrc/elem.cuh``: ``kFloat32``, ``kBfloat16``).
+DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+
+
+def dtype_code(dtype, what: str) -> int:
+    """The entry points' code of ``dtype`` (a ``torch.dtype``): fp32 and
+    bf16 have a kernel arm; any other type raises ``TypeError`` naming
+    ``what``, before anything launches (fp16 is not ported)."""
+    name = str(dtype).removeprefix("torch.")
+    if name not in DTYPE_CODES:
+        raise TypeError(f"{what} kernel takes float32 or bfloat16, got "
+                        f"{dtype}")
+    return DTYPE_CODES[name]
+
+
 def _wrappers() -> dict:
     """Kernel name -> its wrapper, the function that carries the count."""
     from repro_torch.kernels import fused_bn, lif_soma, neuron_layer, \

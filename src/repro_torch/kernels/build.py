@@ -50,53 +50,56 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: C interface of the library: function -> argument types. Every function
 #: returns the ``cudaError_t`` of its launch as an int (0 = launched). A
 #: pointer or a stream passed without its ``c_void_p`` entry here would be
-#: cut to 32 bits by ctypes.
+#: cut to 32 bits by ctypes. Every entry point ends with the dtype code of
+#: its operands (``repro_torch.kernels.dtype_code``: 0 fp32, 1 bf16; which
+#: operands it names is said in each source) and the stream.
 SIGNATURES: dict[str, tuple] = {
     # x, s, u, mask, u0, s0, u_last, s_last (the last four nullable), M, D,
     # T, 2 input strides (t, m), 2 output strides (t, m), alpha, th_fire,
-    # th_lo, th_hi, arm (1 flat, 2 ring), stream
+    # th_lo, th_hi, arm (1 flat, 2 ring), dtype, stream
     "e2a_lif_soma_fwd": (_P,) * 8 + (_L, _I, _I) + (_L,) * 4 + (_F,) * 4 +
-                        (_I, _P),
+                        (_I, _I, _P),
     # g, u, s, mask, gu_last (nullable), dx, M, D, T, 2 input strides,
-    # 2 output strides, alpha, grad_scale, arm, stream
+    # 2 output strides, alpha, grad_scale, arm, dtype, stream
     "e2a_lif_soma_bwd": (_P,) * 6 + (_L, _I, _I) + (_L,) * 4 + (_F, _F, _I,
-                                                               _P),
+                                                               _I, _P),
     # packed, w, out, G1, G2, M, C, K, 4 packed strides (g1, g2, m, byte),
     # 4 w strides (g1, g2, c, k), 4 out strides (g1, g2, m, k), tile (1
-    # Large, 2 Small), stream
+    # Large, 2 Small), dtype, stream
     "e2a_spike_matmul": (_P, _P, _P, _I, _I, _I, _I, _I) + (_L,) * 12 +
-                        (_I, _P),
+                        (_I, _I, _P),
     # x, gamma, beta, y, mu, sqrt_d, part, arrival counters, M, D,
-    # rows per chunk, eps, stream
-    "e2a_bn_fwd": (_P,) * 8 + (_L, _I, _L, _F, _P),
+    # rows per chunk, eps, dtype, stream
+    "e2a_bn_fwd": (_P,) * 8 + (_L, _I, _L, _F, _I, _P),
     # the split path: x, part, arrival counters, sums, M, D, rows per chunk,
-    # stream; then x, gamma, beta, sums, y, mu, sqrt_d, M, D, eps, stream
-    "e2a_bn_fwd_sums": (_P,) * 4 + (_L, _I, _L, _P),
-    "e2a_bn_fwd_apply": (_P,) * 7 + (_L, _I, _F, _P),
+    # dtype, stream; then x, gamma, beta, sums, y, mu, sqrt_d, M, D, eps,
+    # dtype, stream
+    "e2a_bn_fwd_sums": (_P,) * 4 + (_L, _I, _L, _I, _P),
+    "e2a_bn_fwd_apply": (_P,) * 7 + (_L, _I, _F, _I, _P),
     # g, x, gamma, mu, sqrt_d, dx, dgamma, dbeta, part, cols, arrival
-    # counters, M, D, rows per chunk, stream
-    "e2a_bn_bwd": (_P,) * 11 + (_L, _I, _L, _P),
+    # counters, M, D, rows per chunk, dtype, stream
+    "e2a_bn_bwd": (_P,) * 11 + (_L, _I, _L, _I, _P),
     # the split path: g, x, gamma, mu, sqrt_d, dgamma, dbeta, part, sums,
-    # arrival counters, M, D, rows per chunk, stream; then g, x, gamma, mu,
-    # sqrt_d, sums, cols, dx, M, D, stream
-    "e2a_bn_bwd_sums": (_P,) * 10 + (_L, _I, _L, _P),
-    "e2a_bn_bwd_apply": (_P,) * 8 + (_L, _I, _P),
+    # arrival counters, M, D, rows per chunk, dtype, stream; then g, x,
+    # gamma, mu, sqrt_d, sums, cols, dx, M, D, dtype, stream
+    "e2a_bn_bwd_sums": (_P,) * 10 + (_L, _I, _L, _I, _P),
+    "e2a_bn_bwd_apply": (_P,) * 8 + (_L, _I, _I, _P),
     # x, w, bias, s, T, M, C, K, packed, tile (0 by rule, 1 Large, 2 Small),
-    # alpha, th_fire, stream
+    # alpha, th_fire, dtype, stream
     "e2a_neuron_layer_eval": (_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _F, _F,
-                              _P),
+                              _I, _P),
     # x, w, gamma, beta, z, part, mu, var, sqrt_d, s, T, M, C, K, packed,
-    # alpha, th_fire, eps, stream
+    # alpha, th_fire, eps, dtype, stream
     "e2a_neuron_layer_train": (_P,) * 10 + (_I, _L, _I, _I, _I, _F, _F, _F,
-                                            _P),
-    # the split path: x, w, z, part, sums, T, M, C, K, packed, stream; then
-    # z, gamma, beta, sums, mu, var, sqrt_d, s, T, M, K, alpha, th_fire,
-    # eps, stream
-    "e2a_neuron_layer_train_sums": (_P,) * 5 + (_I, _L, _I, _I, _I, _P),
+                                            _I, _P),
+    # the split path: x, w, z, part, sums, T, M, C, K, packed, dtype,
+    # stream; then z, gamma, beta, sums, mu, var, sqrt_d, s, T, M, K, alpha,
+    # th_fire, eps, dtype, stream
+    "e2a_neuron_layer_train_sums": (_P,) * 5 + (_I, _L, _I, _I, _I, _I, _P),
     "e2a_neuron_layer_train_apply": (_P,) * 8 + (_I, _L, _I, _F, _F, _F,
-                                                 _P),
-    # x, w, z, T, M, C, K, packed, stream
-    "e2a_neuron_layer_train_z": (_P, _P, _P, _I, _L, _I, _I, _I, _P),
+                                                 _I, _P),
+    # x, w, z, T, M, C, K, packed, dtype, stream
+    "e2a_neuron_layer_train_z": (_P, _P, _P, _I, _L, _I, _I, _I, _I, _P),
 }
 
 #: Fields of one launch record and the most records of one entry point

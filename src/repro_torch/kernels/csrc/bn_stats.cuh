@@ -13,6 +13,9 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "elem.cuh"
 
 namespace e2a {
 
@@ -90,7 +93,8 @@ inline unsigned row_blocks(long long rows, int rows_per_block) {
   return (unsigned)(n < MAX_ROW_BLOCKS ? n : MAX_ROW_BLOCKS);
 }
 
-// V neighbouring floats at p, one float4 where V == 4 (p 16-byte aligned).
+// V neighbouring elements at p as fp32, one vector access where V == 4
+// (a float4, or 8 bytes of bf16; p aligned to it).
 template <int V>
 __device__ __forceinline__ void load_v(const float* p, float (&v)[V]) {
   if constexpr (V == 4) {
@@ -103,12 +107,41 @@ __device__ __forceinline__ void load_v(const float* p, float (&v)[V]) {
 }
 
 template <int V>
+__device__ __forceinline__ void load_v(const bf16* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    v[0] = __uint_as_float(q.x << 16);
+    v[1] = __uint_as_float(q.x & 0xFFFF0000u);
+    v[2] = __uint_as_float(q.y << 16);
+    v[3] = __uint_as_float(q.y & 0xFFFF0000u);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = to_f(p[j]);
+  }
+}
+
+// V values to V neighbouring elements at p, each rounded to nearest once.
+template <int V>
 __device__ __forceinline__ void store_v(float* p, const float (&v)[V]) {
   if constexpr (V == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   } else {
 #pragma unroll
     for (int j = 0; j < V; ++j) p[j] = v[j];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_v(bf16* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                   *reinterpret_cast<const uint32_t*>(&b));
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) p[j] = from_f<bf16>(v[j]);
   }
 }
 

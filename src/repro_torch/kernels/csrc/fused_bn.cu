@@ -47,6 +47,14 @@
 // of the plain version, so with equal statistics the outputs are equal bit
 // for bit; the statistics themselves differ from a library reduction only
 // by the order of summation.
+//
+// bf16 (the reference's kernels at a bf16 input): x, y (forward) and g, x,
+// dx (backward) are bf16, named by the dtype code; each element is loaded
+// as fp32 and everything after runs as for fp32: the partials, the
+// statistics mu and sqrt_d, dgamma and dbeta stay fp32, and y and dx are
+// rounded to bf16 once, at the store (the Pallas kernels load as fp32 and
+// store in x.dtype and g.dtype). gamma and beta come as fp32 (the wrapper
+// widens a bf16 parameter, exactly).
 #include <stdint.h>
 
 #include "bn_stats.cuh"
@@ -68,8 +76,9 @@ static_assert(BN_COLS == e2a::STAT_COLS && BN_LANES == e2a::STAT_LANES,
 // column per lane: float4 loads (four columns a lane, 128 a block) made a
 // quarter as many blocks (392 for 132 SMs at 12544 x 512) and ran slower on
 // the H100, 20.0 against 16.1 us (PERF.md, section 6).
+template <class E>
 __global__ void __launch_bounds__(BN_COLS* BN_LANES) bn_fwd_stats(
-    const float* __restrict__ x, float* part, unsigned* __restrict__ arrived,
+    const E* __restrict__ x, float* part, unsigned* __restrict__ arrived,
     float* __restrict__ mu, float* __restrict__ sqrt_d,
     double* __restrict__ sums, long long M, int D, long long rows,
     int n_chunks, float eps) {
@@ -82,7 +91,7 @@ __global__ void __launch_bounds__(BN_COLS* BN_LANES) bn_fwd_stats(
   float s = 0.0f, q = 0.0f;
   if (col < D) {
     for (long long r = r0 + lane; r < r1; r += BN_LANES) {
-      const float v = x[r * D + col];
+      const float v = e2a::to_f(x[r * D + col]);
       s = __fadd_rn(s, v);
       q = __fadd_rn(q, __fmul_rn(v, v));
     }
@@ -138,11 +147,11 @@ __global__ void bn_fwd_finalize(const double* __restrict__ sums, int D,
 // Pass 2: y = gamma * (x - mu) / sqrt_d + beta (eq. 17-18). A block covers
 // BN_COLS * V columns of EW_ROWS rows; a thread takes V neighbouring
 // columns of every BN_LANES-th row of the range.
-template <int V>
+template <int V, class E>
 __global__ void __launch_bounds__(BN_COLS* BN_LANES) bn_fwd_normalize(
-    const float* __restrict__ x, const float* __restrict__ gamma,
+    const E* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ beta, const float* __restrict__ mu,
-    const float* __restrict__ sqrt_d, float* __restrict__ y, long long M,
+    const float* __restrict__ sqrt_d, E* __restrict__ y, long long M,
     int D) {
   const int c0 = (blockIdx.x * BN_COLS + threadIdx.x) * V;
   if (c0 >= D) return;
@@ -200,7 +209,7 @@ e2a::Launch& row_axis(e2a::Launch& l, long long M, long long rows) {
 
 // The normalize pass, float4 along D where D % 4 == 0 and x and y are
 // 16-byte aligned.
-e2a::Launch normalize_plan(const float* x, const float* y, long long M,
+e2a::Launch normalize_plan(const void* x, const void* y, long long M,
                            int D) {
   const bool v4 = D % 4 == 0 && aligned16(x) && aligned16(y);
   const int V = v4 ? 4 : 1;
@@ -210,14 +219,15 @@ e2a::Launch normalize_plan(const float* x, const float* y, long long M,
 }
 
 // Returns a cudaError_t.
-int launch_normalize(const e2a::Launch& l, const float* x, const float* gamma,
+template <class E>
+int launch_normalize(const e2a::Launch& l, const E* x, const float* gamma,
                      const float* beta, const float* mu, const float* sqrt_d,
-                     float* y, long long M, int D, cudaStream_t st) {
+                     E* y, long long M, int D, cudaStream_t st) {
   if (l.kernel == NORM4)
-    bn_fwd_normalize<4><<<e2a::grid_of(l), e2a::block_of(l), 0, st>>>(
+    bn_fwd_normalize<4, E><<<e2a::grid_of(l), e2a::block_of(l), 0, st>>>(
         x, gamma, beta, mu, sqrt_d, y, M, D);
   else
-    bn_fwd_normalize<1><<<e2a::grid_of(l), e2a::block_of(l), 0, st>>>(
+    bn_fwd_normalize<1, E><<<e2a::grid_of(l), e2a::block_of(l), 0, st>>>(
         x, gamma, beta, mu, sqrt_d, y, M, D);
   return (int)cudaGetLastError();
 }
@@ -262,8 +272,9 @@ __device__ __forceinline__ void bwd_cols(double s_n_d, double s_m_d,
   cols[3 * D + col] = __fdiv_rn(s_m, m);
 }
 
+template <class E>
 __global__ void __launch_bounds__(BN_COLS* BN_LANES) bn_bwd_partials(
-    const float* __restrict__ g, const float* __restrict__ x,
+    const E* __restrict__ g, const E* __restrict__ x,
     const float* __restrict__ gamma, const float* __restrict__ mu,
     const float* __restrict__ sqrt_d, float* part,
     unsigned* __restrict__ arrived, float* __restrict__ cols,
@@ -290,8 +301,8 @@ __global__ void __launch_bounds__(BN_COLS* BN_LANES) bn_bwd_partials(
                           float (&xb)[BWD_UNROLL]) {
 #pragma unroll
       for (int u = 0; u < BWD_UNROLL; ++u) {
-        gb[u] = g[(r + u * BN_LANES) * D + col];
-        xb[u] = x[(r + u * BN_LANES) * D + col];
+        gb[u] = e2a::to_f(g[(r + u * BN_LANES) * D + col]);
+        xb[u] = e2a::to_f(x[(r + u * BN_LANES) * D + col]);
       }
     };
     if (full > 0) load(first, gv, xv);
@@ -310,7 +321,8 @@ __global__ void __launch_bounds__(BN_COLS* BN_LANES) bn_bwd_partials(
         }
     }
     for (long long r = first + full * STEP; r < r1; r += BN_LANES)
-      bwd_terms(g[r * D + col], x[r * D + col], ga, m, sd, acc);
+      bwd_terms(e2a::to_f(g[r * D + col]), e2a::to_f(x[r * D + col]), ga, m,
+                sd, acc);
   }
 #pragma unroll
   for (int k = 0; k < 4; ++k) sh[k][lane][threadIdx.x] = acc[k];
@@ -366,12 +378,12 @@ __global__ void bn_bwd_cols(const double* __restrict__ sums,
 constexpr int DX_THREADS = 256;
 constexpr int DX_LANE_ROWS = 4;
 
-template <int V>
+template <int V, class E>
 __global__ void __launch_bounds__(DX_THREADS) bn_bwd_dx(
-    const float* __restrict__ g, const float* __restrict__ x,
+    const E* __restrict__ g, const E* __restrict__ x,
     const float* __restrict__ gamma, const float* __restrict__ mu,
     const float* __restrict__ sqrt_d, const float* __restrict__ cols,
-    float* __restrict__ dx, long long M, int D) {
+    E* __restrict__ dx, long long M, int D) {
   const int c0 = (blockIdx.x * blockDim.x + threadIdx.x) * V;
   if (c0 >= D) return;               // V = 4 only where D % 4 == 0
   float ga[V], m[V], sd[V], smn[V], msq2[V], c1[V], c2[V];
@@ -428,7 +440,7 @@ __global__ void __launch_bounds__(DX_THREADS) bn_bwd_dx(
 // The dx pass, float4 along D where D % 4 == 0 and g, x and dx are 16-byte
 // aligned: column lanes bx, 32 or the least power of two whose V columns
 // each cover D, and DX_THREADS / bx row lanes.
-e2a::Launch dx_plan(const float* g, const float* x, const float* dx,
+e2a::Launch dx_plan(const void* g, const void* x, const void* dx,
                     long long M, int D) {
   const bool v4 = D % 4 == 0 && aligned16(g) && aligned16(x) && aligned16(dx);
   const int V = v4 ? 4 : 1;
@@ -441,67 +453,78 @@ e2a::Launch dx_plan(const float* g, const float* x, const float* dx,
 }
 
 // Returns a cudaError_t.
-int launch_dx(const e2a::Launch& l, const float* g, const float* x,
+template <class E>
+int launch_dx(const e2a::Launch& l, const E* g, const E* x,
               const float* gamma, const float* mu, const float* sqrt_d,
-              const float* cols, float* dx, long long M, int D,
+              const float* cols, E* dx, long long M, int D,
               cudaStream_t st) {
   if (l.kernel == DX4)
-    bn_bwd_dx<4><<<e2a::grid_of(l), e2a::block_of(l), 0, st>>>(
+    bn_bwd_dx<4, E><<<e2a::grid_of(l), e2a::block_of(l), 0, st>>>(
         g, x, gamma, mu, sqrt_d, cols, dx, M, D);
   else
-    bn_bwd_dx<1><<<e2a::grid_of(l), e2a::block_of(l), 0, st>>>(
+    bn_bwd_dx<1, E><<<e2a::grid_of(l), e2a::block_of(l), 0, st>>>(
         g, x, gamma, mu, sqrt_d, cols, dx, M, D);
   return (int)cudaGetLastError();
 }
 
 // The launches of each entry point, in order; n = 0 where it launches
 // nothing. Each returns a cudaError_t.
-int fwd_plan(const float* x, const float* y, long long M, int D,
-             long long rows, e2a::Launch* l, int& n) {
+// Any dtype code but fp32's and bf16's is refused.
+bool bad_dtype(int dtype) { return e2a::elem_bytes(dtype) == 0; }
+constexpr int BAD = (int)cudaErrorInvalidValue;
+
+int fwd_plan(const void* x, const void* y, long long M, int D,
+             long long rows, int dtype, e2a::Launch* l, int& n) {
   n = 0;
+  if (bad_dtype(dtype)) return BAD;
   if (M <= 0 || D <= 0 || rows <= 0) return 0;
   l[n++] = chunks_plan(M, D, rows, STATS);
   l[n++] = normalize_plan(x, y, M, D);
   return 0;
 }
 
-int fwd_sums_plan(long long M, int D, long long rows, e2a::Launch* l,
-                  int& n) {
+int fwd_sums_plan(long long M, int D, long long rows, int dtype,
+                  e2a::Launch* l, int& n) {
   n = 0;
+  if (bad_dtype(dtype)) return BAD;
   if (M <= 0 || D <= 0 || rows <= 0) return 0;
   l[n++] = chunks_plan(M, D, rows, STATS);
   return 0;
 }
 
-int fwd_apply_plan(const float* x, const float* y, long long M, int D,
-                   e2a::Launch* l, int& n) {
+int fwd_apply_plan(const void* x, const void* y, long long M, int D,
+                   int dtype, e2a::Launch* l, int& n) {
   n = 0;
+  if (bad_dtype(dtype)) return BAD;
   if (D <= 0) return 0;
   l[n++] = columns_plan(D, FINALIZE);
   if (M > 0) l[n++] = normalize_plan(x, y, M, D);
   return 0;
 }
 
-int bwd_plan(const float* g, const float* x, const float* dx, long long M,
-             int D, long long rows, e2a::Launch* l, int& n) {
+int bwd_plan(const void* g, const void* x, const void* dx, long long M,
+             int D, long long rows, int dtype, e2a::Launch* l, int& n) {
   n = 0;
+  if (bad_dtype(dtype)) return BAD;
   if (M <= 0 || D <= 0 || rows <= 0) return 0;
   l[n++] = chunks_plan(M, D, rows, PARTIALS);
   l[n++] = dx_plan(g, x, dx, M, D);
   return 0;
 }
 
-int bwd_sums_plan(long long M, int D, long long rows, e2a::Launch* l,
-                  int& n) {
+int bwd_sums_plan(long long M, int D, long long rows, int dtype,
+                  e2a::Launch* l, int& n) {
   n = 0;
+  if (bad_dtype(dtype)) return BAD;
   if (M <= 0 || D <= 0 || rows <= 0) return 0;
   l[n++] = chunks_plan(M, D, rows, PARTIALS);
   return 0;
 }
 
-int bwd_apply_plan(const float* g, const float* x, const float* dx,
-                   long long M, int D, e2a::Launch* l, int& n) {
+int bwd_apply_plan(const void* g, const void* x, const void* dx,
+                   long long M, int D, int dtype, e2a::Launch* l, int& n) {
   n = 0;
+  if (bad_dtype(dtype)) return BAD;
   if (D <= 0) return 0;
   l[n++] = columns_plan(D, COLS);
   if (M > 0) l[n++] = dx_plan(g, x, dx, M, D);
@@ -510,179 +533,209 @@ int bwd_apply_plan(const float* g, const float* x, const float* dx,
 
 }  // namespace
 
+// dtype (every entry point): 0 fp32, 1 bf16, the type of x and y (forward)
+// or of g, x and dx (backward); every other operand is fp32.
+
 // x (M, D) -> y (M, D), mu (D), sqrt_d (D). part: 2 * ceil(M / rows) * D
 // floats of scratch, one partial per chunk of ``rows`` rows; arrived:
 // ceil(D / 32) counters, 0 on entry and left at 0.
-extern "C" int e2a_bn_fwd(const float* x, const float* gamma,
-                          const float* beta, float* y, float* mu,
+extern "C" int e2a_bn_fwd(const void* x, const float* gamma,
+                          const float* beta, void* y, float* mu,
                           float* sqrt_d, float* part, unsigned* arrived,
                           long long M, int D, long long rows, float eps,
-                          void* stream) {
+                          int dtype, void* stream) {
   e2a::Launch l[e2a::kMaxLaunches];
   int n = 0;
-  const int code = fwd_plan(x, y, M, D, rows, l, n);
+  const int code = fwd_plan(x, y, M, D, rows, dtype, l, n);
   if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bn_fwd_stats<<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
-      x, part, arrived, mu, sqrt_d, nullptr, M, D, rows, (int)l[0].grid[1],
-      eps);
-  return launch_normalize(l[1], x, gamma, beta, mu, sqrt_d, y, M, D, st);
+  return e2a::by_dtype(dtype, [&](auto tag) {
+    using E = typename decltype(tag)::type;
+    bn_fwd_stats<E><<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
+        static_cast<const E*>(x), part, arrived, mu, sqrt_d, nullptr, M, D,
+        rows, (int)l[0].grid[1], eps);
+    return launch_normalize(l[1], static_cast<const E*>(x), gamma, beta, mu,
+                            sqrt_d, static_cast<E*>(y), M, D, st);
+  });
 }
 
-extern "C" int e2a_bn_fwd_plan(const float* x, const float* gamma,
-                               const float* beta, float* y, float* mu,
+extern "C" int e2a_bn_fwd_plan(const void* x, const float* gamma,
+                               const float* beta, void* y, float* mu,
                                float* sqrt_d, float* part, unsigned* arrived,
                                long long M, int D, long long rows, float eps,
-                               long long* records, int cap) {
+                               int dtype, long long* records, int cap) {
   e2a::Launch l[e2a::kMaxLaunches];
   int n = 0;
-  const int code = fwd_plan(x, y, M, D, rows, l, n);
+  const int code = fwd_plan(x, y, M, D, rows, dtype, l, n);
   return e2a::write_plan(code, l, n, records, cap);
 }
 
 // Split path, forward, before the all-reduce: sums (2 * D + 1 doubles)
 // receives the rank's sum(x) and sum(x^2) per column and its row count M.
-extern "C" int e2a_bn_fwd_sums(const float* x, float* part, unsigned* arrived,
+extern "C" int e2a_bn_fwd_sums(const void* x, float* part, unsigned* arrived,
                                double* sums, long long M, int D,
-                               long long rows, void* stream) {
+                               long long rows, int dtype, void* stream) {
   e2a::Launch l[e2a::kMaxLaunches];
   int n = 0;
-  const int code = fwd_sums_plan(M, D, rows, l, n);
+  const int code = fwd_sums_plan(M, D, rows, dtype, l, n);
   if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bn_fwd_stats<<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
-      x, part, arrived, nullptr, nullptr, sums, M, D, rows,
-      (int)l[0].grid[1], 0.0f);
-  return (int)cudaGetLastError();
+  return e2a::by_dtype(dtype, [&](auto tag) {
+    using E = typename decltype(tag)::type;
+    bn_fwd_stats<E><<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
+        static_cast<const E*>(x), part, arrived, nullptr, nullptr, sums, M,
+        D, rows, (int)l[0].grid[1], 0.0f);
+    return (int)cudaGetLastError();
+  });
 }
 
-extern "C" int e2a_bn_fwd_sums_plan(const float* x, float* part,
+extern "C" int e2a_bn_fwd_sums_plan(const void* x, float* part,
                                     unsigned* arrived, double* sums,
                                     long long M, int D, long long rows,
-                                    long long* records, int cap) {
+                                    int dtype, long long* records, int cap) {
   e2a::Launch l[e2a::kMaxLaunches];
   int n = 0;
-  const int code = fwd_sums_plan(M, D, rows, l, n);
+  const int code = fwd_sums_plan(M, D, rows, dtype, l, n);
   return e2a::write_plan(code, l, n, records, cap);
 }
 
 // Split path, forward, after the all-reduce: mu and sqrt_d from the global
 // sums, then y.
-extern "C" int e2a_bn_fwd_apply(const float* x, const float* gamma,
+extern "C" int e2a_bn_fwd_apply(const void* x, const float* gamma,
                                 const float* beta, const double* sums,
-                                float* y, float* mu, float* sqrt_d,
-                                long long M, int D, float eps, void* stream) {
+                                void* y, float* mu, float* sqrt_d,
+                                long long M, int D, float eps, int dtype,
+                                void* stream) {
   e2a::Launch l[e2a::kMaxLaunches];
   int n = 0;
-  const int code = fwd_apply_plan(x, y, M, D, l, n);
+  const int code = fwd_apply_plan(x, y, M, D, dtype, l, n);
   if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   bn_fwd_finalize<<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
       sums, D, eps, mu, sqrt_d);
   if (n == 1) return (int)cudaGetLastError();
-  return launch_normalize(l[1], x, gamma, beta, mu, sqrt_d, y, M, D, st);
+  return e2a::by_dtype(dtype, [&](auto tag) {
+    using E = typename decltype(tag)::type;
+    return launch_normalize(l[1], static_cast<const E*>(x), gamma, beta, mu,
+                            sqrt_d, static_cast<E*>(y), M, D, st);
+  });
 }
 
-extern "C" int e2a_bn_fwd_apply_plan(const float* x, const float* gamma,
+extern "C" int e2a_bn_fwd_apply_plan(const void* x, const float* gamma,
                                      const float* beta, const double* sums,
-                                     float* y, float* mu, float* sqrt_d,
+                                     void* y, float* mu, float* sqrt_d,
                                      long long M, int D, float eps,
-                                     long long* records, int cap) {
+                                     int dtype, long long* records, int cap) {
   e2a::Launch l[e2a::kMaxLaunches];
   int n = 0;
-  const int code = fwd_apply_plan(x, y, M, D, l, n);
+  const int code = fwd_apply_plan(x, y, M, D, dtype, l, n);
   return e2a::write_plan(code, l, n, records, cap);
 }
 
 // g, x (M, D), gamma, mu, sqrt_d (D) -> dx (M, D), dgamma, dbeta (D).
 // part: 4 * ceil(M / rows) * D floats of scratch, cols: 4 * D; arrived:
 // ceil(D / 32) counters, 0 on entry and left at 0.
-extern "C" int e2a_bn_bwd(const float* g, const float* x, const float* gamma,
-                          const float* mu, const float* sqrt_d, float* dx,
+extern "C" int e2a_bn_bwd(const void* g, const void* x, const float* gamma,
+                          const float* mu, const float* sqrt_d, void* dx,
                           float* dgamma, float* dbeta, float* part,
                           float* cols, unsigned* arrived, long long M, int D,
-                          long long rows, void* stream) {
+                          long long rows, int dtype, void* stream) {
   e2a::Launch l[e2a::kMaxLaunches];
   int n = 0;
-  const int code = bwd_plan(g, x, dx, M, D, rows, l, n);
+  const int code = bwd_plan(g, x, dx, M, D, rows, dtype, l, n);
   if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bn_bwd_partials<<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
-      g, x, gamma, mu, sqrt_d, part, arrived, cols, dgamma, dbeta, nullptr, M,
-      D, rows, (int)l[0].grid[1]);
-  return launch_dx(l[1], g, x, gamma, mu, sqrt_d, cols, dx, M, D, st);
+  return e2a::by_dtype(dtype, [&](auto tag) {
+    using E = typename decltype(tag)::type;
+    bn_bwd_partials<E><<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
+        static_cast<const E*>(g), static_cast<const E*>(x), gamma, mu, sqrt_d,
+        part, arrived, cols, dgamma, dbeta, nullptr, M, D, rows,
+        (int)l[0].grid[1]);
+    return launch_dx(l[1], static_cast<const E*>(g), static_cast<const E*>(x),
+                     gamma, mu, sqrt_d, cols, static_cast<E*>(dx), M, D, st);
+  });
 }
 
-extern "C" int e2a_bn_bwd_plan(const float* g, const float* x,
+extern "C" int e2a_bn_bwd_plan(const void* g, const void* x,
                                const float* gamma, const float* mu,
-                               const float* sqrt_d, float* dx, float* dgamma,
+                               const float* sqrt_d, void* dx, float* dgamma,
                                float* dbeta, float* part, float* cols,
                                unsigned* arrived, long long M, int D,
-                               long long rows, long long* records, int cap) {
+                               long long rows, int dtype, long long* records,
+                               int cap) {
   e2a::Launch l[e2a::kMaxLaunches];
   int n = 0;
-  const int code = bwd_plan(g, x, dx, M, D, rows, l, n);
+  const int code = bwd_plan(g, x, dx, M, D, rows, dtype, l, n);
   return e2a::write_plan(code, l, n, records, cap);
 }
 
 // Split path, backward, before the all-reduce: dgamma and dbeta from the
 // rank's rows, and sums (3 * D + 1 doubles) receives its s_n, s_m, s_mn per
 // column and its row count M.
-extern "C" int e2a_bn_bwd_sums(const float* g, const float* x,
+extern "C" int e2a_bn_bwd_sums(const void* g, const void* x,
                                const float* gamma, const float* mu,
                                const float* sqrt_d, float* dgamma,
                                float* dbeta, float* part, double* sums,
                                unsigned* arrived, long long M, int D,
-                               long long rows, void* stream) {
+                               long long rows, int dtype, void* stream) {
   e2a::Launch l[e2a::kMaxLaunches];
   int n = 0;
-  const int code = bwd_sums_plan(M, D, rows, l, n);
+  const int code = bwd_sums_plan(M, D, rows, dtype, l, n);
   if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bn_bwd_partials<<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
-      g, x, gamma, mu, sqrt_d, part, arrived, nullptr, dgamma, dbeta, sums,
-      M, D, rows, (int)l[0].grid[1]);
-  return (int)cudaGetLastError();
+  return e2a::by_dtype(dtype, [&](auto tag) {
+    using E = typename decltype(tag)::type;
+    bn_bwd_partials<E><<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
+        static_cast<const E*>(g), static_cast<const E*>(x), gamma, mu, sqrt_d,
+        part, arrived, nullptr, dgamma, dbeta, sums, M, D, rows,
+        (int)l[0].grid[1]);
+    return (int)cudaGetLastError();
+  });
 }
 
-extern "C" int e2a_bn_bwd_sums_plan(const float* g, const float* x,
+extern "C" int e2a_bn_bwd_sums_plan(const void* g, const void* x,
                                     const float* gamma, const float* mu,
                                     const float* sqrt_d, float* dgamma,
                                     float* dbeta, float* part, double* sums,
                                     unsigned* arrived, long long M, int D,
-                                    long long rows, long long* records,
-                                    int cap) {
+                                    long long rows, int dtype,
+                                    long long* records, int cap) {
   e2a::Launch l[e2a::kMaxLaunches];
   int n = 0;
-  const int code = bwd_sums_plan(M, D, rows, l, n);
+  const int code = bwd_sums_plan(M, D, rows, dtype, l, n);
   return e2a::write_plan(code, l, n, records, cap);
 }
 
 // Split path, backward, after the all-reduce: eq. 23's terms from the
 // global sums into cols (4 * D floats), then dx.
-extern "C" int e2a_bn_bwd_apply(const float* g, const float* x,
+extern "C" int e2a_bn_bwd_apply(const void* g, const void* x,
                                 const float* gamma, const float* mu,
                                 const float* sqrt_d, const double* sums,
-                                float* cols, float* dx, long long M, int D,
-                                void* stream) {
+                                float* cols, void* dx, long long M, int D,
+                                int dtype, void* stream) {
   e2a::Launch l[e2a::kMaxLaunches];
   int n = 0;
-  const int code = bwd_apply_plan(g, x, dx, M, D, l, n);
+  const int code = bwd_apply_plan(g, x, dx, M, D, dtype, l, n);
   if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   bn_bwd_cols<<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
       sums, sqrt_d, D, cols);
   if (n == 1) return (int)cudaGetLastError();
-  return launch_dx(l[1], g, x, gamma, mu, sqrt_d, cols, dx, M, D, st);
+  return e2a::by_dtype(dtype, [&](auto tag) {
+    using E = typename decltype(tag)::type;
+    return launch_dx(l[1], static_cast<const E*>(g), static_cast<const E*>(x),
+                     gamma, mu, sqrt_d, cols, static_cast<E*>(dx), M, D, st);
+  });
 }
 
-extern "C" int e2a_bn_bwd_apply_plan(const float* g, const float* x,
+extern "C" int e2a_bn_bwd_apply_plan(const void* g, const void* x,
                                      const float* gamma, const float* mu,
                                      const float* sqrt_d, const double* sums,
-                                     float* cols, float* dx, long long M,
-                                     int D, long long* records, int cap) {
+                                     float* cols, void* dx, long long M,
+                                     int D, int dtype, long long* records,
+                                     int cap) {
   e2a::Launch l[e2a::kMaxLaunches];
   int n = 0;
-  const int code = bwd_apply_plan(g, x, dx, M, D, l, n);
+  const int code = bwd_apply_plan(g, x, dx, M, D, dtype, l, n);
   return e2a::write_plan(code, l, n, records, cap);
 }

@@ -1,8 +1,9 @@
 // LIF SOMA forward (E2ATST eq. 11) and GRAD backward (eq. 12): one pass
 // over time per element.
 //
-// x, s, u, mask are (T, M, D) fp32; element (t, m, d) of an operand lies at
-// t * stride_t + m * stride_m + d (unit stride on d, any stride on t and m),
+// x, s, u, mask are (T, M, D), all fp32 or all bf16 (the dtype code);
+// element (t, m, d) of an operand lies at t * stride_t + m * stride_m + d
+// (unit stride on d, any stride on t and m),
 // so the spiking LM's (S, B, D) view of its (B, S, D) branch output is read
 // and written in place. Inputs share one layout, outputs another.
 //
@@ -64,16 +65,31 @@
 //   gu     = gu_next * alpha * (1 - S) + grad_s * mask * grad_scale
 //   (+ gu_last at t = T-1, when the pointer is not null; (M, D) contiguous)
 // in that order of operations, again bit for bit the plain version.
+//
+// bf16 (the reference's kernels at a bf16 input): U, S, the mask, the state
+// and dx stay in bf16, as the Pallas kernels keep them in x.dtype, and each
+// operation of the two recursions above is formed in fp32 and rounded to
+// bf16 (elem.cuh rnd) in the same order, which is what the plain version's
+// bf16 tensor ops do, so the bf16 arms equal it bit for bit too. The flat
+// arm's 16-byte accesses carry 8 elements; the ring arm's shared lane
+// copies take 8 elements a lane (D % 32 == 0, strides multiples of 8), and
+// where a thread copies its own column, a 2-byte element is below
+// cp.async's 4 bytes: that column is staged with plain loads instead.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <initializer_list>
 
+#include "elem.cuh"
 #include "launch_plan.cuh"
 #include "spike_tile_mma.cuh"   // cp_async, cp_async_commit, cp_async_wait
 
 namespace {
 
+using e2a::from_f;
+using e2a::kVec;
+using e2a::rnd;
+using e2a::to_f;
 using e2a::mma::cp_async;
 using e2a::mma::cp_async_commit;
 using e2a::mma::cp_async_wait;
@@ -93,9 +109,13 @@ struct Strides {
 constexpr int CHUNK = 64;
 constexpr int STAGES = 2;
 
+// u, s and mask hold values of E (rnd<E> after every operation).
+template <class E>
 __device__ __forceinline__ void lif_step(float x, float& u, float& s,
                                          float& mask, const LifParams& p) {
-  u = __fadd_rn(__fmul_rn(__fmul_rn(p.alpha, u), __fsub_rn(1.0f, s)), x);
+  u = rnd<E>(__fadd_rn(rnd<E>(__fmul_rn(rnd<E>(__fmul_rn(p.alpha, u)),
+                                        rnd<E>(__fsub_rn(1.0f, s)))),
+                       x));
   s = (u >= p.th_fire) ? 1.0f : 0.0f;
   mask = (u > p.th_lo && u < p.th_hi) ? 1.0f : 0.0f;
 }
@@ -104,40 +124,50 @@ struct GradParams {
   float alpha, grad_scale;
 };
 
+template <class E>
 __device__ __forceinline__ float grad_step(float g, float u, float s, float m,
                                            float gu_next,
                                            const GradParams& p) {
-  const float grad_s = __fsub_rn(g, __fmul_rn(__fmul_rn(p.alpha, u), gu_next));
-  return __fadd_rn(__fmul_rn(__fmul_rn(gu_next, p.alpha), __fsub_rn(1.0f, s)),
-                   __fmul_rn(__fmul_rn(grad_s, m), p.grad_scale));
+  const float grad_s = rnd<E>(
+      __fsub_rn(g, rnd<E>(__fmul_rn(rnd<E>(__fmul_rn(p.alpha, u)), gu_next))));
+  return rnd<E>(__fadd_rn(
+      rnd<E>(__fmul_rn(rnd<E>(__fmul_rn(gu_next, p.alpha)),
+                       rnd<E>(__fsub_rn(1.0f, s)))),
+      rnd<E>(__fmul_rn(rnd<E>(__fmul_rn(grad_s, m)), p.grad_scale))));
 }
 
 // ---- the ring arm ----
 
 // Copies `steps` time steps of one input stream into ring rows 0 .. steps-1
-// (NT floats apart), step c from src + c * step. WIDE: the warp's 32 columns
-// are one 16-byte aligned run at every step, so `dst` and `src` are the
-// warp's first column and lane l copies the 16 bytes l % 8 of rows l / 8,
-// l / 8 + 4, ... (a quarter of a copy per lane and step). Else a thread
-// copies its own column, 4 bytes a step.
-template <int NT, int C, bool WIDE>
-__device__ __forceinline__ void fill(float* dst, const float* src,
-                                     long long step, int steps, int lane) {
-  if (WIDE) {
-    const int q = (lane & 7) * 4, r = lane >> 3;
+// (NT elements apart), step c from src + c * step. WIDE: the warp's 32
+// columns are one 16-byte aligned run at every step, so `dst` and `src` are
+// the warp's first column and lane l copies the 16 bytes (V = 4 fp32 or
+// 8 bf16 elements) l % (32 / V) of rows l / (32 / V), + V, ... (V / 32 of a
+// copy per lane and step). Else a thread copies its own column: 4 bytes a
+// step by cp.async for fp32, a plain load and store for a 2-byte element.
+template <int NT, int C, bool WIDE, class E>
+__device__ __forceinline__ void fill(E* dst, const E* src, long long step,
+                                     int steps, int lane) {
+  if constexpr (WIDE) {
+    constexpr int V = kVec<E>, LANES_A_ROW = 32 / V;
+    const int q = (lane % LANES_A_ROW) * V, r = lane / LANES_A_ROW;
     if (steps == C) {
 #pragma unroll
-      for (int j = 0; j < C; j += 4)
+      for (int j = 0; j < C; j += V)
         cp_async<16>(dst + (j + r) * NT + q, src + (j + r) * step + q);
     } else {
-      for (int c = r; c < steps; c += 4)
+      for (int c = r; c < steps; c += V)
         cp_async<16>(dst + c * NT + q, src + c * step + q);
     }
-  } else if (steps == C) {
+  } else if constexpr (sizeof(E) == 4) {
+    if (steps == C) {
 #pragma unroll
-    for (int c = 0; c < C; ++c) cp_async<4>(dst + c * NT, src + c * step);
+      for (int c = 0; c < C; ++c) cp_async<4>(dst + c * NT, src + c * step);
+    } else {
+      for (int c = 0; c < steps; ++c) cp_async<4>(dst + c * NT, src + c * step);
+    }
   } else {
-    for (int c = 0; c < steps; ++c) cp_async<4>(dst + c * NT, src + c * step);
+    for (int c = 0; c < steps; ++c) dst[c * NT] = src[c * step];
   }
 }
 
@@ -152,23 +182,24 @@ __host__ __device__ inline int ring_stages(int T, int C, int S) {
 // 0 .. rows - 1 of stage k % S; every thread commits one group per chunk
 // index, empty past the last chunk, so wait<S - 1> means "chunk k landed".
 // WIDE needs d % 32 == 0 (a warp's columns lie in one row), strides that are
-// multiples of 4 and 16-byte aligned operands; then whole warps are in or
-// out of range and the __syncwarp()s order the lanes' copies and reads.
-template <int NT, int C, int S, bool WIDE>
+// multiples of 16 bytes and 16-byte aligned operands; then whole warps are
+// in or out of range and the __syncwarp()s order the lanes' copies and
+// reads.
+template <int NT, int C, int S, bool WIDE, class E>
 __global__ void __launch_bounds__(NT) lif_fwd_ring(
-    const float* __restrict__ x, float* __restrict__ s, float* __restrict__ u,
-    float* __restrict__ mask, const float* __restrict__ u0,
-    const float* __restrict__ s0, float* __restrict__ u_last,
-    float* __restrict__ s_last, long long n, int d, int T, Strides in,
+    const E* __restrict__ x, E* __restrict__ s, E* __restrict__ u,
+    E* __restrict__ mask, const E* __restrict__ u0,
+    const E* __restrict__ s0, E* __restrict__ u_last,
+    E* __restrict__ s_last, long long n, int d, int T, Strides in,
     Strides out, LifParams p) {
   extern __shared__ float4 smem[];
-  float* const ring = reinterpret_cast<float*>(smem);
+  E* const ring = reinterpret_cast<E*>(smem);
   const int tid = threadIdx.x, lane = tid & 31;
   const long long i = (long long)blockIdx.x * NT + tid;
   if (i >= n) return;
   const long long row = i / d, col = i - row * d;
   const int own = WIDE ? lane : 0;    // lanes before this one in its copies
-  const float* xi = x + row * in.m + col - own;
+  const E* xi = x + row * in.m + col - own;
   const int rows = ring_rows(T, C), chunks = (T + C - 1) / C;
   const int stage = rows * NT;
   auto issue = [&](int k) {
@@ -181,8 +212,8 @@ __global__ void __launch_bounds__(NT) lif_fwd_ring(
 #pragma unroll
   for (int k = 0; k < S - 1; ++k) issue(k);
 
-  float uu = u0 != nullptr ? u0[i] : 0.0f;
-  float ss = s0 != nullptr ? s0[i] : 0.0f;
+  float uu = u0 != nullptr ? to_f(u0[i]) : 0.0f;
+  float ss = s0 != nullptr ? to_f(s0[i]) : 0.0f;
   float mm;
   long long at = row * out.m + col;
   for (int k = 0; k < chunks; ++k) {
@@ -190,13 +221,13 @@ __global__ void __launch_bounds__(NT) lif_fwd_ring(
     issue(k + S - 1);
     cp_async_wait<S - 1>();
     if (WIDE) __syncwarp();    // the warp's copies of chunk k have landed
-    const float* src = ring + (k % S) * stage + tid;
+    const E* src = ring + (k % S) * stage + tid;
     const int steps = min(C, T - k * C);
     auto walk = [&](int c) {
-      lif_step(src[c * NT], uu, ss, mm, p);
-      s[at] = ss;
-      u[at] = uu;
-      mask[at] = mm;
+      lif_step<E>(to_f(src[c * NT]), uu, ss, mm, p);
+      s[at] = from_f<E>(ss);
+      u[at] = from_f<E>(uu);
+      mask[at] = from_f<E>(mm);
       at += out.t;
     };
     if (steps == C) {
@@ -207,28 +238,28 @@ __global__ void __launch_bounds__(NT) lif_fwd_ring(
     }
   }
   if (u_last != nullptr) {
-    u_last[i] = uu;
-    s_last[i] = ss;
+    u_last[i] = from_f<E>(uu);
+    s_last[i] = from_f<E>(ss);
   }
 }
 
 // The backward's chunk k holds steps T-1-k*C down to T-k*C-rows in rows
 // 0 .. rows-1 of each of the four streams (g, U, S, mask) of stage k % S.
-template <int NT, int C, int S, bool WIDE>
+template <int NT, int C, int S, bool WIDE, class E>
 __global__ void __launch_bounds__(NT) lif_bwd_ring(
-    const float* __restrict__ g, const float* __restrict__ u,
-    const float* __restrict__ s, const float* __restrict__ mask,
-    const float* __restrict__ gu_last, float* __restrict__ dx, long long n,
+    const E* __restrict__ g, const E* __restrict__ u,
+    const E* __restrict__ s, const E* __restrict__ mask,
+    const E* __restrict__ gu_last, E* __restrict__ dx, long long n,
     int d, int T, Strides in, Strides out, GradParams p) {
   extern __shared__ float4 smem[];
-  float* const ring = reinterpret_cast<float*>(smem);
+  E* const ring = reinterpret_cast<E*>(smem);
   const int tid = threadIdx.x, lane = tid & 31;
   const long long i = (long long)blockIdx.x * NT + tid;
   if (i >= n) return;
   const long long row = i / d, col = i - row * d;
   const int own = WIDE ? lane : 0;
   const long long base = row * in.m + col - own + (long long)(T - 1) * in.t;
-  const float* const streams[4] = {g + base, u + base, s + base, mask + base};
+  const E* const streams[4] = {g + base, u + base, s + base, mask + base};
   const int rows = ring_rows(T, C), chunks = (T + C - 1) / C;
   const int plane = rows * NT, stage = 4 * plane;
   auto issue = [&](int k) {
@@ -252,14 +283,15 @@ __global__ void __launch_bounds__(NT) lif_bwd_ring(
     issue(k + S - 1);
     cp_async_wait<S - 1>();
     if (WIDE) __syncwarp();
-    const float* src = ring + (k % S) * stage + tid;
+    const E* src = ring + (k % S) * stage + tid;
     const int steps = min(C, T - k * C);
     auto walk = [&](int c) {
-      gu = grad_step(src[c * NT], src[plane + c * NT], src[2 * plane + c * NT],
-                     src[3 * plane + c * NT], gu, p);
+      gu = grad_step<E>(to_f(src[c * NT]), to_f(src[plane + c * NT]),
+                        to_f(src[2 * plane + c * NT]),
+                        to_f(src[3 * plane + c * NT]), gu, p);
       if (c == 0 && k == 0 && gu_last != nullptr)
-        gu = __fadd_rn(gu, gu_last[i]);
-      dx[at] = gu;
+        gu = rnd<E>(__fadd_rn(gu, to_f(gu_last[i])));
+      dx[at] = from_f<E>(gu);
       at -= out.t;
     };
     if (steps == C) {
@@ -274,11 +306,12 @@ __global__ void __launch_bounds__(NT) lif_bwd_ring(
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 // Whether the ring arm may copy 16 bytes a lane: a warp's 32 columns in one
-// row, strides that keep rows 16-byte aligned, and aligned operands.
-bool wide_layout(int d, Strides in, Strides out,
+// row, strides that keep rows 16-byte aligned (multiples of `vec`
+// elements), and aligned operands.
+bool wide_layout(int d, Strides in, Strides out, int vec,
                  std::initializer_list<const void*> ptrs) {
-  if (d % 32 != 0 || in.t % 4 != 0 || in.m % 4 != 0 || out.t % 4 != 0 ||
-      out.m % 4 != 0)
+  if (d % 32 != 0 || in.t % vec != 0 || in.m % vec != 0 ||
+      out.t % vec != 0 || out.m % vec != 0)
     return false;
   for (const void* q : ptrs)
     if (q != nullptr && !aligned16(q)) return false;
@@ -287,16 +320,16 @@ bool wide_layout(int d, Strides in, Strides out,
 
 // Which kernel a Launch record of this file is for: the ring arm's block
 // size and copy width (RING32 + 1 is RING32_WIDE, RING64 + 1 RING64_WIDE),
-// or the flat arm's access width.
-enum Kernel { RING32, RING32_WIDE, RING64, RING64_WIDE, FLAT4, FLAT1 };
+// or the flat arm's access width (FLAT_VEC: 16 bytes a thread).
+enum Kernel { RING32, RING32_WIDE, RING64, RING64_WIDE, FLAT_VEC, FLAT1 };
 
 // One launch of the ring arm: 32 threads a block while that leaves at most
 // four warps to each of the 132 SMs (n <= 16,896), so the grid spreads over
 // as many SMs as n allows; 64 above. Its shared memory holds the ring of
-// each of `streams` input streams.
-e2a::Launch ring_plan(long long n, int T, int streams, bool wide) {
+// each of `streams` input streams, of `esize`-byte elements.
+e2a::Launch ring_plan(long long n, int T, int streams, bool wide, int esize) {
   const int nt = n <= 32LL * 4 * 132 ? 32 : 64;
-  const long long smem = (long long)ring_rows(T, CHUNK) * nt * sizeof(float) *
+  const long long smem = (long long)ring_rows(T, CHUNK) * nt * esize *
                          ring_stages(T, CHUNK, STAGES) * streams;
   e2a::Launch l = e2a::launch_of(nt, 1, smem,
                                  (nt == 64 ? RING64 : RING32) + (wide ? 1 : 0));
@@ -305,10 +338,10 @@ e2a::Launch ring_plan(long long n, int T, int streams, bool wide) {
 
 // The shared memory depends on T, so the limit is raised at every launch
 // that needs it.
-template <template <int, int, int, bool> class K, int NT, bool WIDE,
-          typename... Args>
+template <template <int, int, int, bool, class> class K, int NT, bool WIDE,
+          class E, typename... Args>
 int launch_ring_as(const e2a::Launch& l, cudaStream_t st, Args... args) {
-  auto kernel = K<NT, CHUNK, STAGES, WIDE>::kernel;
+  auto kernel = K<NT, CHUNK, STAGES, WIDE, E>::kernel;
   const int err =
       e2a::raise_smem(l, reinterpret_cast<const void*>(kernel));
   if (err != 0) return err;
@@ -316,104 +349,122 @@ int launch_ring_as(const e2a::Launch& l, cudaStream_t st, Args... args) {
   return (int)cudaGetLastError();
 }
 
-template <int NT, int C, int S, bool WIDE>
+template <int NT, int C, int S, bool WIDE, class E>
 struct FwdRing {
-  static constexpr auto kernel = lif_fwd_ring<NT, C, S, WIDE>;
+  static constexpr auto kernel = lif_fwd_ring<NT, C, S, WIDE, E>;
 };
-template <int NT, int C, int S, bool WIDE>
+template <int NT, int C, int S, bool WIDE, class E>
 struct BwdRing {
-  static constexpr auto kernel = lif_bwd_ring<NT, C, S, WIDE>;
+  static constexpr auto kernel = lif_bwd_ring<NT, C, S, WIDE, E>;
 };
 
-template <template <int, int, int, bool> class K, typename... Args>
+template <template <int, int, int, bool, class> class K, class E,
+          typename... Args>
 int launch_ring(const e2a::Launch& l, cudaStream_t st, Args... args) {
   switch (l.kernel) {
-    case RING32: return launch_ring_as<K, 32, false>(l, st, args...);
-    case RING32_WIDE: return launch_ring_as<K, 32, true>(l, st, args...);
-    case RING64: return launch_ring_as<K, 64, false>(l, st, args...);
-    default: return launch_ring_as<K, 64, true>(l, st, args...);
+    case RING32: return launch_ring_as<K, 32, false, E>(l, st, args...);
+    case RING32_WIDE: return launch_ring_as<K, 32, true, E>(l, st, args...);
+    case RING64: return launch_ring_as<K, 64, false, E>(l, st, args...);
+    default: return launch_ring_as<K, 64, true, E>(l, st, args...);
   }
 }
 
 // ---- the flat arms ----
 
-__global__ void __launch_bounds__(256) lif_fwd_vec4(
-    const float4* __restrict__ x, float4* __restrict__ s,
-    float4* __restrict__ u, float4* __restrict__ mask, long long n4, int T,
-    LifParams p) {
+// 16 bytes of elements: one vector access of the flat arm.
+template <class E>
+struct alignas(16) Vec16 {
+  E v[kVec<E>];
+};
+
+template <class E>
+__global__ void __launch_bounds__(256) lif_fwd_vec(
+    const Vec16<E>* __restrict__ x, Vec16<E>* __restrict__ s,
+    Vec16<E>* __restrict__ u, Vec16<E>* __restrict__ mask, long long nv,
+    int T, LifParams p) {
+  constexpr int V = kVec<E>;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n4) return;
-  float uu[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float ss[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float mm[4];
+  if (i >= nv) return;
+  float uu[V] = {}, ss[V] = {}, mm[V];
   for (int t = 0; t < T; ++t) {
-    const long long at = (long long)t * n4 + i;
-    const float4 xv = x[at];
-    const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
+    const long long at = (long long)t * nv + i;
+    const Vec16<E> xv = x[at];
+    Vec16<E> so, uo, mo;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) lif_step(xr[j], uu[j], ss[j], mm[j], p);
-    s[at] = make_float4(ss[0], ss[1], ss[2], ss[3]);
-    u[at] = make_float4(uu[0], uu[1], uu[2], uu[3]);
-    mask[at] = make_float4(mm[0], mm[1], mm[2], mm[3]);
+    for (int j = 0; j < V; ++j) {
+      lif_step<E>(to_f(xv.v[j]), uu[j], ss[j], mm[j], p);
+      so.v[j] = from_f<E>(ss[j]);
+      uo.v[j] = from_f<E>(uu[j]);
+      mo.v[j] = from_f<E>(mm[j]);
+    }
+    s[at] = so;
+    u[at] = uo;
+    mask[at] = mo;
   }
 }
 
+template <class E>
 __global__ void __launch_bounds__(256) lif_fwd_scalar(
-    const float* __restrict__ x, float* __restrict__ s, float* __restrict__ u,
-    float* __restrict__ mask, long long n, int T, LifParams p) {
+    const E* __restrict__ x, E* __restrict__ s, E* __restrict__ u,
+    E* __restrict__ mask, long long n, int T, LifParams p) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float uu = 0.0f, ss = 0.0f, mm;
   for (int t = 0; t < T; ++t) {
     const long long at = (long long)t * n + i;
-    lif_step(x[at], uu, ss, mm, p);
-    s[at] = ss;
-    u[at] = uu;
-    mask[at] = mm;
+    lif_step<E>(to_f(x[at]), uu, ss, mm, p);
+    s[at] = from_f<E>(ss);
+    u[at] = from_f<E>(uu);
+    mask[at] = from_f<E>(mm);
   }
 }
 
-__global__ void __launch_bounds__(256) lif_bwd_vec4(
-    const float4* __restrict__ g, const float4* __restrict__ u,
-    const float4* __restrict__ s, const float4* __restrict__ mask,
-    const float4* __restrict__ gu_last, float4* __restrict__ dx, long long n4,
-    int T, GradParams p) {
+template <class E>
+__global__ void __launch_bounds__(256) lif_bwd_vec(
+    const Vec16<E>* __restrict__ g, const Vec16<E>* __restrict__ u,
+    const Vec16<E>* __restrict__ s, const Vec16<E>* __restrict__ mask,
+    const Vec16<E>* __restrict__ gu_last, Vec16<E>* __restrict__ dx,
+    long long nv, int T, GradParams p) {
+  constexpr int V = kVec<E>;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n4) return;
-  float gu[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (i >= nv) return;
+  float gu[V] = {};
   for (int t = T - 1; t >= 0; --t) {
-    const long long at = (long long)t * n4 + i;
-    const float4 gv = g[at], uv = u[at], sv = s[at], mv = mask[at];
-    const float gr[4] = {gv.x, gv.y, gv.z, gv.w};
-    const float ur[4] = {uv.x, uv.y, uv.z, uv.w};
-    const float sr[4] = {sv.x, sv.y, sv.z, sv.w};
-    const float mr[4] = {mv.x, mv.y, mv.z, mv.w};
+    const long long at = (long long)t * nv + i;
+    const Vec16<E> gv = g[at], uv = u[at], sv = s[at], mv = mask[at];
+    Vec16<E> out;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) gu[j] = grad_step(gr[j], ur[j], sr[j], mr[j], gu[j], p);
+    for (int j = 0; j < V; ++j)
+      gu[j] = grad_step<E>(to_f(gv.v[j]), to_f(uv.v[j]), to_f(sv.v[j]),
+                           to_f(mv.v[j]), gu[j], p);
     if (t == T - 1 && gu_last != nullptr) {
-      const float4 c = gu_last[i];
-      gu[0] = __fadd_rn(gu[0], c.x);
-      gu[1] = __fadd_rn(gu[1], c.y);
-      gu[2] = __fadd_rn(gu[2], c.z);
-      gu[3] = __fadd_rn(gu[3], c.w);
+      const Vec16<E> c = gu_last[i];
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        gu[j] = rnd<E>(__fadd_rn(gu[j], to_f(c.v[j])));
     }
-    dx[at] = make_float4(gu[0], gu[1], gu[2], gu[3]);
+#pragma unroll
+    for (int j = 0; j < V; ++j) out.v[j] = from_f<E>(gu[j]);
+    dx[at] = out;
   }
 }
 
+template <class E>
 __global__ void __launch_bounds__(256) lif_bwd_scalar(
-    const float* __restrict__ g, const float* __restrict__ u,
-    const float* __restrict__ s, const float* __restrict__ mask,
-    const float* __restrict__ gu_last, float* __restrict__ dx, long long n,
+    const E* __restrict__ g, const E* __restrict__ u,
+    const E* __restrict__ s, const E* __restrict__ mask,
+    const E* __restrict__ gu_last, E* __restrict__ dx, long long n,
     int T, GradParams p) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float gu = 0.0f;
   for (int t = T - 1; t >= 0; --t) {
     const long long at = (long long)t * n + i;
-    gu = grad_step(g[at], u[at], s[at], mask[at], gu, p);
-    if (t == T - 1 && gu_last != nullptr) gu = __fadd_rn(gu, gu_last[i]);
-    dx[at] = gu;
+    gu = grad_step<E>(to_f(g[at]), to_f(u[at]), to_f(s[at]), to_f(mask[at]),
+                      gu, p);
+    if (t == T - 1 && gu_last != nullptr)
+      gu = rnd<E>(__fadd_rn(gu, to_f(gu_last[i])));
+    dx[at] = from_f<E>(gu);
   }
 }
 
@@ -428,149 +479,175 @@ bool flat_layout(long long m, int d, int T, Strides in, Strides out) {
 constexpr int ARM_FLAT = 1, ARM_RING = 2;
 constexpr int BAD_ARM = (int)cudaErrorInvalidValue;
 
-// The flat arms: 256 threads a block, four elements a thread (FLAT4) or
-// one.
-e2a::Launch flat_plan(long long n, bool v4) {
+// The flat arms: 256 threads a block, 16 bytes of elements a thread
+// (FLAT_VEC: `vec` elements) or one.
+e2a::Launch flat_plan(long long n, bool v, int vec) {
   const int threads = 256;
-  const long long per_block = v4 ? 4LL * threads : threads;
-  e2a::Launch l = e2a::launch_of(threads, 1, 0, v4 ? FLAT4 : FLAT1);
+  const long long per_block = v ? (long long)vec * threads : threads;
+  e2a::Launch l = e2a::launch_of(threads, 1, 0, v ? FLAT_VEC : FLAT1);
   return e2a::axis(l, 0, e2a::cdiv(n, per_block), per_block, n);
 }
 
 // The one launch of each entry point on its arm (none for an empty call).
 // Each returns a cudaError_t.
-int fwd_plan(const float* x, const float* s, const float* u,
-             const float* mask, const float* u0, const float* s0,
-             const float* u_last, const float* s_last, long long m, int d,
-             int T, Strides in, Strides out, int arm, e2a::Launch* l,
-             int& n) {
+int fwd_plan(const void* x, const void* s, const void* u, const void* mask,
+             const void* u0, const void* s0, const void* u_last,
+             const void* s_last, long long m, int d, int T, Strides in,
+             Strides out, int arm, int dtype, e2a::Launch* l, int& n) {
   n = 0;
+  const int esize = e2a::elem_bytes(dtype);
+  if (esize == 0) return BAD_ARM;
+  const int vec = 16 / esize;
   const long long nn = m * d;
   if (nn <= 0 || T <= 0) return 0;
   if (arm == ARM_RING) {
-    l[n++] = ring_plan(nn, T, 1, wide_layout(d, in, out, {x, s, u, mask}));
+    l[n++] = ring_plan(nn, T, 1,
+                       wide_layout(d, in, out, vec, {x, s, u, mask}), esize);
     return 0;
   }
   if (arm != ARM_FLAT || u0 != nullptr || s0 != nullptr ||
       u_last != nullptr || s_last != nullptr ||
       !flat_layout(m, d, T, in, out))
     return BAD_ARM;
-  l[n++] = flat_plan(nn, nn % 4 == 0 && aligned16(x) && aligned16(s) &&
-                             aligned16(u) && aligned16(mask));
+  l[n++] = flat_plan(nn, nn % vec == 0 && aligned16(x) && aligned16(s) &&
+                             aligned16(u) && aligned16(mask), vec);
   return 0;
 }
 
-int bwd_plan(const float* g, const float* u, const float* s,
-             const float* mask, const float* gu_last, const float* dx,
-             long long m, int d, int T, Strides in, Strides out, int arm,
-             e2a::Launch* l, int& n) {
+int bwd_plan(const void* g, const void* u, const void* s, const void* mask,
+             const void* gu_last, const void* dx, long long m, int d, int T,
+             Strides in, Strides out, int arm, int dtype, e2a::Launch* l,
+             int& n) {
   n = 0;
+  const int esize = e2a::elem_bytes(dtype);
+  if (esize == 0) return BAD_ARM;
+  const int vec = 16 / esize;
   const long long nn = m * d;
   if (nn <= 0 || T <= 0) return 0;
   if (arm == ARM_RING) {
     l[n++] = ring_plan(nn, T, 4,
-                       wide_layout(d, in, out, {g, u, s, mask, dx}));
+                       wide_layout(d, in, out, vec, {g, u, s, mask, dx}),
+                       esize);
     return 0;
   }
   if (arm != ARM_FLAT || !flat_layout(m, d, T, in, out)) return BAD_ARM;
-  l[n++] = flat_plan(nn, nn % 4 == 0 && aligned16(g) && aligned16(u) &&
+  l[n++] = flat_plan(nn, nn % vec == 0 && aligned16(g) && aligned16(u) &&
                              aligned16(s) && aligned16(mask) &&
                              aligned16(dx) &&
-                             (gu_last == nullptr || aligned16(gu_last)));
+                             (gu_last == nullptr || aligned16(gu_last)),
+                     vec);
   return 0;
 }
 
 }  // namespace
 
-// arm: 1 flat, 2 ring (the wrapper's rule, kernels/lif_soma.py choose_arm()).
-extern "C" int e2a_lif_soma_fwd(const float* x, float* s, float* u,
-                                float* mask, const float* u0, const float* s0,
-                                float* u_last, float* s_last, long long m,
-                                int d, int T, long long in_t, long long in_m,
+// arm: 1 flat, 2 ring (the wrapper's rule, kernels/lif_soma.py choose_arm());
+// dtype: 0 fp32, 1 bf16, the type of every operand.
+extern "C" int e2a_lif_soma_fwd(const void* x, void* s, void* u, void* mask,
+                                const void* u0, const void* s0, void* u_last,
+                                void* s_last, long long m, int d, int T,
+                                long long in_t, long long in_m,
                                 long long out_t, long long out_m, float alpha,
                                 float th_fire, float th_lo, float th_hi,
-                                int arm, void* stream) {
+                                int arm, int dtype, void* stream) {
   const Strides in = {in_t, in_m}, out = {out_t, out_m};
   e2a::Launch l[e2a::kMaxLaunches];
   int n = 0;
   const int code = fwd_plan(x, s, u, mask, u0, s0, u_last, s_last, m, d, T,
-                            in, out, arm, l, n);
+                            in, out, arm, dtype, l, n);
   if (code != 0 || n == 0) return code;
   const long long nn = m * d;
   const LifParams p = {alpha, th_fire, th_lo, th_hi};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (arm == ARM_RING)
-    return launch_ring<FwdRing>(l[0], st, x, s, u, mask, u0, s0, u_last,
-                                s_last, nn, d, T, in, out, p);
-  if (l[0].kernel == FLAT4)
-    lif_fwd_vec4<<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
-        reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(s),
-        reinterpret_cast<float4*>(u), reinterpret_cast<float4*>(mask),
-        nn / 4, T, p);
-  else
-    lif_fwd_scalar<<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
-        x, s, u, mask, nn, T, p);
-  return (int)cudaGetLastError();
+  return e2a::by_dtype(dtype, [&](auto tag) {
+    using E = typename decltype(tag)::type;
+    if (arm == ARM_RING)
+      return launch_ring<FwdRing, E>(
+          l[0], st, static_cast<const E*>(x), static_cast<E*>(s),
+          static_cast<E*>(u), static_cast<E*>(mask),
+          static_cast<const E*>(u0), static_cast<const E*>(s0),
+          static_cast<E*>(u_last), static_cast<E*>(s_last), nn, d, T, in,
+          out, p);
+    if (l[0].kernel == FLAT_VEC)
+      lif_fwd_vec<E><<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
+          static_cast<const Vec16<E>*>(x), static_cast<Vec16<E>*>(s),
+          static_cast<Vec16<E>*>(u), static_cast<Vec16<E>*>(mask),
+          nn / kVec<E>, T, p);
+    else
+      lif_fwd_scalar<E><<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
+          static_cast<const E*>(x), static_cast<E*>(s), static_cast<E*>(u),
+          static_cast<E*>(mask), nn, T, p);
+    return (int)cudaGetLastError();
+  });
 }
 
-extern "C" int e2a_lif_soma_fwd_plan(const float* x, float* s, float* u,
-                                     float* mask, const float* u0,
-                                     const float* s0, float* u_last,
-                                     float* s_last, long long m, int d, int T,
+extern "C" int e2a_lif_soma_fwd_plan(const void* x, void* s, void* u,
+                                     void* mask, const void* u0,
+                                     const void* s0, void* u_last,
+                                     void* s_last, long long m, int d, int T,
                                      long long in_t, long long in_m,
                                      long long out_t, long long out_m,
                                      float alpha, float th_fire, float th_lo,
-                                     float th_hi, int arm,
+                                     float th_hi, int arm, int dtype,
                                      long long* records, int cap) {
   e2a::Launch l[e2a::kMaxLaunches];
   int n = 0;
   const int code = fwd_plan(x, s, u, mask, u0, s0, u_last, s_last, m, d, T,
-                            {in_t, in_m}, {out_t, out_m}, arm, l, n);
+                            {in_t, in_m}, {out_t, out_m}, arm, dtype, l, n);
   return e2a::write_plan(code, l, n, records, cap);
 }
 
-extern "C" int e2a_lif_soma_bwd(const float* g, const float* u, const float* s,
-                                const float* mask, const float* gu_last,
-                                float* dx, long long m, int d, int T,
+extern "C" int e2a_lif_soma_bwd(const void* g, const void* u, const void* s,
+                                const void* mask, const void* gu_last,
+                                void* dx, long long m, int d, int T,
                                 long long in_t, long long in_m,
                                 long long out_t, long long out_m, float alpha,
-                                float grad_scale, int arm, void* stream) {
+                                float grad_scale, int arm, int dtype,
+                                void* stream) {
   const Strides in = {in_t, in_m}, out = {out_t, out_m};
   e2a::Launch l[e2a::kMaxLaunches];
   int n = 0;
   const int code = bwd_plan(g, u, s, mask, gu_last, dx, m, d, T, in, out,
-                            arm, l, n);
+                            arm, dtype, l, n);
   if (code != 0 || n == 0) return code;
   const long long nn = m * d;
   const GradParams p = {alpha, grad_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (arm == ARM_RING)
-    return launch_ring<BwdRing>(l[0], st, g, u, s, mask, gu_last, dx, nn, d,
-                                T, in, out, p);
-  if (l[0].kernel == FLAT4)
-    lif_bwd_vec4<<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
-        reinterpret_cast<const float4*>(g), reinterpret_cast<const float4*>(u),
-        reinterpret_cast<const float4*>(s),
-        reinterpret_cast<const float4*>(mask),
-        reinterpret_cast<const float4*>(gu_last),
-        reinterpret_cast<float4*>(dx), nn / 4, T, p);
-  else
-    lif_bwd_scalar<<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
-        g, u, s, mask, gu_last, dx, nn, T, p);
-  return (int)cudaGetLastError();
+  return e2a::by_dtype(dtype, [&](auto tag) {
+    using E = typename decltype(tag)::type;
+    if (arm == ARM_RING)
+      return launch_ring<BwdRing, E>(
+          l[0], st, static_cast<const E*>(g), static_cast<const E*>(u),
+          static_cast<const E*>(s), static_cast<const E*>(mask),
+          static_cast<const E*>(gu_last), static_cast<E*>(dx), nn, d, T, in,
+          out, p);
+    if (l[0].kernel == FLAT_VEC)
+      lif_bwd_vec<E><<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
+          static_cast<const Vec16<E>*>(g), static_cast<const Vec16<E>*>(u),
+          static_cast<const Vec16<E>*>(s),
+          static_cast<const Vec16<E>*>(mask),
+          static_cast<const Vec16<E>*>(gu_last),
+          static_cast<Vec16<E>*>(dx), nn / kVec<E>, T, p);
+    else
+      lif_bwd_scalar<E><<<e2a::grid_of(l[0]), e2a::block_of(l[0]), 0, st>>>(
+          static_cast<const E*>(g), static_cast<const E*>(u),
+          static_cast<const E*>(s), static_cast<const E*>(mask),
+          static_cast<const E*>(gu_last), static_cast<E*>(dx), nn, T, p);
+    return (int)cudaGetLastError();
+  });
 }
 
-extern "C" int e2a_lif_soma_bwd_plan(const float* g, const float* u,
-                                     const float* s, const float* mask,
-                                     const float* gu_last, float* dx,
+extern "C" int e2a_lif_soma_bwd_plan(const void* g, const void* u,
+                                     const void* s, const void* mask,
+                                     const void* gu_last, void* dx,
                                      long long m, int d, int T, long long in_t,
                                      long long in_m, long long out_t,
                                      long long out_m, float alpha,
-                                     float grad_scale, int arm,
+                                     float grad_scale, int arm, int dtype,
                                      long long* records, int cap) {
   e2a::Launch l[e2a::kMaxLaunches];
   int n = 0;
   const int code = bwd_plan(g, u, s, mask, gu_last, dx, m, d, T,
-                            {in_t, in_m}, {out_t, out_m}, arm, l, n);
+                            {in_t, in_m}, {out_t, out_m}, arm, dtype, l, n);
   return e2a::write_plan(code, l, n, records, cap);
 }

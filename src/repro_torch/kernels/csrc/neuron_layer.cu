@@ -69,13 +69,28 @@
 // Bound: the packed arm by three dense bf16 passes on the tensor cores plus
 // the z round trip (2 * T * M * K * 4 bytes); recomputing the product in (c)
 // instead of storing z would double the dominant work.
+//
+// bf16 (the reference's kernels at a bf16 input: bf16 x bf16 products into
+// an fp32 accumulator, BN or the bias and the SOMA on that fp32
+// accumulator, the spikes stored in x.dtype): x (dense) and w are bf16, named
+// by the dtype code, and so are the spikes s; z, the statistics, gamma,
+// beta and the bias stay fp32 (the wrapper widens a bf16 vector, exactly).
+// The packed arms run the mainloop on one weight plane (a bf16 weight is
+// its own, Planes<bf16>); the dense arms convert each staged element to
+// fp32, where a bf16 x bf16 product is exact, so each fmaf adds the exact
+// product as the fp32 accumulator of the reference's dot does. Everything
+// after the product is the fp32 arm's arithmetic, so train_z replays the
+// forward's z bit for bit at bf16 too.
 #include "bn_stats.cuh"
+#include "elem.cuh"
 #include "launch_plan.cuh"
 #include "spike_mma_mainloop.cuh"
 
 namespace {
 
 using namespace e2a;
+using e2a::mma::Planes;
+using e2a::mma::planes_of;
 
 // Which kernel a Launch record of this file is for.
 enum Kernel {
@@ -131,16 +146,18 @@ __device__ __forceinline__ int dense_ld(int cp) {
   return cp % 8 == 0 ? cp + 4 : cp;
 }
 
-// w[c0 .. c0 + cw) x [n0 .. n0 + DENSE_COLS) into sm.w, zero past cw (up to
-// cp) and past K.
+// w[c0 .. c0 + cw) x [n0 .. n0 + DENSE_COLS) into sm.w as fp32, zero past
+// cw (up to cp) and past K.
+template <class E>
 __device__ __forceinline__ void dense_stage_w(DenseSmem& sm,
-                                              const float* __restrict__ w,
+                                              const E* __restrict__ w,
                                               int c0, int cw, int cp, int K,
                                               int n0) {
   for (int i = threadIdx.x; i < cp * DENSE_COLS; i += DENSE_THREADS) {
     const int c = i / DENSE_COLS, k = i % DENSE_COLS;
-    sm.w[i] = c < cw && n0 + k < K ? w[(long long)(c0 + c) * K + n0 + k]
-                                   : 0.0f;
+    sm.w[i] = c < cw && n0 + k < K
+                  ? to_f(w[(long long)(c0 + c) * K + n0 + k])
+                  : 0.0f;
   }
 }
 
@@ -172,35 +189,42 @@ __device__ __forceinline__ void dense_fma(const DenseSmem& sm, int ld, int cp,
 }
 
 // One sub-tile's x rows [r0, r0 + n) (n <= DENSE_ROWS, C <= DENSE_CHUNK):
-// one contiguous span of n * C floats, read as the floats before its first
-// 16-byte boundary (head), float4s (body), and the rest (tail). A thread
-// loads its share into registers (load) while the block computes the last
-// sub-tile, and writes it to the staged rows (put) after the next barrier,
-// so that the loads' latency hides behind the FMAs.
+// one contiguous span of n * C elements, read as the elements before its
+// first 16-byte boundary (head), 16-byte vectors of VE elements (body: 4
+// fp32 or 8 bf16), and the rest (tail). A thread loads its share into
+// registers (load) while the block computes the last sub-tile, and writes
+// it to the staged rows as fp32 (put) after the next barrier, so that the
+// loads' latency hides behind the FMAs.
+template <class E>
 struct DenseSpan {
+  static constexpr int VE = kVec<E>;
   static constexpr int PER_THREAD =
-      DENSE_ROWS * DENSE_CHUNK / 4 / DENSE_THREADS;   // float4s at most
-  float4 v[PER_THREAD];
-  float h, t;                                          // head, tail floats
+      DENSE_ROWS * DENSE_CHUNK / VE / DENSE_THREADS;  // vectors at most
+  struct alignas(16) Vec {
+    E e[VE];
+  };
+  Vec v[PER_THREAD];
+  float h, t;                                          // head, tail elements
   int head, body, total;
 
-  __device__ __forceinline__ void load(const float* __restrict__ x,
+  __device__ __forceinline__ void load(const E* __restrict__ x,
                                        long long r0, int n, int C) {
-    const float* src = x + r0 * C;
+    const E* src = x + r0 * C;
     h = t = 0.0f;
     total = n * C;
     head = min(total,
-               (int)((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15) / 4);
-    body = (total - head) / 4;
-    const float4* src4 = reinterpret_cast<const float4*>(src + head);
+               (int)(((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15) /
+                     sizeof(E)));
+    body = (total - head) / VE;
+    const Vec* srcv = reinterpret_cast<const Vec*>(src + head);
 #pragma unroll
     for (int k = 0; k < PER_THREAD; ++k) {
       const int f = threadIdx.x + k * DENSE_THREADS;
-      if (f < body) v[k] = src4[f];
+      if (f < body) v[k] = srcv[f];
     }
-    const int tail = total - head - 4 * body;
-    if ((int)threadIdx.x < head) h = src[threadIdx.x];
-    if ((int)threadIdx.x < tail) t = src[head + 4 * body + threadIdx.x];
+    const int tail = total - head - VE * body;
+    if ((int)threadIdx.x < head) h = to_f(src[threadIdx.x]);
+    if ((int)threadIdx.x < tail) t = to_f(src[head + VE * body + threadIdx.x]);
   }
 
   __device__ __forceinline__ void put(DenseSmem& sm, int C, int ld) const {
@@ -208,22 +232,21 @@ struct DenseSpan {
     for (int k = 0; k < PER_THREAD; ++k) {
       const int f = threadIdx.x + k * DENSE_THREADS;
       if (f >= body) break;
-      const float e[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
-      const int i = head + 4 * f;
+      const int i = head + VE * f;
       int row = i / C, c = i - row * C;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        sm.x[row * ld + c] = e[u];
+      for (int u = 0; u < VE; ++u) {
+        sm.x[row * ld + c] = to_f(v[k].e[u]);
         if (++c == C) {
           c = 0;
           ++row;
         }
       }
     }
-    const int i = threadIdx.x, tail = total - head - 4 * body;
+    const int i = threadIdx.x, tail = total - head - VE * body;
     if (i < head) sm.x[(i / C) * ld + i % C] = h;
     if (i < tail) {
-      const int j = head + 4 * body + i;
+      const int j = head + VE * body + i;
       sm.x[(j / C) * ld + j % C] = t;
     }
   }
@@ -233,10 +256,10 @@ struct DenseSpan {
 // and its number of rows (<= DENSE_ROWS), and epi(s, acc) receives the
 // thread's 4 x 4 products of it, each fmaf over c ascending from 0.
 // Every thread of the block calls it.
-template <class Rows, class Epilogue>
+template <class E, class Rows, class Epilogue>
 __device__ __forceinline__ void dense_tiles(DenseSmem& sm,
-                                            const float* __restrict__ x,
-                                            const float* __restrict__ w, int S,
+                                            const E* __restrict__ x,
+                                            const E* __restrict__ w, int S,
                                             Rows rows, int C, int K, int n0,
                                             int rl, int q, Epilogue epi) {
   if (C <= DENSE_CHUNK) {   // the whole weight and whole rows at once
@@ -244,7 +267,7 @@ __device__ __forceinline__ void dense_tiles(DenseSmem& sm,
     dense_stage_w(sm, w, 0, C, cp, K, n0);
     for (int i = threadIdx.x; i < DENSE_ROWS * (cp - C); i += DENSE_THREADS)
       sm.x[(i / (cp - C)) * ld + C + i % (cp - C)] = 0.0f;   // the pad
-    DenseSpan span;
+    DenseSpan<E> span;
     long long r0;
     int n;
     rows(0, r0, n);
@@ -277,7 +300,7 @@ __device__ __forceinline__ void dense_tiles(DenseSmem& sm,
       for (int i = threadIdx.x; i < DENSE_ROWS * cp; i += DENSE_THREADS) {
         const int row = i / cp, c = i % cp;
         sm.x[row * ld + c] =
-            row < n && c < cw ? x[(r0 + row) * C + c0 + c] : 0.0f;
+            row < n && c < cw ? to_f(x[(r0 + row) * C + c0 + c]) : 0.0f;
       }
       __syncthreads();
       dense_fma(sm, ld, cp, rl, q, acc);
@@ -286,19 +309,18 @@ __device__ __forceinline__ void dense_tiles(DenseSmem& sm,
   }
 }
 
-// The 4 values of a thread's row at column col of out (rows of K floats):
-// one float4 where vec4 (K % 4 == 0, out 16-byte aligned), else those
-// below K.
-__device__ __forceinline__ void dense_store(float* out, int col, int K,
+// The 4 values of a thread's row at column col of out (rows of K
+// elements): one vector store where vec4 (K % 4 == 0, out 16-byte aligned),
+// else those below K, each rounded to out's type once.
+template <class O>
+__device__ __forceinline__ void dense_store(O* out, int col, int K,
                                             bool vec4, const float (&v)[4]) {
   if (vec4) {
-    if (col < K)
-      *reinterpret_cast<float4*>(out + col) =
-          make_float4(v[0], v[1], v[2], v[3]);
+    if (col < K) store_v<4>(out + col, v);
   } else {
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      if (col + e < K) out[col + e] = v[e];
+      if (col + e < K) out[col + e] = from_f<O>(v[e]);
   }
 }
 
@@ -306,9 +328,10 @@ __device__ __forceinline__ void dense_store(float* out, int col, int K,
 // t = 0..T-1 over time step t's rows; (U, S) of its 16 outputs stay with
 // the thread (S as one bit each in a register, U in shared memory, which
 // leaves the registers to the product), and only the spikes are written.
+template <class E>
 __global__ void __launch_bounds__(DENSE_THREADS, 3) neuron_layer_eval_dense(
-    const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ bias, float* __restrict__ s, int T,
+    const E* __restrict__ x, const E* __restrict__ w,
+    const float* __restrict__ bias, E* __restrict__ s, int T,
     long long M, int C, int K, bool vec4, float alpha, float th_fire) {
   __shared__ __align__(16) DenseSmem sm;
   const int lane = threadIdx.x % 32, q = lane % 16;
@@ -354,8 +377,9 @@ __global__ void __launch_bounds__(DENSE_THREADS, 3) neuron_layer_eval_dense(
 // partials of sum(z) and sum(z^2) in a fixed order: each thread over its
 // rows in order, then the 16 row lanes in shared memory in order (not
 // written where part is null).
+template <class E>
 __global__ void __launch_bounds__(DENSE_THREADS) neuron_layer_train_z_dense(
-    const float* __restrict__ x, const float* __restrict__ w,
+    const E* __restrict__ x, const E* __restrict__ w,
     float* __restrict__ z, float* __restrict__ part, long long rows, int C,
     int K, bool vec4, int n_tiles) {
   __shared__ __align__(16) DenseSmem sm;
@@ -417,57 +441,69 @@ Launch dense_plan(long long rows, long long rows_per_block, int K,
   return axis(l, 1, cdiv(K, DENSE_COLS), DENSE_COLS, K);
 }
 
-int launch_eval_dense(const Launch& l, const float* x, const float* w,
-                      const float* bias, float* s, int T, long long M, int C,
+template <class E>
+int launch_eval_dense(const Launch& l, const E* x, const E* w,
+                      const float* bias, E* s, int T, long long M, int C,
                       int K, float alpha, float th_fire, cudaStream_t st) {
   const bool vec4 = K % 4 == 0 && reinterpret_cast<uintptr_t>(s) % 16 == 0;
-  neuron_layer_eval_dense<<<grid_of(l), block_of(l), 0, st>>>(
+  neuron_layer_eval_dense<E><<<grid_of(l), block_of(l), 0, st>>>(
       x, w, bias, s, T, M, C, K, vec4, alpha, th_fire);
   return (int)cudaGetLastError();
 }
 
-int launch_train_z_dense(const Launch& l, const float* x, const float* w,
+template <class E>
+int launch_train_z_dense(const Launch& l, const E* x, const E* w,
                          float* z, float* part, long long rows, int C, int K,
                          cudaStream_t st) {
   const bool vec4 = K % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0;
-  neuron_layer_train_z_dense<<<grid_of(l), block_of(l), 0, st>>>(
+  neuron_layer_train_z_dense<E><<<grid_of(l), block_of(l), 0, st>>>(
       x, w, z, part, rows, C, K, vec4, (int)l.grid[0]);
   return (int)cudaGetLastError();
 }
 
 // ---- eval, packed arm ----
 // Outputs a thread owns in the tile (Lane<Tile>: WM x WN fragments of 4),
-// and the dynamic shared memory of a block: the mainloop's, then U, slot i
-// of thread j at float (i * THREADS + j), so a warp's accesses are
-// contiguous.
+// and the dynamic shared memory of a block: the mainloop's (its P weight
+// planes and rows), then U, slot i of thread j at float (i * THREADS + j),
+// so a warp's accesses are contiguous.
 template <class Tile>
 struct EvalTile {
   static constexpr int OUTS = Tile::WM * Tile::WN * 4;
-  static constexpr int SMEM = Tile::SMEM + OUTS * Tile::THREADS * 4;
+  static constexpr int smem(int planes) {
+    return Tile::smem(planes) + OUTS * Tile::THREADS * 4;
+  }
   static_assert(OUTS <= 32, "one spike bit per output in a 32-bit mask");
 };
 
-template <class Tile>
+// Two neighbouring spikes of E in one store (8 bytes of fp32, 4 of bf16).
+__device__ __forceinline__ void store2(float* o, const float (&v)[2]) {
+  *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ void store2(bf16* o, const float (&v)[2]) {
+  *reinterpret_cast<uint32_t*>(o) = e2a::mma::bf16x2_rn(v[0], v[1]);
+}
+
+template <class Tile, class E>
 __global__ void __launch_bounds__(Tile::THREADS, Tile::MIN_BLOCKS)
-    neuron_layer_eval_mma(const e2a::mma::Operands a, int T,
+    neuron_layer_eval_mma(const e2a::mma::Operands<E> a, int T,
                           const float* __restrict__ bias,
-                          float* __restrict__ s, float alpha, float th_fire) {
+                          E* __restrict__ s, float alpha, float th_fire) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* const u_mem =
-      reinterpret_cast<float*>(smem + Tile::SMEM) + threadIdx.x;
+      reinterpret_cast<float*>(smem + Tile::smem(Planes<E>)) + threadIdx.x;
   const long long m0 = (long long)blockIdx.x * Tile::BM;
   const int n0 = blockIdx.y * Tile::BN;
   const e2a::mma::Lane<Tile> L;
   const int K = a.K;
-  const bool vec2 = K % 2 == 0;   // s is 256-byte aligned, rows K floats
+  const bool vec2 = K % 2 == 0;   // s is 256-byte aligned, rows K elements
   uint32_t fired = 0;             // bit i: output i's spike at step t - 1
-  e2a::mma::Operands at = a;
+  e2a::mma::Operands<E> at = a;
   for (int t = 0; t < T; ++t) {
     at.x = a.x + (long long)t * a.M * a.x_m;   // time step t's packed rows
     if (t > 0) __syncthreads();   // every warp is past step t - 1's mainloop
     e2a::mma::Acc<Tile> acc;
     e2a::mma::mainloop<Tile>(at, m0, n0, smem, acc);
-    float* const out = s + (long long)t * a.M * K;
+    E* const out = s + (long long)t * a.M * K;
 #pragma unroll
     for (int mt = 0; mt < Tile::WM; ++mt)
 #pragma unroll
@@ -495,12 +531,12 @@ __global__ void __launch_bounds__(Tile::THREADS, Tile::MIN_BLOCKS)
             v[e] = f ? 1.0f : 0.0f;
           }
           if (row >= a.M) continue;
-          float* const o = out + row * K + col;
+          E* const o = out + row * K + col;
           if (vec2 && col + 1 < K) {
-            *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+            store2(o, v);
           } else {
-            if (col < K) o[0] = v[0];
-            if (col + 1 < K) o[1] = v[1];
+            if (col < K) o[0] = from_f<E>(v[0]);
+            if (col + 1 < K) o[1] = from_f<E>(v[1]);
           }
         }
       }
@@ -510,21 +546,22 @@ __global__ void __launch_bounds__(Tile::THREADS, Tile::MIN_BLOCKS)
 // The packed eval arm's launch: blocks of Tile::BM rows of a time step x
 // Tile::BN columns, each walking the T steps.
 template <class Tile>
-Launch eval_mma_plan(long long M, int K, Kernel k) {
-  Launch l = launch_of(Tile::THREADS, 1, EvalTile<Tile>::SMEM, k);
+Launch eval_mma_plan(long long M, int K, Kernel k, int planes) {
+  Launch l = launch_of(Tile::THREADS, 1, EvalTile<Tile>::smem(planes), k);
   axis(l, 0, cdiv(M, Tile::BM), Tile::BM, M);
   return axis(l, 1, cdiv(K, Tile::BN), Tile::BN, K);
 }
 
-template <class Tile>
-int launch_eval_mma(const Launch& l, const e2a::mma::Operands& a, int T,
-                    const float* bias, float* s, float alpha, float th_fire,
+template <class Tile, class E>
+int launch_eval_mma(const Launch& l, const e2a::mma::Operands<E>& a, int T,
+                    const float* bias, E* s, float alpha, float th_fire,
                     cudaStream_t st) {
   static bool raised[kMaxDevices] = {};
   const int err = raise_smem(
-      l, reinterpret_cast<const void*>(neuron_layer_eval_mma<Tile>), raised);
+      l, reinterpret_cast<const void*>(neuron_layer_eval_mma<Tile, E>),
+      raised);
   if (err != 0) return err;
-  neuron_layer_eval_mma<Tile><<<grid_of(l), block_of(l), l.smem, st>>>(
+  neuron_layer_eval_mma<Tile, E><<<grid_of(l), block_of(l), l.smem, st>>>(
       a, T, bias, s, alpha, th_fire);
   return (int)cudaGetLastError();
 }
@@ -556,9 +593,11 @@ int eval_tile(long long M, int K) {
 // warps in shared memory in warp order (not written where part is null).
 using ZTile = e2a::mma::Large;
 
+template <class E>
 __global__ void __launch_bounds__(ZTile::THREADS, ZTile::MIN_BLOCKS)
-    neuron_layer_train_z_mma(const e2a::mma::Operands a, float* __restrict__ z,
-                             float* __restrict__ part, int n_tiles) {
+    neuron_layer_train_z_mma(const e2a::mma::Operands<E> a,
+                             float* __restrict__ z, float* __restrict__ part,
+                             int n_tiles) {
   using T = ZTile;
   extern __shared__ __align__(16) unsigned char smem[];
   const long long m0 = (long long)blockIdx.x * T::BM;
@@ -611,7 +650,7 @@ __global__ void __launch_bounds__(ZTile::THREADS, ZTile::MIN_BLOCKS)
   // the WARPS_M warps that share a column, in warp order; the mainloop's
   // shared memory is free once every warp is past it
   float* const red = reinterpret_cast<float*>(smem);   // [2][WARPS_M][BN]
-  static_assert(2 * T::WARPS_M * T::BN * 4 <= T::SMEM, "reduction space");
+  static_assert(2 * T::WARPS_M * T::BN * 4 <= T::smem(1), "reduction space");
   __syncthreads();
   if (L.g == 0) {
     const int wm = (threadIdx.x / 32) / T::WARPS_N;
@@ -638,13 +677,14 @@ __global__ void __launch_bounds__(ZTile::THREADS, ZTile::MIN_BLOCKS)
   }
 }
 
-int launch_train_z_packed(const Launch& l, const e2a::mma::Operands& a,
+template <class E>
+int launch_train_z_packed(const Launch& l, const e2a::mma::Operands<E>& a,
                           float* z, float* part, cudaStream_t st) {
   static bool raised[kMaxDevices] = {};
   const int err = raise_smem(
-      l, reinterpret_cast<const void*>(neuron_layer_train_z_mma), raised);
+      l, reinterpret_cast<const void*>(neuron_layer_train_z_mma<E>), raised);
   if (err != 0) return err;
-  neuron_layer_train_z_mma<<<grid_of(l), block_of(l), l.smem, st>>>(
+  neuron_layer_train_z_mma<E><<<grid_of(l), block_of(l), l.smem, st>>>(
       a, z, part, (int)l.grid[0]);
   return (int)cudaGetLastError();
 }
@@ -652,8 +692,10 @@ int launch_train_z_packed(const Launch& l, const e2a::mma::Operands& a,
 // Pass (a) of either arm over all T * M rows: ZTile::BM-row tiles for the
 // packed arm (kernels/neuron_layer.py TILE_ROWS), DENSE_TILE_ROWS for the
 // dense arm (DENSE_TILE_ROWS there too); grid.x is the partials' tile
-// count. Returns a cudaError_t.
-int z_plan(int T, long long M, int C, int K, int packed, Launch& l) {
+// count; the packed arm's shared memory holds `planes` weight planes.
+// Returns a cudaError_t.
+int z_plan(int T, long long M, int C, int K, int packed, int planes,
+           Launch& l) {
   if (packed && C % 8 != 0) return (int)cudaErrorInvalidValue;
   if (T < 1 || T > 8) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)T * M;
@@ -662,7 +704,7 @@ int z_plan(int T, long long M, int C, int K, int packed, Launch& l) {
     return 0;
   }
   if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  l = launch_of(ZTile::THREADS, 1, ZTile::SMEM, Z_MMA);
+  l = launch_of(ZTile::THREADS, 1, ZTile::smem(planes), Z_MMA);
   axis(l, 0, cdiv(rows, ZTile::BM), ZTile::BM, rows);
   axis(l, 1, cdiv(K, ZTile::BN), ZTile::BN, K);
   return 0;
@@ -670,16 +712,17 @@ int z_plan(int T, long long M, int C, int K, int packed, Launch& l) {
 
 // Pass (a) as z_plan planned it: z (T, M, K), and the column partials into
 // part unless it is null. Returns a cudaError_t.
-int launch_z(const Launch& l, const void* x, const float* w, float* z,
+template <class E>
+int launch_z(const Launch& l, const void* x, const E* w, float* z,
              float* part, int T, long long M, int C, int K, cudaStream_t st) {
   const long long rows = (long long)T * M;
   if (l.kernel == Z_MMA) {
     // T is a row index here: x (T * M, C / 8) and z (T * M, K), contiguous
-    const e2a::mma::Operands a = {static_cast<const uint8_t*>(x), C / 8, 1,
-                                  w, K, 1, (int)rows, C, K};
+    const e2a::mma::Operands<E> a = {static_cast<const uint8_t*>(x), C / 8, 1,
+                                     w, K, 1, (int)rows, C, K};
     return launch_train_z_packed(l, a, z, part, st);
   }
-  return launch_train_z_dense(l, static_cast<const float*>(x), w, z, part,
+  return launch_train_z_dense(l, static_cast<const E*>(x), w, z, part,
                               rows, C, K, st);
 }
 
@@ -731,14 +774,14 @@ __global__ void neuron_layer_train_finalize(const double* __restrict__ sums,
 // version's, so equal statistics give equal spikes bit for bit.
 constexpr int SOMA_COLS = 32, SOMA_LANES = 8, SOMA_ROWS = 32;
 
-template <int V>
+template <int V, class E>
 __global__ void __launch_bounds__(SOMA_COLS* SOMA_LANES)
     neuron_layer_train_soma(const float* __restrict__ z,
                             const float* __restrict__ gamma,
                             const float* __restrict__ beta,
                             const float* __restrict__ mu,
                             const float* __restrict__ sqrt_d,
-                            float* __restrict__ s, long long M, int K, int T,
+                            E* __restrict__ s, long long M, int K, int T,
                             float alpha, float th_fire) {
   const int c0 = (blockIdx.x * SOMA_COLS + threadIdx.x) * V;
   if (c0 >= K) return;                 // V = 4 only where K % 4 == 0
@@ -788,16 +831,18 @@ Launch soma_plan(long long M, int K) {
               cdiv(M, SOMA_ROWS) > MAX_ROW_BLOCKS);
 }
 
-// (c) over z with the statistics in mu and sqrt_d. Returns a cudaError_t.
+// (c) over z with the statistics in mu and sqrt_d, the spikes in E.
+// Returns a cudaError_t.
+template <class E>
 int launch_soma(const Launch& l, const float* z, const float* gamma,
                 const float* beta, const float* mu, const float* sqrt_d,
-                float* s, int T, long long M, int K, float alpha,
+                E* s, int T, long long M, int K, float alpha,
                 float th_fire, cudaStream_t st) {
   if (l.kernel == SOMA4)
-    neuron_layer_train_soma<4><<<grid_of(l), block_of(l), 0, st>>>(
+    neuron_layer_train_soma<4, E><<<grid_of(l), block_of(l), 0, st>>>(
         z, gamma, beta, mu, sqrt_d, s, M, K, T, alpha, th_fire);
   else
-    neuron_layer_train_soma<1><<<grid_of(l), block_of(l), 0, st>>>(
+    neuron_layer_train_soma<1, E><<<grid_of(l), block_of(l), 0, st>>>(
         z, gamma, beta, mu, sqrt_d, s, M, K, T, alpha, th_fire);
   return (int)cudaGetLastError();
 }
@@ -816,8 +861,10 @@ Launch finalize_plan(int K) {
 // The launches of each entry point, in order; n = 0 where it launches
 // nothing. Each returns a cudaError_t.
 int eval_plan(int T, long long M, int C, int K, int packed, int tile,
-              Launch* l, int& n) {
+              int dtype, Launch* l, int& n) {
   n = 0;
+  const int planes = planes_of(dtype);
+  if (planes == 0) return (int)cudaErrorInvalidValue;
   if (M <= 0 || K <= 0) return 0;
   if (T < 1 || T > 8 || tile < 0 || tile > 2)
     return (int)cudaErrorInvalidValue;
@@ -827,16 +874,19 @@ int eval_plan(int T, long long M, int C, int K, int packed, int tile,
   }
   if (C % 8 != 0 || M > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (tile == 0) tile = eval_tile(M, K);
-  l[n++] = tile == 1 ? eval_mma_plan<e2a::mma::Large>(M, K, EVAL_LARGE)
-                     : eval_mma_plan<e2a::mma::Small>(M, K, EVAL_SMALL);
+  l[n++] = tile == 1
+               ? eval_mma_plan<e2a::mma::Large>(M, K, EVAL_LARGE, planes)
+               : eval_mma_plan<e2a::mma::Small>(M, K, EVAL_SMALL, planes);
   return 0;
 }
 
 int train_plan(int T, long long M, int C, int K, int packed, bool soma,
-               Launch* l, int& n) {
+               int dtype, Launch* l, int& n) {
   n = 0;
+  const int planes = planes_of(dtype);
+  if (planes == 0) return (int)cudaErrorInvalidValue;
   if (M <= 0 || K <= 0) return 0;
-  const int code = z_plan(T, M, C, K, packed, l[0]);
+  const int code = z_plan(T, M, C, K, packed, planes, l[0]);
   if (code != 0) return code;
   l[1] = stats_plan(K);
   n = 2;
@@ -844,8 +894,10 @@ int train_plan(int T, long long M, int C, int K, int packed, bool soma,
   return 0;
 }
 
-int train_apply_plan(int T, long long M, int K, Launch* l, int& n) {
+int train_apply_plan(int T, long long M, int K, int dtype, Launch* l,
+                     int& n) {
   n = 0;
+  if (planes_of(dtype) == 0) return (int)cudaErrorInvalidValue;
   if (K <= 0) return 0;
   if (T < 1 || T > 8) return (int)cudaErrorInvalidValue;
   l[n++] = finalize_plan(K);
@@ -853,50 +905,61 @@ int train_apply_plan(int T, long long M, int K, Launch* l, int& n) {
   return 0;
 }
 
-int train_z_plan(int T, long long M, int C, int K, int packed, Launch* l,
-                 int& n) {
+int train_z_plan(int T, long long M, int C, int K, int packed, int dtype,
+                 Launch* l, int& n) {
   n = 0;
+  const int planes = planes_of(dtype);
+  if (planes == 0) return (int)cudaErrorInvalidValue;
   if (M <= 0 || K <= 0) return 0;
-  const int code = z_plan(T, M, C, K, packed, l[0]);
+  const int code = z_plan(T, M, C, K, packed, planes, l[0]);
   if (code == 0) n = 1;
   return code;
 }
 
 }  // namespace
 
+// dtype (every entry point): 0 fp32, 1 bf16, the type of x (dense), w and
+// the spikes s; z, part, the statistics, gamma, beta, bias and sums are
+// fp32 (sums float64) at either.
+
 // Eval mode: x (T, M, C) [packed: (T, M, C/8) uint8] @ w (C, K) + bias ->
 // SOMA; writes s (T, M, K). tile picks the packed arm's tile: 0 by the rule
 // of eval_tile, 1 Large, 2 Small (the benchmark times both).
-extern "C" int e2a_neuron_layer_eval(const void* x, const float* w,
-                                     const float* bias, float* s, int T,
+extern "C" int e2a_neuron_layer_eval(const void* x, const void* w,
+                                     const float* bias, void* s, int T,
                                      long long M, int C, int K, int packed,
                                      int tile, float alpha, float th_fire,
-                                     void* stream) {
+                                     int dtype, void* stream) {
   Launch l[kMaxLaunches];
   int n = 0;
-  const int code = eval_plan(T, M, C, K, packed, tile, l, n);
+  const int code = eval_plan(T, M, C, K, packed, tile, dtype, l, n);
   if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (l[0].kernel == EVAL_DENSE)
-    return launch_eval_dense(l[0], static_cast<const float*>(x), w, bias, s,
-                             T, M, C, K, alpha, th_fire, st);
-  // x (T, M, C / 8): time step t's rows start at t * M * (C / 8)
-  const e2a::mma::Operands a = {static_cast<const uint8_t*>(x), C / 8, 1, w,
-                                K, 1, (int)M, C, K};
-  return l[0].kernel == EVAL_LARGE
-             ? launch_eval_mma<e2a::mma::Large>(l[0], a, T, bias, s, alpha,
-                                                th_fire, st)
-             : launch_eval_mma<e2a::mma::Small>(l[0], a, T, bias, s, alpha,
-                                                th_fire, st);
+  return by_dtype(dtype, [&](auto tag) {
+    using E = typename decltype(tag)::type;
+    const E* const we = static_cast<const E*>(w);
+    E* const se = static_cast<E*>(s);
+    if (l[0].kernel == EVAL_DENSE)
+      return launch_eval_dense(l[0], static_cast<const E*>(x), we, bias, se,
+                               T, M, C, K, alpha, th_fire, st);
+    // x (T, M, C / 8): time step t's rows start at t * M * (C / 8)
+    const e2a::mma::Operands<E> a = {static_cast<const uint8_t*>(x), C / 8,
+                                     1, we, K, 1, (int)M, C, K};
+    return l[0].kernel == EVAL_LARGE
+               ? launch_eval_mma<e2a::mma::Large>(l[0], a, T, bias, se, alpha,
+                                                  th_fire, st)
+               : launch_eval_mma<e2a::mma::Small>(l[0], a, T, bias, se, alpha,
+                                                  th_fire, st);
+  });
 }
 
 extern "C" int e2a_neuron_layer_eval_plan(
-    const void* x, const float* w, const float* bias, float* s, int T,
+    const void* x, const void* w, const float* bias, void* s, int T,
     long long M, int C, int K, int packed, int tile, float alpha,
-    float th_fire, long long* records, int cap) {
+    float th_fire, int dtype, long long* records, int cap) {
   Launch l[kMaxLaunches];
   int n = 0;
-  const int code = eval_plan(T, M, C, K, packed, tile, l, n);
+  const int code = eval_plan(T, M, C, K, packed, tile, dtype, l, n);
   return write_plan(code, l, n, records, cap);
 }
 
@@ -904,65 +967,74 @@ extern "C" int e2a_neuron_layer_eval_plan(
 // statistics over T * M rows -> BN -> SOMA. Writes s (T, M, K) and mu, var,
 // sqrt_d (K); z (T, M, K) and part are scratch. part holds (2, n_tiles, K)
 // floats, n_tiles the z pass's grid.x (z_plan).
-extern "C" int e2a_neuron_layer_train(const void* x, const float* w,
+extern "C" int e2a_neuron_layer_train(const void* x, const void* w,
                                       const float* gamma, const float* beta,
                                       float* z, float* part, float* mu,
-                                      float* var, float* sqrt_d, float* s,
+                                      float* var, float* sqrt_d, void* s,
                                       int T, long long M, int C, int K,
                                       int packed, float alpha, float th_fire,
-                                      float eps, void* stream) {
+                                      float eps, int dtype, void* stream) {
   Launch l[kMaxLaunches];
   int n = 0;
-  int code = train_plan(T, M, C, K, packed, true, l, n);
+  int code = train_plan(T, M, C, K, packed, true, dtype, l, n);
   if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  code = launch_z(l[0], x, w, z, part, T, M, C, K, st);
-  if (code != 0) return code;
-  neuron_layer_train_stats<<<grid_of(l[1]), block_of(l[1]), 0, st>>>(
-      part, mu, var, sqrt_d, nullptr, (int)l[0].grid[0], K, (double)T * M,
-      eps);
-  return launch_soma(l[2], z, gamma, beta, mu, sqrt_d, s, T, M, K, alpha,
-                     th_fire, st);
+  return by_dtype(dtype, [&](auto tag) {
+    using E = typename decltype(tag)::type;
+    const int err =
+        launch_z(l[0], x, static_cast<const E*>(w), z, part, T, M, C, K, st);
+    if (err != 0) return err;
+    neuron_layer_train_stats<<<grid_of(l[1]), block_of(l[1]), 0, st>>>(
+        part, mu, var, sqrt_d, nullptr, (int)l[0].grid[0], K, (double)T * M,
+        eps);
+    return launch_soma(l[2], z, gamma, beta, mu, sqrt_d, static_cast<E*>(s),
+                       T, M, K, alpha, th_fire, st);
+  });
 }
 
 extern "C" int e2a_neuron_layer_train_plan(
-    const void* x, const float* w, const float* gamma, const float* beta,
-    float* z, float* part, float* mu, float* var, float* sqrt_d, float* s,
+    const void* x, const void* w, const float* gamma, const float* beta,
+    float* z, float* part, float* mu, float* var, float* sqrt_d, void* s,
     int T, long long M, int C, int K, int packed, float alpha, float th_fire,
-    float eps, long long* records, int cap) {
+    float eps, int dtype, long long* records, int cap) {
   Launch l[kMaxLaunches];
   int n = 0;
-  const int code = train_plan(T, M, C, K, packed, true, l, n);
+  const int code = train_plan(T, M, C, K, packed, true, dtype, l, n);
   return write_plan(code, l, n, records, cap);
 }
 
 // Split path, before the all-reduce: pass (a), then sums (2 * K + 1
 // doubles) receives the rank's sum(z) and sum(z^2) per column and its row
 // count T * M. z (T, M, K) and part are kept for the apply call.
-extern "C" int e2a_neuron_layer_train_sums(const void* x, const float* w,
+extern "C" int e2a_neuron_layer_train_sums(const void* x, const void* w,
                                            float* z, float* part,
                                            double* sums, int T, long long M,
                                            int C, int K, int packed,
-                                           void* stream) {
+                                           int dtype, void* stream) {
   Launch l[kMaxLaunches];
   int n = 0;
-  int code = train_plan(T, M, C, K, packed, false, l, n);
+  int code = train_plan(T, M, C, K, packed, false, dtype, l, n);
   if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  code = launch_z(l[0], x, w, z, part, T, M, C, K, st);
-  if (code != 0) return code;
-  neuron_layer_train_stats<<<grid_of(l[1]), block_of(l[1]), 0, st>>>(
-      part, nullptr, nullptr, nullptr, sums, (int)l[0].grid[0], K,
-      (double)T * M, 0.0f);
-  return (int)cudaGetLastError();
+  return by_dtype(dtype, [&](auto tag) {
+    using E = typename decltype(tag)::type;
+    const int err =
+        launch_z(l[0], x, static_cast<const E*>(w), z, part, T, M, C, K, st);
+    if (err != 0) return err;
+    neuron_layer_train_stats<<<grid_of(l[1]), block_of(l[1]), 0, st>>>(
+        part, nullptr, nullptr, nullptr, sums, (int)l[0].grid[0], K,
+        (double)T * M, 0.0f);
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" int e2a_neuron_layer_train_sums_plan(
-    const void* x, const float* w, float* z, float* part, double* sums, int T,
-    long long M, int C, int K, int packed, long long* records, int cap) {
+    const void* x, const void* w, float* z, float* part, double* sums, int T,
+    long long M, int C, int K, int packed, int dtype, long long* records,
+    int cap) {
   Launch l[kMaxLaunches];
   int n = 0;
-  const int code = train_plan(T, M, C, K, packed, false, l, n);
+  const int code = train_plan(T, M, C, K, packed, false, dtype, l, n);
   return write_plan(code, l, n, records, cap);
 }
 
@@ -973,50 +1045,59 @@ extern "C" int e2a_neuron_layer_train_apply(const float* z,
                                             const float* beta,
                                             const double* sums, float* mu,
                                             float* var, float* sqrt_d,
-                                            float* s, int T, long long M,
+                                            void* s, int T, long long M,
                                             int K, float alpha, float th_fire,
-                                            float eps, void* stream) {
+                                            float eps, int dtype,
+                                            void* stream) {
   Launch l[kMaxLaunches];
   int n = 0;
-  const int code = train_apply_plan(T, M, K, l, n);
+  const int code = train_apply_plan(T, M, K, dtype, l, n);
   if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   neuron_layer_train_finalize<<<grid_of(l[0]), block_of(l[0]), 0, st>>>(
       sums, K, eps, mu, var, sqrt_d);
   if (n == 1) return (int)cudaGetLastError();
-  return launch_soma(l[1], z, gamma, beta, mu, sqrt_d, s, T, M, K, alpha,
-                     th_fire, st);
+  return by_dtype(dtype, [&](auto tag) {
+    using E = typename decltype(tag)::type;
+    return launch_soma(l[1], z, gamma, beta, mu, sqrt_d, static_cast<E*>(s),
+                       T, M, K, alpha, th_fire, st);
+  });
 }
 
 extern "C" int e2a_neuron_layer_train_apply_plan(
     const float* z, const float* gamma, const float* beta, const double* sums,
-    float* mu, float* var, float* sqrt_d, float* s, int T, long long M, int K,
-    float alpha, float th_fire, float eps, long long* records, int cap) {
+    float* mu, float* var, float* sqrt_d, void* s, int T, long long M, int K,
+    float alpha, float th_fire, float eps, int dtype, long long* records,
+    int cap) {
   Launch l[kMaxLaunches];
   int n = 0;
-  const int code = train_apply_plan(T, M, K, l, n);
+  const int code = train_apply_plan(T, M, K, dtype, l, n);
   return write_plan(code, l, n, records, cap);
 }
 
 // Pass (a) of the train mode alone: z (T, M, K) = x @ w, the same kernel,
 // tile and bits as e2a_neuron_layer_train's z, without the column partials.
 // The autograd op's backward replays the forward's pre-activation with it.
-extern "C" int e2a_neuron_layer_train_z(const void* x, const float* w,
+extern "C" int e2a_neuron_layer_train_z(const void* x, const void* w,
                                         float* z, int T, long long M, int C,
-                                        int K, int packed, void* stream) {
+                                        int K, int packed, int dtype,
+                                        void* stream) {
   Launch l[kMaxLaunches];
   int n = 0;
-  const int code = train_z_plan(T, M, C, K, packed, l, n);
+  const int code = train_z_plan(T, M, C, K, packed, dtype, l, n);
   if (code != 0 || n == 0) return code;
-  return launch_z(l[0], x, w, z, nullptr, T, M, C, K,
-                  static_cast<cudaStream_t>(stream));
+  return by_dtype(dtype, [&](auto tag) {
+    using E = typename decltype(tag)::type;
+    return launch_z(l[0], x, static_cast<const E*>(w), z, nullptr, T, M, C,
+                    K, static_cast<cudaStream_t>(stream));
+  });
 }
 
 extern "C" int e2a_neuron_layer_train_z_plan(
-    const void* x, const float* w, float* z, int T, long long M, int C, int K,
-    int packed, long long* records, int cap) {
+    const void* x, const void* w, float* z, int T, long long M, int C, int K,
+    int packed, int dtype, long long* records, int cap) {
   Launch l[kMaxLaunches];
   int n = 0;
-  const int code = train_z_plan(T, M, C, K, packed, l, n);
+  const int code = train_z_plan(T, M, C, K, packed, dtype, l, n);
   return write_plan(code, l, n, records, cap);
 }

@@ -25,6 +25,13 @@
 // and in the truncation of each; where every partial sum is exact in fp32
 // (integer and dyadic weights) it gives the same bits.
 //
+// bf16 (the reference's kernels at a bf16 weight: the spikes unpacked to
+// bf16, the dot accumulated in fp32, the output in the weight's dtype): a
+// bf16 weight is its own single plane (spike_mma_mainloop.cuh, Planes), so
+// one MMA per fragment and k16 step adds exact bf16 products into the fp32
+// accumulator, and the epilogue rounds each result to bf16 once. w and out
+// are then bf16; the dtype code names the type of both.
+//
 // Design: the contraction loop is mainloop() of spike_mma_mainloop.cuh,
 // shared with the train-mode neuron layer (spike_tile_mma.cuh has the
 // fragment mapping and the layouts); this file adds the batch offsets and
@@ -52,25 +59,34 @@ struct BatchStrides {
   long long g1, g2, row, col;   // two batch levels, then the two matrix dims
 };
 
+template <class E>
 struct Args {
   const uint8_t* x;
-  const float* w;
-  float* out;
+  const E* w;
+  E* out;
   int G2, M, C, K;
   BatchStrides xs, ws, os;      // x: (row, byte); w: (c, n); out: (m, n)
 };
 
-template <class T>
+// Two neighbouring outputs of E in one store (8 bytes of fp32, 4 of bf16).
+__device__ __forceinline__ void store2(float* o, float v0, float v1) {
+  *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store2(e2a::bf16* o, float v0, float v1) {
+  *reinterpret_cast<uint32_t*>(o) = bf16x2_rn(v0, v1);
+}
+
+template <class T, class E>
 __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
-    spike_mma_kernel(const Args a) {
+    spike_mma_kernel(const Args<E> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const long long g1 = blockIdx.z / a.G2, g2 = blockIdx.z % a.G2;
-  float* const out = a.out + g1 * a.os.g1 + g2 * a.os.g2;
+  E* const out = a.out + g1 * a.os.g1 + g2 * a.os.g2;
   const long long m0 = (long long)blockIdx.x * T::BM;
   const int n0 = blockIdx.y * T::BN;
-  const Operands ops = {a.x + g1 * a.xs.g1 + g2 * a.xs.g2, a.xs.row,
-                        a.xs.col, a.w + g1 * a.ws.g1 + g2 * a.ws.g2,
-                        a.ws.row, a.ws.col, a.M, a.C, a.K};
+  const Operands<E> ops = {a.x + g1 * a.xs.g1 + g2 * a.xs.g2, a.xs.row,
+                           a.xs.col, a.w + g1 * a.ws.g1 + g2 * a.ws.g2,
+                           a.ws.row, a.ws.col, a.M, a.C, a.K};
   Acc<T> acc;
   mainloop<T>(ops, m0, n0, smem, acc);
 
@@ -79,7 +95,7 @@ __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
   const int K = a.K;
   const long long o_m = a.os.row, o_n = a.os.col;
   const bool vec2 = o_n == 1 && o_m % 2 == 0 &&
-                    reinterpret_cast<uintptr_t>(out) % 8 == 0;
+                    reinterpret_cast<uintptr_t>(out) % (2 * sizeof(E)) == 0;
 #pragma unroll
   for (int mt = 0; mt < T::WM; ++mt)
 #pragma unroll
@@ -92,85 +108,92 @@ __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
         const float v0 = result(acc[0][mt][nt][2 * h], acc[1][mt][nt][2 * h]);
         const float v1 = result(acc[0][mt][nt][2 * h + 1],
                                 acc[1][mt][nt][2 * h + 1]);
-        float* const o = out + row * o_m + col * o_n;
+        E* const o = out + row * o_m + col * o_n;
         if (vec2 && col + 1 < K) {
-          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+          store2(o, v0, v1);
         } else {
-          if (col < K) o[0] = v0;
-          if (col + 1 < K) o[o_n] = v1;
+          if (col < K) o[0] = e2a::from_f<E>(v0);
+          if (col + 1 < K) o[o_n] = e2a::from_f<E>(v1);
         }
       }
     }
 }
 
 // The one launch of tile T: blocks of BM rows x BN columns, one batch a
-// grid.z index.
+// grid.z index, the shared memory of `planes` weight planes.
 template <class T>
-e2a::Launch tile_plan(int M, int K, long long G, int kernel) {
-  e2a::Launch l = e2a::launch_of(T::THREADS, 1, T::SMEM, kernel);
+e2a::Launch tile_plan(int M, int K, long long G, int kernel, int planes) {
+  e2a::Launch l = e2a::launch_of(T::THREADS, 1, T::smem(planes), kernel);
   e2a::axis(l, 0, e2a::cdiv(M, T::BM), T::BM, M);
   e2a::axis(l, 1, e2a::cdiv(K, T::BN), T::BN, K);
   return e2a::axis(l, 2, G, 1, G);
 }
 
-template <class T>
-int launch(const Args& a, const e2a::Launch& l, cudaStream_t stream) {
+template <class T, class E>
+int launch(const Args<E>& a, const e2a::Launch& l, cudaStream_t stream) {
   static bool raised[e2a::kMaxDevices] = {};
   const int err = e2a::raise_smem(
-      l, reinterpret_cast<const void*>(spike_mma_kernel<T>), raised);
+      l, reinterpret_cast<const void*>(spike_mma_kernel<T, E>), raised);
   if (err != 0) return err;
-  spike_mma_kernel<T><<<e2a::grid_of(l), e2a::block_of(l), l.smem,
-                        stream>>>(a);
+  spike_mma_kernel<T, E><<<e2a::grid_of(l), e2a::block_of(l), l.smem,
+                           stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // The launches of e2a_spike_matmul (none for an empty output). Returns a
 // cudaError_t.
-int plan(int G1, int G2, int M, int C, int K, int tile, e2a::Launch* l,
-         int& n) {
+int plan(int G1, int G2, int M, int C, int K, int tile, int dtype,
+         e2a::Launch* l, int& n) {
   n = 0;
+  const int planes = planes_of(dtype);
+  if (planes == 0) return (int)cudaErrorInvalidValue;
   if (G1 <= 0 || G2 <= 0 || M <= 0 || K <= 0) return 0;
   const long long G = (long long)G1 * G2;
   if (G > 65535 || C < 0 || C % 8 != 0 || tile < 1 || tile > 2)
     return (int)cudaErrorInvalidValue;
-  l[n++] = tile == 2 ? tile_plan<Small>(M, K, G, 2)
-                     : tile_plan<Large>(M, K, G, 1);
+  l[n++] = tile == 2 ? tile_plan<Small>(M, K, G, 2, planes)
+                     : tile_plan<Large>(M, K, G, 1, planes);
   return 0;
 }
 
 }  // namespace
 
 // tile picks the tile: 1 Large, 2 Small (the autotuner times both; a
-// tuned table passes its winner).
+// tuned table passes its winner). dtype: 0 fp32, 1 bf16, the type of w and
+// out.
 extern "C" int e2a_spike_matmul(
-    const uint8_t* packed, const float* w, float* out, int G1, int G2, int M,
+    const uint8_t* packed, const void* w, void* out, int G1, int G2, int M,
     int C, int K, long long p_g1, long long p_g2, long long p_m,
     long long p_b, long long w_g1, long long w_g2, long long w_c,
     long long w_k, long long o_g1, long long o_g2, long long o_m,
-    long long o_k, int tile, void* stream) {
+    long long o_k, int tile, int dtype, void* stream) {
   e2a::Launch l[e2a::kMaxLaunches];
   int n = 0;
-  const int code = plan(G1, G2, M, C, K, tile, l, n);
+  const int code = plan(G1, G2, M, C, K, tile, dtype, l, n);
   if (code != 0 || n == 0) return code;
-  const Args a = {packed, w, out, G2, M, C, K,
-                  {p_g1, p_g2, p_m, p_b}, {w_g1, w_g2, w_c, w_k},
-                  {o_g1, o_g2, o_m, o_k}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return l[0].kernel == 2 ? launch<Small>(a, l[0], s)
-                          : launch<Large>(a, l[0], s);
+  return e2a::by_dtype(dtype, [&](auto tag) {
+    using E = typename decltype(tag)::type;
+    const Args<E> a = {packed, static_cast<const E*>(w), static_cast<E*>(out),
+                       G2, M, C, K,
+                       {p_g1, p_g2, p_m, p_b}, {w_g1, w_g2, w_c, w_k},
+                       {o_g1, o_g2, o_m, o_k}};
+    return l[0].kernel == 2 ? launch<Small>(a, l[0], s)
+                            : launch<Large>(a, l[0], s);
+  });
 }
 
-extern "C" int e2a_spike_matmul_plan(const uint8_t* packed, const float* w,
-                                     float* out, int G1, int G2, int M, int C,
+extern "C" int e2a_spike_matmul_plan(const uint8_t* packed, const void* w,
+                                     void* out, int G1, int G2, int M, int C,
                                      int K, long long p_g1, long long p_g2,
                                      long long p_m, long long p_b,
                                      long long w_g1, long long w_g2,
                                      long long w_c, long long w_k,
                                      long long o_g1, long long o_g2,
                                      long long o_m, long long o_k, int tile,
-                                     long long* records, int cap) {
+                                     int dtype, long long* records, int cap) {
   e2a::Launch l[e2a::kMaxLaunches];
   int n = 0;
-  const int code = plan(G1, G2, M, C, K, tile, l, n);
+  const int code = plan(G1, G2, M, C, K, tile, dtype, l, n);
   return e2a::write_plan(code, l, n, records, cap);
 }

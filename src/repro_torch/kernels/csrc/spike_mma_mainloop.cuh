@@ -1,17 +1,24 @@
 // The contraction loop of the bit-packed spike matmul on the tensor cores,
-// shared by every kernel that multiplies packed spikes by an fp32 weight:
+// shared by every kernel that multiplies packed spikes by a weight:
 // e2a_spike_matmul (spike_matmul.cu) and the train-mode neuron layer's z
 // pass (neuron_layer.cu). One source, so the spike matmul's bitwise checks
 // on 21-bit integer weights also hold the neuron layer's product.
 //
 //   acc = sum_c bit(x[m], c) * w[c][n]   for the block's BM x BN tile
 //
-// mainloop<Tile>() leaves each thread two accumulator sets: acc[0] holds the
-// hi plane's products, acc[1] those of mid and lo (an MMA truncates the sum
-// it adds to, so the small planes get their own small accumulator).
+// mainloop<Tile, W>() leaves each thread two accumulator sets: acc[0] holds
+// the hi plane's products, acc[1] those of mid and lo (an MMA truncates the
+// sum it adds to, so the small planes get their own small accumulator).
 // result() adds the two, rounded to nearest: every kernel's epilogue forms
 // its output with it. The fragment mapping and the shared-memory layouts
 // are in spike_tile_mma.cuh.
+//
+// W is the weight's element type. An fp32 weight is staged as three exact
+// bf16 planes (Planes<float> = 3); a bf16 weight is its own single plane
+// (Planes<bf16> = 1), so its product is one tensor-core pass of bf16 x bf16
+// into an fp32 accumulator (acc[1] stays 0): the reference's kernel at a
+// bf16 weight, which unpacks the spikes to bf16 and accumulates the dot in
+// fp32. The caller rounds the fp32 result to bf16 once, at its store.
 //
 // - mma.sync.m16n8k16 bf16 -> fp32; each warp owns WM x WN tiles of 16 x 8.
 // - A from bits: the block's packed rows of a BK-wide contraction chunk are
@@ -27,6 +34,7 @@
 //   accumulators are 0; the epilogue masks them.
 #pragma once
 
+#include "elem.cuh"
 #include "spike_tile_mma.cuh"
 
 namespace e2a {
@@ -43,8 +51,12 @@ struct Tile {
   static constexpr int PITCH = BN + 8;      // bf16 per plane row (padding)
   static constexpr int PLANE = BK * PITCH;  // bf16 per plane
   static constexpr int XBYTES = BK / 8;     // packed bytes per row and chunk
-  static constexpr int VEC = BK * BN / 4 / THREADS;  // float4 per thread
-  static constexpr int SMEM = 3 * PLANE * 2 + 2 * BM * XBYTES;
+  static constexpr int VEC = BK * BN / 4 / THREADS;  // 4-weight groups
+  // Shared memory of `planes` weight planes and the double-buffered rows.
+  __host__ __device__ static constexpr int smem(int planes) {
+    return planes * PLANE * 2 + 2 * BM * XBYTES;
+  }
+  static constexpr int SMEM = smem(3);   // the fp32 weight's (the most)
   static_assert(WN % 2 == 0 && (XBYTES == 8 || XBYTES == 16), "tile");
   static_assert(BK * BN % (4 * THREADS) == 0 && VEC % 4 == 0, "loader");
 };
@@ -56,12 +68,23 @@ struct Tile {
 using Large = Tile<8, 2, 2, 4, 128, 1>;
 using Small = Tile<4, 2, 2, 4, 64, 2>;
 
+// Weight planes a weight of element type W is staged as, and those of a
+// dtype code (elem.cuh; 0 for a code no kernel takes).
+template <class W>
+constexpr int Planes = sizeof(W) == 4 ? 3 : 1;
+
+inline int planes_of(int dtype) {
+  return dtype == kFloat32 ? Planes<float>
+                           : dtype == kBfloat16 ? Planes<bf16> : 0;
+}
+
 // One product's operands, element strides: x packed (M, C / 8) uint8, w
-// (C, K) fp32. C is a multiple of 8.
+// (C, K) of W (fp32 or bf16). C is a multiple of 8.
+template <class W>
 struct Operands {
   const uint8_t* x;
   long long x_m, x_b;
-  const float* w;
+  const W* w;
   long long w_c, w_n;
   int M, C, K;
 };
@@ -83,23 +106,64 @@ struct Lane {
   }
 };
 
+// N weights from p (aligned: N fp32 are N / 4 float4s, N bf16 N * 2 bytes)
+// into fp32.
+template <int N>
+__device__ __forceinline__ void load_vec(const float* p, float* v) {
+#pragma unroll
+  for (int h = 0; h < N / 4; ++h) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p) + h);
+    v[4 * h] = q.x; v[4 * h + 1] = q.y; v[4 * h + 2] = q.z; v[4 * h + 3] = q.w;
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_vec(const bf16* p, float* v) {
+  uint32_t r[N / 2];
+  if constexpr (N == 8) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    r[0] = q.x; r[1] = q.y; r[2] = q.z; r[3] = q.w;
+  } else {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+    r[0] = q.x; r[1] = q.y;
+  }
+#pragma unroll
+  for (int h = 0; h < N / 2; ++h) {
+    v[2 * h] = low_float(r[h]);
+    v[2 * h + 1] = high_float(r[h]);
+  }
+}
+
+// The P bf16x2 words of two weights (a, b): split_bf16x3's three exact
+// planes, or, for a weight that is bf16 already (P = 1), the pair itself.
+template <int P>
+__device__ __forceinline__ void split_planes(float a, float b,
+                                             uint32_t (&plane)[P]) {
+  if constexpr (P == 3) {
+    split_bf16x3(a, b, plane);
+  } else {
+    plane[0] = bf16x2_rn(a, b);   // exact: a and b are bf16 values
+  }
+}
+
 // The fp32 result of one output: hi + (mid + lo), rounded to nearest.
 __device__ __forceinline__ float result(float hi, float mid_lo) {
   return __fadd_rn(hi, mid_lo);
 }
 
 // The product of the tile at rows m0.., columns n0.. into acc. smem holds
-// T::SMEM bytes (dynamic shared memory, 16-byte aligned). Ends without a
-// barrier: a kernel that reuses smem afterwards synchronises first.
-template <class T>
-__device__ __forceinline__ void mainloop(const Operands& a, long long m0,
+// T::smem(Planes<W>) bytes (dynamic shared memory, 16-byte aligned). Ends
+// without a barrier: a kernel that reuses smem afterwards synchronises
+// first.
+template <class T, class W>
+__device__ __forceinline__ void mainloop(const Operands<W>& a, long long m0,
                                          int n0, unsigned char* smem,
                                          Acc<T>& acc) {
-  uint16_t* const ws = reinterpret_cast<uint16_t*>(smem);  // [3][BK][PITCH]
-  unsigned char* const xs = smem + 3 * T::PLANE * 2;       // [2][BM][XBYTES]
+  constexpr int P = Planes<W>;
+  uint16_t* const ws = reinterpret_cast<uint16_t*>(smem);  // [P][BK][PITCH]
+  unsigned char* const xs = smem + P * T::PLANE * 2;       // [2][BM][XBYTES]
 
   const uint8_t* const x = a.x;
-  const float* const w = a.w;
+  const W* const w = a.w;
   const int tid = threadIdx.x, lane = tid % 32;
   const Lane<T> L;
   const int g = L.g, t = L.t, wm0 = L.wm0, wn0 = L.wn0;
@@ -126,12 +190,17 @@ __device__ __forceinline__ void mainloop(const Operands& a, long long m0,
     cp_async_commit();
   };
 
-  // ---- staging of the weight (B): registers, then three bf16 planes ----
+  // ---- staging of the weight (B): registers, then P bf16 planes ----
+  // vec: the vector loads below are aligned (8 c of a c-major weight are
+  // 16 bytes of one vector load, 4 n of an n-major one 4 * sizeof(W)).
   const long long w_c = a.w_c, w_n = a.w_n;
   const bool c_major = w_c == 1 && w_n != 1;
-  const bool vec = reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
-                   (c_major ? w_n % 4 == 0 : (w_n == 1 && w_c % 4 == 0));
-  float pre[4 * T::VEC];
+  constexpr int CV = 16 / (int)sizeof(W);     // c of one 16-byte load
+  const bool vec =
+      c_major ? reinterpret_cast<uintptr_t>(w) % 16 == 0 && w_n % CV == 0
+              : reinterpret_cast<uintptr_t>(w) % (4 * sizeof(W)) == 0 &&
+                    w_n == 1 && w_c % 4 == 0;
+  float pre[4 * T::VEC];   // the weights as fp32 (exact for bf16)
   // c_major: each thread takes groups of 8 c x 2 n (neighbouring threads on
   // neighbouring n pairs, 32 contiguous bytes each); otherwise groups of
   // 1 c x 4 n (neighbouring threads on neighbouring n).
@@ -146,15 +215,12 @@ __device__ __forceinline__ void mainloop(const Operands& a, long long m0,
           const int n = n0 + 2 * np + e;
           float* const v = pre + 16 * j + 8 * e;
           const bool in = c < C && n < K;      // C % 8 == 0: all 8 c or none
-          const float* const p = w + c + n * w_n;
+          const W* const p = w + c + n * w_n;
           if (in && vec) {
-            const float4 lo4 = __ldg(reinterpret_cast<const float4*>(p));
-            const float4 hi4 = __ldg(reinterpret_cast<const float4*>(p) + 1);
-            v[0] = lo4.x; v[1] = lo4.y; v[2] = lo4.z; v[3] = lo4.w;
-            v[4] = hi4.x; v[5] = hi4.y; v[6] = hi4.z; v[7] = hi4.w;
+            load_vec<8>(p, v);
           } else {
 #pragma unroll
-            for (int i = 0; i < 8; ++i) v[i] = in ? __ldg(p + i) : 0.0f;
+            for (int i = 0; i < 8; ++i) v[i] = in ? to_f(__ldg(p + i)) : 0.0f;
           }
         }
       }
@@ -164,20 +230,21 @@ __device__ __forceinline__ void mainloop(const Operands& a, long long m0,
         const int gi = tid + j * T::THREADS;
         const int n = n0 + 4 * (gi % (T::BN / 4)), c = c0 + gi / (T::BN / 4);
         float* const v = pre + 4 * j;
-        const float* const p = w + c * w_c + n * w_n;
+        const W* const p = w + c * w_c + n * w_n;
         if (c < C && vec && n + 3 < K) {
-          const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-          v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+          load_vec<4>(p, v);
         } else {
 #pragma unroll
           for (int i = 0; i < 4; ++i)
-            v[i] = (c < C && n + i < K) ? __ldg(p + i * w_n) : 0.0f;
+            v[i] = (c < C && n + i < K) ? to_f(__ldg(p + i * w_n)) : 0.0f;
         }
       }
     }
   };
   auto store_w = [&]() {
-    uint16_t* const planes[3] = {ws, ws + T::PLANE, ws + 2 * T::PLANE};
+    uint16_t* planes[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) planes[p] = ws + p * T::PLANE;
     if (c_major) {
 #pragma unroll
       for (int j = 0; j < T::VEC / 4; ++j) {
@@ -185,10 +252,10 @@ __device__ __forceinline__ void mainloop(const Operands& a, long long m0,
         const int np = gi % (T::BN / 2), cl = 8 * (gi / (T::BN / 2));
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          uint32_t words[3];   // (n, n + 1) at c = cl + i
-          split_bf16x3(pre[16 * j + i], pre[16 * j + 8 + i], words);
+          uint32_t words[P];   // (n, n + 1) at c = cl + i
+          split_planes<P>(pre[16 * j + i], pre[16 * j + 8 + i], words);
 #pragma unroll
-          for (int p = 0; p < 3; ++p)
+          for (int p = 0; p < P; ++p)
             *reinterpret_cast<uint32_t*>(planes[p] + (cl + i) * T::PITCH +
                                          2 * np) = words[p];
         }
@@ -198,11 +265,11 @@ __device__ __forceinline__ void mainloop(const Operands& a, long long m0,
       for (int j = 0; j < T::VEC; ++j) {
         const int gi = tid + j * T::THREADS;
         const int nl = 4 * (gi % (T::BN / 4)), cl = gi / (T::BN / 4);
-        uint32_t w01[3], w23[3];   // (n, n + 1) and (n + 2, n + 3)
-        split_bf16x3(pre[4 * j], pre[4 * j + 1], w01);
-        split_bf16x3(pre[4 * j + 2], pre[4 * j + 3], w23);
+        uint32_t w01[P], w23[P];   // (n, n + 1) and (n + 2, n + 3)
+        split_planes<P>(pre[4 * j], pre[4 * j + 1], w01);
+        split_planes<P>(pre[4 * j + 2], pre[4 * j + 3], w23);
 #pragma unroll
-        for (int p = 0; p < 3; ++p)
+        for (int p = 0; p < P; ++p)
           *reinterpret_cast<uint2*>(planes[p] + cl * T::PITCH + nl) =
               make_uint2(w01[p], w23[p]);
       }
@@ -237,7 +304,7 @@ __device__ __forceinline__ void mainloop(const Operands& a, long long m0,
         af[mt][3] = bits_to_bf16x2(r8 >> (shift + 8));
       }
 #pragma unroll
-      for (int p = 0; p < 3; ++p) {
+      for (int p = 0; p < P; ++p) {
         const uint16_t* const plane = ws + p * T::PLANE;
 #pragma unroll
         for (int jp = 0; jp < T::WN / 2; ++jp) {

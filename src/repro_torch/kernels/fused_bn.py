@@ -24,6 +24,13 @@ its dx pass does two divisions an element and nothing per column.
 Bound on this card: bytes. The forward must read x and write y, the
 backward read g and x and write dx.
 
+Both take fp32 or bf16 data (x and y; g, x and dx; one dtype). At bf16 each
+element is loaded as fp32 and the arithmetic is the fp32 kernels': the
+statistics ``mu`` and ``sqrt_d``, ``dgamma`` and ``dbeta`` stay fp32, and
+``y`` and ``dx`` are rounded to bf16 once, at the store, as the reference's
+Pallas kernels store them in ``x.dtype`` and ``g.dtype``. ``gamma`` and
+``beta`` reach the kernels as fp32 (a bf16 parameter is widened, exactly).
+
 Data parallelism (``group``, the process group over the batch axes): the
 statistics are those of the global batch. Each kernel's first launch then
 writes the rank's column sums in double (forward: sum(x), sum(x^2);
@@ -50,7 +57,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.kernels import build, meta_site
+from repro_torch.kernels import build, dtype_code, meta_site
 
 #: The first pass sums chunks of at least MIN_CHUNK_ROWS rows, and makes at
 #: most MAX_CHUNKS of them, so that the pass adding the chunks stays short.
@@ -160,21 +167,28 @@ def bn_bwd_plain(g: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
     return dx.to(g.dtype), dgamma, dbeta                             # eq. 23
 
 
-def _check(what: str, tensors: dict) -> None:
-    for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what} kernel takes float32, got {name} "
+def _check(what: str, data: dict, stats: dict) -> int:
+    """The kernels' operand rules: ``data`` (x, and g in the backward) fp32
+    or bf16, in one dtype, ``stats`` (gamma, beta, mu, sqrt_d, widened by
+    the caller) fp32; all contiguous on x's device. Returns the data's
+    dtype code."""
+    code = dtype_code(data["x"].dtype, what)
+    for name, t in {**data, **stats}.items():
+        want = data["x"].dtype if name in data else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{what} kernel takes {name} in {want}, got "
                             f"{t.dtype}")
-        if not t.is_contiguous() or t.device != tensors["x"].device:
+        if not t.is_contiguous() or t.device != data["x"].device:
             raise ValueError(f"{what} kernel takes contiguous operands on one "
                              f"device ({name})")
+    return code
 
 
 def bn_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
            eps: float = 1e-5, group=None):
-    """x: (M, D) -> (y (M, D), mu (1, D), sqrt_d (1, D)). A CUDA tensor
-    launches the kernel's two passes (fp32, contiguous; anything else
-    raises) and counts once; a CPU tensor takes the plain version, a
+    """x: (M, D) -> (y (M, D) in x's dtype, mu (1, D), sqrt_d (1, D) fp32).
+    A CUDA tensor launches the kernel's two passes (x fp32 or bf16,
+    contiguous; anything else raises) and counts once; a CPU tensor takes the plain version, a
     ``meta`` tensor the kernel's shape rule (:func:`fwd_on_meta`).
     ``group``: the statistics of the rows of every rank in it (the split
     path: :func:`bn_fwd_sums`, an all-reduce, :func:`bn_fwd_apply`)."""
@@ -187,7 +201,8 @@ def bn_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
         return fwd_on_meta(x, gamma, beta, group)
     if not x.is_cuda:
         return bn_fwd_plain(x, gamma, beta, eps=eps, group=group)
-    _check("bn_fwd", {"x": x, "gamma": gamma, "beta": beta})
+    gamma, beta = gamma.float(), beta.float()
+    code = _check("bn_fwd", {"x": x}, {"gamma": gamma, "beta": beta})
     if group is not None:
         sums = bn_fwd_sums(x)
         dist.all_reduce(sums, group=group)
@@ -206,7 +221,7 @@ def bn_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
         code = build.load().e2a_bn_fwd(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
             mu.data_ptr(), sqrt_d.data_ptr(), part.data_ptr(),
-            arrived.data_ptr(), m, d, rows, eps, stream)
+            arrived.data_ptr(), m, d, rows, eps, code, stream)
     build.check_launch(code, "bn_fwd")
     bn_fwd.launches += 1
     return y, mu, sqrt_d
@@ -225,7 +240,8 @@ def bn_fwd_sums(x: torch.Tensor) -> torch.Tensor:
         code = build.load().e2a_bn_fwd_sums(
             x.data_ptr(), part.data_ptr(),
             _arrival_counters(x.device, stream, d).data_ptr(),
-            sums.data_ptr(), m, d, rows, stream)
+            sums.data_ptr(), m, d, rows, dtype_code(x.dtype, "bn_fwd"),
+            stream)
     build.check_launch(code, "bn_fwd")
     return sums
 
@@ -233,7 +249,8 @@ def bn_fwd_sums(x: torch.Tensor) -> torch.Tensor:
 def bn_fwd_apply(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                  sums: torch.Tensor, *, eps: float = 1e-5):
     """The split path's second launch: mu and sqrt_d from ``sums`` (every
-    rank's, added), then y. Returns ``(y, mu (1, D), sqrt_d (1, D))``."""
+    rank's, added), then y. Returns ``(y, mu (1, D), sqrt_d (1, D))``.
+    ``gamma`` and ``beta`` fp32."""
     m, d = x.shape
     y = torch.empty_like(x)
     mu = torch.empty((1, d), dtype=torch.float32, device=x.device)
@@ -242,6 +259,7 @@ def bn_fwd_apply(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         code = build.load().e2a_bn_fwd_apply(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), sums.data_ptr(),
             y.data_ptr(), mu.data_ptr(), sqrt_d.data_ptr(), m, d, eps,
+            dtype_code(x.dtype, "bn_fwd"),
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(code, "bn_fwd")
     return y, mu, sqrt_d
@@ -250,9 +268,9 @@ def bn_fwd_apply(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 def bn_bwd(g: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
            mu: torch.Tensor, sqrt_d: torch.Tensor, group=None):
     """eq. 19-23: g, x (M, D), gamma (D,), mu and sqrt_d (1, D) -> (dx
-    (M, D), dgamma (1, D), dbeta (1, D)). A CUDA tensor launches the
-    kernel's two passes (fp32, contiguous; anything else raises) and counts
-    once; a CPU tensor takes the plain version, a ``meta`` tensor the
+    (M, D) in g's dtype, dgamma (1, D), dbeta (1, D) fp32). A CUDA tensor
+    launches the kernel's two passes (g and x fp32 or bf16 in one dtype,
+    contiguous; anything else raises) and counts once; a CPU tensor takes the plain version, a ``meta`` tensor the
     kernel's shape rule (:func:`bwd_on_meta`). ``group``: eq. 23 over the
     rows of every rank in it (the split path: :func:`bn_bwd_sums`, an
     all-reduce, :func:`bn_bwd_apply`); dgamma and dbeta stay the rank's
@@ -267,8 +285,9 @@ def bn_bwd(g: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
         return bwd_on_meta(g, x, gamma, mu, sqrt_d, group)
     if not g.is_cuda:
         return bn_bwd_plain(g, x, gamma, mu, sqrt_d, group)
-    _check("bn_bwd", {"x": x, "g": g, "gamma": gamma, "mu": mu,
-                      "sqrt_d": sqrt_d})
+    gamma = gamma.float()
+    code = _check("bn_bwd", {"x": x, "g": g},
+                  {"gamma": gamma, "mu": mu, "sqrt_d": sqrt_d})
     if group is not None:
         sums, dgamma, dbeta = bn_bwd_sums(g, x, gamma, mu, sqrt_d)
         dist.all_reduce(sums, group=group)
@@ -289,7 +308,7 @@ def bn_bwd(g: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
             g.data_ptr(), x.data_ptr(), gamma.data_ptr(), mu.data_ptr(),
             sqrt_d.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
             dbeta.data_ptr(), part.data_ptr(), cols.data_ptr(),
-            arrived.data_ptr(), m, d, rows, stream)
+            arrived.data_ptr(), m, d, rows, code, stream)
     build.check_launch(code, "bn_bwd")
     bn_bwd.launches += 1
     return dx, dgamma, dbeta
@@ -313,7 +332,7 @@ def bn_bwd_sums(g, x, gamma, mu, sqrt_d):
             sqrt_d.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
             part.data_ptr(), sums.data_ptr(),
             _arrival_counters(g.device, stream, d).data_ptr(), m, d, rows,
-            stream)
+            dtype_code(g.dtype, "bn_bwd"), stream)
     build.check_launch(code, "bn_bwd")
     return sums, dgamma, dbeta
 
@@ -328,7 +347,8 @@ def bn_bwd_apply(g, x, gamma, mu, sqrt_d, sums) -> torch.Tensor:
         code = build.load().e2a_bn_bwd_apply(
             g.data_ptr(), x.data_ptr(), gamma.data_ptr(), mu.data_ptr(),
             sqrt_d.data_ptr(), sums.data_ptr(), cols.data_ptr(),
-            dx.data_ptr(), m, d, torch.cuda.current_stream().cuda_stream)
+            dx.data_ptr(), m, d, dtype_code(g.dtype, "bn_bwd"),
+            torch.cuda.current_stream().cuda_stream)
     build.check_launch(code, "bn_bwd")
     return dx
 

@@ -27,6 +27,12 @@ elements on contiguous operands (the Spikingformer's (4, 196 * B, 512),
 bound by bytes). The arithmetic uses the round-to-nearest intrinsics, so each
 kernel equals its plain version bit for bit.
 
+Both kernels take fp32 or bf16 (every operand, the state too, in one
+dtype). At bf16 U, S, the mask and dx are bf16, as the reference's Pallas
+kernels keep them in ``x.dtype``, and each operation of eq. 11-12 is formed
+in fp32 and rounded to bf16 in the plain version's order: the plain
+version's bf16 tensor ops round so, and the bf16 arms equal it bit for bit.
+
 The plain PyTorch versions, :func:`lif_soma_fwd_plain` and
 :func:`lif_soma_bwd_plain`, are the same recursions as Python loops over T,
 with the same optional state and the same output layouts. The wrappers use
@@ -38,7 +44,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, meta_site
+from repro_torch.kernels import build, dtype_code, meta_site
 
 #: The flat arm serves contiguous calls without a carried state of at most
 #: FLAT_MAX_T steps or of at least FLAT_MIN_N = M * D elements; the ring arm
@@ -129,15 +135,16 @@ def lif_soma_bwd_plain(g: torch.Tensor, u_seq: torch.Tensor,
 
 
 def _check_state(name: str, a: torch.Tensor, x: torch.Tensor) -> None:
-    """An (M, D) state operand of the kernel: fp32, contiguous, on x's
-    device."""
+    """An (M, D) state operand of the kernel: in x's dtype, contiguous, on
+    x's device."""
     if a.shape != x.shape[1:]:
         raise ValueError(f"{name} shape {tuple(a.shape)} != "
                          f"{tuple(x.shape[1:])}")
-    if a.is_cuda and (a.dtype != torch.float32 or not a.is_contiguous()
+    if a.is_cuda and (a.dtype != x.dtype or not a.is_contiguous()
                       or a.device != x.device):
         raise ValueError(f"lif_soma kernels take {name} as a contiguous "
-                         f"float32 (M, D) tensor on the operands' device")
+                         f"(M, D) tensor in the operands' dtype "
+                         f"({x.dtype}) on their device")
 
 
 def _launch_fwd(x, u0, s0, which, params, stream):
@@ -153,7 +160,8 @@ def _launch_fwd(x, u0, s0, which, params, stream):
     t, m, d = x.shape
     code = build.load().e2a_lif_soma_fwd(
         x.data_ptr(), s.data_ptr(), u.data_ptr(), mask.data_ptr(), *state,
-        m, d, t, *strides(x), *strides(s), *params, _ARM_CODE[which], stream)
+        m, d, t, *strides(x), *strides(s), *params, _ARM_CODE[which],
+        dtype_code(x.dtype, "lif_soma_fwd"), stream)
     build.check_launch(code, "lif_soma_fwd")
     return (s, u, mask) + last
 
@@ -167,7 +175,7 @@ def _launch_bwd(g, u_seq, spikes, mask, gu_last, which, params, stream):
         g.data_ptr(), u_seq.data_ptr(), spikes.data_ptr(), mask.data_ptr(),
         gu_last.data_ptr() if gu_last is not None else None, dx.data_ptr(),
         m, d, t, *strides(g), *strides(dx), *params, _ARM_CODE[which],
-        stream)
+        dtype_code(g.dtype, "lif_soma_bwd"), stream)
     build.check_launch(code, "lif_soma_bwd")
     return dx
 
@@ -185,10 +193,10 @@ def lif_soma_fwd(x: torch.Tensor, u0: torch.Tensor | None = None,
     rest; its U can differ from this one only in the sign of a zero, and
     spikes and mask not at all.)
 
-    A CUDA tensor launches the kernel (fp32 with unit stride on D, any
-    stride on T and M; anything else raises) on the arm :func:`choose_arm`
-    chooses; a CPU tensor takes the plain version, a ``meta`` tensor the
-    kernel's shape rule (:func:`fwd_on_meta`).
+    A CUDA tensor launches the kernel (fp32 or bf16 with unit stride on D,
+    any stride on T and M; anything else raises) on the arm
+    :func:`choose_arm` chooses; a CPU tensor takes the plain version, a
+    ``meta`` tensor the kernel's shape rule (:func:`fwd_on_meta`).
     """
     if x.ndim != 3:
         raise ValueError(f"lif_soma_fwd expects (T, M, D), got {tuple(x.shape)}")
@@ -203,8 +211,7 @@ def lif_soma_fwd(x: torch.Tensor, u0: torch.Tensor | None = None,
     if not x.is_cuda:
         return lif_soma_fwd_plain(x, u0, s0, alpha=alpha, th_fire=th_fire,
                                   th_lo=th_lo, th_hi=th_hi)
-    if x.dtype != torch.float32:
-        raise TypeError(f"lif_soma_fwd kernel takes float32, got {x.dtype}")
+    dtype_code(x.dtype, "lif_soma_fwd")
     if not unit_d(x):
         raise ValueError("lif_soma_fwd kernel takes a tensor whose last axis "
                          "has unit stride")
@@ -225,7 +232,7 @@ def lif_soma_bwd(g: torch.Tensor, u_seq: torch.Tensor, spikes: torch.Tensor,
     (T, M, D), in ``g``'s layout. ``gu_last`` (M, D), when given, is the
     direct cotangent on the final membrane U_{T-1} (the carry handed back by
     the next temporal tile's backward). A CUDA tensor launches the kernel
-    (fp32; g, U, S and mask in one layout with unit stride on D, which
+    (fp32 or bf16, every operand in g's dtype; g, U, S and mask in one layout with unit stride on D, which
     ``ops`` copies g into where autograd hands it another; ``gu_last``
     contiguous; anything else raises) on the arm :func:`choose_arm`
     chooses; a CPU tensor takes the plain version, a ``meta`` tensor the
@@ -243,8 +250,10 @@ def lif_soma_bwd(g: torch.Tensor, u_seq: torch.Tensor, spikes: torch.Tensor,
         return lif_soma_bwd_plain(g, u_seq, spikes, mask, gu_last,
                                   alpha=alpha, grad_scale=grad_scale)
     operands = (g,) + signals
-    if any(a.dtype != torch.float32 for a in operands):
-        raise TypeError("lif_soma_bwd kernel takes float32 operands")
+    dtype_code(g.dtype, "lif_soma_bwd")
+    if any(a.dtype != g.dtype for a in operands):
+        raise TypeError("lif_soma_bwd kernel takes g, U, S and mask in one "
+                        "dtype")
     if any(not same_layout(a, g) or a.device != g.device for a in operands):
         raise ValueError("lif_soma_bwd kernel takes g, U, S and mask in one "
                          "layout with unit stride on D, on one device")

@@ -44,6 +44,16 @@ the wrapper all-reduces the buffer over the group; the second forms the
 statistics from the global sums (the fused path's arithmetic: at a world
 of 1 its bits) and runs the SOMA pass. The plain version sums the same way.
 
+bf16 (the reference's kernels at a bf16 input: bf16 products accumulated
+in fp32, BN or the bias and the SOMA on the fp32 accumulator, the spikes
+stored in ``x.dtype``): x and w bf16 in one dtype; the packed arms run the
+tensor-core mainloop on one weight plane (a bf16 weight is its own), the
+dense arms widen each staged element to fp32, where a bf16 product is
+exact. z, the statistics and everything after the product are the fp32
+arm's; the spikes come back in bf16. gamma, beta and the bias reach the
+kernels as fp32 (a bf16 vector widened exactly). The plain versions form
+the same fp32 product (``neuron_layer_train_z_plain``).
+
 ``neuron_layer_train_z`` is that first pass alone: the autograd ops'
 backward replays the pre-activation with it, so the replayed z is the
 forward's bit for bit and the replay runs the spike trajectory the forward
@@ -60,7 +70,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.kernels import build, meta_site
+from repro_torch.kernels import build, dtype_code, meta_site
 from repro_torch.kernels.fused_bn import global_sums, row_count
 from repro_torch.kernels.lif_soma import lif_soma_fwd_plain
 from repro_torch.kernels.spike_matmul import spike_pack
@@ -81,8 +91,10 @@ DENSE_TILE_ROWS = 1024
 def neuron_layer_train_z_plain(x: torch.Tensor,
                                w: torch.Tensor) -> torch.Tensor:
     """Plain version of the train arm's first pass, z = x (T, M, C) @ w
-    (C, K) in fp32: the product every plain version of this module forms."""
-    return torch.matmul(x.to(w.dtype), w).float()
+    (C, K) in fp32 (a bf16 operand widened exactly, the products summed in
+    fp32 as the kernels' accumulator sums them): the product every plain
+    version of this module forms."""
+    return torch.matmul(x.float(), w.float())
 
 
 def neuron_layer_eval_plain(x: torch.Tensor, w: torch.Tensor,
@@ -146,8 +158,10 @@ def _check_layer(what, x, w, vectors, packed):
                          f"steps, got {x.shape[0]}")
     if x.is_meta:
         return          # the dtype and layout checks are the card's
-    if any(a.dtype != torch.float32 for a in (x, w, *vectors.values())):
-        raise TypeError(f"{what} kernel takes float32 operands")
+    dtype_code(x.dtype, what)
+    if w.dtype != x.dtype:
+        raise TypeError(f"{what} kernel takes x and w in one dtype, got "
+                        f"{x.dtype} and {w.dtype}")
     if any(a.device != x.device for a in (w, *vectors.values())):
         raise ValueError(f"{what}: operands on different devices")
     if not all(a.is_contiguous() for a in (x, w, *vectors.values())):
@@ -156,12 +170,16 @@ def _check_layer(what, x, w, vectors, packed):
 
 def _launch_neuron_layer_eval(xin, w, bias, t, m, c, k, packed, alpha,
                               th_fire, stream=0, tile=0):
-    """The C entry point on ``xin`` (packed or dense); ``tile`` 0 lets the
-    entry point choose the packed arm's tile, 1 / 2 force Large / Small."""
-    s = torch.empty((t, m, k), dtype=torch.float32, device=xin.device)
+    """The C entry point on ``xin`` (packed or dense) and ``w`` (fp32 or
+    bf16; the spikes come back in its dtype, the bias is widened to fp32);
+    ``tile`` 0 lets the entry point choose the packed arm's tile, 1 / 2
+    force Large / Small."""
+    s = torch.empty((t, m, k), dtype=w.dtype, device=xin.device)
+    bias = bias.float()
     code = build.load().e2a_neuron_layer_eval(
         xin.data_ptr(), w.data_ptr(), bias.data_ptr(), s.data_ptr(), t, m, c,
-        k, int(packed), tile, alpha, th_fire, stream)
+        k, int(packed), tile, alpha, th_fire,
+        dtype_code(w.dtype, "neuron_layer_eval"), stream)
     build.check_launch(code, "neuron_layer_eval")
     return s
 
@@ -209,18 +227,21 @@ def neuron_layer_train_fwd(x: torch.Tensor, w: torch.Tensor,
         return (*_train_plain(x, w, gamma, beta, alpha, th_fire, eps, group),
                 None)
     xin = spike_pack(x) if packed else None
+    gamma, beta = gamma.float(), beta.float()
     if group is not None:
         sums, z = neuron_layer_train_sums(x, w, packed=packed, xin=xin)
         dist.all_reduce(sums, group=group)
         out = neuron_layer_train_apply(z, gamma, beta, sums, alpha=alpha,
-                                       th_fire=th_fire, eps=eps)
+                                       th_fire=th_fire, eps=eps,
+                                       dtype=x.dtype)
         neuron_layer_train.launches += 1
         return (*out, xin)
     t, m, c = x.shape
     k = w.shape[1]
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    s, z = (torch.empty((t, m, k), **f32) for _ in range(2))
+    s = torch.empty((t, m, k), dtype=x.dtype, device=dev)
+    z = torch.empty((t, m, k), **f32)
     tiles = -(-t * m // (TILE_ROWS if packed else DENSE_TILE_ROWS))
     part = torch.empty((2, tiles, k), **f32)
     mu, var, sqrt_d = (torch.empty((1, k), **f32) for _ in range(3))
@@ -230,6 +251,7 @@ def neuron_layer_train_fwd(x: torch.Tensor, w: torch.Tensor,
             gamma.data_ptr(), beta.data_ptr(), z.data_ptr(), part.data_ptr(),
             mu.data_ptr(), var.data_ptr(), sqrt_d.data_ptr(), s.data_ptr(),
             t, m, c, k, int(packed), alpha, th_fire, eps,
+            dtype_code(x.dtype, "neuron_layer_train"),
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(code, "neuron_layer_train")
     neuron_layer_train.launches += 1
@@ -257,6 +279,7 @@ def neuron_layer_train_sums(x: torch.Tensor, w: torch.Tensor, *,
         code = build.load().e2a_neuron_layer_train_sums(
             (xin if packed else x).data_ptr(), w.data_ptr(), z.data_ptr(),
             part.data_ptr(), sums.data_ptr(), t, m, c, k, int(packed),
+            dtype_code(w.dtype, "neuron_layer_train"),
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(code, "neuron_layer_train")
     return sums, z
@@ -265,19 +288,22 @@ def neuron_layer_train_sums(x: torch.Tensor, w: torch.Tensor, *,
 def neuron_layer_train_apply(z: torch.Tensor, gamma: torch.Tensor,
                              beta: torch.Tensor, sums: torch.Tensor, *,
                              alpha: float = 0.5, th_fire: float = 1.0,
-                             eps: float = 1e-5):
+                             eps: float = 1e-5,
+                             dtype: torch.dtype = torch.float32):
     """The split path's second launch: mu, var and sqrt_d from ``sums``
-    (every rank's, added), then BN and SOMA over z. Returns ``(spikes,
-    mu (1, K), var (1, K), sqrt_d (1, K))``."""
+    (every rank's, added), then BN and SOMA over z (fp32, as are gamma and
+    beta). Returns ``(spikes in dtype, mu (1, K), var (1, K), sqrt_d
+    (1, K))``."""
     t, m, k = z.shape
     f32 = dict(dtype=torch.float32, device=z.device)
-    s = torch.empty((t, m, k), **f32)
+    s = torch.empty((t, m, k), dtype=dtype, device=z.device)
     mu, var, sqrt_d = (torch.empty((1, k), **f32) for _ in range(3))
     with torch.cuda.device(z.device):
         code = build.load().e2a_neuron_layer_train_apply(
             z.data_ptr(), gamma.data_ptr(), beta.data_ptr(), sums.data_ptr(),
             mu.data_ptr(), var.data_ptr(), sqrt_d.data_ptr(), s.data_ptr(),
             t, m, k, alpha, th_fire, eps,
+            dtype_code(dtype, "neuron_layer_train"),
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(code, "neuron_layer_train")
     return s, mu, var, sqrt_d
@@ -318,7 +344,8 @@ def neuron_layer_train_z(x: torch.Tensor, w: torch.Tensor, *,
     with torch.cuda.device(x.device):
         code = build.load().e2a_neuron_layer_train_z(
             src.data_ptr(), w.data_ptr(), z.data_ptr(), t, m, c, w.shape[1],
-            int(packed), torch.cuda.current_stream().cuda_stream)
+            int(packed), dtype_code(w.dtype, "neuron_layer_train_z"),
+            torch.cuda.current_stream().cuda_stream)
     build.check_launch(code, "neuron_layer_train_z")
     neuron_layer_train.launches += 1
     return z
@@ -350,7 +377,7 @@ def _product_flops(x, w) -> float:
 def eval_on_meta(x, w, bias, packed):
     """``neuron_layer_eval``'s shape rule on ``meta``: the input packed
     where the card packs it (``spike_pack``, plain tensor code there too),
-    then spikes (T, M, K) in ``x.dtype`` (the kernel's fp32)."""
+    then spikes (T, M, K) in ``x.dtype``, the kernel's."""
     if packed:
         spike_pack(x)
     t, m, _ = x.shape

@@ -12,6 +12,17 @@ hold every kernel against.
 Divisions by a row count divide by a 0-d tensor on the operand's device: a
 CUDA division by a host scalar multiplies by its rounded reciprocal, which
 is not the correctly rounded quotient the kernels form.
+
+At bf16 each oracle computes as the reference's Pallas kernel does, which
+is not always what ``repro.kernels.ref`` writes: the LIF recursions round
+every operation to the input's dtype (bf16 tensor ops do), BN works in
+fp32 and stores y and dx in the input's dtype, and every product
+accumulates in fp32 (``preferred_element_type``) and rounds to the
+output's dtype once. The neuron layers' BN or bias and SOMA run on that
+fp32 accumulator, as the Pallas kernel's epilogue does; the reference's
+``neuron_layer_eval_ref`` rounds the accumulator to ``x.dtype`` before its
+SOMA and the train oracle its product to ``w.dtype``, which its kernel
+does not (ROADMAP, Queue C). At fp32 every such cast is the identity.
 """
 from __future__ import annotations
 
@@ -79,20 +90,24 @@ def lif_soma_bwd_carry_ref(g: torch.Tensor, u_seq: torch.Tensor,
 
 
 def spike_matmul_ref(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(M, C) {0,1} x (C, K)."""
-    return spikes.to(w.dtype) @ w
+    """(M, C) {0,1} x (C, K), accumulated in fp32, in ``w.dtype``."""
+    return (spikes.float() @ w.float()).to(w.dtype)
 
 
 def spike_matmul_batched_ref(spikes: torch.Tensor,
                              w: torch.Tensor) -> torch.Tensor:
-    """(G, M, C) {0,1} x (G, C, K) per-group matmul."""
-    return torch.einsum("gmc,gck->gmk", spikes.to(w.dtype), w)
+    """(G, M, C) {0,1} x (G, C, K) per-group matmul, accumulated in fp32,
+    in ``w.dtype``."""
+    return torch.einsum("gmc,gck->gmk", spikes.float(),
+                        w.float()).to(w.dtype)
 
 
 def spike_patch_matmul_ref(patches: torch.Tensor,
                            w: torch.Tensor) -> torch.Tensor:
-    """(T, M, C) {0,1} im2col patches x shared (C, K) weight."""
-    return torch.einsum("tmc,ck->tmk", patches.to(w.dtype), w)
+    """(T, M, C) {0,1} im2col patches x shared (C, K) weight, accumulated
+    in fp32, in ``w.dtype``."""
+    return torch.einsum("tmc,ck->tmk", patches.float(),
+                        w.float()).to(w.dtype)
 
 
 def neuron_layer_train_ref(x: torch.Tensor, w: torch.Tensor,
@@ -100,27 +115,28 @@ def neuron_layer_train_ref(x: torch.Tensor, w: torch.Tensor,
                            alpha: float = 0.5, th_fire: float = 1.0,
                            eps: float = 1e-5):
     """Train-mode neuron layer: x (T, M, C) @ w (C, K) -> BN over all T*M
-    rows (batch statistics) -> SOMA. Returns ``(spikes (T, M, K), mu
-    (1, K), var (1, K))``."""
+    rows (batch statistics) -> SOMA, all on the fp32 accumulator. Returns
+    ``(spikes (T, M, K) in x.dtype, mu (1, K), var (1, K))``."""
     t, m, _ = x.shape
     k = w.shape[-1]
-    acc = torch.einsum("tmc,ck->tmk", x.to(w.dtype), w)
+    acc = torch.einsum("tmc,ck->tmk", x.float(), w.float())
     y, mu, sqrt_d = bn_fwd_ref(acc.reshape(t * m, k), gamma, beta, eps)
     var = sqrt_d * sqrt_d - eps
     s, _, _ = lif_soma_fwd_ref(y.reshape(t, m, k), alpha=alpha,
                                th_fire=th_fire)
-    return s, mu, var
+    return s.to(x.dtype), mu, var
 
 
 def neuron_layer_eval_ref(x: torch.Tensor, w: torch.Tensor,
                           bias: torch.Tensor, *, alpha: float = 0.5,
                           th_fire: float = 1.0):
-    """Eval-mode neuron layer: BN already folded into (w, bias); returns
-    spikes (T, M, K)."""
-    acc = torch.einsum("tmc,ck->tmk", x.to(w.dtype), w)
-    acc = acc + bias.reshape(1, 1, -1).to(acc.dtype)
-    s, _, _ = lif_soma_fwd_ref(acc.to(x.dtype), alpha=alpha, th_fire=th_fire)
-    return s
+    """Eval-mode neuron layer: BN already folded into (w, bias); the bias
+    and SOMA on the fp32 accumulator; returns spikes (T, M, K) in
+    ``x.dtype``."""
+    acc = torch.einsum("tmc,ck->tmk", x.float(), w.float())
+    acc = acc + bias.reshape(1, 1, -1).float()
+    s, _, _ = lif_soma_fwd_ref(acc, alpha=alpha, th_fire=th_fire)
+    return s.to(x.dtype)
 
 
 def bn_fwd_ref(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,

@@ -28,7 +28,15 @@ partial sum is exact (integer and dyadic weights) it gives the same bits.
 Bound on this card: three dense bf16 passes (3 * 2MCK operations) at the
 projection sites, the weight's and the output's bytes at ``attn_qk``.
 
-The plain PyTorch versions unpack and call ``torch.matmul``. The wrappers
+A bf16 weight (the reference's kernels at bf16: spikes unpacked to the
+weight's dtype, the dot accumulated in fp32, the output in ``w.dtype``) is
+its own single plane: one tensor-core pass adds the exact products into
+the fp32 accumulators, and the result is rounded to bf16 once, at the
+store. The output's dtype is the weight's.
+
+The plain PyTorch versions unpack and call ``torch.matmul`` in fp32 (a
+bf16 weight widened exactly), rounding the product to ``w.dtype`` once, as
+the kernels do. The wrappers
 use them for CPU tensors only; on ``meta`` tensors they allocate the
 kernel's output (:func:`on_meta`) for the dry run to count.
 """
@@ -39,7 +47,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, meta_site
+from repro_torch.kernels import build, dtype_code, meta_site
 
 #: The kernel's batch index rides ``blockIdx.z``.
 MAX_BATCH = 65535
@@ -105,8 +113,9 @@ def spike_unpack(packed: torch.Tensor,
 def spike_matmul_packed_plain(packed: torch.Tensor, w: torch.Tensor, *,
                               out_dtype: torch.dtype | None = None):
     """Plain version of both kernels: unpack, then ``matmul`` (which
-    broadcasts over any leading batch dims)."""
-    out = torch.matmul(spike_unpack(packed, w.dtype), w)
+    broadcasts over any leading batch dims) in fp32, the product rounded
+    to ``out_dtype`` (default ``w.dtype``) once."""
+    out = torch.matmul(spike_unpack(packed, torch.float32), w.float())
     return out.to(out_dtype or w.dtype)
 
 
@@ -141,27 +150,28 @@ def _check_operands(packed, w, out_dtype, tile, what):
     if packed.device != w.device:
         raise ValueError(f"{what}: packed on {packed.device}, w on {w.device}")
     if packed.is_cuda:
-        if w.dtype != torch.float32 or \
-                (out_dtype or w.dtype) != torch.float32:
-            raise TypeError(f"{what} kernel takes float32 weights and output, "
-                            f"got {w.dtype} -> {out_dtype or w.dtype}")
+        dtype_code(w.dtype, what)
+        if (out_dtype or w.dtype) != w.dtype:
+            raise TypeError(f"{what} kernel writes its output in the weight's "
+                            f"dtype, got {w.dtype} -> {out_dtype}")
 
 
 def _launch_spike_matmul(packed4: torch.Tensor, w4: torch.Tensor, stream=0,
                          tile: int = 0):
-    """packed4 (G1, G2, M, C/8) uint8, w4 (G1, G2, C, K) fp32, any strides
-    -> out (G1, G2, M, K) fp32, contiguous; ``tile`` as in :data:`TILES`,
-    0 resolved here to :func:`default_tile` (the kernel takes 1 or 2)."""
+    """packed4 (G1, G2, M, C/8) uint8, w4 (G1, G2, C, K) fp32 or bf16, any
+    strides -> out (G1, G2, M, K) in w4's dtype, contiguous; ``tile`` as in
+    :data:`TILES`, 0 resolved here to :func:`default_tile` (the kernel
+    takes 1 or 2)."""
     g1, g2, m, _ = packed4.shape
     c, k = w4.shape[-2:]
     if g1 * g2 > MAX_BATCH:
         raise ValueError(f"spike matmul batch {g1 * g2} exceeds {MAX_BATCH}")
-    out = torch.empty((g1, g2, m, k), dtype=torch.float32,
-                      device=packed4.device)
+    out = torch.empty((g1, g2, m, k), dtype=w4.dtype, device=packed4.device)
     code = build.load().e2a_spike_matmul(
         packed4.data_ptr(), w4.data_ptr(), out.data_ptr(), g1, g2, m, c, k,
         *packed4.stride(), *w4.stride(), *out.stride(),
-        tile or default_tile(m), stream)
+        tile or default_tile(m), dtype_code(w4.dtype, "spike_matmul"),
+        stream)
     build.check_launch(code, "spike_matmul")
     return out
 
@@ -251,7 +261,7 @@ from repro_torch.kernels.contract import (KernelContract,  # noqa: E402
 def on_meta(name, packed, w, out_dtype=None):
     """Either entry point's shape rule on ``meta``: (..., M, K) over the
     batch dims of ``packed`` (M, C/8) and ``w`` (C, K), contiguous, in
-    ``out_dtype`` (default ``w.dtype``; the kernel's is fp32); a batch past
+    ``out_dtype`` (default ``w.dtype``, the kernel's); a batch past
     ``MAX_BATCH`` raises as on the card. The product's 2 * M * C * K
     operations a batch are reported to the dry run."""
     lead = packed.shape[:-2]

@@ -145,9 +145,18 @@ def _save_npy(f, arr: np.ndarray) -> None:
     f.write(np.ascontiguousarray(arr).tobytes())
 
 
+def bf16_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A host array of two-byte bfloat16 elements (raw ``V2`` as this
+    module reads them, or the reference's ``ml_dtypes.bfloat16``) -> a
+    ``torch.bfloat16`` tensor on the host owning a copy of the same bits,
+    through an int16 view (numpy has no bfloat16 of its own)."""
+    return torch.from_numpy(
+        np.ascontiguousarray(arr).view(np.int16).copy()).view(torch.bfloat16)
+
+
 def _to_tensor(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
     if dtype == "bfloat16":
-        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+        t = bf16_tensor(arr)
     else:
         t = torch.from_numpy(arr)
     return t.to(device)

@@ -1326,3 +1326,132 @@ def test_a_real_kernel_error_is_not_demoted():
                      site="tokenizer.bn")
         assert inj.events == []
     assert breaker_trips() == {}
+
+
+# ---------------------------------------------------------------------------
+# bf16: each kernel's bf16 arm, fp16 refused, the spiking LM at bf16
+# ---------------------------------------------------------------------------
+
+#: Small geometries of every contract at bf16: the packed and dense neuron
+#: layers, a ragged tile, and a long LIF walk (the ring arm).
+BF16_CASES = ((4, 196, 512, 512, True), (4, 70, 27, 40, False),
+              (4, 33, 24, 20, True), (2, 64, 64, 64, True),
+              (130, 8, 1024, 1024, False), (70, 8, 200, 200, False))
+
+
+@pytest.mark.cuda
+def test_every_contract_at_bf16_against_its_oracle_on_the_card():
+    """Each contract's bf16 arm against its bf16 oracle
+    (``hold_against_oracle`` on ``oracle_operands``' exact bf16 operands):
+    within its tolerance everywhere, and bit for bit but where the values
+    pass through BN's backward sums (the neuron layers' spikes equal the
+    oracle's outright on exact operands)."""
+    from repro_torch.analysis.contracts import hold_against_oracle
+    from repro_torch.kernels.contract import (KernelCase, SkipCase,
+                                              kernel_contracts)
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    seen = set()
+    for name, decl in kernel_contracts().items():
+        for t, m, c, k, packed in BF16_CASES:
+            if t > 8 and not name.startswith("lif"):
+                continue
+            try:
+                row = hold_against_oracle(
+                    decl, KernelCase(t, m, c, k, packed, "bfloat16"), gen)
+            except SkipCase:
+                continue
+            assert row["ok"], (name, (t, m, c, k, packed), row)
+            assert row["bitwise"] or name == "bn_bwd", (name, row)
+            seen.add(name)
+    assert seen == set(kernel_contracts())
+
+
+@pytest.mark.cuda
+def test_the_kernels_refuse_fp16_and_mixed_dtypes():
+    """fp16 has no kernel arm: every wrapper raises ``TypeError`` for an
+    fp16 CUDA tensor before anything launches; x and w of two dtypes are
+    refused too."""
+    from repro_torch.kernels import fused_bn
+    dev = _card()
+    h = torch.float16
+    x = torch.randn(4, 16, 64, device=dev, dtype=h)
+    reset_launch_counts()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        lif_soma.lif_soma_fwd(x)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        lif_soma.lif_soma_bwd(x, x, x, x)
+    packed = spike_matmul.spike_pack((x[0] > 0).float())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        spike_matmul.spike_matmul_packed(packed, torch.randn(
+            64, 32, device=dev, dtype=h))
+    x2 = x.reshape(64, 64)
+    v = torch.ones(64, device=dev)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_bn.bn_fwd(x2, v, v)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_bn.bn_bwd(x2, x2, v, v[None], v[None])
+    w = torch.randn(64, 32, device=dev, dtype=h)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        neuron_layer.neuron_layer_eval(x, w, v[:32])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        neuron_layer.neuron_layer_train(x, w, v[:32], v[:32])
+    with pytest.raises(TypeError, match="one dtype"):
+        neuron_layer.neuron_layer_eval(x.to(torch.bfloat16), w.float(),
+                                       v[:32])
+    assert set(launch_counts().values()) == {0}
+
+
+@pytest.mark.cuda
+def test_reduced_spiking_lm_at_bf16_cuda_full_against_eager():
+    """Reduced qwen3-0.6b + LIF at bf16 (the registry's dtype), the
+    layers rematerialised: the forward and the loss bit-equal under
+    ``cuda-full`` and ``eager`` (the bf16 SOMA kernel equals the eager scan
+    bit for bit), every gradient leaf within 2e-2 of its scale (GRAD rounds
+    eq. 12 in the recursion's order, autograd in its own), the launches of
+    the fp32 step, and a finite bf16 train step that moves every weight
+    matrix."""
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.core.lif import LIFConfig
+    from repro_torch.core.policy import named_policy
+    from repro_torch.core.spikingformer import tree_leaves, value_and_grad
+    from repro_torch.launch.train import build_state
+    from repro_torch.models.lm import lm_forward, lm_loss
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig
+    dev = _card()
+    base = reduced(get_config("qwen3-0.6b")).replace(
+        remat=True, dtype=torch.bfloat16)
+    params, opt, _ = build_state(base, seed=0, device=dev)
+    assert {a.dtype for a in tree_leaves(params)} == {torch.bfloat16}
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, base.vocab_size, (4, 33))
+    batch = {"tokens": _t(toks[:, :-1]).to(dev),
+             "labels": _t(toks[:, 1:]).to(dev)}
+    out = {}
+    for name in ("cuda-full", "eager"):
+        cfg = base.replace(lif=LIFConfig(policy=named_policy(name)))
+        with torch.no_grad():
+            h = lm_forward(params, {"tokens": batch["tokens"]}, cfg)[0]
+        reset_launch_counts()
+        out[name] = value_and_grad(lm_loss, params, batch, cfg)
+        torch.cuda.synchronize()
+        out[name] += (launch_counts(), h)
+    ((loss_c, _), g_c, n_c, h_c), ((loss_e, _), g_e, n_e, h_e) = \
+        out["cuda-full"], out["eager"]
+    assert torch.equal(h_c, h_e) and torch.equal(loss_c, loss_e)
+    for a, b in zip(tree_leaves(g_c), tree_leaves(g_e)):
+        assert a.dtype == b.dtype == torch.bfloat16
+        scale = float(b.float().abs().max().clamp_min(1.0))
+        assert float((a.float() - b.float()).abs().max()) <= 2e-2 * scale
+    assert (n_c["lif_soma_fwd"], n_c["lif_soma_bwd"]) == (8, 4)
+    assert set(n_e.values()) == {0}
+    cfg = base.replace(lif=LIFConfig(policy=named_policy("cuda-full")))
+    # bf16 weights take the AdamW step themselves: a step below half a bf16
+    # unit of a weight leaves it as it was, so the step here is 1e-2
+    new, _, metrics = make_train_step(cfg, OptimizerConfig(
+        lr=1e-2, warmup_steps=1))(params, opt, batch)
+    assert float(metrics["nonfinite"]) == 0.0
+    assert np.isfinite(float(metrics["grad_norm"]))
+    assert not any(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(new), tree_leaves(params)))

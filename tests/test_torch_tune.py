@@ -210,7 +210,9 @@ def test_the_wrapper_owns_the_tile_rule(monkeypatch, m, tile, sent):
     class Lib:
         @staticmethod
         def e2a_spike_matmul(*args):
-            sent_tiles.append(args[-2])
+            # ..., tile, the dtype code (0: fp32), stream
+            assert args[-2] == 0
+            sent_tiles.append(args[-3])
             return 0
     monkeypatch.setattr(spike_matmul.build, "load", lambda: Lib)
     spike_matmul._launch_spike_matmul(torch.zeros((2, 1, m, 2),
