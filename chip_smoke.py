@@ -159,7 +159,20 @@ gradient step judged against its oracle on its own operands) and
 ``qwen3-0.6b`` + LIF at its published bf16 (``lm_bf16``: the 16 requests
 with a bf16 cache, bit-equal between ``cuda-full`` and ``eager``; step 0's
 forward and loss bit-equal and each gradient leaf within 2e-2 of its
-scale; 1 + 3 driver steps). It
+scale; 1 + 3 driver steps). Then the vlm family (``vlm``): ``pixtral-12b``
++ LIF at its published bf16, widths and depth (40 layers, d 5120, 32 / 8
+heads of 160, d_ff 14336, vocabulary 131072; 12.1 B parameters drawn on
+the card): a (1, 256) forward with image patches merged and the 16
+requests through ``ServingEngine(slots=16, max_seq=256)`` with a bf16
+cache, bit-equal between ``cuda-full`` and ``eager`` (tokens, every
+step's logits and branch spikes); then its training in fp32 at the deepest
+depth whose world-1 dry-run estimate is within 64 GB (a child process
+counts it): step 0 on a batch with patches against ``eager``, 1 + 2
+driver steps from the reference's init (measured) and with every wq and
+wk times 1/8 (held: every leaf moved), and the driver's step measured
+alone against the estimate (the peak within 15 %). Then
+the examples (``examples``): the four ``examples/torch/*.py`` in child
+processes at their defaults, each to exit 0 with a finite loss. It
 needs one CUDA device and ``nvcc`` and fails (non-zero exit, no result
 line) without them. Every phase prints one JSON line; the line before the
 last but one lists the kernels, and the last line is the verdict.
@@ -211,7 +224,9 @@ carried state, whose final state must match too; forward (256, 1 or 8,
 ``bitwise`` and its launches per decode step or forward, as counted on
 that path in this run; it and ``lif_soma_bwd`` run at the LM's training
 shapes (128, 8, d) at d = 1024, 4096 (``mixtral-8x7b``, ``rwkv6-7b``)
-and 2560, in that view, too, with their launches per training step.
+and 2560, in that view, too, with their launches per training step;
+``pixtral-12b``'s bf16 decode (1, 16, 5120) from the carry, bf16 forward
+(256, 1, 5120) view and fp32 training (128, 8, 5120), with theirs.
 Every LIF case names its ``arm`` (``flat`` or ``ring``) and bounds its
 time by the recursion as well: ``bound_ms`` is the larger of the byte
 time and T steps of the serial chain (the dependent fp32 instructions a
@@ -1694,6 +1709,22 @@ RWKV_ARCH, HYBRID_ARCH = "rwkv6-7b", "zamba2-2.7b"
 #: Each LM phase's name, the prefix of its lines and paths.
 PHASE_NAMES = {LM_ARCH: "lm", MOE_ARCH: "moe_mla", RWKV_ARCH: "rwkv",
                HYBRID_ARCH: "hybrid"}
+#: The vlm family's one registry model, ``pixtral-12b`` + LIF (40 layers, d
+#: 5120, 32 / 8 heads of 160, d_ff 14336, vocabulary 131072; its ViT
+#: frontend is a stub, so image patches arrive embedded): served at its
+#: published bf16 and depth through ``VLM_SLOTS`` slots, trained in fp32 at
+#: the deepest depth whose world-1 dry-run estimate is within
+#: ``VLM_FIT_BYTES``. ``VLM_PATCH_RATE`` of a batch's positions carry a
+#: patch, so that the merge runs (the driver's batches carry none).
+VLM_ARCH, VLM_SLOTS, VLM_FIT_BYTES, VLM_PATCH_RATE = \
+    "pixtral-12b", 16, 64e9, 0.25
+#: At the reference's init a (d, h, dh) projection is drawn at heads^-1/2
+#: (ROADMAP C7), and ``pixtral-12b`` has no q/k norm: its attention logits
+#: have a std of about sqrt(5120 / 32) * sqrt(5120 / 8) = 320 (whisper's
+#: about 64). Its training is held from the driver's weights with every
+#: wq and wk times ``VLM_QK_SCALE`` (logits about 5, whisper's regime at its
+#: ``QK_SCALE``), and measured at the init.
+VLM_QK_SCALE = 0.125
 
 
 def lm_config(policy: str, arch: str = LM_ARCH,
@@ -1993,7 +2024,8 @@ def lm_requests(vocab: int, seed: int) -> list[tuple[list[int], int]]:
 
 def lm_serve(params, policy: str, reqs, only=None, record: bool = True,
              arch: str = LM_ARCH, drops: list | None = None,
-             dtype: torch.dtype = torch.float32) -> dict:
+             dtype: torch.dtype = torch.float32, slots: int = LM_SLOTS
+             ) -> dict:
     """Run the requests (those of ``only``, if given) to completion
     through one ``ServingEngine`` under ``policy``, a step at a time, each
     step synchronised and timed. With ``record``, keeps a host copy of
@@ -2002,9 +2034,10 @@ def lm_serve(params, policy: str, reqs, only=None, record: bool = True,
     is the engine's own; the copy is then in the step's time, so the times
     a user would see come from a run without it. Given ``drops``, the run
     counts each MoE layer's dropped pairs into it (``counting_drops``).
-    ``dtype``: the model's (``lm_config``) and the cache's."""
+    ``dtype``: the model's (``lm_config``) and the cache's; ``slots``
+    the engine's."""
     engine = ServingEngine(params, lm_config(policy, arch, dtype),
-                           slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                           slots=slots, max_seq=LM_MAX_SEQ,
                            cache_dtype=dtype)
     steps: list = []
     if record:
@@ -2243,12 +2276,15 @@ def lm_phase(seed: int, arch: str = LM_ARCH, smi: str | None = None
 #: The spiking LMs trained, each with the name of its training path: at
 #: published widths, fp32, each layer recomputed in the backward.
 TRAIN_PHASES = {LM_ARCH: "lm_train", "mixtral-8x7b": "moe_train",
-                RWKV_ARCH: "rwkv_train", HYBRID_ARCH: "hybrid_train"}
+                RWKV_ARCH: "rwkv_train", HYBRID_ARCH: "hybrid_train",
+                VLM_ARCH: "vlm_train"}
 #: Depths cut for training, where AdamW's state would not fit the card:
 #: ``mixtral-8x7b`` 2 of 32 layers (2.96 B parameters, 11.8 GB in fp32;
 #: weights, gradients, m and v 47 GB), ``rwkv6-7b`` the deepest that
 #: leaves 8 GB free beside the driver's state, a spare copy of the weights
-#: and the activations (``rwkv_train``'s ``free_bytes``).
+#: and the activations (``rwkv_train``'s ``free_bytes``). ``pixtral-12b``'s
+#: depth is the dry run's choice in this run: the ``vlm`` phase sets it
+#: from ``vlm_depth_child`` before it trains.
 TRAIN_LAYERS = {"mixtral-8x7b": 2, RWKV_ARCH: 13}
 #: Timed steps of the families beside qwen3-0.6b, after one warm-up, under
 #: ``cuda-full`` only.
@@ -2297,10 +2333,27 @@ def lm_train_expected(steps: int, arch: str = LM_ARCH,
 
 
 def lm_train_batch(cfg, seed: int) -> dict[str, torch.Tensor]:
-    """The driver's first batch: ``SyntheticLM``'s batch 0 on the card."""
-    return {k: torch.from_numpy(v).to(DEVICE) for k, v in SyntheticLM(
+    """The driver's first batch: ``SyntheticLM``'s batch 0 on the card;
+    for the vlm stub with image patches (``vlm_patches``)."""
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in SyntheticLM(
         DataConfig(vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_SEQ,
                    global_batch=LM_TRAIN_BATCH, seed=seed)).batch(0).items()}
+    if cfg.vlm_stub:
+        batch.update(vlm_patches(cfg, batch["tokens"].shape, seed))
+    return batch
+
+
+def vlm_patches(cfg, shape, seed: int) -> dict[str, torch.Tensor]:
+    """Image patches for a (B, S) token batch of the vlm stub, drawn from
+    ``seed`` on the card: ``patch_embeds`` N(0, 1) in the model's dtype and
+    a ``patch_mask`` true at about ``VLM_PATCH_RATE`` of the positions (the
+    driver's batches carry zero patches under an all-false mask, which
+    never run the merge)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
+    return {"patch_embeds": torch.randn((*shape, cfg.d_model), generator=gen,
+                                        device=DEVICE).to(cfg.dtype),
+            "patch_mask": torch.rand(shape, generator=gen, device=DEVICE)
+            < VLM_PATCH_RATE}
 
 
 def grad_diff(a: torch.Tensor, b: torch.Tensor) -> dict:
@@ -2414,12 +2467,12 @@ def lm_train_run(cfg, seed: int, steps: int = LM_TRAIN_STEPS,
 def moved_leaves(run: dict, params) -> int:
     """The parameter leaves a run's final state holds with other bits than
     ``params``, its initial weights (the others, by name, go to the run's
-    ``unmoved``); drops the run's state."""
+    ``unmoved``; ``params`` may be a host copy); drops the run's state."""
     final = run.pop("params")
     run["unmoved"] = [n for n, a, b in zip(tree_paths(params),
                                            tree_leaves(final),
                                            tree_leaves(params))
-                      if torch.equal(a.view(torch.int32),
+                      if torch.equal(a.to(b.device).view(torch.int32),
                                      b.view(torch.int32))]
     return len(tree_leaves(params)) - len(run["unmoved"])
 
@@ -2589,23 +2642,26 @@ def all_equal(got, want) -> bool:
                for a, b in zip(got, want))
 
 
-def bf16_lif_cases(gen, batch: int) -> dict[str, list[dict]]:
+def bf16_lif_cases(gen, batch: int, shapes=None) -> dict[str, list[dict]]:
     """``lif_soma_fwd`` / ``_bwd`` at bf16: S, U, mask (and the carried
     state) and dx bit-equal to the plain version and to the oracle, at the
     Spikingformer's (4, 196 * B, 512), the LM's decode (1, 8, 1024) from a
     carried state and training view (128, 8, 1024), and a ring call whose
     columns a thread copies alone (D % 32 != 0: the bf16 ring's plain
-    loads); the backward also with the carry's cotangent."""
+    loads); the backward also with the carry's cotangent. ``shapes`` (case,
+    T, M, D, layout, carry, backward) replaces those cases: a case with
+    ``backward`` runs the backward too (a carried one never does)."""
     cfg = get_spikingformer_config(PRESET)
     t, d, m = cfg.time_steps, cfg.d_model, batch * cfg.num_tokens
     lm_d = get_config(LM_ARCH).d_model
     fwd, bwd = [], []
-    shapes = [("pssa.lif/smlp.lif", t, m, d, "dense", False),
-              ("lm.ffn.lif decode", 1, LM_SLOTS, lm_d, "dense", True),
-              ("lm.ffn.lif train", LM_TRAIN_SEQ, LM_TRAIN_BATCH, lm_d, "lm",
-               False),
-              ("ring, a column a thread", 70, 8, 200, "dense", False)]
-    for case, tt, mm, dd, layout, carry in shapes:
+    shapes = shapes or [
+        ("pssa.lif/smlp.lif", t, m, d, "dense", False, True),
+        ("lm.ffn.lif decode", 1, LM_SLOTS, lm_d, "dense", True, False),
+        ("lm.ffn.lif train", LM_TRAIN_SEQ, LM_TRAIN_BATCH, lm_d, "lm",
+         False, True),
+        ("ring, a column a thread", 70, 8, 200, "dense", False, True)]
+    for case, tt, mm, dd, layout, carry, backward in shapes:
         x = lif_input(gen, tt, mm, dd, layout).to(BF16)
         state = ((torch.randn((mm, dd), generator=gen, device=DEVICE) * 0.7
                   + 0.5).to(BF16), spikes(gen, (mm, dd), 0.4).to(BF16)) \
@@ -2627,7 +2683,7 @@ def bf16_lif_cases(gen, batch: int) -> dict[str, list[dict]]:
             bitwise_plain=True, bitwise_oracle=True, max_abs_err=0.0,
             tolerance="bitwise on S, U and mask (and u_last, s_last) against "
                       "the plain version and kernels/ref.py"))
-        if carry:
+        if carry or not backward:
             continue
         s, u, mask = plain
         g = torch.empty_like(u).copy_(torch.randn((tt, mm, dd), generator=gen,
@@ -3147,29 +3203,23 @@ def bf16_vision_phase(seed: int, batch: int, smi: str) -> dict[str, dict]:
     return {"bf16_serve": serve_counts, "bf16_train": train_counts}
 
 
-def lm_bf16_phase(seed: int, smi: str) -> dict[str, dict[str, int]]:
-    """``qwen3-0.6b`` + LIF at its published dtype, bf16 (the registry's
-    config with only ``lif=`` added), published widths and depth, weights
-    from ``seed`` on the card. Serving: the 16 requests through
-    ``ServingEngine`` with a bf16 cache under ``cuda-full`` and ``eager``,
-    tokens and every step's logits and branch spikes bit-equal (the LIF,
-    the LM's one kernel, equals the eager scan bit for bit at bf16 too),
-    and an unrecorded ``cuda-full`` run for the times. Training: step 0's
-    forward and loss bit-equal between the policies and every gradient
-    leaf bit-equal or within ``LM_BF16_GRAD_LIMIT`` of its scale; then 1 +
-    LM_TRAIN_STEPS steps through the driver under ``cuda-full``, every
-    step finite, every leaf moved but a leaf of ones (a norm's scale at
-    its init moves by a bf16 unit only under larger steps than the
-    warm-up's; the unmoved leaves are named), the LIF launches a step the
-    fp32 path's."""
-    cfg = lm_config("cuda-full", LM_ARCH, BF16)
-    layers = cfg.num_layers
-    params = split_tree(init_lm(torch.Generator(device=DEVICE).manual_seed(
-        seed), lm_config("eager", LM_ARCH, BF16), DEVICE))[0]
-    reqs = lm_requests(cfg.vocab_size, seed)
-    runs = {p: lm_serve(params, p, reqs, dtype=BF16)
+def bf16_serve(params, arch: str, seed: int, slots: int = LM_SLOTS
+               ) -> tuple[dict, dict[str, int], int]:
+    """A spiking LM at bf16 (``params`` drawn under ``lm_config(...,
+    BF16)``) serving the 16 requests through ``ServingEngine(slots=slots)``
+    with a bf16 cache under ``cuda-full`` and ``eager``: tokens and every
+    step's logits and branch spikes bit-equal (the LIF, the LM's one
+    kernel, equals the eager scan bit for bit at bf16 too), every request
+    finished, one ``lif_soma_fwd`` launch a layer a step; an unrecorded
+    ``cuda-full`` run gives the times and must repeat the tokens. Returns
+    the line's ``serve`` entry, the launches and the steps of that run."""
+    layers = lm_config("cuda-full", arch, BF16).num_layers
+    vocab = get_config(arch).vocab_size
+    reqs = lm_requests(vocab, seed)
+    runs = {p: lm_serve(params, p, reqs, arch=arch, dtype=BF16, slots=slots)
             for p in ("cuda-full", "eager")}
-    timed = lm_serve(params, "cuda-full", reqs, record=False, dtype=BF16)
+    timed = lm_serve(params, "cuda-full", reqs, record=False, arch=arch,
+                     dtype=BF16, slots=slots)
     full, eager = runs["cuda-full"], runs["eager"]
     tokens_equal = full["done"].keys() == eager["done"].keys() and all(
         full["done"][u].output == eager["done"][u].output
@@ -3185,8 +3235,42 @@ def lm_bf16_phase(seed: int, smi: str) -> dict[str, dict[str, int]]:
                  for u in full["done"])
     del runs, full, eager
     torch.cuda.empty_cache()
-    serve_counts = timed["counts"]
+    counts = timed["counts"]
     ms = sorted(timed["ms"])
+    serve = {"finished": f"{len(timed['done'])}/{LM_REQUESTS}",
+             "slots": slots, "max_seq": LM_MAX_SEQ,
+             "tokens_equal": tokens_equal,
+             "logits_bit_equal_every_step": logits_equal,
+             "spikes_bit_equal_every_step": spikes_equal,
+             "unrecorded_run_repeats_recorded": repeat,
+             "steps": timed["step_count"],
+             "ms_per_step_median": ms[len(ms) // 2],
+             "tokens_per_s": timed["generated"] / timed["wall_s"],
+             "peak_memory_bytes": timed["peak"], "launches": counts}
+    if not (everyone and tokens_equal and logits_equal and spikes_equal
+            and repeat) or counts != lm_expected(
+                layers * timed["step_count"]):
+        fail(f"{arch} bf16 serve: finished {everyone}, tokens "
+             f"{tokens_equal}, logits {logits_equal}, spikes "
+             f"{spikes_equal}, repeat {repeat}, launches {counts}")
+    return serve, counts, timed["step_count"]
+
+
+def lm_bf16_phase(seed: int, smi: str) -> dict[str, dict[str, int]]:
+    """``qwen3-0.6b`` + LIF at its published dtype, bf16 (the registry's
+    config with only ``lif=`` added), published widths and depth, weights
+    from ``seed`` on the card. Serving: ``bf16_serve``. Training: step 0's
+    forward and loss bit-equal between the policies and every gradient
+    leaf bit-equal or within ``LM_BF16_GRAD_LIMIT`` of its scale; then 1 +
+    LM_TRAIN_STEPS steps through the driver under ``cuda-full``, every
+    step finite, every leaf moved but a leaf of ones (a norm's scale at
+    its init moves by a bf16 unit only under larger steps than the
+    warm-up's; the unmoved leaves are named), the LIF launches a step the
+    fp32 path's."""
+    layers = lm_config("cuda-full", LM_ARCH, BF16).num_layers
+    params = split_tree(init_lm(torch.Generator(device=DEVICE).manual_seed(
+        seed), lm_config("eager", LM_ARCH, BF16), DEVICE))[0]
+    serve, serve_counts, _ = bf16_serve(params, LM_ARCH, seed)
 
     tcfg = lm_train_config("cuda-full", LM_ARCH, dtype=BF16)
     tparams = build_state(tcfg, seed=seed, device=DEVICE)[0]
@@ -3207,27 +3291,13 @@ def lm_bf16_phase(seed: int, smi: str) -> dict[str, dict[str, int]]:
          cache_dtype="bfloat16", layers=layers, card=smi,
          parameters=sum(a.numel() for a in tree_leaves(params)),
          bytes=nbytes(*tree_leaves(params)),
-         serve={"finished": f"{len(timed['done'])}/{LM_REQUESTS}",
-                "tokens_equal": tokens_equal,
-                "logits_bit_equal_every_step": logits_equal,
-                "spikes_bit_equal_every_step": spikes_equal,
-                "unrecorded_run_repeats_recorded": repeat,
-                "steps": timed["step_count"],
-                "ms_per_step_median": ms[len(ms) // 2],
-                "tokens_per_s": timed["generated"] / timed["wall_s"],
-                "peak_memory_bytes": timed["peak"], "launches": serve_counts},
+         serve=serve,
          train={"step0_forward_bit_equal": forward_equal,
                 "step0": {k: v for k, v in grads.items()
                           if k not in ("per_leaf", "tolerance")},
                 "grad_tolerance": f"bitwise or within {LM_BF16_GRAD_LIMIT} "
                                   f"of the leaf's scale, max(1, max|eager|)",
                 "cuda_full": run, "launches_per_step": lm_train_expected(1)})
-    if not (everyone and tokens_equal and logits_equal and spikes_equal
-            and repeat) or serve_counts != lm_expected(
-                layers * timed["step_count"]):
-        fail(f"lm bf16 serve: finished {everyone}, tokens {tokens_equal}, "
-             f"logits {logits_equal}, spikes {spikes_equal}, repeat "
-             f"{repeat}, launches {serve_counts}")
     if not (forward_equal and grads["loss_bit_equal"]) or \
             grads["max_scaled_err"] > LM_BF16_GRAD_LIMIT or \
             grads["nonfinite_elements"]:
@@ -4851,11 +4921,12 @@ def measured_vision_step(seed: int):
     return lambda: step(*args)
 
 
-def measured_lm_step(seed: int):
-    """The ``lm_train`` phase's step: the driver's (``donate=True``, AdamW
-    written into the state) on its state and first batch."""
+def measured_lm_step(seed: int, arch: str = LM_ARCH):
+    """``arch``'s training phase's step (``lm_train`` for qwen3-0.6b): the
+    driver's (``donate=True``, AdamW written into the state) on its state
+    and first batch."""
     from repro_torch.launch.train import lm_step_batch
-    cfg = lm_train_config("cuda-full")
+    cfg = lm_train_config("cuda-full", arch)
     opt_cfg = OptimizerConfig(lr=3e-4, total_steps=1 + LM_TRAIN_STEPS,
                               warmup_steps=5)
     params, opt, _ = build_state(cfg, opt_cfg=opt_cfg, seed=seed,
@@ -4980,6 +5051,331 @@ def dryrun_phase(seed: int, smi: str) -> dict[str, dict[str, int]]:
             "dryrun_lm_train": got["lm_train"]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the vlm family (pixtral-12b + LIF) served and trained, and the
+# examples
+# ---------------------------------------------------------------------------
+
+def vlm_estimate(layers: int) -> dict:
+    """The dry run's world-1 count of ``pixtral-12b``'s training step (the
+    driver's, fp32, 8 x 128 tokens with patches) at ``layers`` layers."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.specs import ShapeSpec, input_specs
+    cfg = lm_config("cuda-full", VLM_ARCH).replace(num_layers=layers)
+    shape = ShapeSpec("train", LM_TRAIN_SEQ, LM_TRAIN_BATCH)
+    fn, structs, _ = input_specs(cfg, shape,
+                                 AbstractMesh(("data", "model"), (1, 1)))
+    counts = dryrun.count_step(fn, structs)
+    del structs
+    return dryrun.cell_result(cfg.name, shape, cfg, counts, "world1", 1)
+
+
+def vlm_depth_child(path: str) -> None:
+    """The depth side of the ``vlm`` phase, in its own process: the deepest
+    depth of ``pixtral-12b`` whose estimated peak is within
+    ``VLM_FIT_BYTES`` (the estimate is affine in the depth: counted at 1 and
+    2 layers, then checked down from the line's depth), with its estimate
+    and the next depth's peak, written to ``path`` as JSON."""
+    peaks = {n: vlm_estimate(n)["bytes_per_device"]["peak"] for n in (1, 2)}
+    top = get_config(VLM_ARCH).num_layers
+    n = max(1, min(int((VLM_FIT_BYTES - peaks[1])
+                       // (peaks[2] - peaks[1])) + 1, top))
+    while True:
+        est = vlm_estimate(n)
+        peaks[n] = est["bytes_per_device"]["peak"]
+        if peaks[n] <= VLM_FIT_BYTES or n == 1:
+            break
+        n -= 1
+    if n < top and n + 1 not in peaks:
+        peaks[n + 1] = vlm_estimate(n + 1)["bytes_per_device"]["peak"]
+    with open(path, "w") as f:
+        json.dump({"layers": n, "estimate": est,
+                   "peaks": {str(k): v for k, v in sorted(peaks.items())}},
+                  f)
+
+
+def vlm_forward(params, seed: int) -> tuple[dict, dict[str, int]]:
+    """``lm_forward`` of ``pixtral-12b`` + LIF at bf16 on a (1, 256) token
+    batch with image patches (``vlm_patches``), under ``cuda-full`` and
+    ``eager``: hidden states and logits bit-equal, one ``lif_soma_fwd``
+    launch a layer (none under ``eager``), the merge changing the hidden
+    states (a forward without the patches differs). Returns the line's
+    entry and the ``cuda-full`` launches."""
+    cfg = lm_config("cuda-full", VLM_ARCH, BF16)
+    toks = torch.from_numpy(SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=LM_FWD_SEQ, global_batch=1,
+        seed=seed)).batch(0)["tokens"]).to(DEVICE)
+    batch = {"tokens": toks, **vlm_patches(cfg, toks.shape, seed)}
+    out = {}
+    for policy in ("cuda-full", "eager"):
+        pcfg = lm_config(policy, VLM_ARCH, BF16)
+
+        def fwd(b=batch):
+            with torch.inference_mode():
+                h, _ = lm_forward(params, b, pcfg)
+                return h, unembed(params["embed"], h)
+        fwd()                                # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_launch_counts()                # the path starts here
+        h, logits = fwd()
+        torch.cuda.synchronize()
+        counts = launch_counts()             # ... and ends here
+        out[policy] = {"h": h, "logits": logits, "counts": counts,
+                       "ms": time_ms(fwd)}
+    full, eager = out["cuda-full"], out["eager"]
+    with torch.inference_mode():
+        plain_h = lm_forward(params, {"tokens": toks}, cfg)[0]
+    row = {"tokens": list(toks.shape),
+           "patched_positions": int(batch["patch_mask"].sum()),
+           "hidden_bit_equal": torch.equal(full["h"], eager["h"]),
+           "logits_bit_equal": torch.equal(full["logits"], eager["logits"]),
+           "merge_changes_hidden": not torch.equal(plain_h, full["h"]),
+           "finite": bool(torch.isfinite(full["logits"]).all()),
+           "ms_cuda_full": full["ms"], "ms_eager": eager["ms"],
+           "launches": full["counts"]}
+    layers = cfg.num_layers
+    if not (row["hidden_bit_equal"] and row["logits_bit_equal"]
+            and row["merge_changes_hidden"] and row["finite"]
+            and row["patched_positions"]) or \
+            full["counts"] != lm_expected(layers) or \
+            eager["counts"] != lm_expected(0):
+        fail(f"vlm forward: {row}, eager launches {eager['counts']}")
+    return row, full["counts"]
+
+
+def qk_scale_lm_(params, scale: float) -> None:
+    """Every layer's attention query and key projections of a dense LM's
+    tree times ``scale``, in place (a power of two: exact either way)."""
+    for k in ("wq", "wk"):
+        params["blocks"]["attn"][k].mul_(scale)
+
+
+@contextlib.contextmanager
+def scaled_build(scale: float):
+    """Inside the block the driver's ``build_state`` hands ``train()`` its
+    LM weights with ``qk_scale_lm_(., scale)`` applied, as a fine-tune
+    would start from them (whisper's phase writes such weights as a
+    checkpoint for the driver to resume; at ``pixtral-12b``'s training
+    depth that would be a checkpoint of 14 GB, written and read back)."""
+    from repro_torch.launch import train as driver
+    built = driver.build_state
+
+    def build(*args, **kw):
+        params, opt, specs = built(*args, **kw)
+        qk_scale_lm_(params, scale)
+        return params, opt, specs
+    driver.build_state = build
+    try:
+        yield
+    finally:
+        driver.build_state = built
+
+
+def vlm_train(seed: int, smi: str) -> dict[str, dict[str, int]]:
+    """``pixtral-12b`` + LIF's training path in fp32 at its published
+    widths and the depth of ``TRAIN_LAYERS`` (the dry run's): step 0's loss
+    and gradients under ``cuda-full`` and ``eager`` on the driver's first
+    batch with image patches (``lm_train_batch``: the merge runs), held as
+    ``check_grads`` holds the other families; then 1 + FAMILY_TRAIN_STEPS
+    driver steps under ``cuda-full`` from the reference's init, measured
+    (finite and the launches held; the gradient norm and the leaves the
+    clip leaves unmoved printed), and from the same weights with every wq
+    and wk times ``VLM_QK_SCALE`` (``scaled_build``), held as
+    ``check_train_run`` holds the other families: every step finite, every
+    leaf moved, 2 / 1 LIF launches a layer a step. The initial weights
+    wait on the host (the driver's state alone is sized to fill the card).
+    Returns the launches of each run, by path."""
+    pre = TRAIN_PHASES[VLM_ARCH]
+    cfg = lm_train_config("cuda-full", VLM_ARCH)
+    params = build_state(cfg, seed=seed, device=DEVICE)[0]
+    leaves = len(tree_leaves(params))
+    grads = lm_grad_check(params, seed, VLM_ARCH)
+    torch.cuda.empty_cache()
+    check_grads(pre, grads)
+    host = tree_map(lambda a: a.cpu(), params)
+    del params
+    torch.cuda.empty_cache()
+    want = lm_train_expected(1 + FAMILY_TRAIN_STEPS, VLM_ARCH)
+    runs = {}
+    for name, scale in (("at_init", None), ("qk_scaled", VLM_QK_SCALE)):
+        if scale is not None:
+            qk_scale_lm_(host, scale)
+        with scaled_build(scale) if scale is not None else \
+                contextlib.nullcontext():
+            run = lm_train_run(cfg, seed, FAMILY_TRAIN_STEPS)
+        run["moved_leaves"] = moved_leaves(run, host)
+        run.pop("history")
+        torch.cuda.empty_cache()
+        runs[name] = run
+    init = runs["at_init"]
+    emit(pre, arch=f"{VLM_ARCH}@cuda-full", layers=cfg.num_layers,
+         published_layers=get_config(VLM_ARCH).num_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, dtype="float32",
+         remat=cfg.remat, parameters=sum(a.numel() for a in
+                                         tree_leaves(host)),
+         bytes=nbytes(*tree_leaves(host)), batch=LM_TRAIN_BATCH,
+         seq=LM_TRAIN_SEQ, tokens_per_step=LM_TRAIN_BATCH * LM_TRAIN_SEQ,
+         steps=f"1 warm-up + {FAMILY_TRAIN_STEPS} timed", data="SyntheticLM",
+         patches={"step0": f"patch_embeds N(0, 1), patch_mask at "
+                           f"{VLM_PATCH_RATE} of the positions",
+                  "driver": "zero patches, an all-false mask (the "
+                            "reference driver's)"},
+         parameter_leaves=leaves, launches_per_step=lm_train_expected(
+             1, VLM_ARCH), step0=grads,
+         cuda_full_at_init={**init, "held": "every step finite, the "
+                            "launches; unmoved leaves measured"},
+         cuda_full=runs["qk_scaled"] | {
+             "weights": f"the driver's, every wq and wk times "
+                        f"{VLM_QK_SCALE}"},
+         times="host clock from one step's loss on the host to the next's, "
+               "after the warm-up step", card=smi)
+    check_train_run(f"{pre} qk {VLM_QK_SCALE}", runs["qk_scaled"], leaves,
+                    1 + FAMILY_TRAIN_STEPS, want)
+    if init["counts"] != want or any(
+            r["nonfinite"] or not math.isfinite(r["loss"])
+            for r in init["steps"]):
+        fail(f"{pre} at init: {init['steps']}, launches {init['counts']}")
+    return {pre: runs["qk_scaled"]["counts"],
+            f"{pre}_at_init": init["counts"]}
+
+
+def vlm_lif_cases(gen) -> dict[str, list[dict]]:
+    """``lif_soma_fwd`` at bf16 at the shapes the served ``pixtral-12b``
+    gives it: decode (1, VLM_SLOTS, 5120) from the carried state and the
+    forward's (256, 1, 5120) view, each with its path (the training step's
+    fp32 (128, 8, 5120) cases come from ``train_lif_cases``)."""
+    d = get_config(VLM_ARCH).d_model
+    rows = bf16_lif_cases(gen, BATCH, shapes=[
+        (f"lm.ffn.lif decode ({VLM_ARCH})", 1, VLM_SLOTS, d, "dense", True,
+         False),
+        (f"lm.ffn.lif forward ({VLM_ARCH})", LM_FWD_SEQ, 1, d, "lm", False,
+         False)])
+    for row, path in zip(rows["lif_soma_fwd"], ("vlm_serve", "vlm_forward")):
+        row["path"] = path
+    return rows
+
+
+def vlm_phase(seed: int, smi: str, cases: dict[str, list[dict]]
+              ) -> tuple[dict[str, dict[str, int]], dict[str, int]]:
+    """``pixtral-12b`` + LIF, the vlm family's one registry model, on the
+    card. Serving at its published bf16, widths and depth (40 layers),
+    weights from ``seed`` on the card: ``vlm_forward`` and the 16 requests
+    through ``bf16_serve`` (``VLM_SLOTS`` slots; decode takes no patches,
+    in the reference too). Training in fp32 at its published widths, at
+    the deepest depth whose world-1 dry-run estimate fits
+    ``VLM_FIT_BYTES`` (``vlm_depth_child``, in a child process):
+    ``vlm_train``; then the driver's step measured alone (``measure_step``) and
+    held against the dry run's estimate (``hold_estimate``: the peak within
+    ``DRYRUN_PEAK_BAND``). Adds the bf16 LIF cases to ``cases``; returns
+    each path's launches and the steps of the serving and training runs."""
+    t0 = time.perf_counter()
+    cfg = lm_config("eager", VLM_ARCH, BF16)
+    params = split_tree(init_lm(torch.Generator(device=DEVICE).manual_seed(
+        seed), cfg, DEVICE))[0]
+    weights = {"parameters": sum(a.numel() for a in tree_leaves(params)),
+               "bytes": nbytes(*tree_leaves(params))}
+    fwd_row, fwd_counts = vlm_forward(params, seed)
+    torch.cuda.empty_cache()
+    serve, serve_counts, serve_steps = bf16_serve(params, VLM_ARCH, seed,
+                                                  VLM_SLOTS)
+    del params
+    torch.cuda.empty_cache()
+    emit("vlm_serve", arch=f"{VLM_ARCH}@cuda-full", dtype="bfloat16",
+         cache_dtype="bfloat16", layers=cfg.num_layers, d_model=cfg.d_model,
+         heads=[cfg.n_heads, cfg.n_kv_heads], d_head=cfg.d_head,
+         d_ff=cfg.d_ff, vocab=cfg.vocab_size, **weights, forward=fwd_row,
+         serve=serve, seconds=time.perf_counter() - t0, card=smi)
+
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vlm_depth.json")
+        run_child([sys.executable, str(Path(__file__).resolve()),
+                   "--vlm-depth-child", path], "the vlm depth estimates",
+                  phase="vlm")
+        with open(path) as f:
+            depth = json.load(f)
+    TRAIN_LAYERS[VLM_ARCH] = depth["layers"]
+    depth_s = time.perf_counter() - t1
+    train_paths = vlm_train(seed, smi)
+    torch.cuda.empty_cache()
+    got = measure_step(lambda: measured_lm_step(seed, VLM_ARCH))
+    held = hold_estimate("vlm_train", depth["estimate"], got)
+    for name, rows in vlm_lif_cases(
+            torch.Generator(device=DEVICE).manual_seed(seed + 33)).items():
+        cases[name].extend(rows)
+    emit("vlm_train_estimate", arch=f"{VLM_ARCH}@cuda-full",
+         layers=depth["layers"], fit_bytes=VLM_FIT_BYTES,
+         estimated_peaks_by_layers=depth["peaks"], world1=held,
+         seconds={"depth_estimates": depth_s,
+                  "phase": time.perf_counter() - t0},
+         tolerance=f"the deepest depth whose estimate is within "
+                   f"{VLM_FIT_BYTES:.0f} B; the measured step's peak within "
+                   f"{DRYRUN_PEAK_BAND:.0%} of its estimate", card=smi)
+    return ({"vlm_forward": fwd_counts, "vlm_serve": serve_counts,
+             **train_paths, "vlm_dryrun_step": got["launches"]},
+            {"vlm_serve": serve_steps, "vlm_train": 1 + FAMILY_TRAIN_STEPS})
+
+
+#: The port's examples (``examples/torch/``) the ``examples`` phase runs, at
+#: their default arguments, with the number each is judged by.
+EXAMPLES = ("quickstart", "train_spikingformer", "serve_lm",
+            "explore_dataflows")
+EXAMPLES_TIMEOUT_S = 300
+
+
+def example_figures(name: str, out: str) -> dict:
+    """What an example's output says: its final loss (the last ``[snn]`` or
+    ``step`` line; ``serve_lm``'s trained loss) beside ln 4, ``serve_lm``'s
+    bigram consistency beside chance, ``explore_dataflows``' line count;
+    a loss that is missing or not finite fails the phase."""
+    row: dict = {}
+    if name == "explore_dataflows":
+        row["headlines"] = out.count("opt=")
+        if row["headlines"] != 14:
+            fail(f"examples: {name} printed {row['headlines']} of 14 "
+                 f"headlines")
+        return row
+    if name == "serve_lm":
+        m = re.search(r"trained: loss (\S+) -> (\S+)", out)
+        hits = re.search(r"bigram-consistency of generations: (\d+)/(\d+)",
+                         out)
+        row.update(first_loss=float(m.group(1)) if m else None,
+                   bigram_consistency=int(hits.group(1)) / int(hits.group(2))
+                   if hits else None, bigram_chance=4 / 64)
+        loss = float(m.group(2)) if m else math.nan
+    else:
+        pat = r"\[snn\] step \d+ loss (\S+)" if name == "quickstart" else \
+            r"^step\s+\d+ loss (\S+)"
+        found = re.findall(pat, out, re.M)
+        loss = float(found[-1]) if found else math.nan
+    row.update(final_loss=loss, chance_loss=math.log(4))
+    if not math.isfinite(loss):
+        fail(f"examples: {name} gave no finite final loss:\n{out[-2000:]}")
+    return row
+
+
+def examples_phase(smi: str) -> None:
+    """The port's four examples as child processes on the card
+    (``run_child``), each at its default arguments: a non-zero exit or a
+    non-finite loss fails the phase; how well an example learns is printed
+    (its final loss beside ln 4, ``serve_lm``'s bigram consistency beside
+    chance), not held."""
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent / "examples" / "torch"
+    rows = {}
+    for name in EXAMPLES:
+        t1 = time.perf_counter()
+        out = run_child([sys.executable, str(root / f"{name}.py")],
+                        f"examples/torch/{name}.py", phase="examples",
+                        timeout=EXAMPLES_TIMEOUT_S)
+        rows[name] = {**example_figures(name, out.stdout),
+                      "seconds": time.perf_counter() - t1}
+    emit("examples", examples=rows, seconds=time.perf_counter() - t0,
+         held="exit 0 and a finite final loss; the losses against ln 4 and "
+              "the bigram consistency against chance are printed, not held",
+         card=smi)
+
+
 def split_summary(name: str, rows: list[dict],
                   fused: list[dict]) -> list[dict]:
     """A BN kernel's split-path cases for the ``kernels`` line: each
@@ -5066,9 +5462,14 @@ def main() -> None:
                     help="print ptxas' registers / shared memory / spills")
     ap.add_argument("--dryrun-child", metavar="PATH", default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--vlm-depth-child", metavar="PATH", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.dryrun_child:
         dryrun_child(args.dryrun_child)            # the dryrun phase's child
+        return
+    if args.vlm_depth_child:
+        vlm_depth_child(args.vlm_depth_child)      # the vlm phase's child
         return
 
     info = setup_card()
@@ -5109,7 +5510,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     lm_counts.update(whisper_phase(args.seed, smi))
     torch.cuda.empty_cache()
-    for arch in list(TRAIN_PHASES)[1:]:
+    for arch in list(TRAIN_PHASES)[1:-1]:          # pixtral: the vlm phase
         lm_counts.update(lm_train_phase(args.seed, arch, smi))
         path_steps[TRAIN_PHASES[arch]] = 1 + FAMILY_TRAIN_STEPS
         torch.cuda.empty_cache()
@@ -5119,6 +5520,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     bf16_counts.update(lm_bf16_phase(args.seed, smi))
     torch.cuda.empty_cache()
+    vlm_counts, vlm_steps = vlm_phase(args.seed, smi, cases)
+    lm_launches({k: cases[k] for k in ("lif_soma_fwd", "lif_soma_bwd")},
+                vlm_counts, vlm_steps)
+    torch.cuda.empty_cache()
+    examples_phase(smi)
     chaos_phase(args.seed, smi)
     torch.cuda.empty_cache()
     mesh_counts, split_cases = mesh_train_phase(args.seed, BATCH, smi)
@@ -5131,7 +5537,7 @@ def main() -> None:
 
     print(json.dumps(summarise(cases, {"serve": counts, "train": train_counts,
                                        **lm_counts, **bf16_counts,
-                                       **mesh_counts,
+                                       **vlm_counts, **mesh_counts,
                                        "tune": tune_counts, **dryrun_counts},
                                      split_cases, oracle)),
           flush=True)

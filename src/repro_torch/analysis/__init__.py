@@ -1,5 +1,6 @@
 """Static analysis of the port (the counterpart of ``repro.analysis``):
-kernel contracts, plan audit, the port's lint and the signature guards.
+kernel contracts, plan audit, the port's lint, the signature guards and
+bench drift.
 CLI: ``python -m repro_torch.analysis``.
 
 Submodules are imported lazily: ``repro_torch.analysis.tracing`` is used on
@@ -10,7 +11,8 @@ from __future__ import annotations
 
 from typing import Any
 
-__all__ = ["Finding", "assert_signature_count", "lint_paths", "lint_source",
+__all__ = ["Finding", "assert_signature_count", "bench_drift", "lint_paths",
+           "lint_source",
            "run_audit", "run_contracts", "signature_count",
            "track_signatures"]
 
@@ -18,6 +20,7 @@ _LAZY = {
     "Finding": ("repro_torch.analysis.report", "Finding"),
     "assert_signature_count": ("repro_torch.analysis.tracing",
                                "assert_signature_count"),
+    "bench_drift": ("repro_torch.analysis.drift", "bench_drift"),
     "lint_paths": ("repro_torch.analysis.lint", "lint_paths"),
     "lint_source": ("repro_torch.analysis.lint", "lint_source"),
     "run_audit": ("repro_torch.analysis.audit", "run_audit"),

@@ -3,13 +3,17 @@
     python -m repro_torch.analysis --lint --audit --contracts   # everything
     python -m repro_torch.analysis --contracts --batch 16       # contracts
     python -m repro_torch.analysis --lint --paths src/repro_torch
+    python -m repro_torch.analysis --bench-drift BENCH.json --baseline BASE.json
     python -m repro_torch.analysis --rules                      # lint catalog
 
 On a machine without a CUDA device the launch family of ``--contracts`` and
 the shared-memory check of ``--audit`` do not run (each says so in an
 ``info`` row, shown with ``-v``); on the card they read every launch from
 the built library's plan exports, launching nothing. Exit status is 0 when
-no check reports an error; ``--strict`` promotes warnings to errors.
+no check reports an error; ``--strict`` promotes warnings to errors (bench
+drift among them). ``--bench-drift`` takes no default ``--baseline``: the
+reference's ``benchmarks/BENCH_seed.json`` measures the JAX package, and
+the port has no snapshot of its own until its benchmark exists.
 """
 from __future__ import annotations
 
@@ -34,12 +38,14 @@ def main(argv: list[str] | None = None) -> int:
                          "card, autograd cotangents, config hashing); "
                          "launches no kernel")
     ap.add_argument("--bench-drift", metavar="BENCH_JSON", default=None,
-                    help="not ported yet: the port has no bench report "
-                         "until its benches exist (ROADMAP A14)")
+                    help="diff a BENCH.json artifact against --baseline")
+    ap.add_argument("--baseline", default=None,
+                    help="snapshot for --bench-drift (required with it: the "
+                         "port has no committed snapshot)")
     ap.add_argument("--paths", nargs="*", default=None,
                     help="lint roots (default: the port's tree, "
                          "src/repro_torch chip_smoke.py benchmarks/torch "
-                         "tests/test_torch_*.py)")
+                         "examples/torch tests/test_torch_*.py)")
     ap.add_argument("--batch", type=int, default=1,
                     help="global batch of the contract geometries and the "
                          "audit's shared-memory reads (default: "
@@ -60,11 +66,12 @@ def main(argv: list[str] | None = None) -> int:
         for rule, desc in sorted(RULES.items()):
             print(f"{rule}  {desc}")
         return 0
-    if args.bench_drift:
-        ap.error("--bench-drift is not ported yet: the port has no bench "
-                 "report to compare until its benches exist (ROADMAP A14)")
-    if not (args.lint or args.audit or args.contracts):
-        ap.error("nothing to do: pass --lint, --audit and/or --contracts")
+    if not (args.lint or args.audit or args.contracts or args.bench_drift):
+        ap.error("nothing to do: pass --lint, --audit, --contracts and/or "
+                 "--bench-drift")
+    if args.bench_drift and args.baseline is None:
+        ap.error("--bench-drift needs --baseline: the port has no "
+                 "committed snapshot to compare against")
 
     findings = []
     if args.lint:
@@ -79,6 +86,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.contracts:
         from repro_torch.analysis.contracts import run_contracts
         findings += run_contracts(batch=args.batch)
+    if args.bench_drift:
+        from repro_torch.analysis.drift import bench_drift
+        findings += bench_drift(args.bench_drift, args.baseline)
 
     from repro_torch.analysis.report import (exit_code, promote_warnings,
                                              render, write_json)

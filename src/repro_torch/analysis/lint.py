@@ -23,8 +23,8 @@ places:
 
 * **E2A101**: an import of ``jax`` or of the reference package ``repro``
   (not ``repro_torch``) in the port's code: ``src/repro_torch/``,
-  ``chip_smoke.py``, ``benchmarks/torch/``. The card's machine has no JAX;
-  only the CPU tests (``tests/``) import both.
+  ``chip_smoke.py``, ``benchmarks/torch/``, ``examples/torch/``. The
+  card's machine has no JAX; only the CPU tests (``tests/``) import both.
 * **E2A102**: a call of a library entry point, ``build.load().e2a_*``,
   that has no argument types in ``build.SIGNATURES``: ctypes would pass
   every pointer and the stream as a 32-bit int.
@@ -64,7 +64,7 @@ RULES: dict[str, str] = {
               "except Exception/BaseException with a no-op body",
     "E2A101": "import of jax or of the reference package repro in the "
               "port's code (src/repro_torch, chip_smoke.py, "
-              "benchmarks/torch)",
+              "benchmarks/torch, examples/torch)",
     "E2A102": "build.load().e2a_* call of an entry point with no "
               "argument types in build.SIGNATURES",
     "E2A103": "build.load()/build.build() reached at module level (a "
@@ -429,7 +429,7 @@ _EXCLUDED_PARTS = {"data", "__pycache__", ".git"}
 #: The port's lint surface (the CLI's default ``--paths``), relative to the
 #: repository root; ``tests/test_torch_*.py`` are globbed.
 DEFAULT_PATHS = ("src/repro_torch", "chip_smoke.py", "benchmarks/torch",
-                 "tests/test_torch_*.py")
+                 "examples/torch", "tests/test_torch_*.py")
 
 
 def iter_py_files(paths: Iterable[str | Path]) -> Iterator[Path]:

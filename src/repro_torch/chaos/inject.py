@@ -180,7 +180,9 @@ class ChaosInjector:
         ``random.Random(f"{schedule.seed}:{step}")``: the reference seeds
         with the tuple ``(seed, step)``, which Python 3.11 and later refuse
         (``TypeError``; ROADMAP C8), so the victim differs from the one the
-        reference would pick on an older Python, and is as deterministic."""
+        reference would pick on an older Python, and is as deterministic.
+        Every rank of a mesh would draw the same byte, so under a mesh
+        ``train.checkpoint`` runs the read hook on rank 0 alone."""
         for idx, spec in enumerate(self.schedule.faults):
             if (spec.scope != "chaos.ckpt" or spec.step != step
                     or spec.mode != mode):

@@ -301,6 +301,39 @@ def spikingformer_param_specs(cfg: SpikingFormerConfig):
             {"tokenizer": tok_s, "blocks": blocks_s})
 
 
+def lif_residual_accounting(cfg: SpikingFormerConfig, batch: int
+                            ) -> dict[str, int]:
+    """Analytic stored-residual accounting for the LIF sites of one BPTT
+    step (fp32 bytes; the time-chunk memory math of docs/torch/SHARDING.md),
+    the reference's function.
+
+    ``single_shot``: the SOMA path persists (U, S, mask) for all T steps of
+    every LIF site between FP and BP — 3·T·rows elements. ``tiled`` (with
+    ``time_chunk`` set): the recomputed chunk scan stores only the (U, S)
+    carries at the T/time_chunk chunk boundaries plus one transient chunk
+    of (U, S, mask) recomputed during BP — 2·(T/tc)·rows + 3·tc·rows.
+    ``rows`` is the per-time-step element count summed over all LIF sites.
+    """
+    t = cfg.time_steps
+    rows = 0
+    h = w = cfg.image_size
+    for _, c_out in cfg.tokenizer_stage_channels():
+        h, w = h // 2, w // 2
+        rows += batch * h * w * c_out
+    # per layer: PSSA scans x, q, k, v, out (5 d-wide) + SMLP scans x
+    # (d-wide) and the hidden (d_ff-wide)
+    rows += cfg.num_layers * batch * cfg.num_tokens * \
+        (6 * cfg.d_model + cfg.d_ff)
+    single = 3 * t * rows * 4
+    tc = cfg.time_chunk or t
+    if not (0 < tc < t) or t % tc != 0:
+        tiled = single                     # degenerate: single-shot scan
+    else:
+        tiled = (2 * (t // tc) + 3 * tc) * rows * 4
+    return {"elems_per_step": rows, "single_shot_bytes": single,
+            "tiled_bytes": tiled}
+
+
 def spikingformer_scan_dims(specs):
     """Per-leaf count of leading scan dims ``apply_fsdp`` must not shard: 1
     for the stacked block leaves, 0 elsewhere."""

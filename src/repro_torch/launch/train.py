@@ -20,7 +20,11 @@ path the parameters, BN state and optimizer state. A fault schedule
 (``--chaos-schedule``, a JSON file or inline JSON, or ``$CHAOS_SCHEDULE``;
 ``repro_torch.chaos``) is activated as the reference's driver activates
 it: the ``chaos.step`` hook runs at the top of each step, the
-``chaos.grad`` hook on each step's host batch. The audio family
+``chaos.grad`` hook on each step's host batch; under ``torchrun`` every
+rank holds the schedule, and a checkpoint read fault damages the shared
+step once (``train.checkpoint``). ``--ckpt-every`` (the port's own flag,
+default 100 as in the reference's ``train``) sets the checkpoint cadence.
+The audio family
 (``whisper-large-v3``) trains on zero frame embeddings, the VLM stub on
 zero patches, as in the reference.
 
@@ -414,6 +418,8 @@ def main(argv=None) -> None:
                     help="LM sequence length (default 128)")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=100,
+                    help="steps between checkpoints (default %(default)s)")
     ap.add_argument("--data-vocab", type=int, default=None)
     ap.add_argument("--policy", default=None,
                     help="execution policy preset for spikingformer archs")
@@ -451,6 +457,7 @@ def main(argv=None) -> None:
         _, history = train(cfg, steps=args.steps, global_batch=args.batch,
                            seq_len=args.seq if args.seq is not None else 128,
                            ckpt_dir=args.ckpt_dir, mesh=mesh,
+                           ckpt_every=args.ckpt_every,
                            microbatches=args.microbatches,
                            data_vocab=args.data_vocab, device=args.device)
     finally:

@@ -45,6 +45,11 @@ The reference's fault-injection hooks (``chaos.inject.ckpt_fault``) sit
 where it puts them: right after a step's atomic publish, in the writing
 process alone, and at the top of :func:`verify_checkpoint` and
 :func:`restore_checkpoint`; each is a no-op without an active schedule.
+Under a mesh every rank reads the one shared step, and every rank holds the
+same schedule: the read hook runs on rank 0 alone, so a fault damages the
+file once, and the ranks meet at a barrier before any opens a leaf
+(:func:`restore_checkpoint`). :func:`restore_latest_good` then settles each step
+for all ranks at once, so no rank resumes a step another refused.
 """
 from __future__ import annotations
 
@@ -346,10 +351,18 @@ def restore_checkpoint(directory: str, step: int, like: Any, mesh=None,
     dropped; a leaf without one whole). ``moe_experts`` (an MoE LM's
     expert count): the expert leaves written at another model-axis size
     are relaid to ``mesh``'s (1 without a mesh) first (the module
-    docstring says where that inherits ROADMAP C5)."""
+    docstring says where that inherits ROADMAP C5). With ``mesh`` the ranks
+    share the file and hold the same fault schedule: rank 0 alone runs the
+    read hook, so a fault damages the file once (two ranks flipping one
+    byte would undo each other, two truncating would halve it twice), and
+    every rank waits at a barrier until the damage is done."""
     new_m = mesh.shape.get("model", 1) if mesh is not None else 1
     path = os.path.join(directory, f"step_{step:08d}")
-    _chaos.ckpt_fault(path, step, "read")
+    if mesh is None or mesh.rank == 0:
+        _chaos.ckpt_fault(path, step, "read")
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.barrier()
     with open(os.path.join(path, "index.json")) as f:
         index = json.load(f)
     spec_map = _spec_map(specs) if specs is not None else \
@@ -390,21 +403,37 @@ def restore_latest_good(directory: str, like: Any, mesh=None,
     directories of crashed writers (safe here: a restore implies no save is
     in flight). Returns ``(step, tree)``, or ``(None, None)`` when no
     restorable checkpoint exists. ``mesh``, ``specs`` and ``moe_experts``
-    as in :func:`restore_checkpoint`.
+    as in :func:`restore_checkpoint`; with ``mesh`` every rank calls it,
+    and after each step the ranks agree on its outcome (one MAX all-reduce
+    of a "this step failed" flag): a step any rank failed to restore is
+    refused by all of them.
     """
     if os.path.isdir(directory):
         for d in os.listdir(directory):
             if d.startswith("step_") and d.endswith(".tmp"):
                 shutil.rmtree(os.path.join(directory, d), ignore_errors=True)
     for step in reversed(retained_steps(directory)):
+        tree, error = None, None
         try:
-            return step, restore_checkpoint(directory, step, like, mesh,
-                                            specs, moe_experts)
+            tree = restore_checkpoint(directory, step, like, mesh, specs,
+                                      moe_experts)
         except (CheckpointCorruptError, OSError, ValueError, KeyError) as e:
-            warnings.warn(
-                f"checkpoint step {step} in {directory} failed to restore "
-                f"({e}); falling back to the previous retained step",
-                RuntimeWarning, stacklevel=2)
+            error = e
+        if mesh is not None:
+            # a step any rank failed is refused by all: MAX of the flag
+            import torch.distributed as dist
+            failed = torch.tensor([float(error is not None)],
+                                  device=mesh.device)
+            dist.all_reduce(failed, op=dist.ReduceOp.MAX)
+            if failed.item() and error is None:
+                error = CheckpointCorruptError(
+                    step, "another rank failed to restore it")
+        if error is None:
+            return step, tree
+        warnings.warn(
+            f"checkpoint step {step} in {directory} failed to restore "
+            f"({error}); falling back to the previous retained step",
+            RuntimeWarning, stacklevel=2)
     return None, None
 
 

@@ -189,6 +189,74 @@ def job_ckpt_restore(mesh, inp, out):
     return result
 
 
+#: The retained steps of the read-fault jobs; the fault hits the newest.
+READ_FAULT_STEPS = (2, 4, 6)
+
+
+def _step_tree(mesh, step: int):
+    """This rank's shards of a small tree whose every value names ``step``
+    (two leaves split over "data", two replicated), and its specs."""
+    from repro_torch.launch.mesh import P
+    full = {"a": torch.arange(64 * 8, dtype=torch.float32).reshape(64, 8),
+            "b": torch.arange(16, dtype=torch.float32),
+            "blocks": {"w": torch.linspace(-1, 1, 32 * 6).reshape(32, 6),
+                       "scale": torch.ones(6)}}
+    specs = {"a": P("data", None), "b": None,
+             "blocks": {"w": P("data", None), "scale": None}}
+    full = mesh_mod.map_specs(lambda s, x: x + 1000.0 * step, specs, full)
+    return _shard(full, specs, mesh), specs
+
+
+def job_ckpt_read_fault(mesh, inp, out, action: str):
+    """Every rank saves ``READ_FAULT_STEPS`` on the mesh, then restores the
+    newest good step under a schedule holding one ``chaos.ckpt`` read fault
+    of ``action`` at the newest step, as every rank of a launched run
+    holds it. Rank 0 keeps a pristine copy of the victim step first. The
+    result: each rank's resumed step, whether its leaves are bit-equal to
+    the shards it saved at that step, its fault events, and the victim
+    file against its pristine copy (bytes differing, sizes)."""
+    import shutil
+    import warnings
+    from repro_torch.chaos import inject
+    from repro_torch.chaos.schedule import FaultSchedule, FaultSpec
+    d = os.path.join(out, f"read_fault_{action}")
+    newest = READ_FAULT_STEPS[-1]
+    for step in READ_FAULT_STEPS:
+        tree, specs = _step_tree(mesh, step)
+        ckpt.save_checkpoint(d, step, tree, specs, mesh=mesh)
+    victim_dir = os.path.join(d, f"step_{newest:08d}")
+    pristine = d + "_pristine"
+    if mesh.rank == 0:
+        shutil.copytree(victim_dir, pristine)
+    dist.barrier()
+    like, specs = _step_tree(mesh, 0)
+    schedule = FaultSchedule(seed=3, faults=(
+        FaultSpec("chaos.ckpt", newest, action, mode="read"),))
+    with inject.chaos(schedule) as injector, warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        step, got = ckpt.restore_latest_good(d, like, mesh, specs)
+    saved = _step_tree(mesh, step)[0] if step is not None else None
+    equal = saved is not None and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                          tree_leaves(saved)))
+    mine = {"step": step, "equal": equal, "events": list(injector.events)}
+    ranks = [None] * mesh.size
+    dist.all_gather_object(ranks, mine)
+    result = {"ranks": ranks}
+    if mesh.rank == 0:
+        files = [e.split("file=")[1] for r in ranks for e in r["events"]]
+        result["victims"] = files
+        if files:
+            with open(os.path.join(victim_dir, files[0]), "rb") as f:
+                now = f.read()
+            with open(os.path.join(pristine, files[0]), "rb") as f:
+                before = f.read()
+            result.update(
+                size=len(now), pristine_size=len(before),
+                bytes_differing=sum(a != b for a, b in zip(now, before)))
+    return result
+
+
 JOBS = {
     "lm_grads": lambda mesh, inp, out: job_lm_grads(mesh, inp),
     "vision_eager": lambda mesh, inp, out: job_vision_grads(mesh, inp,
@@ -200,6 +268,10 @@ JOBS = {
     "adamw_steps": lambda mesh, inp, out: job_adamw_steps(mesh, inp),
     "ckpt_write": job_ckpt_write,
     "ckpt_restore": job_ckpt_restore,
+    "ckpt_read_corrupt": lambda mesh, inp, out: job_ckpt_read_fault(
+        mesh, inp, out, "corrupt"),
+    "ckpt_read_truncate": lambda mesh, inp, out: job_ckpt_read_fault(
+        mesh, inp, out, "truncate"),
 }
 
 

@@ -1455,3 +1455,123 @@ def test_reduced_spiking_lm_at_bf16_cuda_full_against_eager():
     assert np.isfinite(float(metrics["grad_norm"]))
     assert not any(torch.equal(a, b) for a, b in
                    zip(tree_leaves(new), tree_leaves(params)))
+
+
+# ---------------------------------------------------------------------------
+# The last modules: the vlm family, the examples, the read fault on a mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduced_pixtral_with_patches_cuda_full_against_eager(dtype):
+    """Reduced ``pixtral-12b`` + LIF on a batch whose ``patch_mask`` is
+    partly true: the merge changes the forward, the forward and the loss
+    are bit-equal under ``cuda-full`` and ``eager``, every gradient leaf
+    within 1e-5 (fp32) or 2e-2 (bf16) of its scale, and 4 requests served
+    with a cache of the model's dtype give the same tokens; one launch of
+    ``lif_soma_fwd`` a layer in the forward."""
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.core.lif import LIFConfig
+    from repro_torch.core.policy import named_policy
+    from repro_torch.core.spikingformer import tree_leaves, value_and_grad
+    from repro_torch.launch.train import build_state
+    from repro_torch.models.lm import lm_forward, lm_loss
+    from repro_torch.serving import Request, ServingEngine
+    dev = _card()
+    base = reduced(get_config("pixtral-12b")).replace(remat=True, dtype=dtype)
+    params = build_state(base, seed=1, device=dev)[0]
+    rng = np.random.default_rng(9)
+    toks = rng.integers(0, base.vocab_size, (4, 33))
+    batch = {"tokens": _t(toks[:, :-1]).to(dev),
+             "labels": _t(toks[:, 1:]).to(dev),
+             "patch_embeds": _t(rng.normal(0, 1, (4, 32, base.d_model))
+                                .astype(np.float32)).to(dev).to(dtype),
+             "patch_mask": _t(rng.random((4, 32)) < 0.25).to(dev)}
+    out, tokens = {}, {}
+    for name in ("cuda-full", "eager"):
+        cfg = base.replace(lif=LIFConfig(policy=named_policy(name)))
+        reset_launch_counts()
+        with torch.no_grad():
+            h = lm_forward(params, batch, cfg)[0]
+        torch.cuda.synchronize()
+        n = launch_counts()["lif_soma_fwd"]
+        out[name] = (h, n) + value_and_grad(lm_loss, params, batch, cfg)
+        engine = ServingEngine(params, cfg, slots=2, max_seq=32,
+                               cache_dtype=dtype, device=dev)
+        for uid in range(4):
+            assert engine.submit(Request(uid=uid, prompt=toks[uid, :5]
+                                         .tolist(), max_new_tokens=6))
+        tokens[name] = {r.uid: r.output for r in engine.run_to_completion()}
+    (h_c, n_c, (loss_c, _), g_c), (h_e, n_e, (loss_e, _), g_e) = \
+        out["cuda-full"], out["eager"]
+    with torch.no_grad():
+        plain = lm_forward(params, {"tokens": batch["tokens"]}, base)[0]
+    assert not torch.equal(plain, h_e)
+    assert torch.equal(h_c, h_e) and torch.equal(loss_c, loss_e)
+    assert (n_c, n_e) == (base.num_layers, 0)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, b in zip(tree_leaves(g_c), tree_leaves(g_e)):
+        scale = float(b.float().abs().max().clamp_min(1.0))
+        assert float((a.float() - b.float()).abs().max()) <= tol * scale
+    assert tokens["cuda-full"] == tokens["eager"] and \
+        len(tokens["eager"]) == 4
+
+
+@pytest.mark.cuda
+def test_the_examples_run_on_the_card(capsys):
+    """``examples/torch``' three model examples on the card at a few steps,
+    under their default policy (``cuda-full``): the kernels launch, every
+    loss finite."""
+    import importlib.util
+    import math
+    import re
+    from pathlib import Path
+    _card()
+    root = Path(__file__).resolve().parents[1] / "examples" / "torch"
+    runs = {"quickstart": [], "train_spikingformer": ["--steps", "3",
+                                                      "--batch", "4"],
+            "serve_lm": ["--train-steps", "3", "--requests", "2"]}
+    for name, argv in runs.items():
+        spec = importlib.util.spec_from_file_location(f"ex_{name}",
+                                                      root / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        reset_launch_counts()
+        mod.main(argv)
+        torch.cuda.synchronize()
+        out = capsys.readouterr().out
+        losses = [float(v) for v in re.findall(r"loss (-?[\d.]+|nan|inf)",
+                                               out)]
+        assert losses and all(map(math.isfinite, losses)), out
+        if name != "serve_lm":              # the Spikingformer's kernels
+            assert launch_counts()["lif_soma_bwd"] > 0, name
+
+
+@pytest.mark.cuda
+def test_a_read_fault_on_a_world_of_one_falls_back_once(world_of_one,
+                                                        tmp_path):
+    """A ``chaos.ckpt`` corrupt read fault at the newest of two steps saved
+    on a (1, 1) mesh of the card: the flag's all-reduce on the card (NCCL)
+    refuses it, the previous step comes back bit-equal, one event."""
+    import warnings
+    from repro_torch.chaos import inject
+    from repro_torch.chaos.schedule import FaultSchedule, FaultSpec
+    from repro_torch.train import checkpoint as ckpt
+    dev = world_of_one.device
+
+    def tree(step):
+        return {"w": torch.arange(48, dtype=torch.float32,
+                                  device=dev).reshape(6, 8) + step,
+                "b": torch.full((8,), float(step), device=dev)}
+    specs = {"w": None, "b": None}
+    for step in (2, 4):
+        ckpt.save_checkpoint(str(tmp_path), step, tree(step), specs,
+                             mesh=world_of_one)
+    sched = FaultSchedule(seed=3, faults=(
+        FaultSpec("chaos.ckpt", 4, "corrupt", mode="read"),))
+    with inject.chaos(sched) as injector, warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        step, got = ckpt.restore_latest_good(str(tmp_path), tree(0),
+                                             world_of_one, specs)
+    assert step == 2 and len(injector.events) == 1
+    assert all(torch.equal(got[k], v) for k, v in tree(2).items())

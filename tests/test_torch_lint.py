@@ -103,7 +103,7 @@ def test_cli_exit_codes_and_rules_flag():
     for rule in RULES:
         assert rule in rules.stdout
     drift = _run_cli("--bench-drift", "BENCH.json")
-    assert drift.returncode == 2 and "A14" in drift.stderr
+    assert drift.returncode == 2 and "--baseline" in drift.stderr
 
 
 def test_syntax_error_is_reported_not_raised(tmp_path):
