@@ -2599,6 +2599,10 @@ def lm_train_phase(seed: int, arch: str = LM_ARCH,
 # ---------------------------------------------------------------------------
 
 BF16 = torch.bfloat16
+#: The bf16 wgmma kernel's entry in the ``kernels`` line (its launches:
+#: the bf16 paths' spike matmuls that ran plan kernel 3, ``KernelTally``).
+WGMMA_ENTRY = "spike_wgmma"
+WGMMA_SOURCE = "src/repro_torch/kernels/csrc/spike_wgmma.cuh"
 #: The LM's step-0 gradient leaves at bf16 that are not bit-equal between
 #: the policies: the kernel's eq. 12 rounds each operation in the order of
 #: the recursion, autograd through the eager scan in its own order; held
@@ -2712,13 +2716,66 @@ def bf16_lif_cases(gen, batch: int, shapes=None) -> dict[str, list[dict]]:
     return {"lif_soma_fwd": fwd, "lif_soma_bwd": bwd}
 
 
+def host_us(call, reps: int = 21) -> float:
+    """Host microseconds of one ``call()``, the median of ``reps``: the
+    stream held by a sleeping kernel, so that the clock sees the enqueue
+    alone (a wrapper's checks, its rule, the plan, the tensor maps and the
+    launch)."""
+    call()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        call()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return sorted(times)[reps // 2] * 1e6
+
+
+def plan_kernels(fn, *args, **kw) -> list[int]:
+    """The plan kernel codes of ``fn(*args, **kw)`` (one per launch), read
+    from the library's plan exports: nothing launched, no count moved."""
+    with build.plan_launches() as calls:
+        fn(*args, **kw)
+    return [launch.kernel for call in calls for launch in call.launches]
+
+
+class KernelTally:
+    """Inside the block, the kernel each spike-matmul launch runs, counted
+    by plan kernel code: ``spike_matmul.resolve_tile``, which the wrappers'
+    launch routine calls once a launch (1 Large, 2 Small, 3 the bf16 wgmma
+    kernel). ``counts`` maps a code to its launches."""
+
+    def __init__(self):
+        self.counts: dict[int, int] = {}
+
+    def __enter__(self):
+        real = self._real = spike_matmul.resolve_tile
+
+        def spy(*args, **kw):
+            code = real(*args, **kw)
+            self.counts[code] = self.counts.get(code, 0) + 1
+            return code
+        spike_matmul.resolve_tile = spy
+        return self
+
+    def __exit__(self, *exc):
+        spike_matmul.resolve_tile = self._real
+        return False
+
+
 def bf16_matmul_row(case, packed, w, fn, shared_w: bool = False) -> dict:
     """The spike matmul at bf16 on ``exact16`` weights: every fp32 sum is
     exact, so the kernel's one rounding to bf16 gives the oracle's bits
     (``kernels/ref.py``: unpacked spikes times the weight in fp32, rounded
     to the weight's dtype). The same operands with Gaussian weights: within
     one bf16 rounding of the oracle (the fp32 sums in another order may
-    round across a bf16 boundary), measured as ``bitwise_gaussian``."""
+    round across a bf16 boundary), measured as ``bitwise_gaussian``.
+    ``kernel``: the plan kernel the wrapper's rule launched (3: the wgmma
+    kernel, ``csrc/spike_wgmma.cuh``); where it is 3, the one-plane
+    mainloop forced (tile 1) is checked and timed on the same operands
+    beside it (``tile1_*``)."""
     dense = spike_matmul.spike_unpack(packed, torch.float32)
     got = fn(packed, w)
     want = torch.matmul(dense, w.float()).to(BF16)
@@ -2729,7 +2786,8 @@ def bf16_matmul_row(case, packed, w, fn, shared_w: bool = False) -> dict:
     wg = (torch.randn(w.shape, generator=torch.Generator(
         device=DEVICE).manual_seed(3), device=DEVICE)
         * w.shape[-2] ** -0.5).to(BF16)
-    wg = wg.as_strided(w.shape, w.stride()) if shared_w else wg
+    wg = wg.as_strided(w.shape, w.stride()) if shared_w or \
+        not w.is_contiguous() else wg
     got_g = fn(packed, wg)
     want_g = torch.matmul(dense, wg.float()).to(BF16)
     err = (got_g.float() - want_g.float()).abs()
@@ -2737,25 +2795,51 @@ def bf16_matmul_row(case, packed, w, fn, shared_w: bool = False) -> dict:
                  * want_g.float().abs()).all()):
         fail(f"bf16 spike matmul {case}: Gaussian weights beyond one bf16 "
              f"rounding of the oracle ({float(err.max())})")
+    kernels = plan_kernels(fn, packed, w)
+    wgmma = getattr(spike_matmul, "WGMMA", 3)   # 3 in a checkout without it
     c, k = w.shape[-2:]
     w_bytes = nbytes(w) // (w.shape[0] if shared_w else 1)
     moved = nbytes(packed, got) + w_bytes
     dense16 = dense.to(BF16)
+    lib = cold_warm(torch.matmul, (dense16, w), moved)
+    extra = {"library_device_ms": lib["device_ms"],
+             "library_device_ms_l2_warm": lib["device_ms_l2_warm"],
+             "host_us": host_us(lambda: fn(packed, w))}
+    if kernels == [wgmma]:
+        old = functools.partial(fn, tile=1)
+        if not torch.equal(old(packed, w), want):
+            fail(f"bf16 spike matmul {case}: tile 1 differs from the oracle "
+                 f"on exact weights")
+        times = cold_warm(old, (packed, w), moved)
+        extra.update({
+            "tile1_ms": time_ms(lambda: old(packed, w)),
+            "tile1_device_ms": times["device_ms"],
+            "tile1_device_ms_l2_warm": times["device_ms_l2_warm"],
+            "tile1_host_us": host_us(lambda: old(packed, w)),
+            "tile1_bitwise_gaussian": torch.equal(old(packed, wg), want_g)})
     return bf16_row(
-        case, {"packed": list(packed.shape), "w": list(w.shape)}, fn,
+        case, {"packed": list(packed.shape), "w": list(w.shape),
+               "w_stride": list(w.stride())}, fn,
         (packed, w), moved, 2.0 * got.numel() * c, tc=True,
         plain=spike_matmul.spike_matmul_packed_plain,
         library=lambda: torch.matmul(dense16, w),
+        kernel=kernels[0], **extra,
         bitwise_oracle=True, bitwise_gaussian=torch.equal(got_g, want_g),
         max_abs_err=float(err.max()),
         tolerance="bitwise on exact weights (k/64, |k| <= 4); Gaussian "
                   "weights within one bf16 rounding (2^-7 relative)")
 
 
-def bf16_matmul_cases(gen, batch: int) -> dict[str, list[dict]]:
+def bf16_matmul_cases(gen, batch: int,
+                      require_wgmma: bool = True) -> dict[str, list[dict]]:
     """The spike matmul's main-path sites at bf16: pssa.proj and smlp.b,
     attn_qk on per-head views with K^T strided, and the tokenizer's shared
-    weight (zero batch stride)."""
+    weight (zero batch stride); then a ragged product (M, K and C no
+    multiple of a tile: 12,581 x 520 x 520) and a K^T view at M > 512, both
+    on the wgmma kernel. Every row names the plan kernel it ran; with
+    ``require_wgmma`` each must be the rule's (3 for all but attn_qk's
+    per-head Small). ``benchmarks/torch/bench_spike_matmul.py --bf16``
+    runs the cases without it for a checkout that has no wgmma kernel."""
     cfg = get_spikingformer_config(PRESET)
     t, d, f, h = cfg.time_steps, cfg.d_model, cfg.d_ff, cfg.n_heads
     n, dh = cfg.num_tokens, cfg.d_model // cfg.n_heads
@@ -2779,6 +2863,21 @@ def bf16_matmul_cases(gen, batch: int) -> dict[str, list[dict]]:
         "tokenizer.conv.3(shared w)",
         spike_matmul.spike_pack(spikes(gen, (t, m, c3))), w3, bmm,
         shared_w=True))
+    mr = t * m + 37
+    rows_2d.append(bf16_matmul_row(
+        "ragged M/K/C (12581 x 520 x 520)",
+        spike_matmul.spike_pack(spikes(gen, (mr, 520))),
+        exact16(gen, (520, 520)), mm))
+    rows_2d.append(bf16_matmul_row(
+        "K^T view (M = T*B*N)", spike_matmul.spike_pack(spikes(gen,
+                                                               (t * m, d))),
+        exact16(gen, (d, d)).t(), mm))
+    want = {"attn_qk": 2}
+    for row in rows_2d + rows_b if require_wgmma else ():
+        if row["kernel"] != want.get(row["case"], spike_matmul.WGMMA):
+            fail(f"bf16 spike matmul {row['case']}: the rule launched plan "
+                 f"kernel {row['kernel']}, not "
+                 f"{want.get(row['case'], spike_matmul.WGMMA)}")
     return {"spike_matmul_packed": rows_2d,
             "spike_matmul_packed_batched": rows_b}
 
@@ -3114,11 +3213,12 @@ def bf16_vision_phase(seed: int, batch: int, smi: str) -> dict[str, dict]:
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()                    # the bf16 serving path
     logits, ms = [], []
-    for img in images:
-        t0 = time.perf_counter()
-        logits.append(full(img))
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
+    with KernelTally() as tally_serve:
+        for img in images:
+            t0 = time.perf_counter()
+            logits.append(full(img))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
     serve_counts = launch_counts()
     peak_serve = torch.cuda.max_memory_allocated()
     lf = torch.cat(logits).float()
@@ -3160,12 +3260,13 @@ def bf16_vision_phase(seed: int, batch: int, smi: str) -> dict[str, dict]:
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()                    # the bf16 training path
     p, st, rows, times = p0, s0, [float(metrics["loss"])], []
-    for b in batches[1:]:
-        t0 = time.perf_counter()
-        p, st, opt, m = step(p, st, opt, b["images"], b["labels"])
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        rows.append(float(m["loss"]))
+    with KernelTally() as tally_train:
+        for b in batches[1:]:
+            t0 = time.perf_counter()
+            p, st, opt, m = step(p, st, opt, b["images"], b["labels"])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            rows.append(float(m["loss"]))
     train_counts = launch_counts()
     peak_train = torch.cuda.max_memory_allocated()
     moved = not all(torch.equal(a, b) for a, b in zip(tree_leaves(p),
@@ -3182,11 +3283,13 @@ def bf16_vision_phase(seed: int, batch: int, smi: str) -> dict[str, dict]:
                 "max_abs_logit_diff_vs_eager_bf16": float(
                     (lf - le).abs().max()),
                 "launches": serve_counts, "launches_per_forward":
-                    per_forward, "site_walk": walk_serve.rows},
+                    per_forward, "launches_by_plan_kernel":
+                    tally_serve.counts, "site_walk": walk_serve.rows},
          train={"losses": rows, "ms_per_step": times,
                 "peak_memory_bytes": peak_train, "params_moved": moved,
                 "grad_dtypes": grad_dtypes, "grad_step_launches": grad_counts,
                 "launches": train_counts, "launches_per_step": per_step,
+                "launches_by_plan_kernel": tally_train.counts,
                 "site_walk": walk_train.rows},
          note="the eager comparison is measured, not held: eager BN rounds "
               "each bf16 operation where the kernels keep fp32")
@@ -3200,7 +3303,20 @@ def bf16_vision_phase(seed: int, batch: int, smi: str) -> dict[str, dict]:
         fail(f"bf16 vision: logits finite {bool(torch.isfinite(lf).all())}, "
              f"gradients finite {grad_finite}, losses {rows}, moved {moved}, "
              f"site walk failures {problems[:5]}")
-    return {"bf16_serve": serve_counts, "bf16_train": train_counts}
+    # every 2-D spike matmul of the bf16 paths (pssa.proj, smlp.b: M =
+    # T*B*N) on the wgmma kernel, the per-head attn_qk on the Small tile
+    for name, counts, tally in (("serve", serve_counts, tally_serve),
+                                ("train", train_counts, tally_train)):
+        want = {code: n for code, n in (
+            (spike_matmul.WGMMA, counts["spike_matmul_packed"]),
+            (2, counts["spike_matmul_packed_batched"])) if n}
+        if tally.counts != want:
+            fail(f"bf16 vision {name}: spike matmul launches by plan kernel "
+                 f"{tally.counts}, not {want}")
+    return {"bf16_serve": {**serve_counts, WGMMA_ENTRY:
+                           tally_serve.counts[spike_matmul.WGMMA]},
+            "bf16_train": {**train_counts, WGMMA_ENTRY:
+                           tally_train.counts[spike_matmul.WGMMA]}}
 
 
 def bf16_serve(params, arch: str, seed: int, slots: int = LM_SLOTS
@@ -4835,13 +4951,67 @@ def analysis_phase(seed: int) -> dict[str, dict]:
                 into["spikes"] = {k: (into["spikes"] or {}).get(k, 0) + v
                                   for k, v in r["spikes"].items()}
     by_family = Counter(f"{f.check}:{f.level}" for f in findings)
+    wgmma = wgmma_launch_family(gen)
+    oracle[WGMMA_ENTRY] = {"max_abs_err": wgmma["max_abs_err"],
+                           "spikes": None}
     emit("analysis", findings=dict(sorted(by_family.items())),
          launch_cases=next(f.message for f in findings
                            if f.check == "audit.kernel.launch"
                            and f.where == "matrix"),
-         oracle_cases=len(rows), oracle=per_contract,
+         oracle_cases=len(rows), oracle=per_contract, wgmma=wgmma,
          static_seconds=static_s, seconds=time.perf_counter() - t0)
     return oracle
+
+
+def wgmma_launch_family(gen) -> dict:
+    """The bf16 wgmma kernel in the analysis phase: every spike-matmul
+    contract case of the matrix at batch ``BATCH``, in bf16 (the matrix's
+    cases are fp32), its launches read from the plan exports and held to the
+    card's limits (``check_launch_contract``); each case that the rule
+    sends to the wgmma kernel (plan kernel 3) is then launched and held
+    against ``kernels/ref.py`` (exact operands: the oracle's bits). Fails
+    on a finding, a case out of tolerance, or no case on the kernel. The
+    launches do not count: the counts are left as they were."""
+    from collections import Counter
+
+    from repro_torch.analysis.contracts import (check_launch_contract,
+                                                hold_against_oracle,
+                                                kernel_cases, read_launches)
+    from repro_torch.kernels.contract import SkipCase
+
+    counts = launch_counts()
+    seen, findings, codes, held = set(), [], Counter(), []
+    for where, decl, case in kernel_cases(batch=BATCH):
+        if not decl.kernel.startswith("spike_matmul"):
+            continue
+        case16 = dataclasses.replace(case, dtype="bfloat16")
+        if (decl.name, case16) in seen:
+            continue
+        seen.add((decl.name, case16))
+        try:
+            args, fn_kwargs, _ = decl.build(case16)
+        except SkipCase:
+            continue
+        calls = read_launches(decl, args, fn_kwargs)
+        findings += check_launch_contract(calls, f"{where}[bf16]")
+        kinds = [launch.kernel for call in calls for launch in call.launches]
+        codes.update(kinds)
+        if spike_matmul.WGMMA in kinds:
+            held.append({"where": where,
+                         **hold_against_oracle(decl, case16, gen)})
+    torch.cuda.synchronize()
+    set_launch_counts(counts)
+    errors = [f.format() for f in findings if f.level == "error"]
+    bad = [r for r in held if not r["ok"]]
+    if errors or bad or not held:
+        fail(f"analysis, wgmma: {len(errors)} launch finding(s) {errors[:3]}, "
+             f"{len(bad)} case(s) beyond the oracle's tolerance {bad[:2]}, "
+             f"{len(held)} case(s) on plan kernel {spike_matmul.WGMMA}")
+    return {"cases": len(seen),
+            "launches_read_by_plan_kernel": dict(sorted(codes.items())),
+            "held": len(held), "bitwise": sum(bool(r["bitwise"]) for r in held),
+            "max_abs_err": max(r["max_abs_err"] for r in held),
+            "shapes": sorted({tuple(r["case"]) for r in held})}
 
 
 # ---------------------------------------------------------------------------
@@ -5430,7 +5600,44 @@ def summarise(cases: dict[str, list[dict]],
             **({"split_path": split_summary(name, split[name], rows)}
                if split and name in split else {}),
             "cases": rows})
+    kernels.append(wgmma_summary(cases, paths, oracle))
     return {"kernels": kernels}
+
+
+def wgmma_summary(cases: dict[str, list[dict]],
+                  paths: dict[str, dict[str, int]],
+                  oracle: dict[str, dict] | None) -> dict:
+    """The bf16 wgmma kernel's entry (``csrc/spike_wgmma.cuh``, plan
+    kernel 3 of ``e2a_spike_matmul``, launched by both spike-matmul
+    wrappers): the numbers of its first case (pssa.proj), its largest error
+    over every case that ran it, the one-plane mainloop forced (tile 1) on
+    the same operands beside it, and its launches on the bf16 paths."""
+    rows = [r for name in ("spike_matmul_packed",
+                           "spike_matmul_packed_batched")
+            for r in cases[name] if r.get("kernel") == spike_matmul.WGMMA]
+    first = rows[0]
+    return {
+        "name": WGMMA_ENTRY, "route": "cuda", "source": WGMMA_SOURCE,
+        "replaces": KERNELS["spike_matmul_packed"]["replaces"],
+        "also_replaces": KERNELS["spike_matmul_packed_batched"]["replaces"],
+        "launched_by": ["spike_matmul_packed", "spike_matmul_packed_batched"],
+        "plan_kernel": spike_matmul.WGMMA, "dtype": "bfloat16",
+        "launches": sum(c.get(WGMMA_ENTRY, 0) for c in paths.values()),
+        "launches_by_path": {p: c[WGMMA_ENTRY] for p, c in paths.items()
+                             if WGMMA_ENTRY in c},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "oracle_max_abs_err": (oracle or {}).get(WGMMA_ENTRY, {}).get(
+            "max_abs_err"),
+        "ms": first["ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        "library_ms": first["library_ms"], "case": first["case"],
+        "device_ms": first["device_ms"],
+        "tile1_device_ms": first["tile1_device_ms"],
+        "cases": [{k: r[k] for k in (
+            "case", "shape", "device_ms", "device_ms_l2_warm",
+            "tile1_device_ms", "tile1_device_ms_l2_warm", "library_ms",
+            "library_device_ms", "bound_ms", "host_us", "tile1_host_us",
+            "max_abs_err", "bitwise_gaussian")} for r in rows]}
 
 
 def setup_card() -> dict:

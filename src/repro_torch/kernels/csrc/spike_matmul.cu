@@ -26,11 +26,15 @@
 // (integer and dyadic weights) it gives the same bits.
 //
 // bf16 (the reference's kernels at a bf16 weight: the spikes unpacked to
-// bf16, the dot accumulated in fp32, the output in the weight's dtype): a
-// bf16 weight is its own single plane (spike_mma_mainloop.cuh, Planes), so
-// one MMA per fragment and k16 step adds exact bf16 products into the fp32
-// accumulator, and the epilogue rounds each result to bf16 once. w and out
-// are then bf16; the dtype code names the type of both.
+// bf16, the dot accumulated in fp32, the output in the weight's dtype): w
+// and out are then bf16; the dtype code names the type of both. Two
+// kernels take it. Tile 3 is spike_wgmma.cuh's, designed for Hopper (a TMA
+// ring of weight tiles, wgmma with the spikes expanded in registers); the
+// wrapper's rule names it for more than 512 rows and a weight TMA can read.
+// Every other bf16 call runs the mainloop below with the weight as its own
+// single plane (spike_mma_mainloop.cuh, Planes): one MMA per fragment and
+// k16 step. Both add exact bf16 products into fp32 accumulators and round
+// each result to bf16 once, in the epilogue.
 //
 // Design: the contraction loop is mainloop() of spike_mma_mainloop.cuh,
 // shared with the train-mode neuron layer (spike_tile_mma.cuh has the
@@ -50,6 +54,7 @@
 // the K^T operand and of out.
 #include "launch_plan.cuh"
 #include "spike_mma_mainloop.cuh"
+#include "spike_wgmma.cuh"
 
 namespace {
 
@@ -140,27 +145,69 @@ int launch(const Args<E>& a, const e2a::Launch& l, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The launches of e2a_spike_matmul (none for an empty output). Returns a
-// cudaError_t.
+// The launches of e2a_spike_matmul (none for an empty output). tma_ok:
+// e2a::wg::tma_suits of the weight; tile 3 is refused without it and at
+// any dtype but bf16. Returns a cudaError_t.
 int plan(int G1, int G2, int M, int C, int K, int tile, int dtype,
-         e2a::Launch* l, int& n) {
+         bool tma_ok, e2a::Launch* l, int& n) {
   n = 0;
   const int planes = planes_of(dtype);
   if (planes == 0) return (int)cudaErrorInvalidValue;
   if (G1 <= 0 || G2 <= 0 || M <= 0 || K <= 0) return 0;
   const long long G = (long long)G1 * G2;
-  if (G > 65535 || C < 0 || C % 8 != 0 || tile < 1 || tile > 2)
+  if (G > 65535 || C < 0 || C % 8 != 0 || tile < 1 || tile > 3)
     return (int)cudaErrorInvalidValue;
+  if (tile == 3) {
+    if (dtype != e2a::kBfloat16 || !tma_ok) return (int)cudaErrorInvalidValue;
+    const int err = e2a::wg::wgmma_plan<e2a::wg::Wide>(M, K, G, 3, l[0]);
+    if (err == 0) n = 1;
+    return err;
+  }
   l[n++] = tile == 2 ? tile_plan<Small>(M, K, G, 2, planes)
                      : tile_plan<Large>(M, K, G, 1, planes);
   return 0;
 }
 
+// One call's shape and element strides, as the entry points take them.
+struct Call {
+  int G1, G2, M, C, K;
+  long long p_g1, p_g2, p_m, p_b, w_g1, w_g2, w_c, w_k, o_g1, o_g2, o_m, o_k;
+};
+
+// For the wgmma kernel: a weight shared by every batch (zero batch
+// strides) whose packed rows and outputs run on from one batch into the
+// next is one product of G1 * G2 * M rows (the tokenizer's im2col
+// patches, 4 x 3,136 rows: 392 tiles of 128 rows, not 4 x 25 of which
+// the last are half empty).
+void fold_shared_weight(Call& c) {
+  const long long rows = (long long)c.G1 * c.G2 * c.M;
+  const bool level2 = c.G2 == 1 || (c.w_g2 == 0 && c.p_g2 == c.M * c.p_m &&
+                                    c.o_g2 == c.M * c.o_m);
+  const bool level1 =
+      c.G1 == 1 || (c.w_g1 == 0 && c.p_g1 == (long long)c.G2 * c.M * c.p_m &&
+                    c.o_g1 == (long long)c.G2 * c.M * c.o_m);
+  if (rows == c.M || rows > 0x7FFFFFFF || !level1 || !level2) return;
+  c.M = (int)rows;
+  c.G1 = c.G2 = 1;
+}
+
+// The plan of a call (the wgmma kernel's on the folded shape).
+int plan_call(Call& c, const void* w, int tile, int dtype, e2a::Launch* l,
+              int& n) {
+  if (tile == 3) fold_shared_weight(c);
+  return plan(c.G1, c.G2, c.M, c.C, c.K, tile, dtype,
+              e2a::wg::tma_suits(w, c.G1, c.G2, c.C, c.K, c.w_g1, c.w_g2,
+                                 c.w_c, c.w_k),
+              l, n);
+}
+
 }  // namespace
 
-// tile picks the tile: 1 Large, 2 Small (the autotuner times both; a
-// tuned table passes its winner). dtype: 0 fp32, 1 bf16, the type of w and
-// out.
+// tile picks the kernel: 1 Large, 2 Small (the autotuner times both; a
+// tuned table passes its winner), 3 the bf16 wgmma kernel of
+// spike_wgmma.cuh (spike_matmul.py's rule names it for a bf16 weight TMA
+// can read, at more than 512 rows). dtype: 0 fp32, 1 bf16, the type of w
+// and out.
 extern "C" int e2a_spike_matmul(
     const uint8_t* packed, const void* w, void* out, int G1, int G2, int M,
     int C, int K, long long p_g1, long long p_g2, long long p_m,
@@ -169,9 +216,21 @@ extern "C" int e2a_spike_matmul(
     long long o_k, int tile, int dtype, void* stream) {
   e2a::Launch l[e2a::kMaxLaunches];
   int n = 0;
-  const int code = plan(G1, G2, M, C, K, tile, dtype, l, n);
+  Call c = {G1,   G2,   M,    C,    K,    p_g1, p_g2, p_m, p_b,
+            w_g1, w_g2, w_c,  w_k,  o_g1, o_g2, o_m,  o_k};
+  const int code = plan_call(c, w, tile, dtype, l, n);
   if (code != 0 || n == 0) return code;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (l[0].kernel == 3) {
+    const e2a::wg::Args a = {packed, static_cast<e2a::bf16*>(out),
+                             c.G1 * c.G2, c.G2, c.M, c.C, c.K,
+                             c.p_g1, c.p_g2, c.p_m, c.p_b,
+                             c.o_g1, c.o_g2, c.o_m, c.o_k,
+                             0, 0, 0, 0, 0, 0, 0};
+    return e2a::wg::launch<e2a::wg::Wide>(
+        a, static_cast<const e2a::bf16*>(w), c.G1, c.w_g1, c.w_g2, c.w_c,
+        c.w_k, l[0], s);
+  }
   return e2a::by_dtype(dtype, [&](auto tag) {
     using E = typename decltype(tag)::type;
     const Args<E> a = {packed, static_cast<const E*>(w), static_cast<E*>(out),
@@ -194,6 +253,8 @@ extern "C" int e2a_spike_matmul_plan(const uint8_t* packed, const void* w,
                                      int dtype, long long* records, int cap) {
   e2a::Launch l[e2a::kMaxLaunches];
   int n = 0;
-  const int code = plan(G1, G2, M, C, K, tile, dtype, l, n);
+  Call c = {G1,   G2,   M,    C,    K,    p_g1, p_g2, p_m, p_b,
+            w_g1, w_g2, w_c,  w_k,  o_g1, o_g2, o_m,  o_k};
+  const int code = plan_call(c, w, tile, dtype, l, n);
   return e2a::write_plan(code, l, n, records, cap);
 }

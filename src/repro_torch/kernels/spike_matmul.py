@@ -29,10 +29,17 @@ Bound on this card: three dense bf16 passes (3 * 2MCK operations) at the
 projection sites, the weight's and the output's bytes at ``attn_qk``.
 
 A bf16 weight (the reference's kernels at bf16: spikes unpacked to the
-weight's dtype, the dot accumulated in fp32, the output in ``w.dtype``) is
-its own single plane: one tensor-core pass adds the exact products into
-the fp32 accumulators, and the result is rounded to bf16 once, at the
-store. The output's dtype is the weight's.
+weight's dtype, the dot accumulated in fp32, the output in ``w.dtype``)
+takes one tensor-core pass: the exact products are added into fp32
+accumulators and the result is rounded to bf16 once, at the store. The
+output's dtype is the weight's. Two kernels do it. :data:`WGMMA` is
+``csrc/spike_wgmma.cuh``, designed for Hopper: a producer warp keeps a
+ring of the weight's and the packed rows' chunks full by TMA, three
+consumer warpgroups expand the spikes into wgmma's register A fragments
+and read the weight from shared memory. :func:`resolve_tile`
+names it for more than :data:`WGMMA_MIN_ROWS` rows and a weight TMA can
+read (:func:`tma_suits`); every other bf16 call runs the tiles of
+:data:`TILES` with the weight as its single plane.
 
 The plain PyTorch versions unpack and call ``torch.matmul`` in fp32 (a
 bf16 weight widened exactly), rounding the product to ``w.dtype`` once, as
@@ -87,6 +94,55 @@ def default_tile(m: int) -> int:
     return 2 if m <= 512 else 1
 
 
+#: The ``tile`` code of the bf16 kernel of ``csrc/spike_wgmma.cuh``
+#: (``e2a::wg::Wide``: 192 x 128 outputs a tile, the contraction staged
+#: 128 at a time in a ring of 4, one persistent block an SM). Kept out of
+#: :data:`TILES`, the fp32 tuner's candidates; a caller may force it at
+#: bf16 only.
+WGMMA = 3
+WGMMA_TILE = Tile("Wgmma", 192, 128, 128, 193600)
+#: The rule names :data:`WGMMA` above this many rows a product.
+WGMMA_MIN_ROWS = 512
+
+
+def tma_suits(w4: torch.Tensor) -> bool:
+    """Whether the bf16 kernel can read the weight ``w4`` (G1, G2, C, K)
+    where it lies: a 16-byte aligned base, unit stride along K (then C's
+    stride a multiple of 16 bytes) or along C (a K^T view; then K's), each
+    batch level of more than one batch at stride 0 (one weight shared) or
+    a multiple of 16 bytes, and C > 0. The twin of ``e2a::wg::tma_suits``
+    (``csrc/spike_wgmma.cuh``), which refuses a forced :data:`WGMMA`
+    without it."""
+    g1, g2, c, k = w4.shape
+    s1, s2, sc, sk = w4.stride()
+    size = w4.element_size()
+    if c <= 0 or k <= 0 or (not w4.is_meta and w4.data_ptr() % 16):
+        return False
+    n_major = sk == 1 and sc > 0 and sc * size % 16 == 0
+    c_major = sc == 1 and sk > 0 and sk * size % 16 == 0
+    return (n_major or c_major) and all(
+        n <= 1 or (s >= 0 and s * size % 16 == 0)
+        for n, s in ((g1, s1), (g2, s2)))
+
+
+def resolve_tile(m: int, w4: torch.Tensor, tile: int = 0) -> int:
+    """The kernel a call of ``m`` rows a product and weight ``w4`` (G1, G2,
+    C, K) runs: ``tile`` where the caller forces one; else :data:`WGMMA`
+    for a bf16 weight that :func:`tma_suits` at more than
+    :data:`WGMMA_MIN_ROWS` rows, else :func:`default_tile`."""
+    if tile:
+        return tile
+    if w4.dtype == torch.bfloat16 and m > WGMMA_MIN_ROWS and tma_suits(w4):
+        return WGMMA
+    return default_tile(m)
+
+
+def _as4(w: torch.Tensor) -> torch.Tensor:
+    """A weight of two, three or four dims as the kernel's (G1, G2, C, K)."""
+    return w[None, None] if w.ndim == 2 else w[:, None] if w.ndim == 3 \
+        else w
+
+
 def spike_pack(spikes: torch.Tensor) -> torch.Tensor:
     """(..., C) {0,1} -> (..., C//8) uint8, LSB-first along C.
 
@@ -136,9 +192,17 @@ def split_bf16x3(w: torch.Tensor):
 
 
 def _check_operands(packed, w, out_dtype, tile, what):
-    if tile not in (0, *TILES):
+    if tile not in (0, *TILES, WGMMA):
         raise ValueError(f"{what}: tile {tile!r} is none of 0 (the rule, "
-                         f"default_tile) and {sorted(TILES)}")
+                         f"resolve_tile), {sorted(TILES)} and {WGMMA}")
+    if tile == WGMMA:
+        if w.dtype != torch.bfloat16:
+            raise ValueError(f"{what}: tile {WGMMA} (the wgmma kernel) "
+                             f"takes a bfloat16 weight, got {w.dtype}")
+        if not tma_suits(_as4(w)):
+            raise ValueError(
+                f"{what}: tile {WGMMA} cannot read the weight {tuple(w.shape)}"
+                f" with strides {w.stride()} by TMA (tma_suits)")
     if packed.dtype != torch.uint8:
         raise TypeError(f"{what}: packed must be uint8, got {packed.dtype}")
     if packed.ndim != w.ndim or packed.shape[:-2] != w.shape[:-2]:
@@ -160,8 +224,8 @@ def _launch_spike_matmul(packed4: torch.Tensor, w4: torch.Tensor, stream=0,
                          tile: int = 0):
     """packed4 (G1, G2, M, C/8) uint8, w4 (G1, G2, C, K) fp32 or bf16, any
     strides -> out (G1, G2, M, K) in w4's dtype, contiguous; ``tile`` as in
-    :data:`TILES`, 0 resolved here to :func:`default_tile` (the kernel
-    takes 1 or 2)."""
+    :data:`TILES` or :data:`WGMMA`, 0 resolved here by
+    :func:`resolve_tile` (the kernel takes 1, 2 or 3)."""
     g1, g2, m, _ = packed4.shape
     c, k = w4.shape[-2:]
     if g1 * g2 > MAX_BATCH:
@@ -170,7 +234,7 @@ def _launch_spike_matmul(packed4: torch.Tensor, w4: torch.Tensor, stream=0,
     code = build.load().e2a_spike_matmul(
         packed4.data_ptr(), w4.data_ptr(), out.data_ptr(), g1, g2, m, c, k,
         *packed4.stride(), *w4.stride(), *out.stride(),
-        tile or default_tile(m), dtype_code(w4.dtype, "spike_matmul"),
+        resolve_tile(m, w4, tile), dtype_code(w4.dtype, "spike_matmul"),
         stream)
     build.check_launch(code, "spike_matmul")
     return out
@@ -187,8 +251,8 @@ def spike_matmul_packed(packed: torch.Tensor, w: torch.Tensor, *,
                         tile: int = 0) -> torch.Tensor:
     """packed: (M, C//8) uint8; w: (C, K) -> (M, K) in ``out_dtype`` (default
     ``w.dtype``). Either operand may be strided; nothing is copied.
-    ``tile`` forces a tile of :data:`TILES` (0: :func:`default_tile`);
-    the plain version has none."""
+    ``tile`` forces a tile of :data:`TILES` or, at bf16, :data:`WGMMA`
+    (0: :func:`resolve_tile`); the plain version has none."""
     if packed.ndim != 2:
         raise ValueError(f"spike_matmul_packed expects 2-D operands, got "
                          f"{tuple(packed.shape)}")

@@ -54,16 +54,29 @@ logger = logging.getLogger(__name__)
 L2_BYTES = H100_L2_BYTES
 
 
+def _copy_in_layout(o: torch.Tensor) -> torch.Tensor:
+    """A copy of ``o`` in its layout: dense strides where ``empty_like``
+    keeps them, and an operand expanded along a dim (stride 0, a weight
+    shared by every batch) copied once and expanded the same way."""
+    shared = [d for d in range(o.ndim) if o.stride(d) == 0 and o.shape[d] > 1]
+    if not shared:
+        return torch.empty_like(o).copy_(o)
+    base = o[tuple(slice(0, 1) if d in shared else slice(None)
+                   for d in range(o.ndim))]
+    return torch.empty_like(base).copy_(base).expand(o.shape)
+
+
 def l2_cold(call, operands: tuple, moved: int):
     """A function that runs ``call`` on the next of ``ceil(4 * L2 / moved)``
-    copies of ``operands`` (each in its operand's layout; None stays None)
-    and keeps that copy's outputs until its turn comes again. The copies and
-    their outputs span four L2s, so each call reads its inputs from device
-    memory and writes its outputs over lines that go back to it: the bytes
-    over the HBM rate bound such a call."""
+    copies of ``operands`` (each in its operand's layout,
+    :func:`_copy_in_layout`; None stays None) and keeps that copy's outputs
+    until its turn comes again. The copies and their outputs span four L2s,
+    so each call reads its inputs from device memory and writes its outputs
+    over lines that go back to it: the bytes over the HBM rate bound such a
+    call."""
     n = max(1, math.ceil(4 * L2_BYTES / moved))
-    sets = [operands] + [tuple(None if o is None else
-                               torch.empty_like(o).copy_(o) for o in operands)
+    sets = [operands] + [tuple(None if o is None else _copy_in_layout(o)
+                               for o in operands)
                          for _ in range(n - 1)]
     kept = [None] * n
     turn = itertools.count()

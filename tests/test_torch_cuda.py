@@ -161,6 +161,139 @@ def test_forced_tiles_exact_on_21_bit_weights(case, tile):
         mm(xg, wg, tile=3)
 
 
+#: The bf16 wgmma kernel's cases: (packed, weight) shapes, the weight's
+#: layout, ``spikingformer-8-512``'s three sites at batch 16 and the ragged
+#: and K^T ones.
+WGMMA_CASES = {
+    "pssa.proj": ((12544, 512), (512, 512), "n"),
+    "smlp.b": ((12544, 2048), (2048, 512), "n"),
+    "tokenizer.conv.3": ((4, 3136, 2304), (2304, 512), "shared"),
+    "ragged M/K/C": ((12581, 520), (520, 520), "n"),
+    "K^T view": ((12544, 512), (512, 512), "kt"),
+    "ragged K^T, K = 100": ((600, 136), (136, 100), "kt"),
+    "batched, two levels": ((2, 3, 600, 256), (2, 3, 256, 136), "n"),
+}
+
+
+def _wgmma_operands(case, rng, make):
+    """Spikes and a bf16 weight of ``case`` (``make(shape)`` gives fp32
+    values) on the card."""
+    ps, ws, layout = WGMMA_CASES[case]
+    s = _t(_spikes(rng, ps, 0.2)).to("cuda")
+    if layout == "kt":
+        w = _t(make(ws[::-1])).to("cuda", torch.bfloat16).t()
+    elif layout == "shared":
+        w = _t(make(ws)).to("cuda", torch.bfloat16).unsqueeze(0).expand(
+            ps[0], *ws)
+    else:
+        w = _t(make(ws)).to("cuda", torch.bfloat16)
+    return spike_matmul.spike_pack(s), w
+
+
+def _mm_of(packed):
+    return spike_matmul.spike_matmul_packed if packed.ndim == 2 else \
+        spike_matmul.spike_matmul_packed_batched
+
+
+def _plan_kernels(fn, *args, **kw):
+    from repro_torch.kernels import build
+    with build.plan_launches() as calls:
+        fn(*args, **kw)
+    return [launch for call in calls for launch in call.launches]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGMMA_CASES))
+def test_wgmma_spike_matmul_against_its_plain_version_and_oracle(case):
+    """The bf16 wgmma kernel (plan kernel 3, the wrapper's rule) on exact
+    weights (k/64, |k| <= 4: every fp32 sum exact) bit for bit equal to
+    its plain version and to ``kernels/ref.py``; on Gaussian weights
+    within one bf16 rounding of them (the same exact products summed in
+    another order); the one-plane mainloop forced (tile 1) bit-equal on
+    the exact weights."""
+    from repro_torch.kernels import ref
+    _card()
+    rng = np.random.default_rng(34)
+    packed, w = _wgmma_operands(
+        case, rng, lambda sh: (rng.integers(-4, 5, sh) / 64).astype(
+            np.float32))
+    fn = _mm_of(packed)
+    assert [la.kernel for la in _plan_kernels(fn, packed, w)] == \
+        [spike_matmul.WGMMA]
+    got = fn(packed, w)
+    dense = spike_matmul.spike_unpack(packed, torch.float32)
+    # the batched oracle takes one batch level; two broadcast through @
+    oracle = ref.spike_matmul_batched_ref if packed.ndim == 3 else \
+        ref.spike_matmul_ref
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, spike_matmul.spike_matmul_packed_plain(packed, w))
+    assert torch.equal(got, oracle(dense, w))
+    assert torch.equal(fn(packed, w, tile=1), got)
+    _, wg = _wgmma_operands(
+        case, rng, lambda sh: (rng.normal(size=sh) / sh[-2 if len(sh) > 1
+                                                        else 0] ** 0.5
+                               ).astype(np.float32))
+    got = fn(packed, wg).float()
+    want = spike_matmul.spike_matmul_packed_plain(packed, wg).float()
+    assert bool(((got - want).abs() <= 1e-4 + 2.0 ** -7 * want.abs()).all())
+
+
+@pytest.mark.cuda
+def test_the_wgmma_plan_twin_reports_kernel_3():
+    """``e2a_spike_matmul_plan`` for a bf16 call the rule sends to the
+    wgmma kernel: plan kernel 3, 512 threads, the tile's dynamic shared
+    memory with the opt-in, one persistent block an SM at most, striding
+    over the tiles of 192 x 128 outputs."""
+    _card()
+    rng = np.random.default_rng(1)
+    packed, w = _wgmma_operands("smlp.b", rng, lambda sh: np.zeros(
+        sh, np.float32))
+    (la,) = _plan_kernels(spike_matmul.spike_matmul_packed, packed, w)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = -(-12544 // 192) * (512 // 128)
+    assert la.kernel == spike_matmul.WGMMA
+    assert la.block == (512, 1, 1)
+    assert la.smem == spike_matmul.WGMMA_TILE.smem and la.opt_in
+    assert la.grid == (min(sms, tiles), 1, 1)
+    assert la.tile[0] == 1 and la.extent[0] == tiles
+    assert la.strided[0] == (sms < tiles)
+    # the tokenizer's shared weight: the four batches' rows as one product
+    packed, w = _wgmma_operands("tokenizer.conv.3", rng,
+                                lambda sh: np.zeros(sh, np.float32))
+    (la,) = _plan_kernels(spike_matmul.spike_matmul_packed_batched, packed,
+                          w)
+    assert la.extent[0] == -(-4 * 3136 // 192) * (512 // 128)
+
+
+@pytest.mark.cuda
+def test_the_entry_point_refuses_tile_3_it_cannot_take():
+    """``e2a_spike_matmul`` (and its plan twin) refuse tile 3 with an fp32
+    weight or strides TMA cannot take (cudaErrorInvalidValue, 1): the
+    wrapper raises, and no other kernel runs in its place."""
+    from repro_torch.kernels import build
+    _card()
+    lib = build.load()
+    packed = torch.zeros((600, 64), dtype=torch.uint8, device="cuda")
+    out = torch.empty((600, 64), dtype=torch.bfloat16, device="cuda")
+    records = (build.ctypes.c_longlong * (build.MAX_LAUNCHES
+                                           * build.PLAN_FIELDS))()
+    for dtype, w in ((0, torch.zeros((512, 64), device="cuda")),
+                     (1, torch.zeros((512, 128), dtype=torch.bfloat16,
+                                     device="cuda")[:, ::2])):
+        args = (packed.data_ptr(), w.data_ptr(), out.data_ptr(), 1, 1, 600,
+                512, 64, 0, 0, 64, 1, 0, 0, *w.stride(), 0, 0, 64, 1, 3,
+                dtype)
+        assert lib.e2a_spike_matmul_plan(*args, records,
+                                         build.MAX_LAUNCHES) == -1
+        assert lib.e2a_spike_matmul(*args, 0) == 1
+        assert lib.e2a_spike_matmul_plan(*args[:-2], 1, dtype, records,
+                                         build.MAX_LAUNCHES) == 1
+    with pytest.raises(ValueError, match="bfloat16"):
+        spike_matmul.spike_matmul_packed(
+            packed, torch.zeros((512, 64), device="cuda"), tile=3)
+
+
 @pytest.mark.cuda
 def test_tune_at_the_smoke_preset_on_the_card(tmp_path, monkeypatch):
     """The autotuner on the card: every tunable site of the smoke preset
