@@ -3,6 +3,7 @@
 kernels, with the device time of each pass.
 
     python3 benchmarks/torch/bench_train_kernels.py [--src DIR] [--label NAME]
+        [--bf16]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported
 (default: this checkout's), so that two checkouts can be compared on one
@@ -29,6 +30,19 @@ lines after the ``device`` line that names the card and its power limit:
   one block's spike mismatch f against ``eager`` and its worst gradient
   leaf.
 
+With ``--bf16`` it times the two bf16 arms instead, with the L2 cold and
+warm (``chip_smoke.cold_warm``) and per pass (``chip_smoke.pass_ms``):
+
+- ``bn_bwd`` at the five distinct shapes of a step (``kind: "bn_bwd"``),
+  beside ATen's ``native_batch_norm_backward`` on the same bf16 operands
+  and the byte bound; ``bitwise_dyadic``: dx, dgamma and dbeta equal to the
+  plain version's on inputs whose every column sum is exact;
+- ``neuron_layer_train`` at every packed site (``kind:
+  "neuron_layer_train"``), with the plan kernel of its z pass
+  (``z_kernel``), beside the bf16 spike matmul on the same operands (the
+  kernel its rule picks, ``spike_matmul_kernel``) and the bound of the z
+  pass: one bf16 tensor-core pass or z's fp32 bytes, whichever is longer.
+
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -48,6 +62,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--bf16", action="store_true",
+                    help="time the bf16 arms of bn_bwd and of the neuron "
+                         "layer's train mode")
     args = ap.parse_args()
     src = Path(args.src).resolve()
     # the checkout under test first: chip_smoke's own ``import repro_torch``
@@ -85,11 +102,15 @@ def main() -> None:
         z, s = (torch.empty((t, m, k), **f32) for _ in range(2))
         part = torch.empty((2, -(-t * m // neuron_layer.TILE_ROWS), k), **f32)
         mu, var, sqrt_d = (torch.empty((k,), **f32) for _ in range(3))
+        # the fp32 arm's kernel, named where the entry takes it (a --src
+        # tree from before the rule moved to Python plans it itself)
+        kernel = (neuron_layer.Z_MMA,) \
+            if len(build.SIGNATURES["e2a_neuron_layer_train"]) > 20 else ()
         code = build.load().e2a_neuron_layer_train(
             xp.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
             z.data_ptr(), part.data_ptr(), mu.data_ptr(), var.data_ptr(),
-            sqrt_d.data_ptr(), s.data_ptr(), t, m, c, k, 1, 0.5, 1.0, 1e-5,
-            torch.cuda.current_stream().cuda_stream)
+            sqrt_d.data_ptr(), s.data_ptr(), t, m, c, k, 1, *kernel, 0.5, 1.0,
+            1e-5, 0, torch.cuda.current_stream().cuda_stream)
         build.check_launch(code, "neuron_layer_train")
         torch.cuda.synchronize()
         return z
@@ -97,6 +118,9 @@ def main() -> None:
     cs.setup_card()
     build.load()
     gen = torch.Generator(device=cs.DEVICE).manual_seed(0)
+    if args.bf16:
+        bf16_arms(cs, emit, gen)
+        return
     for name, rows in cs.train_kernel_cases(gen, cs.BATCH).items():
         for row in rows:
             emit("case", kernel=name, src=str(src), **row)
@@ -153,6 +177,78 @@ def main() -> None:
         got = cs.block_grad_case(seed, cs.BATCH)
         emit("block_grad", seed=seed, spike_mismatch=got["spike_mismatch"],
              worst_grad_rel_l2=got["worst_grad_rel_l2"], ok=got["ok"])
+        torch.cuda.empty_cache()
+
+
+def bf16_arms(cs, emit, gen) -> None:
+    """``--bf16``: ``bn_bwd`` at the step's five shapes and
+    ``neuron_layer_train`` at its packed sites, bf16 operands."""
+    import torch
+
+    from repro_torch.kernels import fused_bn, neuron_layer, spike_matmul
+
+    bf16 = torch.bfloat16
+
+    def timed(call, operands, moved) -> dict:
+        return {"ms": cs.time_ms(lambda: call(*operands)),
+                **cs.cold_warm(call, operands, moved),
+                "passes": cs.pass_ms(lambda: call(*operands), ITERS)}
+
+    for m, d in cs.bn_bwd_shapes(cs.BATCH):
+        exact = [a.to(bf16) if i < 2 else a
+                 for i, a in enumerate(cs.dyadic_bn_bwd(gen, m, d))]
+        bitwise = all(torch.equal(a, b) for a, b in zip(
+            fused_bn.bn_bwd(*exact), fused_bn.bn_bwd_plain(*exact)))
+        del exact
+        x = (torch.randn((m, d), generator=gen, device=cs.DEVICE) * 2.0
+             + 0.5).to(bf16)
+        g = torch.randn((m, d), generator=gen, device=cs.DEVICE).to(bf16)
+        gamma = torch.rand((d,), generator=gen, device=cs.DEVICE) + 0.5
+        _, mu, sd = fused_bn.bn_fwd_plain(x, gamma, gamma)
+        inv = (1.0 / sd).reshape(-1)
+        ops = (g, x, gamma, mu, sd)
+        out = fused_bn.bn_bwd(*ops)
+        moved = cs.nbytes(*ops, *out)
+
+        def aten(g, x, gamma, mu, inv):
+            return torch.ops.aten.native_batch_norm_backward(
+                g, x, gamma, None, None, mu.reshape(-1), inv, True, 1e-5,
+                [True, True, True])
+
+        emit("bn_bwd", shape=[m, d], bitwise_dyadic=bitwise,
+             bound_ms=moved / cs.HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+             **timed(fused_bn.bn_bwd, ops, moved),
+             library=timed(aten, (g, x, gamma, mu, inv), moved))
+        del x, g, out
+        torch.cuda.empty_cache()
+
+    for case, t, m, c, k, packed in cs.neuron_layer_sites(cs.BATCH):
+        if not packed:
+            continue
+        x = cs.spikes(gen, (t, m, c)).to(bf16)
+        w = (torch.randn((c, k), generator=gen, device=cs.DEVICE) * 2.0
+             * c ** -0.5).to(bf16)
+        gamma = torch.rand((k,), generator=gen, device=cs.DEVICE) * 0.4 + 0.8
+        beta = torch.randn((k,), generator=gen, device=cs.DEVICE) * 0.2 + 0.3
+        ops = (x, w, gamma, beta)
+
+        def call(x, w, gamma, beta):
+            return neuron_layer.neuron_layer_train(x, w, gamma, beta,
+                                                   packed=True)
+
+        out = call(*ops)
+        xp = spike_matmul.spike_pack(x).reshape(t * m, c // 8)
+        mm = spike_matmul.spike_matmul_packed
+        z_bytes = t * m * k * 4
+        emit("neuron_layer_train", case=case, shape=[t, m, c, k],
+             z_kernel=cs.plan_kernels(call, *ops)[0],
+             spike_matmul_kernel=cs.plan_kernels(mm, xp, w)[0],
+             tc_pass_ms=2.0 * t * m * c * k / cs.BF16_FLOPS * 1e3,
+             z_bytes_ms=z_bytes / cs.HBM_BYTES_PER_S * 1e3,
+             **timed(call, ops, cs.nbytes(*ops, *out)),
+             spike_matmul=timed(mm, (xp, w), cs.nbytes(xp, w)
+                                + t * m * k * 2))
+        del x, w, out, xp
         torch.cuda.empty_cache()
 
 

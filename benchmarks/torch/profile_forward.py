@@ -3,7 +3,7 @@
 its time on the card.
 
     python3 benchmarks/torch/profile_forward.py [--preset spikingformer-8-512]
-        [--batch 16] [--depth 8] [--top 25] [--train]
+        [--batch 16] [--depth 8] [--top 25] [--train [--bf16]]
 
 For the ``cuda-full`` and the ``eager`` policy on the same random weights it
 prints, as JSON lines: the time of a whole request (host clock around a
@@ -13,7 +13,9 @@ forward — the device-busy time, its share of the request, the number of
 kernel launches, and the kernels that take the most device time. With ``--train`` it does the same for one
 BPTT + AdamW step of ``make_train_step`` on a ``SyntheticVision`` batch
 (step time: host clock around a synchronised step, median of 3, each from
-the same state), with the peak device memory of a step. Needs a CUDA
+the same state), with the peak device memory of a step; with ``--bf16``
+the step of the preset's own bf16 initialisation on bf16 images, as
+``chip_smoke.py``'s ``bf16_vision`` phase runs it. Needs a CUDA
 device; weights are random (``--seed``), so only times mean anything here.
 """
 from __future__ import annotations
@@ -86,6 +88,7 @@ def profile_train(cfg, args) -> None:
         global_batch=args.batch, channels=cfg.in_channels)).batch(0)
     images, labels = (torch.from_numpy(batch[k]).cuda()
                       for k in ("images", "labels"))
+    images = images.to(cfg.dtype)
     for name in ("cuda-full", "eager"):
         step = make_train_step(cfg.with_policy(named_policy(name)),
                                OptimizerConfig())
@@ -120,7 +123,11 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--train", action="store_true",
                     help="profile one training step instead of a forward")
+    ap.add_argument("--bf16", action="store_true",
+                    help="with --train: bf16 parameters and images")
     args = ap.parse_args()
+    if args.bf16 and not args.train:
+        ap.error("--bf16 profiles the training step: give --train too")
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -128,9 +135,12 @@ def main() -> None:
 
     cfg = dataclasses.replace(get_spikingformer_config(args.preset + "@eager"),
                               num_layers=args.depth)
+    if args.bf16:
+        cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "preset": args.preset, "batch": args.batch,
-                      "depth": args.depth, "train": args.train}), flush=True)
+                      "depth": args.depth, "train": args.train,
+                      "dtype": str(cfg.dtype)}), flush=True)
     if args.train:
         profile_train(cfg, args)
         return

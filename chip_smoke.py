@@ -240,6 +240,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import json
 import math
 import os
@@ -316,8 +317,14 @@ TRAIN_STEPS = 3                 # training steps counted, after one warm-up
 DEVICE = torch.device("cuda")
 
 
+#: The host clock at import: each phase line carries the seconds since
+#: (``elapsed_s``), so a run shows where its time limit goes.
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - _T0}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -2603,6 +2610,11 @@ BF16 = torch.bfloat16
 #: the bf16 paths' spike matmuls that ran plan kernel 3, ``KernelTally``).
 WGMMA_ENTRY = "spike_wgmma"
 WGMMA_SOURCE = "src/repro_torch/kernels/csrc/spike_wgmma.cuh"
+#: The same for the bf16 z pass of the train-mode neuron layer on the
+#: wgmma mainloop (its launches: the bf16 training path's first passes on
+#: plan kernel ``neuron_layer.Z_WGMMA``, forward and replay).
+Z_WGMMA_ENTRY = "neuron_layer_z_wgmma"
+Z_WGMMA_SOURCE = "src/repro_torch/kernels/csrc/neuron_layer.cu"
 #: The LM's step-0 gradient leaves at bf16 that are not bit-equal between
 #: the policies: the kernel's eq. 12 rounds each operation in the order of
 #: the recursion, autograd through the eager scan in its own order; held
@@ -2742,27 +2754,39 @@ def plan_kernels(fn, *args, **kw) -> list[int]:
 
 
 class KernelTally:
-    """Inside the block, the kernel each spike-matmul launch runs, counted
-    by plan kernel code: ``spike_matmul.resolve_tile``, which the wrappers'
-    launch routine calls once a launch (1 Large, 2 Small, 3 the bf16 wgmma
-    kernel). ``counts`` maps a code to its launches."""
+    """Inside the block, the kernel each launch of a wrapper family runs,
+    counted by plan kernel code through the rule its wrappers call once a
+    launch and whose code they pass to the C entry point, which launches
+    that kernel or refuses the call: by default
+    ``spike_matmul.resolve_tile`` (1 Large, 2 Small, 3 the bf16 wgmma
+    kernel); ``KernelTally(neuron_layer, "z_kernel")`` the neuron layer's
+    first pass (forward, split sums and replay: 3 dense, 4 ``mma.sync``, 9
+    the bf16 wgmma kernel). ``counts`` maps a code to its launches."""
 
-    def __init__(self):
+    def __init__(self, module=spike_matmul, rule: str = "resolve_tile"):
+        self.module, self.rule = module, rule
         self.counts: dict[int, int] = {}
 
     def __enter__(self):
-        real = self._real = spike_matmul.resolve_tile
+        real = self._real = getattr(self.module, self.rule)
 
         def spy(*args, **kw):
             code = real(*args, **kw)
             self.counts[code] = self.counts.get(code, 0) + 1
             return code
-        spike_matmul.resolve_tile = spy
+        setattr(self.module, self.rule, spy)
         return self
 
     def __exit__(self, *exc):
-        spike_matmul.resolve_tile = self._real
+        setattr(self.module, self.rule, self._real)
         return False
+
+
+def digest(t: torch.Tensor) -> str:
+    """The first 16 hex digits of the SHA-256 of ``t``'s bytes: two runs'
+    outputs compared without keeping them."""
+    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu()
+                          .numpy().tobytes()).hexdigest()[:16]
 
 
 def bf16_matmul_row(case, packed, w, fn, shared_w: bool = False) -> dict:
@@ -2823,7 +2847,7 @@ def bf16_matmul_row(case, packed, w, fn, shared_w: bool = False) -> dict:
         (packed, w), moved, 2.0 * got.numel() * c, tc=True,
         plain=spike_matmul.spike_matmul_packed_plain,
         library=lambda: torch.matmul(dense16, w),
-        kernel=kernels[0], **extra,
+        kernel=kernels[0], **extra, digest_gaussian=digest(got_g),
         bitwise_oracle=True, bitwise_gaussian=torch.equal(got_g, want_g),
         max_abs_err=float(err.max()),
         tolerance="bitwise on exact weights (k/64, |k| <= 4); Gaussian "
@@ -2883,12 +2907,19 @@ def bf16_matmul_cases(gen, batch: int,
 
 
 def bf16_bn_cases(gen, batch: int) -> dict[str, list[dict]]:
-    """BN at bf16 at the blocks' (12,544, 512) and (12,544, 2,048): the
-    forward on exact inputs (k/16: every sum exact) bit-equal to the oracle
-    and on Gaussian ones within one bf16 rounding of y; the backward's dx
-    within one bf16 rounding, dgamma and dbeta within 1e-5 of their scale
-    (its sums of mi are not exact). ``library_ms``: ``F.batch_norm`` and
-    ATen's batch-norm backward on the same bf16 operands."""
+    """BN at bf16: the forward at the blocks' (12,544, 512) and (12,544,
+    2,048) on exact inputs (k/16: every sum exact) bit-equal to the oracle
+    and on Gaussian ones within one bf16 rounding of y; the backward at the
+    five distinct shapes of a step (``bn_bwd_shapes``): on dyadic inputs
+    (every column sum exact) dx, dgamma and dbeta equal to the plain
+    version's bit for bit (``bitwise_dyadic``, held), on Gaussian ones dx
+    within one bf16 rounding and dgamma and dbeta within 1e-5 of their
+    scale (its sums of mi are not exact). ``kernels``: the plan kernels of
+    its two passes. ``library_ms``: ``F.batch_norm`` and ATen's batch-norm
+    backward on the same bf16 operands, the backward's also device cold
+    and warm (``library_device_ms``) beside the kernel's
+    (``at_or_below_library``: the kernel's device time, cold, at most
+    ATen's)."""
     cfg = get_spikingformer_config(PRESET)
     m = cfg.time_steps * batch * cfg.num_tokens
     fwd, bwd = [], []
@@ -2922,31 +2953,56 @@ def bf16_bn_cases(gen, batch: int) -> dict[str, list[dict]]:
             tolerance="bitwise on exact inputs; y within one bf16 rounding "
                       "and mu, sqrt_d within 1e-6 of their scale on "
                       "Gaussian inputs"))
-        g = exact16(gen, (m, d), 16, 32)
+        del x, xg, got, got_g, want, want_g
+    for rows, d in bn_bwd_shapes(batch):
+        exact = [a.to(BF16) if i < 2 else a
+                 for i, a in enumerate(dyadic_bn_bwd(gen, rows, d))]
+        dyadic = all_equal(fused_bn.bn_bwd(*exact),
+                           fused_bn.bn_bwd_plain(*exact))
+        del exact
+        gamma = torch.rand((d,), generator=gen, device=DEVICE) + 0.5
+        x = (torch.randn((rows, d), generator=gen, device=DEVICE) * 2.0
+             + 0.5).to(BF16)
+        g = torch.randn((rows, d), generator=gen, device=DEVICE).to(BF16)
         _, mu, sd = kref.bn_fwd_ref(x, gamma, gamma)
         got = fused_bn.bn_bwd(g, x, gamma, mu, sd)
         want = kref.bn_bwd_ref(g, x, gamma, mu, sd)
         torch.cuda.synchronize()
         err = (got[0].float() - want[0].float()).abs()
         stats = max(rel_err(got[1], want[1]), rel_err(got[2], want[2]))
-        if got[0].dtype != BF16 or stats > 1e-5 or not bool(
+        if got[0].dtype != BF16 or stats > 1e-5 or not dyadic or not bool(
                 (err <= 1e-5 + contracts.BF16_RTOL
                  * want[0].float().abs()).all()):
-            fail(f"bf16 bn_bwd {m}x{d}: dx error {float(err.max())}, "
-                 f"dgamma/dbeta {stats}")
+            fail(f"bf16 bn_bwd {rows}x{d}: dx error {float(err.max())}, "
+                 f"dgamma/dbeta {stats}, bitwise on dyadic inputs {dyadic}")
         inv = (1.0 / sd).reshape(-1)
-        bwd.append(bf16_row(
-            f"{m}x{d}", [m, d], fused_bn.bn_bwd, (g, x, gamma, mu, sd),
-            nbytes(g, x, gamma, mu, sd, *got), 12.0 * x.numel(),
-            plain=fused_bn.bn_bwd_plain,
-            library=lambda: torch.ops.aten.native_batch_norm_backward(
+        ops_ = (g, x, gamma, mu, sd)
+        moved = nbytes(*ops_, *got)
+
+        def aten(g, x, gamma, mu, inv):
+            return torch.ops.aten.native_batch_norm_backward(
                 g, x, gamma, None, None, mu.reshape(-1), inv, True, 1e-5,
-                [True, True, True]),
-            bitwise_oracle=torch.equal(got[0], want[0]),
+                [True, True, True])
+
+        lib = cold_warm(aten, (g, x, gamma, mu, inv), moved)
+        row = bf16_row(
+            f"{rows}x{d}", [rows, d], fused_bn.bn_bwd, ops_, moved,
+            12.0 * x.numel(), plain=fused_bn.bn_bwd_plain,
+            library=lambda: aten(g, x, gamma, mu, inv),
+            kernels=plan_kernels(fused_bn.bn_bwd, *ops_),
+            library_device_ms=lib["device_ms"],
+            library_device_ms_l2_warm=lib["device_ms_l2_warm"],
+            bitwise_dyadic=dyadic, bitwise_oracle=torch.equal(got[0], want[0]),
             max_abs_err=float(err.max()), stats_rel_err=stats,
-            tolerance="dx within one bf16 rounding (2^-7 relative, 1e-5 "
-                      "absolute), dgamma and dbeta within 1e-5 of their "
-                      "scale"))
+            tolerance="bitwise on dyadic inputs; dx within one bf16 rounding "
+                      "(2^-7 relative, 1e-5 absolute), dgamma and dbeta "
+                      "within 1e-5 of their scale")
+        row["at_or_below_library"] = row["device_ms"] is not None and \
+            lib["device_ms"] is not None and \
+            row["device_ms"] <= lib["device_ms"]
+        bwd.append(row)
+        del g, x, got, want
+        torch.cuda.empty_cache()
     return {"bn_fwd": fwd, "bn_bwd": bwd}
 
 
@@ -2958,15 +3014,103 @@ def nl_verdict(name: str, got, args, **lif) -> dict:
     return contracts.spike_verdict(got, y, tol, **lif)
 
 
+def fp32_product_calls(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """The library calls that form the fp32 product of the bf16 matrices
+    ``a`` and ``b`` on the tensor cores in one call, by name, each as
+    ``(call, operands)``: bf16 operands with an fp32 result (``torch.mm``'s
+    ``out_dtype``, where this torch has it) and TF32 on operands widened
+    beforehand, allowed for that call alone (a bf16 holds 8 significant
+    bits and TF32 11, so each product is exact and the sum is fp32's, as
+    with TF32 off, which the setup keeps for the fp32 yardsticks)."""
+    def tf32(a, b):
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return torch.mm(a, b)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+
+    def bf16_in(a, b):
+        return torch.mm(a, b, out_dtype=torch.float32)
+    calls = {"torch.mm fp32 operands, TF32": (tf32, (a.float(), b.float()))}
+    try:
+        bf16_in(a, b)
+        calls["torch.mm bf16 operands, fp32 out"] = (bf16_in, (a, b))
+    except (TypeError, RuntimeError, NotImplementedError):
+        pass
+    return calls
+
+
+def z_pass_row(x, w, packed, gen, timed: bool = True) -> dict:
+    """The train arm's first pass alone (``neuron_layer_train_z``, the
+    kernel and bits of the forward's z) on the site's operands: its plan
+    kernel (``z_kernel``), its bound (one bf16 tensor-core pass, 2 T*M*C*K
+    over 989 TFLOP/s, or its bytes: the packed rows, the weight and z),
+    and on Gaussian weights the largest distance of z from the fp32
+    product (the same exact products summed in another order). With
+    ``timed``, its times beside the plain version's and the library's:
+    ``library_ms`` the faster of the tensor-core calls that form the same
+    fp32 z from the unpacked spikes (``fp32_product_calls``, each in
+    ``library_calls_ms``, the one taken in ``library_call``), that call's
+    device ms cold and warm beside the kernel's."""
+    t, m, c = x.shape
+    k = w.shape[1]
+    # the packed arm's input packed once, outside the timed call, as the
+    # forward hands it to the replay
+    xin = spike_matmul.spike_pack(x) if packed else x
+
+    def call(xin, w):
+        if packed:   # x gives the shape; the kernel reads xin
+            return neuron_layer.neuron_layer_train_z(x, w, packed=True,
+                                                     xin=xin)
+        return neuron_layer.neuron_layer_train_z(xin, w)
+    wg = (torch.randn((c, k), generator=gen, device=DEVICE) * 2.0
+          * c ** -0.5).to(w.dtype)
+    z = call(xin, wg)
+    dense = x.float()
+    z32 = torch.matmul(dense, wg.float())
+    torch.cuda.synchronize()
+    moved = nbytes(xin, w) + t * m * k * 4
+    b_ms = moved / HBM_BYTES_PER_S * 1e3
+    o_ms = 2.0 * t * m * c * k / BF16_FLOPS * 1e3
+    row = {"z_kernel": plan_kernels(call, xin, w)[0],
+           "bound_ms": max(b_ms, o_ms),
+           "bound_by": "bytes" if b_ms >= o_ms else "operations",
+           "max_abs_err": float((z - z32).abs().max())}
+    del z, z32, dense
+    if not timed:
+        return row
+    calls = fp32_product_calls(x.reshape(t * m, c), w)
+    lib = {name: time_ms(lambda: fn(*ops)) for name, (fn, ops) in
+           calls.items()}
+    best = min(lib, key=lib.get)
+    fn, ops = calls[best]
+    lib_cw = cold_warm(fn, ops, nbytes(*ops) + t * m * k * 4)
+    row.update(ms=time_ms(lambda: call(xin, w)),
+               **cold_warm(call, (xin, w), moved),
+               plain_ms=time_ms(
+                   lambda: neuron_layer.neuron_layer_train_z_plain(x, w)),
+               library_ms=lib[best], library_call=best,
+               library_calls_ms=lib,
+               library_device_ms=lib_cw["device_ms"],
+               library_device_ms_l2_warm=lib_cw["device_ms_l2_warm"])
+    del calls, ops
+    return row
+
+
 def bf16_neuron_layer_cases(gen, batch: int) -> dict[str, list[dict]]:
     """Both neuron layers at bf16 at the block sites (pssa.qkv, smlp.a)
-    and the first tokenizer stage (dense, C = 27), on exact weights and
-    inputs: spikes the oracle's outside the band (``nl_verdict``; with
-    exact operands every z is exact and none may differ), the train
-    statistics within 1e-5 of their scale, z of the first pass bit-equal
-    to the fp32 product, and the backward's replay the emitted spikes."""
+    and the four tokenizer stages (the first dense, C = 27), on exact
+    weights and inputs: spikes the oracle's outside the band
+    (``nl_verdict``; with exact operands every z is exact and none may
+    differ), the train statistics within 1e-5 of their scale, z of the
+    first pass bit-equal to the fp32 product, and the backward's replay
+    the emitted spikes. Each train row carries its first pass alone
+    (``z_pass``, ``z_pass_row``, timed at the block sites); at the packed
+    sites that pass must run on the wgmma kernel (plan kernel
+    ``Z_WGMMA``)."""
     sites = neuron_layer_sites(batch)
-    sites = sites[-2:] + sites[:1]
+    sites = sites[-2:] + sites[:4]
     train, ev = [], []
     for case, t, m, c, k, packed in sites:
         x = spikes(gen, (t, m, c)).to(BF16) if packed \
@@ -2992,6 +3136,12 @@ def bf16_neuron_layer_cases(gen, batch: int) -> dict[str, list[dict]]:
             fail(f"bf16 neuron_layer_train {case}: spikes {verdict}, "
                  f"statistics {stats}, z bitwise {z_equal}, replay {replay}")
         flops = 2.0 * t * m * c * k
+        z_pass = z_pass_row(x, w, packed, gen,
+                            timed=case in ("pssa.qkv", "smlp.a"))
+        want_z = neuron_layer.Z_WGMMA if packed else neuron_layer.Z_DENSE
+        if z_pass["z_kernel"] != want_z:
+            fail(f"bf16 neuron_layer_train {case}: the z pass ran plan "
+                 f"kernel {z_pass['z_kernel']}, not {want_z}")
         train.append(bf16_row(
             case, [t, m, c, k], functools.partial(
                 neuron_layer.neuron_layer_train, packed=packed), args,
@@ -2999,7 +3149,7 @@ def bf16_neuron_layer_cases(gen, batch: int) -> dict[str, list[dict]]:
             plain=neuron_layer.neuron_layer_train_plain,
             arm="packed" if packed else "dense", spikes=verdict,
             stats_rel_err=stats, max_abs_err=stats, z_bitwise=z_equal,
-            replay_mismatch=replay,
+            replay_mismatch=replay, z_pass=z_pass,
             tolerance="spikes the oracle's outside the band; mu, var within "
                       "1e-5 of their scale; z bitwise; replay bitwise"))
         eargs = (x, w, bias)
@@ -3260,7 +3410,8 @@ def bf16_vision_phase(seed: int, batch: int, smi: str) -> dict[str, dict]:
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()                    # the bf16 training path
     p, st, rows, times = p0, s0, [float(metrics["loss"])], []
-    with KernelTally() as tally_train:
+    with KernelTally() as tally_train, \
+            KernelTally(neuron_layer, "z_kernel") as tally_z:
         for b in batches[1:]:
             t0 = time.perf_counter()
             p, st, opt, m = step(p, st, opt, b["images"], b["labels"])
@@ -3290,6 +3441,7 @@ def bf16_vision_phase(seed: int, batch: int, smi: str) -> dict[str, dict]:
                 "grad_dtypes": grad_dtypes, "grad_step_launches": grad_counts,
                 "launches": train_counts, "launches_per_step": per_step,
                 "launches_by_plan_kernel": tally_train.counts,
+                "z_pass_launches_by_plan_kernel": tally_z.counts,
                 "site_walk": walk_train.rows},
          note="the eager comparison is measured, not held: eager BN rounds "
               "each bf16 operation where the kernels keep fp32")
@@ -3313,10 +3465,21 @@ def bf16_vision_phase(seed: int, batch: int, smi: str) -> dict[str, dict]:
         if tally.counts != want:
             fail(f"bf16 vision {name}: spike matmul launches by plan kernel "
                  f"{tally.counts}, not {want}")
+    # every first pass of the bf16 training path (forward and replay) on
+    # the wgmma z kernel but the dense first tokenizer stage's
+    dense = 2 * (len(batches) - 1)
+    want_z = {neuron_layer.Z_WGMMA: train_counts["neuron_layer_train"]
+              - dense, neuron_layer.Z_DENSE: dense}
+    if tally_z.counts != want_z:
+        fail(f"bf16 vision train: z passes by plan kernel {tally_z.counts}, "
+             f"not {want_z}")
     return {"bf16_serve": {**serve_counts, WGMMA_ENTRY:
-                           tally_serve.counts[spike_matmul.WGMMA]},
+                           tally_serve.counts[spike_matmul.WGMMA],
+                           Z_WGMMA_ENTRY: 0},
             "bf16_train": {**train_counts, WGMMA_ENTRY:
-                           tally_train.counts[spike_matmul.WGMMA]}}
+                           tally_train.counts[spike_matmul.WGMMA],
+                           Z_WGMMA_ENTRY: tally_z.counts[
+                               neuron_layer.Z_WGMMA]}}
 
 
 def bf16_serve(params, arch: str, seed: int, slots: int = LM_SLOTS
@@ -4954,24 +5117,34 @@ def analysis_phase(seed: int) -> dict[str, dict]:
     wgmma = wgmma_launch_family(gen)
     oracle[WGMMA_ENTRY] = {"max_abs_err": wgmma["max_abs_err"],
                            "spikes": None}
+    z_wgmma = wgmma_launch_family(
+        gen, lambda decl: decl.name == "neuron_layer_train",
+        neuron_layer.Z_WGMMA, "z_wgmma")
+    oracle[Z_WGMMA_ENTRY] = {"max_abs_err": z_wgmma["max_abs_err"],
+                             "spikes": z_wgmma["spikes"]}
     emit("analysis", findings=dict(sorted(by_family.items())),
          launch_cases=next(f.message for f in findings
                            if f.check == "audit.kernel.launch"
                            and f.where == "matrix"),
          oracle_cases=len(rows), oracle=per_contract, wgmma=wgmma,
-         static_seconds=static_s, seconds=time.perf_counter() - t0)
+         z_wgmma=z_wgmma, static_seconds=static_s,
+         seconds=time.perf_counter() - t0)
     return oracle
 
 
-def wgmma_launch_family(gen) -> dict:
-    """The bf16 wgmma kernel in the analysis phase: every spike-matmul
-    contract case of the matrix at batch ``BATCH``, in bf16 (the matrix's
-    cases are fp32), its launches read from the plan exports and held to the
-    card's limits (``check_launch_contract``); each case that the rule
-    sends to the wgmma kernel (plan kernel 3) is then launched and held
-    against ``kernels/ref.py`` (exact operands: the oracle's bits). Fails
-    on a finding, a case out of tolerance, or no case on the kernel. The
-    launches do not count: the counts are left as they were."""
+def wgmma_launch_family(gen, select=None, code=None,
+                        what: str = "wgmma") -> dict:
+    """A bf16 wgmma kernel in the analysis phase: every contract case of
+    the matrix at batch ``BATCH`` that ``select(decl)`` takes (by default
+    the spike matmul's), in bf16 (the matrix's cases are fp32), its
+    launches read from the plan exports and held to the card's limits
+    (``check_launch_contract``); each case whose launches run plan kernel
+    ``code`` (by default 3, the spike matmul's wgmma kernel; the neuron
+    layer's bf16 z pass is ``neuron_layer.Z_WGMMA``) is then launched and
+    held against ``kernels/ref.py`` (exact operands: the oracle's bits, a
+    neuron layer's spikes outside the band). Fails on a finding, a case
+    out of tolerance, or no case on the kernel. The launches do not
+    count: the counts are left as they were."""
     from collections import Counter
 
     from repro_torch.analysis.contracts import (check_launch_contract,
@@ -4979,10 +5152,12 @@ def wgmma_launch_family(gen) -> dict:
                                                 kernel_cases, read_launches)
     from repro_torch.kernels.contract import SkipCase
 
+    select = select or (lambda decl: decl.kernel.startswith("spike_matmul"))
+    code = spike_matmul.WGMMA if code is None else code
     counts = launch_counts()
     seen, findings, codes, held = set(), [], Counter(), []
     for where, decl, case in kernel_cases(batch=BATCH):
-        if not decl.kernel.startswith("spike_matmul"):
+        if not select(decl):
             continue
         case16 = dataclasses.replace(case, dtype="bfloat16")
         if (decl.name, case16) in seen:
@@ -4996,7 +5171,7 @@ def wgmma_launch_family(gen) -> dict:
         findings += check_launch_contract(calls, f"{where}[bf16]")
         kinds = [launch.kernel for call in calls for launch in call.launches]
         codes.update(kinds)
-        if spike_matmul.WGMMA in kinds:
+        if code in kinds:
             held.append({"where": where,
                          **hold_against_oracle(decl, case16, gen)})
     torch.cuda.synchronize()
@@ -5004,13 +5179,18 @@ def wgmma_launch_family(gen) -> dict:
     errors = [f.format() for f in findings if f.level == "error"]
     bad = [r for r in held if not r["ok"]]
     if errors or bad or not held:
-        fail(f"analysis, wgmma: {len(errors)} launch finding(s) {errors[:3]}, "
-             f"{len(bad)} case(s) beyond the oracle's tolerance {bad[:2]}, "
-             f"{len(held)} case(s) on plan kernel {spike_matmul.WGMMA}")
+        fail(f"analysis, {what}: {len(errors)} launch finding(s) "
+             f"{errors[:3]}, {len(bad)} case(s) beyond the oracle's "
+             f"tolerance {bad[:2]}, {len(held)} case(s) on plan kernel "
+             f"{code}")
+    errs = [r["max_abs_err"] for r in held if r["max_abs_err"] is not None]
+    spikes = [r["spikes"] for r in held if r["spikes"] is not None]
     return {"cases": len(seen),
             "launches_read_by_plan_kernel": dict(sorted(codes.items())),
             "held": len(held), "bitwise": sum(bool(r["bitwise"]) for r in held),
-            "max_abs_err": max(r["max_abs_err"] for r in held),
+            "max_abs_err": max(errs) if errs else None,
+            "spikes": {k: sum(v[k] for v in spikes) for k in spikes[0]}
+            if spikes else None,
             "shapes": sorted({tuple(r["case"]) for r in held})}
 
 
@@ -5601,7 +5781,43 @@ def summarise(cases: dict[str, list[dict]],
                if split and name in split else {}),
             "cases": rows})
     kernels.append(wgmma_summary(cases, paths, oracle))
+    kernels.append(z_wgmma_summary(cases, paths, oracle))
     return {"kernels": kernels}
+
+
+def z_wgmma_summary(cases: dict[str, list[dict]],
+                    paths: dict[str, dict[str, int]],
+                    oracle: dict[str, dict] | None) -> dict:
+    """The bf16 z pass's entry (``neuron_layer_train_z_wgmma`` in
+    ``csrc/neuron_layer.cu`` on ``csrc/wgmma_mainloop.cuh``, plan kernel
+    ``Z_WGMMA`` of the train-mode entry points): the numbers of its first
+    case (pssa.qkv, the pass alone: ``z_pass_row``), its largest distance
+    from the fp32 product on Gaussian weights over every case that ran it,
+    and its launches on the bf16 paths (forward and replay)."""
+    rows = [dict(r["z_pass"], case=r["case"], shape=r["shape"])
+            for r in cases["neuron_layer_train"]
+            if r.get("z_pass", {}).get("z_kernel") == neuron_layer.Z_WGMMA]
+    first = rows[0]
+    return {
+        "name": Z_WGMMA_ENTRY, "route": "cuda", "source": Z_WGMMA_SOURCE,
+        "mainloop": "src/repro_torch/kernels/csrc/wgmma_mainloop.cuh",
+        "replaces": KERNELS["neuron_layer_train"]["replaces"],
+        "launched_by": ["neuron_layer_train"],
+        "plan_kernel": neuron_layer.Z_WGMMA, "dtype": "bfloat16",
+        "launches": sum(c.get(Z_WGMMA_ENTRY, 0) for c in paths.values()),
+        "launches_by_path": {p: c[Z_WGMMA_ENTRY] for p, c in paths.items()
+                             if Z_WGMMA_ENTRY in c},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "oracle_max_abs_err": (oracle or {}).get(Z_WGMMA_ENTRY, {}).get(
+            "max_abs_err"),
+        "oracle_spikes": (oracle or {}).get(Z_WGMMA_ENTRY, {}).get("spikes"),
+        "ms": first["ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        "library_ms": first["library_ms"],
+        "library_call": first["library_call"], "case": first["case"],
+        "device_ms": first["device_ms"],
+        "device_ms_l2_warm": first["device_ms_l2_warm"],
+        "cases": rows}
 
 
 def wgmma_summary(cases: dict[str, list[dict]],

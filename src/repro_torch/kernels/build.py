@@ -89,17 +89,20 @@ SIGNATURES: dict[str, tuple] = {
     "e2a_neuron_layer_eval": (_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _F, _F,
                               _I, _P),
     # x, w, gamma, beta, z, part, mu, var, sqrt_d, s, T, M, C, K, packed,
+    # kernel (the first pass's, neuron_layer.z_kernel), alpha, th_fire, eps,
+    # dtype, stream
+    "e2a_neuron_layer_train": (_P,) * 10 + (_I, _L, _I, _I, _I, _I, _F, _F,
+                                            _F, _I, _P),
+    # the split path: x, w, z, part, sums, T, M, C, K, packed, kernel,
+    # dtype, stream; then z, gamma, beta, sums, mu, var, sqrt_d, s, T, M, K,
     # alpha, th_fire, eps, dtype, stream
-    "e2a_neuron_layer_train": (_P,) * 10 + (_I, _L, _I, _I, _I, _F, _F, _F,
-                                            _I, _P),
-    # the split path: x, w, z, part, sums, T, M, C, K, packed, dtype,
-    # stream; then z, gamma, beta, sums, mu, var, sqrt_d, s, T, M, K, alpha,
-    # th_fire, eps, dtype, stream
-    "e2a_neuron_layer_train_sums": (_P,) * 5 + (_I, _L, _I, _I, _I, _I, _P),
+    "e2a_neuron_layer_train_sums": (_P,) * 5 + (_I, _L, _I, _I, _I, _I, _I,
+                                                _P),
     "e2a_neuron_layer_train_apply": (_P,) * 8 + (_I, _L, _I, _F, _F, _F,
                                                  _I, _P),
-    # x, w, z, T, M, C, K, packed, dtype, stream
-    "e2a_neuron_layer_train_z": (_P, _P, _P, _I, _L, _I, _I, _I, _I, _P),
+    # x, w, z, T, M, C, K, packed, kernel, dtype, stream
+    "e2a_neuron_layer_train_z": (_P, _P, _P, _I, _L, _I, _I, _I, _I, _I,
+                                 _P),
 }
 
 #: Fields of one launch record and the most records of one entry point

@@ -120,7 +120,8 @@ __device__ __forceinline__ void load_v(const bf16* p, float (&v)[V]) {
   }
 }
 
-// V values to V neighbouring elements at p, each rounded to nearest once.
+// V values to V neighbouring elements at p, each rounded to nearest once:
+// one vector access where V == 4 (or, for bf16, V == 8: 16 bytes).
 template <int V>
 __device__ __forceinline__ void store_v(float* p, const float (&v)[V]) {
   if constexpr (V == 4) {
@@ -133,7 +134,15 @@ __device__ __forceinline__ void store_v(float* p, const float (&v)[V]) {
 
 template <int V>
 __device__ __forceinline__ void store_v(bf16* p, const float (&v)[V]) {
-  if constexpr (V == 4) {
+  if constexpr (V == 8) {
+    uint32_t w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat162 a = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+      w[j] = *reinterpret_cast<const uint32_t*>(&a);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (V == 4) {
     const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
     const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
     *reinterpret_cast<uint2*>(p) =

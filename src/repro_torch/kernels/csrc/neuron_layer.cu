@@ -80,11 +80,19 @@
 // fp32, where a bf16 x bf16 product is exact, so each fmaf adds the exact
 // product as the fp32 accumulator of the reference's dot does. Everything
 // after the product is the fp32 arm's arithmetic, so train_z replays the
-// forward's z bit for bit at bf16 too.
+// forward's z bit for bit at bf16 too. Where the spike matmul's rule sends
+// the same product to its wgmma kernel (a bf16 weight TMA can read, more
+// than 512 rows), pass (a) runs on that kernel's mainloop instead
+// (neuron_layer_train_z_wgmma, wgmma_mainloop.cuh) with an epilogue of its
+// own: z and the column partials of 192-row tiles. The forward, the split
+// path's sums and the replay plan the same pass for the same operands.
+#include <type_traits>
+
 #include "bn_stats.cuh"
 #include "elem.cuh"
 #include "launch_plan.cuh"
 #include "spike_mma_mainloop.cuh"
+#include "wgmma_mainloop.cuh"
 
 namespace {
 
@@ -95,7 +103,7 @@ using e2a::mma::planes_of;
 // Which kernel a Launch record of this file is for.
 enum Kernel {
   EVAL_DENSE, EVAL_LARGE, EVAL_SMALL, Z_DENSE, Z_MMA, STATS, FINALIZE,
-  SOMA4, SOMA1
+  SOMA4, SOMA1, Z_WGMMA
 };
 
 // eq. 11's membrane update, every operation rounded once in the plain
@@ -689,22 +697,208 @@ int launch_train_z_packed(const Launch& l, const e2a::mma::Operands<E>& a,
   return (int)cudaGetLastError();
 }
 
-// Pass (a) of either arm over all T * M rows: ZTile::BM-row tiles for the
-// packed arm (kernels/neuron_layer.py TILE_ROWS), DENSE_TILE_ROWS for the
-// dense arm (DENSE_TILE_ROWS there too); grid.x is the partials' tile
-// count; the packed arm's shared memory holds `planes` weight planes.
+// ---- train, pass (a), packed arm at bf16: the wgmma mainloop ----
+// z (T * M, K) fp32 = x (T * M, C / 8) packed @ w (C, K) bf16 on the
+// mainloop of the bf16 spike matmul (wgmma_mainloop.cuh), wherever the
+// spike matmul's rule sends the same product there (z_kernel in
+// kernels/neuron_layer.py: more than 512 rows and a weight TMA can read).
+// Bound: one bf16 tensor-core pass, 2 * T*M*C*K operations, or z's
+// bytes, T*M*K * 4, whichever is longer
+// (at smlp.a z's 103 MB, 0.031 ms, against the product's 0.027). The
+// one-plane mma.sync pass above ran 4-6x slower than this mainloop on the
+// same product: its weight went through registers into shared memory
+// behind two barriers a chunk, with nothing in flight while the tensor
+// cores waited; here a producer warp keeps the TMA ring full.
+// The epilogue of a consumer's 64 rows x 128 columns:
+// - z goes out as the spike matmul's outputs do: staged in shared memory
+//   in the 128-byte swizzle (four boxes of 32 columns x 64 rows) and
+//   stored by TMA, which clips rows past T * M and columns past K and runs
+//   on while the consumer starts its next tile. Stored from registers, z
+//   took the consumers off the tensor cores for as long as its bytes took
+//   to leave (0.080 against the spike matmul's 0.040 ms at smlp.a).
+// - The column partials of sum(z) and sum(z^2) of each BM-row tile, of
+//   the rounded z, in a fixed order: each consumer's thread c adds column
+//   c of its 64 staged rows in row order, then the ZW_CWG consumers'
+//   sums are added in consumer order through shared memory (the buffer
+//   alternates with the tile's parity, so one barrier a tile keeps a
+//   tile's reads ahead of the next tile's writes). No atomics.
+// The staging takes 32 KB a consumer, so the ring holds three stages
+// (3 x 35 KB + 96 KB + 6 KB of sums fit in the 227 KB a block may use).
+constexpr int ZW_CWG = 3;                          // consumer warpgroups
+constexpr int ZW_STAGES = 3;
+constexpr int ZW_E_WG = 64 * 128 * 4;              // a consumer's z tile
+constexpr int ZW_RED = 2 * 2 * ZW_CWG * 128 * 4;   // [parity][q][wg][n]
+using ZWide = e2a::wg::WTile<ZW_CWG, ZW_STAGES, ZW_CWG * ZW_E_WG + ZW_RED>;
+constexpr int ZW_BARRIER = 4;   // the consumers' named barrier (1-3, 15 taken)
+
+// Byte offset of 16-byte piece p (columns 4p .. 4p + 3) of row r in a
+// consumer's staged z: 32-column boxes of 64 rows x 128 bytes, the pieces
+// of a row in the 128-byte swizzle (piece ^ row % 8), as TMA reads a box
+// of z's tensor map. A warp's 8-byte writes of two pieces over its eight
+// rows, and 32 lanes' reads of one row, fall in 32 distinct banks.
+__device__ __forceinline__ uint32_t z_offset(int r, int p) {
+  return (p / 8) * 64 * 128 + r * 128 + (((p % 8) ^ (r % 8)) * 16);
+}
+
+struct ZEpilogue {
+  using T = ZWide;
+  const CUtensorMap& zmap;
+  float* z;
+  float* part;
+  int n_tiles;
+  long long rows;
+  int K;
+  int parity;
+
+  __device__ __forceinline__ void tile(float (&acc)[T::BN / 2],
+                                       const e2a::wg::TileAt& at) {
+    using namespace e2a::wg;
+    const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, gq = lane / 4, t4 = lane % 4;
+    const uint32_t base = smem_addr(smem_base()) + T::E_OFF;
+    const uint32_t ebuf = base + (wg - 1) * ZW_E_WG;
+    const int row0 = (int)at.m0 + (wg - 1) * 64;
+    // the last TMA store of this consumer has read its staging
+    if (tid == 0) bulk_wait_read();
+    named_sync(wg, 128);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + gq + 8 * h;
+#pragma unroll
+      for (int j = 0; j < T::BN / 8; ++j) {   // columns 8j + 2 t4, + 1
+        const uint32_t at_r = ebuf + z_offset(r, 2 * j + t4 / 2) +
+                              8 * (t4 % 2);
+        asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(at_r),
+                     "f"(acc[4 * j + 2 * h]), "f"(acc[4 * j + 2 * h + 1])
+                     : "memory");
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_sync(wg, 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int q = 0; q < T::BN / 32; ++q)
+        tma_store(ebuf + q * 64 * 128, &zmap, at.n0 + 32 * q, row0, 0);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+    if (part == nullptr) return;   // the replay: z alone (every consumer)
+    // column tid of the consumer's rows in row order, from the staging
+    float s = 0.0f, q = 0.0f;
+    const int n = (int)min(64LL, rows - row0);
+    for (int r = 0; r < n; ++r) {
+      float v;
+      asm volatile("ld.shared.f32 %0, [%1];\n"
+                   : "=f"(v)
+                   : "r"(ebuf + z_offset(r, tid / 4) + 4 * (tid % 4)));
+      s = __fadd_rn(s, v);
+      q = __fadd_rn(q, __fmul_rn(v, v));
+    }
+    float* const red =
+        reinterpret_cast<float*>(smem_base() + T::E_OFF + ZW_CWG * ZW_E_WG) +
+        parity * (2 * ZW_CWG * T::BN);
+    red[(wg - 1) * T::BN + tid] = s;
+    red[(ZW_CWG + wg - 1) * T::BN + tid] = q;
+    named_sync(ZW_BARRIER, 128 * T::CWG);
+    // the consumers in order: threads 0 .. 2 BN - 1 of the consumers
+    const int i = threadIdx.x - 128;
+    if (i < 2 * T::BN) {
+      const int qi = i / T::BN, c = i % T::BN, col = at.n0 + c;
+      if (col < K) {
+        float v = 0.0f;
+#pragma unroll
+        for (int k = 0; k < ZW_CWG; ++k)
+          v = __fadd_rn(v, red[(qi * ZW_CWG + k) * T::BN + c]);
+        part[((long long)qi * n_tiles + at.tm) * K + col] = v;
+      }
+    }
+    parity ^= 1;
+  }
+
+  __device__ __forceinline__ void done(uint32_t sink) {
+    if (threadIdx.x % 128 == 0)
+      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    if (rows < 0) z[threadIdx.x] = __uint_as_float(sink);
+  }
+};
+
+__global__ void __launch_bounds__(ZWide::THREADS, 1)
+    neuron_layer_train_z_wgmma(const __grid_constant__ CUtensorMap wmap,
+                               const __grid_constant__ CUtensorMap xmap,
+                               const __grid_constant__ CUtensorMap zmap,
+                               const e2a::wg::Args a, float* __restrict__ z,
+                               float* __restrict__ part, int n_tiles) {
+  ZEpilogue epi{zmap, z, part, n_tiles, a.M, a.K, 0};
+  e2a::wg::mainloop<ZWide, true>(wmap, xmap, a, epi);
+}
+
+// The partials' row tiles of pass (a) as planned (kernels/neuron_layer.py
+// part_tiles): grid.x where a block is a row tile, the BM-row tiles of
+// all T * M rows on the persistent wgmma kernel.
+long long z_parts(const Launch& l, long long rows) {
+  return l.kernel == Z_WGMMA ? cdiv(rows, ZWide::BM) : l.grid[0];
+}
+
+// Pass (a) at bf16 on the wgmma mainloop: the tensor maps, the launch.
 // Returns a cudaError_t.
-int z_plan(int T, long long M, int C, int K, int packed, int planes,
-           Launch& l) {
+int launch_z_wgmma(const Launch& l, const void* x, const bf16* w, float* z,
+                   float* part, long long rows, int C, int K,
+                   cudaStream_t st) {
+  e2a::wg::Args a = {static_cast<const uint8_t*>(x), nullptr, 1, 1, (int)rows,
+                     C, K, 0, 0, C / 8, 1, 0, 0, 0, 0,
+                     0, 0, 0, 0, 0, 0, 0};
+  CUtensorMap wmap, xmap = {}, zmap;
+  int err = e2a::wg::encode_weight<ZWide>(&wmap, a, w, 1, 1, 0, 0, K, 1);
+  if (err == 0) err = e2a::wg::encode_rows<ZWide>(&xmap, a, 1);
+  if (err != 0) return err;
+  if (!a.n_major || reinterpret_cast<uintptr_t>(z) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  // z (rows, K) fp32: K, the rows and one batch; boxes of 32 columns x 64
+  // rows in the 128-byte swizzle (K % 8 == 0: rows of 16-byte multiples)
+  const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)K * 4, (cuuint64_t)K * 4 * rows};
+  const cuuint32_t box[3] = {32, 64, 1};
+  if (e2a::wg::encode_cached(&zmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, z,
+                             dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                             CU_TENSOR_MAP_L2_PROMOTION_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  static bool raised[kMaxDevices] = {};
+  err = raise_smem(
+      l, reinterpret_cast<const void*>(neuron_layer_train_z_wgmma), raised);
+  if (err != 0) return err;
+  neuron_layer_train_z_wgmma<<<grid_of(l), block_of(l), l.smem, st>>>(
+      wmap, xmap, zmap, a, z, part, (int)z_parts(l, rows));
+  return (int)cudaGetLastError();
+}
+
+// Pass (a) of either arm over all T * M rows on the kernel the caller
+// names (kernels/neuron_layer.py z_kernel, the spike matmul's rule):
+// Z_DENSE for the dense arm, DENSE_TILE_ROWS-row tiles (DENSE_TILE_ROWS
+// there too); Z_MMA for the packed arm, ZTile::BM-row tiles (TILE_ROWS
+// there), its shared memory the weight planes of dtype; Z_WGMMA for the
+// packed arm at bf16 with a (C, K) weight TMA can read (contiguous,
+// 16-byte aligned, K % 8 == 0), the persistent wgmma kernel over
+// ZWide::BM-row tiles (WGMMA_TILE_ROWS there). grid.x, or those tiles,
+// is the partials' tile count (z_parts). A kernel the call cannot take is
+// refused, with no other in its place. Returns a cudaError_t.
+int z_plan(int T, long long M, int C, int K, int packed, int kernel,
+           int dtype, const void* w, Launch& l) {
   if (packed && C % 8 != 0) return (int)cudaErrorInvalidValue;
   if (T < 1 || T > 8) return (int)cudaErrorInvalidValue;
+  if (kernel != (packed ? Z_MMA : Z_DENSE) &&
+      !(packed && kernel == Z_WGMMA))
+    return (int)cudaErrorInvalidValue;
   const long long rows = (long long)T * M;
   if (!packed) {
     l = dense_plan(rows, DENSE_TILE_ROWS, K, Z_DENSE);
     return 0;
   }
   if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  l = launch_of(ZTile::THREADS, 1, ZTile::smem(planes), Z_MMA);
+  if (kernel == Z_WGMMA) {
+    if (dtype != kBfloat16 || !e2a::wg::tma_suits(w, 1, 1, C, K, 0, 0, K, 1))
+      return (int)cudaErrorInvalidValue;
+    return e2a::wg::wgmma_plan<ZWide>((int)rows, K, 1, Z_WGMMA, l);
+  }
+  l = launch_of(ZTile::THREADS, 1, ZTile::smem(planes_of(dtype)), Z_MMA);
   axis(l, 0, cdiv(rows, ZTile::BM), ZTile::BM, rows);
   axis(l, 1, cdiv(K, ZTile::BN), ZTile::BN, K);
   return 0;
@@ -716,6 +910,10 @@ template <class E>
 int launch_z(const Launch& l, const void* x, const E* w, float* z,
              float* part, int T, long long M, int C, int K, cudaStream_t st) {
   const long long rows = (long long)T * M;
+  if constexpr (std::is_same_v<E, bf16>) {
+    if (l.kernel == Z_WGMMA)
+      return launch_z_wgmma(l, x, w, z, part, rows, C, K, st);
+  }
   if (l.kernel == Z_MMA) {
     // T is a row index here: x (T * M, C / 8) and z (T * M, K), contiguous
     const e2a::mma::Operands<E> a = {static_cast<const uint8_t*>(x), C / 8, 1,
@@ -880,13 +1078,12 @@ int eval_plan(int T, long long M, int C, int K, int packed, int tile,
   return 0;
 }
 
-int train_plan(int T, long long M, int C, int K, int packed, bool soma,
-               int dtype, Launch* l, int& n) {
+int train_plan(int T, long long M, int C, int K, int packed, int kernel,
+               bool soma, int dtype, const void* w, Launch* l, int& n) {
   n = 0;
-  const int planes = planes_of(dtype);
-  if (planes == 0) return (int)cudaErrorInvalidValue;
+  if (planes_of(dtype) == 0) return (int)cudaErrorInvalidValue;
   if (M <= 0 || K <= 0) return 0;
-  const int code = z_plan(T, M, C, K, packed, planes, l[0]);
+  const int code = z_plan(T, M, C, K, packed, kernel, dtype, w, l[0]);
   if (code != 0) return code;
   l[1] = stats_plan(K);
   n = 2;
@@ -905,13 +1102,12 @@ int train_apply_plan(int T, long long M, int K, int dtype, Launch* l,
   return 0;
 }
 
-int train_z_plan(int T, long long M, int C, int K, int packed, int dtype,
-                 Launch* l, int& n) {
+int train_z_plan(int T, long long M, int C, int K, int packed, int kernel,
+                 int dtype, const void* w, Launch* l, int& n) {
   n = 0;
-  const int planes = planes_of(dtype);
-  if (planes == 0) return (int)cudaErrorInvalidValue;
+  if (planes_of(dtype) == 0) return (int)cudaErrorInvalidValue;
   if (M <= 0 || K <= 0) return 0;
-  const int code = z_plan(T, M, C, K, packed, planes, l[0]);
+  const int code = z_plan(T, M, C, K, packed, kernel, dtype, w, l[0]);
   if (code == 0) n = 1;
   return code;
 }
@@ -965,18 +1161,20 @@ extern "C" int e2a_neuron_layer_eval_plan(
 
 // Train mode: x (T, M, C) [packed: (T, M, C/8) uint8] @ w (C, K) -> batch
 // statistics over T * M rows -> BN -> SOMA. Writes s (T, M, K) and mu, var,
-// sqrt_d (K); z (T, M, K) and part are scratch. part holds (2, n_tiles, K)
-// floats, n_tiles the z pass's grid.x (z_plan).
+// sqrt_d (K); z (T, M, K) and part are scratch. kernel names pass (a)'s
+// kernel (z_plan: Z_DENSE, Z_MMA or Z_WGMMA). part holds (2, n_tiles, K)
+// floats, n_tiles the row tiles of that kernel (z_parts).
 extern "C" int e2a_neuron_layer_train(const void* x, const void* w,
                                       const float* gamma, const float* beta,
                                       float* z, float* part, float* mu,
                                       float* var, float* sqrt_d, void* s,
                                       int T, long long M, int C, int K,
-                                      int packed, float alpha, float th_fire,
-                                      float eps, int dtype, void* stream) {
+                                      int packed, int kernel, float alpha,
+                                      float th_fire, float eps, int dtype,
+                                      void* stream) {
   Launch l[kMaxLaunches];
   int n = 0;
-  int code = train_plan(T, M, C, K, packed, true, dtype, l, n);
+  int code = train_plan(T, M, C, K, packed, kernel, true, dtype, w, l, n);
   if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return by_dtype(dtype, [&](auto tag) {
@@ -985,8 +1183,8 @@ extern "C" int e2a_neuron_layer_train(const void* x, const void* w,
         launch_z(l[0], x, static_cast<const E*>(w), z, part, T, M, C, K, st);
     if (err != 0) return err;
     neuron_layer_train_stats<<<grid_of(l[1]), block_of(l[1]), 0, st>>>(
-        part, mu, var, sqrt_d, nullptr, (int)l[0].grid[0], K, (double)T * M,
-        eps);
+        part, mu, var, sqrt_d, nullptr, (int)z_parts(l[0], (long long)T * M),
+        K, (double)T * M, eps);
     return launch_soma(l[2], z, gamma, beta, mu, sqrt_d, static_cast<E*>(s),
                        T, M, K, alpha, th_fire, st);
   });
@@ -995,11 +1193,12 @@ extern "C" int e2a_neuron_layer_train(const void* x, const void* w,
 extern "C" int e2a_neuron_layer_train_plan(
     const void* x, const void* w, const float* gamma, const float* beta,
     float* z, float* part, float* mu, float* var, float* sqrt_d, void* s,
-    int T, long long M, int C, int K, int packed, float alpha, float th_fire,
-    float eps, int dtype, long long* records, int cap) {
+    int T, long long M, int C, int K, int packed, int kernel, float alpha,
+    float th_fire, float eps, int dtype, long long* records, int cap) {
   Launch l[kMaxLaunches];
   int n = 0;
-  const int code = train_plan(T, M, C, K, packed, true, dtype, l, n);
+  const int code =
+      train_plan(T, M, C, K, packed, kernel, true, dtype, w, l, n);
   return write_plan(code, l, n, records, cap);
 }
 
@@ -1010,10 +1209,11 @@ extern "C" int e2a_neuron_layer_train_sums(const void* x, const void* w,
                                            float* z, float* part,
                                            double* sums, int T, long long M,
                                            int C, int K, int packed,
-                                           int dtype, void* stream) {
+                                           int kernel, int dtype,
+                                           void* stream) {
   Launch l[kMaxLaunches];
   int n = 0;
-  int code = train_plan(T, M, C, K, packed, false, dtype, l, n);
+  int code = train_plan(T, M, C, K, packed, kernel, false, dtype, w, l, n);
   if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return by_dtype(dtype, [&](auto tag) {
@@ -1022,19 +1222,20 @@ extern "C" int e2a_neuron_layer_train_sums(const void* x, const void* w,
         launch_z(l[0], x, static_cast<const E*>(w), z, part, T, M, C, K, st);
     if (err != 0) return err;
     neuron_layer_train_stats<<<grid_of(l[1]), block_of(l[1]), 0, st>>>(
-        part, nullptr, nullptr, nullptr, sums, (int)l[0].grid[0], K,
-        (double)T * M, 0.0f);
+        part, nullptr, nullptr, nullptr, sums,
+        (int)z_parts(l[0], (long long)T * M), K, (double)T * M, 0.0f);
     return (int)cudaGetLastError();
   });
 }
 
 extern "C" int e2a_neuron_layer_train_sums_plan(
     const void* x, const void* w, float* z, float* part, double* sums, int T,
-    long long M, int C, int K, int packed, int dtype, long long* records,
-    int cap) {
+    long long M, int C, int K, int packed, int kernel, int dtype,
+    long long* records, int cap) {
   Launch l[kMaxLaunches];
   int n = 0;
-  const int code = train_plan(T, M, C, K, packed, false, dtype, l, n);
+  const int code =
+      train_plan(T, M, C, K, packed, kernel, false, dtype, w, l, n);
   return write_plan(code, l, n, records, cap);
 }
 
@@ -1076,15 +1277,17 @@ extern "C" int e2a_neuron_layer_train_apply_plan(
 }
 
 // Pass (a) of the train mode alone: z (T, M, K) = x @ w, the same kernel,
-// tile and bits as e2a_neuron_layer_train's z, without the column partials.
-// The autograd op's backward replays the forward's pre-activation with it.
+// tile and bits as e2a_neuron_layer_train's z for the same kernel, without
+// the column partials. The autograd op's backward replays the forward's
+// pre-activation with it.
 extern "C" int e2a_neuron_layer_train_z(const void* x, const void* w,
                                         float* z, int T, long long M, int C,
-                                        int K, int packed, int dtype,
-                                        void* stream) {
+                                        int K, int packed, int kernel,
+                                        int dtype, void* stream) {
   Launch l[kMaxLaunches];
   int n = 0;
-  const int code = train_z_plan(T, M, C, K, packed, dtype, l, n);
+  const int code =
+      train_z_plan(T, M, C, K, packed, kernel, dtype, w, l, n);
   if (code != 0 || n == 0) return code;
   return by_dtype(dtype, [&](auto tag) {
     using E = typename decltype(tag)::type;
@@ -1095,9 +1298,10 @@ extern "C" int e2a_neuron_layer_train_z(const void* x, const void* w,
 
 extern "C" int e2a_neuron_layer_train_z_plan(
     const void* x, const void* w, float* z, int T, long long M, int C, int K,
-    int packed, int dtype, long long* records, int cap) {
+    int packed, int kernel, int dtype, long long* records, int cap) {
   Launch l[kMaxLaunches];
   int n = 0;
-  const int code = train_z_plan(T, M, C, K, packed, dtype, l, n);
+  const int code =
+      train_z_plan(T, M, C, K, packed, kernel, dtype, w, l, n);
   return write_plan(code, l, n, records, cap);
 }

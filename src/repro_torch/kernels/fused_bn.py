@@ -30,6 +30,12 @@ statistics ``mu`` and ``sqrt_d``, ``dgamma`` and ``dbeta`` stay fp32, and
 ``y`` and ``dx`` are rounded to bf16 once, at the store, as the reference's
 Pallas kernels store them in ``x.dtype`` and ``g.dtype``. ``gamma`` and
 ``beta`` reach the kernels as fp32 (a bf16 parameter is widened, exactly).
+The backward's bf16 arm has launch shapes of its own (the fp32 ones move
+half the bytes a lane at bf16): its first pass takes two columns a lane
+over chunks of at least :data:`BWD16_MIN_CHUNK_ROWS` rows
+(:func:`bwd_chunking`), its dx pass eight (16 bytes a lane) where D % 8 ==
+0 and the operands are 16-byte aligned; each element's arithmetic stays
+the fp32 arm's.
 
 Data parallelism (``group``, the process group over the batch axes): the
 statistics are those of the global batch. Each kernel's first launch then
@@ -66,12 +72,23 @@ from repro_torch.kernels import build, dtype_code, meta_site
 #: fewer chunks leave its elected blocks less to add.
 MIN_CHUNK_ROWS, MAX_CHUNKS = 128, 256
 BWD_MIN_CHUNK_ROWS = 512
+#: At bf16 a lane of the backward's first pass takes two columns
+#: (``bn_bwd_partials2``), so a block covers twice the columns: its chunks
+#: are shorter, so that as many blocks are at work.
+BWD16_MIN_CHUNK_ROWS = 256
 
 
 def _chunking(m: int, min_rows: int = MIN_CHUNK_ROWS) -> tuple[int, int]:
     """(rows per chunk, number of chunks) for M rows."""
     rows = max(min_rows, -(-m // MAX_CHUNKS))
     return rows, -(-m // rows)
+
+
+def bwd_chunking(m: int, dtype: torch.dtype) -> tuple[int, int]:
+    """The backward's chunks of M rows of ``dtype``: (rows per chunk,
+    number of chunks)."""
+    return _chunking(m, BWD16_MIN_CHUNK_ROWS if dtype == torch.bfloat16
+                     else BWD_MIN_CHUNK_ROWS)
 
 
 #: Columns one arrival counter of either first pass serves: a block of
@@ -296,7 +313,7 @@ def bn_bwd(g: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
         return dx, dgamma, dbeta
     m, d = g.shape
     dx = torch.empty_like(g)
-    rows, chunks = _chunking(m, BWD_MIN_CHUNK_ROWS)
+    rows, chunks = bwd_chunking(m, g.dtype)
     # one allocation for the partials, dgamma, dbeta and eq. 23's terms
     buf = torch.empty((4 * chunks + 6, d), dtype=torch.float32,
                       device=g.device)
@@ -320,7 +337,7 @@ def bn_bwd_sums(g, x, gamma, mu, sqrt_d):
     1,) float64 buffer of this rank's s_n, s_m, s_mn per column and its
     row count; dgamma and dbeta from this rank's rows."""
     m, d = g.shape
-    rows, chunks = _chunking(m, BWD_MIN_CHUNK_ROWS)
+    rows, chunks = bwd_chunking(m, g.dtype)
     buf = torch.empty((4 * chunks + 2, d), dtype=torch.float32,
                       device=g.device)
     part, dgamma, dbeta = buf.split([4 * chunks, 1, 1])
@@ -390,7 +407,7 @@ def bwd_on_meta(g, x, gamma, mu, sqrt_d, group=None):
     its partial sums (which they keep alive, as on the card); with
     ``group`` the split path's (3 * D + 1,) float64 sums all-reduced."""
     m, d = g.shape
-    chunks = _chunking(m, BWD_MIN_CHUNK_ROWS)[1]
+    chunks = bwd_chunking(m, g.dtype)[1]
     extra = 2 if group is not None else 6
     buf = torch.empty((4 * chunks + extra, d), dtype=torch.float32,
                       device=g.device)

@@ -49,10 +49,14 @@ in fp32, BN or the bias and the SOMA on the fp32 accumulator, the spikes
 stored in ``x.dtype``): x and w bf16 in one dtype; the packed arms run the
 tensor-core mainloop on one weight plane (a bf16 weight is its own), the
 dense arms widen each staged element to fp32, where a bf16 product is
-exact. z, the statistics and everything after the product are the fp32
-arm's; the spikes come back in bf16. gamma, beta and the bias reach the
-kernels as fp32 (a bf16 vector widened exactly). The plain versions form
-the same fp32 product (``neuron_layer_train_z_plain``).
+exact. Where the spike matmul's rule sends the same product to its wgmma
+kernel (:func:`z_kernel`: a bf16 weight TMA can read, more than 512 rows)
+the train arm's first pass runs on that kernel's mainloop
+(``csrc/wgmma_mainloop.cuh``) instead, 192-row tiles
+(:data:`WGMMA_TILE_ROWS`). z, the statistics and everything after the
+product are the fp32 arm's; the spikes come back in bf16. gamma, beta and
+the bias reach the kernels as fp32 (a bf16 vector widened exactly). The
+plain versions form the same fp32 product (``neuron_layer_train_z_plain``).
 
 ``neuron_layer_train_z`` is that first pass alone: the autograd ops'
 backward replays the pre-activation with it, so the replayed z is the
@@ -73,7 +77,8 @@ import torch.distributed as dist
 from repro_torch.kernels import build, dtype_code, meta_site
 from repro_torch.kernels.fused_bn import global_sums, row_count
 from repro_torch.kernels.lif_soma import lif_soma_fwd_plain
-from repro_torch.kernels.spike_matmul import spike_pack
+from repro_torch.kernels.spike_matmul import (WGMMA_MIN_ROWS, spike_pack,
+                                              tma_suits)
 
 #: Time steps the entry points take.
 MAX_TIME_STEPS = 8
@@ -86,6 +91,51 @@ TILE_ROWS = 256
 #: The same for the dense arm, whose tiles also run over all T*M rows
 #: (``DENSE_TILE_ROWS`` in ``csrc/neuron_layer.cu``).
 DENSE_TILE_ROWS = 1024
+
+#: The same for the first pass at bf16 on the wgmma mainloop (``ZWide::BM``
+#: in ``csrc/neuron_layer.cu``: three consumer warpgroups of 64 rows).
+WGMMA_TILE_ROWS = 192
+
+#: The plan kernels of the first pass (``Kernel`` in
+#: ``csrc/neuron_layer.cu``): the dense arm's, the packed arm's on the
+#: one-plane ``mma.sync`` mainloop, and the bf16 packed arm's on wgmma.
+Z_DENSE, Z_MMA, Z_WGMMA = 3, 4, 9
+
+
+def z_kernel(rows: int, w: torch.Tensor, packed: bool) -> int:
+    """The plan kernel of the first pass over ``rows`` = T*M rows with the
+    (C, K) weight ``w``: :data:`Z_WGMMA` where the spike matmul's rule
+    (``spike_matmul.resolve_tile``) sends the same product to its wgmma
+    kernel (a bf16 weight that ``tma_suits``, more than ``WGMMA_MIN_ROWS``
+    rows), else :data:`Z_MMA` packed and :data:`Z_DENSE` dense. The rule
+    lives here alone: the forward, the split path's sums and the replay
+    each call it once a launch and pass its code to the C entry point,
+    which plans that kernel or refuses it (``z_plan`` in
+    ``csrc/neuron_layer.cu``), so all three run one kernel on the same
+    operands and the replay gives the forward's z bit for bit."""
+    if not packed:
+        return Z_DENSE
+    wgmma = w.dtype == torch.bfloat16 and rows > WGMMA_MIN_ROWS and \
+        tma_suits(w[None, None])
+    return Z_WGMMA if wgmma else Z_MMA
+
+
+def part_tiles(rows: int, kernel: int) -> int:
+    """Row tiles of the first pass's column partials over ``rows`` rows on
+    plan kernel ``kernel`` (``z_parts`` in ``csrc/neuron_layer.cu``)."""
+    return -(-rows // {Z_DENSE: DENSE_TILE_ROWS, Z_MMA: TILE_ROWS,
+                       Z_WGMMA: WGMMA_TILE_ROWS}[kernel])
+
+
+def train_scratch(x: torch.Tensor, w: torch.Tensor, kernel: int):
+    """The first pass's scratch for x (T, M, C) and w (C, K) on x's
+    device: ``(z (T, M, K), part (2, tiles, K))``, both fp32, the partials'
+    row tiles those of plan kernel ``kernel`` (:func:`z_kernel`)."""
+    t, m, _ = x.shape
+    k = w.shape[1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (torch.empty((t, m, k), **f32),
+            torch.empty((2, part_tiles(t * m, kernel), k), **f32))
 
 
 def neuron_layer_train_z_plain(x: torch.Tensor,
@@ -241,16 +291,15 @@ def neuron_layer_train_fwd(x: torch.Tensor, w: torch.Tensor,
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     s = torch.empty((t, m, k), dtype=x.dtype, device=dev)
-    z = torch.empty((t, m, k), **f32)
-    tiles = -(-t * m // (TILE_ROWS if packed else DENSE_TILE_ROWS))
-    part = torch.empty((2, tiles, k), **f32)
+    kernel = z_kernel(t * m, w, packed)
+    z, part = train_scratch(x, w, kernel)
     mu, var, sqrt_d = (torch.empty((1, k), **f32) for _ in range(3))
     with torch.cuda.device(dev):
         code = build.load().e2a_neuron_layer_train(
             (x if xin is None else xin).data_ptr(), w.data_ptr(),
             gamma.data_ptr(), beta.data_ptr(), z.data_ptr(), part.data_ptr(),
             mu.data_ptr(), var.data_ptr(), sqrt_d.data_ptr(), s.data_ptr(),
-            t, m, c, k, int(packed), alpha, th_fire, eps,
+            t, m, c, k, int(packed), kernel, alpha, th_fire, eps,
             dtype_code(x.dtype, "neuron_layer_train"),
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(code, "neuron_layer_train")
@@ -270,16 +319,14 @@ def neuron_layer_train_sums(x: torch.Tensor, w: torch.Tensor, *,
     k = w.shape[1]
     if packed and xin is None:
         xin = spike_pack(x)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    z = torch.empty((t, m, k), **f32)
-    tiles = -(-t * m // (TILE_ROWS if packed else DENSE_TILE_ROWS))
-    part = torch.empty((2, tiles, k), **f32)
+    kernel = z_kernel(t * m, w, packed)
+    z, part = train_scratch(x, w, kernel)
     sums = torch.empty(2 * k + 1, dtype=torch.float64, device=x.device)
     with torch.cuda.device(x.device):
         code = build.load().e2a_neuron_layer_train_sums(
             (xin if packed else x).data_ptr(), w.data_ptr(), z.data_ptr(),
             part.data_ptr(), sums.data_ptr(), t, m, c, k, int(packed),
-            dtype_code(w.dtype, "neuron_layer_train"),
+            kernel, dtype_code(w.dtype, "neuron_layer_train"),
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(code, "neuron_layer_train")
     return sums, z
@@ -340,11 +387,12 @@ def neuron_layer_train_z(x: torch.Tensor, w: torch.Tensor, *,
     if packed and xin is None:
         xin = spike_pack(x)
     src = xin if packed else x
+    kernel = z_kernel(t * m, w, packed)   # the forward's: its z's bits
     z = torch.empty((t, m, w.shape[1]), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         code = build.load().e2a_neuron_layer_train_z(
             src.data_ptr(), w.data_ptr(), z.data_ptr(), t, m, c, w.shape[1],
-            int(packed), dtype_code(w.dtype, "neuron_layer_train_z"),
+            int(packed), kernel, dtype_code(w.dtype, "neuron_layer_train_z"),
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(code, "neuron_layer_train_z")
     neuron_layer_train.launches += 1
@@ -388,21 +436,22 @@ def eval_on_meta(x, w, bias, packed):
 
 def train_on_meta(x, w, gamma, beta, packed, group=None):
     """``neuron_layer_train_fwd``'s shape rule on ``meta``: the packed
-    input (kept, as the autograd op keeps it), z (T, M, K) fp32 as the
-    kernel's scratch, with ``group`` the (2 * K + 1,) float64 sums
-    all-reduced; ``(spikes, mu, var, sqrt_d, xin)``, the statistics (1, K)
-    fp32."""
+    input (kept, as the autograd op keeps it), z (T, M, K) fp32 and the
+    column partials (2, :func:`part_tiles`, K) fp32 of the first pass's
+    kernel (:func:`z_kernel`) as the kernel's scratch, with ``group`` the
+    (2 * K + 1,) float64 sums all-reduced; ``(spikes, mu, var, sqrt_d,
+    xin)``, the statistics (1, K) fp32."""
     xin = spike_pack(x) if packed else None
     t, m, _ = x.shape
     k = w.shape[1]
     f32 = dict(dtype=torch.float32, device=x.device)
-    z = torch.empty((t, m, k), **f32)
+    z, part = train_scratch(x, w, z_kernel(t * m, w, packed))
     if group is not None:
         dist.all_reduce(torch.empty(2 * k + 1, dtype=torch.float64,
                                     device=x.device), group=group)
     s = torch.empty((t, m, k), dtype=x.dtype, device=x.device)
     stats = tuple(torch.empty((1, k), **f32) for _ in range(3))
-    del z                           # the kernel's scratch, freed on return
+    del z, part                     # the kernel's scratch, freed on return
     meta_site("neuron_layer_train", (x, w, gamma, beta), (s, *stats),
               _product_flops(x, w))
     return (s, *stats, xin)

@@ -36,7 +36,9 @@ output's dtype is the weight's. Two kernels do it. :data:`WGMMA` is
 ``csrc/spike_wgmma.cuh``, designed for Hopper: a producer warp keeps a
 ring of the weight's and the packed rows' chunks full by TMA, three
 consumer warpgroups expand the spikes into wgmma's register A fragments
-and read the weight from shared memory. :func:`resolve_tile`
+and read the weight from shared memory (the mainloop of
+``csrc/wgmma_mainloop.cuh``, which the train-mode neuron layer's bf16 z
+pass runs too). :func:`resolve_tile`
 names it for more than :data:`WGMMA_MIN_ROWS` rows and a weight TMA can
 read (:func:`tma_suits`); every other bf16 call runs the tiles of
 :data:`TILES` with the weight as its single plane.

@@ -1708,3 +1708,271 @@ def test_a_read_fault_on_a_world_of_one_falls_back_once(world_of_one,
                                              world_of_one, specs)
     assert step == 2 and len(injector.events) == 1
     assert all(torch.equal(got[k], v) for k, v in tree(2).items())
+
+
+# --- the bf16 arms of bn_bwd and of the train z pass, on Hopper designs ----
+
+BF16 = torch.bfloat16
+#: ``Kernel`` of ``csrc/fused_bn.cu``: the backward's first pass (one or
+#: two columns a lane) and its dx pass (one, four or eight).
+BN_PLAN = {"P1": 4, "DX4": 5, "DX1": 6, "P2": 8, "DX8": 9}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,offset,want", [
+    (12544, 512, 0, ("P2", "DX8")),   # the block sites' width
+    (130, 2048, 0, ("P2", "DX8")),    # smlp's hidden width
+    (5000, 256, 0, ("P2", "DX8")),
+    (777, 128, 0, ("P2", "DX8")),
+    (1000, 64, 0, ("P2", "DX8")),
+    (12544, 130, 0, ("P2", "DX1")),   # D % 4 != 0
+    (300, 24, 1, ("P1", "DX1")),      # g and x 2 bytes off: today's arms
+    (BIG_M, 4, 0, ("P2", "DX4")),     # more row ranges than grid.y takes
+    (BIG_M, 8, 0, ("P2", "DX8")),
+])
+def test_bf16_bn_bwd_against_its_plain_version_at_ragged_shapes(m, d, offset,
+                                                                 want):
+    """bn_bwd at bf16 on the arms its plan names (two columns a lane in the
+    first pass, eight in the dx pass where D % 8 == 0 and the operands are
+    16-byte aligned): on dyadic inputs dx, dgamma and dbeta
+    equal the plain version's bit for bit (every column sum exact, every
+    element's arithmetic the plain version's); on Gaussian inputs dx within
+    one bf16 rounding, dgamma and dbeta within 1e-5 of their scale, nan in
+    dgamma where gamma is 0, two calls the same bits. An fp32 call of the
+    same shape keeps the fp32 arms."""
+    from repro_torch.kernels import fused_bn
+    dev = _card()
+    rng = np.random.default_rng(35)
+
+    def operands(arrays, dtype):
+        out = []
+        for a in arrays:
+            a = np.asarray(a, np.float32)
+            if a.shape == (m, d):          # g and x at the case's offset
+                flat = _t(np.concatenate([np.zeros(offset, np.float32),
+                                          a.ravel()])).to(dev, dtype)
+                a = flat[offset:].view(m, d)
+            else:
+                a = _t(a).to(dev)
+            out.append(a)
+        return out
+
+    exact = operands(_dyadic_bn_bwd(rng, m, d), BF16)
+    plans = [la.kernel for la in _plan_kernels(fused_bn.bn_bwd, *exact)]
+    assert plans == [BN_PLAN[w] for w in want]
+    got = fused_bn.bn_bwd(*exact)
+    wanted = fused_bn.bn_bwd_plain(*exact)
+    torch.cuda.synchronize()
+    assert got[0].dtype == BF16
+    for name, a, b in zip(("dx", "dgamma", "dbeta"), got, wanted):
+        assert torch.equal(a, b), name
+    fp32 = operands(_dyadic_bn_bwd(rng, m, d), torch.float32)
+    assert [la.kernel for la in _plan_kernels(fused_bn.bn_bwd, *fp32)][0] == \
+        BN_PLAN["P1"]
+    del exact, fp32
+    gauss = [rng.normal(size=(m, d)), rng.normal(0.5, 2.0, (m, d)),
+             rng.uniform(0.5, 1.5, d)]
+    gauss[2][::5] = 0.0
+    g, x, gamma = operands(gauss, BF16)
+    _, mu, sd = fused_bn.bn_fwd_plain(x, gamma, gamma)
+    runs = [fused_bn.bn_bwd(g, x, gamma, mu, sd) for _ in range(2)]
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    dx, dgamma, dbeta = runs[0]
+    wdx, wdgamma, wdbeta = fused_bn.bn_bwd_plain(g, x, gamma, mu, sd)
+    torch.cuda.synchronize()
+    err = (dx.float() - wdx.float()).abs()
+    assert bool((err <= 1e-5 + 2.0 ** -7 * wdx.float().abs()).all())
+    assert torch.equal(torch.isnan(dgamma), torch.isnan(wdgamma))
+    assert bool(torch.isnan(dgamma[0, ::5]).all())
+    ok = ~torch.isnan(wdgamma)
+    for a, b in ((dgamma[ok], wdgamma[ok]), (dbeta, wdbeta)):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-5
+
+
+#: ``Kernel`` of ``csrc/neuron_layer.cu``: the z pass on ``mma.sync`` and
+#: on wgmma.
+Z_MMA, Z_WGMMA = 4, 9
+Z_SHAPES = [
+    (4, 300, 256, 200),   # T*M % 192 != 0, K % 128 != 0
+    (1, 777, 128, 64),    # T = 1, K < 128
+    (4, 129, 520, 136),   # rows TMA cannot read (65 bytes): byte copies
+    (4, 3136, 512, 512),  # pssa.qkv
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,m,c,k", Z_SHAPES)
+def test_bf16_train_z_pass_on_wgmma(t, m, c, k):
+    """The bf16 z pass on the wgmma mainloop, where the rule sends it
+    (bf16, more than 512 rows, a weight TMA can read): the forward, the
+    split path's sums and the replay plan kernel 9, an fp32 weight kernel
+    4. Ternary weights on rows of at most 12 spikes: z equals the fp32
+    product, and the spikes, mu and var the plain version's, bit for bit.
+    Gaussian weights: mu and var within 1e-5 of the plain version's scale,
+    and the replay's spikes the emitted ones bit for bit."""
+    from repro_torch.kernels import ops
+    dev = _card()
+    rng = np.random.default_rng(36)
+    x = _t(_sparse_rows(rng, (t, m, c), ones=min(12, c))).to(dev, BF16)
+    w = _t(rng.integers(-1, 2, (c, k)).astype(np.float32)).to(dev, BF16)
+    gamma = _t(rng.uniform(0.8, 1.2, k).astype(np.float32)).to(dev)
+    beta = _t(rng.normal(0.3, 0.2, k).astype(np.float32)).to(dev)
+    for fn, args in ((neuron_layer.neuron_layer_train, (x, w, gamma, beta)),
+                     (neuron_layer.neuron_layer_train_sums, (x, w)),
+                     (neuron_layer.neuron_layer_train_z, (x, w))):
+        assert _plan_kernels(fn, *args, packed=True)[0].kernel == Z_WGMMA
+    assert neuron_layer.z_kernel(t * m, w, True) == Z_WGMMA
+    assert _plan_kernels(neuron_layer.neuron_layer_train_z, x.float(),
+                         w.float(), packed=True)[0].kernel == Z_MMA
+    z = neuron_layer.neuron_layer_train_z(x, w, packed=True)
+    got = neuron_layer.neuron_layer_train(x, w, gamma, beta, packed=True)
+    want = neuron_layer.neuron_layer_train_plain(x, w, gamma, beta)
+    torch.cuda.synchronize()
+    assert torch.equal(z, torch.matmul(x.float(), w.float()))
+    for name, a, b in zip(("spikes", "mu", "var"), got, want):
+        assert torch.equal(a, b), name
+    wg = _t((rng.normal(size=(c, k)) * 1.5 / c ** 0.5).astype(
+        np.float32)).to(dev, BF16)
+    xs = _t(_spikes(rng, (t, m, c), 0.2)).to(dev, BF16)
+    s, mu, var, sd, xin = neuron_layer.neuron_layer_train_fwd(
+        xs, wg, gamma, beta, packed=True)
+    _, mu_p, var_p = neuron_layer.neuron_layer_train_plain(xs, wg, gamma,
+                                                           beta)
+    for a, b in ((mu, mu_p), (var, var_p)):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-5
+    _, y = ops.replay_train_pre_activation(xs, xin, wg, gamma, beta, mu, sd,
+                                           True)
+    assert torch.equal(lif_soma.lif_soma_fwd(y)[0], s)
+
+
+@pytest.mark.cuda
+def test_the_z_wgmma_plan_twin():
+    """``e2a_neuron_layer_train_plan`` at pssa.qkv in bf16: the z pass is
+    plan kernel 9, 512 threads, the tile's shared memory (three 35 KB
+    stages, three consumers' 32 KB z staging and 6 KB of column sums)
+    with the opt-in, one persistent block an SM at most over the 192 x 128
+    tiles; the statistics add one partial per 192-row tile."""
+    _card()
+    x = torch.zeros((4, 3136, 512), dtype=BF16, device="cuda")
+    w = torch.zeros((512, 512), dtype=BF16, device="cuda")
+    v = torch.zeros(512, device="cuda")
+    la = _plan_kernels(neuron_layer.neuron_layer_train, x, w, v, v,
+                       packed=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = -(-12544 // 192) * (512 // 128)
+    assert [a.kernel for a in la] == [Z_WGMMA, 5, 7]
+    assert la[0].block == (512, 1, 1) and la[0].opt_in
+    assert la[0].smem == 3 * (128 * 128 * 2 + 192 * 16) + 3 * 64 * 128 * 4 \
+        + 2 * 2 * 3 * 128 * 4 + 2 * 3 * 8 + 1024
+    assert la[0].grid == (min(sms, tiles), 1, 1)
+    assert la[0].extent[0] == tiles and la[0].strided[0] == (sms < tiles)
+    assert neuron_layer.part_tiles(12544, Z_WGMMA) == -(-12544 // 192)
+
+
+@pytest.mark.cuda
+def test_the_z_pass_entry_refuses_a_kernel_it_cannot_take():
+    """The wrappers name the first pass's kernel (``z_kernel``) and the
+    entry point plans that one or refuses it, with no other in its place:
+    the wgmma kernel on an fp32 weight or on one TMA cannot read, the
+    dense arm's kernel on packed rows and an unknown code are refused; the
+    ``mma.sync`` kernel on a bf16 weight the rule would send to wgmma
+    still runs, and gives the wgmma kernel's z bit for bit on exact
+    operands."""
+    from repro_torch.kernels import build, dtype_code
+    dev = _card()
+    rng = np.random.default_rng(38)
+    t, m, c, k = 4, 300, 256, 200
+    x = _t(_sparse_rows(rng, (t, m, c), ones=12)).to(dev, BF16)
+    xp = spike_matmul.spike_pack(x)
+    w = _t(rng.integers(-1, 2, (c, k)).astype(np.float32)).to(dev, BF16)
+    off = torch.zeros(c * k + 1, dtype=BF16, device=dev)[1:].view(c, k)
+    lib = build.load()
+
+    def z_pass(w, kernel):
+        z = torch.full((t, m, k), float("nan"), device=dev)
+        code = lib.e2a_neuron_layer_train_z(
+            xp.data_ptr(), w.data_ptr(), z.data_ptr(), t, m, c, k, 1,
+            kernel, dtype_code(w.dtype, "neuron_layer_train_z"),
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        return code, z
+    for weight, kernel in ((w.float(), Z_WGMMA), (off, Z_WGMMA),
+                           (w, neuron_layer.Z_DENSE), (w, 7)):
+        assert z_pass(weight, kernel)[0] != 0, (weight.dtype, kernel)
+    assert neuron_layer.z_kernel(t * m, w, True) == Z_WGMMA
+    (ok_w, z_w), (ok_m, z_m) = z_pass(w, Z_WGMMA), z_pass(w, Z_MMA)
+    assert ok_w == 0 and ok_m == 0
+    assert torch.equal(z_w, z_m)
+    assert torch.equal(z_w, torch.matmul(x.float(), w.float()))
+
+
+@pytest.mark.cuda
+def test_bf16_replay_reproduces_the_emitted_spikes_at_every_preset_site():
+    """C1 at bf16: at every neuron-layer site of the preset the train op's
+    backward replays the forward's z (the packed sites on the wgmma z pass,
+    which the forward ran too) into the spikes the forward emitted, bit
+    for bit, on Gaussian weights."""
+    from repro_torch.kernels import ops
+    dev = _card()
+    rng = np.random.default_rng(37)
+    for name, t, m, c, k, packed in _preset_sites():
+        x = _t(_spikes(rng, (t, m, c), 0.2) if packed
+               else rng.random((t, m, c), dtype=np.float32)).to(dev, BF16)
+        w = _t((rng.normal(size=(c, k)) * (2.0 if packed else 1.0)
+                / c ** 0.5).astype(np.float32)).to(dev, BF16)
+        gamma = _t(rng.uniform(0.8, 1.2, k).astype(np.float32)).to(dev)
+        beta = _t(rng.normal(0.3, 0.2, k).astype(np.float32)).to(dev)
+        if packed:
+            assert neuron_layer.z_kernel(t * m, w, True) == Z_WGMMA, name
+        s, mu, _, sqrt_d, xin = neuron_layer.neuron_layer_train_fwd(
+            x, w, gamma, beta, packed=packed)
+        _, y = ops.replay_train_pre_activation(x, xin, w, gamma, beta, mu,
+                                               sqrt_d, packed)
+        replayed = lif_soma.lif_soma_fwd(y)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, s), (name, int((replayed != s).sum()))
+        assert 0.01 < float(s.float().mean()) < 0.99, name
+        del x, s, y, replayed
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_bf16_split_neuron_layer_is_the_fused_path_at_a_world_of_one(
+        world_of_one):
+    """The split path at bf16 runs the forward's z pass (on wgmma at 1,200
+    rows): spikes and statistics the fused path's bits at a world of 1."""
+    dev, group = world_of_one.device, world_of_one.batch_group
+    rng = np.random.default_rng(38)
+    x = _t(_spikes(rng, (4, 300, 512))).to(dev, BF16)
+    w = _t(rng.normal(0, 2 / 512 ** 0.5, (512, 136)).astype(
+        np.float32)).to(dev, BF16)
+    gamma = _t(rng.uniform(0.8, 1.2, 136).astype(np.float32)).to(dev)
+    beta = _t(rng.normal(0.3, 0.2, 136).astype(np.float32)).to(dev)
+    fused = neuron_layer.neuron_layer_train_fwd(x, w, gamma, beta,
+                                                packed=True)
+    split = neuron_layer.neuron_layer_train_fwd(x, w, gamma, beta,
+                                                packed=True, group=group)
+    assert all(torch.equal(a, b) for a, b in zip(fused[:4], split[:4]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(12544, 512), (777, 130), (1000, 64)])
+def test_bf16_split_bn_bwd_is_the_fused_path_at_a_world_of_one(world_of_one,
+                                                               m, d):
+    """The split backward at bf16 (``bn_bwd_sums``, the all-reduce,
+    ``bn_bwd_apply``) runs the fused path's pass kernels (two columns a
+    lane in pass 1; at D % 8 == 0 eight in the dx pass): dx, dgamma and
+    dbeta the fused path's bits at a world of 1."""
+    from repro_torch.kernels import fused_bn
+    dev, group = world_of_one.device, world_of_one.batch_group
+    rng = np.random.default_rng(m + d)
+    x = _t(rng.normal(0.5, 2.0, (m, d)).astype(np.float32)).to(dev, BF16)
+    g = _t(rng.normal(0, 1, (m, d)).astype(np.float32)).to(dev, BF16)
+    gamma = _t(rng.uniform(0.5, 1.5, d).astype(np.float32)).to(dev)
+    _, mu, sd = fused_bn.bn_fwd(x, gamma, gamma)
+    fused = fused_bn.bn_bwd(g, x, gamma, mu, sd)
+    split = fused_bn.bn_bwd(g, x, gamma, mu, sd, group)
+    torch.cuda.synchronize()
+    assert fused[0].dtype == BF16
+    assert all(torch.equal(a, b) for a, b in zip(fused, split))

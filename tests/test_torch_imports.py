@@ -229,8 +229,10 @@ def test_c_interface_matches_the_ctypes_signatures():
 def test_python_tile_constants_mirror_the_cuda_sources():
     """The wrappers size their scratch from constants that mirror the CUDA
     sources: the packed train arm's 256-row tile (the ``Large`` tile of the
-    shared tensor-core mainloop), the dense arm's 256-row tile, and the
-    columns one arrival counter of ``bn_fwd`` serves."""
+    shared tensor-core mainloop), its 192-row tile at bf16 on the wgmma
+    mainloop (three consumer warpgroups of 64 rows) and the plan kernels
+    that tell them apart, the dense arm's 1,024-row tile, and the columns
+    one arrival counter of ``bn_fwd`` serves."""
     from repro_torch.kernels import fused_bn, neuron_layer
     src = {p.name: p.read_text() for p in build.CSRC.glob("*.cu*")}
     large = re.search(r"using Large = Tile<(\d+), (\d+), (\d+), (\d+), "
@@ -243,6 +245,14 @@ def test_python_tile_constants_mirror_the_cuda_sources():
     assert int(dense.group(1)) == neuron_layer.DENSE_TILE_ROWS
     cols = re.search(r"constexpr int BN_COLS = (\d+);", src["fused_bn.cu"])
     assert int(cols.group(1)) == fused_bn.COUNTER_COLS
+    cwg = re.search(r"constexpr int ZW_CWG = (\d+);", src["neuron_layer.cu"])
+    assert 64 * int(cwg.group(1)) == neuron_layer.WGMMA_TILE_ROWS
+    assert "using ZWide = e2a::wg::WTile<ZW_CWG, " in src["neuron_layer.cu"]
+    assert "static constexpr int BM = 64 * CWG" in src["wgmma_mainloop.cuh"]
+    enum = re.search(r"enum Kernel \{([^}]*)\}", src["neuron_layer.cu"])
+    names = [n.strip() for n in enum.group(1).split(",")]
+    assert [names.index(n) for n in ("Z_DENSE", "Z_MMA", "Z_WGMMA")] == [
+        neuron_layer.Z_DENSE, neuron_layer.Z_MMA, neuron_layer.Z_WGMMA]
 
 
 def test_one_tensor_core_mainloop():
