@@ -3,7 +3,7 @@
 its time on the card.
 
     python3 benchmarks/torch/profile_forward.py [--preset spikingformer-8-512]
-        [--batch 16] [--depth 8] [--top 25] [--train [--bf16]]
+        [--batch 16] [--depth 8] [--top 25] [--train] [--bf16]
 
 For the ``cuda-full`` and the ``eager`` policy on the same random weights it
 prints, as JSON lines: the time of a whole request (host clock around a
@@ -13,9 +13,9 @@ forward — the device-busy time, its share of the request, the number of
 kernel launches, and the kernels that take the most device time. With ``--train`` it does the same for one
 BPTT + AdamW step of ``make_train_step`` on a ``SyntheticVision`` batch
 (step time: host clock around a synchronised step, median of 3, each from
-the same state), with the peak device memory of a step; with ``--bf16``
-the step of the preset's own bf16 initialisation on bf16 images, as
-``chip_smoke.py``'s ``bf16_vision`` phase runs it. Needs a CUDA
+the same state), with the peak device memory of a step. With ``--bf16``
+the forward, or the step, of the preset's own bf16 initialisation on bf16
+images, as ``chip_smoke.py``'s ``bf16_vision`` phase runs them. Needs a CUDA
 device; weights are random (``--seed``), so only times mean anything here.
 """
 from __future__ import annotations
@@ -124,10 +124,8 @@ def main() -> None:
     ap.add_argument("--train", action="store_true",
                     help="profile one training step instead of a forward")
     ap.add_argument("--bf16", action="store_true",
-                    help="with --train: bf16 parameters and images")
+                    help="bf16 parameters and images")
     args = ap.parse_args()
-    if args.bf16 and not args.train:
-        ap.error("--bf16 profiles the training step: give --train too")
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -149,7 +147,7 @@ def main() -> None:
               "cuda-full": eager.with_policy(named_policy("cuda-full"))}
     gen = torch.Generator().manual_seed(args.seed + 1)
     images = torch.rand((args.batch, cfg.image_size, cfg.image_size,
-                         cfg.in_channels), generator=gen).cuda()
+                         cfg.in_channels), generator=gen).cuda().to(cfg.dtype)
     images_t = images.unsqueeze(0).expand(cfg.time_steps, *images.shape)
 
     for name, model in models.items():

@@ -153,7 +153,8 @@ each kernel's bf16 arm at the paths' shapes against its bf16 oracle
 (``bf16_kernel_phase``; its rows join the ``kernels`` line with
 ``"dtype": "bfloat16"``); after the family training phases,
 ``spikingformer-8-512`` at bf16 under ``cuda-full`` (``bf16_vision``:
-REQUESTS x 16 bf16 images served, a gradient step and 2 training steps,
+REQUESTS x 16 bf16 images served (every packed eval call, 35 a
+forward, on the wgmma eval kernel), a gradient step and 2 training steps,
 the launches those of fp32, every kernel call of one forward and of the
 gradient step judged against its oracle on its own operands) and
 ``qwen3-0.6b`` + LIF at its published bf16 (``lm_bf16``: the 16 requests
@@ -2615,6 +2616,11 @@ WGMMA_SOURCE = "src/repro_torch/kernels/csrc/spike_wgmma.cuh"
 #: plan kernel ``neuron_layer.Z_WGMMA``, forward and replay).
 Z_WGMMA_ENTRY = "neuron_layer_z_wgmma"
 Z_WGMMA_SOURCE = "src/repro_torch/kernels/csrc/neuron_layer.cu"
+#: The same for the bf16 eval-mode neuron layer on the wgmma mainloop (its
+#: launches: the bf16 serving path's packed eval calls, which
+#: ``neuron_layer.eval_kernel`` sends to plan kernel ``EVAL_WGMMA``).
+EVAL_WGMMA_ENTRY = "neuron_layer_eval_wgmma"
+EVAL_WGMMA_SOURCE = "src/repro_torch/kernels/csrc/neuron_layer.cu"
 #: The LM's step-0 gradient leaves at bf16 that are not bit-equal between
 #: the policies: the kernel's eq. 12 rounds each operation in the order of
 #: the recursion, autograd through the eager scan in its own order; held
@@ -2761,7 +2767,10 @@ class KernelTally:
     ``spike_matmul.resolve_tile`` (1 Large, 2 Small, 3 the bf16 wgmma
     kernel); ``KernelTally(neuron_layer, "z_kernel")`` the neuron layer's
     first pass (forward, split sums and replay: 3 dense, 4 ``mma.sync``, 9
-    the bf16 wgmma kernel). ``counts`` maps a code to its launches."""
+    the bf16 wgmma kernel); ``KernelTally(neuron_layer, "eval_kernel")``
+    the packed eval calls' tile codes (0 the ``mma.sync`` tile the entry
+    point picks, 3 the bf16 wgmma kernel). ``counts`` maps a code to its
+    launches."""
 
     def __init__(self, module=spike_matmul, rule: str = "resolve_tile"):
         self.module, self.rule = module, rule
@@ -3108,7 +3117,11 @@ def bf16_neuron_layer_cases(gen, batch: int) -> dict[str, list[dict]]:
     the emitted spikes. Each train row carries its first pass alone
     (``z_pass``, ``z_pass_row``, timed at the block sites); at the packed
     sites that pass must run on the wgmma kernel (plan kernel
-    ``Z_WGMMA``)."""
+    ``Z_WGMMA``). The eval rows at the packed sites must run on the wgmma
+    eval kernel (plan kernel ``EVAL_WGMMA``) and give the plain version's
+    spikes bit for bit (``bitwise_plain``); at the block sites they carry
+    the kernel alone, the one-plane arm and the unfused yardstick on the
+    same operands (``eval_wgmma_extra``)."""
     sites = neuron_layer_sites(batch)
     sites = sites[-2:] + sites[:4]
     train, ev = [], []
@@ -3153,22 +3166,76 @@ def bf16_neuron_layer_cases(gen, batch: int) -> dict[str, list[dict]]:
             tolerance="spikes the oracle's outside the band; mu, var within "
                       "1e-5 of their scale; z bitwise; replay bitwise"))
         eargs = (x, w, bias)
-        got_e = neuron_layer.neuron_layer_eval(*eargs, packed=packed)
+        call_e = functools.partial(neuron_layer.neuron_layer_eval,
+                                   packed=packed)
+        got_e = call_e(*eargs)
         want_e = kref.neuron_layer_eval_ref(*eargs)
+        bitwise_e = torch.equal(got_e,
+                                neuron_layer.neuron_layer_eval_plain(*eargs))
         v_e = nl_verdict("neuron_layer_eval", got_e, eargs)
         v_e["differing"] = int((got_e != want_e).sum())
-        if got_e.dtype != BF16 or v_e["wrong"]:
-            fail(f"bf16 neuron_layer_eval {case}: spikes {v_e}")
+        kernel_e = plan_kernels(call_e, *eargs)
+        want_k = [neuron_layer.EVAL_WGMMA] if packed else [0]   # dense
+        if got_e.dtype != BF16 or v_e["wrong"] or not bitwise_e or \
+                kernel_e != want_k:
+            fail(f"bf16 neuron_layer_eval {case}: spikes {v_e}, bitwise "
+                 f"against the plain version {bitwise_e}, plan kernels "
+                 f"{kernel_e}, not {want_k}")
+        extra = eval_wgmma_extra(x, w, bias) \
+            if case in ("pssa.qkv", "smlp.a") else {}
         ev.append(bf16_row(
-            case, [t, m, c, k], functools.partial(
-                neuron_layer.neuron_layer_eval, packed=packed), eargs,
+            case, [t, m, c, k], call_e, eargs,
             nbytes(*eargs, got_e), flops, tc=packed,
             plain=neuron_layer.neuron_layer_eval_plain,
-            arm="packed" if packed else "dense", spikes=v_e,
+            arm="packed" if packed else "dense", kernel=kernel_e,
+            spikes=v_e, bitwise_plain=bitwise_e, **extra,
             max_abs_err=float((got_e.float() - want_e.float()).abs().max()),
-            tolerance="spikes the oracle's outside the band"))
+            tolerance="bitwise against the plain version (exact operands); "
+                      "spikes the oracle's outside the band"))
         torch.cuda.empty_cache()
     return {"neuron_layer_train": train, "neuron_layer_eval": ev}
+
+
+def eval_wgmma_extra(x, w, bias) -> dict:
+    """Beside a bf16 eval case on the wgmma kernel, on the same operands:
+    the device ms (L2 cold and warm) of the kernel alone on the packed
+    input, of the one-plane ``mma.sync`` arm forced on it (tile 0, the
+    entry point's own tile), and of the unfused path's yardstick
+    (``unfused_yardstick``)."""
+    t, m, c = x.shape
+    k = w.shape[1]
+    xin = spike_matmul.spike_pack(x)
+    moved = nbytes(xin, w, bias) + t * m * k * 2
+
+    def kernel(tile):
+        return lambda xin, w, bias: neuron_layer._launch_neuron_layer_eval(
+            xin, w, bias, t, m, c, k, True, 0.5, 1.0, tile=tile)
+    return {"kernel_alone": cold_warm(
+                kernel(neuron_layer.EVAL_TILE_WGMMA), (xin, w, bias), moved),
+            "one_plane": cold_warm(kernel(0), (xin, w, bias), moved),
+            **unfused_yardstick(x, w, bias)}
+
+
+def unfused_yardstick(x, w, bias) -> dict:
+    """The bf16 eval neuron layer's unfused path on its operands, which no
+    single library call replaces, device ms with the L2 cold and warm:
+    cuBLAS's bf16 GEMM with an fp32 result on the unpacked spikes
+    (``torch.mm(out_dtype=torch.float32)``; nothing where this torch lacks
+    it) and the bf16 LIF (``lif_soma_fwd``, the arm its rule picks) on the
+    (T, M, K) current, and ``yardstick_device_ms``, their cold sum."""
+    t, m, c = x.shape
+    k = w.shape[1]
+    name = "torch.mm bf16 operands, fp32 out"
+    calls = fp32_product_calls(x.reshape(t * m, c), w)
+    if name not in calls:
+        return {}
+    fn, ops = calls[name]
+    mm = {"call": name, **cold_warm(fn, ops, nbytes(*ops) + t * m * k * 4)}
+    cur = (fn(*ops) + bias).to(BF16).reshape(t, m, k)
+    lif = {"arm": lif_soma.choose_arm(t, m * k, True),
+           **cold_warm(lif_soma.lif_soma_fwd, (cur,), 4 * cur.numel() * 2)}
+    return {"yardstick_mm": mm, "yardstick_lif": lif,
+            "yardstick_device_ms": mm["device_ms"] + lif["device_ms"]}
 
 
 def bf16_kernel_phase(seed: int, batch: int) -> dict[str, list[dict]]:
@@ -3363,7 +3430,8 @@ def bf16_vision_phase(seed: int, batch: int, smi: str) -> dict[str, dict]:
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()                    # the bf16 serving path
     logits, ms = [], []
-    with KernelTally() as tally_serve:
+    with KernelTally() as tally_serve, \
+            KernelTally(neuron_layer, "eval_kernel") as tally_eval:
         for img in images:
             t0 = time.perf_counter()
             logits.append(full(img))
@@ -3435,7 +3503,8 @@ def bf16_vision_phase(seed: int, batch: int, smi: str) -> dict[str, dict]:
                     (lf - le).abs().max()),
                 "launches": serve_counts, "launches_per_forward":
                     per_forward, "launches_by_plan_kernel":
-                    tally_serve.counts, "site_walk": walk_serve.rows},
+                    tally_serve.counts, "eval_launches_by_tile_code":
+                    tally_eval.counts, "site_walk": walk_serve.rows},
          train={"losses": rows, "ms_per_step": times,
                 "peak_memory_bytes": peak_train, "params_moved": moved,
                 "grad_dtypes": grad_dtypes, "grad_step_launches": grad_counts,
@@ -3465,6 +3534,13 @@ def bf16_vision_phase(seed: int, batch: int, smi: str) -> dict[str, dict]:
         if tally.counts != want:
             fail(f"bf16 vision {name}: spike matmul launches by plan kernel "
                  f"{tally.counts}, not {want}")
+    # every packed eval call of the bf16 serving path on the wgmma eval
+    # kernel: all but the dense first tokenizer stage's, one a forward
+    want_e = {neuron_layer.EVAL_TILE_WGMMA:
+              serve_counts["neuron_layer_eval"] - REQUESTS}
+    if tally_eval.counts != want_e:
+        fail(f"bf16 vision serve: packed eval calls by tile code "
+             f"{tally_eval.counts}, not {want_e}")
     # every first pass of the bf16 training path (forward and replay) on
     # the wgmma z kernel but the dense first tokenizer stage's
     dense = 2 * (len(batches) - 1)
@@ -3475,11 +3551,12 @@ def bf16_vision_phase(seed: int, batch: int, smi: str) -> dict[str, dict]:
              f"not {want_z}")
     return {"bf16_serve": {**serve_counts, WGMMA_ENTRY:
                            tally_serve.counts[spike_matmul.WGMMA],
-                           Z_WGMMA_ENTRY: 0},
+                           Z_WGMMA_ENTRY: 0, EVAL_WGMMA_ENTRY:
+                           tally_eval.counts[neuron_layer.EVAL_TILE_WGMMA]},
             "bf16_train": {**train_counts, WGMMA_ENTRY:
                            tally_train.counts[spike_matmul.WGMMA],
                            Z_WGMMA_ENTRY: tally_z.counts[
-                               neuron_layer.Z_WGMMA]}}
+                               neuron_layer.Z_WGMMA], EVAL_WGMMA_ENTRY: 0}}
 
 
 def bf16_serve(params, arch: str, seed: int, slots: int = LM_SLOTS
@@ -5122,12 +5199,17 @@ def analysis_phase(seed: int) -> dict[str, dict]:
         neuron_layer.Z_WGMMA, "z_wgmma")
     oracle[Z_WGMMA_ENTRY] = {"max_abs_err": z_wgmma["max_abs_err"],
                              "spikes": z_wgmma["spikes"]}
+    eval_wgmma = wgmma_launch_family(
+        gen, lambda decl: decl.name == "neuron_layer_eval",
+        neuron_layer.EVAL_WGMMA, "eval_wgmma")
+    oracle[EVAL_WGMMA_ENTRY] = {"max_abs_err": eval_wgmma["max_abs_err"],
+                                "spikes": eval_wgmma["spikes"]}
     emit("analysis", findings=dict(sorted(by_family.items())),
          launch_cases=next(f.message for f in findings
                            if f.check == "audit.kernel.launch"
                            and f.where == "matrix"),
          oracle_cases=len(rows), oracle=per_contract, wgmma=wgmma,
-         z_wgmma=z_wgmma, static_seconds=static_s,
+         z_wgmma=z_wgmma, eval_wgmma=eval_wgmma, static_seconds=static_s,
          seconds=time.perf_counter() - t0)
     return oracle
 
@@ -5140,7 +5222,8 @@ def wgmma_launch_family(gen, select=None, code=None,
     launches read from the plan exports and held to the card's limits
     (``check_launch_contract``); each case whose launches run plan kernel
     ``code`` (by default 3, the spike matmul's wgmma kernel; the neuron
-    layer's bf16 z pass is ``neuron_layer.Z_WGMMA``) is then launched and
+    layer's bf16 z pass is ``neuron_layer.Z_WGMMA``, its bf16 eval arm
+    ``neuron_layer.EVAL_WGMMA``) is then launched and
     held against ``kernels/ref.py`` (exact operands: the oracle's bits, a
     neuron layer's spikes outside the band). Fails on a finding, a case
     out of tolerance, or no case on the kernel. The launches do not
@@ -5782,7 +5865,51 @@ def summarise(cases: dict[str, list[dict]],
             "cases": rows})
     kernels.append(wgmma_summary(cases, paths, oracle))
     kernels.append(z_wgmma_summary(cases, paths, oracle))
+    kernels.append(eval_wgmma_summary(cases, paths, oracle))
     return {"kernels": kernels}
+
+
+def eval_wgmma_summary(cases: dict[str, list[dict]],
+                       paths: dict[str, dict[str, int]],
+                       oracle: dict[str, dict] | None) -> dict:
+    """The bf16 eval neuron layer's entry (``neuron_layer_eval_wgmma`` in
+    ``csrc/neuron_layer.cu`` on ``csrc/wgmma_mainloop.cuh``, plan kernel
+    ``EVAL_WGMMA`` of ``e2a_neuron_layer_eval``): the numbers of its first
+    case (pssa.qkv, the wrapper's call with ``spike_pack``), its largest
+    spike error against the oracle over every case that ran it, and its
+    launches on the bf16 serving path. ``library_ms`` is null: no single
+    library call computes the layer; ``yardstick_device_ms`` is the
+    unfused path's, cuBLAS's fp32-output bf16 GEMM plus the bf16 LIF
+    (``eval_wgmma_extra``)."""
+    rows = [r for r in cases["neuron_layer_eval"]
+            if r.get("kernel") == [neuron_layer.EVAL_WGMMA]]
+    first = rows[0]
+    keep = ("case", "shape", "ms", "device_ms", "device_ms_l2_warm",
+            "plain_ms", "bound_ms", "bound_by", "bitwise_plain", "spikes",
+            "kernel_alone", "one_plane", "yardstick_mm", "yardstick_lif",
+            "yardstick_device_ms")
+    return {
+        "name": EVAL_WGMMA_ENTRY, "route": "cuda",
+        "source": EVAL_WGMMA_SOURCE,
+        "mainloop": "src/repro_torch/kernels/csrc/wgmma_mainloop.cuh",
+        "replaces": KERNELS["neuron_layer_eval"]["replaces"],
+        "launched_by": ["neuron_layer_eval"],
+        "plan_kernel": neuron_layer.EVAL_WGMMA, "dtype": "bfloat16",
+        "launches": sum(c.get(EVAL_WGMMA_ENTRY, 0) for c in paths.values()),
+        "launches_by_path": {p: c[EVAL_WGMMA_ENTRY] for p, c in paths.items()
+                             if EVAL_WGMMA_ENTRY in c},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "oracle_max_abs_err": (oracle or {}).get(EVAL_WGMMA_ENTRY, {}).get(
+            "max_abs_err"),
+        "oracle_spikes": (oracle or {}).get(EVAL_WGMMA_ENTRY, {}).get(
+            "spikes"),
+        "ms": first["ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        "library_ms": None,
+        "yardstick_device_ms": first.get("yardstick_device_ms"),
+        "case": first["case"], "device_ms": first["device_ms"],
+        "device_ms_l2_warm": first["device_ms_l2_warm"],
+        "cases": [{k: r[k] for k in keep if k in r} for r in rows]}
 
 
 def z_wgmma_summary(cases: dict[str, list[dict]],

@@ -103,7 +103,7 @@ using e2a::mma::planes_of;
 // Which kernel a Launch record of this file is for.
 enum Kernel {
   EVAL_DENSE, EVAL_LARGE, EVAL_SMALL, Z_DENSE, Z_MMA, STATS, FINALIZE,
-  SOMA4, SOMA1, Z_WGMMA
+  SOMA4, SOMA1, Z_WGMMA, EVAL_WGMMA
 };
 
 // eq. 11's membrane update, every operation rounded once in the plain
@@ -574,13 +574,18 @@ int launch_eval_mma(const Launch& l, const e2a::mma::Operands<E>& a, int T,
   return (int)cudaGetLastError();
 }
 
-// The packed eval arm's tile. A block runs T mainloops, so its blocks are
-// few and long and the last wave's share of idle SMs decides the time.
-// Large (256 x 64 outputs, one block an SM) where its grid fits in one wave
-// (the block sites, M = 3,136 rows: 104 blocks); Small (128 x 64, two blocks
-// an SM) beyond, whose half-size blocks even out the last wave. Measured at
-// the preset's five packed sites, this picks the faster tile at each
-// (benchmarks/torch/bench_eval_kernels.py; PERF.md, section 6).
+// The packed eval arm's tile on the mma.sync mainloop: every fp32 call, and
+// the bf16 calls the wrappers do not send to the wgmma kernel below
+// (neuron_layer.eval_kernel: at most 512 rows a time step, or a weight TMA
+// cannot read); bf16 calls above 512 rows a step with a weight TMA can read
+// take the wgmma kernel (tile code 3, EVAL_WGMMA). A block runs T mainloops,
+// so its blocks are few and long and the last wave's share of idle SMs
+// decides the time. Large (256 x 64 outputs, one block an SM) where its grid
+// fits in one wave (the block sites, M = 3,136 rows: 104 blocks); Small (128
+// x 64, two blocks an SM) beyond, whose half-size blocks even out the last
+// wave. Measured at the preset's five packed sites in fp32, this picks the
+// faster tile at each (benchmarks/torch/bench_eval_kernels.py; PERF.md,
+// section 6).
 int eval_tile(long long M, int K) {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -735,7 +740,9 @@ constexpr int ZW_BARRIER = 4;   // the consumers' named barrier (1-3, 15 taken)
 // consumer's staged z: 32-column boxes of 64 rows x 128 bytes, the pieces
 // of a row in the 128-byte swizzle (piece ^ row % 8), as TMA reads a box
 // of z's tensor map. A warp's 8-byte writes of two pieces over its eight
-// rows, and 32 lanes' reads of one row, fall in 32 distinct banks.
+// rows, and 32 lanes' reads of one row, fall in 32 distinct banks. The
+// eval kernel's bf16 spikes are staged the same way, a piece 8 columns
+// (64-column boxes).
 __device__ __forceinline__ uint32_t z_offset(int r, int p) {
   return (p / 8) * 64 * 128 + r * 128 + (((p % 8) ^ (r % 8)) * 16);
 }
@@ -867,6 +874,157 @@ int launch_z_wgmma(const Launch& l, const void* x, const bf16* w, float* z,
   if (err != 0) return err;
   neuron_layer_train_z_wgmma<<<grid_of(l), block_of(l), l.smem, st>>>(
       wmap, xmap, zmap, a, z, part, (int)z_parts(l, rows));
+  return (int)cudaGetLastError();
+}
+
+// ---- eval, packed arm at bf16: the wgmma mainloop ----
+// s (T, M, K) bf16 = SOMA over t of x_t (M, C / 8) packed @ w (C, K) bf16
+// + bias, on the mainloop of the bf16 spike matmul (wgmma_mainloop.cuh),
+// wherever the wrappers send a bf16 call there (eval_kernel in
+// kernels/neuron_layer.py, the spike matmul's rule on the rows of one time
+// step: more than 512, and a weight TMA can read). Replaces, at a bf16
+// weight, the reference's _nl_eval_kernel as neuron_layer_eval_mma does.
+// Bound: one bf16 tensor-core pass, 2 * T*M*C*K operations, or the bytes of
+// the packed rows, the weight and the spikes, whichever is longer. The
+// one-plane mma.sync arm ran 13-16x off that bound: its weight went through
+// registers into shared memory behind two barriers a chunk, with nothing in
+// flight while the tensor cores waited; here a producer warp keeps a TMA
+// ring full.
+// - A block owns a unit of BM = 128 rows x BN = 128 columns and walks its T
+//   time steps in order (walk<true>: the batch of the rows' tensor map is
+//   the time step), so the producer stages step t + 1's chunks while the
+//   consumers run step t's epilogue.
+// - Each consumer thread keeps its 64 membranes (fp32) and its 64 last
+//   spikes (bits of two words) in registers across the steps, beside its
+//   64 accumulators: two consumer warpgroups may hold 224 registers a
+//   thread (three only 152). The pre-activation and the membrane never
+//   reach device memory.
+// - The epilogue of a step adds the bias (the unit's 128 columns, copied
+//   into shared memory by each consumer at the unit's first step), runs the
+//   membrane update on the fp32 sum (the one-plane arm's arithmetic:
+//   __fadd_rn of the accumulator and the bias, then membrane()), and stages
+//   the bf16 spikes in the 128-byte swizzle; TMA stores them into step t's
+//   rows, clipping rows past M and columns past K, and runs on while the
+//   consumer starts the next step. Stores from registers kept the consumers
+//   off the tensor cores (the z pass, above).
+// On exact operands every sum is exact, so the spikes are those of the
+// plain version bit for bit.
+constexpr int EW_CWG = 2;                          // consumer warpgroups
+constexpr int EW_STAGES = 4;
+constexpr int EW_E_WG = 64 * 128 * 2;              // a consumer's spike tile
+constexpr int EW_BIAS = 128 * 4;                   // a consumer's bias copy
+using EWide =
+    e2a::wg::WTile<EW_CWG, EW_STAGES, EW_CWG * (EW_E_WG + EW_BIAS)>;
+static_assert(EWide::CONSUMER_REGS == 224, "a consumer's registers");
+
+struct EvalEpilogue {
+  using T = EWide;
+  const CUtensorMap& smap;
+  bf16* s;
+  const float* bias;
+  int K;
+  float alpha, th_fire;
+  float u[T::BN / 2];          // the thread's membranes
+  uint32_t fired[2] = {0, 0};  // bit i % 32 of word i / 32: output i's spike
+
+  __device__ __forceinline__ void tile(float (&acc)[T::BN / 2],
+                                       const e2a::wg::TileAt& at) {
+    using namespace e2a::wg;
+    const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, gq = lane / 4, t4 = lane % 4;
+    unsigned char* const base = smem_base() + T::E_OFF;
+    const uint32_t ebuf = smem_addr(base) + (wg - 1) * EW_E_WG;
+    float* const bs =
+        reinterpret_cast<float*>(base + EW_CWG * EW_E_WG) + (wg - 1) * T::BN;
+    const bool first = at.g == 0;   // the unit's first time step
+    // the unit's bias: every thread of this consumer is past the last
+    // step's reads of it (the second barrier below)
+    if (first) bs[tid] = at.n0 + tid < K ? bias[at.n0 + tid] : 0.0f;
+    // the last TMA store of this consumer has read its staging
+    if (tid == 0) bulk_wait_read();
+    named_sync(wg, 128);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + gq + 8 * h;
+#pragma unroll
+      for (int j = 0; j < T::BN / 8; ++j) {   // columns 8j + 2 t4, + 1
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          const uint32_t bit = 1u << (i % 32);
+          const float y = __fadd_rn(acc[i], bs[8 * j + 2 * t4 + e]);
+          const float un =
+              membrane(first ? 0.0f : u[i],
+                       !first && (fired[i / 32] & bit) ? 1.0f : 0.0f, y,
+                       alpha);
+          u[i] = un;
+          const bool f = un >= th_fire;
+          fired[i / 32] = f ? fired[i / 32] | bit : fired[i / 32] & ~bit;
+          v[e] = f ? 1.0f : 0.0f;
+        }
+        sts32(ebuf + z_offset(r, j) + 4 * t4, e2a::mma::bf16x2_rn(v[0], v[1]));
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_sync(wg, 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int q = 0; q < T::BN / 64; ++q)
+        tma_store(ebuf + q * 64 * 128, &smap, at.n0 + 64 * q,
+                  (int)at.m0 + (wg - 1) * 64, at.g);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+  }
+
+  __device__ __forceinline__ void done(uint32_t sink) {
+    if (threadIdx.x % 128 == 0)
+      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    if (K < 0) s[threadIdx.x] = __ushort_as_bfloat16((unsigned short)sink);
+  }
+};
+
+__global__ void __launch_bounds__(EWide::THREADS, 1)
+    neuron_layer_eval_wgmma(const __grid_constant__ CUtensorMap wmap,
+                            const __grid_constant__ CUtensorMap xmap,
+                            const __grid_constant__ CUtensorMap smap,
+                            const e2a::wg::Args a,
+                            const float* __restrict__ bias, float alpha,
+                            float th_fire) {
+  EvalEpilogue epi{smap, a.out, bias, a.K, alpha, th_fire};
+  e2a::wg::mainloop<EWide, true, true>(wmap, xmap, a, epi);
+}
+
+// The eval arm at bf16 on the wgmma mainloop: the tensor maps (the packed
+// rows' with the time step as a batch level; the spikes' (T, M, K) bf16 in
+// the 128-byte swizzle), the launch. Returns a cudaError_t.
+int launch_eval_wgmma(const Launch& l, const void* x, const bf16* w,
+                      const float* bias, bf16* s, int T, long long M, int C,
+                      int K, float alpha, float th_fire, cudaStream_t st) {
+  e2a::wg::Args a = {static_cast<const uint8_t*>(x), s, T, T, (int)M, C, K,
+                     0, M * (C / 8), C / 8, 1, 0, 0, 0, 0,
+                     0, 0, 0, 0, 0, 0, 0};
+  CUtensorMap wmap, xmap = {}, smap;
+  int err = e2a::wg::encode_weight<EWide>(&wmap, a, w, 1, T, 0, 0, K, 1);
+  if (err == 0) err = e2a::wg::encode_rows<EWide>(&xmap, a, 1);
+  if (err != 0) return err;
+  if (!a.n_major || reinterpret_cast<uintptr_t>(s) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  // s (T, M, K) bf16: K, the rows, the steps; boxes of 64 columns x 64 rows
+  // in the 128-byte swizzle (K % 8 == 0: rows of 16-byte multiples)
+  const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)M, (cuuint64_t)T};
+  const cuuint64_t strides[2] = {(cuuint64_t)K * 2, (cuuint64_t)K * 2 * M};
+  const cuuint32_t box[3] = {64, 64, 1};
+  if (e2a::wg::encode_cached(&smap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, s,
+                             dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                             CU_TENSOR_MAP_L2_PROMOTION_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  static bool raised[kMaxDevices] = {};
+  err = raise_smem(
+      l, reinterpret_cast<const void*>(neuron_layer_eval_wgmma), raised);
+  if (err != 0) return err;
+  neuron_layer_eval_wgmma<<<grid_of(l), block_of(l), l.smem, st>>>(
+      wmap, xmap, smap, a, bias, alpha, th_fire);
   return (int)cudaGetLastError();
 }
 
@@ -1058,19 +1216,32 @@ Launch finalize_plan(int K) {
 
 // The launches of each entry point, in order; n = 0 where it launches
 // nothing. Each returns a cudaError_t.
+// eval: tile 3 (kernels/neuron_layer.py eval_kernel) plans the wgmma
+// kernel, for a bf16 (C, K) weight TMA can read (contiguous, 16-byte
+// aligned, K % 8 == 0) and packed rows, one persistent block an SM at most
+// over the 128 x 128 units; any other call with it is refused, with no
+// other kernel in its place.
 int eval_plan(int T, long long M, int C, int K, int packed, int tile,
-              int dtype, Launch* l, int& n) {
+              int dtype, const void* w, Launch* l, int& n) {
   n = 0;
   const int planes = planes_of(dtype);
   if (planes == 0) return (int)cudaErrorInvalidValue;
   if (M <= 0 || K <= 0) return 0;
-  if (T < 1 || T > 8 || tile < 0 || tile > 2)
+  if (T < 1 || T > 8 || tile < 0 || tile > 3)
     return (int)cudaErrorInvalidValue;
   if (!packed) {
+    if (tile == 3) return (int)cudaErrorInvalidValue;
     l[n++] = dense_plan(M, DENSE_ROWS, K, EVAL_DENSE);
     return 0;
   }
   if (C % 8 != 0 || M > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (tile == 3) {
+    if (dtype != kBfloat16 || !e2a::wg::tma_suits(w, 1, 1, C, K, 0, 0, K, 1))
+      return (int)cudaErrorInvalidValue;
+    const int code = e2a::wg::wgmma_plan<EWide>((int)M, K, 1, EVAL_WGMMA, l[0]);
+    if (code == 0) n = 1;
+    return code;
+  }
   if (tile == 0) tile = eval_tile(M, K);
   l[n++] = tile == 1
                ? eval_mma_plan<e2a::mma::Large>(M, K, EVAL_LARGE, planes)
@@ -1119,8 +1290,10 @@ int train_z_plan(int T, long long M, int C, int K, int packed, int kernel,
 // fp32 (sums float64) at either.
 
 // Eval mode: x (T, M, C) [packed: (T, M, C/8) uint8] @ w (C, K) + bias ->
-// SOMA; writes s (T, M, K). tile picks the packed arm's tile: 0 by the rule
-// of eval_tile, 1 Large, 2 Small (the benchmark times both).
+// SOMA; writes s (T, M, K). tile picks the packed arm's kernel: 0 the
+// mma.sync tile by the rule of eval_tile, 1 Large, 2 Small (the benchmark
+// times both), 3 the bf16 wgmma kernel (EVAL_WGMMA; refused where eval_plan
+// cannot plan it).
 extern "C" int e2a_neuron_layer_eval(const void* x, const void* w,
                                      const float* bias, void* s, int T,
                                      long long M, int C, int K, int packed,
@@ -1128,13 +1301,18 @@ extern "C" int e2a_neuron_layer_eval(const void* x, const void* w,
                                      int dtype, void* stream) {
   Launch l[kMaxLaunches];
   int n = 0;
-  const int code = eval_plan(T, M, C, K, packed, tile, dtype, l, n);
+  const int code = eval_plan(T, M, C, K, packed, tile, dtype, w, l, n);
   if (code != 0 || n == 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return by_dtype(dtype, [&](auto tag) {
     using E = typename decltype(tag)::type;
     const E* const we = static_cast<const E*>(w);
     E* const se = static_cast<E*>(s);
+    if constexpr (std::is_same_v<E, bf16>) {
+      if (l[0].kernel == EVAL_WGMMA)
+        return launch_eval_wgmma(l[0], x, we, bias, se, T, M, C, K, alpha,
+                                 th_fire, st);
+    }
     if (l[0].kernel == EVAL_DENSE)
       return launch_eval_dense(l[0], static_cast<const E*>(x), we, bias, se,
                                T, M, C, K, alpha, th_fire, st);
@@ -1155,7 +1333,7 @@ extern "C" int e2a_neuron_layer_eval_plan(
     float th_fire, int dtype, long long* records, int cap) {
   Launch l[kMaxLaunches];
   int n = 0;
-  const int code = eval_plan(T, M, C, K, packed, tile, dtype, l, n);
+  const int code = eval_plan(T, M, C, K, packed, tile, dtype, w, l, n);
   return write_plan(code, l, n, records, cap);
 }
 

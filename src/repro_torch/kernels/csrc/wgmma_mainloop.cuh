@@ -1,16 +1,19 @@
 // The mainloop of the bf16 spike products on Hopper, shared by every kernel
 // that multiplies packed spikes by a bf16 weight on wgmma: the bf16 spike
-// matmul (spike_wgmma.cuh) and, at bf16, the train-mode neuron layer's z
-// pass (neuron_layer.cu), as spike_mma_mainloop.cuh is the one contraction
-// loop of their mma.sync arms. One source, so the spike matmul's bitwise
-// checks on the card hold the z pass's product too.
+// matmul (spike_wgmma.cuh) and, at bf16, the neuron layer's train z pass
+// and eval arm (neuron_layer.cu), as spike_mma_mainloop.cuh is the one
+// contraction loop of their mma.sync arms. One source, so the spike
+// matmul's bitwise checks on the card hold the neuron layer's product too.
 //
 //   acc[n] = sum_c bit(x[g][m], c) * w[g][c][n]   (w bf16, acc fp32)
 //
-// mainloop<T, N_MAJOR>(wmap, xmap, a, epi) runs the whole kernel body: a
-// persistent block on each SM walks output tiles of BM = 64 * CWG rows x
-// BN = 128 columns. Warpgroup 0 is the producer: one of its warps keeps a
-// ring of STAGES stages full (the other three leave at once, or, for rows
+// mainloop<T, N_MAJOR, BATCH_INNER>(wmap, xmap, a, epi) runs the whole
+// kernel body: a persistent block on each SM walks output tiles of BM = 64 *
+// CWG rows x BN = 128 columns (walk: by default the batch outermost; with
+// BATCH_INNER a block owns a unit of rows and columns and walks its G
+// batches in order, which the eval neuron layer's time steps need).
+// Warpgroup 0 is the producer: one of its warps keeps a ring of STAGES
+// stages full (the other three leave at once, or, for rows
 // TMA cannot read, copy them with it), and setmaxnreg hands the consumers
 // its spare registers. Warpgroups 1 .. CWG are the consumers, 64 rows each.
 // Each consumer hands every tile's accumulators to the kernel's epilogue,
@@ -94,7 +97,8 @@ struct WTile {
 };
 
 // The kernel's arguments besides its tensor maps (element strides; the
-// output's are the spike matmul epilogue's, unused by the z pass).
+// output's are the spike matmul epilogue's, unused by the neuron layer's,
+// whose outputs go out by their own tensor maps).
 struct Args {
   const uint8_t* x;
   bf16* out;
@@ -306,6 +310,28 @@ struct TileAt {
   int n0;
 };
 
+// The block's tiles in its walk order, f(tm, tn, g) for each (row tile,
+// column tile, batch). By default tile t = b, b + gridDim.x, ... of the
+// tiles numbered with the row tiles fastest, then the column tiles, then
+// the batch, so that the blocks at work at once share weight columns. With
+// BATCH_INNER, unit u = b, b + gridDim.x, ... of the (row tile, column
+// tile) units, each walked over its G batches in order: the block that
+// owns a unit sees every batch of its outputs, one after the other (the
+// eval neuron layer's batch is the time step, and its membranes stay with
+// the consumer across the steps).
+template <bool BATCH_INNER, class F>
+__device__ __forceinline__ void walk(int tiles_m, int tiles_n, int G, F&& f) {
+  if constexpr (BATCH_INNER) {
+    const int units = tiles_m * tiles_n;
+    for (int u = blockIdx.x; u < units; u += gridDim.x)
+      for (int g = 0; g < G; ++g) f(u % tiles_m, u / tiles_m, g);
+  } else {
+    const int tiles = tiles_m * tiles_n * G;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+      f(t % tiles_m, t / tiles_m % tiles_n, t / (tiles_m * tiles_n));
+  }
+}
+
 // The block's dynamic shared memory, aligned to 1024 bytes by hand (the
 // 128-byte swizzle's atoms).
 __device__ __forceinline__ unsigned char* smem_base() {
@@ -314,7 +340,7 @@ __device__ __forceinline__ unsigned char* smem_base() {
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 }
 
-template <class T, bool N_MAJOR, class Epilogue>
+template <class T, bool N_MAJOR, bool BATCH_INNER = false, class Epilogue>
 __device__ __forceinline__ void mainloop(const CUtensorMap& wmap,
                                          const CUtensorMap& xmap,
                                          const Args& a, Epilogue& epi) {
@@ -331,12 +357,10 @@ __device__ __forceinline__ void mainloop(const CUtensorMap& wmap,
   }
   __syncthreads();
 
-  // The block walks the tiles b, b + gridDim.x, ...: tile t is rows
-  // BM (t % tiles_m), columns BN (t / tiles_m % tiles_n), batch t /
-  // (tiles_m tiles_n), so the blocks at work at once share weight columns.
+  // The block walks its tiles in walk<BATCH_INNER>'s order: tile (tm, tn,
+  // g) is rows BM tm, columns BN tn of batch g.
   const int tiles_m = (a.M + T::BM - 1) / T::BM;
   const int tiles_n = (a.K + T::BN - 1) / T::BN;
-  const int tiles = tiles_m * tiles_n * a.G;
   const int chunks = (a.C + T::BK - 1) / T::BK;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   // it counts the chunks this block has staged (producer) or consumed:
@@ -350,10 +374,10 @@ __device__ __forceinline__ void mainloop(const CUtensorMap& wmap,
                      T::PRODUCER_REGS) : "memory");
     if (a.x_tma && tid >= 32) return;
     const int lane = tid, C8 = a.C / 8;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int g = t / (tiles_m * tiles_n), g1 = g / a.G2, g2 = g % a.G2;
-      const long long m0 = (long long)(t % tiles_m) * T::BM;
-      const int n0 = t / tiles_m % tiles_n * T::BN;
+    walk<BATCH_INNER>(tiles_m, tiles_n, a.G, [&](int tm, int tn, int g) {
+      const int g1 = g / a.G2, g2 = g % a.G2;
+      const long long m0 = (long long)tm * T::BM;
+      const int n0 = tn * T::BN;
       const uint8_t* const x = a.x + g1 * a.x_g1 + g2 * a.x_g2;
       const int wc2 = a.w_g2 ? g2 : 0, wc3 = a.w_g1 ? g1 : 0;
       const int xc2 = a.x_l2 ? g2 : 0, xc3 = a.x_l1 ? g1 : 0;
@@ -407,7 +431,7 @@ __device__ __forceinline__ void mainloop(const CUtensorMap& wmap,
           if (tid == 0) bar_arrive(full);
         }
       }
-    }
+    });
   } else {
     // ---- consumers: 64 rows each ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
@@ -416,10 +440,10 @@ __device__ __forceinline__ void mainloop(const CUtensorMap& wmap,
     const int r0 = (wg - 1) * 64 + warp * 16 + gq;   // rows r0, r0 + 8
     uint32_t af[2][4][4];   // the two fragment slots of the half chunks
     uint32_t sink = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int g = t / (tiles_m * tiles_n), g1 = g / a.G2, g2 = g % a.G2;
-      const long long m0 = (long long)(t % tiles_m) * T::BM;
-      const int n0 = t / tiles_m % tiles_n * T::BN;
+    walk<BATCH_INNER>(tiles_m, tiles_n, a.G, [&](int tm, int tn, int g) {
+      const int g1 = g / a.G2, g2 = g % a.G2;
+      const long long m0 = (long long)tm * T::BM;
+      const int n0 = tn * T::BN;
       // No instruction but a wgmma writes the accumulators: the tile's
       // first step overwrites them (add = 0).
       float acc[T::BN / 2];
@@ -475,8 +499,8 @@ __device__ __forceinline__ void mainloop(const CUtensorMap& wmap,
       it += chunks;
       fence_acc(acc);
 
-      epi.tile(acc, TileAt{t % tiles_m, g, g1, g2, m0, n0});
-    }
+      epi.tile(acc, TileAt{tm, g, g1, g2, m0, n0});
+    });
     epi.done(sink);
   }
 }

@@ -54,7 +54,11 @@ kernel (:func:`z_kernel`: a bf16 weight TMA can read, more than 512 rows)
 the train arm's first pass runs on that kernel's mainloop
 (``csrc/wgmma_mainloop.cuh``) instead, 192-row tiles
 (:data:`WGMMA_TILE_ROWS`). z, the statistics and everything after the
-product are the fp32 arm's; the spikes come back in bf16. gamma, beta and
+product are the fp32 arm's; the spikes come back in bf16. The eval arm
+takes the same rule on the rows of one time step (:func:`eval_kernel`):
+there it runs on that mainloop too (``neuron_layer_eval_wgmma``, plan
+kernel :data:`EVAL_WGMMA`), a block owning 128 x 128 outputs over all T
+steps with the membranes in its consumers' registers. gamma, beta and
 the bias reach the kernels as fp32 (a bf16 vector widened exactly). The
 plain versions form the same fp32 product (``neuron_layer_train_z_plain``).
 
@@ -101,6 +105,13 @@ WGMMA_TILE_ROWS = 192
 #: one-plane ``mma.sync`` mainloop, and the bf16 packed arm's on wgmma.
 Z_DENSE, Z_MMA, Z_WGMMA = 3, 4, 9
 
+#: The eval arm's plan kernel on the wgmma mainloop (``Kernel`` in
+#: ``csrc/neuron_layer.cu``), and the tile code that asks the entry point
+#: for it (``tile`` of ``e2a_neuron_layer_eval``: 0 lets it pick the
+#: ``mma.sync`` tile, 1 / 2 force Large / Small).
+EVAL_WGMMA = 10
+EVAL_TILE_WGMMA = 3
+
 
 def z_kernel(rows: int, w: torch.Tensor, packed: bool) -> int:
     """The plan kernel of the first pass over ``rows`` = T*M rows with the
@@ -115,9 +126,27 @@ def z_kernel(rows: int, w: torch.Tensor, packed: bool) -> int:
     operands and the replay gives the forward's z bit for bit."""
     if not packed:
         return Z_DENSE
-    wgmma = w.dtype == torch.bfloat16 and rows > WGMMA_MIN_ROWS and \
+    return Z_WGMMA if _wgmma_rule(rows, w) else Z_MMA
+
+
+def _wgmma_rule(rows: int, w: torch.Tensor) -> bool:
+    """The spike matmul's rule for its wgmma kernel (``spike_matmul.
+    resolve_tile``) on a product of ``rows`` rows by the (C, K) weight
+    ``w``: bf16, more than ``WGMMA_MIN_ROWS`` rows, a weight TMA reads."""
+    return w.dtype == torch.bfloat16 and rows > WGMMA_MIN_ROWS and \
         tma_suits(w[None, None])
-    return Z_WGMMA if wgmma else Z_MMA
+
+
+def eval_kernel(m: int, w: torch.Tensor) -> int:
+    """The tile code of a packed eval call of ``m`` rows a time step with
+    the (C, K) weight ``w``: :data:`EVAL_TILE_WGMMA` where the spike
+    matmul's rule sends the step's product to its wgmma kernel (a bf16
+    weight that ``tma_suits``, more than ``WGMMA_MIN_ROWS`` rows), else 0,
+    the entry point's own ``mma.sync`` tile. The rule lives here alone:
+    :func:`neuron_layer_eval` calls it once a launch and passes its code to
+    the C entry point, which plans that kernel or refuses the call
+    (``eval_plan`` in ``csrc/neuron_layer.cu``)."""
+    return EVAL_TILE_WGMMA if _wgmma_rule(m, w) else 0
 
 
 def part_tiles(rows: int, kernel: int) -> int:
@@ -222,8 +251,9 @@ def _launch_neuron_layer_eval(xin, w, bias, t, m, c, k, packed, alpha,
                               th_fire, stream=0, tile=0):
     """The C entry point on ``xin`` (packed or dense) and ``w`` (fp32 or
     bf16; the spikes come back in its dtype, the bias is widened to fp32);
-    ``tile`` 0 lets the entry point choose the packed arm's tile, 1 / 2
-    force Large / Small."""
+    ``tile`` 0 lets the entry point choose the packed arm's ``mma.sync``
+    tile, 1 / 2 force Large / Small, :data:`EVAL_TILE_WGMMA` the bf16
+    wgmma kernel (:func:`eval_kernel`)."""
     s = torch.empty((t, m, k), dtype=w.dtype, device=xin.device)
     bias = bias.float()
     code = build.load().e2a_neuron_layer_eval(
@@ -242,7 +272,8 @@ def neuron_layer_eval(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
 
     ``packed=True`` bit-packs the {0,1} ``x`` along C (8 spikes/byte, plain
     tensor code) so that it crosses device memory at 1 bit/element and is
-    expanded inside the kernel; C must then be a multiple of 8.
+    expanded inside the kernel; C must then be a multiple of 8. A packed
+    call runs the kernel :func:`eval_kernel` names.
     """
     _check_layer("neuron_layer_eval", x, w, {"bias": bias}, packed)
     if x.is_meta:
@@ -255,7 +286,8 @@ def neuron_layer_eval(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
     with torch.cuda.device(x.device):
         s = _launch_neuron_layer_eval(
             xin, w, bias, t, m, c, w.shape[1], packed, alpha, th_fire,
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream,
+            eval_kernel(m, w) if packed else 0)
     neuron_layer_eval.launches += 1
     return s
 

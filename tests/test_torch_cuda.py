@@ -1976,3 +1976,140 @@ def test_bf16_split_bn_bwd_is_the_fused_path_at_a_world_of_one(world_of_one,
     torch.cuda.synchronize()
     assert fused[0].dtype == BF16
     assert all(torch.equal(a, b) for a, b in zip(fused, split))
+
+
+#: ``Kernel`` of ``csrc/neuron_layer.cu``: the bf16 eval arm on wgmma, and
+#: the tile code of ``e2a_neuron_layer_eval`` that asks for it.
+EVAL_WGMMA, EVAL_TILE_WGMMA = 10, 3
+EVAL_WGMMA_SHAPES = [
+    (1, 128, 128, 128),    # one unit, T = 1
+    (4, 600, 256, 256),    # T = 4, M % 128 != 0
+    (8, 530, 264, 136),    # T = 8; M, K, C ragged; rows of 33 bytes
+    (2, 700, 520, 136),    # rows of 65 bytes: the producer's byte copies
+    (3, 777, 576, 128),    # tokenizer.conv.1's 72-byte rows
+    (5, 513, 64, 24),      # K < 64, C < 128
+    (6, 1100, 1152, 256),  # tokenizer.conv.2's rows (144 bytes, by TMA)
+    (7, 640, 128, 2048),   # K = 2048, as smlp.a
+]
+
+
+def _eval_operands(rng, t, m, c, k):
+    x = _t(_spikes(rng, (t, m, c), 0.25)).to("cuda", BF16)
+    w = _t((rng.integers(-4, 5, (c, k)) / 64).astype(np.float32)).to(
+        "cuda", BF16)
+    b = _t(rng.normal(0.9, 0.1, k).astype(np.float32)).to("cuda")
+    return x, w, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,m,c,k", EVAL_WGMMA_SHAPES)
+def test_bf16_eval_on_wgmma(t, m, c, k):
+    """The bf16 eval kernel on the wgmma mainloop (tile code 3, plan kernel
+    10), forced at every shape and taken by the wrapper's rule above 512
+    rows a step. Exact weights (k/64, |k| <= 4: every fp32 sum exact): the
+    spikes equal the plain version's and the one-plane arm's bit for bit.
+    Gaussian weights: the spikes equal the plain SOMA's on the wgmma z
+    pass's fp32 product plus the bias (the same mainloop, the same sums in
+    the same order) bit for bit where the z pass runs on wgmma, and are
+    within 1e-3 of the plain version's."""
+    dev = _card()
+    rng = np.random.default_rng(36 + t)
+    x, w, b = _eval_operands(rng, t, m, c, k)
+    xp = spike_matmul.spike_pack(x)
+
+    def launch(w, tile):
+        return neuron_layer._launch_neuron_layer_eval(
+            xp, w, b, t, m, c, k, True, 0.5, 1.0, tile=tile)
+    assert [la.kernel for la in _plan_kernels(
+        launch, w, EVAL_TILE_WGMMA)] == [EVAL_WGMMA]
+    if m > 512:
+        assert neuron_layer.eval_kernel(m, w) == EVAL_TILE_WGMMA
+        assert [la.kernel for la in _plan_kernels(
+            neuron_layer.neuron_layer_eval, x, w, b, packed=True)] == \
+            [EVAL_WGMMA]
+    got = launch(w, EVAL_TILE_WGMMA)
+    plain = neuron_layer.neuron_layer_eval_plain(x, w, b)
+    one_plane = launch(w, 0)
+    torch.cuda.synchronize()
+    assert got.dtype == BF16 and got.shape == (t, m, k)
+    assert torch.equal(got, plain)
+    assert torch.equal(got, one_plane)
+    if m > 512:
+        assert torch.equal(neuron_layer.neuron_layer_eval(x, w, b,
+                                                          packed=True), got)
+    assert 0.02 < float(got.float().mean()) < 0.98
+    wg = _t((rng.normal(size=(c, k)) * 2 / c ** 0.5).astype(np.float32)).to(
+        dev, BF16)
+    got = launch(wg, EVAL_TILE_WGMMA)
+    plain = neuron_layer.neuron_layer_eval_plain(x, wg, b)
+    torch.cuda.synchronize()
+    assert float((got != plain).float().mean()) <= 1e-3
+    if neuron_layer.z_kernel(t * m, wg, True) == neuron_layer.Z_WGMMA:
+        z = neuron_layer.neuron_layer_train_z(x, wg, packed=True)
+        exact = lif_soma.lif_soma_fwd_plain(z + b)[0].to(BF16)
+        torch.cuda.synchronize()
+        assert torch.equal(got, exact)
+
+
+@pytest.mark.cuda
+def test_the_eval_wgmma_plan_twin():
+    """``e2a_neuron_layer_eval_plan`` at pssa.qkv and smlp.a in bf16: plan
+    kernel 10, 384 threads (a producer and two consumer warpgroups), four
+    34 KB stages, two consumers' 16 KB spike staging and bias copies with
+    the opt-in, one persistent block an SM at most over the 128 x 128 units
+    of a time step's rows (each walks the T steps); fp32 keeps the Large
+    ``mma.sync`` tile."""
+    _card()
+    x = torch.zeros((4, 3136, 512), dtype=BF16, device="cuda")
+    v = torch.zeros(2048, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for k, units in ((512, 100), (2048, 400)):
+        w = torch.zeros((512, k), dtype=BF16, device="cuda")
+        (la,) = _plan_kernels(neuron_layer.neuron_layer_eval, x, w, v[:k],
+                              packed=True)
+        assert la.kernel == EVAL_WGMMA
+        assert la.block == (384, 1, 1) and la.opt_in
+        assert la.smem == 4 * (128 * 128 * 2 + 128 * 16) + \
+            2 * (64 * 128 * 2 + 128 * 4) + 2 * 4 * 8 + 1024
+        assert la.grid == (min(sms, units), 1, 1)
+        assert la.tile[0] == 1 and la.extent[0] == units
+        assert la.strided[0] == (sms < units)
+    w = torch.zeros((512, 512), device="cuda")
+    (la,) = _plan_kernels(neuron_layer.neuron_layer_eval, x.float(), w,
+                          v[:512], packed=True)
+    assert la.kernel == (1 if 13 * 8 <= sms else 2)   # eval_tile's rule
+
+
+@pytest.mark.cuda
+def test_the_eval_entry_refuses_tile_3_it_cannot_take():
+    """Tile code 3 on an fp32 weight, on a weight TMA cannot read or on a
+    dense input is refused (the plan twin too), with no other kernel in
+    its place, and the wrapper raises; tile code 4 is refused."""
+    from repro_torch.kernels import build, dtype_code
+    dev = _card()
+    rng = np.random.default_rng(39)
+    t, m, c, k = 2, 600, 256, 128
+    x, w, b = _eval_operands(rng, t, m, c, k)
+    xp = spike_matmul.spike_pack(x)
+    off = torch.zeros(c * k + 1, dtype=BF16, device=dev)[1:].view(c, k)
+    off.copy_(w)
+    lib = build.load()
+    records = (build.ctypes.c_longlong * (build.MAX_LAUNCHES
+                                           * build.PLAN_FIELDS))()
+    for xin, weight, packed, tile in ((xp, w.float(), 1, 3), (xp, off, 1, 3),
+                                      (x, w, 0, 3), (xp, w, 1, 4)):
+        s = torch.full((t, m, k), 7.0, dtype=weight.dtype, device=dev)
+        args = (xin.data_ptr(), weight.data_ptr(), b.data_ptr(),
+                s.data_ptr(), t, m, c, k, packed, tile, 0.5, 1.0,
+                dtype_code(weight.dtype, "neuron_layer_eval"))
+        assert lib.e2a_neuron_layer_eval(
+            *args, torch.cuda.current_stream().cuda_stream) == 1
+        assert lib.e2a_neuron_layer_eval_plan(
+            *args, records, build.MAX_LAUNCHES) == -1
+        torch.cuda.synchronize()
+        assert bool((s == 7.0).all())
+    with pytest.raises(RuntimeError, match="neuron_layer_eval"):
+        neuron_layer._launch_neuron_layer_eval(
+            xp, w.float(), b, t, m, c, k, True, 0.5, 1.0,
+            tile=EVAL_TILE_WGMMA)
+    assert neuron_layer.eval_kernel(m, off) == 0
