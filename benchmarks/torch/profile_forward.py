@@ -10,7 +10,10 @@ prints, as JSON lines: the time of a whole request (host clock around a
 synchronised forward, median of 5), the time of the tokenizer alone and of
 one block alone (CUDA events), and — from ``torch.profiler`` over one
 forward — the device-busy time, its share of the request, the number of
-kernel launches, and the kernels that take the most device time. With ``--train`` it does the same for one
+kernel launches, and the kernels that take the most device time; and the
+host's time to issue one forward (``issue_ms``: from an idle device to the
+forward's return, no synchronisation, median of 5), which says how much of
+a request the host alone takes. With ``--train`` it does the same for one
 BPTT + AdamW step of ``make_train_step`` on a ``SyntheticVision`` batch
 (step time: host clock around a synchronised step, median of 3, each from
 the same state), with the peak device memory of a step. With ``--bf16``
@@ -160,6 +163,13 @@ def main() -> None:
             model(images)
             torch.cuda.synchronize()
             whole.append((time.perf_counter() - t0) * 1e3)
+        issue = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(images)
+            issue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
         with torch.no_grad():
             tokens, _ = tokenizer_apply(params["tokenizer"],
                                         state["tokenizer"], images_t, mcfg,
@@ -173,6 +183,7 @@ def main() -> None:
         med = statistics.median(whole)
         print(json.dumps({
             "policy": name, "request_ms": whole, "request_ms_median": med,
+            "issue_ms": issue, "issue_ms_median": statistics.median(issue),
             "tokenizer_ms": tok_ms, "one_block_ms": blk_ms,
             **device_profile(lambda: model(images), args.top, med)}),
             flush=True)

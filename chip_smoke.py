@@ -274,8 +274,8 @@ from repro_torch.core.spikingformer import (SpikingFormer,  # noqa: E402
                                             tree_leaves, tree_map,
                                             tree_paths, tree_unflatten,
                                             value_and_grad)
-from repro_torch.kernels import (KERNELS, build, conv_spike,  # noqa: E402
-                                 fused_bn, launch_counts, lif_soma,
+from repro_torch.kernels import (COUNTED, KERNELS, build,  # noqa: E402
+                                 conv_spike, fused_bn, launch_counts, lif_soma,
                                  neuron_layer, ops, reset_launch_counts,
                                  set_launch_counts, spike_matmul)
 from repro_torch.kernels import ref as kref  # noqa: E402
@@ -720,8 +720,7 @@ def check_neuron_layer(gen, case, t, m, c, k, packed):
                            6.0 * t * m * c * k / BF16_FLOPS) * 1e3
         if packed else None,
         "dense_fp32_bound_ms": 2.0 * t * m * c * k / FP32_FLOPS * 1e3})
-    if packed:
-        out["pack_ms"] = time_ms(lambda: spike_matmul.spike_pack(x))
+    if packed:   # the pack alone: the spike_pack cases of this line
         out["z_pass_ms"] = time_ms(lambda: neuron_layer.neuron_layer_train_z(
             x, w, packed=True, xin=xp))
     return out
@@ -1213,6 +1212,195 @@ def tile_cases(site, packed, w, fn, **kw) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The spike pack: the entry point every packed arm runs before its kernel
+# ---------------------------------------------------------------------------
+
+#: The ``kernels`` line's entry of the pack (``kernels.COUNTED``): an entry
+#: point of the spike matmul's row (``KERNELS``), its own launch count.
+PACK_ENTRY = "spike_pack"
+PACK_SOURCE = "src/repro_torch/kernels/csrc/spike_pack.cu"
+#: Where the reference packs (a ``jnp`` sum, inside the functions that
+#: reach ``pallas_call``).
+PACK_REFERENCE = "src/repro/kernels/spike_matmul.py:24"
+
+
+def pack_per_pass(depth: int, stages: int) -> int:
+    """``spike_pack`` launches of one forward, eval or train, under
+    ``cuda-full``: one for every packed call, the neuron layers at every
+    tokenizer stage but the dense first and at the four block sites (the
+    backward's replay reads the packed input its forward kept), the spike
+    matmuls at pssa.proj and smlp.b, and attn_qk's q."""
+    return (stages - 1 + 4 * depth) + 2 * depth + depth
+
+
+def heads_view(x: torch.Tensor, h: int) -> torch.Tensor:
+    """``attn_qk``'s spike operand: ``_fold_tb(_split_heads(x, h))`` of a
+    (T, B, N, D) tensor, the (T*B, h, N, D/h) view the model hands the
+    pack (``core/spiking_layers.py``)."""
+    t, b, n, d = x.shape
+    return x.reshape(t, b, n, h, d // h).permute(0, 1, 3, 2, 4).reshape(
+        t * b, h, n, d // h)
+
+
+def pack_inputs(gen, batch: int, dtype) -> list[tuple[str, torch.Tensor]]:
+    """The spikes of the seven kinds of packed call of the preset's forward
+    at ``batch``, rate 0.2, each laid out as the model hands it to
+    ``spike_pack``: the block sites' (T, M, 512) (pssa.qkv, smlp.a),
+    pssa.proj's and smlp.b's (T*M, C) rows, attn_qk's q view, and the
+    im2col patches (T, M, 9 C_in) of the three packed tokenizer stages."""
+    cfg = get_spikingformer_config(PRESET)
+    t, d, f, h, n = (cfg.time_steps, cfg.d_model, cfg.d_ff, cfg.n_heads,
+                     cfg.num_tokens)
+    m = batch * n
+    out = [("pssa.qkv/smlp.a", spikes(gen, (t, m, d))),
+           ("pssa.proj", spikes(gen, (t * m, d))),
+           ("smlp.b", spikes(gen, (t * m, f))),
+           ("attn_qk", heads_view(spikes(gen, (t, batch, n, d)), h))]
+    out += [(case, spikes(gen, (tt, mm, c)))
+            for case, tt, mm, c, _, packed in neuron_layer_sites(batch)
+            if packed and case.startswith("tokenizer")]
+    return [(case, x.to(dtype)) for case, x in out]
+
+
+def pack_edge_inputs(gen, dtype) -> list[tuple[str, torch.Tensor]]:
+    """Layouts off the main path: a packed row of an odd number of bytes
+    (C = 520 gives 65), a C stride of 2, a row start off 16 bytes, a
+    transposed operand (the last three on the scalar path)."""
+    def s(*shape):
+        return spikes(gen, shape).to(dtype)
+
+    return [("ragged C=520", s(4, 3136, 520)),
+            ("C stride 2", s(4, 3136, 1024)[..., ::2]),
+            ("unaligned start", s(3136 * 512 + 1)[1:].view(3136, 512)),
+            ("transposed", s(512, 3136).t())]
+
+
+def pack_row(case: str, x: torch.Tensor, main: bool = True) -> dict:
+    """One pack case: the kernel bit for bit against ``spike_pack_plain``
+    (the fp32 matrix-vector pass the port packed with before, on the same
+    operand) and the oracle, the path the wrapper names; then the
+    wrapper's ms, its device ms with the L2 cold and warm, the plain
+    pass's, both host costs (``host_us``) and the byte bound (the spikes
+    read once in their dtype, one byte written per eight, at 3.35 TB/s).
+    Off the main path (``main`` False) the checks and the kernel's device
+    ms alone."""
+    pack, plain = spike_matmul.spike_pack, spike_matmul.spike_pack_plain
+    got, want, oracle = pack(x), plain(x), kref.spike_pack_ref(x)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(got, oracle)
+            and got.is_contiguous()):
+        fail(f"spike_pack {case} {x.dtype}: {int((got != want).sum())} "
+             f"bytes differ from the plain pack, "
+             f"{int((got != oracle).sum())} from the oracle")
+    moved = nbytes(x, got)
+    b_ms = moved / HBM_BYTES_PER_S * 1e3
+    row = {"case": case, "dtype": str(x.dtype).removeprefix("torch."),
+           "shape": list(x.shape), "stride": list(x.stride()),
+           "path": {spike_matmul.PACK_VECTOR: "vector",
+                    spike_matmul.PACK_SCALAR: "scalar"}[
+                        spike_matmul.pack_path(x)],
+           "bitwise_plain": True, "bitwise_oracle": True, "max_abs_err": 0.0,
+           "tolerance": "bitwise against spike_pack_plain and "
+                        "kernels/ref.py",
+           **cold_warm(pack, (x,), moved), "bound_ms": b_ms,
+           "bound_by": "bytes", "library_ms": None}
+    if main:
+        plain_dev = cold_warm(plain, (x,), moved)
+        row.update(
+            ms=time_ms(lambda: pack(x)), plain_ms=time_ms(lambda: plain(x)),
+            plain_device_ms=plain_dev["device_ms"],
+            plain_device_ms_l2_warm=plain_dev["device_ms_l2_warm"],
+            host_us=host_us(lambda: pack(x)),
+            plain_host_us=host_us(lambda: plain(x)))
+    del got, want, oracle
+    return row
+
+
+def pack_consumers(gen, dtype) -> dict:
+    """The packed calls at pssa.qkv's shapes (and attn_qk's) fed by the
+    kernel's pack and by the plain pack on the same spikes: the eval
+    kernel's spikes, the z pass's z and the spike matmuls' outputs must be
+    the same bits."""
+    cfg = get_spikingformer_config(PRESET)
+    t, d, h, n = cfg.time_steps, cfg.d_model, cfg.n_heads, cfg.num_tokens
+    m = BATCH * n
+    x = spikes(gen, (t, m, d)).to(dtype)
+    w = (torch.randn((d, d), generator=gen, device=DEVICE) * 2.0
+         * d ** -0.5).to(dtype)
+    bias = torch.randn((d,), generator=gen, device=DEVICE) * 0.1
+    plain = spike_matmul.spike_pack_plain(x)
+    with torch.cuda.device(DEVICE):
+        eval_plain = neuron_layer._launch_neuron_layer_eval(
+            plain, w, bias, t, m, d, d, True, 0.5, 1.0,
+            torch.cuda.current_stream().cuda_stream,
+            neuron_layer.eval_kernel(m, w))
+    q = heads_view(spikes(gen, (t, BATCH, n, d)).to(dtype), h)
+    kt = heads_view(torch.randn((t, BATCH, n, d), generator=gen,
+                                device=DEVICE).to(dtype), h).transpose(-1, -2)
+    x2 = x.reshape(t * m, d)
+    pairs = {
+        "eval_spikes": (neuron_layer.neuron_layer_eval(x, w, bias,
+                                                       packed=True),
+                        eval_plain),
+        "z_pass": (neuron_layer.neuron_layer_train_z(x, w, packed=True),
+                   neuron_layer.neuron_layer_train_z(x, w, packed=True,
+                                                     xin=plain)),
+        "spike_matmul": (spike_matmul.spike_matmul(x2, w),
+                         spike_matmul.spike_matmul_packed(
+                             plain.reshape(t * m, d // 8), w)),
+        "attn_qk": (spike_matmul.spike_matmul_batched(q, kt),
+                    spike_matmul.spike_matmul_packed_batched(
+                        spike_matmul.spike_pack_plain(q), kt))}
+    torch.cuda.synchronize()
+    out = {name: {"equal": torch.equal(a, b), "digest": digest(a),
+                  "plain_digest": digest(b)} for name, (a, b) in pairs.items()}
+    if not all(v["equal"] for v in out.values()):
+        fail(f"packed calls {str(dtype)}: the kernel's pack and the plain "
+             f"pack give other outputs: {out}")
+    return out
+
+
+def pack_cases(gen, batch: int, dtype) -> list[dict]:
+    """The pack's cases at one dtype: the seven main-path shapes, the edge
+    layouts, and the consumers fed both ways (on the first row)."""
+    rows = [pack_row(case, x) for case, x in pack_inputs(gen, batch, dtype)]
+    rows += [pack_row(case, x, main=False)
+             for case, x in pack_edge_inputs(gen, dtype)]
+    rows[0]["consumers"] = pack_consumers(gen, dtype)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def pack_summary(cases: dict[str, list[dict]],
+                 paths: dict[str, dict[str, int]]) -> dict:
+    """The pack's entry of the ``kernels`` line: the numbers of its first
+    case (fp32, the block sites' (T, M, 512)), its launches on the paths
+    that count them, and every case's times beside its bound and the plain
+    pass's."""
+    rows = cases[PACK_ENTRY]
+    first = rows[0]
+    keep = ("case", "dtype", "shape", "path", "ms", "device_ms",
+            "device_ms_l2_warm", "plain_ms", "plain_device_ms",
+            "plain_device_ms_l2_warm", "host_us", "plain_host_us",
+            "bound_ms", "bitwise_plain", "bitwise_oracle")
+    return {
+        "name": PACK_ENTRY, "route": "cuda", "source": PACK_SOURCE,
+        "replaces": KERNELS["spike_matmul_packed"]["replaces"],
+        "packs_as": PACK_REFERENCE, "entry_of": "spike_matmul_packed",
+        "launches": sum(c[PACK_ENTRY] for c in paths.values()),
+        "launches_by_path": {p: c[PACK_ENTRY] for p, c in paths.items()},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": first["ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        "library_ms": None, "case": first["case"],
+        "device_ms": first["device_ms"],
+        "device_ms_l2_warm": first["device_ms_l2_warm"],
+        "consumers": {r["dtype"]: r["consumers"] for r in rows
+                      if "consumers" in r},
+        "cases": [{k: r[k] for k in keep if k in r} for r in rows]}
+
+
 def kernel_phase(seed: int, batch: int) -> dict[str, list[dict]]:
     cfg = get_spikingformer_config(PRESET)
     t, d = cfg.time_steps, cfg.d_model
@@ -1220,6 +1408,7 @@ def kernel_phase(seed: int, batch: int) -> dict[str, list[dict]]:
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     cases: dict[str, list[dict]] = {name: [] for name in KERNELS}
 
+    cases[PACK_ENTRY] = pack_cases(gen, batch, torch.float32)
     cases["lif_soma_fwd"].append(check_lif(gen, t, m, d))
     (cases["spike_matmul_packed"],
      cases["spike_matmul_packed_batched"]) = spike_matmul_cases(gen, batch)
@@ -1413,7 +1602,8 @@ def run_model(seed: int, depth: int, requests: int, batch: int, weights: str):
                    "spike_matmul_packed_batched": depth,
                    # eval: no backward, BN folded into the weights
                    "lif_soma_bwd": 0, "bn_fwd": 0, "bn_bwd": 0,
-                   "neuron_layer_train": 0}
+                   "neuron_layer_train": 0,
+                   PACK_ENTRY: pack_per_pass(depth, cfg.tokenizer_stages)}
     want = {k: v * requests for k, v in per_forward.items()}
     if counts != want:
         fail(f"launch counts {counts} != {want} for {requests} forwards")
@@ -1496,14 +1686,15 @@ def model_phase(seed: int, depth: int, requests: int, batch: int):
 #: launch of ``neuron_layer_train``, whose pass it is), then SOMA, GRAD and
 #: the BN backward; 2 pipeline sites (pssa.proj, smlp.b) with the spike
 #: matmul and the BN pair; attn_qk on the batched spike matmul (attn_av
-#: demotes: 196 % 8).
+#: demotes: 196 % 8); the pack of every packed call (:func:`pack_per_pass`).
 def per_train_step(depth: int, stages: int) -> dict[str, int]:
     sites = 4 * depth + stages
     return {"lif_soma_fwd": 3 * depth + sites, "lif_soma_bwd": 3 * depth + sites,
             "spike_matmul_packed": 2 * depth,
             "spike_matmul_packed_batched": depth,
             "bn_fwd": 2 * depth, "bn_bwd": 2 * depth + sites,
-            "neuron_layer_train": 2 * sites, "neuron_layer_eval": 0}
+            "neuron_layer_train": 2 * sites, "neuron_layer_eval": 0,
+            PACK_ENTRY: pack_per_pass(depth, stages)}
 
 
 def step_replay_check(cfg, params, state, images) -> dict:
@@ -1571,7 +1762,7 @@ def train_phase(seed: int, batch: int) -> dict[str, int]:
             rows.append({k: float(m[k]) for k in
                          ("loss", "grad_norm", "nonfinite", "accuracy")})
         if name == "cuda-full":
-            counts = launch_counts()                 # ... and ends here
+            counts = launch_counts()     # ... and ends here
         moved = {
             "params": not all(torch.equal(a, b) for a, b in
                               zip(tree_leaves(p), tree_leaves(params))),
@@ -1818,7 +2009,7 @@ def lm_launches(cases: dict[str, list[dict]],
 def lm_expected(n: int) -> dict[str, int]:
     """``n`` launches of ``lif_soma_fwd``, none of any other kernel: the
     LM's products are dense ``torch.matmul``, and serving has no backward."""
-    counts = {name: 0 for name in KERNELS}
+    counts = dict.fromkeys(COUNTED, 0)
     counts["lif_soma_fwd"] = n
     return counts
 
@@ -2334,7 +2525,7 @@ def lm_train_expected(steps: int, arch: str = LM_ARCH,
     dense ``torch.matmul``); none under ``eager``."""
     layers = lm_train_config(policy, arch).num_layers \
         if policy == "cuda-full" else 0
-    counts = {name: 0 for name in KERNELS}
+    counts = dict.fromkeys(COUNTED, 0)
     counts["lif_soma_fwd"] = 2 * layers * steps
     counts["lif_soma_bwd"] = layers * steps
     return counts
@@ -2753,10 +2944,13 @@ def host_us(call, reps: int = 21) -> float:
 
 def plan_kernels(fn, *args, **kw) -> list[int]:
     """The plan kernel codes of ``fn(*args, **kw)`` (one per launch), read
-    from the library's plan exports: nothing launched, no count moved."""
+    from the library's plan exports: nothing launched, no count moved. The
+    spike pack's launch, which a packed call makes first (its record
+    carries the pack's path code), is left out."""
     with build.plan_launches() as calls:
         fn(*args, **kw)
-    return [launch.kernel for call in calls for launch in call.launches]
+    return [launch.kernel for call in calls if call.entry != "e2a_spike_pack"
+            for launch in call.launches]
 
 
 class KernelTally:
@@ -3244,7 +3438,7 @@ def bf16_kernel_phase(seed: int, batch: int) -> dict[str, list[dict]]:
     against its bf16 oracle (``kernels/ref.py``) and timed as the fp32
     cases are."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 32)
-    cases = {}
+    cases = {PACK_ENTRY: pack_cases(gen, batch, BF16)}
     for part in (bf16_lif_cases, bf16_matmul_cases, bf16_bn_cases,
                  bf16_neuron_layer_cases):
         cases.update(part(gen, batch))
@@ -3446,7 +3640,8 @@ def bf16_vision_phase(seed: int, batch: int, smi: str) -> dict[str, dict]:
                    "neuron_layer_eval": 4 + 4 * depth,
                    "spike_matmul_packed": 2 * depth,
                    "spike_matmul_packed_batched": depth, "lif_soma_bwd": 0,
-                   "bn_fwd": 0, "bn_bwd": 0, "neuron_layer_train": 0}
+                   "bn_fwd": 0, "bn_bwd": 0, "neuron_layer_train": 0,
+                   PACK_ENTRY: pack_per_pass(depth, cfg.tokenizer_stages)}
     with SiteWalk() as walk_serve:
         full(images[0])
 
@@ -3790,7 +3985,7 @@ def whisper_phase(seed: int, smi: str) -> dict[str, dict[str, int]]:
     params, opt_state, specs = build_state(cfg, seed=seed, device=DEVICE)
     del opt_state
     leaves = len(tree_leaves(params))
-    none = {name: 0 for name in KERNELS}
+    none = dict.fromkeys(COUNTED, 0)
     torch.cuda.empty_cache()
     serve_init = whisper_serve(params, cfg, seed)
     torch.cuda.empty_cache()
@@ -3973,10 +4168,12 @@ def chaos_demotion(seed: int) -> dict:
     # call drops a neuron_layer_train launch, its replay in the backward
     # and the backward's bn_bwd (the eager BN's backward is autograd's
     # plain ops); the pipeline's SOMA forward and GRAD take the place of
-    # the replay's lif_soma_fwd and lif_soma_bwd one for one
+    # the replay's lif_soma_fwd and lif_soma_bwd one for one; the eager
+    # pipeline packs nothing (the fault fires in dispatch, before the pack)
     want = dict(clean["counts"])
     want["neuron_layer_train"] -= 2 * 3 * depth
     want["bn_bwd"] -= 3 * depth
+    want[PACK_ENTRY] -= 3 * depth
     bits = {
         "loss": torch.equal(faulted["loss"], pinned_run["loss"]),
         "grads": all(torch.equal(a, b) for a, b in zip(
@@ -4480,7 +4677,7 @@ def mesh_family_expected(arch: str, path: str) -> dict[str, int]:
     (``remat``'s recompute) and once in its backward; none for whisper."""
     cfg = mesh_family_config(arch)
     layers = 0 if cfg.family == "audio" else cfg.num_layers
-    counts = {name: 0 for name in KERNELS}
+    counts = dict.fromkeys(COUNTED, 0)
     if path == "train":
         counts["lif_soma_fwd"] = (2 if cfg.remat else 1) * layers
         counts["lif_soma_bwd"] = layers
@@ -4573,6 +4770,10 @@ def mesh_train_phase(seed: int, batch: int, smi: str) -> tuple[dict, dict]:
             fail(f"mesh_train: the (1, 1) mesh's step is not the mesh-less "
                  f"step's bits: losses {runs['mesh']['history']} vs "
                  f"{runs['no_mesh']['history']}, leaves differing {differ}")
+        packs = pack_per_pass(cfg.num_layers, cfg.tokenizer_stages)
+        if per_step[PACK_ENTRY] != packs:
+            fail(f"mesh_train: {per_step[PACK_ENTRY]} pack launches a step "
+                 f"on the mesh, not {packs}")
         check_train_run("mesh_train lm", lm, leaves, 1 + MESH_STEPS,
                         lm_train_expected(1 + MESH_STEPS))
         if not all(r.get("err_norm", 0.0) > 0.0 for r in lm["steps"]):
@@ -4791,7 +4992,8 @@ KERNEL_SYMBOLS = {"lif_soma_fwd": "lif_fwd_", "lif_soma_bwd": "lif_bwd_",
                   "spike_matmul_packed_batched": "spike_mma_kernel",
                   "bn_fwd": "bn_fwd_", "bn_bwd": "bn_bwd_",
                   "neuron_layer_train": "neuron_layer_train_",
-                  "neuron_layer_eval": "neuron_layer_eval_"}
+                  "neuron_layer_eval": "neuron_layer_eval_",
+                  PACK_ENTRY: "spike_pack_kernel"}
 
 
 def busy_ms(fn, launched: dict[str, int]) -> float | None:
@@ -5100,10 +5302,10 @@ def tune_phase(seed: int, batch: int) -> dict[str, int]:
         if (name == "untuned" or not demoted) and v["launches"] != per_step:
             fail(f"the {name} step's launches {v['launches']} != {per_step}")
     counts = {k: fwd["tuned"]["launches"][k] + stp["tuned"]["launches"][k]
-              for k in KERNELS}
+              for k in COUNTED}
     fused = {s for s, impl in TUNABLE_SITES.items()
              if impl == "fused_epilogue"}
-    path = {k for k in KERNELS if fwd["untuned"]["launches"][k] +
+    path = {k for k in COUNTED if fwd["untuned"]["launches"][k] +
             stp["untuned"]["launches"][k]} - (
         {"neuron_layer_train"} if demoted == fused else set())
     if any(counts[k] == 0 for k in path):
@@ -5125,7 +5327,7 @@ def analysis_phase(seed: int) -> dict[str, dict]:
     the contract families with the launch family over every declared case
     at batch ``BATCH`` (each launch read from the plan exports, none made
     and none counted) and the plan audit at the same batch; then each of
-    the ten contracts at each of its site geometries at batch 1 launched
+    the eleven contracts at each of its site geometries at batch 1 launched
     and held against ``kernels/ref.py``
     (``analysis.contracts.hold_against_oracle``: bitwise or 1e-6 for the
     LIF kernels, the matmul and BN tolerances elsewhere, a neuron layer's
@@ -5235,7 +5437,8 @@ def wgmma_launch_family(gen, select=None, code=None,
                                                 kernel_cases, read_launches)
     from repro_torch.kernels.contract import SkipCase
 
-    select = select or (lambda decl: decl.kernel.startswith("spike_matmul"))
+    select = select or (lambda decl: decl.kernel.startswith("spike_matmul")
+                        and decl.name != PACK_ENTRY)
     code = spike_matmul.WGMMA if code is None else code
     counts = launch_counts()
     seen, findings, codes, held = set(), [], Counter(), []
@@ -5252,7 +5455,8 @@ def wgmma_launch_family(gen, select=None, code=None,
             continue
         calls = read_launches(decl, args, fn_kwargs)
         findings += check_launch_contract(calls, f"{where}[bf16]")
-        kinds = [launch.kernel for call in calls for launch in call.launches]
+        kinds = [launch.kernel for call in calls
+                 if call.entry != "e2a_spike_pack" for launch in call.launches]
         codes.update(kinds)
         if code in kinds:
             held.append({"where": where,
@@ -5327,13 +5531,54 @@ def run_child(cmd: list[str], what: str, phase: str = "dryrun",
     """``cmd`` in a process of its own with ``src`` on its path; fails the
     script on a non-zero exit (``phase`` names the phase) and kills the
     process past ``timeout`` seconds."""
+    return run_children({what: cmd}, phase, timeout)[what][0]
+
+
+def run_children(cmds: dict[str, list[str]], phase: str,
+                 timeout: float) -> dict[str, tuple]:
+    """Each of ``cmds`` (what it is -> its command) in a process of its
+    own with ``src`` on its path, all started together: independent
+    children overlap, so a phase takes about its longest child.
+    ``{what: (CompletedProcess, seconds)}``, the seconds from the start to
+    that child's exit (to 0.1 s). Fails the script on a non-zero exit
+    (``phase`` names the phase); kills every child still running past
+    ``timeout`` seconds, or when the script stops for any other reason."""
     env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent
                                            / "src")}
-    out = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                         timeout=timeout)
-    if out.returncode != 0:
-        fail(f"{phase}: {what} exited {out.returncode}: "
-             f"{(out.stdout + out.stderr)[-3000:]}")
+    files = {what: (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile(
+        "w+")) for what in cmds}
+    t0 = time.perf_counter()
+    procs = {what: subprocess.Popen(cmd, stdout=files[what][0],
+                                    stderr=files[what][1], text=True,
+                                    env=env)
+             for what, cmd in cmds.items()}
+    ended: dict[str, float] = {}
+    try:
+        while len(ended) < len(procs):
+            for what, proc in procs.items():
+                if what not in ended and proc.poll() is not None:
+                    ended[what] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > timeout:
+                raise subprocess.TimeoutExpired(
+                    [w for w in procs if w not in ended], timeout)
+            time.sleep(0.1)
+    finally:
+        for proc in procs.values():       # none is left running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = {}
+    for what, proc in procs.items():
+        text = []
+        for f in files[what]:
+            f.seek(0)
+            text.append(f.read())
+            f.close()
+        done = subprocess.CompletedProcess(proc.args, proc.returncode, *text)
+        if done.returncode != 0:
+            fail(f"{phase}: {what} exited {done.returncode}: "
+                 f"{(done.stdout + done.stderr)[-3000:]}")
+        out[what] = (done, ended[what])
     return out
 
 
@@ -5439,27 +5684,30 @@ def hold_estimate(name: str, est: dict, got: dict) -> dict:
 def dryrun_phase(seed: int, smi: str) -> dict[str, dict[str, int]]:
     """The dry run (``repro_torch.launch.dryrun``) held against this card:
     the two training steps of :func:`dryrun_cells` estimated in a child
-    process (:func:`dryrun_child`) and measured here (:func:`measure_step`,
-    each held by :func:`hold_estimate`); then the production cell
-    ``DRYRUN_CELL`` on ``data16`` through the module's command line, its
-    terms, peak and ``fits`` printed. Returns the measured steps' launch
-    counts, by path."""
+    process (:func:`dryrun_child`) and, beside it in a second child, the
+    production cell ``DRYRUN_CELL`` on ``data16`` through the module's
+    command line (its terms, peak and ``fits`` printed); then the two steps
+    measured here (:func:`measure_step`, each held by
+    :func:`hold_estimate`). Returns the measured steps' launch counts, by
+    path."""
     t0 = time.perf_counter()
+    arch, shape = DRYRUN_CELL
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "world1.json")
-        run_child([sys.executable, str(Path(__file__).resolve()),
-                   "--dryrun-child", path], "the world-1 estimates")
+        cli_what = f"python -m repro_torch.launch.dryrun {arch} {shape}"
+        kids = run_children({
+            "the world-1 estimates": [sys.executable,
+                                      str(Path(__file__).resolve()),
+                                      "--dryrun-child", path],
+            cli_what: [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", shape, "--out", tmp]},
+            "dryrun", DRYRUN_TIMEOUT_S)
         with open(path) as f:
             est = json.load(f)
-        arch, shape = DRYRUN_CELL
-        t1 = time.perf_counter()
-        cli = run_child([sys.executable, "-m", "repro_torch.launch.dryrun",
-                         "--arch", arch, "--shape", shape, "--out", tmp],
-                        f"python -m repro_torch.launch.dryrun {arch} {shape}")
-        cell_s = time.perf_counter() - t1
         with open(os.path.join(tmp, f"{arch}__{shape}.json")) as f:
             cell = json.load(f)
-    estimate_s = t1 - t0
+    cli, cell_s = kids[cli_what]
+    estimate_s = kids["the world-1 estimates"][1]
     got = {"train": measure_step(lambda: measured_vision_step(seed)),
            "lm_train": measure_step(lambda: measured_lm_step(seed))}
     held = {name: hold_estimate(name, est[name], got[name])
@@ -5476,6 +5724,9 @@ def dryrun_phase(seed: int, smi: str) -> dict[str, dict[str, int]]:
                  "cli": cli.stdout.strip().splitlines()[-2:]},
          seconds={"estimates": estimate_s, "data16": cell_s,
                   "phase": time.perf_counter() - t0},
+         timing="the estimates and the data16 command run side by side, "
+                "each timed from their common start: trace_s, command_s "
+                "and both seconds are taken under each other's load",
          tolerance=f"peak within {DRYRUN_PEAK_BAND:.0%} of the measured "
                    f"step's; the roofline's largest term <= the step's "
                    f"device busy ms; useful ratio <= {DRYRUN_RATIO_MAX}; "
@@ -5788,22 +6039,21 @@ def example_figures(name: str, out: str) -> dict:
 
 
 def examples_phase(smi: str) -> None:
-    """The port's four examples as child processes on the card
-    (``run_child``), each at its default arguments: a non-zero exit or a
-    non-finite loss fails the phase; how well an example learns is printed
-    (its final loss beside ln 4, ``serve_lm``'s bigram consistency beside
-    chance), not held."""
+    """The port's four examples as child processes on the card, all
+    started together (``run_children``), each at its default arguments:
+    a non-zero exit or a non-finite loss fails the phase; how well an
+    example learns is printed (its final loss beside ln 4, ``serve_lm``'s
+    bigram consistency beside chance), not held."""
     t0 = time.perf_counter()
     root = Path(__file__).resolve().parent / "examples" / "torch"
-    rows = {}
-    for name in EXAMPLES:
-        t1 = time.perf_counter()
-        out = run_child([sys.executable, str(root / f"{name}.py")],
-                        f"examples/torch/{name}.py", phase="examples",
-                        timeout=EXAMPLES_TIMEOUT_S)
-        rows[name] = {**example_figures(name, out.stdout),
-                      "seconds": time.perf_counter() - t1}
+    kids = run_children({name: [sys.executable, str(root / f"{name}.py")]
+                         for name in EXAMPLES}, "examples",
+                        EXAMPLES_TIMEOUT_S)
+    rows = {name: {**example_figures(name, out.stdout), "seconds": seconds}
+            for name, (out, seconds) in kids.items()}
     emit("examples", examples=rows, seconds=time.perf_counter() - t0,
+         timing="the four run side by side on the one card, each timed "
+                "from their common start to its exit",
          held="exit 0 and a finite final loss; the losses against ln 4 and "
               "the bigram consistency against chance are printed, not held",
          card=smi)
@@ -5866,6 +6116,7 @@ def summarise(cases: dict[str, list[dict]],
     kernels.append(wgmma_summary(cases, paths, oracle))
     kernels.append(z_wgmma_summary(cases, paths, oracle))
     kernels.append(eval_wgmma_summary(cases, paths, oracle))
+    kernels.append(pack_summary(cases, paths))
     return {"kernels": kernels}
 
 

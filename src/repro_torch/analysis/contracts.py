@@ -635,6 +635,8 @@ def _operands_fp32(decl, case, gen: torch.Generator):
             x.to(meta[0].dtype) if low else x)
         args = (_normal(gen, shapes[0], dev), u, s, mask) + tuple(
             _normal(gen, sh, dev) for sh in shapes[4:])
+    elif name == "spike_pack":
+        args = (_spikes(gen, shapes[0], dev),)
     elif name.startswith("spike_"):
         c = shapes[1][-2]
         args = (_spikes(gen, shapes[0], dev),
@@ -767,6 +769,10 @@ def hold_against_oracle(decl, case, gen: torch.Generator) -> dict:
             max(errs) <= ELEMENTWISE_ATOL
         row.update(bitwise=all(torch.equal(a, b) for a, b in zip(got, want)),
                    tolerance=f"bitwise or {ELEMENTWISE_ATOL} abs")
+    elif name == "spike_pack":
+        errs = [_max_err(got[0], want[0])]
+        ok = got[0].dtype == want[0].dtype and torch.equal(got[0], want[0])
+        row.update(bitwise=bool(ok), tolerance="bitwise")
     elif name.startswith("spike_"):
         errs = [_max_err(got[0], want[0])]
         ok = _close(got[0], want[0], MATMUL_RTOL, MATMUL_ATOL)

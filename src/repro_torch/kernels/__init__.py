@@ -86,8 +86,16 @@ def dtype_code(dtype, what: str) -> int:
     return DTYPE_CODES[name]
 
 
+#: The names :func:`launch_counts` reports: every row of :data:`KERNELS`
+#: and ``spike_pack`` (``csrc/spike_pack.cu``), the pack every packed arm
+#: runs before its kernel, an entry point of the spike matmul's row that
+#: replaces no ``pallas_call`` of its own.
+COUNTED = (*KERNELS, "spike_pack")
+
+
 def _wrappers() -> dict:
-    """Kernel name -> its wrapper, the function that carries the count."""
+    """Name of :data:`COUNTED` -> its wrapper, the function that carries
+    the count."""
     from repro_torch.kernels import fused_bn, lif_soma, neuron_layer, \
         spike_matmul
     return {
@@ -100,6 +108,7 @@ def _wrappers() -> dict:
         "bn_bwd": fused_bn.bn_bwd,
         "neuron_layer_train": neuron_layer.neuron_layer_train,
         "neuron_layer_eval": neuron_layer.neuron_layer_eval,
+        "spike_pack": spike_matmul.spike_pack,
     }
 
 
@@ -118,7 +127,7 @@ def set_launch_counts(counts: dict[str, int]) -> None:
 
 
 def reset_launch_counts() -> None:
-    set_launch_counts(dict.fromkeys(KERNELS, 0))
+    set_launch_counts(dict.fromkeys(COUNTED, 0))
 
 
 #: Observers of the kernel sites a run on ``meta`` tensors passes: each is

@@ -103,6 +103,9 @@ SIGNATURES: dict[str, tuple] = {
     # x, w, z, T, M, C, K, packed, kernel, dtype, stream
     "e2a_neuron_layer_train_z": (_P, _P, _P, _I, _L, _I, _I, _I, _I, _I,
                                  _P),
+    # x, out, 3 leading dims (d2 innermost), C, their 3 element strides and
+    # C's, path (1 vector, 2 scalar), dtype (of x), stream
+    "e2a_spike_pack": (_P, _P, _L, _L, _L, _I) + (_L,) * 4 + (_I, _I, _P),
 }
 
 #: Fields of one launch record and the most records of one entry point

@@ -3,8 +3,9 @@
 The counterpart of ``repro.kernels.conv_spike``: every tokenizer stage is a
 k3/s2 SAME conv, lowered to a matmul whose contraction axis is
 ``k*k*c_in`` so that it can ride the spike kernels. Plain tensor code,
-except :func:`spike_patch_matmul`, which launches the batched spike matmul
-kernel with the time axis as the batch axis.
+except :func:`spike_patch_matmul`, which launches the spike pack on the
+patches where they lie and the batched spike matmul kernel with the time
+axis as the batch axis.
 
 Padding is XLA's "SAME": for k3/s2 on an even size it is one-sided
 (lo, hi) = (0, 1), unlike ``F.conv2d(padding=1)``, which pads both sides

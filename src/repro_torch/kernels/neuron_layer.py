@@ -270,10 +270,11 @@ def neuron_layer_eval(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
     """Eval-mode neuron layer: x (T, M, C) @ w (C, K) + bias -> SOMA, one
     launch. Returns spikes (T, M, K) in ``x.dtype``.
 
-    ``packed=True`` bit-packs the {0,1} ``x`` along C (8 spikes/byte, plain
-    tensor code) so that it crosses device memory at 1 bit/element and is
-    expanded inside the kernel; C must then be a multiple of 8. A packed
-    call runs the kernel :func:`eval_kernel` names.
+    ``packed=True`` bit-packs the {0,1} ``x`` along C (8 spikes/byte, one
+    launch of ``spike_pack``'s kernel first) so that it crosses device
+    memory at 1 bit/element and is expanded inside the kernel; C must then
+    be a multiple of 8. A packed call runs the kernel :func:`eval_kernel`
+    names.
     """
     _check_layer("neuron_layer_eval", x, w, {"bias": bias}, packed)
     if x.is_meta:
@@ -456,7 +457,7 @@ def _product_flops(x, w) -> float:
 
 def eval_on_meta(x, w, bias, packed):
     """``neuron_layer_eval``'s shape rule on ``meta``: the input packed
-    where the card packs it (``spike_pack``, plain tensor code there too),
+    where the card packs it (``spike_pack``, whose own site it reports),
     then spikes (T, M, K) in ``x.dtype``, the kernel's."""
     if packed:
         spike_pack(x)

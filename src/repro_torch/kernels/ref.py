@@ -31,7 +31,7 @@ import torch
 __all__ = ["bn_bwd_ref", "bn_fwd_ref", "lif_soma_bwd_carry_ref",
            "lif_soma_bwd_ref", "lif_soma_fwd_ref", "neuron_layer_eval_ref",
            "neuron_layer_train_ref", "spike_matmul_batched_ref",
-           "spike_matmul_ref", "spike_patch_matmul_ref"]
+           "spike_matmul_ref", "spike_pack_ref", "spike_patch_matmul_ref"]
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -87,6 +87,17 @@ def lif_soma_bwd_carry_ref(g: torch.Tensor, u_seq: torch.Tensor,
                   + grad_s * mask[t] * grad_scale + seeds[t])
         dx[t] = grad_u
     return torch.stack(dx)
+
+
+def spike_pack_ref(spikes: torch.Tensor) -> torch.Tensor:
+    """(..., C) {0,1} -> (..., C//8) uint8, LSB-first along C, as the
+    reference's ``jnp`` sum forms it: each spike cast to uint8, times its
+    bit's weight, the eight summed in uint8."""
+    *lead, c = spikes.shape
+    bits = spikes.reshape(*lead, c // 8, 8).to(torch.uint8)
+    weights = torch.tensor([1 << b for b in range(8)], dtype=torch.uint8,
+                           device=spikes.device)
+    return (bits * weights).sum(-1, dtype=torch.uint8)
 
 
 def spike_matmul_ref(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -48,6 +48,15 @@ bf16 weight widened exactly), rounding the product to ``w.dtype`` once, as
 the kernels do. The wrappers
 use them for CPU tensors only; on ``meta`` tensors they allocate the
 kernel's output (:func:`on_meta`) for the dry run to count.
+
+:func:`spike_pack`, the pack every packed arm of the port runs before its
+kernel (the spike matmuls here, the neuron layers' packed arms, the
+tokenizer's im2col patches), is an entry point of this row too: one launch
+of ``csrc/spike_pack.cu``, which reads the spikes in place in their own
+dtype and writes one byte for every eight. It replaces no ``pallas_call``:
+the reference packs with a ``jnp`` sum inside the functions that reach
+one. Its plain version, :func:`spike_pack_plain`, is the fp32
+matrix-vector product the port packed with before.
 """
 from __future__ import annotations
 
@@ -145,12 +154,10 @@ def _as4(w: torch.Tensor) -> torch.Tensor:
         else w
 
 
-def spike_pack(spikes: torch.Tensor) -> torch.Tensor:
-    """(..., C) {0,1} -> (..., C//8) uint8, LSB-first along C.
-
-    One matrix-vector product with the bit weights (1, 2, ..., 128): every
-    byte is a sum of distinct powers of two up to 255, exact in fp32 in any
-    order, and the input is read once."""
+def spike_pack_plain(spikes: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`spike_pack`: one matrix-vector product with
+    the bit weights (1, 2, ..., 128) in fp32. Every byte is a sum of
+    distinct powers of two up to 255, exact in fp32 in any order."""
     *lead, c = spikes.shape
     if c % 8 != 0:
         raise ValueError(f"contraction dim {c} must be a multiple of 8")
@@ -158,6 +165,83 @@ def spike_pack(spikes: torch.Tensor) -> torch.Tensor:
     weights = torch.exp2(torch.arange(8, dtype=torch.float32,
                                       device=spikes.device))
     return torch.matmul(bits, weights).to(torch.uint8)
+
+
+#: The path codes of ``e2a_spike_pack`` (``csrc/spike_pack.cu``): 16-byte
+#: vector loads, or one load an element at any strides and alignment.
+PACK_VECTOR, PACK_SCALAR = 1, 2
+
+
+def pack_layout(spikes: torch.Tensor):
+    """The kernel's view of ``spikes`` (..., C): ``(dims, strides, c,
+    c_stride)`` with the leading dims merged where their strides allow and
+    dims of 1 dropped, as three sizes and element strides, the innermost
+    last, padded in front with dims of 1. Raises ``ValueError`` where more
+    than three leading dims remain (the kernel takes four)."""
+    *lead, c = spikes.shape
+    *lead_strides, sc = spikes.stride()
+    merged: list[list[int]] = []
+    for n, s in zip(lead, lead_strides):
+        if n == 1:
+            continue
+        if merged and merged[-1][1] == n * s:
+            merged[-1] = [merged[-1][0] * n, s]
+        else:
+            merged.append([n, s])
+    if len(merged) > 3:
+        raise ValueError(f"spike_pack kernel takes up to 4 dims; "
+                         f"{tuple(spikes.shape)} with strides "
+                         f"{spikes.stride()} keeps {len(merged) + 1}")
+    merged = [[1, 0]] * (3 - len(merged)) + merged
+    return (tuple(n for n, _ in merged), tuple(s for _, s in merged), c, sc)
+
+
+def pack_path(spikes: torch.Tensor, layout=None) -> int:
+    """The path ``e2a_spike_pack`` takes for ``spikes`` (``layout``: its
+    :func:`pack_layout`, where already made): :data:`PACK_VECTOR` where C
+    has unit stride and the base and every row start are 16-byte aligned,
+    else :data:`PACK_SCALAR`. The rule lives here alone; the C entry
+    refuses the vector path on a layout it cannot read."""
+    dims, strides, _, sc = layout or pack_layout(spikes)
+    size = spikes.element_size()
+    aligned = spikes.data_ptr() % 16 == 0 and all(
+        n <= 1 or s * size % 16 == 0 for n, s in zip(dims, strides))
+    return PACK_VECTOR if sc == 1 and aligned else PACK_SCALAR
+
+
+def spike_pack(spikes: torch.Tensor) -> torch.Tensor:
+    """(..., C) {0,1} -> (..., C//8) uint8, LSB-first along C.
+
+    On a CUDA tensor, one launch of ``e2a_spike_pack``
+    (``csrc/spike_pack.cu``), which reads ``spikes`` in place in its own
+    dtype, fp32 or bf16 (any other raises ``TypeError``), at the strides
+    :func:`pack_layout` gives, on the path :func:`pack_path` names, and
+    writes the contiguous result. On the CPU the plain version
+    (:func:`spike_pack_plain`); on ``meta`` the result allocated and the
+    site reported (:func:`pack_on_meta`). A bit is set where an element is
+    nonzero."""
+    c = spikes.shape[-1]
+    if c % 8 != 0:
+        raise ValueError(f"contraction dim {c} must be a multiple of 8")
+    if spikes.is_meta:
+        return pack_on_meta(spikes)
+    if not spikes.is_cuda:
+        return spike_pack_plain(spikes)
+    code = dtype_code(spikes.dtype, "spike_pack")
+    out = torch.empty((*spikes.shape[:-1], c // 8), dtype=torch.uint8,
+                      device=spikes.device)
+    if out.numel() == 0:
+        return out
+    layout = pack_layout(spikes)
+    dims, strides, _, sc = layout
+    with torch.cuda.device(spikes.device):
+        err = build.load().e2a_spike_pack(
+            spikes.data_ptr(), out.data_ptr(), *dims, c, *strides, sc,
+            pack_path(spikes, layout), code,
+            torch.cuda.current_stream().cuda_stream)
+    build.check_launch(err, "spike_pack")
+    spike_pack.launches += 1
+    return out
 
 
 def spike_unpack(packed: torch.Tensor,
@@ -312,6 +396,7 @@ def spike_matmul_batched(spikes: torch.Tensor, w: torch.Tensor,
 #: Kernel launches since the counts were last set to 0.
 spike_matmul_packed.launches = 0
 spike_matmul_packed_batched.launches = 0
+spike_pack.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +425,22 @@ def on_meta(name, packed, w, out_dtype=None):
     return meta_site(name, (packed, w), out, 2.0 * batch * m * c * k)
 
 
+def pack_on_meta(spikes):
+    """:func:`spike_pack`'s shape rule on ``meta``: the (..., C/8) uint8
+    result, contiguous, the dtype refused as on the card; the site reported
+    with no flops (the pack forms no product)."""
+    dtype_code(spikes.dtype, "spike_pack")
+    out = torch.empty((*spikes.shape[:-1], spikes.shape[-1] // 8),
+                      dtype=torch.uint8, device=spikes.device)
+    return meta_site("spike_pack", (spikes,), out, 0.0)
+
+
+def _build_spike_pack(case):
+    if case.c % 8 != 0:
+        raise SkipCase(f"contraction {case.c} % 8 != 0 -> nothing packed")
+    return (meta(case.t * case.m, case.c, dtype=case.torch_dtype),), {}, {}
+
+
 def _build_spike_matmul(case):
     if case.c % 8 != 0:
         raise SkipCase(f"contraction {case.c} % 8 != 0 -> dense fallback")
@@ -359,6 +460,11 @@ def _build_spike_matmul_batched(case):
 declare_contract(KernelContract(
     name="spike_matmul", kernel="spike_matmul_packed", fn=spike_matmul,
     build=_build_spike_matmul, ref=_ref.spike_matmul_ref,
+    serves=(("linear_bn", "cuda+spike_mm"),)))
+
+declare_contract(KernelContract(
+    name="spike_pack", kernel="spike_matmul_packed", fn=spike_pack,
+    build=_build_spike_pack, ref=_ref.spike_pack_ref,
     serves=(("linear_bn", "cuda+spike_mm"),)))
 
 declare_contract(KernelContract(

@@ -65,7 +65,7 @@ def test_clean_tree_verifies_without_errors_launches_or_builds(monkeypatch):
 def test_every_contract_meets_a_site_of_the_matrix():
     cases = contracts.kernel_cases(presets=SMOKE)
     assert {d.name for _, d, _ in cases} == set(kc.kernel_contracts())
-    assert len(kc.kernel_contracts()) == 10
+    assert len(kc.kernel_contracts()) == 11
 
 
 def test_registry_retrace_is_stable():

@@ -66,7 +66,7 @@ def test_kernels_against_plain_versions_on_the_card():
                                "spike_matmul_packed_batched": 1,
                                "bn_fwd": 0, "bn_bwd": 0,
                                "neuron_layer_train": 0,
-                               "neuron_layer_eval": 2}
+                               "neuron_layer_eval": 2, "spike_pack": 3}
 
 
 def _sparse_rows(rng, shape, ones=12):
@@ -196,10 +196,13 @@ def _mm_of(packed):
 
 
 def _plan_kernels(fn, *args, **kw):
+    """The launches ``fn`` would make, read from the plan twins, but the
+    spike pack's (a packed call's first entry-point call)."""
     from repro_torch.kernels import build
     with build.plan_launches() as calls:
         fn(*args, **kw)
-    return [launch for call in calls for launch in call.launches]
+    return [launch for call in calls if call.entry != "e2a_spike_pack"
+            for launch in call.launches]
 
 
 @pytest.mark.cuda
@@ -346,9 +349,12 @@ def test_a_candidate_that_fails_on_the_card_raises(monkeypatch):
 
     def refuse(*args, **kw):
         return 1           # cudaErrorInvalidValue, as a refused launch
+    # the candidate's operands are packed on the card first, for real
+    pack = staticmethod(spike_matmul.build.load().e2a_spike_pack)
     monkeypatch.setattr(spike_matmul.build, "load",
                         lambda: type("Lib", (), {"e2a_spike_matmul":
-                                                 staticmethod(refuse)}))
+                                                 staticmethod(refuse),
+                                                 "e2a_spike_pack": pack}))
     with pytest.raises(RuntimeError, match="spike_matmul: kernel launch "
                        "failed"):
         tune_site(wl, device=dev)
@@ -1344,7 +1350,7 @@ def test_mesh_step_is_the_mesh_less_step_at_a_world_of_one(world_of_one):
 
 @pytest.mark.cuda
 def test_every_contract_case_against_the_oracle_on_the_card():
-    """Each of the ten contracts at each of its site geometries at batch 1
+    """Each of the eleven contracts at each of its site geometries at batch 1
     (the matrix of ``analysis.contracts.kernel_cases``) launched on the
     card and held against ``kernels/ref.py`` (``hold_against_oracle``'s
     tolerances)."""
@@ -1433,6 +1439,7 @@ def test_a_chaos_fault_at_a_cuda_site_trips_the_breaker():
     want = dict(out["clean"][3])
     want["neuron_layer_train"] -= 2 * 3 * cfg.num_layers
     want["bn_bwd"] -= 3 * cfg.num_layers
+    want["spike_pack"] -= 3 * cfg.num_layers
     assert cf == cp == want
 
 
@@ -1509,12 +1516,12 @@ def test_the_kernels_refuse_fp16_and_mixed_dtypes():
     dev = _card()
     h = torch.float16
     x = torch.randn(4, 16, 64, device=dev, dtype=h)
+    packed = spike_matmul.spike_pack((x[0] > 0).float())   # a launch, before
     reset_launch_counts()
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         lif_soma.lif_soma_fwd(x)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         lif_soma.lif_soma_bwd(x, x, x, x)
-    packed = spike_matmul.spike_pack((x[0] > 0).float())
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         spike_matmul.spike_matmul_packed(packed, torch.randn(
             64, 32, device=dev, dtype=h))
@@ -2113,3 +2120,128 @@ def test_the_eval_entry_refuses_tile_3_it_cannot_take():
             xp, w.float(), b, t, m, c, k, True, 0.5, 1.0,
             tile=EVAL_TILE_WGMMA)
     assert neuron_layer.eval_kernel(m, off) == 0
+
+
+# ---------------------------------------------------------------------------
+# The spike pack (csrc/spike_pack.cu): the pack of every packed arm
+# ---------------------------------------------------------------------------
+
+def _pack_views(dev, dtype, gen) -> dict[str, torch.Tensor]:
+    """Spikes at rate 0.2 at the seven packed calls' shapes of
+    ``spikingformer-8-512`` at batch 16 (T = 4, 196 tokens, d 512, d_ff
+    2048, 8 heads), each laid out as the model hands it to the pack."""
+    def s(*shape):
+        return (torch.rand(shape, generator=gen, device=dev) < 0.2).to(dtype)
+
+    t, b, n, d = 4, 16, 196, 512
+    m = b * n
+    q = s(t, b, n, d).reshape(t, b, n, 8, 64).permute(0, 1, 3, 2, 4)
+    return {"pssa.qkv/smlp.a": s(t, m, d), "pssa.proj": s(t * m, d),
+            "smlp.b": s(t * m, 4 * d),
+            "attn_qk": q.reshape(t * b, 8, n, 64),
+            "tokenizer.conv.1": s(t, b * 56 * 56, 9 * 64),
+            "tokenizer.conv.2": s(t, b * 28 * 28, 9 * 128),
+            "tokenizer.conv.3": s(t, m, 9 * 256)}
+
+
+def _pack_edges(dev, dtype, gen) -> dict[str, tuple[torch.Tensor, int]]:
+    """Layouts off the main path and the path each takes."""
+    def s(*shape):
+        return (torch.rand(shape, generator=gen, device=dev) < 0.3).to(dtype)
+
+    vec, sca = spike_matmul.PACK_VECTOR, spike_matmul.PACK_SCALAR
+    return {"ragged C=520": (s(3, 700, 520), vec),
+            "one row": (s(1, 64), vec),
+            "odd rows, C=8": (s(4097, 8), vec),
+            "expanded": (s(1, 300, 128).expand(3, 300, 128), vec),
+            "(T, B, h, N, dh) view": (s(2, 3, 49, 256).reshape(
+                2, 3, 49, 4, 64).permute(0, 1, 3, 2, 4), vec),
+            "row pitch off 16 bytes": (s(700, 76)[:, :72],
+                                       sca if dtype == BF16 else vec),
+            "C stride 2": (s(3, 700, 256)[..., ::2], sca),
+            "unaligned start": (s(700 * 72 + 1)[1:].view(700, 72), sca),
+            "transposed": (s(512, 300).t(), sca)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_spike_pack_at_the_main_path_shapes(dtype):
+    """One launch a call, bit for bit the plain pack and the oracle, the
+    result contiguous, on the vector path."""
+    from repro_torch.kernels import ref
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(41)
+    for case, x in _pack_views(dev, dtype, gen).items():
+        reset_launch_counts()
+        got = spike_matmul.spike_pack(x)
+        assert launch_counts()["spike_pack"] == 1, case
+        torch.cuda.synchronize()
+        assert got.is_contiguous() and got.dtype == torch.uint8, case
+        assert torch.equal(got, spike_matmul.spike_pack_plain(x)), case
+        assert torch.equal(got, ref.spike_pack_ref(x)), case
+        assert spike_matmul.pack_path(x) == spike_matmul.PACK_VECTOR, case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_spike_pack_on_strided_and_ragged_layouts(dtype):
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(42)
+    for case, (x, path) in _pack_edges(dev, dtype, gen).items():
+        assert spike_matmul.pack_path(x) == path, case
+        got = spike_matmul.spike_pack(x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, spike_matmul.spike_pack_plain(x)), case
+    empty = torch.zeros(0, 64, dtype=dtype, device=dev)
+    assert spike_matmul.spike_pack(empty).shape == (0, 8)
+
+
+@pytest.mark.cuda
+def test_spike_pack_refusals_on_the_card():
+    """fp16 and other dtypes raise ``TypeError``, a ragged C
+    ``ValueError``; the entry point refuses the vector path on a layout it
+    cannot read, and a path code it does not know, launching nothing."""
+    from repro_torch.kernels import build
+    dev = _card()
+    for dt in (torch.float16, torch.float64, torch.uint8):
+        with pytest.raises(TypeError, match="spike_pack"):
+            spike_matmul.spike_pack(torch.zeros(4, 16, dtype=dt, device=dev))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        spike_matmul.spike_pack(torch.zeros(4, 12, device=dev))
+    x = torch.ones(64, 33, device=dev).t()[:32]          # C stride 33
+    out = torch.full((32, 8), 7, dtype=torch.uint8, device=dev)
+    lib = build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    for path in (spike_matmul.PACK_VECTOR, 0, 3):
+        assert lib.e2a_spike_pack(x.data_ptr(), out.data_ptr(), 1, 1, 32, 64,
+                                  0, 0, 1, 33, path, 0, stream) != 0
+    torch.cuda.synchronize()
+    assert bool((out == 7).all())
+
+
+@pytest.mark.cuda
+def test_every_packed_call_launches_the_pack():
+    """The packed arms pack through the kernel, once a call; the backward's
+    replay reads the packed input its forward kept and packs nothing."""
+    from repro_torch.kernels import conv_spike
+    dev = _card()
+    rng = np.random.default_rng(43)
+    x = _t(_spikes(rng, (2, 70, 64))).to(dev)
+    w = _t(_dyadic(rng, (64, 24))).to(dev)
+    v = torch.ones(24, device=dev)
+    calls = (
+        lambda: neuron_layer.neuron_layer_eval(x, w, v, packed=True),
+        lambda: neuron_layer.neuron_layer_train_fwd(x, w, v, v, packed=True),
+        lambda: neuron_layer.neuron_layer_train_z(x, w, packed=True),
+        lambda: spike_matmul.spike_matmul(x[0], w),
+        lambda: spike_matmul.spike_matmul_batched(x, w.expand(2, 64, 24)),
+        lambda: conv_spike.spike_patch_matmul(x, w))
+    for call in calls:
+        reset_launch_counts()
+        call()
+        assert launch_counts()["spike_pack"] == 1
+    xin = spike_matmul.spike_pack(x)
+    reset_launch_counts()
+    neuron_layer.neuron_layer_train_z(x, w, packed=True, xin=xin)
+    neuron_layer.neuron_layer_eval(x, w, v, packed=False)
+    assert launch_counts()["spike_pack"] == 0

@@ -224,6 +224,7 @@ def test_meta_branches_allocate_the_kernels_outputs(monkeypatch):
                       (lif_soma, "lif_soma_bwd_plain"),
                       (fused_bn, "bn_fwd_plain"), (fused_bn, "bn_bwd_plain"),
                       (spike_matmul, "spike_matmul_packed_plain"),
+                      (spike_matmul, "spike_pack_plain"),
                       (neuron_layer, "neuron_layer_eval_plain"),
                       (neuron_layer, "_train_plain"),
                       (neuron_layer, "neuron_layer_train_z_plain")):
@@ -270,7 +271,8 @@ def test_meta_branches_allocate_the_kernels_outputs(monkeypatch):
     assert sites == {"lif_soma_fwd": 1, "lif_soma_bwd": 1, "bn_fwd": 1,
                      "bn_bwd": 1, "spike_matmul_packed": 1,
                      "spike_matmul_packed_batched": 1,
-                     "neuron_layer_eval": 2, "neuron_layer_train": 4}
+                     "neuron_layer_eval": 2, "neuron_layer_train": 4,
+                     "spike_pack": 3}
     assert counter.kernel_flops["spike_matmul_packed"] == 2 * m * c * k
     assert counter.kernel_flops["spike_matmul_packed_batched"] == \
         3 * 2 * m * c * k
@@ -292,10 +294,28 @@ def _real(tree, gen):
     return torch.zeros(tree.shape, dtype=tree.dtype)
 
 
-def _counted(cfg, shape):
+def _pack_flops(monkeypatch):
+    """Inside, the CPU's plain spike pack counts the flops of its bit-weight
+    product in ``out[0]``: the card's pack kernel forms no product, and its
+    ``meta`` site reports none."""
+    real = spike_matmul.spike_pack_plain
+    out = [0]
+
+    def counted(spikes):
+        with FlopCounterMode(display=False) as f:
+            packed = real(spikes)
+        out[0] += f.get_total_flops()
+        return packed
+
+    monkeypatch.setattr(spike_matmul, "spike_pack_plain", counted)
+    return out
+
+
+def _counted(cfg, shape, monkeypatch):
     """The dry run's counts of the cell on a fake (4, 1) mesh, and the
-    same step's flops (``FlopCounterMode``) and collectives run for real
-    on CPU tensors of the rank's shapes."""
+    same step's flops (``FlopCounterMode``, less the plain spike pack's,
+    :func:`_pack_flops`) and collectives run for real on CPU tensors of the
+    rank's shapes."""
     with dryrun.fake_world(4):
         fn, structs, specs = input_specs(cfg, shape, _mesh4())
         args = dryrun.shard_args(structs, specs, _mesh4())
@@ -305,10 +325,12 @@ def _counted(cfg, shape):
         fn, structs, specs = input_specs(cfg, shape, mesh)
         args = _real(dryrun.shard_args(structs, specs, mesh),
                      torch.Generator().manual_seed(0))
-        with FlopCounterMode(display=False) as real:
-            coll = dryrun.collective_bytes(fn, *args)
+        with monkeypatch.context() as mp:
+            pack = _pack_flops(mp)
+            with FlopCounterMode(display=False) as real:
+                coll = dryrun.collective_bytes(fn, *args)
     assert not dist.is_initialized()
-    return counts, real.get_total_flops(), coll, structs, specs
+    return counts, real.get_total_flops() - pack[0], coll, structs, specs
 
 
 def _lm_cfg(policy):
@@ -317,10 +339,10 @@ def _lm_cfg(policy):
         vocab_size=1 << 14, lif=LIFConfig(policy=named_policy(policy)))
 
 
-def test_lm_train_cell_on_a_fake_mesh():
+def test_lm_train_cell_on_a_fake_mesh(monkeypatch):
     shape = ShapeSpec("train", 16, 8)
     counts, flops, coll, structs, specs = _counted(_lm_cfg("cuda-full"),
-                                                   shape)
+                                                   shape, monkeypatch)
     assert counts["collectives"] == coll
     # the collectives from the specs: one all-gather of each FSDP'd leaf
     # (its whole bytes) and one reduce-scatter of its gradient (its shard),
@@ -343,23 +365,24 @@ def test_lm_train_cell_on_a_fake_mesh():
     # flops: the same step for real on the CPU, under cuda-full (plain
     # versions) and under eager (the LIF forms no product)
     assert counts["flops"] == flops
-    eager, eager_flops = _counted(_lm_cfg("eager"), shape)[:2]
+    eager, eager_flops = _counted(_lm_cfg("eager"), shape, monkeypatch)[:2]
     assert eager["flops"] == eager_flops == flops
     assert counts["kernel_sites"] == {"lif_soma_fwd": 4, "lif_soma_bwd": 4}
     assert eager["kernel_sites"] == {}
     assert counts["peak"] > counts["argument"] > 0
 
 
-def test_vision_train_cell_on_a_fake_mesh():
+def test_vision_train_cell_on_a_fake_mesh(monkeypatch):
     shape = ShapeSpec("train", 0, 8)
     cfg = get_spikingformer_config("spikingformer-smoke@cuda-full")
-    counts, flops, coll, _, _ = _counted(cfg, shape)
+    counts, flops, coll, _, _ = _counted(cfg, shape, monkeypatch)
     # the BN sites' split-path all-reduces, the gradients' and the
     # scalars', as the plain versions make them on the CPU
     assert counts["collectives"] == coll and coll["all-reduce"] > 0
     assert counts["flops"] == flops
     eager, eager_flops = _counted(
-        get_spikingformer_config("spikingformer-smoke@eager"), shape)[:2]
+        get_spikingformer_config("spikingformer-smoke@eager"), shape,
+        monkeypatch)[:2]
     assert eager["flops"] == eager_flops and eager["kernel_sites"] == {}
     # the policies' steps form other products: cuda-full replays each
     # neuron layer's product in its backward (the second half of its

@@ -222,7 +222,8 @@ def test_c_interface_matches_the_ctypes_signatures():
     for name, argtypes in build.SIGNATURES.items():
         assert [kinds[t] for t in argtypes] == found[name], name
     assert [s.name for s in build.sources()] == [
-        "fused_bn.cu", "lif_soma.cu", "neuron_layer.cu", "spike_matmul.cu"]
+        "fused_bn.cu", "lif_soma.cu", "neuron_layer.cu", "spike_matmul.cu",
+        "spike_pack.cu"]
     assert "compute_90a" in " ".join(build.NVCC_FLAGS)
 
 

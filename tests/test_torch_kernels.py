@@ -26,9 +26,9 @@ from repro.kernels import lif_soma as jlif
 from repro.kernels import neuron_layer as jnl
 from repro.kernels import ref as jref
 from repro.kernels import spike_matmul as jsm
-from repro_torch.kernels import (KERNELS, conv_spike, launch_counts, lif_soma,
-                                 neuron_layer, ops, reset_launch_counts,
-                                 spike_matmul)
+from repro_torch.kernels import (COUNTED, KERNELS, conv_spike, launch_counts,
+                                 lif_soma, neuron_layer, ops,
+                                 reset_launch_counts, spike_matmul)
 
 single_thread()
 
@@ -339,7 +339,7 @@ def test_plain_versions_do_not_count_as_launches():
                     torch.zeros(3))[0].sum().backward()
     ops.neuron_layer_train_op(torch.zeros(2, 4, 8), torch.zeros(8, 3),
                               torch.ones(3), torch.zeros(3), packed=True)
-    assert launch_counts() == dict.fromkeys(KERNELS, 0)
+    assert launch_counts() == dict.fromkeys(COUNTED, 0)
 
 
 def test_kernel_table_names_sources_that_exist():
