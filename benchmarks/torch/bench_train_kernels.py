@@ -41,7 +41,10 @@ warm (``chip_smoke.cold_warm``) and per pass (``chip_smoke.pass_ms``):
   "neuron_layer_train"``), with the plan kernel of its z pass
   (``z_kernel``), beside the bf16 spike matmul on the same operands (the
   kernel its rule picks, ``spike_matmul_kernel``) and the bound of the z
-  pass: one bf16 tensor-core pass or z's fp32 bytes, whichever is longer.
+  pass: one bf16 tensor-core pass or z's fp32 bytes, whichever is longer;
+  ``z_pass``: the first pass alone (``chip_smoke.z_pass_row``: its device
+  time cold and warm beside the fastest cuBLAS call that forms the same
+  fp32 z from the unpacked spikes, ``library_device_ms``).
 
 Needs a CUDA device.
 """
@@ -247,7 +250,8 @@ def bf16_arms(cs, emit, gen) -> None:
              z_bytes_ms=z_bytes / cs.HBM_BYTES_PER_S * 1e3,
              **timed(call, ops, cs.nbytes(*ops, *out)),
              spike_matmul=timed(mm, (xp, w), cs.nbytes(xp, w)
-                                + t * m * k * 2))
+                                + t * m * k * 2),
+             z_pass=cs.z_pass_row(x, w, True, gen))
         del x, w, out, xp
         torch.cuda.empty_cache()
 

@@ -154,7 +154,8 @@ each kernel's bf16 arm at the paths' shapes against its bf16 oracle
 ``"dtype": "bfloat16"``); after the family training phases,
 ``spikingformer-8-512`` at bf16 under ``cuda-full`` (``bf16_vision``:
 REQUESTS x 16 bf16 images served (every packed eval call, 35 a
-forward, on the wgmma eval kernel), a gradient step and 2 training steps,
+forward, on the wgmma eval kernel; the per-head ``attn_qk``, 8 a forward
+and a step, on the heads kernel), a gradient step and 2 training steps,
 the launches those of fp32, every kernel call of one forward and of the
 gradient step judged against its oracle on its own operands) and
 ``qwen3-0.6b`` + LIF at its published bf16 (``lm_bf16``: the 16 requests
@@ -2802,6 +2803,10 @@ BF16 = torch.bfloat16
 #: the bf16 paths' spike matmuls that ran plan kernel 3, ``KernelTally``).
 WGMMA_ENTRY = "spike_wgmma"
 WGMMA_SOURCE = "src/repro_torch/kernels/csrc/spike_wgmma.cuh"
+#: The bf16 heads kernel's entry (its launches: the bf16 paths' per-head
+#: ``attn_qk`` products that ran plan kernel ``spike_matmul.HEADS``).
+HEADS_ENTRY = "spike_heads"
+HEADS_SOURCE = "src/repro_torch/kernels/csrc/spike_heads.cuh"
 #: The same for the bf16 z pass of the train-mode neuron layer on the
 #: wgmma mainloop (its launches: the bf16 training path's first passes on
 #: plan kernel ``neuron_layer.Z_WGMMA``, forward and replay).
@@ -2959,8 +2964,9 @@ class KernelTally:
     launch and whose code they pass to the C entry point, which launches
     that kernel or refuses the call: by default
     ``spike_matmul.resolve_tile`` (1 Large, 2 Small, 3 the bf16 wgmma
-    kernel); ``KernelTally(neuron_layer, "z_kernel")`` the neuron layer's
-    first pass (forward, split sums and replay: 3 dense, 4 ``mma.sync``, 9
+    kernel, 4 the bf16 heads kernel); ``KernelTally(neuron_layer,
+    "z_kernel")`` the neuron layer's first pass (forward, split sums and
+    replay: 3 dense, 4 ``mma.sync``, 9
     the bf16 wgmma kernel); ``KernelTally(neuron_layer, "eval_kernel")``
     the packed eval calls' tile codes (0 the ``mma.sync`` tile the entry
     point picks, 3 the bf16 wgmma kernel). ``counts`` maps a code to its
@@ -3000,9 +3006,15 @@ def bf16_matmul_row(case, packed, w, fn, shared_w: bool = False) -> dict:
     one bf16 rounding of the oracle (the fp32 sums in another order may
     round across a bf16 boundary), measured as ``bitwise_gaussian``.
     ``kernel``: the plan kernel the wrapper's rule launched (3: the wgmma
-    kernel, ``csrc/spike_wgmma.cuh``); where it is 3, the one-plane
-    mainloop forced (tile 1) is checked and timed on the same operands
-    beside it (``tile1_*``)."""
+    kernel, ``csrc/spike_wgmma.cuh``; 4: the heads kernel,
+    ``csrc/spike_heads.cuh``); where it is 3, the one-plane mainloop
+    forced (tile 1) is checked and timed on the same operands beside it
+    (``tile1_*``), where it is 4 the Small tile forced (tile 2, the rule's
+    choice before the heads kernel; ``tile2_*``). The library yardstick is
+    ``torch.matmul`` on the unpacked bf16 spikes and ``w`` as it lies;
+    beside the heads kernel also ``torch.bmm`` on a contiguous copy of
+    ``w`` (the copy not timed), and ``library_*`` is the faster of the two
+    (``library_call``), device cold."""
     dense = spike_matmul.spike_unpack(packed, torch.float32)
     got = fn(packed, w)
     want = torch.matmul(dense, w.float()).to(BF16)
@@ -3029,9 +3041,37 @@ def bf16_matmul_row(case, packed, w, fn, shared_w: bool = False) -> dict:
     moved = nbytes(packed, got) + w_bytes
     dense16 = dense.to(BF16)
     lib = cold_warm(torch.matmul, (dense16, w), moved)
+    library = functools.partial(torch.matmul, dense16, w)
     extra = {"library_device_ms": lib["device_ms"],
              "library_device_ms_l2_warm": lib["device_ms_l2_warm"],
              "host_us": host_us(lambda: fn(packed, w))}
+    heads = getattr(spike_matmul, "HEADS", 4)   # 4 in a checkout without it
+    if kernels == [heads]:
+        g = math.prod(w.shape[:-2])
+        d3 = dense16.reshape(g, *dense16.shape[-2:])
+        w3 = w.contiguous().reshape(g, c, k)
+        lib_c = cold_warm(torch.bmm, (d3, w3), moved)
+        extra.update(library_view_device_ms=lib["device_ms"],
+                     library_contiguous_device_ms=lib_c["device_ms"],
+                     library_call="torch.matmul on the view")
+        if lib_c["device_ms"] < lib["device_ms"]:
+            library = functools.partial(torch.bmm, d3, w3)
+            extra.update(library_device_ms=lib_c["device_ms"],
+                         library_device_ms_l2_warm=lib_c[
+                             "device_ms_l2_warm"],
+                         library_call="torch.bmm on a contiguous k^T")
+        small = functools.partial(fn, tile=2)
+        if not torch.equal(small(packed, w), want):
+            fail(f"bf16 spike matmul {case}: tile 2 differs from the oracle "
+                 f"on exact weights")
+        times = cold_warm(small, (packed, w), moved)
+        extra.update({
+            "tile2_ms": time_ms(lambda: small(packed, w)),
+            "tile2_device_ms": times["device_ms"],
+            "tile2_device_ms_l2_warm": times["device_ms_l2_warm"],
+            "tile2_host_us": host_us(lambda: small(packed, w)),
+            "tile2_bitwise": True,
+            "tile2_bitwise_gaussian": torch.equal(small(packed, wg), got_g)})
     if kernels == [wgmma]:
         old = functools.partial(fn, tile=1)
         if not torch.equal(old(packed, w), want):
@@ -3048,8 +3088,7 @@ def bf16_matmul_row(case, packed, w, fn, shared_w: bool = False) -> dict:
         case, {"packed": list(packed.shape), "w": list(w.shape),
                "w_stride": list(w.stride())}, fn,
         (packed, w), moved, 2.0 * got.numel() * c, tc=True,
-        plain=spike_matmul.spike_matmul_packed_plain,
-        library=lambda: torch.matmul(dense16, w),
+        plain=spike_matmul.spike_matmul_packed_plain, library=library,
         kernel=kernels[0], **extra, digest_gaussian=digest(got_g),
         bitwise_oracle=True, bitwise_gaussian=torch.equal(got_g, want_g),
         max_abs_err=float(err.max()),
@@ -3065,8 +3104,10 @@ def bf16_matmul_cases(gen, batch: int,
     multiple of a tile: 12,581 x 520 x 520) and a K^T view at M > 512, both
     on the wgmma kernel. Every row names the plan kernel it ran; with
     ``require_wgmma`` each must be the rule's (3 for all but attn_qk's
-    per-head Small). ``benchmarks/torch/bench_spike_matmul.py --bf16``
-    runs the cases without it for a checkout that has no wgmma kernel."""
+    per-head products, which take the heads kernel, ``spike_matmul.
+    HEADS``, or in a checkout without it the Small tile).
+    ``benchmarks/torch/bench_spike_matmul.py --bf16`` runs the cases
+    without it for a checkout that has no wgmma kernel."""
     cfg = get_spikingformer_config(PRESET)
     t, d, f, h = cfg.time_steps, cfg.d_model, cfg.d_ff, cfg.n_heads
     n, dh = cfg.num_tokens, cfg.d_model // cfg.n_heads
@@ -3099,7 +3140,7 @@ def bf16_matmul_cases(gen, batch: int,
         "K^T view (M = T*B*N)", spike_matmul.spike_pack(spikes(gen,
                                                                (t * m, d))),
         exact16(gen, (d, d)).t(), mm))
-    want = {"attn_qk": 2}
+    want = {"attn_qk": getattr(spike_matmul, "HEADS", 2)}
     for row in rows_2d + rows_b if require_wgmma else ():
         if row["kernel"] != want.get(row["case"], spike_matmul.WGMMA):
             fail(f"bf16 spike matmul {row['case']}: the rule launched plan "
@@ -3720,12 +3761,14 @@ def bf16_vision_phase(seed: int, batch: int, smi: str) -> dict[str, dict]:
              f"gradients finite {grad_finite}, losses {rows}, moved {moved}, "
              f"site walk failures {problems[:5]}")
     # every 2-D spike matmul of the bf16 paths (pssa.proj, smlp.b: M =
-    # T*B*N) on the wgmma kernel, the per-head attn_qk on the Small tile
+    # T*B*N) on the wgmma kernel, the per-head attn_qk (8 a forward and a
+    # step) on the heads kernel
     for name, counts, tally in (("serve", serve_counts, tally_serve),
                                 ("train", train_counts, tally_train)):
         want = {code: n for code, n in (
             (spike_matmul.WGMMA, counts["spike_matmul_packed"]),
-            (2, counts["spike_matmul_packed_batched"])) if n}
+            (spike_matmul.HEADS, counts["spike_matmul_packed_batched"]))
+            if n}
         if tally.counts != want:
             fail(f"bf16 vision {name}: spike matmul launches by plan kernel "
                  f"{tally.counts}, not {want}")
@@ -3746,10 +3789,14 @@ def bf16_vision_phase(seed: int, batch: int, smi: str) -> dict[str, dict]:
              f"not {want_z}")
     return {"bf16_serve": {**serve_counts, WGMMA_ENTRY:
                            tally_serve.counts[spike_matmul.WGMMA],
+                           HEADS_ENTRY:
+                           tally_serve.counts[spike_matmul.HEADS],
                            Z_WGMMA_ENTRY: 0, EVAL_WGMMA_ENTRY:
                            tally_eval.counts[neuron_layer.EVAL_TILE_WGMMA]},
             "bf16_train": {**train_counts, WGMMA_ENTRY:
                            tally_train.counts[spike_matmul.WGMMA],
+                           HEADS_ENTRY:
+                           tally_train.counts[spike_matmul.HEADS],
                            Z_WGMMA_ENTRY: tally_z.counts[
                                neuron_layer.Z_WGMMA], EVAL_WGMMA_ENTRY: 0}}
 
@@ -5396,6 +5443,9 @@ def analysis_phase(seed: int) -> dict[str, dict]:
     wgmma = wgmma_launch_family(gen)
     oracle[WGMMA_ENTRY] = {"max_abs_err": wgmma["max_abs_err"],
                            "spikes": None}
+    heads = wgmma_launch_family(gen, None, spike_matmul.HEADS, "heads")
+    oracle[HEADS_ENTRY] = {"max_abs_err": heads["max_abs_err"],
+                           "spikes": None}
     z_wgmma = wgmma_launch_family(
         gen, lambda decl: decl.name == "neuron_layer_train",
         neuron_layer.Z_WGMMA, "z_wgmma")
@@ -5411,7 +5461,8 @@ def analysis_phase(seed: int) -> dict[str, dict]:
                            if f.check == "audit.kernel.launch"
                            and f.where == "matrix"),
          oracle_cases=len(rows), oracle=per_contract, wgmma=wgmma,
-         z_wgmma=z_wgmma, eval_wgmma=eval_wgmma, static_seconds=static_s,
+         heads=heads, z_wgmma=z_wgmma, eval_wgmma=eval_wgmma,
+         static_seconds=static_s,
          seconds=time.perf_counter() - t0)
     return oracle
 
@@ -5423,9 +5474,10 @@ def wgmma_launch_family(gen, select=None, code=None,
     the spike matmul's), in bf16 (the matrix's cases are fp32), its
     launches read from the plan exports and held to the card's limits
     (``check_launch_contract``); each case whose launches run plan kernel
-    ``code`` (by default 3, the spike matmul's wgmma kernel; the neuron
-    layer's bf16 z pass is ``neuron_layer.Z_WGMMA``, its bf16 eval arm
-    ``neuron_layer.EVAL_WGMMA``) is then launched and
+    ``code`` (by default 3, the spike matmul's wgmma kernel; its heads
+    kernel is ``spike_matmul.HEADS``, the neuron layer's bf16 z pass
+    ``neuron_layer.Z_WGMMA``, its bf16 eval arm ``neuron_layer.EVAL_WGMMA``)
+    is then launched and
     held against ``kernels/ref.py`` (exact operands: the oracle's bits, a
     neuron layer's spikes outside the band). Fails on a finding, a case
     out of tolerance, or no case on the kernel. The launches do not
@@ -6114,6 +6166,7 @@ def summarise(cases: dict[str, list[dict]],
                if split and name in split else {}),
             "cases": rows})
     kernels.append(wgmma_summary(cases, paths, oracle))
+    kernels.append(heads_summary(cases, paths, oracle))
     kernels.append(z_wgmma_summary(cases, paths, oracle))
     kernels.append(eval_wgmma_summary(cases, paths, oracle))
     kernels.append(pack_summary(cases, paths))
@@ -6232,6 +6285,45 @@ def wgmma_summary(cases: dict[str, list[dict]],
             "tile1_device_ms", "tile1_device_ms_l2_warm", "library_ms",
             "library_device_ms", "bound_ms", "host_us", "tile1_host_us",
             "max_abs_err", "bitwise_gaussian")} for r in rows]}
+
+
+def heads_summary(cases: dict[str, list[dict]],
+                  paths: dict[str, dict[str, int]],
+                  oracle: dict[str, dict] | None) -> dict:
+    """The bf16 heads kernel's entry (``csrc/spike_heads.cuh``, plan kernel
+    ``spike_matmul.HEADS`` of ``e2a_spike_matmul``): the numbers of its
+    case, ``attn_qk`` (its largest error, the Small tile forced on the same
+    operands beside it, the faster cuBLAS yardstick), its largest error
+    against the oracle in the analysis phase, and its launches on the bf16
+    paths."""
+    rows = [r for name in ("spike_matmul_packed",
+                           "spike_matmul_packed_batched")
+            for r in cases[name] if r.get("kernel") == spike_matmul.HEADS]
+    first = rows[0]
+    return {
+        "name": HEADS_ENTRY, "route": "cuda", "source": HEADS_SOURCE,
+        "replaces": KERNELS["spike_matmul_packed_batched"]["replaces"],
+        "launched_by": ["spike_matmul_packed_batched"],
+        "plan_kernel": spike_matmul.HEADS, "dtype": "bfloat16",
+        "launches": sum(c.get(HEADS_ENTRY, 0) for c in paths.values()),
+        "launches_by_path": {p: c[HEADS_ENTRY] for p, c in paths.items()
+                             if HEADS_ENTRY in c},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "oracle_max_abs_err": (oracle or {}).get(HEADS_ENTRY, {}).get(
+            "max_abs_err"),
+        "ms": first["ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        "library_ms": first["library_ms"],
+        "library_call": first["library_call"], "case": first["case"],
+        "device_ms": first["device_ms"],
+        "tile2_device_ms": first["tile2_device_ms"],
+        "cases": [{k: r[k] for k in (
+            "case", "shape", "device_ms", "device_ms_l2_warm",
+            "tile2_device_ms", "tile2_device_ms_l2_warm", "library_ms",
+            "library_device_ms", "library_view_device_ms",
+            "library_contiguous_device_ms", "bound_ms", "host_us",
+            "tile2_host_us", "max_abs_err", "bitwise_gaussian",
+            "tile2_bitwise_gaussian")} for r in rows]}
 
 
 def setup_card() -> dict:

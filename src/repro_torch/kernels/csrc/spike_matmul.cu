@@ -27,14 +27,18 @@
 //
 // bf16 (the reference's kernels at a bf16 weight: the spikes unpacked to
 // bf16, the dot accumulated in fp32, the output in the weight's dtype): w
-// and out are then bf16; the dtype code names the type of both. Two
+// and out are then bf16; the dtype code names the type of both. Three
 // kernels take it. Tile 3 is spike_wgmma.cuh's, designed for Hopper (a TMA
 // ring of weight tiles, wgmma with the spikes expanded in registers); the
 // wrapper's rule names it for more than 512 rows and a weight TMA can read.
-// Every other bf16 call runs the mainloop below with the weight as its own
-// single plane (spike_mma_mainloop.cuh, Planes): one MMA per fragment and
-// k16 step. Both add exact bf16 products into fp32 accumulators and round
-// each result to bf16 once, in the epilogue.
+// Tile 4 is spike_heads.cuh's, designed for the bytes of small per-batch
+// products (whole output rows of a batch a unit, stored by one bulk copy);
+// the rule names it for such a weight at 512 rows or fewer, C <= 128 and
+// K <= 256 (attn_qk's per-head Q K^T). Every other bf16 call runs the
+// mainloop below with the weight as its own single plane
+// (spike_mma_mainloop.cuh, Planes): one MMA per fragment and k16 step. All
+// three add exact bf16 products into fp32 accumulators and round each
+// result to bf16 once, in the epilogue.
 //
 // Design: the contraction loop is mainloop() of spike_mma_mainloop.cuh,
 // shared with the train-mode neuron layer (spike_tile_mma.cuh has the
@@ -54,6 +58,7 @@
 // the K^T operand and of out.
 #include "launch_plan.cuh"
 #include "spike_mma_mainloop.cuh"
+#include "spike_heads.cuh"
 #include "spike_wgmma.cuh"
 
 namespace {
@@ -145,34 +150,41 @@ int launch(const Args<E>& a, const e2a::Launch& l, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The launches of e2a_spike_matmul (none for an empty output). tma_ok:
-// e2a::wg::tma_suits of the weight; tile 3 is refused without it and at
-// any dtype but bf16. Returns a cudaError_t.
-int plan(int G1, int G2, int M, int C, int K, int tile, int dtype,
-         bool tma_ok, e2a::Launch* l, int& n) {
-  n = 0;
-  const int planes = planes_of(dtype);
-  if (planes == 0) return (int)cudaErrorInvalidValue;
-  if (G1 <= 0 || G2 <= 0 || M <= 0 || K <= 0) return 0;
-  const long long G = (long long)G1 * G2;
-  if (G > 65535 || C < 0 || C % 8 != 0 || tile < 1 || tile > 3)
-    return (int)cudaErrorInvalidValue;
-  if (tile == 3) {
-    if (dtype != e2a::kBfloat16 || !tma_ok) return (int)cudaErrorInvalidValue;
-    const int err = e2a::wg::wgmma_plan<e2a::wg::Wide>(M, K, G, 3, l[0]);
-    if (err == 0) n = 1;
-    return err;
-  }
-  l[n++] = tile == 2 ? tile_plan<Small>(M, K, G, 2, planes)
-                     : tile_plan<Large>(M, K, G, 1, planes);
-  return 0;
-}
-
 // One call's shape and element strides, as the entry points take them.
 struct Call {
   int G1, G2, M, C, K;
   long long p_g1, p_g2, p_m, p_b, w_g1, w_g2, w_c, w_k, o_g1, o_g2, o_m, o_k;
 };
+
+// The launches of e2a_spike_matmul (none for an empty output). tma_ok:
+// e2a::wg::tma_suits of the weight; tiles 3 and 4 are refused without it
+// and at any dtype but bf16, tile 4 also outside spike_heads.cuh's limits
+// (e2a::hd::suits). Returns a cudaError_t.
+int plan(const Call& c, int tile, int dtype, bool tma_ok, e2a::Launch* l,
+         int& n) {
+  n = 0;
+  const int planes = planes_of(dtype);
+  if (planes == 0) return (int)cudaErrorInvalidValue;
+  if (c.G1 <= 0 || c.G2 <= 0 || c.M <= 0 || c.K <= 0) return 0;
+  const long long G = (long long)c.G1 * c.G2;
+  if (G > 65535 || c.C < 0 || c.C % 8 != 0 || tile < 1 || tile > 4)
+    return (int)cudaErrorInvalidValue;
+  if (tile >= 3) {
+    if (dtype != e2a::kBfloat16 || !tma_ok) return (int)cudaErrorInvalidValue;
+    if (tile == 4 && !e2a::hd::suits(c.C, c.K, tma_ok, c.o_m, c.o_k))
+      return (int)cudaErrorInvalidValue;
+    const int err =
+        tile == 3 ? e2a::wg::wgmma_plan<e2a::wg::Wide>(c.M, c.K, G, 3, l[0])
+                  : e2a::hd::heads_plan(c.M, c.C, c.K, G,
+                                        c.w_k == 1 && c.w_c * 2 % 16 == 0, 4,
+                                        l[0]);
+    if (err == 0) n = 1;
+    return err;
+  }
+  l[n++] = tile == 2 ? tile_plan<Small>(c.M, c.K, G, 2, planes)
+                     : tile_plan<Large>(c.M, c.K, G, 1, planes);
+  return 0;
+}
 
 // For the wgmma kernel: a weight shared by every batch (zero batch
 // strides) whose packed rows and outputs run on from one batch into the
@@ -195,7 +207,7 @@ void fold_shared_weight(Call& c) {
 int plan_call(Call& c, const void* w, int tile, int dtype, e2a::Launch* l,
               int& n) {
   if (tile == 3) fold_shared_weight(c);
-  return plan(c.G1, c.G2, c.M, c.C, c.K, tile, dtype,
+  return plan(c, tile, dtype,
               e2a::wg::tma_suits(w, c.G1, c.G2, c.C, c.K, c.w_g1, c.w_g2,
                                  c.w_c, c.w_k),
               l, n);
@@ -206,8 +218,9 @@ int plan_call(Call& c, const void* w, int tile, int dtype, e2a::Launch* l,
 // tile picks the kernel: 1 Large, 2 Small (the autotuner times both; a
 // tuned table passes its winner), 3 the bf16 wgmma kernel of
 // spike_wgmma.cuh (spike_matmul.py's rule names it for a bf16 weight TMA
-// can read, at more than 512 rows). dtype: 0 fp32, 1 bf16, the type of w
-// and out.
+// can read, at more than 512 rows), 4 the bf16 kernel of spike_heads.cuh
+// (the rule's choice for such a weight at 512 rows or fewer, C <= 128,
+// K <= 256). dtype: 0 fp32, 1 bf16, the type of w and out.
 extern "C" int e2a_spike_matmul(
     const uint8_t* packed, const void* w, void* out, int G1, int G2, int M,
     int C, int K, long long p_g1, long long p_g2, long long p_m,
@@ -230,6 +243,14 @@ extern "C" int e2a_spike_matmul(
     return e2a::wg::launch<e2a::wg::Wide>(
         a, static_cast<const e2a::bf16*>(w), c.G1, c.w_g1, c.w_g2, c.w_c,
         c.w_k, l[0], s);
+  }
+  if (l[0].kernel == 4) {
+    const e2a::hd::Args a = {packed, static_cast<e2a::bf16*>(out),
+                             c.G1 * c.G2, c.G2, c.M, c.C, c.K,
+                             c.p_g1, c.p_g2, c.p_m, c.p_b, c.o_g1, c.o_g2,
+                             0, 0, 0, 0, 0, 0, 0};
+    return e2a::hd::launch(a, static_cast<const e2a::bf16*>(w), c.G1, c.w_g1,
+                           c.w_g2, c.w_c, c.w_k, l[0], s);
   }
   return e2a::by_dtype(dtype, [&](auto tag) {
     using E = typename decltype(tag)::type;

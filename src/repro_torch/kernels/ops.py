@@ -193,8 +193,9 @@ class _SpikeMatmul(torch.autograd.Function):
 def spike_matmul_train_op(spikes: torch.Tensor, w: torch.Tensor,
                           tile: int = 0) -> torch.Tensor:
     """Differentiable bit-packed spike matmul: (M, C) {0,1} x (C, K).
-    C % 8 == 0. ``tile`` forces the kernel's tile
-    (``spike_matmul.TILES``; 0 takes ``spike_matmul.default_tile``)."""
+    C % 8 == 0. ``tile`` forces the kernel's tile (``spike_matmul.TILES``,
+    at bf16 also ``WGMMA`` or ``HEADS``; 0 takes ``spike_matmul.
+    resolve_tile``)."""
     return _SpikeMatmul.apply(
         spikes, w, functools.partial(spike_matmul.spike_matmul, tile=tile),
         False)

@@ -32,7 +32,7 @@ A bf16 weight (the reference's kernels at bf16: spikes unpacked to the
 weight's dtype, the dot accumulated in fp32, the output in ``w.dtype``)
 takes one tensor-core pass: the exact products are added into fp32
 accumulators and the result is rounded to bf16 once, at the store. The
-output's dtype is the weight's. Two kernels do it. :data:`WGMMA` is
+output's dtype is the weight's. Three kernels do it. :data:`WGMMA` is
 ``csrc/spike_wgmma.cuh``, designed for Hopper: a producer warp keeps a
 ring of the weight's and the packed rows' chunks full by TMA, three
 consumer warpgroups expand the spikes into wgmma's register A fragments
@@ -40,8 +40,15 @@ and read the weight from shared memory (the mainloop of
 ``csrc/wgmma_mainloop.cuh``, which the train-mode neuron layer's bf16 z
 pass runs too). :func:`resolve_tile`
 names it for more than :data:`WGMMA_MIN_ROWS` rows and a weight TMA can
-read (:func:`tma_suits`); every other bf16 call runs the tiles of
-:data:`TILES` with the weight as its single plane.
+read (:func:`tma_suits`). :data:`HEADS` is ``csrc/spike_heads.cuh``,
+designed for the bytes of small per-batch products (``attn_qk``'s
+per-head Q K^T, bound by its 39 MB of output): a unit is whole output rows
+of one batch, persistent blocks walk the units with the next unit's weight
+on its way by TMA, and each unit's rows leave shared memory by one bulk
+copy; :func:`resolve_tile` names it at :data:`WGMMA_MIN_ROWS` rows or
+fewer for such a weight within its limits (:func:`heads_suits`). Every
+other bf16 call runs the tiles of :data:`TILES` with the weight as its
+single plane.
 
 The plain PyTorch versions unpack and call ``torch.matmul`` in fp32 (a
 bf16 weight widened exactly), rounding the product to ``w.dtype`` once, as
@@ -115,6 +122,18 @@ WGMMA_TILE = Tile("Wgmma", 192, 128, 128, 193600)
 #: The rule names :data:`WGMMA` above this many rows a product.
 WGMMA_MIN_ROWS = 512
 
+#: The ``tile`` code of the bf16 kernel of ``csrc/spike_heads.cuh``
+#: (``e2a::hd``: whole output rows of one batch a unit, one persistent
+#: block an SM, the unit's rows stored by one bulk copy), designed for the
+#: per-head products of ``attn_qk``. Kept out of :data:`TILES`, as
+#: :data:`WGMMA` is; a caller may force it at bf16 within its limits.
+HEADS = 4
+#: Its limits, the contraction C and the output columns K of a product:
+#: ``kMaxC`` and ``kMaxK`` of ``csrc/spike_heads.cuh``, which refuses a
+#: forced :data:`HEADS` past them.
+HEADS_MAX_C = 128
+HEADS_MAX_K = 256
+
 
 def tma_suits(w4: torch.Tensor) -> bool:
     """Whether the bf16 kernel can read the weight ``w4`` (G1, G2, C, K)
@@ -129,22 +148,37 @@ def tma_suits(w4: torch.Tensor) -> bool:
     size = w4.element_size()
     if c <= 0 or k <= 0 or (not w4.is_meta and w4.data_ptr() % 16):
         return False
-    n_major = sk == 1 and sc > 0 and sc * size % 16 == 0
-    c_major = sc == 1 and sk > 0 and sk * size % 16 == 0
-    return (n_major or c_major) and all(
-        n <= 1 or (s >= 0 and s * size % 16 == 0)
-        for n, s in ((g1, s1), (g2, s2)))
+    if not ((sk == 1 and sc > 0 and sc * size % 16 == 0) or
+            (sc == 1 and sk > 0 and sk * size % 16 == 0)):
+        return False
+    return (g1 <= 1 or (s1 >= 0 and s1 * size % 16 == 0)) and \
+        (g2 <= 1 or (s2 >= 0 and s2 * size % 16 == 0))
+
+
+def heads_suits(w4: torch.Tensor) -> bool:
+    """Whether the heads kernel (:data:`HEADS`) takes the weight ``w4``
+    (G1, G2, C, K): TMA reads it (:func:`tma_suits`), C <=
+    :data:`HEADS_MAX_C` and K <= :data:`HEADS_MAX_K`. The twin of
+    ``e2a::hd::suits`` (``csrc/spike_heads.cuh``; the output the wrappers
+    allocate always has the contiguous rows it also asks for)."""
+    _, _, c, k = w4.shape
+    return c <= HEADS_MAX_C and k <= HEADS_MAX_K and tma_suits(w4)
 
 
 def resolve_tile(m: int, w4: torch.Tensor, tile: int = 0) -> int:
     """The kernel a call of ``m`` rows a product and weight ``w4`` (G1, G2,
-    C, K) runs: ``tile`` where the caller forces one; else :data:`WGMMA`
-    for a bf16 weight that :func:`tma_suits` at more than
-    :data:`WGMMA_MIN_ROWS` rows, else :func:`default_tile`."""
+    C, K) runs: ``tile`` where the caller forces one; else, for a bf16
+    weight that :func:`tma_suits`, :data:`WGMMA` at more than
+    :data:`WGMMA_MIN_ROWS` rows and :data:`HEADS` at fewer where
+    :func:`heads_suits`; else :func:`default_tile`."""
     if tile:
         return tile
-    if w4.dtype == torch.bfloat16 and m > WGMMA_MIN_ROWS and tma_suits(w4):
-        return WGMMA
+    if w4.dtype == torch.bfloat16:
+        if m > WGMMA_MIN_ROWS:
+            if tma_suits(w4):
+                return WGMMA
+        elif heads_suits(w4):
+            return HEADS
     return default_tile(m)
 
 
@@ -278,17 +312,23 @@ def split_bf16x3(w: torch.Tensor):
 
 
 def _check_operands(packed, w, out_dtype, tile, what):
-    if tile not in (0, *TILES, WGMMA):
+    if tile not in (0, *TILES, WGMMA, HEADS):
         raise ValueError(f"{what}: tile {tile!r} is none of 0 (the rule, "
-                         f"resolve_tile), {sorted(TILES)} and {WGMMA}")
-    if tile == WGMMA:
+                         f"resolve_tile), {sorted(TILES)}, {WGMMA} and "
+                         f"{HEADS}")
+    if tile in (WGMMA, HEADS):
+        kernel = "the wgmma kernel" if tile == WGMMA else "the heads kernel"
         if w.dtype != torch.bfloat16:
-            raise ValueError(f"{what}: tile {WGMMA} (the wgmma kernel) "
-                             f"takes a bfloat16 weight, got {w.dtype}")
+            raise ValueError(f"{what}: tile {tile} ({kernel}) takes a "
+                             f"bfloat16 weight, got {w.dtype}")
         if not tma_suits(_as4(w)):
             raise ValueError(
-                f"{what}: tile {WGMMA} cannot read the weight {tuple(w.shape)}"
+                f"{what}: tile {tile} cannot read the weight {tuple(w.shape)}"
                 f" with strides {w.stride()} by TMA (tma_suits)")
+        if tile == HEADS and not heads_suits(_as4(w)):
+            raise ValueError(
+                f"{what}: tile {HEADS} takes C <= {HEADS_MAX_C} and K <= "
+                f"{HEADS_MAX_K}, got the weight {tuple(w.shape)}")
     if packed.dtype != torch.uint8:
         raise TypeError(f"{what}: packed must be uint8, got {packed.dtype}")
     if packed.ndim != w.ndim or packed.shape[:-2] != w.shape[:-2]:
@@ -310,8 +350,8 @@ def _launch_spike_matmul(packed4: torch.Tensor, w4: torch.Tensor, stream=0,
                          tile: int = 0):
     """packed4 (G1, G2, M, C/8) uint8, w4 (G1, G2, C, K) fp32 or bf16, any
     strides -> out (G1, G2, M, K) in w4's dtype, contiguous; ``tile`` as in
-    :data:`TILES` or :data:`WGMMA`, 0 resolved here by
-    :func:`resolve_tile` (the kernel takes 1, 2 or 3)."""
+    :data:`TILES`, :data:`WGMMA` or :data:`HEADS`, 0 resolved here by
+    :func:`resolve_tile` (the kernel takes 1, 2, 3 or 4)."""
     g1, g2, m, _ = packed4.shape
     c, k = w4.shape[-2:]
     if g1 * g2 > MAX_BATCH:
@@ -337,8 +377,8 @@ def spike_matmul_packed(packed: torch.Tensor, w: torch.Tensor, *,
                         tile: int = 0) -> torch.Tensor:
     """packed: (M, C//8) uint8; w: (C, K) -> (M, K) in ``out_dtype`` (default
     ``w.dtype``). Either operand may be strided; nothing is copied.
-    ``tile`` forces a tile of :data:`TILES` or, at bf16, :data:`WGMMA`
-    (0: :func:`resolve_tile`); the plain version has none."""
+    ``tile`` forces a tile of :data:`TILES` or, at bf16, :data:`WGMMA` or
+    :data:`HEADS` (0: :func:`resolve_tile`); the plain version has none."""
     if packed.ndim != 2:
         raise ValueError(f"spike_matmul_packed expects 2-D operands, got "
                          f"{tuple(packed.shape)}")

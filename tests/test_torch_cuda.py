@@ -297,6 +297,154 @@ def test_the_entry_point_refuses_tile_3_it_cannot_take():
             packed, torch.zeros((512, 64), device="cuda"), tile=3)
 
 
+#: The bf16 heads kernel's cases (plan kernel 4, ``csrc/spike_heads.cuh``):
+#: one unit, ``attn_qk`` at batch 16 (G = 512, the K^T view), M = 1, 17,
+#: 196 and 512 (more than one unit a batch), K = 8, 21, 196, 200 and the
+#: limit 256, C = 8, 24, 64 and the limit 128, both weight layouts, two
+#: batch levels and packed rows at a stride.
+HEADS_CASES = ("one unit", "attn_qk, G = 512", "M = 1, K = 8, C = 8",
+               "M = 17, C = 128, K = 200", "M = 512, K = 256",
+               "ragged, two levels", "n-major, K = 200",
+               "strided packed rows")
+
+
+def _heads_operands(case, rng, make):
+    """Packed spikes and a bf16 weight of ``case`` (``make(shape)`` gives
+    fp32 values) on the card."""
+    def bf(shape):
+        return _t(make(shape)).to("cuda", torch.bfloat16)
+
+    def kt(*shape):             # K^T views of (..., K, C) keys
+        return bf(shape).transpose(-1, -2)
+
+    def pack(shape):
+        return spike_matmul.spike_pack(_t(_spikes(rng, shape, 0.2)).to(
+            "cuda"))
+    if case == "one unit":
+        return pack((196, 64)), kt(196, 64)
+    if case == "attn_qk, G = 512":
+        q = _t(_spikes(rng, (64, 196, 512), 0.2)).to("cuda")
+        k = bf((64, 196, 512))
+        return (spike_matmul.spike_pack(q.view(64, 196, 8, 64).permute(
+            0, 2, 1, 3)), k.view(64, 196, 8, 64).permute(0, 2, 1, 3)
+            .transpose(-1, -2))
+    if case == "M = 1, K = 8, C = 8":
+        return pack((3, 1, 8)), bf((3, 8, 8))
+    if case == "M = 17, C = 128, K = 200":
+        return pack((5, 17, 128)), bf((5, 128, 200))
+    if case == "M = 512, K = 256":
+        return pack((2, 512, 64)), kt(2, 256, 64)
+    if case == "ragged, two levels":
+        return pack((2, 3, 33, 24)), kt(2, 3, 21, 24)
+    if case == "n-major, K = 200":
+        return pack((4, 196, 64)), bf((4, 64, 200))
+    if case == "strided packed rows":
+        return pack((2, 3, 392, 64))[:, :, ::2], kt(2, 3, 196, 64)
+    raise ValueError(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HEADS_CASES)
+def test_heads_spike_matmul_against_its_plain_version_and_oracle(case):
+    """The bf16 heads kernel (plan kernel 4, the wrapper's rule at 512 rows
+    or fewer) on exact weights (k/64, |k| <= 4: every fp32 sum exact) bit
+    for bit equal to its plain version, to ``kernels/ref.py`` and to the
+    Small tile forced (tile 2); on Gaussian weights within one bf16
+    rounding of the plain version (the same exact products summed in
+    another order)."""
+    from repro_torch.kernels import ref
+    _card()
+    rng = np.random.default_rng(38)
+    packed, w = _heads_operands(
+        case, rng, lambda sh: (rng.integers(-4, 5, sh) / 64).astype(
+            np.float32))
+    fn = _mm_of(packed)
+    assert [la.kernel for la in _plan_kernels(fn, packed, w)] == \
+        [spike_matmul.HEADS]
+    got = fn(packed, w)
+    dense = spike_matmul.spike_unpack(packed, torch.float32)
+    oracle = ref.spike_matmul_batched_ref if packed.ndim == 3 else \
+        ref.spike_matmul_ref
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert torch.equal(got, spike_matmul.spike_matmul_packed_plain(packed, w))
+    assert torch.equal(got, oracle(dense, w))
+    assert torch.equal(fn(packed, w, tile=2), got)
+    _, wg = _heads_operands(
+        case, rng, lambda sh: (rng.normal(size=sh) / sh[-2 if len(sh) > 1
+                                                        else 0] ** 0.5
+                               ).astype(np.float32))
+    got = fn(packed, wg).float()
+    want = spike_matmul.spike_matmul_packed_plain(packed, wg).float()
+    assert bool(((got - want).abs() <= 1e-4 + 2.0 ** -7 * want.abs()).all())
+
+
+@pytest.mark.cuda
+def test_the_heads_plan_twin_reports_kernel_4():
+    """``e2a_spike_matmul_plan`` for ``attn_qk`` at bf16: plan kernel 4,
+    512 threads, dynamic shared memory within the card's with the opt-in,
+    one persistent block an SM at most, striding over the 512 units (one a
+    batch: 196 rows fit one unit); at 512 rows of 256 columns a batch
+    takes more than one unit."""
+    _card()
+    rng = np.random.default_rng(2)
+    zeros = lambda sh: np.zeros(sh, np.float32)      # noqa: E731
+    packed, w = _heads_operands("attn_qk, G = 512", rng, zeros)
+    (la,) = _plan_kernels(spike_matmul.spike_matmul_packed_batched, packed,
+                          w)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert la.kernel == spike_matmul.HEADS
+    assert la.block == (512, 1, 1)
+    assert 48 * 1024 < la.smem <= 232448 and la.opt_in
+    assert la.grid == (min(sms, 512), 1, 1)
+    assert la.tile[0] == 1 and la.extent[0] == 512
+    assert la.strided[0] == (sms < 512)
+    packed, w = _heads_operands("M = 512, K = 256", rng, zeros)
+    (la,) = _plan_kernels(spike_matmul.spike_matmul_packed_batched, packed,
+                          w)
+    assert la.kernel == spike_matmul.HEADS and la.extent[0] % 2 == 0
+    assert la.extent[0] // 2 >= 2 and la.smem <= 232448
+
+
+@pytest.mark.cuda
+def test_the_entry_point_refuses_tile_4_it_cannot_take():
+    """``e2a_spike_matmul`` (and its plan twin) refuse tile 4 with an fp32
+    weight, a contraction or a width past the limits, or output rows that
+    are not K contiguous elements (cudaErrorInvalidValue, 1), where tile 2
+    takes the same call: the wrapper raises, and no other kernel runs in
+    its place."""
+    from repro_torch.kernels import build
+    _card()
+    lib = build.load()
+    records = (build.ctypes.c_longlong * (build.MAX_LAUNCHES
+                                           * build.PLAN_FIELDS))()
+    bf = torch.bfloat16
+    packed = torch.zeros((196, 17), dtype=torch.uint8, device="cuda")
+    out = torch.empty((196, 272), dtype=bf, device="cuda")
+    calls = (  # (dtype code, C, weight, output row pitch)
+        (0, 64, torch.zeros((196, 64), device="cuda").t(), 196),
+        (1, 136, torch.zeros((64, 136), dtype=bf, device="cuda").t(), 64),
+        (1, 64, torch.zeros((264, 64), dtype=bf, device="cuda").t(), 264),
+        (1, 64, torch.zeros((196, 64), dtype=bf, device="cuda").t(), 200))
+    for dtype, c, w, o_m in calls:
+        k = w.shape[1]
+        args = (packed.data_ptr(), w.data_ptr(), out.data_ptr(), 1, 1, 196,
+                c, k, 0, 0, 17, 1, 0, 0, *w.stride(), 0, 0, o_m, 1)
+        assert lib.e2a_spike_matmul_plan(*args, 4, dtype, records,
+                                         build.MAX_LAUNCHES) == -1
+        assert lib.e2a_spike_matmul(*args, 4, dtype, 0) == 1
+        assert lib.e2a_spike_matmul_plan(*args, 2, dtype, records,
+                                         build.MAX_LAUNCHES) == 1
+    with pytest.raises(ValueError, match="bfloat16"):
+        spike_matmul.spike_matmul_packed(
+            packed[:, :8], torch.zeros((196, 64), device="cuda").t(),
+            tile=spike_matmul.HEADS)
+    with pytest.raises(ValueError, match="takes C"):
+        spike_matmul.spike_matmul_packed(
+            packed, torch.zeros((64, 136), dtype=bf, device="cuda").t(),
+            tile=spike_matmul.HEADS)
+
+
 @pytest.mark.cuda
 def test_tune_at_the_smoke_preset_on_the_card(tmp_path, monkeypatch):
     """The autotuner on the card: every tunable site of the smoke preset
